@@ -1,0 +1,226 @@
+"""Fused two-stage query: embed -> top-k -> gather -> rerank, on the device.
+
+Port of the flat-tier "full" path of
+``financial_rag_system_tpu/ops/fused_query.py``:
+
+  q_ids --BGE encoder--> qv --masked top-k kernel--> rows
+        --gather of pretokenized chunk ids from the device token store-->
+        pair batch --MiniLM cross-encoder (pair-attention kernel)--> logits
+
+PyTorch runs eagerly, so this is one Python call that queues every stage
+on the device's stream with no host synchronisation in between; the
+caller reads rows, bi scores and logits back once per batch.  The corpus
+side contributes two device tensors: embeddings (N, D) and token ids
+(N, DLEN), so candidate texts never travel to the host for rerank
+tokenization.
+
+Pair layout: [CLS] q (padded to LQ) [SEP] doc [SEP], with the doc segment
+at the fixed offset LQ; with trained weights this shifts doc position ids
+by (LQ - len(q)) versus compact packing.  Pad positions are
+attention-masked, so scores are otherwise exact.  The JAX package rounds
+the pair length up to 128 only when its bundled flash kernel would
+engage; the port has no flash path, so the pair length stays exact.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from financial_rag_system_tpu_torch.models import bert
+from financial_rag_system_tpu_torch.ops.topk import masked_topk
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _prep_queries(qv: torch.Tensor, corpus_dtype: torch.dtype) -> torch.Tensor:
+    """Match query vectors to the corpus representation (a cast; int8
+    corpora are not ported yet)."""
+    return qv.to(corpus_dtype).contiguous()
+
+
+def _embed(embed_model: bert.BertModel, q_ids, q_types, q_mask) -> torch.Tensor:
+    """Stage 1: bi-encoder embedding, CLS pool + L2 norm."""
+    cls = embed_model.encode(q_ids, q_types, q_mask)[:, 0, :]
+    return cls / torch.linalg.norm(cls, dim=-1, keepdim=True).clamp_min(1e-12)
+
+
+def _assemble_pairs(
+    pair_q: torch.Tensor,   # (P, LQ) per-pair query token ids
+    pair_d: torch.Tensor,   # (P, DLEN) per-pair doc token ids
+    *,
+    rerank_cfg: bert.BertConfig,
+):
+    """Lay P (query, doc) token-id pairs out as one padded cross-encoder
+    batch.  Returns int32 (pair_ids, pair_types, pair_mask) of shape
+    (round_up(P, 8), plen)."""
+    p, lq = pair_q.shape
+    dlen = pair_d.shape[1]
+    # first-party trained rerankers carry the length they were trained at
+    # (cfg.max_seq_length): positions past it are random init, so the
+    # pair must not exceed it — trim the doc portion
+    if rerank_cfg.max_seq_length and lq + dlen > rerank_cfg.max_seq_length:
+        dlen = max(8, rerank_cfg.max_seq_length - lq)
+        pair_d = pair_d[:, :dlen]
+    pair_ids = torch.cat([pair_q, pair_d], dim=1).to(torch.int32)
+    pair_types = torch.cat(
+        [torch.zeros_like(pair_q, dtype=torch.int32),
+         torch.ones_like(pair_d, dtype=torch.int32)],
+        dim=1,
+    )
+    pair_mask = (pair_ids != 0).to(torch.int32)
+    # pad the pair batch to a multiple of 8, as the JAX package does:
+    # 480 pairs at B=32, K=15
+    pad = _round_up(p, 8) - p
+    if pad:
+        pair_ids, pair_types, pair_mask = (
+            torch.nn.functional.pad(x, (0, 0, 0, pad))
+            for x in (pair_ids, pair_types, pair_mask)
+        )
+    return pair_ids, pair_types, pair_mask
+
+
+def _pair_head(rerank_model: bert.BertModel, hh: torch.Tensor, p: int) -> torch.Tensor:
+    """Pooler + classifier epilogue over encoded pairs: (P', L, H) CLS
+    slice -> tanh pooler -> 1-logit classifier -> (p,) f32."""
+    return bert.pair_head(rerank_model, hh[:, 0, :])[:p]
+
+
+def _cross_encode_pairs(
+    rerank_model: bert.BertModel,
+    pair_q: torch.Tensor,
+    pair_d: torch.Tensor,
+    *,
+    rerank_cfg: bert.BertConfig,
+) -> torch.Tensor:
+    """Cross-encode P (query, doc) token-id pairs in one forward.
+    Returns (P,) f32 logits; callers mask empty slots."""
+    p = pair_q.shape[0]
+    pair_ids, pair_types, pair_mask = _assemble_pairs(
+        pair_q, pair_d, rerank_cfg=rerank_cfg
+    )
+    hh = rerank_model.encode(pair_ids, pair_types, pair_mask)
+    return _pair_head(rerank_model, hh, p)
+
+
+def _gather_pairs(q_ids: torch.Tensor, rows: torch.Tensor, doc_tokens: torch.Tensor):
+    """Stage 3: candidate token ids from the device token store, laid out
+    as (B*K, LQ) query and (B*K, DLEN) doc ids.  Empty slots (-1) clamp
+    to row 0 and are masked by the caller."""
+    b, lq = q_ids.shape
+    k = rows.shape[1]
+    dtok = doc_tokens[rows.clamp_min(0).long()]  # (B, K, DLEN)
+    pair_q = q_ids[:, None, :].expand(b, k, lq).reshape(b * k, lq)
+    return pair_q, dtok.reshape(b * k, -1)
+
+
+def _mask_empty(logits, rows, bi_scores):
+    # hide rerank logits for empty slots (bi score == -inf or row == -1)
+    keep = torch.isfinite(bi_scores) & (rows >= 0)
+    return torch.where(keep, logits, torch.full_like(logits, float("-inf")))
+
+
+def _cross_rerank(
+    rerank_model: bert.BertModel,
+    q_ids: torch.Tensor,       # (B, LQ)
+    rows: torch.Tensor,        # (B, K) int32 candidate rows (-1 = empty)
+    bi_scores: torch.Tensor,   # (B, K) f32 (-inf = empty)
+    doc_tokens: torch.Tensor,  # (N, DLEN)
+    *,
+    rerank_cfg: bert.BertConfig,
+) -> torch.Tensor:
+    """Stages 3+4: gather candidate token ids on the device and
+    cross-encode all B*K pairs in one forward.  Returns (B, K) logits
+    with empty slots masked to -inf."""
+    b, k = rows.shape
+    pair_q, pair_d = _gather_pairs(q_ids, rows, doc_tokens)
+    logits = _cross_encode_pairs(
+        rerank_model, pair_q, pair_d, rerank_cfg=rerank_cfg
+    ).reshape(b, k)
+    return _mask_empty(logits, rows, bi_scores)
+
+
+@torch.inference_mode()
+def fused_two_stage(
+    embed_model: bert.BertModel,
+    rerank_model: bert.BertModel,
+    q_ids: torch.Tensor,         # (B, LQ) int32, [CLS]...[SEP] + 0-padding
+    q_types: torch.Tensor,       # (B, LQ)
+    q_mask: torch.Tensor,        # (B, LQ)
+    query_filter: torch.Tensor,  # (B, 2) int32
+    corpus_emb: torch.Tensor,    # (N, D) bf16
+    corpus_codes: torch.Tensor,  # (2, N) int32
+    doc_tokens: torch.Tensor,    # (N, DLEN) int32, tokenized [..., SEP], 0-pad
+    n_valid: int,
+    *,
+    rerank_cfg: bert.BertConfig,
+    k: int,
+):
+    """Returns (rows (B,k) int32, bi_scores (B,k) f32, ce_logits (B,k) f32)."""
+    qv = _embed(embed_model, q_ids, q_types, q_mask)
+    q = _prep_queries(qv, corpus_emb.dtype)
+    bi_scores, rows = masked_topk(q, corpus_emb, corpus_codes, query_filter, n_valid, k)
+    logits = _cross_rerank(
+        rerank_model, q_ids, rows, bi_scores, doc_tokens, rerank_cfg=rerank_cfg,
+    )
+    return rows, bi_scores, logits
+
+
+@torch.inference_mode()
+def fused_two_stage_prefix(
+    embed_model: bert.BertModel,
+    rerank_model: bert.BertModel,
+    q_ids: torch.Tensor,
+    q_types: torch.Tensor,
+    q_mask: torch.Tensor,
+    query_filter: torch.Tensor,
+    corpus_emb: torch.Tensor,
+    corpus_codes: torch.Tensor,
+    doc_tokens: torch.Tensor,
+    n_valid: int,
+    *,
+    rerank_cfg: bert.BertConfig,
+    k: int,
+    stop: str = "full",
+):
+    """Telescoping prefixes of :func:`fused_two_stage` for stage
+    attribution: ``"embed"`` returns the (B, D) query vectors;
+    ``"search"`` (rows, bi); ``"gather"`` (rows, a checksum of the
+    gathered pair block); ``"layers"`` (rows, the (B, K) CLS column sum);
+    ``"full"`` the same as :func:`fused_two_stage`.  Each prefix reuses
+    the exact helpers of the full path, so the difference of two
+    consecutive prefixes' times is that stage's cost."""
+    qv = _embed(embed_model, q_ids, q_types, q_mask)
+    if stop == "embed":
+        return qv
+    q = _prep_queries(qv, corpus_emb.dtype)
+    bi, rows = masked_topk(q, corpus_emb, corpus_codes, query_filter, n_valid, k)
+    if stop == "search":
+        return rows, bi
+    b = q_ids.shape[0]
+    pair_q, pair_d = _gather_pairs(q_ids, rows, doc_tokens)
+    pair_ids, pair_types, pair_mask = _assemble_pairs(
+        pair_q, pair_d, rerank_cfg=rerank_cfg
+    )
+    if stop == "gather":
+        chk = (
+            pair_ids[: b * k].reshape(b, -1).sum(dim=1)
+            + pair_types[: b * k].reshape(b, -1).sum(dim=1)
+            + pair_mask[: b * k].reshape(b, -1).sum(dim=1)
+        )
+        return rows, chk
+    hh = rerank_model.encode(pair_ids, pair_types, pair_mask)
+    if stop == "layers":
+        return rows, hh[:, 0, :].sum(dim=-1)[: b * k].reshape(b, k)
+    logits = _pair_head(rerank_model, hh, b * k).reshape(b, k)
+    return rows, bi, _mask_empty(logits, rows, bi)
+
+
+def make_fused_query(rerank_cfg: bert.BertConfig, *, k: int):
+    """:func:`fused_two_stage` with its static arguments bound.  The
+    embedder's config rides on its model; the reranker's is passed for
+    its trained-length hint (``max_seq_length``)."""
+    return functools.partial(fused_two_stage, rerank_cfg=rerank_cfg, k=k)
