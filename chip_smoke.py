@@ -1,9 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--topk-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
 
 Drives ``financial_rag_system_tpu_torch`` end to end on the card, in
-four phases; any failure raises and the script exits non-zero:
+five phases; any failure raises and the script exits non-zero:
 
 0. the card: name, power limit and compute capability (Hopper, 9.0);
 1. build: every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a``
@@ -17,7 +17,20 @@ four phases; any failure raises and the script exits non-zero:
    single asks, two bursts of 32 concurrent asks (one fused batch each)
    and a cache hit,
    with the kernels' launch counts read around the run, then one batch
-   checked against the same pipeline run on the CPU.
+   checked against the same pipeline run on the CPU;
+4. the IVF path (BASELINE config 3): a clustered 1,048,576-row corpus
+   built on the card, ``engine.rebuild_index("ivf")`` (the call behind
+   ``POST /index/rebuild``) with its build time by step, three single
+   asks, two bursts of 32, a rare-ticker ask on the staged path, an
+   upsert and an ask that must find it, and a cache hit, with the launch
+   counts read around the run; then kernel 3 against its plain version on
+   a real batch's probe list, its time beside kernel 1's over the same
+   corpus, the fused batch's recall@15 against the exact flat top-15, a
+   profile of one fused IVF batch, and an IVF index built on the card and
+   loaded on the CPU (65,536 rows) checked against it.
+
+``--topk-baseline`` also builds the ``masked_topk.cu`` of an earlier
+checkout and holds kernel 1 bit for bit against it.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device": ...}``.
@@ -26,6 +39,7 @@ Nothing is fetched; weights and data come from fixed seeds.
 
 from __future__ import annotations
 
+import argparse
 import asyncio
 import json
 import os
@@ -50,6 +64,15 @@ N_TICKERS, DOC_TYPES = 50, ("10-K", "10-Q", "8-K")
 DLEN = 368        # token-store width measured at 1000-character chunks
 PAIRS = B * K     # 480 rerank pairs per fused batch of 32
 SEED = 0
+
+# IVF path: BASELINE config 3, "1M-chunk corpus: HNSW/IVF index build +
+# query kernels on a single chip"
+N_IVF = 1_048_576
+N_TOPICS = 512        # topic centres of the synthetic clustered corpus
+TOPIC_NOISE = 0.3     # a row is normalize(centre + TOPIC_NOISE * g / sqrt(D))
+RARE, RARE_ROWS = "RARE", 1_000   # a selective ticker: staged path
+N_CPU_CHECK = 65_536
+IVF_GEOMETRY = (512, 16, 4096, 32, 16_384)  # clusters, nprobe, c_max, tiles/cluster, tiles
 
 
 def log(*a) -> None:
@@ -142,7 +165,30 @@ def topk_inputs(torch, rng, n_valid):
             torch.tensor(codes, device=dev), torch.tensor(qf, device=dev))
 
 
-def check_topk(torch, np, smi: str) -> dict:
+def check_topk_baseline(torch, args, s, i, csrc: Path) -> None:
+    """Kernel 1 bit for bit against the ``masked_topk.cu`` in ``csrc`` (an
+    earlier checkout's), built with the same flags, on the same inputs."""
+    import ctypes
+
+    from financial_rag_system_tpu_torch.ops import _cuda
+    from financial_rag_system_tpu_torch.ops.topk import masked_topk
+
+    out = _cuda.BUILD_DIR.parent / "torch_kernels_baseline" / "masked_topk.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(out),
+                    str(csrc / "masked_topk.cu")], check=True, timeout=300)
+    current = _cuda.library("masked_topk")
+    _cuda._libs["masked_topk"] = ctypes.CDLL(str(out))
+    try:
+        s0, i0 = (x.cpu().numpy() for x in masked_topk(*args))
+    finally:
+        _cuda._libs["masked_topk"] = current
+    if s0.tobytes() != s.tobytes() or i0.tobytes() != i.tobytes():
+        raise AssertionError(f"top-k differs from the kernel built from {csrc}")
+    log(f"[topk] bit-identical to the kernel built from {csrc}")
+
+
+def check_topk(torch, np, smi: str, baseline: Path | None = None) -> dict:
     from financial_rag_system_tpu_torch.ops.topk import masked_topk, masked_topk_plain
 
     n_valid = N - 100
@@ -150,6 +196,8 @@ def check_topk(torch, np, smi: str) -> dict:
     args = (q, c, codes, qf, n_valid, K)
     s, i = (x.cpu().numpy() for x in masked_topk(*args))
     torch.cuda.synchronize()
+    if baseline is not None:
+        check_topk_baseline(torch, args, s, i, baseline)
     s_ref, i_ref = (x.cpu().numpy() for x in masked_topk_plain(*args))
     fin = np.isfinite(s_ref)
     if not (np.isfinite(s) == fin).all():
@@ -278,6 +326,7 @@ def write_index(torch, np, work: Path) -> None:
 
 
 def drive_main_path(torch, np, work: Path, smi: str) -> dict:
+    from financial_rag_system_tpu_torch.index.ivf import ivf_probe
     from financial_rag_system_tpu_torch.models.tokenizer import pad_batch
     from financial_rag_system_tpu_torch.obs.tracing import get_tracer
     from financial_rag_system_tpu_torch.ops.attention import encoder_self_attention
@@ -339,25 +388,21 @@ def drive_main_path(torch, np, work: Path, smi: str) -> dict:
             await engine.shutdown()
         return answers, repeat
 
-    masked_topk.launches = 0
-    encoder_self_attention.launches = 0
+    for fn in (masked_topk, encoder_self_attention, ivf_probe):
+        fn.launches = 0
     answers, repeat = asyncio.run(scenario())
     launches = {"masked_topk": masked_topk.launches,
-                "pair_attention": encoder_self_attention.launches}
+                "pair_attention": encoder_self_attention.launches,
+                "ivf_probe": ivf_probe.launches}
 
     n_batches = len(batches)
     if [n for n, _ in batches] != [1, 1, 1, B, B]:
         raise AssertionError(f"batch sizes {[n for n, _ in batches]} != [1, 1, 1, {B}, {B}]")
-    if launches["masked_topk"] != n_batches:
+    if launches["masked_topk"] != n_batches or launches["ivf_probe"]:
         raise AssertionError(f"top-k launches {launches} for {n_batches} batches")
     if launches["pair_attention"] != 18 * n_batches:
         raise AssertionError(f"attention launches {launches}: want 18 per fused batch")
-    for a in answers:
-        scores = [s["score"] for s in a["sources"]]
-        if a["cached"] or not 1 <= len(scores) <= 5 or scores != sorted(scores, reverse=True):
-            raise AssertionError(f"bad answer {a}")
-        if not np.isfinite(scores).all():
-            raise AssertionError("non-finite rerank score")
+    check_answers(np, answers, 5)
     if not (repeat["cached"] and repeat["provider"] == "Cache"):
         raise AssertionError("the repeated query was not a cache hit")
 
@@ -368,41 +413,50 @@ def drive_main_path(torch, np, work: Path, smi: str) -> dict:
     log(f"[main] {smi}: launches {launches} over {n_batches} fused batches; pair length "
         f"{lq + DLEN} ({lq} query + {DLEN} doc); batch walls (size, ms) {batches}")
     log(f"[main] {smi}: stage split over all batches: {json.dumps(stage)}")
-    return {"launches": launches, "engine": engine, "burst": burst, "lq": lq}
+    return {"launches": launches, "engine": engine, "singles": singles, "burst": burst,
+            "lq": lq}
 
 
-def fused_inputs(torch, engine, queries, device):
-    """Tokenized batch + filters for ``fused_two_stage``, as the engine
-    builds them (ids padded to the batch and length buckets)."""
+def fused_inputs(torch, engine, queries, device, store=None):
+    """Tokenized batch + filters for the fused pipelines, as the engine
+    builds them (ids padded to the batch and length buckets); filter codes
+    from ``store`` (default: the engine's index's)."""
     from financial_rag_system_tpu_torch.models.tokenizer import pad_batch
 
     tok = engine.embedder.tokenizer
+    store = store or engine.index.store
     ids, types, mask = pad_batch([tok.encode(q, 64) for q, _, _ in queries])
-    codes = [engine.index.store.query_codes(t, d) for _, t, d in queries]
+    codes = [store.query_codes(t, d) for _, t, d in queries]
     qf = torch.tensor(codes + [(-3, -3)] * (ids.shape[0] - len(codes)),
                       dtype=torch.int32, device=device)
     return [torch.as_tensor(a, device=device) for a in (ids, types, mask)] + [qf]
 
 
 def profile_batch(torch, main: dict, smi: str) -> None:
-    """Device time by kernel over one fused batch of 32 (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device time by kernel over one fused flat batch of 32."""
     from financial_rag_system_tpu_torch.ops.fused_query import fused_two_stage
 
     engine = main["engine"]
     emb, codes, dtok = engine.index._arrays
     args = fused_inputs(torch, engine, main["burst"], "cuda")
+    profile_run(torch, lambda: fused_two_stage(
+        engine.embedder.model, engine.reranker.model, *args, emb, codes, dtok, N,
+        rerank_cfg=engine.reranker.cfg, k=K), "fused_two_stage", smi)
+
+
+def profile_run(torch, fn, label: str, smi: str):
+    """Wall time and device time by kernel (torch.profiler) of one call of
+    ``fn`` after a warm-up; returns its output."""
+    from torch.profiler import ProfilerActivity, profile
 
     def run():
-        out = fused_two_stage(engine.embedder.model, engine.reranker.model, *args,
-                              emb, codes, dtok, N, rerank_cfg=engine.reranker.cfg, k=K)
+        out = fn()
         torch.cuda.synchronize()
         return out
 
     run()
     t0 = time.perf_counter()
-    run()
+    out = run()
     wall = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
@@ -416,24 +470,23 @@ def profile_batch(torch, main: dict, smi: str) -> None:
             rows.append((dev_us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
-    log(f"[profile] {smi}: fused_two_stage on {B} queries: wall {wall:.2f} ms, device "
+    log(f"[profile] {smi}: {label} on {B} queries: wall {wall:.2f} ms, device "
         f"{total:.2f} ms in {len(rows)} kernels")
     for ms, count, key in rows[:15]:
         log(f"[profile]   {ms:9.3f} ms  x{count:<4d} {key[:90]}")
+    return out
 
 
-def check_against_cpu(torch, np, main: dict) -> None:
+def check_against_cpu(torch, np, main: dict, cpu_models) -> None:
     """One small fused batch on the card against the same pipeline on the
     CPU (plain attention and top-k), from the same checkpoints and index."""
     from financial_rag_system_tpu_torch.index.flat import FlatIndex
-    from financial_rag_system_tpu_torch.models.embedder import get_embedder
-    from financial_rag_system_tpu_torch.models.reranker import get_reranker
     from financial_rag_system_tpu_torch.ops.fused_query import fused_two_stage
     from financial_rag_system_tpu_torch.utils.config import get_config
 
     engine = main["engine"]
     cpu_index = FlatIndex.load(get_config().index_dir, device="cpu")
-    emb_cpu, rr_cpu = get_embedder(device="cpu"), get_reranker(device="cpu")
+    emb_cpu, rr_cpu = cpu_models
     queries = main["burst"][:2]
     outs = []
     for dev, index, e, r in (("cuda", engine.index, engine.embedder, engine.reranker),
@@ -459,7 +512,353 @@ def check_against_cpu(torch, np, main: dict) -> None:
         f"rows shared {overlap} of {K}, ce err {ce_err:.3g}")
 
 
+# -- phase 4: the IVF path ------------------------------------------------------
+
+
+def clustered_flat(torch, np, n: int, tok, seed: int, dev, plant=None):
+    """A FlatIndex of ``n`` clustered unit rows made on ``dev`` (no host
+    copy of the corpus): N_TOPICS topic centres; N_TICKERS tickers x 3
+    document types drawn evenly, so no ticker is selective; RARE_ROWS rows
+    of the ticker RARE; a DLEN-wide token store of random wordpiece ids.
+    ``plant`` = (query vectors, filters) gives each query K rows at cosines
+    0.90, 0.88, ... under its filter, so its top K stand clear of rounding."""
+    from financial_rag_system_tpu_torch.index.flat import FlatIndex
+    from financial_rag_system_tpu_torch.models.tokenizer import SEP_ID
+
+    normalize = torch.nn.functional.normalize
+    g = torch.Generator(device=dev).manual_seed(seed)
+    flat = FlatIndex(D, capacity=n + 1024, tile=1024, token_store_len=DLEN, tokenizer=tok,
+                     device=dev)
+    emb, codes, dtok = flat._arrays
+    centres = normalize(torch.randn((N_TOPICS, D), generator=g, device=dev), dim=1)
+    cols = torch.arange(DLEN, device=dev)
+    step = 1 << 17
+    for s in range(0, n, step):
+        m = min(step, n - s)
+        topic = torch.randint(0, N_TOPICS, (m,), generator=g, device=dev)
+        x = centres[topic] + TOPIC_NOISE / D**0.5 * torch.randn((m, D), generator=g, device=dev)
+        emb[s : s + m] = normalize(x, dim=1).to(emb.dtype)
+        last = torch.randint(DLEN // 2, DLEN + 1, (m, 1), generator=g, device=dev) - 1
+        wp = torch.randint(1000, 30522, (m, DLEN), generator=g, device=dev, dtype=torch.int32)
+        dtok[s : s + m] = torch.where(cols < last, wp, torch.where(cols == last, SEP_ID, 0))
+    rng = np.random.default_rng(seed)
+    tick = rng.integers(0, N_TICKERS, n)
+    tick[rng.choice(n, RARE_ROWS, replace=False)] = N_TICKERS
+    dtyp = rng.integers(0, len(DOC_TYPES), n)
+    names = [f"T{i:02d}" for i in range(N_TICKERS)] + [RARE]
+    if plant is not None:
+        qv, filters = plant
+        for q, (t, d), rows in zip(qv, filters, rng.choice(n, (len(qv), K), replace=False)):
+            for j, r in enumerate(rows):
+                cos = 0.9 - 0.02 * j
+                noise = rng.standard_normal(D)
+                noise -= (noise @ q) * q
+                v = cos * q + np.sqrt(1 - cos**2) * noise / np.linalg.norm(noise)
+                emb[r] = torch.as_tensor(v, dtype=torch.float32, device=dev).to(emb.dtype)
+                tick[r] = names.index(t)
+                dtyp[r] = dtyp[r] if d is None else DOC_TYPES.index(d)
+    store = flat.store
+    for t in names:
+        store.tickers.encode(t)
+    for d in DOC_TYPES:
+        store.doc_types.encode(d)
+    payloads = [[{"ticker": t, "document_type": d} for d in DOC_TYPES] for t in names]
+    tl, dl = tick.tolist(), dtyp.tolist()
+    store.texts = [f"chunk {r} of {names[t]} {DOC_TYPES[d]}" for r, (t, d) in enumerate(zip(tl, dl))]
+    store.payloads = [payloads[t][d] for t, d in zip(tl, dl)]  # get() copies
+    store.id_to_row = {f"chunk-{r}": r for r in range(n)}
+    codes[:, :n] = torch.as_tensor(np.stack([tick, dtyp]).astype(np.int32), device=dev)
+    return flat
+
+
+def check_answers(np, answers, top_k: int) -> None:
+    for a in answers:
+        scores = [s["score"] for s in a["sources"]]
+        if a["cached"] or not 1 <= len(scores) <= top_k or scores != sorted(scores, reverse=True):
+            raise AssertionError(f"bad answer {a}")
+        if not np.isfinite(scores).all():
+            raise AssertionError("non-finite rerank score")
+
+
+def drive_ivf_path(torch, np, flat_run: dict, smi: str) -> dict:
+    """The IVF tier as users reach it: a 1M-chunk corpus promoted by
+    ``rebuild_index("ivf")``, then asks, an upsert and a cache hit through
+    the batched engine, with every kernel's launches counted around them."""
+    from financial_rag_system_tpu_torch.index.ivf import ivf_probe
+    from financial_rag_system_tpu_torch.ops.attention import encoder_self_attention
+    from financial_rag_system_tpu_torch.ops.topk import masked_topk
+    from financial_rag_system_tpu_torch.serving.engine import RAGEngine
+    from financial_rag_system_tpu_torch.utils.config import get_config
+
+    base = flat_run["engine"]
+    t0 = time.perf_counter()
+    flat = clustered_flat(torch, np, N_IVF, base.embedder.tokenizer, SEED + 2,
+                          torch.device("cuda"))
+    torch.cuda.synchronize()
+    log(f"[ivf] {N_IVF} rows ({N_TOPICS} topics, {N_TICKERS} tickers x {len(DOC_TYPES)} doc "
+        f"types, {RARE_ROWS} rows of {RARE}) made on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    engine = RAGEngine(get_config(), flat, base.embedder, base.reranker)
+    t0 = time.perf_counter()
+    built = engine.rebuild_index("ivf")  # the call behind POST /index/rebuild
+    build_s = time.perf_counter() - t0
+    idx = engine.index
+    geom = (idx.n_clusters, idx.nprobe, idx.c_max, idx.tiles_per_cluster, idx.num_tiles)
+    kind = engine.queue_status()["fused_kind"]
+    if kind != "ivf_full" or geom != IVF_GEOMETRY or built["tail_rows"]:
+        raise AssertionError(f"rebuild_index: {built}, fused_kind {kind!r}, geometry {geom}")
+    split = {k: round(v, 3) for k, v in idx.build_seconds.items()}
+    log(f"[ivf] {smi}: rebuild_index('ivf') {build_s:.2f} s, by step (s) {split}; geometry "
+        f"(clusters, nprobe, c_max, tiles/cluster, tiles) {geom}")
+
+    batches = []  # (size, fused, wall ms)
+    actives = []  # each fused batch's active probed tiles (0-d device tensors)
+    fused_exec, batch_fn = engine._fused_exec, engine.batcher.batch_fn
+
+    def exec_spy(*a):
+        res = fused_exec(*a)
+        if res is not None:
+            actives.append(res[3])
+        return res
+
+    def timed_batch(queries, filters):
+        n0, t0 = len(actives), time.perf_counter()
+        out = batch_fn(queries, filters)
+        batches.append((len(queries), len(actives) > n0,
+                        round((time.perf_counter() - t0) * 1e3, 2)))
+        return out
+
+    engine._fused_exec, engine.batcher.batch_fn = exec_spy, timed_batch
+    engine.llm_semaphore = asyncio.Semaphore(B)
+    singles = [(f"{q} in the filings", t, d) for q, t, d in flat_run["singles"]]
+    burst = flat_run["burst"]
+    fresh = [f"fresh filing note {i}: the board approved a special dividend" for i in range(4)]
+
+    async def scenario():
+        await engine.startup()
+        try:
+            answers = [await engine.ask(q, t, 5, d) for q, t, d in singles]
+            for n in range(2):
+                answers += await asyncio.gather(*[
+                    engine.ask(f"{q} (ivf round {n})", t, 5, d) for q, t, d in burst
+                ])
+            rare = await engine.ask("liquidity risk of the rare issuer", RARE, 5)
+            added = await engine.ingest_chunks(
+                [f"fresh-{i}" for i in range(len(fresh))], fresh,
+                [{"ticker": "T05", "document_type": "10-K"}] * len(fresh),
+            )
+            found = await engine.ask(fresh[0], "T05", K)
+            await asyncio.sleep(0.2)  # write-behind cache saves land
+            repeat = await engine.ask(*singles[0][:2], 5, singles[0][2])
+        finally:
+            await engine.shutdown()
+        return answers, rare, added, found, repeat
+
+    for fn in (masked_topk, encoder_self_attention, ivf_probe):
+        fn.launches = 0
+    answers, rare, added, found, repeat = asyncio.run(scenario())
+    launches = {"masked_topk": masked_topk.launches,
+                "pair_attention": encoder_self_attention.launches,
+                "ivf_probe": ivf_probe.launches}
+
+    shape = [(n, f) for n, f, _ in batches]
+    if shape != [(1, True)] * 3 + [(B, True)] * 2 + [(1, False), (1, True)]:
+        raise AssertionError(f"batches (size, fused) {shape}")
+    n_fused = sum(f for _, f in shape)
+    n_staged = len(shape) - n_fused
+    # one probe per batch (the staged search probes too), kernel 1 on the
+    # staged batch's selective rows, 18 attention launches per batch (12
+    # embed + 6 rerank layers) and 12 for the upsert's embed
+    want = {"masked_topk": n_staged, "pair_attention": 18 * len(shape) + 12,
+            "ivf_probe": n_fused + n_staged}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, want {want}")
+    check_answers(np, answers + [rare], 5)
+    check_answers(np, [found], K)
+    if not all(f" of {RARE} " in s["text"] for s in rare["sources"]):
+        raise AssertionError(f"the {RARE} ask returned other tickers: {rare['sources']}")
+    if added != len(fresh) or idx._tail_rows:
+        raise AssertionError(f"upsert: {added} added, tail {idx._tail_rows[:8]}")
+    if not any(s["text"] in fresh for s in found["sources"]):
+        raise AssertionError("the ask after the upsert did not find the upserted rows")
+    if not (repeat["cached"] and repeat["provider"] == "Cache"):
+        raise AssertionError("the repeated query was not a cache hit")
+    active = [int(a) for a in actives]
+    log(f"[ivf] {smi}: launches {launches} over {n_fused} fused and {n_staged} staged "
+        f"batches; batch walls (size, fused, ms) {batches}; active tiles per fused batch "
+        f"{active}")
+    return {"engine": engine, "burst": burst, "launches": launches}
+
+
+def recall_at_k(np, rows, exact_s, exact_rows) -> list[float]:
+    """Per query: the share of the exact top-k (its finite slots) in ``rows``."""
+    out = []
+    for r, s_e, r_e in zip(rows, exact_s.cpu().numpy(), exact_rows.cpu().numpy()):
+        want = set(r_e[np.isfinite(s_e)].tolist())
+        out.append(len(want & set(r.tolist())) / max(1, len(want)))
+    return out
+
+
+def check_ivf_kernel(torch, np, ivf_run: dict, smi: str) -> dict:
+    """Kernel 3 against its plain version on the probe list of a real batch
+    of 32 over the 1M packing; its time beside kernel 1's over the same
+    corpus, there and on a diverse batch's list; the fused IVF batch's
+    recall@15 against the exact flat top-15, and its profile."""
+    from financial_rag_system_tpu_torch.index.ivf import ivf_probe, ivf_probe_plain
+    from financial_rag_system_tpu_torch.ops import fused_query as fq
+    from financial_rag_system_tpu_torch.ops.topk import masked_topk
+
+    engine = ivf_run["engine"]
+    idx = engine.index
+    tile = idx.tile
+    centroids, packed_emb, packed_codes, packed_gids = idx._state[:4]
+    emb, codes, dtok = idx.flat._arrays
+    nv = idx.n_valid
+    ids, types, mask, qf = fused_inputs(torch, engine, ivf_run["burst"], "cuda")
+    with torch.inference_mode():
+        q = fq._prep_queries(fq._embed(engine.embedder.model, ids, types, mask),
+                             packed_emb.dtype)
+
+    def probe_list(queries):
+        return fq._probe_tiles(queries, centroids, nprobe=idx.nprobe,
+                               tiles_per_cluster=idx.tiles_per_cluster,
+                               num_tiles=idx.num_tiles)
+
+    tile_ids = probe_list(q)
+    n_act = int((tile_ids >= 0).sum())
+
+    # the real batch, with one query set on a row duplicated into another
+    # probed tile, its packed order the reverse of its gid order
+    act = tile_ids[tile_ids >= 0].long()
+    pos = (act[:, None] * tile + torch.arange(tile, device=act.device)).reshape(-1)
+    pos = pos[packed_gids[0, pos] >= 0]
+    p1, p2 = int(pos[0]), int(pos[-1])
+    pe, pg = packed_emb.clone(), packed_gids.clone()
+    pe[p2] = pe[p1]
+    hi, lo = sorted((int(pg[0, p1]), int(pg[0, p2])), reverse=True)
+    pg[0, p1], pg[0, p2] = hi, lo
+    qt, qft = q.clone(), qf.clone()
+    qt[1], qft[1] = pe[p1], -1
+    args = (qt, qft, pe, packed_codes, pg, tile_ids, K)
+    s, i = (x.cpu().numpy() for x in ivf_probe(*args, tile=tile))
+    torch.cuda.synchronize()
+    s_ref, i_ref = (x.cpu().numpy() for x in ivf_probe_plain(*args, tile=tile))
+    del pe, pg
+    fin = np.isfinite(s_ref)
+    if not (np.isfinite(s) == fin).all() or not (i[~fin] == -1).all():
+        raise AssertionError("ivf_probe: empty slots differ from the plain version")
+    err = float(np.abs(s[fin] - s_ref[fin]).max())
+    if err > 1e-4:
+        raise AssertionError(f"ivf_probe scores differ by {err} > 1e-4")
+    # both order by (score desc, packed position asc): the ids must agree
+    # wherever the score is finite, near-equal scores included
+    if not (i[fin] == i_ref[fin]).all():
+        raise AssertionError("ivf_probe ids differ from the plain version")
+    if not ((i[1, 0], i[1, 1]) == (hi, lo) and s[1, 0] == s[1, 1]
+            and (i_ref[1, 0], i_ref[1, 1]) == (hi, lo)):
+        raise AssertionError("duplicated rows must tie, lower packed position first")
+    log(f"[ivf_probe] B={B} tiles {n_act} active of {tile_ids.numel()}: max_abs_err "
+        f"{err:.3g}; ids identical where finite: True; tie by packed position: True")
+
+    # times on the real batch's list and on a diverse batch's (queries
+    # near 32 random corpus rows), each beside kernel 1 over the 1M corpus
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    near = emb[torch.randint(0, nv, (B,), generator=g, device="cuda")].float()
+    qd = torch.nn.functional.normalize(
+        near + 0.1 / D**0.5 * torch.randn((B, D), generator=g, device="cuda"), dim=1
+    ).to(packed_emb.dtype)
+    flat_bytes = nv * (2 * D + 8) + B * D * 2 + B * 8 + B * K * 8
+    flat_b = bound_ms(flat_bytes, 2.0 * B * nv * D)[0]
+    out = {}
+    for name, qq in (("real", q), ("diverse", qd)):
+        tl = tile_ids if name == "real" else probe_list(qq)
+        act = tl[tl >= 0].long()
+        a = act.numel()
+        # the function must read every active slot's gid, and the row and
+        # codes of each live (gid >= 0) slot
+        live = int((packed_gids[0, act[:, None] * tile + torch.arange(tile, device=act.device)]
+                    >= 0).sum())
+        real = (qq, qf, packed_emb, packed_codes, packed_gids, tl, K)
+        ms = median_ms(lambda: ivf_probe(*real, tile=tile), reps=50)
+        plain_ms = median_ms(lambda: ivf_probe_plain(*real, tile=tile), reps=10)
+        flat_ms = median_ms(lambda: masked_topk(qq, emb, codes, qf, nv, K), reps=50)
+        nbytes = (a * tile * 4 + live * (2 * D + 8) + B * D * 2 + B * 8 + tl.numel() * 4
+                  + B * K * 8)
+        b_ms, b_by = bound_ms(nbytes, 2.0 * B * live * D)
+        rows_i = ivf_probe(*real, tile=tile)[1].cpu().numpy()
+        recall = np.mean(recall_at_k(np, rows_i, *masked_topk(qq, emb, codes, qf, nv, K)))
+        log(f"[ivf_probe] {smi}: {name} batch of {B}: {a} active tiles of {tl.numel()} "
+            f"({a * tile} slots, {live} live); kernel 3 {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}); kernel 1 over {nv} flat rows {flat_ms:.4f} ms, bound "
+            f"{flat_b:.4f} ms; probe recall@{K} against flat {recall:.4f}")
+        out[name] = (ms, plain_ms, b_ms, b_by)
+    ms, plain_ms, b_ms, b_by = out["real"]
+
+    # the fused IVF batch of 32: profile, then recall@15 against flat
+    fused = engine._fused_fn
+    rows, bi, _, act_t = profile_run(torch, lambda: fused(
+        engine.embedder.model, engine.reranker.model, ids, types, mask, qf,
+        centroids, packed_emb, packed_codes, packed_gids, dtok), "fused_ivf_two_stage", smi)
+    hits = recall_at_k(np, rows.cpu().numpy(), *masked_topk(q, emb, codes, qf, nv, K))
+    recall = float(np.mean(hits))
+    log(f"[ivf] {smi}: fused IVF batch of {B} ({int(act_t)} active tiles): recall@{K} "
+        f"against the exact flat top-{K} {recall:.4f} (lowest query {min(hits):.4f})")
+    if recall < 0.9:
+        raise AssertionError(f"IVF recall@{K} {recall} < 0.9")
+    return {
+        "name": "ivf_probe", "route": "cuda",
+        "source": f"{PACKAGE}/csrc/ivf_probe.cu",
+        "replaces": "financial_rag_system_tpu/index/ivf.py:99",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+
+
+def check_ivf_against_cpu(torch, np, flat_run: dict, work: Path, cpu_models) -> None:
+    """An IVF index built on the card (N_CPU_CHECK rows) and saved, loaded
+    on the CPU from the same files: one fused IVF batch agrees."""
+    from financial_rag_system_tpu_torch.index.flat import FlatIndex
+    from financial_rag_system_tpu_torch.index.ivf import IVFIndex
+    from financial_rag_system_tpu_torch.ops.fused_query import make_fused_ivf_query
+
+    engine = flat_run["engine"]
+    queries = flat_run["burst"][:2]
+    qv = engine.embedder.encode([q for q, _, _ in queries])
+    flat = clustered_flat(torch, np, N_CPU_CHECK, engine.embedder.tokenizer, SEED + 3,
+                          torch.device("cuda"), plant=(qv, [(t, d) for _, t, d in queries]))
+    card = IVFIndex(flat, tile=128)
+    directory = str(work / "ivf_small")
+    card.save(directory)
+    cpu = IVFIndex.load(directory, FlatIndex.load(directory, device="cpu"))
+    outs = []
+    for dev, idx, (e, r) in (("cuda", card, (engine.embedder, engine.reranker)),
+                             ("cpu", cpu, cpu_models)):
+        fn = make_fused_ivf_query(r.cfg, k=K, tile=idx.tile, nprobe=idx.nprobe,
+                                  tiles_per_cluster=idx.tiles_per_cluster)
+        out = fn(e.model, r.model, *fused_inputs(torch, engine, queries, dev, store=idx.store),
+                 *idx._state[:4], idx.flat._arrays[2])
+        outs.append([x.cpu().numpy()[: len(queries)] for x in out[:3]])
+    (rows_g, bi_g, ce_g), (rows_c, bi_c, ce_c) = outs
+    if not (rows_g == rows_c).all():
+        raise AssertionError(f"IVF card vs CPU: rows differ\n{rows_g}\n{rows_c}")
+    fin = np.isfinite(bi_c)
+    bi_err = float(np.abs(bi_g[fin] - bi_c[fin]).max())
+    ce_err = float(np.abs(ce_g[fin] - ce_c[fin]).max())
+    if bi_err > 2e-3 or ce_err > 5e-2:
+        raise AssertionError(f"IVF card vs CPU: bi err {bi_err}, ce err {ce_err}")
+    log(f"[ivf] card vs CPU, {N_CPU_CHECK} rows ({card.n_clusters} clusters, nprobe "
+        f"{card.nprobe}), {len(queries)} queries: the same {fin.sum()} rows, bi err "
+        f"{bi_err:.3g}, ce err {ce_err:.3g}")
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--topk-baseline", type=Path, default=None, metavar="CSRC",
+        help="csrc/ directory of an earlier checkout: hold kernel 1 bit for bit "
+             "against its masked_topk.cu",
+    )
+    opts = parser.parse_args()
     try:
         import torch
     except ImportError:
@@ -477,7 +876,7 @@ def main() -> int:
 
     smi = phase_card()
     phase_build()
-    kernels = [check_topk(torch, np, smi), check_attention(torch, np, smi)]
+    kernels = [check_topk(torch, np, smi, opts.topk_baseline), check_attention(torch, np, smi)]
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         t0 = time.perf_counter()
@@ -485,14 +884,25 @@ def main() -> int:
         write_index(torch, np, work)
         log(f"[main] checkpoints and index written in {time.perf_counter() - t0:.1f} s")
         main_run = drive_main_path(torch, np, work, smi)
-        check_against_cpu(torch, np, main_run)
+        from financial_rag_system_tpu_torch.models.embedder import get_embedder
+        from financial_rag_system_tpu_torch.models.reranker import get_reranker
+
+        cpu_models = (get_embedder(device="cpu"), get_reranker(device="cpu"))
+        check_against_cpu(torch, np, main_run, cpu_models)
         profile_batch(torch, main_run, smi)
+        t0 = time.perf_counter()
+        ivf_run = drive_ivf_path(torch, np, main_run, smi)
+        kernels.append(check_ivf_kernel(torch, np, ivf_run, smi))
+        check_ivf_against_cpu(torch, np, main_run, work, cpu_models)
+        log(f"[ivf] phase 4 took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    # launches over the two main paths, each counted from 0 around its run
     for kern in kernels:
-        kern["launches"] = main_run["launches"][kern["name"]]
+        name = kern["name"]
+        kern["launches"] = main_run["launches"][name] + ivf_run["launches"][name]
         if kern["launches"] < 1:
-            raise AssertionError(f"{kern['name']} never launched on the main path")
+            raise AssertionError(f"{name} never launched on the main paths")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))

@@ -1,0 +1,196 @@
+// Pieces shared by the two masked top-k kernels: masked_topk.cu (kernel 1,
+// a contiguous corpus) and ivf_probe.cu (kernel 3, the probed tiles of the
+// IVF packing).  Both run the same two passes:
+//  - pass 1: a block stages 32 queries in shared memory, streams 64-row
+//    tiles of corpus rows (16-byte coalesced loads), scores each tile on
+//    the tensor cores (mma.sync m16n8k16, bf16 in, f32 sums; one 32-query
+//    x 8-row slice a warp), then each lane takes one query, masks its
+//    warp's 8 rows and inserts them into a best list kept in registers;
+//    the 8 warps' lists merge in shared memory into a (B, splits, K)
+//    partial;
+//  - pass 2, one warp per query: K rounds of a warp arg-max over the
+//    splits*K candidates, each round taking the best candidate that ranks
+//    after the last one taken.
+// Candidates are ordered by (score desc, id asc); the id is the row for
+// kernel 1 and the packed position for kernel 3, which maps it to a row
+// id only at the end of pass 2.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace topk {
+
+constexpr int kQB = 32;      // queries per block: two m16 tiles, lane = query
+constexpr int kWarps = 8;    // 256 threads, one n8 slice of the tile each
+constexpr int kTile = 64;    // corpus rows per shared-memory tile
+constexpr int kMaxK = 32;    // per-query list kept by pass 1 (>= k)
+constexpr int kMaxD = 1024;
+constexpr int kNoId = 0x7fffffff;
+
+// (s1, i1) ranks before (s2, i2): higher score, then lower id
+__device__ __forceinline__ bool before(float s1, int i1, float s2, int i2) {
+  return s1 > s2 || (s1 == s2 && i1 < i2);
+}
+
+// Insert (s, id) into a sorted register list if it ranks before the last
+// entry.  Fully unrolled, so the list stays in registers.
+__device__ __forceinline__ bool insert(float (&ls)[kMaxK], int (&li)[kMaxK], float s, int id) {
+  if (!before(s, id, ls[kMaxK - 1], li[kMaxK - 1])) return false;
+  ls[kMaxK - 1] = s;
+  li[kMaxK - 1] = id;
+#pragma unroll
+  for (int p = kMaxK - 1; p > 0; --p) {
+    if (before(ls[p], li[p], ls[p - 1], li[p - 1])) {
+      const float ts = ls[p]; ls[p] = ls[p - 1]; ls[p - 1] = ts;
+      const int ti = li[p]; li[p] = li[p - 1]; li[p - 1] = ti;
+    }
+  }
+  return true;
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Shared-memory layout of pass 1.  Rows of bf16 pairs are padded by 4
+// words: (D/2 + 4) is 4 mod 8 words, so the fragment loads of 8 rows x 4
+// words hit 32 distinct banks.
+struct Smem {
+  uint32_t* qs;     // [kQB][stride] the query block
+  uint32_t* ct;     // [kTile][stride] the corpus tile
+  float* sc;        // [kQB][kTile + 1] the tile's scores
+  int32_t* tcodes;  // [3][kTile] ticker codes, doc-type codes, ids
+  float* ms;        // [kQB][kMaxK] a warp's lists, for the block merge
+  int32_t* mi;      // [kQB][kMaxK]
+  int stride;
+};
+
+__host__ __device__ inline size_t smem_bytes(int D) {
+  return sizeof(uint32_t) * (size_t)(kQB + kTile) * (D / 2 + 4) +
+         sizeof(float) * kQB * (kTile + 1) + sizeof(int32_t) * 3 * kTile +
+         (sizeof(float) + sizeof(int32_t)) * kQB * kMaxK;
+}
+
+__device__ __forceinline__ Smem carve(uint32_t* base, int D) {
+  Smem m;
+  m.stride = D / 2 + 4;
+  m.qs = base;
+  m.ct = m.qs + kQB * m.stride;
+  m.sc = reinterpret_cast<float*>(m.ct + kTile * m.stride);
+  m.tcodes = reinterpret_cast<int32_t*>(m.sc + kQB * (kTile + 1));
+  m.ms = reinterpret_cast<float*>(m.tcodes + 3 * kTile);
+  m.mi = reinterpret_cast<int32_t*>(m.ms + kQB * kMaxK);
+  return m;
+}
+
+// Copy rows [0, nrows) of a row-major bf16 matrix into a padded shared
+// tile of `rows` rows, zero-filling the rest.
+__device__ __forceinline__ void stage_rows(uint32_t* dst, const __nv_bfloat16* src,
+                                           int rows, int nrows, int D, int stride) {
+  const int vecs = D / 8;  // 16-byte chunks a row
+  const uint4* s16 = reinterpret_cast<const uint4*>(src);
+  for (int i = threadIdx.x; i < rows * vecs; i += blockDim.x) {
+    const int r = i / vecs, c = i % vecs;
+    *reinterpret_cast<uint4*>(dst + r * stride + c * 4) =
+        (r < nrows) ? s16[(size_t)r * vecs + c] : make_uint4(0, 0, 0, 0);
+  }
+}
+
+// (32 queries) x (this warp's 8 rows) scores on the tensor cores, into
+// m.sc.  The caller synchronises the block before (tile staged) and the
+// warp after (scores written).
+__device__ __forceinline__ void score_tile(const Smem& m, int D, int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = warp * 8;
+  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  const uint32_t* crow = m.ct + (n0 + g) * m.stride + t;
+  const uint32_t* qa = m.qs + g * m.stride + t;
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int w = kk * 8;
+    const uint32_t b0 = crow[w], b1 = crow[w + 4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const uint32_t* qm = qa + mt * 16 * m.stride + w;
+      mma_bf16(acc[mt], qm[0], qm[8 * m.stride], qm[4], qm[8 * m.stride + 4], b0, b1);
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    float* s0 = m.sc + (mt * 16 + g) * (kTile + 1) + n0 + t * 2;
+    float* s8 = s0 + 8 * (kTile + 1);
+    s0[0] = acc[mt][0];
+    s0[1] = acc[mt][1];
+    s8[0] = acc[mt][2];
+    s8[1] = acc[mt][3];
+  }
+}
+
+// Merge the warps' lists into warp 0's, one warp at a time.
+__device__ __forceinline__ void merge_warp_lists(const Smem& m, float (&ls)[kMaxK],
+                                                 int (&li)[kMaxK], int warp, int lane) {
+  for (int w = 1; w < kWarps; ++w) {
+    __syncthreads();
+    if (warp == w) {
+#pragma unroll
+      for (int j = 0; j < kMaxK; ++j) { m.ms[lane * kMaxK + j] = ls[j]; m.mi[lane * kMaxK + j] = li[j]; }
+    }
+    __syncthreads();
+    if (warp == 0) {
+      for (int j = 0; j < kMaxK; ++j) {
+        // entries arrive sorted: once one fails to enter, the rest do too
+        if (!insert(ls, li, m.ms[lane * kMaxK + j], m.mi[lane * kMaxK + j])) break;
+      }
+    }
+  }
+}
+
+// Pass 2.  id_map, when not null, maps each winning id to the id written
+// out (kernel 3: packed position -> row id); empty slots are -inf / -1.
+__global__ void merge_kernel(const float* __restrict__ part_s,
+                             const int32_t* __restrict__ part_i, int n_cand, int k,
+                             const int32_t* __restrict__ id_map,
+                             float* __restrict__ out_s, int32_t* __restrict__ out_i) {
+  const int qi = blockIdx.x, lane = threadIdx.x;
+  const float* ps = part_s + (size_t)qi * n_cand;
+  const int32_t* pi = part_i + (size_t)qi * n_cand;
+  float last_s = INFINITY;
+  int last_i = -1;
+  for (int j = 0; j < k; ++j) {
+    float bs = -INFINITY;
+    int bi = kNoId;
+    for (int c = lane; c < n_cand; c += 32) {
+      const float s = ps[c];
+      const int id = pi[c];
+      if (s > -INFINITY && before(last_s, last_i, s, id) && before(s, id, bs, bi)) {
+        bs = s;
+        bi = id;
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float os = __shfl_xor_sync(0xffffffffu, bs, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+      if (before(os, oi, bs, bi)) { bs = os; bi = oi; }
+    }
+    if (lane == 0) {
+      out_s[(size_t)qi * k + j] = bs;
+      out_i[(size_t)qi * k + j] =
+          bs > -INFINITY ? (id_map != nullptr ? id_map[bi] : bi) : -1;
+    }
+    last_s = bs;
+    last_i = bi;
+  }
+}
+
+}  // namespace topk

@@ -2,9 +2,10 @@
 
 Every ``csrc/*.cu`` file has a plain C interface and compiles on its own
 with ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/<name>.so`` at
-the repo root; the wrappers in ``ops/`` load them with ``ctypes``.  All
-sources compile in parallel, one ``nvcc`` process each, and a library
-newer than its source is reused.  Nothing here runs at import: the CPU
+the repo root; the wrappers in ``ops/`` and ``index/`` load them with
+``ctypes``.  All sources compile in parallel, one ``nvcc`` process each,
+and a library newer than its source and every ``csrc/*.cuh`` header is
+reused.  Nothing here runs at import: the CPU
 tests import every module of the port on a machine without ``nvcc``.
 """
 
@@ -43,10 +44,13 @@ def build_all() -> float:
     """Compile every stale ``csrc/*.cu`` in parallel; returns seconds spent."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # every source includes the shared headers: a newer header rebuilds all
+    headers = max((h.stat().st_mtime for h in CSRC_DIR.glob("*.cuh")), default=0.0)
     procs = []
     for src in sorted(CSRC_DIR.glob("*.cu")):
         out = BUILD_DIR / f"{src.stem}.so"
-        if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+        newest = max(src.stat().st_mtime, headers)
+        if out.exists() and out.stat().st_mtime >= newest:
             continue
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
         procs.append((src.name, subprocess.Popen(

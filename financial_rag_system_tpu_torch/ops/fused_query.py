@@ -1,9 +1,12 @@
 """Fused two-stage query: embed -> top-k -> gather -> rerank, on the device.
 
-Port of the flat-tier "full" path of
-``financial_rag_system_tpu/ops/fused_query.py``:
+Port of the full-model-stack paths of
+``financial_rag_system_tpu/ops/fused_query.py``, the flat tier
+(:func:`fused_two_stage`, ``fused_kind == "full"``) and the IVF tier
+(:func:`fused_ivf_two_stage`, ``"ivf_full"``):
 
-  q_ids --BGE encoder--> qv --masked top-k kernel--> rows
+  q_ids --BGE encoder--> qv --masked top-k kernel (flat) or centroid
+        probe + probed-tiles kernel (IVF)--> rows
         --gather of pretokenized chunk ids from the device token store-->
         pair batch --MiniLM cross-encoder (pair-attention kernel)--> logits
 
@@ -28,6 +31,7 @@ import functools
 
 import torch
 
+from financial_rag_system_tpu_torch.index.ivf import ivf_probe, probe_tile_list
 from financial_rag_system_tpu_torch.models import bert
 from financial_rag_system_tpu_torch.ops.topk import masked_topk
 
@@ -224,3 +228,80 @@ def make_fused_query(rerank_cfg: bert.BertConfig, *, k: int):
     embedder's config rides on its model; the reranker's is passed for
     its trained-length hint (``max_seq_length``)."""
     return functools.partial(fused_two_stage, rerank_cfg=rerank_cfg, k=k)
+
+
+# ---------------------------------------------------------------------------
+# fused IVF tier: embed -> centroid probe -> probed-tiles kernel -> rerank
+# ---------------------------------------------------------------------------
+
+
+def _probe_tiles(
+    q: torch.Tensor,           # (B, D) corpus-representation queries
+    centroids: torch.Tensor,   # (K_cl, D)
+    *,
+    nprobe: int,
+    tiles_per_cluster: int,
+    num_tiles: int,
+) -> torch.Tensor:
+    """Batch-union probed tile ids, -1 padded to the budget the batch
+    size fixes — the same list ``IVFIndex.search_device`` probes."""
+    budget = min(num_tiles, q.shape[0] * nprobe * tiles_per_cluster)
+    return probe_tile_list(
+        q, centroids, nprobe=nprobe, tpc=tiles_per_cluster, budget=budget
+    )
+
+
+@torch.inference_mode()
+def fused_ivf_two_stage(
+    embed_model: bert.BertModel,
+    rerank_model: bert.BertModel,
+    q_ids: torch.Tensor,         # (B, LQ) int32
+    q_types: torch.Tensor,       # (B, LQ)
+    q_mask: torch.Tensor,        # (B, LQ)
+    query_filter: torch.Tensor,  # (B, 2) int32
+    centroids: torch.Tensor,     # (K_cl, D)
+    packed_emb: torch.Tensor,    # (K_cl*C_max, D) cluster-major packing
+    packed_codes: torch.Tensor,  # (2, K_cl*C_max)
+    packed_gids: torch.Tensor,   # (1, K_cl*C_max) original row ids, -1 pad
+    doc_tokens: torch.Tensor,    # (N, DLEN) flat-index token store
+    *,
+    rerank_cfg: bert.BertConfig,
+    k: int,
+    tile: int,
+    nprobe: int,
+    tiles_per_cluster: int,
+):
+    """The sub-linear twin of :func:`fused_two_stage`: the flat masked
+    top-k is replaced by centroid probing and the probed-tiles kernel
+    (index/ivf.py), queued on the device with no host sync.  Returns
+    (rows, bi, ce, active_tiles): ``active_tiles`` is the 0-d int32 count
+    of probed tiles, for the caller's one readback."""
+    qv = _embed(embed_model, q_ids, q_types, q_mask)
+    q = _prep_queries(qv, packed_emb.dtype)
+    tile_ids = _probe_tiles(
+        q, centroids, nprobe=nprobe, tiles_per_cluster=tiles_per_cluster,
+        num_tiles=packed_emb.shape[0] // tile,
+    )
+    bi_scores, rows = ivf_probe(
+        q, query_filter, packed_emb, packed_codes, packed_gids, tile_ids, k,
+        tile=tile,
+    )
+    logits = _cross_rerank(
+        rerank_model, q_ids, rows, bi_scores, doc_tokens, rerank_cfg=rerank_cfg,
+    )
+    return rows, bi_scores, logits, (tile_ids >= 0).sum().to(torch.int32)
+
+
+def make_fused_ivf_query(
+    rerank_cfg: bert.BertConfig,
+    *,
+    k: int,
+    tile: int,
+    nprobe: int,
+    tiles_per_cluster: int,
+):
+    """:func:`fused_ivf_two_stage` with the IVF geometry bound."""
+    return functools.partial(
+        fused_ivf_two_stage, rerank_cfg=rerank_cfg, k=k, tile=tile,
+        nprobe=nprobe, tiles_per_cluster=tiles_per_cluster,
+    )

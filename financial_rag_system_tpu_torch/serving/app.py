@@ -1,14 +1,18 @@
 """HTTP serving shell (aiohttp) and the default engine wiring.
 
 Port of ``financial_rag_system_tpu/serving/app.py`` for the single-device
-flat tier.  Endpoints and semantics follow the reference's FastAPI
-surface:
+flat and IVF tiers.  Endpoints and semantics follow the reference's
+FastAPI surface:
 
 - ``POST /ask``       {query, ticker, document_type?, top_k=5} -> answer doc
 - ``POST /embed``     {texts: [...]} -> {embeddings: [[...]]}
 - ``POST /feedback``  {query_hash, rating} -> {status: ok}
 - ``DELETE /cache/clear/{ticker}`` -> {cleared_entries: N}
-- ``POST /index/upsert``, ``POST /index/save``
+- ``POST /index/upsert``, ``POST /index/save`` (the active tier's files;
+  other tiers' files in ``INDEX_DIR`` are deleted)
+- ``POST /index/rebuild`` {tier?: "ivf"} -> promote to / rebuild the IVF
+  tier (400 on a bad body or an unknown tier, 501 for "hnsw", which is
+  not ported)
 - ``GET /health`` ``/ready`` ``/queue_status`` ``/metrics`` ``/traces``
 
 Validation uses pydantic and returns 422 on schema errors.  ``aiohttp``
@@ -24,9 +28,16 @@ import os
 
 import torch
 
+from financial_rag_system_tpu_torch.index.ivf import IVFIndex
 from financial_rag_system_tpu_torch.obs.tracing import get_tracer
 from financial_rag_system_tpu_torch.serving.engine import RAGEngine
 from financial_rag_system_tpu_torch.utils.device import resolve_device
+
+# tier files the JAX package may also have written to INDEX_DIR: a save
+# deletes those that do not describe the saved tier, so a restart (of
+# either package) never pairs them with a newer corpus
+HNSW_GRAPH_FILE = "hnsw_graph.npz"
+SHARDED_FILES = ("sharded_index.npz", "sharded_hnsw_graph.npz")
 
 
 def _models():
@@ -125,8 +136,37 @@ def create_app(engine: RAGEngine):
 
     async def index_save(request: web.Request) -> web.Response:
         directory = engine.cfg.index_dir
-        await asyncio.to_thread(engine.index.save, directory)
+        idx = engine.index
+        await asyncio.to_thread(idx.save, directory)
+        stale = [*SHARDED_FILES, HNSW_GRAPH_FILE]
+        if not isinstance(idx, IVFIndex):
+            stale.append(IVFIndex.IVF_FILE)
+        for fname in stale:
+            path = os.path.join(directory, fname)
+            if os.path.exists(path):
+                os.unlink(path)
         return web.json_response({"saved_to": directory})
+
+    async def index_rebuild(request: web.Request) -> web.Response:
+        tier = None
+        if request.can_read_body and await request.read():
+            try:
+                body = await request.json()
+                tier = body.get("tier")
+            except (json.JSONDecodeError, AttributeError):
+                return web.json_response(
+                    {"detail": "body must be a JSON object"}, status=400
+                )
+        if tier is not None and tier not in ("ivf", "hnsw"):
+            return web.json_response(
+                {"detail": f"unknown tier {tier!r}; expected ivf|hnsw"},
+                status=400,
+            )
+        try:
+            out = await asyncio.to_thread(engine.rebuild_index, tier)
+        except NotImplementedError as exc:
+            return web.json_response({"detail": str(exc)}, status=501)
+        return web.json_response(out)
 
     async def health(request: web.Request) -> web.Response:
         return web.json_response({"status": "ok"})
@@ -152,6 +192,7 @@ def create_app(engine: RAGEngine):
             web.delete("/cache/clear/{ticker}", clear_cache),
             web.post("/index/upsert", index_upsert),
             web.post("/index/save", index_save),
+            web.post("/index/rebuild", index_rebuild),
             web.get("/health", health),
             web.get("/ready", ready),
             web.get("/queue_status", queue_status),
@@ -165,9 +206,10 @@ def create_app(engine: RAGEngine):
 def build_default_engine(
     mode: str = "batched", device: str | torch.device = "cuda"
 ) -> RAGEngine:
-    """Wire an engine from env config on one device: the persisted flat
-    index in ``INDEX_DIR`` if there is one, else an empty flat index.
-    Models come from ``RAG_TPU_BGE_DIR`` / ``RAG_TPU_RERANKER_DIR``."""
+    """Wire an engine from env config on one device: the persisted index
+    in ``INDEX_DIR`` if there is one (flat, promoted to the IVF tier when
+    an ``ivf_index.npz`` that covers it is there), else an empty flat
+    index.  Models come from ``RAG_TPU_BGE_DIR`` / ``RAG_TPU_RERANKER_DIR``."""
     from financial_rag_system_tpu_torch.index.flat import FlatIndex
     from financial_rag_system_tpu_torch.models.embedder import get_embedder
     from financial_rag_system_tpu_torch.models.reranker import get_reranker
@@ -187,6 +229,13 @@ def build_default_engine(
     tok = embedder.tokenizer
     if os.path.exists(os.path.join(cfg.index_dir, "flat_index.npz")):
         index = FlatIndex.load(cfg.index_dir, tokenizer=tok, device=dev)
+        if os.path.exists(os.path.join(cfg.index_dir, IVFIndex.IVF_FILE)):
+            try:
+                index = IVFIndex.load(cfg.index_dir, index)
+            except ValueError as exc:  # stale file: serve flat instead
+                print(f"ignoring persisted IVFIndex: {exc}")
+        elif os.path.exists(os.path.join(cfg.index_dir, HNSW_GRAPH_FILE)):
+            print(f"{HNSW_GRAPH_FILE}: the HNSW tier is not ported; serving flat")
     else:
         index = FlatIndex(
             embedder.dim, tile=cfg.corpus_tile,

@@ -1,7 +1,8 @@
 """The RAG engine: cache -> route -> embed+retrieve -> rerank -> generate.
 
-Port of ``financial_rag_system_tpu/serving/engine.py`` for the flat tier
-with the full model stack.  The reference's behavioral surface is kept:
+Port of ``financial_rag_system_tpu/serving/engine.py`` for the
+single-device flat and IVF tiers with the full model stack.  The
+reference's behavioral surface is kept:
 
 - cache key ``sha256(f"{ticker}_{query.lower()}")``; a hit returns
   provider "Cache" with the sentinel source
@@ -14,11 +15,14 @@ with the full model stack.  The reference's behavioral surface is kept:
   document_type}], cached, provider}
 
 In "batched" mode the dynamic batcher hands each batch to the fused
-device path (:mod:`ops.fused_query`, ``fused_kind == "full"``): embed,
-masked top-k, token gather and cross-encoder rerank are queued on the
+device path (:mod:`ops.fused_query`): embed, masked top-k (flat,
+``fused_kind == "full"``) or centroid probe and probed-tiles search (IVF,
+``"ivf_full"``), token gather and cross-encoder rerank are queued on the
 device with one host readback per batch.  The staged path (embed, then
-search, then a host-driven rerank) serves batches the fused path cannot
-take.
+``index.search_batch``, then a host-driven rerank) serves batches the
+fused path cannot take: IVF tail rows, a selective filter, or a geometry
+changed by a churn rebuild.  ``rebuild_index`` promotes a flat corpus to
+the IVF tier (``POST /index/rebuild``).
 """
 
 from __future__ import annotations
@@ -31,7 +35,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from financial_rag_system_tpu_torch.index.base import selective_rows
 from financial_rag_system_tpu_torch.index.flat import FlatIndex
+from financial_rag_system_tpu_torch.index.ivf import IVFIndex
 from financial_rag_system_tpu_torch.models.embedder import BiEncoder
 from financial_rag_system_tpu_torch.models.reranker import CrossEncoderReranker
 from financial_rag_system_tpu_torch.models.tokenizer import pad_batch
@@ -78,9 +84,10 @@ class RAGEngine:
         self.llm = llm or (MockLLMClient(cfg) if cfg.testing else LLMClient(cfg))
         self.llm_semaphore = asyncio.Semaphore(cfg.max_concurrent_llm)
         self.tracer = get_tracer()
-        self._fused_kind: str | None = None
         self._fused_hash_rerank = False  # hash stack: not ported yet
-        self._fused_fn = self._maybe_build_fused()
+        # (program, kind, IVF geometry it was built for): one tuple, so a
+        # batch never pairs one program with another's kind or geometry
+        self._fused = self._maybe_build_fused()
         # strong refs to fire-and-forget tasks (an unreferenced asyncio
         # task can be garbage-collected before it runs)
         self._bg_tasks: set[asyncio.Task] = set()
@@ -109,24 +116,47 @@ class RAGEngine:
             return out
         return self._embed_retrieve_batch(queries, filters)
 
-    def _maybe_build_fused(self):
-        """The "full" fused pipeline (ops/fused_query.py): a flat index
-        with a device token store (or an auto store that materializes on
-        the first ingest) under the full model stack.  Every other
-        combination serves staged (None)."""
-        from financial_rag_system_tpu_torch.ops.fused_query import make_fused_query
+    @property
+    def _fused_fn(self):
+        return self._fused[0]
 
-        self._fused_kind = None
+    @property
+    def _fused_kind(self) -> str | None:
+        return self._fused[1]
+
+    def _maybe_build_fused(self):
+        """The fused pipelines (ops/fused_query.py) under the full model
+        stack, over a flat index with a device token store (or an auto
+        store that materializes on the first ingest): "full" on the flat
+        tier, "ivf_full" on the IVF tier, with the flat scan replaced by
+        centroid probing and the probed-tiles kernel.  Every other
+        combination serves staged (None, None, None)."""
+        from financial_rag_system_tpu_torch.ops.fused_query import (
+            make_fused_ivf_query,
+            make_fused_query,
+        )
+
         index = self.index
+        flat = index.flat if isinstance(index, IVFIndex) else index
         if not (
-            isinstance(index, FlatIndex)
+            isinstance(flat, FlatIndex)
             and isinstance(self.embedder, BiEncoder)
             and isinstance(self.reranker, CrossEncoderReranker)
-            and index.token_store_enabled
+            and flat.token_store_enabled
         ):
-            return None
-        self._fused_kind = "full"
-        return make_fused_query(self.reranker.cfg, k=self.cfg.retrieve_k)
+            return None, None, None
+        if isinstance(index, IVFIndex):
+            # geometry captured at build: a churn-triggered auto-rebuild
+            # can re-derive it, and the bound program would then probe the
+            # wrong rows, so _fused_exec compares it with each snapshot's
+            # and falls back staged
+            geom = index._state.geom
+            fn = make_fused_ivf_query(
+                self.reranker.cfg, k=self.cfg.retrieve_k, tile=index.tile,
+                nprobe=geom.nprobe, tiles_per_cluster=geom.tiles_per_cluster,
+            )
+            return fn, "ivf_full", geom
+        return make_fused_query(self.reranker.cfg, k=self.cfg.retrieve_k), "full", None
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -174,15 +204,22 @@ class RAGEngine:
         res = self._fused_exec(ids, types, mask, codes)
         if res is None:
             return None
-        rows, bi, ce = res
-        # the batch's one readback: rows travel bit-cast inside the f32 block
-        host = torch.cat([bi, ce, rows.view(torch.float32)], dim=1).cpu()
+        rows, bi, ce, active = res
+        # the batch's one readback: int32 rows (and the IVF probe list's
+        # active-tile count) travel bit-cast inside the f32 block
         k = rows.shape[1]
+        ints = rows if active is None else torch.cat(
+            [rows, active.view(1, 1).expand(rows.shape[0], 1)], dim=1
+        )
+        host = torch.cat([bi, ce, ints.view(torch.float32)], dim=1).cpu()
         bi, ce = host[:, :k].numpy(), host[:, k : 2 * k].numpy()
-        rows = host[:, 2 * k :].contiguous().view(torch.int32).numpy()
+        ints = host[:, 2 * k :].contiguous().view(torch.int32).numpy()
+        rows = ints[:, :k]
         t_dev = time.time()
         self.tracer.log_metric("fused_tokenize_ms", (t_tok - t0) * 1000)
         self.tracer.log_metric("fused_device_ms", (t_dev - t_tok) * 1000)
+        if active is not None:
+            self.tracer.log_metric("ivf_active_tiles", float(ints[0, k]))
         store = index.store
         out = []
         for i in range(len(queries)):
@@ -203,18 +240,16 @@ class RAGEngine:
         return out
 
     def _fused_exec(self, ids, types, mask, codes):
-        """Device portion of the fused batch.  Captures (fused_fn, kind)
-        together and reads the index's tensor tuple once: a concurrent
-        upsert/grow must not pair a new emb with old codes or token store
-        mid-batch.  Returns (rows, bi, ce) device tensors, or None when the
-        batch is ineligible."""
-        fused, kind = self._fused_fn, self._fused_kind
+        """Device portion of the fused batch.  Captures (fused_fn, kind,
+        index) together, reads each state snapshot once (a concurrent
+        upsert/grow/rebuild must not pair new arrays with old ones
+        mid-batch) and checks kind against the index type and geometry.
+        Returns (rows, bi, ce, active_tiles) device tensors, active_tiles
+        None on the flat tier, or None when the batch is ineligible."""
+        fused, kind, geom = self._fused
         index = self.index
-        if fused is None or kind != "full" or not isinstance(index, FlatIndex):
+        if fused is None:
             return None
-        emb, idx_codes, doc_tok = index._arrays
-        if doc_tok is None:
-            return None  # auto token store not yet materialized
         dev = index.device
         b = len(codes)
         bpad = ids.shape[0]
@@ -224,11 +259,29 @@ class RAGEngine:
         t_ids, t_types, t_mask = (
             torch.as_tensor(a, device=dev) for a in (ids, types, mask)
         )
-        nv = min(index.n_valid, emb.shape[0])
-        return fused(
-            self.embedder.model, self.reranker.model,
-            t_ids, t_types, t_mask, qf, emb, idx_codes, doc_tok, nv,
-        )
+        batch = (self.embedder.model, self.reranker.model, t_ids, t_types, t_mask, qf)
+        if kind == "full" and isinstance(index, FlatIndex):
+            emb, idx_codes, doc_tok = index._arrays
+            if doc_tok is None:
+                return None  # auto token store not yet materialized
+            nv = min(index.n_valid, emb.shape[0])
+            return (*fused(*batch, emb, idx_codes, doc_tok, nv), None)
+        if kind == "ivf_full" and isinstance(index, IVFIndex):
+            st = index._state
+            if st.tail:
+                return None  # tail rows need the exact merge of the staged path
+            if st.geom != geom:
+                return None  # a churn rebuild re-derived the geometry
+            if selective_rows(st.rows_by_ticker, codes, index.SELECTIVE_LIMIT) is not None:
+                return None  # a selective filter is scored exactly, staged
+            doc_tok = index.flat._arrays[2]
+            if doc_tok is None:
+                return None
+            return fused(
+                *batch, st.centroids, st.packed_emb, st.packed_codes,
+                st.packed_gids, doc_tok,
+            )
+        return None  # a tier promotion raced the program swap
 
     # -- public API -----------------------------------------------------------
 
@@ -369,6 +422,38 @@ class RAGEngine:
 
         with self.tracer.span("Index_Upsert", kind="TOOL", inputs={"n": len(ids)}):
             return await asyncio.to_thread(work)
+
+    def rebuild_index(self, tier: str | None = None) -> dict[str, Any]:
+        """Promote the flat index to the IVF tier, or rebuild the IVF tier
+        after tail growth.  Fusion re-evaluates afterwards.
+
+        tier: "ivf" | None (None keeps the current tier, or defaults a
+        flat index to IVF).  "hnsw" raises NotImplementedError: that tier
+        is not ported yet, and nothing stands in for it.
+        """
+        if tier == "hnsw":
+            raise NotImplementedError(
+                "the HNSW tier is not ported to financial_rag_system_tpu_torch "
+                "yet (ROADMAP Queue 1 item 6); use tier 'ivf'"
+            )
+        if tier not in (None, "ivf"):
+            return {"status": "error", "reason": f"unknown tier {tier!r}"}
+        if self.index.n_valid == 0:
+            return {"status": "noop", "reason": "index empty"}
+        if isinstance(self.index, IVFIndex):
+            self.index.rebuild()
+        elif isinstance(self.index, FlatIndex):
+            flat = self.index
+            self.index = IVFIndex(flat, tile=min(flat.tile, 128))
+        else:
+            return {"status": "noop", "reason": f"{type(self.index).__name__} has no tiers"}
+        self._fused = self._maybe_build_fused()
+        return {
+            "status": "ok",
+            "tier": type(self.index).__name__,
+            "clusters": self.index.n_clusters,
+            "tail_rows": len(self.index._tail_rows),
+        }
 
     # -- ops surface -----------------------------------------------------------
 

@@ -63,6 +63,31 @@ def test_default_engine_refuses_the_cpu_without_a_card(monkeypatch):
         build_default_engine()
 
 
+def test_default_engine_with_a_saved_ivf_index_refuses_the_cpu(tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    import numpy as np
+
+    from financial_rag_system_tpu_torch.index.flat import FlatIndex
+    from financial_rag_system_tpu_torch.index.ivf import IVFIndex
+    from financial_rag_system_tpu_torch.serving.app import build_default_engine
+    from financial_rag_system_tpu_torch.utils.config import reset_config
+
+    rng = np.random.default_rng(0)
+    flat = FlatIndex(32, capacity=256, tile=128, device="cpu")
+    flat.upsert([f"p{i}" for i in range(256)], rng.standard_normal((256, 32)),
+                [f"t{i}" for i in range(256)], [{"ticker": "AAPL"}] * 256)
+    IVFIndex(flat, tile=128).save(str(tmp_path))
+    assert (tmp_path / IVFIndex.IVF_FILE).exists()
+    monkeypatch.setenv("INDEX_DIR", str(tmp_path))
+    reset_config()
+    try:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build_default_engine()
+    finally:
+        reset_config()
+
+
 def test_factories_and_index_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
