@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--topk-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
 
 Drives ``financial_rag_system_tpu_torch`` end to end on the card, in
-five phases; any failure raises and the script exits non-zero:
+six phases; any failure raises and the script exits non-zero:
 
 0. the card: name, power limit and compute capability (Hopper, 9.0);
 1. build: every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a``
@@ -27,7 +27,16 @@ five phases; any failure raises and the script exits non-zero:
    a real batch's probe list, its time beside kernel 1's over the same
    corpus, the fused batch's recall@15 against the exact flat top-15, a
    profile of one fused IVF batch, and an IVF index built on the card and
-   loaded on the CPU (65,536 rows) checked against it.
+   loaded on the CPU (65,536 rows) checked against it;
+5. the fused-block path: phase 3 again with ``RAG_TPU_FUSED_BLOCK=1
+   RAG_TPU_FAST_GELU=1`` (a new engine from the same checkpoints and
+   index), where kernels 4-6 launch 18 times a batch (they launch never in
+   phases 3 and 4); one batch checked against the CPU pipeline (plain
+   versions) and against the card's unfused tanh layer; a profile of a
+   batch of 32 each way; kernels 4-6 against their plain versions at the
+   rerank and embed shapes, with their times beside the plain version's,
+   the unfused layer's torch sequence for the same half-layer, a library
+   call where one computes the same function, and the bound.
 
 ``--topk-baseline`` also builds the ``masked_topk.cu`` of an earlier
 checkout and holds kernel 1 bit for bit against it.
@@ -41,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import json
 import os
 import shutil
@@ -325,12 +335,43 @@ def write_index(torch, np, work: Path) -> None:
     index.save(str(work / "index"))
 
 
-def drive_main_path(torch, np, work: Path, smi: str) -> dict:
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper by its name in the ``kernels`` line; each
+    counts its launches in ``.launches``."""
     from financial_rag_system_tpu_torch.index.ivf import ivf_probe
-    from financial_rag_system_tpu_torch.models.tokenizer import pad_batch
-    from financial_rag_system_tpu_torch.obs.tracing import get_tracer
+    from financial_rag_system_tpu_torch.ops import fused_bert
     from financial_rag_system_tpu_torch.ops.attention import encoder_self_attention
     from financial_rag_system_tpu_torch.ops.topk import masked_topk
+
+    return {"masked_topk": masked_topk, "pair_attention": encoder_self_attention,
+            "ivf_probe": ivf_probe, "fused_ffn_ln": fused_bert.fused_ffn_ln,
+            "fused_qkv": fused_bert.fused_qkv, "fused_resid_ln": fused_bert.fused_resid_ln}
+
+
+def reset_launches() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+FUSED_BLOCK_KERNELS = ("fused_ffn_ln", "fused_qkv", "fused_resid_ln")
+# phase 5's opt-in: the fused-block kernels engage only with tanh GELU
+FUSED_BLOCK_ENV = {"RAG_TPU_FUSED_BLOCK": "1", "RAG_TPU_FAST_GELU": "1"}
+
+
+def drive_main_path(torch, np, work: Path, smi: str, label: str = "main") -> dict:
+    """The flat tier through ``build_default_engine(device="cuda")``: 3
+    single asks, two bursts of 32 and a cache hit.  ``label`` tags the log
+    lines and, past the first run, the questions, so that no ask of a
+    later run is a cache hit of an earlier one.  The fused-block kernels
+    launch 18 times a batch when the caller has set their opt-in, else
+    never."""
+    from financial_rag_system_tpu_torch.models import bert
+    from financial_rag_system_tpu_torch.models.tokenizer import pad_batch
+    from financial_rag_system_tpu_torch.obs.tracing import get_tracer
     from financial_rag_system_tpu_torch.serving.app import build_default_engine
     from financial_rag_system_tpu_torch.utils.config import reset_config
 
@@ -366,10 +407,11 @@ def drive_main_path(torch, np, work: Path, smi: str) -> dict:
     # cap); lift it so the 32-ask burst reaches the batcher whole
     engine.llm_semaphore = asyncio.Semaphore(B)
     tickers = [f"T{i:02d}" for i in range(N_TICKERS)]
-    singles = [("what was revenue growth in the last quarter", tickers[3], None),
-               ("analyze the margin trajectory", tickers[7], "10-K"),
-               ("supply chain risk", tickers[11], None)]
-    burst = [(f"question {i} about segment results and liquidity", tickers[i % N_TICKERS],
+    tag = "" if label == "main" else f" ({label})"
+    singles = [(f"what was revenue growth in the last quarter{tag}", tickers[3], None),
+               (f"analyze the margin trajectory{tag}", tickers[7], "10-K"),
+               (f"supply chain risk{tag}", tickers[11], None)]
+    burst = [(f"question {i} about segment results and liquidity{tag}", tickers[i % N_TICKERS],
               DOC_TYPES[i % 3] if i % 2 else None) for i in range(B)]
 
     async def scenario():
@@ -388,20 +430,21 @@ def drive_main_path(torch, np, work: Path, smi: str) -> dict:
             await engine.shutdown()
         return answers, repeat
 
-    for fn in (masked_topk, encoder_self_attention, ivf_probe):
-        fn.launches = 0
+    fused_block = bert._fused_block_enabled(engine.embedder.model)
+    get_tracer().reset()  # the stage split below is this run's
+    reset_launches()
     answers, repeat = asyncio.run(scenario())
-    launches = {"masked_topk": masked_topk.launches,
-                "pair_attention": encoder_self_attention.launches,
-                "ivf_probe": ivf_probe.launches}
+    launches = read_launches()
 
     n_batches = len(batches)
     if [n for n, _ in batches] != [1, 1, 1, B, B]:
         raise AssertionError(f"batch sizes {[n for n, _ in batches]} != [1, 1, 1, {B}, {B}]")
-    if launches["masked_topk"] != n_batches or launches["ivf_probe"]:
-        raise AssertionError(f"top-k launches {launches} for {n_batches} batches")
-    if launches["pair_attention"] != 18 * n_batches:
-        raise AssertionError(f"attention launches {launches}: want 18 per fused batch")
+    # per fused batch: one top-k, and each encoder kernel once a layer
+    # (12 embed + 6 rerank); the fused-block kernels only under their opt-in
+    want = {"masked_topk": n_batches, "pair_attention": 18 * n_batches, "ivf_probe": 0,
+            **dict.fromkeys(FUSED_BLOCK_KERNELS, 18 * n_batches if fused_block else 0)}
+    if launches != want:
+        raise AssertionError(f"[{label}] launches {launches}, want {want}")
     check_answers(np, answers, 5)
     if not (repeat["cached"] and repeat["provider"] == "Cache"):
         raise AssertionError("the repeated query was not a cache hit")
@@ -410,9 +453,9 @@ def drive_main_path(torch, np, work: Path, smi: str) -> dict:
     lq = pad_batch([tok.encode(q, 64) for q, _, _ in burst])[0].shape[1]
     snap = get_tracer().metrics_snapshot()
     stage = {m: snap[m] for m in ("fused_tokenize_ms", "fused_device_ms", "fused_assemble_ms")}
-    log(f"[main] {smi}: launches {launches} over {n_batches} fused batches; pair length "
+    log(f"[{label}] {smi}: launches {launches} over {n_batches} fused batches; pair length "
         f"{lq + DLEN} ({lq} query + {DLEN} doc); batch walls (size, ms) {batches}")
-    log(f"[main] {smi}: stage split over all batches: {json.dumps(stage)}")
+    log(f"[{label}] {smi}: stage split over all batches: {json.dumps(stage)}")
     return {"launches": launches, "engine": engine, "singles": singles, "burst": burst,
             "lq": lq}
 
@@ -432,7 +475,7 @@ def fused_inputs(torch, engine, queries, device, store=None):
     return [torch.as_tensor(a, device=device) for a in (ids, types, mask)] + [qf]
 
 
-def profile_batch(torch, main: dict, smi: str) -> None:
+def profile_batch(torch, main: dict, smi: str, label: str = "fused_two_stage") -> None:
     """Device time by kernel over one fused flat batch of 32."""
     from financial_rag_system_tpu_torch.ops.fused_query import fused_two_stage
 
@@ -441,7 +484,7 @@ def profile_batch(torch, main: dict, smi: str) -> None:
     args = fused_inputs(torch, engine, main["burst"], "cuda")
     profile_run(torch, lambda: fused_two_stage(
         engine.embedder.model, engine.reranker.model, *args, emb, codes, dtok, N,
-        rerank_cfg=engine.reranker.cfg, k=K), "fused_two_stage", smi)
+        rerank_cfg=engine.reranker.cfg, k=K), label, smi)
 
 
 def profile_run(torch, fn, label: str, smi: str):
@@ -477,39 +520,53 @@ def profile_run(torch, fn, label: str, smi: str):
     return out
 
 
-def check_against_cpu(torch, np, main: dict, cpu_models) -> None:
-    """One small fused batch on the card against the same pipeline on the
-    CPU (plain attention and top-k), from the same checkpoints and index."""
-    from financial_rag_system_tpu_torch.index.flat import FlatIndex
+def flat_batch(torch, engine, queries, dev, index, models):
+    """``fused_two_stage`` on ``dev`` over ``index`` with ``models``
+    (embedder, reranker); the first ``len(queries)`` rows of its outputs
+    as numpy arrays."""
     from financial_rag_system_tpu_torch.ops.fused_query import fused_two_stage
-    from financial_rag_system_tpu_torch.utils.config import get_config
 
-    engine = main["engine"]
-    cpu_index = FlatIndex.load(get_config().index_dir, device="cpu")
-    emb_cpu, rr_cpu = cpu_models
-    queries = main["burst"][:2]
-    outs = []
-    for dev, index, e, r in (("cuda", engine.index, engine.embedder, engine.reranker),
-                             ("cpu", cpu_index, emb_cpu, rr_cpu)):
-        emb, idx_codes, dtok = index._arrays
-        out = fused_two_stage(e.model, r.model, *fused_inputs(torch, engine, queries, dev),
-                              emb, idx_codes, dtok, N, rerank_cfg=r.cfg, k=K)
-        outs.append([x.cpu().numpy()[: len(queries)] for x in out])
-    (rows_g, bi_g, ce_g), (rows_c, bi_c, ce_c) = outs
+    e, r = models
+    emb, idx_codes, dtok = index._arrays
+    out = fused_two_stage(e.model, r.model, *fused_inputs(torch, engine, queries, dev),
+                          emb, idx_codes, dtok, N, rerank_cfg=r.cfg, k=K)
+    return [x.cpu().numpy()[: len(queries)] for x in out]
+
+
+def compare_batches(np, what: str, got, ref) -> None:
+    """Two fused batches' (rows, bi, ce) agree: bi scores within 2e-3, at
+    least K - 2 rows shared per query, ce within 5e-2 on the shared rows."""
+    (rows_g, bi_g, ce_g), (rows_c, bi_c, ce_c) = got, ref
     bi_err = float(np.abs(bi_g - bi_c).max())
     if bi_err > 2e-3:
-        raise AssertionError(f"bi scores: card vs CPU differ by {bi_err}")
+        raise AssertionError(f"{what}: bi scores differ by {bi_err}")
     ce_errs, overlap = [], []
-    for q in range(len(queries)):
+    for q in range(len(rows_g)):
         pos_c = {int(r): j for j, r in enumerate(rows_c[q])}
         common = [(j, pos_c[int(r)]) for j, r in enumerate(rows_g[q]) if int(r) in pos_c]
         overlap.append(len(common))
         ce_errs += [abs(float(ce_g[q, a]) - float(ce_c[q, b])) for a, b in common]
     ce_err = max(ce_errs)
     if min(overlap) < K - 2 or ce_err > 5e-2:
-        raise AssertionError(f"card vs CPU: row overlap {overlap}, ce err {ce_err}")
-    log(f"[main] card vs CPU on {len(queries)} queries: bi err {bi_err:.3g}, "
+        raise AssertionError(f"{what}: row overlap {overlap}, ce err {ce_err}")
+    log(f"{what} on {len(rows_g)} queries: bi err {bi_err:.3g}, "
         f"rows shared {overlap} of {K}, ce err {ce_err:.3g}")
+
+
+def check_against_cpu(torch, np, main: dict, cpu_models) -> None:
+    """One small fused batch on the card against the same pipeline on the
+    CPU (plain versions of the kernels), from the same checkpoints and
+    index."""
+    from financial_rag_system_tpu_torch.index.flat import FlatIndex
+    from financial_rag_system_tpu_torch.utils.config import get_config
+
+    engine = main["engine"]
+    cpu_index = FlatIndex.load(get_config().index_dir, device="cpu")
+    queries = main["burst"][:2]
+    got = flat_batch(torch, engine, queries, "cuda", engine.index,
+                     (engine.embedder, engine.reranker))
+    ref = flat_batch(torch, engine, queries, "cpu", cpu_index, cpu_models)
+    compare_batches(np, "[main] card vs CPU", got, ref)
 
 
 # -- phase 4: the IVF path ------------------------------------------------------
@@ -584,9 +641,6 @@ def drive_ivf_path(torch, np, flat_run: dict, smi: str) -> dict:
     """The IVF tier as users reach it: a 1M-chunk corpus promoted by
     ``rebuild_index("ivf")``, then asks, an upsert and a cache hit through
     the batched engine, with every kernel's launches counted around them."""
-    from financial_rag_system_tpu_torch.index.ivf import ivf_probe
-    from financial_rag_system_tpu_torch.ops.attention import encoder_self_attention
-    from financial_rag_system_tpu_torch.ops.topk import masked_topk
     from financial_rag_system_tpu_torch.serving.engine import RAGEngine
     from financial_rag_system_tpu_torch.utils.config import get_config
 
@@ -654,12 +708,9 @@ def drive_ivf_path(torch, np, flat_run: dict, smi: str) -> dict:
             await engine.shutdown()
         return answers, rare, added, found, repeat
 
-    for fn in (masked_topk, encoder_self_attention, ivf_probe):
-        fn.launches = 0
+    reset_launches()
     answers, rare, added, found, repeat = asyncio.run(scenario())
-    launches = {"masked_topk": masked_topk.launches,
-                "pair_attention": encoder_self_attention.launches,
-                "ivf_probe": ivf_probe.launches}
+    launches = read_launches()
 
     shape = [(n, f) for n, f, _ in batches]
     if shape != [(1, True)] * 3 + [(B, True)] * 2 + [(1, False), (1, True)]:
@@ -668,9 +719,10 @@ def drive_ivf_path(torch, np, flat_run: dict, smi: str) -> dict:
     n_staged = len(shape) - n_fused
     # one probe per batch (the staged search probes too), kernel 1 on the
     # staged batch's selective rows, 18 attention launches per batch (12
-    # embed + 6 rerank layers) and 12 for the upsert's embed
+    # embed + 6 rerank layers) and 12 for the upsert's embed; the
+    # fused-block kernels are off by default
     want = {"masked_topk": n_staged, "pair_attention": 18 * len(shape) + 12,
-            "ivf_probe": n_fused + n_staged}
+            "ivf_probe": n_fused + n_staged, **dict.fromkeys(FUSED_BLOCK_KERNELS, 0)}
     if launches != want:
         raise AssertionError(f"launches {launches}, want {want}")
     check_answers(np, answers + [rare], 5)
@@ -851,6 +903,168 @@ def check_ivf_against_cpu(torch, np, flat_run: dict, work: Path, cpu_models) -> 
         f"{bi_err:.3g}, ce err {ce_err:.3g}")
 
 
+# -- phase 5: the fused-block path ------------------------------------------------
+
+
+@contextlib.contextmanager
+def env_set(**values: str):
+    """Set environment variables for the block, then restore them."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def check_fused_block_batch(torch, np, run: dict, cpu_models, smi: str) -> None:
+    """One fused-block batch on the card against the same pipeline on the
+    CPU (the gate patched on, so the plain versions run) and against the
+    card's unfused layer with tanh GELU (the same function); then a
+    profile of a batch of 32 each way."""
+    from financial_rag_system_tpu_torch.index.flat import FlatIndex
+    from financial_rag_system_tpu_torch.models import bert
+    from financial_rag_system_tpu_torch.ops import fused_bert
+    from financial_rag_system_tpu_torch.utils.config import get_config
+
+    engine = run["engine"]
+    card = (engine.embedder, engine.reranker)
+    queries = run["burst"][:2]
+
+    def on_card():
+        n0 = fused_bert.fused_qkv.launches
+        out = flat_batch(torch, engine, queries, "cuda", engine.index, card)
+        return out, fused_bert.fused_qkv.launches - n0
+
+    got, n_fused = on_card()
+    with env_set(RAG_TPU_FUSED_BLOCK="0"):
+        unfused, n_unfused = on_card()
+    if (n_fused, n_unfused) != (18, 0):
+        raise AssertionError(f"fused_qkv launched {n_fused} and {n_unfused} times, want 18 and 0")
+    gate = bert._fused_block_enabled
+    bert._fused_block_enabled = lambda model: True
+    try:
+        cpu_index = FlatIndex.load(get_config().index_dir, device="cpu")
+        ref = flat_batch(torch, engine, queries, "cpu", cpu_index, cpu_models)
+    finally:
+        bert._fused_block_enabled = gate
+    compare_batches(np, "[fused-block] card vs CPU (plain versions)", got, ref)
+    compare_batches(np, "[fused-block] card, fused vs unfused tanh layer", got, unfused)
+    profile_batch(torch, run, smi, "fused_two_stage, fused block")
+    with env_set(RAG_TPU_FUSED_BLOCK="0"):
+        profile_batch(torch, run, smi, "fused_two_stage, unfused layer, tanh GELU")
+
+
+def fused_kernel_err(torch, what: str, fn, plain) -> float:
+    """Max abs error of a fused-block kernel against its plain version on
+    the same inputs; raises beyond atol = rtol = 2e-3 (the JAX package's
+    bound for these kernels) or on a non-finite output."""
+    got = fn()
+    torch.cuda.synchronize()
+    got, ref = (torch.stack(t) if isinstance(t, tuple) else t for t in (got, plain()))
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite output")
+    err = float((got - ref).abs().max())
+    if not torch.allclose(got, ref, atol=2e-3, rtol=2e-3):
+        raise AssertionError(f"{what} differs from its plain version by {err}")
+    return err
+
+
+def time_fused_kernel(torch, smi: str, name: str, shape: str, fn, plain, unfused, library,
+                      nbytes: float, flops: float, reps: int = 20) -> dict:
+    """One fused-block kernel against its plain version, then the times of
+    the kernel, its plain version, the unfused layer's torch sequence for
+    the same half-layer and a library call (``None``: no single call
+    computes the function)."""
+    err = fused_kernel_err(torch, f"{name} at the {shape} shape", fn, plain)
+    ms = median_ms(fn, reps=reps)
+    plain_ms = median_ms(plain, reps=5)
+    unfused_ms = median_ms(unfused, reps=reps)
+    library_ms = None if library is None else median_ms(library, reps=reps)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    lib = "null" if library_ms is None else f"{library_ms:.4f} ms"
+    log(f"[{name}] {smi}: {shape} shape: max_abs_err {err:.3g}, kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, unfused_ms {unfused_ms:.4f}, library {lib}, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms}
+
+
+def check_fused_block_kernels(torch, run: dict, smi: str) -> list[dict]:
+    """Kernels 4-6 at the main path's rerank and embed shapes, on a random
+    (R, H) activation, the models' first-layer weights and random biases
+    and layernorm parameters (the random-init checkpoints' are 0 and 1)."""
+    from financial_rag_system_tpu_torch.models import bert
+    from financial_rag_system_tpu_torch.ops import fused_bert as fb
+
+    engine = run["engine"]
+    bf, f32 = torch.bfloat16, torch.float32
+    plen = run["lq"] + DLEN
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+
+    def randn(*shape, scale=1.0, loc=0.0):
+        return loc + scale * torch.randn(shape, generator=g, device="cuda")
+
+    out = {}
+    for shape, model, r in (("rerank", engine.reranker.model, PAIRS * plen),
+                            ("embed", engine.embedder.model, B * run["lq"])):
+        lp, cfg = model.layers[0], model.cfg
+        h, i, eps = cfg.hidden, cfg.intermediate, cfg.ln_eps
+        x = randn(r, h)
+        ctx32 = randn(r, h)
+        ctx = ctx32.to(bf)  # as the attention kernel gives it
+        w32 = {n: getattr(lp, n).weight for n in ("q", "k", "v", "o", "inter", "out")}
+        w = {n: t.to(bf) for n, t in w32.items()}
+        b = {n: randn(t.shape[0], scale=0.01) for n, t in w32.items()}
+        ln1, ln2 = ((randn(h, scale=0.1, loc=1.0), randn(h, scale=0.1)) for _ in range(2))
+        ffn = (x, w["inter"], b["inter"], w["out"], b["out"], *ln2, eps)
+        qkv = (x, w["q"], b["q"], w["k"], b["k"], w["v"], b["v"])
+        res = (x, ctx, w["o"], b["o"], *ln1, eps)
+        # the kernel also takes the f32 context the unfused layer reads
+        err = fused_kernel_err(torch, f"fused_resid_ln at the {shape} shape, f32 ctx",
+                               lambda: fb.fused_resid_ln(x, ctx32, *res[2:]),
+                               lambda: fb.fused_resid_ln_plain(x, ctx32, *res[2:]))
+        log(f"[fused_resid_ln] {shape} shape, f32 ctx: max_abs_err {err:.3g}")
+        x16 = x.to(bf)
+        w_qkv = torch.cat([w["q"], w["k"], w["v"]])
+
+        # the unfused layer's torch sequence for each half-layer (models/bert.py)
+        def unfused_ffn():
+            up = bert._gelu(bert._matmul(x, w32["inter"], b["inter"]))
+            return bert._ln(x + bert._matmul(up, w32["out"], b["out"]), *ln2, eps)
+
+        def unfused_qkv():
+            hb = x.to(bf)
+            return [bert._matmul(hb, w32[n], b[n]) for n in ("q", "k", "v")]
+
+        def unfused_resid():
+            return bert._ln(x + bert._matmul(ctx32, w32["o"], b["o"]), *ln1, eps)
+
+        out[shape] = {
+            "fused_ffn_ln": time_fused_kernel(
+                torch, smi, "fused_ffn_ln", shape, lambda: fb.fused_ffn_ln(*ffn),
+                lambda: fb.fused_ffn_ln_plain(*ffn), unfused_ffn, None,
+                r * h * 4 * 2 + 2 * h * i * 2 + (i + 3 * h) * 4, 4.0 * r * h * i),
+            "fused_qkv": time_fused_kernel(
+                torch, smi, "fused_qkv", shape, lambda: fb.fused_qkv(*qkv),
+                lambda: fb.fused_qkv_plain(*qkv), unfused_qkv,
+                lambda: torch.mm(x16, w_qkv.t(), out_dtype=f32),
+                r * h * 4 * 4 + 3 * h * h * 2 + 3 * h * 4, 6.0 * r * h * h),
+            "fused_resid_ln": time_fused_kernel(
+                torch, smi, "fused_resid_ln", shape, lambda: fb.fused_resid_ln(*res),
+                lambda: fb.fused_resid_ln_plain(*res), unfused_resid, None,
+                r * h * (4 + 2 + 4) + h * h * 2 + 3 * h * 4, 2.0 * r * h * h),
+        }
+    lines = {"fused_ffn_ln": 47, "fused_qkv": 73, "fused_resid_ln": 89}
+    return [{"name": name, "route": "cuda", "source": f"{PACKAGE}/csrc/fused_bert.cu",
+             "replaces": f"financial_rag_system_tpu/ops/fused_bert.py:{line}",
+             **out["rerank"][name]} for name, line in lines.items()]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -895,12 +1109,19 @@ def main() -> int:
         kernels.append(check_ivf_kernel(torch, np, ivf_run, smi))
         check_ivf_against_cpu(torch, np, main_run, work, cpu_models)
         log(f"[ivf] phase 4 took {time.perf_counter() - t0:.1f} s")
+        del ivf_run["engine"]
+        t0 = time.perf_counter()
+        with env_set(**FUSED_BLOCK_ENV):
+            block_run = drive_main_path(torch, np, work, smi, label="fused-block")
+            check_fused_block_batch(torch, np, block_run, cpu_models, smi)
+            kernels += check_fused_block_kernels(torch, block_run, smi)
+        log(f"[fused-block] phase 5 took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    # launches over the two main paths, each counted from 0 around its run
+    # launches over the three main paths, each counted from 0 around its run
     for kern in kernels:
         name = kern["name"]
-        kern["launches"] = main_run["launches"][name] + ivf_run["launches"][name]
+        kern["launches"] = sum(run["launches"][name] for run in (main_run, ivf_run, block_run))
         if kern["launches"] < 1:
             raise AssertionError(f"{name} never launched on the main paths")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -22,6 +22,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace topk {
 
 constexpr int kQB = 32;      // queries per block: two m16 tiles, lane = query
@@ -50,17 +52,6 @@ __device__ __forceinline__ bool insert(float (&ls)[kMaxK], int (&li)[kMaxK], flo
     }
   }
   return true;
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // Shared-memory layout of pass 1.  Rows of bf16 pairs are padded by 4
@@ -122,7 +113,8 @@ __device__ __forceinline__ void score_tile(const Smem& m, int D, int warp, int l
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
       const uint32_t* qm = qa + mt * 16 * m.stride + w;
-      mma_bf16(acc[mt], qm[0], qm[8 * m.stride], qm[4], qm[8 * m.stride + 4], b0, b1);
+      const uint32_t a[4] = {qm[0], qm[8 * m.stride], qm[4], qm[8 * m.stride + 4]};
+      mma_bf16(acc[mt], a, b0, b1);
     }
   }
 #pragma unroll

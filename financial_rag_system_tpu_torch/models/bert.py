@@ -16,9 +16,21 @@ cross-encoder share it.  Numerics follow the JAX default path:
   sequence length: the CUDA kernel on the card, its plain version on the
   CPU.
 
+Three opt-ins, each off by default, as in the JAX package:
+
+- ``RAG_TPU_FUSED_BLOCK=1`` (with ``RAG_TPU_FAST_GELU=1``, on the card):
+  each layer runs the fused-block kernels of :mod:`ops.fused_bert`
+  (QKV, o-proj + LN, FFN + LN) around the attention kernel; see
+  :func:`_fused_block_enabled`;
+- ``RAG_TPU_BF16_ACT=1``: activations between ops are stored as bf16
+  (:func:`_act_dtype`);
+- int8 weight-only PTQ of the six encoder weight stacks
+  (:func:`quantize_params`; the reranker applies it under
+  ``RAG_TPU_INT8_RERANK=1``).
+
 Parameters are ``nn.Linear`` weights, (out, in); :func:`load_jax_params`
 fills a model from the JAX package's pytree (layer stacks on axis 0,
-weights (in, out)).
+weights (in, out)), its int8-PTQ form included.
 """
 
 from __future__ import annotations
@@ -32,6 +44,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from financial_rag_system_tpu_torch.ops.attention import encoder_self_attention
+from financial_rag_system_tpu_torch.ops.fused_bert import (
+    fused_ffn_ln,
+    fused_qkv,
+    fused_resid_ln,
+)
 from financial_rag_system_tpu_torch.utils.device import resolve_device
 
 
@@ -95,17 +112,51 @@ def init_params(generator: torch.Generator, cfg: BertConfig) -> dict:
     return p
 
 
+def _env_on(name: str) -> bool:
+    return os.environ.get(name, "auto").lower() in ("1", "true")
+
+
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact erf GELU (HF BERT's), or tanh with RAG_TPU_FAST_GELU=1."""
-    v = os.environ.get("RAG_TPU_FAST_GELU", "auto").lower()
-    return F.gelu(x, approximate="tanh" if v in ("1", "true") else "none")
+    return F.gelu(x, approximate="tanh" if _env_on("RAG_TPU_FAST_GELU") else "none")
+
+
+def _act_dtype() -> torch.dtype:
+    """Inter-op activation dtype of the encoder stack: f32, or bf16 with
+    RAG_TPU_BF16_ACT=1 (the JAX ``_act_dtype``).  Products still sum in
+    f32 and layernorm and softmax still compute in f32; only the tensors
+    handed between ops are stored as bf16, at the JAX package's points."""
+    return torch.bfloat16 if _env_on("RAG_TPU_BF16_ACT") else torch.float32
+
+
+def _fused_block_enabled(model: "BertModel") -> bool:
+    """Gate of the fused encoder-block kernels (:mod:`ops.fused_bert`),
+    read once per :meth:`BertModel.encode`.  The JAX gate's rules
+    (``bert.py:191-222``), on this card:
+
+    - ``RAG_TPU_FUSED_BLOCK`` is ``1`` or ``true``: an explicit opt-in
+      (unset, ``auto``, ``0`` and ``false`` mean off);
+    - ``RAG_TPU_FAST_GELU`` is ``1`` or ``true``: the kernel bakes the
+      tanh GELU in, and the port's default GELU is exact erf, so the
+      fused branch engages only where the unfused layer would compute
+      tanh too.  The opt-in never changes the function, only how it runs;
+    - no layer holds int8-PTQ weights (the kernels take bf16 weights; the
+      per-channel dequant is not plumbed through them);
+    - the model is on the card: on the CPU the unfused layer runs.
+    """
+    return (
+        _env_on("RAG_TPU_FUSED_BLOCK")
+        and _env_on("RAG_TPU_FAST_GELU")
+        and not model.quantized
+        and model.device.type == "cuda"
+    )
 
 
 def _ln(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
     return F.layer_norm(x.float(), (x.shape[-1],), scale, bias, eps)
 
 
-def _matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
     """bf16 x bf16 -> f32, plus bias.  ``w`` is an ``nn.Linear`` weight
     (out, in).  No bf16 rounding of the product (see the module note)."""
     x2 = x.reshape(-1, x.shape[-1]).to(torch.bfloat16)
@@ -114,7 +165,55 @@ def _matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         y = torch.mm(x2, wb.t(), out_dtype=torch.float32)
     else:
         y = x2.float() @ wb.float().t()
-    return y.reshape(*x.shape[:-1], w.shape[0]) + b
+    y = y.reshape(*x.shape[:-1], w.shape[0])
+    return y if b is None else y + b
+
+
+# --- int8 post-training quantization (opt-in serving path) -----------------
+
+_QUANT_LINEARS = ("q", "k", "v", "o", "inter", "out")
+_QUANT_KEYS = ("q_w", "k_w", "v_w", "o_w", "in_w", "out_w")  # their JAX names
+_SCALE_SUFFIX = "__scale"
+
+
+def _matmul_q(x: torch.Tensor, w_q: torch.Tensor, s: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Weight-only int8 product: the int8 weight widened to bf16 (exact),
+    the bf16 product summed in f32, then the per-output-channel scale and
+    the bias (JAX ``_matmul_q``)."""
+    return _matmul(x, w_q, None) * s + b
+
+
+def _proj(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """One dense layer: :func:`_matmul`, or :func:`_matmul_q` for a
+    quantized one (it carries ``weight_scale``)."""
+    scale = getattr(lin, "weight_scale", None)
+    if scale is None:
+        return _matmul(x, lin.weight, lin.bias)
+    return _matmul_q(x, lin.weight, scale, lin.bias)
+
+
+def _set_int8(lin: nn.Linear, w_q: torch.Tensor, scale: torch.Tensor) -> None:
+    lin.weight = nn.Parameter(w_q, requires_grad=False)
+    lin.register_buffer("weight_scale", scale)
+
+
+@torch.no_grad()
+def quantize_params(model: "BertModel") -> "BertModel":
+    """In place: per-output-channel symmetric int8 PTQ of the six encoder
+    weight stacks (JAX ``quantize_params``, ``bert.py:294-327``).  Each
+    weight becomes int8 ``round(w / s)`` (half to even, clipped to +-127)
+    with ``s = max |w| / 127`` over its input axis (at least 1e-8), kept
+    as an f32 ``weight_scale`` of shape (out,).  Embeddings, layernorms,
+    pooler and classifier stay as they are.  Returns ``model``."""
+    for lp in model.layers:
+        for name in _QUANT_LINEARS:
+            lin = getattr(lp, name)
+            if lin.weight.dtype == torch.int8:
+                raise ValueError("the model is quantized already")
+            w = lin.weight.float()
+            s = (w.abs().amax(dim=1) / 127.0).clamp_min(1e-8)
+            _set_int8(lin, torch.clamp(torch.round(w / s[:, None]), -127, 127).to(torch.int8), s)
+    return model
 
 
 class _LayerNorm(nn.Module):
@@ -171,6 +270,11 @@ class BertModel(nn.Module):
     def device(self) -> torch.device:
         return self.word_emb.device
 
+    @property
+    def quantized(self) -> bool:
+        """Whether a layer holds int8-PTQ weights (:func:`quantize_params`)."""
+        return any(lp.q.weight.dtype == torch.int8 for lp in self.layers)
+
     def encode(
         self,
         input_ids: torch.Tensor,       # (B, L) int
@@ -179,31 +283,57 @@ class BertModel(nn.Module):
     ) -> torch.Tensor:
         """Returns final hidden states (B, L, H) float32."""
         cfg = self.cfg
+        act = _act_dtype()
+        fused = _fused_block_enabled(self)
         b, seq = input_ids.shape
         h = (
             self.word_emb[input_ids.long()]
             + self.position_emb[:seq][None, :, :]
             + self.type_emb[token_type_ids.long()]
         )
-        h = _ln(h, self.emb_ln.weight, self.emb_ln.bias, cfg.ln_eps)
+        h = _ln(h, self.emb_ln.weight, self.emb_ln.bias, cfg.ln_eps).to(act)
         nh, hd = cfg.heads, cfg.hidden // cfg.heads
         inv_sqrt = 1.0 / (hd**0.5)
         for lp in self.layers:
+            if fused:
+                h = self._fused_layer(lp, h, attention_mask, act)
+                continue
             hb = h.to(torch.bfloat16)  # one cast feeds all three projections
-            q = _matmul(hb, lp.q.weight, lp.q.bias).reshape(b, seq, nh, hd)
-            k = _matmul(hb, lp.k.weight, lp.k.bias).reshape(b, seq, nh, hd)
-            v = _matmul(hb, lp.v.weight, lp.v.bias).reshape(b, seq, nh, hd)
+            q = _proj(hb, lp.q).to(act).reshape(b, seq, nh, hd)
+            k = _proj(hb, lp.k).to(act).reshape(b, seq, nh, hd)
+            v = _proj(hb, lp.v).to(act).reshape(b, seq, nh, hd)
             ctx = encoder_self_attention(q, k, v, attention_mask, inv_sqrt)
-            attn_out = _matmul(ctx, lp.o.weight, lp.o.bias)
-            h = _ln(h + attn_out, lp.attn_ln.weight, lp.attn_ln.bias, cfg.ln_eps)
-            mlp = _matmul(
-                _gelu(_matmul(h, lp.inter.weight, lp.inter.bias)),
-                lp.out.weight, lp.out.bias,
-            )
-            h = _ln(h + mlp, lp.mlp_ln.weight, lp.mlp_ln.bias, cfg.ln_eps)
-        return h
+            attn_out = _proj(ctx, lp.o).to(act)
+            h = _ln(h + attn_out, lp.attn_ln.weight, lp.attn_ln.bias, cfg.ln_eps).to(act)
+            mlp = _proj(_gelu(_proj(h, lp.inter).to(act)), lp.out).to(act)
+            h = _ln(h + mlp, lp.mlp_ln.weight, lp.mlp_ln.bias, cfg.ln_eps).to(act)
+        return h.float()
 
     forward = encode
+
+    def _fused_layer(self, lp: BertLayer, h: torch.Tensor, attention_mask: torch.Tensor,
+                     act: torch.dtype) -> torch.Tensor:
+        """One layer through the fused-block kernels (JAX ``bert.py:389-399``
+        and ``:430-449``): QKV in one pass over the hidden state, the
+        attention kernel, then o-proj + residual + LN and FFN + residual +
+        LN.  The attention context goes to the o-proj kernel as bf16, which
+        is exact: the kernel rounds it to bf16 first either way."""
+        cfg = self.cfg
+        b, seq, hid = h.shape
+        nh, hd = cfg.heads, hid // cfg.heads
+        x = h.reshape(b * seq, hid)
+        q, k, v = (
+            t.to(act).reshape(b, seq, nh, hd)
+            for t in fused_qkv(x, lp.q.weight, lp.q.bias, lp.k.weight, lp.k.bias,
+                               lp.v.weight, lp.v.bias)
+        )
+        ctx = encoder_self_attention(q, k, v, attention_mask, 1.0 / (hd**0.5),
+                                     out_dtype=torch.bfloat16)
+        h2 = fused_resid_ln(x, ctx.reshape(b * seq, hid), lp.o.weight, lp.o.bias,
+                            lp.attn_ln.weight, lp.attn_ln.bias, cfg.ln_eps)
+        h2 = fused_ffn_ln(h2, lp.inter.weight, lp.inter.bias, lp.out.weight, lp.out.bias,
+                          lp.mlp_ln.weight, lp.mlp_ln.bias, cfg.ln_eps)
+        return h2.reshape(b, seq, hid).to(act)
 
 
 def _cls(model: BertModel, input_ids, token_type_ids, attention_mask):
@@ -214,6 +344,14 @@ def embed_cls(model: BertModel, input_ids, token_type_ids, attention_mask) -> to
     """CLS-pooled, L2-normalized sentence embedding (BGE convention)."""
     cls = _cls(model, input_ids, token_type_ids, attention_mask)
     return cls / torch.linalg.norm(cls, dim=-1, keepdim=True).clamp_min(1e-12)
+
+
+def embed_mean(model: BertModel, input_ids, token_type_ids, attention_mask) -> torch.Tensor:
+    """Mean-pooled, L2-normalized embedding (MiniLM bi-encoder convention)."""
+    h = model.encode(input_ids, token_type_ids, attention_mask)
+    m = attention_mask[:, :, None].float()
+    mean = (h * m).sum(dim=1) / m.sum(dim=1).clamp_min(1e-9)
+    return mean / torch.linalg.norm(mean, dim=-1, keepdim=True).clamp_min(1e-12)
 
 
 def pair_head(model: BertModel, cls: torch.Tensor) -> torch.Tensor:
@@ -246,13 +384,16 @@ _LAYER_MAP = (
 def load_jax_params(model: BertModel, tree: dict) -> BertModel:
     """Fill ``model`` from the JAX package's parameter pytree (numpy
     arrays or tensors): unstack the layers and transpose dense weights
-    from (in, out) to ``nn.Linear``'s (out, in)."""
+    from (in, out) to ``nn.Linear``'s (out, in).  An int8-PTQ tree (JAX
+    ``quantize_params``: int8 weights beside ``<name>__scale`` arrays of
+    shape (L, 1, out)) makes the model's six weight stacks int8 with those
+    scales, as :func:`quantize_params` would."""
 
     def put(path: str, arr, transpose: bool = False) -> None:
         a = np.asarray(arr, np.float32)
         if transpose:
             a = a.T
-        dst = model.get_parameter(path)
+        dst = model.get_buffer(path) if path.endswith("_scale") else model.get_parameter(path)
         if tuple(a.shape) != tuple(dst.shape):
             raise ValueError(f"{path}: shape {a.shape} != {tuple(dst.shape)}")
         dst.copy_(torch.tensor(a))
@@ -264,9 +405,20 @@ def load_jax_params(model: BertModel, tree: dict) -> BertModel:
     put("emb_ln.weight", emb["ln_scale"])
     put("emb_ln.bias", emb["ln_bias"])
     lp = tree["layers"]
+    int8 = any(k.endswith(_SCALE_SUFFIX) for k in lp)
+    if model.quantized and not int8:
+        raise ValueError("a float parameter tree cannot fill a quantized model")
     for i in range(model.cfg.layers):
+        if int8 and model.layers[i].q.weight.dtype != torch.int8:  # the int8 layout first
+            for name in _QUANT_LINEARS:
+                lin = getattr(model.layers[i], name)
+                _set_int8(lin, torch.zeros_like(lin.weight, dtype=torch.int8),
+                          torch.ones_like(lin.bias))
         for key, path, transpose in _LAYER_MAP:
             put(f"layers.{i}.{path}", np.asarray(lp[key])[i], transpose)
+        if int8:
+            for key, name in zip(_QUANT_KEYS, _QUANT_LINEARS):
+                put(f"layers.{i}.{name}.weight_scale", np.asarray(lp[key + _SCALE_SUFFIX])[i, 0])
     if model.pooler is not None and "pooler" in tree:
         put("pooler.weight", tree["pooler"]["w"], True)
         put("pooler.bias", tree["pooler"]["b"])

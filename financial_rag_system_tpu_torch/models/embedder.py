@@ -25,7 +25,7 @@ MAX_DEVICE_BATCH = 64
 
 
 class BiEncoder:
-    """Full BERT bi-encoder with CLS pooling (BGE convention)."""
+    """Full BERT bi-encoder with CLS ('bge') or mean pooling."""
 
     def __init__(
         self,
@@ -33,11 +33,13 @@ class BiEncoder:
         cfg: bert.BertConfig,
         tokenizer: Tokenizer,
         *,
+        pooling: str = "cls",
         max_len: int = 512,
     ):
         self.model = model
         self.cfg = cfg
         self.tokenizer = tokenizer
+        self.pooling = pooling
         self.max_len = max_len
         self.dim = cfg.hidden
 
@@ -48,6 +50,7 @@ class BiEncoder:
     def encode(self, texts: Sequence[str]) -> np.ndarray:
         if not texts:
             return np.zeros((0, self.dim), np.float32)
+        fwd = bert.embed_cls if self.pooling == "cls" else bert.embed_mean
         out: list[np.ndarray] = []
         for start in range(0, len(texts), MAX_DEVICE_BATCH):
             chunk = texts[start : start + MAX_DEVICE_BATCH]
@@ -55,7 +58,7 @@ class BiEncoder:
             ids, types, mask = (
                 torch.as_tensor(a, device=self.device) for a in pad_batch(encs)
             )
-            vecs = bert.embed_cls(self.model, ids, types, mask)
+            vecs = fwd(self.model, ids, types, mask)
             out.append(vecs[: len(chunk)].cpu().numpy().astype(np.float32))
         return np.concatenate(out, axis=0)
 
@@ -76,5 +79,6 @@ def get_embedder(*, device: str | torch.device = "cuda") -> BiEncoder:
 
     model, cfg = load_bert_checkpoint(ckpt, with_pooler=True, device=device)
     return BiEncoder(
-        model, cfg, Tokenizer.from_dir(ckpt), max_len=saved_max_seq_length(ckpt),
+        model, cfg, Tokenizer.from_dir(ckpt), pooling="cls",
+        max_len=saved_max_seq_length(ckpt),
     )

@@ -40,6 +40,9 @@ def save_bert_checkpoint(
     (the sentence-transformers convention) so serving truncates where
     training did.
     """
+    if model.quantized:
+        raise ValueError("HF checkpoints hold float weights: save the model "
+                         "before quantize_params")
     os.makedirs(ckpt_dir, exist_ok=True)
     if max_seq_length:
         with open(os.path.join(ckpt_dir, "sentence_bert_config.json"), "w") as f:

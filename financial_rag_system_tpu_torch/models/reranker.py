@@ -41,6 +41,10 @@ class CrossEncoderReranker:
         *,
         max_len: int = 512,
     ):
+        if os.environ.get("RAG_TPU_INT8_RERANK", "0") in ("1", "true"):
+            # int8 PTQ of the encoder weight stacks, in place; the staged
+            # path (cross_score here) and the fused program both use it
+            bert.quantize_params(model)
         self.model = model
         self.cfg = cfg
         self.tokenizer = tokenizer

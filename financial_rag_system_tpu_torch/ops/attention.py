@@ -48,6 +48,7 @@ def encoder_self_attention_plain(
     v: torch.Tensor,
     attention_mask: torch.Tensor,
     inv_sqrt: float,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel (see the module docstring).
 
@@ -65,7 +66,7 @@ def encoder_self_attention_plain(
         "bhqk,bkhd->bhqd", p.to(torch.bfloat16).float(), vb.float()
     )
     out = (ctx / ssum).to(torch.bfloat16)
-    return out.permute(0, 2, 1, 3).reshape(b, s, h * d).float()
+    return out.permute(0, 2, 1, 3).reshape(b, s, h * d).to(out_dtype)
 
 
 def _kernel_fn():
@@ -118,11 +119,13 @@ def encoder_self_attention(
     v: torch.Tensor,              # (B, S, H, D)
     attention_mask: torch.Tensor,  # (B, S) int/bool — key validity
     inv_sqrt: float,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Returns (B, S, H*D) f32 context.  The CUDA kernel for a CUDA
+    """Returns the (B, S, H*D) context, f32 unless ``out_dtype`` asks for
+    bf16 (exact: the kernel stores bf16).  The CUDA kernel for a CUDA
     tensor, the plain version for a CPU tensor; nothing else."""
     if q.device.type == "cpu":
-        return encoder_self_attention_plain(q, k, v, attention_mask, inv_sqrt)
+        return encoder_self_attention_plain(q, k, v, attention_mask, inv_sqrt, out_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, s, h, d = q.shape
@@ -131,7 +134,7 @@ def encoder_self_attention(
             raise ValueError(f"{name} shape {tuple(t.shape)} != q {tuple(q.shape)}")
     qs, kb, vb = (t.contiguous() for t in _scaled_inputs(q, k, v, inv_sqrt))
     out = pair_attention_kernel(qs, kb, vb, attention_mask.to(torch.int32).contiguous())
-    return out.reshape(b, s, h * d).float()
+    return out.reshape(b, s, h * d).to(out_dtype)
 
 
 # kernel launches since the last reset (chip_smoke.py reads and resets it)

@@ -15,6 +15,9 @@ import numpy as np
 import pytest
 import torch
 
+# the fused-block patches of both packages, as fixtures
+from test_torch_fused_bert import FUSED_FNS, fresh_jit, fused_block  # noqa: F401
+
 from financial_rag_system_tpu.models import bert as jbert
 from financial_rag_system_tpu.ops import fused_query as jfq
 from financial_rag_system_tpu_torch.models import bert as tbert
@@ -112,6 +115,24 @@ def test_fused_two_stage_matches_jax(case):
     rows_j, bi_j, ce_j = run_jax(case)
     rows_t, bi_t, ce_t = run_port(case)
     assert rows_t.shape == bi_t.shape == ce_t.shape == (B, K)
+    np.testing.assert_array_equal(rows_t, case["planted"])
+    np.testing.assert_array_equal(rows_t, rows_j)
+    np.testing.assert_allclose(bi_t, bi_j, atol=2e-3, rtol=0)
+    np.testing.assert_allclose(ce_t, ce_j, atol=3e-2, rtol=0)
+    assert np.isfinite(ce_t).all()
+
+
+def test_fused_block_two_stage_matches_jax(case, fused_block):
+    """The slice under the fused-block opt-in (both gates patched on, the
+    JAX kernels in interpret mode): the same rows as the JAX fused branch
+    and as the planted answer, scores within the bounds of
+    :func:`test_fused_two_stage_matches_jax`."""
+    rows_j, bi_j, ce_j = run_jax(case)
+    rows_t, bi_t, ce_t = run_port(case)
+    # both ran their fused branch: the port in each of 2 embed + 2 rerank
+    # layers, JAX in each encoder's traced layer
+    assert fused_block == {"jax": dict.fromkeys(FUSED_FNS, 2),
+                           "port": dict.fromkeys(FUSED_FNS, 4)}
     np.testing.assert_array_equal(rows_t, case["planted"])
     np.testing.assert_array_equal(rows_t, rows_j)
     np.testing.assert_allclose(bi_t, bi_j, atol=2e-3, rtol=0)

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from financial_rag_system_tpu_torch.index.ivf import ivf_probe, ivf_probe_plain
+from financial_rag_system_tpu_torch.ops import fused_bert
 from financial_rag_system_tpu_torch.ops.attention import (
     encoder_self_attention,
     encoder_self_attention_plain,
@@ -192,3 +193,98 @@ def test_attention_kernel_rejects_shapes(cuda):
     y = torch.zeros((1, 8, 2, 64), device=cuda)
     with pytest.raises(ValueError):
         encoder_self_attention(y, y, y, m[:, :8], 0.1)
+
+
+def block_case(r, h, i, dev, seed=0):
+    """x, ctx and one encoder layer's weights (nn.Linear layout) at the
+    scales of a random-init encoder, made on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def f(*shape, scale=1.0, loc=0.0):
+        return loc + scale * torch.randn(shape, generator=g, device=dev)
+
+    return dict(
+        x=f(r, h), ctx=f(r, h), w=[f(h, h, scale=0.05) for _ in range(4)],
+        b=[f(h, scale=0.01) for _ in range(4)], w_in=f(i, h, scale=0.05),
+        b_in=f(i, scale=0.01), w_out=f(h, i, scale=0.05), b_out=f(h, scale=0.01),
+        s=f(h, scale=0.1, loc=1.0), lb=f(h, scale=0.1),
+    )
+
+
+# the rerank shape of the main path (480 pairs x 400 tokens) and below it
+FUSED_CASES = [(r, h, i) for h, i in ((128, 512), (384, 1536))
+               for r in (1, 100, 777, 4096, 192_000)]
+
+
+@pytest.fixture()
+def full_f32(monkeypatch):
+    """Plain versions in full f32 on the card (no TF32)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+
+@pytest.mark.parametrize("r,h,i", FUSED_CASES)
+def test_fused_ffn_ln_kernel_matches_plain(cuda, full_f32, r, h, i):
+    c = block_case(r, h, i, cuda, seed=r)
+    args = (c["x"], c["w_in"], c["b_in"], c["w_out"], c["b_out"], c["s"], c["lb"], 1e-12)
+    before = fused_bert.fused_ffn_ln.launches
+    got = fused_bert.fused_ffn_ln(*args)
+    torch.cuda.synchronize()
+    assert fused_bert.fused_ffn_ln.launches == before + 1
+    assert got.shape == (r, h) and got.dtype == torch.float32
+    torch.testing.assert_close(got, fused_bert.fused_ffn_ln_plain(*args), atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("r,h,i", FUSED_CASES)
+def test_fused_qkv_kernel_matches_plain(cuda, full_f32, r, h, i):
+    c = block_case(r, h, i, cuda, seed=r + 1)
+    args = (c["x"], c["w"][0], c["b"][0], c["w"][1], c["b"][1], c["w"][2], c["b"][2])
+    got = fused_bert.fused_qkv(*args)
+    torch.cuda.synchronize()
+    for g, want in zip(got, fused_bert.fused_qkv_plain(*args)):
+        assert g.shape == (r, h) and g.dtype == torch.float32
+        torch.testing.assert_close(g, want, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("ctx_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,h,i", FUSED_CASES)
+def test_fused_resid_ln_kernel_matches_plain(cuda, full_f32, r, h, i, ctx_dtype):
+    c = block_case(r, h, i, cuda, seed=r + 2)
+    args = (c["x"], c["ctx"].to(ctx_dtype), c["w"][3], c["b"][3], c["s"], c["lb"], 1e-12)
+    got = fused_bert.fused_resid_ln(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (r, h) and got.dtype == torch.float32
+    torch.testing.assert_close(got, fused_bert.fused_resid_ln_plain(*args), atol=2e-3, rtol=2e-3)
+
+
+def test_fused_kernels_take_a_bf16_activation(cuda):
+    """A bf16 x is widened to f32 exactly: the same result as its f32 copy."""
+    c = block_case(300, 128, 512, cuda, seed=3)
+    xb = c["x"].bfloat16()
+    ffn = (c["w_in"], c["b_in"], c["w_out"], c["b_out"], c["s"], c["lb"], 1e-12)
+    assert torch.equal(fused_bert.fused_ffn_ln(xb, *ffn), fused_bert.fused_ffn_ln(xb.float(), *ffn))
+    res = (c["ctx"], c["w"][3], c["b"][3], c["s"], c["lb"], 1e-12)
+    assert torch.equal(fused_bert.fused_resid_ln(xb, *res),
+                       fused_bert.fused_resid_ln(xb.float(), *res))
+
+
+def test_fused_kernels_reject_shapes(cuda):
+    c = block_case(10, 128, 512, cuda)
+    ln = (c["s"], c["lb"], 1e-12)
+    for bad_h in (96, 576):  # not a multiple of 64; wider than 512
+        x = torch.zeros((10, bad_h), device=cuda)
+        w = torch.zeros((bad_h, bad_h), device=cuda)
+        b = torch.zeros(bad_h, device=cuda)
+        with pytest.raises(ValueError):
+            fused_bert.fused_qkv(x, w, b, w, b, w, b)
+        with pytest.raises(ValueError):
+            fused_bert.fused_resid_ln(x, x, w, b, b, b, 1e-12)
+    w_in, b_in, w_out = (torch.zeros(s, device=cuda) for s in ((100, 128), (100,), (128, 100)))
+    with pytest.raises(ValueError):  # I not a multiple of 64
+        fused_bert.fused_ffn_ln(c["x"], w_in, b_in, w_out, c["b_out"], *ln)
+    with pytest.raises(ValueError):  # W_out not (H, I)
+        fused_bert.fused_ffn_ln(c["x"], c["w_in"], c["b_in"], c["w_in"], c["b_out"], *ln)
+    with pytest.raises(ValueError):  # ctx rows differ from x's
+        fused_bert.fused_resid_ln(c["x"], c["ctx"][:5], c["w"][3], c["b"][3], *ln)
+    with pytest.raises(ValueError):  # x not (R, H)
+        fused_bert.fused_qkv(c["x"][None], c["w"][0], c["b"][0], c["w"][1], c["b"][1],
+                             c["w"][2], c["b"][2])
