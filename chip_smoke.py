@@ -989,9 +989,49 @@ def time_fused_kernel(torch, smi: str, name: str, shape: str, fn, plain, unfused
     lib = "null" if library_ms is None else f"{library_ms:.4f} ms"
     log(f"[{name}] {smi}: {shape} shape: max_abs_err {err:.3g}, kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, unfused_ms {unfused_ms:.4f}, library {lib}, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+        f"bound {b_ms:.4f} ms ({b_by}), share of the bound {b_ms / ms:.3f}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library_ms}
+
+
+def qkv_limits(torch, smi: str, shape: str, x, ms: float, plan) -> None:
+    """What kernel 5's time ``ms`` is against the card's limits: its bytes
+    (x read once, three (R, H) f32 outputs written) at the rate of a plain
+    copy of an (R, 3H) f32 tensor, and the rate at which its blocks draw
+    from L2 (each of the ``plan.slices`` blocks of a row tile reads the
+    tile, each block its weight slice once, and the outputs pass
+    through)."""
+    from financial_rag_system_tpu_torch.ops import fused_bert as fb
+
+    r, h = x.shape
+    src = torch.empty((r, 3 * h), device=x.device)
+    dst = torch.empty_like(src)
+    copy_ms = median_ms(lambda: dst.copy_(src), reps=20)
+    rate = 2 * src.numel() * 4 / copy_ms / 1e9  # TB/s
+    dram = r * h * 4 * 4
+    l2 = plan.slices * r * h * 4 + 3 * r * h * 4 + plan.ctas * plan.bn * h * 2
+    del src, dst
+    # the same work on half the blocks: near twice the time if each
+    # block's own pipeline sets the pace, much less if a path the blocks
+    # share (device memory, L2) does
+    w, b = fb.pack_qkv(*(torch.zeros(s_, device=x.device) for _ in range(3)
+                         for s_ in ((h, h), (h,))))
+    out = torch.empty((3, r, h), device=x.device)
+    half = max(plan.slices, plan.ctas // 2 // plan.slices * plan.slices)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(ctas):
+        return lambda: fb._cuda.check(fb._library().fused_qkv(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), r, h, plan.bn,
+            plan.stages, ctas, stream), "fused_qkv")
+
+    all_ms, half_ms = median_ms(launch(plan.ctas), reps=20), median_ms(launch(half), reps=20)
+    log(f"[fused_qkv] {smi}: {shape} shape, plan {plan._asdict()}: kernel {ms:.4f} ms, "
+        f"{dram / ms / 1e9:.3f} TB/s of device memory; a copy moves {rate:.3f} TB/s, at "
+        f"which the kernel's {dram / 1e9:.3f} GB take {dram / rate / 1e9:.4f} ms (the "
+        f"kernel at {dram / rate / 1e9 / ms:.3f} of it); L2 to the SMs {l2 / 1e9:.3f} GB "
+        f"at {l2 / ms / 1e9:.3f} TB/s; launched alone on {plan.ctas} blocks {all_ms:.4f} ms, "
+        f"on {half} blocks {half_ms:.4f} ms ({half_ms / all_ms:.2f}x)")
 
 
 def check_fused_block_kernels(torch, run: dict, smi: str) -> list[dict]:
@@ -1008,6 +1048,18 @@ def check_fused_block_kernels(torch, run: dict, smi: str) -> list[dict]:
 
     def randn(*shape, scale=1.0, loc=0.0):
         return loc + scale * torch.randn(shape, generator=g, device="cuda")
+
+    # kernel 5 on ragged row counts: a last tile cut short, and blocks
+    # that walk unequal numbers of tiles
+    lp = engine.reranker.model.layers[0]
+    h = lp.q.weight.shape[1]
+    for r in (777, 64 * 137 + 5):
+        x = randn(r, h)
+        qkv = (x, lp.q.weight, randn(h, scale=0.01), lp.k.weight, randn(h, scale=0.01),
+               lp.v.weight, randn(h, scale=0.01))
+        err = fused_kernel_err(torch, f"fused_qkv at R {r}", lambda: fb.fused_qkv(*qkv),
+                               lambda: fb.fused_qkv_plain(*qkv))
+        log(f"[fused_qkv] ragged R {r}: max_abs_err {err:.3g}")
 
     out = {}
     for shape, model, r in (("rerank", engine.reranker.model, PAIRS * plen),
@@ -1030,7 +1082,7 @@ def check_fused_block_kernels(torch, run: dict, smi: str) -> list[dict]:
                                lambda: fb.fused_resid_ln_plain(x, ctx32, *res[2:]))
         log(f"[fused_resid_ln] {shape} shape, f32 ctx: max_abs_err {err:.3g}")
         x16 = x.to(bf)
-        w_qkv = torch.cat([w["q"], w["k"], w["v"]])
+        pack = fb.pack_qkv(*qkv[1:])  # made once, as BertLayer.qkv_pack does
 
         # the unfused layer's torch sequence for each half-layer (models/bert.py)
         def unfused_ffn():
@@ -1050,15 +1102,17 @@ def check_fused_block_kernels(torch, run: dict, smi: str) -> list[dict]:
                 lambda: fb.fused_ffn_ln_plain(*ffn), unfused_ffn, None,
                 r * h * 4 * 2 + 2 * h * i * 2 + (i + 3 * h) * 4, 4.0 * r * h * i),
             "fused_qkv": time_fused_kernel(
-                torch, smi, "fused_qkv", shape, lambda: fb.fused_qkv(*qkv),
+                torch, smi, "fused_qkv", shape, lambda: fb.fused_qkv(*qkv, pack),
                 lambda: fb.fused_qkv_plain(*qkv), unfused_qkv,
-                lambda: torch.mm(x16, w_qkv.t(), out_dtype=f32),
+                lambda: torch.mm(x16, pack[0].t(), out_dtype=f32),
                 r * h * 4 * 4 + 3 * h * h * 2 + 3 * h * 4, 6.0 * r * h * h),
             "fused_resid_ln": time_fused_kernel(
                 torch, smi, "fused_resid_ln", shape, lambda: fb.fused_resid_ln(*res),
                 lambda: fb.fused_resid_ln_plain(*res), unfused_resid, None,
                 r * h * (4 + 2 + 4) + h * h * 2 + 3 * h * 4, 2.0 * r * h * h),
         }
+        qkv_limits(torch, smi, shape, x, out[shape]["fused_qkv"]["ms"], fb.qkv_plan(
+            h, r, torch.cuda.get_device_properties(0).multi_processor_count))
     lines = {"fused_ffn_ln": 47, "fused_qkv": 73, "fused_resid_ln": 89}
     return [{"name": name, "route": "cuda", "source": f"{PACKAGE}/csrc/fused_bert.cu",
              "replaces": f"financial_rag_system_tpu/ops/fused_bert.py:{line}",

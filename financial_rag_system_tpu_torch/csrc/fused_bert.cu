@@ -1,33 +1,63 @@
 // Fused encoder-block kernels: the QKV projection, the attention-output
 // projection with residual and layernorm, and the FFN with residual and
-// layernorm, each one pass over a row block of the (R, H) activation.
+// layernorm, each one pass over the (R, H) activation.
 //
 // Replaces financial_rag_system_tpu/ops/fused_bert.py:
-//  - qkv_kernel      <- _qkv_kernel      q, k, v = bf16(x) W{q,k,v} + b{q,k,v}
-//  - resid_ln_kernel <- _resid_ln_kernel y = LN(x + bf16(ctx) W_o + b_o)
-//  - ffn_ln_kernel   <- _ffn_ln_kernel   y = LN(x + bf16(gelu_tanh(bf16(x) W_in + b_in)) W_out + b_out)
+//  - qkv_kernel      <- :73 _qkv_kernel      q, k, v = bf16(x) W{q,k,v} + b{q,k,v}
+//  - resid_ln_kernel <- :89 _resid_ln_kernel y = LN(x + bf16(ctx) W_o + b_o)
+//  - ffn_ln_kernel   <- :47 _ffn_ln_kernel   y = LN(x + bf16(gelu_tanh(bf16(x) W_in + b_in)) W_out + b_out)
 // and computes what they compute: bf16 operands with f32 sums on the
-// tensor cores (mma.sync m16n8k16), bias, tanh GELU, residual and a
-// two-pass layernorm (mean, then the mean square about it, then
-// (v - mean) * rsqrt(var + eps) * scale + bias) in f32; outputs are f32.
+// tensor cores, bias, tanh GELU, residual and a two-pass layernorm (mean,
+// then the mean square about it, then (v - mean) * rsqrt(var + eps) *
+// scale + bias) in f32; outputs are f32.
 //
 // Bounds on the H100 at the rerank shape (R = 480 pairs x 400 tokens =
 // 192,000 rows, H 384, I 1536), at 3.35 TB/s and 989 TFLOP/s bf16:
 //  - ffn_ln: 4 R H I = 4.53e11 operations, 0.458 ms: bound by operations
 //    once the (R, I) activation stays on chip (x and y f32, 590 MB, take
 //    0.176 ms);
-//  - qkv: x in and three f32 outputs, 1.18 GB, 0.352 ms: bound by bytes;
+//  - qkv: x in and three f32 outputs, 1.18 GB, 0.352 ms: bound by bytes
+//    (its 1.70e11 operations take 0.172 ms);
 //  - resid_ln: x, ctx and y, 885 MB with an f32 ctx (737 MB with bf16),
 //    0.264 ms (0.220 ms): bound by bytes.
-// Design: a block owns 64 rows and loops over the weight inside itself;
-// blocks carry nothing between them (the TPU kernel's grid runs in order,
-// Hopper's blocks do not).  Its 8 warps split the rows in two halves of
-// 32 and the columns in four quarters.  The activation tile is rounded to
-// bf16 once into shared memory; weight pieces arrive with cp.async, in
-// nn.Linear's (out, in) layout, which is the column-major B operand that
-// mma.sync .row.col takes, and the next piece loads while the current one
-// is multiplied.  Every staged row is padded by 8 bf16 so that the
-// fragment loads (8 rows x 4 words) hit 32 distinct banks.
+//
+// qkv_kernel is built for Hopper.  The 3H output columns are cut into
+// slices of BN (192 at H 384; a slice lies inside one of q, k, v).  A
+// persistent block holds one slice's bf16 weights in shared memory for its
+// whole life (147 KB at H 384), read from L2 once, where a block of the
+// first design re-read all 884 KB for every 64 rows.  It walks row tiles
+// of 64: block i takes slice i % slices and tiles i / slices,
+// + ctas / slices, ..., so the blocks that read one x tile run side by
+// side and all but the first find it in L2.  Two consumer warpgroups take
+// alternate tiles, each through its own ring of shared-memory stages that
+// a producer warp of its own fills: one thread issues TMA loads of the f32
+// x tile in 64 x 32 boxes (128 B rows, 128-byte swizzle; rows past R
+// arrive as zeros), with full and empty mbarriers.  A consumer reads a
+// chunk of boxes' A fragments from shared memory, rounds them to bf16 in
+// registers, frees the stages, and issues wgmma m64nBNk16 with A from
+// registers and B, the resident slice, K-major from shared memory; sums
+// stay in f32 registers over K = H.  The epilogue adds the bias into a
+// 64 x 32 output box in shared memory (128-byte swizzle) and TMA stores
+// it into the (3, R, H) output, full 128-byte lines; the map's bounds
+// drop rows past R.  Measured on the H100 (PERF.md): neither device
+// memory nor L2 sets its pace.  Multicasting each x box to a cluster of
+// blocks cut the L2 traffic and ran slower, and prefetching x into L2
+// changed nothing.  What holds it is each consumer's serial round of
+// waiting for boxes, converting them and draining its wgmmas, which two
+// warpgroups only partly overlap: A fragments loaded while wgmmas run are
+// serialised by ptxas, and the 147 KB slice leaves room for eight boxes
+// in flight.
+//
+// resid_ln_kernel and ffn_ln_kernel: a block owns 64 rows and loops over
+// the weight inside itself; blocks carry nothing between them (the TPU
+// kernel's grid runs in order, Hopper's blocks do not).  Its 8 warps split
+// the rows in two halves of 32 and the columns in four quarters
+// (mma.sync m16n8k16).  The activation tile is rounded to bf16 once into
+// shared memory; weight pieces arrive with cp.async, in nn.Linear's (out,
+// in) layout, which is the column-major B operand that mma.sync .row.col
+// takes, and the next piece loads while the current one is multiplied.
+// Every staged row is padded by 8 bf16 so that the fragment loads (8 rows
+// x 4 words) hit 32 distinct banks.
 //  - ffn_ln walks I in chunks of 64: up = x W_in[chunk] (a warp: 32 rows x
 //    16 columns), + b_in, GELU, rounded to bf16 in shared memory, then
 //    acc += up W_out[:, chunk] into a 64 x H f32 accumulator held in
@@ -37,8 +67,6 @@
 //    W_in chunk during the second.
 //  - resid_ln stages ctx (f32 or bf16) once and walks W_o in double-
 //    buffered 64-deep pieces into the same 64 x H accumulator.
-//  - qkv stages x once and walks the 3H output columns in double-buffered
-//    chunks of 64, storing each 64 x 64 result with its bias.
 // The layernorm reduces a row within a quad of lanes by shuffles, then
 // across the four column-quarter warps through shared memory.  Rows past
 // R are staged as zeros and never read or stored: no padded copy.
@@ -51,6 +79,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -351,61 +380,6 @@ resid_ln_kernel(const float* __restrict__ x, const CtxT* __restrict__ ctx,
   residual_ln_store<H>(acc, x, b, ln_s, ln_b, eps, y, row0, R, red);
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-qkv_kernel(const float* __restrict__ x, const bf16* __restrict__ wq,
-           const float* __restrict__ bq, const bf16* __restrict__ wk,
-           const float* __restrict__ bk, const bf16* __restrict__ wv,
-           const float* __restrict__ bv, float* __restrict__ q, float* __restrict__ k,
-           float* __restrict__ v, int R, int H) {
-  const int XS = H + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [kBM][XS] x
-  bf16* ws = xs + kBM * XS;                      // [2][kBN][XS] weight rows of a chunk
-
-  const int row0 = blockIdx.x * kBM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3, g = lane >> 2, t = lane & 3;
-  const int per = H / kBN, chunks = 3 * per;  // output chunks of q, then k, then v
-
-  stage_async(ws, wq, kBN, H, H);
-  cp_async_commit();
-  stage_rows(xs, x, row0, R, H);
-
-  for (int c = 0; c < chunks; ++c) {
-    if (c + 1 < chunks) {
-      const int n = c + 1, p = n / per;
-      const bf16* wn_src = (p == 0 ? wq : p == 1 ? wk : wv) + (size_t)(n - p * per) * kBN * H;
-      stage_async(ws + (n & 1) * kBN * XS, wn_src, kBN, H, H);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    float acc[2][2][4];
-    zero(acc);
-    warp_mma(acc, xs + wm * 32 * XS, XS, ws + (c & 1) * kBN * XS + wn * 16 * XS, XS, H);
-    const int p = c / per;
-    float* out = p == 0 ? q : p == 1 ? k : v;
-    const float* bias = p == 0 ? bq : p == 1 ? bk : bv;
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int col = (c - p * per) * kBN + wn * 16 + nt * 8 + t * 2;
-        const float b0 = bias[col], b1 = bias[col + 1];
-        const int row = row0 + wm * 32 + mt * 16 + g;
-        if (row < R)
-          *reinterpret_cast<float2*>(out + (size_t)row * H + col) =
-              make_float2(acc[mt][nt][0] + b0, acc[mt][nt][1] + b1);
-        if (row + 8 < R)
-          *reinterpret_cast<float2*>(out + (size_t)(row + 8) * H + col) =
-              make_float2(acc[mt][nt][2] + b0, acc[mt][nt][3] + b1);
-      }
-    __syncthreads();  // the chunk is read before it is overwritten
-  }
-}
-
 bool takes(int R, int H) { return R >= 1 && H >= kBN && H <= 512 && H % kBN == 0; }
 
 dim3 grid(int R) { return dim3((unsigned)((R + kBM - 1) / kBM)); }
@@ -413,6 +387,247 @@ dim3 grid(int R) { return dim3((unsigned)((R + kBM - 1) / kBM)); }
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// -- QKV: persistent, resident weight slice, TMA-fed x, wgmma -------------
+
+constexpr int kQkvRows = 64;                           // rows of a tile: one wgmma M
+constexpr int kBoxCols = 32;                           // f32 columns of an x box: 128 B
+constexpr int kBoxBytes = kQkvRows * kBoxCols * 4;     // 8 KB
+constexpr int kConsumers = 2;                          // consumer warpgroups
+constexpr int kQkvThreads = kConsumers * (128 + 32);    // + one producer warp each
+constexpr int kSmemLimit = 232448;                     // a block's shared memory on the H100
+
+// Bytes of dynamic shared memory: 1 KB to align to the swizzle's 1024-B
+// atoms, the weight slice, the x ring, one output box per consumer and
+// the ring's 2 * stages + 1 barriers.
+size_t qkv_smem(int H, int BN, int stages) {
+  return 1024 + (size_t)BN * H * 2 + (size_t)(stages + kConsumers) * kBoxBytes +
+         (2 * stages + 1) * 8;
+}
+
+// Boxes whose A fragments a consumer warpgroup holds at once (8 registers
+// a box): the wgmmas of a chunk issue in one pipeline stage, and no A
+// register is written while a wgmma that reads it is in flight.
+template <int BN>
+__host__ __device__ constexpr int qkv_chunk_boxes() { return BN == 192 ? 3 : BN == 128 ? 4 : 2; }
+
+// One chunk of a consumer warpgroup's tile: for each of its G boxes (32
+// columns of the x tile, two 16-deep wgmma steps) wait for the box, read
+// its A fragments into registers rounded to bf16 and free the stage; then
+// issue the chunk's 2G wgmmas against the resident weight slice.  A box
+// lies at [64 rows][128 B] with TMA's 128-byte swizzle: the 16-B granule
+// j of row r sits at granule j ^ (r % 8).  `n` counts the boxes taken
+// from the ring, `box0` is the chunk's first box in the tile.
+template <int BN, int G>
+__device__ __forceinline__ void qkv_chunk(float (&acc)[BN / 2], const unsigned char* xs,
+                                          uint64_t* full, uint64_t* empty, int ring, int n,
+                                          const unsigned char* ws, int box0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = ((threadIdx.x >> 5) & 3) * 16 + g;  // rows r0 and r0 + 8: both swizzle by g
+  uint32_t a[G][2][4];
+#pragma unroll
+  for (int i = 0; i < G; ++i) {
+    const int s = (n + i) % ring;
+    mbar_wait(&full[s], ((n + i) / ring) & 1);
+    const unsigned char* box = xs + (size_t)s * kBoxBytes;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {  // columns 2t (a[0], a[1]), 2t + 8 (a[2], a[3])
+        const int c = kk * 16 + half * 8 + 2 * t;
+        const int off = (((c >> 2) ^ g) << 4) + ((c & 3) << 2);
+        const float2 lo = *reinterpret_cast<const float2*>(box + r0 * 128 + off);
+        const float2 hi = *reinterpret_cast<const float2*>(box + (r0 + 8) * 128 + off);
+        a[i][kk][2 * half] = pack_bf16(lo.x, lo.y);
+        a[i][kk][2 * half + 1] = pack_bf16(hi.x, hi.y);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // the fragments are in registers
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int i = 0; i < G; ++i) {
+    const int b = box0 + i;  // 32 columns deep: half of a 64-deep weight piece
+    const unsigned char* piece = ws + (size_t)(b / 2) * BN * 128 + (b & 1) * 64;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+      wgmma_rs(acc, a[i][kk], wgmma_desc_sw128(piece + kk * 32), (b == 0 && kk == 0) ? 0u : 1u);
+  }
+  wgmma_commit();
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kQkvThreads, 1)
+qkv_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+           const __grid_constant__ CUtensorMap omap, const float* __restrict__ bias, int R, int H,
+           int stages) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ws = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* xs = ws + (size_t)BN * H * 2;  // [stages][64 rows][128 B]
+  unsigned char* os = xs + (size_t)stages * kBoxBytes;  // [kConsumers][64 rows][128 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(os + (size_t)kConsumers * kBoxBytes);
+  uint64_t* empty = full + stages;
+  uint64_t* wbar = empty + stages;
+
+  const int slices = 3 * H / BN, slice = blockIdx.x % slices;
+  const int tiles = (R + kQkvRows - 1) / kQkvRows;
+  const int first_tile = blockIdx.x / slices, tile_step = gridDim.x / slices;
+  const int boxes = H / kBoxCols;          // per tile
+  const int ring = stages / kConsumers;    // stages of each consumer's ring
+  const int warp = threadIdx.x >> 5;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // one arrival per warp of the consuming warpgroup
+    }
+    mbar_init(wbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Tile j of the block goes to consumer j % kConsumers, through that
+  // consumer's own ring of stages, which a producer warp of its own fills:
+  // each ring is filled and drained in one order, so a stage's barrier is
+  // never two phases behind its waiter, and a full ring never holds up
+  // the other consumer's loads.
+  if (warp >= 4 * kConsumers) {  // producers: one thread of each issues its ring's loads
+    const int c = warp - 4 * kConsumers;
+    if (threadIdx.x % 32 == 0) {
+      if (c == 0) {  // the slice's weights, once: H / 64 pieces of [BN rows][64 bf16]
+        mbar_arrive_expect_tx(wbar, (uint32_t)(BN * H * 2));
+        for (int kb = 0; kb < H / 64; ++kb)
+          tma_load_2d(ws + (size_t)kb * BN * 128, &wmap, wbar, kb * 64, slice * BN);
+      }
+      int n = 0;  // boxes put in the ring
+      int j = 0;
+      for (int tile = first_tile; tile < tiles; tile += tile_step, ++j) {
+        if (j % kConsumers != c) continue;
+        for (int b = 0; b < boxes; ++b, ++n) {
+          const int s = c * ring + n % ring;
+          mbar_wait(&empty[s], ((n / ring) & 1) ^ 1);  // the first round passes
+          mbar_arrive_expect_tx(&full[s], kBoxBytes);
+          tma_load_2d(xs + (size_t)s * kBoxBytes, &xmap, &full[s], b * kBoxCols,
+                      tile * kQkvRows);  // rows past R arrive as zeros
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg takes the block's tiles wg, wg + kConsumers, ...
+  const int wg = warp / 4, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool leader = threadIdx.x % 128 == 0;  // issues the warpgroup's TMA stores
+  const int col0 = slice * BN;  // in the packed 3H columns
+  const int part = col0 / H;    // 0: q, 1: k, 2: v
+  const float* bs = bias + col0 + 2 * t;
+  const unsigned char* my_xs = xs + (size_t)wg * ring * kBoxBytes;
+  uint64_t *my_full = full + wg * ring, *my_empty = empty + wg * ring;
+  unsigned char* my_os = os + (size_t)wg * kBoxBytes;
+  const int r0 = (warp & 3) * 16 + g;  // the thread's rows r0 and r0 + 8 of a tile
+  mbar_wait(wbar, 0);
+  constexpr int G = qkv_chunk_boxes<BN>();  // divides the boxes of every H taking this BN
+  float acc[BN / 2];
+  int n = 0;  // boxes taken from the ring
+  int j = 0;
+  for (int tile = first_tile; tile < tiles; tile += tile_step, ++j) {
+    if (j % kConsumers != wg) continue;
+    for (int b = 0; b < boxes; b += G, n += G) {
+      qkv_chunk<BN, G>(acc, my_xs, my_full, my_empty, ring, n, ws, b);
+      wgmma_wait<0>();  // before the next chunk writes A again
+    }
+    wgmma_pin(acc);
+    // 32 columns at a time: bias added, into the output box (128-byte
+    // swizzle, as TMA stores it), then one TMA store of the 64 x 32 box;
+    // rows past R are dropped by the tensor map's bounds
+#pragma unroll
+    for (int cc = 0; cc < BN / 32; ++cc) {
+      if (leader) bulk_wait_read<0>();  // the last store has read the box
+      named_barrier(1 + wg, 128);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int jn = cc * 4 + u, c = u * 8 + 2 * t;
+        const float2 bb = __ldg(reinterpret_cast<const float2*>(bs + jn * 8));
+        const int off = (((c >> 2) ^ g) << 4) + ((c & 3) << 2);
+        *reinterpret_cast<float2*>(my_os + r0 * 128 + off) =
+            make_float2(acc[4 * jn] + bb.x, acc[4 * jn + 1] + bb.y);
+        *reinterpret_cast<float2*>(my_os + (r0 + 8) * 128 + off) =
+            make_float2(acc[4 * jn + 2] + bb.x, acc[4 * jn + 3] + bb.y);
+      }
+      fence_proxy_async();
+      named_barrier(1 + wg, 128);
+      if (leader) {
+        tma_store_3d(&omap, my_os, col0 - part * H + cc * 32, tile * kQkvRows, part);
+        bulk_commit();
+      }
+    }
+    wgmma_pin(acc);
+  }
+  if (leader) bulk_wait_all();
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's entry-point lookup, so the library
+// needs no -lcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A row-major (mats, rows, cols) tensor map with (1, box_rows, box_cols)
+// boxes and 128-byte swizzle; false if the driver refuses it.
+bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, size_t elem, const void* ptr,
+                int mats, int rows, int cols, int box_rows, int box_cols) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)mats};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * elem, (cuuint64_t)rows * cols * elem};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, type, mats > 1 ? 3 : 2, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN>
+int launch_qkv(const void* x, const void* w, const float* b, void* out, int R, int H, int stages,
+               int ctas, cudaStream_t stream) {
+  CUtensorMap xmap, wmap, omap;
+  if (!tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, x, 1, R, H, kQkvRows, kBoxCols) ||
+      !tensor_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, 1, 3 * H, H, BN, 64) ||
+      !tensor_map(&omap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, out, 3, R, H, kQkvRows, kBoxCols))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = qkv_smem(H, BN, stages);
+  int dev = 0;
+  cudaGetDevice(&dev);
+  static bool sized[64] = {};  // the kernel may take the limit, once per device
+  if (!sized[dev & 63]) {
+    cudaError_t err = set_smem(qkv_kernel<BN>, kSmemLimit);
+    if (err != cudaSuccess) return (int)err;
+    sized[dev & 63] = true;
+  }
+  qkv_kernel<BN><<<ctas, kQkvThreads, smem, stream>>>(xmap, wmap, omap, b, R, H, stages);
+  return (int)cudaGetLastError();
 }
 
 template <int H>
@@ -451,17 +666,28 @@ int launch_resid(const float* x, const void* ctx, const bf16* w, const float* b,
 // bf16 in nn.Linear's (out, in) layout; everything else is f32 except a
 // bf16 ctx (ctx_bf16 != 0).  All tensors are contiguous.
 
-extern "C" int fused_qkv(const void* x, const void* wq, const void* bq, const void* wk,
-                         const void* bk, const void* wv, const void* bv, void* q, void* k,
-                         void* v, int R, int H, void* stream) {
-  if (!takes(R, H)) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(bf16) * (size_t)(kBM + 2 * kBN) * (H + kPad);
-  cudaError_t err = set_smem(qkv_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  qkv_kernel<<<grid(R), kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const bf16*)wq, (const float*)bq, (const bf16*)wk, (const float*)bk,
-      (const bf16*)wv, (const float*)bv, (float*)q, (float*)k, (float*)v, R, H);
-  return (int)cudaGetLastError();
+// (q, k, v) = x W^T + b into `out`, a (3, R, H) f32 tensor, with W the
+// (3H, H) bf16 stack of W_q, W_k and W_v and b the (3H,) f32 stack of
+// their biases.  The tile plan comes from the caller (ops/fused_bert.py
+// qkv_plan): bn columns a slice (64, 128 or 192, dividing H), `stages` x
+// boxes in flight (an even number, split between the two consumers'
+// rings), `ctas` blocks (a multiple of the 3H / bn slices, at most one
+// block a slice per row tile).  x, W and out must be 16-byte aligned.
+extern "C" int fused_qkv(const void* x, const void* w, const void* b, void* out, int R, int H,
+                         int bn, int stages, int ctas, void* stream) {
+  const int slices = bn > 0 ? 3 * H / bn : 0;
+  if (!takes(R, H) || (bn != 64 && bn != 128 && bn != 192) || H % bn != 0 || stages < 4 ||
+      stages % kConsumers != 0 || qkv_smem(H, bn, stages) > (size_t)kSmemLimit ||
+      ctas < slices || ctas % slices != 0 || ctas / slices > (R + kQkvRows - 1) / kQkvRows ||
+      ((uintptr_t)x | (uintptr_t)w | (uintptr_t)out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const float* bias = (const float*)b;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (bn) {
+    case 64: return launch_qkv<64>(x, w, bias, out, R, H, stages, ctas, st);
+    case 128: return launch_qkv<128>(x, w, bias, out, R, H, stages, ctas, st);
+    default: return launch_qkv<192>(x, w, bias, out, R, H, stages, ctas, st);
+  }
 }
 
 extern "C" int fused_resid_ln(const void* x, const void* ctx, int ctx_bf16, const void* w,

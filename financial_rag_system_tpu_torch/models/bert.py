@@ -48,6 +48,7 @@ from financial_rag_system_tpu_torch.ops.fused_bert import (
     fused_ffn_ln,
     fused_qkv,
     fused_resid_ln,
+    pack_qkv,
 )
 from financial_rag_system_tpu_torch.utils.device import resolve_device
 
@@ -213,6 +214,7 @@ def quantize_params(model: "BertModel") -> "BertModel":
             w = lin.weight.float()
             s = (w.abs().amax(dim=1) / 127.0).clamp_min(1e-8)
             _set_int8(lin, torch.clamp(torch.round(w / s[:, None]), -127, 127).to(torch.int8), s)
+    model.weights_changed()
     return model
 
 
@@ -241,6 +243,16 @@ class BertLayer(nn.Module):
         self.inter = _linear(h, i, device)
         self.out = _linear(i, h, device)
         self.mlp_ln = _LayerNorm(h, device)
+        self._qkv_pack = None
+
+    def qkv_pack(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """W_q, W_k, W_v and their biases as the QKV kernel takes them
+        (:func:`ops.fused_bert.pack_qkv`), cast once and kept until the
+        weights change (:meth:`BertModel.weights_changed`)."""
+        if self._qkv_pack is None:
+            self._qkv_pack = pack_qkv(self.q.weight, self.q.bias, self.k.weight, self.k.bias,
+                                      self.v.weight, self.v.bias)
+        return self._qkv_pack
 
 
 class BertModel(nn.Module):
@@ -269,6 +281,12 @@ class BertModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.word_emb.device
+
+    def weights_changed(self) -> None:
+        """Drop what was derived from the weights (the layers' QKV packs);
+        every loader calls it after it writes them."""
+        for lp in self.layers:
+            lp._qkv_pack = None
 
     @property
     def quantized(self) -> bool:
@@ -325,7 +343,7 @@ class BertModel(nn.Module):
         q, k, v = (
             t.to(act).reshape(b, seq, nh, hd)
             for t in fused_qkv(x, lp.q.weight, lp.q.bias, lp.k.weight, lp.k.bias,
-                               lp.v.weight, lp.v.bias)
+                               lp.v.weight, lp.v.bias, lp.qkv_pack())
         )
         ctx = encoder_self_attention(q, k, v, attention_mask, 1.0 / (hd**0.5),
                                      out_dtype=torch.bfloat16)
@@ -425,4 +443,5 @@ def load_jax_params(model: BertModel, tree: dict) -> BertModel:
     if model.classifier is not None and "classifier" in tree:
         put("classifier.weight", tree["classifier"]["w"], True)
         put("classifier.bias", tree["classifier"]["b"])
+    model.weights_changed()
     return model

@@ -124,4 +124,5 @@ def load_bert_checkpoint(
         if src.shape != dst.shape:
             raise ValueError(f"{key}: shape {tuple(src.shape)} != {tuple(dst.shape)}")
         dst.copy_(src)
+    model.weights_changed()
     return model, cfg

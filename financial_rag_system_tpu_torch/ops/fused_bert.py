@@ -23,8 +23,11 @@ A bf16 activation is widened to f32 exactly, as the TPU kernels do with
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import threading
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +36,13 @@ from financial_rag_system_tpu_torch.ops import _cuda
 
 MAX_HIDDEN = 512
 WIDTH_STEP = 64  # H and I must be multiples of it (the kernels' 64-wide pieces)
+
+# the QKV kernel's tile plan (csrc/fused_bert.cu qkv_kernel)
+SMEM_LIMIT = 232_448          # shared memory a block may use on the H100
+QKV_ROWS = 64                 # rows of a tile: one wgmma M
+QKV_BOX_BYTES = QKV_ROWS * 32 * 4  # one x or output box: 64 rows x 32 f32
+QKV_SLICE_WIDTHS = (192, 128, 64)  # wgmma N widths the kernel is built for
+QKV_CONSUMERS = 2  # consumer warpgroups, each with an output box for its TMA stores
 
 
 def _bf(t: torch.Tensor) -> torch.Tensor:
@@ -55,6 +65,41 @@ def fused_qkv_plain(x, wq, bq, wk, bk, wv, bv):
     return tuple(_dense(x, w, b) for w, b in ((wq, bq), (wk, bk), (wv, bv)))
 
 
+def pack_qkv(wq, bq, wk, bk, wv, bv) -> tuple[torch.Tensor, torch.Tensor]:
+    """The QKV kernel's operands: W_q, W_k and W_v stacked into one (3H, H)
+    bf16 weight, and their biases into one (3H,) f32 bias."""
+    w = torch.cat([wq, wk, wv]).to(torch.bfloat16).contiguous()
+    return w, torch.cat([bq, bk, bv]).float().contiguous()
+
+
+class QKVPlan(NamedTuple):
+    bn: int      # output columns of a slice; a slice lies inside one of q, k, v
+    slices: int  # 3H / bn
+    stages: int  # x boxes in flight, half in each consumer warpgroup's ring
+    ctas: int    # persistent blocks: a multiple of slices
+    smem: int    # bytes of dynamic shared memory a block takes
+
+
+@functools.lru_cache(maxsize=256)
+def qkv_plan(h: int, r: int, sms: int) -> QKVPlan:
+    """The tile plan of the QKV kernel for an (r, h) activation on a card
+    with ``sms`` multiprocessors: the widest slice whose bf16 weights leave
+    room for the consumers' output boxes and at least four x boxes, as
+    many x boxes as fit (an even number), and one block a multiprocessor,
+    each slice taking the same number of blocks, never more than there are
+    row tiles."""
+    def stages(bn: int) -> int:  # even: the two consumer warpgroups' rings
+        room = SMEM_LIMIT - 1024 - 8 - bn * h * 2 - QKV_CONSUMERS * QKV_BOX_BYTES
+        return room // (QKV_BOX_BYTES + 16) // 2 * 2
+
+    bn = next(n for n in QKV_SLICE_WIDTHS if h % n == 0 and stages(n) >= 4)
+    slices, n_stages = 3 * h // bn, stages(bn)
+    ctas = slices * max(1, min(sms // slices, -(-r // QKV_ROWS)))
+    smem = (1024 + bn * h * 2 + (n_stages + QKV_CONSUMERS) * QKV_BOX_BYTES
+            + (2 * n_stages + 1) * 8)
+    return QKVPlan(bn, slices, n_stages, ctas, smem)
+
+
 def fused_resid_ln_plain(x, ctx, w, b, ln_scale, ln_bias, eps: float):
     """Plain PyTorch version of :func:`fused_resid_ln`."""
     return _layer_norm(x.float() + _dense(ctx, w, b), ln_scale, ln_bias, eps)
@@ -67,10 +112,11 @@ def fused_ffn_ln_plain(x, w_in, b_in, w_out, b_out, ln_scale, ln_bias, eps: floa
     return _layer_norm(x + _dense(up, w_out, b_out), ln_scale, ln_bias, eps)
 
 
+@functools.cache
 def _library():
     lib = _cuda.library("fused_bert")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_qkv.argtypes = [p] * 10 + [i, i, p]
+    lib.fused_qkv.argtypes = [p] * 4 + [i] * 5 + [p]
     lib.fused_resid_ln.argtypes = [p, p, i, p, p, p, p, ctypes.c_float, p, i, i, p]
     lib.fused_ffn_ln.argtypes = [p] * 7 + [ctypes.c_float, p, i, i, i, p]
     for fn in (lib.fused_qkv, lib.fused_resid_ln, lib.fused_ffn_ln):
@@ -96,11 +142,15 @@ def _rows(x: torch.Tensor) -> tuple[torch.Tensor, int, int]:
     return x.float().contiguous(), r, h
 
 
-def _operand(t: torch.Tensor, shape: tuple, dtype: torch.dtype, device, name: str):
+def _check(t: torch.Tensor, shape: tuple, device, name: str) -> None:
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} must be {shape}; got {tuple(t.shape)}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, not {device}")
+
+
+def _operand(t: torch.Tensor, shape: tuple, dtype: torch.dtype, device, name: str):
+    _check(t, shape, device, name)
     return t.to(dtype).contiguous()
 
 
@@ -122,22 +172,56 @@ def _on_cpu(x: torch.Tensor) -> bool:
     return False
 
 
-def fused_qkv(x, wq, bq, wk, bk, wv, bv):
-    """(q, k, v), each (R, H) f32.  The kernel for a CUDA tensor, the
-    plain version for a CPU tensor; nothing else."""
+def _on_device(dev: torch.device):
+    """``dev`` made current for the block, unless it is already."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` at a 16-byte-aligned address, as TMA reads it."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+@functools.cache
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def fused_qkv(x, wq, bq, wk, bk, wv, bv, packed=None):
+    """(q, k, v), each (R, H) f32 (on the card, views of one (3, R, H)
+    tensor).  The kernel for a CUDA tensor, the plain version for a CPU
+    tensor; nothing else.  ``packed`` is
+    :func:`pack_qkv` of these weights, made once by a caller that keeps
+    it (``BertLayer.qkv_pack``); without it each call packs them."""
     if _on_cpu(x):
-        return fused_qkv_plain(x, wq, bq, wk, bk, wv, bv)
+        if packed is None:
+            return fused_qkv_plain(x, wq, bq, wk, bk, wv, bv)
+        h = x.shape[-1]
+        w, b = packed
+        return fused_qkv_plain(x, *(t for i in range(3) for t in (w[i * h:(i + 1) * h],
+                                                                 b[i * h:(i + 1) * h])))
     xf, r, h = _rows(x)
-    bf, f32, dev = torch.bfloat16, torch.float32, xf.device
-    ops = []
-    for tag, w, b in (("q", wq, bq), ("k", wk, bk), ("v", wv, bv)):
-        ops += [_operand(w, (h, h), bf, dev, f"w{tag}"), _operand(b, (h,), f32, dev, f"b{tag}")]
-    q, k, v = (torch.empty((r, h), dtype=f32, device=dev) for _ in range(3))
-    with torch.cuda.device(dev):
-        _launch(_library().fused_qkv, "fused_qkv", xf.data_ptr(),
-                *(t.data_ptr() for t in ops), q.data_ptr(), k.data_ptr(), v.data_ptr(), r, h)
+    dev = xf.device
+    if packed is None:
+        for name, t in zip(("wq", "bq", "wk", "bk", "wv", "bv"), (wq, bq, wk, bk, wv, bv)):
+            _check(t, (h, h) if name[0] == "w" else (h,), dev, name)
+        packed = pack_qkv(wq, bq, wk, bk, wv, bv)
+    w, b = packed
+    if not (w.dtype == torch.bfloat16 and b.dtype == torch.float32 and w.shape == (3 * h, h)
+            and b.shape == (3 * h,) and w.device == dev and b.device == dev
+            and w.is_contiguous() and b.is_contiguous() and w.data_ptr() % 16 == 0):
+        raise ValueError("packed must be pack_qkv's (3H, H) bf16 weight and (3H,) f32 bias "
+                         f"on {dev}")
+    xf = _aligned(xf)
+    plan = qkv_plan(h, r, _sm_count(dev))
+    out = torch.empty((3, r, h), dtype=torch.float32, device=dev)
+    with _on_device(dev):
+        _launch(_library().fused_qkv, "fused_qkv", xf.data_ptr(), w.data_ptr(), b.data_ptr(),
+                out.data_ptr(), r, h, plan.bn, plan.stages, plan.ctas)
     _count(fused_qkv)
-    return q, k, v
+    return out.unbind(0)
 
 
 def fused_resid_ln(x, ctx, w, b, ln_scale, ln_bias, eps: float):

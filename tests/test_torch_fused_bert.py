@@ -231,6 +231,20 @@ def test_fused_block_encoder_matches_jax(fused_block):
                            "port": dict.fromkeys(FUSED_FNS, 2)}
 
 
+def test_fused_block_after_a_reload_matches_jax(fused_block):
+    """The layers' QKV packs follow the weights: a model reloaded with new
+    parameters runs its fused branch with them, not with the packs cast
+    from the old ones."""
+    _, jcfg, model = make_models(10)
+    ids, types, mask = make_inputs(seed=10)
+    model.encode(t(ids), t(types), t(mask))  # packs the first weights
+    params = jbert.init_params(jax.random.PRNGKey(11), jcfg)
+    tbert.load_jax_params(model, jax.tree_util.tree_map(np.asarray, params))
+    want = np.asarray(jbert.encode(params, ids, types, mask, jcfg))
+    got = model.encode(t(ids), t(types), t(mask)).numpy()
+    np.testing.assert_allclose(got, want, atol=5e-3, rtol=0)
+
+
 def test_fused_block_is_the_unfused_tanh_function(monkeypatch):
     """The opt-in changes how a layer runs, not what it computes: the
     fused branch against the port's own unfused layer with tanh GELU."""

@@ -211,6 +211,10 @@ def block_case(r, h, i, dev, seed=0):
     )
 
 
+def qkv_args(c):
+    return (c["x"], c["w"][0], c["b"][0], c["w"][1], c["b"][1], c["w"][2], c["b"][2])
+
+
 # the rerank shape of the main path (480 pairs x 400 tokens) and below it
 FUSED_CASES = [(r, h, i) for h, i in ((128, 512), (384, 1536))
                for r in (1, 100, 777, 4096, 192_000)]
@@ -237,12 +241,45 @@ def test_fused_ffn_ln_kernel_matches_plain(cuda, full_f32, r, h, i):
 @pytest.mark.parametrize("r,h,i", FUSED_CASES)
 def test_fused_qkv_kernel_matches_plain(cuda, full_f32, r, h, i):
     c = block_case(r, h, i, cuda, seed=r + 1)
-    args = (c["x"], c["w"][0], c["b"][0], c["w"][1], c["b"][1], c["w"][2], c["b"][2])
+    args = qkv_args(c)
     got = fused_bert.fused_qkv(*args)
     torch.cuda.synchronize()
     for g, want in zip(got, fused_bert.fused_qkv_plain(*args)):
         assert g.shape == (r, h) and g.dtype == torch.float32
         torch.testing.assert_close(g, want, atol=2e-3, rtol=2e-3)
+
+
+# what a persistent kernel can get wrong: blocks with unequal numbers of
+# tiles and a ragged last tile (65, 64 x 137 + 5), fewer units than
+# multiprocessors (1,024, the embed shape), and every accepted width, so
+# every slice width (64, 128, 192) and ring depth of the plan
+QKV_CASES = [(65, 384), (64 * 137 + 5, 384), (1024, 384), (64 * 137 + 5, 512)] + [
+    (777, h) for h in range(64, 513, 64)]
+
+
+@pytest.mark.parametrize("r,h", QKV_CASES)
+def test_fused_qkv_kernel_plan_cases(cuda, full_f32, r, h):
+    c = block_case(r, h, 4 * h, cuda, seed=r + h)
+    args = qkv_args(c)
+    before = fused_bert.fused_qkv.launches
+    got = fused_bert.fused_qkv(*args)
+    torch.cuda.synchronize()
+    assert fused_bert.fused_qkv.launches == before + 1
+    for g, want in zip(got, fused_bert.fused_qkv_plain(*args)):
+        assert g.shape == (r, h) and g.dtype == torch.float32
+        torch.testing.assert_close(g, want, atol=2e-3, rtol=2e-3)
+
+
+def test_fused_qkv_kernel_is_deterministic_and_takes_a_pack(cuda):
+    """Two launches on the same inputs give the same bits (no atomics, no
+    order that changes between runs), with the weights packed by the
+    wrapper or once by the caller."""
+    c = block_case(64 * 137 + 5, 384, 1536, cuda, seed=11)
+    args = qkv_args(c)
+    first = fused_bert.fused_qkv(*args)
+    again = fused_bert.fused_qkv(*args, fused_bert.pack_qkv(*args[1:]))
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("ctx_dtype", [torch.float32, torch.bfloat16])
@@ -265,6 +302,9 @@ def test_fused_kernels_take_a_bf16_activation(cuda):
     res = (c["ctx"], c["w"][3], c["b"][3], c["s"], c["lb"], 1e-12)
     assert torch.equal(fused_bert.fused_resid_ln(xb, *res),
                        fused_bert.fused_resid_ln(xb.float(), *res))
+    qkv = qkv_args(c)[1:]
+    for a, b in zip(fused_bert.fused_qkv(xb, *qkv), fused_bert.fused_qkv(xb.float(), *qkv)):
+        assert torch.equal(a, b)
 
 
 def test_fused_kernels_reject_shapes(cuda):
