@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--topk-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
 
 Drives ``financial_rag_system_tpu_torch`` end to end on the card, in
-six phases; any failure raises and the script exits non-zero:
+seven phases; any failure raises and the script exits non-zero:
 
 0. the card: name, power limit and compute capability (Hopper, 9.0);
 1. build: every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a``
@@ -16,8 +16,12 @@ six phases; any failure raises and the script exits non-zero:
    persisted 131,072-row flat index with a 368-wide token store; three
    single asks, two bursts of 32 concurrent asks (one fused batch each)
    and a cache hit,
-   with the kernels' launch counts read around the run, then one batch
-   checked against the same pipeline run on the CPU;
+   with the kernels' launch counts read around the run (the query embed,
+   below S 256, takes the JAX einsum path's attention, so kernel 2
+   launches in the 6 rerank layers only), then one batch checked against
+   the same pipeline run on the CPU, and the batch of 32 with the embed's
+   attention as the einsum path and as kernel 2 compute it (their top-15
+   overlap);
 4. the IVF path (BASELINE config 3): a clustered 1,048,576-row corpus
    built on the card, ``engine.rebuild_index("ivf")`` (the call behind
    ``POST /index/rebuild``) with its build time by step, three single
@@ -36,7 +40,16 @@ six phases; any failure raises and the script exits non-zero:
    batch of 32 each way; kernels 4-6 against their plain versions at the
    rerank and embed shapes, with their times beside the plain version's,
    the unfused layer's torch sequence for the same half-layer, a library
-   call where one computes the same function, and the bound.
+   call where one computes the same function, and the bound;
+6. int8 corpora (``RAG_TPU_INDEX_DTYPE=int8``): the phase-3 corpus saved
+   as an int8 ``flat_index.npz`` and served through
+   ``build_default_engine(device="cuda")`` (3 single asks, a burst of 32,
+   a cache hit), one batch against the CPU pipeline (the same rows),
+   the int8 top-15 against the bf16 top-15 of the same vectors (reported
+   only), the int8 branch of kernel 1 against its plain version bit for
+   bit; then phase 4 over an int8 corpus of 1,048,576 rows (one burst),
+   with the int8 branch of kernel 3 against its plain version bit for bit
+   and recall@15 against the exact int8 flat top-15.
 
 ``--topk-baseline`` also builds the ``masked_topk.cu`` of an earlier
 checkout and holds kernel 1 bit for bit against it.
@@ -67,6 +80,7 @@ PACKAGE = "financial_rag_system_tpu_torch"
 # H100 SXM published peaks (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+INT8_OP_PER_S = 1979e12
 
 # main-path shapes
 B, N, D, K = 32, 131_072, 384, 15
@@ -116,9 +130,11 @@ def median_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOP_PER_S) -> tuple[float, str]:
+    """The larger of the bytes over the memory rate and the operations
+    over ``peak`` (the bf16 tensor-core rate unless given)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -281,7 +297,9 @@ def check_attention_at(torch, np, smi: str, p: int, s: int, h: int = 12) -> dict
 
 def check_attention(torch, np, smi: str) -> dict:
     rerank = check_attention_at(torch, np, smi, PAIRS, 400)
-    check_attention_at(torch, np, smi, B, 32)     # the query embed's shape
+    # the query embed's shape: the main paths take the einsum path there
+    # (S < 256), RAG_TPU_PAIR_ATTN=1 sends it to the kernel
+    check_attention_at(torch, np, smi, B, 32)
     return {
         "name": "pair_attention", "route": "cuda",
         "source": f"{PACKAGE}/csrc/pair_attention.cu",
@@ -335,26 +353,36 @@ def write_index(torch, np, work: Path) -> None:
     index.save(str(work / "index"))
 
 
-def kernel_wrappers() -> dict:
-    """Each kernel's wrapper by its name in the ``kernels`` line; each
-    counts its launches in ``.launches``."""
+def kernel_counters() -> dict:
+    """Each kernel's launch counter by its name in the ``kernels`` line:
+    (wrapper, attribute).  The int8 branches of kernels 1 and 3 count
+    apart from their bf16 branches."""
     from financial_rag_system_tpu_torch.index.ivf import ivf_probe
     from financial_rag_system_tpu_torch.ops import fused_bert
     from financial_rag_system_tpu_torch.ops.attention import encoder_self_attention
     from financial_rag_system_tpu_torch.ops.topk import masked_topk
 
-    return {"masked_topk": masked_topk, "pair_attention": encoder_self_attention,
-            "ivf_probe": ivf_probe, "fused_ffn_ln": fused_bert.fused_ffn_ln,
-            "fused_qkv": fused_bert.fused_qkv, "fused_resid_ln": fused_bert.fused_resid_ln}
+    return {"masked_topk": (masked_topk, "launches"),
+            "masked_topk_int8": (masked_topk, "launches_int8"),
+            "pair_attention": (encoder_self_attention, "launches"),
+            "ivf_probe": (ivf_probe, "launches"),
+            "ivf_probe_int8": (ivf_probe, "launches_int8"),
+            **{name: (getattr(fused_bert, name), "launches")
+               for name in ("fused_ffn_ln", "fused_qkv", "fused_resid_ln")}}
 
 
 def reset_launches() -> None:
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    for fn, attr in kernel_counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in kernel_counters().items()}
+
+
+def want_launches(**counts: int) -> dict:
+    """Every kernel's expected launches: 0 unless given."""
+    return {name: counts.get(name, 0) for name in kernel_counters()}
 
 
 FUSED_BLOCK_KERNELS = ("fused_ffn_ln", "fused_qkv", "fused_resid_ln")
@@ -362,13 +390,16 @@ FUSED_BLOCK_KERNELS = ("fused_ffn_ln", "fused_qkv", "fused_resid_ln")
 FUSED_BLOCK_ENV = {"RAG_TPU_FUSED_BLOCK": "1", "RAG_TPU_FAST_GELU": "1"}
 
 
-def drive_main_path(torch, np, work: Path, smi: str, label: str = "main") -> dict:
-    """The flat tier through ``build_default_engine(device="cuda")``: 3
-    single asks, two bursts of 32 and a cache hit.  ``label`` tags the log
-    lines and, past the first run, the questions, so that no ask of a
-    later run is a cache hit of an earlier one.  The fused-block kernels
-    launch 18 times a batch when the caller has set their opt-in, else
-    never."""
+def drive_main_path(torch, np, work: Path, smi: str, label: str = "main",
+                    index: str = "index", rounds: int = 2) -> dict:
+    """The flat tier through ``build_default_engine(device="cuda")`` over
+    the index saved in ``work / index``: 3 single asks, ``rounds`` bursts
+    of 32 and a cache hit.  ``label`` tags the log lines and, past the
+    first run, the questions, so that no ask of a later run is a cache hit
+    of an earlier one.  Kernel 1's bf16 or int8 branch launches once a
+    batch, as the index is; kernel 2 once a rerank layer (the query embed,
+    below S 256, takes the einsum path); the fused-block kernels 18 times
+    a batch when the caller has set their opt-in, else never."""
     from financial_rag_system_tpu_torch.models import bert
     from financial_rag_system_tpu_torch.models.tokenizer import pad_batch
     from financial_rag_system_tpu_torch.obs.tracing import get_tracer
@@ -378,7 +409,7 @@ def drive_main_path(torch, np, work: Path, smi: str, label: str = "main") -> dic
     os.environ.update({
         "RAG_TPU_BGE_DIR": str(work / "bge"),
         "RAG_TPU_RERANKER_DIR": str(work / "reranker"),
-        "INDEX_DIR": str(work / "index"),
+        "INDEX_DIR": str(work / index),
         "TESTING": "true",
         "DATABASE_URL": str(work / "cache.db"),
         "RAG_TPU_CB_PATH": str(work / "breaker.json"),
@@ -420,7 +451,7 @@ def drive_main_path(torch, np, work: Path, smi: str, label: str = "main") -> dic
             answers = [await engine.ask(q, t, 5, d) for q, t, d in singles]
             # two bursts: the first pays the one-time costs of a new batch
             # shape (allocator growth, GEMM heuristics); the second is warm
-            for n in range(2):
+            for n in range(rounds):
                 answers += await asyncio.gather(*[
                     engine.ask(f"{q} (round {n})", t, 5, d) for q, t, d in burst
                 ])
@@ -437,12 +468,15 @@ def drive_main_path(torch, np, work: Path, smi: str, label: str = "main") -> dic
     launches = read_launches()
 
     n_batches = len(batches)
-    if [n for n, _ in batches] != [1, 1, 1, B, B]:
-        raise AssertionError(f"batch sizes {[n for n, _ in batches]} != [1, 1, 1, {B}, {B}]")
-    # per fused batch: one top-k, and each encoder kernel once a layer
-    # (12 embed + 6 rerank); the fused-block kernels only under their opt-in
-    want = {"masked_topk": n_batches, "pair_attention": 18 * n_batches, "ivf_probe": 0,
-            **dict.fromkeys(FUSED_BLOCK_KERNELS, 18 * n_batches if fused_block else 0)}
+    if [n for n, _ in batches] != [1, 1, 1] + [B] * rounds:
+        raise AssertionError(f"batch sizes {[n for n, _ in batches]} != [1, 1, 1] + "
+                             f"[{B}] * {rounds}")
+    # per fused batch: one top-k, attention once a rerank layer (6), and
+    # the fused-block kernels once a layer (12 embed + 6 rerank) under
+    # their opt-in
+    topk = "masked_topk_int8" if engine.index.quantized else "masked_topk"
+    want = want_launches(**{topk: n_batches, "pair_attention": 6 * n_batches},
+                         **dict.fromkeys(FUSED_BLOCK_KERNELS, 18 * n_batches if fused_block else 0))
     if launches != want:
         raise AssertionError(f"[{label}] launches {launches}, want {want}")
     check_answers(np, answers, 5)
@@ -569,23 +603,54 @@ def check_against_cpu(torch, np, main: dict, cpu_models) -> None:
     compare_batches(np, "[main] card vs CPU", got, ref)
 
 
+def check_attention_gate(torch, np, main: dict, smi: str) -> None:
+    """The query embed's attention before and after it followed the JAX
+    gate: the flat batch of 32 with the embed (S < 256) taking the JAX
+    einsum path's arithmetic (the default) and kernel 2's
+    (``RAG_TPU_PAIR_ATTN=1``, what the port computed before); kernel 2's
+    launches each way and the two batches' top-15 overlap."""
+    from financial_rag_system_tpu_torch.ops.attention import encoder_self_attention
+
+    engine = main["engine"]
+
+    def batch():
+        n0 = encoder_self_attention.launches
+        out = flat_batch(torch, engine, main["burst"], "cuda", engine.index,
+                         (engine.embedder, engine.reranker))
+        return out, encoder_self_attention.launches - n0
+
+    (rows_e, bi_e, _), n_einsum = batch()
+    with env_set(RAG_TPU_PAIR_ATTN="1"):
+        (rows_k, bi_k, _), n_kernel = batch()
+    if (n_einsum, n_kernel) != (6, 18):
+        raise AssertionError(f"kernel 2 launched {n_einsum} and {n_kernel} times, want 6 and 18")
+    overlap = [len(set(a.tolist()) & set(b.tolist())) for a, b in zip(rows_e, rows_k)]
+    log(f"[gate] {smi}: flat batch of {B}, query embed with the einsum arithmetic against "
+        f"kernel 2's: top-{K} overlap mean {np.mean(overlap) / K:.4f}, lowest "
+        f"{min(overlap)} of {K}, queries with all {K} shared {overlap.count(K)} of {B}; "
+        f"bi score max abs diff {float(np.abs(bi_e - bi_k).max()):.3g}; kernel 2 launches "
+        f"{n_einsum} and {n_kernel}")
+
+
 # -- phase 4: the IVF path ------------------------------------------------------
 
 
-def clustered_flat(torch, np, n: int, tok, seed: int, dev, plant=None):
+def clustered_flat(torch, np, n: int, tok, seed: int, dev, plant=None,
+                   dtype=None):
     """A FlatIndex of ``n`` clustered unit rows made on ``dev`` (no host
     copy of the corpus): N_TOPICS topic centres; N_TICKERS tickers x 3
     document types drawn evenly, so no ticker is selective; RARE_ROWS rows
     of the ticker RARE; a DLEN-wide token store of random wordpiece ids.
     ``plant`` = (query vectors, filters) gives each query K rows at cosines
-    0.90, 0.88, ... under its filter, so its top K stand clear of rounding."""
+    0.90, 0.88, ... under its filter, so its top K stand clear of rounding.
+    ``dtype``: bf16 (the default) or int8 rows."""
     from financial_rag_system_tpu_torch.index.flat import FlatIndex
     from financial_rag_system_tpu_torch.models.tokenizer import SEP_ID
 
     normalize = torch.nn.functional.normalize
     g = torch.Generator(device=dev).manual_seed(seed)
     flat = FlatIndex(D, capacity=n + 1024, tile=1024, token_store_len=DLEN, tokenizer=tok,
-                     device=dev)
+                     device=dev, dtype=dtype or torch.bfloat16)
     emb, codes, dtok = flat._arrays
     centres = normalize(torch.randn((N_TOPICS, D), generator=g, device=dev), dim=1)
     cols = torch.arange(DLEN, device=dev)
@@ -594,7 +659,7 @@ def clustered_flat(torch, np, n: int, tok, seed: int, dev, plant=None):
         m = min(step, n - s)
         topic = torch.randint(0, N_TOPICS, (m,), generator=g, device=dev)
         x = centres[topic] + TOPIC_NOISE / D**0.5 * torch.randn((m, D), generator=g, device=dev)
-        emb[s : s + m] = normalize(x, dim=1).to(emb.dtype)
+        emb[s : s + m] = flat.prep_queries(normalize(x, dim=1))
         last = torch.randint(DLEN // 2, DLEN + 1, (m, 1), generator=g, device=dev) - 1
         wp = torch.randint(1000, 30522, (m, DLEN), generator=g, device=dev, dtype=torch.int32)
         dtok[s : s + m] = torch.where(cols < last, wp, torch.where(cols == last, SEP_ID, 0))
@@ -611,7 +676,7 @@ def clustered_flat(torch, np, n: int, tok, seed: int, dev, plant=None):
                 noise = rng.standard_normal(D)
                 noise -= (noise @ q) * q
                 v = cos * q + np.sqrt(1 - cos**2) * noise / np.linalg.norm(noise)
-                emb[r] = torch.as_tensor(v, dtype=torch.float32, device=dev).to(emb.dtype)
+                emb[r] = flat.prep_queries(torch.as_tensor(v, dtype=torch.float32, device=dev))
                 tick[r] = names.index(t)
                 dtyp[r] = dtyp[r] if d is None else DOC_TYPES.index(d)
     store = flat.store
@@ -637,20 +702,23 @@ def check_answers(np, answers, top_k: int) -> None:
             raise AssertionError("non-finite rerank score")
 
 
-def drive_ivf_path(torch, np, flat_run: dict, smi: str) -> dict:
-    """The IVF tier as users reach it: a 1M-chunk corpus promoted by
-    ``rebuild_index("ivf")``, then asks, an upsert and a cache hit through
-    the batched engine, with every kernel's launches counted around them."""
+def drive_ivf_path(torch, np, flat_run: dict, smi: str, label: str = "ivf",
+                   dtype=None, rounds: int = 2) -> dict:
+    """The IVF tier as users reach it: a 1M-chunk corpus (bf16 rows, or
+    int8 ones for ``dtype=torch.int8``) promoted by ``rebuild_index("ivf")``,
+    then 3 single asks, ``rounds`` bursts of 32, a rare-ticker ask (staged),
+    an upsert and an ask that finds it, and a cache hit through the
+    batched engine, with every kernel's launches counted around them."""
     from financial_rag_system_tpu_torch.serving.engine import RAGEngine
     from financial_rag_system_tpu_torch.utils.config import get_config
 
     base = flat_run["engine"]
     t0 = time.perf_counter()
     flat = clustered_flat(torch, np, N_IVF, base.embedder.tokenizer, SEED + 2,
-                          torch.device("cuda"))
+                          torch.device("cuda"), dtype=dtype)
     torch.cuda.synchronize()
-    log(f"[ivf] {N_IVF} rows ({N_TOPICS} topics, {N_TICKERS} tickers x {len(DOC_TYPES)} doc "
-        f"types, {RARE_ROWS} rows of {RARE}) made on the card in "
+    log(f"[{label}] {N_IVF} {flat.dtype} rows ({N_TOPICS} topics, {N_TICKERS} tickers x "
+        f"{len(DOC_TYPES)} doc types, {RARE_ROWS} rows of {RARE}) made on the card in "
         f"{time.perf_counter() - t0:.1f} s")
     engine = RAGEngine(get_config(), flat, base.embedder, base.reranker)
     t0 = time.perf_counter()
@@ -661,9 +729,11 @@ def drive_ivf_path(torch, np, flat_run: dict, smi: str) -> dict:
     kind = engine.queue_status()["fused_kind"]
     if kind != "ivf_full" or geom != IVF_GEOMETRY or built["tail_rows"]:
         raise AssertionError(f"rebuild_index: {built}, fused_kind {kind!r}, geometry {geom}")
+    if idx.packed_emb.dtype != flat.dtype or idx.centroids.dtype != torch.bfloat16:
+        raise AssertionError(f"packing {idx.packed_emb.dtype}, centroids {idx.centroids.dtype}")
     split = {k: round(v, 3) for k, v in idx.build_seconds.items()}
-    log(f"[ivf] {smi}: rebuild_index('ivf') {build_s:.2f} s, by step (s) {split}; geometry "
-        f"(clusters, nprobe, c_max, tiles/cluster, tiles) {geom}")
+    log(f"[{label}] {smi}: rebuild_index('ivf') {build_s:.2f} s, by step (s) {split}; "
+        f"geometry (clusters, nprobe, c_max, tiles/cluster, tiles) {geom}")
 
     batches = []  # (size, fused, wall ms)
     actives = []  # each fused batch's active probed tiles (0-d device tensors)
@@ -684,19 +754,20 @@ def drive_ivf_path(torch, np, flat_run: dict, smi: str) -> dict:
 
     engine._fused_exec, engine.batcher.batch_fn = exec_spy, timed_batch
     engine.llm_semaphore = asyncio.Semaphore(B)
-    singles = [(f"{q} in the filings", t, d) for q, t, d in flat_run["singles"]]
+    singles = [(f"{q} in the filings ({label})", t, d) for q, t, d in flat_run["singles"]]
     burst = flat_run["burst"]
-    fresh = [f"fresh filing note {i}: the board approved a special dividend" for i in range(4)]
+    fresh = [f"fresh filing note {i} ({label}): the board approved a special dividend"
+             for i in range(4)]
 
     async def scenario():
         await engine.startup()
         try:
             answers = [await engine.ask(q, t, 5, d) for q, t, d in singles]
-            for n in range(2):
+            for n in range(rounds):
                 answers += await asyncio.gather(*[
-                    engine.ask(f"{q} (ivf round {n})", t, 5, d) for q, t, d in burst
+                    engine.ask(f"{q} ({label} round {n})", t, 5, d) for q, t, d in burst
                 ])
-            rare = await engine.ask("liquidity risk of the rare issuer", RARE, 5)
+            rare = await engine.ask(f"liquidity risk of the rare issuer ({label})", RARE, 5)
             added = await engine.ingest_chunks(
                 [f"fresh-{i}" for i in range(len(fresh))], fresh,
                 [{"ticker": "T05", "document_type": "10-K"}] * len(fresh),
@@ -713,18 +784,20 @@ def drive_ivf_path(torch, np, flat_run: dict, smi: str) -> dict:
     launches = read_launches()
 
     shape = [(n, f) for n, f, _ in batches]
-    if shape != [(1, True)] * 3 + [(B, True)] * 2 + [(1, False), (1, True)]:
+    if shape != [(1, True)] * 3 + [(B, True)] * rounds + [(1, False), (1, True)]:
         raise AssertionError(f"batches (size, fused) {shape}")
     n_fused = sum(f for _, f in shape)
     n_staged = len(shape) - n_fused
     # one probe per batch (the staged search probes too), kernel 1 on the
-    # staged batch's selective rows, 18 attention launches per batch (12
-    # embed + 6 rerank layers) and 12 for the upsert's embed; the
-    # fused-block kernels are off by default
-    want = {"masked_topk": n_staged, "pair_attention": 18 * len(shape) + 12,
-            "ivf_probe": n_fused + n_staged, **dict.fromkeys(FUSED_BLOCK_KERNELS, 0)}
+    # staged batch's selective rows, attention once a rerank layer of a
+    # fused batch (the 400-token pairs); the query and upsert embeds and
+    # the staged batch's rerank of its short chunk texts stay below S 256
+    # and take the einsum path; the fused-block kernels are off by default
+    sfx = "_int8" if flat.quantized else ""
+    want = want_launches(**{f"masked_topk{sfx}": n_staged, f"ivf_probe{sfx}": n_fused + n_staged,
+                            "pair_attention": 6 * n_fused})
     if launches != want:
-        raise AssertionError(f"launches {launches}, want {want}")
+        raise AssertionError(f"[{label}] launches {launches}, want {want}")
     check_answers(np, answers + [rare], 5)
     check_answers(np, [found], K)
     if not all(f" of {RARE} " in s["text"] for s in rare["sources"]):
@@ -736,10 +809,10 @@ def drive_ivf_path(torch, np, flat_run: dict, smi: str) -> dict:
     if not (repeat["cached"] and repeat["provider"] == "Cache"):
         raise AssertionError("the repeated query was not a cache hit")
     active = [int(a) for a in actives]
-    log(f"[ivf] {smi}: launches {launches} over {n_fused} fused and {n_staged} staged "
+    log(f"[{label}] {smi}: launches {launches} over {n_fused} fused and {n_staged} staged "
         f"batches; batch walls (size, fused, ms) {batches}; active tiles per fused batch "
         f"{active}")
-    return {"engine": engine, "burst": burst, "launches": launches}
+    return {"engine": engine, "burst": burst, "launches": launches, "label": label}
 
 
 def recall_at_k(np, rows, exact_s, exact_rows) -> list[float]:
@@ -752,19 +825,24 @@ def recall_at_k(np, rows, exact_s, exact_rows) -> list[float]:
 
 
 def check_ivf_kernel(torch, np, ivf_run: dict, smi: str) -> dict:
-    """Kernel 3 against its plain version on the probe list of a real batch
-    of 32 over the 1M packing; its time beside kernel 1's over the same
-    corpus, there and on a diverse batch's list; the fused IVF batch's
-    recall@15 against the exact flat top-15, and its profile."""
+    """Kernel 3 (its bf16 or int8 branch, as the packing is) against its
+    plain version on the probe list of a real batch of 32 over the 1M
+    packing: within 1e-4 in bf16, bit for bit in int8; its time beside
+    kernel 1's over the same corpus, there and on a diverse batch's list;
+    the fused IVF batch's recall@15 against the exact flat top-15, and its
+    profile."""
     from financial_rag_system_tpu_torch.index.ivf import ivf_probe, ivf_probe_plain
     from financial_rag_system_tpu_torch.ops import fused_query as fq
     from financial_rag_system_tpu_torch.ops.topk import masked_topk
 
-    engine = ivf_run["engine"]
+    engine, label = ivf_run["engine"], ivf_run["label"]
     idx = engine.index
     tile = idx.tile
     centroids, packed_emb, packed_codes, packed_gids = idx._state[:4]
     emb, codes, dtok = idx.flat._arrays
+    quantized = idx.flat.quantized
+    elt = packed_emb.element_size()
+    peak = INT8_OP_PER_S if quantized else BF16_FLOP_PER_S
     nv = idx.n_valid
     ids, types, mask, qf = fused_inputs(torch, engine, ivf_run["burst"], "cuda")
     with torch.inference_mode():
@@ -800,8 +878,8 @@ def check_ivf_kernel(torch, np, ivf_run: dict, smi: str) -> dict:
     if not (np.isfinite(s) == fin).all() or not (i[~fin] == -1).all():
         raise AssertionError("ivf_probe: empty slots differ from the plain version")
     err = float(np.abs(s[fin] - s_ref[fin]).max())
-    if err > 1e-4:
-        raise AssertionError(f"ivf_probe scores differ by {err} > 1e-4")
+    if err > 1e-4 or (quantized and s.tobytes() != s_ref.tobytes()):
+        raise AssertionError(f"ivf_probe ({packed_emb.dtype}) scores differ by {err}")
     # both order by (score desc, packed position asc): the ids must agree
     # wherever the score is finite, near-equal scores included
     if not (i[fin] == i_ref[fin]).all():
@@ -809,18 +887,19 @@ def check_ivf_kernel(torch, np, ivf_run: dict, smi: str) -> dict:
     if not ((i[1, 0], i[1, 1]) == (hi, lo) and s[1, 0] == s[1, 1]
             and (i_ref[1, 0], i_ref[1, 1]) == (hi, lo)):
         raise AssertionError("duplicated rows must tie, lower packed position first")
-    log(f"[ivf_probe] B={B} tiles {n_act} active of {tile_ids.numel()}: max_abs_err "
-        f"{err:.3g}; ids identical where finite: True; tie by packed position: True")
+    log(f"[ivf_probe] {packed_emb.dtype} B={B} tiles {n_act} active of {tile_ids.numel()}: "
+        f"max_abs_err {err:.3g}; scores bit for bit: {s.tobytes() == s_ref.tobytes()}; ids "
+        f"identical where finite: True; tie by packed position: True")
 
     # times on the real batch's list and on a diverse batch's (queries
     # near 32 random corpus rows), each beside kernel 1 over the 1M corpus
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     near = emb[torch.randint(0, nv, (B,), generator=g, device="cuda")].float()
-    qd = torch.nn.functional.normalize(
+    qd = fq._prep_queries(torch.nn.functional.normalize(
         near + 0.1 / D**0.5 * torch.randn((B, D), generator=g, device="cuda"), dim=1
-    ).to(packed_emb.dtype)
-    flat_bytes = nv * (2 * D + 8) + B * D * 2 + B * 8 + B * K * 8
-    flat_b = bound_ms(flat_bytes, 2.0 * B * nv * D)[0]
+    ), packed_emb.dtype)
+    flat_bytes = nv * (elt * D + 8) + B * D * elt + B * 8 + B * K * 8
+    flat_b = bound_ms(flat_bytes, 2.0 * B * nv * D, peak)[0]
     out = {}
     for name, qq in (("real", q), ("diverse", qd)):
         tl = tile_ids if name == "real" else probe_list(qq)
@@ -834,12 +913,12 @@ def check_ivf_kernel(torch, np, ivf_run: dict, smi: str) -> dict:
         ms = median_ms(lambda: ivf_probe(*real, tile=tile), reps=50)
         plain_ms = median_ms(lambda: ivf_probe_plain(*real, tile=tile), reps=10)
         flat_ms = median_ms(lambda: masked_topk(qq, emb, codes, qf, nv, K), reps=50)
-        nbytes = (a * tile * 4 + live * (2 * D + 8) + B * D * 2 + B * 8 + tl.numel() * 4
+        nbytes = (a * tile * 4 + live * (elt * D + 8) + B * D * elt + B * 8 + tl.numel() * 4
                   + B * K * 8)
-        b_ms, b_by = bound_ms(nbytes, 2.0 * B * live * D)
+        b_ms, b_by = bound_ms(nbytes, 2.0 * B * live * D, peak)
         rows_i = ivf_probe(*real, tile=tile)[1].cpu().numpy()
         recall = np.mean(recall_at_k(np, rows_i, *masked_topk(qq, emb, codes, qf, nv, K)))
-        log(f"[ivf_probe] {smi}: {name} batch of {B}: {a} active tiles of {tl.numel()} "
+        log(f"[ivf_probe] {smi}: {packed_emb.dtype} {name} batch of {B}: {a} active tiles of {tl.numel()} "
             f"({a * tile} slots, {live} live); kernel 3 {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}); kernel 1 over {nv} flat rows {flat_ms:.4f} ms, bound "
             f"{flat_b:.4f} ms; probe recall@{K} against flat {recall:.4f}")
@@ -850,15 +929,17 @@ def check_ivf_kernel(torch, np, ivf_run: dict, smi: str) -> dict:
     fused = engine._fused_fn
     rows, bi, _, act_t = profile_run(torch, lambda: fused(
         engine.embedder.model, engine.reranker.model, ids, types, mask, qf,
-        centroids, packed_emb, packed_codes, packed_gids, dtok), "fused_ivf_two_stage", smi)
+        centroids, packed_emb, packed_codes, packed_gids, dtok),
+        f"fused_ivf_two_stage ({packed_emb.dtype})", smi)
     hits = recall_at_k(np, rows.cpu().numpy(), *masked_topk(q, emb, codes, qf, nv, K))
     recall = float(np.mean(hits))
-    log(f"[ivf] {smi}: fused IVF batch of {B} ({int(act_t)} active tiles): recall@{K} "
-        f"against the exact flat top-{K} {recall:.4f} (lowest query {min(hits):.4f})")
+    log(f"[{label}] {smi}: fused IVF batch of {B} ({int(act_t)} active tiles): recall@{K} "
+        f"against the exact {packed_emb.dtype} flat top-{K} {recall:.4f} (lowest query "
+        f"{min(hits):.4f})")
     if recall < 0.9:
         raise AssertionError(f"IVF recall@{K} {recall} < 0.9")
     return {
-        "name": "ivf_probe", "route": "cuda",
+        "name": "ivf_probe_int8" if quantized else "ivf_probe", "route": "cuda",
         "source": f"{PACKAGE}/csrc/ivf_probe.cu",
         "replaces": "financial_rag_system_tpu/index/ivf.py:99",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1119,6 +1200,152 @@ def check_fused_block_kernels(torch, run: dict, smi: str) -> list[dict]:
              **out["rerank"][name]} for name, line in lines.items()]
 
 
+# -- phase 6: int8 corpora ------------------------------------------------------------
+
+def check_topk_int8(torch, np, smi: str) -> dict:
+    """Kernel 1's int8 branch against its plain version at the main path's
+    shape (phase 2's inputs, quantized), bit for bit in scores and ids,
+    with a planted tie; its time, the plain version's and its bound
+    (bytes at the memory rate, operations at the int8 tensor-core rate)."""
+    from financial_rag_system_tpu_torch.index.flat import quantize_int8
+    from financial_rag_system_tpu_torch.ops.topk import masked_topk, masked_topk_plain
+
+    n_valid = N - 100
+    q, c, codes, qf = topk_inputs(torch, np.random.default_rng(SEED), n_valid)
+    args = (quantize_int8(q), quantize_int8(c), codes, qf, n_valid, K)
+    del q, c
+    s, i = (x.cpu().numpy() for x in masked_topk(*args))
+    torch.cuda.synchronize()
+    s_ref, i_ref = (x.cpu().numpy() for x in masked_topk_plain(*args))
+    if s.tobytes() != s_ref.tobytes() or i.tobytes() != i_ref.tobytes():
+        raise AssertionError("int8 top-k differs from its plain version")
+    if np.isfinite(s[0]).sum() != 3:
+        raise AssertionError("the 3-row filter must give exactly 3 hits")
+    if not (i[1, 0] == 70_000 and i[1, 1] == 70_001 and s[1, 0] == s[1, 1]):
+        raise AssertionError("duplicated rows must tie, lower id first")
+    ms = median_ms(lambda: masked_topk(*args), reps=50)
+    plain_ms = median_ms(lambda: masked_topk_plain(*args), reps=10)
+    nbytes = N * D + 2 * N * 4 + B * D + B * 2 * 4 + B * K * 8
+    b_ms, b_by = bound_ms(nbytes, 2.0 * B * N * D, INT8_OP_PER_S)
+    log(f"[topk-int8] {smi}: B={B} N={N} D={D} K={K}: scores and ids bit for bit, tie by "
+        f"lower row; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {
+        "name": "masked_topk_int8", "route": "cuda",
+        "source": f"{PACKAGE}/csrc/masked_topk.cu",
+        "replaces": "financial_rag_system_tpu/ops/topk.py:99",
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+
+
+def write_int8_index(torch, np, work: Path, main: dict) -> dict:
+    """The phase-3 corpus as an int8 index in the JAX format, saved in
+    ``work / "index_int8"``: the bf16 index's rows widened, renormalized
+    and quantized (``index/flat.py quantize_int8``), with its codes, token
+    store and documents.  For the card-vs-CPU check, each of the first two
+    burst questions gets K of the rows its filter admits set to cosines
+    0.90, 0.88, ... with its vector, so its top K stand clear of the
+    quantization.  Returns the bf16 tensor of the same vectors too."""
+    from financial_rag_system_tpu_torch.index.flat import FlatIndex, quantize_int8
+
+    t0 = time.perf_counter()
+    engine = main["engine"]
+    flat = engine.index
+    emb, codes, dtok = (t[:N] for t in flat._arrays)
+    vecs = emb.float()
+    queries = main["burst"][:2]
+    qv = engine.embedder.encode([q for q, _, _ in queries])
+    host_codes = codes.cpu().numpy()
+    rng = np.random.default_rng(SEED + 7)
+    planted = []
+    for v, (_, t, d) in zip(qv, queries):
+        tc, dc = flat.store.query_codes(t, d)
+        ok = ((tc == -1) | (host_codes[0] == tc)) & ((dc == -1) | (host_codes[1] == dc))
+        rows = rng.choice(np.flatnonzero(ok), K, replace=False)
+        for j, r in enumerate(rows):
+            cos = 0.9 - 0.02 * j
+            noise = rng.standard_normal(D)
+            noise -= (noise @ v) * v
+            vecs[r] = torch.as_tensor(cos * v + np.sqrt(1 - cos**2) * noise
+                                      / np.linalg.norm(noise), dtype=torch.float32,
+                                      device=vecs.device)
+        planted.append(rows)
+    vecs = torch.nn.functional.normalize(vecs, dim=1)
+    index = FlatIndex(D, capacity=N, token_store_len=DLEN, device="cpu", dtype=torch.int8)
+    index._arrays = (quantize_int8(vecs).cpu(), codes.cpu(), dtok.cpu())
+    index.store = flat.store
+    index.save(str(work / "index_int8"))
+    log(f"[int8] the phase-3 corpus as an int8 index ({K} rows planted for each of 2 "
+        f"questions) written in {time.perf_counter() - t0:.1f} s")
+    return {"dir": "index_int8", "bf16": vecs.to(torch.bfloat16), "queries": queries,
+            "planted": np.stack(planted)}
+
+
+def check_int8_against_cpu(torch, np, run: dict, int8: dict, work: Path, cpu_models) -> None:
+    """The int8 flat pipeline on the card against the same pipeline on the
+    CPU over the same saved index: the planted rows in both, identical;
+    each side's bi scores equal, bit for bit, its own quantized queries'
+    integer dot products with those rows; the two sides' quantized queries
+    differ by at most one step a component (their f32 vectors differ in
+    the last digits, which moves a component across a rounding boundary
+    now and then); rerank logits within phase 3's 5e-2."""
+    from financial_rag_system_tpu_torch.index.flat import FlatIndex
+    from financial_rag_system_tpu_torch.ops import fused_query as fq
+
+    engine = run["engine"]
+    queries = int8["queries"]
+    cpu_index = FlatIndex.load(str(work / int8["dir"]), device="cpu")
+    card = (engine.embedder, engine.reranker)
+    got = flat_batch(torch, engine, queries, "cuda", engine.index, card)
+    ref = flat_batch(torch, engine, queries, "cpu", cpu_index, cpu_models)
+    (rows_g, bi_g, ce_g), (rows_c, bi_c, ce_c) = got, ref
+    if not (cpu_index.quantized and (rows_g == int8["planted"]).all() and (rows_c == rows_g).all()):
+        raise AssertionError(f"int8 card vs CPU: rows\n{rows_g}\n{rows_c}\n{int8['planted']}")
+
+    def quantized_queries(dev, models):
+        ids, types, mask, _ = fused_inputs(torch, engine, queries, dev)
+        with torch.inference_mode():
+            qv = fq._embed(models[0].model, ids, types, mask)
+        return fq._prep_queries(qv, torch.int8).cpu().numpy()[: len(queries)]
+
+    rows = cpu_index._emb.numpy().astype(np.int64)[rows_g]  # (2, K, D)
+    q_g, q_c = quantized_queries("cuda", card), quantized_queries("cpu", cpu_models)
+    for side, q, bi in (("card", q_g, bi_g), ("CPU", q_c, bi_c)):
+        if not (np.einsum("bkd,bd->bk", rows, q.astype(np.int64)) == bi).all():
+            raise AssertionError(f"int8 {side} bi scores are not its queries' dot products")
+    steps = np.abs(q_g.astype(np.int64) - q_c)
+    ce_err = float(np.abs(ce_g - ce_c).max())
+    if steps.max() > 1 or ce_err > 5e-2:
+        raise AssertionError(f"int8 card vs CPU: query steps {steps.max()}, ce err {ce_err}")
+    log(f"[int8] card vs CPU on {len(queries)} queries: the same {rows_g.size} rows (the "
+        f"planted ones); bi scores each side's exact dot products; quantized query "
+        f"components that differ by one step: {int(steps.sum())} of {steps.size}, bi err "
+        f"{float(np.abs(bi_g - bi_c).max()):.0f} (of {float(np.abs(bi_c).max()):.0f}); ce err "
+        f"{ce_err:.3g}")
+
+
+def int8_overlap(torch, np, run: dict, int8: dict, smi: str) -> None:
+    """Reported only: the top-15 of the burst's 32 questions over the int8
+    index against the top-15 over the bf16 rows of the same vectors (the
+    same query vectors, quantized or cast), through kernel 1."""
+    from financial_rag_system_tpu_torch.index.flat import quantize_int8
+    from financial_rag_system_tpu_torch.ops import fused_query as fq
+    from financial_rag_system_tpu_torch.ops.topk import masked_topk
+
+    engine = run["engine"]
+    ids, types, mask, qf = fused_inputs(torch, engine, run["burst"], "cuda")
+    with torch.inference_mode():
+        qv = fq._embed(engine.embedder.model, ids, types, mask)
+    emb8, codes, _ = engine.index._arrays
+    r8 = masked_topk(quantize_int8(qv), emb8, codes, qf, N, K)[1].cpu().numpy()[:B]
+    r16 = masked_topk(qv.to(torch.bfloat16), int8["bf16"], codes[:, :N].contiguous(), qf, N,
+                      K)[1].cpu().numpy()[:B]
+    overlap = [len(set(a.tolist()) & set(b.tolist()) - {-1}) for a, b in zip(r8, r16)]
+    log(f"[int8] {smi}: top-{K} of {B} questions, int8 index against bf16 rows of the same "
+        f"vectors: overlap mean {np.mean(overlap) / K:.4f}, lowest {min(overlap)} of {K}, "
+        f"queries with all {K} shared {overlap.count(K)} of {B}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -1157,6 +1384,7 @@ def main() -> int:
 
         cpu_models = (get_embedder(device="cpu"), get_reranker(device="cpu"))
         check_against_cpu(torch, np, main_run, cpu_models)
+        check_attention_gate(torch, np, main_run, smi)
         profile_batch(torch, main_run, smi)
         t0 = time.perf_counter()
         ivf_run = drive_ivf_path(torch, np, main_run, smi)
@@ -1170,12 +1398,28 @@ def main() -> int:
             check_fused_block_batch(torch, np, block_run, cpu_models, smi)
             kernels += check_fused_block_kernels(torch, block_run, smi)
         log(f"[fused-block] phase 5 took {time.perf_counter() - t0:.1f} s")
+        del block_run["engine"]
+        t0 = time.perf_counter()
+        int8 = write_int8_index(torch, np, work, main_run)
+        with env_set(RAG_TPU_INDEX_DTYPE="int8"):
+            int8_run = drive_main_path(torch, np, work, smi, label="int8", index=int8["dir"],
+                                       rounds=1)
+        check_int8_against_cpu(torch, np, int8_run, int8, work, cpu_models)
+        int8_overlap(torch, np, int8_run, int8, smi)
+        kernels.append(check_topk_int8(torch, np, smi))
+        del int8_run["engine"], int8["bf16"]
+        ivf8_run = drive_ivf_path(torch, np, main_run, smi, label="ivf-int8",
+                                  dtype=torch.int8, rounds=1)
+        kernels.append(check_ivf_kernel(torch, np, ivf8_run, smi))
+        del ivf8_run["engine"]
+        log(f"[int8] phase 6 took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    # launches over the three main paths, each counted from 0 around its run
+    # launches over the five main paths, each counted from 0 around its run
+    runs = (main_run, ivf_run, block_run, int8_run, ivf8_run)
     for kern in kernels:
         name = kern["name"]
-        kern["launches"] = sum(run["launches"][name] for run in (main_run, ivf_run, block_run))
+        kern["launches"] = sum(run["launches"][name] for run in runs)
         if kern["launches"] < 1:
             raise AssertionError(f"{name} never launched on the main paths")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

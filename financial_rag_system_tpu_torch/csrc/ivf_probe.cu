@@ -5,7 +5,9 @@
 // kernel behind ivf_probe_pallas) and computes what it computes: a probe
 // list of tile ids (-1 = inactive) names the `tile`-row blocks of the
 // packed corpus to visit; every row of a visited tile is scored against
-// each of B queries (bf16 x bf16, f32 sums) and masked out when it fails
+// each of B queries (bf16 x bf16 summed in f32: ivf_probe; or int8 x int8
+// summed in s32 and cast to f32, exact: ivf_probe_s8, the Pallas kernel's
+// int8 branch, ivf.py:123-137) and masked out when it fails
 // the query's [ticker, doc_type] code filter (-1 is the wildcard) or its
 // packed gid is -1 (padding, or a slot masked by a re-upsert); the (B, K)
 // best come out in descending score as original row ids (packed_gids).
@@ -16,8 +18,8 @@
 // Empty slots come out as score -inf and id -1, as ivf_probe_xla gives.
 //
 // Bound on the H100: the active tiles' gids (4 bytes a slot) and the rows
-// and codes of their live slots (2D + 8 bytes each), read once at
-// 3.35 TB/s.  A batch of 32 diverse queries probing 16 of 512 clusters
+// and codes of their live slots (2D + 8 bytes each in bf16, D + 8 in
+// int8), read once at 3.35 TB/s.  A batch of 32 diverse queries probing 16 of 512 clusters
 // activates about 10,000 of 16,384 tiles; about half of their slots are
 // padding (a cluster's block holds twice the average cluster), so about
 // 0.5 GB is live, ~0.15 ms; its products (2 * 32 * D flops a row) take a
@@ -42,9 +44,9 @@ using namespace topk;
 
 namespace {
 
+template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-ivf_partial_kernel(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ packed_emb,
+ivf_partial_kernel(const T* __restrict__ q, const T* __restrict__ packed_emb,
                    const int32_t* __restrict__ packed_codes,
                    const int32_t* __restrict__ packed_gids,
                    const int32_t* __restrict__ tile_ids,
@@ -52,14 +54,15 @@ ivf_partial_kernel(const __nv_bfloat16* __restrict__ q,
                    int tile, int n_probe, int k, float* __restrict__ part_s,
                    int32_t* __restrict__ part_i) {
   extern __shared__ __align__(16) uint32_t smem_u32[];
-  const Smem m = carve(smem_u32, D);
+  const int W = D / Elem<T>::kPerWord;
+  const Smem m = carve(smem_u32, W);
 
   const int split = blockIdx.x;
   const int splits = gridDim.x;
   const int qb0 = blockIdx.y * kQB;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  stage_rows(m.qs, q + (size_t)qb0 * D, kQB, min(kQB, B - qb0), D, m.stride);
+  stage_rows(m.qs, q + (size_t)qb0 * D, kQB, min(kQB, B - qb0), W, m.stride);
   const int qi = qb0 + lane;
   const bool live = qi < B;
   const int tq = live ? qf[qi * 2] : -3;
@@ -82,14 +85,14 @@ ivf_partial_kernel(const __nv_bfloat16* __restrict__ q,
       // block is: its rows are never loaded
       const bool row_live = threadIdx.x < kTile && packed_gids[base + threadIdx.x] >= 0;
       if (!__syncthreads_or(row_live)) continue;
-      stage_rows(m.ct, packed_emb + (size_t)base * D, kTile, kTile, D, m.stride);
+      stage_rows(m.ct, packed_emb + (size_t)base * D, kTile, kTile, W, m.stride);
       for (int r = threadIdx.x; r < kTile; r += blockDim.x) {
         m.tcodes[r] = packed_codes[base + r];
         m.tcodes[kTile + r] = packed_codes[(size_t)n_packed + base + r];
         m.tcodes[2 * kTile + r] = packed_gids[base + r];
       }
       __syncthreads();
-      score_tile(m, D, warp, lane);
+      score_tile<T>(m, W, warp, lane);
       __syncwarp();
 
       // lane = query: mask the warp's 8 rows and merge them into the list
@@ -114,35 +117,55 @@ ivf_partial_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-}  // namespace
-
-// Returns a cudaError_t: 1 (cudaErrorInvalidValue) for shapes the kernel
-// does not take, else the first launch error.  part_s / part_i hold
-// B * splits * k elements each; 1 <= splits <= n_probe.
-extern "C" int ivf_probe(const void* q, const void* packed_emb, const void* packed_codes,
-                         const void* packed_gids, const void* tile_ids, const void* qf,
-                         int B, int D, int n_packed, int tile, int n_probe, int k,
-                         int splits, void* part_s, void* part_i, void* out_s,
-                         void* out_i, void* stream) {
-  if (B < 1 || D < 16 || D > kMaxD || D % 16 != 0 || k < 1 || k > kMaxK ||
-      tile < kTile || tile % kTile != 0 || n_packed < tile || n_packed % tile != 0 ||
-      n_probe < 1 || splits < 1 || splits > n_probe)
+template <typename T>
+int launch(const void* q, const void* packed_emb, const void* packed_codes,
+           const void* packed_gids, const void* tile_ids, const void* qf, int B, int D,
+           int n_packed, int tile, int n_probe, int k, int splits, void* part_s,
+           void* part_i, void* out_s, void* out_i, void* stream) {
+  if (B < 1 || D < Elem<T>::kDimStep || D > kMaxD || D % Elem<T>::kDimStep != 0 || k < 1 ||
+      k > kMaxK || tile < kTile || tile % kTile != 0 || n_packed < tile ||
+      n_packed % tile != 0 || n_probe < 1 || splits < 1 || splits > n_probe)
     return (int)cudaErrorInvalidValue;
   const int qblocks = (B + kQB - 1) / kQB;
-  const size_t smem = smem_bytes(D);
+  const size_t smem = smem_bytes(D / Elem<T>::kPerWord);
   cudaError_t err = cudaFuncSetAttribute(
-      ivf_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      ivf_partial_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  ivf_partial_kernel<<<dim3(splits, qblocks), kWarps * 32, smem, s>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)packed_emb,
-      (const int32_t*)packed_codes, (const int32_t*)packed_gids, (const int32_t*)tile_ids,
-      (const int32_t*)qf, B, D, n_packed, tile, n_probe, k, (float*)part_s,
-      (int32_t*)part_i);
+  ivf_partial_kernel<T><<<dim3(splits, qblocks), kWarps * 32, smem, s>>>(
+      (const T*)q, (const T*)packed_emb, (const int32_t*)packed_codes,
+      (const int32_t*)packed_gids, (const int32_t*)tile_ids, (const int32_t*)qf, B, D,
+      n_packed, tile, n_probe, k, (float*)part_s, (int32_t*)part_i);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   merge_kernel<<<B, 32, 0, s>>>((const float*)part_s, (const int32_t*)part_i, splits * k,
                                 k, (const int32_t*)packed_gids, (float*)out_s,
                                 (int32_t*)out_i);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Each returns a cudaError_t: 1 (cudaErrorInvalidValue) for shapes the
+// kernel does not take (D a multiple of 16 for bf16, of 32 for int8, at
+// most 1024), else the first launch error.  part_s / part_i hold
+// B * splits * k elements each; 1 <= splits <= n_probe.
+extern "C" int ivf_probe(const void* q, const void* packed_emb, const void* packed_codes,
+                         const void* packed_gids, const void* tile_ids, const void* qf,
+                         int B, int D, int n_packed, int tile, int n_probe, int k,
+                         int splits, void* part_s, void* part_i, void* out_s,
+                         void* out_i, void* stream) {
+  return launch<__nv_bfloat16>(q, packed_emb, packed_codes, packed_gids, tile_ids, qf, B, D,
+                               n_packed, tile, n_probe, k, splits, part_s, part_i, out_s,
+                               out_i, stream);
+}
+
+extern "C" int ivf_probe_s8(const void* q, const void* packed_emb, const void* packed_codes,
+                            const void* packed_gids, const void* tile_ids, const void* qf,
+                            int B, int D, int n_packed, int tile, int n_probe, int k,
+                            int splits, void* part_s, void* part_i, void* out_s,
+                            void* out_i, void* stream) {
+  return launch<int8_t>(q, packed_emb, packed_codes, packed_gids, tile_ids, qf, B, D,
+                        n_packed, tile, n_probe, k, splits, part_s, part_i, out_s, out_i,
+                        stream);
 }

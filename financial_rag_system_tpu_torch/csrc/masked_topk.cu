@@ -2,8 +2,11 @@
 //
 // Replaces financial_rag_system_tpu/ops/topk.py:_topk_kernel (the Pallas
 // kernel behind masked_topk_pallas) and computes what it computes: the
-// bf16 x bf16 score of each of B queries against every corpus row, summed
-// in f32; a row is masked out when it fails the query's [ticker,
+// score of each of B queries against every corpus row, bf16 x bf16 summed
+// in f32 (masked_topk), or int8 x int8 summed in s32 and cast to f32,
+// which is exact (masked_topk_s8: the Pallas kernel's int8 branch,
+// topk.py:129-140, whose two variants give the same scores); a row is
+// masked out when it fails the query's [ticker,
 // doc_type] code filter (-1 is the wildcard) or sits at or beyond
 // n_valid; the (B, K) best come out in descending score, and equal scores
 // go to the lower global row id (the Pallas merge's lowest-position rule,
@@ -12,9 +15,10 @@
 // clamp ids before the token-store gather (ops/fused_query.py).
 //
 // Bound on the H100 at the serving shape (B = 32, N = 131,072, D = 384,
-// K = 15): the corpus and its codes, about 101.7 MB, read once at 3.35
-// TB/s is about 30 us; the 3.2 GFLOP of products take 3 us at the bf16
-// tensor-core peak.  It is memory bound.
+// K = 15): the corpus and its codes, about 101.7 MB in bf16 (51.4 MB in
+// int8), read once at 3.35 TB/s is about 30 us (15 us); the 3.2 G
+// operations of products take 3 us at the bf16 tensor-core peak (1.6 us
+// at the int8 peak).  It is memory bound.
 // Design: the Pallas grid walks the corpus in order and carries the best
 // list from tile to tile; Hopper blocks run in no order, so the work is
 // split in two passes (topk_common.cuh has the shared pieces).
@@ -32,15 +36,16 @@ using namespace topk;
 
 namespace {
 
+template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-topk_partial_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ corpus,
+topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ corpus,
                     const int32_t* __restrict__ codes,
                     const int32_t* __restrict__ qf, int B, int N, int D,
                     int n_valid, int k, int rows_per_split,
                     float* __restrict__ part_s, int32_t* __restrict__ part_i) {
   extern __shared__ __align__(16) uint32_t smem_u32[];
-  const Smem m = carve(smem_u32, D);
+  const int W = D / Elem<T>::kPerWord;
+  const Smem m = carve(smem_u32, W);
 
   const int split = blockIdx.x;
   const int qb0 = blockIdx.y * kQB;
@@ -48,7 +53,7 @@ topk_partial_kernel(const __nv_bfloat16* __restrict__ q,
   const int splits = gridDim.x;
 
   // stage the query block (zeros past B)
-  stage_rows(m.qs, q + (size_t)qb0 * D, kQB, min(kQB, B - qb0), D, m.stride);
+  stage_rows(m.qs, q + (size_t)qb0 * D, kQB, min(kQB, B - qb0), W, m.stride);
   const int qi = qb0 + lane;
   const bool live = qi < B;
   const int tq = live ? qf[qi * 2] : -3;
@@ -65,13 +70,13 @@ topk_partial_kernel(const __nv_bfloat16* __restrict__ q,
   for (int t0 = r0; t0 < r1; t0 += kTile) {
     __syncthreads();  // the previous tile's rows and scores are consumed
     const int nrows = min(kTile, r1 - t0);
-    stage_rows(m.ct, corpus + (size_t)t0 * D, kTile, nrows, D, m.stride);
+    stage_rows(m.ct, corpus + (size_t)t0 * D, kTile, nrows, W, m.stride);
     for (int r = threadIdx.x; r < kTile; r += blockDim.x) {
       m.tcodes[r] = (r < nrows) ? codes[t0 + r] : -2;
       m.tcodes[kTile + r] = (r < nrows) ? codes[(size_t)N + t0 + r] : -2;
     }
     __syncthreads();
-    score_tile(m, D, warp, lane);
+    score_tile<T>(m, W, warp, lane);
     __syncwarp();
 
     // lane = query: mask the warp's 8 rows and merge them into the list
@@ -96,6 +101,30 @@ topk_partial_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+template <typename T>
+int launch(const void* q, const void* corpus, const void* codes, const void* qf, int B,
+           int N, int D, int n_valid, int k, int rows_per_split, void* part_s,
+           void* part_i, void* out_s, void* out_i, void* stream) {
+  if (B < 1 || N < 1 || D < Elem<T>::kDimStep || D > kMaxD || D % Elem<T>::kDimStep != 0 ||
+      k < 1 || k > kMaxK || rows_per_split < 1)
+    return (int)cudaErrorInvalidValue;
+  const int splits = (N + rows_per_split - 1) / rows_per_split;
+  const int qblocks = (B + kQB - 1) / kQB;
+  const size_t smem = smem_bytes(D / Elem<T>::kPerWord);
+  cudaError_t err = cudaFuncSetAttribute(
+      topk_partial_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  topk_partial_kernel<T><<<dim3(splits, qblocks), kWarps * 32, smem, s>>>(
+      (const T*)q, (const T*)corpus, (const int32_t*)codes, (const int32_t*)qf, B, N, D,
+      n_valid, k, rows_per_split, (float*)part_s, (int32_t*)part_i);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  merge_kernel<<<B, 32, 0, s>>>((const float*)part_s, (const int32_t*)part_i, splits * k,
+                                k, nullptr, (float*)out_s, (int32_t*)out_i);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" size_t masked_topk_scratch_count(int B, int N, int rows_per_split, int k) {
@@ -103,30 +132,22 @@ extern "C" size_t masked_topk_scratch_count(int B, int N, int rows_per_split, in
   return (size_t)B * splits * k;
 }
 
-// Returns a cudaError_t: 1 (cudaErrorInvalidValue) for shapes the kernel
-// does not take, else the first launch error.  part_s / part_i hold
+// Each returns a cudaError_t: 1 (cudaErrorInvalidValue) for shapes the
+// kernel does not take (D a multiple of 16 for bf16, of 32 for int8, at
+// most 1024), else the first launch error.  part_s / part_i hold
 // masked_topk_scratch_count() elements each.
 extern "C" int masked_topk(const void* q, const void* corpus, const void* codes,
                            const void* qf, int B, int N, int D, int n_valid, int k,
                            int rows_per_split, void* part_s, void* part_i,
                            void* out_s, void* out_i, void* stream) {
-  if (B < 1 || N < 1 || D < 16 || D > kMaxD || D % 16 != 0 || k < 1 || k > kMaxK ||
-      rows_per_split < 1)
-    return (int)cudaErrorInvalidValue;
-  const int splits = (N + rows_per_split - 1) / rows_per_split;
-  const int qblocks = (B + kQB - 1) / kQB;
-  const size_t smem = smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      topk_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = (cudaStream_t)stream;
-  topk_partial_kernel<<<dim3(splits, qblocks), kWarps * 32, smem, s>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)corpus, (const int32_t*)codes,
-      (const int32_t*)qf, B, N, D, n_valid, k, rows_per_split, (float*)part_s,
-      (int32_t*)part_i);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  merge_kernel<<<B, 32, 0, s>>>((const float*)part_s, (const int32_t*)part_i, splits * k,
-                                k, nullptr, (float*)out_s, (int32_t*)out_i);
-  return (int)cudaGetLastError();
+  return launch<__nv_bfloat16>(q, corpus, codes, qf, B, N, D, n_valid, k, rows_per_split,
+                               part_s, part_i, out_s, out_i, stream);
+}
+
+extern "C" int masked_topk_s8(const void* q, const void* corpus, const void* codes,
+                              const void* qf, int B, int N, int D, int n_valid, int k,
+                              int rows_per_split, void* part_s, void* part_i,
+                              void* out_s, void* out_i, void* stream) {
+  return launch<int8_t>(q, corpus, codes, qf, B, N, D, n_valid, k, rows_per_split, part_s,
+                        part_i, out_s, out_i, stream);
 }

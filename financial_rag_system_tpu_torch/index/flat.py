@@ -1,11 +1,17 @@
 """Device-resident flat (exact) vector index.
 
 Port of ``financial_rag_system_tpu/index/flat.py``: corpus embeddings
-live on the device as one padded (capacity, D) bf16 tensor with a
-parallel (2, capacity) int32 metadata-code tensor and an optional
+live on the device as one padded (capacity, D) bf16 or int8 tensor with
+a parallel (2, capacity) int32 metadata-code tensor and an optional
 (capacity, DLEN) int32 token store; search is the masked top-k of
 :mod:`ops.topk` (the CUDA kernel on the card), so a query batch costs
 one kernel launch and no host round-trips.
+
+An int8 index (``dtype=torch.int8``) stores each L2-normalized row as
+``round(v * 127)`` (half to even, clipped to +-127) and quantizes its
+queries the same way (:func:`quantize_int8`), so a score is cosine *
+127^2, a constant scale that leaves the ranking intact, at half the
+bytes of bf16.
 
 Capacity is padded to the tile size and grows geometrically on
 overflow; padding rows carry code ``-2`` and are masked by ``n_valid``.
@@ -36,6 +42,13 @@ DEFAULT_TILE = 1024
 # ~200-260 wordpieces, and the fused rerank truncates pairs at the
 # reranker's max_seq_length anyway (ops/fused_query._assemble_pairs)
 DEFAULT_TOKEN_STORE_MAX = 384
+
+
+def quantize_int8(x: torch.Tensor) -> torch.Tensor:
+    """Symmetric int8 quantization of unit vectors, the JAX package's for
+    rows (``index/flat.py:207-208``) and queries (``:321-327``):
+    ``round(x * 127)`` in f32, half to even, clipped to +-127."""
+    return torch.clamp(torch.round(x.float() * 127.0), -127, 127).to(torch.int8)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -73,15 +86,13 @@ class FlatIndex(SearchMixin):
         token_store_max: int = DEFAULT_TOKEN_STORE_MAX,
         device: str | torch.device = "cuda",
     ):
-        if dtype == torch.int8:
-            raise NotImplementedError(
-                "int8 corpora are not ported yet (ROADMAP Queue 1)"
-            )
+        if dtype not in (torch.bfloat16, torch.int8):
+            raise ValueError(f"FlatIndex stores bf16 or int8 rows, not {dtype}")
         self.device = resolve_device(device)
         self.dim = dim
         self.tile = tile
         self.dtype = dtype
-        self.quantized = False
+        self.quantized = dtype == torch.int8
         self.capacity = _round_up(max(capacity, tile), tile)
         self.store = DocumentStore()
         # "auto": the store materializes on the first upsert at the
@@ -161,7 +172,7 @@ class FlatIndex(SearchMixin):
     ) -> int:
         """Idempotent batched upsert.  Returns the number of *new* rows.
         Vectors are L2-normalized on the way in so search is pure
-        dot-product cosine."""
+        dot-product cosine (and then quantized for an int8 index)."""
         if not len(ids) == len(vectors) == len(texts) == len(payloads):
             raise ValueError("ids/vectors/texts/payloads length mismatch")
         if not len(ids):
@@ -198,7 +209,8 @@ class FlatIndex(SearchMixin):
 
         rows_a = np.asarray(rows, np.int64)
         emb, codes, dtok = self._arrays
-        new_emb = torch.as_tensor(vecs, device=self.device).to(self.dtype)
+        new_emb = torch.as_tensor(vecs, device=self.device)
+        new_emb = quantize_int8(new_emb) if self.quantized else new_emb.to(self.dtype)
         new_codes = torch.as_tensor(
             np.asarray(code_rows, np.int32).T.copy(), device=self.device
         )
@@ -270,7 +282,10 @@ class FlatIndex(SearchMixin):
         )
 
     def prep_queries(self, query_vecs: torch.Tensor) -> torch.Tensor:
-        """Match queries to the corpus representation (a cast)."""
+        """Match queries to the corpus representation (a cast, or the
+        rows' int8 quantization)."""
+        if self.quantized:
+            return quantize_int8(query_vecs)
         return query_vecs.to(self.dtype).contiguous()
 
     # search()/search_batch() come from SearchMixin.
@@ -291,7 +306,9 @@ class FlatIndex(SearchMixin):
         }
         if dtok is not None:
             arrays["doc_tok"] = dtok.cpu().numpy()
-        np.savez_compressed(os.path.join(directory, "flat_index.npz"), **arrays)
+        # uncompressed: np.load reads either kind, and zlib over a large
+        # token store takes most of a save's time
+        np.savez(os.path.join(directory, "flat_index.npz"), **arrays)
         self.store.save(os.path.join(directory, "store.json"))
 
     @staticmethod
@@ -302,13 +319,11 @@ class FlatIndex(SearchMixin):
         meta = [int(x) for x in data["meta"]]
         dim, tile, capacity = meta[:3]
         dlen = meta[3] if len(meta) > 3 and meta[3] else None
-        if len(meta) > 4 and meta[4]:
-            raise NotImplementedError(
-                "int8 corpora are not ported yet (ROADMAP Queue 1)"
-            )
+        quantized = bool(meta[4]) if len(meta) > 4 else False
         idx = FlatIndex(
             dim, capacity=capacity, tile=tile, token_store_len=dlen,
             tokenizer=tokenizer, device=device,
+            dtype=torch.int8 if quantized else torch.bfloat16,
         )
         dtok = None
         if dlen and "doc_tok" in data:

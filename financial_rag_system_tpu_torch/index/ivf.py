@@ -16,6 +16,9 @@ that ``RAGEngine.rebuild_index`` promotes a flat corpus to:
   fixed budget without a host sync (:func:`probe_tile_list`), then the
   probed-tiles kernel (:func:`ivf_probe`: ``csrc/ivf_probe.cu`` on the
   card) reads only those tiles.
+- **int8 corpora**: over an int8 flat index the packing is int8 and
+  the centroids stay bf16; the probe list scores the int8 queries
+  widened to f32 against them, and kernel 3 scores int8 rows exactly.
 - **Upserts** are online: a new row goes to a free slot of its nearest
   centroid's packed block, so the next search sees it; a full block
   spills it to the tail, and churn triggers rebuild automatically
@@ -50,7 +53,7 @@ from financial_rag_system_tpu_torch.index.base import (
 from financial_rag_system_tpu_torch.index.hnsw import kcenter_rows
 from financial_rag_system_tpu_torch.index.store import PAD_CODE
 from financial_rag_system_tpu_torch.ops import _cuda
-from financial_rag_system_tpu_torch.ops.topk import MAX_DIM, MAX_K, NEG_INF, _match_mask
+from financial_rag_system_tpu_torch.ops.topk import MAX_K, NEG_INF, _match_mask, check_dims
 
 # pass-1 blocks of the probe kernel: enough to fill the card at B = 32
 PROBE_SPLITS = 512
@@ -135,10 +138,10 @@ def ivf_probe_plain(
     tile: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version (the port of ``ivf_probe_xla``): gather the
-    probed tiles, score (bf16 products, f32 sums), mask and take the top
-    k with a stable sort, so equal scores go to the earlier position of
-    the ascending probe list — the lower packed position.  Empty slots are
-    -inf / -1."""
+    probed tiles, score (exact products of bf16 or int8 values, f32 sums,
+    exact for int8), mask and take the top k with a stable sort, so equal
+    scores go to the earlier position of the ascending probe list — the
+    lower packed position.  Empty slots are -inf / -1."""
     dev = packed_emb.device
     t = tile_ids.clamp_min(0).long()
     offs = (t[:, None] * tile + torch.arange(tile, device=dev)).reshape(-1)
@@ -155,8 +158,9 @@ def ivf_probe_plain(
     return top_s, top_i.to(torch.int32)
 
 
-def _kernel_fn():
-    fn = _cuda.library("ivf_probe").ivf_probe
+def _kernel_fn(dtype: torch.dtype):
+    lib = _cuda.library("ivf_probe")
+    fn = lib.ivf_probe_s8 if dtype == torch.int8 else lib.ivf_probe
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
     fn.restype = ctypes.c_int
     return fn
@@ -170,11 +174,10 @@ def ivf_probe_cuda(
     b, d = queries.shape
     n_packed = packed_emb.shape[0]
     dev = packed_emb.device
-    if packed_emb.dtype != torch.bfloat16 or queries.dtype != torch.bfloat16:
-        raise ValueError("ivf_probe takes bf16 queries and a bf16 packing "
-                         "(int8 waits for ROADMAP Queue 1 item 2)")
-    if packed_emb.shape[1] != d or d % 16 or d > MAX_DIM:
-        raise ValueError(f"dims: queries {d}, packing {packed_emb.shape[1]} (16 | D <= {MAX_DIM})")
+    if packed_emb.dtype not in (torch.bfloat16, torch.int8) or queries.dtype != packed_emb.dtype:
+        raise ValueError(f"ivf_probe takes bf16 or int8 queries and packing of one type, "
+                         f"got {queries.dtype} and {packed_emb.dtype}")
+    check_dims(d, packed_emb.shape[1], packed_emb.dtype)
     if tile % 64 or n_packed % tile:
         raise ValueError(f"tile {tile} must be a multiple of 64 dividing {n_packed}")
     if packed_codes.shape != (2, n_packed) or packed_codes.dtype != torch.int32:
@@ -200,7 +203,7 @@ def ivf_probe_cuda(
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _cuda.check(
-        _kernel_fn()(
+        _kernel_fn(packed_emb.dtype)(
             queries.data_ptr(), packed_emb.data_ptr(), packed_codes.data_ptr(),
             packed_gids.data_ptr(), tile_ids.data_ptr(), query_filter.data_ptr(),
             b, d, n_packed, tile, n_probe, k, splits, part_s.data_ptr(),
@@ -209,7 +212,10 @@ def ivf_probe_cuda(
         "ivf_probe",
     )
     with _launch_lock:  # batches run in worker threads
-        ivf_probe.launches += 1
+        if packed_emb.dtype == torch.int8:
+            ivf_probe.launches_int8 += 1
+        else:
+            ivf_probe.launches += 1
     return out_s, out_i
 
 
@@ -228,8 +234,10 @@ def ivf_probe(
     return ivf_probe_cuda(*args, tile=tile)
 
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
+# kernel launches since the last reset, by branch (chip_smoke.py reads
+# and resets them)
 ivf_probe.launches = 0
+ivf_probe.launches_int8 = 0
 _launch_lock = threading.Lock()
 
 
@@ -365,6 +373,8 @@ class IVFIndex(SearchMixin):
         geom = self._derive_geometry(n)
         self.build_seconds = {}
         t0 = time.perf_counter()
+        # an int8 index's rows widen to their integer values, as in JAX
+        # (ivf.py:424): k-means is scale-free and its centroids unit-norm
         vecs = flat._emb[:n].float()
         # k-center init over the FULL corpus (not the Lloyd sample): the
         # farthest-point sweep reaches small outlier clusters a random
@@ -407,8 +417,9 @@ class IVFIndex(SearchMixin):
         dev = self.device
         n = assign.shape[0]
         assign = assign.astype(np.int32)
-        # bf16 centroids for a bf16 index (int8 corpora are not ported)
-        centroids = torch.as_tensor(cent, device=dev).to(self.dtype)
+        # bf16 centroids for a bf16 and an int8 index alike: an int8 cast
+        # would truncate unit-norm values to about zero (JAX ivf.py:486-490)
+        centroids = torch.as_tensor(cent, device=dev).to(torch.bfloat16)
         rows_by_ticker = build_ticker_lists(flat, n)
         c_max = geom.c_max
         packed_n = geom.n_clusters * c_max
@@ -614,6 +625,8 @@ class IVFIndex(SearchMixin):
         rows = np.arange(start, end)
         emb, codes, _ = flat._arrays
         vecs = emb[start:end].float()
+        if flat.quantized:
+            vecs = vecs / 127.0  # the JAX package's scale (ivf.py:724-725)
         new_assign = (
             (vecs @ st.centroids.float().T).argmax(dim=1).cpu().numpy().astype(np.int32)
         )

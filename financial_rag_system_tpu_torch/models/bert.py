@@ -12,9 +12,12 @@ cross-encoder share it.  Numerics follow the JAX default path:
 - activations, layernorm and softmax are f32;
 - GELU is exact erf everywhere (``RAG_TPU_FAST_GELU=1`` selects tanh,
   the JAX package's env contract);
-- attention is :func:`ops.attention.encoder_self_attention` at every
-  sequence length: the CUDA kernel on the card, its plain version on the
-  CPU.
+- attention follows the JAX gate (:func:`_pair_attn_enabled`) as it acts
+  on the accelerator, on the card and the CPU alike: at S >= 256 (the
+  rerank pairs) :func:`ops.attention.encoder_self_attention`, the CUDA
+  kernel on the card and its plain version on the CPU; below it (the
+  query embed) the JAX einsum path's arithmetic in plain PyTorch
+  (:func:`_einsum_attention`).
 
 Three opt-ins, each off by default, as in the JAX package:
 
@@ -43,7 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from financial_rag_system_tpu_torch.ops.attention import encoder_self_attention
+from financial_rag_system_tpu_torch.ops.attention import NEG, encoder_self_attention
 from financial_rag_system_tpu_torch.ops.fused_bert import (
     fused_ffn_ln,
     fused_qkv,
@@ -128,6 +131,46 @@ def _act_dtype() -> torch.dtype:
     f32 and layernorm and softmax still compute in f32; only the tensors
     handed between ops are stored as bf16, at the JAX package's points."""
     return torch.bfloat16 if _env_on("RAG_TPU_BF16_ACT") else torch.float32
+
+
+def _pair_attn_enabled(seq: int, head_dim: int) -> bool:
+    """Whether attention at this sequence length runs the pair-attention
+    kernel's arithmetic (:func:`ops.attention.encoder_self_attention`) or
+    the JAX einsum path's (:func:`_einsum_attention`), read once per
+    :meth:`BertModel.encode`.  The JAX gate (``bert.py:129-157``) as it
+    acts on the accelerator, without its platform test, so the port's CPU
+    result is what its card computes:
+
+    - ``RAG_TPU_PAIR_ATTN`` unset or ``auto``: the kernel at ``seq >= 256``
+      (the rerank pairs, S about 400), the einsum below (the query embed,
+      S <= 64);
+    - ``0``, ``false`` or ``off``: never the kernel;
+    - anything else (``1``): the kernel at every length;
+    - never for a head wider than 128.
+    """
+    mode = os.environ.get("RAG_TPU_PAIR_ATTN", "auto").lower()
+    if mode in ("0", "false", "off") or head_dim > 128:
+        return False
+    return seq >= 256 if mode == "auto" else True
+
+
+def _einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      attention_mask: torch.Tensor, inv_sqrt: float) -> torch.Tensor:
+    """The JAX package's attention below the gate (``bert.py:412-429``),
+    in plain PyTorch: (B, S, H, D) q, k, v and a (B, S) key mask in, the
+    (B, S, H*D) f32 context out.  The logits are bf16-rounded q and k
+    multiplied and summed in f32, times 1/sqrt(d), plus a -1e9 key-padding
+    bias; the f32 softmax is normalised before its probabilities are
+    rounded to bf16; P.V is summed in f32 and the context stays f32.  The
+    operands are f32 tensors holding bf16 values, so each product is
+    exact and nothing rounds the sums: a bf16 einsum on the card would
+    return bf16 logits (and TF32 is off, ``BertModel.__init__``)."""
+    b, s, h, d = q.shape
+    qb, kb, vb = (t.to(torch.bfloat16).float() for t in (q, k, v))
+    bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0, NEG)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qb, kb) * inv_sqrt + bias
+    probs = torch.softmax(logits, dim=-1).to(torch.bfloat16).float()
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vb).reshape(b, s, h * d)
 
 
 def _fused_block_enabled(model: "BertModel") -> bool:
@@ -304,23 +347,25 @@ class BertModel(nn.Module):
         act = _act_dtype()
         fused = _fused_block_enabled(self)
         b, seq = input_ids.shape
+        nh, hd = cfg.heads, cfg.hidden // cfg.heads
+        pair_attn = _pair_attn_enabled(seq, hd)
         h = (
             self.word_emb[input_ids.long()]
             + self.position_emb[:seq][None, :, :]
             + self.type_emb[token_type_ids.long()]
         )
         h = _ln(h, self.emb_ln.weight, self.emb_ln.bias, cfg.ln_eps).to(act)
-        nh, hd = cfg.heads, cfg.hidden // cfg.heads
         inv_sqrt = 1.0 / (hd**0.5)
+        attend = encoder_self_attention if pair_attn else _einsum_attention
         for lp in self.layers:
             if fused:
-                h = self._fused_layer(lp, h, attention_mask, act)
+                h = self._fused_layer(lp, h, attention_mask, act, pair_attn)
                 continue
             hb = h.to(torch.bfloat16)  # one cast feeds all three projections
             q = _proj(hb, lp.q).to(act).reshape(b, seq, nh, hd)
             k = _proj(hb, lp.k).to(act).reshape(b, seq, nh, hd)
             v = _proj(hb, lp.v).to(act).reshape(b, seq, nh, hd)
-            ctx = encoder_self_attention(q, k, v, attention_mask, inv_sqrt)
+            ctx = attend(q, k, v, attention_mask, inv_sqrt)
             attn_out = _proj(ctx, lp.o).to(act)
             h = _ln(h + attn_out, lp.attn_ln.weight, lp.attn_ln.bias, cfg.ln_eps).to(act)
             mlp = _proj(_gelu(_proj(h, lp.inter).to(act)), lp.out).to(act)
@@ -330,12 +375,13 @@ class BertModel(nn.Module):
     forward = encode
 
     def _fused_layer(self, lp: BertLayer, h: torch.Tensor, attention_mask: torch.Tensor,
-                     act: torch.dtype) -> torch.Tensor:
+                     act: torch.dtype, pair_attn: bool) -> torch.Tensor:
         """One layer through the fused-block kernels (JAX ``bert.py:389-399``
-        and ``:430-449``): QKV in one pass over the hidden state, the
-        attention kernel, then o-proj + residual + LN and FFN + residual +
-        LN.  The attention context goes to the o-proj kernel as bf16, which
-        is exact: the kernel rounds it to bf16 first either way."""
+        and ``:430-449``): QKV in one pass over the hidden state, attention
+        as the gate chose it (``pair_attn``), then o-proj + residual + LN
+        and FFN + residual + LN.  The attention kernel's context goes to
+        the o-proj kernel as bf16, which is exact: the kernel rounds it to
+        bf16 first either way; the einsum path's goes as f32, as in JAX."""
         cfg = self.cfg
         b, seq, hid = h.shape
         nh, hd = cfg.heads, hid // cfg.heads
@@ -345,8 +391,12 @@ class BertModel(nn.Module):
             for t in fused_qkv(x, lp.q.weight, lp.q.bias, lp.k.weight, lp.k.bias,
                                lp.v.weight, lp.v.bias, lp.qkv_pack())
         )
-        ctx = encoder_self_attention(q, k, v, attention_mask, 1.0 / (hd**0.5),
-                                     out_dtype=torch.bfloat16)
+        inv_sqrt = 1.0 / (hd**0.5)
+        if pair_attn:
+            ctx = encoder_self_attention(q, k, v, attention_mask, inv_sqrt,
+                                         out_dtype=torch.bfloat16)
+        else:
+            ctx = _einsum_attention(q, k, v, attention_mask, inv_sqrt)
         h2 = fused_resid_ln(x, ctx.reshape(b * seq, hid), lp.o.weight, lp.o.bias,
                             lp.attn_ln.weight, lp.attn_ln.bias, cfg.ln_eps)
         h2 = fused_ffn_ln(h2, lp.inter.weight, lp.inter.bias, lp.out.weight, lp.out.bias,

@@ -16,9 +16,12 @@ device memory; the kernel keeps them on chip.
   probs rounded to bf16 for P.V with f32 sums, the 1/sum divide after
   P.V, and a bf16 context.
 
-The port's encoder calls this for every attention on the card, at the
-rerank's S of about 400 and at the query embed's S of 32 alike, so no
-plain-torch attention runs there.
+The port's encoder calls this where the JAX gate engages the Pallas
+kernel (``models/bert.py _pair_attn_enabled``): by default at S >= 256,
+which on the main paths is the rerank's S of about 400.  The query
+embed (S <= 64) takes the JAX einsum path's arithmetic in plain PyTorch
+(``models/bert.py _einsum_attention``), as the JAX package computes it
+there with XLA; ``RAG_TPU_PAIR_ATTN=1`` sends every length here.
 """
 
 from __future__ import annotations

@@ -55,9 +55,9 @@ def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _layer_norm(v: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
-    mu = v.mean(dim=-1, keepdim=True)
-    var = ((v - mu) ** 2).mean(dim=-1, keepdim=True)
-    return (v - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+    """f32 layernorm, the unfused layer's (``models/bert.py _ln``), so the
+    plain versions compute the unfused layer's function bit for bit."""
+    return F.layer_norm(v, (v.shape[-1],), scale.float(), bias.float(), eps)
 
 
 def fused_qkv_plain(x, wq, bq, wk, bk, wv, bv):

@@ -31,6 +31,7 @@ import functools
 
 import torch
 
+from financial_rag_system_tpu_torch.index.flat import quantize_int8
 from financial_rag_system_tpu_torch.index.ivf import ivf_probe, probe_tile_list
 from financial_rag_system_tpu_torch.models import bert
 from financial_rag_system_tpu_torch.ops.topk import masked_topk
@@ -41,8 +42,12 @@ def _round_up(x: int, m: int) -> int:
 
 
 def _prep_queries(qv: torch.Tensor, corpus_dtype: torch.dtype) -> torch.Tensor:
-    """Match query vectors to the corpus representation (a cast; int8
-    corpora are not ported yet)."""
+    """Match query vectors to the corpus representation inside the fused
+    pipeline, the twin of ``FlatIndex.prep_queries``: an int8 corpus gets
+    the rows' symmetric int8 quantization, any other a plain cast (JAX
+    ``fused_query.py:79-86``)."""
+    if corpus_dtype == torch.int8:
+        return quantize_int8(qv)
     return qv.to(corpus_dtype).contiguous()
 
 
@@ -155,7 +160,7 @@ def fused_two_stage(
     q_types: torch.Tensor,       # (B, LQ)
     q_mask: torch.Tensor,        # (B, LQ)
     query_filter: torch.Tensor,  # (B, 2) int32
-    corpus_emb: torch.Tensor,    # (N, D) bf16
+    corpus_emb: torch.Tensor,    # (N, D) bf16, or int8 for a quantized index
     corpus_codes: torch.Tensor,  # (2, N) int32
     doc_tokens: torch.Tensor,    # (N, DLEN) int32, tokenized [..., SEP], 0-pad
     n_valid: int,
@@ -163,7 +168,8 @@ def fused_two_stage(
     rerank_cfg: bert.BertConfig,
     k: int,
 ):
-    """Returns (rows (B,k) int32, bi_scores (B,k) f32, ce_logits (B,k) f32)."""
+    """Returns (rows (B,k) int32, bi_scores (B,k) f32, ce_logits (B,k) f32).
+    An int8 corpus gets its query vectors quantized as its rows are."""
     qv = _embed(embed_model, q_ids, q_types, q_mask)
     q = _prep_queries(qv, corpus_emb.dtype)
     bi_scores, rows = masked_topk(q, corpus_emb, corpus_codes, query_filter, n_valid, k)
@@ -275,7 +281,8 @@ def fused_ivf_two_stage(
     top-k is replaced by centroid probing and the probed-tiles kernel
     (index/ivf.py), queued on the device with no host sync.  Returns
     (rows, bi, ce, active_tiles): ``active_tiles`` is the 0-d int32 count
-    of probed tiles, for the caller's one readback."""
+    of probed tiles, for the caller's one readback.  An int8 packing
+    keeps bf16 centroids."""
     qv = _embed(embed_model, q_ids, q_types, q_mask)
     q = _prep_queries(qv, packed_emb.dtype)
     tile_ids = _probe_tiles(

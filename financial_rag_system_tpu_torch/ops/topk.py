@@ -9,14 +9,21 @@ plus the Pallas kernel's tie rule (equal scores go to the lower row id).
   the hand-written kernel ``csrc/masked_topk.cu`` (or raises); on a CPU
   tensor it runs :func:`masked_topk_plain`.
 - :func:`masked_topk_plain` is the same function in plain PyTorch: f32
-  sums of bf16 products, the mask, and a stable descending sort, so ties
+  sums of the products, the mask, and a stable descending sort, so ties
   keep ascending row order.
+
+A corpus is bf16 or int8 (``FlatIndex(dtype=torch.int8)``: symmetric
+quantization of unit rows, ``round(v * 127)``), with queries of the same
+type.  An int8 score is the integer dot product as f32: every partial
+sum is an integer of magnitude at most 127^2 * D < 2^24 (D <= 1024), so
+the f32 sum is exact in any order and equals JAX's int8 x int8 -> int32
+-> f32 bit for bit, on the CPU and in the kernel alike.  The int8 branch
+counts its launches in ``masked_topk.launches_int8``.
 
 Filter encoding: each corpus row carries int32 ``[ticker_code,
 doc_type_code]``; each query carries required codes where ``-1`` means
 wildcard.  Padding rows use code ``-2`` and are also masked by
 ``n_valid``.  Empty slots come out as score ``-inf`` and id ``-1``.
-Only bf16 corpora are ported so far.
 """
 
 from __future__ import annotations
@@ -32,16 +39,22 @@ NEG_INF = float("-inf")
 MAX_K = 32
 MAX_DIM = 1024
 ROWS_PER_SPLIT = 1024  # pass-1 rows per block: N = 131,072 -> 128 blocks
+# D must be a multiple of one tensor-core step: m16n8k16 (bf16), m16n8k32 (int8)
+DIM_STEP = {torch.bfloat16: 16, torch.int8: 32}
 
 
 def _check_dtype(corpus: torch.Tensor) -> None:
-    if corpus.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 corpora are not ported yet (ROADMAP Queue 1: int8 corpora "
-            "in the masked top-k kernel)"
-        )
-    if corpus.dtype != torch.bfloat16:
-        raise ValueError(f"masked_topk takes a bf16 corpus, got {corpus.dtype}")
+    if corpus.dtype not in DIM_STEP:
+        raise ValueError(f"masked_topk takes a bf16 or int8 corpus, got {corpus.dtype}")
+
+
+def check_dims(d: int, d_corpus: int, dtype: torch.dtype) -> None:
+    """Raise unless query and corpus rows are both D wide, D a multiple of
+    the dtype's tensor-core step and at most MAX_DIM (the kernels' rule)."""
+    step = DIM_STEP[dtype]
+    if d_corpus != d or d % step or d > MAX_DIM:
+        raise ValueError(f"dims: queries {d}, corpus {d_corpus} "
+                         f"({step} | D <= {MAX_DIM} for {dtype})")
 
 
 def _match_mask(codes: torch.Tensor, query_filter: torch.Tensor) -> torch.Tensor:
@@ -62,7 +75,8 @@ def masked_topk_plain(
     """Plain PyTorch version. queries (B, D), corpus (N, D), codes (2, N)."""
     _check_dtype(corpus)
     q = queries.to(corpus.dtype).float()
-    scores = q @ corpus.float().T  # exact bf16 products, f32 sums
+    # each product exact; f32 sums (exact for int8: integers below 2^24)
+    scores = q @ corpus.float().T
     n = corpus.shape[0]
     valid = torch.arange(n, device=corpus.device)[None, :] < int(n_valid)
     mask = _match_mask(codes, query_filter) & valid
@@ -78,8 +92,9 @@ def masked_topk_plain(
     return top_s, top_i
 
 
-def _kernel_fn():
-    fn = _cuda.library("masked_topk").masked_topk
+def _kernel_fn(dtype: torch.dtype):
+    lib = _cuda.library("masked_topk")
+    fn = lib.masked_topk_s8 if dtype == torch.int8 else lib.masked_topk
     fn.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5
     )
@@ -102,8 +117,7 @@ def masked_topk_cuda(
     dev = corpus.device
     if queries.dtype != corpus.dtype:
         raise ValueError(f"queries {queries.dtype} != corpus {corpus.dtype}")
-    if corpus.shape[1] != d or d % 16 or d > MAX_DIM:
-        raise ValueError(f"dims: queries {d}, corpus {corpus.shape[1]} (16 | D <= {MAX_DIM})")
+    check_dims(d, corpus.shape[1], corpus.dtype)
     if codes.shape != (2, n) or codes.dtype != torch.int32:
         raise ValueError(f"codes must be (2, {n}) int32")
     if query_filter.shape != (b, 2) or query_filter.dtype != torch.int32:
@@ -122,7 +136,7 @@ def masked_topk_cuda(
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _cuda.check(
-        _kernel_fn()(
+        _kernel_fn(corpus.dtype)(
             queries.data_ptr(), corpus.data_ptr(), codes.data_ptr(),
             query_filter.data_ptr(), b, n, d, max(0, min(int(n_valid), n)), k,
             ROWS_PER_SPLIT, part_s.data_ptr(), part_i.data_ptr(),
@@ -131,7 +145,10 @@ def masked_topk_cuda(
         "masked_topk",
     )
     with _launch_lock:  # batches run in worker threads
-        masked_topk.launches += 1
+        if corpus.dtype == torch.int8:
+            masked_topk.launches_int8 += 1
+        else:
+            masked_topk.launches += 1
     return out_s, out_i
 
 
@@ -152,6 +169,8 @@ def masked_topk(
     return masked_topk_cuda(queries, corpus, codes, query_filter, n_valid, k)
 
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
+# kernel launches since the last reset, by branch (chip_smoke.py reads
+# and resets them)
 masked_topk.launches = 0
+masked_topk.launches_int8 = 0
 _launch_lock = threading.Lock()

@@ -208,8 +208,10 @@ def build_default_engine(
 ) -> RAGEngine:
     """Wire an engine from env config on one device: the persisted index
     in ``INDEX_DIR`` if there is one (flat, promoted to the IVF tier when
-    an ``ivf_index.npz`` that covers it is there), else an empty flat
-    index.  Models come from ``RAG_TPU_BGE_DIR`` / ``RAG_TPU_RERANKER_DIR``."""
+    an ``ivf_index.npz`` that covers it is there; bf16 or int8 as it was
+    saved), else an empty flat index of ``RAG_TPU_INDEX_DTYPE``
+    (``bfloat16`` or ``int8``).  Models come from ``RAG_TPU_BGE_DIR`` /
+    ``RAG_TPU_RERANKER_DIR``."""
     from financial_rag_system_tpu_torch.index.flat import FlatIndex
     from financial_rag_system_tpu_torch.models.embedder import get_embedder
     from financial_rag_system_tpu_torch.models.reranker import get_reranker
@@ -217,10 +219,9 @@ def build_default_engine(
 
     dev = resolve_device(device)
     cfg = get_config()
-    if cfg.index_dtype != "bfloat16":
-        raise NotImplementedError(
-            f"index dtype {cfg.index_dtype}: only bfloat16 corpora are ported"
-        )
+    dtypes = {"bfloat16": torch.bfloat16, "int8": torch.int8}
+    if cfg.index_dtype not in dtypes:
+        raise ValueError(f"RAG_TPU_INDEX_DTYPE {cfg.index_dtype!r}: bfloat16 or int8")
     embedder = get_embedder(device=dev)
     reranker = get_reranker(device=dev)
     # a device token store lets the fused pipeline rerank without host
@@ -241,6 +242,7 @@ def build_default_engine(
             embedder.dim, tile=cfg.corpus_tile,
             token_store_len=cfg.token_store_len or "auto", tokenizer=tok,
             token_store_max=cfg.token_store_max, device=dev,
+            dtype=dtypes[cfg.index_dtype],
         )
     return RAGEngine(cfg, index, embedder, reranker, mode=mode)
 

@@ -129,8 +129,10 @@ class RAGEngine:
         stack, over a flat index with a device token store (or an auto
         store that materializes on the first ingest): "full" on the flat
         tier, "ivf_full" on the IVF tier, with the flat scan replaced by
-        centroid probing and the probed-tiles kernel.  Every other
-        combination serves staged (None, None, None)."""
+        centroid probing and the probed-tiles kernel.  An int8 index fuses
+        too: the programs quantize the query vectors as its rows are.
+        Every other combination serves staged
+        (None, None, None)."""
         from financial_rag_system_tpu_torch.ops.fused_query import (
             make_fused_ivf_query,
             make_fused_query,
@@ -156,7 +158,8 @@ class RAGEngine:
                 nprobe=geom.nprobe, tiles_per_cluster=geom.tiles_per_cluster,
             )
             return fn, "ivf_full", geom
-        return make_fused_query(self.reranker.cfg, k=self.cfg.retrieve_k), "full", None
+        fn = make_fused_query(self.reranker.cfg, k=self.cfg.retrieve_k)
+        return fn, "full", None
 
     # -- lifecycle ---------------------------------------------------------
 

@@ -64,30 +64,80 @@ def cosine(a, b):
     return np.sum(a * b, -1) / np.linalg.norm(a, axis=-1) / np.linalg.norm(b, axis=-1)
 
 
-@pytest.mark.parametrize("seq", [40, 130])
-def test_encode_matches_jax_einsum_path(seq):
-    params, jcfg, model = make_models()
-    ids, types, mask = make_inputs(seq=seq)
-    ref = np.asarray(jbert.encode(params, ids, types, mask, jcfg))
-    got = model.encode(*torch_inputs(ids, types, mask)).numpy()
-    assert got.shape == ref.shape == (3, seq, 64)
-    np.testing.assert_allclose(got, ref, atol=3e-2, rtol=0)
-    assert (cosine(got[:, 0], ref[:, 0]) >= 0.999).all()
-
-
-def test_encode_matches_jax_kernel_semantics(monkeypatch):
-    """With the JAX pair-attention kernel forced (interpret mode), both
-    packages compute the same attention arithmetic."""
+@pytest.fixture()
+def jax_pair_attn(monkeypatch):
+    """The JAX pair-attention kernel forced at every length (interpret
+    mode on the CPU), with the JAX jit cache cleared around the patch."""
+    jax.clear_caches()
     monkeypatch.setattr(jbert, "_pair_attn_enabled", lambda seq, hd: True)
     monkeypatch.setattr(
         jattention, "encoder_self_attention",
         functools.partial(jattention.encoder_self_attention, interpret=True),
     )
+    yield
+    jax.clear_caches()
+
+
+@pytest.mark.parametrize("seq", [32, 40, 64, 130])
+def test_encode_matches_jax_einsum_path(seq, monkeypatch):
+    """Below the gate (S < 256) both packages take the einsum arithmetic;
+    they differ only in the order of f32 sums."""
+    monkeypatch.delenv("RAG_TPU_PAIR_ATTN", raising=False)
+    params, jcfg, model = make_models()
+    ids, types, mask = make_inputs(seq=seq)
+    ref = np.asarray(jbert.encode(params, ids, types, mask, jcfg))
+    got = model.encode(*torch_inputs(ids, types, mask)).numpy()
+    assert got.shape == ref.shape == (3, seq, 64)
+    np.testing.assert_allclose(got, ref, atol=5e-3, rtol=0)
+    assert (cosine(got[:, 0], ref[:, 0]) >= 0.999).all()
+
+
+def test_encode_matches_jax_kernel_semantics(monkeypatch, jax_pair_attn):
+    """With the pair-attention kernel forced in both packages (the JAX one
+    in interpret mode), both compute the same attention arithmetic."""
+    monkeypatch.setenv("RAG_TPU_PAIR_ATTN", "1")
     params, jcfg, model = make_models(seed=1)
     ids, types, mask = make_inputs(seq=48, seed=1)
     ref = np.asarray(jbert.encode(params, ids, types, mask, jcfg))
     got = model.encode(*torch_inputs(ids, types, mask)).numpy()
     np.testing.assert_allclose(got, ref, atol=5e-3, rtol=0)
+
+
+def test_gate_default_takes_the_kernel_at_256(monkeypatch, jax_pair_attn):
+    """At S 256 the port's default is the kernel arithmetic: the JAX
+    package's with its kernel engaged, as its accelerator runs it."""
+    monkeypatch.delenv("RAG_TPU_PAIR_ATTN", raising=False)
+    params, jcfg, model = make_models(seed=4)
+    ids, types, mask = make_inputs(seq=256, seed=4)
+    ref = np.asarray(jbert.encode(params, ids, types, mask, jcfg))
+    got = model.encode(*torch_inputs(ids, types, mask)).numpy()
+    np.testing.assert_allclose(got, ref, atol=5e-3, rtol=0)
+
+
+def test_gate_off_takes_the_einsum_at_256(monkeypatch):
+    """``RAG_TPU_PAIR_ATTN=0``: the einsum arithmetic at every length,
+    against the JAX package's einsum path."""
+    monkeypatch.setenv("RAG_TPU_PAIR_ATTN", "0")
+    params, jcfg, model = make_models(seed=5)
+    ids, types, mask = make_inputs(seq=256, seed=5)
+    ref = np.asarray(jbert.encode(params, ids, types, mask, jcfg))
+    got = model.encode(*torch_inputs(ids, types, mask)).numpy()
+    np.testing.assert_allclose(got, ref, atol=5e-3, rtol=0)
+
+
+@pytest.mark.parametrize("mode,want", [
+    (None, (False, False, True)), ("auto", (False, False, True)),
+    ("1", (True, True, True)), ("0", (False, False, False)), ("off", (False, False, False)),
+])
+def test_pair_attn_gate_env_contract(monkeypatch, mode, want):
+    """The JAX gate's rules without its platform test: lengths 32, 255
+    and 256 at head_dim 32; never for a head wider than 128."""
+    if mode is None:
+        monkeypatch.delenv("RAG_TPU_PAIR_ATTN", raising=False)
+    else:
+        monkeypatch.setenv("RAG_TPU_PAIR_ATTN", mode)
+    assert tuple(tbert._pair_attn_enabled(s, 32) for s in (32, 255, 256)) == want
+    assert not tbert._pair_attn_enabled(512, 256)
 
 
 def test_embed_cls_matches_jax():
@@ -105,7 +155,7 @@ def test_cross_score_matches_jax():
     ref = np.asarray(jbert.cross_score(params, ids, types, mask, jcfg))
     got = tbert.cross_score(model, *torch_inputs(ids, types, mask)).numpy()
     assert got.shape == (4,)
-    np.testing.assert_allclose(got, ref, atol=3e-2, rtol=0)
+    np.testing.assert_allclose(got, ref, atol=5e-3, rtol=0)
 
 
 def test_gelu_env_contract(monkeypatch):

@@ -158,6 +158,82 @@ def test_ivf_probe_kernel_rejects_inputs(cuda):
         ivf_probe(*args, 5, tile=96)
 
 
+def quant(a):
+    """Unit rows as an int8 index stores them: round(v * 127), +-127."""
+    return np.clip(np.rint(a * 127.0), -127, 127).astype(np.int8)
+
+
+@pytest.mark.parametrize(
+    "b,n,d,k", [(8, 4096, 64, 15), (40, 5000, 384, 15), (3, 777, 1024, 1),
+                (32, 131072, 384, 15), (5, 2048, 64, 32), (33, 1500, 1024, 32)],
+)
+def test_topk_int8_kernel_equals_plain(cuda, b, n, d, k):
+    """The int8 branch of kernel 1 gives its plain version's scores and
+    ids bit for bit: integer sums are exact in any order, and both break
+    ties on the lower row (the duplicated pair, and every tie of the
+    coarse int8 scores)."""
+    q, c, codes, qf = topk_case(b, n, d, n_valid=n - 100)
+    args = (torch.tensor(quant(q), device=cuda), torch.tensor(quant(c), device=cuda),
+            torch.tensor(codes, device=cuda), torch.tensor(qf, device=cuda), n - 100, k)
+    n0 = masked_topk.launches_int8
+    s, i = (x.cpu().numpy() for x in masked_topk(*args))
+    torch.cuda.synchronize()
+    assert masked_topk.launches_int8 == n0 + 1
+    s_ref, i_ref = (x.cpu().numpy() for x in masked_topk_plain(*args))
+    assert s.tobytes() == s_ref.tobytes() and i.tobytes() == i_ref.tobytes()
+    if k > 1:
+        assert i[2, 0] == n // 2 and i[2, 1] == n // 2 + 1 and s[2, 0] == s[2, 1]
+
+
+@pytest.mark.parametrize(
+    "b,d,n_tiles,tile,k", [(1, 384, 12, 128, 15), (32, 384, 40, 128, 15),
+                           (32, 64, 9, 64, 1), (5, 1024, 16, 128, 32),
+                           (40, 384, 20, 256, 15)],
+)
+def test_ivf_probe_int8_kernel_equals_plain(cuda, b, d, n_tiles, tile, k):
+    """The int8 branch of kernel 3 against its plain version, bit for bit;
+    ties go to the lower packed position."""
+    q, qf, emb, codes, gids, tile_ids, dup = probe_case(b, d, n_tiles, tile)
+    args = (torch.tensor(quant(q), device=cuda), torch.tensor(qf, device=cuda),
+            torch.tensor(quant(emb), device=cuda), torch.tensor(codes, device=cuda),
+            torch.tensor(gids, device=cuda), torch.tensor(tile_ids, device=cuda), k)
+    n0 = ivf_probe.launches_int8
+    s, i = (x.cpu().numpy() for x in ivf_probe(*args, tile=tile))
+    torch.cuda.synchronize()
+    assert ivf_probe.launches_int8 == n0 + 1
+    s_ref, i_ref = (x.cpu().numpy() for x in ivf_probe_plain(*args, tile=tile))
+    assert s.tobytes() == s_ref.tobytes() and i.tobytes() == i_ref.tobytes()
+    if k > 1:
+        assert (i[0, 0], i[0, 1]) == dup and s[0, 0] == s[0, 1]
+
+
+def test_int8_kernels_reject_inputs(cuda):
+    """D must be a multiple of 32 for the int8 branches (16 suffices for
+    bf16), and queries and corpus must share a type."""
+    q, c, codes, qf = topk_case(4, 256, 48, n_valid=256)
+    codes_t, qf_t = torch.tensor(codes, device=cuda), torch.tensor(qf, device=cuda)
+    masked_topk(torch.tensor(q, device=cuda).bfloat16(), torch.tensor(c, device=cuda).bfloat16(),
+                codes_t, qf_t, 256, 5)
+    with pytest.raises(ValueError, match="32"):
+        masked_topk(torch.tensor(quant(q), device=cuda), torch.tensor(quant(c), device=cuda),
+                    codes_t, qf_t, 256, 5)
+    q, c, codes, qf = topk_case(4, 256, 64, n_valid=256)
+    with pytest.raises(ValueError, match="!="):
+        masked_topk(torch.tensor(q, device=cuda).bfloat16(), torch.tensor(quant(c), device=cuda),
+                    torch.tensor(codes, device=cuda), torch.tensor(qf, device=cuda), 256, 5)
+    q, qf, emb, codes, gids, tile_ids, _ = probe_case(2, 80, 4, 64)
+    rest = [torch.tensor(a, device=cuda) for a in (codes, gids, tile_ids)]
+    qf_t = torch.tensor(qf, device=cuda)
+    with pytest.raises(ValueError, match="32"):
+        ivf_probe(torch.tensor(quant(q), device=cuda), qf_t,
+                  torch.tensor(quant(emb), device=cuda), *rest, 5, tile=64)
+    q, qf, emb, codes, gids, tile_ids, _ = probe_case(2, 64, 4, 64)
+    rest = [torch.tensor(a, device=cuda) for a in (codes, gids, tile_ids)]
+    with pytest.raises(ValueError, match="one type"):
+        ivf_probe(torch.tensor(q, device=cuda).bfloat16(), torch.tensor(qf, device=cuda),
+                  torch.tensor(quant(emb), device=cuda), *rest, 5, tile=64)
+
+
 def attn_case(p, s, h, seed=0, masked_pair=True):
     rng = np.random.default_rng(seed)
     q, k, v = (rng.standard_normal((p, s, h, 32)).astype(np.float32)

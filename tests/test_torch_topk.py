@@ -2,7 +2,7 @@
 
 The port runs its plain version here; the references are JAX
 ``masked_topk_xla`` and the Pallas kernel in interpret mode (as
-tests/test_topk.py runs it).  Same numpy inputs.
+tests/test_topk.py runs it).  Same numpy inputs; bf16 and int8 corpora.
 """
 
 from __future__ import annotations
@@ -101,11 +101,78 @@ def test_n_valid_and_small_corpus():
     assert np.isneginf(s[:, 4:]).all()
 
 
-def test_int8_corpus_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttopk.masked_topk(
-            torch.zeros((1, 8), dtype=torch.int8),
-            torch.zeros((4, 8), dtype=torch.int8),
-            torch.zeros((2, 4), dtype=torch.int32),
-            torch.full((1, 2), -1, dtype=torch.int32), 4, 2,
-        )
+def int8_case(seed):
+    """make_case quantized as FlatIndex quantizes (round(v * 127), clipped
+    to +-127), with a fifth of the rows copies of 20 others, so that equal
+    integer scores are frequent, and one query equal to a duplicated row."""
+    q, c, codes, qf = make_case(seed)
+    rng = np.random.default_rng(seed + 100)
+    dup = np.arange(0, N, 5)
+    c[dup] = c[rng.integers(1, N, 20)][rng.integers(0, 20, len(dup))]
+    q[6], qf[6] = c[dup[3]], -1
+    quant = lambda a: np.clip(np.rint(a * 127.0), -127, 127).astype(np.int8)  # noqa: E731
+    return quant(q), quant(c), codes, qf
+
+
+def port_int8(q, c, codes, qf, n_valid=N_VALID, k=K):
+    s, i = ttopk.masked_topk(torch.from_numpy(q), torch.from_numpy(c),
+                             torch.from_numpy(codes), torch.from_numpy(qf), n_valid, k)
+    return s.numpy(), i.numpy()
+
+
+def assert_bit_equal(got, want):
+    """Scores equal bit for bit, ids equal wherever the score is finite,
+    empty slots -1 in the port."""
+    (s, i), (s_ref, i_ref) = got, want
+    assert s.dtype == np.float32 and i.dtype == np.int32
+    np.testing.assert_array_equal(s, s_ref)
+    fin = np.isfinite(s_ref)
+    np.testing.assert_array_equal(i[fin], i_ref[fin])
+    assert (i[~fin] == -1).all()
+
+
+def test_int8_matches_xla_bit_for_bit():
+    q, c, codes, qf = int8_case(seed=3)
+    got = port_int8(q, c, codes, qf)
+    want = masked_topk_xla(jnp.asarray(q), jnp.asarray(c), jnp.asarray(codes),
+                           jnp.asarray(qf), N_VALID, K)
+    assert_bit_equal(got, tuple(np.asarray(x) for x in want))
+    s, i = got
+    fin = np.isfinite(s)
+    assert (s[fin] == np.round(s[fin])).all()  # integer scores
+    # ties: the duplicated row's copies score alike, lower row first
+    s6, i6 = s[6][fin[6]], i[6][fin[6]]
+    tie = np.diff(s6) == 0
+    assert tie.sum() >= 3 and (np.diff(i6)[tie] > 0).all()
+
+
+@pytest.mark.parametrize("int8_mxu", [True, False])
+def test_int8_matches_pallas_interpret(int8_mxu):
+    """Both variants of the Pallas kernel's int8 branch (native int8
+    products, or both widened to f32) give the port's scores and ids."""
+    q, c, codes, qf = int8_case(seed=4)
+    want = masked_topk_pallas(jnp.asarray(q), jnp.asarray(c), jnp.asarray(codes),
+                              jnp.asarray(qf), N_VALID, K, tile=1024, interpret=True,
+                              int8_mxu=int8_mxu)
+    assert_bit_equal(port_int8(q, c, codes, qf), tuple(np.asarray(x) for x in want))
+
+
+@pytest.mark.parametrize("n_valid,rows,k", [(10, N, K), (4, 4, K), (N_VALID, N, 1), (N, N, 32)])
+def test_int8_n_valid_small_corpus_and_k(n_valid, rows, k):
+    """n_valid below N, a corpus smaller than k (empty slots), k 1 and 32:
+    bit for bit against masked_topk_xla."""
+    q, c, codes, qf = int8_case(seed=5)
+    c, codes = c[:rows], codes[:, :rows].copy()
+    got = port_int8(q, c, codes, qf, n_valid=n_valid, k=k)
+    want = masked_topk_xla(jnp.asarray(q), jnp.asarray(c), jnp.asarray(codes),
+                           jnp.asarray(qf), n_valid, k)
+    assert_bit_equal(got, tuple(np.asarray(x) for x in want))
+    assert got[0].shape == (B, k)
+    assert (got[1][np.isfinite(got[0])] < n_valid).all()
+
+
+def test_wrapper_refuses_other_dtypes():
+    with pytest.raises(ValueError, match="bf16 or int8"):
+        ttopk.masked_topk(torch.zeros((1, 32)), torch.zeros((4, 32)),
+                          torch.zeros((2, 4), dtype=torch.int32),
+                          torch.full((1, 2), -1, dtype=torch.int32), 4, 2)
