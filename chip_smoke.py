@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--topk-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
+                          [--attn-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
 
 Drives ``financial_rag_system_tpu_torch`` end to end on the card, in
 seven phases; any failure raises and the script exits non-zero:
@@ -11,6 +12,10 @@ seven phases; any failure raises and the script exits non-zero:
 2. each kernel against its plain PyTorch version at the main path's
    shapes, with its time, the plain version's, a PyTorch library call's
    where one computes the same function, and its bound on the H100;
+   kernel 2 at the rerank shape on the table's mask (uniform lengths)
+   and on a mask with every key valid, each beside its bound (the bytes
+   and products of the keys that mask leaves) and its MUFU floor (and
+   after phase 3 on that batch's own rerank mask);
 3. the main path: ``build_default_engine(device="cuda")`` over
    random-init full-width BGE-small and MiniLM-L6 checkpoints and a
    persisted 131,072-row flat index with a 368-wide token store; three
@@ -52,7 +57,9 @@ seven phases; any failure raises and the script exits non-zero:
    and recall@15 against the exact int8 flat top-15.
 
 ``--topk-baseline`` also builds the ``masked_topk.cu`` of an earlier
-checkout and holds kernel 1 bit for bit against it.
+checkout and holds kernel 1 bit for bit against it; ``--attn-baseline``
+builds an earlier ``pair_attention.cu`` and times it beside kernel 2 on
+the same inputs and masks, in turns, with their contexts' difference.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device": ...}``.
@@ -191,24 +198,41 @@ def topk_inputs(torch, rng, n_valid):
             torch.tensor(codes, device=dev), torch.tensor(qf, device=dev))
 
 
-def check_topk_baseline(torch, args, s, i, csrc: Path) -> None:
-    """Kernel 1 bit for bit against the ``masked_topk.cu`` in ``csrc`` (an
-    earlier checkout's), built with the same flags, on the same inputs."""
+def baseline_lib(name: str, csrc: Path):
+    """``<name>.cu`` of ``csrc`` (an earlier checkout's), built with the
+    port's flags."""
     import ctypes
 
     from financial_rag_system_tpu_torch.ops import _cuda
-    from financial_rag_system_tpu_torch.ops.topk import masked_topk
 
-    out = _cuda.BUILD_DIR.parent / "torch_kernels_baseline" / "masked_topk.so"
+    out = _cuda.BUILD_DIR.parent / "torch_kernels_baseline" / f"{name}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(out),
-                    str(csrc / "masked_topk.cu")], check=True, timeout=300)
-    current = _cuda.library("masked_topk")
-    _cuda._libs["masked_topk"] = ctypes.CDLL(str(out))
+                    str(csrc / f"{name}.cu")], check=True, timeout=300)
+    return ctypes.CDLL(str(out))
+
+
+@contextlib.contextmanager
+def kernel_lib(name: str, lib):
+    """The wrappers launch ``lib``'s kernels in place of ``<name>.so``'s
+    meanwhile."""
+    from financial_rag_system_tpu_torch.ops import _cuda
+
+    current = _cuda.library(name)
+    _cuda._libs[name] = lib
     try:
-        s0, i0 = (x.cpu().numpy() for x in masked_topk(*args))
+        yield
     finally:
-        _cuda._libs["masked_topk"] = current
+        _cuda._libs[name] = current
+
+
+def check_topk_baseline(torch, args, s, i, csrc: Path) -> None:
+    """Kernel 1 bit for bit against the ``masked_topk.cu`` in ``csrc`` (an
+    earlier checkout's), built with the same flags, on the same inputs."""
+    from financial_rag_system_tpu_torch.ops.topk import masked_topk
+
+    with kernel_lib("masked_topk", baseline_lib("masked_topk", csrc)):
+        s0, i0 = (x.cpu().numpy() for x in masked_topk(*args))
     if s0.tobytes() != s.tobytes() or i0.tobytes() != i.tobytes():
         raise AssertionError(f"top-k differs from the kernel built from {csrc}")
     log(f"[topk] bit-identical to the kernel built from {csrc}")
@@ -256,9 +280,10 @@ def check_topk(torch, np, smi: str, baseline: Path | None = None) -> dict:
     }
 
 
-def check_attention_at(torch, np, smi: str, p: int, s: int, h: int = 12) -> dict:
-    from financial_rag_system_tpu_torch.ops import attention as attn
-
+def attention_inputs(torch, np, p: int, s: int, h: int = 12):
+    """Random (p, s, h, 32) f32 q, k and v on the card, and the kernel
+    table's mask: lengths uniform in 1..s, pair 0 whole, the last pair
+    fully padded."""
     rng = np.random.default_rng(SEED + s)
     dev = torch.device("cuda")
     q, k, v = (torch.tensor(rng.standard_normal((p, s, h, 32)), dtype=torch.float32,
@@ -267,36 +292,126 @@ def check_attention_at(torch, np, smi: str, p: int, s: int, h: int = 12) -> dict
     lens[0] = s
     mask_np = (np.arange(s)[None, :] < lens[:, None]).astype(np.int32)
     mask_np[-1] = 0                              # a fully padded pair
-    mask = torch.tensor(mask_np, device=dev)
+    return q, k, v, mask_np
+
+
+def attended_keys(np, mask_np):
+    """The keys each pair's softmax spans: its valid keys, or all S keys
+    for a pair with none (its softmax is uniform over them)."""
+    n_valid = (mask_np > 0).sum(axis=1)
+    return np.where(n_valid > 0, n_valid, mask_np.shape[1])
+
+
+def attention_bound(np, mask_np, h: int) -> tuple[float, str]:
+    """Kernel 2's bound on one mask, from what the function needs: q in
+    and the context out for every query row, K and V of the attended keys
+    only (a masked key adds exactly 0 to a row with a valid key), the
+    mask; QK^T and P.V once over the same keys."""
+    p, s = mask_np.shape
+    keys = float(attended_keys(np, mask_np).sum())
+    nbytes = 2 * p * s * h * 32 * 2 + 2 * keys * h * 32 * 2 + p * s * 4
+    return bound_ms(nbytes, 4.0 * h * s * 32 * keys)
+
+
+def mufu_floor_ms(torch, np, mask_np, h: int) -> float:
+    """The least time the card's MUFU units take for the exponentials the
+    mask needs: each query row of a pair against each of its attended
+    keys, at 16 ``MUFU.EX2`` a clock on each SM at the top SM clock that
+    ``nvidia-smi`` reports."""
+    s = mask_np.shape[1]
+    exps = float(h * s * attended_keys(np, mask_np).sum())
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return exps / (sms * 16 * mhz * 1e6) * 1e3
+
+
+def time_attention_mask(torch, np, smi: str, label: str, q, k, v, mask_np,
+                        baseline=None) -> dict:
+    """Kernel 2 on one mask: against its plain version (1e-2), its time
+    beside the mask's bound and MUFU floor, and the mask's kend (1 + a
+    pair's last valid key) spread.  With ``baseline`` (an earlier build of the
+    kernel, ``--attn-baseline``): the largest difference between its
+    context and this kernel's on the same inputs, and both timed in turns
+    (old, new, new, old)."""
+    from financial_rag_system_tpu_torch.ops import attention as attn
+
+    p, s, h, _ = q.shape
+    mask = torch.tensor(mask_np, device=q.device)
     inv = 1.0 / 32 ** 0.5
     got = attn.encoder_self_attention(q, k, v, mask, inv)
     torch.cuda.synchronize()
     ref = attn.encoder_self_attention_plain(q, k, v, mask, inv)
     if not torch.isfinite(got).all():
-        raise AssertionError(f"attention at S={s}: non-finite output")
+        raise AssertionError(f"attention, {label} mask, S={s}: non-finite output")
     err = float((got - ref).abs().max())
     if err > 1e-2:
-        raise AssertionError(f"attention at S={s} differs by {err} > 1e-2")
+        raise AssertionError(f"attention, {label} mask, S={s}: differs by {err} > 1e-2")
     qs, kb, vb = (t.contiguous() for t in attn._scaled_inputs(q, k, v, inv))
-    ms = median_ms(lambda: attn.pair_attention_kernel(qs, kb, vb, mask), reps=20)
+
+    def kernel():
+        return attn.pair_attention_kernel(qs, kb, vb, mask)
+
+    ms = median_ms(kernel, reps=20)
+    valid = mask_np > 0
+    kend = np.where(valid.any(axis=1), s - np.argmax(valid[:, ::-1], axis=1), 0)
+    b_ms, b_by = attention_bound(np, mask_np, h)
+    line = (f"[attention] {smi}: {label} mask, P={p} S={s} H={h}: max_abs_err {err:.3g}, "
+            f"kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"MUFU floor {mufu_floor_ms(torch, np, mask_np, h):.4f} ms; "
+            f"kend min {kend.min()} mean {kend.mean():.1f} max {kend.max()}")
+    if baseline is not None:
+        new = kernel()
+        with kernel_lib("pair_attention", baseline):
+            old = kernel()
+            torch.cuda.synchronize()
+        diff = float((new.float() - old.float()).abs().max())
+
+        def old_ms():
+            with kernel_lib("pair_attention", baseline):
+                return median_ms(kernel, reps=20)
+
+        turns = [old_ms(), median_ms(kernel, reps=20), median_ms(kernel, reps=20), old_ms()]
+        line += (f"; baseline: context max abs diff {diff:.3g}, old, new, new, old "
+                 f"{[round(t, 4) for t in turns]} ms")
+    log(line)
+    return {"max_abs_err": err, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+            "qs": qs, "kb": kb, "vb": vb, "mask": mask}
+
+
+def check_attention_at(torch, np, smi: str, p: int, s: int, h: int = 12,
+                       all_valid: bool = False, baseline=None) -> dict:
+    """Kernel 2 at one shape on the table's mask (uniform lengths), and,
+    with ``all_valid``, on a mask with every key valid (nothing to skip);
+    the plain version's time, SDPA's and the bound on the table's mask."""
+    from financial_rag_system_tpu_torch.ops import attention as attn
+
+    q, k, v, mask_np = attention_inputs(torch, np, p, s, h)
+    if all_valid:
+        time_attention_mask(torch, np, smi, "all-valid", q, k, v, np.ones_like(mask_np),
+                            baseline)
+    res = time_attention_mask(torch, np, smi, "uniform-length", q, k, v, mask_np, baseline)
+    inv = 1.0 / 32 ** 0.5
+    mask = res["mask"]
     plain_ms = median_ms(
         lambda: attn.encoder_self_attention_plain(q, k, v, mask, inv), reps=5
     )
     # yardstick only: one PyTorch call for the same function (the port never calls it)
-    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (qs, kb, vb))
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (res["qs"], res["kb"], res["vb"]))
     bias = torch.where(mask[:, None, None, :] > 0, 0.0, -1e9).to(torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = median_ms(lambda: sdpa(qh, kh, vh, attn_mask=bias, scale=1.0), reps=20)
-    nbytes = 4 * p * s * h * 32 * 2 + p * s * 4   # q, k, v in and context out, bf16
-    b_ms, b_by = bound_ms(nbytes, 4.0 * p * h * s * s * 32)
-    log(f"[attention] {smi}: P={p} S={s} H={h} d=32: max_abs_err {err:.3g}, kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+    log(f"[attention] {smi}: P={p} S={s} H={h} d=32: max_abs_err {res['max_abs_err']:.3g}, "
+        f"kernel {res['ms']:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
+        f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+    return {key: res[key] for key in ("max_abs_err", "ms", "bound_ms", "bound_by")} | {
+        "plain_ms": plain_ms, "library_ms": library_ms}
 
 
-def check_attention(torch, np, smi: str) -> dict:
-    rerank = check_attention_at(torch, np, smi, PAIRS, 400)
+def check_attention(torch, np, smi: str, baseline=None) -> dict:
+    rerank = check_attention_at(torch, np, smi, PAIRS, 400, all_valid=True, baseline=baseline)
     # the query embed's shape: the main paths take the einsum path there
     # (S < 256), RAG_TPU_PAIR_ATTN=1 sends it to the kernel
     check_attention_at(torch, np, smi, B, 32)
@@ -306,6 +421,40 @@ def check_attention(torch, np, smi: str) -> dict:
         "replaces": "financial_rag_system_tpu/ops/attention.py:48",
         **rerank,
     }
+
+
+def rerank_batch_mask(torch, np, main: dict):
+    """The key mask of the rerank pairs of one flat batch of 32 on the
+    card, as the encoder hands it to attention (all six layers alike)."""
+    from financial_rag_system_tpu_torch.models import bert
+
+    engine = main["engine"]
+    seen = []
+    original = bert.encoder_self_attention
+
+    def spy(q, k, v, attention_mask, *args, **kwargs):
+        if q.shape[1] >= 256:
+            seen.append(attention_mask.to(torch.int32).cpu().numpy())
+        return original(q, k, v, attention_mask, *args, **kwargs)
+
+    bert.encoder_self_attention = spy
+    try:
+        flat_batch(torch, engine, main["burst"], "cuda", engine.index,
+                   (engine.embedder, engine.reranker))
+    finally:
+        bert.encoder_self_attention = original
+    if len(seen) != 6 or any((m != seen[0]).any() for m in seen):
+        raise AssertionError(f"the rerank layers saw {len(seen)} masks, not one mask 6 times")
+    return seen[0]
+
+
+def check_attention_batch_mask(torch, np, main: dict, smi: str, baseline=None) -> None:
+    """Kernel 2 on the phase-3 batch's own rerank mask (the query-side
+    hole, the documents' lengths), with random q, k and v."""
+    mask_np = rerank_batch_mask(torch, np, main)
+    p, s = mask_np.shape
+    q, k, v, _ = attention_inputs(torch, np, p, s)
+    time_attention_mask(torch, np, smi, "phase-3 rerank", q, k, v, mask_np, baseline)
 
 
 # -- phase 3: the main path -----------------------------------------------------
@@ -1353,6 +1502,11 @@ def main() -> int:
         help="csrc/ directory of an earlier checkout: hold kernel 1 bit for bit "
              "against its masked_topk.cu",
     )
+    parser.add_argument(
+        "--attn-baseline", type=Path, default=None, metavar="CSRC",
+        help="csrc/ directory of an earlier checkout: time its pair_attention.cu "
+             "beside kernel 2 on the same inputs, and log their contexts' difference",
+    )
     opts = parser.parse_args()
     try:
         import torch
@@ -1371,7 +1525,10 @@ def main() -> int:
 
     smi = phase_card()
     phase_build()
-    kernels = [check_topk(torch, np, smi, opts.topk_baseline), check_attention(torch, np, smi)]
+    attn_baseline = (baseline_lib("pair_attention", opts.attn_baseline)
+                     if opts.attn_baseline else None)
+    kernels = [check_topk(torch, np, smi, opts.topk_baseline),
+               check_attention(torch, np, smi, attn_baseline)]
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         t0 = time.perf_counter()
@@ -1385,6 +1542,7 @@ def main() -> int:
         cpu_models = (get_embedder(device="cpu"), get_reranker(device="cpu"))
         check_against_cpu(torch, np, main_run, cpu_models)
         check_attention_gate(torch, np, main_run, smi)
+        check_attention_batch_mask(torch, np, main_run, smi, attn_baseline)
         profile_batch(torch, main_run, smi)
         t0 = time.perf_counter()
         ivf_run = drive_ivf_path(torch, np, main_run, smi)

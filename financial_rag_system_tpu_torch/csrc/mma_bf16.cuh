@@ -1,7 +1,7 @@
 // Tensor-core helpers shared by every kernel of the port (topk_common.cuh,
 // pair_attention.cu, fused_bert.cu): mma.sync m16n8k16 with bf16 operands
-// and f32 sums, and the 32-bit shared-memory loads and bf16 packing its
-// fragments are made of.
+// and f32 sums, and the 32-bit shared-memory loads, transposing ldmatrix
+// and bf16 packing its fragments are made of.
 
 #pragma once
 
@@ -27,4 +27,13 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 bf16 matrices from shared memory, transposed: lanes 8i..8i+7
+// give the addresses of matrix i's rows (16 B each), and r[i] receives
+// its elements (2t, g) and (2t + 1, g), the B fragment of a row-major tile
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
 }

@@ -1,12 +1,15 @@
 // Hopper (sm_90a) building blocks, as inline PTX: mbarriers, TMA tensor
 // loads and stores, proxy fences and named barriers, and warpgroup MMA
-// (wgmma) with A from registers and B from a 128-byte-swizzled tile in
-// shared memory.  Used by fused_bert.cu's QKV
-// kernel; meant for any kernel of the port that streams tiles with TMA.
+// (wgmma) with A from registers or shared memory and B from a 128- or
+// 64-byte-swizzled tile in shared memory; on the host,
+// cuTensorMapEncodeTiled.  Used by fused_bert.cu's QKV kernel and
+// pair_attention.cu; meant for any kernel of the port that streams tiles
+// with TMA.
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -62,6 +65,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// box at (c0 innermost, c1, c2) of the 3-D tensor `map` into shared
+// memory; completes on `bar`.  Elements out of the tensor's bounds arrive
+// as zeros and count towards the box's bytes.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // box at (c0 innermost, c1, c2) of the tensor `map` from shared memory,
 // in this thread's bulk group; rows out of the tensor's bounds are dropped
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
@@ -112,6 +127,18 @@ __device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* p) {
          | (1ull << 62);       // 128-byte swizzle
 }
 
+// Descriptor of a K-major bf16 operand in shared memory laid out as TMA
+// writes it with 64-byte swizzle: rows of 32 values (64 B) along K, atoms
+// of 8 rows (512 B, 512-aligned) stacked along M or N.  `p` is the first
+// row plus the k offset (32 B per 16-deep step).
+__device__ __forceinline__ uint64_t wgmma_desc_sw64(const void* p) {
+  const uint64_t a = smem_addr(p);
+  return ((a & 0x3FFFF) >> 4)  // start address, 16 B units
+         | (1ull << 16)        // leading-dimension byte offset (unused when swizzled)
+         | (32ull << 32)       // stride byte offset: 512 B between 8-row atoms
+         | (2ull << 62);       // 64-byte swizzle
+}
+
 // order earlier register writes (A fragments, accumulators) before the
 // next wgmma reads them
 __device__ __forceinline__ void wgmma_fence() {
@@ -134,6 +161,19 @@ template <int R>
 __device__ __forceinline__ void wgmma_pin(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64 f32) = A (64 x 16 bf16) * B (64 x 16 bf16) + (scale_d ? d : 0),
+// both K-major in shared memory, by descriptor; d's layout as wgmma_rs's.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 // d (64 x N f32, the warpgroup's accumulator) = A (64 x 16 bf16, from
@@ -206,4 +246,32 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t (&a)[4],
         "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
         "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// -- host: tensor maps -----------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's entry-point lookup, so the library
+// needs no -lcuda; null if the driver has none.  Looked up once, by
+// whichever host thread asks first.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
 }

@@ -8,8 +8,10 @@ device memory; the kernel keeps them on chip.
 - :func:`encoder_self_attention` is the entry point, with the JAX
   signature and layout: (B, S, H, D) q/k/v and a (B, S) key mask in,
   (B, S, H*D) f32 context out.  On a CUDA tensor it launches the
-  hand-written kernel ``csrc/pair_attention.cu`` (or raises); on a CPU
-  tensor it runs :func:`encoder_self_attention_plain`.
+  hand-written Hopper kernel ``csrc/pair_attention.cu`` (TMA-staged K
+  and V, ``wgmma`` products, exp as ``ex2.approx``, no work past a pair's
+  last valid key), or raises; on a CPU tensor it runs
+  :func:`encoder_self_attention_plain`.
 - :func:`encoder_self_attention_plain` is the same arithmetic in plain
   PyTorch: q pre-scaled in f32 then rounded to bf16, bf16 x bf16 logits
   summed in f32 plus a -1e9 key-padding bias, a full-row f32 softmax,
@@ -102,6 +104,8 @@ def pair_attention_kernel(
     for t in (qs, kb, vb, mask):
         if t.device != qs.device or t.device.type != "cuda" or not t.is_contiguous():
             raise ValueError("inputs must be contiguous and on one CUDA device")
+    if any(t.data_ptr() % 16 for t in (qs, kb, vb)):
+        raise ValueError("q, k and v must be 16-byte aligned (TMA loads them)")
     out = torch.empty((b, s, h, d), dtype=torch.bfloat16, device=qs.device)
     stream = torch.cuda.current_stream(qs.device).cuda_stream
     _cuda.check(

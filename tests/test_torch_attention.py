@@ -14,6 +14,7 @@ from financial_rag_system_tpu.ops.attention import (
     encoder_self_attention as jax_attention,
 )
 from financial_rag_system_tpu_torch.ops import attention as tattn
+from torch_attn_masks import holes_mask, rerank_mask
 
 
 def make_inputs(b=3, s=50, h=4, d=32, seed=0):
@@ -40,6 +41,15 @@ def test_matches_jax_kernel(s):
     got, ref = both(q, k, v, mask)
     assert got.shape == ref.shape and got.dtype == np.float32
     # bf16 output: one bf16 ulp of an O(1) context is about 4e-3
+    np.testing.assert_allclose(got, ref, atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("kind,s", [("rerank", 400), ("rerank", 257), ("holes", 400),
+                                    ("holes", 130)])
+def test_non_prefix_masks_match_jax_kernel(kind, s):
+    q, k, v, _ = make_inputs(b=3, s=s, h=2, seed=s + 1)
+    mask = rerank_mask(3, s, seed=s) if kind == "rerank" else holes_mask(3, s, seed=s)
+    got, ref = both(q, k, v, mask)
     np.testing.assert_allclose(got, ref, atol=1e-2, rtol=0)
 
 

@@ -8,6 +8,12 @@ JAX nor the JAX package, so it also runs where JAX is not installed:
 
 from __future__ import annotations
 
+import subprocess
+import sys
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -17,10 +23,14 @@ from financial_rag_system_tpu_torch.ops import fused_bert
 from financial_rag_system_tpu_torch.ops.attention import (
     encoder_self_attention,
     encoder_self_attention_plain,
+    pair_attention_kernel,
 )
 from financial_rag_system_tpu_torch.ops.topk import masked_topk, masked_topk_plain
+from torch_attn_masks import holes_mask, prefix_mask, rerank_mask
 
 pytestmark = pytest.mark.cuda
+
+REPO = Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture()
@@ -261,6 +271,120 @@ def test_attention_kernel_matches_plain(cuda, p, s, h):
     np.testing.assert_allclose(got, ref, atol=1e-2, rtol=1e-2)
 
 
+# (p, s, h, mask): kend at 1, at a chunk edge (64, 128) and in mid-chunk,
+# S not a multiple of 64, fully masked pairs, and P H = 768 items, so that
+# each persistent block takes several
+ATTN_MASK_CASES = {
+    "rerank": (8, 400, 12, rerank_mask(8, 400)),
+    "rerank_s333": (6, 333, 4, rerank_mask(6, 333, seed=1)),
+    "holes": (6, 300, 4, holes_mask(6, 300)),
+    "all_valid": (4, 400, 12, np.ones((4, 400), np.int32)),
+    "kend_1_edges_mid": (6, 400, 3, prefix_mask(400, [1, 64, 128, 100, 37, 399])),
+    "s_not_64": (5, 100, 4, prefix_mask(100, [100, 65, 64, 63, 1])),
+    "s_65": (3, 65, 2, prefix_mask(65, [65, 64, 0])),
+    "fully_masked": (3, 400, 4, prefix_mask(400, [0, 200, 0])),
+    "persistent": (64, 400, 12, rerank_mask(64, 400, seed=2)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_MASK_CASES))
+def test_attention_kernel_masks(cuda, case):
+    p, s, h, mask_np = ATTN_MASK_CASES[case]
+    q, k, v, _ = attn_case(p, s, h, seed=len(case))
+    q, k, v, mask = (torch.tensor(a, device=cuda) for a in (q, k, v, mask_np))
+    inv = 1.0 / np.sqrt(32)
+    ref = encoder_self_attention_plain(q, k, v, mask, inv).cpu().numpy()
+    got = encoder_self_attention(q, k, v, mask, inv).cpu().numpy()
+    torch.cuda.synchronize()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, atol=1e-2, rtol=1e-2)
+
+
+def test_attention_kernel_relaunch_is_bit_identical(cuda):
+    q, k, v, _ = attn_case(16, 400, 12, seed=3)
+    q, k, v, mask = (torch.tensor(a, device=cuda) for a in (q, k, v, rerank_mask(16, 400)))
+    first = encoder_self_attention(q, k, v, mask, 0.125)
+    again = encoder_self_attention(q, k, v, mask, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+def test_attention_kernel_from_worker_threads(cuda):
+    """The server runs its batches in worker threads (``asyncio.to_thread``):
+    launches from four threads at once, from a fresh thread and from a
+    thread on a side stream give the main thread's context bit for bit."""
+    cases = []
+    for i in range(4):
+        q, k, v, _ = attn_case(16, 400, 12, seed=10 + i)
+        cases.append(tuple(torch.tensor(a, device=cuda)
+                           for a in (q, k, v, rerank_mask(16, 400, seed=i))))
+    want = [encoder_self_attention(*c, 0.125) for c in cases]
+    ref = encoder_self_attention_plain(*cases[0], 0.125)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(want[0].cpu().numpy(), ref.cpu().numpy(), atol=1e-2, rtol=1e-2)
+
+    def run(case, side_stream=False):
+        if side_stream:
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.default_stream())
+            with torch.cuda.stream(stream):
+                out = encoder_self_attention(*case, 0.125)
+        else:
+            out = encoder_self_attention(*case, 0.125)
+        torch.cuda.synchronize()
+        return out
+
+    with ThreadPoolExecutor(4) as pool:
+        got = list(pool.map(run, cases))
+    results, errors = [], []
+
+    def in_thread(side_stream):
+        try:
+            results.append(run(cases[1], side_stream))
+        except Exception as exc:  # re-raised below, in the test's thread
+            errors.append(exc)
+
+    for side_stream in (False, True):
+        t = threading.Thread(target=in_thread, args=(side_stream,))
+        t.start()
+        t.join()
+    assert not errors, errors
+    assert all(torch.equal(w, g) for w, g in zip(want, got))
+    assert all(torch.equal(want[1], r) for r in results)
+
+
+def test_attention_kernel_first_launches_race(cuda):
+    """A process whose first launches of the kernel come from four threads
+    at once (the launcher's one-time set-up runs in each of them)."""
+    code = (
+        "import threading, torch\n"
+        "from concurrent.futures import ThreadPoolExecutor\n"
+        "from financial_rag_system_tpu_torch.ops import _cuda\n"
+        "from financial_rag_system_tpu_torch.ops.attention import (\n"
+        "    encoder_self_attention, encoder_self_attention_plain)\n"
+        "_cuda.library('pair_attention')  # loaded, not yet launched\n"
+        "g = torch.Generator(device='cuda').manual_seed(0)\n"
+        "q, k, v = (torch.randn(8, 400, 12, 32, device='cuda', generator=g)\n"
+        "           for _ in range(3))\n"
+        "mask = torch.ones(8, 400, dtype=torch.int32, device='cuda')\n"
+        "start = threading.Barrier(4)\n"
+        "def run(_):\n"
+        "    start.wait()\n"
+        "    out = encoder_self_attention(q, k, v, mask, 0.125)\n"
+        "    torch.cuda.synchronize()\n"
+        "    return out\n"
+        "with ThreadPoolExecutor(4) as pool:\n"
+        "    outs = list(pool.map(run, range(4)))\n"
+        "assert all(torch.equal(o, outs[0]) for o in outs)\n"
+        "ref = encoder_self_attention_plain(q, k, v, mask, 0.125)\n"
+        "torch.testing.assert_close(outs[0], ref, atol=1e-2, rtol=1e-2)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0 and out.stdout.split()[-1:] == ["ok"], out.stderr[-4000:]
+
+
 def test_attention_kernel_rejects_shapes(cuda):
     x = torch.zeros((1, 600, 2, 32), device=cuda)
     m = torch.ones((1, 600), dtype=torch.int32, device=cuda)
@@ -269,6 +393,9 @@ def test_attention_kernel_rejects_shapes(cuda):
     y = torch.zeros((1, 8, 2, 64), device=cuda)
     with pytest.raises(ValueError):
         encoder_self_attention(y, y, y, m[:, :8], 0.1)
+    z = torch.zeros(1 + 8 * 2 * 32, dtype=torch.bfloat16, device=cuda)[1:].view(1, 8, 2, 32)
+    with pytest.raises(ValueError, match="aligned"):
+        pair_attention_kernel(z, z, z, m[:, :8])
 
 
 def block_case(r, h, i, dev, seed=0):
