@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py [--topk-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
                           [--attn-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
+                          [--ffn-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
 
 Drives ``financial_rag_system_tpu_torch`` end to end on the card, in
 seven phases; any failure raises and the script exits non-zero:
@@ -45,7 +46,10 @@ seven phases; any failure raises and the script exits non-zero:
    batch of 32 each way; kernels 4-6 against their plain versions at the
    rerank and embed shapes, with their times beside the plain version's,
    the unfused layer's torch sequence for the same half-layer, a library
-   call where one computes the same function, and the bound;
+   call where one computes the same function, and the bound; kernel 4
+   also beside its two products alone (``gemms_ms``), with its device
+   time from the profiler, its plan and the weight bytes it draws from
+   L2;
 6. int8 corpora (``RAG_TPU_INDEX_DTYPE=int8``): the phase-3 corpus saved
    as an int8 ``flat_index.npz`` and served through
    ``build_default_engine(device="cuda")`` (3 single asks, a burst of 32,
@@ -59,7 +63,9 @@ seven phases; any failure raises and the script exits non-zero:
 ``--topk-baseline`` also builds the ``masked_topk.cu`` of an earlier
 checkout and holds kernel 1 bit for bit against it; ``--attn-baseline``
 builds an earlier ``pair_attention.cu`` and times it beside kernel 2 on
-the same inputs and masks, in turns, with their contexts' difference.
+the same inputs and masks, in turns, with their contexts' difference;
+``--ffn-baseline`` builds an earlier ``fused_bert.cu`` and times its FFN
+kernel beside kernel 4 at both shapes the same way.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device": ...}``.
@@ -1221,7 +1227,7 @@ def time_fused_kernel(torch, smi: str, name: str, shape: str, fn, plain, unfused
         f"plain {plain_ms:.4f} ms, unfused_ms {unfused_ms:.4f}, library {lib}, "
         f"bound {b_ms:.4f} ms ({b_by}), share of the bound {b_ms / ms:.3f}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms}
+            "bound_by": b_by, "library_ms": library_ms, "unfused_ms": unfused_ms}
 
 
 def qkv_limits(torch, smi: str, shape: str, x, ms: float, plan) -> None:
@@ -1264,7 +1270,106 @@ def qkv_limits(torch, smi: str, shape: str, x, ms: float, plan) -> None:
         f"on {half} blocks {half_ms:.4f} ms ({half_ms / all_ms:.2f}x)")
 
 
-def check_fused_block_kernels(torch, run: dict, smi: str) -> list[dict]:
+def device_ms(torch, fn, kernel: str, calls: int = 10) -> float:
+    """Median device time of the launches of the kernel whose name holds
+    ``kernel`` among ``calls`` calls of ``fn``: the profiler's kernel
+    times, without the host's work around each launch (the CUDA-event
+    times of a short kernel are mostly that).  NaN if three profiles in a
+    row hold none (the profiler has been seen to drop them)."""
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.device_time for e in prof.events() if kernel in e.name]
+        if times:
+            return statistics.median(times) / 1e3
+    return float("nan")
+
+
+def ffn_baseline_fn(baseline, xf, ops, eps: float, y):
+    """A launch of the FFN entry of an earlier ``fused_bert.cu``
+    (``--ffn-baseline``), whose C entry took no plan:
+    ``fused_ffn_ln(x, w_in, b_in, w_out, b_out, ln_s, ln_b, eps, y, R, H, I,
+    stream)``, into ``y``."""
+    import ctypes
+
+    import torch
+
+    from financial_rag_system_tpu_torch.ops import _cuda
+
+    fn = baseline.fused_ffn_ln
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 7 + [ctypes.c_float, p, i, i, i, p]
+    fn.restype = ctypes.c_int
+    (r, h), n_i = xf.shape, ops[0].shape[0]
+
+    def launch():
+        _cuda.check(fn(xf.data_ptr(), *(t.data_ptr() for t in ops), float(eps), y.data_ptr(),
+                       r, h, n_i, torch.cuda.current_stream().cuda_stream), "baseline fused_ffn_ln")
+        return y
+
+    return launch
+
+
+def ffn_yardsticks(torch, smi: str, shape: str, ffn: tuple, res: dict, baseline=None) -> None:
+    """Kernel 4 at one shape beside its yardsticks, on the same inputs, with
+    its device time from the profiler beside the CUDA-event time: the
+    two FFN products alone (``torch.mm(bf16, bf16, out_dtype=f32)``, no
+    bias, GELU or layernorm) as ``gemms_ms``, the unfused layer's torch
+    sequence (``unfused_ms``, timed by ``time_fused_kernel``), and with
+    ``baseline`` (``--ffn-baseline``) an earlier build's kernel, timed in
+    turns (old, new, new, old) with the outputs' largest difference.  Then
+    what the plan draws from L2: the weight bytes (every unit reads its
+    chunks' W_in and W_out pieces once; a tile's units together read all
+    of both) and the blocks it runs."""
+    from financial_rag_system_tpu_torch.ops import fused_bert as fb
+
+    x, w_in, b_in, w_out, b_out, ln_s, ln_b, eps = ffn
+    r, h = x.shape
+    i = w_in.shape[0]
+    bf, f32 = torch.bfloat16, torch.float32
+    x16, wi16, wo16 = x.to(bf), w_in.to(bf), w_out.to(bf)
+    up16 = torch.empty((r, i), dtype=bf, device=x.device).normal_()
+
+    def gemms():
+        torch.mm(x16, wi16.t(), out_dtype=f32)
+        return torch.mm(up16, wo16.t(), out_dtype=f32)
+
+    gemms_ms = median_ms(gemms, reps=20)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = fb.ffn_plan(h, i, r, sms)
+    ms = res["ms"]
+    weights = plan.tiles * 2 * h * i * 2  # bytes
+
+    def kernel():
+        return fb.fused_ffn_ln(*ffn)
+
+    dev_ms = device_ms(torch, kernel, "ffn_ln_kernel")
+    line = (f"[fused_ffn_ln] {smi}: {shape} shape: kernel {ms:.4f} ms (device {dev_ms:.4f} ms), "
+            f"gemms_ms {gemms_ms:.4f}, unfused_ms {res['unfused_ms']:.4f}, "
+            f"bound {res['bound_ms']:.4f} ms")
+    if baseline is not None:
+        xf, ops = fb._ffn_operands(*ffn[:-1])
+        new = kernel()
+        old_launch = ffn_baseline_fn(baseline, xf, ops, eps, torch.empty_like(new))
+        old = old_launch()
+        torch.cuda.synchronize()
+        diff = float((new - old).abs().max())
+        turns = [median_ms(old_launch, reps=20), median_ms(kernel, reps=20),
+                 median_ms(kernel, reps=20), median_ms(old_launch, reps=20)]
+        line += (f"; baseline: max abs diff {diff:.3g}, old, new, new, old "
+                 f"{[round(t, 4) for t in turns]} ms, old device "
+                 f"{device_ms(torch, old_launch, 'ffn_ln_kernel'):.4f} ms")
+    log(line)
+    log(f"[fused_ffn_ln] {smi}: {shape} shape, plan {plan._asdict()}: weights from L2 "
+        f"{weights / 1e9:.3f} GB at {weights / dev_ms / 1e9:.3f} TB/s of device time; "
+        f"{plan.ctas} blocks on {min(plan.ctas, sms)} of {sms} SMs"
+        + (f"; partial sums {plan.workspace * 4 / 1e6:.1f} MB written, read back by "
+           f"{plan.tiles} blocks" if plan.splits > 1 else ""))
+
+
+def check_fused_block_kernels(torch, run: dict, smi: str, ffn_baseline=None) -> list[dict]:
     """Kernels 4-6 at the main path's rerank and embed shapes, on a random
     (R, H) activation, the models' first-layer weights and random biases
     and layernorm parameters (the random-init checkpoints' are 0 and 1)."""
@@ -1341,6 +1446,7 @@ def check_fused_block_kernels(torch, run: dict, smi: str) -> list[dict]:
                 lambda: fb.fused_resid_ln_plain(*res), unfused_resid, None,
                 r * h * (4 + 2 + 4) + h * h * 2 + 3 * h * 4, 2.0 * r * h * h),
         }
+        ffn_yardsticks(torch, smi, shape, ffn, out[shape]["fused_ffn_ln"], ffn_baseline)
         qkv_limits(torch, smi, shape, x, out[shape]["fused_qkv"]["ms"], fb.qkv_plan(
             h, r, torch.cuda.get_device_properties(0).multi_processor_count))
     lines = {"fused_ffn_ln": 47, "fused_qkv": 73, "fused_resid_ln": 89}
@@ -1507,6 +1613,11 @@ def main() -> int:
         help="csrc/ directory of an earlier checkout: time its pair_attention.cu "
              "beside kernel 2 on the same inputs, and log their contexts' difference",
     )
+    parser.add_argument(
+        "--ffn-baseline", type=Path, default=None, metavar="CSRC",
+        help="csrc/ directory of an earlier checkout: time its fused_bert.cu's FFN kernel "
+             "beside kernel 4 on the same inputs, in turns, and log their outputs' difference",
+    )
     opts = parser.parse_args()
     try:
         import torch
@@ -1527,6 +1638,8 @@ def main() -> int:
     phase_build()
     attn_baseline = (baseline_lib("pair_attention", opts.attn_baseline)
                      if opts.attn_baseline else None)
+    ffn_baseline = (baseline_lib("fused_bert", opts.ffn_baseline)
+                    if opts.ffn_baseline else None)
     kernels = [check_topk(torch, np, smi, opts.topk_baseline),
                check_attention(torch, np, smi, attn_baseline)]
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
@@ -1554,7 +1667,7 @@ def main() -> int:
         with env_set(**FUSED_BLOCK_ENV):
             block_run = drive_main_path(torch, np, work, smi, label="fused-block")
             check_fused_block_batch(torch, np, block_run, cpu_models, smi)
-            kernels += check_fused_block_kernels(torch, block_run, smi)
+            kernels += check_fused_block_kernels(torch, block_run, smi, ffn_baseline)
         log(f"[fused-block] phase 5 took {time.perf_counter() - t0:.1f} s")
         del block_run["engine"]
         t0 = time.perf_counter()

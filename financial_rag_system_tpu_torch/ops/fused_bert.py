@@ -44,6 +44,17 @@ QKV_BOX_BYTES = QKV_ROWS * 32 * 4  # one x or output box: 64 rows x 32 f32
 QKV_SLICE_WIDTHS = (192, 128, 64)  # wgmma N widths the kernel is built for
 QKV_CONSUMERS = 2  # consumer warpgroups, each with an output box for its TMA stores
 
+# the FFN kernel's plan (csrc/fused_bert.cu ffn_ln_kernel)
+FFN_X_BOX = 8192      # an f32 x box: 64 rows x 32
+FFN_WIDE = 384        # widest H whose 64 x H f32 accumulator a warpgroup holds (H / 2 registers)
+FFN_MAX_RING = 8      # weight pieces in flight, at most
+
+
+def ffn_chunk(rows: int) -> int:
+    """I columns of the FFN kernel's chunks: 32 with row tiles of 128, 64
+    with tiles of 64 (H split)."""
+    return 32 if rows == 128 else 64
+
 
 def _bf(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).float()
@@ -100,6 +111,64 @@ def qkv_plan(h: int, r: int, sms: int) -> QKVPlan:
     return QKVPlan(bn, slices, n_stages, ctas, smem)
 
 
+def ffn_smem(h: int, rows: int, ring: int, stages: int) -> int:
+    """Bytes of dynamic shared memory the FFN kernel takes (``ffn_smem`` in
+    ``csrc/fused_bert.cu``): alignment, the bf16 x tile, the weight ring,
+    both consumer warpgroups' f32 x slots, two 8 KB buffers (GEMM1's sums
+    over the first half of K with 128-row tiles, the up tiles with H
+    split), the H split's row sums, the barriers and the ticket's flag."""
+    chunk = ffn_chunk(rows)
+    slots = rows // chunk + ring  # the I split's reduction parts in flight
+    buffers = 2 * 8192 + (1024 if rows == 64 else 0)
+    return (1024 + rows * h * 2 + ring * chunk * h * 2 + 2 * stages * FFN_X_BOX + buffers
+            + 8 * (ring * (h // 64) + ring + 4 * stages + 2 * slots) + 16)
+
+
+class FFNPlan(NamedTuple):
+    rows: int       # rows of a tile: 128 (each consumer warpgroup 64 rows x all H) or 64 (H split)
+    tiles: int      # row tiles
+    splits: int     # blocks a tile's I is split over (1: none)
+    ctas: int       # blocks: tiles x splits with a split, else persistent, one an SM at most
+    ring: int       # weight pieces (a chunk's rows of W_in or columns of W_out) in flight
+    stages: int     # f32 x boxes (64 rows x 32) in flight for each consumer warpgroup
+    smem: int       # bytes of dynamic shared memory a block takes
+    workspace: int  # f32 values of the split's partial sums (0 without one)
+
+
+@functools.lru_cache(maxsize=256)
+def ffn_plan(h: int, i: int, r: int, sms: int) -> FFNPlan:
+    """The plan of the FFN kernel for an (r, h) activation and I = ``i`` on
+    a card with ``sms`` multiprocessors.  Tiles of 128 rows where a
+    warpgroup's 64 x H f32 accumulator fits in registers (H <= 384; I in
+    chunks of 32), else 64 rows with the two warpgroups splitting H (chunks
+    of 64); at H 384 also 64 where 128-row tiles would be too few to fill
+    the card without splitting I (the embed shape: a tile's partial sums
+    are then half as large, and the kernel twice as fast).  Two x slots a
+    warpgroup where they fit beside two weight pieces, and as many pieces
+    as fit.  With fewer tiles than multiprocessors, I is split over as many
+    blocks a tile as fill the card, each a whole number of chunks; the
+    blocks store partial sums (splits x tiles x rows x H f32) and the last
+    of a tile sums them.  The kernel is compiled for these plans and checks
+    them."""
+    rows = 128 if h <= FFN_WIDE else 64
+    if h == FFN_WIDE and 2 * -(-r // 128) <= sms:
+        rows = 64  # the 128-row plan would split I
+    return _ffn_plan_rows(h, i, r, sms, rows)
+
+
+def _ffn_plan_rows(h: int, i: int, r: int, sms: int, rows: int) -> FFNPlan:
+    """:func:`ffn_plan`'s plan with tiles of ``rows`` (at H 384 either
+    plan runs: the variants tool compares the two)."""
+    stages = 2 if ffn_smem(h, rows, 2, 2) <= SMEM_LIMIT else 1
+    ring = max(n for n in range(FFN_MAX_RING + 1) if ffn_smem(h, rows, n, stages) <= SMEM_LIMIT)
+    tiles = -(-r // rows)
+    splits = max(1, min(i // ffn_chunk(rows), sms // tiles))
+    ctas = tiles * splits if splits > 1 else min(tiles, sms)
+    workspace = splits * tiles * rows * h if splits > 1 else 0
+    return FFNPlan(rows, tiles, splits, ctas, ring, stages, ffn_smem(h, rows, ring, stages),
+                   workspace)
+
+
 def fused_resid_ln_plain(x, ctx, w, b, ln_scale, ln_bias, eps: float):
     """Plain PyTorch version of :func:`fused_resid_ln`."""
     return _layer_norm(x.float() + _dense(ctx, w, b), ln_scale, ln_bias, eps)
@@ -118,7 +187,7 @@ def _library():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fused_qkv.argtypes = [p] * 4 + [i] * 5 + [p]
     lib.fused_resid_ln.argtypes = [p, p, i, p, p, p, p, ctypes.c_float, p, i, i, p]
-    lib.fused_ffn_ln.argtypes = [p] * 7 + [ctypes.c_float, p, i, i, i, p]
+    lib.fused_ffn_ln.argtypes = [p] * 7 + [ctypes.c_float, p] + [i] * 8 + [p, p, p]
     for fn in (lib.fused_qkv, lib.fused_resid_ln, lib.fused_ffn_ln):
         fn.restype = ctypes.c_int
     return lib
@@ -246,9 +315,21 @@ def fused_resid_ln(x, ctx, w, b, ln_scale, ln_bias, eps: float):
 
 
 def fused_ffn_ln(x, w_in, b_in, w_out, b_out, ln_scale, ln_bias, eps: float):
-    """LN(x + gelu_tanh(x W_in^T + b_in) W_out^T + b_out): (R, H) f32."""
+    """LN(x + gelu_tanh(x W_in^T + b_in) W_out^T + b_out): (R, H) f32, by
+    the kernel on :func:`ffn_plan`'s plan for a CUDA tensor, by the plain
+    version for a CPU tensor."""
     if _on_cpu(x):
         return fused_ffn_ln_plain(x, w_in, b_in, w_out, b_out, ln_scale, ln_bias, eps)
+    xf, ops = _ffn_operands(x, w_in, b_in, w_out, b_out, ln_scale, ln_bias)
+    r, h = xf.shape
+    y = _ffn_launch(xf, ops, eps, ffn_plan(h, ops[0].shape[0], r, _sm_count(xf.device)))
+    _count(fused_ffn_ln)
+    return y
+
+
+def _ffn_operands(x, w_in, b_in, w_out, b_out, ln_scale, ln_bias):
+    """x as the kernel takes it, and its six other operands: bf16 weights,
+    f32 vectors, all contiguous and 16-byte aligned on x's device."""
     xf, r, h = _rows(x)
     i = w_in.shape[0]
     _check_width("I", i)
@@ -258,12 +339,37 @@ def fused_ffn_ln(x, w_in, b_in, w_out, b_out, ln_scale, ln_bias, eps: float):
         _operand(w_out, (h, i), bf, dev, "w_out"), _operand(b_out, (h,), f32, dev, "b_out"),
         _operand(ln_scale, (h,), f32, dev, "ln_scale"), _operand(ln_bias, (h,), f32, dev, "ln_bias"),
     ]
-    y = torch.empty((r, h), dtype=f32, device=dev)
-    with torch.cuda.device(dev):
+    return _aligned(xf), [_aligned(t) for t in ops]
+
+
+def _ffn_launch(xf, ops, eps: float, plan: FFNPlan) -> torch.Tensor:
+    """One launch of the FFN kernel on ``plan``; a split plan's workspace
+    is allocated here and its tickets are the stream's."""
+    (r, h), i, dev = xf.shape, ops[0].shape[0], xf.device
+    y = torch.empty((r, h), dtype=torch.float32, device=dev)
+    with _on_device(dev):
+        split = [None, None]  # the workspace and the tickets, held over the launch
+        if plan.splits > 1:
+            split = [torch.empty(plan.workspace, dtype=torch.float32, device=dev),
+                     _tickets(dev, plan.tiles)]
         _launch(_library().fused_ffn_ln, "fused_ffn_ln", xf.data_ptr(),
-                *(t.data_ptr() for t in ops), float(eps), y.data_ptr(), r, h, i)
-    _count(fused_ffn_ln)
+                *(t.data_ptr() for t in ops), float(eps), y.data_ptr(), r, h, i, plan.rows,
+                plan.splits, plan.ctas, plan.ring, plan.stages,
+                *(None if t is None else t.data_ptr() for t in split))
     return y
+
+
+def _tickets(dev: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zero int32 tickets for the FFN kernel's split plan,
+    one buffer a (device, stream): launches on one stream run in order, and
+    each leaves its tickets zero for the next."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    with _launch_lock:
+        t = _ticket_buffers.get(key)
+        if t is None or t.numel() < n:
+            t = torch.zeros(max(n, 64), dtype=torch.int32, device=dev)
+            _ticket_buffers[key] = t
+        return t
 
 
 # kernel launches since the last reset (chip_smoke.py reads and resets them)
@@ -271,3 +377,4 @@ fused_qkv.launches = 0
 fused_resid_ln.launches = 0
 fused_ffn_ln.launches = 0
 _launch_lock = threading.Lock()
+_ticket_buffers: dict[tuple[int, int], torch.Tensor] = {}

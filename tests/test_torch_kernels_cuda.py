@@ -441,6 +441,72 @@ def test_fused_ffn_ln_kernel_matches_plain(cuda, full_f32, r, h, i):
     torch.testing.assert_close(got, fused_bert.fused_ffn_ln_plain(*args), atol=2e-3, rtol=2e-3)
 
 
+def ffn_args(c):
+    return (c["x"], c["w_in"], c["b_in"], c["w_out"], c["b_out"], c["s"], c["lb"], 1e-12)
+
+
+# what the FFN kernel's plans can get wrong: blocks walking unequal numbers
+# of tiles (64 x 137 + 5: 69 tiles; 20,000 at H 128: 157), the I split
+# (1,024, the embed shape: 16 tiles of 64 rows with H split x 8 splits; 65:
+# two tiles split over all 24 chunks, the second holding one row; 300: 5
+# tiles x 24 splits; 777 at H 256: 7 tiles of 128 x 18 splits of 32
+# chunks, some a chunk longer; 1,024 at H 448: 8 splits of 28 chunks), a
+# ragged last tile (777), and every accepted width
+FFN_CASES = [(777, 384), (64 * 137 + 5, 384), (1024, 384), (65, 384), (300, 384)] + [
+    (777, h) for h in range(64, 513, 64) if h != 384] + [
+    (64 * 137 + 5, 512), (1024, 448), (20_000, 128)]
+
+
+@pytest.mark.parametrize("r,h", FFN_CASES)
+def test_fused_ffn_ln_kernel_plan_cases(cuda, full_f32, r, h):
+    c = block_case(r, h, 4 * h, cuda, seed=r + h)
+    args = ffn_args(c)
+    before = fused_bert.fused_ffn_ln.launches
+    got = fused_bert.fused_ffn_ln(*args)
+    torch.cuda.synchronize()
+    assert fused_bert.fused_ffn_ln.launches == before + 1
+    assert got.shape == (r, h) and got.dtype == torch.float32
+    torch.testing.assert_close(got, fused_bert.fused_ffn_ln_plain(*args), atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("r", [1024, 64 * 137 + 5])
+def test_fused_ffn_ln_kernel_relaunch_is_bit_identical(cuda, r):
+    """The split plan sums its partials in split order, whichever block
+    draws the last ticket, and leaves the tickets zero: launches on the
+    same inputs give the same bits."""
+    args = ffn_args(block_case(r, 384, 1536, cuda, seed=5))
+    first = fused_bert.fused_ffn_ln(*args)
+    again = [fused_bert.fused_ffn_ln(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, a) for a in again)
+
+
+def test_fused_ffn_ln_kernel_from_worker_threads(cuda):
+    """Launches from four threads at once (two of them on side streams,
+    each with tickets of its own), the embed shape's split plan and the
+    rerank's persistent one, give the main thread's bits."""
+    cases = [ffn_args(block_case(r, 384, 1536, cuda, seed=20 + i))
+             for i, r in enumerate((1024, 1024, 4096, 777))]
+    want = [fused_bert.fused_ffn_ln(*c) for c in cases]
+    torch.cuda.synchronize()
+
+    def run(i):
+        if i % 2:
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.default_stream())
+            with torch.cuda.stream(stream):
+                out = fused_bert.fused_ffn_ln(*cases[i])
+        else:
+            out = fused_bert.fused_ffn_ln(*cases[i])
+        torch.cuda.synchronize()
+        return out
+
+    for _ in range(2):
+        with ThreadPoolExecutor(4) as pool:
+            got = list(pool.map(run, range(4)))
+        assert all(torch.equal(w, g) for w, g in zip(want, got))
+
+
 @pytest.mark.parametrize("r,h,i", FUSED_CASES)
 def test_fused_qkv_kernel_matches_plain(cuda, full_f32, r, h, i):
     c = block_case(r, h, i, cuda, seed=r + 1)
