@@ -3,6 +3,7 @@
     python3 chip_smoke.py [--topk-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
                           [--attn-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
                           [--ffn-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
+                          [--resid-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
 
 Drives ``financial_rag_system_tpu_torch`` end to end on the card, in
 seven phases; any failure raises and the script exits non-zero:
@@ -49,7 +50,11 @@ seven phases; any failure raises and the script exits non-zero:
    call where one computes the same function, and the bound; kernel 4
    also beside its two products alone (``gemms_ms``), with its device
    time from the profiler, its plan and the weight bytes it draws from
-   L2;
+   L2; kernel 6 (bf16 context at the rerank shape, f32 at the embed
+   shape, as the main path gives them, and the other type checked too)
+   beside its product alone (``gemm_ms``), with its device time, its
+   plan (cluster size, blocks on SMs, W_o bytes from L2) and its
+   device-memory rate beside a plain copy's;
 6. int8 corpora (``RAG_TPU_INDEX_DTYPE=int8``): the phase-3 corpus saved
    as an int8 ``flat_index.npz`` and served through
    ``build_default_engine(device="cuda")`` (3 single asks, a burst of 32,
@@ -65,7 +70,9 @@ checkout and holds kernel 1 bit for bit against it; ``--attn-baseline``
 builds an earlier ``pair_attention.cu`` and times it beside kernel 2 on
 the same inputs and masks, in turns, with their contexts' difference;
 ``--ffn-baseline`` builds an earlier ``fused_bert.cu`` and times its FFN
-kernel beside kernel 4 at both shapes the same way.
+kernel beside kernel 4 at both shapes the same way; ``--resid-baseline``
+the same for its o-proj kernel beside kernel 6 (a checkout whose C entry
+took no plan).
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device": ...}``.
@@ -77,6 +84,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import contextlib
+import functools
 import json
 import os
 import shutil
@@ -204,9 +212,10 @@ def topk_inputs(torch, rng, n_valid):
             torch.tensor(codes, device=dev), torch.tensor(qf, device=dev))
 
 
+@functools.cache
 def baseline_lib(name: str, csrc: Path):
     """``<name>.cu`` of ``csrc`` (an earlier checkout's), built with the
-    port's flags."""
+    port's flags, once."""
     import ctypes
 
     from financial_rag_system_tpu_torch.ops import _cuda
@@ -1369,10 +1378,108 @@ def ffn_yardsticks(torch, smi: str, shape: str, ffn: tuple, res: dict, baseline=
            f"{plan.tiles} blocks" if plan.splits > 1 else ""))
 
 
-def check_fused_block_kernels(torch, run: dict, smi: str, ffn_baseline=None) -> list[dict]:
+def resid_baseline_fn(baseline, res: tuple, y):
+    """A launch of the o-proj entry of an earlier ``fused_bert.cu``
+    (``--resid-baseline``), whose C entry took no plan:
+    ``fused_resid_ln(x, ctx, ctx_bf16, w, b, ln_s, ln_b, eps, y, R, H,
+    stream)`` with an f32 x and a bf16 W_o, into ``y``."""
+    import ctypes
+
+    import torch
+
+    from financial_rag_system_tpu_torch.ops import _cuda
+
+    fn = baseline.fused_resid_ln
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, i, p, p, p, p, ctypes.c_float, p, i, i, p]
+    fn.restype = ctypes.c_int
+    x, ctx, w, b, ln_s, ln_b, eps = res
+    w16 = w.to(torch.bfloat16).contiguous()
+    r, h = x.shape
+
+    def launch():
+        _cuda.check(fn(x.data_ptr(), ctx.data_ptr(), int(ctx.dtype == torch.bfloat16),
+                       w16.data_ptr(), b.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), float(eps),
+                       y.data_ptr(), r, h, torch.cuda.current_stream().cuda_stream),
+                    "baseline fused_resid_ln")
+        return y
+
+    return launch
+
+
+def resid_yardsticks(torch, smi: str, shape: str, res: tuple, pack, out: dict,
+                     baseline=None) -> None:
+    """Kernel 6 at one shape beside its yardsticks, on the same inputs: its
+    device time from the profiler beside the CUDA-event time; the product
+    alone (``torch.mm(ctx_bf16, W_o^T, out_dtype=f32)``, no bias, residual
+    or layernorm) as ``gemm_ms``; the plan (cluster size, blocks on how
+    many SMs, W_o bytes each block reads from L2 once) and the kernel's
+    device-memory rate (x, ctx and y once, over device time) beside a plain
+    copy's; with ``baseline`` (``--resid-baseline``) an earlier build's
+    kernel timed in turns (old, new, new, old) with its device time and the
+    outputs' largest difference.  Adds ``device_ms`` and ``gemm_ms`` to
+    ``out``."""
+    import ctypes
+
+    from financial_rag_system_tpu_torch.ops import fused_bert as fb
+
+    x, ctx, w, b, ln_s, ln_b, eps = res
+    r, h = x.shape
+    bf, f32 = torch.bfloat16, torch.float32
+    c16, w16 = ctx.to(bf), pack.w
+    gemm_ms = median_ms(lambda: torch.mm(c16, w16.t(), out_dtype=f32), reps=20)
+
+    def kernel():
+        return fb.fused_resid_ln(*res, pack)
+
+    dev_ms = device_ms(torch, kernel, "resid_ln_kernel")
+    out.update(device_ms=dev_ms, gemm_ms=gemm_ms)
+    line = (f"[fused_resid_ln] {smi}: {shape} shape ({str(ctx.dtype)[6:]} ctx): kernel "
+            f"{out['ms']:.4f} ms (device {dev_ms:.4f} ms), gemm_ms {gemm_ms:.4f}, unfused_ms "
+            f"{out['unfused_ms']:.4f}, bound {out['bound_ms']:.4f} ms; met by device time "
+            f"{out['bound_ms'] / dev_ms:.3f} of the bound")
+    if baseline is not None:
+        new = kernel()
+        old_launch = resid_baseline_fn(baseline, res, torch.empty_like(new))
+        old = old_launch()
+        torch.cuda.synchronize()
+        diff = float((new - old).abs().max())
+        turns = [median_ms(old_launch, reps=20), median_ms(kernel, reps=20),
+                 median_ms(kernel, reps=20), median_ms(old_launch, reps=20)]
+        line += (f"; baseline: max abs diff {diff:.3g}, old, new, new, old "
+                 f"{[round(t, 4) for t in turns]} ms, old device "
+                 f"{device_ms(torch, old_launch, 'resid_ln_kernel'):.4f} ms")
+    log(line)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ctx_bf16 = ctx.dtype == bf
+    plan = fb.resid_plan(h, r, sms, ctx_bf16)
+    held = ctypes.c_int(0)
+    fb._cuda.check(fb._library().resid_ln_clusters(h, plan.cluster, int(ctx_bf16),
+                                                   ctypes.byref(held)), "resid_ln_clusters")
+    blocks = min(plan.ctas, held.value * plan.cluster)
+    weights = blocks * (h // plan.cluster) * h * 2  # each block reads its slice once
+    dram = r * h * (x.element_size() + ctx.element_size() + 4)
+    src = torch.empty(dram // 2, dtype=torch.uint8, device=x.device)
+    dst = torch.empty_like(src)
+    copy_ms = median_ms(lambda: dst.copy_(src), reps=20)
+    del src, dst
+    rate = dram / copy_ms / 1e9  # TB/s
+    log(f"[fused_resid_ln] {smi}: {shape} shape, plan {plan._asdict()}: clusters of "
+        f"{plan.cluster}, {blocks} blocks on {blocks} of {sms} SMs (the card holds "
+        f"{held.value} such clusters at once); W_o from L2 {weights / 1e6:.3f} MB; device "
+        f"memory {dram / 1e9:.4f} GB at {dram / dev_ms / 1e9:.3f} TB/s of device time; a copy "
+        f"of as many bytes moves {rate:.3f} TB/s, {dram / rate / 1e9:.4f} ms (the kernel at "
+        f"{dram / rate / 1e9 / dev_ms:.3f} of it)")
+
+
+def check_fused_block_kernels(torch, run: dict, smi: str, ffn_baseline=None,
+                              resid_baseline=None) -> list[dict]:
     """Kernels 4-6 at the main path's rerank and embed shapes, on a random
     (R, H) activation, the models' first-layer weights and random biases
-    and layernorm parameters (the random-init checkpoints' are 0 and 1)."""
+    and layernorm parameters (the random-init checkpoints' are 0 and 1).
+    Kernel 6 takes the context the main path gives it at each shape (bf16
+    from kernel 2 at the rerank shape, f32 from the einsum path at the
+    embed shape) and is checked with the other type too."""
     from financial_rag_system_tpu_torch.models import bert
     from financial_rag_system_tpu_torch.ops import fused_bert as fb
 
@@ -1410,12 +1517,14 @@ def check_fused_block_kernels(torch, run: dict, smi: str, ffn_baseline=None) -> 
         ln1, ln2 = ((randn(h, scale=0.1, loc=1.0), randn(h, scale=0.1)) for _ in range(2))
         ffn = (x, w["inter"], b["inter"], w["out"], b["out"], *ln2, eps)
         qkv = (x, w["q"], b["q"], w["k"], b["k"], w["v"], b["v"])
-        res = (x, ctx, w["o"], b["o"], *ln1, eps)
-        # the kernel also takes the f32 context the unfused layer reads
-        err = fused_kernel_err(torch, f"fused_resid_ln at the {shape} shape, f32 ctx",
-                               lambda: fb.fused_resid_ln(x, ctx32, *res[2:]),
-                               lambda: fb.fused_resid_ln_plain(x, ctx32, *res[2:]))
-        log(f"[fused_resid_ln] {shape} shape, f32 ctx: max_abs_err {err:.3g}")
+        main_ctx, other_ctx = (ctx, ctx32) if shape == "rerank" else (ctx32, ctx)
+        res = (x, main_ctx, w32["o"], b["o"], *ln1, eps)
+        o_pack = fb.pack_resid(w32["o"], b["o"])  # made once, as BertLayer.o_pack does
+        other = str(other_ctx.dtype)[6:]
+        err = fused_kernel_err(torch, f"fused_resid_ln at the {shape} shape, {other} ctx",
+                               lambda: fb.fused_resid_ln(x, other_ctx, *res[2:], o_pack),
+                               lambda: fb.fused_resid_ln_plain(x, other_ctx, *res[2:]))
+        log(f"[fused_resid_ln] {shape} shape, {other} ctx: max_abs_err {err:.3g}")
         x16 = x.to(bf)
         pack = fb.pack_qkv(*qkv[1:])  # made once, as BertLayer.qkv_pack does
 
@@ -1429,7 +1538,7 @@ def check_fused_block_kernels(torch, run: dict, smi: str, ffn_baseline=None) -> 
             return [bert._matmul(hb, w32[n], b[n]) for n in ("q", "k", "v")]
 
         def unfused_resid():
-            return bert._ln(x + bert._matmul(ctx32, w32["o"], b["o"]), *ln1, eps)
+            return bert._ln(x + bert._matmul(main_ctx, w32["o"], b["o"]), *ln1, eps)
 
         out[shape] = {
             "fused_ffn_ln": time_fused_kernel(
@@ -1442,10 +1551,13 @@ def check_fused_block_kernels(torch, run: dict, smi: str, ffn_baseline=None) -> 
                 lambda: torch.mm(x16, pack[0].t(), out_dtype=f32),
                 r * h * 4 * 4 + 3 * h * h * 2 + 3 * h * 4, 6.0 * r * h * h),
             "fused_resid_ln": time_fused_kernel(
-                torch, smi, "fused_resid_ln", shape, lambda: fb.fused_resid_ln(*res),
+                torch, smi, "fused_resid_ln", shape, lambda: fb.fused_resid_ln(*res, o_pack),
                 lambda: fb.fused_resid_ln_plain(*res), unfused_resid, None,
-                r * h * (4 + 2 + 4) + h * h * 2 + 3 * h * 4, 2.0 * r * h * h),
+                r * h * (4 + main_ctx.element_size() + 4) + h * h * 2 + 3 * h * 4,
+                2.0 * r * h * h),
         }
+        resid_yardsticks(torch, smi, shape, res, o_pack, out[shape]["fused_resid_ln"],
+                         resid_baseline)
         ffn_yardsticks(torch, smi, shape, ffn, out[shape]["fused_ffn_ln"], ffn_baseline)
         qkv_limits(torch, smi, shape, x, out[shape]["fused_qkv"]["ms"], fb.qkv_plan(
             h, r, torch.cuda.get_device_properties(0).multi_processor_count))
@@ -1618,6 +1730,12 @@ def main() -> int:
         help="csrc/ directory of an earlier checkout: time its fused_bert.cu's FFN kernel "
              "beside kernel 4 on the same inputs, in turns, and log their outputs' difference",
     )
+    parser.add_argument(
+        "--resid-baseline", type=Path, default=None, metavar="CSRC",
+        help="csrc/ directory of an earlier checkout whose o-proj C entry took no plan: time "
+             "its fused_bert.cu's o-proj kernel beside kernel 6 on the same inputs, in turns, "
+             "and log their outputs' difference",
+    )
     opts = parser.parse_args()
     try:
         import torch
@@ -1640,6 +1758,8 @@ def main() -> int:
                      if opts.attn_baseline else None)
     ffn_baseline = (baseline_lib("fused_bert", opts.ffn_baseline)
                     if opts.ffn_baseline else None)
+    resid_baseline = (baseline_lib("fused_bert", opts.resid_baseline)
+                      if opts.resid_baseline else None)
     kernels = [check_topk(torch, np, smi, opts.topk_baseline),
                check_attention(torch, np, smi, attn_baseline)]
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
@@ -1667,7 +1787,8 @@ def main() -> int:
         with env_set(**FUSED_BLOCK_ENV):
             block_run = drive_main_path(torch, np, work, smi, label="fused-block")
             check_fused_block_batch(torch, np, block_run, cpu_models, smi)
-            kernels += check_fused_block_kernels(torch, block_run, smi, ffn_baseline)
+            kernels += check_fused_block_kernels(torch, block_run, smi, ffn_baseline,
+                                                 resid_baseline)
         log(f"[fused-block] phase 5 took {time.perf_counter() - t0:.1f} s")
         del block_run["engine"]
         t0 = time.perf_counter()

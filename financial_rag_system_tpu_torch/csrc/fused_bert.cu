@@ -19,7 +19,9 @@
 //  - qkv: x in and three f32 outputs, 1.18 GB, 0.352 ms: bound by bytes
 //    (its 1.70e11 operations take 0.172 ms);
 //  - resid_ln: x, ctx and y, 885 MB with an f32 ctx (737 MB with bf16),
-//    0.264 ms (0.220 ms): bound by bytes.
+//    0.264 ms (0.220 ms): bound by bytes (its 5.7e10 operations take
+//    0.057 ms).  At the embed shape (R 1,024, f32 ctx) 4.7 MB, 0.0014 ms:
+//    there launch and latency set the time.
 //
 // qkv_kernel is built for Hopper.  The 3H output columns are cut into
 // slices of BN (192 at H 384; a slice lies inside one of q, k, v).  A
@@ -48,19 +50,40 @@
 // serialised by ptxas, and the 147 KB slice leaves room for eight boxes
 // in flight.
 //
-// resid_ln_kernel: a block owns 64 rows and loops over the weight inside
-// itself; blocks carry nothing between them (the TPU kernel's grid runs in
-// order, Hopper's blocks do not).  Its 8 warps split the rows in two
-// halves of 32 and the columns in four quarters (mma.sync m16n8k16).  ctx
-// is rounded to bf16 once into shared memory (f32 or bf16 in); W_o
-// arrives with cp.async in double-buffered 64-deep pieces, in nn.Linear's
-// (out, in) layout, which is the column-major B operand that mma.sync
-// .row.col takes, into a 64 x H f32 accumulator held in registers.  Every
-// staged row is padded by 8 bf16 so that the fragment loads (8 rows x 4
-// words) hit 32 distinct banks.  The layernorm reduces a row within a
-// quad of lanes by shuffles, then across the four column-quarter warps
-// through shared memory.  Rows past R are staged as zeros and never read
-// or stored: no padded copy.
+// resid_ln_kernel is built for Hopper.  W_o (295 KB bf16 at H 384) does
+// not fit in a block's 227 KB, and the first design streamed all of it
+// from L2 for every 64 rows (885 MB a launch).  Here a cluster of C blocks
+// on neighbouring SMs shares each row tile of 64: the block of rank r owns
+// output columns [r N, (r + 1) N), N = H / C (96 at H 384, C 4), and holds
+// that slice of W_o in shared memory for its whole life, read by TMA once
+// (8.8 MB from L2 a launch on 120 blocks).  Two consumer warpgroups take
+// the cluster's tiles in turn, each fed by two producer threads of its
+// own: ctx in 64 x 64 bf16 boxes by TMA (128-byte swizzle, the K-major A
+// operand of wgmma as it lands; an f32 ctx comes in 64 x 32 boxes that the
+// warpgroup rounds to bf16 into that layout), through a ring as deep as
+// shared memory allows (a whole tile at H 384), and the block's N columns
+// of x.  The product is wgmma m64nNk16 with both operands in shared
+// memory, two groups in flight, each stage freed once its group is done.
+// The layernorm needs each row's sums over all H: each block sums its N
+// columns (quad shuffles), sends the pair to every partner's shared memory
+// by st.async, which completes the bytes on the partner's mbarrier, and
+// adds the C parts in rank order, so every block gets the same bits; twice
+// a tile (the sums, then the squares about the mean: the two-pass
+// arithmetic), through four buffers a warpgroup.  To keep those exchanges
+// off the critical path a warpgroup holds two tiles' accumulators
+// (setmaxnreg 232 for the consumers, 40 for the producers): the product of
+// tile i + 1 runs while tile i's sums travel, and its sums while tile i's
+// squares do.  x is added to acc + b from shared memory and its tile freed
+// at once; b, ln_scale and ln_bias live in registers for the kernel's
+// life; y goes out from registers, a quad of lanes writing a row's 32
+// contiguous bytes.  Rows past R arrive as zeros and are never stored.
+// Blocks are persistent, at most as many clusters as the card holds at
+// once (30 of 4 on the H100: 120 SMs).  Measured (PERF.md, the variants
+// tool): the bf16 rerank launch in 0.28 ms of device time, 1.27x its
+// bound and 0.92 of a plain copy's rate over the same bytes; TMA
+// multicast of ctx to the cluster (a quarter of the L2 reads) ran 1.75x
+// slower, clusters of 3 or 8, a third wgmma group and two x tiles slower
+// too.
 //
 // ffn_ln_kernel is built for Hopper.  Its budget at the rerank shape:
 //  - operations: 4 R H I = 4.53e11, 0.458 ms at 989 TFLOP/s, the bound;
@@ -148,248 +171,23 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <atomic>
+#include <cstring>
 
 #include "mma_bf16.cuh"
 #include "sm90.cuh"
 
 namespace {
 
-constexpr int kBM = 64;         // rows a block
-constexpr int kBN = 64;         // columns (or depth) of one weight piece
-constexpr int kThreads = 256;   // 8 warps: 2 row halves x 4 column quarters
-constexpr int kPad = 8;         // bf16 padding of every staged row
-
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Start the copy of a rows x cols piece of a row-major bf16 matrix (row
-// stride ld) into shared memory [rows][cols + kPad], 16 bytes a copy.
-__device__ __forceinline__ void stage_async(bf16* dst, const bf16* src, int rows, int cols,
-                                            int ld) {
-  const int vecs = cols / 8;
-  for (int i = threadIdx.x; i < rows * vecs; i += kThreads) {
-    const int r = i / vecs, c = (i - r * vecs) * 8;
-    cp_async16(dst + r * (cols + kPad) + c, src + (size_t)r * ld + c);
-  }
-}
-
-// Rows [row0, row0 + kBM) of an (R, H) f32 matrix, rounded to bf16, into
-// shared memory [kBM][H + kPad]; rows past R are zeros.
-__device__ __forceinline__ void stage_rows(bf16* dst, const float* src, int row0, int R, int H) {
-  const int vecs = H / 4;
-  for (int i = threadIdx.x; i < kBM * vecs; i += kThreads) {
-    const int r = i / vecs, c = (i - r * vecs) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < R) v = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * H + c);
-    *reinterpret_cast<uint2*>(dst + r * (H + kPad) + c) =
-        make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
-  }
-}
-
-// The same for a bf16 matrix: a copy.
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int row0, int R, int H) {
-  const int vecs = H / 8;
-  for (int i = threadIdx.x; i < kBM * vecs; i += kThreads) {
-    const int r = i / vecs, c = (i - r * vecs) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < R) v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * H + c);
-    *reinterpret_cast<uint4*>(dst + r * (H + kPad) + c) = v;
-  }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&acc)[2][NT][4]) {
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-}
-
-// One warp: acc (32 rows x NT*8 columns) += A[32 rows][0, K) * B[NT*8 rows][0, K)^T.
-// A is the warp's first activation row, B its first output column's
-// weight row (nn.Linear layout), both in shared memory with strides in
-// bf16.  acc[mt][nt][2*hf + e] is row mt*16 + hf*8 + g, column nt*8 + 2t + e.
-template <int NT>
-__device__ __forceinline__ void warp_mma(float (&acc)[2][NT][4], const bf16* A, int lda,
-                                         const bf16* B, int ldb, int K) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const bf16* a0 = A + g * lda + t * 2;
-  const bf16* b0 = B + g * ldb + t * 2;
-#pragma unroll 2
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t a[2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const bf16* p = a0 + mt * 16 * lda + k0;
-      a[mt][0] = ld32(p);
-      a[mt][1] = ld32(p + 8 * lda);
-      a[mt][2] = ld32(p + 8);
-      a[mt][3] = ld32(p + 8 * lda + 8);
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const bf16* p = b0 + nt * 8 * ldb + k0;
-      const uint32_t lo = ld32(p), hi = ld32(p + 8);
-      mma_bf16(acc[0][nt], a[0], lo, hi);
-      mma_bf16(acc[1][nt], a[1], lo, hi);
-    }
-  }
-}
-
-// Totals over a row's H columns of the per-thread partials p[mt][hf]: a
-// quad of lanes holds a warp's quarter of the row; the four quarter
-// warps meet in red [kBM][4].
-__device__ __forceinline__ void row_totals(float (&p)[2][2], float* red) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      p[mt][hf] = quad_sum(p[mt][hf]);
-      if (t == 0) red[(wm * 32 + mt * 16 + hf * 8 + g) * 4 + wn] = p[mt][hf];
-    }
-  __syncthreads();
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const float* r = red + (wm * 32 + mt * 16 + hf * 8 + g) * 4;
-      p[mt][hf] = (r[0] + r[1]) + (r[2] + r[3]);
-    }
-  __syncthreads();  // red is written again by the next call
-}
-
-// y = LN(x + (acc + bias)) for the block's 64 x H accumulator, stored to
-// rows [row0, min(row0 + kBM, R)) of y.
-template <int H>
-__device__ __forceinline__ void residual_ln_store(float (&acc)[2][H / 32][4],
-                                                  const float* __restrict__ x,
-                                                  const float* __restrict__ bias,
-                                                  const float* __restrict__ ln_s,
-                                                  const float* __restrict__ ln_b, float eps,
-                                                  float* __restrict__ y, int row0, int R,
-                                                  float* red) {
-  constexpr int NT = H / 32;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3, g = lane >> 2, t = lane & 3;
-  const int col0 = wn * (H / 4) + t * 2;
-  float s[2][2];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int row = row0 + wm * 32 + mt * 16 + hf * 8 + g;
-      s[mt][hf] = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int c = col0 + nt * 8;
-        const float2 bv = *reinterpret_cast<const float2*>(bias + c);
-        float2 xv = make_float2(0.f, 0.f);
-        if (row < R) xv = *reinterpret_cast<const float2*>(x + (size_t)row * H + c);
-        acc[mt][nt][2 * hf] = xv.x + (acc[mt][nt][2 * hf] + bv.x);
-        acc[mt][nt][2 * hf + 1] = xv.y + (acc[mt][nt][2 * hf + 1] + bv.y);
-        s[mt][hf] += acc[mt][nt][2 * hf] + acc[mt][nt][2 * hf + 1];
-      }
-    }
-  row_totals(s, red);
-  float mu[2][2];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      mu[mt][hf] = s[mt][hf] / H;
-      s[mt][hf] = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const float d0 = acc[mt][nt][2 * hf] - mu[mt][hf];
-        const float d1 = acc[mt][nt][2 * hf + 1] - mu[mt][hf];
-        s[mt][hf] += d0 * d0 + d1 * d1;
-      }
-    }
-  row_totals(s, red);
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int row = row0 + wm * 32 + mt * 16 + hf * 8 + g;
-      if (row >= R) continue;
-      const float rstd = rsqrtf(s[mt][hf] / H + eps);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int c = col0 + nt * 8;
-        const float2 sc = *reinterpret_cast<const float2*>(ln_s + c);
-        const float2 lb = *reinterpret_cast<const float2*>(ln_b + c);
-        float2 out;
-        out.x = (acc[mt][nt][2 * hf] - mu[mt][hf]) * rstd * sc.x + lb.x;
-        out.y = (acc[mt][nt][2 * hf + 1] - mu[mt][hf]) * rstd * sc.y + lb.y;
-        *reinterpret_cast<float2*>(y + (size_t)row * H + c) = out;
-      }
-    }
-}
-
-template <int H, typename CtxT>
-__global__ void __launch_bounds__(kThreads, 1)
-resid_ln_kernel(const float* __restrict__ x, const CtxT* __restrict__ ctx,
-                const bf16* __restrict__ w, const float* __restrict__ b,
-                const float* __restrict__ ln_s, const float* __restrict__ ln_b, float eps,
-                float* __restrict__ y, int R) {
-  constexpr int XS = H + kPad, CS = kBN + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* cs = reinterpret_cast<bf16*>(smem_raw);  // [kBM][XS] ctx
-  bf16* ws = cs + kBM * XS;                      // [2][H][CS] pieces of W_o
-  float* red = reinterpret_cast<float*>(ws + 2 * H * CS);
-
-  const int row0 = blockIdx.x * kBM;
-  const int warp = threadIdx.x >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-
-  stage_async(ws, w, H, kBN, H);
-  cp_async_commit();
-  stage_rows(cs, ctx, row0, R, H);
-
-  float acc[2][H / 32][4];
-  zero(acc);
-  constexpr int pieces = H / kBN;
-  for (int c = 0; c < pieces; ++c) {
-    if (c + 1 < pieces) {
-      stage_async(ws + ((c + 1) & 1) * H * CS, w + (c + 1) * kBN, H, kBN, H);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    warp_mma(acc, cs + wm * 32 * XS + c * kBN, XS, ws + (c & 1) * H * CS + wn * (H / 4) * CS, CS,
-             kBN);
-    __syncthreads();  // the piece is read before it is overwritten
-  }
-  residual_ln_store<H>(acc, x, b, ln_s, ln_b, eps, y, row0, R, red);
-}
-
-bool takes(int R, int H) { return R >= 1 && H >= kBN && H <= 512 && H % kBN == 0; }
-
-dim3 grid(int R) { return dim3((unsigned)((R + kBM - 1) / kBM)); }
+bool takes(int R, int H) { return R >= 1 && H >= 64 && H <= 512 && H % 64 == 0; }
 
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t smem) {
@@ -1378,22 +1176,541 @@ int launch_ffn(const float* x, const bf16* w_in, const float* b_in, const bf16* 
   return (int)cudaGetLastError();
 }
 
-template <int H, typename CtxT>
-int launch_resid(const float* x, const void* ctx, const bf16* w, const float* b,
-                 const float* ln_s, const float* ln_b, float eps, float* y, int R,
-                 cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * ((size_t)kBM * (H + kPad) + 2 * (size_t)H * (kBN + kPad)) +
-                      sizeof(float) * kBM * 4;
-  cudaError_t err = set_smem(resid_ln_kernel<H, CtxT>, smem);
+// -- o-proj + residual + LN: W_o resident across a cluster, TMA, wgmma ------
+
+constexpr int kResRows = 64;        // rows of a tile: one wgmma M
+constexpr int kResThreads = 384;    // two consumer warpgroups, then four producer warps
+constexpr int kResStage = 8192;     // a ctx stage: 64 rows x 128 B (64 bf16 or 32 f32)
+constexpr int kResMaxStages = 8;    // ctx stages a consumer warpgroup, at most
+constexpr int kResXchg = 4;         // exchange buffers a warpgroup: uses u % 4
+constexpr int kResXTiles = 1;       // x tiles a warpgroup: tile k's in x tile k % kResXTiles
+constexpr int kResProducerRegs = 40;   // setmaxnreg budgets: 40 x 128 + 232 x 256 <= 65,536
+constexpr int kResConsumerRegs = 232;
+
+// Bytes of dynamic shared memory for width H and slices of N columns (a
+// cluster of H / N blocks) with `stages` ctx stages a consumer warpgroup:
+// 1 KB to align to the swizzle's atoms, the W_o slice, both warpgroups'
+// ctx rings, with an f32 ctx a bf16 K box each to convert into, both
+// warpgroups' x tiles (64 x N f32), the row sums the cluster exchanges (a
+// slot a block in each of four buffers a warpgroup) and the barriers
+// (ops/fused_bert.py resid_smem is the same sum).
+constexpr int resid_smem(int H, int N, bool ctx_bf16, int stages) {
+  return 1024 + N * H * 2 + 2 * stages * kResStage + (ctx_bf16 ? 0 : 2 * kResStage) +
+         2 * kResXTiles * kResRows * N * 4 + 2 * kResXchg * (H / N) * kResRows * 4 +
+         8 * (1 + 4 * stages + 4 * kResXTiles + 2 * kResXchg);
+}
+
+// ctx stages a warpgroup: as many as fit, up to kResMaxStages
+constexpr int resid_stages(int H, int N, bool ctx_bf16) {
+  int s = kResMaxStages;
+  while (s > 0 && resid_smem(H, N, ctx_bf16, s) > kSmemLimit) --s;
+  return s;
+}
+
+template <int H, int N, bool BF>
+struct Res {
+  static constexpr int kC = H / N;                    // blocks of a cluster
+  static constexpr int kXB = N % 32 == 0 ? 32 : 16;   // f32 columns of an x box
+  static constexpr int kXBox = kResRows * kXB * 4;    // its bytes: 128- or 64-byte rows
+  static constexpr int kXBoxes = N / kXB;             // boxes of a tile's x
+  static constexpr int kXTile = kResRows * N * 4;
+  static constexpr int kKB = H / 64;                  // 64-deep K boxes of the product
+  static constexpr int kLoads = BF ? kKB : 2 * kKB;   // ctx boxes a tile
+  static constexpr int kStages = resid_stages(H, N, BF);
+  static constexpr int kCtxOff = N * H * 2;                           // [2][kStages][8 KB]
+  static constexpr int kConvOff = kCtxOff + 2 * kStages * kResStage;  // f32 ctx: [2][8 KB]
+  static constexpr int kXOff = kConvOff + (BF ? 0 : 2 * kResStage);   // [2][kResXTiles][kXTile]
+  static constexpr int kRedOff = kXOff + 2 * kResXTiles * kXTile;     // [2][kResXchg][kC][64] f32
+  static constexpr int kBarOff = kRedOff + 2 * kResXchg * kC * kResRows * 4;
+  static constexpr int kSmem =
+      1024 + kBarOff + 8 * (1 + 4 * kStages + 4 * kResXTiles + 2 * kResXchg);
+  static_assert(kSmem == resid_smem(H, N, BF, kStages), "the layout is resid_smem's");
+  static_assert(kStages >= 2 && kSmem <= kSmemLimit, "two ctx stages fit");
+  static_assert(H % N == 0 && N % 16 == 0 && N <= 96 && kC <= 8,
+                "a slice is a wgmma N whose two accumulators fit in registers");
+  static_assert(kXOff % 1024 == 0, "x boxes on the swizzle's atoms");
+};
+
+// The block's shared memory from its 1024-aligned base.
+template <int H, int N, bool BF>
+struct ResSmem {
+  using F = Res<H, N, BF>;
+  unsigned char* base;
+  __device__ unsigned char* w() const { return base; }  // [H / 64][N rows][128 B]
+  __device__ unsigned char* stage(int wg, int s) const {
+    return base + F::kCtxOff + (wg * F::kStages + s) * kResStage;
+  }
+  __device__ unsigned char* conv(int wg) const { return base + F::kConvOff + wg * kResStage; }
+  __device__ unsigned char* xbox(int wg, int t, int q) const {
+    return base + F::kXOff + (wg * kResXTiles + t) * F::kXTile + q * F::kXBox;
+  }
+  __device__ float* red(int wg, int buf) const {  // [kC][64]: a block's row sums each
+    return reinterpret_cast<float*>(base + F::kRedOff) + (wg * kResXchg + buf) * F::kC * kResRows;
+  }
+  __device__ uint64_t* bar(int i) const { return reinterpret_cast<uint64_t*>(base + F::kBarOff) + i; }
+  __device__ uint64_t* wbar() const { return bar(0); }
+  __device__ uint64_t* cfull(int wg, int s) const { return bar(1 + wg * F::kStages + s); }
+  __device__ uint64_t* cempty(int wg, int s) const { return bar(1 + (2 + wg) * F::kStages + s); }
+  __device__ uint64_t* xfull(int wg, int t) const {
+    return bar(1 + 4 * F::kStages + wg * kResXTiles + t);
+  }
+  __device__ uint64_t* xempty(int wg, int t) const {
+    return bar(1 + 4 * F::kStages + (2 + wg) * kResXTiles + t);
+  }
+  __device__ uint64_t* xchg(int wg, int buf) const {
+    return bar(1 + 4 * F::kStages + 4 * kResXTiles + wg * kResXchg + buf);
+  }
+};
+
+// Byte offset of f32 column c of row r in an x box of kXB columns, as
+// TMA lays it out with the 128-byte (kXB 32) or 64-byte (kXB 16) swizzle:
+// the 16-byte granule j of a row sits at j ^ (the row's place in its
+// 1024- or 512-byte atom).
+template <int XB>
+__device__ __forceinline__ int xoff(int r, int c) {
+  if constexpr (XB == 32) return r * 128 + ((((c >> 2) ^ (r & 7)) << 4) | ((c & 3) << 2));
+  return r * 64 + ((((c >> 2) ^ ((r >> 1) & 3)) << 4) | ((c & 3) << 2));
+}
+
+// A producer thread: consumer warpgroup wg's ctx boxes, tile by tile, into
+// its ring (bf16: 64 x 64, the K-major wgmma A operand as it lands; f32:
+// 64 x 32, converted by the consumer); rows past R arrive as zeros.  The
+// warpgroup's tiles are the cluster's j-th with j % 2 == wg.
+template <int H, int N, bool BF>
+__device__ __forceinline__ void res_ctx_loads(ResSmem<H, N, BF> sm, const CUtensorMap* cmap,
+                                              int wg, int tiles) {
+  using F = Res<H, N, BF>;
+  int n = 0;
+  for (int tile = cluster_id() + wg * cluster_count(); tile < tiles;
+       tile += 2 * cluster_count()) {
+    for (int b = 0; b < F::kLoads; ++b, ++n) {
+      const int s = n % F::kStages;
+      mbar_wait(sm.cempty(wg, s), ((n / F::kStages) & 1) ^ 1);  // the first round passes
+      mbar_arrive_expect_tx(sm.cfull(wg, s), kResStage);
+      tma_load_2d(sm.stage(wg, s), cmap, sm.cfull(wg, s), b * (BF ? 64 : 32), tile * kResRows);
+    }
+  }
+}
+
+// A producer thread: warpgroup wg's x, the block's N columns of each of
+// its tiles, into its x tiles in turn (f32 boxes, or bf16 boxes at the
+// start of each, unswizzled).
+template <int H, int N, bool BF>
+__device__ __forceinline__ void res_x_loads(ResSmem<H, N, BF> sm, const CUtensorMap* xmap, int wg,
+                                            int tiles, int col0, int x_bf16) {
+  using F = Res<H, N, BF>;
+  int k = 0;
+  for (int tile = cluster_id() + wg * cluster_count(); tile < tiles;
+       tile += 2 * cluster_count(), ++k) {
+    const int t = k % kResXTiles;
+    mbar_wait(sm.xempty(wg, t), ((k / kResXTiles) & 1) ^ 1);
+    mbar_arrive_expect_tx(sm.xfull(wg, t), x_bf16 ? F::kXTile / 2 : F::kXTile);
+    for (int q = 0; q < F::kXBoxes; ++q)
+      tma_load_2d(sm.xbox(wg, t, q), xmap, sm.xfull(wg, t), col0 + q * F::kXB, tile * kResRows);
+  }
+}
+
+// The tile's product into acc (64 rows x N, f32): for each 64-deep K box,
+// four wgmma m64nNk16 with A (the ctx box) and B (the resident W_o slice)
+// in shared memory.  bf16 ctx: a box's stage is freed once the group that
+// reads it is done (two groups in flight).  f32 ctx: two 64 x 32 boxes a
+// K box, which the warpgroup rounds to bf16 into its conversion box (the
+// same swizzled layout) and frees, then one group at a time.
+template <int H, int N, bool BF>
+__device__ __forceinline__ void res_product(float (&acc)[N / 2], ResSmem<H, N, BF> sm, int wg,
+                                            int tid, int& n) {
+  using F = Res<H, N, BF>;
+  const uint64_t dw = wgmma_desc_sw128(sm.w());
+#pragma unroll 1
+  for (int kb = 0; kb < F::kKB; ++kb) {
+    const unsigned char* a;
+    if constexpr (BF) {
+      const int s = n % F::kStages;
+      mbar_wait(sm.cfull(wg, s), (n / F::kStages) & 1);
+      a = sm.stage(wg, s);
+    } else {
+      const int s0 = n % F::kStages, s1 = (n + 1) % F::kStages;
+      mbar_wait(sm.cfull(wg, s0), (n / F::kStages) & 1);
+      mbar_wait(sm.cfull(wg, s1), ((n + 1) / F::kStages) & 1);
+      unsigned char* cv = sm.conv(wg);  // its last reader, the previous group, is done
+#pragma unroll 1
+      for (int p = 0; p < 4; ++p) {  // 64 rows x 8 granules of 8 bf16, 4 a thread
+        const int m = tid + 128 * p, r = m >> 3, oc = m & 7;
+        const unsigned char* box = sm.stage(wg, oc < 4 ? s0 : s1) + r * 128;
+        const int c4 = 2 * (oc & 3);  // the granules of f32 columns 8 (oc % 4) .. + 7
+        const float4 lo = *reinterpret_cast<const float4*>(box + ((c4 ^ (r & 7)) << 4));
+        const float4 hi = *reinterpret_cast<const float4*>(box + (((c4 + 1) ^ (r & 7)) << 4));
+        *reinterpret_cast<uint4*>(cv + r * 128 + ((oc ^ (r & 7)) << 4)) =
+            make_uint4(pack_bf16(lo.x, lo.y), pack_bf16(lo.z, lo.w), pack_bf16(hi.x, hi.y),
+                       pack_bf16(hi.z, hi.w));
+      }
+      release(sm.cempty(wg, s0));
+      release(sm.cempty(wg, s1));
+      fence_proxy_async();  // the box's stores before the wgmmas read it
+      named_barrier(1 + wg, 128);
+      a = cv;
+    }
+    const uint64_t da = wgmma_desc_sw128(a);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(acc, da + ((kk * 32) >> 4), dw + ((kb * N * 128 + kk * 32) >> 4),
+               (kb | kk) != 0);
+    wgmma_commit();
+    if constexpr (BF) {
+      wgmma_wait<1>();
+      if (kb > 0) release(sm.cempty(wg, (n - 1) % F::kStages));
+      n += 1;
+    } else {
+      wgmma_wait<0>();
+      n += 2;
+    }
+  }
+  wgmma_wait<0>();
+  wgmma_pin(acc);
+  if constexpr (BF) release(sm.cempty(wg, (n - 1) % F::kStages));
+}
+
+// A consumer thread's columns 8j + 2t, + 1 (j < N / 8) of b, ln_scale and
+// ln_bias, loaded once for the kernel's life (3 N / 4 registers).
+template <int N>
+struct ResCols {
+  float2 b[N / 8], s[N / 8], lb[N / 8];
+  __device__ void load(const float* __restrict__ bias, const float* __restrict__ ln_s,
+                       const float* __restrict__ ln_b, int col0) {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      b[j] = __ldg(reinterpret_cast<const float2*>(bias + col0 + 8 * j));
+      s[j] = __ldg(reinterpret_cast<const float2*>(ln_s + col0 + 8 * j));
+      lb[j] = __ldg(reinterpret_cast<const float2*>(ln_b + col0 + 8 * j));
+    }
+  }
+};
+
+// The row sums of a tile's rows ra and ra + 8 through the cluster.  Each
+// block sums its N columns (a quad of lanes holds a row); use u of the
+// warpgroup (two a tile: the sums, then the squares about the mean) goes
+// through buffer u % 4.  res_send: lane t == 0 puts the pair into slot
+// `rank` of each partner's buffer by st.async, which completes 8 bytes on
+// the partner's barrier of that buffer; thread 0 expects (C - 1) x 256
+// bytes on its own.  res_total: wait, then add the blocks' parts in rank
+// order, so every block of the cluster gets the same bits.  A warpgroup
+// has at most two uses sent and not yet waited for, and reads a use right
+// after its wait: a partner sends use u only after use u - 2 is complete
+// everywhere, which needs this block's part of u - 2, sent after it read
+// use u - 4 (the quad shuffles order a warp's reads before its sends).
+template <int H, int N, bool BF>
+__device__ __forceinline__ void res_send(float s0, float s1, ResSmem<H, N, BF> sm, int wg, int tid,
+                                         uint32_t rank, int u) {
+  using F = Res<H, N, BF>;
+  if constexpr (F::kC > 1) {
+    const int idx = ((tid >> 5) * 8 + ((tid & 31) >> 2)) * 2;  // rows ra, ra + 8
+    float* slot = sm.red(wg, u % kResXchg);
+    uint64_t* bar = sm.xchg(wg, u % kResXchg);
+    if (tid == 0) mbar_arrive_expect_tx(bar, (F::kC - 1) * kResRows * 4);
+    if ((tid & 3) == 0) {
+      const uint32_t mine = smem_addr(slot + rank * kResRows + idx), b = smem_addr(bar);
+#pragma unroll
+      for (int p = 1; p < F::kC; ++p) {
+        const uint32_t q = (rank + p) % F::kC;
+        st_async_v2(mapa(mine, q), s0, s1, mapa(b, q));
+      }
+    }
+  }
+}
+
+template <int H, int N, bool BF>
+__device__ __forceinline__ float2 res_total(float s0, float s1, ResSmem<H, N, BF> sm, int wg,
+                                            int tid, uint32_t rank, int u) {
+  using F = Res<H, N, BF>;
+  if constexpr (F::kC == 1) {
+    return make_float2(s0, s1);
+  } else {
+    const int idx = ((tid >> 5) * 8 + ((tid & 31) >> 2)) * 2;
+    const float* slot = sm.red(wg, u % kResXchg);
+    mbar_wait_cluster(sm.xchg(wg, u % kResXchg), (u / kResXchg) & 1);
+    float t0 = 0.f, t1 = 0.f;
+#pragma unroll
+    for (int p = 0; p < F::kC; ++p) {
+      const float2 v = p == (int)rank ? make_float2(s0, s1)
+                                      : *reinterpret_cast<const float2*>(slot + p * kResRows + idx);
+      t0 += v.x;
+      t1 += v.y;
+    }
+    return make_float2(t0, t1);
+  }
+}
+
+// The epilogue of the warpgroup's k-th tile, y = LN(x + (acc + b)) for its
+// rows ra, ra + 8 and the block's N columns, in three steps that another
+// tile's work separates, so that each exchange travels meanwhile:
+// res_sums: x from the tile's boxes into acc, the x tile freed, the row
+// sums sent (use 2k); returns this block's parts.
+template <int H, int N, bool BF>
+__device__ __forceinline__ float2 res_sums(float (&acc)[N / 2], ResSmem<H, N, BF> sm, int wg,
+                                           int tid, uint32_t rank, int k, const ResCols<N>& cols,
+                                           int x_bf16) {
+  using F = Res<H, N, BF>;
+  constexpr int XB = F::kXB;
+  const int t = tid & 3, ra = 16 * (tid >> 5) + ((tid & 31) >> 2);
+  const int xt = k % kResXTiles;
+  mbar_wait(sm.xfull(wg, xt), (k / kResXTiles) & 1);
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int cb = (8 * j) % XB + 2 * t;  // acc[4j + 2h + e]: row ra + 8h, column 8j + 2t + e
+    const unsigned char* box = sm.xbox(wg, xt, 8 * j / XB);
+    const float2 bb = cols.b[j];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = ra + 8 * h;
+      float2 xv;
+      if (x_bf16) {
+        const __nv_bfloat162 v =
+            *reinterpret_cast<const __nv_bfloat162*>(box + r * XB * 2 + cb * 2);
+        xv = __bfloat1622float2(v);
+      } else {
+        xv = *reinterpret_cast<const float2*>(box + xoff<XB>(r, cb));
+      }
+      acc[4 * j + 2 * h] = xv.x + (acc[4 * j + 2 * h] + bb.x);
+      acc[4 * j + 2 * h + 1] = xv.y + (acc[4 * j + 2 * h + 1] + bb.y);
+    }
+    s0 += acc[4 * j] + acc[4 * j + 1];
+    s1 += acc[4 * j + 2] + acc[4 * j + 3];
+  }
+  release(sm.xempty(wg, xt));  // the producer may load x tile k + kResXTiles here
+  s0 = quad_sum(s0);
+  s1 = quad_sum(s1);
+  res_send<H, N, BF>(s0, s1, sm, wg, tid, rank, 2 * k);
+  return make_float2(s0, s1);
+}
+
+// res_squares: the means from use 2k, this block's sums of squares about
+// them sent (use 2k + 1); returns the means and this block's parts.
+template <int H, int N, bool BF>
+__device__ __forceinline__ float4 res_squares(const float (&acc)[N / 2], float2 part,
+                                              ResSmem<H, N, BF> sm, int wg, int tid,
+                                              uint32_t rank, int k) {
+  const float2 tot = res_total<H, N, BF>(part.x, part.y, sm, wg, tid, rank, 2 * k);
+  const float mu0 = tot.x / H, mu1 = tot.y / H;
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float d0 = acc[4 * j] - mu0, d1 = acc[4 * j + 1] - mu0;
+    const float d2 = acc[4 * j + 2] - mu1, d3 = acc[4 * j + 3] - mu1;
+    s0 += d0 * d0 + d1 * d1;
+    s1 += d2 * d2 + d3 * d3;
+  }
+  s0 = quad_sum(s0);
+  s1 = quad_sum(s1);
+  res_send<H, N, BF>(s0, s1, sm, wg, tid, rank, 2 * k + 1);
+  return make_float4(mu0, mu1, s0, s1);
+}
+
+// res_store: the variances from use 2k + 1; y stored from registers
+// (each quad of lanes writes a row's 32 contiguous bytes, full sectors),
+// rows past R skipped.
+template <int H, int N, bool BF>
+__device__ __forceinline__ void res_store(const float (&acc)[N / 2], float4 st,
+                                          ResSmem<H, N, BF> sm, int wg, int tid, uint32_t rank,
+                                          int k, int tile, float* __restrict__ y, int R,
+                                          const ResCols<N>& cols, float eps) {
+  const int t = tid & 3, ra = 16 * (tid >> 5) + ((tid & 31) >> 2), col0 = rank * N;
+  const float2 tot = res_total<H, N, BF>(st.z, st.w, sm, wg, tid, rank, 2 * k + 1);
+  const float mu0 = st.x, mu1 = st.y;
+  const float rs0 = rsqrtf(tot.x / H + eps), rs1 = rsqrtf(tot.y / H + eps);
+  const int row0 = tile * kResRows + ra;
+  float* y0 = y + (size_t)row0 * H + col0 + 2 * t;
+  float* y1 = y0 + (size_t)8 * H;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 sc = cols.s[j], lb = cols.lb[j];
+    if (row0 < R)
+      *reinterpret_cast<float2*>(y0 + 8 * j) =
+          make_float2((acc[4 * j] - mu0) * rs0 * sc.x + lb.x,
+                      (acc[4 * j + 1] - mu0) * rs0 * sc.y + lb.y);
+    if (row0 + 8 < R)
+      *reinterpret_cast<float2*>(y1 + 8 * j) =
+          make_float2((acc[4 * j + 2] - mu1) * rs1 * sc.x + lb.x,
+                      (acc[4 * j + 3] - mu1) * rs1 * sc.y + lb.y);
+  }
+}
+
+// A consumer warpgroup: its tiles i = 0, 1, ... (the cluster's tile
+// cluster id + (2 i + wg) clusters) alternate between two accumulators,
+// and each tile's epilogue steps interleave with the next tile's: the
+// product of tile i + 1 runs while the sums of tile i travel, its sums
+// while tile i's squares do.
+template <int H, int N, bool BF>
+__device__ __forceinline__ void res_consume(ResSmem<H, N, BF> sm, uint32_t rank, int tiles,
+                                            const float* __restrict__ b,
+                                            const float* __restrict__ ln_s,
+                                            const float* __restrict__ ln_b, float eps,
+                                            float* __restrict__ y, int R, int x_bf16) {
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int first = cluster_id() + wg * cluster_count(), step = 2 * cluster_count();
+  ResCols<N> cols;
+  cols.load(b, ln_s, ln_b, rank * N + 2 * (tid & 3));
+  mbar_wait(sm.wbar(), 0);
+  float a0[N / 2], a1[N / 2];
+  float2 p0, p1;
+  int n = 0;  // ctx boxes taken
+  if (first < tiles) {
+    res_product<H, N, BF>(a0, sm, wg, tid, n);
+    p0 = res_sums<H, N, BF>(a0, sm, wg, tid, rank, 0, cols, x_bf16);
+    for (int i = 1;; i += 2) {  // a0 holds tile i - 1, its sums sent
+      const bool more = first + i * step < tiles;
+      if (more) res_product<H, N, BF>(a1, sm, wg, tid, n);
+      const float4 st0 = res_squares<H, N, BF>(a0, p0, sm, wg, tid, rank, i - 1);
+      if (more) p1 = res_sums<H, N, BF>(a1, sm, wg, tid, rank, i, cols, x_bf16);
+      res_store<H, N, BF>(a0, st0, sm, wg, tid, rank, i - 1, first + (i - 1) * step, y, R, cols,
+                          eps);
+      if (!more) break;
+      const bool more0 = first + (i + 1) * step < tiles;  // a1 holds tile i
+      if (more0) res_product<H, N, BF>(a0, sm, wg, tid, n);
+      const float4 st1 = res_squares<H, N, BF>(a1, p1, sm, wg, tid, rank, i);
+      if (more0) p0 = res_sums<H, N, BF>(a0, sm, wg, tid, rank, i + 1, cols, x_bf16);
+      res_store<H, N, BF>(a1, st1, sm, wg, tid, rank, i, first + i * step, y, R, cols, eps);
+      if (!more0) break;
+    }
+  }
+}
+
+// Persistent blocks in clusters of C = H / N on neighbouring SMs.  A
+// cluster walks row tiles of 64 (tile = cluster id, + clusters, ...); its
+// block of rank r owns output columns [r N, (r + 1) N) and holds that
+// slice of W_o (N x H bf16, read by TMA once) for its whole life.
+// Consumer warpgroup wg (threads 128 wg ..) takes the cluster's tiles j
+// with j % 2 == wg; producer warps 8 + wg and 10 + wg load its ctx and x
+// (warp 8 first W_o's slice).
+template <int H, int N, bool BF>
+__global__ void __launch_bounds__(kResThreads, 1)
+resid_ln_kernel(const __grid_constant__ CUtensorMap cmap, const __grid_constant__ CUtensorMap xmap,
+                const __grid_constant__ CUtensorMap wmap, const float* __restrict__ b,
+                const float* __restrict__ ln_s, const float* __restrict__ ln_b, float eps,
+                float* __restrict__ y, int R, int x_bf16) {
+  using F = Res<H, N, BF>;
+  extern __shared__ unsigned char smem_raw[];
+  const ResSmem<H, N, BF> sm{smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023)};
+  const uint32_t rank = cluster_rank();
+  const int tiles = (R + kResRows - 1) / kResRows;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    mbar_init(sm.wbar(), 1);
+    for (int wg = 0; wg < 2; ++wg) {
+      for (int s = 0; s < F::kStages; ++s) {
+        mbar_init(sm.cfull(wg, s), 1);
+        mbar_init(sm.cempty(wg, s), 4);  // each warp of the consuming warpgroup
+      }
+      for (int t = 0; t < kResXTiles; ++t) {
+        mbar_init(sm.xfull(wg, t), 1);
+        mbar_init(sm.xempty(wg, t), 4);  // each warp of the warpgroup, once it has read x
+      }
+      for (int buf = 0; buf < kResXchg; ++buf) mbar_init(sm.xchg(wg, buf), 1);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  cluster_sync();  // every block's barriers are set before a partner sends to them
+  if (warp >= 8) {
+    setmaxnreg_dec<kResProducerRegs>();
+    if ((threadIdx.x & 31) == 0) {
+      const int p = warp - 8;
+      if (p == 0) {  // the slice: H / 64 boxes of [N rows][64 bf16]
+        mbar_arrive_expect_tx(sm.wbar(), (uint32_t)(N * H * 2));
+        for (int kb = 0; kb < F::kKB; ++kb)
+          tma_load_2d(sm.w() + kb * N * 128, &wmap, sm.wbar(), kb * 64, rank * N);
+      }
+      if (p < 2)
+        res_ctx_loads<H, N, BF>(sm, &cmap, p, tiles);
+      else
+        res_x_loads<H, N, BF>(sm, &xmap, p - 2, tiles, rank * N, x_bf16);
+    }
+    __syncwarp();
+  } else {
+    setmaxnreg_inc<kResConsumerRegs>();  // two accumulators of N / 2 a thread
+    res_consume<H, N, BF>(sm, rank, tiles, b, ln_s, ln_b, eps, y, R, x_bf16);
+  }
+  cluster_sync();  // no block leaves while a partner may still write into it
+}
+
+// The launch configuration of a variant: its blocks, shared memory and
+// cluster size.
+template <int H, int N, bool BF>
+struct ResLaunch {
+  cudaLaunchConfig_t config = {};
+  cudaLaunchAttribute attr[1];
+  ResLaunch(unsigned ctas, cudaStream_t stream) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = Res<H, N, BF>::kC;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    config.gridDim = dim3(ctas);
+    config.blockDim = dim3(kResThreads);
+    config.dynamicSmemBytes = Res<H, N, BF>::kSmem;
+    config.stream = stream;
+    config.attrs = attr;
+    config.numAttrs = 1;
+  }
+};
+
+// The clusters of this variant the current device holds at once, found
+// once per device with the kernel's shared memory raised (0 in `fit`:
+// not yet); host threads may launch at once, and each may take that
+// first step.
+template <int H, int N, bool BF>
+cudaError_t resid_clusters(int* clusters) {
+  static std::atomic<int> fit[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int c = fit[dev & 63].load(std::memory_order_acquire);
+  if (c == 0) {
+    err = set_smem(resid_ln_kernel<H, N, BF>, Res<H, N, BF>::kSmem);
+    if (err != cudaSuccess) return err;
+    ResLaunch<H, N, BF> launch(Res<H, N, BF>::kC, nullptr);
+    err = cudaOccupancyMaxActiveClusters(&c, resid_ln_kernel<H, N, BF>, &launch.config);
+    if (err != cudaSuccess) return err;
+    if (c < 1) return cudaErrorInvalidConfiguration;
+    fit[dev & 63].store(c, std::memory_order_release);
+  }
+  *clusters = c;
+  return cudaSuccess;
+}
+
+// One launch on the plan's ctx stages and blocks (at most as many
+// clusters as the device holds at once: a cluster waiting for another to
+// finish would double the time).  Only the maps of x and ctx are encoded
+// here; W_o's comes encoded (resid_ln_wmap).
+template <int H, int N, bool BF>
+int launch_resid(const void* x, int x_bf16, const void* ctx, const void* wmap, const float* b,
+                 const float* ln_s, const float* ln_b, float eps, float* y, int R, int stages,
+                 int ctas, cudaStream_t stream) {
+  using F = Res<H, N, BF>;
+  if (stages != F::kStages) return (int)cudaErrorInvalidValue;
+  const CUtensorMapSwizzle xswz =
+      F::kXB == 32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  CUtensorMap cmap, xmap, wm;
+  std::memcpy(&wm, wmap, sizeof(wm));
+  const bool ok =
+      (BF ? tensor_map(&cmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ctx, 1, R, H, kResRows, 64)
+          : tensor_map(&cmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ctx, 1, R, H, kResRows, 32)) &&
+      (x_bf16 ? tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, 1, R, H, kResRows,
+                           F::kXB, CU_TENSOR_MAP_SWIZZLE_NONE)
+              : tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, x, 1, R, H, kResRows,
+                           F::kXB, xswz));
+  if (!ok) return (int)cudaErrorInvalidValue;
+  int clusters = 0;
+  cudaError_t err = resid_clusters<H, N, BF>(&clusters);
   if (err != cudaSuccess) return (int)err;
-  resid_ln_kernel<H, CtxT><<<grid(R), kThreads, smem, stream>>>(
-      x, static_cast<const CtxT*>(ctx), w, b, ln_s, ln_b, eps, y, R);
+  ResLaunch<H, N, BF> launch((unsigned)std::min(ctas, clusters * F::kC), stream);
+  err = cudaLaunchKernelEx(&launch.config, resid_ln_kernel<H, N, BF>, cmap, xmap, wm, b, ln_s,
+                           ln_b, eps, y, R, x_bf16);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
-
-#define FUSED_BERT_WIDTHS(X) X(64) X(128) X(192) X(256) X(320) X(384) X(448) X(512)
 
 // Each entry returns a cudaError_t: 1 (cudaErrorInvalidValue) for shapes
 // the kernel does not take, else the launch's own status.  Weights are
@@ -1424,21 +1741,75 @@ extern "C" int fused_qkv(const void* x, const void* w, const void* b, void* out,
   }
 }
 
-extern "C" int fused_resid_ln(const void* x, const void* ctx, int ctx_bf16, const void* w,
-                              const void* b, const void* ln_s, const void* ln_b, float eps,
-                              void* y, int R, int H, void* stream) {
-  if (!takes(R, H)) return (int)cudaErrorInvalidValue;
-#define RESID_CASE(W)                                                                         \
-  case W:                                                                                     \
-    return ctx_bf16 ? launch_resid<W, bf16>((const float*)x, ctx, (const bf16*)w,            \
-                                            (const float*)b, (const float*)ln_s,              \
-                                            (const float*)ln_b, eps, (float*)y, R,            \
-                                            (cudaStream_t)stream)                             \
-                    : launch_resid<W, float>((const float*)x, ctx, (const bf16*)w,           \
-                                             (const float*)b, (const float*)ln_s,             \
-                                             (const float*)ln_b, eps, (float*)y, R,           \
-                                             (cudaStream_t)stream);
-  switch (H) { FUSED_BERT_WIDTHS(RESID_CASE) }
+// (H, N) of every plan ops/fused_bert.py resid_plan makes (N = H / the
+// cluster size), for a bf16 and for an f32 context alike
+#define RESID_PLANS(X) X(64, 64) X(128, 64) X(192, 96) X(256, 64) X(320, 80) X(384, 96) X(448, 64) X(512, 64)
+
+// W_o's tensor map for clusters of `cluster` blocks, into `map` (128
+// bytes): W_o (H, H) bf16 in nn.Linear's (out, in) layout, 16-byte
+// aligned, read in boxes of H / cluster rows x 64 (128-byte swizzle).  A
+// caller encodes it once for a weight it keeps (ops/fused_bert.py
+// pack_resid) and passes it to every launch.
+extern "C" int resid_ln_wmap(const void* w, int H, int cluster, void* map) {
+  CUtensorMap m;
+  if (H < 64 || H > 512 || H % 64 != 0 || cluster < 1 || H % cluster != 0 ||
+      H / cluster > 256 || (uintptr_t)w % 16 != 0 ||
+      !tensor_map(&m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, 1, H, H, H / cluster, 64))
+    return (int)cudaErrorInvalidValue;
+  std::memcpy(map, &m, sizeof(m));
+  return 0;
+}
+
+// How many clusters of the plan's variant the current device holds at
+// once, into *clusters.
+extern "C" int resid_ln_clusters(int H, int cluster, int ctx_bf16, int* clusters) {
+  const int N = cluster > 0 ? H / cluster : 0;
+#define RESID_FIT(HH, NN, BFV) \
+  if (H == HH && N == NN) return (int)resid_clusters<HH, NN, BFV>(clusters);
+#define RESID_FIT_BF16(HH, NN) RESID_FIT(HH, NN, true)
+#define RESID_FIT_F32(HH, NN) RESID_FIT(HH, NN, false)
+  if (ctx_bf16) {
+    RESID_PLANS(RESID_FIT_BF16)
+  } else {
+    RESID_PLANS(RESID_FIT_F32)
+  }
+#undef RESID_FIT_F32
+#undef RESID_FIT_BF16
+#undef RESID_FIT
+  return (int)cudaErrorInvalidValue;
+}
+
+// y = LN(x + ctx W_o^T + b) (f32, (R, H)), x f32 or bf16 (x_bf16), ctx
+// f32 or bf16 (ctx_bf16), W_o by its map (resid_ln_wmap, made for this
+// cluster size).  The plan comes from the caller (ops/fused_bert.py
+// resid_plan): `cluster` blocks a cluster, each owning H / cluster output
+// columns, `stages` the variant's own, `ctas` blocks (a multiple of the
+// cluster, at most a cluster a row tile of 64).  x, ctx
+// and y must be 16-byte aligned.
+extern "C" int fused_resid_ln(const void* x, int x_bf16, const void* ctx, int ctx_bf16,
+                              const void* wmap, const void* b, const void* ln_s, const void* ln_b,
+                              float eps, void* y, int R, int H, int cluster, int stages,
+                              int ctas, void* stream) {
+  const long long tiles = ((long long)R + kResRows - 1) / kResRows;
+  if (!takes(R, H) || cluster < 1 || H % cluster != 0 || ctas < cluster || ctas % cluster != 0 ||
+      ctas / cluster > tiles || wmap == nullptr ||
+      ((uintptr_t)x | (uintptr_t)ctx | (uintptr_t)y) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int N = H / cluster;
+#define RESID_CASE(HH, NN, BFV)                                                               \
+  if (H == HH && N == NN)                                                                     \
+    return launch_resid<HH, NN, BFV>(x, x_bf16, ctx, wmap, (const float*)b, (const float*)ln_s, \
+                                     (const float*)ln_b, eps, (float*)y, R, stages, ctas,      \
+                                     (cudaStream_t)stream);
+#define RESID_CASE_BF16(HH, NN) RESID_CASE(HH, NN, true)
+#define RESID_CASE_F32(HH, NN) RESID_CASE(HH, NN, false)
+  if (ctx_bf16) {
+    RESID_PLANS(RESID_CASE_BF16)
+  } else {
+    RESID_PLANS(RESID_CASE_F32)
+  }
+#undef RESID_CASE_F32
+#undef RESID_CASE_BF16
 #undef RESID_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -48,10 +48,12 @@ from torch import nn
 
 from financial_rag_system_tpu_torch.ops.attention import NEG, encoder_self_attention
 from financial_rag_system_tpu_torch.ops.fused_bert import (
+    ResidPack,
     fused_ffn_ln,
     fused_qkv,
     fused_resid_ln,
     pack_qkv,
+    pack_resid,
 )
 from financial_rag_system_tpu_torch.utils.device import resolve_device
 
@@ -287,6 +289,7 @@ class BertLayer(nn.Module):
         self.out = _linear(i, h, device)
         self.mlp_ln = _LayerNorm(h, device)
         self._qkv_pack = None
+        self._o_pack = None
 
     def qkv_pack(self) -> tuple[torch.Tensor, torch.Tensor]:
         """W_q, W_k, W_v and their biases as the QKV kernel takes them
@@ -296,6 +299,15 @@ class BertLayer(nn.Module):
             self._qkv_pack = pack_qkv(self.q.weight, self.q.bias, self.k.weight, self.k.bias,
                                       self.v.weight, self.v.bias)
         return self._qkv_pack
+
+    def o_pack(self) -> ResidPack:
+        """W_o and b_o as the o-proj kernel takes them
+        (:func:`ops.fused_bert.pack_resid`: bf16 W_o, f32 b_o, W_o's tensor
+        maps), cast once and kept until the weights change
+        (:meth:`BertModel.weights_changed`)."""
+        if self._o_pack is None:
+            self._o_pack = pack_resid(self.o.weight, self.o.bias)
+        return self._o_pack
 
 
 class BertModel(nn.Module):
@@ -326,10 +338,11 @@ class BertModel(nn.Module):
         return self.word_emb.device
 
     def weights_changed(self) -> None:
-        """Drop what was derived from the weights (the layers' QKV packs);
-        every loader calls it after it writes them."""
+        """Drop what was derived from the weights (the layers' QKV and
+        o-proj packs); every loader calls it after it writes them."""
         for lp in self.layers:
             lp._qkv_pack = None
+            lp._o_pack = None
 
     @property
     def quantized(self) -> bool:
@@ -398,7 +411,7 @@ class BertModel(nn.Module):
         else:
             ctx = _einsum_attention(q, k, v, attention_mask, inv_sqrt)
         h2 = fused_resid_ln(x, ctx.reshape(b * seq, hid), lp.o.weight, lp.o.bias,
-                            lp.attn_ln.weight, lp.attn_ln.bias, cfg.ln_eps)
+                            lp.attn_ln.weight, lp.attn_ln.bias, cfg.ln_eps, lp.o_pack())
         h2 = fused_ffn_ln(h2, lp.inter.weight, lp.inter.bias, lp.out.weight, lp.out.bias,
                           lp.mlp_ln.weight, lp.mlp_ln.bias, cfg.ln_eps)
         return h2.reshape(b, seq, hid).to(act)

@@ -49,6 +49,15 @@ FFN_X_BOX = 8192      # an f32 x box: 64 rows x 32
 FFN_WIDE = 384        # widest H whose 64 x H f32 accumulator a warpgroup holds (H / 2 registers)
 FFN_MAX_RING = 8      # weight pieces in flight, at most
 
+# the o-proj kernel's plan (csrc/fused_bert.cu resid_ln_kernel)
+RESID_ROWS = 64           # rows of a tile: one wgmma M
+RESID_STAGE = 8192        # a ctx stage: 64 rows x 128 B
+RESID_MAX_STAGES = 8      # ctx stages a consumer warpgroup, at most
+RESID_MAX_CLUSTER = 8     # blocks a cluster, at most (the portable limit)
+RESID_MAX_SLICE = 96      # output columns a block: two 64 x N f32 accumulators a thread fit
+RESID_XCHG = 4            # row-sum exchange buffers a consumer warpgroup
+RESID_XTILES = 1          # x tiles (64 x N f32) a consumer warpgroup
+
 
 def ffn_chunk(rows: int) -> int:
     """I columns of the FFN kernel's chunks: 32 with row tiles of 128, 64
@@ -169,6 +178,89 @@ def _ffn_plan_rows(h: int, i: int, r: int, sms: int, rows: int) -> FFNPlan:
                    workspace)
 
 
+def resid_smem(h: int, n: int, ctx_bf16: bool, stages: int) -> int:
+    """Bytes of dynamic shared memory the o-proj kernel takes (``resid_smem``
+    in ``csrc/fused_bert.cu``): alignment, the N x H bf16 W_o slice, two
+    consumer warpgroups' ctx rings, with an f32 ctx a conversion box each,
+    their x tiles (64 x N f32), the row sums the cluster exchanges (four
+    buffers a warpgroup) and the barriers."""
+    cluster = h // n
+    return (1024 + n * h * 2 + 2 * stages * RESID_STAGE + (0 if ctx_bf16 else 2 * RESID_STAGE)
+            + 2 * RESID_XTILES * RESID_ROWS * n * 4 + 2 * RESID_XCHG * cluster * RESID_ROWS * 4
+            + 8 * (1 + 4 * stages + 4 * RESID_XTILES + 2 * RESID_XCHG))
+
+
+def _resid_stages(h: int, cluster: int, ctx_bf16: bool) -> int:
+    """ctx stages a warpgroup of the o-proj kernel takes with clusters of
+    ``cluster`` blocks (as many as fit, up to RESID_MAX_STAGES), or 0 where
+    its slice is no multiple of 16 up to RESID_MAX_SLICE wide or two stages
+    do not fit."""
+    n = h // cluster
+    if h % cluster or n > RESID_MAX_SLICE or n % 16:
+        return 0
+    return max((s for s in range(2, RESID_MAX_STAGES + 1)
+                if resid_smem(h, n, ctx_bf16, s) <= SMEM_LIMIT), default=0)
+
+
+class ResidPlan(NamedTuple):
+    cluster: int  # blocks of a cluster; each owns H / cluster output columns
+    rows: int     # rows of a tile
+    tiles: int    # row tiles; a cluster walks tile id, + clusters, ...
+    ctas: int     # blocks: a multiple of the cluster, at most a cluster a tile and a block an SM
+    stages: int   # ctx stages (8 KB) of each consumer warpgroup's ring
+    smem: int     # bytes of dynamic shared memory a block takes
+
+
+@functools.lru_cache(maxsize=256)
+def resid_plan(h: int, r: int, sms: int, ctx_bf16: bool) -> ResidPlan:
+    """The plan of the o-proj kernel for an (r, h) activation on a card
+    with ``sms`` multiprocessors and a bf16 (or f32) context: the smallest
+    cluster whose blocks' W_o slices (H / cluster columns, a multiple of 16
+    up to 96), x tiles and two ctx stages fit (H 384: 4 blocks of 96
+    columns; H 448: 7 of 64), as many stages as fit, then one cluster a
+    tile, up to a block an SM.  The kernel is compiled for these plans and
+    checks them, and runs at most as many clusters as the card holds at
+    once."""
+    tiles = -(-r // RESID_ROWS)
+    cluster = next(c for c in range(1, RESID_MAX_CLUSTER + 1) if _resid_stages(h, c, ctx_bf16))
+    stages = _resid_stages(h, cluster, ctx_bf16)
+    return ResidPlan(cluster, RESID_ROWS, tiles, cluster * min(tiles, sms // cluster), stages,
+                     resid_smem(h, h // cluster, ctx_bf16, stages))
+
+
+class ResidPack(NamedTuple):
+    """W_o and b_o as the o-proj kernel takes them: the (H, H) bf16 weight,
+    the (H,) f32 bias, and W_o's tensor maps, encoded on the card once for
+    each cluster size a plan asks for (:meth:`wmap`)."""
+    w: torch.Tensor
+    b: torch.Tensor
+    maps: dict
+
+    def wmap(self, cluster: int) -> int:
+        """The address of W_o's tensor map for clusters of ``cluster``
+        blocks (host memory, 128 bytes, kept by the pack), encoded at first
+        use; of two threads that encode it at once, both get the one kept."""
+        m = self.maps.get(cluster)
+        if m is None:
+            new = ctypes.create_string_buffer(128)
+            _cuda.check(_library().resid_ln_wmap(self.w.data_ptr(), self.w.shape[0], cluster,
+                                                 new), "resid_ln_wmap")
+            m = self.maps.setdefault(cluster, new)
+        return ctypes.addressof(m)
+
+
+def pack_resid(w, b) -> ResidPack:
+    """The o-proj kernel's operands: W_o (H, H) as a contiguous bf16 weight
+    at a 16-byte-aligned address, b_o (H,) as an f32 vector, on W_o's
+    device."""
+    h = w.shape[0]
+    if w.dim() != 2 or w.shape[1] != h or tuple(b.shape) != (h,) or b.device != w.device:
+        raise ValueError(f"W_o must be (H, H) and b_o (H,) on one device; got "
+                         f"{tuple(w.shape)} on {w.device}, {tuple(b.shape)} on {b.device}")
+    wb = _aligned(w.to(torch.bfloat16).contiguous())
+    return ResidPack(wb, b.float().contiguous(), {})
+
+
 def fused_resid_ln_plain(x, ctx, w, b, ln_scale, ln_bias, eps: float):
     """Plain PyTorch version of :func:`fused_resid_ln`."""
     return _layer_norm(x.float() + _dense(ctx, w, b), ln_scale, ln_bias, eps)
@@ -186,9 +278,12 @@ def _library():
     lib = _cuda.library("fused_bert")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fused_qkv.argtypes = [p] * 4 + [i] * 5 + [p]
-    lib.fused_resid_ln.argtypes = [p, p, i, p, p, p, p, ctypes.c_float, p, i, i, p]
+    lib.fused_resid_ln.argtypes = [p, i, p, i] + [p] * 4 + [ctypes.c_float, p] + [i] * 5 + [p]
+    lib.resid_ln_wmap.argtypes = [p, i, i, p]
+    lib.resid_ln_clusters.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
     lib.fused_ffn_ln.argtypes = [p] * 7 + [ctypes.c_float, p] + [i] * 8 + [p, p, p]
-    for fn in (lib.fused_qkv, lib.fused_resid_ln, lib.fused_ffn_ln):
+    for fn in (lib.fused_qkv, lib.fused_resid_ln, lib.resid_ln_wmap, lib.resid_ln_clusters,
+               lib.fused_ffn_ln):
         fn.restype = ctypes.c_int
     return lib
 
@@ -224,7 +319,9 @@ def _operand(t: torch.Tensor, shape: tuple, dtype: torch.dtype, device, name: st
 
 
 def _launch(fn, name: str, *args) -> None:
-    stream = torch.cuda.current_stream().cuda_stream
+    """``fn(*args, stream)`` on the current device's current stream (its
+    raw handle, which torch.cuda.current_stream() takes ~7 us to wrap)."""
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
     _cuda.check(fn(*args, stream), name)
 
 
@@ -293,24 +390,62 @@ def fused_qkv(x, wq, bq, wk, bk, wv, bv, packed=None):
     return out.unbind(0)
 
 
-def fused_resid_ln(x, ctx, w, b, ln_scale, ln_bias, eps: float):
-    """LN(x + ctx W^T + b): (R, H) f32.  ``ctx`` may be f32 or bf16 (the
-    kernel rounds it to bf16 either way)."""
+def fused_resid_ln(x, ctx, w, b, ln_scale, ln_bias, eps: float, packed=None):
+    """LN(x + ctx W^T + b): (R, H) f32.  ``x`` and ``ctx`` may be f32 or
+    bf16: the kernel widens a bf16 x exactly and rounds ctx to bf16 either
+    way.  ``packed`` is :func:`pack_resid` of ``w`` and ``b``, made once by
+    a caller that keeps it (``BertLayer.o_pack``); without it each call
+    packs them.  On the main path nothing is cast or copied: the kernel
+    reads x, ctx and the layernorm's f32 vectors as they are."""
     if _on_cpu(x):
+        if packed is not None:
+            w, b = packed.w, packed.b
         return fused_resid_ln_plain(x, ctx, w, b, ln_scale, ln_bias, eps)
-    xf, r, h = _rows(x)
-    bf, f32, dev = torch.bfloat16, torch.float32, xf.device
-    ctx_bf16 = ctx.dtype == bf
-    c = _operand(ctx, (r, h), bf if ctx_bf16 else f32, dev, "ctx")
-    ops = [_operand(w, (h, h), bf, dev, "w")] + [
-        _operand(t, (h,), f32, dev, n) for t, n in ((b, "b"), (ln_scale, "ln_scale"),
-                                                    (ln_bias, "ln_bias"))
-    ]
-    y = torch.empty((r, h), dtype=f32, device=dev)
-    with torch.cuda.device(dev):
-        _launch(_library().fused_resid_ln, "fused_resid_ln", xf.data_ptr(), c.data_ptr(),
-                int(ctx_bf16), *(t.data_ptr() for t in ops), float(eps), y.data_ptr(), r, h)
+    if x.dim() != 2:
+        raise ValueError(f"x must be (R, H); got {tuple(x.shape)}")
+    r, h = x.shape
+    _check_width("H", h)
+    if h > MAX_HIDDEN or r < 1:
+        raise ValueError(f"the fused-block kernels take H <= {MAX_HIDDEN} and R >= 1; "
+                         f"got R {r}, H {h}")
+    dev = x.device
+    _check(ctx, (r, h), dev, "ctx")
+    if packed is None:
+        _check(w, (h, h), dev, "w")
+        packed = pack_resid(w, b)
+    elif packed.w.shape[0] != h or packed.w.device != dev:
+        raise ValueError(f"packed must be pack_resid's (H, H) weight on {dev}")
+    s, lb = (t if t.dtype == torch.float32 and t.is_contiguous() else t.float().contiguous()
+             for t in (ln_scale, ln_bias))
+    if s.shape != (h,) or lb.shape != (h,) or s.device != dev or lb.device != dev:
+        raise ValueError(f"ln_scale and ln_bias must be ({h},) on {dev}")
+    y = _resid_launch(_kernel_rows(x), _kernel_rows(ctx), packed, s, lb, eps,
+                      resid_plan(h, r, _sm_count(dev), ctx.dtype == torch.bfloat16))
     _count(fused_resid_ln)
+    return y
+
+
+def _kernel_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the o-proj kernel reads it: f32 or bf16 (anything else as
+    f32), contiguous, 16-byte aligned; ``t`` itself where it is."""
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        t = t.float()
+    return t if t.is_contiguous() and t.data_ptr() % 16 == 0 else _aligned(t.contiguous())
+
+
+def _resid_launch(x, ctx, packed: ResidPack, ln_scale, ln_bias, eps: float,
+                  plan: ResidPlan) -> torch.Tensor:
+    """One launch of the o-proj kernel on ``plan``, on operands as the
+    kernel takes them (contiguous, 16-byte aligned, x and ctx f32 or
+    bf16)."""
+    (r, h), dev = x.shape, x.device
+    y = torch.empty((r, h), dtype=torch.float32, device=dev)
+    with _on_device(dev):
+        _launch(_library().fused_resid_ln, "fused_resid_ln", x.data_ptr(),
+                int(x.dtype == torch.bfloat16), ctx.data_ptr(), int(ctx.dtype == torch.bfloat16),
+                packed.wmap(plan.cluster), packed.b.data_ptr(), ln_scale.data_ptr(),
+                ln_bias.data_ptr(), float(eps), y.data_ptr(), r, h, plan.cluster, plan.stages,
+                plan.ctas)
     return y
 
 

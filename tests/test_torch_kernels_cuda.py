@@ -562,6 +562,123 @@ def test_fused_resid_ln_kernel_matches_plain(cuda, full_f32, r, h, i, ctx_dtype)
     torch.testing.assert_close(got, fused_bert.fused_resid_ln_plain(*args), atol=2e-3, rtol=2e-3)
 
 
+def resid_args(c, ctx_dtype=torch.float32, x_dtype=torch.float32):
+    return (c["x"].to(x_dtype), c["ctx"].to(ctx_dtype), c["w"][3], c["b"][3], c["s"], c["lb"],
+            1e-12)
+
+
+def assert_resid_matches_plain(args, packed=None):
+    before = fused_bert.fused_resid_ln.launches
+    got = fused_bert.fused_resid_ln(*args, packed)
+    torch.cuda.synchronize()
+    assert fused_bert.fused_resid_ln.launches == before + 1
+    assert got.shape == args[0].shape and got.dtype == torch.float32
+    torch.testing.assert_close(got, fused_bert.fused_resid_ln_plain(*args), atol=2e-3, rtol=2e-3)
+    return got
+
+
+# every width the o-proj kernel takes, so every slice width (N 64, 80, 96)
+# and cluster size (1, 2, 4, 7, 8) of its plans, with either context and
+# either activation type
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ctx_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", range(64, 513, 64))
+def test_fused_resid_ln_kernel_widths(cuda, full_f32, h, ctx_dtype, x_dtype):
+    c = block_case(777, h, 4 * h, cuda, seed=h + 3)
+    assert_resid_matches_plain(resid_args(c, ctx_dtype, x_dtype))
+
+
+# ragged row counts: one row, a short last tile (63, 65, 777), clusters that
+# walk unequal numbers of tiles (138 and 201 tiles over the card's clusters)
+@pytest.mark.parametrize("ctx_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [1, 63, 65, 777, 64 * 137 + 5, 64 * 200 + 17])
+def test_fused_resid_ln_kernel_ragged_rows(cuda, full_f32, r, ctx_dtype):
+    c = block_case(r, 384, 1536, cuda, seed=r + 9)
+    assert_resid_matches_plain(resid_args(c, ctx_dtype))
+
+
+@pytest.mark.parametrize("h,ctx_dtype", [(384, torch.bfloat16), (384, torch.float32),
+                                         (320, torch.bfloat16), (512, torch.bfloat16)])
+def test_fused_resid_ln_kernel_exchanges_row_statistics(cuda, full_f32, h, ctx_dtype):
+    """Each block of a cluster sums its own columns of a row; a row's mean
+    and variance need every block's part.  A large offset on the columns
+    of the cluster's first block (the first H / cluster) and on every
+    other row moves both statistics far from what any one block sees."""
+    c = block_case(4096, h, 4 * h, cuda, seed=h + 17)
+    plan = fused_bert.resid_plan(h, 4096, torch.cuda.get_device_properties(0).multi_processor_count,
+                                 ctx_dtype == torch.bfloat16)
+    assert plan.cluster > 1
+    n = h // plan.cluster
+    c["x"][::2, :n] += 40.0
+    c["x"][1::2, n:2 * n] -= 25.0
+    assert_resid_matches_plain(resid_args(c, ctx_dtype))
+
+
+@pytest.mark.parametrize("r,ctx_dtype", [(1024, torch.float32), (64 * 137 + 5, torch.bfloat16)])
+def test_fused_resid_ln_kernel_relaunch_is_bit_identical(cuda, r, ctx_dtype):
+    """The clusters add their row sums in rank order: launches on the same
+    inputs give the same bits, with the weights packed by the wrapper or
+    once by the caller."""
+    args = resid_args(block_case(r, 384, 1536, cuda, seed=6), ctx_dtype)
+    first = fused_bert.fused_resid_ln(*args)
+    pack = fused_bert.pack_resid(args[2], args[3])
+    again = [fused_bert.fused_resid_ln(*args, pack) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, a) for a in again)
+
+
+def test_fused_resid_ln_kernel_from_worker_threads(cuda):
+    """Launches from four threads at once, two of them on side streams, at
+    the embed shape (f32 context) and a rerank-like one (bf16), give the
+    main thread's bits."""
+    cases = [resid_args(block_case(r, 384, 1536, cuda, seed=30 + i), dt)
+             for i, (r, dt) in enumerate(((1024, torch.float32), (1024, torch.bfloat16),
+                                          (4096, torch.bfloat16), (777, torch.float32)))]
+    want = [fused_bert.fused_resid_ln(*c) for c in cases]
+    torch.cuda.synchronize()
+
+    def run(i):
+        if i % 2:
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.default_stream())
+            with torch.cuda.stream(stream):
+                out = fused_bert.fused_resid_ln(*cases[i])
+        else:
+            out = fused_bert.fused_resid_ln(*cases[i])
+        torch.cuda.synchronize()
+        return out
+
+    for _ in range(2):
+        with ThreadPoolExecutor(4) as pool:
+            got = list(pool.map(run, range(4)))
+        assert all(torch.equal(w, g) for w, g in zip(want, got))
+
+
+def test_fused_resid_ln_kernel_rejects_a_foreign_plan(cuda):
+    """The C entry runs only the plans it was compiled for."""
+    x, ctx, w, b, s, lb, eps = resid_args(block_case(1024, 384, 1536, cuda, seed=4),
+                                          torch.bfloat16)
+    pack = fused_bert.pack_resid(w, b)
+    plan = fused_bert.resid_plan(384, 1024, torch.cuda.get_device_properties(0).multi_processor_count,
+                                 True)
+    y = torch.empty_like(x)
+    lib = fused_bert._library()
+
+    def launch(p, cluster_map=None):
+        return lib.fused_resid_ln(x.data_ptr(), 0, ctx.data_ptr(), 1,
+                                  pack.wmap(cluster_map or p.cluster), pack.b.data_ptr(),
+                                  s.data_ptr(), lb.data_ptr(), eps, y.data_ptr(), 1024, 384,
+                                  p.cluster, p.stages, p.ctas,
+                                  torch.cuda.current_stream().cuda_stream)
+
+    assert launch(plan) == 0
+    torch.cuda.synchronize()
+    for bad in (plan._replace(stages=plan.stages + 1), plan._replace(stages=plan.stages - 1),
+                plan._replace(cluster=3, ctas=63), plan._replace(cluster=8, ctas=64),
+                plan._replace(ctas=plan.ctas + 1), plan._replace(ctas=4 * 17)):
+        assert launch(bad, plan.cluster) == 1  # cudaErrorInvalidValue
+
+
 def test_fused_kernels_take_a_bf16_activation(cuda):
     """A bf16 x is widened to f32 exactly: the same result as its f32 copy."""
     c = block_case(300, 128, 512, cuda, seed=3)
