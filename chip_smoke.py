@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--topk-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
+                          [--ivf-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
                           [--attn-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
                           [--ffn-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
                           [--resid-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
@@ -65,8 +66,18 @@ seven phases; any failure raises and the script exits non-zero:
    with the int8 branch of kernel 3 against its plain version bit for bit
    and recall@15 against the exact int8 flat top-15.
 
+Kernels 1 and 3 log, beside each CUDA-event time, their device time by
+kernel (profiler), the wrapper's host time a call and their launch plan
+(blocks, stages, work a block, merge candidates): kernel 1 at phase 2's
+shape in both branches and over the IVF corpus's flat rows, kernel 3 on
+the real and the diverse batch's lists in both branches.
+
 ``--topk-baseline`` also builds the ``masked_topk.cu`` of an earlier
-checkout and holds kernel 1 bit for bit against it; ``--attn-baseline``
+checkout (its two-pass C entry), holds kernel 1 bit for bit against it in
+both branches and times both in turns with their device times;
+``--ivf-baseline`` does the same for an earlier ``ivf_probe.cu`` and
+kernel 3 on both lists (bit for bit on the real list, and on the diverse
+one in int8); ``--attn-baseline``
 builds an earlier ``pair_attention.cu`` and times it beside kernel 2 on
 the same inputs and masks, in turns, with their contexts' difference;
 ``--ffn-baseline`` builds an earlier ``fused_bert.cu`` and times its FFN
@@ -241,28 +252,93 @@ def kernel_lib(name: str, lib):
         _cuda._libs[name] = current
 
 
-def check_topk_baseline(torch, args, s, i, csrc: Path) -> None:
-    """Kernel 1 bit for bit against the ``masked_topk.cu`` in ``csrc`` (an
-    earlier checkout's), built with the same flags, on the same inputs."""
-    from financial_rag_system_tpu_torch.ops.topk import masked_topk
+def parent_topk_fn(torch, lib, args):
+    """A launch of kernel 1 from an earlier ``masked_topk.cu``: its two-pass
+    C entry (1,024 rows a split, the (B, splits, K) partials passed in),
+    on the wrapper's arguments; returns (scores, ids)."""
+    import ctypes
 
-    with kernel_lib("masked_topk", baseline_lib("masked_topk", csrc)):
-        s0, i0 = (x.cpu().numpy() for x in masked_topk(*args))
-    if s0.tobytes() != s.tobytes() or i0.tobytes() != i.tobytes():
-        raise AssertionError(f"top-k differs from the kernel built from {csrc}")
-    log(f"[topk] bit-identical to the kernel built from {csrc}")
+    from financial_rag_system_tpu_torch.ops import _cuda
+
+    q, c, codes, qf, n_valid, k = args
+    (b, d), n = q.shape, c.shape[0]
+    splits = -(-n // 1024)
+    fn = lib.masked_topk_s8 if c.dtype == torch.int8 else lib.masked_topk
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5
+    part = torch.empty((2, b, splits, k), dtype=torch.int32, device=c.device)
+    out = torch.empty((2, b, k), dtype=torch.int32, device=c.device)
+
+    def launch():
+        _cuda.launch(fn, "parent masked_topk", q.data_ptr(), c.data_ptr(), codes.data_ptr(),
+                     qf.data_ptr(), b, n, d, n_valid, k, 1024, part[0].data_ptr(),
+                     part[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr())
+        return out[0].view(torch.float32), out[1]
+    return launch
+
+
+def parent_probe_fn(torch, lib, args, tile: int):
+    """A launch of kernel 3 from an earlier ``ivf_probe.cu`` (two passes,
+    min(entries, 512) splits, partials passed in); returns (scores, ids)."""
+    import ctypes
+
+    from financial_rag_system_tpu_torch.ops import _cuda
+
+    q, qf, emb, codes, gids, tl, k = args
+    (b, d), n_packed, n_probe = q.shape, emb.shape[0], tl.numel()
+    splits = min(n_probe, 512)
+    fn = lib.ivf_probe_s8 if emb.dtype == torch.int8 else lib.ivf_probe
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
+    part = torch.empty((2, b, splits, k), dtype=torch.int32, device=emb.device)
+    out = torch.empty((2, b, k), dtype=torch.int32, device=emb.device)
+
+    def launch():
+        _cuda.launch(fn, "parent ivf_probe", q.data_ptr(), emb.data_ptr(), codes.data_ptr(),
+                     gids.data_ptr(), tl.data_ptr(), qf.data_ptr(), b, d, n_packed, tile,
+                     n_probe, k, splits, part[0].data_ptr(), part[1].data_ptr(),
+                     out[0].data_ptr(), out[1].data_ptr())
+        return out[0].view(torch.float32), out[1]
+    return launch
+
+
+def against_parent(torch, tag: str, smi: str, parent, new, exact: bool = True) -> None:
+    """The parent's kernel against the new one on the same inputs: bit for
+    bit (scores and ids) where ``exact``, then both timed in turns (parent,
+    new, new, parent), CUDA events and device time (profiler)."""
+    got = [x.cpu().numpy().tobytes() for x in new()]
+    want = [x.cpu().numpy().tobytes() for x in parent()]
+    same = got == want
+    if exact and not same:
+        raise AssertionError(f"{tag}: differs from the parent's kernel")
+    order = (parent, new, new, parent)
+    events = [median_ms(fn, reps=30) for fn in order]
+    device = [sum(device_split(torch, fn).values()) for fn in order]
+    log(f"{tag} {smi}: bit for bit with the parent's kernel: {same}; in turns (parent, new, "
+        f"new, parent): events {', '.join(f'{t:.4f}' for t in events)} ms; device "
+        f"{', '.join(f'{t:.4f}' for t in device)} ms")
+
+
+def plan_line(tag: str, plan, pieces: float | None = None) -> None:
+    """A kernel-1 or kernel-3 launch plan: blocks, stages, work a block and
+    the merge's candidates."""
+    work = (f"{plan.tiles / plan.blocks:.1f} tiles a block" if pieces is None
+            else f"{pieces / plan.blocks:.1f} live-candidate pieces a block")
+    log(f"{tag} plan: {plan.blocks} blocks x {plan.qblocks} query blocks, {plan.stages} "
+        f"stages, {plan.smem} B of shared memory, {work}, at most {plan.candidates} merge "
+        f"candidates a query")
+
+
+def sms(torch) -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def check_topk(torch, np, smi: str, baseline: Path | None = None) -> dict:
-    from financial_rag_system_tpu_torch.ops.topk import masked_topk, masked_topk_plain
+    from financial_rag_system_tpu_torch.ops.topk import masked_topk, masked_topk_plain, topk_plan
 
     n_valid = N - 100
     q, c, codes, qf = topk_inputs(torch, np.random.default_rng(SEED), n_valid)
     args = (q, c, codes, qf, n_valid, K)
     s, i = (x.cpu().numpy() for x in masked_topk(*args))
     torch.cuda.synchronize()
-    if baseline is not None:
-        check_topk_baseline(torch, args, s, i, baseline)
     s_ref, i_ref = (x.cpu().numpy() for x in masked_topk_plain(*args))
     fin = np.isfinite(s_ref)
     if not (np.isfinite(s) == fin).all():
@@ -286,6 +362,12 @@ def check_topk(torch, np, smi: str, baseline: Path | None = None) -> dict:
     b_ms, b_by = bound_ms(nbytes, 2.0 * B * N * D)
     log(f"[topk] {smi}: B={B} N={N} D={D} K={K}: max_abs_err {err:.3g}, "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    retrieval_timing(torch, f"[topk] bf16 B={B} N={N}:", lambda: masked_topk(*args), ms, smi)
+    plan_line(f"[topk] bf16 B={B} N={N}:", topk_plan(B, N, D, 2, K, sms(torch)))
+    if baseline is not None:
+        against_parent(torch, f"[topk] bf16 B={B} N={N}:", smi,
+                       parent_topk_fn(torch, baseline_lib("masked_topk", baseline), args),
+                       lambda: masked_topk(*args))
     return {
         "name": "masked_topk", "route": "cuda",
         "source": f"{PACKAGE}/csrc/masked_topk.cu",
@@ -988,16 +1070,16 @@ def recall_at_k(np, rows, exact_s, exact_rows) -> list[float]:
     return out
 
 
-def check_ivf_kernel(torch, np, ivf_run: dict, smi: str) -> dict:
+def check_ivf_kernel(torch, np, ivf_run: dict, smi: str, baseline: Path | None = None) -> dict:
     """Kernel 3 (its bf16 or int8 branch, as the packing is) against its
     plain version on the probe list of a real batch of 32 over the 1M
     packing: within 1e-4 in bf16, bit for bit in int8; its time beside
     kernel 1's over the same corpus, there and on a diverse batch's list;
     the fused IVF batch's recall@15 against the exact flat top-15, and its
     profile."""
-    from financial_rag_system_tpu_torch.index.ivf import ivf_probe, ivf_probe_plain
+    from financial_rag_system_tpu_torch.index.ivf import ivf_probe, ivf_probe_plain, probe_plan
     from financial_rag_system_tpu_torch.ops import fused_query as fq
-    from financial_rag_system_tpu_torch.ops.topk import masked_topk
+    from financial_rag_system_tpu_torch.ops.topk import masked_topk, topk_plan
 
     engine, label = ivf_run["engine"], ivf_run["label"]
     idx = engine.index
@@ -1086,6 +1168,19 @@ def check_ivf_kernel(torch, np, ivf_run: dict, smi: str) -> dict:
             f"({a * tile} slots, {live} live); kernel 3 {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}); kernel 1 over {nv} flat rows {flat_ms:.4f} ms, bound "
             f"{flat_b:.4f} ms; probe recall@{K} against flat {recall:.4f}")
+        tag = f"[ivf_probe] {packed_emb.dtype} {name} list:"
+        retrieval_timing(torch, tag, lambda: ivf_probe(*real, tile=tile), ms, smi)
+        plan_line(tag, probe_plan(B, tl.numel(), tile, D, elt, K, sms(torch)),
+                  pieces=a * tile / 64)
+        if baseline is not None:
+            against_parent(torch, tag, smi,
+                           parent_probe_fn(torch, baseline_lib("ivf_probe", baseline), real, tile),
+                           lambda: ivf_probe(*real, tile=tile), exact=quantized or name == "real")
+        if name == "real":
+            tag = f"[topk] {packed_emb.dtype} B={B} N={nv}:"
+            retrieval_timing(torch, tag, lambda: masked_topk(qq, emb, codes, qf, nv, K), flat_ms,
+                             smi)
+            plan_line(tag, topk_plan(B, nv, D, elt, K, sms(torch)))
         out[name] = (ms, plain_ms, b_ms, b_by)
     ms, plain_ms, b_ms, b_by = out["real"]
 
@@ -1294,6 +1389,53 @@ def device_ms(torch, fn, kernel: str, calls: int = 10) -> float:
         if times:
             return statistics.median(times) / 1e3
     return float("nan")
+
+
+def device_split(torch, fn, calls: int = 10) -> dict:
+    """Device ms that one call of ``fn`` spends in each kernel it launches:
+    by the kernel's short name, its median time a launch (the profiler's,
+    each launch counted once) times its launches a call (at least one: the
+    profiler has been seen to drop and to repeat records); empty if three
+    profiles in a row hold none."""
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        times = {}
+        for e in prof.events():
+            if e.device_time > 0 and not e.name.startswith(("Memcpy", "Memset")):
+                name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
+                name = name.split("(")[0].split("<")[0].split("::")[-1]
+                times.setdefault(name, {})[e.time_range.start] = e.device_time / 1e3
+        if times:
+            return {name: statistics.median(t.values()) * max(1, round(len(t) / calls))
+                    for name, t in times.items()}
+    return {}
+
+
+def host_us(torch, fn, calls: int = 200) -> float:
+    """Host microseconds a call of ``fn`` takes to queue its work (the
+    device runs behind; the queue never fills at this count)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def retrieval_timing(torch, tag: str, fn, ms: float, smi: str) -> float:
+    """Log a retrieval kernel's CUDA-event time ``ms`` beside its device
+    time by kernel and the wrapper's host time; returns the device ms."""
+    split = device_split(torch, fn)
+    dev = sum(split.values()) if split else float("nan")
+    parts = ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items()))
+    log(f"{tag} {smi}: events {ms:.4f} ms, device {dev:.4f} ms ({parts}), host "
+        f"{host_us(torch, fn):.1f} us a call")
+    return dev
 
 
 def ffn_baseline_fn(baseline, xf, ops, eps: float, y):
@@ -1569,13 +1711,13 @@ def check_fused_block_kernels(torch, run: dict, smi: str, ffn_baseline=None,
 
 # -- phase 6: int8 corpora ------------------------------------------------------------
 
-def check_topk_int8(torch, np, smi: str) -> dict:
+def check_topk_int8(torch, np, smi: str, baseline: Path | None = None) -> dict:
     """Kernel 1's int8 branch against its plain version at the main path's
     shape (phase 2's inputs, quantized), bit for bit in scores and ids,
     with a planted tie; its time, the plain version's and its bound
     (bytes at the memory rate, operations at the int8 tensor-core rate)."""
     from financial_rag_system_tpu_torch.index.flat import quantize_int8
-    from financial_rag_system_tpu_torch.ops.topk import masked_topk, masked_topk_plain
+    from financial_rag_system_tpu_torch.ops.topk import masked_topk, masked_topk_plain, topk_plan
 
     n_valid = N - 100
     q, c, codes, qf = topk_inputs(torch, np.random.default_rng(SEED), n_valid)
@@ -1596,6 +1738,13 @@ def check_topk_int8(torch, np, smi: str) -> dict:
     b_ms, b_by = bound_ms(nbytes, 2.0 * B * N * D, INT8_OP_PER_S)
     log(f"[topk-int8] {smi}: B={B} N={N} D={D} K={K}: scores and ids bit for bit, tie by "
         f"lower row; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    retrieval_timing(torch, f"[topk-int8] int8 B={B} N={N}:", lambda: masked_topk(*args), ms,
+                     smi)
+    plan_line(f"[topk-int8] int8 B={B} N={N}:", topk_plan(B, N, D, 1, K, sms(torch)))
+    if baseline is not None:
+        against_parent(torch, f"[topk-int8] int8 B={B} N={N}:", smi,
+                       parent_topk_fn(torch, baseline_lib("masked_topk", baseline), args),
+                       lambda: masked_topk(*args))
     return {
         "name": "masked_topk_int8", "route": "cuda",
         "source": f"{PACKAGE}/csrc/masked_topk.cu",
@@ -1717,8 +1866,14 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--topk-baseline", type=Path, default=None, metavar="CSRC",
-        help="csrc/ directory of an earlier checkout: hold kernel 1 bit for bit "
-             "against its masked_topk.cu",
+        help="csrc/ directory of an earlier checkout: hold kernel 1 bit for bit against its "
+             "masked_topk.cu in both branches, and time both in turns",
+    )
+    parser.add_argument(
+        "--ivf-baseline", type=Path, default=None, metavar="CSRC",
+        help="csrc/ directory of an earlier checkout: hold kernel 3 bit for bit against its "
+             "ivf_probe.cu on the real batch's list (and the diverse one in int8), and time "
+             "both in turns on both lists",
     )
     parser.add_argument(
         "--attn-baseline", type=Path, default=None, metavar="CSRC",
@@ -1779,7 +1934,7 @@ def main() -> int:
         profile_batch(torch, main_run, smi)
         t0 = time.perf_counter()
         ivf_run = drive_ivf_path(torch, np, main_run, smi)
-        kernels.append(check_ivf_kernel(torch, np, ivf_run, smi))
+        kernels.append(check_ivf_kernel(torch, np, ivf_run, smi, opts.ivf_baseline))
         check_ivf_against_cpu(torch, np, main_run, work, cpu_models)
         log(f"[ivf] phase 4 took {time.perf_counter() - t0:.1f} s")
         del ivf_run["engine"]
@@ -1798,11 +1953,11 @@ def main() -> int:
                                        rounds=1)
         check_int8_against_cpu(torch, np, int8_run, int8, work, cpu_models)
         int8_overlap(torch, np, int8_run, int8, smi)
-        kernels.append(check_topk_int8(torch, np, smi))
+        kernels.append(check_topk_int8(torch, np, smi, opts.topk_baseline))
         del int8_run["engine"], int8["bf16"]
         ivf8_run = drive_ivf_path(torch, np, main_run, smi, label="ivf-int8",
                                   dtype=torch.int8, rounds=1)
-        kernels.append(check_ivf_kernel(torch, np, ivf8_run, smi))
+        kernels.append(check_ivf_kernel(torch, np, ivf8_run, smi, opts.ivf_baseline))
         del ivf8_run["engine"]
         log(f"[int8] phase 6 took {time.perf_counter() - t0:.1f} s")
     finally:

@@ -3,40 +3,41 @@
 //
 // Replaces financial_rag_system_tpu/index/ivf.py:_ivf_kernel (the Pallas
 // kernel behind ivf_probe_pallas) and computes what it computes: a probe
-// list of tile ids (-1 = inactive) names the `tile`-row blocks of the
-// packed corpus to visit; every row of a visited tile is scored against
-// each of B queries (bf16 x bf16 summed in f32: ivf_probe; or int8 x int8
-// summed in s32 and cast to f32, exact: ivf_probe_s8, the Pallas kernel's
-// int8 branch, ivf.py:123-137) and masked out when it fails
-// the query's [ticker, doc_type] code filter (-1 is the wildcard) or its
-// packed gid is -1 (padding, or a slot masked by a re-upsert); the (B, K)
-// best come out in descending score as original row ids (packed_gids).
-// Equal scores go to the lower packed position: the Pallas kernel walks
-// the ascending probe list and keeps the first position on a tie
-// (ivf.py:152-168), so the id carried through both passes here is the
-// packed position, and it becomes a row id only at the end of pass 2.
-// Empty slots come out as score -inf and id -1, as ivf_probe_xla gives.
+// list of tile ids (the ascending active ids, then -1 for inactive
+// entries, as index/ivf.py probe_tile_list makes it) names the `tile`-row
+// blocks of the packed corpus to visit; every row of a visited tile is
+// scored against each of B queries (bf16 x bf16 summed in f32: ivf_probe;
+// or int8 x int8 summed in s32 and cast to f32, exact: ivf_probe_s8, the
+// Pallas kernel's int8 branch, ivf.py:123-137) and masked out when it
+// fails the query's [ticker, doc_type] code filter (-1 is the wildcard) or
+// its packed gid is -1 (padding, or a slot masked by a re-upsert); the
+// (B, K) best come out in descending score as original row ids
+// (packed_gids).  Equal scores go to the lower packed position: the
+// Pallas kernel walks the ascending probe list and keeps the first
+// position on a tie (ivf.py:152-168), so the id carried through the walk
+// and the merge here is the packed position, and it becomes a row id only
+// when the result is written.  Empty slots come out as score -inf and id
+// -1, as ivf_probe_xla gives.
 //
 // Bound on the H100: the active tiles' gids (4 bytes a slot) and the rows
 // and codes of their live slots (2D + 8 bytes each in bf16, D + 8 in
-// int8), read once at 3.35 TB/s.  A batch of 32 diverse queries probing 16 of 512 clusters
-// activates about 10,000 of 16,384 tiles; about half of their slots are
-// padding (a cluster's block holds twice the average cluster), so about
-// 0.5 GB is live, ~0.15 ms; its products (2 * 32 * D flops a row) take a
-// fifth of that at the bf16 tensor-core peak.  It is memory bound.
-// Design (topk_common.cuh has the shared pieces):
-//  - Pass 1, grid (probe splits) x (query blocks of 32): block j takes
-//    entries j, j + splits, ... of the probe list, so the -1 padding that
-//    sorts to the end of the list spreads evenly over the blocks; it
-//    skips an inactive entry without loading anything, streams an active
-//    tile in 64-row pieces (reading a piece's gids first and skipping a
-//    piece of padding only), scores them on the tensor cores (mma.sync),
-//    masks and keeps a per-query best list in registers, then writes a
-//    (B, splits, K) partial keyed by packed position.
-//  - Pass 2, one warp per query: merges the splits' lists on (score desc,
-//    position asc) and maps each winner's position to its row id.
-// Tiles are read once per query block.  Loads are not overlapped with the
-// scoring (no cp.async / TMA pipeline).
+// int8), read once at 3.35 TB/s.  A batch of 32 diverse queries probing 16
+// of 512 clusters activates about 10,000 of 16,384 tiles; about half of
+// their slots are padding (a cluster's block holds twice the average
+// cluster), so about 0.5 GB is live, ~0.15 ms; its products (2 * 32 * D
+// flops a row) take a fifth of that at the bf16 tensor-core peak.  It is
+// memory bound.
+// Design (topk_common.cuh has the walk, the selection and the merge): the
+// producer warp of each persistent block finds the number of active
+// entries itself (a 32-way search of the list, no host sync), takes an
+// even contiguous share of the active tiles' 64-row pieces, reads each
+// piece's gids and loads nothing of a piece that is padding only (the end
+// of a cluster's block); the live pieces go through the TMA ring to the
+// consumer warps, and a second launch of one block a query merges the
+// blocks' lists and maps the winners to row ids.  Each live piece is read
+// once per query block.
+
+#include <atomic>
 
 #include "topk_common.cuh"
 
@@ -44,128 +45,154 @@ using namespace topk;
 
 namespace {
 
+// The number of active (>= 0) entries at the head of the probe list, by
+// the producer warp: each round probes 32 evenly spaced entries of the
+// range the count lies in and keeps the gap after the last active probe,
+// so a list of 16,384 takes three rounds of one load each.
+__device__ __forceinline__ int active_count(const int32_t* __restrict__ ids, int n, int lane) {
+  int lo = 0, hi = n;  // the count lies in [lo, hi]
+  while (lo < hi) {
+    const int step = (hi - lo + 31) / 32;
+    const int idx = lo + lane * step;
+    const unsigned act = __ballot_sync(~0u, idx < hi && ids[idx] >= 0);
+    const int c = act == ~0u ? 32 : __ffs(~act) - 1;  // leading active probes
+    if (c == 0) {
+      hi = lo;
+    } else {
+      const int last = lo + (c - 1) * step;
+      lo = last + 1;
+      hi = min(hi, last + step);
+    }
+  }
+  return lo;
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-ivf_partial_kernel(const T* __restrict__ q, const T* __restrict__ packed_emb,
-                   const int32_t* __restrict__ packed_codes,
-                   const int32_t* __restrict__ packed_gids,
-                   const int32_t* __restrict__ tile_ids,
-                   const int32_t* __restrict__ qf, int B, int D, int n_packed,
-                   int tile, int n_probe, int k, float* __restrict__ part_s,
-                   int32_t* __restrict__ part_i) {
-  extern __shared__ __align__(16) uint32_t smem_u32[];
-  const int W = D / Elem<T>::kPerWord;
-  const Smem m = carve(smem_u32, W);
-
-  const int split = blockIdx.x;
-  const int splits = gridDim.x;
-  const int qb0 = blockIdx.y * kQB;
+__global__ void __launch_bounds__(kThreads, 2)
+ivf_probe_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap rmap,
+                 const __grid_constant__ CUtensorMap cmap, const __grid_constant__ CUtensorMap gmap,
+                 const int32_t* __restrict__ gids, const int32_t* __restrict__ tile_ids,
+                 const int32_t* __restrict__ qf, int B, int row_bytes, int n_packed, int tile,
+                 int n_probe, int k, int stages, float* __restrict__ part_s,
+                 int32_t* __restrict__ part_i) {
+  extern __shared__ unsigned char smem_raw[];
+  const int nbox = boxes_for(row_bytes);
+  const Smem m = carve(smem_raw, nbox, stages);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int qb0 = blockIdx.y * kQB;
+  if (threadIdx.x == 0) init_barriers(m, stages);
+  __syncthreads();
 
-  stage_rows(m.qs, q + (size_t)qb0 * D, kQB, min(kQB, B - qb0), W, m.stride);
-  const int qi = qb0 + lane;
-  const bool live = qi < B;
-  const int tq = live ? qf[qi * 2] : -3;
-  const int dq = live ? qf[qi * 2 + 1] : -3;
-
-  float ls[kMaxK];
-  int li[kMaxK];
+  if (warp == kConsumers) {  // the producer
+    Producer pr(m, stages, nbox);
+    if (lane == 0) pr.queries(&qmap, qb0);
+    const int per_tile = tile / kRows, num_tiles = n_packed / tile;
+    const long long pieces = (long long)active_count(tile_ids, n_probe, lane) * per_tile;
+    const long long p0 = pieces * blockIdx.x / gridDim.x;
+    const long long p1 = pieces * (blockIdx.x + 1) / gridDim.x;
+    // 32 pieces at a time: lane j reads piece j's gids, and the live ones
+    // (a gid >= 0) are sent in order
+    for (long long pb = p0; pb < p1; pb += 32) {
+      const long long p = pb + lane;
+      int base = 0;
+      bool live = false;
+      if (p < p1) {
+        const int a = (int)(p / per_tile);
+        const int t = tile_ids[a];
+        if (t >= 0 && t < num_tiles) {
+          base = t * tile + (int)(p - (long long)a * per_tile) * kRows;
+          const int4* g4 = reinterpret_cast<const int4*>(gids + base);
+          int top = -1;
 #pragma unroll
-  for (int j = 0; j < kMaxK; ++j) { ls[j] = -INFINITY; li[j] = kNoId; }
-
-  const int num_tiles = n_packed / tile;
-  const int n0 = warp * 8;  // this warp's 8 rows of each piece
-  for (int p = split; p < n_probe; p += splits) {
-    const int t = tile_ids[p];  // the same for every thread of the block
-    if (t < 0 || t >= num_tiles) continue;
-    for (int sub = 0; sub < tile; sub += kTile) {
-      const int base = t * tile + sub;
-      // a barrier (the previous piece's rows and scores are consumed) that
-      // also skips a piece of padding only, as the end of a cluster's
-      // block is: its rows are never loaded
-      const bool row_live = threadIdx.x < kTile && packed_gids[base + threadIdx.x] >= 0;
-      if (!__syncthreads_or(row_live)) continue;
-      stage_rows(m.ct, packed_emb + (size_t)base * D, kTile, kTile, W, m.stride);
-      for (int r = threadIdx.x; r < kTile; r += blockDim.x) {
-        m.tcodes[r] = packed_codes[base + r];
-        m.tcodes[kTile + r] = packed_codes[(size_t)n_packed + base + r];
-        m.tcodes[2 * kTile + r] = packed_gids[base + r];
+          for (int c = 0; c < kRows / 4; ++c) {
+            const int4 v = g4[c];
+            top = max(top, max(max(v.x, v.y), max(v.z, v.w)));
+          }
+          live = top >= 0;
+        }
       }
-      __syncthreads();
-      score_tile<T>(m, W, warp, lane);
-      __syncwarp();
-
-      // lane = query: mask the warp's 8 rows and merge them into the list
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int r = n0 + j;
-        const int tc = m.tcodes[r], dc = m.tcodes[kTile + r];
-        const bool ok = live && m.tcodes[2 * kTile + r] >= 0 &&
-                        (tq == -1 || tq == tc) && (dq == -1 || dq == dc);
-        if (ok) insert(ls, li, m.sc[lane * (kTile + 1) + r], base + r);
+      for (unsigned send = __ballot_sync(~0u, live); send != 0; send &= send - 1) {
+        const int at = __shfl_sync(~0u, base, __ffs(send) - 1);
+        if (lane == 0) pr.tile(&rmap, &cmap, &gmap, at, n_packed);
       }
     }
+    if (lane == 0) pr.end();
+    return;
   }
-
-  merge_warp_lists(m, ls, li, warp, lane);
-  if (warp == 0 && live) {
-    const size_t o = ((size_t)qi * splits + split) * k;
-#pragma unroll
-    for (int j = 0; j < kMaxK; ++j) {
-      if (j < k) { part_s[o + j] = ls[j]; part_i[o + j] = li[j]; }
-    }
-  }
+  float ls[kQPW];
+  int li[kQPW];
+  consume<T, true>(m, nbox, row_bytes, stages, B, qb0, n_packed, 0, k, qf, warp, lane, ls, li);
+  write_lists(ls, li, B, qb0, k, part_s, part_i, warp, lane);
 }
 
 template <typename T>
 int launch(const void* q, const void* packed_emb, const void* packed_codes,
            const void* packed_gids, const void* tile_ids, const void* qf, int B, int D,
-           int n_packed, int tile, int n_probe, int k, int splits, void* part_s,
-           void* part_i, void* out_s, void* out_i, void* stream) {
+           int n_packed, int tile, int n_probe, int k, int blocks, int stages, void* scratch,
+           void* out, void* stream) {
+  const int row_bytes = D * (int)sizeof(T);
+  const size_t smem = smem_bytes(boxes_for(row_bytes), stages);
   if (B < 1 || D < Elem<T>::kDimStep || D > kMaxD || D % Elem<T>::kDimStep != 0 || k < 1 ||
-      k > kMaxK || tile < kTile || tile % kTile != 0 || n_packed < tile ||
-      n_packed % tile != 0 || n_probe < 1 || splits < 1 || splits > n_probe)
+      k > kMaxK || tile < kRows || tile % kRows != 0 || n_packed < tile || n_packed % tile != 0 ||
+      n_probe < 1 || blocks < 1 || blocks > kMaxBlocks || stages < 1 || stages > kMaxStages ||
+      smem > (size_t)kSmemLimit || !aligned16(q) || !aligned16(packed_emb) ||
+      !aligned16(packed_codes) || !aligned16(packed_gids) || !aligned16(scratch))
     return (int)cudaErrorInvalidValue;
-  const int qblocks = (B + kQB - 1) / kQB;
-  const size_t smem = smem_bytes(D / Elem<T>::kPerWord);
-  cudaError_t err = cudaFuncSetAttribute(
-      ivf_partial_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  CUtensorMap qmap, rmap, cmap, gmap;
+  if (!rows_map(&qmap, q, B, row_bytes, kQB) ||
+      !rows_map(&rmap, packed_emb, n_packed, row_bytes, kRows) ||
+      !ints_map(&cmap, packed_codes, 2LL * n_packed, kCodeBox) ||
+      !ints_map(&gmap, packed_gids, n_packed, kRows))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = (cudaStream_t)stream;
-  ivf_partial_kernel<T><<<dim3(splits, qblocks), kWarps * 32, smem, s>>>(
-      (const T*)q, (const T*)packed_emb, (const int32_t*)packed_codes,
-      (const int32_t*)packed_gids, (const int32_t*)tile_ids, (const int32_t*)qf, B, D,
-      n_packed, tile, n_probe, k, (float*)part_s, (int32_t*)part_i);
+  // raise the kernel's shared-memory limit once a device; host threads
+  // may launch at once, and each may do that first
+  static std::atomic<bool> ready[64];
+  if (!ready[dev & 63].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(ivf_probe_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemLimit);
+    if (err != cudaSuccess) return (int)err;
+    ready[dev & 63].store(true, std::memory_order_release);
+  }
+  const int qblocks = (B + kQB - 1) / kQB;
+  float* part_s = static_cast<float*>(scratch);
+  int32_t* part_i = reinterpret_cast<int32_t*>(part_s + (size_t)B * k * blocks);
+  float* out_s = static_cast<float*>(out);
+  int32_t* out_i = reinterpret_cast<int32_t*>(out_s + (size_t)B * k);
+  ivf_probe_kernel<T><<<dim3(blocks, qblocks), kThreads, smem, (cudaStream_t)stream>>>(
+      qmap, rmap, cmap, gmap, (const int32_t*)packed_gids, (const int32_t*)tile_ids,
+      (const int32_t*)qf, B, row_bytes, n_packed, tile, n_probe, k, stages, part_s, part_i);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  merge_kernel<<<B, 32, 0, s>>>((const float*)part_s, (const int32_t*)part_i, splits * k,
-                                k, (const int32_t*)packed_gids, (float*)out_s,
-                                (int32_t*)out_i);
+  merge_kernel<<<B, kMergeWarps * 32, 0, (cudaStream_t)stream>>>(
+      part_s, part_i, blocks, k, (const int32_t*)packed_gids, out_s, out_i);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Each returns a cudaError_t: 1 (cudaErrorInvalidValue) for shapes the
-// kernel does not take (D a multiple of 16 for bf16, of 32 for int8, at
-// most 1024), else the first launch error.  part_s / part_i hold
-// B * splits * k elements each; 1 <= splits <= n_probe.
+// Each returns a cudaError_t: 1 (cudaErrorInvalidValue) for shapes or a
+// plan the kernel does not take (D a multiple of 16 for bf16, of 32 for
+// int8, at most 1024; a tile a multiple of 64 dividing n_packed; 1-512
+// blocks; 1-16 stages within the shared-memory limit; q, the packing's
+// three arrays and scratch 16-byte aligned), else the first launch's status.
+// `blocks` and `stages` come from index/ivf.py probe_plan; scratch and
+// out as masked_topk.cu's entries take them.
 extern "C" int ivf_probe(const void* q, const void* packed_emb, const void* packed_codes,
-                         const void* packed_gids, const void* tile_ids, const void* qf,
-                         int B, int D, int n_packed, int tile, int n_probe, int k,
-                         int splits, void* part_s, void* part_i, void* out_s,
-                         void* out_i, void* stream) {
+                         const void* packed_gids, const void* tile_ids, const void* qf, int B,
+                         int D, int n_packed, int tile, int n_probe, int k, int blocks,
+                         int stages, void* scratch, void* out, void* stream) {
   return launch<__nv_bfloat16>(q, packed_emb, packed_codes, packed_gids, tile_ids, qf, B, D,
-                               n_packed, tile, n_probe, k, splits, part_s, part_i, out_s,
-                               out_i, stream);
+                               n_packed, tile, n_probe, k, blocks, stages, scratch,
+                               out, stream);
 }
 
 extern "C" int ivf_probe_s8(const void* q, const void* packed_emb, const void* packed_codes,
-                            const void* packed_gids, const void* tile_ids, const void* qf,
-                            int B, int D, int n_packed, int tile, int n_probe, int k,
-                            int splits, void* part_s, void* part_i, void* out_s,
-                            void* out_i, void* stream) {
-  return launch<int8_t>(q, packed_emb, packed_codes, packed_gids, tile_ids, qf, B, D,
-                        n_packed, tile, n_probe, k, splits, part_s, part_i, out_s, out_i,
-                        stream);
+                            const void* packed_gids, const void* tile_ids, const void* qf, int B,
+                            int D, int n_packed, int tile, int n_probe, int k, int blocks,
+                            int stages, void* scratch, void* out, void* stream) {
+  return launch<int8_t>(q, packed_emb, packed_codes, packed_gids, tile_ids, qf, B, D, n_packed,
+                        tile, n_probe, k, blocks, stages, scratch, out, stream);
 }

@@ -5,8 +5,8 @@
 // (wgmma) with A from registers or shared memory and B from a 128- or
 // 64-byte-swizzled tile in shared memory; on the host,
 // cuTensorMapEncodeTiled.  Used by fused_bert.cu's QKV, o-proj and FFN
-// kernels and pair_attention.cu; meant for any kernel of the port that streams
-// tiles with TMA.
+// kernels, pair_attention.cu and the masked top-k kernels (topk_common.cuh);
+// meant for any kernel of the port that streams tiles with TMA.
 
 #pragma once
 
@@ -64,6 +64,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// box at c0 of the 1-D tensor `map` into shared memory; completes on
+// `bar`.  Elements out of the tensor's bounds arrive as zeros and count
+// towards the box's bytes.
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0)
       : "memory");
 }
 

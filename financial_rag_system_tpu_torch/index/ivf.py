@@ -35,6 +35,7 @@ package's ``ivf_index.npz``, so either package loads the other's index.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import threading
 import time
@@ -53,10 +54,15 @@ from financial_rag_system_tpu_torch.index.base import (
 from financial_rag_system_tpu_torch.index.hnsw import kcenter_rows
 from financial_rag_system_tpu_torch.index.store import PAD_CODE
 from financial_rag_system_tpu_torch.ops import _cuda
-from financial_rag_system_tpu_torch.ops.topk import MAX_K, NEG_INF, _match_mask, check_dims
-
-# pass-1 blocks of the probe kernel: enough to fill the card at B = 32
-PROBE_SPLITS = 512
+from financial_rag_system_tpu_torch.ops.topk import (
+    MAX_K,
+    NEG_INF,
+    TILE_ROWS,
+    TopkPlan,
+    _match_mask,
+    check_dims,
+    plan_for,
+)
 
 # ---------------------------------------------------------------------------
 # k-means build
@@ -158,19 +164,32 @@ def ivf_probe_plain(
     return top_s, top_i.to(torch.int32)
 
 
-def _kernel_fn(dtype: torch.dtype):
+@functools.lru_cache(maxsize=256)
+def probe_plan(b: int, n_probe: int, tile: int, d: int, elt: int, k: int, sms: int) -> TopkPlan:
+    """Kernel 3's plan for ``b`` queries over a probe list of ``n_probe``
+    entries of ``tile`` rows, ``d`` values of ``elt`` bytes a row.  How many
+    entries are active is known only on the card, where each block finds
+    it and takes an even share of the active tiles' 64-row pieces; the plan
+    sizes the grid for the whole list."""
+    return plan_for(b, n_probe * (tile // TILE_ROWS), d * elt, k, sms)
+
+
+@functools.cache
+def _library():
     lib = _cuda.library("ivf_probe")
-    fn = lib.ivf_probe_s8 if dtype == torch.int8 else lib.ivf_probe
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
-    fn.restype = ctypes.c_int
-    return fn
+    for fn in (lib.ivf_probe, lib.ivf_probe_s8):
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def ivf_probe_cuda(
     queries, query_filter, packed_emb, packed_codes, packed_gids, tile_ids, k,
     *, tile,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/ivf_probe.cu`` (two passes) on the current stream."""
+    """Launch ``csrc/ivf_probe.cu`` (two launches) on the current stream.
+    ``tile_ids`` lists the active tile ids first, then -1s, as
+    :func:`probe_tile_list` makes it."""
     b, d = queries.shape
     n_packed = packed_emb.shape[0]
     dev = packed_emb.device
@@ -178,7 +197,7 @@ def ivf_probe_cuda(
         raise ValueError(f"ivf_probe takes bf16 or int8 queries and packing of one type, "
                          f"got {queries.dtype} and {packed_emb.dtype}")
     check_dims(d, packed_emb.shape[1], packed_emb.dtype)
-    if tile % 64 or n_packed % tile:
+    if tile % TILE_ROWS or n_packed % tile:
         raise ValueError(f"tile {tile} must be a multiple of 64 dividing {n_packed}")
     if packed_codes.shape != (2, n_packed) or packed_codes.dtype != torch.int32:
         raise ValueError(f"packed_codes must be (2, {n_packed}) int32")
@@ -191,32 +210,29 @@ def ivf_probe_cuda(
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k must be in [1, {MAX_K}], got {k}")
     for t in (queries, query_filter, packed_emb, packed_codes, packed_gids, tile_ids):
-        if t.device != dev or not t.is_contiguous():
+        if t.get_device() != dev.index or not t.is_contiguous():
             raise ValueError("inputs must be contiguous and on one CUDA device")
-    if packed_emb.data_ptr() % 16 or queries.data_ptr() % 16:
+    if any(t.data_ptr() % 16 for t in (queries, packed_emb, packed_codes, packed_gids)):
         raise ValueError("queries and packing must be 16-byte aligned")
     n_probe = tile_ids.numel()
-    splits = min(n_probe, PROBE_SPLITS)
-    part_s = torch.empty((b, splits, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((b, splits, k), dtype=torch.int32, device=dev)
-    out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _cuda.check(
-        _kernel_fn(packed_emb.dtype)(
-            queries.data_ptr(), packed_emb.data_ptr(), packed_codes.data_ptr(),
+    plan = probe_plan(b, n_probe, tile, d, packed_emb.element_size(), k, _cuda.sm_count(dev))
+    lib = _library()
+    out = torch.empty((2, b, k), dtype=torch.float32, device=dev)  # scores, then ids
+    with _cuda.on_device(dev):
+        scratch = _cuda.stream_scratch(dev, plan.scratch)
+        _cuda.launch(
+            lib.ivf_probe_s8 if packed_emb.dtype == torch.int8 else lib.ivf_probe,
+            "ivf_probe", queries.data_ptr(), packed_emb.data_ptr(), packed_codes.data_ptr(),
             packed_gids.data_ptr(), tile_ids.data_ptr(), query_filter.data_ptr(),
-            b, d, n_packed, tile, n_probe, k, splits, part_s.data_ptr(),
-            part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), stream,
-        ),
-        "ivf_probe",
-    )
+            b, d, n_packed, tile, n_probe, k, plan.blocks, plan.stages, scratch.data_ptr(),
+            out.data_ptr(),
+        )
     with _launch_lock:  # batches run in worker threads
         if packed_emb.dtype == torch.int8:
             ivf_probe.launches_int8 += 1
         else:
             ivf_probe.launches += 1
-    return out_s, out_i
+    return out[0], out[1].view(torch.int32)
 
 
 def ivf_probe(

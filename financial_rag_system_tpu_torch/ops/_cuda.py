@@ -11,13 +11,17 @@ tests import every module of the port on a machine without ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -81,3 +85,43 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a kernel's C entry."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def launch(fn, name: str, *args) -> None:
+    """``fn(*args, stream)`` on the current device's current stream (its
+    raw handle, which torch.cuda.current_stream() takes ~7 us to wrap)."""
+    check(fn(*args, current_stream()), name)
+
+
+def current_stream() -> int:
+    """The raw handle of the current device's current stream."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+
+
+def on_device(dev: torch.device):
+    """``dev`` made current for the block, unless it is already."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+@functools.cache
+def sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def stream_scratch(dev: torch.device, words: int) -> torch.Tensor:
+    """At least ``words`` int32 of scratch for kernels launched on the
+    current stream of ``dev`` (current for the caller): one buffer a
+    (device, stream), which launches on that stream share, since they run
+    in order."""
+    key = (dev.index, current_stream())
+    with _lock:
+        buf = _scratch.get(key)
+        if buf is None or buf.numel() < words:
+            buf = torch.empty(max(words, 1024), dtype=torch.int32, device=dev)
+            _scratch[key] = buf
+        return buf
+
+
+_scratch: dict[tuple[int, int], torch.Tensor] = {}

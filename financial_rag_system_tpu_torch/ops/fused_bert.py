@@ -23,7 +23,6 @@ A bf16 activation is widened to f32 exactly, as the TPU kernels do with
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import threading
@@ -318,13 +317,6 @@ def _operand(t: torch.Tensor, shape: tuple, dtype: torch.dtype, device, name: st
     return t.to(dtype).contiguous()
 
 
-def _launch(fn, name: str, *args) -> None:
-    """``fn(*args, stream)`` on the current device's current stream (its
-    raw handle, which torch.cuda.current_stream() takes ~7 us to wrap)."""
-    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
-    _cuda.check(fn(*args, stream), name)
-
-
 def _count(fn) -> None:
     with _launch_lock:  # batches run in worker threads
         fn.launches += 1
@@ -338,21 +330,9 @@ def _on_cpu(x: torch.Tensor) -> bool:
     return False
 
 
-def _on_device(dev: torch.device):
-    """``dev`` made current for the block, unless it is already."""
-    if dev.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(dev)
-
-
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` at a 16-byte-aligned address, as TMA reads it."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
-@functools.cache
-def _sm_count(dev: torch.device) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def fused_qkv(x, wq, bq, wk, bk, wv, bv, packed=None):
@@ -381,11 +361,11 @@ def fused_qkv(x, wq, bq, wk, bk, wv, bv, packed=None):
         raise ValueError("packed must be pack_qkv's (3H, H) bf16 weight and (3H,) f32 bias "
                          f"on {dev}")
     xf = _aligned(xf)
-    plan = qkv_plan(h, r, _sm_count(dev))
+    plan = qkv_plan(h, r, _cuda.sm_count(dev))
     out = torch.empty((3, r, h), dtype=torch.float32, device=dev)
-    with _on_device(dev):
-        _launch(_library().fused_qkv, "fused_qkv", xf.data_ptr(), w.data_ptr(), b.data_ptr(),
-                out.data_ptr(), r, h, plan.bn, plan.stages, plan.ctas)
+    with _cuda.on_device(dev):
+        _cuda.launch(_library().fused_qkv, "fused_qkv", xf.data_ptr(), w.data_ptr(),
+                     b.data_ptr(), out.data_ptr(), r, h, plan.bn, plan.stages, plan.ctas)
     _count(fused_qkv)
     return out.unbind(0)
 
@@ -420,7 +400,7 @@ def fused_resid_ln(x, ctx, w, b, ln_scale, ln_bias, eps: float, packed=None):
     if s.shape != (h,) or lb.shape != (h,) or s.device != dev or lb.device != dev:
         raise ValueError(f"ln_scale and ln_bias must be ({h},) on {dev}")
     y = _resid_launch(_kernel_rows(x), _kernel_rows(ctx), packed, s, lb, eps,
-                      resid_plan(h, r, _sm_count(dev), ctx.dtype == torch.bfloat16))
+                      resid_plan(h, r, _cuda.sm_count(dev), ctx.dtype == torch.bfloat16))
     _count(fused_resid_ln)
     return y
 
@@ -440,12 +420,12 @@ def _resid_launch(x, ctx, packed: ResidPack, ln_scale, ln_bias, eps: float,
     bf16)."""
     (r, h), dev = x.shape, x.device
     y = torch.empty((r, h), dtype=torch.float32, device=dev)
-    with _on_device(dev):
-        _launch(_library().fused_resid_ln, "fused_resid_ln", x.data_ptr(),
-                int(x.dtype == torch.bfloat16), ctx.data_ptr(), int(ctx.dtype == torch.bfloat16),
-                packed.wmap(plan.cluster), packed.b.data_ptr(), ln_scale.data_ptr(),
-                ln_bias.data_ptr(), float(eps), y.data_ptr(), r, h, plan.cluster, plan.stages,
-                plan.ctas)
+    with _cuda.on_device(dev):
+        _cuda.launch(_library().fused_resid_ln, "fused_resid_ln", x.data_ptr(),
+                     int(x.dtype == torch.bfloat16), ctx.data_ptr(),
+                     int(ctx.dtype == torch.bfloat16), packed.wmap(plan.cluster),
+                     packed.b.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), float(eps),
+                     y.data_ptr(), r, h, plan.cluster, plan.stages, plan.ctas)
     return y
 
 
@@ -457,7 +437,7 @@ def fused_ffn_ln(x, w_in, b_in, w_out, b_out, ln_scale, ln_bias, eps: float):
         return fused_ffn_ln_plain(x, w_in, b_in, w_out, b_out, ln_scale, ln_bias, eps)
     xf, ops = _ffn_operands(x, w_in, b_in, w_out, b_out, ln_scale, ln_bias)
     r, h = xf.shape
-    y = _ffn_launch(xf, ops, eps, ffn_plan(h, ops[0].shape[0], r, _sm_count(xf.device)))
+    y = _ffn_launch(xf, ops, eps, ffn_plan(h, ops[0].shape[0], r, _cuda.sm_count(xf.device)))
     _count(fused_ffn_ln)
     return y
 
@@ -482,15 +462,15 @@ def _ffn_launch(xf, ops, eps: float, plan: FFNPlan) -> torch.Tensor:
     is allocated here and its tickets are the stream's."""
     (r, h), i, dev = xf.shape, ops[0].shape[0], xf.device
     y = torch.empty((r, h), dtype=torch.float32, device=dev)
-    with _on_device(dev):
+    with _cuda.on_device(dev):
         split = [None, None]  # the workspace and the tickets, held over the launch
         if plan.splits > 1:
             split = [torch.empty(plan.workspace, dtype=torch.float32, device=dev),
                      _tickets(dev, plan.tiles)]
-        _launch(_library().fused_ffn_ln, "fused_ffn_ln", xf.data_ptr(),
-                *(t.data_ptr() for t in ops), float(eps), y.data_ptr(), r, h, i, plan.rows,
-                plan.splits, plan.ctas, plan.ring, plan.stages,
-                *(None if t is None else t.data_ptr() for t in split))
+        _cuda.launch(_library().fused_ffn_ln, "fused_ffn_ln", xf.data_ptr(),
+                     *(t.data_ptr() for t in ops), float(eps), y.data_ptr(), r, h, i, plan.rows,
+                     plan.splits, plan.ctas, plan.ring, plan.stages,
+                     *(None if t is None else t.data_ptr() for t in split))
     return y
 
 

@@ -6,8 +6,9 @@ mask, and top-k selection, with the semantics of ``masked_topk_xla``
 plus the Pallas kernel's tie rule (equal scores go to the lower row id).
 
 - :func:`masked_topk` is the entry point.  On a CUDA tensor it launches
-  the hand-written kernel ``csrc/masked_topk.cu`` (or raises); on a CPU
-  tensor it runs :func:`masked_topk_plain`.
+  the hand-written kernel ``csrc/masked_topk.cu`` (or raises), on the
+  plan :func:`topk_plan` makes; on a CPU tensor it runs
+  :func:`masked_topk_plain`.
 - :func:`masked_topk_plain` is the same function in plain PyTorch: f32
   sums of the products, the mask, and a stable descending sort, so ties
   keep ascending row order.
@@ -29,7 +30,9 @@ wildcard.  Padding rows use code ``-2`` and are also masked by
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -38,9 +41,22 @@ from financial_rag_system_tpu_torch.ops import _cuda
 NEG_INF = float("-inf")
 MAX_K = 32
 MAX_DIM = 1024
-ROWS_PER_SPLIT = 1024  # pass-1 rows per block: N = 131,072 -> 128 blocks
 # D must be a multiple of one tensor-core step: m16n8k16 (bf16), m16n8k32 (int8)
 DIM_STEP = {torch.bfloat16: 16, torch.int8: 32}
+
+# the kernels' block layout (csrc/topk_common.cuh)
+QUERY_BLOCK = 32     # queries a block
+TILE_ROWS = 64       # rows a tile (kernel 3: a piece of a probed tile)
+BOX_BYTES = 128      # bytes of a row in one TMA box (128-byte swizzle)
+SLOTS, SLOT_BYTES = 4, 1152   # tile slots: codes, gids, position
+SCORE_STRIDE = TILE_ROWS + 4  # floats a query's row of a tile's scores
+MAX_STAGES = 16
+MAX_BLOCKS = 384     # pass 2: 4 warps a query, 3 lists a lane
+SMEM_LIMIT = 232_448          # dynamic shared memory a block may take
+SM_SMEM = 233_472             # shared memory of an SM, 1 KB of it a block's
+# the plan's defaults: ring stages (boxes of 64 rows x 128 bytes) and blocks an SM
+TOPK_STAGES = 8
+TOPK_PER_SM = 2
 
 
 def _check_dtype(corpus: torch.Tensor) -> None:
@@ -92,14 +108,58 @@ def masked_topk_plain(
     return top_s, top_i
 
 
-def _kernel_fn(dtype: torch.dtype):
+class TopkPlan(NamedTuple):
+    blocks: int      # persistent blocks a query block (pass 2's lists a query)
+    qblocks: int     # query blocks of 32
+    stages: int      # ring stages, a box of 64 rows x 128 bytes each
+    smem: int        # bytes of dynamic shared memory a block takes
+    tiles: int       # 64-row tiles dealt out (kernel 3: pieces of every entry, at most)
+    candidates: int  # entries of the blocks' lists pass 2 may read a query
+    scratch: int     # int32 words of scratch: the blocks' lists' scores and ids
+
+
+def topk_smem(row_bytes: int, stages: int) -> int:
+    """Bytes of dynamic shared memory a block of kernel 1 or 3 takes
+    (``smem_bytes`` in ``csrc/topk_common.cuh``): alignment, the query
+    block's boxes, the ring, the tile slots, two tiles' scores and the
+    mbarriers."""
+    boxes = -(-row_bytes // BOX_BYTES)
+    return (1024 + boxes * QUERY_BLOCK * BOX_BYTES + stages * TILE_ROWS * BOX_BYTES
+            + SLOTS * SLOT_BYTES + 4 * 2 * QUERY_BLOCK * SCORE_STRIDE
+            + 8 * (2 * stages + 2 * SLOTS + 1))
+
+
+def plan_for(b: int, tiles: int, row_bytes: int, k: int, sms: int,
+             per_sm: int = TOPK_PER_SM, stages: int = TOPK_STAGES) -> TopkPlan:
+    """The launch of kernel 1 or 3 for ``b`` queries over ``tiles`` 64-row
+    tiles of ``row_bytes`` bytes a row, on a card of ``sms`` multiprocessors:
+    ``per_sm`` blocks an SM shared by the query blocks, never more blocks
+    than tiles or than pass 2 merges, each with as many ring stages as its
+    share of the SM's shared memory holds, up to ``stages`` (two blocks an
+    SM keep three at D 1024 in bf16, eight at D 384)."""
+    qblocks = -(-b // QUERY_BLOCK)
+    budget = min(SM_SMEM // per_sm - 1024, SMEM_LIMIT)
+    room = (budget - topk_smem(row_bytes, 0)) // (TILE_ROWS * BOX_BYTES)
+    n_stages = min(stages, MAX_STAGES, room)
+    blocks = max(1, min(tiles, sms * per_sm // qblocks, MAX_BLOCKS))
+    return TopkPlan(blocks, qblocks, n_stages, topk_smem(row_bytes, n_stages), tiles,
+                    blocks * k, 2 * b * k * blocks)
+
+
+@functools.lru_cache(maxsize=256)
+def topk_plan(b: int, n: int, d: int, elt: int, k: int, sms: int) -> TopkPlan:
+    """Kernel 1's plan for ``b`` queries over ``n`` rows of ``d`` values of
+    ``elt`` bytes: the 64-row tiles dealt out in contiguous shares."""
+    return plan_for(b, -(-n // TILE_ROWS), d * elt, k, sms)
+
+
+@functools.cache
+def _library():
     lib = _cuda.library("masked_topk")
-    fn = lib.masked_topk_s8 if dtype == torch.int8 else lib.masked_topk
-    fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5
-    )
-    fn.restype = ctypes.c_int
-    return fn
+    for fn in (lib.masked_topk, lib.masked_topk_s8):
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def masked_topk_cuda(
@@ -110,7 +170,7 @@ def masked_topk_cuda(
     n_valid: int,
     k: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/masked_topk.cu`` (two passes) on the current stream."""
+    """Launch ``csrc/masked_topk.cu`` (two launches) on the current stream."""
     _check_dtype(corpus)
     b, d = queries.shape
     n = corpus.shape[0]
@@ -125,31 +185,27 @@ def masked_topk_cuda(
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k must be in [1, {MAX_K}], got {k}")
     for t in (queries, corpus, codes, query_filter):
-        if t.device != dev or not t.is_contiguous():
+        if t.get_device() != dev.index or not t.is_contiguous():
             raise ValueError("inputs must be contiguous and on one CUDA device")
-    if corpus.data_ptr() % 16 or queries.data_ptr() % 16:
-        raise ValueError("queries and corpus must be 16-byte aligned")
-    splits = -(-n // ROWS_PER_SPLIT)
-    part_s = torch.empty((b, splits, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((b, splits, k), dtype=torch.int32, device=dev)
-    out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _cuda.check(
-        _kernel_fn(corpus.dtype)(
-            queries.data_ptr(), corpus.data_ptr(), codes.data_ptr(),
-            query_filter.data_ptr(), b, n, d, max(0, min(int(n_valid), n)), k,
-            ROWS_PER_SPLIT, part_s.data_ptr(), part_i.data_ptr(),
-            out_s.data_ptr(), out_i.data_ptr(), stream,
-        ),
-        "masked_topk",
-    )
+    if corpus.data_ptr() % 16 or queries.data_ptr() % 16 or codes.data_ptr() % 16:
+        raise ValueError("queries, corpus and codes must be 16-byte aligned")
+    plan = topk_plan(b, n, d, corpus.element_size(), k, _cuda.sm_count(dev))
+    lib = _library()
+    out = torch.empty((2, b, k), dtype=torch.float32, device=dev)  # scores, then ids
+    with _cuda.on_device(dev):
+        scratch = _cuda.stream_scratch(dev, plan.scratch)
+        _cuda.launch(
+            lib.masked_topk_s8 if corpus.dtype == torch.int8 else lib.masked_topk,
+            "masked_topk", queries.data_ptr(), corpus.data_ptr(), codes.data_ptr(),
+            query_filter.data_ptr(), b, n, d, max(0, min(int(n_valid), n)), k, plan.blocks,
+            plan.stages, scratch.data_ptr(), out.data_ptr(),
+        )
     with _launch_lock:  # batches run in worker threads
         if corpus.dtype == torch.int8:
             masked_topk.launches_int8 += 1
         else:
             masked_topk.launches += 1
-    return out_s, out_i
+    return out[0], out[1].view(torch.int32)
 
 
 def masked_topk(

@@ -244,6 +244,222 @@ def test_int8_kernels_reject_inputs(cuda):
                   torch.tensor(quant(emb), device=cuda), *rest, 5, tile=64)
 
 
+# -- kernels 1 and 3 on exact, tie-heavy inputs: both branches bit for bit --
+
+RETRIEVAL_TYPES = [torch.bfloat16, torch.int8]
+
+
+def exact_rows(rng, n, d, distinct):
+    """n rows drawn from `distinct` integer vectors with entries in -3..3:
+    their dot products are exact in bf16 (as v / 16) with f32 sums and in
+    int8 with s32 sums, in any order, so both branches meet their plain
+    versions bit for bit, and repeated rows tie for real around the k-th."""
+    return rng.integers(-3, 4, (distinct, d))[rng.integers(0, distinct, n)]
+
+
+def exact_tensor(a, dtype, dev):
+    if dtype == torch.int8:
+        return torch.tensor(a.astype(np.int8), device=dev)
+    return torch.tensor(a.astype(np.float32) / 16, device=dev).bfloat16()
+
+
+def exact_topk_args(dtype, dev, b, n, d, n_valid, k, seed=0):
+    rng = np.random.default_rng(seed)
+    q, c = exact_rows(rng, b, d, 3), exact_rows(rng, n, d, 6)
+    codes = np.stack([rng.integers(0, 3, n), rng.integers(0, 2, n)]).astype(np.int32)
+    codes[:, n_valid:] = -2
+    qf = np.stack([rng.choice([-1, 0, 1, 2], b), rng.choice([-1, 0, 1], b)],
+                  axis=1).astype(np.int32)
+    qf[0] = (-1, -1)
+    return (exact_tensor(q, dtype, dev), exact_tensor(c, dtype, dev),
+            torch.tensor(codes, device=dev), torch.tensor(qf, device=dev), n_valid, k)
+
+
+def assert_same_bits(got, ref):
+    s, i = (x.cpu().numpy() for x in got)
+    s_ref, i_ref = (x.cpu().numpy() for x in ref)
+    assert s.tobytes() == s_ref.tobytes() and i.tobytes() == i_ref.tobytes()
+    return s, i
+
+
+@pytest.mark.parametrize("dtype", RETRIEVAL_TYPES)
+@pytest.mark.parametrize(
+    "b,n,d,k", [(1, 777, 64, 1), (33, 5000, 128, 16), (65, 777, 384, 17),
+                (33, 5000, 64, 32), (3, 3000, 1024, 15), (65, 40000, 384, 15)],
+)
+def test_topk_kernel_tie_heavy_bit_for_bit(cuda, dtype, b, n, d, k):
+    """Six distinct rows repeated over every block's share (N 777 leaves
+    the codes' second row off 16-byte alignment), queries across several
+    query blocks: scores and ids bit for bit, ties in ascending row order."""
+    args = exact_topk_args(dtype, cuda, b, n, d, n - 3, k)
+    s, i = assert_same_bits(masked_topk(*args), masked_topk_plain(*args))
+    tied = s[0][:-1] == s[0][1:]
+    assert np.isfinite(s[0]).all() and (np.diff(i[0])[tied] > 0).all()
+
+
+@pytest.mark.parametrize("dtype", RETRIEVAL_TYPES)
+@pytest.mark.parametrize("n_valid", [0, 1])
+def test_topk_kernel_few_valid_rows(cuda, dtype, n_valid):
+    args = exact_topk_args(dtype, cuda, 5, 777, 64, n_valid, 15)
+    s, i = assert_same_bits(masked_topk(*args), masked_topk_plain(*args))
+    assert np.isfinite(s).sum(axis=1).max() <= n_valid and (i[~np.isfinite(s)] == -1).all()
+
+
+@pytest.mark.parametrize("dtype", RETRIEVAL_TYPES)
+def test_topk_kernel_every_query_filtered_out(cuda, dtype):
+    q, c, codes, qf, n_valid, k = exact_topk_args(dtype, cuda, 33, 5000, 64, 5000, 15)
+    qf = torch.full_like(qf, 7)  # a ticker and a doc type no row carries
+    s, i = assert_same_bits(masked_topk(q, c, codes, qf, n_valid, k),
+                            masked_topk_plain(q, c, codes, qf, n_valid, k))
+    assert np.isneginf(s).all() and (i == -1).all()
+
+
+def exact_probe_args(dtype, dev, b, d, n_tiles, tile, which, k, seed=0):
+    """A packing of exact rows: 30% padding slots, an all-padding tile, a
+    padding-only 64-row piece before live rows, gids unrelated to packed
+    order; the probe list as probe_tile_list makes it (active ids
+    ascending, then -1): every tile, one, none, or 37 of them."""
+    rng = np.random.default_rng(seed)
+    n = n_tiles * tile
+    emb = exact_rows(rng, n, d, 5)
+    gids = rng.permutation(4 * n)[:n].astype(np.int32)
+    gids[rng.random(n) < 0.3] = -1
+    gids[2 * tile: 3 * tile] = -1
+    gids[4 * tile: 4 * tile + 64] = -1
+    codes = np.stack([rng.integers(0, 3, n), rng.integers(0, 2, n)]).astype(np.int32)
+    q = exact_rows(rng, b, d, 4)
+    qf = np.stack([rng.choice([-1, 0, 1, 2], b), rng.choice([-1, 0, 1], b)],
+                  axis=1).astype(np.int32)
+    qf[0] = (-1, -1)
+    if which == "some":
+        active = sorted(rng.choice(n_tiles, 37, replace=False).tolist())
+    else:
+        active = {"all": list(range(n_tiles)), "one": [n_tiles // 2], "none": []}[which]
+    tile_ids = np.full(n_tiles + 3, -1, np.int32)
+    tile_ids[: len(active)] = active
+    return (exact_tensor(q, dtype, dev), torch.tensor(qf, device=dev),
+            exact_tensor(emb, dtype, dev), torch.tensor(codes, device=dev),
+            torch.tensor(gids[None, :], device=dev), torch.tensor(tile_ids, device=dev), k)
+
+
+@pytest.mark.parametrize("dtype", RETRIEVAL_TYPES)
+@pytest.mark.parametrize("tile", [64, 128, 256])
+@pytest.mark.parametrize("which", ["all", "one", "none", "some"])
+def test_ivf_probe_kernel_tie_heavy_bit_for_bit(cuda, dtype, tile, which):
+    """Kernel 3 on tie-heavy exact rows, over lists of every active count
+    (none, one, 37: no multiple of the grid, all 48 tiles): bit for bit,
+    ties to the lower packed position, across two query blocks."""
+    args = exact_probe_args(dtype, cuda, 33, 128, 48, tile, which, 16)
+    s, _ = assert_same_bits(ivf_probe(*args, tile=tile), ivf_probe_plain(*args, tile=tile))
+    assert np.isneginf(s).all() == (which == "none")
+
+
+@pytest.mark.parametrize("dtype", RETRIEVAL_TYPES)
+@pytest.mark.parametrize("k", [1, 17, 32])
+def test_ivf_probe_kernel_k_and_batch(cuda, dtype, k):
+    for b in (1, 65):
+        args = exact_probe_args(dtype, cuda, b, 64, 40, 128, "some", k, seed=b)
+        assert_same_bits(ivf_probe(*args, tile=128), ivf_probe_plain(*args, tile=128))
+
+
+@pytest.mark.parametrize("dtype", RETRIEVAL_TYPES)
+def test_ivf_probe_kernel_every_query_filtered_out(cuda, dtype):
+    q, qf, *rest = exact_probe_args(dtype, cuda, 33, 64, 24, 128, "all", 15)
+    qf = torch.full_like(qf, 7)
+    s, i = assert_same_bits(ivf_probe(q, qf, *rest, tile=128),
+                            ivf_probe_plain(q, qf, *rest, tile=128))
+    assert np.isneginf(s).all() and (i == -1).all()
+
+
+def random_retrieval_args(dtype, dev):
+    """Kernel 1's and kernel 3's arguments on random unit rows (scores
+    whose f32 sums depend on their order)."""
+    q, c, codes, qf = topk_case(40, 20000, 384, n_valid=19990)
+    pq, pqf, emb, pcodes, gids, tile_ids, _ = probe_case(40, 384, 40, 128)
+    cast = (lambda a: torch.tensor(quant(a), device=dev)) if dtype == torch.int8 else (
+        lambda a: torch.tensor(a, device=dev).bfloat16())
+    flat = (cast(q), cast(c), torch.tensor(codes, device=dev), torch.tensor(qf, device=dev),
+            19990, 15)
+    probe = (cast(pq), torch.tensor(pqf, device=dev), cast(emb), torch.tensor(pcodes, device=dev),
+             torch.tensor(gids, device=dev), torch.tensor(tile_ids, device=dev), 15)
+    return (lambda: masked_topk(*flat)), (lambda: ivf_probe(*probe, tile=128))
+
+
+def result_bytes(out):
+    return b"".join(x.cpu().numpy().tobytes() for x in out)
+
+
+@pytest.mark.parametrize("dtype", RETRIEVAL_TYPES)
+def test_retrieval_kernels_relaunch_bit_identical(cuda, dtype):
+    """The merge's result does not depend on which block finishes last."""
+    for run in random_retrieval_args(dtype, cuda):
+        first = result_bytes(run())
+        assert all(result_bytes(run()) == first for _ in range(5))
+
+
+def test_retrieval_kernels_from_worker_threads(cuda):
+    """Launches from worker threads, each on a side stream of its own (a
+    scratch buffer and tickets a stream), agree with one on the default."""
+    runs = [run for dtype in RETRIEVAL_TYPES for run in random_retrieval_args(dtype, cuda)]
+    want = [result_bytes(run()) for run in runs]
+
+    def work(_):
+        stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream):
+            outs = [[run() for run in runs] for _ in range(4)]
+        stream.synchronize()
+        return [[result_bytes(o) for o in out] for out in outs]
+
+    with ThreadPoolExecutor(4) as pool:
+        for got in pool.map(work, range(8)):
+            assert all(g == want for g in got)
+
+
+@pytest.mark.parametrize("dtype", RETRIEVAL_TYPES)
+def test_retrieval_kernels_batches_in_turn(cuda, dtype):
+    """Batches of 65, 5 and 65 queries in turn on one stream (a smaller
+    batch's lists take the scratch a larger one's ran over) each meet
+    the plain version bit for bit."""
+    for b in (65, 5, 65):
+        args = exact_topk_args(dtype, cuda, b, 5000, 64, 4990, 15, seed=b)
+        assert_same_bits(masked_topk(*args), masked_topk_plain(*args))
+        pargs = exact_probe_args(dtype, cuda, b, 64, 48, 128, "some", 15, seed=b)
+        assert_same_bits(ivf_probe(*pargs, tile=128), ivf_probe_plain(*pargs, tile=128))
+
+
+@pytest.mark.parametrize("dtype", RETRIEVAL_TYPES)
+def test_topk_kernel_after_an_upsert_reallocates(cuda, dtype):
+    """An upsert that grows a FlatIndex moves its corpus; the next search
+    reads the new tensors and finds the new rows."""
+    from financial_rag_system_tpu_torch.index.flat import FlatIndex
+
+    rng = np.random.default_rng(3)
+    index = FlatIndex(64, capacity=1024, tile=1024, dtype=dtype, device=cuda)
+
+    def add(n, start):
+        vecs = rng.standard_normal((n, 64)).astype(np.float32)
+        index.upsert([f"r{start + j}" for j in range(n)], vecs, [""] * n,
+                     [{"ticker": "T", "document_type": "10-K"}] * n)
+        return vecs
+
+    add(1000, 0)
+    qf = torch.full((4, 2), -1, dtype=torch.int32, device=cuda)
+    index.search_device(torch.zeros((4, 64), device=cuda), qf, 5)
+    old = index._arrays[0].data_ptr()
+    new = add(3000, 1000)
+    emb, codes, _ = index._arrays
+    assert emb.data_ptr() != old
+    pick = new[[0, 999, 2000, 2999]]
+    q = torch.tensor(pick / np.linalg.norm(pick, axis=1, keepdims=True), device=cuda)
+    s, i = index.search_device(q, qf, 5)
+    assert (i[:, 0].cpu().numpy() == [1000, 1999, 3000, 3999]).all()
+    ref = masked_topk_plain(index.prep_queries(q), emb, codes, qf, index.n_valid, 5)
+    if dtype == torch.int8:
+        assert_same_bits((s, i), ref)
+    else:
+        np.testing.assert_allclose(s.cpu().numpy(), ref[0].cpu().numpy(), atol=1e-4, rtol=0)
+
+
 def attn_case(p, s, h, seed=0, masked_pair=True):
     rng = np.random.default_rng(seed)
     q, k, v = (rng.standard_normal((p, s, h, 32)).astype(np.float32)
