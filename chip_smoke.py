@@ -7,7 +7,7 @@
                           [--resid-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
 
 Drives ``financial_rag_system_tpu_torch`` end to end on the card, in
-seven phases; any failure raises and the script exits non-zero:
+eight phases; any failure raises and the script exits non-zero:
 
 0. the card: name, power limit and compute capability (Hopper, 9.0);
 1. build: every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a``
@@ -18,7 +18,10 @@ seven phases; any failure raises and the script exits non-zero:
    kernel 2 at the rerank shape on the table's mask (uniform lengths)
    and on a mask with every key valid, each beside its bound (the bytes
    and products of the keys that mask leaves) and its MUFU floor (and
-   after phase 3 on that batch's own rerank mask);
+   after phase 3 on that batch's own rerank mask); kernel 2's streaming
+   kernel at heads of 64 (12) and 128 (6) at the rerank shape; kernels 1
+   and 3 at k 33, 64, 100, 256 and 1024 (rounds of 32) in bf16 and int8,
+   with times, and bit for bit on tie-heavy exact rows;
 3. the main path: ``build_default_engine(device="cuda")`` over
    random-init full-width BGE-small and MiniLM-L6 checkpoints and a
    persisted 131,072-row flat index with a 368-wide token store; three
@@ -40,10 +43,9 @@ seven phases; any failure raises and the script exits non-zero:
    corpus, the fused batch's recall@15 against the exact flat top-15, a
    profile of one fused IVF batch, and an IVF index built on the card and
    loaded on the CPU (65,536 rows) checked against it;
-5. the fused-block path: phase 3 again with ``RAG_TPU_FUSED_BLOCK=1
-   RAG_TPU_FAST_GELU=1`` (a new engine from the same checkpoints and
-   index), where kernels 4-6 launch 18 times a batch (they launch never in
-   phases 3 and 4); one batch checked against the CPU pipeline (plain
+5. the fused-block path: phase 3 again with ``RAG_TPU_FUSED_BLOCK=1``
+   (a new engine from the same checkpoints and index), where kernels 4-6
+   launch 18 times a batch (they launch never in phases 3 and 4); one batch checked against the CPU pipeline (plain
    versions) and against the card's unfused tanh layer; a profile of a
    batch of 32 each way; kernels 4-6 against their plain versions at the
    rerank and embed shapes, with their times beside the plain version's,
@@ -64,7 +66,18 @@ seven phases; any failure raises and the script exits non-zero:
    only), the int8 branch of kernel 1 against its plain version bit for
    bit; then phase 4 over an int8 corpus of 1,048,576 rows (one burst),
    with the int8 branch of kernel 3 against its plain version bit for bit
-   and recall@15 against the exact int8 flat top-15.
+   and recall@15 against the exact int8 flat top-15;
+7. the hash stack, as the port starts with no checkpoints: the hash
+   tables drawn and checked bit for bit, a 131,072-row index of hash bags
+   with its token store, ``build_default_engine(device="cuda")`` with the
+   de-aliased hash rerank (3 single asks, a burst of 32, a cache hit;
+   kernel 1's launches), one batch against the CPU; ``rebuild_index("ivf")``
+   and a burst on the fused IVF hash program (kernel 3's launches, recall@15
+   against the flat hash top-15); a TESTING-mode engine's ask in retrieval
+   order.
+
+The CPU references of phases 3-6 set ``RAG_TPU_FAST_GELU=1``: the card's
+default GELU is the tanh form and the CPU's exact erf, JAX's rule.
 
 Kernels 1 and 3 log, beside each CUDA-event time, their device time by
 kernel (profiler), the wrapper's host time a call and their launch plan
@@ -73,8 +86,9 @@ shape in both branches and over the IVF corpus's flat rows, kernel 3 on
 the real and the diverse batch's lists in both branches.
 
 ``--topk-baseline`` also builds the ``masked_topk.cu`` of an earlier
-checkout (its two-pass C entry), holds kernel 1 bit for bit against it in
-both branches and times both in turns with their device times;
+checkout (its C entry that takes the plan, PR 10 on), holds kernel 1 bit
+for bit against it in both branches and times both in turns with their
+device times;
 ``--ivf-baseline`` does the same for an earlier ``ivf_probe.cu`` and
 kernel 3 on both lists (bit for bit on the real list, and on the diverse
 one in int8); ``--attn-baseline``
@@ -253,50 +267,52 @@ def kernel_lib(name: str, lib):
 
 
 def parent_topk_fn(torch, lib, args):
-    """A launch of kernel 1 from an earlier ``masked_topk.cu``: its two-pass
-    C entry (1,024 rows a split, the (B, splits, K) partials passed in),
-    on the wrapper's arguments; returns (scores, ids)."""
+    """A launch of kernel 1 from an earlier ``masked_topk.cu`` whose C
+    entry takes the plan (PR 10 on: blocks, stages, one scratch), on the
+    wrapper's arguments at k <= 32; returns (scores, ids)."""
     import ctypes
 
     from financial_rag_system_tpu_torch.ops import _cuda
+    from financial_rag_system_tpu_torch.ops.topk import topk_plan
 
     q, c, codes, qf, n_valid, k = args
     (b, d), n = q.shape, c.shape[0]
-    splits = -(-n // 1024)
+    plan = topk_plan(b, n, d, c.element_size(), k, sms(torch))
     fn = lib.masked_topk_s8 if c.dtype == torch.int8 else lib.masked_topk
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5
-    part = torch.empty((2, b, splits, k), dtype=torch.int32, device=c.device)
-    out = torch.empty((2, b, k), dtype=torch.int32, device=c.device)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
+    scratch = torch.empty(plan.scratch, dtype=torch.int32, device=c.device)
+    out = torch.empty((2, b, k), dtype=torch.float32, device=c.device)
 
     def launch():
         _cuda.launch(fn, "parent masked_topk", q.data_ptr(), c.data_ptr(), codes.data_ptr(),
-                     qf.data_ptr(), b, n, d, n_valid, k, 1024, part[0].data_ptr(),
-                     part[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr())
-        return out[0].view(torch.float32), out[1]
+                     qf.data_ptr(), b, n, d, n_valid, k, plan.blocks, plan.stages,
+                     scratch.data_ptr(), out.data_ptr())
+        return out[0], out[1].view(torch.int32)
     return launch
 
 
 def parent_probe_fn(torch, lib, args, tile: int):
-    """A launch of kernel 3 from an earlier ``ivf_probe.cu`` (two passes,
-    min(entries, 512) splits, partials passed in); returns (scores, ids)."""
+    """A launch of kernel 3 from an earlier ``ivf_probe.cu`` whose C entry
+    takes the plan (PR 10 on), at k <= 32; returns (scores, ids)."""
     import ctypes
 
+    from financial_rag_system_tpu_torch.index.ivf import probe_plan
     from financial_rag_system_tpu_torch.ops import _cuda
 
     q, qf, emb, codes, gids, tl, k = args
     (b, d), n_packed, n_probe = q.shape, emb.shape[0], tl.numel()
-    splits = min(n_probe, 512)
+    plan = probe_plan(b, n_probe, tile, d, emb.element_size(), k, sms(torch))
     fn = lib.ivf_probe_s8 if emb.dtype == torch.int8 else lib.ivf_probe
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
-    part = torch.empty((2, b, splits, k), dtype=torch.int32, device=emb.device)
-    out = torch.empty((2, b, k), dtype=torch.int32, device=emb.device)
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3
+    scratch = torch.empty(plan.scratch, dtype=torch.int32, device=emb.device)
+    out = torch.empty((2, b, k), dtype=torch.float32, device=emb.device)
 
     def launch():
         _cuda.launch(fn, "parent ivf_probe", q.data_ptr(), emb.data_ptr(), codes.data_ptr(),
                      gids.data_ptr(), tl.data_ptr(), qf.data_ptr(), b, d, n_packed, tile,
-                     n_probe, k, splits, part[0].data_ptr(), part[1].data_ptr(),
-                     out[0].data_ptr(), out[1].data_ptr())
-        return out[0].view(torch.float32), out[1]
+                     n_probe, k, plan.blocks, plan.stages, scratch.data_ptr(),
+                     out.data_ptr())
+        return out[0], out[1].view(torch.int32)
     return launch
 
 
@@ -377,13 +393,141 @@ def check_topk(torch, np, smi: str, baseline: Path | None = None) -> dict:
     }
 
 
-def attention_inputs(torch, np, p: int, s: int, h: int = 12):
-    """Random (p, s, h, 32) f32 q, k and v on the card, and the kernel
+LARGE_K = (33, 64, 100, 256, 1024)
+PROBE_TILES, PROBE_ACTIVE = 2048, 1024  # phase 2's packing (128-row tiles) and probed tiles
+
+
+def clear_ids_agree(np, s, i, s_ref, i_ref, what: str) -> tuple[float, int]:
+    """Kernel against plain in bf16: the same empty slots, scores within
+    1e-4, and the same ids wherever no neighbour in the list lies within
+    that noise (f32 sums taken in another order), the last entry aside (a
+    row past the list may tie it); returns the score error and the count
+    of finite entries whose ids differ all the same."""
+    fin = np.isfinite(s_ref)
+    if not (np.isfinite(s) == fin).all() or not (i[~fin] == -1).all():
+        raise AssertionError(f"{what}: empty slots differ from the plain version")
+    err = float(np.abs(s[fin] - s_ref[fin]).max())
+    with np.errstate(invalid="ignore"):
+        gap = np.abs(np.diff(s_ref, axis=1))
+    near = np.zeros_like(s_ref)
+    near[:, 1:-1] = np.minimum(gap[:, :-1], gap[:, 1:])
+    near[:, 0] = gap[:, 0]
+    clear = fin & (near >= 1e-4)
+    if err > 1e-4 or not (i[clear] == i_ref[clear]).all():
+        raise AssertionError(f"{what}: scores differ by {err} or ids differ")
+    return err, int((i[fin] != i_ref[fin]).sum())
+
+
+def exact_rows(torch, n: int, distinct: int, seed: int, dtype):
+    """``n`` rows drawn from ``distinct`` integer vectors in -3..3 on the
+    card: as bf16 (v / 16) their dot products are exact with f32 sums in any
+    order, so the kernels meet their plain versions bit for bit, and the
+    repeated rows tie for real."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    base = torch.randint(-3, 4, (distinct, D), generator=g, device="cuda")
+    rows = base[torch.randint(0, distinct, (n,), generator=g, device="cuda")]
+    return rows.to(torch.int8) if dtype == torch.int8 else (rows.float() / 16).bfloat16()
+
+
+def probe_packing(torch, np, rows_fn):
+    """A packing of PROBE_TILES 128-row tiles (rows from ``rows_fn(n)``),
+    30% padding slots, gids unrelated to packed order, codes as phase 2's
+    corpus draws them, and a probe list of PROBE_ACTIVE ascending active
+    tiles, then -1s, as probe_tile_list makes it."""
+    rng = np.random.default_rng(SEED + 7)
+    n = PROBE_TILES * 128
+    gids = rng.permutation(4 * n)[:n].astype(np.int32)
+    gids[rng.random(n) < 0.3] = -1
+    codes = np.stack([rng.integers(0, N_TICKERS, n),
+                      rng.integers(0, len(DOC_TYPES), n)]).astype(np.int32)
+    tile_ids = np.full(2 * PROBE_ACTIVE, -1, np.int32)
+    tile_ids[:PROBE_ACTIVE] = np.sort(rng.choice(PROBE_TILES, PROBE_ACTIVE, replace=False))
+    dev = torch.device("cuda")
+    return (rows_fn(n), torch.tensor(codes, device=dev), torch.tensor(gids[None, :], device=dev),
+            torch.tensor(tile_ids, device=dev))
+
+
+def check_large_k(torch, np, smi: str) -> None:
+    """Kernels 1 and 3 at k above a 32-entry round (LARGE_K), against
+    their plain versions: kernel 1 over phase 2's corpus, kernel 3 over a
+    packing of PROBE_TILES tiles with PROBE_ACTIVE probed; random unit rows
+    in bf16 (scores within 1e-4, ids where clear of that noise) and int8
+    (bit for bit), each with its time, the plain version's and its bound;
+    and tie-heavy exact rows in bf16, bit for bit.  Off the main paths,
+    which take k 15."""
+    from financial_rag_system_tpu_torch.index.flat import quantize_int8
+    from financial_rag_system_tpu_torch.index.ivf import ivf_probe, ivf_probe_plain, probe_plan
+    from financial_rag_system_tpu_torch.ops.topk import masked_topk, masked_topk_plain, topk_plan
+
+    n_valid = N - 100
+    q, c, codes, qf = topk_inputs(torch, np.random.default_rng(SEED), n_valid)
+    normalize = torch.nn.functional.normalize
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    unit = lambda n: normalize(torch.randn(n, D, generator=g, device="cuda"), dim=1)  # noqa: E731
+    emb = unit(PROBE_TILES * 128)
+    _, pcodes, gids, tile_ids = probe_packing(torch, np, lambda n: None)
+    live = int((gids[0].view(-1, 128)[tile_ids[:PROBE_ACTIVE].long()] >= 0).sum())
+    cases = {
+        "bf16": (q, c, q, emb.bfloat16()),
+        "int8": (quantize_int8(q), quantize_int8(c), quantize_int8(q), quantize_int8(emb)),
+    }
+    for k in LARGE_K:
+        for dtype, (q1, c1, q3, e3) in cases.items():
+            elt = c1.element_size()
+            peak = INT8_OP_PER_S if elt == 1 else BF16_FLOP_PER_S
+            flat = (q1, c1, codes, qf, n_valid, k)
+            probe = (q3, qf, e3, pcodes, gids, tile_ids, k)
+            for name, fn, plain, nbytes, ops, plan in (
+                ("kernel 1", lambda: masked_topk(*flat), lambda: masked_topk_plain(*flat),
+                 N * (D * elt + 8) + B * (D * elt + 8) + B * k * 8, 2.0 * B * N * D,
+                 topk_plan(B, N, D, elt, k, sms(torch))),
+                ("kernel 3", lambda: ivf_probe(*probe, tile=128),
+                 lambda: ivf_probe_plain(*probe, tile=128),
+                 PROBE_ACTIVE * 128 * 4 + live * (D * elt + 8) + B * (D * elt + 8) + B * k * 8,
+                 2.0 * B * live * D,
+                 probe_plan(B, tile_ids.numel(), 128, D, elt, k, sms(torch))),
+            ):
+                what = f"[large-k] {name} {dtype} k={k}"
+                s, i = (x.cpu().numpy() for x in fn())
+                torch.cuda.synchronize()
+                s_ref, i_ref = (x.cpu().numpy() for x in plain())
+                if dtype == "int8":
+                    if s.tobytes() != s_ref.tobytes() or i.tobytes() != i_ref.tobytes():
+                        raise AssertionError(f"{what}: not bit for bit with the plain version")
+                    err, n_diff = 0.0, 0
+                else:
+                    err, n_diff = clear_ids_agree(np, s, i, s_ref, i_ref, what)
+                ms = median_ms(fn, reps=10)
+                plain_ms = median_ms(plain, reps=3)
+                b_ms, b_by = bound_ms(nbytes, ops, peak)
+                log(f"{what} {smi}: B={B} D={D}, {plan.rounds} rounds: max_abs_err {err:.3g}, "
+                    f"finite ids differing {n_diff} of {int(np.isfinite(s_ref).sum())}, "
+                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                    f"({b_by})")
+        # tie-heavy exact rows: bit for bit in bf16 too
+        xq = exact_rows(torch, B, 3, SEED + k, torch.bfloat16)
+        xc = exact_rows(torch, N, 6, SEED + k + 1, torch.bfloat16)
+        xe = exact_rows(torch, PROBE_TILES * 128, 6, SEED + k + 2, torch.bfloat16)
+        for name, fn, plain in (
+            ("kernel 1", lambda: masked_topk(xq, xc, codes, qf, n_valid, k),
+             lambda: masked_topk_plain(xq, xc, codes, qf, n_valid, k)),
+            ("kernel 3", lambda: ivf_probe(xq, qf, xe, pcodes, gids, tile_ids, k, tile=128),
+             lambda: ivf_probe_plain(xq, qf, xe, pcodes, gids, tile_ids, k, tile=128)),
+        ):
+            got = [x.cpu().numpy().tobytes() for x in fn()]
+            if got != [x.cpu().numpy().tobytes() for x in plain()]:
+                raise AssertionError(f"[large-k] {name} bf16 exact rows k={k}: not bit for bit")
+    log(f"[large-k] {smi}: kernels 1 and 3 at k {list(LARGE_K)} agree with their plain "
+        f"versions (bf16 tie-heavy rows bit for bit, int8 bit for bit)")
+
+
+def attention_inputs(torch, np, p: int, s: int, h: int = 12, d: int = 32):
+    """Random (p, s, h, d) f32 q, k and v on the card, and the kernel
     table's mask: lengths uniform in 1..s, pair 0 whole, the last pair
     fully padded."""
     rng = np.random.default_rng(SEED + s)
     dev = torch.device("cuda")
-    q, k, v = (torch.tensor(rng.standard_normal((p, s, h, 32)), dtype=torch.float32,
+    q, k, v = (torch.tensor(rng.standard_normal((p, s, h, d)), dtype=torch.float32,
                             device=dev) for _ in range(3))
     lens = rng.integers(1, s + 1, p)
     lens[0] = s
@@ -399,15 +543,15 @@ def attended_keys(np, mask_np):
     return np.where(n_valid > 0, n_valid, mask_np.shape[1])
 
 
-def attention_bound(np, mask_np, h: int) -> tuple[float, str]:
+def attention_bound(np, mask_np, h: int, d: int = 32) -> tuple[float, str]:
     """Kernel 2's bound on one mask, from what the function needs: q in
     and the context out for every query row, K and V of the attended keys
     only (a masked key adds exactly 0 to a row with a valid key), the
     mask; QK^T and P.V once over the same keys."""
     p, s = mask_np.shape
     keys = float(attended_keys(np, mask_np).sum())
-    nbytes = 2 * p * s * h * 32 * 2 + 2 * keys * h * 32 * 2 + p * s * 4
-    return bound_ms(nbytes, 4.0 * h * s * 32 * keys)
+    nbytes = 2 * p * s * h * d * 2 + 2 * keys * h * d * 2 + p * s * 4
+    return bound_ms(nbytes, 4.0 * h * s * d * keys)
 
 
 def mufu_floor_ms(torch, np, mask_np, h: int) -> float:
@@ -435,9 +579,9 @@ def time_attention_mask(torch, np, smi: str, label: str, q, k, v, mask_np,
     (old, new, new, old)."""
     from financial_rag_system_tpu_torch.ops import attention as attn
 
-    p, s, h, _ = q.shape
+    p, s, h, d = q.shape
     mask = torch.tensor(mask_np, device=q.device)
-    inv = 1.0 / 32 ** 0.5
+    inv = 1.0 / d ** 0.5
     got = attn.encoder_self_attention(q, k, v, mask, inv)
     torch.cuda.synchronize()
     ref = attn.encoder_self_attention_plain(q, k, v, mask, inv)
@@ -454,10 +598,10 @@ def time_attention_mask(torch, np, smi: str, label: str, q, k, v, mask_np,
     ms = median_ms(kernel, reps=20)
     valid = mask_np > 0
     kend = np.where(valid.any(axis=1), s - np.argmax(valid[:, ::-1], axis=1), 0)
-    b_ms, b_by = attention_bound(np, mask_np, h)
-    line = (f"[attention] {smi}: {label} mask, P={p} S={s} H={h}: max_abs_err {err:.3g}, "
-            f"kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-            f"MUFU floor {mufu_floor_ms(torch, np, mask_np, h):.4f} ms; "
+    b_ms, b_by = attention_bound(np, mask_np, h, d)
+    mufu = mufu_floor_ms(torch, np, mask_np, h)
+    line = (f"[attention] {smi}: {label} mask, P={p} S={s} H={h} d={d}: max_abs_err {err:.3g}, "
+            f"kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), MUFU floor {mufu:.4f} ms; "
             f"kend min {kend.min()} mean {kend.mean():.1f} max {kend.max()}")
     if baseline is not None:
         new = kernel()
@@ -475,22 +619,23 @@ def time_attention_mask(torch, np, smi: str, label: str, q, k, v, mask_np,
                  f"{[round(t, 4) for t in turns]} ms")
     log(line)
     return {"max_abs_err": err, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+            "mufu_ms": mufu,
             "qs": qs, "kb": kb, "vb": vb, "mask": mask}
 
 
 def check_attention_at(torch, np, smi: str, p: int, s: int, h: int = 12,
-                       all_valid: bool = False, baseline=None) -> dict:
+                       all_valid: bool = False, baseline=None, d: int = 32) -> dict:
     """Kernel 2 at one shape on the table's mask (uniform lengths), and,
     with ``all_valid``, on a mask with every key valid (nothing to skip);
     the plain version's time, SDPA's and the bound on the table's mask."""
     from financial_rag_system_tpu_torch.ops import attention as attn
 
-    q, k, v, mask_np = attention_inputs(torch, np, p, s, h)
+    q, k, v, mask_np = attention_inputs(torch, np, p, s, h, d)
     if all_valid:
         time_attention_mask(torch, np, smi, "all-valid", q, k, v, np.ones_like(mask_np),
                             baseline)
     res = time_attention_mask(torch, np, smi, "uniform-length", q, k, v, mask_np, baseline)
-    inv = 1.0 / 32 ** 0.5
+    inv = 1.0 / d ** 0.5
     mask = res["mask"]
     plain_ms = median_ms(
         lambda: attn.encoder_self_attention_plain(q, k, v, mask, inv), reps=5
@@ -500,9 +645,10 @@ def check_attention_at(torch, np, smi: str, p: int, s: int, h: int = 12,
     bias = torch.where(mask[:, None, None, :] > 0, 0.0, -1e9).to(torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = median_ms(lambda: sdpa(qh, kh, vh, attn_mask=bias, scale=1.0), reps=20)
-    log(f"[attention] {smi}: P={p} S={s} H={h} d=32: max_abs_err {res['max_abs_err']:.3g}, "
+    log(f"[attention] {smi}: P={p} S={s} H={h} d={d}: max_abs_err {res['max_abs_err']:.3g}, "
         f"kernel {res['ms']:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-        f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+        f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}), MUFU floor "
+        f"{res['mufu_ms']:.4f} ms")
     return {key: res[key] for key in ("max_abs_err", "ms", "bound_ms", "bound_by")} | {
         "plain_ms": plain_ms, "library_ms": library_ms}
 
@@ -512,6 +658,11 @@ def check_attention(torch, np, smi: str, baseline=None) -> dict:
     # the query embed's shape: the main paths take the einsum path there
     # (S < 256), RAG_TPU_PAIR_ATTN=1 sends it to the kernel
     check_attention_at(torch, np, smi, B, 32)
+    # wider heads, the streaming kernel: a 768-wide BERT-base cross-encoder
+    # (12 heads of 64) and 6 heads of 128 at the rerank shape; off the main
+    # paths, whose models have heads of 32
+    for h, d in ((12, 64), (6, 128)):
+        check_attention_at(torch, np, smi, PAIRS, 400, h=h, d=d)
     return {
         "name": "pair_attention", "route": "cuda",
         "source": f"{PACKAGE}/csrc/pair_attention.cu",
@@ -571,9 +722,12 @@ def write_checkpoints(torch, work: Path) -> None:
         save_bert_checkpoint(model, cfg, str(work / name), cross_encoder=cross)
 
 
-def write_index(torch, np, work: Path) -> None:
-    """131,072 unit rows, ~50 tickers x 3 doc types, a 368-wide token
-    store of random wordpiece ids, short texts as payloads."""
+def write_index(torch, np, work: Path, name: str = "index", n_tickers: int = N_TICKERS,
+                embed=None) -> None:
+    """131,072 unit rows, ~``n_tickers`` tickers x 3 doc types, a 368-wide
+    token store of random wordpiece ids, short texts as payloads, saved
+    to ``work / name``.  The rows are random, or ``embed(dtok)`` of the
+    (N, DLEN) token store."""
     from financial_rag_system_tpu_torch.index.flat import FlatIndex
     from financial_rag_system_tpu_torch.models.tokenizer import SEP_ID
 
@@ -584,7 +738,9 @@ def write_index(torch, np, work: Path) -> None:
     dtok = rng.integers(1000, 30522, (N, DLEN)).astype(np.int32)
     dtok[np.arange(N), lens - 1] = SEP_ID
     dtok *= np.arange(DLEN)[None, :] < lens[:, None]
-    tick = rng.integers(0, N_TICKERS, N)
+    if embed is not None:
+        emb = embed(dtok)
+    tick = rng.integers(0, n_tickers, N)
     dtyp = rng.integers(0, len(DOC_TYPES), N)
     index = FlatIndex(D, capacity=N, token_store_len=DLEN, device="cpu")
     codes = np.empty((2, N), np.int32)
@@ -596,7 +752,7 @@ def write_index(torch, np, work: Path) -> None:
         codes[:, r] = index.store.codes_for(payload)
     index._arrays = (torch.from_numpy(emb).bfloat16(), torch.from_numpy(codes),
                      torch.from_numpy(dtok))
-    index.save(str(work / "index"))
+    index.save(str(work / name))
 
 
 def kernel_counters() -> dict:
@@ -632,8 +788,12 @@ def want_launches(**counts: int) -> dict:
 
 
 FUSED_BLOCK_KERNELS = ("fused_ffn_ln", "fused_qkv", "fused_resid_ln")
-# phase 5's opt-in: the fused-block kernels engage only with tanh GELU
-FUSED_BLOCK_ENV = {"RAG_TPU_FUSED_BLOCK": "1", "RAG_TPU_FAST_GELU": "1"}
+# phase 5's opt-in: alone, as the JAX gate takes it (the card's GELU is
+# tanh by default, the kernels' own)
+FUSED_BLOCK_ENV = {"RAG_TPU_FUSED_BLOCK": "1"}
+# the CPU references of phases 3-6: the card's default GELU is tanh and the
+# CPU's exact erf (JAX's accelerator rule), so the CPU side is asked for tanh
+CPU_TANH = {"RAG_TPU_FAST_GELU": "1"}
 
 
 def drive_main_path(torch, np, work: Path, smi: str, label: str = "main",
@@ -845,7 +1005,8 @@ def check_against_cpu(torch, np, main: dict, cpu_models) -> None:
     queries = main["burst"][:2]
     got = flat_batch(torch, engine, queries, "cuda", engine.index,
                      (engine.embedder, engine.reranker))
-    ref = flat_batch(torch, engine, queries, "cpu", cpu_index, cpu_models)
+    with env_set(**CPU_TANH):
+        ref = flat_batch(torch, engine, queries, "cpu", cpu_index, cpu_models)
     compare_batches(np, "[main] card vs CPU", got, ref)
 
 
@@ -1227,8 +1388,10 @@ def check_ivf_against_cpu(torch, np, flat_run: dict, work: Path, cpu_models) -> 
                              ("cpu", cpu, cpu_models)):
         fn = make_fused_ivf_query(r.cfg, k=K, tile=idx.tile, nprobe=idx.nprobe,
                                   tiles_per_cluster=idx.tiles_per_cluster)
-        out = fn(e.model, r.model, *fused_inputs(torch, engine, queries, dev, store=idx.store),
-                 *idx._state[:4], idx.flat._arrays[2])
+        with env_set(**CPU_TANH):
+            out = fn(e.model, r.model,
+                     *fused_inputs(torch, engine, queries, dev, store=idx.store),
+                     *idx._state[:4], idx.flat._arrays[2])
         outs.append([x.cpu().numpy()[: len(queries)] for x in out[:3]])
     (rows_g, bi_g, ce_g), (rows_c, bi_c, ce_c) = outs
     if not (rows_g == rows_c).all():
@@ -1289,7 +1452,8 @@ def check_fused_block_batch(torch, np, run: dict, cpu_models, smi: str) -> None:
     bert._fused_block_enabled = lambda model: True
     try:
         cpu_index = FlatIndex.load(get_config().index_dir, device="cpu")
-        ref = flat_batch(torch, engine, queries, "cpu", cpu_index, cpu_models)
+        with env_set(**CPU_TANH):
+            ref = flat_batch(torch, engine, queries, "cpu", cpu_index, cpu_models)
     finally:
         bert._fused_block_enabled = gate
     compare_batches(np, "[fused-block] card vs CPU (plain versions)", got, ref)
@@ -1813,7 +1977,8 @@ def check_int8_against_cpu(torch, np, run: dict, int8: dict, work: Path, cpu_mod
     cpu_index = FlatIndex.load(str(work / int8["dir"]), device="cpu")
     card = (engine.embedder, engine.reranker)
     got = flat_batch(torch, engine, queries, "cuda", engine.index, card)
-    ref = flat_batch(torch, engine, queries, "cpu", cpu_index, cpu_models)
+    with env_set(**CPU_TANH):
+        ref = flat_batch(torch, engine, queries, "cpu", cpu_index, cpu_models)
     (rows_g, bi_g, ce_g), (rows_c, bi_c, ce_c) = got, ref
     if not (cpu_index.quantized and (rows_g == int8["planted"]).all() and (rows_c == rows_g).all()):
         raise AssertionError(f"int8 card vs CPU: rows\n{rows_g}\n{rows_c}\n{int8['planted']}")
@@ -1825,7 +1990,9 @@ def check_int8_against_cpu(torch, np, run: dict, int8: dict, work: Path, cpu_mod
         return fq._prep_queries(qv, torch.int8).cpu().numpy()[: len(queries)]
 
     rows = cpu_index._emb.numpy().astype(np.int64)[rows_g]  # (2, K, D)
-    q_g, q_c = quantized_queries("cuda", card), quantized_queries("cpu", cpu_models)
+    q_g = quantized_queries("cuda", card)
+    with env_set(**CPU_TANH):
+        q_c = quantized_queries("cpu", cpu_models)
     for side, q, bi in (("card", q_g, bi_g), ("CPU", q_c, bi_c)):
         if not (np.einsum("bkd,bd->bk", rows, q.astype(np.int64)) == bi).all():
             raise AssertionError(f"int8 {side} bi scores are not its queries' dot products")
@@ -1860,6 +2027,249 @@ def int8_overlap(torch, np, run: dict, int8: dict, smi: str) -> None:
     log(f"[int8] {smi}: top-{K} of {B} questions, int8 index against bf16 rows of the same "
         f"vectors: overlap mean {np.mean(overlap) / K:.4f}, lowest {min(overlap)} of {K}, "
         f"queries with all {K} shared {overlap.count(K)} of {B}")
+
+
+# -- phase 7: the hermetic hash stack -----------------------------------------------
+
+# 16,384 rows a ticker over the 131,072: above IVFIndex.SELECTIVE_LIMIT,
+# so that no filter of the IVF burst is scored exactly (staged)
+HASH_TICKERS = 8
+
+
+@contextlib.contextmanager
+def env_unset(*names: str):
+    """Unset environment variables for the block, then restore them."""
+    saved = {k: os.environ.pop(k) for k in names if k in os.environ}
+    try:
+        yield
+    finally:
+        os.environ.update(saved)
+
+
+def hash_rows(torch, table):
+    """``embed`` for write_index: each chunk's row is the hash bag of its
+    [CLS] + token-store ids, as ``HashEmbedder.encode`` makes it for the
+    text with those ids, computed on the card."""
+    from financial_rag_system_tpu_torch.models.embedder import _hash_embed
+    from financial_rag_system_tpu_torch.models.tokenizer import CLS_ID
+
+    def embed(dtok):
+        out = []
+        with torch.inference_mode():
+            for r0 in range(0, len(dtok), 16_384):
+                ids = torch.as_tensor(dtok[r0:r0 + 16_384], device=table.device)
+                ids = torch.cat([torch.full_like(ids[:, :1], CLS_ID), ids], dim=1)
+                out.append(_hash_embed(table, ids, ids != 0).cpu())
+        return torch.cat(out).numpy()
+    return embed
+
+
+def hash_batch(torch, engine, queries, dev, arrays, tables):
+    """``fused_hash_rerank_query`` on ``dev`` over a flat index's
+    ``arrays`` with the (embedder, reranker) ``tables``: rows, bi and ce
+    of the first ``len(queries)`` queries as numpy arrays."""
+    from financial_rag_system_tpu_torch.ops.fused_query import fused_hash_rerank_query
+
+    ids, _, mask, qf = fused_inputs(torch, engine, queries, dev)
+    emb, codes, dtok = arrays
+    _, bi, rows, ce = fused_hash_rerank_query(*tables, ids, mask, qf, emb, codes, dtok, N,
+                                              k=K)
+    return [x.cpu().numpy()[: len(queries)] for x in (rows, bi, ce)]
+
+
+def drive_hash_path(torch, np, work: Path, smi: str) -> list[dict]:
+    """Phase 7: the port as it starts with no checkpoints.
+    ``build_default_engine(device="cuda")`` with no ``RAG_TPU_BGE_DIR`` /
+    ``RAG_TPU_RERANKER_DIR`` serves the hash stack (seeded tables, the same
+    bits as the numpy draw) over a persisted 131,072-row index of
+    1000-character chunks (rows: their hash bags; the 368-wide token store;
+    HASH_TICKERS tickers), with the de-aliased hash rerank on the card:
+    3 single asks, a burst of 32 (one fused "hash" batch) and a cache hit,
+    kernel 1's launches read around the run, one batch against the same
+    program on the CPU; then ``engine.rebuild_index("ivf")`` and a burst
+    of 32 on "ivf_hash", kernel 3's launches, recall@15 against the flat
+    hash top-15.  The IVF runs over these 131,072 rows, not phase 4's 1M.
+    Last, a TESTING-mode engine (the identity reranker): one ask whose
+    sources keep retrieval order.  The LLM leg is the mock client (no
+    network).  Returns each run's launches."""
+    from financial_rag_system_tpu_torch.models.embedder import HashEmbedder
+    from financial_rag_system_tpu_torch.models.reranker import HashReranker
+    from financial_rag_system_tpu_torch.obs.tracing import get_tracer
+    from financial_rag_system_tpu_torch.ops.fused_query import (
+        fused_hash_query,
+        fused_ivf_hash_query,
+    )
+    from financial_rag_system_tpu_torch.serving.app import build_default_engine
+    from financial_rag_system_tpu_torch.serving.llm import MockLLMClient
+    from financial_rag_system_tpu_torch.utils.config import reset_config
+
+    t0 = time.perf_counter()
+    cpu_tables = (HashEmbedder(device="cpu").table, HashReranker(device="cpu").table)
+    t_tables = time.perf_counter() - t0
+    write_index(torch, np, work, "index_hash", HASH_TICKERS,
+                hash_rows(torch, cpu_tables[0].to("cuda")))
+    t_index = time.perf_counter() - t0 - t_tables
+    tickers = [f"T{i:02d}" for i in range(HASH_TICKERS)]
+    singles = [("what was revenue growth in the last quarter (hash)", tickers[3], None),
+               ("analyze the margin trajectory (hash)", tickers[5], "10-K"),
+               ("supply chain risk (hash)", tickers[1], None)]
+    burst = [(f"hash question {i} about segment results and liquidity",
+              tickers[i % HASH_TICKERS], DOC_TYPES[i % 3] if i % 2 else None) for i in range(B)]
+    runs = []
+    with env_unset("RAG_TPU_BGE_DIR", "RAG_TPU_RERANKER_DIR", "RAG_TPU_INDEX_DTYPE",
+                   "RAG_TPU_FUSED_BLOCK"), \
+            env_set(INDEX_DIR=str(work / "index_hash"), TESTING="false",
+                    DATABASE_URL=str(work / "cache_hash.db"),
+                    RAG_TPU_CB_PATH=str(work / "breaker_hash.json"),
+                    RAG_TPU_BATCH_WINDOW_S="0.25", RAG_TPU_BATCH_EAGER_IDLE_S="0"):
+        reset_config()
+        t1 = time.perf_counter()
+        engine = build_default_engine(device="cuda")
+        t_engine = time.perf_counter() - t1
+        engine.llm = MockLLMClient(engine.cfg)  # no network: the canned answer
+        engine.llm_semaphore = asyncio.Semaphore(B)
+        st = engine.queue_status()
+        if not (isinstance(engine.embedder, HashEmbedder)
+                and isinstance(engine.reranker, HashReranker) and not engine.reranker.identity
+                and st["fused_kind"] == "hash" and st["fused_hash_rerank"]):
+            raise AssertionError(f"the hash stack did not start fused: {st}")
+        if not (torch.equal(engine.embedder.table.cpu(), cpu_tables[0])
+                and torch.equal(engine.reranker.table.cpu(), cpu_tables[1])):
+            raise AssertionError("the card's hash tables differ from the numpy draw")
+        batches = []
+        inner = engine.batcher.batch_fn
+
+        def timed_batch(queries, filters):
+            t = time.perf_counter()
+            out = inner(queries, filters)
+            batches.append((len(queries), round((time.perf_counter() - t) * 1e3, 2)))
+            return out
+
+        engine.batcher.batch_fn = timed_batch
+        ivf_burst = [(f"{q} (ivf)", t, d) for q, t, d in burst]
+        n_flat = []
+
+        async def scenario():
+            # one event loop for the engine's life: its batcher's queue
+            # belongs to the loop that first used it
+            await engine.startup()
+            try:
+                answers = [await engine.ask(q, t, 5, d) for q, t, d in singles]
+                answers += await asyncio.gather(*[engine.ask(q, t, 5, d) for q, t, d in burst])
+                await asyncio.sleep(0.2)  # write-behind cache saves land
+                again = await engine.ask(*singles[0][:2], 5, singles[0][2])
+                runs.append({"launches": read_launches()})
+                n_flat.append(len(batches))
+                t1 = time.perf_counter()
+                built = engine.rebuild_index("ivf")  # the call behind POST /index/rebuild
+                t_ivf = time.perf_counter() - t1
+                reset_launches()
+                ivf_answers = await asyncio.gather(*[engine.ask(q, t, 5, d)
+                                                     for q, t, d in ivf_burst])
+                runs.append({"launches": read_launches()})
+            finally:
+                await engine.shutdown()
+            return answers, again, built, t_ivf, ivf_answers
+
+        get_tracer().reset()
+        reset_launches()
+        answers, again, built, t_ivf, ivf_answers = asyncio.run(scenario())
+        flat_batches, ivf_batches = batches[:n_flat[0]], batches[n_flat[0]:]
+        batches = flat_batches
+        if [n for n, _ in batches] != [1, 1, 1, B]:
+            raise AssertionError(f"hash: batch sizes {batches}")
+        if runs[0]["launches"] != want_launches(masked_topk=4):
+            raise AssertionError(f"hash: launches {runs[0]['launches']}")
+        check_answers(np, answers, 5)
+        if not (again["cached"] and again["provider"] == "Cache"):
+            raise AssertionError("hash: the repeated query was not a cache hit")
+        snap = get_tracer().metrics_snapshot()
+        stage = {m: snap[m] for m in ("fused_tokenize_ms", "fused_device_ms", "fused_assemble_ms")}
+        log(f"[hash] {smi}: tables (numpy, 2 x {tuple(cpu_tables[0].shape)}) {t_tables:.2f} s, "
+            f"index written {t_index:.2f} s, build_default_engine {t_engine:.2f} s; "
+            f"launches {runs[0]['launches']}; batch walls (size, ms) {batches}")
+        log(f"[hash] {smi}: stage split over all batches: {json.dumps(stage)}")
+
+        # one batch against the same program on the CPU
+        from financial_rag_system_tpu_torch.index.flat import FlatIndex
+
+        cpu_index = FlatIndex.load(str(work / "index_hash"), device="cpu")
+        card_tables = (engine.embedder.table, engine.reranker.table)
+        got = hash_batch(torch, engine, burst[:4], "cuda", engine.index.flat._arrays,
+                         card_tables)
+        ref = hash_batch(torch, engine, burst[:4], "cpu", cpu_index._arrays, cpu_tables)
+        fin = np.isfinite(ref[1])
+        bi_err = float(np.abs(got[1][fin] - ref[1][fin]).max())
+        ce_err = float(np.abs(got[2][fin] - ref[2][fin]).max())
+        if not ((got[0] == ref[0]).all() and (np.isfinite(got[1]) == fin).all()
+                and bi_err <= 1e-5 and ce_err <= 1e-5):
+            raise AssertionError(f"hash card vs CPU: rows\n{got[0]}\n{ref[0]}\n"
+                                 f"bi err {bi_err}, ce err {ce_err}")
+        log(f"[hash] card vs CPU on 4 queries: the same {fin.sum()} rows, bi err {bi_err:.3g}, "
+            f"ce err {ce_err:.3g}")
+
+        # the IVF tier over the same rows, promoted inside the run above
+        st = engine.queue_status()
+        if st["fused_kind"] != "ivf_hash" or not st["fused_hash_rerank"] or built["tail_rows"]:
+            raise AssertionError(f"rebuild_index: {built}, {st}")
+        if runs[-1]["launches"] != want_launches(ivf_probe=1) or [n for n, _ in ivf_batches] != [B]:
+            raise AssertionError(f"ivf_hash: launches {runs[-1]['launches']}, "
+                                 f"batches {ivf_batches}")
+        check_answers(np, ivf_answers, 5)
+        idx = engine.index
+        ids, _, mask, qf = fused_inputs(torch, engine, ivf_burst, "cuda")
+        emb, codes, _ = idx.flat._arrays
+        _, exact_s, exact_rows = fused_hash_query(engine.embedder.table, ids, mask, qf, emb,
+                                                  codes, idx.n_valid, k=K)
+        _, _, rows, active = fused_ivf_hash_query(
+            engine.embedder.table, ids, mask, qf, *idx._state[:4], k=K, tile=idx.tile,
+            nprobe=idx.nprobe, tiles_per_cluster=idx.tiles_per_cluster)
+        recall = recall_at_k(np, rows.cpu().numpy()[:B], exact_s[:B], exact_rows[:B])
+        log(f"[hash-ivf] {smi}: rebuild_index('ivf') {t_ivf:.2f} s ({idx.n_clusters} clusters, "
+            f"nprobe {idx.nprobe}, {int(active)} of {idx._state.geom.num_tiles} tiles probed "
+            f"by the burst); launches {runs[-1]['launches']}; batch wall (size, ms) {ivf_batches}; "
+            f"recall@{K} against the flat hash top-{K}: mean {np.mean(recall):.4f}, lowest "
+            f"{min(recall):.4f}")
+        del engine
+
+    # TESTING mode: the identity reranker keeps retrieval order
+    with env_unset("RAG_TPU_BGE_DIR", "RAG_TPU_RERANKER_DIR", "RAG_TPU_INDEX_DTYPE",
+                   "RAG_TPU_FUSED_BLOCK"), \
+            env_set(INDEX_DIR=str(work / "index_hash"), TESTING="true",
+                    DATABASE_URL=str(work / "cache_testing.db"),
+                    RAG_TPU_CB_PATH=str(work / "breaker_testing.json")):
+        reset_config()
+        engine = build_default_engine(device="cuda")
+        st = engine.queue_status()
+        if not (engine.reranker.identity and st["fused_kind"] == "hash"
+                and not st["fused_hash_rerank"]):
+            raise AssertionError(f"TESTING mode: {st}")
+        async def ask_once():
+            await engine.startup()
+            try:
+                return await engine.ask(*singles[0][:2], 5, singles[0][2])
+            finally:
+                await engine.shutdown()
+
+        reset_launches()
+        answer = asyncio.run(ask_once())
+        runs.append({"launches": read_launches()})
+        if runs[-1]["launches"] != want_launches(masked_topk=1):
+            raise AssertionError(f"TESTING: launches {runs[-1]['launches']}")
+        ids, _, mask, qf = fused_inputs(torch, engine, [singles[0]], "cuda")
+        emb, codes, _ = engine.index._arrays
+        _, bi, rows = fused_hash_query(engine.embedder.table, ids, mask, qf, emb, codes,
+                                       engine.index.n_valid, k=K)
+        want = [engine.index.store.get(int(r))["text"] for r in rows[0, :5].tolist()]
+        got = [src["text"] for src in answer["sources"]]
+        scores = [src["score"] for src in answer["sources"]]
+        if got != want or scores != sorted(scores, reverse=True):
+            raise AssertionError(f"TESTING mode: sources {got} are not retrieval order {want}")
+        log(f"[hash-testing] {smi}: identity reranker, one ask: {len(got)} sources in retrieval "
+            f"order (bi scores {[round(x, 4) for x in scores]}); launches {runs[-1]['launches']}")
+        del engine
+    reset_config()
+    return runs
 
 
 def main() -> int:
@@ -1917,6 +2327,7 @@ def main() -> int:
                       if opts.resid_baseline else None)
     kernels = [check_topk(torch, np, smi, opts.topk_baseline),
                check_attention(torch, np, smi, attn_baseline)]
+    check_large_k(torch, np, smi)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         t0 = time.perf_counter()
@@ -1960,10 +2371,13 @@ def main() -> int:
         kernels.append(check_ivf_kernel(torch, np, ivf8_run, smi, opts.ivf_baseline))
         del ivf8_run["engine"]
         log(f"[int8] phase 6 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        hash_runs = drive_hash_path(torch, np, work, smi)
+        log(f"[hash] phase 7 took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    # launches over the five main paths, each counted from 0 around its run
-    runs = (main_run, ivf_run, block_run, int8_run, ivf8_run)
+    # launches over the main paths, each counted from 0 around its run
+    runs = (main_run, ivf_run, block_run, int8_run, ivf8_run, *hash_runs)
     for kern in kernels:
         name = kern["name"]
         kern["launches"] = sum(run["launches"][name] for run in runs)

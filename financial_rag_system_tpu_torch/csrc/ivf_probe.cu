@@ -73,7 +73,8 @@ ivf_probe_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
                  const __grid_constant__ CUtensorMap cmap, const __grid_constant__ CUtensorMap gmap,
                  const int32_t* __restrict__ gids, const int32_t* __restrict__ tile_ids,
                  const int32_t* __restrict__ qf, int B, int row_bytes, int n_packed, int tile,
-                 int n_probe, int k, int stages, float* __restrict__ part_s,
+                 int n_probe, int k, int stages, const float* __restrict__ floor_s,
+                 const int32_t* __restrict__ floor_i, int floor_ld, float* __restrict__ part_s,
                  int32_t* __restrict__ part_i) {
   extern __shared__ unsigned char smem_raw[];
   const int nbox = boxes_for(row_bytes);
@@ -121,7 +122,8 @@ ivf_probe_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
   }
   float ls[kQPW];
   int li[kQPW];
-  consume<T, true>(m, nbox, row_bytes, stages, B, qb0, n_packed, 0, k, qf, warp, lane, ls, li);
+  consume<T, true>(m, nbox, row_bytes, stages, B, qb0, n_packed, 0, k, qf, floor_s, floor_i,
+                   floor_ld, warp, lane, ls, li);
   write_lists(ls, li, B, qb0, k, part_s, part_i, warp, lane);
 }
 
@@ -157,29 +159,41 @@ int launch(const void* q, const void* packed_emb, const void* packed_codes,
     ready[dev & 63].store(true, std::memory_order_release);
   }
   const int qblocks = (B + kQB - 1) / kQB;
+  const int kw = min(k, kRoundK);
   float* part_s = static_cast<float*>(scratch);
-  int32_t* part_i = reinterpret_cast<int32_t*>(part_s + (size_t)B * k * blocks);
+  int32_t* part_i = reinterpret_cast<int32_t*>(part_s + (size_t)B * kw * blocks);
+  // with more than one round, the packed positions of the result so far
+  // (the floors), (B, k), after the lists
+  int32_t* raw = k > kRoundK ? part_i + (size_t)B * kw * blocks : nullptr;
   float* out_s = static_cast<float*>(out);
   int32_t* out_i = reinterpret_cast<int32_t*>(out_s + (size_t)B * k);
-  ivf_probe_kernel<T><<<dim3(blocks, qblocks), kThreads, smem, (cudaStream_t)stream>>>(
-      qmap, rmap, cmap, gmap, (const int32_t*)packed_gids, (const int32_t*)tile_ids,
-      (const int32_t*)qf, B, row_bytes, n_packed, tile, n_probe, k, stages, part_s, part_i);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  merge_kernel<<<B, kMergeWarps * 32, 0, (cudaStream_t)stream>>>(
-      part_s, part_i, blocks, k, (const int32_t*)packed_gids, out_s, out_i);
-  return (int)cudaGetLastError();
+  for (int r0 = 0; r0 < k; r0 += kRoundK) {
+    const int kr = min(kRoundK, k - r0);
+    ivf_probe_kernel<T><<<dim3(blocks, qblocks), kThreads, smem, (cudaStream_t)stream>>>(
+        qmap, rmap, cmap, gmap, (const int32_t*)packed_gids, (const int32_t*)tile_ids,
+        (const int32_t*)qf, B, row_bytes, n_packed, tile, n_probe, kr, stages,
+        r0 > 0 ? out_s + r0 - 1 : nullptr, r0 > 0 ? raw + r0 - 1 : nullptr, k, part_s, part_i);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    merge_kernel<<<B, kMergeWarps * 32, 0, (cudaStream_t)stream>>>(
+        part_s, part_i, blocks, kr, (const int32_t*)packed_gids, out_s + r0, out_i + r0, k,
+        raw != nullptr ? raw + r0 : nullptr);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 }  // namespace
 
 // Each returns a cudaError_t: 1 (cudaErrorInvalidValue) for shapes or a
 // plan the kernel does not take (D a multiple of 16 for bf16, of 32 for
-// int8, at most 1024; a tile a multiple of 64 dividing n_packed; 1-512
+// int8, at most 1024; a tile a multiple of 64 dividing n_packed; 1-384
 // blocks; 1-16 stages within the shared-memory limit; q, the packing's
-// three arrays and scratch 16-byte aligned), else the first launch's status.
-// `blocks` and `stages` come from index/ivf.py probe_plan; scratch and
-// out as masked_topk.cu's entries take them.
+// three arrays and scratch 16-byte aligned; k at most 1024), else the first
+// failing launch's status.  `blocks` and `stages` come from index/ivf.py
+// probe_plan; out as masked_topk.cu's entries take it, and scratch too,
+// plus B * k words for the packed positions of the result when k > 32.
 extern "C" int ivf_probe(const void* q, const void* packed_emb, const void* packed_codes,
                          const void* packed_gids, const void* tile_ids, const void* qf, int B,
                          int D, int n_packed, int tile, int n_probe, int k, int blocks,

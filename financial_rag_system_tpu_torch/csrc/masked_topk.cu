@@ -41,7 +41,8 @@ masked_topk_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap rmap,
                    const __grid_constant__ CUtensorMap cmap, const int32_t* __restrict__ qf,
                    int B, int N, int row_bytes, int n_valid, int k, int stages,
-                   float* __restrict__ part_s, int32_t* __restrict__ part_i) {
+                   const float* __restrict__ floor_s, const int32_t* __restrict__ floor_i,
+                   int floor_ld, float* __restrict__ part_s, int32_t* __restrict__ part_i) {
   extern __shared__ unsigned char smem_raw[];
   const int nbox = boxes_for(row_bytes);
   const Smem m = carve(smem_raw, nbox, stages);
@@ -64,7 +65,8 @@ masked_topk_kernel(const __grid_constant__ CUtensorMap qmap,
   }
   float ls[kQPW];
   int li[kQPW];
-  consume<T, false>(m, nbox, row_bytes, stages, B, qb0, N, n_valid, k, qf, warp, lane, ls, li);
+  consume<T, false>(m, nbox, row_bytes, stages, B, qb0, N, n_valid, k, qf, floor_s, floor_i,
+                    floor_ld, warp, lane, ls, li);
   write_lists(ls, li, B, qb0, k, part_s, part_i, warp, lane);
 }
 
@@ -97,28 +99,36 @@ int launch(const void* q, const void* corpus, const void* codes, const void* qf,
   }
   const int qblocks = (B + kQB - 1) / kQB;
   float* part_s = static_cast<float*>(scratch);
-  int32_t* part_i = reinterpret_cast<int32_t*>(part_s + (size_t)B * k * blocks);
+  int32_t* part_i = reinterpret_cast<int32_t*>(part_s + (size_t)B * min(k, kRoundK) * blocks);
   float* out_s = static_cast<float*>(out);
   int32_t* out_i = reinterpret_cast<int32_t*>(out_s + (size_t)B * k);
-  masked_topk_kernel<T><<<dim3(blocks, qblocks), kThreads, smem, (cudaStream_t)stream>>>(
-      qmap, rmap, cmap, (const int32_t*)qf, B, N, row_bytes, max(0, min(n_valid, N)), k, stages,
-      part_s, part_i);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  merge_kernel<<<B, kMergeWarps * 32, 0, (cudaStream_t)stream>>>(part_s, part_i, blocks, k,
-                                                                 nullptr, out_s, out_i);
-  return (int)cudaGetLastError();
+  // rounds of kRoundK; round r's floor is entry 32 r - 1 of the result
+  for (int r0 = 0; r0 < k; r0 += kRoundK) {
+    const int kr = min(kRoundK, k - r0);
+    masked_topk_kernel<T><<<dim3(blocks, qblocks), kThreads, smem, (cudaStream_t)stream>>>(
+        qmap, rmap, cmap, (const int32_t*)qf, B, N, row_bytes, max(0, min(n_valid, N)), kr,
+        stages, r0 > 0 ? out_s + r0 - 1 : nullptr, r0 > 0 ? out_i + r0 - 1 : nullptr, k, part_s,
+        part_i);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    merge_kernel<<<B, kMergeWarps * 32, 0, (cudaStream_t)stream>>>(
+        part_s, part_i, blocks, kr, nullptr, out_s + r0, out_i + r0, k, nullptr);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 }  // namespace
 
 // Each returns a cudaError_t: 1 (cudaErrorInvalidValue) for shapes or a
 // plan the kernel does not take (D a multiple of 16 for bf16, of 32 for
-// int8, at most 1024; 1-512 blocks; 1-16 stages within the shared-memory
-// limit; q, corpus, codes and scratch 16-byte aligned), else the first
-// launch's status.  `blocks` and `stages` come from ops/topk.py
-// topk_plan; scratch holds the blocks' lists, 2 * B * k * blocks int32
-// words; out receives the (B, k) f32 scores, then the (B, k) int32 row ids.
+// int8, at most 1024; k at most 1024; 1-384 blocks; 1-16 stages within
+// the shared-memory limit; q, corpus, codes and scratch 16-byte aligned),
+// else the first failing launch's status.  `blocks` and `stages` come from
+// ops/topk.py topk_plan; scratch holds a round's lists, 2 * B * min(k, 32)
+// * blocks int32 words; out receives the (B, k) f32 scores, then the
+// (B, k) int32 row ids.
 extern "C" int masked_topk(const void* q, const void* corpus, const void* codes, const void* qf,
                            int B, int N, int D, int n_valid, int k, int blocks, int stages,
                            void* scratch, void* out, void* stream) {

@@ -1,5 +1,8 @@
-// Pair self-attention for short-sequence BERT encoders with 32-wide heads,
-// built for Hopper (sm_90a).
+// Pair self-attention for short-sequence BERT encoders, built for Hopper
+// (sm_90a): a persistent TMA/wgmma kernel for 32-wide heads
+// (pair_attention), and a streaming kernel templated on the head width for
+// every other multiple of 16 up to 128 (pair_attention_wide, at the end of
+// this file).
 //
 // Replaces financial_rag_system_tpu/ops/attention.py:48 _attn_kernel (the
 // Pallas kernel behind encoder_self_attention) and computes what it
@@ -14,6 +17,7 @@
 // Two liberties, both inside the kernel-vs-plain tolerance: f32 sums are
 // taken in another order, and exp runs on ex2.approx (below).
 //
+// The rest of this comment, down to the layout, is the 32-wide kernel.
 // Floors on the H100 at the rerank shape (P 480 pairs x S 400 tokens, H 12
 // heads of d 32), with every key valid:
 //  - bytes: q, k, v in and the context out, 590 MB of bf16, 0.176 ms at
@@ -76,7 +80,7 @@
 // When a warpgroup is done with an item, each of its warps arrives at the
 // stage's empty mbarrier, and the producer refills it.
 //
-// Layout: q, k, v and out are (P, S, H, 32) bf16, contiguous, 16-byte
+// Layout: q, k, v and out are (P, S, H, d) bf16, contiguous, 16-byte
 // aligned; mask is (P, S) int32 key validity.
 
 #include <cuda_bf16.h>
@@ -483,4 +487,254 @@ extern "C" int pair_attention(const void* q, const void* k, const void* v,
   pair_attention_kernel<<<ctas, kThreads, smem_bytes(S, nst), (cudaStream_t)stream>>>(
       qmap, kmap, vmap, (const int32_t*)mask, (__nv_bfloat16*)out, P, S, H, nst);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Heads of 16 to 128 values (a multiple of 16, 32 excepted): the streaming
+// kernel.
+//
+// A whole (pair, head)'s K and V stop fitting in shared memory beside the
+// q tiles at these widths (at d 128 and S 512 they are 256 KB, above the
+// 227 KB a block may take), so this kernel streams them in 64-key chunks
+// and keeps the two sweeps of the 32-wide kernel: the row max first, then
+// the probs exp(s - m_final), rounded to bf16 for P.V, with their
+// unrounded sum.  So the probs are the Pallas kernel's and the plain
+// version's, with no online rescaling.
+//
+// One block of four warps takes one 64-row tile of one (pair, head), each
+// warp 16 rows; the grid is every (pair, head, row tile).  Each warp holds
+// its q rows as mma.sync A fragments, loaded once from device memory.  Per
+// sweep, for each 64-key chunk below the pair's last valid key (kend; all
+// S keys when it has none): the block stages the chunk's K (and in sweep
+// 2 its V) in shared memory with 16-byte loads, rows padded by 16 bytes
+// so that ldmatrix reads them without bank conflicts; QK^T runs on
+// mma.sync m16n8k16 with K's B fragments by ldmatrix, P.V on mma.sync
+// with P straight from the QK^T accumulator and V's by ldmatrix.trans.
+// Keys past kend are skipped exactly as in the 32-wide kernel.
+//
+// Bound, at the rerank shape with 64-wide heads (P 480, S 400, 12 heads):
+// q, k, v in and the context out are 1.18 GB of bf16 (0.35 ms at 3.35
+// TB/s); the products 3 x 2 P H S^2 d = 3.5e11 FLOP (0.36 ms at 989
+// TFLOP/s); the exponentials P H S^2 = 9.2e8 (0.22-0.25 ms of MUFU).  This
+// kernel is simple, not fast: K and V are read once per row tile (from
+// L2), each chunk's loads are waited for before its products, and no
+// product overlaps a load.
+
+namespace {
+
+constexpr int kWideWarps = 4;  // warps a block, 16 query rows each
+constexpr int kWideRows = 16 * kWideWarps;
+constexpr int kWideThreads = 32 * kWideWarps;
+
+template <int D>
+struct Wide {
+  static constexpr int kStride = D * 2 + 16;  // bytes of a staged key row
+  static constexpr int kNt = D / 8;           // 8-wide column tiles of the context
+  static constexpr size_t kSmem = 2 * (size_t)kChunk * kStride + kChunk * sizeof(float);
+  static_assert(kSmem <= 48 * 1024, "static launch limit of dynamic shared memory");
+};
+
+// chunk c's rows of K (and V, when vs is given) into shared memory, zeros
+// past S, and its bias slots: 0 for a valid key, -1e9 for a masked one
+template <int D>
+__device__ __forceinline__ void stage_chunk(unsigned char* ks, unsigned char* vs, float* bias,
+                                            const __nv_bfloat16* __restrict__ k,
+                                            const __nv_bfloat16* __restrict__ v,
+                                            const int32_t* __restrict__ mrow, size_t base,
+                                            size_t tok, int S, int c) {
+  constexpr int kGran = D / 8;  // 16-byte granules a row
+  for (int x = threadIdx.x; x < kChunk * kGran; x += kWideThreads) {
+    const int r = x / kGran, gi = x - r * kGran, key = c * kChunk + r;
+    uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
+    if (key < S) {
+      kv = *reinterpret_cast<const uint4*>(k + base + (size_t)key * tok + gi * 8);
+      if (vs != nullptr) vv = *reinterpret_cast<const uint4*>(v + base + (size_t)key * tok + gi * 8);
+    }
+    *reinterpret_cast<uint4*>(ks + r * Wide<D>::kStride + gi * 16) = kv;
+    if (vs != nullptr) *reinterpret_cast<uint4*>(vs + r * Wide<D>::kStride + gi * 16) = vv;
+  }
+  if (threadIdx.x < kChunk) {
+    const int key = c * kChunk + threadIdx.x;
+    bias[threadIdx.x] = key < S && mrow[key] > 0 ? 0.0f : kNeg;
+  }
+}
+
+// acc[j] (keys 8j .. 8j + 7 of the chunk) = the warp's 16 q rows times the
+// staged chunk's keys: row g, keys 2t, 2t + 1 in acc[j][0..1], row g + 8
+// in acc[j][2..3]
+template <int D>
+__device__ __forceinline__ void wide_qk(float (&acc)[kChunk / 8][4], const uint32_t (&qa)[D / 16][4],
+                                        const unsigned char* ks, int lane) {
+#pragma unroll
+  for (int j = 0; j < kChunk / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  // ldmatrix x2: lanes 0-7 address keys 8j.. at the step's first 8 values,
+  // lanes 8-15 at its second 8 (lanes 16-31 repeat them)
+  const unsigned char* row = ks + (lane & 7) * Wide<D>::kStride + ((lane >> 3) & 1) * 16;
+#pragma unroll
+  for (int j = 0; j < kChunk / 8; ++j) {
+#pragma unroll
+    for (int ks16 = 0; ks16 < D / 16; ++ks16) {
+      uint32_t b0, b1;
+      asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+                   : "=r"(b0), "=r"(b1)
+                   : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(
+                         row + 8 * j * Wide<D>::kStride + ks16 * 32))));
+      mma_bf16(acc[j], qa[ks16], b0, b1);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWideThreads)
+pair_attention_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ mask,
+                           __nv_bfloat16* __restrict__ out, int S, int H) {
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  unsigned char* ks = wide_smem;
+  unsigned char* vs = ks + kChunk * Wide<D>::kStride;
+  float* bias = reinterpret_cast<float*>(vs + kChunk * Wide<D>::kStride);
+  __shared__ int kend_s;
+
+  const int T = (S + kWideRows - 1) / kWideRows;
+  const int tile = blockIdx.x % T, item = blockIdx.x / T;
+  const int pair = item / H, hd = item - pair * H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t tok = (size_t)H * D;
+  const size_t base = (size_t)pair * S * tok + (size_t)hd * D;
+  const int32_t* mrow = mask + (size_t)pair * S;
+
+  // kend: 1 + the pair's last valid key, 0 if it has none
+  if (threadIdx.x == 0) kend_s = 0;
+  __syncthreads();
+  int last = 0;
+  for (int key = threadIdx.x; key < S; key += blockDim.x)
+    if (mrow[key] > 0) last = key + 1;
+  if (last > 0) atomicMax(&kend_s, last);
+  __syncthreads();
+  const int kend = kend_s;
+  const int klim = kend > 0 ? kend : S;
+  const int nck = (klim + kChunk - 1) / kChunk;
+
+  // the warp's 16 rows of q as A fragments (rows past S are zeros)
+  const int ra = tile * kWideRows + 16 * warp + g, rb = ra + 8;
+  uint32_t qa[D / 16][4];
+#pragma unroll
+  for (int s16 = 0; s16 < D / 16; ++s16) {
+    const int col = 16 * s16 + 2 * t;
+    qa[s16][0] = ra < S ? ld32(q + base + (size_t)ra * tok + col) : 0u;
+    qa[s16][1] = rb < S ? ld32(q + base + (size_t)rb * tok + col) : 0u;
+    qa[s16][2] = ra < S ? ld32(q + base + (size_t)ra * tok + col + 8) : 0u;
+    qa[s16][3] = rb < S ? ld32(q + base + (size_t)rb * tok + col + 8) : 0u;
+  }
+
+  float acc[kChunk / 8][4];
+  // sweep 1: the row max over the keys below klim
+  float m[2] = {-INFINITY, -INFINITY};
+  for (int c = 0; c < nck; ++c) {
+    __syncthreads();  // every warp is done with the last chunk
+    stage_chunk<D>(ks, nullptr, bias, k, v, mrow, base, tok, S, c);
+    __syncthreads();
+    wide_qk<D>(acc, qa, ks, lane);
+#pragma unroll
+    for (int j = 0; j < kChunk / 8; ++j) {
+      const int key = c * kChunk + 8 * j + 2 * t;
+      const float b0 = bias[8 * j + 2 * t], b1 = bias[8 * j + 2 * t + 1];
+      if (key < klim) {
+        m[0] = fmaxf(m[0], acc[j][0] + b0);
+        m[1] = fmaxf(m[1], acc[j][2] + b0);
+      }
+      if (key + 1 < klim) {
+        m[0] = fmaxf(m[0], acc[j][1] + b1);
+        m[1] = fmaxf(m[1], acc[j][3] + b1);
+      }
+    }
+  }
+  m[0] = quad_max(m[0]);
+  m[1] = quad_max(m[1]);
+
+  // sweep 2: probs, their unrounded sum, and P.V
+  float o[Wide<D>::kNt][4] = {};
+  float l[2] = {0.f, 0.f};
+  const int mi = lane >> 3;
+  const unsigned char* vrow = vs + ((lane & 7) + 8 * (mi & 1)) * Wide<D>::kStride + (mi >> 1) * 16;
+  for (int c = 0; c < nck; ++c) {
+    __syncthreads();
+    stage_chunk<D>(ks, vs, bias, k, v, mrow, base, tok, S, c);
+    __syncthreads();
+    wide_qk<D>(acc, qa, ks, lane);
+    float p[kChunk / 8][4];
+#pragma unroll
+    for (int j = 0; j < kChunk / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = c * kChunk + 8 * j + 2 * t + (e & 1);
+        p[j][e] = key < klim ? ex2((acc[j][e] + bias[8 * j + 2 * t + (e & 1)] - m[e >> 1]) * kLog2e)
+                             : 0.f;
+      }
+      l[0] += p[j][0] + p[j][1];
+      l[1] += p[j][2] + p[j][3];
+    }
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk) {
+      if (c * kChunk + 16 * kk >= klim) break;
+      const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                              pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                              pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                              pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+      for (int half = 0; half < Wide<D>::kNt / 2; ++half) {  // context columns 16 half ..
+        uint32_t vf[4];
+        ldsm_x4_trans(vf, vrow + 16 * kk * Wide<D>::kStride + half * 32);
+        mma_bf16(o[2 * half], pa, vf[0], vf[1]);
+        mma_bf16(o[2 * half + 1], pa, vf[2], vf[3]);
+      }
+    }
+  }
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+#pragma unroll
+  for (int dn = 0; dn < Wide<D>::kNt; ++dn) {
+    const int col = 8 * dn + 2 * t;
+    if (ra < S)
+      *reinterpret_cast<uint32_t*>(out + base + (size_t)ra * tok + col) =
+          pack_bf16(o[dn][0] / l[0], o[dn][1] / l[0]);
+    if (rb < S)
+      *reinterpret_cast<uint32_t*>(out + base + (size_t)rb * tok + col) =
+          pack_bf16(o[dn][2] / l[1], o[dn][3] / l[1]);
+  }
+}
+
+template <int D>
+int launch_wide(const void* q, const void* k, const void* v, const void* mask, void* out, int P,
+                int S, int H, cudaStream_t stream) {
+  const long long blocks = (long long)P * H * ((S + kWideRows - 1) / kWideRows);
+  if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
+  pair_attention_wide_kernel<D><<<(unsigned)blocks, kWideThreads, Wide<D>::kSmem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+      (const int32_t*)mask, (__nv_bfloat16*)out, S, H);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Heads of 16, 48, 64, 80, 96, 112 or 128 values; the arguments and the
+// return as pair_attention's.
+extern "C" int pair_attention_wide(const void* q, const void* k, const void* v,
+                                   const void* mask, void* out, int P, int S, int H,
+                                   int head_dim, void* stream) {
+  if (S < 1 || S > kMaxS || P < 1 || H < 1 ||
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (head_dim) {
+    case 16: return launch_wide<16>(q, k, v, mask, out, P, S, H, st);
+    case 48: return launch_wide<48>(q, k, v, mask, out, P, S, H, st);
+    case 64: return launch_wide<64>(q, k, v, mask, out, P, S, H, st);
+    case 80: return launch_wide<80>(q, k, v, mask, out, P, S, H, st);
+    case 96: return launch_wide<96>(q, k, v, mask, out, P, S, H, st);
+    case 112: return launch_wide<112>(q, k, v, mask, out, P, S, H, st);
+    case 128: return launch_wide<128>(q, k, v, mask, out, P, S, H, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

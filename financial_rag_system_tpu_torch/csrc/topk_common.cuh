@@ -28,6 +28,15 @@
 //    each list still in the running (a list whose entry j does not enter
 //    leaves, since its later entries rank lower still), and the four
 //    warps' lists merge pairwise through shared memory.
+// A k above 32 (up to kMaxK) runs in rounds of at most 32 (kRoundK): each
+// round is the two launches above, and round r > 0 offers only the rows
+// that rank after round r - 1's last entry, its floor, which the round
+// reads from the result so far.  The lists hold one entry a lane, so a
+// round finds the next 32 of the order, and the rounds laid end to end are
+// the top k.  (Lists of k entries, ceil(k / 32) a lane, would not fit: a
+// consumer warp keeps the lists of four queries, 256 registers a lane at
+// k 1024, and a block's 32 lists of 1024 entries are 256 KB, above the
+// 227 KB of shared memory a block may take.)
 // Every comparison is on (score, id) with `before`, never on the score
 // alone, so the result is the top k by (score desc, id asc) whatever order
 // rows are visited in: relaunches are bit-identical.  The id is the row
@@ -42,6 +51,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -64,7 +74,8 @@ constexpr int kSlots = 4;                        // tile slots
 constexpr int kSlotBytes = 1152;                 // codes [2][68], gids [64], position
 constexpr int kCodeBox = kRows + 4;              // codes a box: row 1 starts 4-aligned
 constexpr int kScStride = kRows + 4;             // floats a query's row of scores
-constexpr int kMaxK = 32;
+constexpr int kRoundK = 32;                      // entries a round finds: one a lane
+constexpr int kMaxK = 1024;
 constexpr int kMaxD = 1024;
 constexpr int kMaxStages = 16;
 constexpr int kMergeWarps = 4;                   // pass 2: warps a query
@@ -439,22 +450,28 @@ __device__ __forceinline__ void offer(float (&ls)[Q], int (&li)[Q], float (&ts)[
 // wildcard) and is live:
 // below n_valid (kernel 1) or with a gid >= 0 (kernel 3, kIvf).  n is the
 // codes' row length (Producer::tile).
+// floor_s / floor_i, when given, are each query's floor at q * floor_ld:
+// only rows ranking after it are candidates (a round past the first).
 template <typename T, bool kIvf>
 __device__ __forceinline__ void consume(const Smem& m, int nbox, int row_bytes, int stages,
                                         int B, int qb0, int n, int n_valid, int k,
-                                        const int32_t* __restrict__ qf, int warp, int lane,
-                                        float (&ls)[kQPW], int (&li)[kQPW]) {
+                                        const int32_t* __restrict__ qf,
+                                        const float* __restrict__ floor_s,
+                                        const int32_t* __restrict__ floor_i, int floor_ld,
+                                        int warp, int lane, float (&ls)[kQPW], int (&li)[kQPW]) {
   using Acc = typename Elem<T>::Acc;
   bool live[kQPW], fresh[kQPW];
   int tq[kQPW], dq[kQPW];
-  float ts[kQPW];
-  int ti[kQPW];
+  float ts[kQPW], fs[kQPW];
+  int ti[kQPW], fi[kQPW];
 #pragma unroll
   for (int qq = 0; qq < kQPW; ++qq) {
     const int q = qb0 + warp * kQPW + qq;
     live[qq] = q < B;
     tq[qq] = live[qq] ? qf[2 * q] : 0;
     dq[qq] = live[qq] ? qf[2 * q + 1] : 0;
+    fs[qq] = live[qq] && floor_s != nullptr ? floor_s[(size_t)q * floor_ld] : INFINITY;
+    fi[qq] = live[qq] && floor_s != nullptr ? floor_i[(size_t)q * floor_ld] : INT_MIN;
     ls[qq] = ts[qq] = -INFINITY;
     li[qq] = ti[qq] = kNoId;
     fresh[qq] = true;
@@ -499,7 +516,7 @@ __device__ __forceinline__ void consume(const Smem& m, int nbox, int row_bytes, 
         cs[qq] = sc[(warp * kQPW + qq) * kScStride + r];
         ci[qq] = id;
         ok[qq] = live[qq] && row_ok && (tq[qq] == -1 || tq[qq] == tc) &&
-                 (dq[qq] == -1 || dq[qq] == dc);
+                 (dq[qq] == -1 || dq[qq] == dc) && before(fs[qq], fi[qq], cs[qq], id);
       }
       offer<kQPW>(ls, li, ts, ti, fresh, cs, ci, ok, enter, lane, k);
     }
@@ -530,12 +547,14 @@ __device__ __forceinline__ void write_lists(const float (&ls)[kQPW], const int (
 // One block a query: warp w merges the lists of blocks g = w + 4 (32 c +
 // lane) in rounds, round j offering entry j of each list still in the
 // running; the four warps' lists then merge pairwise through shared
-// memory, and warp 0 writes the result.  id_map (kernel 3), when not null,
-// maps each winning id to the id written; empty slots are -inf / -1.
+// memory, and warp 0 writes the result, query q's entry j at q * ld + j.
+// id_map (kernel 3), when not null, maps each winning id to the id
+// written; empty slots are -inf / -1.  raw_i, when not null, receives the
+// ids before the map (kNoId for an empty slot): the next round's floor.
 __global__ void __launch_bounds__(kMergeWarps * 32)
 merge_kernel(const float* __restrict__ part_s, const int32_t* __restrict__ part_i, int G, int k,
              const int32_t* __restrict__ id_map, float* __restrict__ out_s,
-             int32_t* __restrict__ out_i) {
+             int32_t* __restrict__ out_i, int ld, int32_t* __restrict__ raw_i) {
   __shared__ float ms[kMergeWarps][32];
   __shared__ int mi[kMergeWarps][32];
   const int q = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -582,9 +601,10 @@ merge_kernel(const float* __restrict__ part_s, const int32_t* __restrict__ part_
     __syncthreads();
   }
   if (warp == 0 && lane < k) {
-    out_s[(size_t)q * k + lane] = ls[0];
-    out_i[(size_t)q * k + lane] =
-        ls[0] > -INFINITY ? (id_map != nullptr ? id_map[li[0]] : li[0]) : -1;
+    const size_t at = (size_t)q * ld + lane;
+    out_s[at] = ls[0];
+    out_i[at] = ls[0] > -INFINITY ? (id_map != nullptr ? id_map[li[0]] : li[0]) : -1;
+    if (raw_i != nullptr) raw_i[at] = li[0];
   }
 }
 

@@ -11,8 +11,7 @@ first, so small outlier clusters a random sample would miss get their
 own centroid.
 
 The HNSW tier itself (the device walk, the entry pool, the native graph
-build and the fused HNSW program) is not ported yet: ROADMAP Queue 1
-item 6.
+build and the fused HNSW program) is not ported yet: ROADMAP Queue 1.
 """
 
 from __future__ import annotations

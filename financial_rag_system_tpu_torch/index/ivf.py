@@ -170,8 +170,13 @@ def probe_plan(b: int, n_probe: int, tile: int, d: int, elt: int, k: int, sms: i
     entries of ``tile`` rows, ``d`` values of ``elt`` bytes a row.  How many
     entries are active is known only on the card, where each block finds
     it and takes an even share of the active tiles' 64-row pieces; the plan
-    sizes the grid for the whole list."""
-    return plan_for(b, n_probe * (tile // TILE_ROWS), d * elt, k, sms)
+    sizes the grid for the whole list.  With more than one round the
+    scratch also holds the result's packed positions, ``b * k`` words,
+    from which each round reads its floor."""
+    plan = plan_for(b, n_probe * (tile // TILE_ROWS), d * elt, k, sms)
+    if plan.rounds > 1:
+        plan = plan._replace(scratch=plan.scratch + b * k)
+    return plan
 
 
 @functools.cache

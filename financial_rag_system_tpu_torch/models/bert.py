@@ -10,8 +10,9 @@ cross-encoder share it.  Numerics follow the JAX default path:
   CPU the f32 product of bf16-rounded operands, exact for each product;
   TF32 is switched off so no f32 product on the card loses precision;
 - activations, layernorm and softmax are f32;
-- GELU is exact erf everywhere (``RAG_TPU_FAST_GELU=1`` selects tanh,
-  the JAX package's env contract);
+- GELU follows the JAX package's rule (:func:`_fast_gelu`): by default
+  the tanh form on the card and exact erf on the CPU;
+  ``RAG_TPU_FAST_GELU=1`` forces tanh and ``0`` forces erf;
 - attention follows the JAX gate (:func:`_pair_attn_enabled`) as it acts
   on the accelerator, on the card and the CPU alike: at S >= 256 (the
   rerank pairs) :func:`ops.attention.encoder_self_attention`, the CUDA
@@ -21,10 +22,10 @@ cross-encoder share it.  Numerics follow the JAX default path:
 
 Three opt-ins, each off by default, as in the JAX package:
 
-- ``RAG_TPU_FUSED_BLOCK=1`` (with ``RAG_TPU_FAST_GELU=1``, on the card):
-  each layer runs the fused-block kernels of :mod:`ops.fused_bert`
-  (QKV, o-proj + LN, FFN + LN) around the attention kernel; see
-  :func:`_fused_block_enabled`;
+- ``RAG_TPU_FUSED_BLOCK=1`` (on the card, unless ``RAG_TPU_FAST_GELU``
+  forces erf, and for widths the kernels take): each layer runs the
+  fused-block kernels of :mod:`ops.fused_bert` (QKV, o-proj + LN, FFN +
+  LN) around the attention kernel; see :func:`_fused_block_enabled`;
 - ``RAG_TPU_BF16_ACT=1``: activations between ops are stored as bf16
   (:func:`_act_dtype`);
 - int8 weight-only PTQ of the six encoder weight stacks
@@ -48,6 +49,8 @@ from torch import nn
 
 from financial_rag_system_tpu_torch.ops.attention import NEG, encoder_self_attention
 from financial_rag_system_tpu_torch.ops.fused_bert import (
+    MAX_HIDDEN,
+    WIDTH_STEP,
     ResidPack,
     fused_ffn_ln,
     fused_qkv,
@@ -122,9 +125,27 @@ def _env_on(name: str) -> bool:
     return os.environ.get(name, "auto").lower() in ("1", "true")
 
 
+def _fast_gelu(device: torch.device) -> bool:
+    """Whether GELU takes its tanh form on ``device``: the JAX package's
+    ``RAG_TPU_FAST_GELU`` rule (``bert.py:259-268``), accelerator against
+    CPU.  ``1`` or ``true`` forces tanh, ``0`` or ``false`` forces exact
+    erf (HF BERT's); unset, ``auto`` or anything else is tanh on the
+    accelerator (the card here) and erf on the CPU.  Unlike the attention
+    gate (:func:`_pair_attn_enabled`), this one keeps JAX's platform test,
+    because JAX's rule itself depends on the platform: the card computes
+    what the JAX package serves on its accelerator, and the CPU what it
+    computes on the CPU."""
+    mode = os.environ.get("RAG_TPU_FAST_GELU", "auto").lower()
+    if mode in ("0", "false"):
+        return False
+    if mode in ("1", "true"):
+        return True
+    return device.type == "cuda"
+
+
 def _gelu(x: torch.Tensor) -> torch.Tensor:
-    """Exact erf GELU (HF BERT's), or tanh with RAG_TPU_FAST_GELU=1."""
-    return F.gelu(x, approximate="tanh" if _env_on("RAG_TPU_FAST_GELU") else "none")
+    """GELU in the form :func:`_fast_gelu` picks for ``x``'s device."""
+    return F.gelu(x, approximate="tanh" if _fast_gelu(x.device) else "none")
 
 
 def _act_dtype() -> torch.dtype:
@@ -182,19 +203,27 @@ def _fused_block_enabled(model: "BertModel") -> bool:
 
     - ``RAG_TPU_FUSED_BLOCK`` is ``1`` or ``true``: an explicit opt-in
       (unset, ``auto``, ``0`` and ``false`` mean off);
-    - ``RAG_TPU_FAST_GELU`` is ``1`` or ``true``: the kernel bakes the
-      tanh GELU in, and the port's default GELU is exact erf, so the
-      fused branch engages only where the unfused layer would compute
+    - ``RAG_TPU_FAST_GELU`` is not ``0`` or ``false``: the kernels bake
+      the tanh GELU in, which is the card's default (:func:`_fast_gelu`),
+      so the fused branch engages only where the unfused layer computes
       tanh too.  The opt-in never changes the function, only how it runs;
     - no layer holds int8-PTQ weights (the kernels take bf16 weights; the
       per-channel dequant is not plumbed through them);
-    - the model is on the card: on the CPU the unfused layer runs.
+    - the model is on the card: on the CPU the unfused layer runs;
+    - and one rule of the port's own, which the JAX gate does not have:
+      the hidden width is at most ``ops.fused_bert.MAX_HIDDEN`` (512) and
+      the hidden and intermediate widths are multiples of
+      ``WIDTH_STEP`` (64), the widths the kernels are built for.  A wider
+      model (BERT-base, 768) runs the unfused layer under the opt-in,
+      which computes the same function.
     """
+    h, i = model.cfg.hidden, model.cfg.intermediate
     return (
         _env_on("RAG_TPU_FUSED_BLOCK")
-        and _env_on("RAG_TPU_FAST_GELU")
-        and not model.quantized
         and model.device.type == "cuda"
+        and _fast_gelu(model.device)
+        and not model.quantized
+        and h <= MAX_HIDDEN and h % WIDTH_STEP == 0 and i % WIDTH_STEP == 0
     )
 
 

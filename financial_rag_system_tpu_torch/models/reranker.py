@@ -9,8 +9,8 @@ reference's exact ``np.argsort(scores)[::-1][:top_k]``.
 pair compactly ([CLS] q [SEP] doc [SEP]); the fused program lays pairs
 out with the doc at a fixed offset instead, so the two give different
 logits, as they do in the JAX package.  Weights come from
-``RAG_TPU_RERANKER_DIR``; the hash reranker is not ported yet (ROADMAP
-Queue 1), so without that directory :func:`get_reranker` raises.
+``RAG_TPU_RERANKER_DIR``; without it :func:`get_reranker` returns the
+hermetic :class:`HashReranker`.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from financial_rag_system_tpu_torch.models import bert
+from financial_rag_system_tpu_torch.models.embedder import HashEmbedder
 from financial_rag_system_tpu_torch.models.tokenizer import Tokenizer, pad_batch
 
 MAX_DEVICE_BATCH = 32
@@ -85,16 +86,49 @@ class CrossEncoderReranker:
         return np.concatenate(out)
 
 
-def get_reranker(*, device: str | torch.device = "cuda") -> CrossEncoderReranker:
-    """Factory mirroring the reference's get_reranker, for a checkpoint
-    directory only (the hash reranker, which TESTING mode would pick
-    without one, is not ported yet)."""
+class HashReranker:
+    """Deterministic fallback: hash-embedding cosine as relevance.
+
+    The table seed is de-aliased from :class:`HashEmbedder`'s (13 against
+    7): with one seed, rerank scores would equal the retrieval cosines by
+    construction, and a dropped or permuted rerank stage would be
+    invisible.  With ``identity`` (the reference's TESTING mode) the
+    scores keep retrieval order.
+    """
+
+    SEED = 13
+
+    def __init__(self, *, identity: bool = False, device: str | torch.device = "cuda"):
+        self.identity = identity
+        self._emb = HashEmbedder(seed=self.SEED, device=device)
+
+    @property
+    def table(self) -> torch.Tensor:
+        """The device table the fused hash rerank reads
+        (ops/fused_query.fused_hash_rerank_query)."""
+        return self._emb.table
+
+    @property
+    def device(self) -> torch.device:
+        return self._emb.device
+
+    def score(self, query: str, texts: Sequence[str]) -> np.ndarray:
+        if not texts:
+            return np.zeros((0,), np.float32)
+        if self.identity:
+            # reference TESTING mode: preserve retrieval order
+            return np.arange(len(texts), 0, -1, dtype=np.float32)
+        vecs = self._emb.encode([query, *texts])
+        return (vecs[1:] @ vecs[0]).astype(np.float32)
+
+
+def get_reranker(*, testing: bool = False, device: str | torch.device = "cuda"):
+    """Factory mirroring the reference's get_reranker: the checkpoint in
+    ``RAG_TPU_RERANKER_DIR`` when it names a directory, else the hash
+    reranker (the identity one in TESTING mode)."""
     ckpt = os.environ.get("RAG_TPU_RERANKER_DIR", "")
     if not (ckpt and os.path.isdir(ckpt)):
-        raise RuntimeError(
-            "RAG_TPU_RERANKER_DIR must name a local HF checkpoint directory: "
-            "the port has no hash reranker yet"
-        )
+        return HashReranker(identity=testing, device=device)
     from financial_rag_system_tpu_torch.models.hf_loader import (
         load_bert_checkpoint,
         saved_max_seq_length,

@@ -1,4 +1,4 @@
-"""Encoder self-attention for short-sequence, 32-wide-head BERTs.
+"""Encoder self-attention for short-sequence BERTs.
 
 Port of ``financial_rag_system_tpu/ops/attention.py``.  The cross-encoder
 rerank over (query, 1000-character chunk) pairs of about 400 tokens is
@@ -8,10 +8,14 @@ device memory; the kernel keeps them on chip.
 - :func:`encoder_self_attention` is the entry point, with the JAX
   signature and layout: (B, S, H, D) q/k/v and a (B, S) key mask in,
   (B, S, H*D) f32 context out.  On a CUDA tensor it launches the
-  hand-written Hopper kernel ``csrc/pair_attention.cu`` (TMA-staged K
-  and V, ``wgmma`` products, exp as ``ex2.approx``, no work past a pair's
-  last valid key), or raises; on a CPU tensor it runs
-  :func:`encoder_self_attention_plain`.
+  hand-written Hopper kernel ``csrc/pair_attention.cu``, or raises; on a
+  CPU tensor it runs :func:`encoder_self_attention_plain`.  Heads of 32
+  take the persistent kernel (TMA-staged K and V, ``wgmma`` products, exp
+  as ``ex2.approx``, no work past a pair's last valid key); heads of any
+  other multiple of 16 up to 128 (BERT-base and -large: 64) take the
+  streaming kernel of the same file, templated on the head width, which
+  stages K and V in 64-key chunks and keeps the same two sweeps and
+  arithmetic.
 - :func:`encoder_self_attention_plain` is the same arithmetic in plain
   PyTorch: q pre-scaled in f32 then rounded to bf16, bf16 x bf16 logits
   summed in f32 plus a -1e9 key-padding bias, a full-row f32 softmax,
@@ -35,7 +39,9 @@ import torch
 
 from financial_rag_system_tpu_torch.ops import _cuda
 
-HEAD_DIM = 32
+# head widths the kernels take: 32 (the persistent kernel), the rest the
+# streaming kernel (pair_attention_wide)
+HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
 MAX_SEQ = 512
 NEG = -1e9
 
@@ -74,26 +80,27 @@ def encoder_self_attention_plain(
     return out.permute(0, 2, 1, 3).reshape(b, s, h * d).to(out_dtype)
 
 
-def _kernel_fn():
-    fn = _cuda.library("pair_attention").pair_attention
+def _kernel_fn(head_dim: int):
+    lib = _cuda.library("pair_attention")
+    fn = lib.pair_attention if head_dim == 32 else lib.pair_attention_wide
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def pair_attention_kernel(
-    qs: torch.Tensor,    # (B, S, H, 32) bf16, pre-scaled by 1/sqrt(d)
-    kb: torch.Tensor,    # (B, S, H, 32) bf16
-    vb: torch.Tensor,    # (B, S, H, 32) bf16
+    qs: torch.Tensor,    # (B, S, H, d) bf16, pre-scaled by 1/sqrt(d)
+    kb: torch.Tensor,    # (B, S, H, d) bf16
+    vb: torch.Tensor,    # (B, S, H, d) bf16
     mask: torch.Tensor,  # (B, S) int32 key validity
 ) -> torch.Tensor:
     """Launch ``csrc/pair_attention.cu`` on the current stream; returns the
-    (B, S, H, 32) bf16 context.  Raises on anything the kernel does not
+    (B, S, H, d) bf16 context.  Raises on anything the kernels do not
     take."""
     b, s, h, d = qs.shape
-    if d != HEAD_DIM or not 1 <= s <= MAX_SEQ:
+    if d not in HEAD_DIMS or not 1 <= s <= MAX_SEQ:
         raise ValueError(
-            f"pair attention takes head_dim {HEAD_DIM} and 1 <= S <= "
+            f"pair attention takes head_dim in {HEAD_DIMS} and 1 <= S <= "
             f"{MAX_SEQ}; got head_dim {d}, S {s}"
         )
     for name, t in (("q", qs), ("k", kb), ("v", vb)):
@@ -109,7 +116,7 @@ def pair_attention_kernel(
     out = torch.empty((b, s, h, d), dtype=torch.bfloat16, device=qs.device)
     stream = torch.cuda.current_stream(qs.device).cuda_stream
     _cuda.check(
-        _kernel_fn()(
+        _kernel_fn(d)(
             qs.data_ptr(), kb.data_ptr(), vb.data_ptr(), mask.data_ptr(),
             out.data_ptr(), b, s, h, d, stream,
         ),

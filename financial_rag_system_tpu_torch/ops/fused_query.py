@@ -1,9 +1,9 @@
 """Fused two-stage query: embed -> top-k -> gather -> rerank, on the device.
 
-Port of the full-model-stack paths of
-``financial_rag_system_tpu/ops/fused_query.py``, the flat tier
-(:func:`fused_two_stage`, ``fused_kind == "full"``) and the IVF tier
-(:func:`fused_ivf_two_stage`, ``"ivf_full"``):
+Port of the single-device paths of
+``financial_rag_system_tpu/ops/fused_query.py``.  With the full model
+stack, the flat tier (:func:`fused_two_stage`, ``fused_kind == "full"``)
+and the IVF tier (:func:`fused_ivf_two_stage`, ``"ivf_full"``):
 
   q_ids --BGE encoder--> qv --masked top-k kernel (flat) or centroid
         probe + probed-tiles kernel (IVF)--> rows
@@ -16,6 +16,16 @@ caller reads rows, bi scores and logits back once per batch.  The corpus
 side contributes two device tensors: embeddings (N, D) and token ids
 (N, DLEN), so candidate texts never travel to the host for rerank
 tokenization.
+
+With the hermetic hash stack (:mod:`models.embedder` HashEmbedder,
+:mod:`models.reranker` HashReranker), the flat tier
+(:func:`fused_hash_query`, ``"hash"``) and the IVF tier
+(:func:`fused_ivf_hash_query`, ``"ivf_hash"``): a hash bag of the query
+tokens, then the same masked top-k or probe kernel, and, with a token
+store and a non-identity reranker, the de-aliased hash rerank of the
+gathered candidates (:func:`fused_hash_rerank_query`,
+:func:`fused_ivf_hash_rerank_query`).  The bags are gathers and
+mean-pools, which the JAX package leaves to XLA; here they are torch ops.
 
 Pair layout: [CLS] q (padded to LQ) [SEP] doc [SEP], with the doc segment
 at the fixed offset LQ; with trained weights this shifts doc position ids
@@ -34,7 +44,10 @@ import torch
 from financial_rag_system_tpu_torch.index.flat import quantize_int8
 from financial_rag_system_tpu_torch.index.ivf import ivf_probe, probe_tile_list
 from financial_rag_system_tpu_torch.models import bert
+from financial_rag_system_tpu_torch.models.embedder import _hash_embed
 from financial_rag_system_tpu_torch.ops.topk import masked_topk
+
+CLS_ID = 101
 
 
 def _round_up(x: int, m: int) -> int:
@@ -311,4 +324,155 @@ def make_fused_ivf_query(
     return functools.partial(
         fused_ivf_two_stage, rerank_cfg=rerank_cfg, k=k, tile=tile,
         nprobe=nprobe, tiles_per_cluster=tiles_per_cluster,
+    )
+
+
+# ---------------------------------------------------------------------------
+# the hermetic hash stack: hash bag -> top-k or probe kernel -> hash rerank
+# ---------------------------------------------------------------------------
+
+
+def _hash_rerank(
+    rerank_table: torch.Tensor,
+    q_ids: torch.Tensor,       # (B, LQ)
+    q_mask: torch.Tensor,      # (B, LQ)
+    rows: torch.Tensor,        # (B, K) candidate rows (-1 = empty)
+    bi_scores: torch.Tensor,   # (B, K)
+    doc_tokens: torch.Tensor,  # (N, DLEN), [... SEP] 0-padded (no CLS)
+) -> torch.Tensor:
+    """Second-stage hash rerank with the reranker's de-aliased table (JAX
+    ``fused_query.py:55-78``): a leading CLS column makes each candidate's
+    bag match ``HashEmbedder.encode``'s [CLS] ... [SEP] token stream.
+    Returns (B, K) cosines, -inf in empty slots."""
+    b, k = rows.shape
+    dtok = doc_tokens[rows.clamp_min(0).long()]  # (B, K, DLEN)
+    cls = torch.full((b, k, 1), CLS_ID, dtype=dtok.dtype, device=dtok.device)
+    d_ids = torch.cat([cls, dtok], dim=2)
+    dvec = _hash_embed(rerank_table, d_ids, d_ids != 0)  # (B, K, D)
+    qvec = _hash_embed(rerank_table, q_ids, q_mask)      # (B, D)
+    ce = torch.einsum("bkd,bd->bk", dvec, qvec)
+    return _mask_empty(ce, rows, bi_scores)
+
+
+@torch.inference_mode()
+def fused_hash_query(
+    table: torch.Tensor,         # (V, D) hash embedding table
+    q_ids: torch.Tensor,         # (B, L) int32
+    q_mask: torch.Tensor,        # (B, L)
+    query_filter: torch.Tensor,  # (B, 2) int32
+    corpus_emb: torch.Tensor,
+    corpus_codes: torch.Tensor,
+    n_valid: int,
+    *,
+    k: int,
+):
+    """Embed and search for the hash stack: the query bag, then the masked
+    top-k kernel.  Returns (qv, scores, rows)."""
+    qv = _hash_embed(table, q_ids, q_mask)
+    q = _prep_queries(qv, corpus_emb.dtype)
+    scores, rows = masked_topk(q, corpus_emb, corpus_codes, query_filter, n_valid, k)
+    return qv, scores, rows
+
+
+@torch.inference_mode()
+def fused_hash_rerank_query(
+    table: torch.Tensor,         # (V, D) retrieval hash table
+    rerank_table: torch.Tensor,  # (V, Dr) de-aliased reranker hash table
+    q_ids: torch.Tensor,
+    q_mask: torch.Tensor,
+    query_filter: torch.Tensor,
+    corpus_emb: torch.Tensor,
+    corpus_codes: torch.Tensor,
+    doc_tokens: torch.Tensor,    # (N, DLEN) device token store
+    n_valid: int,
+    *,
+    k: int,
+):
+    """The hash stack with its de-aliased second stage over the gathered
+    token-store rows.  Returns (qv, bi_scores, rows, ce)."""
+    qv, bi, rows = fused_hash_query(
+        table, q_ids, q_mask, query_filter, corpus_emb, corpus_codes, n_valid, k=k,
+    )
+    ce = _hash_rerank(rerank_table, q_ids, q_mask, rows, bi, doc_tokens)
+    return qv, bi, rows, ce
+
+
+def make_fused_hash_query(*, k: int, rerank: bool = False):
+    """:func:`fused_hash_query`, or with ``rerank``
+    :func:`fused_hash_rerank_query`, with ``k`` bound."""
+    return functools.partial(
+        fused_hash_rerank_query if rerank else fused_hash_query, k=k
+    )
+
+
+@torch.inference_mode()
+def fused_ivf_hash_query(
+    table: torch.Tensor,
+    q_ids: torch.Tensor,
+    q_mask: torch.Tensor,
+    query_filter: torch.Tensor,
+    centroids: torch.Tensor,
+    packed_emb: torch.Tensor,
+    packed_codes: torch.Tensor,
+    packed_gids: torch.Tensor,
+    *,
+    k: int,
+    tile: int,
+    nprobe: int,
+    tiles_per_cluster: int,
+):
+    """IVF probing for the hash stack: the query bag, the centroid probe
+    and the probed-tiles kernel.  Returns (qv, scores, rows,
+    active_tiles), the last as :func:`fused_ivf_two_stage` gives it."""
+    qv = _hash_embed(table, q_ids, q_mask)
+    q = _prep_queries(qv, packed_emb.dtype)
+    tile_ids = _probe_tiles(
+        q, centroids, nprobe=nprobe, tiles_per_cluster=tiles_per_cluster,
+        num_tiles=packed_emb.shape[0] // tile,
+    )
+    scores, rows = ivf_probe(
+        q, query_filter, packed_emb, packed_codes, packed_gids, tile_ids, k,
+        tile=tile,
+    )
+    return qv, scores, rows, (tile_ids >= 0).sum().to(torch.int32)
+
+
+@torch.inference_mode()
+def fused_ivf_hash_rerank_query(
+    table: torch.Tensor,
+    rerank_table: torch.Tensor,
+    q_ids: torch.Tensor,
+    q_mask: torch.Tensor,
+    query_filter: torch.Tensor,
+    centroids: torch.Tensor,
+    packed_emb: torch.Tensor,
+    packed_codes: torch.Tensor,
+    packed_gids: torch.Tensor,
+    doc_tokens: torch.Tensor,   # (N, DLEN) flat-index token store (global rows)
+    *,
+    k: int,
+    tile: int,
+    nprobe: int,
+    tiles_per_cluster: int,
+):
+    """IVF probing and the de-aliased hash rerank (probe rows are global
+    flat ids, so they gather the flat token store directly).  Returns
+    (qv, bi, rows, ce, active_tiles)."""
+    qv, bi, rows, active = fused_ivf_hash_query(
+        table, q_ids, q_mask, query_filter, centroids, packed_emb,
+        packed_codes, packed_gids, k=k, tile=tile, nprobe=nprobe,
+        tiles_per_cluster=tiles_per_cluster,
+    )
+    ce = _hash_rerank(rerank_table, q_ids, q_mask, rows, bi, doc_tokens)
+    return qv, bi, rows, ce, active
+
+
+def make_fused_ivf_hash_query(
+    *, k: int, tile: int, nprobe: int, tiles_per_cluster: int, rerank: bool = False,
+):
+    """:func:`fused_ivf_hash_query`, or with ``rerank``
+    :func:`fused_ivf_hash_rerank_query`, with the IVF geometry bound."""
+    return functools.partial(
+        fused_ivf_hash_rerank_query if rerank else fused_ivf_hash_query,
+        k=k, tile=tile, nprobe=nprobe, tiles_per_cluster=tiles_per_cluster,
     )

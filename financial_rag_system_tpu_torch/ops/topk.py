@@ -39,7 +39,8 @@ import torch
 from financial_rag_system_tpu_torch.ops import _cuda
 
 NEG_INF = float("-inf")
-MAX_K = 32
+MAX_K = 1024  # the JAX wrapper's default tile
+ROUND_K = 32  # entries a round of kernels 1 and 3 finds (csrc/topk_common.cuh)
 MAX_DIM = 1024
 # D must be a multiple of one tensor-core step: m16n8k16 (bf16), m16n8k32 (int8)
 DIM_STEP = {torch.bfloat16: 16, torch.int8: 32}
@@ -114,8 +115,9 @@ class TopkPlan(NamedTuple):
     stages: int      # ring stages, a box of 64 rows x 128 bytes each
     smem: int        # bytes of dynamic shared memory a block takes
     tiles: int       # 64-row tiles dealt out (kernel 3: pieces of every entry, at most)
-    candidates: int  # entries of the blocks' lists pass 2 may read a query
-    scratch: int     # int32 words of scratch: the blocks' lists' scores and ids
+    candidates: int  # entries of the blocks' lists pass 2 may read a query, a round
+    scratch: int     # int32 words of scratch: a round's lists' scores and ids
+    rounds: int      # rounds of ROUND_K entries (two launches each) that find the top k
 
 
 def topk_smem(row_bytes: int, stages: int) -> int:
@@ -136,14 +138,18 @@ def plan_for(b: int, tiles: int, row_bytes: int, k: int, sms: int,
     ``per_sm`` blocks an SM shared by the query blocks, never more blocks
     than tiles or than pass 2 merges, each with as many ring stages as its
     share of the SM's shared memory holds, up to ``stages`` (two blocks an
-    SM keep three at D 1024 in bf16, eight at D 384)."""
+    SM keep three at D 1024 in bf16, eight at D 384).  A k above ROUND_K
+    takes ceil(k / ROUND_K) rounds, each finding the next ROUND_K entries
+    with lists of one entry a lane, so the lists, the shared memory and the
+    scratch are a round's whatever k is."""
     qblocks = -(-b // QUERY_BLOCK)
     budget = min(SM_SMEM // per_sm - 1024, SMEM_LIMIT)
     room = (budget - topk_smem(row_bytes, 0)) // (TILE_ROWS * BOX_BYTES)
     n_stages = min(stages, MAX_STAGES, room)
     blocks = max(1, min(tiles, sms * per_sm // qblocks, MAX_BLOCKS))
+    kr = min(k, ROUND_K)
     return TopkPlan(blocks, qblocks, n_stages, topk_smem(row_bytes, n_stages), tiles,
-                    blocks * k, 2 * b * k * blocks)
+                    blocks * kr, 2 * b * kr * blocks, -(-k // ROUND_K))
 
 
 @functools.lru_cache(maxsize=256)

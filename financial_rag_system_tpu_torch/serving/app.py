@@ -211,7 +211,9 @@ def build_default_engine(
     an ``ivf_index.npz`` that covers it is there; bf16 or int8 as it was
     saved), else an empty flat index of ``RAG_TPU_INDEX_DTYPE``
     (``bfloat16`` or ``int8``).  Models come from ``RAG_TPU_BGE_DIR`` /
-    ``RAG_TPU_RERANKER_DIR``."""
+    ``RAG_TPU_RERANKER_DIR``; without them the hermetic hash stack
+    serves, with the identity reranker in TESTING mode, so the server
+    starts with no files on disk."""
     from financial_rag_system_tpu_torch.index.flat import FlatIndex
     from financial_rag_system_tpu_torch.models.embedder import get_embedder
     from financial_rag_system_tpu_torch.models.reranker import get_reranker
@@ -222,8 +224,8 @@ def build_default_engine(
     dtypes = {"bfloat16": torch.bfloat16, "int8": torch.int8}
     if cfg.index_dtype not in dtypes:
         raise ValueError(f"RAG_TPU_INDEX_DTYPE {cfg.index_dtype!r}: bfloat16 or int8")
-    embedder = get_embedder(device=dev)
-    reranker = get_reranker(device=dev)
+    embedder = get_embedder(cfg.embed_dim, device=dev)
+    reranker = get_reranker(testing=cfg.testing, device=dev)
     # a device token store lets the fused pipeline rerank without host
     # round trips; 0 = auto: it materializes at the measured p99
     # wordpiece width on the first ingest (index/flat.py auto_token_width)
@@ -247,7 +249,7 @@ def build_default_engine(
     return RAGEngine(cfg, index, embedder, reranker, mode=mode)
 
 
-def main() -> None:  # pragma: no cover — needs a card and checkpoints
+def main() -> None:  # pragma: no cover — needs a card
     from aiohttp import web
 
     from financial_rag_system_tpu_torch.utils.config import get_config

@@ -1,8 +1,9 @@
 """The RAG engine: cache -> route -> embed+retrieve -> rerank -> generate.
 
 Port of ``financial_rag_system_tpu/serving/engine.py`` for the
-single-device flat and IVF tiers with the full model stack.  The
-reference's behavioral surface is kept:
+single-device flat and IVF tiers, with the full model stack or the
+hermetic hash stack (the reference's TESTING mode, and every start with
+no checkpoints).  The reference's behavioral surface is kept:
 
 - cache key ``sha256(f"{ticker}_{query.lower()}")``; a hit returns
   provider "Cache" with the sentinel source
@@ -18,7 +19,11 @@ In "batched" mode the dynamic batcher hands each batch to the fused
 device path (:mod:`ops.fused_query`): embed, masked top-k (flat,
 ``fused_kind == "full"``) or centroid probe and probed-tiles search (IVF,
 ``"ivf_full"``), token gather and cross-encoder rerank are queued on the
-device with one host readback per batch.  The staged path (embed, then
+device with one host readback per batch.  The hash stack fuses the same
+way (``"hash"``, ``"ivf_hash"``): its query bag, the same kernels and,
+with a token store and a non-identity reranker, the de-aliased hash
+rerank (``fused_hash_rerank``); the identity reranker keeps retrieval
+order, and without a store the staged ``HashReranker.score`` reranks.  The staged path (embed, then
 ``index.search_batch``, then a host-driven rerank) serves batches the
 fused path cannot take: IVF tail rows, a selective filter, or a geometry
 changed by a churn rebuild.  ``rebuild_index`` promotes a flat corpus to
@@ -38,8 +43,11 @@ import torch
 from financial_rag_system_tpu_torch.index.base import selective_rows
 from financial_rag_system_tpu_torch.index.flat import FlatIndex
 from financial_rag_system_tpu_torch.index.ivf import IVFIndex
-from financial_rag_system_tpu_torch.models.embedder import BiEncoder
-from financial_rag_system_tpu_torch.models.reranker import CrossEncoderReranker
+from financial_rag_system_tpu_torch.models.embedder import BiEncoder, HashEmbedder
+from financial_rag_system_tpu_torch.models.reranker import (
+    CrossEncoderReranker,
+    HashReranker,
+)
 from financial_rag_system_tpu_torch.models.tokenizer import pad_batch
 from financial_rag_system_tpu_torch.obs.tracing import get_tracer
 from financial_rag_system_tpu_torch.serving.batcher import DynamicBatcher
@@ -84,9 +92,9 @@ class RAGEngine:
         self.llm = llm or (MockLLMClient(cfg) if cfg.testing else LLMClient(cfg))
         self.llm_semaphore = asyncio.Semaphore(cfg.max_concurrent_llm)
         self.tracer = get_tracer()
-        self._fused_hash_rerank = False  # hash stack: not ported yet
-        # (program, kind, IVF geometry it was built for): one tuple, so a
-        # batch never pairs one program with another's kind or geometry
+        # (program, kind, IVF geometry it was built for, whether it runs
+        # the hash rerank): one tuple, so a batch never pairs one program
+        # with another's kind or geometry
         self._fused = self._maybe_build_fused()
         # strong refs to fire-and-forget tasks (an unreferenced asyncio
         # task can be garbage-collected before it runs)
@@ -124,42 +132,65 @@ class RAGEngine:
     def _fused_kind(self) -> str | None:
         return self._fused[1]
 
+    @property
+    def _fused_hash_rerank(self) -> bool:
+        return self._fused[3]
+
     def _maybe_build_fused(self):
-        """The fused pipelines (ops/fused_query.py) under the full model
-        stack, over a flat index with a device token store (or an auto
-        store that materializes on the first ingest): "full" on the flat
-        tier, "ivf_full" on the IVF tier, with the flat scan replaced by
-        centroid probing and the probed-tiles kernel.  An int8 index fuses
-        too: the programs quantize the query vectors as its rows are.
-        Every other combination serves staged
-        (None, None, None)."""
+        """The fused pipelines (ops/fused_query.py):
+
+        - the full model stack over a flat index with a device token
+          store (or an auto store that materializes on the first ingest):
+          "full" on the flat tier, "ivf_full" on the IVF tier, with the
+          flat scan replaced by centroid probing and the probed-tiles
+          kernel;
+        - the hash stack: "hash" and "ivf_hash", with the de-aliased hash
+          rerank fused where the reranker is not the identity and the
+          index has a token store.
+
+        An int8 index fuses too: the programs quantize the query vectors
+        as its rows are.  Every other combination serves staged
+        (None, None, None, False)."""
         from financial_rag_system_tpu_torch.ops.fused_query import (
+            make_fused_hash_query,
+            make_fused_ivf_hash_query,
             make_fused_ivf_query,
             make_fused_query,
         )
 
         index = self.index
         flat = index.flat if isinstance(index, IVFIndex) else index
-        if not (
-            isinstance(flat, FlatIndex)
-            and isinstance(self.embedder, BiEncoder)
+        full_stack = (
+            isinstance(self.embedder, BiEncoder)
             and isinstance(self.reranker, CrossEncoderReranker)
-            and flat.token_store_enabled
+        )
+        hash_stack = (
+            isinstance(self.embedder, HashEmbedder)
+            and isinstance(self.reranker, HashReranker)
+        )
+        if not isinstance(flat, FlatIndex) or not (
+            (full_stack and flat.token_store_enabled) or hash_stack
         ):
-            return None, None, None
+            return None, None, None, False
+        k = self.cfg.retrieve_k
+        hash_rerank = hash_stack and not self.reranker.identity and flat.token_store_enabled
         if isinstance(index, IVFIndex):
             # geometry captured at build: a churn-triggered auto-rebuild
             # can re-derive it, and the bound program would then probe the
             # wrong rows, so _fused_exec compares it with each snapshot's
             # and falls back staged
             geom = index._state.geom
-            fn = make_fused_ivf_query(
-                self.reranker.cfg, k=self.cfg.retrieve_k, tile=index.tile,
-                nprobe=geom.nprobe, tiles_per_cluster=geom.tiles_per_cluster,
+            common = dict(
+                k=k, tile=index.tile, nprobe=geom.nprobe,
+                tiles_per_cluster=geom.tiles_per_cluster,
             )
-            return fn, "ivf_full", geom
-        fn = make_fused_query(self.reranker.cfg, k=self.cfg.retrieve_k)
-        return fn, "full", None
+            if full_stack:
+                return make_fused_ivf_query(self.reranker.cfg, **common), "ivf_full", geom, False
+            return (make_fused_ivf_hash_query(**common, rerank=hash_rerank), "ivf_hash",
+                    geom, hash_rerank)
+        if full_stack:
+            return make_fused_query(self.reranker.cfg, k=k), "full", None, False
+        return make_fused_hash_query(k=k, rerank=hash_rerank), "hash", None, hash_rerank
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -208,13 +239,14 @@ class RAGEngine:
         if res is None:
             return None
         rows, bi, ce, active = res
+        with_ce = ce is not None  # else the staged reranker scores the hits
         # the batch's one readback: int32 rows (and the IVF probe list's
         # active-tile count) travel bit-cast inside the f32 block
         k = rows.shape[1]
         ints = rows if active is None else torch.cat(
             [rows, active.view(1, 1).expand(rows.shape[0], 1)], dim=1
         )
-        host = torch.cat([bi, ce, ints.view(torch.float32)], dim=1).cpu()
+        host = torch.cat([bi, ce if with_ce else bi, ints.view(torch.float32)], dim=1).cpu()
         bi, ce = host[:, :k].numpy(), host[:, k : 2 * k].numpy()
         ints = host[:, 2 * k :].contiguous().view(torch.int32).numpy()
         rows = ints[:, :k]
@@ -233,9 +265,10 @@ class RAGEngine:
                 payload = store.get(int(r))
                 payload["score"] = float(s)
                 payload["row"] = int(r)
-                # device-computed stage-2 score: the per-request rerank
-                # reduces to a sort + slice
-                payload["rerank_score"] = float(c)
+                if with_ce:
+                    # device-computed stage-2 score: the per-request
+                    # rerank reduces to a sort + slice
+                    payload["rerank_score"] = float(c)
                 hits.append(payload)
             # the fused path returns no query vectors (the staged one does)
             out.append((None, hits))
@@ -248,8 +281,10 @@ class RAGEngine:
         upsert/grow/rebuild must not pair new arrays with old ones
         mid-batch) and checks kind against the index type and geometry.
         Returns (rows, bi, ce, active_tiles) device tensors, active_tiles
-        None on the flat tier, or None when the batch is ineligible."""
-        fused, kind, geom = self._fused
+        None on the flat tier and ce None where the hash stack leaves the
+        rerank to the staged reranker, or None when the batch is
+        ineligible."""
+        fused, kind, geom, hash_rerank = self._fused
         index = self.index
         if fused is None:
             return None
@@ -262,14 +297,16 @@ class RAGEngine:
         t_ids, t_types, t_mask = (
             torch.as_tensor(a, device=dev) for a in (ids, types, mask)
         )
-        batch = (self.embedder.model, self.reranker.model, t_ids, t_types, t_mask, qf)
-        if kind == "full" and isinstance(index, FlatIndex):
+        hashed = kind in ("hash", "ivf_hash")
+        if hashed:
+            tables = (self.embedder.table,) + ((self.reranker.table,) if hash_rerank else ())
+            batch = (*tables, t_ids, t_mask, qf)
+        else:
+            batch = (self.embedder.model, self.reranker.model, t_ids, t_types, t_mask, qf)
+        if kind in ("full", "hash") and isinstance(index, FlatIndex):
             emb, idx_codes, doc_tok = index._arrays
-            if doc_tok is None:
-                return None  # auto token store not yet materialized
-            nv = min(index.n_valid, emb.shape[0])
-            return (*fused(*batch, emb, idx_codes, doc_tok, nv), None)
-        if kind == "ivf_full" and isinstance(index, IVFIndex):
+            corpus, n_valid = (emb, idx_codes), (min(index.n_valid, emb.shape[0]),)
+        elif kind in ("ivf_full", "ivf_hash") and isinstance(index, IVFIndex):
             st = index._state
             if st.tail:
                 return None  # tail rows need the exact merge of the staged path
@@ -278,13 +315,22 @@ class RAGEngine:
             if selective_rows(st.rows_by_ticker, codes, index.SELECTIVE_LIMIT) is not None:
                 return None  # a selective filter is scored exactly, staged
             doc_tok = index.flat._arrays[2]
-            if doc_tok is None:
-                return None
-            return fused(
-                *batch, st.centroids, st.packed_emb, st.packed_codes,
-                st.packed_gids, doc_tok,
-            )
-        return None  # a tier promotion raced the program swap
+            corpus, n_valid = (st.centroids, st.packed_emb, st.packed_codes, st.packed_gids), ()
+        else:
+            return None  # a tier promotion raced the program swap
+        store = () if hashed and not hash_rerank else (doc_tok,)
+        if store and doc_tok is None:
+            return None  # auto token store not yet materialized
+        out = fused(*batch, *corpus, *store, *n_valid)
+        active = out[-1] if kind.startswith("ivf") else None
+        if not hashed:
+            return (*out[:3], active)
+        _qv, bi, rows = out[:3]
+        if hash_rerank:
+            ce = out[3]
+        else:  # the identity reranker keeps retrieval order: ce == bi, exactly
+            ce = bi if self.reranker.identity else None
+        return rows, bi, ce, active
 
     # -- public API -----------------------------------------------------------
 
@@ -437,7 +483,7 @@ class RAGEngine:
         if tier == "hnsw":
             raise NotImplementedError(
                 "the HNSW tier is not ported to financial_rag_system_tpu_torch "
-                "yet (ROADMAP Queue 1 item 6); use tier 'ivf'"
+                "yet (ROADMAP Queue 1); use tier 'ivf'"
             )
         if tier not in (None, "ivf"):
             return {"status": "error", "reason": f"unknown tier {tier!r}"}

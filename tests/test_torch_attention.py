@@ -69,3 +69,17 @@ def test_cpu_runs_plain_and_counts_no_launch():
     out = tattn.encoder_self_attention(q, k, v, mask, 0.2)
     assert torch.equal(out, tattn.encoder_self_attention_plain(q, k, v, mask, 0.2))
     assert tattn.encoder_self_attention.launches == before
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kind,s", [("prefix", 130), ("rerank", 400)])
+def test_wide_heads_match_jax_kernel(d, kind, s):
+    """Heads of 64 (BERT-base and -large) and 128, which the JAX gate sends
+    to the Pallas kernel and the port's wrapper to the streaming kernel:
+    the plain version against the Pallas kernel in interpret mode."""
+    q, k, v, mask = make_inputs(b=2, s=s, h=2, d=d, seed=d + s)
+    if kind == "rerank":
+        mask = rerank_mask(2, s, seed=d)
+    got, ref = both(q, k, v, mask)
+    assert got.shape == ref.shape == (2, s, 2 * d)
+    np.testing.assert_allclose(got, ref, atol=1e-2, rtol=0)

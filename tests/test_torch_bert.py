@@ -158,13 +158,25 @@ def test_cross_score_matches_jax():
     np.testing.assert_allclose(got, ref, atol=5e-3, rtol=0)
 
 
-def test_gelu_env_contract(monkeypatch):
+@pytest.mark.parametrize(
+    "mode,on_cpu,on_card",
+    [(None, False, True), ("auto", False, True), ("1", True, True), ("true", True, True),
+     ("0", False, False), ("FALSE", False, False), ("other", False, True)],
+)
+def test_gelu_env_contract(monkeypatch, mode, on_cpu, on_card):
+    """JAX's RAG_TPU_FAST_GELU rule: tanh on the accelerator (the card)
+    and exact erf on the CPU unless the variable forces one; the CPU
+    computes what its rule picks."""
     x = torch.linspace(-4, 4, 101)
     exact = torch.nn.functional.gelu(x)
-    monkeypatch.delenv("RAG_TPU_FAST_GELU", raising=False)
-    assert torch.equal(tbert._gelu(x), exact)
-    monkeypatch.setenv("RAG_TPU_FAST_GELU", "1")
-    tanh = tbert._gelu(x)
+    tanh = torch.nn.functional.gelu(x, approximate="tanh")
+    if mode is None:
+        monkeypatch.delenv("RAG_TPU_FAST_GELU", raising=False)
+    else:
+        monkeypatch.setenv("RAG_TPU_FAST_GELU", mode)
+    assert tbert._fast_gelu(torch.device("cpu")) is on_cpu
+    assert tbert._fast_gelu(torch.device("cuda")) is on_card
+    assert torch.equal(tbert._gelu(x), tanh if on_cpu else exact)
     assert not torch.equal(tanh, exact)
     np.testing.assert_allclose(tanh.numpy(), exact.numpy(), atol=1e-3)
 

@@ -127,23 +127,32 @@ def test_cpu_tensors_run_the_plain_versions():
 
 
 class _FakeModel:
-    """What the gate reads of a model: its device and int8 state."""
+    """What the gate reads of a model: its device, int8 state and widths."""
 
-    def __init__(self, device="cuda", quantized=False):
+    def __init__(self, device="cuda", quantized=False, hidden=384, intermediate=1536):
         self.device = torch.device(device)
         self.quantized = quantized
+        self.cfg = tbert.BertConfig(hidden=hidden, intermediate=intermediate)
 
 
 @pytest.mark.parametrize(
     "block,gelu,model,on",
     [(None, "1", _FakeModel(), False), ("auto", "1", _FakeModel(), False),
      ("0", "1", _FakeModel(), False), ("false", "1", _FakeModel(), False),
-     ("1", None, _FakeModel(), False), ("1", "auto", _FakeModel(), False),
+     ("1", None, _FakeModel(), True), ("1", "auto", _FakeModel(), True),
      ("1", "0", _FakeModel(), False), ("1", "1", _FakeModel(quantized=True), False),
      ("1", "1", _FakeModel("cpu"), False), ("1", "1", _FakeModel(), True),
-     ("true", "TRUE", _FakeModel(), True)],
+     ("true", "TRUE", _FakeModel(), True), ("1", "FALSE", _FakeModel(), False),
+     ("1", None, _FakeModel("cpu"), False),
+     ("1", "1", _FakeModel(hidden=512, intermediate=2048), True),
+     ("1", "1", _FakeModel(hidden=768, intermediate=3072), False),
+     ("1", "1", _FakeModel(hidden=1024, intermediate=4096), False),
+     ("1", "1", _FakeModel(hidden=320, intermediate=1000), False)],
 )
 def test_fused_block_gate_env_contract(monkeypatch, block, gelu, model, on):
+    """The JAX gate's rules on its accelerator: the opt-in engages alone,
+    unless GELU is forced to erf; the port adds the kernels' widths (H at
+    most 512, H and I multiples of 64)."""
     for name, v in (("RAG_TPU_FUSED_BLOCK", block), ("RAG_TPU_FAST_GELU", gelu)):
         if v is None:
             monkeypatch.delenv(name, raising=False)

@@ -99,13 +99,20 @@ def test_factories_and_index_default_to_the_card():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_factories_name_their_env_var(monkeypatch):
-    from financial_rag_system_tpu_torch.models.embedder import get_embedder
-    from financial_rag_system_tpu_torch.models.reranker import get_reranker
+def test_factories_name_their_env_var(monkeypatch, tmp_path):
+    """Without a checkpoint directory in RAG_TPU_BGE_DIR /
+    RAG_TPU_RERANKER_DIR (unset, or naming no directory) the factories
+    return the hermetic hash stack, the identity reranker in TESTING
+    mode, as the JAX package's do."""
+    from financial_rag_system_tpu_torch.models.embedder import HashEmbedder, get_embedder
+    from financial_rag_system_tpu_torch.models.reranker import HashReranker, get_reranker
 
     monkeypatch.delenv("RAG_TPU_BGE_DIR", raising=False)
     monkeypatch.delenv("RAG_TPU_RERANKER_DIR", raising=False)
-    with pytest.raises(RuntimeError, match="RAG_TPU_BGE_DIR"):
-        get_embedder(device="cpu")
-    with pytest.raises(RuntimeError, match="RAG_TPU_RERANKER_DIR"):
-        get_reranker(device="cpu")
+    assert isinstance(get_embedder(device="cpu"), HashEmbedder)
+    assert get_reranker(device="cpu").identity is False
+    monkeypatch.setenv("RAG_TPU_BGE_DIR", str(tmp_path / "missing"))
+    monkeypatch.setenv("RAG_TPU_RERANKER_DIR", str(tmp_path / "missing"))
+    assert isinstance(get_embedder(device="cpu"), HashEmbedder)
+    rr = get_reranker(testing=True, device="cpu")
+    assert isinstance(rr, HashReranker) and rr.identity is True

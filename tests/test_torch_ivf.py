@@ -219,6 +219,32 @@ def test_ivf_probe_plain_matches_xla_and_pallas(kind):
         assert list(i_t[0, :2]) == [5000, 17] and s_t[0, 0] == s_t[0, 1]
 
 
+@pytest.mark.parametrize("k", [33, 64, 100])
+@pytest.mark.parametrize("kind", ["wildcard", "ticker_dt", "dups"])
+def test_ivf_probe_plain_large_k_matches_xla_and_pallas(kind, k):
+    """k above the kernel's 32-entry round: the plain version against
+    ivf_probe_xla and the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(k)
+    q, qf, emb, codes, gids, tile_ids = packed_case(kind, rng)
+    jargs = (jnp.asarray(q, jnp.bfloat16), jnp.asarray(qf), jnp.asarray(emb, jnp.bfloat16),
+             jnp.asarray(codes), jnp.asarray(gids), jnp.asarray(tile_ids), k)
+    s_x, i_x = (np.asarray(a) for a in jivf.ivf_probe_xla(*jargs, tile=128))
+    s_p, i_p = (np.asarray(a) for a in jivf.ivf_probe_pallas(
+        *jargs, tile=128, probe_budget=len(tile_ids), interpret=True))
+    s_t, i_t = (a.numpy() for a in tivf.ivf_probe_plain(
+        torch.from_numpy(q).bfloat16(), torch.from_numpy(qf),
+        torch.from_numpy(emb).bfloat16(), torch.from_numpy(codes),
+        torch.from_numpy(gids), torch.from_numpy(tile_ids), k, tile=128,
+    ))
+    fin = np.isfinite(s_x)
+    np.testing.assert_array_equal(np.isfinite(s_t), fin)
+    np.testing.assert_array_equal(np.isfinite(s_p), fin)
+    np.testing.assert_allclose(s_t[fin], s_x[fin], atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(i_t[fin], i_x[fin])
+    np.testing.assert_array_equal(i_t[fin], i_p[fin])
+    assert (i_t[~fin] == -1).all()
+
+
 # -- the index ---------------------------------------------------------------------
 
 
@@ -654,7 +680,7 @@ def test_tail_rows_and_selective_filters_take_the_staged_path(env):
     eng.index._tail_rows.append(5)
     assert eng._fused_batch(["margin"], [("AAPL", None)]) is None
     eng.index._tail_rows.clear()
-    eng._fused = eng._fused[:2] + (tivf.IVFGeometry(0, 0, 0, 0),)  # as after a churn rebuild
+    eng._fused = eng._fused[:2] + (tivf.IVFGeometry(0, 0, 0, 0),) + eng._fused[3:]  # as after a churn rebuild
     assert eng._fused_batch(["margin"], [("AAPL", None)]) is None
 
 

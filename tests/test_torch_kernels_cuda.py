@@ -66,7 +66,9 @@ def topk_case(b, n, d, n_valid, seed=0, n_tickers=5):
 
 @pytest.mark.parametrize(
     "b,n,d,k", [(8, 4096, 64, 15), (40, 5000, 384, 15), (3, 777, 128, 1),
-                (32, 131072, 384, 15), (5, 2048, 64, 32)],
+                (32, 131072, 384, 15), (5, 2048, 64, 32), (8, 4096, 64, 33),
+                (40, 5000, 384, 64), (32, 131072, 384, 100), (5, 2048, 64, 256),
+                (33, 20000, 384, 1024), (3, 700, 128, 1024)],
 )
 def test_topk_kernel_matches_plain(cuda, b, n, d, k):
     q, c, codes, qf = topk_case(b, n, d, n_valid=n - 100)
@@ -128,7 +130,9 @@ def probe_case(b, d, n_tiles, tile, seed=0):
 @pytest.mark.parametrize(
     "b,d,n_tiles,tile,k", [(1, 384, 12, 128, 15), (32, 384, 40, 128, 15),
                            (32, 64, 9, 64, 1), (5, 128, 16, 128, 32),
-                           (40, 384, 20, 256, 15)],
+                           (40, 384, 20, 256, 15), (32, 384, 40, 128, 33),
+                           (5, 128, 16, 128, 100), (40, 384, 20, 256, 256),
+                           (33, 384, 64, 128, 1024)],
 )
 def test_ivf_probe_kernel_matches_plain(cuda, b, d, n_tiles, tile, k):
     q, qf, emb, codes, gids, tile_ids, dup = probe_case(b, d, n_tiles, tile)
@@ -163,7 +167,7 @@ def test_ivf_probe_kernel_rejects_inputs(cuda):
         ivf_probe(*args, 5, tile=64)  # f32 queries and packing
     args[0], args[2] = args[0].bfloat16(), args[2].bfloat16()
     with pytest.raises(ValueError, match="k must be"):
-        ivf_probe(*args, 33, tile=64)
+        ivf_probe(*args, 1025, tile=64)
     with pytest.raises(ValueError, match="tile"):
         ivf_probe(*args, 5, tile=96)
 
@@ -175,7 +179,9 @@ def quant(a):
 
 @pytest.mark.parametrize(
     "b,n,d,k", [(8, 4096, 64, 15), (40, 5000, 384, 15), (3, 777, 1024, 1),
-                (32, 131072, 384, 15), (5, 2048, 64, 32), (33, 1500, 1024, 32)],
+                (32, 131072, 384, 15), (5, 2048, 64, 32), (33, 1500, 1024, 32),
+                (8, 4096, 64, 33), (40, 5000, 384, 64), (32, 131072, 384, 100),
+                (5, 2048, 64, 256), (33, 20000, 384, 1024), (3, 700, 1024, 1024)],
 )
 def test_topk_int8_kernel_equals_plain(cuda, b, n, d, k):
     """The int8 branch of kernel 1 gives its plain version's scores and
@@ -198,7 +204,9 @@ def test_topk_int8_kernel_equals_plain(cuda, b, n, d, k):
 @pytest.mark.parametrize(
     "b,d,n_tiles,tile,k", [(1, 384, 12, 128, 15), (32, 384, 40, 128, 15),
                            (32, 64, 9, 64, 1), (5, 1024, 16, 128, 32),
-                           (40, 384, 20, 256, 15)],
+                           (40, 384, 20, 256, 15), (32, 384, 40, 128, 33),
+                           (5, 1024, 16, 128, 100), (40, 384, 20, 256, 256),
+                           (33, 384, 64, 128, 1024)],
 )
 def test_ivf_probe_int8_kernel_equals_plain(cuda, b, d, n_tiles, tile, k):
     """The int8 branch of kernel 3 against its plain version, bit for bit;
@@ -285,7 +293,9 @@ def assert_same_bits(got, ref):
 @pytest.mark.parametrize("dtype", RETRIEVAL_TYPES)
 @pytest.mark.parametrize(
     "b,n,d,k", [(1, 777, 64, 1), (33, 5000, 128, 16), (65, 777, 384, 17),
-                (33, 5000, 64, 32), (3, 3000, 1024, 15), (65, 40000, 384, 15)],
+                (33, 5000, 64, 32), (3, 3000, 1024, 15), (65, 40000, 384, 15),
+                (33, 5000, 64, 33), (65, 777, 384, 100), (3, 3000, 1024, 1024),
+                (33, 40000, 128, 256)],
 )
 def test_topk_kernel_tie_heavy_bit_for_bit(cuda, dtype, b, n, d, k):
     """Six distinct rows repeated over every block's share (N 777 leaves
@@ -355,7 +365,7 @@ def test_ivf_probe_kernel_tie_heavy_bit_for_bit(cuda, dtype, tile, which):
 
 
 @pytest.mark.parametrize("dtype", RETRIEVAL_TYPES)
-@pytest.mark.parametrize("k", [1, 17, 32])
+@pytest.mark.parametrize("k", [1, 17, 32, 33, 64, 100, 256, 1024])
 def test_ivf_probe_kernel_k_and_batch(cuda, dtype, k):
     for b in (1, 65):
         args = exact_probe_args(dtype, cuda, b, 64, 40, 128, "some", k, seed=b)
@@ -460,9 +470,9 @@ def test_topk_kernel_after_an_upsert_reallocates(cuda, dtype):
         np.testing.assert_allclose(s.cpu().numpy(), ref[0].cpu().numpy(), atol=1e-4, rtol=0)
 
 
-def attn_case(p, s, h, seed=0, masked_pair=True):
+def attn_case(p, s, h, seed=0, masked_pair=True, d=32):
     rng = np.random.default_rng(seed)
-    q, k, v = (rng.standard_normal((p, s, h, 32)).astype(np.float32)
+    q, k, v = (rng.standard_normal((p, s, h, d)).astype(np.float32)
                for _ in range(3))
     lens = rng.integers(1, s + 1, p)
     mask = (np.arange(s)[None, :] < lens[:, None]).astype(np.int32)
@@ -472,17 +482,22 @@ def attn_case(p, s, h, seed=0, masked_pair=True):
 
 
 @pytest.mark.parametrize(
-    "p,s,h", [(4, 50, 12), (3, 130, 4), (2, 400, 12), (2, 512, 2), (2, 1, 3),
-              (32, 32, 12)],
+    "p,s,h,d", [(4, 50, 12, 32), (3, 130, 4, 32), (2, 400, 12, 32), (2, 512, 2, 32),
+                (2, 1, 3, 32), (32, 32, 12, 32), (4, 50, 12, 64), (3, 130, 4, 128),
+                (2, 400, 12, 64), (2, 512, 2, 128), (2, 1, 3, 64), (2, 512, 16, 64),
+                (3, 200, 2, 16), (3, 200, 2, 48), (3, 200, 2, 80), (3, 200, 2, 96),
+                (3, 200, 2, 112)],
 )
-def test_attention_kernel_matches_plain(cuda, p, s, h):
-    arrs = attn_case(p, s, h)
+def test_attention_kernel_matches_plain(cuda, p, s, h, d):
+    arrs = attn_case(p, s, h, d=d)
     q, k, v, mask = (torch.tensor(a, device=cuda) for a in arrs)
-    inv = 1.0 / np.sqrt(32)
+    inv = 1.0 / np.sqrt(d)
+    n0 = encoder_self_attention.launches
     ref = encoder_self_attention_plain(q, k, v, mask, inv).cpu().numpy()
     got = encoder_self_attention(q, k, v, mask, inv).cpu().numpy()
     torch.cuda.synchronize()
-    assert got.shape == (p, s, h * 32)
+    assert encoder_self_attention.launches == n0 + 1
+    assert got.shape == (p, s, h * d)
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, ref, atol=1e-2, rtol=1e-2)
 
@@ -503,12 +518,13 @@ ATTN_MASK_CASES = {
 }
 
 
+@pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("case", sorted(ATTN_MASK_CASES))
-def test_attention_kernel_masks(cuda, case):
+def test_attention_kernel_masks(cuda, case, d):
     p, s, h, mask_np = ATTN_MASK_CASES[case]
-    q, k, v, _ = attn_case(p, s, h, seed=len(case))
+    q, k, v, _ = attn_case(p, s, h, seed=len(case), d=d)
     q, k, v, mask = (torch.tensor(a, device=cuda) for a in (q, k, v, mask_np))
-    inv = 1.0 / np.sqrt(32)
+    inv = 1.0 / np.sqrt(d)
     ref = encoder_self_attention_plain(q, k, v, mask, inv).cpu().numpy()
     got = encoder_self_attention(q, k, v, mask, inv).cpu().numpy()
     torch.cuda.synchronize()
@@ -516,8 +532,9 @@ def test_attention_kernel_masks(cuda, case):
     np.testing.assert_allclose(got, ref, atol=1e-2, rtol=1e-2)
 
 
-def test_attention_kernel_relaunch_is_bit_identical(cuda):
-    q, k, v, _ = attn_case(16, 400, 12, seed=3)
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_attention_kernel_relaunch_is_bit_identical(cuda, d):
+    q, k, v, _ = attn_case(16, 400, 12, seed=3, d=d)
     q, k, v, mask = (torch.tensor(a, device=cuda) for a in (q, k, v, rerank_mask(16, 400)))
     first = encoder_self_attention(q, k, v, mask, 0.125)
     again = encoder_self_attention(q, k, v, mask, 0.125)
@@ -606,9 +623,10 @@ def test_attention_kernel_rejects_shapes(cuda):
     m = torch.ones((1, 600), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         encoder_self_attention(x, x, x, m, 0.1)
-    y = torch.zeros((1, 8, 2, 64), device=cuda)
-    with pytest.raises(ValueError):
-        encoder_self_attention(y, y, y, m[:, :8], 0.1)
+    for d in (8, 40, 144, 256):  # head widths no kernel takes
+        y = torch.zeros((1, 8, 2, d), device=cuda)
+        with pytest.raises(ValueError, match="head_dim"):
+            encoder_self_attention(y, y, y, m[:, :8], 0.1)
     z = torch.zeros(1 + 8 * 2 * 32, dtype=torch.bfloat16, device=cuda)[1:].view(1, 8, 2, 32)
     with pytest.raises(ValueError, match="aligned"):
         pair_attention_kernel(z, z, z, m[:, :8])

@@ -176,3 +176,32 @@ def test_wrapper_refuses_other_dtypes():
         ttopk.masked_topk(torch.zeros((1, 32)), torch.zeros((4, 32)),
                           torch.zeros((2, 4), dtype=torch.int32),
                           torch.full((1, 2), -1, dtype=torch.int32), 4, 2)
+
+
+@pytest.mark.parametrize("k", [33, 64, 100])
+def test_k_above_a_round_matches_xla_and_pallas(k):
+    """k above the kernel's 32-entry round, bf16: the plain version against
+    masked_topk_xla and the Pallas kernel in interpret mode, with the
+    duplicated rows in row order."""
+    q, c, codes, qf = make_case(seed=k)
+    s, i = port(q, c, codes, qf, k=k)
+    args = jax_args(q, c, codes, qf)[:-1] + (k,)
+    s_x, i_x = (np.asarray(x) for x in masked_topk_xla(*args))
+    s_p, i_p = (np.asarray(x) for x in masked_topk_pallas(*args, tile=1024, interpret=True))
+    fin = np.isfinite(s_x)
+    np.testing.assert_array_equal(np.isfinite(s), fin)
+    np.testing.assert_array_equal(np.isfinite(s_p), fin)
+    np.testing.assert_allclose(s[fin], s_x[fin], atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(i[fin], i_x[fin])
+    np.testing.assert_array_equal(i[fin], i_p[fin])
+    assert (i[~fin] == -1).all() and fin[3].sum() == 3
+    assert list(i[7, :3]) == [1500, 2001, 3000]
+
+
+@pytest.mark.parametrize("k", [33, 64, 100])
+def test_int8_k_above_a_round_matches_pallas_interpret(k):
+    """int8 at k above a round: bit for bit against the Pallas kernel."""
+    q, c, codes, qf = int8_case(seed=k)
+    want = masked_topk_pallas(jnp.asarray(q), jnp.asarray(c), jnp.asarray(codes),
+                              jnp.asarray(qf), N_VALID, k, tile=1024, interpret=True)
+    assert_bit_equal(port_int8(q, c, codes, qf, k=k), tuple(np.asarray(x) for x in want))

@@ -47,6 +47,7 @@ def test_plan_constants_are_the_kernels():
     assert (c["kMaxStages"], c["kSmemLimit"], c["kMaxK"], c["kMaxD"]) == (
         ttk.MAX_STAGES, ttk.SMEM_LIMIT, ttk.MAX_K, ttk.MAX_DIM)
     assert c["kMergeWarps"] * 32 * c["kMaxChunks"] == ttk.MAX_BLOCKS
+    assert c["kRoundK"] == ttk.ROUND_K == 32
     assert "constexpr int kScStride = kRows + 4;" in COMMON.read_text()
     assert ttk.SCORE_STRIDE == ttk.TILE_ROWS + 4
 
@@ -248,6 +249,101 @@ def test_model_of_kernel_1_equals_plain(blocks, k):
                                                           tiles * (g + 1) // blocks)], k)
                  for g in range(blocks)]
         s, i = as_result(merge(lists, k))
+        assert s.tobytes() == s_ref[qi].numpy().tobytes()
+        assert i.tobytes() == i_ref[qi].numpy().tobytes()
+
+
+@pytest.mark.parametrize("k", [33, 64, 100, 256, 1024])
+@pytest.mark.parametrize("b", BATCHES)
+def test_plans_for_k_above_a_round(k, b):
+    """k above 32 takes ceil(k / 32) rounds of lists of 32: the grid, the
+    ring and the shared memory are those of k 32, the scratch holds one
+    round's lists (kernel 3's also the result's packed positions, read
+    back as floors)."""
+    for elt in (2, 1):
+        one = ttk.topk_plan(b, 131_072, 384, elt, 32, H100_SMS)
+        plan = ttk.topk_plan(b, 131_072, 384, elt, k, H100_SMS)
+        assert plan.rounds == -(-k // 32) and one.rounds == 1
+        assert plan[:5] == one[:5] and plan.scratch == one.scratch
+        assert plan.candidates == plan.blocks * 32
+        probe = probe_plan(b, 16_384, 128, 384, elt, k, H100_SMS)
+        probe32 = probe_plan(b, 16_384, 128, 384, elt, 32, H100_SMS)
+        assert probe.scratch == probe32.scratch + b * k and probe.rounds == plan.rounds
+
+
+def rounds(lists_of, k: int) -> list:
+    """The wrapper's rounds: round r runs the walk and the merge over the
+    candidates that rank after round r - 1's last entry (its floor), with
+    lists of min(32, k - 32 r); the rounds laid end to end."""
+    out, floor = [], None
+    for r0 in range(0, k, 32):
+        kr = min(32, k - r0)
+        entries = merge(lists_of(kr, floor), kr)
+        out += entries
+        floor = entries[-1]
+    return out
+
+
+def after(floor, cands: dict[int, float]) -> dict[int, float]:
+    return cands if floor is None else {r: s for r, s in cands.items()
+                                        if before(floor, (s, r))}
+
+
+@pytest.mark.parametrize("blocks", [1, 5, 47, 300])
+@pytest.mark.parametrize("k", [33, 64, 100])
+def test_model_of_kernel_1_rounds_equals_plain(blocks, k):
+    """Kernel 1 at k above 32, tie-heavy int8 rows: the rounds' result
+    equals masked_topk_plain's bit for bit, ties in row order across the
+    rounds' seams."""
+    rng = np.random.default_rng(blocks * 100 + k)
+    b, n, d, n_valid = 3, 3000, 64, 2990
+    q, c = tie_heavy_int8(rng, b, d, 3), tie_heavy_int8(rng, n, d)
+    codes = np.stack([rng.integers(0, 3, n), rng.integers(0, 2, n)]).astype(np.int32)
+    codes[:, n_valid:] = -2
+    qf = np.array([[-1, -1], [1, -1], [2, 0]], np.int32)
+    s_ref, i_ref = ttk.masked_topk_plain(*(torch.from_numpy(a) for a in (q, c, codes, qf)),
+                                         n_valid, k)
+    scores = q.astype(np.int64) @ c.astype(np.int64).T
+    tiles = -(-n // 64)
+    shares = [[64 * t for t in range(tiles * g // blocks, tiles * (g + 1) // blocks)]
+              for g in range(blocks)]
+    for qi in range(b):
+        ok = [r for r in range(n_valid)
+              if qf[qi, 0] in (-1, codes[0, r]) and qf[qi, 1] in (-1, codes[1, r])]
+        cands = {r: float(scores[qi, r]) for r in ok}
+        s, i = as_result(rounds(
+            lambda kr, floor: [block_list(after(floor, cands), mine, kr) for mine in shares], k))
+        assert s.tobytes() == s_ref[qi].numpy().tobytes()
+        assert i.tobytes() == i_ref[qi].numpy().tobytes()
+
+
+@pytest.mark.parametrize("k", [33, 64, 100])
+def test_model_of_kernel_3_rounds_equals_plain(k):
+    """Kernel 3 at k above 32: floors are packed positions, mapped to gids
+    only at the end, so ties keep packed order across the seams."""
+    rng = np.random.default_rng(k)
+    b, d, tile, n_tiles, blocks = 2, 64, 128, 12, 7
+    n = n_tiles * tile
+    emb = tie_heavy_int8(rng, n, d, 4)
+    gids = rng.permutation(4 * n)[:n].astype(np.int32)
+    gids[rng.random(n) < 0.3] = -1
+    codes = np.stack([rng.integers(0, 2, n), rng.integers(0, 2, n)]).astype(np.int32)
+    q = tie_heavy_int8(rng, b, d, 2)
+    qf = np.array([[-1, -1], [1, -1]], np.int32)
+    tile_ids = np.full(n_tiles, -1, np.int32)
+    tile_ids[:9] = sorted(rng.choice(n_tiles, 9, replace=False))
+    s_ref, i_ref = ivf_probe_plain(*(torch.from_numpy(a) for a in (
+        q, qf, emb, codes, gids[None, :], tile_ids)), k, tile=tile)
+    scores = q.astype(np.int64) @ emb.astype(np.int64).T
+    pieces = [t * tile + 64 * p for t in tile_ids[:9] for p in range(tile // 64)]
+    share = [pieces[len(pieces) * g // blocks: len(pieces) * (g + 1) // blocks]
+             for g in range(blocks)]
+    for qi in range(b):
+        cands = {r: float(scores[qi, r]) for r in range(n) if gids[r] >= 0
+                 and qf[qi, 0] in (-1, codes[0, r]) and qf[qi, 1] in (-1, codes[1, r])}
+        s, i = as_result(rounds(
+            lambda kr, floor: [block_list(after(floor, cands), mine, kr) for mine in share],
+            k), gids)
         assert s.tobytes() == s_ref[qi].numpy().tobytes()
         assert i.tobytes() == i_ref[qi].numpy().tobytes()
 
