@@ -7,7 +7,7 @@
                           [--resid-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
 
 Drives ``financial_rag_system_tpu_torch`` end to end on the card, in
-eight phases; any failure raises and the script exits non-zero:
+nine phases; any failure raises and the script exits non-zero:
 
 0. the card: name, power limit and compute capability (Hopper, 9.0);
 1. build: every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a``
@@ -19,9 +19,12 @@ eight phases; any failure raises and the script exits non-zero:
    and on a mask with every key valid, each beside its bound (the bytes
    and products of the keys that mask leaves) and its MUFU floor (and
    after phase 3 on that batch's own rerank mask); kernel 2's streaming
-   kernel at heads of 64 (12) and 128 (6) at the rerank shape; kernels 1
-   and 3 at k 33, 64, 100, 256 and 1024 (rounds of 32) in bf16 and int8,
-   with times, and bit for bit on tie-heavy exact rows;
+   kernel at heads of 64 (12) and 128 (6) at the rerank shape, and heads
+   of 24 and 40 (12), which the wrapper pads to 32 and 48; kernels 1 and 3
+   at k 33, 64, 100, 256, 1024 and 2048 (rounds of 32) in bf16 and int8,
+   with times, and bit for bit on tie-heavy exact rows; kernels 1 and 3 at
+   D 1536 and k 15 (one block an SM) in bf16, int8 (bit for bit) and on
+   tie-heavy exact bf16 rows (bit for bit);
 3. the main path: ``build_default_engine(device="cuda")`` over
    random-init full-width BGE-small and MiniLM-L6 checkpoints and a
    persisted 131,072-row flat index with a 368-wide token store; three
@@ -74,7 +77,24 @@ eight phases; any failure raises and the script exits non-zero:
    kernel 1's launches), one batch against the CPU; ``rebuild_index("ivf")``
    and a burst on the fused IVF hash program (kernel 3's launches, recall@15
    against the flat hash top-15); a TESTING-mode engine's ask in retrieval
-   order.
+   order;
+8. the HNSW path: a persisted 131,072-row clustered index (8 tickers, so
+   no burst filter is selective, and 1,000 rows of a rare ticker) behind
+   ``build_default_engine(device="cuda")`` with phase 3's checkpoints and
+   the C++ tokenizer, ``engine.rebuild_index("hnsw")`` (the native graph
+   built with g++ at first use, JAX's defaults and routing aids) with its
+   seconds by step, 3 single asks, two bursts of 32 (one fused
+   ``hnsw_full`` batch each), a rare-ticker ask on the staged path, an
+   upsert that enters the graph online and an ask that finds it, a cache
+   hit, the launches read around the run (kernel 2 six times a fused
+   batch, kernel 1 on the staged ask); the fused batch's recall@15 against
+   the exact flat top-15; the graph saved on the card and loaded on the
+   CPU, and the walk of the card's query vectors on both (rows identical
+   wherever neighbouring scores differ by more than 1e-5) with the CPU
+   rerank of the card's rows; a fused batch split into embed, routing and
+   walk, gather and rerank, and the walk's device time, launches and wall
+   time from the profiler; the same rows as an int8 corpus on the same
+   graph, one burst, and the card's walk bit for bit with the CPU's.
 
 The CPU references of phases 3-6 set ``RAG_TPU_FAST_GELU=1``: the card's
 default GELU is the tanh form and the CPU's exact erf, JAX's rule.
@@ -393,7 +413,8 @@ def check_topk(torch, np, smi: str, baseline: Path | None = None) -> dict:
     }
 
 
-LARGE_K = (33, 64, 100, 256, 1024)
+LARGE_K = (33, 64, 100, 256, 1024, 2048)
+WIDE_D = 1536  # rows wider than two blocks an SM hold: one block an SM
 PROBE_TILES, PROBE_ACTIVE = 2048, 1024  # phase 2's packing (128-row tiles) and probed tiles
 
 
@@ -418,13 +439,13 @@ def clear_ids_agree(np, s, i, s_ref, i_ref, what: str) -> tuple[float, int]:
     return err, int((i[fin] != i_ref[fin]).sum())
 
 
-def exact_rows(torch, n: int, distinct: int, seed: int, dtype):
-    """``n`` rows drawn from ``distinct`` integer vectors in -3..3 on the
-    card: as bf16 (v / 16) their dot products are exact with f32 sums in any
-    order, so the kernels meet their plain versions bit for bit, and the
-    repeated rows tie for real."""
+def exact_rows(torch, n: int, distinct: int, seed: int, dtype, d: int = D):
+    """``n`` rows of ``d`` values drawn from ``distinct`` integer vectors in
+    -3..3 on the card: as bf16 (v / 16) their dot products are exact with
+    f32 sums in any order, so the kernels meet their plain versions bit for
+    bit, and the repeated rows tie for real."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    base = torch.randint(-3, 4, (distinct, D), generator=g, device="cuda")
+    base = torch.randint(-3, 4, (distinct, d), generator=g, device="cuda")
     rows = base[torch.randint(0, distinct, (n,), generator=g, device="cuda")]
     return rows.to(torch.int8) if dtype == torch.int8 else (rows.float() / 16).bfloat16()
 
@@ -521,6 +542,66 @@ def check_large_k(torch, np, smi: str) -> None:
         f"versions (bf16 tie-heavy rows bit for bit, int8 bit for bit)")
 
 
+def check_wide_rows(torch, np, smi: str) -> None:
+    """Kernels 1 and 3 at D = WIDE_D, k 15 (plans of one block an SM),
+    against their plain versions: random unit rows in bf16 (scores within
+    1e-4, ids where clear of that noise, and the count that differ) and
+    int8 (bit for bit: exact sums cast once, rounding above D 1040), and
+    tie-heavy exact rows in bf16, every id and score bit for bit; with the
+    kernels' times, the plain versions' and the bounds.  Off the main
+    paths, which take D 384."""
+    from financial_rag_system_tpu_torch.index.flat import quantize_int8
+    from financial_rag_system_tpu_torch.index.ivf import ivf_probe, ivf_probe_plain, probe_plan
+    from financial_rag_system_tpu_torch.ops.topk import masked_topk, masked_topk_plain, topk_plan
+
+    d, n_valid = WIDE_D, N - 100
+    _, _, codes, qf = topk_inputs(torch, np.random.default_rng(SEED), n_valid)
+    _, pcodes, gids, tile_ids = probe_packing(torch, np, lambda n: None)
+    live = int((gids[0].view(-1, 128)[tile_ids[:PROBE_ACTIVE].long()] >= 0).sum())
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    unit = lambda n: torch.nn.functional.normalize(  # noqa: E731
+        torch.randn(n, d, generator=g, device="cuda"), dim=1)
+    q, c, emb = unit(B), unit(N), unit(PROBE_TILES * 128)
+    cases = {
+        "bf16": (q.bfloat16(), c.bfloat16(), emb.bfloat16()),
+        "int8": (quantize_int8(q), quantize_int8(c), quantize_int8(emb)),
+        "bf16 exact": (exact_rows(torch, B, 3, SEED + 20, torch.bfloat16, d),
+                       exact_rows(torch, N, 6, SEED + 21, torch.bfloat16, d),
+                       exact_rows(torch, PROBE_TILES * 128, 6, SEED + 22, torch.bfloat16, d)),
+    }
+    for dtype, (qd, cd, ed) in cases.items():
+        elt = cd.element_size()
+        peak = INT8_OP_PER_S if elt == 1 else BF16_FLOP_PER_S
+        flat = (qd, cd, codes, qf, n_valid, K)
+        probe = (qd, qf, ed, pcodes, gids, tile_ids, K)
+        for name, fn, plain, nbytes, ops, plan in (
+            ("kernel 1", lambda: masked_topk(*flat), lambda: masked_topk_plain(*flat),
+             N * (d * elt + 8) + B * (d * elt + 8) + B * K * 8, 2.0 * B * N * d,
+             topk_plan(B, N, d, elt, K, sms(torch))),
+            ("kernel 3", lambda: ivf_probe(*probe, tile=128),
+             lambda: ivf_probe_plain(*probe, tile=128),
+             PROBE_ACTIVE * 128 * 4 + live * (d * elt + 8) + B * (d * elt + 8) + B * K * 8,
+             2.0 * B * live * d, probe_plan(B, tile_ids.numel(), 128, d, elt, K, sms(torch))),
+        ):
+            what = f"[wide-d] {name} {dtype} D={d} k={K}"
+            s, i = (x.cpu().numpy() for x in fn())
+            torch.cuda.synchronize()
+            s_ref, i_ref = (x.cpu().numpy() for x in plain())
+            if dtype != "bf16":
+                if s.tobytes() != s_ref.tobytes() or i.tobytes() != i_ref.tobytes():
+                    raise AssertionError(f"{what}: not bit for bit with the plain version")
+                err, n_diff = 0.0, 0
+            else:
+                err, n_diff = clear_ids_agree(np, s, i, s_ref, i_ref, what)
+            ms = median_ms(fn, reps=10)
+            plain_ms = median_ms(plain, reps=3)
+            b_ms, b_by = bound_ms(nbytes, ops, peak)
+            log(f"{what} {smi}: B={B}, plan {plan.blocks} blocks x {plan.stages} stages: "
+                f"max_abs_err {err:.3g}, finite ids differing {n_diff} of "
+                f"{int(np.isfinite(s_ref).sum())}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by})")
+
+
 def attention_inputs(torch, np, p: int, s: int, h: int = 12, d: int = 32):
     """Random (p, s, h, d) f32 q, k and v on the card, and the kernel
     table's mask: lengths uniform in 1..s, pair 0 whole, the last pair
@@ -590,7 +671,7 @@ def time_attention_mask(torch, np, smi: str, label: str, q, k, v, mask_np,
     err = float((got - ref).abs().max())
     if err > 1e-2:
         raise AssertionError(f"attention, {label} mask, S={s}: differs by {err} > 1e-2")
-    qs, kb, vb = (t.contiguous() for t in attn._scaled_inputs(q, k, v, inv))
+    qs, kb, vb = attn.kernel_inputs(q, k, v, inv)  # heads padded to a multiple of 16
 
     def kernel():
         return attn.pair_attention_kernel(qs, kb, vb, mask)
@@ -663,6 +744,10 @@ def check_attention(torch, np, smi: str, baseline=None) -> dict:
     # paths, whose models have heads of 32
     for h, d in ((12, 64), (6, 128)):
         check_attention_at(torch, np, smi, PAIRS, 400, h=h, d=d)
+    # heads that are not a multiple of 16, zero-padded to 32 (the
+    # persistent kernel) and 48 (the streaming one) by the wrapper
+    for d in (24, 40):
+        check_attention_at(torch, np, smi, PAIRS, 400, h=12, d=d)
     return {
         "name": "pair_attention", "route": "cuda",
         "source": f"{PACKAGE}/csrc/pair_attention.cu",
@@ -1043,10 +1128,11 @@ def check_attention_gate(torch, np, main: dict, smi: str) -> None:
 
 
 def clustered_flat(torch, np, n: int, tok, seed: int, dev, plant=None,
-                   dtype=None):
+                   dtype=None, n_tickers: int = N_TICKERS):
     """A FlatIndex of ``n`` clustered unit rows made on ``dev`` (no host
-    copy of the corpus): N_TOPICS topic centres; N_TICKERS tickers x 3
-    document types drawn evenly, so no ticker is selective; RARE_ROWS rows
+    copy of the corpus): N_TOPICS topic centres; ``n_tickers`` tickers x 3
+    document types drawn evenly, so that at 1M rows (or 131,072 rows and 8
+    tickers) no ticker is selective; RARE_ROWS rows
     of the ticker RARE; a DLEN-wide token store of random wordpiece ids.
     ``plant`` = (query vectors, filters) gives each query K rows at cosines
     0.90, 0.88, ... under its filter, so its top K stand clear of rounding.
@@ -1071,10 +1157,10 @@ def clustered_flat(torch, np, n: int, tok, seed: int, dev, plant=None,
         wp = torch.randint(1000, 30522, (m, DLEN), generator=g, device=dev, dtype=torch.int32)
         dtok[s : s + m] = torch.where(cols < last, wp, torch.where(cols == last, SEP_ID, 0))
     rng = np.random.default_rng(seed)
-    tick = rng.integers(0, N_TICKERS, n)
-    tick[rng.choice(n, RARE_ROWS, replace=False)] = N_TICKERS
+    tick = rng.integers(0, n_tickers, n)
+    tick[rng.choice(n, RARE_ROWS, replace=False)] = n_tickers
     dtyp = rng.integers(0, len(DOC_TYPES), n)
-    names = [f"T{i:02d}" for i in range(N_TICKERS)] + [RARE]
+    names = [f"T{i:02d}" for i in range(n_tickers)] + [RARE]
     if plant is not None:
         qv, filters = plant
         for q, (t, d), rows in zip(qv, filters, rng.choice(n, (len(qv), K), replace=False)):
@@ -2272,6 +2358,395 @@ def drive_hash_path(torch, np, work: Path, smi: str) -> list[dict]:
     return runs
 
 
+# -- phase 8: the HNSW path ------------------------------------------------------
+
+# 16,384 rows a ticker over the 131,072: above HNSWIndex.SELECTIVE_LIMIT, so
+# that no filter of a burst is scored exactly (staged); RARE's rows are
+HNSW_TICKERS = 8
+HNSW_DIR = "index_hnsw"
+HNSW_NEAR = 1e-5  # rows compared wherever neighbouring scores differ by more
+
+
+def hnsw_state_on(torch, idx, dev):
+    """(emb, codes, adj, entries, pool rows, hierarchy) of ``idx``'s
+    snapshot on ``dev``: what hnsw_routed_walk reads."""
+    adj, ent, _pad, _ef, _rbt, _n, hier, pool = idx._graph_state
+    emb, codes, _ = idx.flat._arrays
+    hier = None if hier is None else (hier[0].to(dev), hier[1].to(dev), hier[2])
+    return (emb.to(dev), codes.to(dev), adj.to(dev), ent.to(dev), pool[0].to(dev), hier)
+
+
+def hnsw_walk_of(torch, idx, q, qf, dev):
+    """The routed walk of ``idx`` (its geometry and snapshot, on ``dev``)."""
+    from financial_rag_system_tpu_torch.index.hnsw import hnsw_routed_walk
+
+    emb, codes, adj, ent, pool, hier = hnsw_state_on(torch, idx, dev)
+    st = idx._graph_state
+    return hnsw_routed_walk(q.to(dev), qf.to(dev), emb, codes, adj, ent, pool, hier, K, ef=st[3],
+                            steps=idx.steps, frontier=idx.frontier, pad_id=st[2],
+                            take=st[7][3], descend=idx.descend if hier is not None else None)
+
+
+def rows_where_clear(np, rows, s_ref, rows_ref, what: str) -> int:
+    """The same rows wherever neighbouring reference scores differ by more
+    than HNSW_NEAR; returns how many rows differ in all."""
+    with np.errstate(invalid="ignore"):
+        gap = np.abs(np.diff(s_ref, axis=1))
+    near = np.zeros(s_ref.shape, bool)
+    near[:, 1:] |= ~(gap > HNSW_NEAR)
+    near[:, :-1] |= ~(gap > HNSW_NEAR)
+    if not (rows[~near] == rows_ref[~near]).all():
+        raise AssertionError(f"{what}: rows differ where the scores stand apart")
+    return int((rows != rows_ref).sum())
+
+
+def drive_hnsw_path(torch, np, work: Path, smi: str) -> dict:
+    """Phase 8, the HNSW tier as users reach it: a persisted 131,072-row
+    clustered index (the IVF corpus's topics, HNSW_TICKERS tickers, RARE's
+    rows, the 368-wide token store) behind ``build_default_engine(
+    device="cuda")`` with phase 3's checkpoints, promoted by
+    ``rebuild_index("hnsw")`` (the native build, JAX's defaults and
+    routing aids); 3 single asks, two bursts of 32 (one fused "hnsw_full"
+    batch each), a RARE ask (staged: its inverted list, kernel 1), an
+    upsert that enters the graph online and an ask that finds it, and a
+    cache hit, with the launches read around the run."""
+    from financial_rag_system_tpu_torch.index.hnsw import HNSWIndex
+    from financial_rag_system_tpu_torch.serving.app import build_default_engine
+    from financial_rag_system_tpu_torch.utils.config import reset_config
+
+    t0 = time.perf_counter()
+    flat = clustered_flat(torch, np, N, None, SEED + 4, torch.device("cuda"),
+                          n_tickers=HNSW_TICKERS)
+    flat.save(str(work / HNSW_DIR))
+    del flat
+    log(f"[hnsw] {N} clustered rows ({HNSW_TICKERS} tickers x {len(DOC_TYPES)} doc types, "
+        f"{RARE_ROWS} rows of {RARE}) made on the card and saved in "
+        f"{time.perf_counter() - t0:.1f} s")
+    with env_set(INDEX_DIR=str(work / HNSW_DIR), DATABASE_URL=str(work / "cache_hnsw.db")):
+        reset_config()
+        engine = build_default_engine(device="cuda")
+    tok = engine.embedder.tokenizer
+    if tok._get_native() is None:
+        raise AssertionError("the C++ tokenizer did not build or load")
+    t0 = time.perf_counter()
+    built = engine.rebuild_index("hnsw")  # the call behind POST /index/rebuild
+    build_s = time.perf_counter() - t0
+    idx = engine.index
+    adj, ent, pad, ef, _rbt, n_graph, hier, pool = idx._graph_state
+    kind = engine.queue_status()["fused_kind"]
+    if not (isinstance(idx, HNSWIndex) and idx._native is not None and kind == "hnsw_full"
+            and hier is not None and pool[3] > 0 and built["tail_rows"] == 0):
+        raise AssertionError(f"rebuild_index('hnsw'): {built}, fused_kind {kind!r}, native "
+                             f"{idx._native is not None}, hierarchy {hier is not None}")
+    split = {k: round(v, 3) for k, v in idx.build_seconds.items()}
+    log(f"[hnsw] {smi}: rebuild_index('hnsw') {build_s:.2f} s on {os.cpu_count()} host "
+        f"threads, by step (s) {split}; m {idx.m} efc {idx.ef_construction} ef {ef} "
+        f"(asked {idx.ef}) frontier {idx.frontier} steps {idx.steps}; {n_graph} rows, "
+        f"sentinel {pad}, {int((ent < pad).sum())} entries, hierarchy {hier[2]} nodes on "
+        f"{hier[1].shape[0]} levels (descent {idx.descend}), pool {pool[2]} rows, "
+        f"{pool[3]} seeds a query")
+
+    batches = []  # (size, fused, wall ms)
+    fused_exec, batch_fn = engine._fused_exec, engine.batcher.batch_fn
+    fused_n = [0]
+
+    def exec_spy(*a):
+        res = fused_exec(*a)
+        fused_n[0] += res is not None
+        return res
+
+    def timed_batch(queries, filters):
+        n0, t1 = fused_n[0], time.perf_counter()
+        out = batch_fn(queries, filters)
+        batches.append((len(queries), fused_n[0] > n0,
+                        round((time.perf_counter() - t1) * 1e3, 2)))
+        return out
+
+    engine._fused_exec, engine.batcher.batch_fn = exec_spy, timed_batch
+    engine.llm_semaphore = asyncio.Semaphore(B)
+    tickers = [f"T{i:02d}" for i in range(HNSW_TICKERS)]
+    singles = [("what was revenue growth in the last quarter (hnsw)", tickers[3], None),
+               ("analyze the margin trajectory (hnsw)", tickers[5], "10-K"),
+               ("supply chain risk (hnsw)", tickers[1], None)]
+    burst = [(f"hnsw question {i} about segment results and liquidity", tickers[i % HNSW_TICKERS],
+              DOC_TYPES[i % 3] if i % 2 else None) for i in range(B)]
+    fresh = [f"fresh filing note {i} (hnsw): the board approved a special dividend"
+             for i in range(4)]
+
+    async def scenario():
+        await engine.startup()
+        try:
+            answers = [await engine.ask(q, t, 5, d) for q, t, d in singles]
+            for n in range(2):
+                answers += await asyncio.gather(*[
+                    engine.ask(f"{q} (round {n})", t, 5, d) for q, t, d in burst])
+            rare = await engine.ask("liquidity risk of the rare issuer (hnsw)", RARE, 5)
+            added = await engine.ingest_chunks(
+                [f"fresh-{i}" for i in range(len(fresh))], fresh,
+                [{"ticker": "T05", "document_type": "10-K"}] * len(fresh))
+            found = await engine.ask(fresh[0], "T05", K)
+            await asyncio.sleep(0.2)  # write-behind cache saves land
+            repeat = await engine.ask(*singles[0][:2], 5, singles[0][2])
+        finally:
+            await engine.shutdown()
+        return answers, rare, added, found, repeat
+
+    reset_launches()
+    answers, rare, added, found, repeat = asyncio.run(scenario())
+    launches = read_launches()
+    engine._fused_exec, engine.batcher.batch_fn = fused_exec, batch_fn
+
+    shape = [(n, f) for n, f, _ in batches]
+    if shape != [(1, True)] * 3 + [(B, True)] * 2 + [(1, False), (1, True)]:
+        raise AssertionError(f"[hnsw] batches (size, fused) {shape}")
+    n_fused = sum(f for _, f in shape)
+    n_staged = len(shape) - n_fused
+    # kernel 2 once a rerank layer of a fused batch; kernel 1 once for the
+    # staged RARE ask (its inverted list); the walk itself is torch ops
+    want = want_launches(masked_topk=n_staged, pair_attention=6 * n_fused)
+    if launches != want:
+        raise AssertionError(f"[hnsw] launches {launches}, want {want}")
+    check_answers(np, answers + [rare], 5)
+    check_answers(np, [found], K)
+    if not all(f" of {RARE} " in s["text"] for s in rare["sources"]):
+        raise AssertionError(f"the {RARE} ask returned other tickers: {rare['sources']}")
+    if added != len(fresh) or idx._tail_rows or idx.n_graph != N + len(fresh):
+        raise AssertionError(f"upsert: {added} added, graph {idx.n_graph}, tail "
+                             f"{idx._tail_rows[:8]}")
+    if not any(s["text"] in fresh for s in found["sources"]):
+        raise AssertionError("the ask after the upsert did not find the upserted rows")
+    if not (repeat["cached"] and repeat["provider"] == "Cache"):
+        raise AssertionError("the repeated query was not a cache hit")
+    log(f"[hnsw] {smi}: launches {launches} over {n_fused} fused and {n_staged} staged "
+        f"batches; batch walls (size, fused, ms) {batches}; the upsert entered the graph "
+        f"online ({idx.n_graph} rows, no tail)")
+    return {"engine": engine, "burst": burst, "launches": launches}
+
+
+def hnsw_burst(torch, run: dict, dev="cuda"):
+    """The phase-8 burst as the engine's fused program takes it on ``dev``:
+    (ids, types, mask, qf) and the query vectors of the card's embed."""
+    from financial_rag_system_tpu_torch.ops.fused_query import _embed
+
+    engine = run["engine"]
+    args = fused_inputs(torch, engine, run["burst"], dev)
+    return args, _embed(engine.embedder.model, *args[:3])
+
+
+def check_hnsw_recall(torch, np, run: dict, smi: str) -> None:
+    """Recall@15 against the exact flat top-15 (kernel 1) of the same query
+    vectors and filters: the fused batch as served (each query's ticker,
+    half with a document type: a result-side filter matching 1/8 or 1/24
+    of the rows), the same vectors with no filter, and 32 queries drawn
+    like the corpus (a row plus the topics' noise) with no filter."""
+    from financial_rag_system_tpu_torch.ops.topk import masked_topk
+
+    engine = run["engine"]
+    idx = engine.index
+    args, qv = hnsw_burst(torch, run)
+    emb, codes, adj, ent, pool, hier = hnsw_state_on(torch, idx, "cuda")
+    rows, bi, _ = engine._fused_fn(engine.embedder.model, engine.reranker.model, *args, emb,
+                                   codes, adj, ent, idx.flat._arrays[2], pool, hier)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    near = emb[torch.randint(0, N, (B,), generator=g, device="cuda")].float()
+    near = torch.nn.functional.normalize(
+        near + TOPIC_NOISE / D**0.5 * torch.randn((B, D), generator=g, device="cuda"), dim=1)
+    anyf = torch.full((B, 2), -1, dtype=torch.int32, device="cuda")
+    lines = []
+    for what, q, qf, got in (
+        ("the fused batch as served", qv, args[3], rows),
+        ("its vectors unfiltered", qv, anyf, None),
+        ("queries drawn like the corpus, unfiltered", near, anyf, None),
+    ):
+        if got is None:
+            got = hnsw_walk_of(torch, idx, q, qf, "cuda")[1]
+        exact_s, exact_r = masked_topk(idx.flat.prep_queries(q), emb, codes, qf,
+                                       idx.flat.n_valid, K)
+        rec = recall_at_k(np, got.cpu().numpy()[:B], exact_s[:B], exact_r[:B])
+        lines.append(f"{what} mean {np.mean(rec):.4f}, lowest {min(rec):.4f}, "
+                     f"at 1.0 {rec.count(1.0)} of {B}")
+    log(f"[hnsw] {smi}: recall@{K} against the exact flat top-{K}: " + "; ".join(lines))
+
+
+def check_hnsw_against_cpu(torch, np, run: dict, work: Path, cpu_models) -> None:
+    """The graph saved on the card and loaded on the CPU (HNSWIndex.load):
+    identical adjacency, entries, hierarchy and pool.  The routed walk of
+    the card's query vectors on the card and on the CPU over that graph and
+    the same rows: rows identical wherever neighbouring scores differ by
+    more than HNSW_NEAR (the count that differ printed); the CPU rerank of
+    the card's rows within phase 3's 5e-2 of the card's logits."""
+    from financial_rag_system_tpu_torch.index.flat import FlatIndex
+    from financial_rag_system_tpu_torch.index.hnsw import HNSWIndex
+    from financial_rag_system_tpu_torch.ops.fused_query import _cross_rerank
+
+    engine = run["engine"]
+    idx = engine.index
+    directory = str(work / "hnsw_saved")
+    t0 = time.perf_counter()
+    idx.save(directory)
+    cpu = HNSWIndex.load(directory, FlatIndex.load(directory, device="cpu"))
+    load_s = time.perf_counter() - t0
+    native = idx._native
+    hi_ids, _levels, hi_adj = native.hierarchy()
+    cpu_ids, cpu_adj, cpu_n = cpu._graph_state[6]
+    same = (np.array_equal(cpu._host_graph[0], native.adjacency())
+            and np.array_equal(cpu._host_graph[1], native.entries(idx.entries_cap))
+            and cpu_n == len(hi_ids) and np.array_equal(cpu_ids[:cpu_n].numpy(), hi_ids)
+            and np.array_equal(cpu_adj[:, :cpu_n].numpy(), np.where(hi_adj < 0, cpu_n, hi_adj))
+            and np.array_equal(cpu._host_pool[0], idx._host_pool[0]))
+    if not same or cpu.n_graph != idx.n_graph or cpu._tail_rows:
+        raise AssertionError("the graph loaded on the CPU differs from the card's")
+    args, qv = hnsw_burst(torch, run)
+    s_c, r_c = (x.cpu().numpy() for x in hnsw_walk_of(torch, idx, qv, args[3], "cuda"))
+    s_r, r_r = (x.numpy() for x in hnsw_walk_of(torch, cpu, qv.cpu(), args[3].cpu(), "cpu"))
+    s_c, r_c, s_r, r_r = s_c[:B], r_c[:B], s_r[:B], r_r[:B]
+    n_diff = rows_where_clear(np, r_c, s_r, r_r, "[hnsw] card vs CPU walk")
+    fin = np.isfinite(s_r)
+    bi_err = float(np.abs(s_c[fin] - s_r[fin]).max())
+    # the rerank of the card's rows: the card's program and the CPU models
+    emb, codes, adj, ent, pool, hier = hnsw_state_on(torch, idx, "cuda")
+    rows, bi, ce = engine._fused_fn(engine.embedder.model, engine.reranker.model, *args, emb,
+                                    codes, adj, ent, idx.flat._arrays[2], pool, hier)
+    with env_set(**CPU_TANH):
+        ce_r = _cross_rerank(cpu_models[1].model, args[0].cpu(), rows.cpu(), bi.cpu(),
+                             cpu.flat._arrays[2], rerank_cfg=cpu_models[1].cfg)
+    ce, ce_r = ce.cpu().numpy()[:B], ce_r.numpy()[:B]
+    keep = np.isfinite(ce_r)
+    ce_err = float(np.abs(ce[keep] - ce_r[keep]).max())
+    if bi_err > 2 * HNSW_NEAR or ce_err > 5e-2 or not (np.isfinite(ce) == keep).all():
+        raise AssertionError(f"[hnsw] card vs CPU: bi err {bi_err}, ce err {ce_err}")
+    log(f"[hnsw] card vs CPU: the graph saved on the card and loaded on the CPU in "
+        f"{load_s:.1f} s has the same adjacency ({cpu.n_graph} x {2 * idx.m}), entries, "
+        f"hierarchy and pool; the walk of {B} queries: rows differing {n_diff} of "
+        f"{int(fin.sum())} (all where neighbouring scores lie within {HNSW_NEAR}), "
+        f"score err {bi_err:.3g}; rerank of the card's rows on the CPU: ce err {ce_err:.3g}")
+
+
+def profile_hnsw_batch(torch, np, run: dict, smi: str) -> None:
+    """One fused HNSW batch of 32 split into embed, routing and walk,
+    gather (token rows and pair assembly) and rerank by CUDA events
+    between the stages (median of 5); the routed walk alone under the
+    profiler: its device time, kernel launches and wall time; the whole
+    batch's device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from financial_rag_system_tpu_torch.ops import fused_query as fq
+
+    engine = run["engine"]
+    idx = engine.index
+    args, _ = hnsw_burst(torch, run)
+    emb, codes, adj, ent, pool, hier = hnsw_state_on(torch, idx, "cuda")
+    rerank = engine.reranker
+    splits = []
+    for _ in range(6):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        qv = fq._embed(engine.embedder.model, *args[:3])
+        ev[1].record()
+        bi, rows = hnsw_walk_of(torch, idx, qv, args[3], "cuda")
+        ev[2].record()
+        pair_q, pair_d = fq._gather_pairs(args[0], rows, idx.flat._arrays[2])
+        pairs = fq._assemble_pairs(pair_q, pair_d, rerank_cfg=rerank.cfg)
+        ev[3].record()
+        hh = rerank.model.encode(*pairs)
+        fq._pair_head(rerank.model, hh, pair_q.shape[0])
+        ev[4].record()
+        ev[4].synchronize()
+        splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
+    med = np.median(np.asarray(splits[1:]), axis=0)
+    names = ("embed", "routing and walk", "gather", "rerank")
+    log(f"[hnsw] {smi}: fused batch of {B} by stage (CUDA events, median of 5): "
+        + ", ".join(f"{n} {m:.3f} ms" for n, m in zip(names, med)) + f"; total {med.sum():.3f} ms")
+
+    def walk():
+        out = hnsw_walk_of(torch, idx, qv, args[3], "cuda")
+        torch.cuda.synchronize()
+        return out
+
+    walk()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        walk()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        walk()
+    dev_ms, kernels, by_name = 0.0, 0, []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        us = getattr(e, "self_cuda_time_total", 0) if us is None else us
+        if us > 0 and not e.key.startswith("aten::"):
+            dev_ms += us / 1e3
+            kernels += e.count
+            by_name.append((us / 1e3, e.count, e.key))
+    by_name.sort(reverse=True)
+    log(f"[hnsw] {smi}: the routed walk of {B} queries ({idx.steps} steps, descent "
+        f"{idx.descend}): wall {statistics.median(walls):.3f} ms (median of 5, synchronised), "
+        f"device {dev_ms:.3f} ms in {kernels} kernel launches; device idle share of the wall "
+        f"{1 - dev_ms / statistics.median(walls):.3f}")
+    for ms, count, key in by_name[:8]:
+        log(f"[hnsw]   {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+    profile_run(torch, lambda: engine._fused_fn(
+        engine.embedder.model, rerank.model, *args, emb, codes, adj, ent,
+        idx.flat._arrays[2], pool, hier), "fused_hnsw_two_stage", smi)
+
+
+def drive_hnsw_int8(torch, np, run: dict, smi: str) -> dict:
+    """The same rows as an int8 corpus (round(v * 127) of phase 8's rows,
+    the same store, codes and token store) on the same graph (the card's
+    native export, loaded: an int8 index walks the bf16 build's graph):
+    one burst of 32 through the engine (one fused hnsw_full batch, kernel 2
+    six times, kernel 1 never), then the card's routed walk against the
+    CPU's on the same int8 queries, rows and scores bit for bit."""
+    from financial_rag_system_tpu_torch.index.flat import FlatIndex, quantize_int8
+    from financial_rag_system_tpu_torch.index.hnsw import HNSWIndex
+    from financial_rag_system_tpu_torch.serving.engine import RAGEngine
+    from financial_rag_system_tpu_torch.utils.config import get_config
+
+    base = run["engine"]
+    src = base.index
+    emb, codes, dtok = src.flat._arrays
+    flat8 = FlatIndex(D, capacity=src.flat.capacity, tile=src.flat.tile, token_store_len=DLEN,
+                      tokenizer=base.embedder.tokenizer, device="cuda", dtype=torch.int8)
+    flat8._arrays = (quantize_int8(emb.float()), codes, dtok)
+    flat8.store = src.flat.store
+    native = src._native
+    idx8 = HNSWIndex(flat8, graph=(native.adjacency(), native.entries(src.entries_cap)),
+                     hier=native.hierarchy(), pool=src._host_pool)
+    engine = RAGEngine(get_config(), idx8, base.embedder, base.reranker)
+    if engine.queue_status()["fused_kind"] != "hnsw_full":
+        raise AssertionError("the int8 HNSW index did not fuse")
+    engine.llm_semaphore = asyncio.Semaphore(B)
+    sizes = []
+    batch_fn = engine.batcher.batch_fn
+    engine.batcher.batch_fn = lambda q, f: sizes.append(len(q)) or batch_fn(q, f)
+
+    async def scenario():
+        await engine.startup()
+        try:
+            return await asyncio.gather(*[engine.ask(f"{q} (hnsw int8)", t, 5, d)
+                                          for q, t, d in run["burst"]])
+        finally:
+            await engine.shutdown()
+
+    reset_launches()
+    answers = asyncio.run(scenario())
+    launches = read_launches()
+    if sizes != [B] or launches != want_launches(pair_attention=6):
+        raise AssertionError(f"[hnsw-int8] batches {sizes}, launches {launches}")
+    check_answers(np, answers, 5)
+    args, qv = hnsw_burst(torch, run)
+    q8 = quantize_int8(qv)
+    s_c, r_c = (x.cpu().numpy() for x in hnsw_walk_of(torch, idx8, q8, args[3], "cuda"))
+    s_r, r_r = (x.numpy() for x in hnsw_walk_of(torch, idx8, q8.cpu(), args[3].cpu(), "cpu"))
+    if s_c.tobytes() != s_r.tobytes() or r_c.tobytes() != r_r.tobytes():
+        raise AssertionError("[hnsw-int8] the card's walk differs from the CPU's")
+    log(f"[hnsw-int8] {smi}: {src.n_graph} int8 rows on the bf16 build's graph: a burst of "
+        f"{B} in one fused batch, launches {launches}; the card's walk equals the CPU's bit "
+        f"for bit ({int(np.isfinite(s_c).sum())} rows)")
+    return {"launches": launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -2318,7 +2793,10 @@ def main() -> int:
     import numpy as np
 
     smi = phase_card()
+    t0 = time.perf_counter()
     phase_build()
+    log(f"[build] phase 1 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     attn_baseline = (baseline_lib("pair_attention", opts.attn_baseline)
                      if opts.attn_baseline else None)
     ffn_baseline = (baseline_lib("fused_bert", opts.ffn_baseline)
@@ -2328,6 +2806,8 @@ def main() -> int:
     kernels = [check_topk(torch, np, smi, opts.topk_baseline),
                check_attention(torch, np, smi, attn_baseline)]
     check_large_k(torch, np, smi)
+    check_wide_rows(torch, np, smi)
+    log(f"[kernels] phase 2 took {time.perf_counter() - t0:.1f} s")
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         t0 = time.perf_counter()
@@ -2343,6 +2823,7 @@ def main() -> int:
         check_attention_gate(torch, np, main_run, smi)
         check_attention_batch_mask(torch, np, main_run, smi, attn_baseline)
         profile_batch(torch, main_run, smi)
+        log(f"[main] phase 3 took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         ivf_run = drive_ivf_path(torch, np, main_run, smi)
         kernels.append(check_ivf_kernel(torch, np, ivf_run, smi, opts.ivf_baseline))
@@ -2374,10 +2855,18 @@ def main() -> int:
         t0 = time.perf_counter()
         hash_runs = drive_hash_path(torch, np, work, smi)
         log(f"[hash] phase 7 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        hnsw_run = drive_hnsw_path(torch, np, work, smi)
+        check_hnsw_recall(torch, np, hnsw_run, smi)
+        check_hnsw_against_cpu(torch, np, hnsw_run, work, cpu_models)
+        profile_hnsw_batch(torch, np, hnsw_run, smi)
+        hnsw8_run = drive_hnsw_int8(torch, np, hnsw_run, smi)
+        del hnsw_run["engine"]
+        log(f"[hnsw] phase 8 took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # launches over the main paths, each counted from 0 around its run
-    runs = (main_run, ivf_run, block_run, int8_run, ivf8_run, *hash_runs)
+    runs = (main_run, ivf_run, block_run, int8_run, ivf8_run, *hash_runs, hnsw_run, hnsw8_run)
     for kern in kernels:
         name = kern["name"]
         kern["launches"] = sum(run["launches"][name] for run in runs)

@@ -134,11 +134,12 @@ int launch(const void* q, const void* packed_emb, const void* packed_codes,
            void* out, void* stream) {
   const int row_bytes = D * (int)sizeof(T);
   const size_t smem = smem_bytes(boxes_for(row_bytes), stages);
-  if (B < 1 || D < Elem<T>::kDimStep || D > kMaxD || D % Elem<T>::kDimStep != 0 || k < 1 ||
-      k > kMaxK || tile < kRows || tile % kRows != 0 || n_packed < tile || n_packed % tile != 0 ||
-      n_probe < 1 || blocks < 1 || blocks > kMaxBlocks || stages < 1 || stages > kMaxStages ||
-      smem > (size_t)kSmemLimit || !aligned16(q) || !aligned16(packed_emb) ||
-      !aligned16(packed_codes) || !aligned16(packed_gids) || !aligned16(scratch))
+  if (B < 1 || D < Elem<T>::kDimStep || row_bytes > kMaxRowBytes ||
+      D % Elem<T>::kDimStep != 0 || k < 1 || tile < kRows || tile % kRows != 0 ||
+      n_packed < tile || n_packed % tile != 0 || n_probe < 1 || blocks < 1 ||
+      blocks > kMaxBlocks || stages < 1 || stages > kMaxStages || smem > (size_t)kSmemLimit ||
+      !aligned16(q) || !aligned16(packed_emb) || !aligned16(packed_codes) ||
+      !aligned16(packed_gids) || !aligned16(scratch))
     return (int)cudaErrorInvalidValue;
   CUtensorMap qmap, rmap, cmap, gmap;
   if (!rows_map(&qmap, q, B, row_bytes, kQB) ||
@@ -188,9 +189,9 @@ int launch(const void* q, const void* packed_emb, const void* packed_codes,
 
 // Each returns a cudaError_t: 1 (cudaErrorInvalidValue) for shapes or a
 // plan the kernel does not take (D a multiple of 16 for bf16, of 32 for
-// int8, at most 1024; a tile a multiple of 64 dividing n_packed; 1-384
-// blocks; 1-16 stages within the shared-memory limit; q, the packing's
-// three arrays and scratch 16-byte aligned; k at most 1024), else the first
+// int8, rows of at most 6272 bytes; a tile a multiple of 64 dividing
+// n_packed; 1-384 blocks; 1-16 stages within the shared-memory limit; q,
+// the packing's three arrays and scratch 16-byte aligned; any k >= 1), else the first
 // failing launch's status.  `blocks` and `stages` come from index/ivf.py
 // probe_plan; out as masked_topk.cu's entries take it, and scratch too,
 // plus B * k words for the packed positions of the result when k > 32.

@@ -76,8 +76,8 @@ int launch(const void* q, const void* corpus, const void* codes, const void* qf,
            void* stream) {
   const int row_bytes = D * (int)sizeof(T);
   const size_t smem = smem_bytes(boxes_for(row_bytes), stages);
-  if (B < 1 || N < 1 || D < Elem<T>::kDimStep || D > kMaxD || D % Elem<T>::kDimStep != 0 ||
-      k < 1 || k > kMaxK || blocks < 1 || blocks > kMaxBlocks || stages < 1 ||
+  if (B < 1 || N < 1 || D < Elem<T>::kDimStep || row_bytes > kMaxRowBytes ||
+      D % Elem<T>::kDimStep != 0 || k < 1 || blocks < 1 || blocks > kMaxBlocks || stages < 1 ||
       stages > kMaxStages || smem > (size_t)kSmemLimit || !aligned16(q) || !aligned16(corpus) ||
       !aligned16(codes) || !aligned16(scratch))
     return (int)cudaErrorInvalidValue;
@@ -123,8 +123,8 @@ int launch(const void* q, const void* corpus, const void* codes, const void* qf,
 
 // Each returns a cudaError_t: 1 (cudaErrorInvalidValue) for shapes or a
 // plan the kernel does not take (D a multiple of 16 for bf16, of 32 for
-// int8, at most 1024; k at most 1024; 1-384 blocks; 1-16 stages within
-// the shared-memory limit; q, corpus, codes and scratch 16-byte aligned),
+// int8, rows of at most 6272 bytes; any k >= 1; 1-384 blocks; 1-16
+// stages within the shared-memory limit; q, corpus, codes and scratch 16-byte aligned),
 // else the first failing launch's status.  `blocks` and `stages` come from
 // ops/topk.py topk_plan; scratch holds a round's lists, 2 * B * min(k, 32)
 // * blocks int32 words; out receives the (B, k) f32 scores, then the

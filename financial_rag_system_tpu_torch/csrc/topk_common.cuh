@@ -28,7 +28,7 @@
 //    each list still in the running (a list whose entry j does not enter
 //    leaves, since its later entries rank lower still), and the four
 //    warps' lists merge pairwise through shared memory.
-// A k above 32 (up to kMaxK) runs in rounds of at most 32 (kRoundK): each
+// A k above 32 (any k) runs in rounds of at most 32 (kRoundK): each
 // round is the two launches above, and round r > 0 offers only the rows
 // that rank after round r - 1's last entry, its floor, which the round
 // reads from the result so far.  The lists hold one entry a lane, so a
@@ -36,7 +36,17 @@
 // the top k.  (Lists of k entries, ceil(k / 32) a lane, would not fit: a
 // consumer warp keeps the lists of four queries, 256 registers a lane at
 // k 1024, and a block's 32 lists of 1024 entries are 256 KB, above the
-// 227 KB of shared memory a block may take.)
+// 227 KB of shared memory a block may take.)  The floor is the only thing
+// a round carries, so k bounds nothing but the output: ceil(k / 32)
+// rounds, each a full pass over the rows or the probed tiles.  Rounds past
+// the last live row find nothing (a floor of -inf admits no row) and
+// leave -inf / -1.
+// The query block's boxes stay in shared memory for the whole walk, 4 KB
+// a box of 128 bytes (64 bf16 or 128 int8 values): up to 1,024 bf16
+// values a row two blocks share an SM with a ring of 3-8 boxes; wider
+// rows, up to kMaxRowBytes (49 boxes: D 3,136 in bf16, 6,272 in int8),
+// take one block an SM and the ring its remaining shared memory holds
+// (ops/topk.py plan_for).
 // Every comparison is on (score, id) with `before`, never on the score
 // alone, so the result is the top k by (score desc, id asc) whatever order
 // rows are visited in: relaunches are bit-identical.  The id is the row
@@ -45,7 +55,10 @@
 // Scores: each (query, row) sum runs over D in the same 32-byte k-steps,
 // with the same instruction and from zero, as the kernels of the design
 // before this one did, so bf16 scores keep their bits; an int8 score is an
-// s32 sum (exact, |sum| <= 127^2 * 1024 < 2^24) cast to f32.
+// s32 sum cast to f32, as the JAX kernel's int8 branch computes it.  The
+// s32 sum is exact (|sum| <= 127^2 * D < 2^31); up to D 1040, 127^2 * D <
+// 2^24 and the cast is exact too, above it the cast rounds to the nearest
+// f32 once (the plain versions sum in f64 and round the same way).
 
 #pragma once
 
@@ -75,8 +88,7 @@ constexpr int kSlotBytes = 1152;                 // codes [2][68], gids [64], po
 constexpr int kCodeBox = kRows + 4;              // codes a box: row 1 starts 4-aligned
 constexpr int kScStride = kRows + 4;             // floats a query's row of scores
 constexpr int kRoundK = 32;                      // entries a round finds: one a lane
-constexpr int kMaxK = 1024;
-constexpr int kMaxD = 1024;
+constexpr int kMaxRowBytes = 6272;               // 49 boxes: the widest row a plan takes
 constexpr int kMaxStages = 16;
 constexpr int kMergeWarps = 4;                   // pass 2: warps a query
 constexpr int kMaxChunks = 3;                    // pass 2: lists a lane

@@ -55,11 +55,11 @@ from financial_rag_system_tpu_torch.index.hnsw import kcenter_rows
 from financial_rag_system_tpu_torch.index.store import PAD_CODE
 from financial_rag_system_tpu_torch.ops import _cuda
 from financial_rag_system_tpu_torch.ops.topk import (
-    MAX_K,
     NEG_INF,
     TILE_ROWS,
     TopkPlan,
     _match_mask,
+    _scores,
     check_dims,
     plan_for,
 )
@@ -145,9 +145,10 @@ def ivf_probe_plain(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version (the port of ``ivf_probe_xla``): gather the
     probed tiles, score (exact products of bf16 or int8 values, f32 sums,
-    exact for int8), mask and take the top k with a stable sort, so equal
-    scores go to the earlier position of the ascending probe list — the
-    lower packed position.  Empty slots are -inf / -1."""
+    or exact int8 sums cast to f32 once), mask and take the top k with a
+    stable sort, so equal scores go to the earlier position of the
+    ascending probe list — the lower packed position.  Empty slots are
+    -inf / -1, also past the probed rows when k exceeds them."""
     dev = packed_emb.device
     t = tile_ids.clamp_min(0).long()
     offs = (t[:, None] * tile + torch.arange(tile, device=dev)).reshape(-1)
@@ -155,12 +156,16 @@ def ivf_probe_plain(
     pos = torch.where(active, offs, torch.zeros_like(offs))
     emb = packed_emb[pos]
     gids = torch.where(active, packed_gids[0, pos], torch.full_like(pos, -1, dtype=torch.int32))
-    scores = queries.to(emb.dtype).float() @ emb.float().T
+    scores = _scores(queries, emb)
     match = _match_mask(packed_codes[:, pos], query_filter) & (gids[None, :] >= 0)
     scores = torch.where(match, scores, torch.full_like(scores, NEG_INF))
     top_s, top_pos = torch.sort(scores, dim=1, descending=True, stable=True)
     top_s, top_pos = top_s[:, :k], top_pos[:, :k]
     top_i = torch.where(top_s > NEG_INF, gids[top_pos], torch.full_like(top_pos, -1, dtype=torch.int32))
+    if top_s.shape[1] < k:
+        pad = k - top_s.shape[1]
+        top_s = torch.nn.functional.pad(top_s, (0, pad), value=NEG_INF)
+        top_i = torch.nn.functional.pad(top_i, (0, pad), value=-1)
     return top_s, top_i.to(torch.int32)
 
 
@@ -212,8 +217,8 @@ def ivf_probe_cuda(
         raise ValueError(f"query_filter must be ({b}, 2) int32")
     if tile_ids.dim() != 1 or tile_ids.dtype != torch.int32 or tile_ids.numel() < 1:
         raise ValueError("tile_ids must be a non-empty 1-D int32 tensor")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k must be in [1, {MAX_K}], got {k}")
+    if k < 1:
+        raise ValueError(f"k must be at least 1, got {k}")
     for t in (queries, query_filter, packed_emb, packed_codes, packed_gids, tile_ids):
         if t.get_device() != dev.index or not t.is_contiguous():
             raise ValueError("inputs must be contiguous and on one CUDA device")

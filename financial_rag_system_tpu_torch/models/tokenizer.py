@@ -17,6 +17,7 @@ pipeline (bucketed padding, device forward, retrieval) runs for real.
 from __future__ import annotations
 
 import os
+import threading
 import unicodedata
 import zlib
 from dataclasses import dataclass
@@ -128,6 +129,44 @@ class WordPieceVocab:
         return ids
 
 
+def _native_takes(vocab) -> bool:
+    """Whether ``native/tokenizer.cpp`` gives this vocab's ids: a hash
+    vocab needs ids in [1000, vocab_size) and pieces of at least one
+    character (the C side divides by vocab_size - 1000 and steps by the
+    piece length); a vocab.txt must split into the same lines as Python's
+    reader (no CR and no NUL byte), with no line twice (C keeps the first
+    id, a dict the last) and the default word limit."""
+    if isinstance(vocab, HashVocab):
+        return vocab.vocab_size > 1000 and vocab.piece_len >= 1
+    if not isinstance(vocab, WordPieceVocab) or vocab.max_chars != 100:
+        return False
+    try:
+        with open(vocab.path, "rb") as f:
+            data = f.read()
+    except OSError:
+        return False
+    if b"\r" in data or b"\0" in data:
+        return False
+    lines = data.split(b"\n")
+    if lines and lines[-1] == b"":
+        lines.pop()
+    return len(set(lines)) == len(lines) == len(vocab.to_id)
+
+
+def _load_native(vocab):
+    """The C++ tokenizer for ``vocab`` (native/loader.py), or None."""
+    from financial_rag_system_tpu_torch.native.loader import load_native_tokenizer
+
+    if not _native_takes(vocab):
+        return None
+    if isinstance(vocab, HashVocab):
+        return load_native_tokenizer(vocab_size=vocab.vocab_size, piece_len=vocab.piece_len)
+    try:
+        return load_native_tokenizer(vocab_path=vocab.path)
+    except OSError:  # the vocab file went away since it was read
+        return None
+
+
 @dataclass
 class Encoded:
     input_ids: list[int]
@@ -148,13 +187,17 @@ class Tokenizer:
         self.vocab = vocab or HashVocab()
         self._word_cache: dict[str, list[int]] = {}
         self._native = None
+        self._native_tried = False
+        self._native_lock = threading.Lock()
 
     def _get_native(self):
-        """The C++ tokenizer for this vocab, or None.
-
-        The port has no native tokenizer yet (ROADMAP Queue 1), so every
-        text takes the pure-Python path, which gives the same ids.
-        """
+        """Lazy-load the C++ tokenizer for this vocab (None if unavailable,
+        or for a vocab the native side would not map as this class does)."""
+        if not self._native_tried:
+            with self._native_lock:
+                if not self._native_tried:
+                    self._native = _load_native(self.vocab)
+                    self._native_tried = True
         return self._native
 
     @staticmethod

@@ -15,7 +15,11 @@ device memory; the kernel keeps them on chip.
   other multiple of 16 up to 128 (BERT-base and -large: 64) take the
   streaming kernel of the same file, templated on the head width, which
   stages K and V in 64-key chunks and keeps the same two sweeps and
-  arithmetic.
+  arithmetic.  Any other head width up to 128 (JAX's gate sends every
+  d <= 128 to its kernel) is padded with zero columns to the next
+  multiple of 16 after q is scaled by the true 1/sqrt(d), and the
+  context is sliced back to d: zero columns add nothing to QK^T, and the
+  padded V columns are dropped, so the padding is exact.
 - :func:`encoder_self_attention_plain` is the same arithmetic in plain
   PyTorch: q pre-scaled in f32 then rounded to bf16, bf16 x bf16 logits
   summed in f32 plus a -1e9 key-padding bias, a full-row f32 softmax,
@@ -40,8 +44,10 @@ import torch
 from financial_rag_system_tpu_torch.ops import _cuda
 
 # head widths the kernels take: 32 (the persistent kernel), the rest the
-# streaming kernel (pair_attention_wide)
+# streaming kernel (pair_attention_wide); encoder_self_attention pads any
+# other width up to MAX_HEAD_DIM to the next of them
 HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 MAX_SEQ = 512
 NEG = -1e9
 
@@ -51,6 +57,17 @@ def _scaled_inputs(q, k, v, inv_sqrt):
     (B, S, H, D) tensor instead of the (B, H, S, S) logits); k and v bf16."""
     qs = (q.float() * inv_sqrt).to(torch.bfloat16)
     return qs, k.to(torch.bfloat16), v.to(torch.bfloat16)
+
+
+def kernel_inputs(q, k, v, inv_sqrt):
+    """The kernels' contiguous bf16 q, k and v: q scaled by the true d's
+    1/sqrt(d) first, then all three padded with zero columns to the next
+    multiple of 16 (no copy of the padding when d is one)."""
+    pad = -q.shape[-1] % 16
+    return tuple(
+        torch.nn.functional.pad(t, (0, pad)).contiguous() if pad else t.contiguous()
+        for t in _scaled_inputs(q, k, v, inv_sqrt)
+    )
 
 
 def encoder_self_attention_plain(
@@ -146,9 +163,11 @@ def encoder_self_attention(
     for name, t in (("k", k), ("v", v)):
         if t.shape != q.shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} != q {tuple(q.shape)}")
-    qs, kb, vb = (t.contiguous() for t in _scaled_inputs(q, k, v, inv_sqrt))
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"pair attention takes head_dim <= {MAX_HEAD_DIM}; got head_dim {d}")
+    qs, kb, vb = kernel_inputs(q, k, v, inv_sqrt)
     out = pair_attention_kernel(qs, kb, vb, attention_mask.to(torch.int32).contiguous())
-    return out.reshape(b, s, h * d).to(out_dtype)
+    return out[..., :d].reshape(b, s, h * d).to(out_dtype)
 
 
 # kernel launches since the last reset (chip_smoke.py reads and resets it)

@@ -2,11 +2,13 @@
 
 Port of the single-device paths of
 ``financial_rag_system_tpu/ops/fused_query.py``.  With the full model
-stack, the flat tier (:func:`fused_two_stage`, ``fused_kind == "full"``)
-and the IVF tier (:func:`fused_ivf_two_stage`, ``"ivf_full"``):
+stack, the flat tier (:func:`fused_two_stage`, ``fused_kind == "full"``),
+the IVF tier (:func:`fused_ivf_two_stage`, ``"ivf_full"``) and the HNSW
+tier (:func:`fused_hnsw_two_stage`, ``"hnsw_full"``):
 
-  q_ids --BGE encoder--> qv --masked top-k kernel (flat) or centroid
-        probe + probed-tiles kernel (IVF)--> rows
+  q_ids --BGE encoder--> qv --masked top-k kernel (flat), centroid
+        probe + probed-tiles kernel (IVF) or pool routing + descent +
+        graph walk (HNSW, torch ops: the JAX walk is XLA)--> rows
         --gather of pretokenized chunk ids from the device token store-->
         pair batch --MiniLM cross-encoder (pair-attention kernel)--> logits
 
@@ -324,6 +326,78 @@ def make_fused_ivf_query(
     return functools.partial(
         fused_ivf_two_stage, rerank_cfg=rerank_cfg, k=k, tile=tile,
         nprobe=nprobe, tiles_per_cluster=tiles_per_cluster,
+    )
+
+
+# ---------------------------------------------------------------------------
+# fused HNSW tier: embed -> pool routing -> descent -> graph walk -> rerank
+# ---------------------------------------------------------------------------
+
+
+@torch.inference_mode()
+def fused_hnsw_two_stage(
+    embed_model: bert.BertModel,
+    rerank_model: bert.BertModel,
+    q_ids: torch.Tensor,         # (B, LQ) int32
+    q_types: torch.Tensor,       # (B, LQ)
+    q_mask: torch.Tensor,        # (B, LQ)
+    query_filter: torch.Tensor,  # (B, 2) int32
+    emb: torch.Tensor,           # (cap, D) flat-index rows, bf16 or int8
+    codes: torch.Tensor,         # (2, cap) int32
+    adj_pad: torch.Tensor,       # (pad_id+1, 2M) int32 level-0 adjacency
+    entries: torch.Tensor,       # (E,) int32 fixed entries
+    doc_tokens: torch.Tensor,    # (cap, DLEN) flat-index token store
+    pool_rows: torch.Tensor | None = None,  # (P,) k-center pool, with pool_take
+    hier: tuple | None = None,              # (hi_ids, hi_adj, hi_n), with descend
+    *,
+    rerank_cfg: bert.BertConfig,
+    k: int,
+    ef: int,
+    steps: int,
+    frontier: int,
+    pad_id: int,
+    descend: tuple[int, int, int] | None = None,
+    pool_take: int = 0,
+):
+    """The graph tier's member of the fused family: the query embed, then
+    the k-center pool's seeds (``pool_take`` > 0) and the descent over the
+    upper levels (``descend``) where the snapshot has them, the
+    ring-visited beam walk (``index/hnsw.py``), the token gather and the
+    cross-encoder (pair-attention kernel), queued on the device with no
+    host sync.  Returns (rows, bi, ce)."""
+    from financial_rag_system_tpu_torch.index.hnsw import hnsw_routed_walk, walk_queries
+
+    qv = _embed(embed_model, q_ids, q_types, q_mask)
+    q = walk_queries(qv, emb.dtype)
+    bi_scores, rows = hnsw_routed_walk(
+        q, query_filter, emb, codes, adj_pad, entries, pool_rows, hier, k,
+        ef=ef, steps=steps, frontier=frontier, pad_id=pad_id, take=pool_take,
+        descend=descend,
+    )
+    logits = _cross_rerank(
+        rerank_model, q_ids, rows, bi_scores, doc_tokens, rerank_cfg=rerank_cfg,
+    )
+    return rows, bi_scores, logits
+
+
+def make_fused_hnsw_query(
+    rerank_cfg: bert.BertConfig,
+    *,
+    k: int,
+    ef: int,
+    steps: int,
+    frontier: int,
+    pad_id: int,
+    descend: tuple[int, int, int] | None = None,
+    pool_take: int = 0,
+):
+    """:func:`fused_hnsw_two_stage` with the walk's geometry bound: the
+    sentinel ``pad_id`` captured at build (the engine serves staged when
+    the live snapshot's differs), the descent's (beam, steps, frontier)
+    and the pool's seed count."""
+    return functools.partial(
+        fused_hnsw_two_stage, rerank_cfg=rerank_cfg, k=k, ef=ef, steps=steps,
+        frontier=frontier, pad_id=pad_id, descend=descend, pool_take=pool_take,
     )
 
 

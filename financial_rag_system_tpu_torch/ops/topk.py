@@ -15,11 +15,15 @@ plus the Pallas kernel's tie rule (equal scores go to the lower row id).
 
 A corpus is bf16 or int8 (``FlatIndex(dtype=torch.int8)``: symmetric
 quantization of unit rows, ``round(v * 127)``), with queries of the same
-type.  An int8 score is the integer dot product as f32: every partial
-sum is an integer of magnitude at most 127^2 * D < 2^24 (D <= 1024), so
-the f32 sum is exact in any order and equals JAX's int8 x int8 -> int32
--> f32 bit for bit, on the CPU and in the kernel alike.  The int8 branch
+type.  An int8 score is the integer dot product cast to f32 once, as
+JAX's int8 x int8 -> int32 -> f32: the kernel sums in s32, the plain
+version in f64, both exact (|sum| <= 127^2 * D), so the two agree bit for
+bit on the CPU and the card.  Up to D 1040 (127^2 * D < 2^24) the cast
+is exact too; above it, it rounds to the nearest f32.  The int8 branch
 counts its launches in ``masked_topk.launches_int8``.
+
+Any k runs (in ceil(k / 32) rounds on the card), and any D of at most
+``MAX_ROW_BYTES`` bytes a row: 3,136 bf16 or 6,272 int8 values.
 
 Filter encoding: each corpus row carries int32 ``[ticker_code,
 doc_type_code]``; each query carries required codes where ``-1`` means
@@ -39,9 +43,8 @@ import torch
 from financial_rag_system_tpu_torch.ops import _cuda
 
 NEG_INF = float("-inf")
-MAX_K = 1024  # the JAX wrapper's default tile
 ROUND_K = 32  # entries a round of kernels 1 and 3 finds (csrc/topk_common.cuh)
-MAX_DIM = 1024
+MAX_ROW_BYTES = 6272  # 49 boxes of 128 bytes: the query block's, in shared memory
 # D must be a multiple of one tensor-core step: m16n8k16 (bf16), m16n8k32 (int8)
 DIM_STEP = {torch.bfloat16: 16, torch.int8: 32}
 
@@ -58,6 +61,8 @@ SM_SMEM = 233_472             # shared memory of an SM, 1 KB of it a block's
 # the plan's defaults: ring stages (boxes of 64 rows x 128 bytes) and blocks an SM
 TOPK_STAGES = 8
 TOPK_PER_SM = 2
+# the fewest ring stages two blocks an SM may keep; wider rows take one block an SM
+MIN_SHARED_STAGES = 3
 
 
 def _check_dtype(corpus: torch.Tensor) -> None:
@@ -67,11 +72,22 @@ def _check_dtype(corpus: torch.Tensor) -> None:
 
 def check_dims(d: int, d_corpus: int, dtype: torch.dtype) -> None:
     """Raise unless query and corpus rows are both D wide, D a multiple of
-    the dtype's tensor-core step and at most MAX_DIM (the kernels' rule)."""
+    the dtype's tensor-core step and its rows at most MAX_ROW_BYTES (the
+    kernels' rule)."""
     step = DIM_STEP[dtype]
-    if d_corpus != d or d % step or d > MAX_DIM:
+    elt = torch.empty((), dtype=dtype).element_size()
+    if d_corpus != d or d % step or d * elt > MAX_ROW_BYTES:
         raise ValueError(f"dims: queries {d}, corpus {d_corpus} "
-                         f"({step} | D <= {MAX_DIM} for {dtype})")
+                         f"({step} | D <= {MAX_ROW_BYTES // elt} for {dtype})")
+
+
+def _scores(queries: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(B, N) f32 scores of the kernels: bf16 products summed in f32, or
+    int8 products summed exactly (f64 holds every sum) and cast to f32
+    once, as the kernels' s32 sums are."""
+    if rows.dtype == torch.int8:
+        return (queries.to(torch.int8).double() @ rows.double().T).float()
+    return queries.to(rows.dtype).float() @ rows.float().T
 
 
 def _match_mask(codes: torch.Tensor, query_filter: torch.Tensor) -> torch.Tensor:
@@ -91,9 +107,7 @@ def masked_topk_plain(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version. queries (B, D), corpus (N, D), codes (2, N)."""
     _check_dtype(corpus)
-    q = queries.to(corpus.dtype).float()
-    # each product exact; f32 sums (exact for int8: integers below 2^24)
-    scores = q @ corpus.float().T
+    scores = _scores(queries, corpus)
     n = corpus.shape[0]
     valid = torch.arange(n, device=corpus.device)[None, :] < int(n_valid)
     mask = _match_mask(codes, query_filter) & valid
@@ -138,14 +152,24 @@ def plan_for(b: int, tiles: int, row_bytes: int, k: int, sms: int,
     ``per_sm`` blocks an SM shared by the query blocks, never more blocks
     than tiles or than pass 2 merges, each with as many ring stages as its
     share of the SM's shared memory holds, up to ``stages`` (two blocks an
-    SM keep three at D 1024 in bf16, eight at D 384).  A k above ROUND_K
+    SM keep three at D 1024 in bf16, eight at D 384).  Rows too wide for
+    MIN_SHARED_STAGES stages at ``per_sm`` blocks an SM take one block an
+    SM (up to MAX_ROW_BYTES, where one stage is left).  A k above ROUND_K
     takes ceil(k / ROUND_K) rounds, each finding the next ROUND_K entries
     with lists of one entry a lane, so the lists, the shared memory and the
     scratch are a round's whatever k is."""
     qblocks = -(-b // QUERY_BLOCK)
-    budget = min(SM_SMEM // per_sm - 1024, SMEM_LIMIT)
-    room = (budget - topk_smem(row_bytes, 0)) // (TILE_ROWS * BOX_BYTES)
-    n_stages = min(stages, MAX_STAGES, room)
+
+    def room(blocks_an_sm: int) -> int:
+        budget = min(SM_SMEM // blocks_an_sm - 1024, SMEM_LIMIT)
+        return (budget - topk_smem(row_bytes, 0)) // (TILE_ROWS * BOX_BYTES)
+
+    if per_sm > 1 and room(per_sm) < MIN_SHARED_STAGES:
+        per_sm = 1
+    n_stages = min(stages, MAX_STAGES, room(per_sm))
+    if n_stages < 1:
+        raise ValueError(f"rows of {row_bytes} bytes leave no ring stage "
+                         f"(at most {MAX_ROW_BYTES})")
     blocks = max(1, min(tiles, sms * per_sm // qblocks, MAX_BLOCKS))
     kr = min(k, ROUND_K)
     return TopkPlan(blocks, qblocks, n_stages, topk_smem(row_bytes, n_stages), tiles,
@@ -188,8 +212,8 @@ def masked_topk_cuda(
         raise ValueError(f"codes must be (2, {n}) int32")
     if query_filter.shape != (b, 2) or query_filter.dtype != torch.int32:
         raise ValueError(f"query_filter must be ({b}, 2) int32")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k must be in [1, {MAX_K}], got {k}")
+    if k < 1:
+        raise ValueError(f"k must be at least 1, got {k}")
     for t in (queries, corpus, codes, query_filter):
         if t.get_device() != dev.index or not t.is_contiguous():
             raise ValueError("inputs must be contiguous and on one CUDA device")

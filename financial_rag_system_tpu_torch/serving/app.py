@@ -1,7 +1,7 @@
 """HTTP serving shell (aiohttp) and the default engine wiring.
 
 Port of ``financial_rag_system_tpu/serving/app.py`` for the single-device
-flat and IVF tiers.  Endpoints and semantics follow the reference's
+flat, IVF and HNSW tiers.  Endpoints and semantics follow the reference's
 FastAPI surface:
 
 - ``POST /ask``       {query, ticker, document_type?, top_k=5} -> answer doc
@@ -10,9 +10,8 @@ FastAPI surface:
 - ``DELETE /cache/clear/{ticker}`` -> {cleared_entries: N}
 - ``POST /index/upsert``, ``POST /index/save`` (the active tier's files;
   other tiers' files in ``INDEX_DIR`` are deleted)
-- ``POST /index/rebuild`` {tier?: "ivf"} -> promote to / rebuild the IVF
-  tier (400 on a bad body or an unknown tier, 501 for "hnsw", which is
-  not ported)
+- ``POST /index/rebuild`` {tier?: "ivf" | "hnsw"} -> promote to / rebuild
+  the IVF or HNSW tier (400 on a bad body or an unknown tier)
 - ``GET /health`` ``/ready`` ``/queue_status`` ``/metrics`` ``/traces``
 
 Validation uses pydantic and returns 422 on schema errors.  ``aiohttp``
@@ -28,6 +27,7 @@ import os
 
 import torch
 
+from financial_rag_system_tpu_torch.index.hnsw import HNSWIndex
 from financial_rag_system_tpu_torch.index.ivf import IVFIndex
 from financial_rag_system_tpu_torch.obs.tracing import get_tracer
 from financial_rag_system_tpu_torch.serving.engine import RAGEngine
@@ -36,8 +36,9 @@ from financial_rag_system_tpu_torch.utils.device import resolve_device
 # tier files the JAX package may also have written to INDEX_DIR: a save
 # deletes those that do not describe the saved tier, so a restart (of
 # either package) never pairs them with a newer corpus
-HNSW_GRAPH_FILE = "hnsw_graph.npz"
 SHARDED_FILES = ("sharded_index.npz", "sharded_hnsw_graph.npz")
+# at most one tier file survives a save; a restart restores the first found
+TIER_FILES = ((HNSWIndex, HNSWIndex.GRAPH_FILE), (IVFIndex, IVFIndex.IVF_FILE))
 
 
 def _models():
@@ -138,9 +139,7 @@ def create_app(engine: RAGEngine):
         directory = engine.cfg.index_dir
         idx = engine.index
         await asyncio.to_thread(idx.save, directory)
-        stale = [*SHARDED_FILES, HNSW_GRAPH_FILE]
-        if not isinstance(idx, IVFIndex):
-            stale.append(IVFIndex.IVF_FILE)
+        stale = [*SHARDED_FILES] + [f for klass, f in TIER_FILES if not isinstance(idx, klass)]
         for fname in stale:
             path = os.path.join(directory, fname)
             if os.path.exists(path):
@@ -162,10 +161,7 @@ def create_app(engine: RAGEngine):
                 {"detail": f"unknown tier {tier!r}; expected ivf|hnsw"},
                 status=400,
             )
-        try:
-            out = await asyncio.to_thread(engine.rebuild_index, tier)
-        except NotImplementedError as exc:
-            return web.json_response({"detail": str(exc)}, status=501)
+        out = await asyncio.to_thread(engine.rebuild_index, tier)
         return web.json_response(out)
 
     async def health(request: web.Request) -> web.Response:
@@ -207,13 +203,14 @@ def build_default_engine(
     mode: str = "batched", device: str | torch.device = "cuda"
 ) -> RAGEngine:
     """Wire an engine from env config on one device: the persisted index
-    in ``INDEX_DIR`` if there is one (flat, promoted to the IVF tier when
-    an ``ivf_index.npz`` that covers it is there; bf16 or int8 as it was
-    saved), else an empty flat index of ``RAG_TPU_INDEX_DTYPE``
-    (``bfloat16`` or ``int8``).  Models come from ``RAG_TPU_BGE_DIR`` /
-    ``RAG_TPU_RERANKER_DIR``; without them the hermetic hash stack
-    serves, with the identity reranker in TESTING mode, so the server
-    starts with no files on disk."""
+    in ``INDEX_DIR`` if there is one (flat, promoted to the HNSW or the
+    IVF tier when an ``hnsw_graph.npz`` or an ``ivf_index.npz`` that
+    covers it is there; bf16 or int8 as it was saved), else an empty
+    flat index of ``RAG_TPU_INDEX_DTYPE`` (``bfloat16`` or ``int8``).
+    Models come from ``RAG_TPU_BGE_DIR`` / ``RAG_TPU_RERANKER_DIR``;
+    without them the hermetic hash stack serves, with the identity
+    reranker in TESTING mode, so the server starts with no files on
+    disk."""
     from financial_rag_system_tpu_torch.index.flat import FlatIndex
     from financial_rag_system_tpu_torch.models.embedder import get_embedder
     from financial_rag_system_tpu_torch.models.reranker import get_reranker
@@ -232,13 +229,13 @@ def build_default_engine(
     tok = embedder.tokenizer
     if os.path.exists(os.path.join(cfg.index_dir, "flat_index.npz")):
         index = FlatIndex.load(cfg.index_dir, tokenizer=tok, device=dev)
-        if os.path.exists(os.path.join(cfg.index_dir, IVFIndex.IVF_FILE)):
-            try:
-                index = IVFIndex.load(cfg.index_dir, index)
-            except ValueError as exc:  # stale file: serve flat instead
-                print(f"ignoring persisted IVFIndex: {exc}")
-        elif os.path.exists(os.path.join(cfg.index_dir, HNSW_GRAPH_FILE)):
-            print(f"{HNSW_GRAPH_FILE}: the HNSW tier is not ported; serving flat")
+        for klass, fname in TIER_FILES:
+            if os.path.exists(os.path.join(cfg.index_dir, fname)):
+                try:
+                    index = klass.load(cfg.index_dir, index)
+                except ValueError as exc:  # stale file: serve flat instead
+                    print(f"ignoring persisted {klass.__name__}: {exc}")
+                break
     else:
         index = FlatIndex(
             embedder.dim, tile=cfg.corpus_tile,

@@ -1,7 +1,7 @@
 """The RAG engine: cache -> route -> embed+retrieve -> rerank -> generate.
 
 Port of ``financial_rag_system_tpu/serving/engine.py`` for the
-single-device flat and IVF tiers, with the full model stack or the
+single-device flat, IVF and HNSW tiers, with the full model stack or the
 hermetic hash stack (the reference's TESTING mode, and every start with
 no checkpoints).  The reference's behavioral surface is kept:
 
@@ -17,17 +17,20 @@ no checkpoints).  The reference's behavioral surface is kept:
 
 In "batched" mode the dynamic batcher hands each batch to the fused
 device path (:mod:`ops.fused_query`): embed, masked top-k (flat,
-``fused_kind == "full"``) or centroid probe and probed-tiles search (IVF,
-``"ivf_full"``), token gather and cross-encoder rerank are queued on the
+``fused_kind == "full"``), centroid probe and probed-tiles search (IVF,
+``"ivf_full"``) or pool routing, descent and graph walk (HNSW,
+``"hnsw_full"``), token gather and cross-encoder rerank are queued on the
 device with one host readback per batch.  The hash stack fuses the same
 way (``"hash"``, ``"ivf_hash"``): its query bag, the same kernels and,
 with a token store and a non-identity reranker, the de-aliased hash
 rerank (``fused_hash_rerank``); the identity reranker keeps retrieval
-order, and without a store the staged ``HashReranker.score`` reranks.  The staged path (embed, then
-``index.search_batch``, then a host-driven rerank) serves batches the
-fused path cannot take: IVF tail rows, a selective filter, or a geometry
-changed by a churn rebuild.  ``rebuild_index`` promotes a flat corpus to
-the IVF tier (``POST /index/rebuild``).
+order, and without a store the staged ``HashReranker.score`` reranks;
+the hash stack on an HNSW index serves staged, as in JAX.  The staged
+path (embed, then ``index.search_batch``, then a host-driven rerank)
+serves batches the fused path cannot take: IVF or HNSW tail rows, a
+selective filter, or a geometry changed by a churn rebuild or a graph
+rebuild.  ``rebuild_index`` promotes a flat corpus to the IVF or the
+HNSW tier (``POST /index/rebuild``).
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import torch
 
 from financial_rag_system_tpu_torch.index.base import selective_rows
 from financial_rag_system_tpu_torch.index.flat import FlatIndex
+from financial_rag_system_tpu_torch.index.hnsw import HNSWIndex
 from financial_rag_system_tpu_torch.index.ivf import IVFIndex
 from financial_rag_system_tpu_torch.models.embedder import BiEncoder, HashEmbedder
 from financial_rag_system_tpu_torch.models.reranker import (
@@ -143,7 +147,7 @@ class RAGEngine:
           store (or an auto store that materializes on the first ingest):
           "full" on the flat tier, "ivf_full" on the IVF tier, with the
           flat scan replaced by centroid probing and the probed-tiles
-          kernel;
+          kernel, "hnsw_full" on the HNSW tier, with the graph walk;
         - the hash stack: "hash" and "ivf_hash", with the de-aliased hash
           rerank fused where the reranker is not the identity and the
           index has a token store.
@@ -153,13 +157,14 @@ class RAGEngine:
         (None, None, None, False)."""
         from financial_rag_system_tpu_torch.ops.fused_query import (
             make_fused_hash_query,
+            make_fused_hnsw_query,
             make_fused_ivf_hash_query,
             make_fused_ivf_query,
             make_fused_query,
         )
 
         index = self.index
-        flat = index.flat if isinstance(index, IVFIndex) else index
+        flat = index.flat if isinstance(index, (IVFIndex, HNSWIndex)) else index
         full_stack = (
             isinstance(self.embedder, BiEncoder)
             and isinstance(self.reranker, CrossEncoderReranker)
@@ -173,6 +178,23 @@ class RAGEngine:
         ):
             return None, None, None, False
         k = self.cfg.retrieve_k
+        if isinstance(index, HNSWIndex):
+            if not full_stack:
+                return None, None, None, False  # the hash stack serves staged
+            state = index._graph_state
+            pool = state[7]
+            pool_take = pool[3] if pool is not None else 0
+            # geometry captured at build: the sentinel and which routing
+            # aids the program runs; _fused_exec compares it with each
+            # snapshot's and serves staged on a mismatch (a rebuild raced)
+            geom = (state[2], state[6] is not None, pool_take)
+            fn = make_fused_hnsw_query(
+                self.reranker.cfg, k=k, ef=state[3], steps=index.steps,
+                frontier=index.frontier, pad_id=state[2],
+                descend=index.descend if state[6] is not None else None,
+                pool_take=pool_take,
+            )
+            return fn, "hnsw_full", geom, False
         hash_rerank = hash_stack and not self.reranker.identity and flat.token_store_enabled
         if isinstance(index, IVFIndex):
             # geometry captured at build: a churn-triggered auto-rebuild
@@ -316,6 +338,24 @@ class RAGEngine:
                 return None  # a selective filter is scored exactly, staged
             doc_tok = index.flat._arrays[2]
             corpus, n_valid = (st.centroids, st.packed_emb, st.packed_codes, st.packed_gids), ()
+        elif kind == "hnsw_full" and isinstance(index, HNSWIndex):
+            if index._tail_rows:
+                return None  # tail rows need the exact merge of the staged path
+            state = index._graph_state  # one read
+            adj, entries, pad_id, _ef, rbt, _n, hier, pool = state
+            pool_take = pool[3] if pool is not None else 0
+            if (pad_id, hier is not None, pool_take) != geom:
+                return None  # a rebuild changed the graph's geometry
+            if selective_rows(rbt, codes, index.SELECTIVE_LIMIT) is not None:
+                return None  # a selective filter is scored exactly, staged
+            emb, idx_codes, doc_tok = index.flat._arrays
+            if doc_tok is None:
+                return None  # auto token store not yet materialized
+            rows, bi, ce = fused(
+                *batch, emb, idx_codes, adj, entries, doc_tok,
+                pool[0] if pool_take > 0 else None, hier,
+            )
+            return rows, bi, ce, None
         else:
             return None  # a tier promotion raced the program swap
         store = () if hashed and not hash_rerank else (doc_tok,)
@@ -473,34 +513,35 @@ class RAGEngine:
             return await asyncio.to_thread(work)
 
     def rebuild_index(self, tier: str | None = None) -> dict[str, Any]:
-        """Promote the flat index to the IVF tier, or rebuild the IVF tier
-        after tail growth.  Fusion re-evaluates afterwards.
+        """Promote the flat index to a sub-linear tier, or rebuild the
+        current tier after tail growth.  Fusion re-evaluates afterwards.
 
-        tier: "ivf" | None (None keeps the current tier, or defaults a
-        flat index to IVF).  "hnsw" raises NotImplementedError: that tier
-        is not ported yet, and nothing stands in for it.
+        tier: "ivf" | "hnsw" | None (None keeps the current tier, or
+        defaults a flat index to IVF).
         """
-        if tier == "hnsw":
-            raise NotImplementedError(
-                "the HNSW tier is not ported to financial_rag_system_tpu_torch "
-                "yet (ROADMAP Queue 1); use tier 'ivf'"
-            )
-        if tier not in (None, "ivf"):
+        if tier not in (None, "ivf", "hnsw"):
             return {"status": "error", "reason": f"unknown tier {tier!r}"}
+        current = type(self.index).__name__
         if self.index.n_valid == 0:
             return {"status": "noop", "reason": "index empty"}
-        if isinstance(self.index, IVFIndex):
+        flat = getattr(self.index, "flat", self.index)
+        if not isinstance(flat, FlatIndex):
+            return {"status": "noop", "reason": f"{current} has no tiers"}
+        want = tier or {"HNSWIndex": "hnsw"}.get(current, "ivf")
+        if want == "ivf":
+            if isinstance(self.index, IVFIndex):
+                self.index.rebuild()
+            else:
+                self.index = IVFIndex(flat, tile=min(flat.tile, 128))
+        elif isinstance(self.index, HNSWIndex):
             self.index.rebuild()
-        elif isinstance(self.index, FlatIndex):
-            flat = self.index
-            self.index = IVFIndex(flat, tile=min(flat.tile, 128))
         else:
-            return {"status": "noop", "reason": f"{type(self.index).__name__} has no tiers"}
+            self.index = HNSWIndex(flat)
         self._fused = self._maybe_build_fused()
         return {
             "status": "ok",
             "tier": type(self.index).__name__,
-            "clusters": self.index.n_clusters,
+            "clusters": getattr(self.index, "n_clusters", None),
             "tail_rows": len(self.index._tail_rows),
         }
 

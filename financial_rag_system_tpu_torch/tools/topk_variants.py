@@ -84,12 +84,13 @@ SCORE = ("score_box<T>(acc, qs + b * kQBox, ring + s * kBox, "
 # registers, the warp's 8 rows of each tile inserted by a swap chain, the
 # warps' lists merged in shared memory (the score buffers) at the end
 OLD_SELECT_FNS = r'''
-__device__ __forceinline__ bool old_insert(float (&ls)[kMaxK], int (&li)[kMaxK], float s, int id) {
-  if (!before(s, id, ls[kMaxK - 1], li[kMaxK - 1])) return false;
-  ls[kMaxK - 1] = s;
-  li[kMaxK - 1] = id;
+constexpr int kOldK = 32;  // the two-pass design's list: 32 entries a lane
+__device__ __forceinline__ bool old_insert(float (&ls)[kOldK], int (&li)[kOldK], float s, int id) {
+  if (!before(s, id, ls[kOldK - 1], li[kOldK - 1])) return false;
+  ls[kOldK - 1] = s;
+  li[kOldK - 1] = id;
 #pragma unroll
-  for (int p = kMaxK - 1; p > 0; --p) {
+  for (int p = kOldK - 1; p > 0; --p) {
     if (before(ls[p], li[p], ls[p - 1], li[p - 1])) {
       const float t = ls[p]; ls[p] = ls[p - 1]; ls[p - 1] = t;
       const int u = li[p]; li[p] = li[p - 1]; li[p - 1] = u;
@@ -107,10 +108,10 @@ __device__ __forceinline__ void consume_old(const Smem& m, int nbox, int row_byt
   const int q = qb0 + lane;
   const bool live = q < B;
   const int tq = live ? qf[2 * q] : -3, dq = live ? qf[2 * q + 1] : -3;
-  float os[kMaxK];
-  int oi[kMaxK];
+  float os[kOldK];
+  int oi[kOldK];
 #pragma unroll
-  for (int j = 0; j < kMaxK; ++j) { os[j] = -INFINITY; oi[j] = kNoId; }
+  for (int j = 0; j < kOldK; ++j) { os[j] = -INFINITY; oi[j] = kNoId; }
   const uint32_t qs = smem_addr(m.q), ring = smem_addr(m.ring);
   mbar_wait(m.qbar, 0);
   int s = 0, ph = 0;
@@ -149,31 +150,31 @@ __device__ __forceinline__ void consume_old(const Smem& m, int nbox, int row_byt
   // the warps' lists merge into warp 0's, one warp at a time, through
   // the score buffers
   float* ms = m.sc;
-  int* mi = reinterpret_cast<int*>(m.sc + kQB * kMaxK);
+  int* mi = reinterpret_cast<int*>(m.sc + kQB * kOldK);
   for (int w = 1; w < kConsumers; ++w) {
     named_barrier(1, kConsumers * 32);
     if (warp == w) {
 #pragma unroll
-      for (int j = 0; j < kMaxK; ++j) { ms[lane * kMaxK + j] = os[j]; mi[lane * kMaxK + j] = oi[j]; }
+      for (int j = 0; j < kOldK; ++j) { ms[lane * kOldK + j] = os[j]; mi[lane * kOldK + j] = oi[j]; }
     }
     named_barrier(1, kConsumers * 32);
     if (warp == 0) {
-      for (int j = 0; j < kMaxK; ++j)
-        if (!old_insert(os, oi, ms[lane * kMaxK + j], mi[lane * kMaxK + j])) break;
+      for (int j = 0; j < kOldK; ++j)
+        if (!old_insert(os, oi, ms[lane * kOldK + j], mi[lane * kOldK + j])) break;
     }
   }
   // warp 0's lists to the warps that own the queries, through shared memory
   named_barrier(1, kConsumers * 32);
   if (warp == 0) {
 #pragma unroll
-    for (int j = 0; j < kMaxK; ++j) { ms[lane * kMaxK + j] = os[j]; mi[lane * kMaxK + j] = oi[j]; }
+    for (int j = 0; j < kOldK; ++j) { ms[lane * kOldK + j] = os[j]; mi[lane * kOldK + j] = oi[j]; }
   }
   named_barrier(1, kConsumers * 32);
 #pragma unroll
   for (int qq = 0; qq < kQPW; ++qq) {
     const int qi = warp * kQPW + qq;
-    ls[qq] = lane < k ? ms[qi * kMaxK + lane] : -INFINITY;
-    li[qq] = lane < k ? mi[qi * kMaxK + lane] : kNoId;
+    ls[qq] = lane < k ? ms[qi * kOldK + lane] : -INFINITY;
+    li[qq] = lane < k ? mi[qi * kOldK + lane] : kNoId;
   }
 }
 

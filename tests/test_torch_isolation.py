@@ -26,6 +26,7 @@ def port_modules() -> list[str]:
 def test_port_imports_neither_jax_nor_the_jax_package():
     mods = port_modules()
     assert len(mods) >= 25
+    assert {f"financial_rag_system_tpu_torch.native.{m}" for m in ("loader", "hnsw_loader")} < set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"

@@ -663,8 +663,13 @@ def test_rebuild_promotes_to_fused_ivf(env):
     resp = asyncio.run(ask())
     assert len(resp["sources"]) == 3 and resp["cached"] is False
     assert all(np.isfinite(s["score"]) for s in resp["sources"])
-    with pytest.raises(NotImplementedError, match="HNSW tier is not ported"):
-        eng.rebuild_index("hnsw")
+    # the HNSW tier serves too, fused, and back to IVF
+    out = eng.rebuild_index("hnsw")
+    assert out["status"] == "ok" and out["tier"] == "HNSWIndex" and out["tail_rows"] == 0
+    assert eng.queue_status()["fused_kind"] == "hnsw_full"
+    eng.index.SELECTIVE_LIMIT = 0
+    fused = eng._fused_batch(queries, filters)
+    assert fused is not None and all(f and "rerank_score" in f[0] for _, f in fused)
     assert eng.rebuild_index("ivf")["tier"] == "IVFIndex"
 
 
@@ -694,7 +699,9 @@ def test_http_rebuild_save_and_restore(env):
             r = await client.post("/index/rebuild", data="[1, 2]")
             assert r.status == 400
             r = await client.post("/index/rebuild", json={"tier": "hnsw"})
-            assert r.status == 501 and "not ported" in (await r.json())["detail"]
+            assert r.status == 200 and (await r.json())["tier"] == "HNSWIndex"
+            st = await (await client.get("/queue_status")).json()
+            assert st["index_tier"] == "HNSWIndex" and st["fused_kind"] == "hnsw_full"
             r = await client.post("/index/rebuild", json={"tier": "ivf"})
             assert r.status == 200 and (await r.json())["tier"] == "IVFIndex"
             st = await (await client.get("/queue_status")).json()

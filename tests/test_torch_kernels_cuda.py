@@ -68,7 +68,8 @@ def topk_case(b, n, d, n_valid, seed=0, n_tickers=5):
     "b,n,d,k", [(8, 4096, 64, 15), (40, 5000, 384, 15), (3, 777, 128, 1),
                 (32, 131072, 384, 15), (5, 2048, 64, 32), (8, 4096, 64, 33),
                 (40, 5000, 384, 64), (32, 131072, 384, 100), (5, 2048, 64, 256),
-                (33, 20000, 384, 1024), (3, 700, 128, 1024)],
+                (33, 20000, 384, 1024), (3, 700, 128, 1024), (32, 131072, 384, 2048),
+                (3, 700, 128, 2048), (32, 8192, 1536, 15), (5, 2048, 3136, 33)],
 )
 def test_topk_kernel_matches_plain(cuda, b, n, d, k):
     q, c, codes, qf = topk_case(b, n, d, n_valid=n - 100)
@@ -132,7 +133,8 @@ def probe_case(b, d, n_tiles, tile, seed=0):
                            (32, 64, 9, 64, 1), (5, 128, 16, 128, 32),
                            (40, 384, 20, 256, 15), (32, 384, 40, 128, 33),
                            (5, 128, 16, 128, 100), (40, 384, 20, 256, 256),
-                           (33, 384, 64, 128, 1024)],
+                           (33, 384, 64, 128, 1024), (33, 384, 64, 128, 2048),
+                           (32, 1536, 40, 128, 15), (5, 3136, 16, 128, 33)],
 )
 def test_ivf_probe_kernel_matches_plain(cuda, b, d, n_tiles, tile, k):
     q, qf, emb, codes, gids, tile_ids, dup = probe_case(b, d, n_tiles, tile)
@@ -167,7 +169,7 @@ def test_ivf_probe_kernel_rejects_inputs(cuda):
         ivf_probe(*args, 5, tile=64)  # f32 queries and packing
     args[0], args[2] = args[0].bfloat16(), args[2].bfloat16()
     with pytest.raises(ValueError, match="k must be"):
-        ivf_probe(*args, 1025, tile=64)
+        ivf_probe(*args, 0, tile=64)
     with pytest.raises(ValueError, match="tile"):
         ivf_probe(*args, 5, tile=96)
 
@@ -181,7 +183,8 @@ def quant(a):
     "b,n,d,k", [(8, 4096, 64, 15), (40, 5000, 384, 15), (3, 777, 1024, 1),
                 (32, 131072, 384, 15), (5, 2048, 64, 32), (33, 1500, 1024, 32),
                 (8, 4096, 64, 33), (40, 5000, 384, 64), (32, 131072, 384, 100),
-                (5, 2048, 64, 256), (33, 20000, 384, 1024), (3, 700, 1024, 1024)],
+                (5, 2048, 64, 256), (33, 20000, 384, 1024), (3, 700, 1024, 1024),
+                (32, 131072, 384, 2048), (32, 8192, 1536, 15), (5, 2048, 6272, 33)],
 )
 def test_topk_int8_kernel_equals_plain(cuda, b, n, d, k):
     """The int8 branch of kernel 1 gives its plain version's scores and
@@ -206,7 +209,8 @@ def test_topk_int8_kernel_equals_plain(cuda, b, n, d, k):
                            (32, 64, 9, 64, 1), (5, 1024, 16, 128, 32),
                            (40, 384, 20, 256, 15), (32, 384, 40, 128, 33),
                            (5, 1024, 16, 128, 100), (40, 384, 20, 256, 256),
-                           (33, 384, 64, 128, 1024)],
+                           (33, 384, 64, 128, 1024), (33, 384, 64, 128, 2048),
+                           (32, 1536, 40, 128, 15), (5, 6272, 16, 128, 33)],
 )
 def test_ivf_probe_int8_kernel_equals_plain(cuda, b, d, n_tiles, tile, k):
     """The int8 branch of kernel 3 against its plain version, bit for bit;
@@ -486,7 +490,8 @@ def attn_case(p, s, h, seed=0, masked_pair=True, d=32):
                 (2, 1, 3, 32), (32, 32, 12, 32), (4, 50, 12, 64), (3, 130, 4, 128),
                 (2, 400, 12, 64), (2, 512, 2, 128), (2, 1, 3, 64), (2, 512, 16, 64),
                 (3, 200, 2, 16), (3, 200, 2, 48), (3, 200, 2, 80), (3, 200, 2, 96),
-                (3, 200, 2, 112)],
+                (3, 200, 2, 112), (4, 400, 12, 24), (3, 130, 4, 40), (2, 64, 3, 8),
+                (2, 200, 2, 100)],
 )
 def test_attention_kernel_matches_plain(cuda, p, s, h, d):
     arrs = attn_case(p, s, h, d=d)
@@ -623,10 +628,14 @@ def test_attention_kernel_rejects_shapes(cuda):
     m = torch.ones((1, 600), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         encoder_self_attention(x, x, x, m, 0.1)
-    for d in (8, 40, 144, 256):  # head widths no kernel takes
+    for d in (144, 256):  # wider than any kernel; narrower ones are padded
         y = torch.zeros((1, 8, 2, d), device=cuda)
         with pytest.raises(ValueError, match="head_dim"):
             encoder_self_attention(y, y, y, m[:, :8], 0.1)
+    for d in (8, 40, 144, 256):  # head widths no kernel takes unpadded
+        y = torch.zeros((1, 8, 2, d), dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match="head_dim"):
+            pair_attention_kernel(y, y, y, m[:, :8])
     z = torch.zeros(1 + 8 * 2 * 32, dtype=torch.bfloat16, device=cuda)[1:].view(1, 8, 2, 32)
     with pytest.raises(ValueError, match="aligned"):
         pair_attention_kernel(z, z, z, m[:, :8])
@@ -948,3 +957,56 @@ def test_fused_kernels_reject_shapes(cuda):
     with pytest.raises(ValueError):  # x not (R, H)
         fused_bert.fused_qkv(c["x"][None], c["w"][0], c["b"][0], c["w"][1], c["b"][1],
                              c["w"][2], c["b"][2])
+
+
+# -- the HNSW walk on the card against its CPU run ----------------------------
+
+
+@pytest.mark.parametrize("dtype", RETRIEVAL_TYPES)
+def test_hnsw_walk_on_the_card_matches_the_cpu(cuda, dtype):
+    """One natively built graph (its hierarchy and k-center pool) over the
+    same 8,192 clustered rows on the CPU and on the card; the routed walk
+    of 32 queries under mixed filters: int8 scores and rows bit for bit
+    (integer sums), bf16 rows identical wherever neighbouring scores differ
+    by more than 1e-5 and scores within 1e-5."""
+    from financial_rag_system_tpu_torch.index.flat import FlatIndex
+    from financial_rag_system_tpu_torch.index.hnsw import HNSWIndex
+
+    rng = np.random.default_rng(9)
+    d, n = 384, 8192
+    centers = rng.standard_normal((64, d)).astype(np.float32)
+    v = centers[rng.integers(0, 64, n + 32)] + 0.3 * rng.standard_normal((n + 32, d)).astype(
+        np.float32)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    payloads = [{"ticker": ("AAPL", "MSFT", "NVDA")[i % 3], "document_type": "10-K"}
+                for i in range(n)]
+    flats = {}
+    for dev in ("cpu", cuda):
+        flats[str(dev)] = FlatIndex(d, capacity=n, tile=128, device=dev, dtype=dtype)
+        flats[str(dev)].upsert([f"p{i}" for i in range(n)], v[:n], ["t"] * n, payloads)
+    built = HNSWIndex(flats["cpu"])
+    if built._native is None:
+        pytest.skip("g++ is unavailable")
+    graph = (built._native.adjacency(), built._native.entries(built.entries_cap))
+    kw = dict(graph=graph, hier=built._native.hierarchy(), pool=built._host_pool)
+    ref, card = HNSWIndex(flats["cpu"], **kw), HNSWIndex(flats["cuda"], **kw)
+    ref.SELECTIVE_LIMIT = card.SELECTIVE_LIMIT = 0  # every query walks
+    assert card.adj_pad.is_cuda and card._graph_state[6][1].is_cuda
+    store = flats["cpu"].store
+    codes = [store.query_codes(t, None) for t in (None, "AAPL", "MSFT", "NVDA")] * 8
+    qf = torch.tensor(codes, dtype=torch.int32)
+    q = torch.from_numpy(v[n:])
+    s_r, i_r = (x.numpy() for x in ref.search_device(q, qf, 15, host_codes=codes))
+    s_c, i_c = (x.cpu().numpy() for x in card.search_device(q.to(cuda), qf.to(cuda), 15,
+                                                             host_codes=codes))
+    torch.cuda.synchronize()
+    assert np.isfinite(s_c).all()
+    if dtype == torch.int8:
+        assert s_c.tobytes() == s_r.tobytes() and i_c.tobytes() == i_r.tobytes()
+        return
+    np.testing.assert_allclose(s_c, s_r, atol=1e-5, rtol=0)
+    gap = np.abs(np.diff(s_r, axis=1))
+    near = np.zeros(s_r.shape, bool)
+    near[:, 1:] |= gap <= 1e-5
+    near[:, :-1] |= gap <= 1e-5
+    np.testing.assert_array_equal(i_c[~near], i_r[~near])

@@ -28,7 +28,11 @@ from financial_rag_system_tpu_torch.ops import topk as ttk
 H100_SMS = 132
 COMMON = Path(ttk.__file__).resolve().parent.parent / "csrc" / "topk_common.cuh"
 ELEMENT = {torch.bfloat16: 2, torch.int8: 1}
-WIDTHS = [(dtype, d) for dtype in ELEMENT for d in range(64, ttk.MAX_DIM + 1, ttk.DIM_STEP[dtype])]
+# the widths at which two blocks share an SM in both types (bf16 rows of
+# at most 2,048 bytes); wider rows are WIDE_WIDTHS
+WIDTHS = [(dtype, d) for dtype in ELEMENT for d in range(64, 1024 + 1, ttk.DIM_STEP[dtype])]
+WIDE_WIDTHS = [(torch.bfloat16, d) for d in (1040, 1536, 2048, 3072, 3136)] + [
+    (torch.int8, d) for d in (2048, 2080, 4096, 6272)]
 BATCHES = (1, 33, 64)
 NO_ID = 2**31 - 1
 
@@ -44,8 +48,9 @@ def test_plan_constants_are_the_kernels():
     assert (c["kQB"], c["kRows"], c["kBoxBytes"]) == (ttk.QUERY_BLOCK, ttk.TILE_ROWS,
                                                       ttk.BOX_BYTES)
     assert (c["kSlots"], c["kSlotBytes"]) == (ttk.SLOTS, ttk.SLOT_BYTES)
-    assert (c["kMaxStages"], c["kSmemLimit"], c["kMaxK"], c["kMaxD"]) == (
-        ttk.MAX_STAGES, ttk.SMEM_LIMIT, ttk.MAX_K, ttk.MAX_DIM)
+    assert (c["kMaxStages"], c["kSmemLimit"], c["kMaxRowBytes"]) == (
+        ttk.MAX_STAGES, ttk.SMEM_LIMIT, ttk.MAX_ROW_BYTES)
+    assert "kMaxK" not in c and "kMaxD" not in c  # any k, and D up to the row bytes
     assert c["kMergeWarps"] * 32 * c["kMaxChunks"] == ttk.MAX_BLOCKS
     assert c["kRoundK"] == ttk.ROUND_K == 32
     assert "constexpr int kScStride = kRows + 4;" in COMMON.read_text()
@@ -142,6 +147,38 @@ def test_plan_blocks_an_sm(row_bytes):
     two = ttk.plan_for(32, 2048, row_bytes, 15, H100_SMS, per_sm=2)
     assert two.blocks == 2 * H100_SMS and 3 <= two.stages <= ttk.TOPK_STAGES
     assert two.smem <= ttk.SM_SMEM // 2 - 1024
+
+
+@pytest.mark.parametrize("dtype,d", WIDE_WIDTHS)
+def test_wide_rows_take_one_block_an_sm(dtype, d):
+    """Past two blocks an SM with three stages, a plan takes one block an
+    SM and the ring the rest of its shared memory holds, up to
+    MAX_ROW_BYTES (one stage); kernels 1 and 3 alike."""
+    row_bytes = d * ELEMENT[dtype]
+    for plan in (ttk.topk_plan(32, 131_072, d, ELEMENT[dtype], 15, H100_SMS),
+                 probe_plan(32, 16_384, 128, d, ELEMENT[dtype], 15, H100_SMS)):
+        two = (ttk.SM_SMEM // 2 - 1024 - ttk.topk_smem(row_bytes, 0)) // (64 * 128)
+        room = (ttk.SMEM_LIMIT - ttk.topk_smem(row_bytes, 0)) // (64 * 128)
+        per_sm = 1 if two < ttk.MIN_SHARED_STAGES else 2
+        assert plan.blocks == per_sm * H100_SMS
+        assert plan.stages == min(ttk.TOPK_STAGES, room if per_sm == 1 else two) >= 1
+        end, _ = carved(row_bytes, plan.stages)
+        assert end <= plan.smem == ttk.topk_smem(row_bytes, plan.stages) <= ttk.SMEM_LIMIT
+    assert per_sm == 1 or row_bytes == 2048  # int8 at D 2048 still fits two
+    ttk.check_dims(d, d, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(ELEMENT))
+def test_rows_past_the_widest_are_refused(dtype):
+    elt = ELEMENT[dtype]
+    widest = ttk.MAX_ROW_BYTES // elt
+    ttk.check_dims(widest, widest, dtype)
+    assert ttk.plan_for(32, 2048, widest * elt, 15, H100_SMS).stages == 1
+    wider = widest + ttk.DIM_STEP[dtype]
+    with pytest.raises(ValueError, match="dims"):
+        ttk.check_dims(wider, wider, dtype)
+    with pytest.raises(ValueError, match="no ring stage"):
+        ttk.plan_for(32, 2048, wider * elt + 128, 15, H100_SMS)
 
 
 def test_plan_many_query_blocks():
