@@ -7,7 +7,7 @@
                           [--resid-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
 
 Drives ``financial_rag_system_tpu_torch`` end to end on the card, in
-nine phases; any failure raises and the script exits non-zero:
+ten phases; any failure raises and the script exits non-zero:
 
 0. the card: name, power limit and compute capability (Hopper, 9.0);
 1. build: every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a``
@@ -94,7 +94,23 @@ nine phases; any failure raises and the script exits non-zero:
    rerank of the card's rows; a fused batch split into embed, routing and
    walk, gather and rerank, and the walk's device time, launches and wall
    time from the profiler; the same rows as an int8 corpus on the same
-   graph, one burst, and the card's walk bit for bit with the CPU's.
+   graph, one burst, and the card's walk bit for bit with the CPU's;
+9. the training path: ``python -m financial_rag_system_tpu_torch.train.stack``'s
+   entry with evaluate.py's canonical flags (full-width BGE-small
+   bi-encoder with filler negatives at weight 0.5, MiniLM-L6
+   cross-encoder at 1000-character pairs, 150 steps each, 50 distillation
+   steps), each trainer's first and last loss, median step time (CUDA
+   events), real tokens/s, peak memory and ``train_mfu``; kernel 2's
+   launches 0 inside the graded steps, and in the teacher pass 6 a
+   ``cross_score`` call whose pairs pad to 256 tokens or more (evaluate.py's
+   unpadded distillation triples pad to 128 or 256); the export served
+   by ``build_default_engine(device="cuda")`` over the 65,536-chunk hard
+   corpus (56 hard-set questions in bursts of 32 and 24, kernels 1 and 2
+   launching), one batch against the CPU, and its Hit@5 beside a
+   random-init stack's (reported); one step of each objective at full
+   width on the card against the CPU; a checkpoint resume against the
+   uninterrupted step and the cross-encoder trained twice, each bit for
+   bit; a profile of one step of each tower by kind.
 
 The CPU references of phases 3-6 set ``RAG_TPU_FAST_GELU=1``: the card's
 default GELU is the tanh form and the CPU's exact erf, JAX's rule.
@@ -128,9 +144,11 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import collections
 import contextlib
 import functools
 import json
+import math
 import os
 import shutil
 import statistics
@@ -1045,16 +1063,16 @@ def profile_run(torch, fn, label: str, smi: str):
     return out
 
 
-def flat_batch(torch, engine, queries, dev, index, models):
-    """``fused_two_stage`` on ``dev`` over ``index`` with ``models``
-    (embedder, reranker); the first ``len(queries)`` rows of its outputs
-    as numpy arrays."""
+def flat_batch(torch, engine, queries, dev, index, models, n_valid: int = N):
+    """``fused_two_stage`` on ``dev`` over the first ``n_valid`` rows of
+    ``index`` with ``models`` (embedder, reranker); the first
+    ``len(queries)`` rows of its outputs as numpy arrays."""
     from financial_rag_system_tpu_torch.ops.fused_query import fused_two_stage
 
     e, r = models
     emb, idx_codes, dtok = index._arrays
     out = fused_two_stage(e.model, r.model, *fused_inputs(torch, engine, queries, dev),
-                          emb, idx_codes, dtok, N, rerank_cfg=r.cfg, k=K)
+                          emb, idx_codes, dtok, n_valid, rerank_cfg=r.cfg, k=K)
     return [x.cpu().numpy()[: len(queries)] for x in out]
 
 
@@ -2746,6 +2764,590 @@ def drive_hnsw_int8(torch, np, run: dict, smi: str) -> dict:
         f"for bit ({int(np.isfinite(s_c).sum())} rows)")
     return {"launches": launches}
 
+# -- phase 9: the training path ---------------------------------------------------
+
+# the stack's flags: evaluate.py's canonical trained stack at full width
+TRAIN_FLAGS = ("--trained-arch", "bge", "--chunk-chars", "1000", "--train-steps", "150",
+               "--two-stage", "--filler-negatives", "--neg-weight", "0.5", "--distill", "50")
+HARD_CORPUS = 65_536
+TEACHER_BATCH = 64      # triples a teacher batch (train/distill.py teacher_margins)
+# one step of each objective on the card against the CPU (tanh GELU on both)
+# from the same weights at full width, on TRAIN_ROWS rows
+TRAIN_ROWS = 4
+# the losses: bf16's unit roundoff, 2^-8.  Each side rounds the activations
+# to bf16 before every product, and where the f32 sums before a rounding
+# differ in their last bits an element lands one bf16 step away (measured
+# 9.8e-5 to 6.3e-4 from the trained towers, and 1.31e-3 for BCE from the
+# reranker that BCE's deterministic run trained after the type table's
+# gradient became a product)
+TRAIN_LOSS_RTOL = 2 ** -8
+# the gradients' L2 difference over their norm, from the trained towers
+# (measured 1.3e-3 to 3.5e-3 on an H100; at random init InfoNCE sits at
+# chance and its gradient is mostly bf16 rounding noise: 4.3e-2)
+TRAIN_GRAD_TOL = 2e-2
+# the updated weights: one Adam step from zero moments moves a weight by
+# lr * g / (|g| + eps), at most lr plus the decay's lr * 1e-4 * |w|, so two
+# steps of opposite sign part by 2 lr: a gradient within the rounding noise
+# of 0 takes either sign.  Where both gradients share a sign and are at
+# least TRAIN_SIGN_FLOOR (1000 eps) after clipping, the steps agree.
+TRAIN_LR_UNITS = 2.001
+TRAIN_SIGN_FLOOR = 1e-5
+TRAIN_SURE_LR_UNITS = 1e-2
+REPRO_STEPS = 12        # cross-encoder steps run twice from the same weights
+
+
+class StepLog:
+    """One trainer's steps as a wrapped ``make_*_step`` saw them: CUDA
+    events around each, its loss, its batches' real (mask) and padded
+    tokens and shapes, kernel 2's launches inside it, and the peak of
+    ``torch.cuda.max_memory_allocated`` from the step maker on."""
+
+    def __init__(self, cfg, batches_of):
+        self.cfg, self.batches_of = cfg, batches_of
+        self.events, self.losses, self.shapes = [], [], []
+        self.real = self.padded = self.attn = self.peak = 0
+
+    def add(self, torch, start, end, loss, args, attn: int) -> None:
+        self.events.append((start, end))
+        self.losses.append(loss)
+        shapes = []
+        for batch in self.batches_of(args):
+            mask = batch[2]
+            self.real += int(mask.sum())
+            self.padded += int(mask.size)
+            shapes.append(tuple(mask.shape))
+        self.shapes.append(shapes)
+        self.attn += attn
+        self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+
+    def forward_flops(self, shapes) -> float:
+        """Dense and attention forward FLOPs of one step's encoder calls on
+        their padded (B, S): 2 B S L (4 H^2 + 2 H I) + 4 B S^2 H L."""
+        c = self.cfg
+        return sum(2 * b * s * c.layers * (4 * c.hidden ** 2 + 2 * c.hidden * c.intermediate)
+                   + 4 * b * s * s * c.hidden * c.layers for b, s in shapes)
+
+    def report(self, name: str, smi: str) -> dict:
+        ms = [a.elapsed_time(b) for a, b in self.events]
+        losses = [float(x) for x in self.losses]
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{name}: a loss is not finite")
+        flops = [self.forward_flops(s) for s in self.shapes]
+        secs = sum(ms) / 1e3
+        mfu = 3 * sum(flops) / (secs * BF16_FLOP_PER_S)
+        out = {"steps": len(ms), "loss_first": losses[0], "loss_last": losses[-1],
+               "step_ms_median": statistics.median(ms), "tokens_per_s": self.real / secs,
+               "peak_gib": self.peak / 2 ** 30, "train_mfu": mfu}
+        log(f"[train] {smi}: {name}: {len(ms)} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+            f"median step {out['step_ms_median']:.2f} ms (CUDA events; "
+            f"{min(ms):.2f}-{max(ms):.2f}); "
+            f"{out['tokens_per_s']:.0f} real tokens/s ({self.real} real of {self.padded} padded "
+            f"tokens over {secs:.2f} s of steps); peak {out['peak_gib']:.2f} GiB "
+            f"(torch.cuda.max_memory_allocated); train_mfu {mfu:.4f} = 3 x {sum(flops):.4e} "
+            f"forward FLOP (2 B S L (4 H^2 + 2 H I) + 4 B S^2 H L over each step's padded "
+            f"shapes, first step {self.shapes[0]}) / ({secs:.3f} s x 989 TFLOP/s)")
+        return out
+
+
+@contextlib.contextmanager
+def step_logs(torch):
+    """Wrap the three step makers and ``teacher_margins`` of ``train/`` for
+    the block: each step is timed and counted (:class:`StepLog`), and the
+    teacher pass's kernel-2 launches and scoring calls are kept."""
+    from financial_rag_system_tpu_torch.models import bert
+    from financial_rag_system_tpu_torch.ops.attention import encoder_self_attention
+    from financial_rag_system_tpu_torch.train import contrastive, cross_encoder, distill
+
+    logs = {"contrastive": StepLog(bert.BGE_SMALL, lambda a: [b for b in a[:3] if b is not None]),
+            "cross_encoder": StepLog(bert.MINILM_L6_CROSS, lambda a: [a[:3]]),
+            "distill": StepLog(bert.BGE_SMALL, lambda a: a[:3])}
+    teacher = {"launches": 0, "calls": 0, "seconds": 0.0, "lengths": []}
+    saved = [(contrastive, "make_train_step", logs["contrastive"]),
+             (cross_encoder, "make_cross_step", logs["cross_encoder"]),
+             (distill, "make_distill_step", logs["distill"])]
+    originals = [getattr(m, n) for m, n, _ in saved]
+    score = bert.cross_score
+
+    def timed_maker(make, slog):
+        def maker(*a, **k):
+            step = make(*a, **k)
+            torch.cuda.reset_peak_memory_stats()
+
+            def logged(*args):
+                n0 = encoder_self_attention.launches
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                loss = step(*args)
+                end.record()
+                slog.add(torch, start, end, loss, args, encoder_self_attention.launches - n0)
+                return loss
+            return logged
+        return maker
+
+    teacher_margins = distill.teacher_margins
+
+    def timed_teacher(*a, **k):
+        n0 = encoder_self_attention.launches
+        t0 = time.perf_counter()
+
+        def counted_score(model, ids, types, mask):
+            teacher["calls"] += 1
+            teacher["lengths"].append(int(ids.shape[1]))
+            return score(model, ids, types, mask)
+
+        bert.cross_score = counted_score
+        try:
+            out = teacher_margins(*a, **k)
+        finally:
+            bert.cross_score = score
+        torch.cuda.synchronize()
+        teacher["seconds"] += time.perf_counter() - t0
+        teacher["launches"] += encoder_self_attention.launches - n0
+        return out
+
+    for module, name, slog in saved:
+        setattr(module, name, timed_maker(getattr(module, name), slog))
+    distill.teacher_margins = timed_teacher
+    try:
+        yield logs, teacher
+    finally:
+        for (module, name, _), orig in zip(saved, originals):
+            setattr(module, name, orig)
+        distill.teacher_margins = teacher_margins
+        bert.cross_score = score
+
+
+def hit_at_5(questions, answers) -> float:
+    hits = 0
+    for q, a in zip(questions, answers):
+        texts = [s["text"].lower() for s in a["sources"][:5]]
+        hits += any(kw.lower() in t for kw in q["expected_keywords"] for t in texts)
+    return hits / len(questions)
+
+
+def serve_stack(torch, np, work: Path, ckpt: Path, corpus, smi: str, label: str) -> dict:
+    """``build_default_engine(device="cuda")`` over the checkpoints in
+    ``ckpt`` (``bge``, ``reranker``) and an empty index in ``work``, the
+    hard corpus ingested with its embedder (``engine.ingest_chunks``), and
+    the 56 hard-set questions served as two bursts (32, then 24: one
+    fused batch each)."""
+    from financial_rag_system_tpu_torch.data.synthetic import make_hard_set
+    from financial_rag_system_tpu_torch.serving.app import build_default_engine
+    from financial_rag_system_tpu_torch.utils.config import reset_config
+
+    os.environ.update({
+        "RAG_TPU_BGE_DIR": str(ckpt / "bge"), "RAG_TPU_RERANKER_DIR": str(ckpt / "reranker"),
+        "INDEX_DIR": str(work / f"index_{label}"), "TESTING": "true",
+        "DATABASE_URL": str(work / f"cache_{label}.db"),
+        "RAG_TPU_CB_PATH": str(work / f"breaker_{label}.json"),
+        "RAG_TPU_BATCH_WINDOW_S": "0.25", "RAG_TPU_BATCH_EAGER_IDLE_S": "0",
+    })
+    reset_config()
+    engine = build_default_engine(device="cuda")
+    t0 = time.perf_counter()
+    asyncio.run(engine.ingest_chunks(*corpus))
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    if engine.index.n_valid != HARD_CORPUS or engine.queue_status()["fused_kind"] != "full":
+        raise AssertionError(f"[{label}] {engine.index.n_valid} rows, "
+                             f"fused_kind {engine.queue_status()['fused_kind']!r}")
+    batches: list[tuple[int, float]] = []
+    inner = engine.batcher.batch_fn
+
+    def timed_batch(queries, filters):
+        t1 = time.perf_counter()
+        out = inner(queries, filters)
+        batches.append((len(queries), (time.perf_counter() - t1) * 1e3))
+        return out
+
+    engine.batcher.batch_fn = timed_batch
+    engine.llm_semaphore = asyncio.Semaphore(B)
+    questions = make_hard_set()
+
+    async def scenario():
+        await engine.startup()
+        try:
+            out = []
+            for burst in (questions[:B], questions[B:]):
+                out += await asyncio.gather(*[engine.ask(q["query"], q["ticker"], 5)
+                                              for q in burst])
+            return out
+        finally:
+            await engine.shutdown()
+
+    answers = asyncio.run(scenario())
+    if [n for n, _ in batches] != [B, len(questions) - B]:
+        raise AssertionError(f"[{label}] batch sizes {[n for n, _ in batches]}")
+    check_answers(np, answers, 5)
+    hit = hit_at_5(questions, answers)
+    log(f"[train] {smi}: {label} stack: {HARD_CORPUS} chunks of 1000 characters ingested in "
+        f"{ingest_s:.1f} s (token store {engine.index.token_store_len} wide, reranker max_len "
+        f"{engine.reranker.max_len}); 56 hard-set questions in bursts {batches} (size, ms); "
+        f"Hit@5 {hit:.4f}")
+    return {"engine": engine, "questions": questions, "hit5": hit, "batches": batches}
+
+
+def objective_loss(torch, model, objective: str, rows: dict):
+    """``objective``'s loss on ``rows`` for ``model`` (a graded forward
+    when the caller runs it under ``train.optim.graded``)."""
+    from financial_rag_system_tpu_torch.train import contrastive, cross_encoder, distill
+
+    dev = model.device
+    if objective == "bce":
+        return cross_encoder.bce_loss(model, *contrastive.on_device(rows["pairs"], dev),
+                                      rows["pos_weight"])
+    q, d, n = (contrastive.on_device(b, dev) for b in rows["triples"])
+    if objective == "infonce":
+        return contrastive.info_nce_loss(model, q, d, 0.05, n, 0.5)
+    return distill.margin_mse_loss(model, q, d, n, rows["margins"].to(dev))
+
+
+def step_objective(torch, model, objective: str, rows: dict, lr: float):
+    """One step of ``objective`` on ``rows`` from ``model``'s weights:
+    (loss, grads by name on the CPU, the updated weights by name on the
+    CPU)."""
+    from financial_rag_system_tpu_torch.train.optim import ClippedAdamW, graded
+
+    with graded(model):
+        loss = objective_loss(torch, model, objective, rows)
+        loss.backward()
+    grads = {k: p.grad.detach().cpu().clone() for k, p in model.named_parameters()
+             if p.grad is not None}
+    ClippedAdamW(model, lr).step()
+    return float(loss.detach()), grads, {k: p.detach().cpu().clone()
+                                         for k, p in model.named_parameters()}
+
+
+def compare_steps(torch, lr: float, card: tuple, cpu: tuple) -> dict:
+    """Two steps' (loss, grads, weights) held to the TRAIN_* tolerances;
+    the figures compared, by name."""
+    (loss_c, g_c, w_c), (loss_r, g_r, w_r) = card, cpu
+    if g_c.keys() != g_r.keys():
+        raise AssertionError(f"gradients of {set(g_c) ^ set(g_r)} on one side only")
+    total = float(torch.sqrt(sum((g.double() ** 2).sum() for g in g_r.values())))
+    total_c = float(torch.sqrt(sum((g.double() ** 2).sum() for g in g_c.values())))
+    # the gradients as the step takes them, after clipping to a norm of 1
+    clip_r, clip_c = min(1.0, 1.0 / total), min(1.0, 1.0 / total_c)
+    out = {"loss_rel": abs(loss_c - loss_r) / abs(loss_r),
+           "grad_rel": float(torch.sqrt(sum(((g_c[k] - g_r[k]).double() ** 2).sum()
+                                            for k in g_r))) / total,
+           "moved_lr": 0.0, "sure_lr": 0.0, "sure": 0, "unsure": 0}
+    for k in w_r:
+        dw = (w_c[k] - w_r[k]).abs() / lr
+        out["moved_lr"] = max(out["moved_lr"], float(dw.max()))
+        if k in g_r:
+            sure = ((clip_r * g_r[k].abs() >= TRAIN_SIGN_FLOOR)
+                    & (clip_c * g_c[k].abs() >= TRAIN_SIGN_FLOOR)
+                    & (torch.sign(g_r[k]) == torch.sign(g_c[k])))
+            out["sure"] += int(sure.sum())
+            out["unsure"] += int((~sure & (dw > 0.5)).sum())
+            if sure.any():
+                out["sure_lr"] = max(out["sure_lr"], float(dw[sure].max()))
+    out["ok"] = (out["loss_rel"] <= TRAIN_LOSS_RTOL and out["grad_rel"] <= TRAIN_GRAD_TOL
+                 and out["moved_lr"] <= TRAIN_LR_UNITS and out["sure_lr"] <= TRAIN_SURE_LR_UNITS)
+    return out
+
+
+def train_rows(torch, np, rr_len: int) -> dict:
+    """TRAIN_ROWS rows of each objective's supervision, tokenized as the
+    trainers tokenize them."""
+    from financial_rag_system_tpu_torch.data.synthetic import make_filler_triples
+    from financial_rag_system_tpu_torch.models.tokenizer import Tokenizer, pad_batch
+    from financial_rag_system_tpu_torch.train.contrastive import tokenize_pairs
+    from financial_rag_system_tpu_torch.train.cross_encoder import make_cross_examples
+
+    tok = Tokenizer()
+    triples = make_filler_triples(chunk_chars=1000)[:: 97][:TRAIN_ROWS]
+    examples = make_cross_examples(seed=1, chunk_chars=1000)[:TRAIN_ROWS]
+    ids, types, mask = pad_batch([tok.encode_pair(q, d, rr_len) for q, d, _ in examples])
+    labels = np.zeros(ids.shape[0], np.float32)
+    labels[: len(examples)] = [lbl for *_, lbl in examples]
+    return {"triples": tokenize_pairs(tok, triples),
+            "pairs": (ids, types, mask, torch.from_numpy(labels)), "pos_weight": 5.0,
+            "margins": torch.tensor([1.5, -0.5, 3.0, 0.25])}
+
+
+def check_train_against_cpu(torch, np, trained: Path, rr_len: int, smi: str) -> None:
+    """One step of each objective at full width on the card and on the CPU
+    from the same weights, the exported trained towers in ``trained``
+    (at random init InfoNCE sits at chance and its gradient is mostly
+    rounding noise), held to the TRAIN_* tolerances
+    (:func:`compare_steps`)."""
+    from financial_rag_system_tpu_torch.models.hf_loader import load_bert_checkpoint
+
+    rows = train_rows(torch, np, rr_len)
+    lr = 1e-4
+    for objective, tower, labels in (("infonce", "bge", 0), ("bce", "reranker", 1),
+                                     ("margin_mse", "bge", 0)):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            with env_set(**(CPU_TANH if dev == "cpu" else {})):
+                model, _ = load_bert_checkpoint(str(trained / tower), num_labels=labels,
+                                                device=dev)
+                out[dev] = step_objective(torch, model, objective, rows, lr)
+        c = compare_steps(torch, lr, out["cuda"], out["cpu"])
+        log(f"[train] {smi}: {objective}, one step of the trained {tower} on {TRAIN_ROWS} rows, "
+            f"card vs CPU: loss {out['cuda'][0]:.6f} vs {out['cpu'][0]:.6f} "
+            f"(rel {c['loss_rel']:.2e}; "
+            f"tolerance {TRAIN_LOSS_RTOL}); gradients {c['grad_rel']:.2e} of their norm "
+            f"(tolerance {TRAIN_GRAD_TOL}); updated weights within {c['moved_lr']:.4f} lr "
+            f"(tolerance {TRAIN_LR_UNITS}), and within {c['sure_lr']:.2e} lr (tolerance "
+            f"{TRAIN_SURE_LR_UNITS}) at the {c['sure']} whose clipped gradients share a sign "
+            f"and are at least {TRAIN_SIGN_FLOOR} on both; {c['unsure']} others more than lr/2 "
+            f"apart")
+        if not c["ok"]:
+            raise AssertionError(f"{objective}: the card's step differs from the CPU's")
+
+
+def check_resume(torch, np, work: Path, smi: str) -> None:
+    """Checkpoint resume at full width on the card: two InfoNCE steps, a
+    checkpoint, a third step; then a fresh model and optimizer restored
+    from the checkpoint take the third step again.  The loss and the
+    weights bit for bit (the graded embedding backward sums in a fixed
+    order, ``models/bert.py _Lookup``)."""
+    from financial_rag_system_tpu_torch.data.synthetic import make_filler_triples
+    from financial_rag_system_tpu_torch.models import bert
+    from financial_rag_system_tpu_torch.models.tokenizer import Tokenizer
+    from financial_rag_system_tpu_torch.train import checkpoint, contrastive, stack
+    from financial_rag_system_tpu_torch.train.optim import ClippedAdamW
+
+    lr, tok = 1e-4, Tokenizer()
+    triples = make_filler_triples(chunk_chars=1000)[:12]
+    batches = [contrastive.tokenize_pairs(tok, triples[i: i + 4]) for i in range(0, 12, 4)]
+    model = stack.init_model(bert.BGE_SMALL, 0, "cuda")
+    opt = ClippedAdamW(model, lr)
+    step = contrastive.make_train_step(model, opt, neg_weight=0.5)
+    for b in batches[:2]:
+        step(*b)
+    ck = work / "resume"
+    checkpoint.save_state(str(ck), 2, {"model": model.state_dict(), "opt": opt.state_dict()})
+    loss_a = float(step(*batches[2]))
+    restored = stack.init_model(bert.BGE_SMALL, 5, "cuda")
+    opt_b = ClippedAdamW(restored, lr)
+    n, state = checkpoint.restore_state(str(ck), map_location="cuda")
+    restored.load_state_dict(state["model"])
+    restored.weights_changed()
+    opt_b.load_state_dict(state["opt"])
+    loss_b = float(contrastive.make_train_step(restored, opt_b, neg_weight=0.5)(*batches[2]))
+    dw = max(float((p - q).abs().max()) for p, q in zip(model.parameters(), restored.parameters()))
+    log(f"[train] {smi}: resume at step {n}: step 3 loss {loss_a!r} uninterrupted, {loss_b!r} "
+        f"resumed; weights {dw!r} apart (want bit for bit)")
+    if n != 2 or loss_a != loss_b or dw != 0:
+        raise AssertionError("the resumed step differs from the uninterrupted one")
+
+
+def check_reproducible(torch, np, rr_len: int, smi: str) -> None:
+    """The cross-encoder trainer twice at full width from the same weights,
+    REPRO_STEPS steps of 32 pairs at ``rr_len`` tokens: the losses and the
+    weights bit for bit."""
+    from financial_rag_system_tpu_torch.models import bert
+    from financial_rag_system_tpu_torch.train import cross_encoder, stack
+
+    examples = cross_encoder.make_cross_examples(seed=1, chunk_chars=1000)
+    order = np.random.default_rng(1).permutation(len(examples))[: 32 * REPRO_STEPS]
+    examples = [examples[i] for i in order]
+    runs = []
+    for _ in range(2):
+        model = stack.init_model(bert.MINILM_L6_CROSS, 1, "cuda")
+        _, losses = cross_encoder.train_cross_encoder(model, examples, batch_size=32, lr=1e-4,
+                                                      max_len=rr_len, seed=1)
+        runs.append((losses, [p.detach().clone() for p in model.parameters()]))
+        del model
+    (la, wa), (lb, wb) = runs
+    dw = max(float((a - b).abs().max()) for a, b in zip(wa, wb))
+    log(f"[train] {smi}: the cross-encoder trained twice from the same weights, {len(la)} steps "
+        f"of 32 pairs at {rr_len} tokens: losses {la[0]!r} -> {la[-1]!r} and {lb[0]!r} -> "
+        f"{lb[-1]!r}, equal {la == lb}; weights {dw!r} apart (want bit for bit)")
+    if la != lb or dw != 0:
+        raise AssertionError("two runs of the cross-encoder trainer differ")
+
+
+def kind_of(ev) -> str:
+    """A profiled kernel's kind, from the ops above the event that launched it."""
+    names = []
+    while ev is not None:
+        names.append(ev.name)
+        ev = ev.cpu_parent
+    chain = " | ".join(names)
+    if "train_optimizer" in chain:
+        return "optimizer"
+    bwd = "autograd::engine" in chain
+    if any(k in chain for k in ("aten::bmm", "aten::_softmax", "BmmBackward", "SoftmaxBackward")):
+        return "einsum attention, " + ("backward" if bwd else "forward")
+    if "_BF16ProductBackward" in chain:
+        return "dense products' backward (f32)"
+    if not bwd and "aten::mm" in chain:
+        return "dense products, forward (bf16)"
+    if "EmbeddingBackward" in chain or "_LookupBackward" in chain:
+        return "embedding backward"
+    return "elementwise and other, " + ("backward" if bwd else "forward")
+
+
+def profile_train_step(torch, name: str, step_fn, smi: str) -> None:
+    """Device time by kind (:func:`kind_of`) over one training step, after
+    a warm-up step and beside the median of 3 steps' CUDA-event times
+    without the profiler (the idle share's denominator)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    wall = median_ms(step_fn, reps=3, warmup=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step_fn()
+        torch.cuda.synchronize()
+    kinds: dict[str, list] = {}
+    for ev in prof.events():
+        for k in getattr(ev, "kernels", []):
+            row = kinds.setdefault(kind_of(ev), [0.0, 0])
+            row[0] += k.duration / 1e3
+            row[1] += 1
+    device = sum(ms for ms, _ in kinds.values())
+    log(f"[train] {smi}: profile of one {name} step: {wall:.2f} ms a step (CUDA events), device "
+        f"{device:.2f} ms in {sum(n for _, n in kinds.values())} kernels, idle share "
+        f"{max(0.0, 1 - device / wall):.3f}")
+    for kind, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
+        log(f"[train]   {ms:9.3f} ms  x{n:<5d} {kind}")
+    if device <= 0:
+        raise AssertionError(f"the {name} step's profile holds no device time")
+
+
+def profile_train_steps(torch, rr_len: int, smi: str) -> None:
+    """One step of each tower at the trainers' shapes (32 filler triples at
+    64 tokens; 32 pairs at the reranker's length) from fresh weights."""
+    from torch.profiler import record_function
+
+    from financial_rag_system_tpu_torch.data.synthetic import make_filler_triples
+    from financial_rag_system_tpu_torch.models import bert
+    from financial_rag_system_tpu_torch.models.tokenizer import Tokenizer, pad_batch
+    from financial_rag_system_tpu_torch.train import contrastive, cross_encoder, stack
+    from financial_rag_system_tpu_torch.train.cross_encoder import make_cross_examples
+    from financial_rag_system_tpu_torch.train.optim import ClippedAdamW, graded
+
+    tok = Tokenizer()
+    tri = contrastive.tokenize_pairs(tok, make_filler_triples(chunk_chars=1000)[:B])
+    ex = make_cross_examples(seed=1, chunk_chars=1000)[:B]
+    pairs = pad_batch([tok.encode_pair(q, d, rr_len) for q, d, _ in ex])
+    labels = torch.tensor([lbl for *_, lbl in ex], device="cuda")
+    for name, cfg, seed, loss_of in (
+        ("bi-encoder InfoNCE", bert.BGE_SMALL, 0, lambda m: contrastive.info_nce_loss(
+            m, *(contrastive.on_device(b, "cuda") for b in tri[:2]), 0.05,
+            contrastive.on_device(tri[2], "cuda"), 0.5)),
+        ("cross-encoder BCE", bert.MINILM_L6_CROSS, 1, lambda m: cross_encoder.bce_loss(
+            m, *contrastive.on_device(pairs, "cuda"), labels, 5.0)),
+    ):
+        model = stack.init_model(cfg, seed, "cuda")
+        opt = ClippedAdamW(model, 1e-4)
+
+        def step_fn(model=model, opt=opt, loss_of=loss_of):
+            with graded(model):
+                loss_of(model).backward()
+            with record_function("train_optimizer"):
+                opt.step()
+
+        profile_train_step(torch, name, step_fn, smi)
+        del model, opt
+
+
+def drive_training_path(torch, np, work: Path, smi: str) -> dict:
+    """Phase 9: ``train/stack.py``'s entry with TRAIN_FLAGS on the card
+    (both towers at full width, then distillation on ``evaluate.py``'s
+    unpadded triples), the export served through ``build_default_engine``
+    over the 65,536-chunk hard corpus, with every kernel's launches read around
+    that run."""
+    from financial_rag_system_tpu_torch.data.synthetic import make_hard_corpus
+    from financial_rag_system_tpu_torch.models import bert
+    from financial_rag_system_tpu_torch.ops.attention import encoder_self_attention
+    from financial_rag_system_tpu_torch.train import stack
+
+    out = work / "trained"
+    t0 = time.perf_counter()
+    corpus = make_hard_corpus(HARD_CORPUS, chunk_chars=1000)
+    log(f"[train] hard corpus of {HARD_CORPUS} chunks made in {time.perf_counter() - t0:.1f} s")
+    reset_launches()
+    t0 = time.perf_counter()
+    with step_logs(torch) as (logs, teacher):
+        emb, rr = stack.main([*TRAIN_FLAGS, "--save-trained", str(out)])
+    train_s = time.perf_counter() - t0
+    serve = serve_stack(torch, np, work, out, corpus, smi, "trained")
+    launches = read_launches()
+    report = {name: slog.report(name, smi) for name, slog in logs.items()}
+    graded_attn = {name: slog.attn for name, slog in logs.items()}
+    n_triples = len(stack.distill_triples("both"))
+    want_calls = 2 * -(-n_triples // TEACHER_BATCH)
+    # the teacher scores through the serving forward: kernel 2 once a layer
+    # in each call whose pair bucket passes the gate (256 tokens or more)
+    cfg = rr.cfg
+    want_teacher = cfg.layers * sum(bert._pair_attn_enabled(s, cfg.hidden // cfg.heads)
+                                    for s in teacher["lengths"])
+    log(f"[train] {smi}: stack trained, distilled and exported in {train_s:.1f} s; teacher pass "
+        f"{teacher['seconds']:.2f} s, {teacher['calls']} cross_score calls over {n_triples} "
+        f"unpadded triples at pair lengths {dict(collections.Counter(teacher['lengths']))}, "
+        f"kernel 2 launches {teacher['launches']} (want {want_teacher}); kernel 2 launches "
+        f"inside the graded steps {graded_attn}; launches over the run {launches}")
+    if any(graded_attn.values()):
+        raise AssertionError(f"kernel 2 launched inside graded steps: {graded_attn}")
+    if teacher["calls"] != want_calls or teacher["launches"] != want_teacher:
+        raise AssertionError(f"teacher pass: {teacher['calls']} calls and {teacher['launches']} "
+                             f"kernel 2 launches, want {want_calls} and {want_teacher}")
+    n_batches = len(serve["batches"])
+    want = want_launches(masked_topk=n_batches,
+                         pair_attention=teacher["launches"] + 6 * n_batches)
+    if launches != want:
+        raise AssertionError(f"[train] launches {launches}, want {want}")
+    for name, r in report.items():
+        if not r["loss_last"] < r["loss_first"]:
+            raise AssertionError(f"{name}: the loss did not fall ({r})")
+    # a graded CUDA input handed to the attention kernel's wrapper raises
+    q = torch.zeros(1, 8, 2, 32, device="cuda", requires_grad=True)
+    try:
+        encoder_self_attention(q, q, q, torch.ones(1, 8, device="cuda"), 0.1)
+    except RuntimeError as exc:
+        if "no backward" not in str(exc):
+            raise
+    else:
+        raise AssertionError("encoder_self_attention took an input that requires grad")
+    return {"launches": launches, "serve": serve, "emb": emb, "rr": rr, "corpus": corpus}
+
+
+def save_random_stack(torch, work: Path, run: dict) -> Path:
+    """The trained stack's starting point exported as it was exported:
+    the stack's seeded init (seeds 0 and 1), the same architectures and
+    the same trained lengths (``work / "random"``)."""
+    from financial_rag_system_tpu_torch.models.embedder import BiEncoder
+    from financial_rag_system_tpu_torch.models.reranker import CrossEncoderReranker
+    from financial_rag_system_tpu_torch.models.tokenizer import Tokenizer
+    from financial_rag_system_tpu_torch.train import stack
+
+    emb, rr = run["emb"], run["rr"]
+    out = work / "random"
+    stack.save_trained(
+        BiEncoder(stack.init_model(emb.cfg, 0, "cuda"), emb.cfg, Tokenizer(), max_len=emb.max_len),
+        CrossEncoderReranker(stack.init_model(rr.cfg, 1, "cuda"), rr.cfg, Tokenizer(),
+                             max_len=rr.max_len),
+        str(out))
+    return out
+
+
+def check_trained_against_cpu(torch, np, run: dict, work: Path) -> None:
+    """One fused batch of the trained stack on the card against the same
+    pipeline on the CPU (the exported checkpoints, the index saved on the
+    card and loaded on the CPU)."""
+    from financial_rag_system_tpu_torch.index.flat import FlatIndex
+    from financial_rag_system_tpu_torch.models.embedder import get_embedder
+    from financial_rag_system_tpu_torch.models.reranker import get_reranker
+    from financial_rag_system_tpu_torch.utils.config import get_config
+
+    engine = run["serve"]["engine"]
+    engine.index.save(get_config().index_dir)
+    cpu_index = FlatIndex.load(get_config().index_dir, device="cpu")
+    queries = [(q["query"], q["ticker"], None) for q in run["serve"]["questions"][:2]]
+    n = engine.index.n_valid
+    got = flat_batch(torch, engine, queries, "cuda", engine.index,
+                     (engine.embedder, engine.reranker), n)
+    with env_set(**CPU_TANH):
+        models = (get_embedder(device="cpu"), get_reranker(device="cpu"))
+        ref = flat_batch(torch, engine, queries, "cpu", cpu_index, models, n)
+    compare_batches(np, "[train] trained stack, card vs CPU", got, ref)
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2863,10 +3465,27 @@ def main() -> int:
         hnsw8_run = drive_hnsw_int8(torch, np, hnsw_run, smi)
         del hnsw_run["engine"]
         log(f"[hnsw] phase 8 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        train_run = drive_training_path(torch, np, work, smi)
+        check_trained_against_cpu(torch, np, train_run, work)
+        random_run = serve_stack(torch, np, work, save_random_stack(torch, work, train_run),
+                                 train_run["corpus"], smi, "random-init")
+        log(f"[train] {smi}: hard-set Hit@5 over the same 56 questions (reported, not gated): "
+            f"trained stack {train_run['serve']['hit5']:.4f}, random-init stack "
+            f"{random_run['hit5']:.4f}")
+        del random_run["engine"], train_run["serve"]["engine"]
+        rr_len = train_run["rr"].max_len
+        del train_run["emb"], train_run["rr"]
+        check_train_against_cpu(torch, np, work / "trained", rr_len, smi)
+        check_resume(torch, np, work, smi)
+        check_reproducible(torch, np, rr_len, smi)
+        profile_train_steps(torch, rr_len, smi)
+        log(f"[train] phase 9 took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # launches over the main paths, each counted from 0 around its run
-    runs = (main_run, ivf_run, block_run, int8_run, ivf8_run, *hash_runs, hnsw_run, hnsw8_run)
+    runs = (main_run, ivf_run, block_run, int8_run, ivf8_run, *hash_runs, hnsw_run, hnsw8_run,
+            train_run)
     for kern in kernels:
         name = kern["name"]
         kern["launches"] = sum(run["launches"][name] for run in runs)

@@ -257,6 +257,7 @@ def ivf_probe(
         return ivf_probe_plain(*args, tile=tile)
     if packed_emb.device.type != "cuda":
         raise ValueError(f"unsupported device {packed_emb.device}")
+    _cuda.refuse_grad("ivf_probe", queries, packed_emb)
     return ivf_probe_cuda(*args, tile=tile)
 
 

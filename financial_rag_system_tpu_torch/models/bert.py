@@ -18,7 +18,14 @@ cross-encoder share it.  Numerics follow the JAX default path:
   rerank pairs) :func:`ops.attention.encoder_self_attention`, the CUDA
   kernel on the card and its plain version on the CPU; below it (the
   query embed) the JAX einsum path's arithmetic in plain PyTorch
-  (:func:`_einsum_attention`).
+  (:func:`_einsum_attention`);
+- a forward that is being differentiated (:func:`_graded`: grad mode on
+  and a parameter requires grad, as the trainers of :mod:`train` run it)
+  takes the einsum attention at every length and the unfused layer, with
+  one bf16 cast per projection and, on the card, a dense product whose
+  backward gives JAX's cotangents (:class:`_BF16Product`) and embedding
+  lookups whose backward sums in a fixed order (:class:`_Lookup`); the JAX
+  kernels have no backward (see :func:`_pair_attn_enabled`).
 
 Three opt-ins, each off by default, as in the JAX package:
 
@@ -34,7 +41,8 @@ Three opt-ins, each off by default, as in the JAX package:
 
 Parameters are ``nn.Linear`` weights, (out, in); :func:`load_jax_params`
 fills a model from the JAX package's pytree (layer stacks on axis 0,
-weights (in, out)), its int8-PTQ form included.
+weights (in, out)), its int8-PTQ form included; :func:`export_jax_params`
+is its inverse.
 """
 
 from __future__ import annotations
@@ -156,7 +164,7 @@ def _act_dtype() -> torch.dtype:
     return torch.bfloat16 if _env_on("RAG_TPU_BF16_ACT") else torch.float32
 
 
-def _pair_attn_enabled(seq: int, head_dim: int) -> bool:
+def _pair_attn_enabled(seq: int, head_dim: int, graded: bool = False) -> bool:
     """Whether attention at this sequence length runs the pair-attention
     kernel's arithmetic (:func:`ops.attention.encoder_self_attention`) or
     the JAX einsum path's (:func:`_einsum_attention`), read once per
@@ -169,10 +177,16 @@ def _pair_attn_enabled(seq: int, head_dim: int) -> bool:
       S <= 64);
     - ``0``, ``false`` or ``off``: never the kernel;
     - anything else (``1``): the kernel at every length;
-    - never for a head wider than 128.
+    - never for a head wider than 128;
+    - never in a graded forward (``graded``, :func:`_graded`): the kernel
+      has no backward, in the port or in JAX, whose Pallas kernel under
+      ``jax.grad`` raises ``ValueError: Linearization failed to produce
+      known values for all output primals``.  The JAX trainers therefore
+      run the einsum path (on the CPU, or with ``RAG_TPU_PAIR_ATTN=0``),
+      and so does a graded forward here, at every length.
     """
     mode = os.environ.get("RAG_TPU_PAIR_ATTN", "auto").lower()
-    if mode in ("0", "false", "off") or head_dim > 128:
+    if graded or mode in ("0", "false", "off") or head_dim > 128:
         return False
     return seq >= 256 if mode == "auto" else True
 
@@ -216,6 +230,13 @@ def _fused_block_enabled(model: "BertModel") -> bool:
       ``WIDTH_STEP`` (64), the widths the kernels are built for.  A wider
       model (BERT-base, 768) runs the unfused layer under the opt-in,
       which computes the same function.
+
+    :meth:`BertModel.encode` never asks it in a graded forward
+    (:func:`_graded`): kernels 4-6 have no backward, and neither have
+    JAX's (``jax.grad`` through its fused block fails with ``Linearization
+    failed``, as through the attention kernel, :func:`_pair_attn_enabled`),
+    so a trainer's forward takes the unfused layer, the one JAX's trainers
+    differentiate.
     """
     h, i = model.cfg.hidden, model.cfg.intermediate
     return (
@@ -227,8 +248,85 @@ def _fused_block_enabled(model: "BertModel") -> bool:
     )
 
 
+def _graded(model: "BertModel") -> bool:
+    """Whether ``model``'s forward is being differentiated: grad mode is
+    on and a parameter requires grad (the trainers' steps,
+    :func:`train.optim.graded`).  Serving runs with no parameter requiring
+    grad (``BertModel.__init__``), under ``torch.inference_mode`` on the
+    fused paths."""
+    return torch.is_grad_enabled() and any(p.requires_grad for p in model.parameters())
+
+
 def _ln(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
     return F.layer_norm(x.float(), (x.shape[-1],), scale, bias, eps)
+
+
+class _BF16Product(torch.autograd.Function):
+    """(M, K) bf16 x times the (N, K) bf16 weight's transpose, summed in
+    f32 on the card's tensor cores (``torch.mm(..., out_dtype=f32)``, which
+    has no derivative of its own), with the cotangents JAX's
+    ``dot_general`` transpose gives a bf16 x bf16 -> f32 product:
+    ``dx = g W`` and ``dW = g^T x`` as f32 products (TF32 is off,
+    ``BertModel.__init__``), each rounded to bf16, the operand's dtype;
+    the casts' own backward widens them to f32 again.  On the CPU the f32
+    product of bf16-rounded operands rounds at the same points through the
+    casts' backward, so it needs no such function."""
+
+    @staticmethod
+    def forward(ctx, x2: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x2, wb)
+        return torch.mm(x2, wb.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x2, wb = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(g, wb.float()).to(torch.bfloat16)
+        if ctx.needs_input_grad[1]:
+            dw = torch.matmul(g.t(), x2.float()).to(torch.bfloat16)
+        return dx, dw
+
+
+ONE_HOT_ROWS = 16  # a table this small takes its lookup's gradient as a product
+
+
+class _Lookup(torch.autograd.Function):
+    """``F.embedding`` with a backward that adds each row's gradients in a
+    fixed order.  On the card ``F.embedding``'s own backward sums a row in
+    a varying order once its id repeats thousands of times: the token-type
+    table's gradient over a (32, 512) pair batch came out 20 ways in 20
+    runs on an H100, so two runs of the cross-encoder trainer from the
+    same weights parted after their first step.  Here a table of at most
+    ``ONE_HOT_ROWS`` rows (the token types) takes ``one_hot(ids)^T @ g``,
+    one f32 product; a larger one (the words) ``index_put_`` with
+    accumulate, which sorts the ids and sums each one's rows in turn (for
+    the type table that serial sum cost 10 ms a cross-encoder step)."""
+
+    @staticmethod
+    def forward(ctx, ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return F.embedding(ids, table)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (ids,) = ctx.saved_tensors
+        ids, g = ids.reshape(-1), g.reshape(-1, g.shape[-1])
+        if ctx.rows <= ONE_HOT_ROWS:
+            return None, F.one_hot(ids, ctx.rows).to(g.dtype).t() @ g
+        return None, g.new_zeros(ctx.rows, g.shape[1]).index_put_((ids,), g, accumulate=True)
+
+
+def _embedding(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` at ``ids``: :class:`_Lookup` when a graded forward
+    on the card differentiates ``table``, else ``F.embedding``, which
+    gathers what indexing does and whose backward adds the rows'
+    gradients in a fixed order on the CPU (indexing's and ``index_put_``'s
+    do not there)."""
+    if table.is_cuda and torch.is_grad_enabled() and table.requires_grad:
+        return _Lookup.apply(ids, table)
+    return F.embedding(ids, table)
 
 
 def _matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
@@ -236,7 +334,9 @@ def _matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> torch.T
     (out, in).  No bf16 rounding of the product (see the module note)."""
     x2 = x.reshape(-1, x.shape[-1]).to(torch.bfloat16)
     wb = w.to(torch.bfloat16)
-    if x2.is_cuda:
+    if x2.is_cuda and torch.is_grad_enabled() and (x2.requires_grad or wb.requires_grad):
+        y = _BF16Product.apply(x2, wb)
+    elif x2.is_cuda:
         y = torch.mm(x2, wb.t(), out_dtype=torch.float32)
     else:
         y = x2.float() @ wb.float().t()
@@ -387,14 +487,15 @@ class BertModel(nn.Module):
         """Returns final hidden states (B, L, H) float32."""
         cfg = self.cfg
         act = _act_dtype()
-        fused = _fused_block_enabled(self)
+        graded = _graded(self)
+        fused = not graded and _fused_block_enabled(self)
         b, seq = input_ids.shape
         nh, hd = cfg.heads, cfg.hidden // cfg.heads
-        pair_attn = _pair_attn_enabled(seq, hd)
+        pair_attn = _pair_attn_enabled(seq, hd, graded)
         h = (
-            self.word_emb[input_ids.long()]
+            _embedding(input_ids.long(), self.word_emb)
             + self.position_emb[:seq][None, :, :]
-            + self.type_emb[token_type_ids.long()]
+            + _embedding(token_type_ids.long(), self.type_emb)
         )
         h = _ln(h, self.emb_ln.weight, self.emb_ln.bias, cfg.ln_eps).to(act)
         inv_sqrt = 1.0 / (hd**0.5)
@@ -403,7 +504,9 @@ class BertModel(nn.Module):
             if fused:
                 h = self._fused_layer(lp, h, attention_mask, act, pair_attn)
                 continue
-            hb = h.to(torch.bfloat16)  # one cast feeds all three projections
+            # one cast feeds all three projections; a graded forward casts
+            # in each (JAX's _matmul), so their input gradients add in f32
+            hb = h if graded else h.to(torch.bfloat16)
             q = _proj(hb, lp.q).to(act).reshape(b, seq, nh, hd)
             k = _proj(hb, lp.k).to(act).reshape(b, seq, nh, hd)
             v = _proj(hb, lp.v).to(act).reshape(b, seq, nh, hd)
@@ -537,3 +640,34 @@ def load_jax_params(model: BertModel, tree: dict) -> BertModel:
         put("classifier.bias", tree["classifier"]["b"])
     model.weights_changed()
     return model
+
+
+def export_jax_params(model: BertModel) -> dict:
+    """The JAX package's parameter pytree of ``model``'s weights as f32
+    numpy arrays: the inverse of :func:`load_jax_params` for a float
+    model (layers stacked on axis 0, dense weights (in, out))."""
+    if model.quantized:
+        raise ValueError("export_jax_params takes a float model")
+
+    def get(path: str, transpose: bool = False) -> np.ndarray:
+        a = model.get_parameter(path).detach().to("cpu", torch.float32).numpy()
+        return np.ascontiguousarray(a.T if transpose else a)
+
+    tree = {
+        "embeddings": {
+            "word": get("word_emb"), "position": get("position_emb"),
+            "type": get("type_emb"), "ln_scale": get("emb_ln.weight"),
+            "ln_bias": get("emb_ln.bias"),
+        },
+        "layers": {
+            key: np.stack([get(f"layers.{i}.{path}", transpose)
+                           for i in range(model.cfg.layers)])
+            for key, path, transpose in _LAYER_MAP
+        },
+    }
+    if model.pooler is not None:
+        tree["pooler"] = {"w": get("pooler.weight", True), "b": get("pooler.bias")}
+    if model.classifier is not None:
+        tree["classifier"] = {"w": get("classifier.weight", True),
+                              "b": get("classifier.bias")}
+    return tree

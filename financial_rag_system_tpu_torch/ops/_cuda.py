@@ -81,6 +81,16 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise when grad mode is on and a tensor (``None`` skipped) requires
+    grad: the kernels have no backward, and launching one on raw pointers
+    would cut the autograd graph without a word.  A graded forward of the
+    encoder never comes here (``models/bert.py _graded``)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward; call it on tensors "
+                           "that do not require grad, or under torch.no_grad()")
+
+
 def check(err: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a kernel's C entry."""
     if err != 0:

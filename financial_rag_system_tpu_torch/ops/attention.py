@@ -154,11 +154,14 @@ def encoder_self_attention(
 ) -> torch.Tensor:
     """Returns the (B, S, H*D) context, f32 unless ``out_dtype`` asks for
     bf16 (exact: the kernel stores bf16).  The CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor; nothing else."""
+    tensor, the plain version for a CPU tensor; nothing else.  A CUDA
+    input that requires grad under grad mode raises: the kernel has no
+    backward (``_cuda.refuse_grad``)."""
     if q.device.type == "cpu":
         return encoder_self_attention_plain(q, k, v, attention_mask, inv_sqrt, out_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    _cuda.refuse_grad("pair_attention", q, k, v)
     b, s, h, d = q.shape
     for name, t in (("k", k), ("v", v)):
         if t.shape != q.shape:

@@ -322,11 +322,15 @@ def _count(fn) -> None:
         fn.launches += 1
 
 
-def _on_cpu(x: torch.Tensor) -> bool:
+def _on_cpu(x: torch.Tensor, what: str, *operands) -> bool:
+    """Whether ``x`` is a CPU tensor (the plain version runs); for a CUDA
+    one, refuse operands that require grad (the kernels have no backward,
+    ``_cuda.refuse_grad``)."""
     if x.device.type == "cpu":
         return True
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    _cuda.refuse_grad(what, x, *operands)
     return False
 
 
@@ -341,7 +345,7 @@ def fused_qkv(x, wq, bq, wk, bk, wv, bv, packed=None):
     tensor; nothing else.  ``packed`` is
     :func:`pack_qkv` of these weights, made once by a caller that keeps
     it (``BertLayer.qkv_pack``); without it each call packs them."""
-    if _on_cpu(x):
+    if _on_cpu(x, "fused_qkv", wq, bq, wk, bk, wv, bv):
         if packed is None:
             return fused_qkv_plain(x, wq, bq, wk, bk, wv, bv)
         h = x.shape[-1]
@@ -377,7 +381,7 @@ def fused_resid_ln(x, ctx, w, b, ln_scale, ln_bias, eps: float, packed=None):
     a caller that keeps it (``BertLayer.o_pack``); without it each call
     packs them.  On the main path nothing is cast or copied: the kernel
     reads x, ctx and the layernorm's f32 vectors as they are."""
-    if _on_cpu(x):
+    if _on_cpu(x, "fused_resid_ln", ctx, w, b, ln_scale, ln_bias):
         if packed is not None:
             w, b = packed.w, packed.b
         return fused_resid_ln_plain(x, ctx, w, b, ln_scale, ln_bias, eps)
@@ -433,7 +437,7 @@ def fused_ffn_ln(x, w_in, b_in, w_out, b_out, ln_scale, ln_bias, eps: float):
     """LN(x + gelu_tanh(x W_in^T + b_in) W_out^T + b_out): (R, H) f32, by
     the kernel on :func:`ffn_plan`'s plan for a CUDA tensor, by the plain
     version for a CPU tensor."""
-    if _on_cpu(x):
+    if _on_cpu(x, "fused_ffn_ln", w_in, b_in, w_out, b_out, ln_scale, ln_bias):
         return fused_ffn_ln_plain(x, w_in, b_in, w_out, b_out, ln_scale, ln_bias, eps)
     xf, ops = _ffn_operands(x, w_in, b_in, w_out, b_out, ln_scale, ln_bias)
     r, h = xf.shape

@@ -252,6 +252,7 @@ def masked_topk(
         return masked_topk_plain(queries, corpus, codes, query_filter, n_valid, k)
     if corpus.device.type != "cuda":
         raise ValueError(f"unsupported device {corpus.device}")
+    _cuda.refuse_grad("masked_topk", queries, corpus)
     return masked_topk_cuda(queries, corpus, codes, query_filter, n_valid, k)
 
 

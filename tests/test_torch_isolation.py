@@ -17,6 +17,12 @@ import financial_rag_system_tpu_torch as port
 REPO = Path(__file__).resolve().parent.parent
 
 
+TRAIN_MODULES = ("optim", "checkpoint", "contrastive", "cross_encoder", "distill", "stack")
+# top-level packages the port never imports: JAX, its optimizer and
+# checkpointer, and the JAX package
+BANNED = ("jax", "optax", "orbax", "financial_rag_system_tpu")
+
+
 def port_modules() -> list[str]:
     return [
         m.name for m in pkgutil.walk_packages(port.__path__, prefix=port.__name__ + ".")
@@ -27,13 +33,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     mods = port_modules()
     assert len(mods) >= 25
     assert {f"financial_rag_system_tpu_torch.native.{m}" for m in ("loader", "hnsw_loader")} < set(mods)
+    assert {f"financial_rag_system_tpu_torch.train.{m}" for m in TRAIN_MODULES} < set(mods)
+    assert {f"financial_rag_system_tpu_torch.data.{m}" for m in ("synthetic", "chunker")} < set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'financial_rag_system_tpu'\n"
-        "       or m.startswith('financial_rag_system_tpu.')]\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {BANNED!r}]\n"
         "print(json.dumps(bad))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -50,6 +56,7 @@ def test_no_port_source_names_jax():
             stripped = line.strip()
             if stripped.startswith(("import ", "from ")):
                 assert "jax" not in stripped, f"{path}: {stripped}"
+                assert "optax" not in stripped and "orbax" not in stripped, f"{path}: {stripped}"
                 assert "financial_rag_system_tpu." not in stripped.replace(
                     "financial_rag_system_tpu_torch", ""
                 ), f"{path}: {stripped}"

@@ -1010,3 +1010,163 @@ def test_hnsw_walk_on_the_card_matches_the_cpu(cuda, dtype):
     near[:, 1:] |= gap <= 1e-5
     near[:, :-1] |= gap <= 1e-5
     np.testing.assert_array_equal(i_c[~near], i_r[~near])
+
+
+# -- training: no kernel under grad, and a step on the card against the CPU --------
+
+
+def graded_inputs(dev):
+    """One call of each kernel wrapper on small CUDA inputs, by name:
+    ``call(requires_grad)``, whose first float operand requires grad when
+    asked, as a graded forward would hand it over."""
+
+    def leaf(t, rg):
+        return t.detach().clone().requires_grad_(rg)
+
+    c = block_case(256, 128, 512, dev)
+    q, k, v = (torch.randn(2, 64, 4, 32, device=dev) for _ in range(3))
+    mask = torch.ones(2, 64, dtype=torch.int32, device=dev)
+    tq, tc, tcodes, tqf = (torch.tensor(a, device=dev) for a in topk_case(4, 2048, 64, 2000))
+    pq, pqf, pemb, pcodes, pgids, ptiles, _ = (
+        torch.tensor(a, device=dev) if isinstance(a, np.ndarray) else a
+        for a in probe_case(4, 64, 8, 128))
+    return {
+        "pair_attention": lambda rg: encoder_self_attention(leaf(q, rg), k, v, mask, 0.1),
+        "fused_qkv": lambda rg: fused_bert.fused_qkv(leaf(c["x"], rg), *qkv_args(c)[1:]),
+        "fused_resid_ln": lambda rg: fused_bert.fused_resid_ln(
+            c["x"], c["ctx"], leaf(c["w"][3], rg), c["b"][3], c["s"], c["lb"], 1e-12),
+        "fused_ffn_ln": lambda rg: fused_bert.fused_ffn_ln(
+            *(leaf(t, rg) if n == 1 else t for n, t in enumerate(ffn_args(c)))),
+        "masked_topk": lambda rg: masked_topk(leaf(tq.bfloat16(), rg), tc.bfloat16(), tcodes,
+                                              tqf, 2000, 5),
+        "ivf_probe": lambda rg: ivf_probe(leaf(pq.bfloat16(), rg), pqf, pemb.bfloat16(), pcodes,
+                                          pgids, ptiles, 5, tile=128),
+    }
+
+
+@pytest.mark.parametrize("name", ["pair_attention", "fused_qkv", "fused_resid_ln",
+                                  "fused_ffn_ln", "masked_topk", "ivf_probe"])
+def test_kernel_wrappers_refuse_inputs_that_require_grad(cuda, name):
+    """A kernel has no backward: handed a CUDA tensor that requires grad
+    under grad mode, its wrapper raises instead of cutting the graph; the
+    same call without grad launches."""
+    call = graded_inputs(cuda)[name]
+    with pytest.raises(RuntimeError, match="no backward"):
+        call(True)
+    with torch.no_grad():
+        call(True)
+    out = call(False)
+    torch.cuda.synchronize()
+    assert all(not t.requires_grad for t in (out if isinstance(out, tuple) else (out,)))
+
+
+TRAIN_LR = 1e-4
+
+
+def train_case(objective, dev):
+    """(loss, grads by name, updated weights by name) of one step of
+    ``objective`` on ``dev`` at a tiny width, from weights that 8 steps on
+    the CPU took away from the random init (where InfoNCE sits at chance
+    and its gradient is mostly rounding noise)."""
+    from financial_rag_system_tpu_torch.models import bert
+    from financial_rag_system_tpu_torch.models.tokenizer import Tokenizer, pad_batch
+    from financial_rag_system_tpu_torch.train import contrastive, cross_encoder, distill
+    from financial_rag_system_tpu_torch.train.optim import ClippedAdamW, graded
+
+    cfg = bert.BertConfig(vocab_size=30522, hidden=64, layers=2, heads=2, intermediate=128,
+                          max_positions=512, with_pooler=True,
+                          num_labels=1 if objective == "bce" else 0)
+    tok = Tokenizer()
+    texts = [f"question {i} about revenue growth and margin" for i in range(4)]
+    docs = [f"the company reported segment {i} results " * (3 + 20 * (i % 2)) for i in range(4)]
+
+    def loss_of(model):
+        d = model.device
+        if objective == "bce":
+            batch = pad_batch([tok.encode_pair(q, x, 512) for q, x in zip(texts, docs)])
+            labels = torch.tensor([1.0, 0.0, 0.0, 1.0], device=d)
+            return cross_encoder.bce_loss(model, *contrastive.on_device(batch, d), labels, 3.0)
+        q, p, n = contrastive.tokenize_pairs(tok, list(zip(texts, docs, docs[1:] + docs[:1])))
+        q, p, n = (contrastive.on_device(b, d) for b in (q, p, n))
+        if objective == "infonce":
+            return contrastive.info_nce_loss(model, q, p, 0.05, n, 0.5)
+        return distill.margin_mse_loss(model, q, p, n,
+                                       torch.tensor([0.5, -1.0, 2.0, 0.1], device=d))
+
+    start = bert.BertModel(cfg, device="cpu")
+    bert.load_jax_params(start, bert.init_params(torch.Generator().manual_seed(0), cfg))
+    opt = ClippedAdamW(start, 1e-3)
+    for _ in range(8):
+        with graded(start):
+            loss_of(start).backward()
+        opt.step()
+    model = bert.BertModel(cfg, device=dev)
+    model.load_state_dict(start.state_dict())
+    with graded(model):
+        loss = loss_of(model)
+        loss.backward()
+    grads = {k: p.grad.detach().cpu().clone() for k, p in model.named_parameters()
+             if p.grad is not None}
+    ClippedAdamW(model, TRAIN_LR).step()
+    return float(loss.detach()), grads, {k: p.detach().cpu() for k, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("objective", ["infonce", "bce", "margin_mse"])
+def test_training_step_on_the_card_matches_the_cpu(cuda, monkeypatch, objective):
+    """One step of each objective on the card (tanh GELU, the tensor-core
+    products with their backward) against the CPU with tanh GELU, from the
+    same weights, held to ``chip_smoke.py``'s phase-9 tolerances
+    (``compare_steps``: the losses, the gradients' L2 difference over
+    their norm, and the updated weights in learning rates)."""
+    import chip_smoke
+
+    monkeypatch.setenv("RAG_TPU_FAST_GELU", "1")  # the card's default, on the CPU too
+    c = chip_smoke.compare_steps(torch, TRAIN_LR, train_case(objective, cuda),
+                                 train_case(objective, "cpu"))
+    assert c["ok"], c
+
+
+@pytest.mark.parametrize("rows", [2, 30522], ids=["type", "word"])
+def test_graded_embedding_backward_is_the_same_in_every_run(cuda, rows):
+    """The graded forward's embedding lookup on the card (``bert._Lookup``)
+    adds a row's gradients in one order: over a (32, 512) pair batch, where
+    ``F.embedding``'s backward gives the 2-row type table's gradient a
+    different sum in each run, ten backwards agree bit for bit, within f32
+    rounding of the exact sum."""
+    from financial_rag_system_tpu_torch.models import bert
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    ids = torch.randint(0, rows, (32, 512), device=cuda, generator=gen)
+    g = torch.randn(32, 512, 384, device=cuda, generator=gen)
+    grads = []
+    for _ in range(10):
+        table = torch.zeros(rows, 384, device=cuda, requires_grad=True)
+        (bert._embedding(ids, table) * g).sum().backward()
+        grads.append(table.grad)
+    assert all(torch.equal(grads[0], x) for x in grads[1:])
+    exact = torch.zeros(rows, 384, dtype=torch.float64, device=cuda).index_add_(
+        0, ids.reshape(-1), g.reshape(-1, 384).double())
+    torch.testing.assert_close(grads[0].double(), exact, rtol=0,
+                               atol=1e-5 * float(exact.abs().max()))
+
+
+def test_cross_encoder_trains_the_same_twice_on_the_card(cuda):
+    """Two runs of the cross-encoder trainer from the same weights on
+    (32, 512) pair batches: the same losses and weights, bit for bit."""
+    from financial_rag_system_tpu_torch.data.synthetic import expand_chunk
+    from financial_rag_system_tpu_torch.models import bert
+    from financial_rag_system_tpu_torch.train import cross_encoder
+
+    cfg = bert.BertConfig(vocab_size=30522, hidden=64, layers=2, heads=2, intermediate=128,
+                          max_positions=512, with_pooler=True, num_labels=1)
+    examples = [(q, expand_chunk(d, 1000), lbl) for q, d, lbl in
+                cross_encoder.make_cross_examples(tickers=["AAPL"], seed=1)[:96]]
+    runs = []
+    for _ in range(2):
+        model = bert.BertModel(cfg, device=cuda)
+        bert.load_jax_params(model, bert.init_params(torch.Generator().manual_seed(0), cfg))
+        _, losses = cross_encoder.train_cross_encoder(model, examples, batch_size=32, lr=1e-3,
+                                                      max_len=512, seed=1)
+        runs.append((losses, [p.detach().clone() for p in model.parameters()]))
+    assert len(runs[0][0]) == 3 and runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
