@@ -7,7 +7,7 @@
                           [--resid-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
 
 Drives ``financial_rag_system_tpu_torch`` end to end on the card, in
-ten phases; any failure raises and the script exits non-zero:
+eleven phases; any failure raises and the script exits non-zero:
 
 0. the card: name, power limit and compute capability (Hopper, 9.0);
 1. build: every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a``
@@ -110,7 +110,26 @@ ten phases; any failure raises and the script exits non-zero:
    random-init stack's (reported); one step of each objective at full
    width on the card against the CPU; a checkpoint resume against the
    uninterrupted step and the cross-encoder trained twice, each bit for
-   bit; a profile of one step of each tower by kind.
+   bit; a profile of one step of each tower by kind;
+10. the mesh-sharded tier on a mesh of four shards on the one card
+   (``[cuda:0] * 4``; their launches run one after another): (a) the
+   phase-3 index rewritten as a ``sharded_index.npz`` (4 x 32,768 valid
+   rows) behind ``build_default_engine(device="cuda",
+   mesh_devices=MESH)``, 3 asks, a burst of 32 and a cache hit (kernel 1
+   once a shard and kernel 2 once a shard's rerank chunk a layer), the
+   burst's batch against the single-device program over the same rows
+   (rows identical, bi within 1e-6, ce within 1e-2) and both profiled;
+   (b) the same over phase 6's int8 index (rows and bi bit for bit); (c)
+   ``rebuild_index("ivf")`` over phase 4's 1,048,576 rows (4 x 262,144),
+   recall@15 against the sharded flat (reported), a burst (kernel 3 once
+   a shard), an upsert that grows every shard and a staged ask that finds
+   it; (d) ``rebuild_index("hnsw")`` over phase 8's 131,072 rows (four
+   native graphs), recall@15, a burst, and the four walks' wall against
+   device time; (e) a one-rank NCCL process group serving (a)'s index
+   through ``attach_control_plane`` (a ControlServer with no workers and
+   a BroadcastIndex): (a)'s rows; (f) shards with no valid rows
+   (capacity twice the corpus): the single device's rows and three asks.
+   Each part prints its seconds.
 
 The CPU references of phases 3-6 set ``RAG_TPU_FAST_GELU=1``: the card's
 default GELU is the tanh form and the CPU's exact erf, JAX's rule.
@@ -900,7 +919,7 @@ CPU_TANH = {"RAG_TPU_FAST_GELU": "1"}
 
 
 def drive_main_path(torch, np, work: Path, smi: str, label: str = "main",
-                    index: str = "index", rounds: int = 2) -> dict:
+                    index: str = "index", rounds: int = 2, mesh=None) -> dict:
     """The flat tier through ``build_default_engine(device="cuda")`` over
     the index saved in ``work / index``: 3 single asks, ``rounds`` bursts
     of 32 and a cache hit.  ``label`` tags the log lines and, past the
@@ -908,7 +927,10 @@ def drive_main_path(torch, np, work: Path, smi: str, label: str = "main",
     of an earlier one.  Kernel 1's bf16 or int8 branch launches once a
     batch, as the index is; kernel 2 once a rerank layer (the query embed,
     below S 256, takes the einsum path); the fused-block kernels 18 times
-    a batch when the caller has set their opt-in, else never."""
+    a batch when the caller has set their opt-in, else never.  With
+    ``mesh`` (a device list) the engine shards the corpus over it: kernel
+    1 launches once a shard and kernel 2 once a shard's rerank chunk a
+    layer."""
     from financial_rag_system_tpu_torch.models import bert
     from financial_rag_system_tpu_torch.models.tokenizer import pad_batch
     from financial_rag_system_tpu_torch.obs.tracing import get_tracer
@@ -927,11 +949,12 @@ def drive_main_path(torch, np, work: Path, smi: str, label: str = "main",
         "RAG_TPU_BATCH_EAGER_IDLE_S": "0",
     })
     reset_config()
-    engine = build_default_engine(device="cuda")
+    engine = build_default_engine(device="cuda", mesh_devices=mesh)
     if engine.queue_status()["fused_kind"] != "full":
         raise AssertionError(f"fused_kind {engine.queue_status()['fused_kind']!r}")
     if engine.index.n_valid != N or engine.index.token_store_len != DLEN:
         raise AssertionError("the persisted index did not load whole")
+    shards = len(mesh) if mesh else 1
 
     batches: list[tuple[int, float]] = []
     inner = engine.batcher.batch_fn
@@ -984,7 +1007,7 @@ def drive_main_path(torch, np, work: Path, smi: str, label: str = "main",
     # the fused-block kernels once a layer (12 embed + 6 rerank) under
     # their opt-in
     topk = "masked_topk_int8" if engine.index.quantized else "masked_topk"
-    want = want_launches(**{topk: n_batches, "pair_attention": 6 * n_batches},
+    want = want_launches(**{topk: shards * n_batches, "pair_attention": 6 * shards * n_batches},
                          **dict.fromkeys(FUSED_BLOCK_KERNELS, 18 * n_batches if fused_block else 0))
     if launches != want:
         raise AssertionError(f"[{label}] launches {launches}, want {want}")
@@ -3349,6 +3372,582 @@ def check_trained_against_cpu(torch, np, run: dict, work: Path) -> None:
     compare_batches(np, "[train] trained stack, card vs CPU", got, ref)
 
 
+# -- phase 10: the mesh-sharded tier --------------------------------------------------
+
+# four corpus shards on the one card: their launches run one after another
+SHARDS = 4
+MESH = ["cuda:0"] * SHARDS
+SHARDED_DIR = "index_sharded"
+RECALL_FLOOR = 0.9  # mean recall@15 of the IVF and HNSW tiers against exact
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def to_sharded_dir(np, work: Path, src: str, dst: str) -> None:
+    """``work / src``'s flat_index.npz rewritten as the JAX package's
+    sharded_index.npz of the same rows (meta [dim, tile, capacity,
+    quantized, dlen]), with its store.json, in ``work / dst``."""
+    data = np.load(work / src / "flat_index.npz")
+    dim, tile, capacity, dlen, quantized = (int(x) for x in data["meta"])
+    (work / dst).mkdir(parents=True, exist_ok=True)
+    np.savez(work / dst / "sharded_index.npz", emb=data["emb"], codes=data["codes"],
+             dtok=data["doc_tok"], meta=np.asarray([dim, tile, capacity, quantized, dlen]))
+    shutil.copy(work / src / "store.json", work / dst / "store.json")
+
+
+def to_sharded(torch, flat, n: int, capacity: int):
+    """A ShardedFlatIndex over MESH holding rows [0, n) of ``flat`` (its
+    tensors cut into the shards' blocks on the card) and its store."""
+    from financial_rag_system_tpu_torch.index.sharded import ShardedFlatIndex
+    from financial_rag_system_tpu_torch.parallel.mesh import create_mesh
+
+    idx = ShardedFlatIndex(create_mesh(devices=MESH), D, capacity=capacity, tile=1024,
+                           dtype=flat.dtype, token_store_len=flat.token_store_len,
+                           tokenizer=flat.tokenizer)
+    emb, codes, dtok = flat._arrays
+    p = idx.per_shard
+    idx._arrays = (idx._blocks(emb[:n], p, 0, flat.dtype),
+                   idx._blocks(codes[:, :n], p, -2, torch.int32, dim=1),
+                   idx._blocks(dtok[:n], p, 0, torch.int32))
+    idx.store = flat.store
+    return idx
+
+
+def shard_valid(idx) -> list[int]:
+    """Each shard's valid rows: clamp(n_valid - base, 0, P)."""
+    return [min(max(idx.n_valid - idx.shard_base(i), 0), idx.per_shard)
+            for i in range(len(idx.mesh.devices))]
+
+
+def engine_batch(torch, engine, queries):
+    """(rows, bi, ce) of the engine's fused program on ``queries``, as the
+    batcher hands it a batch (host inputs; the program reads the index's
+    snapshot), the first ``len(queries)`` rows as numpy arrays."""
+    from financial_rag_system_tpu_torch.models.tokenizer import pad_batch
+
+    tok = engine.embedder.tokenizer
+    ids, types, mask = pad_batch([tok.encode(q, 64) for q, _, _ in queries])
+    codes = [engine.index.store.query_codes(t, d) for _, t, d in queries]
+    out = engine._fused_exec(ids, types, mask, codes)
+    if out is None:
+        raise AssertionError("the fused program did not take the batch")
+    return [x.cpu().numpy()[: len(queries)] for x in out[:3]]
+
+
+def same_rows(np, what: str, got, ref, *, bi_tol: float, ce_tol: float | None,
+              exact: bool = False) -> str:
+    """The sharded batch's rows are the single device's; bi within
+    ``bi_tol`` (bit for bit with ``exact``), ce within ``ce_tol``."""
+    (rows, bi, ce), (rows_1, bi_1, ce_1) = got, ref
+    if not np.array_equal(rows, rows_1):
+        raise AssertionError(f"{what}: rows differ in {int((rows != rows_1).sum())} slots")
+    fin = np.isfinite(bi_1)
+    bi_err = float(np.abs(bi[fin] - bi_1[fin]).max())
+    ce_err = float(np.abs(ce[fin] - ce_1[fin]).max()) if ce_tol is not None else 0.0
+    if (exact and bi.tobytes() != bi_1.tobytes()) or bi_err > bi_tol or (
+            ce_tol is not None and ce_err > ce_tol):
+        raise AssertionError(f"{what}: bi err {bi_err}, ce err {ce_err}")
+    return f"rows identical ({rows.size} slots), bi err {bi_err:.3g}, ce err {ce_err:.3g}"
+
+
+def sharded_flat_path(torch, np, work: Path, main: dict, smi: str, label: str, src: str,
+                      rounds: int, exact: bool) -> dict:
+    """(a) and (b): ``work / src`` rewritten as a sharded_index.npz and
+    served through ``build_default_engine(mesh_devices=MESH)``, then the
+    burst's batch against the single-device program over the same rows."""
+    from financial_rag_system_tpu_torch.index.flat import FlatIndex
+    from financial_rag_system_tpu_torch.ops.fused_query import fused_two_stage
+
+    t0 = time.perf_counter()
+    dst = f"{SHARDED_DIR}_{label}"
+    to_sharded_dir(np, work, src, dst)
+    log(f"[{label}] {src} rewritten as {dst}/sharded_index.npz in "
+        f"{time.perf_counter() - t0:.1f} s")
+    run = drive_main_path(torch, np, work, smi, label=label, index=dst, rounds=rounds, mesh=MESH)
+    engine = run["engine"]
+    idx = engine.index
+    n_batches = 3 + rounds
+    sfx = "_int8" if idx.quantized else ""
+    log(f"[{label}] {smi}: {idx.n_shards} shards of {idx.per_shard} rows, valid rows a shard "
+        f"{shard_valid(idx)}; a batch launches kernel 1 "
+        f"{run['launches']['masked_topk' + sfx] / n_batches:g} times and kernel 2 "
+        f"{run['launches']['pair_attention'] / n_batches:g} times ({SHARDS} rerank chunks of "
+        f"{-(-PAIRS // SHARDS)} pairs x 6 layers at the burst)")
+    single = FlatIndex.load(str(work / src), device="cuda")
+    queries = run["burst"]
+    got = engine_batch(torch, engine, queries)
+    m = main["engine"]
+    ref = [x.cpu().numpy()[: len(queries)] for x in fused_two_stage(
+        m.embedder.model, m.reranker.model, *fused_inputs(torch, engine, queries, "cuda"),
+        *single._arrays, N, rerank_cfg=m.reranker.cfg, k=K)]
+    log(f"[{label}] {smi}: the burst's sharded batch against one device's: "
+        + same_rows(np, label, got, ref, bi_tol=1e-6, ce_tol=1e-2, exact=exact))
+    run["single"] = single
+    return run
+
+
+def profile_sharded(torch, run: dict, smi: str) -> None:
+    """Wall and device time of the sharded fused batch of 32 beside the
+    single-device program's over the same rows."""
+    from financial_rag_system_tpu_torch.models.tokenizer import pad_batch
+    from financial_rag_system_tpu_torch.ops.fused_query import fused_two_stage
+
+    engine, single = run["engine"], run["single"]
+    tok = engine.embedder.tokenizer
+    queries = run["burst"]
+    ids, types, mask = pad_batch([tok.encode(q, 64) for q, _, _ in queries])
+    codes = [engine.index.store.query_codes(t, d) for _, t, d in queries]
+    profile_run(torch, lambda: engine._fused_exec(ids, types, mask, codes),
+                f"sharded fused_two_stage ({SHARDS} shards on one card)", smi)
+    args = fused_inputs(torch, engine, queries, "cuda")
+    profile_run(torch, lambda: fused_two_stage(
+        engine.embedder.model, engine.reranker.model, *args, *single._arrays, N,
+        rerank_cfg=engine.reranker.cfg, k=K), "fused_two_stage (one device, same rows)", smi)
+
+
+def serve_sharded_tier(torch, np, engine, smi: str, label: str, burst, fresh=None) -> dict:
+    """A burst of 32 (one fused batch) and, with ``fresh``, an upsert and
+    an ask that must find it, through the batched engine; the launches
+    read around the run."""
+    engine.llm_semaphore = asyncio.Semaphore(B)
+
+    async def scenario():
+        await engine.startup()
+        try:
+            answers = await asyncio.gather(*[engine.ask(f"{q} ({label})", t, 5, d)
+                                             for q, t, d in burst])
+            found = None
+            if fresh:
+                await engine.ingest_chunks([f"fresh-{label}-{i}" for i in range(len(fresh))],
+                                           fresh, [{"ticker": "T05", "document_type": "10-K"}]
+                                           * len(fresh))
+                found = await engine.ask(fresh[0], "T05", K)
+            await asyncio.sleep(0.2)
+        finally:
+            await engine.shutdown()
+        return answers, found
+
+    reset_launches()
+    t0 = time.perf_counter()
+    answers, found = asyncio.run(scenario())
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    check_answers(np, answers, 5)
+    if fresh:
+        check_answers(np, [found], K)
+        if not any(s["text"] in fresh for s in found["sources"]):
+            raise AssertionError(f"[{label}] the ask after the upsert did not find it")
+    log(f"[{label}] {smi}: burst{' + upsert + ask' if fresh else ''} served in {secs:.2f} s; "
+        f"launches {launches}")
+    return launches
+
+
+def sharded_recall(torch, np, engine, queries, label: str, smi: str,
+                   floor_served: float | None) -> None:
+    """Recall@15 against the exact top-15 of the sharded flat index
+    (kernel 1 on every shard): the fused batch as served, and the tier's
+    search on 32 queries drawn like the corpus (a row plus the topics'
+    noise) with no filter.  Fails when the mean of the latter is below
+    RECALL_FLOOR, or that of the batch as served below ``floor_served``
+    (None: reported only)."""
+    from financial_rag_system_tpu_torch.ops.fused_query import _embed
+
+    idx, flat = engine.index, engine.index.flat
+    args = fused_inputs(torch, engine, queries, "cuda")
+    rows = engine_batch(torch, engine, queries)[0]
+    qv = _embed(engine.embedder.model, *args[:3])
+    lines, means = [], []
+    for what, q, qf, got in (("the fused batch as served", qv, args[3], rows),
+                             ("queries drawn like the corpus, unfiltered",
+                              *near_queries(torch, flat), None)):
+        if got is None:
+            got = idx.search_device(q, qf, K)[1].cpu().numpy()
+        exact_s, exact_r = flat.search_device(q, qf, K)
+        rec = recall_at_k(np, got[:B], exact_s[:B], exact_r[:B])
+        means.append(float(np.mean(rec)))
+        lines.append(f"{what} mean {means[-1]:.4f}, lowest {min(rec):.4f}, "
+                     f"at 1.0 {rec.count(1.0)} of {len(rec)}")
+    log(f"[{label}] {smi}: recall@{K} against the exact sharded flat top-{K}: "
+        + "; ".join(lines))
+    if means[1] < RECALL_FLOOR or (floor_served is not None and means[0] < floor_served):
+        raise AssertionError(f"[{label}] recall@{K} {means}: floors {RECALL_FLOOR} drawn like "
+                             f"the corpus, {floor_served} as served")
+
+
+def near_queries(torch, flat):
+    """32 unit queries near random valid rows of ``flat`` (a row plus the
+    topics' noise) and their (B, 2) wildcard filters, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    near = flat.gathered(0)[torch.randint(0, flat.n_valid, (B,), generator=g,
+                                          device="cuda")].float()
+    near = torch.nn.functional.normalize(
+        near + TOPIC_NOISE / D**0.5 * torch.randn((B, D), generator=g, device="cuda"), dim=1)
+    return near, torch.full((B, 2), -1, dtype=torch.int32, device="cuda")
+
+
+def check_row_scores(torch, np, flat, q, qf, rows, bi, what: str, tol: float) -> None:
+    """Each returned row, looked up in the sharded flat index by its
+    global id, scores its query (``q`` as the tier scores it) as returned
+    within ``tol`` and passes the query's filter; empty slots are -1."""
+    fin = np.isfinite(bi)
+    if not (rows[~fin] == -1).all() or (rows[fin] < 0).any():
+        raise AssertionError(f"{what}: empty slots and rows disagree")
+    r = torch.as_tensor(np.where(fin, rows, 0), device="cuda").long()
+    emb, codes = flat.gathered(0)[r].float(), flat.gathered(1, dim=1)[:, r]
+    score = (q[: len(rows)].float()[:, None, :] * emb).sum(-1).cpu().numpy()
+    qf = qf[: len(rows)]
+    ok = (((qf[:, :1] == -1) | (codes[0] == qf[:, :1]))
+          & ((qf[:, 1:] == -1) | (codes[1] == qf[:, 1:]))).cpu().numpy()
+    err = float(np.abs(score[fin] - bi[fin]).max()) if fin.any() else 0.0
+    if err > tol or not ok[fin].all():
+        raise AssertionError(f"{what}: rows score their queries {err} off the returned "
+                             f"scores; filter misses {int((~ok[fin]).sum())}")
+
+
+def check_sharded_ivf(torch, np, engine, queries, label: str, smi: str) -> None:
+    """(c) on the card: each shard's packing holds each row of its block
+    once (bar the tail) with the row's own embedding and codes; the
+    burst's fused batch (kernel 3 on each shard) against every shard's
+    packing scored by ``ivf_probe_plain`` with the same probe list and
+    merged here by a stable descending sort (ties to the lower shard):
+    empty slots alike, rows identical wherever neighbouring scores differ
+    by more than HNSW_NEAR (the count that differ printed), bi within
+    kernel 3's 1e-4; and each returned row scores its query as returned."""
+    from financial_rag_system_tpu_torch.index.ivf import ivf_probe_plain
+    from financial_rag_system_tpu_torch.ops import fused_query as fq
+
+    idx = engine.index
+    flat = idx.flat
+    emb, codes, _ = flat._arrays
+    p = flat.per_shard
+    seen = np.zeros(flat.n_valid, np.int64)
+    for i in range(SHARDS):
+        gids = idx.packed_gids[i][0]
+        live = torch.nonzero(gids >= 0).squeeze(1)
+        g = gids[live].long()
+        local = g - i * p
+        if bool(((local < 0) | (local >= p)).any()):
+            raise AssertionError(f"[{label}] shard {i} packs rows outside its block")
+        if not (torch.equal(idx.packed_emb[i][live], emb[i][local])
+                and torch.equal(idx.packed_codes[i][:, live], codes[i][:, local])):
+            raise AssertionError(f"[{label}] shard {i}'s packing differs from its rows")
+        np.add.at(seen, g.cpu().numpy(), 1)
+    want = np.ones(flat.n_valid, np.int64)
+    want[list(idx._tail_rows)] = 0
+    if not np.array_equal(seen, want):
+        raise AssertionError(f"[{label}] the packings hold {int((seen != want).sum())} rows "
+                             f"other than once (tail rows: none)")
+
+    rows, bi, _ = engine_batch(torch, engine, queries)
+    args = fused_inputs(torch, engine, queries, "cuda")
+    with torch.inference_mode():
+        q = fq._prep_queries(fq._embed(engine.embedder.model, *args[:3]),
+                             idx.packed_emb[0].dtype)
+    tile_ids = fq._probe_tiles(q, idx.centroids, nprobe=idx.nprobe,
+                               tiles_per_cluster=idx.tiles_per_cluster,
+                               num_tiles=idx.num_tiles_local)
+    parts = [ivf_probe_plain(q, args[3], idx.packed_emb[i], idx.packed_codes[i],
+                             idx.packed_gids[i], tile_ids, K, tile=idx.tile)
+             for i in range(SHARDS)]
+    s_all = np.concatenate([x[0].cpu().numpy() for x in parts], axis=1)[: len(queries)]
+    r_all = np.concatenate([x[1].cpu().numpy() for x in parts], axis=1)[: len(queries)]
+    order = np.argsort(-s_all, axis=1, kind="stable")[:, :K]
+    s_ref = np.take_along_axis(s_all, order, 1)
+    r_ref = np.where(np.isfinite(s_ref), np.take_along_axis(r_all, order, 1), -1)
+    fin = np.isfinite(s_ref)
+    if not (np.isfinite(bi) == fin).all():
+        raise AssertionError(f"[{label}] the batch's empty slots differ from the plain merge")
+    n_diff = rows_where_clear(np, rows, s_ref, r_ref, f"[{label}] kernel 3 vs plain")
+    err = float(np.abs(bi[fin] - s_ref[fin]).max())
+    if err > 1e-4:
+        raise AssertionError(f"[{label}] bi differs from the plain merge by {err}")
+    check_row_scores(torch, np, flat, q, args[3], rows, bi, f"[{label}] fused batch", 1e-4)
+    log(f"[{label}] {smi}: each shard's packing holds its block's rows once with their "
+        f"embeddings and codes; the burst's batch against ivf_probe_plain on the "
+        f"{int((tile_ids >= 0).sum())} probed tiles of every shard, merged: rows differing "
+        f"{n_diff} of {int(fin.sum())} (only where neighbouring scores lie within {HNSW_NEAR}), "
+        f"bi err {err:.3g}; every row scores its query as returned and passes its filter")
+
+
+def check_sharded_hnsw(torch, np, engine, queries, label: str, smi: str) -> None:
+    """(d) on the card: the four graphs on the card are the host stacks;
+    the four card walks (``search_device``) against the same graphs and
+    rows walked on a CPU mesh, for the burst's vectors with its filters
+    and for queries drawn like the corpus: rows identical wherever
+    neighbouring scores differ by more than HNSW_NEAR, scores within
+    2 * HNSW_NEAR (phase 8's terms); the fused batch as served against
+    the card walk alike; each returned row scores its query as returned."""
+    from financial_rag_system_tpu_torch.index.hnsw import walk_queries
+    from financial_rag_system_tpu_torch.index.sharded import ShardedFlatIndex
+    from financial_rag_system_tpu_torch.index.sharded_hnsw import ShardedHNSWIndex
+    from financial_rag_system_tpu_torch.ops.fused_query import _embed
+    from financial_rag_system_tpu_torch.parallel.mesh import create_mesh
+
+    idx = engine.index
+    flat = idx.flat
+    adj, ent = idx._graph_state[:2]
+    for i in range(SHARDS):
+        if not (np.array_equal(adj[i].cpu().numpy(), idx._host_graphs[0][i])
+                and np.array_equal(ent[i].cpu().numpy(), idx._host_graphs[1][i])):
+            raise AssertionError(f"[{label}] shard {i}'s graph on the card differs from its stack")
+    t0 = time.perf_counter()
+    twin = ShardedFlatIndex(create_mesh(devices=["cpu"] * SHARDS), flat.dim,
+                            capacity=flat.capacity, tile=flat.tile, dtype=flat.dtype)
+    twin._arrays = tuple(None if part is None else tuple(x.cpu() for x in part)
+                         for part in flat._arrays)
+    twin.store = flat.store
+    cpu = ShardedHNSWIndex(twin, m=idx.m, ef=idx.ef, frontier=idx.frontier, steps=idx.steps,
+                           entries_cap=idx.entries_cap, pool_seeds=idx.pool_seeds,
+                           graphs=idx._host_graphs, pools=idx._host_pools)
+    setup_s = time.perf_counter() - t0
+    args = fused_inputs(torch, engine, queries, "cuda")
+    qv = _embed(engine.embedder.model, *args[:3])
+    n = len(queries)
+    lines = []
+    served = engine_batch(torch, engine, queries)
+    for what, q, qf in (("the burst's vectors and filters", qv, args[3]),
+                        ("queries drawn like the corpus", *near_queries(torch, flat))):
+        s_c, r_c = (x.cpu().numpy()[:n] for x in idx.search_device(q, qf, K))
+        t0 = time.perf_counter()
+        s_h, r_h = (x.numpy()[:n] for x in cpu.search_device(q.cpu(), qf.cpu(), K))
+        cpu_s = time.perf_counter() - t0
+        fin = np.isfinite(s_h)
+        if not (np.isfinite(s_c) == fin).all():
+            raise AssertionError(f"[{label}] {what}: empty slots differ card vs CPU")
+        n_diff = rows_where_clear(np, r_c, s_h, r_h, f"[{label}] {what}: card vs CPU walks")
+        err = float(np.abs(s_c[fin] - s_h[fin]).max())
+        if err > 2 * HNSW_NEAR:
+            raise AssertionError(f"[{label}] {what}: card vs CPU scores differ by {err}")
+        check_row_scores(torch, np, flat, walk_queries(q, flat.dtype), qf, r_c, s_c,
+                         f"[{label}] {what}", 1e-4)
+        lines.append(f"{what}: rows differing {n_diff} of {int(fin.sum())}, score err "
+                     f"{err:.3g} (CPU walk {cpu_s:.1f} s)")
+        if qf is args[3]:
+            rows, bi, _ = served
+            n_srv = rows_where_clear(np, rows, s_c, r_c, f"[{label}] served vs card walk")
+            srv_err = float(np.abs(bi[fin] - s_c[fin]).max())
+            if not (np.isfinite(bi) == fin).all() or srv_err > 2 * HNSW_NEAR:
+                raise AssertionError(f"[{label}] the batch as served differs from the walk: "
+                                     f"bi err {srv_err}")
+            lines.append(f"the batch as served against the card walk: rows differing {n_srv}, "
+                         f"bi err {srv_err:.3g}")
+    log(f"[{label}] {smi}: the four card walks against the same graphs walked on a CPU mesh "
+        f"(set up in {setup_s:.1f} s), rows compared where neighbouring scores differ by more "
+        f"than {HNSW_NEAR}, every row scoring its query as returned: " + "; ".join(lines))
+
+
+def sharded_ivf_path(torch, np, main: dict, smi: str) -> dict:
+    """(c) ``rebuild_index("ivf")`` over phase 4's 1,048,576-row corpus on
+    MESH (4 x 262,144 rows): the one codebook, each shard's packing, a
+    burst (kernel 3 once a shard), recall@15 against the sharded flat,
+    then an upsert (the tail) and an ask that finds it (staged)."""
+    from financial_rag_system_tpu_torch.index.sharded_ivf import ShardedIVFIndex
+    from financial_rag_system_tpu_torch.serving.engine import RAGEngine
+    from financial_rag_system_tpu_torch.utils.config import get_config
+
+    label = "sharded-ivf"
+    base = main["engine"]
+    t0 = time.perf_counter()
+    flat = clustered_flat(torch, np, N_IVF, base.embedder.tokenizer, SEED + 2,
+                          torch.device("cuda"))
+    sharded = to_sharded(torch, flat, N_IVF, N_IVF)
+    del flat
+    torch.cuda.synchronize()
+    log(f"[{label}] phase 4's {N_IVF} rows made and cut into {SHARDS} shards of "
+        f"{sharded.per_shard} in {time.perf_counter() - t0:.1f} s; valid rows a shard "
+        f"{shard_valid(sharded)}")
+    engine = RAGEngine(get_config(), sharded, base.embedder, base.reranker)
+    t0 = time.perf_counter()
+    built = engine.rebuild_index("ivf")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    idx = engine.index
+    kind = engine.queue_status()["fused_kind"]
+    if not isinstance(idx, ShardedIVFIndex) or kind != "ivf_full" or built["tail_rows"]:
+        raise AssertionError(f"[{label}] rebuild_index: {built}, fused_kind {kind!r}")
+    log(f"[{label}] {smi}: rebuild_index('ivf') {build_s:.2f} s; {idx.n_clusters} clusters, "
+        f"nprobe {idx.nprobe}, c_max {idx.c_max}, {idx.num_tiles_local} tiles a shard")
+    burst = [(f"{q} (sharded ivf)", t, d) for q, t, d in main["burst"]]
+    check_sharded_ivf(torch, np, engine, burst, label, smi)
+    sharded_recall(torch, np, engine, burst, label, smi, floor_served=RECALL_FLOOR)
+    fresh = [f"fresh filing note {i} ({label}): the board approved a special dividend"
+             for i in range(4)]
+    launches = serve_sharded_tier(torch, np, engine, smi, label, burst, fresh)
+    # the burst: kernel 3 on each shard, kernel 2 on each rerank chunk a
+    # layer; the ask after the upsert (a tail row: staged): kernel 3 on
+    # each shard and kernel 1 once over the tail rows
+    want = want_launches(ivf_probe=2 * SHARDS, masked_topk=1, pair_attention=6 * SHARDS)
+    if launches != want or len(idx._tail_rows) != len(fresh):
+        raise AssertionError(f"[{label}] launches {launches}, want {want}; tail "
+                             f"{idx._tail_rows}")
+    return {"engine": engine, "launches": launches, "build_s": build_s}
+
+
+def sharded_hnsw_path(torch, np, work: Path, smi: str) -> dict:
+    """(d) phase 8's 131,072 clustered rows as a sharded_index.npz behind
+    ``build_default_engine(mesh_devices=MESH)``, ``rebuild_index("hnsw")``
+    (four native graphs of 32,768 rows), a burst, recall@15 against the
+    sharded flat, and the four walks' wall time against their device
+    time."""
+    from financial_rag_system_tpu_torch.index.sharded_hnsw import ShardedHNSWIndex
+    from financial_rag_system_tpu_torch.serving.app import build_default_engine
+    from financial_rag_system_tpu_torch.utils.config import reset_config
+
+    label = "sharded-hnsw"
+    dst = f"{SHARDED_DIR}_hnsw"
+    to_sharded_dir(np, work, HNSW_DIR, dst)
+    with env_set(INDEX_DIR=str(work / dst), DATABASE_URL=str(work / "cache_sharded.db")):
+        reset_config()
+        engine = build_default_engine(device="cuda", mesh_devices=MESH)
+    t0 = time.perf_counter()
+    built = engine.rebuild_index("hnsw")
+    build_s = time.perf_counter() - t0
+    idx = engine.index
+    kind = engine.queue_status()["fused_kind"]
+    if not isinstance(idx, ShardedHNSWIndex) or kind != "hnsw_full" or built["tail_rows"]:
+        raise AssertionError(f"[{label}] rebuild_index: {built}, fused_kind {kind!r}")
+    st = idx._graph_state
+    log(f"[{label}] {smi}: rebuild_index('hnsw') {build_s:.2f} s on {os.cpu_count()} host "
+        f"threads: {SHARDS} graphs of {st[2]} rows, valid rows a shard {shard_valid(idx.flat)}, "
+        f"pool seeds {st[7]}, ef {max(idx.ef, idx.entries_cap + st[7])}, steps {idx.steps}")
+    tickers = [f"T{i:02d}" for i in range(HNSW_TICKERS)]
+    burst = [(f"sharded hnsw question {i} about segment results", tickers[i % HNSW_TICKERS],
+              DOC_TYPES[i % 3] if i % 2 else None) for i in range(B)]
+    check_sharded_hnsw(torch, np, engine, burst, label, smi)
+    # the burst's questions lie off the clustered corpus and its filters
+    # keep 1/8 or 1/24 of the rows: the walk's recall there is reported
+    # only (phase 8's single graph: 0.3667 as served)
+    sharded_recall(torch, np, engine, burst, label, smi, floor_served=None)
+    launches = serve_sharded_tier(torch, np, engine, smi, label, burst)
+    want = want_launches(pair_attention=6 * SHARDS)
+    if launches != want:
+        raise AssertionError(f"[{label}] launches {launches}, want {want}")
+    # the walks alone: four shards' torch-op loops, host-bound
+    from financial_rag_system_tpu_torch.ops.fused_query import _embed
+
+    args = fused_inputs(torch, engine, burst, "cuda")
+    qv = _embed(engine.embedder.model, *args[:3])
+    profile_run(torch, lambda: idx.search_device(qv, args[3], K),
+                f"sharded HNSW search ({SHARDS} walks)", smi)
+    return {"engine": engine, "launches": launches, "build_s": build_s}
+
+
+def nccl_one_rank_path(torch, np, work: Path, flat_run: dict, smi: str) -> dict:
+    """(e) a one-rank NCCL process group (JAX_NUM_PROCESSES=1 on a free
+    port) serving (a)'s index through ``attach_control_plane`` (a
+    ControlServer with no workers and a BroadcastIndex): a burst whose
+    batch goes through the op lock and NCCL's all-gather and psum, rows
+    and scores as (a)'s."""
+    import torch.distributed as dist
+
+    from financial_rag_system_tpu_torch.parallel.distributed import initialize_distributed
+    from financial_rag_system_tpu_torch.serving.app import attach_control_plane, build_default_engine
+    from financial_rag_system_tpu_torch.utils.config import get_config, reset_config
+
+    label = "nccl-1-rank"
+    env = dict(JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{free_port()}", JAX_NUM_PROCESSES="1",
+               JAX_PROCESS_ID="0", FRS_CONTROL_HOST="127.0.0.1",
+               FRS_CONTROL_PORT=str(free_port()),
+               INDEX_DIR=str(work / f"{SHARDED_DIR}_sharded"),
+               DATABASE_URL=str(work / "cache_nccl.db"))
+    with env_set(**env):
+        reset_config()
+        t0 = time.perf_counter()
+        if not initialize_distributed():
+            raise AssertionError("no process group")
+        try:
+            engine = build_default_engine(device="cuda", mesh_devices=MESH)
+            server = attach_control_plane(engine, get_config())
+            try:
+                status = engine.queue_status()
+                if (dist.get_backend() != "nccl" or not engine.index.inner.mesh.distributed
+                        or status["index_tier"] != "Broadcast[ShardedFlatIndex]"
+                        or status["fused_kind"] != "full"):
+                    raise AssertionError(f"[{label}] {dist.get_backend()} {status}")
+                log(f"[{label}] NCCL group of 1, control plane and warm-up in "
+                    f"{time.perf_counter() - t0:.1f} s")
+                queries = flat_run["burst"]
+                hits = engine._fused_batch([q for q, _, _ in queries],
+                                           [(t, d) for _, t, d in queries])
+                ref = flat_run["engine"]._fused_batch([q for q, _, _ in queries],
+                                                      [(t, d) for _, t, d in queries])
+                got, want = ([np.asarray([[h[f] for h in hl] for _, hl in out], np.float64)
+                              for f in ("row", "score", "rerank_score")] for out in (hits, ref))
+                err = [float(np.abs(a - b).max()) for a, b in zip(got[1:], want[1:])]
+                if not np.array_equal(got[0], want[0]) or err[0] > 1e-6 or err[1] > 1e-2:
+                    raise AssertionError(f"[{label}] the batch differs from (a)'s: score "
+                                         f"errors {err}")
+                burst = [(f"{q} (nccl)", t, d) for q, t, d in queries]
+                launches = serve_sharded_tier(torch, np, engine, smi, label, burst)
+                want = want_launches(masked_topk=SHARDS, pair_attention=6 * SHARDS)
+                if launches != want:
+                    raise AssertionError(f"[{label}] launches {launches}, want {want}")
+            finally:
+                server.shutdown()
+        finally:
+            dist.destroy_process_group()
+    log(f"[{label}] {smi}: the batch through the BroadcastIndex op lock and NCCL gives (a)'s "
+        f"rows; bi and ce errors {err}")
+    return {"launches": launches}
+
+
+def empty_shard_path(torch, np, main: dict, smi: str) -> dict:
+    """(f) the phase-3 rows in a sharded index whose capacity is twice the
+    corpus: shards 2 and 3 hold no valid rows (kernel 1 runs on them with
+    local_valid 0); three asks, and a batch with the single device's rows."""
+    from financial_rag_system_tpu_torch.serving.engine import RAGEngine
+    from financial_rag_system_tpu_torch.utils.config import get_config
+
+    label = "empty-shards"
+    base = main["engine"]
+    idx = to_sharded(torch, base.index, N, 2 * N)
+    if shard_valid(idx) != [2 * N // SHARDS] * 2 + [0, 0]:
+        raise AssertionError(f"[{label}] valid rows a shard {shard_valid(idx)}")
+    engine = RAGEngine(get_config(), idx, base.embedder, base.reranker)
+    got = engine_batch(torch, engine, main["burst"])
+    ref = flat_batch(torch, base, main["burst"], "cuda", base.index,
+                     (base.embedder, base.reranker))
+    log(f"[{label}] {smi}: valid rows a shard {shard_valid(idx)}; a batch against one "
+        f"device's: " + same_rows(np, label, got, ref, bi_tol=1e-6, ce_tol=1e-2))
+    launches = serve_sharded_tier(torch, np, engine, smi, label, main["singles"])
+    want = want_launches(masked_topk=SHARDS, pair_attention=6 * SHARDS)
+    if launches != want:
+        raise AssertionError(f"[{label}] launches {launches}, want {want}")
+    return {"launches": launches}
+
+
+def drive_sharded_tier(torch, np, work: Path, main: dict, int8: dict, smi: str) -> list[dict]:
+    """Phase 10: (a) bf16 flat, (b) int8 flat, (c) IVF, (d) HNSW, (e) one
+    NCCL rank through the control plane, (f) shards with no valid rows;
+    each part's seconds."""
+    runs = []
+    for part, fn in (
+        ("a", lambda: sharded_flat_path(torch, np, work, main, smi, "sharded", "index", 1,
+                                        exact=False)),
+        ("b", lambda: sharded_flat_path(torch, np, work, main, smi, "sharded-int8",
+                                        int8["dir"], 1, exact=True)),
+        ("c", lambda: sharded_ivf_path(torch, np, main, smi)),
+        ("d", lambda: sharded_hnsw_path(torch, np, work, smi)),
+        ("e", lambda: nccl_one_rank_path(torch, np, work, runs[0], smi)),
+        ("f", lambda: empty_shard_path(torch, np, main, smi)),
+    ):
+        t0 = time.perf_counter()
+        runs.append(fn())
+        if part == "a":
+            profile_sharded(torch, runs[0], smi)
+        log(f"[sharded] part ({part}) took {time.perf_counter() - t0:.1f} s")
+        if part in "bcd":
+            runs[-1].pop("engine", None)
+            runs[-1].pop("single", None)
+    return runs
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -3481,11 +4080,14 @@ def main() -> int:
         check_reproducible(torch, np, rr_len, smi)
         profile_train_steps(torch, rr_len, smi)
         log(f"[train] phase 9 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        sharded_runs = drive_sharded_tier(torch, np, work, main_run, int8, smi)
+        log(f"[sharded] phase 10 took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # launches over the main paths, each counted from 0 around its run
     runs = (main_run, ivf_run, block_run, int8_run, ivf8_run, *hash_runs, hnsw_run, hnsw8_run,
-            train_run)
+            train_run, *sharded_runs)
     for kern in kernels:
         name = kern["name"]
         kern["launches"] = sum(run["launches"][name] for run in runs)

@@ -98,7 +98,7 @@ def selective_rows(
 def build_ticker_lists(flat, n: int) -> dict[int, np.ndarray]:
     """Inverted row lists per ticker code over rows [0, n) — one (n,)
     int32 host readback per build."""
-    codes0 = flat._codes[0, :n].cpu().numpy()
+    codes0 = flat.ticker_codes(n)
     return {
         int(c): np.where(codes0 == c)[0].astype(np.int32)
         for c in np.unique(codes0)
@@ -106,18 +106,16 @@ def build_ticker_lists(flat, n: int) -> dict[int, np.ndarray]:
 
 
 def score_rows(flat, rows: np.ndarray, q_prepped, qf, k):
-    """Exact masked top-k over an explicit row subset of a flat index
-    (tail rows or selective-filter inverted lists), through
+    """Exact masked top-k over an explicit row subset of a flat or a
+    sharded flat index (tail rows or selective-filter inverted lists;
+    the index's ``take_rows`` gathers them), through
     :func:`ops.topk.masked_topk` — kernel 1 on the card.  ``q_prepped``
     must already match the corpus representation (FlatIndex.prep_queries)
     so scores share the ANN path's scale.  Returns (B, min(k, len(rows)))
     scores and global row ids (-1 where the score is -inf)."""
-    emb, codes, _ = flat._arrays
-    r = torch.as_tensor(np.asarray(rows), dtype=torch.long, device=emb.device)
-    s, local = masked_topk(
-        q_prepped, emb[r], codes[:, r].contiguous(), qf, len(rows),
-        min(k, len(rows)),
-    )
+    r = torch.as_tensor(np.asarray(rows), dtype=torch.long, device=q_prepped.device)
+    emb_r, codes_r = flat.take_rows(r)
+    s, local = masked_topk(q_prepped, emb_r, codes_r, qf, len(rows), min(k, len(rows)))
     gids = r.to(torch.int32)[local.clamp_min(0).long()]
     return s, torch.where(s > NEG_INF, gids, torch.full_like(gids, -1))
 

@@ -281,6 +281,16 @@ class FlatIndex(SearchMixin):
             k,
         )
 
+    def take_rows(self, rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(R, D) rows and their (2, R) codes, for exact scoring of a
+        row subset (index/base.py score_rows)."""
+        emb, codes, _ = self._arrays  # one read: emb/codes stay paired
+        return emb[rows], codes[:, rows].contiguous()
+
+    def ticker_codes(self, n: int) -> np.ndarray:
+        """(n,) host copy of the ticker codes of rows [0, n)."""
+        return self._codes[0, :n].cpu().numpy()
+
     def prep_queries(self, query_vecs: torch.Tensor) -> torch.Tensor:
         """Match queries to the corpus representation (a cast, or the
         rows' int8 quantization)."""

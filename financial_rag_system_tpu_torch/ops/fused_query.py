@@ -1,7 +1,6 @@
 """Fused two-stage query: embed -> top-k -> gather -> rerank, on the device.
 
-Port of the single-device paths of
-``financial_rag_system_tpu/ops/fused_query.py``.  With the full model
+Port of ``financial_rag_system_tpu/ops/fused_query.py``.  With the full model
 stack, the flat tier (:func:`fused_two_stage`, ``fused_kind == "full"``),
 the IVF tier (:func:`fused_ivf_two_stage`, ``"ivf_full"``) and the HNSW
 tier (:func:`fused_hnsw_two_stage`, ``"hnsw_full"``):
@@ -11,6 +10,13 @@ tier (:func:`fused_hnsw_two_stage`, ``"hnsw_full"``):
         graph walk (HNSW, torch ops: the JAX walk is XLA)--> rows
         --gather of pretokenized chunk ids from the device token store-->
         pair batch --MiniLM cross-encoder (pair-attention kernel)--> logits
+
+Over a corpus sharded on a mesh (:mod:`index.sharded`), the
+``make_sharded_fused_*`` builders run each shard's search (kernel 1, the
+probe kernel or the walk) on its device, merge the (B, k) partials in
+shard order and rerank the merged set work-balanced: one ``psum`` fetches
+the owned candidates' tokens and each shard cross-encodes an even
+``ceil(B * k / S)`` slice of the pairs (:func:`_sharded_balanced_rerank`).
 
 PyTorch runs eagerly, so this is one Python call that queues every stage
 on the device's stream with no host synchronisation in between; the
@@ -47,7 +53,10 @@ from financial_rag_system_tpu_torch.index.flat import quantize_int8
 from financial_rag_system_tpu_torch.index.ivf import ivf_probe, probe_tile_list
 from financial_rag_system_tpu_torch.models import bert
 from financial_rag_system_tpu_torch.models.embedder import _hash_embed
+from financial_rag_system_tpu_torch.index.sharded import merge_partials
 from financial_rag_system_tpu_torch.ops.topk import masked_topk
+from financial_rag_system_tpu_torch.parallel.collectives import all_gather, psum
+from financial_rag_system_tpu_torch.parallel.mesh import AXIS_CORPUS
 
 CLS_ID = 101
 
@@ -550,3 +559,283 @@ def make_fused_ivf_hash_query(
         fused_ivf_hash_rerank_query if rerank else fused_ivf_hash_query,
         k=k, tile=tile, nprobe=nprobe, tiles_per_cluster=tiles_per_cluster,
     )
+
+
+# ---------------------------------------------------------------------------
+# the corpus-sharded mesh: per-shard search, merge, work-balanced rerank
+# ---------------------------------------------------------------------------
+#
+# JAX runs these programs once per device under ``shard_map``; the port
+# embeds the batch once on the mesh's home device (every JAX device
+# computes the same replicated value), runs each shard's search on its
+# device, merges the (B, k) partials (index/sharded.py merge_partials)
+# and reranks the merged set work-balanced.  The models live on the home
+# device, so every shard's rerank chunk runs there.
+
+
+def _shard_search(mesh, q, qf, search):
+    """``search(i, q_dev, qf_dev) -> (bi, global rows)`` on each local
+    shard's device, rows of non-finite scores set to -1 (JAX's
+    ``isfinite`` guard).  Returns the per-shard lists (bi, rows)."""
+    bi_parts, row_parts = [], []
+    for i, dev in enumerate(mesh.devices):
+        bi, rows = search(i, q.to(dev), qf.to(dev))
+        bi_parts.append(bi)
+        row_parts.append(torch.where(torch.isfinite(bi), rows, -1))
+    return bi_parts, row_parts
+
+
+def _sharded_balanced_rerank(
+    mesh,
+    rerank_model: bert.BertModel,
+    q_ids: torch.Tensor,     # (B, LQ) query token ids
+    g_rows: torch.Tensor,    # (B, k) GLOBAL candidate rows after the merge
+    top_bi: torch.Tensor,    # (B, k) merged bi scores (-inf = empty)
+    dtok_shards,             # this process's (rows_per_shard, DLEN) token stores
+    *,
+    rows_per_shard: int,
+    rerank_cfg: bert.BertConfig,
+) -> torch.Tensor:
+    """Work-balanced cross-encoder rerank for corpus-sharded meshes (JAX
+    ``fused_query.py:198-254``).
+
+    The merged global top-k is the only pair set that needs stage-2
+    scores, but its rows live on whichever shards own them (shard ``s``
+    owns global rows ``[s * rows_per_shard, ...)``):
+
+      1. token fetch: each shard contributes the (B, k, DLEN) rows it
+         owns (zeros elsewhere); one ``psum`` (exact on int32) gives the
+         whole candidate token block;
+      2. balanced split: global shard ``s`` cross-encodes pairs
+         ``[s * chunk, (s + 1) * chunk)``, ``chunk = ceil(B * k / S)``,
+         of the flattened pair batch (clipped duplicates pad the last
+         chunk), then one all-gather reassembles the logits.
+
+    Returns (B, k) logits with empty slots masked to -inf."""
+    b, k = g_rows.shape
+    parts = []
+    for i, dev in enumerate(mesh.devices):
+        dtok = dtok_shards[i]
+        rows = g_rows.to(dev)
+        local = torch.where(rows >= 0, rows - mesh.shard_index(i) * rows_per_shard, -1)
+        own = (local >= 0) & (local < dtok.shape[0])
+        safe = local.clamp(0, dtok.shape[0] - 1).long()
+        parts.append(torch.where(own[..., None], dtok[safe], 0))
+    g_dtok = psum(mesh, parts).to(q_ids.device).reshape(b * k, -1)  # replicated
+    p = b * k
+    chunk = -(-p // mesh.shape[AXIS_CORPUS])
+    logits = []
+    for i in range(len(mesh.devices)):
+        idx = (mesh.shard_index(i) * chunk
+               + torch.arange(chunk, device=q_ids.device)).clamp(0, p - 1)
+        logits.append(_cross_encode_pairs(
+            rerank_model, q_ids[idx // k], g_dtok[idx], rerank_cfg=rerank_cfg))
+    ce = all_gather(mesh, logits, dim=0)[:p].reshape(b, k).to(top_bi.device)
+    return _mask_empty(ce, g_rows, top_bi)
+
+
+@torch.inference_mode()
+def sharded_fused_two_stage(
+    mesh,
+    embed_model: bert.BertModel,
+    rerank_model: bert.BertModel,
+    q_ids: torch.Tensor,
+    q_types: torch.Tensor,
+    q_mask: torch.Tensor,
+    query_filter: torch.Tensor,
+    emb_shards,       # this process's (P, D) row blocks
+    codes_shards,     # their (2, P) codes
+    dtok_shards,      # their (P, DLEN) token stores
+    n_valid: int,
+    *,
+    rerank_cfg: bert.BertConfig,
+    k: int,
+):
+    """The fused two-stage pipeline over a corpus-sharded mesh (JAX
+    ``make_sharded_fused_query``): embed, kernel 1 on every shard with
+    ``local_valid = clamp(n_valid - base, 0, P)``, the merge of the
+    (B, k) partials (exactly the single-device retrieve-15 set), then the
+    work-balanced rerank.  Returns (rows, bi, ce)."""
+    p = emb_shards[0].shape[0]
+    q = _prep_queries(_embed(embed_model, q_ids, q_types, q_mask), emb_shards[0].dtype)
+
+    def search(i, q_dev, qf_dev):
+        base = mesh.shard_index(i) * p
+        bi, rows = masked_topk(q_dev, emb_shards[i], codes_shards[i], qf_dev,
+                               min(max(n_valid - base, 0), p), k)
+        return bi, rows + base
+
+    top_bi, rows = merge_partials(mesh, *_shard_search(mesh, q, query_filter, search), k)
+    ce = _sharded_balanced_rerank(mesh, rerank_model, q_ids, rows, top_bi, dtok_shards,
+                                  rows_per_shard=p, rerank_cfg=rerank_cfg)
+    return rows, top_bi, ce
+
+
+def make_sharded_fused_query(mesh, rerank_cfg: bert.BertConfig, *, k: int):
+    """:func:`sharded_fused_two_stage` with the mesh and ``k`` bound."""
+    return functools.partial(sharded_fused_two_stage, mesh, rerank_cfg=rerank_cfg, k=k)
+
+
+@torch.inference_mode()
+def sharded_fused_ivf_two_stage(
+    mesh,
+    embed_model: bert.BertModel,
+    rerank_model: bert.BertModel,
+    q_ids: torch.Tensor,
+    q_types: torch.Tensor,
+    q_mask: torch.Tensor,
+    query_filter: torch.Tensor,
+    centroids: torch.Tensor,  # (K_cl, D) replicated codebook
+    packed_emb,               # this process's (K_cl * C_max, D) packings
+    packed_codes,             # their (2, K_cl * C_max) codes
+    packed_gids,              # their (1, K_cl * C_max) GLOBAL rows, -1 pad
+    dtok_shards,              # the flat index's (P, DLEN) token stores
+    *,
+    rerank_cfg: bert.BertConfig,
+    k: int,
+    tile: int,
+    nprobe: int,
+    tiles_per_cluster: int,
+    rows_per_shard: int,
+):
+    """The sub-linear fused pipeline over a corpus-sharded mesh (JAX
+    ``make_sharded_fused_ivf_query``): one probe list from the replicated
+    centroids indexes every shard's packing alike, kernel 3 on each
+    shard, the merge, then the work-balanced rerank (a shard's packed
+    rows all live in its block of ``rows_per_shard`` flat rows, so
+    ownership is the block test).  ``rows_per_shard`` is captured at
+    build: the engine serves staged when the flat index grew.  Returns
+    (rows, bi, ce, active_tiles), the last the 0-d count of probed
+    tiles."""
+    q = _prep_queries(_embed(embed_model, q_ids, q_types, q_mask), packed_emb[0].dtype)
+    tile_ids = _probe_tiles(
+        q, centroids, nprobe=nprobe, tiles_per_cluster=tiles_per_cluster,
+        num_tiles=packed_emb[0].shape[0] // tile,
+    )
+
+    def search(i, q_dev, qf_dev):
+        return ivf_probe(q_dev, qf_dev, packed_emb[i], packed_codes[i], packed_gids[i],
+                         tile_ids.to(q_dev.device), k, tile=tile)
+
+    top_bi, rows = merge_partials(mesh, *_shard_search(mesh, q, query_filter, search),
+                                  k)
+    ce = _sharded_balanced_rerank(mesh, rerank_model, q_ids, rows, top_bi, dtok_shards,
+                                  rows_per_shard=rows_per_shard, rerank_cfg=rerank_cfg)
+    return rows, top_bi, ce, (tile_ids >= 0).sum().to(torch.int32)
+
+
+def make_sharded_fused_ivf_query(
+    mesh, rerank_cfg: bert.BertConfig, *, k: int, tile: int, nprobe: int,
+    tiles_per_cluster: int, rows_per_shard: int,
+):
+    """:func:`sharded_fused_ivf_two_stage` with the mesh and geometry bound."""
+    return functools.partial(
+        sharded_fused_ivf_two_stage, mesh, rerank_cfg=rerank_cfg, k=k, tile=tile,
+        nprobe=nprobe, tiles_per_cluster=tiles_per_cluster, rows_per_shard=rows_per_shard,
+    )
+
+
+@torch.inference_mode()
+def sharded_fused_hnsw_two_stage(
+    mesh,
+    embed_model: bert.BertModel,
+    rerank_model: bert.BertModel,
+    q_ids: torch.Tensor,
+    q_types: torch.Tensor,
+    q_mask: torch.Tensor,
+    query_filter: torch.Tensor,
+    emb_shards,       # this process's (P, D) row blocks
+    codes_shards,     # their (2, P) codes
+    adj_shards,       # their (P + 1, 2M) level-0 adjacencies, sentinel P
+    entry_shards,     # their (E,) fixed entries
+    dtok_shards,      # their (P, DLEN) token stores
+    pool_shards=None,  # their (P',) k-center pools, with pool_take
+    *,
+    rerank_cfg: bert.BertConfig,
+    k: int,
+    ef: int,
+    steps: int,
+    frontier: int,
+    per_shard: int,
+    pool_take: int = 0,
+):
+    """The sharded graph tier (JAX ``make_sharded_fused_hnsw_query``):
+    each shard walks ITS graph over its rows, seeded by its own pool,
+    then the merge and the work-balanced rerank (walk ids are
+    shard-local, the same block as the shard's token store).  Returns
+    (rows, bi, ce)."""
+    from financial_rag_system_tpu_torch.index.hnsw import hnsw_routed_walk, walk_queries
+
+    q = walk_queries(_embed(embed_model, q_ids, q_types, q_mask), emb_shards[0].dtype)
+
+    def search(i, q_dev, qf_dev):
+        bi, rows = hnsw_routed_walk(
+            q_dev, qf_dev, emb_shards[i], codes_shards[i], adj_shards[i], entry_shards[i],
+            pool_shards[i] if pool_take > 0 else None, None, k, ef=ef, steps=steps,
+            frontier=frontier, pad_id=per_shard, take=pool_take,
+        )
+        return bi, torch.where(rows >= 0, rows + mesh.shard_index(i) * per_shard, -1)
+
+    top_bi, rows = merge_partials(mesh, *_shard_search(mesh, q, query_filter, search),
+                                  k)
+    ce = _sharded_balanced_rerank(mesh, rerank_model, q_ids, rows, top_bi, dtok_shards,
+                                  rows_per_shard=per_shard, rerank_cfg=rerank_cfg)
+    return rows, top_bi, ce
+
+
+def make_sharded_fused_hnsw_query(
+    mesh, rerank_cfg: bert.BertConfig, *, k: int, ef: int, steps: int, frontier: int,
+    per_shard: int, pool_take: int = 0,
+):
+    """:func:`sharded_fused_hnsw_two_stage` with the mesh and the walk's
+    geometry bound (``per_shard`` is the sentinel and the id stride)."""
+    return functools.partial(
+        sharded_fused_hnsw_two_stage, mesh, rerank_cfg=rerank_cfg, k=k, ef=ef, steps=steps,
+        frontier=frontier, per_shard=per_shard, pool_take=pool_take,
+    )
+
+
+@torch.inference_mode()
+def sharded_fused_hash_query(
+    mesh,
+    table: torch.Tensor,
+    *args,
+    k: int,
+    rerank: bool = False,
+):
+    """The hash stack over a corpus-sharded mesh (JAX
+    ``make_sharded_fused_hash_query``): the query bag, kernel 1 on every
+    shard and, with ``rerank``, the de-aliased hash rerank of each
+    shard's local candidates over its own token store; the merge carries
+    the rerank scores with the candidates.  ``args`` are ``[rerank_table,]
+    q_ids, q_mask, query_filter, emb_shards, codes_shards[, dtok_shards],
+    n_valid``.  Returns (qv, bi, rows[, ce]), the order of
+    :func:`fused_hash_query` and :func:`fused_hash_rerank_query`."""
+    if rerank:
+        rerank_table, q_ids, q_mask, qf, emb_shards, codes_shards, dtok_shards, n_valid = args
+    else:
+        q_ids, q_mask, qf, emb_shards, codes_shards, n_valid = args
+    p = emb_shards[0].shape[0]
+    qv = _hash_embed(table, q_ids, q_mask)
+    q = _prep_queries(qv, emb_shards[0].dtype)
+    ce_parts = []
+
+    def search(i, q_dev, qf_dev):
+        base = mesh.shard_index(i) * p
+        bi, rows = masked_topk(q_dev, emb_shards[i], codes_shards[i], qf_dev,
+                               min(max(n_valid - base, 0), p), k)
+        if rerank:
+            dev = q_dev.device
+            ce_parts.append(_hash_rerank(rerank_table.to(dev), q_ids.to(dev), q_mask.to(dev),
+                                         rows, bi, dtok_shards[i]))
+        return bi, rows + base
+
+    bi_parts, row_parts = _shard_search(mesh, q, qf, search)
+    out = merge_partials(mesh, bi_parts, row_parts, k, *([ce_parts] if rerank else []))
+    return (qv, *out)
+
+
+def make_sharded_fused_hash_query(mesh, *, k: int, rerank: bool = False):
+    """:func:`sharded_fused_hash_query` with the mesh, ``k`` and
+    ``rerank`` bound."""
+    return functools.partial(sharded_fused_hash_query, mesh, k=k, rerank=rerank)

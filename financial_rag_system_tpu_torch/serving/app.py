@@ -1,15 +1,21 @@
 """HTTP serving shell (aiohttp) and the default engine wiring.
 
-Port of ``financial_rag_system_tpu/serving/app.py`` for the single-device
-flat, IVF and HNSW tiers.  Endpoints and semantics follow the reference's
-FastAPI surface:
+Port of ``financial_rag_system_tpu/serving/app.py``: the flat, IVF and
+HNSW tiers on one device, or with the corpus sharded over a mesh
+(``build_default_engine(mesh_devices=...)``, or every visible card when
+there are several), and multi-process serving over ``torch.distributed``
+(:func:`main`: the coordinator owns HTTP and the op-broadcast control
+plane, the workers run its op stream).  Endpoints and semantics follow
+the reference's FastAPI surface:
 
 - ``POST /ask``       {query, ticker, document_type?, top_k=5} -> answer doc
 - ``POST /embed``     {texts: [...]} -> {embeddings: [[...]]}
 - ``POST /feedback``  {query_hash, rating} -> {status: ok}
 - ``DELETE /cache/clear/{ticker}`` -> {cleared_entries: N}
 - ``POST /index/upsert``, ``POST /index/save`` (the active tier's files;
-  other tiers' files in ``INDEX_DIR`` are deleted)
+  other tiers' and the other family's files in ``INDEX_DIR`` are
+  deleted: a sharded save removes ``flat_index.npz`` and the
+  single-device tier files, a single-device save the sharded ones)
 - ``POST /index/rebuild`` {tier?: "ivf" | "hnsw"} -> promote to / rebuild
   the IVF or HNSW tier (400 on a bad body or an unknown tier)
 - ``GET /health`` ``/ready`` ``/queue_status`` ``/metrics`` ``/traces``
@@ -29,16 +35,29 @@ import torch
 
 from financial_rag_system_tpu_torch.index.hnsw import HNSWIndex
 from financial_rag_system_tpu_torch.index.ivf import IVFIndex
+from financial_rag_system_tpu_torch.index.sharded import ShardedFlatIndex
+from financial_rag_system_tpu_torch.index.sharded_hnsw import ShardedHNSWIndex
 from financial_rag_system_tpu_torch.obs.tracing import get_tracer
 from financial_rag_system_tpu_torch.serving.engine import RAGEngine
 from financial_rag_system_tpu_torch.utils.device import resolve_device
 
-# tier files the JAX package may also have written to INDEX_DIR: a save
-# deletes those that do not describe the saved tier, so a restart (of
-# either package) never pairs them with a newer corpus
-SHARDED_FILES = ("sharded_index.npz", "sharded_hnsw_graph.npz")
+# the two families of index files in INDEX_DIR (either package writes
+# them): a save deletes the other family's and the other tiers' files,
+# so a restart never pairs them with a newer corpus
+FLAT_FILES = ("flat_index.npz", HNSWIndex.GRAPH_FILE, IVFIndex.IVF_FILE)
+SHARDED_FILES = ("sharded_index.npz", ShardedHNSWIndex.GRAPH_FILE)
 # at most one tier file survives a save; a restart restores the first found
 TIER_FILES = ((HNSWIndex, HNSWIndex.GRAPH_FILE), (IVFIndex, IVFIndex.IVF_FILE))
+
+
+def stale_files(index) -> list[str]:
+    """The files in INDEX_DIR that a save of ``index`` leaves stale (JAX
+    ``app.py:140-165``); a BroadcastIndex is judged by its inner tier."""
+    tier = getattr(index, "inner", index)
+    if isinstance(getattr(tier, "flat", tier), ShardedFlatIndex):
+        keep = {ShardedHNSWIndex.GRAPH_FILE} if isinstance(tier, ShardedHNSWIndex) else set()
+        return [*FLAT_FILES, *(f for f in SHARDED_FILES[1:] if f not in keep)]
+    return [*SHARDED_FILES, *(f for klass, f in TIER_FILES if not isinstance(tier, klass))]
 
 
 def _models():
@@ -138,9 +157,11 @@ def create_app(engine: RAGEngine):
     async def index_save(request: web.Request) -> web.Response:
         directory = engine.cfg.index_dir
         idx = engine.index
-        await asyncio.to_thread(idx.save, directory)
-        stale = [*SHARDED_FILES] + [f for klass, f in TIER_FILES if not isinstance(idx, klass)]
-        for fname in stale:
+        # the sharded IVF tier persists through its flat index (its
+        # packing rebuilds deterministically)
+        target = idx if hasattr(idx, "save") else idx.flat
+        await asyncio.to_thread(target.save, directory)
+        for fname in stale_files(idx):
             path = os.path.join(directory, fname)
             if os.path.exists(path):
                 os.unlink(path)
@@ -200,20 +221,31 @@ def create_app(engine: RAGEngine):
 
 
 def build_default_engine(
-    mode: str = "batched", device: str | torch.device = "cuda"
+    mode: str = "batched", device: str | torch.device = "cuda",
+    mesh_devices: list[str | torch.device] | None = None,
 ) -> RAGEngine:
-    """Wire an engine from env config on one device: the persisted index
-    in ``INDEX_DIR`` if there is one (flat, promoted to the HNSW or the
-    IVF tier when an ``hnsw_graph.npz`` or an ``ivf_index.npz`` that
-    covers it is there; bf16 or int8 as it was saved), else an empty
-    flat index of ``RAG_TPU_INDEX_DTYPE`` (``bfloat16`` or ``int8``).
-    Models come from ``RAG_TPU_BGE_DIR`` / ``RAG_TPU_RERANKER_DIR``;
-    without them the hermetic hash stack serves, with the identity
-    reranker in TESTING mode, so the server starts with no files on
-    disk."""
+    """Wire an engine from env config: the persisted index in
+    ``INDEX_DIR`` if there is one (flat, promoted to the HNSW or the IVF
+    tier when an ``hnsw_graph.npz`` or an ``ivf_index.npz`` that covers
+    it is there; bf16 or int8 as it was saved), else an empty flat index
+    of ``RAG_TPU_INDEX_DTYPE`` (``bfloat16`` or ``int8``).  Models come
+    from ``RAG_TPU_BGE_DIR`` / ``RAG_TPU_RERANKER_DIR``; without them the
+    hermetic hash stack serves, with the identity reranker in TESTING
+    mode, so the server starts with no files on disk.
+
+    The corpus shards over a mesh (``RAG_TPU_MESH``, parallel/mesh.py)
+    when ``mesh_devices`` names its devices (one device may repeat:
+    ``["cuda:0"] * 4``), or when ``device`` is a card and there are
+    several cards or processes (JAX's ``len(jax.devices()) > 1``): then
+    ``sharded_index.npz`` is restored, promoted by a
+    ``sharded_hnsw_graph.npz`` that covers it, else a fresh
+    ``ShardedFlatIndex`` of ``RAG_TPU_MAX_CORPUS`` rows starts.  The
+    models live on ``device``, the mesh's first device."""
     from financial_rag_system_tpu_torch.index.flat import FlatIndex
     from financial_rag_system_tpu_torch.models.embedder import get_embedder
     from financial_rag_system_tpu_torch.models.reranker import get_reranker
+    from financial_rag_system_tpu_torch.parallel.distributed import process_count
+    from financial_rag_system_tpu_torch.parallel.mesh import create_mesh
     from financial_rag_system_tpu_torch.utils.config import get_config
 
     dev = resolve_device(device)
@@ -221,13 +253,21 @@ def build_default_engine(
     dtypes = {"bfloat16": torch.bfloat16, "int8": torch.int8}
     if cfg.index_dtype not in dtypes:
         raise ValueError(f"RAG_TPU_INDEX_DTYPE {cfg.index_dtype!r}: bfloat16 or int8")
+    mesh = None
+    if mesh_devices is not None or (
+        dev.type == "cuda" and (torch.cuda.device_count() > 1 or process_count() > 1)
+    ):
+        mesh = create_mesh(cfg.mesh_shape, devices=mesh_devices)
+        dev = mesh.home
     embedder = get_embedder(cfg.embed_dim, device=dev)
     reranker = get_reranker(testing=cfg.testing, device=dev)
     # a device token store lets the fused pipeline rerank without host
     # round trips; 0 = auto: it materializes at the measured p99
     # wordpiece width on the first ingest (index/flat.py auto_token_width)
     tok = embedder.tokenizer
-    if os.path.exists(os.path.join(cfg.index_dir, "flat_index.npz")):
+    if mesh is not None:
+        index = _sharded_index(cfg, mesh, embedder.dim, tok, dtypes[cfg.index_dtype])
+    elif os.path.exists(os.path.join(cfg.index_dir, "flat_index.npz")):
         index = FlatIndex.load(cfg.index_dir, tokenizer=tok, device=dev)
         for klass, fname in TIER_FILES:
             if os.path.exists(os.path.join(cfg.index_dir, fname)):
@@ -246,13 +286,97 @@ def build_default_engine(
     return RAGEngine(cfg, index, embedder, reranker, mode=mode)
 
 
-def main() -> None:  # pragma: no cover — needs a card
+def _sharded_index(cfg, mesh, dim: int, tok, dtype: torch.dtype):
+    """The mesh path of :func:`build_default_engine` (JAX ``app.py:286-335``)."""
+    if os.path.exists(os.path.join(cfg.index_dir, "sharded_index.npz")):
+        index = ShardedFlatIndex.load(cfg.index_dir, mesh, tokenizer=tok)
+        if os.path.exists(os.path.join(cfg.index_dir, ShardedHNSWIndex.GRAPH_FILE)):
+            try:
+                index = ShardedHNSWIndex.load(cfg.index_dir, index)
+            except ValueError as exc:  # stale or mismatched: serve flat
+                print(f"ignoring persisted ShardedHNSWIndex: {exc}")
+        return index
+    if os.path.exists(os.path.join(cfg.index_dir, "flat_index.npz")):
+        print("warning: a single-device flat_index.npz exists but sharded serving "
+              "starts a fresh sharded index — re-ingest or save under this topology")
+    return ShardedFlatIndex(
+        mesh, dim, capacity=cfg.max_corpus, tile=cfg.corpus_tile, dtype=dtype,
+        token_store_len=cfg.token_store_len or "auto", tokenizer=tok,
+        token_store_max=cfg.token_store_max,
+    )
+
+
+def attach_control_plane(engine: RAGEngine, cfg):
+    """Coordinator side of multi-process serving: bind the control
+    channel, wait for every worker, wrap the index in a BroadcastIndex,
+    re-evaluate fusion (the program targets the INNER index and each
+    batch becomes one broadcast op) and warm the collectives up with a
+    k=1 search while every process is at the rendezvous.  Returns the
+    ControlServer (shut it down to release the workers)."""
+    import numpy as np
+
+    from financial_rag_system_tpu_torch.parallel.control import BroadcastIndex, ControlServer
+    from financial_rag_system_tpu_torch.parallel.distributed import process_count
+
+    # the control channel carries pickled ops: bind it to the pod-internal
+    # interface (FRS_CONTROL_HOST), not the public HTTP host;
+    # FRS_CONTROL_TOKEN adds the HMAC handshake (parallel/control.py)
+    control_host = os.environ.get("FRS_CONTROL_HOST", cfg.host)
+    server = ControlServer(control_host, cfg.control_port, process_count() - 1)
+    engine.index = BroadcastIndex(server, engine.index)
+    engine._fused = engine._maybe_build_fused()
+    engine.index.search_device(
+        np.zeros((1, engine.embedder.dim), np.float32), np.full((1, 2), -1, np.int32), 1
+    )
+    return server
+
+
+def main(argv: list[str] | None = None) -> None:  # pragma: no cover — a server
+    """Serve HTTP; under ``JAX_COORDINATOR_ADDRESS`` /
+    ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID`` (parallel/distributed.py)
+    rank 0 serves and drives the other ranks through the control plane,
+    which run its op stream and bind nothing.  ``--device cpu`` with
+    ``--mesh-devices cpu,cpu`` runs a CPU mesh (gloo between processes)."""
+    import argparse
+
     from aiohttp import web
 
+    from financial_rag_system_tpu_torch.parallel.control import worker_loop
+    from financial_rag_system_tpu_torch.parallel.distributed import (
+        initialize_distributed,
+        is_coordinator,
+    )
     from financial_rag_system_tpu_torch.utils.config import get_config
 
+    parser = argparse.ArgumentParser(description="financial RAG server (PyTorch port)")
+    parser.add_argument("--device", default="cuda", help="the models' device (default cuda)")
+    parser.add_argument("--mesh-devices", default=None,
+                        help="comma-separated devices of this process's corpus shards, "
+                             "e.g. cuda:0,cuda:0 (default: every visible card when there "
+                             "are several cards or processes)")
+    args = parser.parse_args(argv)
+    dev = resolve_device(args.device)
+    multi = initialize_distributed(backend="gloo" if dev.type == "cpu" else None)
     cfg = get_config()
-    engine = build_default_engine()
+    engine = build_default_engine(
+        device=dev,
+        mesh_devices=args.mesh_devices.split(",") if args.mesh_devices else None,
+    )
+    if multi and is_coordinator():
+        server = attach_control_plane(engine, cfg)
+        try:
+            web.run_app(create_app(engine), host=cfg.host, port=cfg.port)
+        finally:
+            server.shutdown()  # releases the parked workers
+        return
+    if multi:
+        # workers run the coordinator's op stream so every collective
+        # (upsert, search, fused batch, rebuild, save) runs on every
+        # process; no HTTP port is bound here
+        print("worker process: serving handled by the coordinator", flush=True)
+        coord_host = os.environ["JAX_COORDINATOR_ADDRESS"].rsplit(":", 1)[0]
+        worker_loop(engine.index, coord_host, cfg.control_port, engine=engine)
+        return
     web.run_app(create_app(engine), host=cfg.host, port=cfg.port)
 
 

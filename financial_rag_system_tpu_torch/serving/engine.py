@@ -1,9 +1,11 @@
 """The RAG engine: cache -> route -> embed+retrieve -> rerank -> generate.
 
-Port of ``financial_rag_system_tpu/serving/engine.py`` for the
-single-device flat, IVF and HNSW tiers, with the full model stack or the
-hermetic hash stack (the reference's TESTING mode, and every start with
-no checkpoints).  The reference's behavioral surface is kept:
+Port of ``financial_rag_system_tpu/serving/engine.py`` for the flat,
+IVF and HNSW tiers, on one device or with the corpus sharded over a mesh
+(and, under several processes, behind the op-broadcast control plane's
+BroadcastIndex), with the full model stack or the hermetic hash stack
+(the reference's TESTING mode, and every start with no checkpoints).
+The reference's behavioral surface is kept:
 
 - cache key ``sha256(f"{ticker}_{query.lower()}")``; a hit returns
   provider "Cache" with the sentinel source
@@ -30,7 +32,8 @@ path (embed, then ``index.search_batch``, then a host-driven rerank)
 serves batches the fused path cannot take: IVF or HNSW tail rows, a
 selective filter, or a geometry changed by a churn rebuild or a graph
 rebuild.  ``rebuild_index`` promotes a flat corpus to the IVF or the
-HNSW tier (``POST /index/rebuild``).
+HNSW tier (``POST /index/rebuild``), a sharded one to the sharded IVF or
+HNSW tier; under the control plane the rebuild is one broadcast op.
 """
 
 from __future__ import annotations
@@ -47,6 +50,9 @@ from financial_rag_system_tpu_torch.index.base import selective_rows
 from financial_rag_system_tpu_torch.index.flat import FlatIndex
 from financial_rag_system_tpu_torch.index.hnsw import HNSWIndex
 from financial_rag_system_tpu_torch.index.ivf import IVFIndex
+from financial_rag_system_tpu_torch.index.sharded import ShardedFlatIndex
+from financial_rag_system_tpu_torch.index.sharded_hnsw import ShardedHNSWIndex
+from financial_rag_system_tpu_torch.index.sharded_ivf import ShardedIVFIndex
 from financial_rag_system_tpu_torch.models.embedder import BiEncoder, HashEmbedder
 from financial_rag_system_tpu_torch.models.reranker import (
     CrossEncoderReranker,
@@ -54,6 +60,7 @@ from financial_rag_system_tpu_torch.models.reranker import (
 )
 from financial_rag_system_tpu_torch.models.tokenizer import pad_batch
 from financial_rag_system_tpu_torch.obs.tracing import get_tracer
+from financial_rag_system_tpu_torch.parallel.control import BroadcastIndex, _rebuild_tier
 from financial_rag_system_tpu_torch.serving.batcher import DynamicBatcher
 from financial_rag_system_tpu_torch.serving.breaker import CircuitBreaker
 from financial_rag_system_tpu_torch.serving.cache import CacheDB
@@ -152,6 +159,14 @@ class RAGEngine:
           rerank fused where the reranker is not the identity and the
           index has a token store.
 
+        A corpus sharded over a mesh fuses the same kinds
+        (ops/fused_query.py ``make_sharded_fused_*``: per-shard search,
+        the merge, the work-balanced rerank) except the hash stack on
+        the sharded IVF and HNSW tiers, which serves staged, as in JAX.
+        Multi-process serving wraps the tier in a BroadcastIndex: the
+        program is built for the INNER index, and each batch becomes one
+        broadcast op (parallel/control.py ``fused_batch``).
+
         An int8 index fuses too: the programs quantize the query vectors
         as its rows are.  Every other combination serves staged
         (None, None, None, False)."""
@@ -163,8 +178,8 @@ class RAGEngine:
             make_fused_query,
         )
 
-        index = self.index
-        flat = index.flat if isinstance(index, (IVFIndex, HNSWIndex)) else index
+        index = getattr(self.index, "inner", self.index)
+        flat = getattr(index, "flat", index)
         full_stack = (
             isinstance(self.embedder, BiEncoder)
             and isinstance(self.reranker, CrossEncoderReranker)
@@ -173,11 +188,13 @@ class RAGEngine:
             isinstance(self.embedder, HashEmbedder)
             and isinstance(self.reranker, HashReranker)
         )
-        if not isinstance(flat, FlatIndex) or not (
+        if not isinstance(flat, (FlatIndex, ShardedFlatIndex)) or not (
             (full_stack and flat.token_store_enabled) or hash_stack
         ):
             return None, None, None, False
         k = self.cfg.retrieve_k
+        if isinstance(flat, ShardedFlatIndex):
+            return self._sharded_fused(index, flat, full_stack, k)
         if isinstance(index, HNSWIndex):
             if not full_stack:
                 return None, None, None, False  # the hash stack serves staged
@@ -213,6 +230,44 @@ class RAGEngine:
         if full_stack:
             return make_fused_query(self.reranker.cfg, k=k), "full", None, False
         return make_fused_hash_query(k=k, rerank=hash_rerank), "hash", None, hash_rerank
+
+    def _sharded_fused(self, index, flat, full_stack: bool, k: int):
+        """The mesh-sharded branch of :meth:`_maybe_build_fused`; the
+        geometry each program captures is compared with the live
+        snapshot's in :meth:`_fused_exec`."""
+        from financial_rag_system_tpu_torch.ops.fused_query import (
+            make_sharded_fused_hash_query,
+            make_sharded_fused_hnsw_query,
+            make_sharded_fused_ivf_query,
+            make_sharded_fused_query,
+        )
+
+        mesh = flat.mesh
+        if isinstance(index, ShardedHNSWIndex):
+            if not full_stack:
+                return None, None, None, False  # the hash stack serves staged
+            state = index._graph_state
+            fn = make_sharded_fused_hnsw_query(
+                mesh, self.reranker.cfg, k=k, ef=max(index.ef, index.entries_cap + state[7]),
+                steps=index.steps, frontier=index.frontier, per_shard=state[2],
+                pool_take=state[7],
+            )
+            return fn, "hnsw_full", (state[2], state[4], state[7]), False
+        if isinstance(index, ShardedIVFIndex):
+            if not full_stack:
+                return None, None, None, False  # the hash stack serves staged
+            # a rebuild can change the sharded packing, a grow the blocks
+            geom = (index.tiles_per_cluster, index.packed_local, flat.capacity)
+            fn = make_sharded_fused_ivf_query(
+                mesh, self.reranker.cfg, k=k, tile=index.tile, nprobe=index.nprobe,
+                tiles_per_cluster=index.tiles_per_cluster, rows_per_shard=flat.per_shard,
+            )
+            return fn, "ivf_full", geom, False
+        if full_stack:
+            return make_sharded_fused_query(mesh, self.reranker.cfg, k=k), "full", None, False
+        hash_rerank = not self.reranker.identity and flat.token_store_enabled
+        return (make_sharded_fused_hash_query(mesh, k=k, rerank=hash_rerank), "hash", None,
+                hash_rerank)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -257,7 +312,14 @@ class RAGEngine:
         ids, types, mask = pad_batch(encs)
         codes = [index.store.query_codes(t, d) for t, d in filters]
         t_tok = time.time()
-        res = self._fused_exec(ids, types, mask, codes)
+        if isinstance(index, BroadcastIndex):
+            # one broadcast per batch; eligibility and state reads happen
+            # inside the op lock (identically on every process)
+            res = index.fused_batch(
+                ids, types, mask, codes, lambda: self._fused_exec(ids, types, mask, codes)
+            )
+        else:
+            res = self._fused_exec(ids, types, mask, codes)
         if res is None:
             return None
         rows, bi, ce, active = res
@@ -307,7 +369,7 @@ class RAGEngine:
         rerank to the staged reranker, or None when the batch is
         ineligible."""
         fused, kind, geom, hash_rerank = self._fused
-        index = self.index
+        index = getattr(self.index, "inner", self.index)
         if fused is None:
             return None
         dev = index.device
@@ -325,9 +387,34 @@ class RAGEngine:
             batch = (*tables, t_ids, t_mask, qf)
         else:
             batch = (self.embedder.model, self.reranker.model, t_ids, t_types, t_mask, qf)
-        if kind in ("full", "hash") and isinstance(index, FlatIndex):
+        if kind in ("full", "hash") and isinstance(index, (FlatIndex, ShardedFlatIndex)):
             emb, idx_codes, doc_tok = index._arrays
-            corpus, n_valid = (emb, idx_codes), (min(index.n_valid, emb.shape[0]),)
+            corpus, n_valid = (emb, idx_codes), (min(index.n_valid, index.capacity),)
+        elif kind == "ivf_full" and isinstance(index, ShardedIVFIndex):
+            if index._tail_rows:
+                return None  # tail rows need the exact merge of the staged path
+            state = index._state  # one atomic read
+            centroids, packed_emb, packed_codes, packed_gids, rbt, st_geom = state[:6]
+            if (st_geom[1], st_geom[2], index.flat.capacity) != geom:
+                return None  # a rebuild or a grow changed the packing geometry
+            if selective_rows(rbt, codes, index.SELECTIVE_LIMIT) is not None:
+                return None  # a selective filter is scored exactly, staged
+            doc_tok = index.flat._arrays[2]
+            corpus, n_valid = (centroids, packed_emb, packed_codes, packed_gids), ()
+        elif kind == "hnsw_full" and isinstance(index, ShardedHNSWIndex):
+            if index._tail_rows:
+                return None  # tail rows need the exact merge of the staged path
+            adj, entries, per_shard, _n, built_cap, rbt, pools, take = index._graph_state
+            if (per_shard, built_cap, take) != geom or index.flat.capacity != built_cap:
+                return None  # a rebuild or a grow changed the graphs' geometry
+            if selective_rows(rbt, codes, index.SELECTIVE_LIMIT) is not None:
+                return None  # a selective filter is scored exactly, staged
+            emb, idx_codes, doc_tok = index.flat._arrays
+            if doc_tok is None:
+                return None
+            rows, bi, ce = fused(*batch, emb, idx_codes, adj, entries, doc_tok,
+                                 pools if take > 0 else None)
+            return rows, bi, ce, None
         elif kind in ("ivf_full", "ivf_hash") and isinstance(index, IVFIndex):
             st = index._state
             if st.tail:
@@ -524,7 +611,25 @@ class RAGEngine:
         current = type(self.index).__name__
         if self.index.n_valid == 0:
             return {"status": "noop", "reason": "index empty"}
+        if isinstance(self.index, BroadcastIndex):
+            # multi-process: the rebuild is itself a broadcast op, so every
+            # process runs the same build; workers re-fuse inside
+            # worker_loop, the coordinator here
+            out = self.index.rebuild_tier(tier)
+            self._fused = self._maybe_build_fused()
+            return out
         flat = getattr(self.index, "flat", self.index)
+        if isinstance(flat, ShardedFlatIndex):
+            # mesh-sharded corpus: sharded IVF (the default) or per-shard
+            # graphs, as the control plane's tier op promotes them
+            self.index = _rebuild_tier(self.index, tier)
+            self._fused = self._maybe_build_fused()
+            return {
+                "status": "ok",
+                "tier": type(self.index).__name__,
+                "clusters": getattr(self.index, "n_clusters", None),
+                "tail_rows": len(self.index._tail_rows),
+            }
         if not isinstance(flat, FlatIndex):
             return {"status": "noop", "reason": f"{current} has no tiers"}
         want = tier or {"HNSWIndex": "hnsw"}.get(current, "ivf")
@@ -558,7 +663,10 @@ class RAGEngine:
             "mode": self.mode,
             "queue_size": self.batcher.queue_size if self.batcher else 0,
             # which index tier serves and whether the fused pipeline is on
-            "index_tier": type(self.index).__name__,
+            "index_tier": (
+                f"Broadcast[{type(self.index.inner).__name__}]"
+                if isinstance(self.index, BroadcastIndex) else type(self.index).__name__
+            ),
             "fused_kind": self._fused_kind,
             "fused_hash_rerank": self._fused_hash_rerank,
         }

@@ -18,6 +18,9 @@ REPO = Path(__file__).resolve().parent.parent
 
 
 TRAIN_MODULES = ("optim", "checkpoint", "contrastive", "cross_encoder", "distill", "stack")
+SHARDED_MODULES = ("parallel.mesh", "parallel.distributed", "parallel.collectives",
+                   "parallel.control", "index.sharded", "index.sharded_ivf",
+                   "index.sharded_hnsw")
 # top-level packages the port never imports: JAX, its optimizer and
 # checkpointer, and the JAX package
 BANNED = ("jax", "optax", "orbax", "financial_rag_system_tpu")
@@ -35,6 +38,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {f"financial_rag_system_tpu_torch.native.{m}" for m in ("loader", "hnsw_loader")} < set(mods)
     assert {f"financial_rag_system_tpu_torch.train.{m}" for m in TRAIN_MODULES} < set(mods)
     assert {f"financial_rag_system_tpu_torch.data.{m}" for m in ("synthetic", "chunker")} < set(mods)
+    assert {f"financial_rag_system_tpu_torch.{m}" for m in SHARDED_MODULES} < set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -105,6 +109,21 @@ def test_factories_and_index_default_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         FlatIndex(64)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_mesh_entry_points_default_to_the_card():
+    """A mesh with no device list takes the visible cards, and the mesh
+    path of build_default_engine the card, raising without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from financial_rag_system_tpu_torch.parallel.mesh import create_mesh, local_mesh
+    from financial_rag_system_tpu_torch.serving.app import build_default_engine
+
+    for make in (create_mesh, local_mesh, lambda: create_mesh(devices=["cuda:0"] * 4),
+                 lambda: build_default_engine(mesh_devices=["cuda:0"] * 4)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert create_mesh(devices=["cpu"] * 4).home == torch.device("cpu")
 
 
 def test_factories_name_their_env_var(monkeypatch, tmp_path):
