@@ -7,7 +7,7 @@
                           [--resid-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
 
 Drives ``financial_rag_system_tpu_torch`` end to end on the card, in
-eleven phases; any failure raises and the script exits non-zero:
+twelve phases; any failure raises and the script exits non-zero:
 
 0. the card: name, power limit and compute capability (Hopper, 9.0);
 1. build: every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a``
@@ -129,6 +129,24 @@ eleven phases; any failure raises and the script exits non-zero:
    through ``attach_control_plane`` (a ControlServer with no workers and
    a BroadcastIndex): (a)'s rows; (f) shards with no valid rows
    (capacity twice the corpus): the single device's rows and three asks.
+   Each part prints its seconds;
+11. the data-parallel trainer and the data plane: (a) the contrastive
+   step over ``data:4`` of ``[cuda:0] * 4`` (micro-batches of 8) on phase
+   9's trained full-width BGE-small tower, 3 steps of 32 triples at 64
+   tokens against the one-device step from the same weights (losses
+   within 2e-3, step 1's gradient leaves within 1e-2 of their norms, the
+   weights after step 3 at JAX's bounds), with both step times (CUDA
+   events); (b) ``train(mesh=...)`` with the ``data`` axis over a
+   one-rank NCCL group (rank 0 writes a checkpoint after each step, behind
+   a barrier), 3 steps bit for bit with ``train()`` without a mesh; (c)
+   ``data/ingest.ingest_files`` of 3 seeded filings of a new ticker into a
+   new engine over phase 3's checkpoints and index, a re-ingest that adds
+   no row, the ticker's cache entry cleared, and 2 asks for the ticker
+   whose sources are ingested chunks (kernel 1 once and kernel 2 six
+   times an ask); (d) the trace-export pump over (c)'s traces with an
+   in-memory sink (only complete traces ship; their OTLP and MLflow
+   encodings); (e) ``utils/timing`` ``fetched_ms`` and
+   ``sustained_ms(depth=4)`` of the phase-3 fused batch of 32, reported.
    Each part prints its seconds.
 
 The CPU references of phases 3-6 set ``RAG_TPU_FAST_GELU=1``: the card's
@@ -3948,6 +3966,338 @@ def drive_sharded_tier(torch, np, work: Path, main: dict, int8: dict, smi: str) 
     return runs
 
 
+# -- phase 11: the data-parallel trainer, ingestion, trace exports, timing ----------
+
+DP_SHARDS = 4
+DP_MESH = ["cuda:0"] * DP_SHARDS   # four data shards on the one card, one after another
+DP_BATCH, DP_STEPS, DP_LR = 32, 3, 1e-4   # phase 9's bi-encoder batch and learning rate
+DP_LOSS_TOL = 2e-3      # rtol and atol, JAX's test_train.py:78
+DP_LEAF_RTOL = 1e-2     # the trainer tests' bound: each gradient leaf within 1e-2 of its norm
+INGEST_TICKER, INGEST_FILES = "ZQXW", 3
+
+
+class GradTap:
+    """The trainer's optimizer with its first step's gradients (as the
+    step hands them over, after ``pmean``) kept on the CPU by name."""
+
+    def __init__(self, model, lr: float):
+        from financial_rag_system_tpu_torch.train.optim import ClippedAdamW
+
+        self.model, self.opt, self.grads = model, ClippedAdamW(model, lr), None
+
+    def step(self):
+        if self.grads is None:
+            self.grads = {k: p.grad.detach().cpu().clone()
+                          for k, p in self.model.named_parameters() if p.grad is not None}
+        return self.opt.step()
+
+
+def dp_batches(n_steps: int, offset: int = 0):
+    """``n_steps`` global batches of DP_BATCH filler triples at 64 tokens,
+    as phase 9's bi-encoder trains on them."""
+    from financial_rag_system_tpu_torch.data.synthetic import make_filler_triples
+    from financial_rag_system_tpu_torch.models.tokenizer import Tokenizer
+    from financial_rag_system_tpu_torch.train.contrastive import tokenize_pairs
+
+    triples = make_filler_triples(chunk_chars=1000)[offset:offset + n_steps * DP_BATCH]
+    tok = Tokenizer()
+    return triples, [tokenize_pairs(tok, triples[s * DP_BATCH:(s + 1) * DP_BATCH])
+                     for s in range(n_steps)]
+
+
+def dp_step_check(torch, np, bge_dir: Path, smi: str) -> dict:
+    """(a) the data-parallel step on the full-width BGE-small bi-encoder
+    (phase 9's trained tower): ``data:4`` over ``[cuda:0] * 4`` (micro-
+    batches of 8) against the one-device step from the same weights, three
+    steps: each loss within DP_LOSS_TOL, step 1's gradient leaves within
+    DP_LEAF_RTOL of their norms (the attention key bias, whose exact
+    gradient is zero, within DP_LEAF_RTOL of the whole gradient's norm),
+    and the weights after step 3 at JAX's bounds."""
+    from financial_rag_system_tpu_torch.models.hf_loader import load_bert_checkpoint
+    from financial_rag_system_tpu_torch.parallel.mesh import create_mesh
+    from financial_rag_system_tpu_torch.train.contrastive import make_train_step
+
+    _, batches = dp_batches(DP_STEPS)
+    mesh = create_mesh(f"data:{DP_SHARDS}", devices=DP_MESH)
+    out = {}
+    for label, m in (("one device", None), (f"data:{DP_SHARDS}", mesh)):
+        model, _ = load_bert_checkpoint(str(bge_dir), device="cuda")
+        tap = GradTap(model, DP_LR)
+        step = make_train_step(model, tap, temperature=0.05, neg_weight=0.5, mesh=m)
+        losses, ms = [], []
+        for batch in batches:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = step(*batch)
+            end.record()
+            torch.cuda.synchronize()
+            losses.append(float(loss))
+            ms.append(start.elapsed_time(end))
+        out[label] = {"losses": losses, "ms": ms, "grads": tap.grads,
+                      "weights": {k: v.detach().cpu() for k, v in model.state_dict().items()}}
+    one, dp = out["one device"], out[f"data:{DP_SHARDS}"]
+    if not np.allclose(dp["losses"], one["losses"], rtol=DP_LOSS_TOL, atol=DP_LOSS_TOL):
+        raise AssertionError(f"[dp] losses {dp['losses']} against {one['losses']}")
+    g1, g2 = one["grads"], dp["grads"]
+    if g1.keys() != g2.keys():
+        raise AssertionError(f"[dp] gradients of {set(g1) ^ set(g2)} on one side only")
+    total = float(torch.sqrt(sum((g.double() ** 2).sum() for g in g1.values())))
+    worst = (0.0, "")
+    for k in g1:
+        err = float((g2[k] - g1[k]).double().norm())
+        norm = total if k.endswith("k.bias") else float(g1[k].double().norm())
+        worst = max(worst, (err / norm, k))
+    if worst[0] > DP_LEAF_RTOL:
+        raise AssertionError(f"[dp] step 1 gradient leaf {worst[1]} at {worst[0]:.3e}")
+    w_err, w_cos = 0.0, 1.0
+    for k, a in one["weights"].items():
+        a, b = a.double(), dp["weights"][k].double()
+        w_err = max(w_err, float((a - b).abs().max()))
+        na, nb = float(a.norm()), float(b.norm())
+        if na > 0.5 and nb > 0.5:
+            w_cos = min(w_cos, float((a.ravel() @ b.ravel()) / (na * nb)))
+    if w_err >= 5e-2 or w_cos <= 0.995:
+        raise AssertionError(f"[dp] weights after {DP_STEPS} steps: max abs {w_err}, "
+                             f"cosine {w_cos}")
+    log(f"[dp] {smi}: data:{DP_SHARDS} over {DP_MESH} (micro-batches of "
+        f"{DP_BATCH // DP_SHARDS}) against one device, BGE-small at full width, "
+        f"{DP_BATCH} triples at 64 tokens, w 0.5, lr {DP_LR}: losses {dp['losses']} vs "
+        f"{one['losses']}; step 1's worst gradient leaf {worst[1]} at {worst[0]:.3e} of its "
+        f"norm (tolerance {DP_LEAF_RTOL}); weights after {DP_STEPS} steps max abs {w_err:.3e}, "
+        f"min cosine {w_cos:.6f}")
+    log(f"[dp] {smi}: step times (CUDA events, median of {DP_STEPS}): one device "
+        f"{statistics.median(one['ms']):.2f} ms {one['ms']}, data:{DP_SHARDS} "
+        f"{statistics.median(dp['ms']):.2f} ms {dp['ms']}")
+    return {"one_ms": statistics.median(one["ms"]), "dp_ms": statistics.median(dp["ms"])}
+
+
+def dp_nccl_check(torch, np, bge_dir: Path, work: Path, smi: str) -> None:
+    """(b) a one-rank NCCL group with the ``data`` axis over the ranks:
+    three steps of ``train(mesh=...)`` (rank 0 writes a checkpoint after
+    each, behind a barrier) bit for bit with ``train()`` without a mesh."""
+    import torch.distributed as dist
+
+    from financial_rag_system_tpu_torch.models.hf_loader import load_bert_checkpoint
+    from financial_rag_system_tpu_torch.parallel.distributed import initialize_distributed
+    from financial_rag_system_tpu_torch.parallel.mesh import AXIS_DATA, create_mesh
+    from financial_rag_system_tpu_torch.train.checkpoint import latest_step
+    from financial_rag_system_tpu_torch.train.contrastive import train
+
+    triples, _ = dp_batches(DP_STEPS, offset=DP_STEPS * DP_BATCH)
+    kw = dict(batch_size=DP_BATCH, lr=DP_LR, neg_weight=0.5, seed=3)
+    ref, ref_losses = train(load_bert_checkpoint(str(bge_dir), device="cuda")[0], triples, **kw)
+    with env_set(JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{free_port()}", JAX_NUM_PROCESSES="1",
+                 JAX_PROCESS_ID="0"):
+        if not initialize_distributed():
+            raise AssertionError("no process group")
+        try:
+            mesh = create_mesh("data:1", devices=["cuda:0"], ranks_axis=AXIS_DATA)
+            if dist.get_backend() != "nccl" or not mesh.data_distributed:
+                raise AssertionError(f"[dp-nccl] {dist.get_backend()} {mesh}")
+            ckpt = work / "dp_nccl_ckpt"
+            got, losses = train(load_bert_checkpoint(str(bge_dir), device="cuda")[0], triples,
+                                mesh=mesh, checkpoint_dir=str(ckpt), checkpoint_every=1, **kw)
+        finally:
+            dist.destroy_process_group()
+    if latest_step(str(ckpt)) != DP_STEPS:
+        raise AssertionError(f"[dp-nccl] checkpoint at step {latest_step(str(ckpt))}")
+    same = losses == ref_losses and all(
+        torch.equal(v, got.state_dict()[k]) for k, v in ref.state_dict().items())
+    if not same:
+        raise AssertionError(f"[dp-nccl] losses {losses} against {ref_losses}, or weights differ")
+    log(f"[dp-nccl] {smi}: {DP_STEPS} steps of train(mesh=data:1 over a one-rank NCCL group, "
+        f"checkpoint after each) bit for bit with train() without a mesh: losses {losses}")
+
+
+def filing_texts(np, n_files: int) -> list[str]:
+    """Seeded filings of INGEST_TICKER: paragraphs of segment notes."""
+    rng = np.random.default_rng(SEED + 11)
+    words = ["revenue", "margin", "widget", "segment", "backlog", "guidance", "liquidity",
+             "capital", "expenditure", "inventory", "demand", "pricing", "contract"]
+    out = []
+    for f in range(n_files):
+        paras = []
+        for p in range(12):
+            body = " ".join(rng.choice(words, 60))
+            paras.append(f"{INGEST_TICKER} filing {f} note {p}: the quiet widget segment "
+                         f"reported {body}.")
+        out.append("\n\n".join(paras))
+    return out
+
+
+def ingest_path(torch, np, work: Path, smi: str) -> dict:
+    """(c) ``data/ingest.ingest_files`` of INGEST_FILES seeded ``.txt``
+    filings of a new ticker into a new engine over phase 3's checkpoints
+    and index (the port's embedder, EMBED_BATCH and UPSERT_BATCH as the
+    reference's): the new rows, a re-ingest that adds none (md5 point
+    ids), the ticker's cache entries cleared, and two asks for the ticker
+    (one fused batch each: kernel 1 once, kernel 2 once a rerank layer)
+    whose sources are ingested chunks."""
+    from financial_rag_system_tpu_torch.data.ingest import (
+        EMBED_BATCH,
+        UPSERT_BATCH,
+        chunks_from_file,
+        ingest_files,
+    )
+    from financial_rag_system_tpu_torch.obs.tracing import get_tracer
+    from financial_rag_system_tpu_torch.serving.app import build_default_engine
+    from financial_rag_system_tpu_torch.utils.config import reset_config
+
+    label = "ingest"
+    folder = work / "filings"
+    folder.mkdir()
+    paths = []
+    for i, text in enumerate(filing_texts(np, INGEST_FILES)):
+        paths.append(str(folder / f"{INGEST_TICKER.lower()}_10k_{i}.txt"))
+        Path(paths[-1]).write_text(text)
+    batches = [chunks_from_file(p, INGEST_TICKER, "10-K") for p in paths]
+    texts = {t for b in batches for t in b.texts}
+    n_chunks = sum(len(b.ids) for b in batches)
+    with env_set(RAG_TPU_BGE_DIR=str(work / "bge"), RAG_TPU_RERANKER_DIR=str(work / "reranker"),
+                 INDEX_DIR=str(work / "index"), TESTING="true",
+                 DATABASE_URL=str(work / "cache_ingest.db"),
+                 RAG_TPU_CB_PATH=str(work / "breaker_ingest.json"),
+                 RAG_TPU_BATCH_WINDOW_S="0.01", RAG_TPU_BATCH_EAGER_IDLE_S="0"):
+        reset_config()
+        engine = build_default_engine(device="cuda")
+        before = engine.index.n_valid
+        engine.cache.save("probe-hash", INGEST_TICKER, "an old question", "an old answer")
+        engine.cache.save("other-hash", "T03", "an old question", "an old answer")
+        get_tracer().reset()  # (d) reads this run's traces
+        reset_launches()
+        t0 = time.perf_counter()
+        new_rows = ingest_files(engine.index, engine.embedder, INGEST_TICKER, "10-K", paths,
+                                cache=engine.cache)
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        again = ingest_files(engine.index, engine.embedder, INGEST_TICKER, "10-K", paths)
+        ingest_launches = read_launches()
+        if (new_rows != n_chunks or again != 0 or engine.index.n_valid != before + new_rows
+                or engine.cache.lookup("probe-hash", INGEST_TICKER) is not None
+                or engine.cache.lookup("other-hash", "T03") != "an old answer"):
+            raise AssertionError(f"[{label}] {new_rows} new rows of {n_chunks} chunks, "
+                                 f"re-ingest {again}, rows {before} -> {engine.index.n_valid}")
+        asks = [(f"what did {INGEST_TICKER} say about widget segment backlog", None),
+                (f"{INGEST_TICKER} liquidity and capital expenditure guidance", "10-K")]
+
+        async def scenario():
+            await engine.startup()
+            try:
+                return [await engine.ask(q, INGEST_TICKER, 5, d) for q, d in asks]
+            finally:
+                await engine.shutdown()
+
+        answers = asyncio.run(scenario())
+        launches = read_launches()
+    reset_config()
+    check_answers(np, answers, 5)
+    for a in answers:
+        if not all(s["text"] in texts for s in a["sources"]):
+            raise AssertionError(f"[{label}] a source is not an ingested chunk: {a['sources']}")
+    # the asks: one fused batch each (kernel 1 once, kernel 2 once a rerank
+    # layer); the ingest embeds its chunks, whose padded length may reach
+    # the attention gate's 256 (kernel 2 once an embed layer then)
+    asked = {k: launches[k] - ingest_launches[k] for k in launches}
+    want = want_launches(masked_topk=len(asks), pair_attention=6 * len(asks))
+    if asked != want or any(v for k, v in ingest_launches.items() if k != "pair_attention"):
+        raise AssertionError(f"[{label}] launches {ingest_launches} ingesting, {asked} asking; "
+                             f"want {want} asking")
+    log(f"[{label}] {smi}: {new_rows} new rows from {INGEST_FILES} filings of {INGEST_TICKER} "
+        f"(EMBED_BATCH {EMBED_BATCH}, UPSERT_BATCH {UPSERT_BATCH}) in {ingest_s:.2f} s; rows "
+        f"{before} -> {engine.index.n_valid}; re-ingest added {again}; the ticker's cache entry "
+        f"cleared; {len(asks)} asks, each source an ingested chunk (top "
+        f"{answers[0]['sources'][0]['text'][:60]!r}); launches {ingest_launches} ingesting, "
+        f"{asked} asking")
+    return {"launches": launches, "answers": answers}
+
+
+def trace_export_check(smi: str) -> None:
+    """(d) the trace-export pump over (c)'s traces with an in-memory sink:
+    only complete traces ship (each with its root; a child whose root is
+    still open waits), and their OTLP and MLflow encodings hold every
+    shipped span.  No sink of the environment is wired, so nothing goes
+    to the network."""
+    from financial_rag_system_tpu_torch.obs.export_loop import TraceExportLoop, env_sinks
+    from financial_rag_system_tpu_torch.obs.mlflow_export import to_mlflow_traces
+    from financial_rag_system_tpu_torch.obs.otlp_export import to_otlp
+    from financial_rag_system_tpu_torch.obs.tracing import get_tracer
+
+    if env_sinks():
+        raise AssertionError("[traces] the environment wires a sink")
+    tracer = get_tracer()
+    shipped: list[list[dict]] = []
+    loop = TraceExportLoop(tracer, [lambda spans: shipped.append(spans) or True])
+    with tracer.span("phase11_probe", kind="CHAIN"):
+        with tracer.span("phase11_child"):
+            pass
+        n_open = loop.pump_once()
+        held = sum(len(v) for v in loop._pending.values())
+    n = loop.pump_once()
+    spans = [d for batch in shipped for d in batch]
+    if n_open + n != len(spans) or not spans:
+        raise AssertionError(f"[traces] shipped {n_open} + {n}, sink saw {len(spans)}")
+    by_trace: dict[str, list[dict]] = collections.defaultdict(list)
+    for d in spans:
+        by_trace[d["trace_id"]].append(d)
+    rootless = [t for t, group in by_trace.items() if not any(not d.get("parent_id")
+                                                              for d in group)]
+    if rootless or held < 1:
+        raise AssertionError(f"[traces] traces without their root {rootless}; held {held}")
+    otlp = to_otlp(spans)["resourceSpans"][0]["scopeSpans"][0]["spans"]
+    mlflow = to_mlflow_traces(spans)
+    if (len(otlp) != len(spans) or len(mlflow) != len(by_trace)
+            or sum(len(t["data"]["spans"]) for t in mlflow) != len(spans)):
+        raise AssertionError("[traces] the encodings lost spans")
+    names = collections.Counter(d["name"] for d in spans if not d.get("parent_id"))
+    log(f"[traces] {smi}: the pump shipped {len(spans)} spans of {len(by_trace)} complete "
+        f"traces ({n_open} while a root was open, {held} child span held until its root "
+        f"finished); roots {dict(names)}; OTLP {len(otlp)} spans, MLflow {len(mlflow)} traces; "
+        f"{len(loop._pending)} traces pending; no sink of the environment")
+
+
+def timing_check(torch, main: dict, smi: str) -> dict:
+    """(e) ``utils/timing`` on the phase-3 fused batch of 32: one call
+    with its outputs fetched (``fetched_ms``), and four in flight
+    (``sustained_ms(depth=4)``).  Reported, not gated."""
+    from financial_rag_system_tpu_torch.ops.fused_query import fused_two_stage
+    from financial_rag_system_tpu_torch.utils.timing import fetched_ms, sustained_ms
+
+    engine = main["engine"]
+    emb, codes, dtok = engine.index._arrays
+    args = fused_inputs(torch, engine, main["burst"], "cuda")
+
+    def batch():
+        return fused_two_stage(engine.embedder.model, engine.reranker.model, *args, emb, codes,
+                               dtok, N, rerank_cfg=engine.reranker.cfg, k=K)
+
+    with torch.inference_mode():
+        fetched = fetched_ms(batch)
+        sustained = sustained_ms(batch, depth=4)
+    log(f"[timing] {smi}: the phase-3 fused batch of {B} (flat, {N} rows): fetched_ms "
+        f"{fetched:.3f} (20 calls, outputs fetched each), sustained_ms(depth=4) "
+        f"{sustained:.3f} (40 calls, four in flight)")
+    return {"fetched_ms": fetched, "sustained_ms": sustained}
+
+
+def drive_phase_11(torch, np, work: Path, main: dict, bge_dir: Path, smi: str) -> list[dict]:
+    """Phase 11: (a) the data-parallel step, (b) one NCCL rank with
+    ``data`` over the ranks, (c) ingestion, (d) trace exports, (e) timing;
+    each part's seconds.  Returns (c)'s run for the launch counts."""
+    runs = []
+    for part, fn in (
+        ("a", lambda: dp_step_check(torch, np, bge_dir, smi)),
+        ("b", lambda: dp_nccl_check(torch, np, bge_dir, work, smi)),
+        ("c", lambda: runs.append(ingest_path(torch, np, work, smi))),
+        ("d", lambda: trace_export_check(smi)),
+        ("e", lambda: timing_check(torch, main, smi)),
+    ):
+        t0 = time.perf_counter()
+        fn()
+        log(f"[phase-11] part ({part}) took {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -4083,11 +4433,14 @@ def main() -> int:
         t0 = time.perf_counter()
         sharded_runs = drive_sharded_tier(torch, np, work, main_run, int8, smi)
         log(f"[sharded] phase 10 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase11_runs = drive_phase_11(torch, np, work, main_run, work / "trained" / "bge", smi)
+        log(f"[phase-11] phase 11 took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # launches over the main paths, each counted from 0 around its run
     runs = (main_run, ivf_run, block_run, int8_run, ivf8_run, *hash_runs, hnsw_run, hnsw8_run,
-            train_run, *sharded_runs)
+            train_run, *sharded_runs, *phase11_runs)
     for kern in kernels:
         name = kern["name"]
         kern["launches"] = sum(run["launches"][name] for run in runs)

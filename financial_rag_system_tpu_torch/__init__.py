@@ -12,6 +12,6 @@ Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU, and raise when no card is present.
 """
 
-__version__ = "0.1.0"
+from financial_rag_system_tpu_torch.version import __version__
 
 __all__ = ["__version__"]

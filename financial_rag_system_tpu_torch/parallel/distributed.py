@@ -21,8 +21,6 @@ import os
 
 import torch
 
-_initialized = False
-
 
 def initialize_distributed(
     coordinator_address: str | None = None,
@@ -34,7 +32,6 @@ def initialize_distributed(
 ) -> bool:
     """Idempotent ``init_process_group``.  Returns True when a process
     group is (or already was) set up."""
-    global _initialized
     import torch.distributed as dist
 
     coordinator_address = coordinator_address or os.environ.get(
@@ -42,8 +39,8 @@ def initialize_distributed(
     )
     if coordinator_address is None:
         return False  # single-process run
-    if _initialized or dist.is_initialized():
-        return True
+    if dist.is_initialized():
+        return True  # a group torn down with destroy_process_group is set up anew
     num_processes = num_processes or int(os.environ.get("JAX_NUM_PROCESSES", "1"))
     process_id = (
         process_id
@@ -63,7 +60,6 @@ def initialize_distributed(
         rank=process_id,
         timeout=datetime.timedelta(seconds=timeout_s),
     )
-    _initialized = True
     return True
 
 

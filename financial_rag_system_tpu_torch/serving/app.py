@@ -19,6 +19,14 @@ the reference's FastAPI surface:
 - ``POST /index/rebuild`` {tier?: "ivf" | "hnsw"} -> promote to / rebuild
   the IVF or HNSW tier (400 on a bad body or an unknown tier)
 - ``GET /health`` ``/ready`` ``/queue_status`` ``/metrics`` ``/traces``
+- ``GET /traces/mlflow`` and ``/traces/otlp``: the recent spans in
+  MLflow's trace schema and as an OTLP/HTTP JSON export body
+  (``obs/mlflow_export.py``, ``obs/otlp_export.py``); ``GET /`` the
+  browser chat page (``serving/ui.py``)
+
+The app starts the trace-export pump (``obs/export_loop.py``) when the
+environment wires an MLflow server or an OTLP collector, and stops it on
+cleanup.
 
 Validation uses pydantic and returns 422 on schema errors.  ``aiohttp``
 and ``pydantic`` are imported inside :func:`create_app` and :func:`main`
@@ -96,12 +104,22 @@ def create_app(engine: RAGEngine):
         return web.json_response({"detail": json.loads(exc.json())}, status=422)
 
     app = web.Application()
+    export_loop = []
 
     async def on_startup(app: web.Application) -> None:
         await engine.startup()
+        # continuous observability export, off the request path; started
+        # only when the environment wires a sink
+        from financial_rag_system_tpu_torch.obs.export_loop import maybe_start_export_loop
+
+        export_loop.append(maybe_start_export_loop(get_tracer()))
 
     async def on_cleanup(app: web.Application) -> None:
         await engine.shutdown()
+        for loop in export_loop:
+            if loop is not None:
+                await asyncio.to_thread(loop.stop)
+        export_loop.clear()
 
     app.on_startup.append(on_startup)
     app.on_cleanup.append(on_cleanup)
@@ -201,6 +219,23 @@ def create_app(engine: RAGEngine):
         n = int(request.query.get("n", 20))
         return web.json_response(get_tracer().recent_traces(n))
 
+    async def traces_mlflow(request: web.Request) -> web.Response:
+        from financial_rag_system_tpu_torch.obs.mlflow_export import to_mlflow_traces
+
+        n = int(request.query.get("n", 100))
+        return web.json_response(to_mlflow_traces(get_tracer().recent_traces(n)))
+
+    async def traces_otlp(request: web.Request) -> web.Response:
+        from financial_rag_system_tpu_torch.obs.otlp_export import to_otlp
+
+        n = int(request.query.get("n", 100))
+        return web.json_response(to_otlp(get_tracer().recent_traces(n)))
+
+    async def ui(request: web.Request) -> web.Response:
+        from financial_rag_system_tpu_torch.serving.ui import PAGE
+
+        return web.Response(text=PAGE, content_type="text/html")
+
     app.add_routes(
         [
             web.post("/ask", ask),
@@ -215,6 +250,9 @@ def create_app(engine: RAGEngine):
             web.get("/queue_status", queue_status),
             web.get("/metrics", metrics),
             web.get("/traces", traces),
+            web.get("/traces/mlflow", traces_mlflow),
+            web.get("/traces/otlp", traces_otlp),
+            web.get("/", ui),
         ]
     )
     return app

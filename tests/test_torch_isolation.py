@@ -21,6 +21,10 @@ TRAIN_MODULES = ("optim", "checkpoint", "contrastive", "cross_encoder", "distill
 SHARDED_MODULES = ("parallel.mesh", "parallel.distributed", "parallel.collectives",
                    "parallel.control", "index.sharded", "index.sharded_ivf",
                    "index.sharded_hnsw")
+# the last modules of the JAX package: trace exports, the UI page,
+# ingestion, EDGAR, the scheduler, timing and the version
+LAST_MODULES = ("obs.otlp_export", "obs.mlflow_export", "obs.export_loop", "serving.ui",
+                "data.ingest", "data.edgar", "data.scheduler", "utils.timing", "version")
 # top-level packages the port never imports: JAX, its optimizer and
 # checkpointer, and the JAX package
 BANNED = ("jax", "optax", "orbax", "financial_rag_system_tpu")
@@ -39,6 +43,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {f"financial_rag_system_tpu_torch.train.{m}" for m in TRAIN_MODULES} < set(mods)
     assert {f"financial_rag_system_tpu_torch.data.{m}" for m in ("synthetic", "chunker")} < set(mods)
     assert {f"financial_rag_system_tpu_torch.{m}" for m in SHARDED_MODULES} < set(mods)
+    assert {f"financial_rag_system_tpu_torch.{m}" for m in LAST_MODULES} < set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -143,3 +148,42 @@ def test_factories_name_their_env_var(monkeypatch, tmp_path):
     assert isinstance(get_embedder(device="cpu"), HashEmbedder)
     rr = get_reranker(testing=True, device="cpu")
     assert isinstance(rr, HashReranker) and rr.identity is True
+
+
+def test_every_jax_module_has_its_port():
+    """Each module of the JAX package has a counterpart at the same path
+    in the port (the port adds its own, such as ``ops._cuda``)."""
+    jax_root = REPO / "financial_rag_system_tpu"
+    missing = [str(p.relative_to(jax_root)) for p in jax_root.rglob("*.py")
+               if not (REPO / "financial_rag_system_tpu_torch" / p.relative_to(jax_root)).exists()]
+    assert missing == []
+
+
+@pytest.mark.parametrize("module", ["data.ingest", "data.edgar", "data.scheduler",
+                                    "obs.export_loop", "serving.app"])
+def test_data_plane_imports_without_requests(module):
+    """The card's machine has no ``requests``: ingestion and the EDGAR
+    client import it only where they fetch, so the in-process path runs
+    there (``chunks_from_file``, ``ingest_files``)."""
+    code = (
+        "import importlib, sys, tempfile, os\n"
+        "sys.modules['requests'] = None\n"
+        f"importlib.import_module('financial_rag_system_tpu_torch.{module}')\n"
+        "from financial_rag_system_tpu_torch.data.ingest import chunks_from_file\n"
+        "d = tempfile.mkdtemp()\n"
+        "p = os.path.join(d, 'f.txt')\n"
+        "open(p, 'w').write('revenue grew. ' * 200)\n"
+        "print(len(chunks_from_file(p, 'AAPL', '10-K').ids))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert int(out.stdout.strip().splitlines()[-1]) > 1
+
+
+def test_version_is_the_jax_package_version():
+    from financial_rag_system_tpu_torch.version import __version__
+
+    assert port.__version__ == __version__
+    assert (REPO / "financial_rag_system_tpu" / "version.py").read_text() == (
+        REPO / "financial_rag_system_tpu_torch" / "version.py").read_text()

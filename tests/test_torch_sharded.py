@@ -143,7 +143,6 @@ def test_default_mesh_under_a_process_group_is_this_process_card(monkeypatch, lo
             monkeypatch.delenv("LOCAL_RANK", raising=False)
         else:
             monkeypatch.setenv("LOCAL_RANK", str(local_rank + rank))
-        monkeypatch.setattr(distributed, "_initialized", False)
         assert distributed.initialize_distributed("127.0.0.1:1", 2, rank, backend="nccl")
         monkeypatch.setattr(tmesh, "_process_group", lambda rank=rank: (rank, 2))
         meshes.append(create_mesh())
