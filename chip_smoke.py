@@ -7,7 +7,7 @@
                           [--resid-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
 
 Drives ``financial_rag_system_tpu_torch`` end to end on the card, in
-twelve phases; any failure raises and the script exits non-zero:
+thirteen phases; any failure raises and the script exits non-zero:
 
 0. the card: name, power limit and compute capability (Hopper, 9.0);
 1. build: every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a``
@@ -147,7 +147,25 @@ twelve phases; any failure raises and the script exits non-zero:
    in-memory sink (only complete traces ship; their OTLP and MLflow
    encodings); (e) ``utils/timing`` ``fetched_ms`` and
    ``sustained_ms(depth=4)`` of the phase-3 fused batch of 32, reported.
-   Each part prints its seconds.
+   Each part prints its seconds;
+12. the flash path (``RAG_TPU_FLASH``): (a) kernel 7 against its plain
+   version on every row (atol 1e-2) at P 480, S 512, 12 heads of 32 on
+   phase 3's rerank mask padded to 512 (the ``kernels`` line's figures) and
+   on the uniform-length mask (its last pair all padding), at S 128 and
+   256, and at heads of 64 (12) and 128 (6) at S 512, each with its
+   CUDA-event and device times, the plain version's, SDPA's with the
+   boolean segment-equality mask (a yardstick) and its bound and MUFU
+   floor; (b) the flat tier through ``build_default_engine(device="cuda")``
+   under ``RAG_TPU_FLASH=1 RAG_TPU_PAIR_ATTN=0`` (3 asks, a burst of 32, a
+   cache hit; kernel 7 six times a batch, kernel 2 never), its batch of 32
+   against phase 3's default batch (rows and bi scores identical, logits
+   within 5e-2) and against the port on the CPU under the same variables,
+   profiled beside the default batch; (c) ``RAG_TPU_FLASH=1`` alone: the
+   pairs pad to 512 and kernel 2 takes them (6 launches at S 512, kernel 7
+   none), its logits against (b)'s; (d) a graded cross-encoder step under
+   both variables: kernel 7 never launches, the loss and gradients bit for
+   bit those without them; (e) the staged reranker at the 128 bucket under
+   ``RAG_TPU_FLASH=1``: kernel 7 six times.  Each part prints its seconds.
 
 The CPU references of phases 3-6 set ``RAG_TPU_FAST_GELU=1``: the card's
 default GELU is the tanh form and the CPU's exact erf, JAX's rule.
@@ -693,10 +711,14 @@ def attention_bound(np, mask_np, h: int, d: int = 32) -> tuple[float, str]:
 def mufu_floor_ms(torch, np, mask_np, h: int) -> float:
     """The least time the card's MUFU units take for the exponentials the
     mask needs: each query row of a pair against each of its attended
-    keys, at 16 ``MUFU.EX2`` a clock on each SM at the top SM clock that
-    ``nvidia-smi`` reports."""
+    keys (:func:`mufu_ms`)."""
     s = mask_np.shape[1]
-    exps = float(h * s * attended_keys(np, mask_np).sum())
+    return mufu_ms(torch, float(h * s * attended_keys(np, mask_np).sum()))
+
+
+def mufu_ms(torch, exps: float) -> float:
+    """``exps`` exponentials at 16 ``MUFU.EX2`` a clock on each SM at the
+    top SM clock that ``nvidia-smi`` reports."""
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         check=True, capture_output=True, text=True, timeout=60,
@@ -902,11 +924,13 @@ def kernel_counters() -> dict:
     from financial_rag_system_tpu_torch.index.ivf import ivf_probe
     from financial_rag_system_tpu_torch.ops import fused_bert
     from financial_rag_system_tpu_torch.ops.attention import encoder_self_attention
+    from financial_rag_system_tpu_torch.ops.flash_attention import encoder_flash_attention
     from financial_rag_system_tpu_torch.ops.topk import masked_topk
 
     return {"masked_topk": (masked_topk, "launches"),
             "masked_topk_int8": (masked_topk, "launches_int8"),
             "pair_attention": (encoder_self_attention, "launches"),
+            "flash_attention": (encoder_flash_attention, "launches"),
             "ivf_probe": (ivf_probe, "launches"),
             "ivf_probe_int8": (ivf_probe, "launches_int8"),
             **{name: (getattr(fused_bert, name), "launches")
@@ -937,7 +961,8 @@ CPU_TANH = {"RAG_TPU_FAST_GELU": "1"}
 
 
 def drive_main_path(torch, np, work: Path, smi: str, label: str = "main",
-                    index: str = "index", rounds: int = 2, mesh=None) -> dict:
+                    index: str = "index", rounds: int = 2, mesh=None,
+                    attention: str = "pair_attention") -> dict:
     """The flat tier through ``build_default_engine(device="cuda")`` over
     the index saved in ``work / index``: 3 single asks, ``rounds`` bursts
     of 32 and a cache hit.  ``label`` tags the log lines and, past the
@@ -948,7 +973,8 @@ def drive_main_path(torch, np, work: Path, smi: str, label: str = "main",
     a batch when the caller has set their opt-in, else never.  With
     ``mesh`` (a device list) the engine shards the corpus over it: kernel
     1 launches once a shard and kernel 2 once a shard's rerank chunk a
-    layer."""
+    layer.  ``attention`` names the kernel that the rerank layers launch
+    (``flash_attention`` under phase 12's ``FLASH_ENV``)."""
     from financial_rag_system_tpu_torch.models import bert
     from financial_rag_system_tpu_torch.models.tokenizer import pad_batch
     from financial_rag_system_tpu_torch.obs.tracing import get_tracer
@@ -1025,7 +1051,7 @@ def drive_main_path(torch, np, work: Path, smi: str, label: str = "main",
     # the fused-block kernels once a layer (12 embed + 6 rerank) under
     # their opt-in
     topk = "masked_topk_int8" if engine.index.quantized else "masked_topk"
-    want = want_launches(**{topk: shards * n_batches, "pair_attention": 6 * shards * n_batches},
+    want = want_launches(**{topk: shards * n_batches, attention: 6 * shards * n_batches},
                          **dict.fromkeys(FUSED_BLOCK_KERNELS, 18 * n_batches if fused_block else 0))
     if launches != want:
         raise AssertionError(f"[{label}] launches {launches}, want {want}")
@@ -4298,6 +4324,277 @@ def drive_phase_11(torch, np, work: Path, main: dict, bge_dir: Path, smi: str) -
     return runs
 
 
+# -- phase 12: the flash-attention path (RAG_TPU_FLASH) ---------------------------
+
+# the served flash path: the flash gate on, the pair-attention gate off (it
+# comes first at S >= 256, as in JAX's encode)
+FLASH_ENV = {"RAG_TPU_FLASH": "1", "RAG_TPU_PAIR_ATTN": "0"}
+FLASH_SEQ = 512  # kernel 7's longest S, where (a) times its other widths
+
+
+def flash_len(main: dict) -> int:
+    """The rerank pairs' length on the flash path: phase 3's 400 tokens
+    rounded up to the 128-key blocks, 512."""
+    return -(-(main["lq"] + DLEN) // 128) * 128
+
+
+def segment_pairs(np, mask_np) -> float:
+    """The (query, key) pairs that share a segment id, over all pairs: the
+    keys the function attends (a pad row attends the pad keys)."""
+    total = 0
+    for row in mask_np:
+        _, counts = np.unique(row, return_counts=True)
+        total += int((counts.astype(np.int64) ** 2).sum())
+    return float(total)
+
+
+def flash_bound(torch, np, mask_np, h: int, d: int) -> tuple[float, str, float]:
+    """Kernel 7's bound on one mask: q, k and v in and the context out in
+    bf16 for every row (every key is attended by the rows of its
+    segment), the segment ids; QK^T and P.V over the (query, key) pairs
+    that share a segment.  And its MUFU floor: one exponential a pair
+    (:func:`mufu_ms`)."""
+    p, s = mask_np.shape
+    pairs = segment_pairs(np, mask_np)
+    b_ms, b_by = bound_ms(4 * p * s * h * d * 2 + p * s * 4, 4.0 * h * d * pairs)
+    return b_ms, b_by, mufu_ms(torch, h * pairs)
+
+
+def time_flash(torch, np, smi: str, label: str, q, k, v, mask_np) -> dict:
+    """Kernel 7 on one mask: against its plain version on every row (pad
+    rows and all-padding pairs included) at 1e-2, then its CUDA-event
+    median, its device time (profiler), the plain version's time, SDPA's
+    with the boolean segment-equality mask (a yardstick; the port never
+    calls it), its bound and MUFU floor."""
+    from financial_rag_system_tpu_torch.ops import flash_attention as fa
+
+    p, s, h, d = q.shape
+    mask = torch.tensor(mask_np, device=q.device)
+    inv = 1.0 / d ** 0.5
+    got = fa.encoder_flash_attention(q, k, v, mask, inv)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_plain(q, k, v, mask, inv)
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"flash attention, {label}: non-finite output")
+    err = float((got - ref).abs().max())
+    del got, ref
+    if err > 1e-2:
+        raise AssertionError(f"flash attention, {label}: differs from its plain version by "
+                             f"{err} > 1e-2")
+    qb, kb, vb = fa.kernel_inputs(q, k, v)
+    seg = mask.to(torch.int32)
+
+    def kernel():
+        return fa.flash_attention_kernel(qb, kb, vb, seg, inv)
+
+    ms = median_ms(kernel, reps=20)
+    dev = device_ms(torch, kernel, "flash_attention_kernel")
+    plain_ms = median_ms(lambda: fa.flash_attention_plain(q, k, v, mask, inv), reps=3, warmup=1)
+    qh, kh, vh = (t.transpose(1, 2) for t in (qb, kb, vb))
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = median_ms(lambda: sdpa(qh, kh, vh, attn_mask=same, scale=inv), reps=10)
+    del same
+    b_ms, b_by, mufu = flash_bound(torch, np, mask_np, h, d)
+    log(f"[flash] {smi}: {label}, P={p} S={s} H={h} d={d}: max_abs_err {err:.3g}, kernel "
+        f"{ms:.4f} ms (device {dev:.4f} ms), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), MUFU floor {mufu:.4f} ms, kernel at "
+        f"{b_ms / ms:.3f} of its bound")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
+def check_flash_kernel(torch, np, main: dict, smi: str) -> dict:
+    """(a) kernel 7 against its plain version and timed: at the served
+    shape (P 480, S 512, 12 heads of 32) on phase 3's rerank mask padded
+    to 512 (the kernels line's numbers) and on the uniform-length mask
+    (pair 0 whole, the last pair all padding); at S 128 and 256; at heads
+    of 64 (12) and 128 (6) at S 512."""
+    plen, s = main["lq"] + DLEN, flash_len(main)
+    served = np.pad(rerank_batch_mask(torch, np, main), ((0, 0), (0, s - plen)))
+    q, k, v, _ = attention_inputs(torch, np, PAIRS, s)
+    res = time_flash(torch, np, smi, f"phase-3 rerank mask padded to {s}", q, k, v, served)
+    for s, h, d in ((FLASH_SEQ, 12, 32), (128, 12, 32), (256, 12, 32), (FLASH_SEQ, 12, 64),
+                    (FLASH_SEQ, 6, 128)):
+        q, k, v, mask_np = attention_inputs(torch, np, PAIRS, s, h, d)
+        time_flash(torch, np, smi, "uniform-length mask", q, k, v, mask_np)
+    del q, k, v
+    return {"name": "flash_attention", "route": "cuda",
+            "source": f"{PACKAGE}/csrc/flash_attention.cu",
+            "replaces": "financial_rag_system_tpu/models/bert.py:160",
+            **{key: res[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}}
+
+
+def attention_calls(torch, fn):
+    """``fn()`` with the launches of kernels 2 and 7 it made and the
+    sequence lengths kernel 2 saw."""
+    from financial_rag_system_tpu_torch.models import bert
+    from financial_rag_system_tpu_torch.ops.attention import encoder_self_attention
+    from financial_rag_system_tpu_torch.ops.flash_attention import encoder_flash_attention
+
+    seqs = []
+    original = bert.encoder_self_attention
+
+    def spy(q, *args, **kwargs):
+        seqs.append(q.shape[1])
+        return original(q, *args, **kwargs)
+
+    n2, n7 = encoder_self_attention.launches, encoder_flash_attention.launches
+    bert.encoder_self_attention = spy
+    try:
+        out = fn()
+    finally:
+        bert.encoder_self_attention = original
+    return (out, encoder_self_attention.launches - n2, encoder_flash_attention.launches - n7,
+            sorted(set(seqs)))
+
+
+def check_flash_batches(torch, np, run: dict, main: dict, cpu_models, smi: str) -> None:
+    """(b) the flat batch of 32 on the flash path against phase 3's default
+    batch (rows and bi scores identical, logits within compare_batches'
+    5e-2) and, for 2 queries, against the port on the CPU under the same
+    variables; kernel 7 six times a batch and kernel 2 never; both
+    batches profiled.  (c) ``RAG_TPU_FLASH=1`` alone: the pairs pad to 512
+    and kernel 2 takes them (6 launches at S 512, kernel 7 none), its
+    logits against (b)'s."""
+    from financial_rag_system_tpu_torch.index.flat import FlatIndex
+    from financial_rag_system_tpu_torch.utils.config import get_config
+
+    engine = run["engine"]
+    card = (engine.embedder, engine.reranker)
+
+    def batch(queries=main["burst"]):
+        return flat_batch(torch, engine, queries, "cuda", engine.index, card)
+
+    default, n2, n7, _ = attention_calls(torch, batch)
+    if (n2, n7) != (6, 0):
+        raise AssertionError(f"the default batch launched kernel 2 {n2} and kernel 7 {n7} times")
+    with env_set(**FLASH_ENV):
+        flash, n2, n7, _ = attention_calls(torch, batch)
+    if (n2, n7) != (0, 6):
+        raise AssertionError(f"the flash batch launched kernel 2 {n2} and kernel 7 {n7} times")
+    if not (np.array_equal(flash[0], default[0]) and np.array_equal(flash[1], default[1])):
+        raise AssertionError("[flash] rows or bi scores differ from the default batch's")
+    compare_batches(np, "[flash] card, flash path vs phase 3's default batch", flash, default)
+    queries = main["burst"][:2]
+    cpu_index = FlatIndex.load(get_config().index_dir, device="cpu")
+    with env_set(**FLASH_ENV):
+        got = batch(queries)
+        with env_set(**CPU_TANH):
+            ref = flat_batch(torch, engine, queries, "cpu", cpu_index, cpu_models)
+    compare_batches(np, "[flash] card vs CPU (plain versions), both on the flash path", got, ref)
+    with env_set(RAG_TPU_FLASH="1"):
+        alone, n2, n7, seqs = attention_calls(torch, batch)
+    if (n2, n7, seqs) != (6, 0, [flash_len(main)]):
+        raise AssertionError(f"RAG_TPU_FLASH=1 alone: kernel 2 {n2} times at S {seqs}, "
+                             f"kernel 7 {n7} times")
+    if not np.array_equal(alone[0], flash[0]):
+        raise AssertionError("[flash] RAG_TPU_FLASH=1 alone gave other rows")
+    compare_batches(np, "[flash] card, kernel 2 at S 512 (RAG_TPU_FLASH=1 alone) vs the "
+                    "flash path", alone, flash)
+    log(f"[flash] {smi}: launches a batch: default (kernel 2, S {main['lq'] + DLEN}) 6 / 0, "
+        f"flash path 0 / 6, RAG_TPU_FLASH=1 alone 6 / 0 at S {seqs}")
+    profile_batch(torch, main, smi, "fused_two_stage, default (kernel 2)")
+    with env_set(**FLASH_ENV):
+        profile_batch(torch, main, smi, "fused_two_stage, flash path (kernel 7)")
+    with env_set(RAG_TPU_FLASH="1"):
+        profile_batch(torch, main, smi, "fused_two_stage, RAG_TPU_FLASH=1 alone (kernel 2 at "
+                      "the padded length)")
+
+
+def check_flash_graded(torch, np, run: dict, smi: str) -> None:
+    """(d) a graded cross-encoder step at full width under both variables:
+    kernel 7 never launches, and the loss and every gradient are bit for
+    bit those without the variables (the graded forward is the einsum
+    path either way)."""
+    from financial_rag_system_tpu_torch.models import bert
+    from financial_rag_system_tpu_torch.ops.flash_attention import encoder_flash_attention
+    from financial_rag_system_tpu_torch.train.optim import graded
+
+    served = run["engine"].reranker.model
+    model = bert.BertModel(served.cfg, device="cuda")
+    model.load_state_dict(served.state_dict())
+    rows = train_rows(torch, np, FLASH_SEQ)
+
+    def step():
+        with graded(model):
+            loss = objective_loss(torch, model, "bce", rows)
+            loss.backward()
+            grads = [p.grad.clone() for p in model.parameters() if p.grad is not None]
+            model.zero_grad(set_to_none=True)
+        return loss.detach(), grads
+
+    loss0, grads0 = step()
+    n0 = encoder_flash_attention.launches
+    with env_set(**FLASH_ENV):
+        loss1, grads1 = step()
+    launched = encoder_flash_attention.launches - n0
+    same = (torch.equal(loss0, loss1) and len(grads0) == len(grads1)
+            and all(torch.equal(a, b) for a, b in zip(grads0, grads1)))
+    if launched or not same:
+        raise AssertionError(f"[flash] graded step: kernel 7 launched {launched} times; "
+                             f"loss {float(loss0)} and {float(loss1)}, bit for bit {same}")
+    log(f"[flash] {smi}: a graded cross-encoder step at S {rows['pairs'][0].shape[1]} under "
+        f"{FLASH_ENV}: kernel 7 launched 0 times; loss {float(loss1):.6f} and "
+        f"{len(grads1)} gradients bit for bit those without the variables")
+
+
+def check_flash_staged(torch, np, run: dict, smi: str) -> None:
+    """(e) the staged reranker (``CrossEncoderReranker.score``) at the 128
+    bucket under ``RAG_TPU_FLASH=1`` with pair attention on ``auto``:
+    kernel 7 six times (one chunk of pairs), kernel 2 never; the logits
+    against the same call without the variable (the einsum path)."""
+    reranker = run["engine"].reranker
+    texts = [f"segment {i} revenue rose while operating margin and liquidity "
+             f"improved in the quarter " * (1 + i % 3) for i in range(12)]
+
+    def score():
+        return reranker.score("what was revenue growth in the last quarter", texts)
+
+    plain, n2, n7, _ = attention_calls(torch, score)
+    with env_set(RAG_TPU_FLASH="1"):
+        flash, n2f, n7f, _ = attention_calls(torch, score)
+    if (n2, n7, n2f, n7f) != (0, 0, 0, 6):
+        raise AssertionError(f"[flash] staged: kernels 2 and 7 launched {n2}, {n7} without and "
+                             f"{n2f}, {n7f} with RAG_TPU_FLASH=1")
+    err = float(np.abs(flash - plain).max())
+    if err > 5e-2:
+        raise AssertionError(f"[flash] staged logits differ from the einsum path's by {err}")
+    log(f"[flash] {smi}: staged reranker, {len(texts)} pairs at the 128 bucket under "
+        f"RAG_TPU_FLASH=1: kernel 7 {n7f} launches, kernel 2 {n2f}; logits within {err:.3g} "
+        f"of the einsum path's")
+
+
+def drive_phase_12(torch, np, work: Path, main: dict, cpu_models, smi: str,
+                   kernels: list) -> dict:
+    """Phase 12: (a) kernel 7 against its plain version and timed, (b) the
+    flat tier served on the flash path (``FLASH_ENV``: a new engine over
+    phase 3's checkpoints and index, 3 asks, a burst of 32, a cache hit,
+    kernel 7 six times a batch) and its batch checks, (c) the flash
+    variable alone, (d) a graded step, (e) the staged reranker; each
+    part's seconds.  Returns (b)'s run for the launch counts."""
+    runs = {}
+
+    def serve():
+        with env_set(**FLASH_ENV):
+            runs["b"] = drive_main_path(torch, np, work, smi, label="flash", rounds=1,
+                                        attention="flash_attention")
+
+    for part, fn in (
+        ("a", lambda: kernels.append(check_flash_kernel(torch, np, main, smi))),
+        ("b", serve),
+        ("b-c", lambda: check_flash_batches(torch, np, runs["b"], main, cpu_models, smi)),
+        ("d", lambda: check_flash_graded(torch, np, runs["b"], smi)),
+        ("e", lambda: check_flash_staged(torch, np, runs["b"], smi)),
+    ):
+        t0 = time.perf_counter()
+        fn()
+        log(f"[phase-12] part ({part}) took {time.perf_counter() - t0:.1f} s")
+    del runs["b"]["engine"]
+    return runs["b"]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -4436,11 +4733,14 @@ def main() -> int:
         t0 = time.perf_counter()
         phase11_runs = drive_phase_11(torch, np, work, main_run, work / "trained" / "bge", smi)
         log(f"[phase-11] phase 11 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        flash_run = drive_phase_12(torch, np, work, main_run, cpu_models, smi, kernels)
+        log(f"[flash] phase 12 took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # launches over the main paths, each counted from 0 around its run
     runs = (main_run, ivf_run, block_run, int8_run, ivf8_run, *hash_runs, hnsw_run, hnsw8_run,
-            train_run, *sharded_runs, *phase11_runs)
+            train_run, *sharded_runs, *phase11_runs, flash_run)
     for kern in kernels:
         name = kern["name"]
         kern["launches"] = sum(run["launches"][name] for run in runs)

@@ -182,11 +182,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 bool takes(int R, int H) { return R >= 1 && H >= 64 && H <= 512 && H % 64 == 0; }
 
 template <typename Kernel>

@@ -13,12 +13,12 @@ cross-encoder share it.  Numerics follow the JAX default path:
 - GELU follows the JAX package's rule (:func:`_fast_gelu`): by default
   the tanh form on the card and exact erf on the CPU;
   ``RAG_TPU_FAST_GELU=1`` forces tanh and ``0`` forces erf;
-- attention follows the JAX gate (:func:`_pair_attn_enabled`) as it acts
-  on the accelerator, on the card and the CPU alike: at S >= 256 (the
-  rerank pairs) :func:`ops.attention.encoder_self_attention`, the CUDA
-  kernel on the card and its plain version on the CPU; below it (the
-  query embed) the JAX einsum path's arithmetic in plain PyTorch
-  (:func:`_einsum_attention`);
+- attention follows the JAX gates (:func:`_pair_attn_enabled`, then
+  :func:`_flash_enabled`) as they act on the accelerator, on the card and
+  the CPU alike: at S >= 256 (the rerank pairs)
+  :func:`ops.attention.encoder_self_attention`, the CUDA kernel on the
+  card and its plain version on the CPU; below it (the query embed) the
+  JAX einsum path's arithmetic in plain PyTorch (:func:`_einsum_attention`);
 - a forward that is being differentiated (:func:`_graded`: grad mode on
   and a parameter requires grad, as the trainers of :mod:`train` run it)
   takes the einsum attention at every length and the unfused layer, with
@@ -27,7 +27,7 @@ cross-encoder share it.  Numerics follow the JAX default path:
   lookups whose backward sums in a fixed order (:class:`_Lookup`); the JAX
   kernels have no backward (see :func:`_pair_attn_enabled`).
 
-Three opt-ins, each off by default, as in the JAX package:
+Four opt-ins, each off by default, as in the JAX package:
 
 - ``RAG_TPU_FUSED_BLOCK=1`` (on the card, unless ``RAG_TPU_FAST_GELU``
   forces erf, and for widths the kernels take): each layer runs the
@@ -37,7 +37,12 @@ Three opt-ins, each off by default, as in the JAX package:
   (:func:`_act_dtype`);
 - int8 weight-only PTQ of the six encoder weight stacks
   (:func:`quantize_params`; the reranker applies it under
-  ``RAG_TPU_INT8_RERANK=1``).
+  ``RAG_TPU_INT8_RERANK=1``);
+- ``RAG_TPU_FLASH=1``: where the pair-attention gate does not engage,
+  attention at a length that is a multiple of 128 runs the segment-masked
+  flash attention of :mod:`ops.flash_attention` (see
+  :func:`_flash_enabled`), and the fused pipelines pad the rerank pairs
+  to a multiple of 128 (``ops/fused_query.py _assemble_pairs``).
 
 Parameters are ``nn.Linear`` weights, (out, in); :func:`load_jax_params`
 fills a model from the JAX package's pytree (layer stacks on axis 0,
@@ -56,6 +61,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from financial_rag_system_tpu_torch.ops.attention import NEG, encoder_self_attention
+from financial_rag_system_tpu_torch.ops.flash_attention import encoder_flash_attention
 from financial_rag_system_tpu_torch.ops.fused_bert import (
     MAX_HIDDEN,
     WIDTH_STEP,
@@ -189,6 +195,31 @@ def _pair_attn_enabled(seq: int, head_dim: int, graded: bool = False) -> bool:
     if graded or mode in ("0", "false", "off") or head_dim > 128:
         return False
     return seq >= 256 if mode == "auto" else True
+
+
+def _flash_enabled(seq: int, heads: int, graded: bool = False) -> bool:
+    """Whether attention at this sequence length may run the segment-masked
+    flash attention (:func:`ops.flash_attention.encoder_flash_attention`),
+    read once per :meth:`BertModel.encode` after :func:`_pair_attn_enabled`
+    (the pair kernel takes precedence, as in JAX's ``encode``).  The JAX
+    gate (``bert.py:97-126``) without its platform test, as
+    :func:`_pair_attn_enabled` is:
+
+    - ``RAG_TPU_FLASH``, compared exactly as JAX compares it: unset, ``0``,
+      ``false`` and the empty string are off; any other value is on
+      (``False`` and ``off`` included);
+    - ``seq`` at least 128 and a multiple of 128 (jax's 128-key blocks);
+    - ``heads`` is JAX's argument, which its gate does not read either;
+    - never in a graded forward (``graded``, :func:`_graded`): the kernel
+      has no backward, and the JAX package configures its flash kernel
+      with forward blocks only, so ``jax.grad`` through it raises
+      (``ValueError: ... not all backward blocks are specified``); a
+      trainer's forward takes the einsum path here.
+    """
+    del heads
+    if graded or os.environ.get("RAG_TPU_FLASH", "0") in ("0", "false", ""):
+        return False
+    return seq >= 128 and seq % 128 == 0
 
 
 def _einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -491,7 +522,12 @@ class BertModel(nn.Module):
         fused = not graded and _fused_block_enabled(self)
         b, seq = input_ids.shape
         nh, hd = cfg.heads, cfg.hidden // cfg.heads
-        pair_attn = _pair_attn_enabled(seq, hd, graded)
+        if _pair_attn_enabled(seq, hd, graded):
+            attend = encoder_self_attention
+        elif _flash_enabled(seq, nh, graded):
+            attend = encoder_flash_attention
+        else:
+            attend = _einsum_attention
         h = (
             _embedding(input_ids.long(), self.word_emb)
             + self.position_emb[:seq][None, :, :]
@@ -499,10 +535,9 @@ class BertModel(nn.Module):
         )
         h = _ln(h, self.emb_ln.weight, self.emb_ln.bias, cfg.ln_eps).to(act)
         inv_sqrt = 1.0 / (hd**0.5)
-        attend = encoder_self_attention if pair_attn else _einsum_attention
         for lp in self.layers:
             if fused:
-                h = self._fused_layer(lp, h, attention_mask, act, pair_attn)
+                h = self._fused_layer(lp, h, attention_mask, act, attend)
                 continue
             # one cast feeds all three projections; a graded forward casts
             # in each (JAX's _matmul), so their input gradients add in f32
@@ -520,13 +555,14 @@ class BertModel(nn.Module):
     forward = encode
 
     def _fused_layer(self, lp: BertLayer, h: torch.Tensor, attention_mask: torch.Tensor,
-                     act: torch.dtype, pair_attn: bool) -> torch.Tensor:
+                     act: torch.dtype, attend) -> torch.Tensor:
         """One layer through the fused-block kernels (JAX ``bert.py:389-399``
         and ``:430-449``): QKV in one pass over the hidden state, attention
-        as the gate chose it (``pair_attn``), then o-proj + residual + LN
-        and FFN + residual + LN.  The attention kernel's context goes to
-        the o-proj kernel as bf16, which is exact: the kernel rounds it to
-        bf16 first either way; the einsum path's goes as f32, as in JAX."""
+        as the gates chose it (``attend``), then o-proj + residual + LN
+        and FFN + residual + LN.  The pair-attention and flash kernels'
+        context goes to the o-proj kernel as bf16, which is exact: both
+        round it to bf16 first either way; the einsum path's goes as f32,
+        as in JAX."""
         cfg = self.cfg
         b, seq, hid = h.shape
         nh, hd = cfg.heads, hid // cfg.heads
@@ -537,11 +573,10 @@ class BertModel(nn.Module):
                                lp.v.weight, lp.v.bias, lp.qkv_pack())
         )
         inv_sqrt = 1.0 / (hd**0.5)
-        if pair_attn:
-            ctx = encoder_self_attention(q, k, v, attention_mask, inv_sqrt,
-                                         out_dtype=torch.bfloat16)
-        else:
+        if attend is _einsum_attention:
             ctx = _einsum_attention(q, k, v, attention_mask, inv_sqrt)
+        else:
+            ctx = attend(q, k, v, attention_mask, inv_sqrt, out_dtype=torch.bfloat16)
         h2 = fused_resid_ln(x, ctx.reshape(b * seq, hid), lp.o.weight, lp.o.bias,
                             lp.attn_ln.weight, lp.attn_ln.bias, cfg.ln_eps, lp.o_pack())
         h2 = fused_ffn_ln(h2, lp.inter.weight, lp.inter.bias, lp.out.weight, lp.out.bias,

@@ -1,0 +1,201 @@
+"""Segment-masked flash attention: the encoder's ``RAG_TPU_FLASH`` path.
+
+Port of ``financial_rag_system_tpu/models/bert.py _flash_attention``
+together with the forward kernel it calls, jax's bundled TPU flash
+attention (``jax/experimental/pallas/ops/tpu/flash_attention.py``,
+``_flash_attention_kernel_single_batch`` and its single-step twin), as
+``bert.py`` configures it: 128-row q blocks and 128-key blocks, one
+(pair, head) a block, the key-padding mask as segment ids for both q and
+kv, ``sm_scale`` 1/sqrt(d), no bias, not causal.
+
+The function, for each pair and head, on (B, S, H, d) q, k and v:
+
+- q, k and v are rounded to bf16; ``s = (q . k^T)`` is summed in f32 and
+  multiplied by ``sm_scale`` (after the product, unlike kernel 2, which
+  pre-scales q);
+- ``MASK_VALUE`` (-0.7 * FLT_MAX, finite) is added wherever the query's
+  segment id differs from the key's.  A pad query row (id 0) therefore
+  attends the pad keys only, and a real row the real keys only: the pad
+  rows are defined, and differ from kernel 2's and the einsum path's,
+  which give every row the real keys;
+- at S 128 (a single key block, jax's ``..._single_step`` kernel) the
+  softmax is the plain one: ``p = exp(s - max)``, ``p / sum(p)`` rounded
+  to bf16, then P.V summed in f32;
+- above it, an online softmax over 128-key blocks: the running max ``m``
+  (from -inf) and sum ``l``, ``p = exp(s - m_next)`` of the block,
+  ``l_next = sum(p) + exp(m_prev - m_next) * l_prev``, and the f32
+  accumulator kept normalised: ``acc = acc * (l_corr / l_next)``, then
+  ``acc += (bf16(p) . V) / l_next`` (both as products with
+  ``1 / l_next``, itself 1 where ``l_next`` is 0).  A row whose first
+  block is wholly masked gets that block's weight scaled by
+  ``exp(MASK_VALUE - m) = 0`` once a key of its segment appears, so the
+  finite mask value keeps every row finite;
+- the context is rounded to bf16, and returned as (B, S, H*d) f32.
+
+JAX accepts any d <= 128 and, above 128, multiples of 128; the port's
+kernel takes d <= 128 (zero-padded to a multiple of 16, which adds
+nothing to q.k and only columns that are sliced off to P.V) and d 256,
+and S a multiple of 128 up to 512 (BERT's positions).  Both the plain
+version and the kernel refuse any other shape.
+
+- :func:`encoder_flash_attention` is the entry point: a CPU tensor runs
+  :func:`flash_attention_plain`; a CUDA tensor launches the hand-written
+  Hopper kernel ``csrc/flash_attention.cu`` or raises; any other device
+  raises.  A CUDA input that requires grad under grad mode raises
+  (``_cuda.refuse_grad``): neither this kernel nor JAX's forward-only
+  configuration has a backward, and a graded forward of the encoder takes
+  the einsum path (``models/bert.py _flash_enabled``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import numpy as np
+import torch
+
+from financial_rag_system_tpu_torch.ops import _cuda
+
+BLOCK = 128          # jax's block_q, block_k_major and block_k at these lengths
+MAX_SEQ = 512
+WIDE_HEAD_DIM = 256  # the one head width above 128 the kernel takes
+MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
+
+
+def check_shape(seq: int, head_dim: int) -> None:
+    """Raise unless the kernel (and so the port) takes this shape."""
+    if seq < BLOCK or seq > MAX_SEQ or seq % BLOCK:
+        raise ValueError(f"flash attention takes S a multiple of {BLOCK} up to {MAX_SEQ}; "
+                         f"got S {seq}")
+    if not (1 <= head_dim <= 128 or head_dim == WIDE_HEAD_DIM):
+        raise ValueError(f"flash attention takes head_dim <= 128 or {WIDE_HEAD_DIM}; "
+                         f"got head_dim {head_dim}")
+
+
+def flash_attention_plain(
+    q: torch.Tensor,               # (B, S, H, d)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    attention_mask: torch.Tensor,  # (B, S) segment ids (the key-padding mask)
+    inv_sqrt: float,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, in jax's block order (see the
+    module docstring).  bf16 values are multiplied as f32, exact for each
+    product, so only the order of the f32 sums differs from the kernel's.
+    Holds one (B, H, S, 128) block of scores at a time."""
+    b, s, h, d = q.shape
+    check_shape(s, d)
+    qb, kb, vb = (t.to(torch.bfloat16).float().permute(0, 2, 1, 3) for t in (q, k, v))
+    seg = attention_mask.to(torch.int32)
+    same = seg[:, None, :, None] == seg[:, None, None, :]  # (B, 1, S, S)
+
+    def scores(lo: int) -> torch.Tensor:
+        sc = torch.matmul(qb, kb[:, :, lo:lo + BLOCK].transpose(-1, -2)) * inv_sqrt
+        return sc + torch.where(same[..., lo:lo + BLOCK], 0.0, MASK_VALUE)
+
+    if s == BLOCK:  # jax's single-step kernel: the plain softmax
+        sc = scores(0)
+        p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+        p = p / p.sum(dim=-1, keepdim=True)
+        acc = torch.matmul(p.to(torch.bfloat16).float(), vb)
+    else:
+        m = torch.full((b, h, s, 1), float("-inf"), device=q.device)
+        l = torch.zeros((b, h, s, 1), device=q.device)
+        acc = torch.zeros((b, h, s, d), device=q.device)
+        for lo in range(0, s, BLOCK):
+            sc = scores(lo)
+            m_next = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+            p = torch.exp(sc - m_next)
+            del sc
+            l_corr = torch.exp(m - m_next) * l
+            l_next = p.sum(dim=-1, keepdim=True) + l_corr
+            inv = torch.where(l_next == 0.0, 1.0, 1.0 / l_next)
+            acc = acc * (l_corr * inv)
+            acc = acc + torch.matmul(p.to(torch.bfloat16).float(), vb[:, :, lo:lo + BLOCK]) * inv
+            del p
+            m, l = m_next, l_next
+    out = acc.to(torch.bfloat16).permute(0, 2, 1, 3)
+    return out.reshape(b, s, h * d).to(out_dtype)
+
+
+def kernel_inputs(q, k, v):
+    """The kernel's contiguous bf16 q, k and v, padded with zero columns
+    to the next multiple of 16 (no padding copy when d is a multiple)."""
+    pad = -q.shape[-1] % 16
+    bf = (t.to(torch.bfloat16) for t in (q, k, v))
+    return tuple((torch.nn.functional.pad(t, (0, pad)) if pad else t).contiguous() for t in bf)
+
+
+def _kernel_fn():
+    fn = _cuda.library("flash_attention").flash_attention
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_kernel(
+    qb: torch.Tensor,   # (B, S, H, dp) bf16, dp a multiple of 16 up to 128, or 256
+    kb: torch.Tensor,   # (B, S, H, dp) bf16
+    vb: torch.Tensor,   # (B, S, H, dp) bf16
+    seg: torch.Tensor,  # (B, S) int32 segment ids
+    inv_sqrt: float,
+) -> torch.Tensor:
+    """Launch ``csrc/flash_attention.cu`` on the current stream; returns
+    the (B, S, H, dp) bf16 context.  Raises on anything the kernel does
+    not take."""
+    b, s, h, dp = qb.shape
+    check_shape(s, dp)
+    if dp % 16:
+        raise ValueError(f"the kernel takes head_dim a multiple of 16; got {dp}")
+    for name, t in (("q", qb), ("k", kb), ("v", vb)):
+        if t.shape != qb.shape or t.dtype != torch.bfloat16:
+            raise ValueError(f"{name} must be {tuple(qb.shape)} bf16")
+    if seg.shape != (b, s) or seg.dtype != torch.int32:
+        raise ValueError(f"segment ids must be {(b, s)} int32")
+    for t in (qb, kb, vb, seg):
+        if t.device != qb.device or t.device.type != "cuda" or not t.is_contiguous():
+            raise ValueError("inputs must be contiguous and on one CUDA device")
+    if any(t.data_ptr() % 16 for t in (qb, kb, vb)):
+        raise ValueError("q, k and v must be 16-byte aligned")
+    out = torch.empty_like(qb)
+    with _cuda.on_device(qb.device):
+        _cuda.launch(_kernel_fn(), "flash_attention", qb.data_ptr(), kb.data_ptr(),
+                     vb.data_ptr(), seg.data_ptr(), out.data_ptr(), b, s, h, dp, inv_sqrt)
+    with _launch_lock:  # batches run in worker threads
+        encoder_flash_attention.launches += 1
+    return out
+
+
+def encoder_flash_attention(
+    q: torch.Tensor,               # (B, S, H, d) any float dtype
+    k: torch.Tensor,
+    v: torch.Tensor,
+    attention_mask: torch.Tensor,  # (B, S) int/bool: the segment ids
+    inv_sqrt: float,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Returns the (B, S, H*d) context, f32 unless ``out_dtype`` asks for
+    bf16 (exact: the kernel stores bf16).  The CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor; nothing else."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, attention_mask, inv_sqrt, out_dtype)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _cuda.refuse_grad("flash_attention", q, k, v)
+    b, s, h, d = q.shape
+    for name, t in (("k", k), ("v", v)):
+        if t.shape != q.shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != q {tuple(q.shape)}")
+    check_shape(s, d)
+    qb, kb, vb = kernel_inputs(q, k, v)
+    out = flash_attention_kernel(qb, kb, vb, attention_mask.to(torch.int32).contiguous(),
+                                 inv_sqrt)
+    return out[..., :d].reshape(b, s, h * d).to(out_dtype)
+
+
+# kernel launches since the last reset (chip_smoke.py reads and resets it)
+encoder_flash_attention.launches = 0
+_launch_lock = threading.Lock()

@@ -38,9 +38,12 @@ mean-pools, which the JAX package leaves to XLA; here they are torch ops.
 Pair layout: [CLS] q (padded to LQ) [SEP] doc [SEP], with the doc segment
 at the fixed offset LQ; with trained weights this shifts doc position ids
 by (LQ - len(q)) versus compact packing.  Pad positions are
-attention-masked, so scores are otherwise exact.  The JAX package rounds
-the pair length up to 128 only when its bundled flash kernel would
-engage; the port has no flash path, so the pair length stays exact.
+attention-masked, so scores are otherwise exact.  The pair length stays
+exact unless the flash path would engage at the length rounded up to 128
+(``RAG_TPU_FLASH``, ``models/bert.py _flash_enabled``); then it is
+rounded up to 128, as in the JAX package (400 -> 512 at the rerank
+shape), and the pairs' attention runs the flash kernel, or kernel 2 where
+the pair-attention gate comes first.
 """
 
 from __future__ import annotations
@@ -89,7 +92,7 @@ def _assemble_pairs(
 ):
     """Lay P (query, doc) token-id pairs out as one padded cross-encoder
     batch.  Returns int32 (pair_ids, pair_types, pair_mask) of shape
-    (round_up(P, 8), plen)."""
+    (round_up(P, 8), plen), plen rounded up to 128 under the flash path."""
     p, lq = pair_q.shape
     dlen = pair_d.shape[1]
     # first-party trained rerankers carry the length they were trained at
@@ -108,9 +111,15 @@ def _assemble_pairs(
     # pad the pair batch to a multiple of 8, as the JAX package does:
     # 480 pairs at B=32, K=15
     pad = _round_up(p, 8) - p
-    if pad:
+    # and the pair length up to the flash blocks' 128 where the flash gate
+    # would take the rounded length (JAX fused_query.py:126-136), after the
+    # trim above
+    plen = pair_ids.shape[1]
+    plen_up = _round_up(plen, 128)
+    pad_l = plen_up - plen if bert._flash_enabled(plen_up, rerank_cfg.heads) else 0
+    if pad or pad_l:
         pair_ids, pair_types, pair_mask = (
-            torch.nn.functional.pad(x, (0, 0, 0, pad))
+            torch.nn.functional.pad(x, (0, pad_l, 0, pad))
             for x in (pair_ids, pair_types, pair_mask)
         )
     return pair_ids, pair_types, pair_mask

@@ -1,0 +1,331 @@
+"""The port's flash-attention path (``RAG_TPU_FLASH``) against the JAX package's.
+
+On the CPU the port runs :func:`flash_attention_plain`; JAX's
+``bert._flash_attention`` runs jax's bundled TPU flash kernel in
+interpret mode (``force_tpu_interpret_mode``).  JAX's gate tests the
+platform, so it is asked with ``jax.devices`` reporting a TPU
+(:func:`jax_flash_gate`), and JAX's fused paths run with that gate patched
+in and the jit cache cleared around the patch.  Every comparison also
+counts the flash calls on both sides: at S 128 the flash arithmetic equals
+the einsum path's on the real rows, so a branch that silently did not run
+would pass a comparison alone.
+
+Tolerances: the context is bf16, one bf16 step of an O(1) value is about
+4e-3, so the kernel function is held to atol 1e-2 on every row, pad rows
+included (measured at most 2e-3); the encoder and the slice to the bounds
+of ``tests/test_torch_bert.py`` and ``tests/test_torch_fused_query.py``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import types
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from financial_rag_system_tpu.models import bert as jbert
+from financial_rag_system_tpu.ops import fused_query as jfq
+from financial_rag_system_tpu_torch.models import bert as tbert
+from financial_rag_system_tpu_torch.ops import flash_attention as tflash
+from financial_rag_system_tpu_torch.ops import fused_query as tfq
+from test_torch_fused_query import B, K, case, run_jax, run_port  # noqa: F401
+from torch_attn_masks import holes_mask, rerank_mask
+
+TINY = dict(vocab_size=1000, hidden=64, layers=2, heads=2, intermediate=128,
+            max_positions=512)
+
+
+@contextlib.contextmanager
+def as_tpu():
+    """``jax.devices()`` reports a TPU inside the block (JAX's flash gate
+    reads the platform; nothing else is asked there)."""
+    real = jax.devices
+    jax.devices = lambda *a, **k: [types.SimpleNamespace(platform="tpu")]
+    try:
+        yield
+    finally:
+        jax.devices = real
+
+
+def jax_gate(seq: int, heads: int, _gate=jbert._flash_enabled) -> bool:
+    """JAX's own ``_flash_enabled``, asked as on a TPU."""
+    with as_tpu():
+        return _gate(seq, heads)
+
+
+@pytest.fixture()
+def jax_flash_gate(monkeypatch):
+    """Both packages on the flash path: ``RAG_TPU_FLASH=1`` and
+    ``RAG_TPU_PAIR_ATTN=0`` (the port's pair gate would come first at
+    S >= 256; JAX's is off on the CPU), JAX's gate asked as on a TPU, its
+    kernel in interpret mode, and each package's flash calls counted
+    (JAX's as traced: once an encoder)."""
+    jax.clear_caches()
+    monkeypatch.setenv("RAG_TPU_FLASH", "1")
+    monkeypatch.setenv("RAG_TPU_PAIR_ATTN", "0")
+    monkeypatch.setattr(jbert, "_flash_enabled", jax_gate)
+    calls = {"jax": 0, "port": 0}
+
+    def spy(side, fn):
+        def counted(*a, **k):
+            calls[side] += 1
+            return fn(*a, **k)
+        return counted
+
+    monkeypatch.setattr(jbert, "_flash_attention", spy("jax", jbert._flash_attention))
+    monkeypatch.setattr(tbert, "encoder_flash_attention",
+                        spy("port", tbert.encoder_flash_attention))
+    with pltpu.force_tpu_interpret_mode():
+        yield calls
+    jax.clear_caches()
+
+
+def make_qkv(b, s, h, d, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((b, s, h, d)).astype(np.float32) for _ in range(3))
+
+
+def make_mask(kind, b, s, seed):
+    """Key masks: prefix lengths (the last pair all padding), the rerank
+    layout's query hole, or random holes; each with an all-padding pair."""
+    if kind == "prefix":
+        lens = np.random.default_rng(seed).integers(1, s + 1, b)
+        mask = (np.arange(s)[None, :] < lens[:, None]).astype(np.int32)
+    elif kind == "rerank":
+        mask = rerank_mask(b, s, seed=seed)
+    else:
+        mask = holes_mask(b, s, seed=seed)
+    mask[-1] = 0
+    return mask
+
+
+def both(q, k, v, mask):
+    inv = 1.0 / np.sqrt(q.shape[-1])
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jbert._flash_attention(q, k, v, mask, inv))
+    got = tflash.encoder_flash_attention(*(torch.from_numpy(a) for a in (q, k, v, mask)),
+                                         inv).numpy()
+    return got, ref
+
+
+# -- the kernel function ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("s,d,kind", [
+    (128, 32, "prefix"), (256, 32, "prefix"), (256, 32, "rerank"), (128, 32, "holes"),
+    (256, 64, "holes"), (128, 64, "rerank"), (256, 128, "prefix"), (128, 128, "holes"),
+    (256, 24, "rerank"), (256, 256, "prefix"),
+])
+def test_plain_matches_jax_flash_kernel(s, d, kind):
+    """Every row, pad rows included: a pad query row attends the pad keys
+    only (segment ids), where kernel 2 and the einsum path give it the
+    real keys.  d 24 pads to 32 on the card; d 256 is the one width above
+    128 the kernel takes."""
+    b = 3
+    q, k, v = make_qkv(b, s, 2, d, seed=s + d)
+    mask = make_mask(kind, b, s, seed=s + d)
+    got, ref = both(q, k, v, mask)
+    assert got.shape == ref.shape == (b, s, 2 * d) and got.dtype == np.float32
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, atol=1e-2, rtol=0)
+
+
+def test_pad_rows_attend_the_pad_keys_only():
+    """The segment-id masking, against the einsum path: real rows agree
+    (at S 256, across two key blocks), pad rows do not; an all-padding
+    pair is a plain softmax over all its keys."""
+    q, k, v = make_qkv(2, 256, 2, 32, seed=5)
+    mask = make_mask("prefix", 2, 256, seed=5)
+    mask[0, 100:] = 0
+    args = [torch.from_numpy(a) for a in (q, k, v, mask)]
+    inv = 1.0 / np.sqrt(32)
+    got = tflash.encoder_flash_attention(*args, inv)
+    einsum = tbert._einsum_attention(*args, inv)
+    torch.testing.assert_close(got[0, :100], einsum[0, :100], atol=1e-2, rtol=0)
+    assert (got[0, 100:] - einsum[0, 100:]).abs().max() > 0.1
+    # the all-padding pair: every key in its one segment
+    ones = torch.ones_like(args[3])
+    torch.testing.assert_close(got[1], tbert._einsum_attention(*args[:3], ones, inv)[1],
+                               atol=1e-2, rtol=0)
+
+
+def test_cpu_runs_plain_and_counts_no_launch():
+    q, k, v = (torch.from_numpy(a) for a in make_qkv(1, 128, 2, 16, seed=0))
+    mask = torch.ones(1, 128, dtype=torch.int32)
+    before = tflash.encoder_flash_attention.launches
+    out = tflash.encoder_flash_attention(q, k, v, mask, 0.25)
+    assert torch.equal(out, tflash.flash_attention_plain(q, k, v, mask, 0.25))
+    assert tflash.encoder_flash_attention.launches == before
+
+
+@pytest.mark.parametrize("s,d", [(200, 32), (640, 32), (64, 32), (256, 192), (256, 384)])
+def test_refuses_shapes_the_kernel_does_not_take(s, d):
+    q = torch.zeros(1, s, 1, d)
+    with pytest.raises(ValueError):
+        tflash.encoder_flash_attention(q, q, q, torch.ones(1, s), 0.1)
+
+
+def test_other_devices_raise():
+    q = torch.zeros(1, 128, 1, 32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tflash.encoder_flash_attention(q, q, q, torch.ones(1, 128, device="meta"), 0.1)
+
+
+# -- the gate ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("value", [None, "0", "false", "", "1", "False", "true", "off"])
+def test_gate_env_contract_matches_jax(monkeypatch, value):
+    """JAX's exact, case-sensitive string test: off only unset, ``0``,
+    ``false`` and ``""``; on at multiples of 128 from 128."""
+    if value is None:
+        monkeypatch.delenv("RAG_TPU_FLASH", raising=False)
+    else:
+        monkeypatch.setenv("RAG_TPU_FLASH", value)
+    on = value not in (None, "0", "false", "")
+    for seq in (64, 128, 200, 256, 384, 512):
+        want = on and seq % 128 == 0
+        assert tbert._flash_enabled(seq, 12) == want == jax_gate(seq, 12), (value, seq)
+        assert not tbert._flash_enabled(seq, 12, graded=True)
+
+
+def test_encode_routes_pair_then_flash_then_einsum(monkeypatch):
+    """The order JAX's ``encode`` takes: the pair-attention gate first,
+    then flash, then the einsum path."""
+    _, _, model = make_models(0)
+    monkeypatch.setenv("RAG_TPU_FLASH", "1")
+    taken = []
+    for name in ("encoder_self_attention", "encoder_flash_attention", "_einsum_attention"):
+        monkeypatch.setattr(tbert, name, lambda *a, _n=name, **k: taken.append(_n) or
+                            torch.zeros(a[0].shape[0], a[0].shape[1], 64))
+    for pair_attn, seq, want in (("auto", 256, "encoder_self_attention"),
+                                 ("0", 256, "encoder_flash_attention"),
+                                 ("auto", 128, "encoder_flash_attention"),
+                                 ("auto", 64, "_einsum_attention"),
+                                 ("1", 128, "encoder_self_attention")):
+        monkeypatch.setenv("RAG_TPU_PAIR_ATTN", pair_attn)
+        taken.clear()
+        model.encode(*(torch.from_numpy(a) for a in make_inputs(seq=seq)))
+        assert taken == [want] * 2, (pair_attn, seq, taken)
+
+
+# -- the pair layout -----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("p,lq,dlen,max_seq,plen", [
+    (13, 32, 24, None, 128), (60, 32, 368, None, 512), (16, 32, 96, None, 128),
+    (9, 32, 368, 256, 256), (9, 32, 200, 100, 128), (8, 64, 64, None, 128),
+])
+def test_assemble_pairs_identical_under_flash(monkeypatch, p, lq, dlen, max_seq, plen):
+    """Pairs pad to a multiple of 128 after the trained-length trim, as
+    JAX's do: 400 -> 512; a reranker trained at 256 stays at 256."""
+    monkeypatch.setenv("RAG_TPU_FLASH", "1")
+    monkeypatch.setattr(jbert, "_flash_enabled", jax_gate)
+    rng = np.random.default_rng(p + dlen)
+    pair_q = rng.integers(0, 50, (p, lq)).astype(np.int32)
+    pair_d = rng.integers(0, 50, (p, dlen)).astype(np.int32)
+    jcfg = jbert.BertConfig(**TINY, max_seq_length=max_seq)
+    tcfg = tbert.BertConfig(**TINY, max_seq_length=max_seq)
+    ref = jfq._assemble_pairs(jax.numpy.asarray(pair_q), jax.numpy.asarray(pair_d),
+                              rerank_cfg=jcfg)
+    got = tfq._assemble_pairs(torch.from_numpy(pair_q), torch.from_numpy(pair_d),
+                              rerank_cfg=tcfg)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.int32 and g.shape == (-(-p // 8) * 8, plen)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+# -- the encoder and the slice -------------------------------------------------------
+
+
+def make_models(seed, **extra):
+    jcfg = jbert.BertConfig(**TINY, **extra)
+    params = jbert.init_params(jax.random.PRNGKey(seed), jcfg)
+    model = tbert.load_jax_params(tbert.BertModel(tbert.BertConfig(**TINY, **extra),
+                                                  device="cpu"),
+                                  jax.tree_util.tree_map(np.asarray, params))
+    return params, jcfg, model
+
+
+def make_inputs(b=3, seq=256, seed=0):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, 1000, (b, seq)).astype(np.int32)
+    lens = np.array([seq, 150, 40][:b])
+    mask = (np.arange(seq)[None, :] < lens[:, None]).astype(np.int32)
+    types = np.zeros_like(ids)
+    types[:, 20:] = 1
+    return ids * mask, types, mask
+
+
+def test_encode_matches_jax_flash_branch(jax_flash_gate):
+    """S 256 (two key blocks, so the online softmax rescales): every
+    position, pad rows included, against JAX's flash branch."""
+    params, jcfg, model = make_models(1)
+    ids, types, mask = make_inputs()
+    want = np.asarray(jbert.encode(params, ids, types, mask, jcfg))
+    got = model.encode(*(torch.from_numpy(a) for a in (ids, types, mask))).numpy()
+    assert jax_flash_gate == {"jax": 1, "port": 2}
+    assert got.shape == (3, 256, 64)
+    np.testing.assert_allclose(got, want, atol=5e-3, rtol=0)
+
+
+def test_fused_two_stage_matches_jax_under_flash(case, jax_flash_gate):  # noqa: F811
+    """The slice: the pairs pad from 56 to 128 and both rerankers take
+    their flash branch; rows exact, scores within the bounds of
+    ``test_torch_fused_query.py``."""
+    rows_j, bi_j, ce_j = run_jax(case)
+    rows_t, bi_t, ce_t = run_port(case)
+    # JAX traces its rerank layer once; the port runs both rerank layers
+    # (the query embed, S 32, takes the einsum path on both sides)
+    assert jax_flash_gate == {"jax": 1, "port": 2}
+    np.testing.assert_array_equal(rows_t, case["planted"])
+    np.testing.assert_array_equal(rows_t, rows_j)
+    np.testing.assert_allclose(bi_t, bi_j, atol=2e-3, rtol=0)
+    np.testing.assert_allclose(ce_t, ce_j, atol=3e-2, rtol=0)
+    assert np.isfinite(ce_t).all() and ce_t.shape == (B, K)
+
+
+# -- training -------------------------------------------------------------------------
+
+
+def test_graded_step_takes_no_flash_and_keeps_its_gradients(monkeypatch):
+    """A cross-encoder step at a 128 bucket under ``RAG_TPU_FLASH=1
+    RAG_TPU_PAIR_ATTN=0``: the graded forward takes the einsum path, so no
+    flash function is called and the loss and gradients are bit for bit
+    those without the variables; outside a graded forward the same model
+    takes the flash path."""
+    from financial_rag_system_tpu_torch.train import cross_encoder as tcross
+    from financial_rag_system_tpu_torch.train.optim import graded
+
+    _, _, model = make_models(2, with_pooler=True, num_labels=1)
+    ids, types, mask = make_inputs(b=3, seq=128, seed=3)
+    batch = [torch.from_numpy(a) for a in (ids, types, mask)]
+    labels = torch.tensor([1.0, 0.0, 1.0])
+
+    def step():
+        with graded(model):
+            loss = tcross.bce_loss(model, *batch, labels, 3.0)
+            loss.backward()
+            grads = [None if p.grad is None else p.grad.clone() for p in model.parameters()]
+            model.zero_grad(set_to_none=True)
+        return loss.detach(), grads
+
+    loss0, grads0 = step()
+    calls = []
+    flash = tbert.encoder_flash_attention
+    monkeypatch.setattr(tbert, "encoder_flash_attention",
+                        lambda *a, **k: calls.append(1) or flash(*a, **k))
+    monkeypatch.setenv("RAG_TPU_FLASH", "1")
+    monkeypatch.setenv("RAG_TPU_PAIR_ATTN", "0")
+    loss1, grads1 = step()
+    assert not calls
+    assert torch.equal(loss0, loss1)
+    assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(grads0, grads1))
+    assert sum(g is not None for g in grads0) > 10
+    with torch.no_grad():
+        tbert.cross_score(model, *batch)
+    assert len(calls) == 2

@@ -25,6 +25,11 @@ from financial_rag_system_tpu_torch.ops.attention import (
     encoder_self_attention_plain,
     pair_attention_kernel,
 )
+from financial_rag_system_tpu_torch.ops.flash_attention import (
+    encoder_flash_attention,
+    flash_attention_kernel,
+    flash_attention_plain,
+)
 from financial_rag_system_tpu_torch.ops.topk import masked_topk, masked_topk_plain
 from torch_attn_masks import holes_mask, prefix_mask, rerank_mask
 
@@ -641,6 +646,84 @@ def test_attention_kernel_rejects_shapes(cuda):
         pair_attention_kernel(z, z, z, m[:, :8])
 
 
+# (p, s, h, d, mask kind): S 128 (one key block: the plain softmax), 256,
+# 384 and 512 (the online softmax over 2-4 blocks); heads of 32 (the
+# served rerank, 12 of them), 16-128 and 256, and 24 and 100, which the
+# wrapper pads to 32 and 112; each mask with an all-padding last pair
+FLASH_CASES = [
+    (4, 128, 12, 32, "prefix"), (3, 256, 4, 32, "rerank"), (2, 512, 12, 32, "rerank"),
+    (3, 384, 2, 64, "holes"), (2, 512, 2, 128, "prefix"), (2, 256, 2, 256, "prefix"),
+    (3, 256, 2, 24, "prefix"), (2, 128, 3, 16, "holes"), (2, 512, 2, 48, "rerank"),
+    (2, 256, 2, 100, "prefix"), (2, 512, 12, 32, "all_valid"),
+]
+
+
+def flash_mask(kind, p, s, seed=0):
+    if kind == "prefix":
+        lens = np.random.default_rng(seed).integers(1, s + 1, p)
+        mask = prefix_mask(s, lens)
+    elif kind == "rerank":
+        mask = rerank_mask(p, s, seed=seed)
+    elif kind == "holes":
+        mask = holes_mask(p, s, seed=seed)
+    else:
+        return np.ones((p, s), np.int32)
+    mask[-1] = 0
+    return mask
+
+
+@pytest.mark.parametrize("p,s,h,d,kind", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, p, s, h, d, kind):
+    """Kernel 7 against its plain version on every row, pad rows included
+    (they attend the pad keys only), at atol 1e-2."""
+    q, k, v, _ = attn_case(p, s, h, seed=s + d, d=d)
+    q, k, v, mask = (torch.tensor(a, device=cuda) for a in (q, k, v, flash_mask(kind, p, s)))
+    inv = 1.0 / np.sqrt(d)
+    n0 = encoder_flash_attention.launches
+    ref = flash_attention_plain(q, k, v, mask, inv).cpu().numpy()
+    got = encoder_flash_attention(q, k, v, mask, inv).cpu().numpy()
+    torch.cuda.synchronize()
+    assert encoder_flash_attention.launches == n0 + 1
+    assert got.shape == (p, s, h * d)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, atol=1e-2, rtol=0)
+
+
+def test_flash_attention_kernel_relaunch_and_threads(cuda):
+    """Relaunches, launches from worker threads and from a side stream give
+    the same context bit for bit."""
+    q, k, v, _ = attn_case(8, 512, 12, seed=4)
+    q, k, v, mask = (torch.tensor(a, device=cuda) for a in (q, k, v, rerank_mask(8, 512)))
+    first = encoder_flash_attention(q, k, v, mask, 0.125)
+
+    def run(side_stream):
+        stream = torch.cuda.Stream() if side_stream else torch.cuda.current_stream()
+        stream.wait_stream(torch.cuda.default_stream())
+        with torch.cuda.stream(stream):
+            out = encoder_flash_attention(q, k, v, mask, 0.125)
+        torch.cuda.synchronize()
+        return out
+
+    with ThreadPoolExecutor(4) as pool:
+        outs = list(pool.map(run, [False, True, False, True]))
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, o) for o in outs)
+
+
+def test_flash_attention_kernel_rejects_shapes(cuda):
+    m = torch.ones((1, 512), dtype=torch.int32, device=cuda)
+    for s, d in ((200, 32), (640, 32), (64, 32), (256, 192), (256, 384)):
+        x = torch.zeros((1, s, 2, d), device=cuda)
+        with pytest.raises(ValueError):
+            encoder_flash_attention(x, x, x, torch.ones((1, s), device=cuda), 0.1)
+    y = torch.zeros((1, 128, 2, 24), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        flash_attention_kernel(y, y, y, m[:, :128], 0.1)
+    z = torch.zeros(1 + 128 * 2 * 32, dtype=torch.bfloat16, device=cuda)[1:].view(1, 128, 2, 32)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_kernel(z, z, z, m[:, :128], 0.1)
+
+
 def block_case(r, h, i, dev, seed=0):
     """x, ctx and one encoder layer's weights (nn.Linear layout) at the
     scales of a random-init encoder, made on the card."""
@@ -1026,12 +1109,15 @@ def graded_inputs(dev):
     c = block_case(256, 128, 512, dev)
     q, k, v = (torch.randn(2, 64, 4, 32, device=dev) for _ in range(3))
     mask = torch.ones(2, 64, dtype=torch.int32, device=dev)
+    fq = torch.randn(2, 128, 4, 32, device=dev)
     tq, tc, tcodes, tqf = (torch.tensor(a, device=dev) for a in topk_case(4, 2048, 64, 2000))
     pq, pqf, pemb, pcodes, pgids, ptiles, _ = (
         torch.tensor(a, device=dev) if isinstance(a, np.ndarray) else a
         for a in probe_case(4, 64, 8, 128))
     return {
         "pair_attention": lambda rg: encoder_self_attention(leaf(q, rg), k, v, mask, 0.1),
+        "flash_attention": lambda rg: encoder_flash_attention(
+            leaf(fq, rg), fq, fq, torch.ones(2, 128, dtype=torch.int32, device=dev), 0.1),
         "fused_qkv": lambda rg: fused_bert.fused_qkv(leaf(c["x"], rg), *qkv_args(c)[1:]),
         "fused_resid_ln": lambda rg: fused_bert.fused_resid_ln(
             c["x"], c["ctx"], leaf(c["w"][3], rg), c["b"][3], c["s"], c["lb"], 1e-12),
@@ -1044,8 +1130,8 @@ def graded_inputs(dev):
     }
 
 
-@pytest.mark.parametrize("name", ["pair_attention", "fused_qkv", "fused_resid_ln",
-                                  "fused_ffn_ln", "masked_topk", "ivf_probe"])
+@pytest.mark.parametrize("name", ["pair_attention", "flash_attention", "fused_qkv",
+                                  "fused_resid_ln", "fused_ffn_ln", "masked_topk", "ivf_probe"])
 def test_kernel_wrappers_refuse_inputs_that_require_grad(cuda, name):
     """A kernel has no backward: handed a CUDA tensor that requires grad
     under grad mode, its wrapper raises instead of cutting the graph; the
