@@ -5,6 +5,7 @@
                           [--attn-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
                           [--ffn-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
                           [--resid-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
+                          [--flash-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
 
 Drives ``financial_rag_system_tpu_torch`` end to end on the card, in
 thirteen phases; any failure raises and the script exits non-zero:
@@ -155,7 +156,10 @@ thirteen phases; any failure raises and the script exits non-zero:
    256, and at heads of 64 (12) and 128 (6) at S 512, each with its
    CUDA-event and device times, the plain version's, SDPA's with the
    boolean segment-equality mask (a yardstick) and its bound and MUFU
-   floor; (b) the flat tier through ``build_default_engine(device="cuda")``
+   floor, and the share of (pair, 64-row tile, 128-key block) pairs the
+   kernel skips on that mask (no common segment id); ``nvcc -Xptxas -v``'s
+   registers and spills of each of its kernels (none may spill at heads
+   of 32-128); (b) the flat tier through ``build_default_engine(device="cuda")``
    under ``RAG_TPU_FLASH=1 RAG_TPU_PAIR_ATTN=0`` (3 asks, a burst of 32, a
    cache hit; kernel 7 six times a batch, kernel 2 never), its batch of 32
    against phase 3's default batch (rows and bi scores identical, logits
@@ -188,7 +192,9 @@ the same inputs and masks, in turns, with their contexts' difference;
 ``--ffn-baseline`` builds an earlier ``fused_bert.cu`` and times its FFN
 kernel beside kernel 4 at both shapes the same way; ``--resid-baseline``
 the same for its o-proj kernel beside kernel 6 (a checkout whose C entry
-took no plan).
+took no plan); ``--flash-baseline`` builds an earlier ``flash_attention.cu``
+and times it beside kernel 7 at each shape of phase 12 (a) in turns, with
+both device times and their contexts' difference.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device": ...}``.
@@ -205,6 +211,7 @@ import functools
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -4360,12 +4367,74 @@ def flash_bound(torch, np, mask_np, h: int, d: int) -> tuple[float, str, float]:
     return b_ms, b_by, mufu_ms(torch, h * pairs)
 
 
-def time_flash(torch, np, smi: str, label: str, q, k, v, mask_np) -> dict:
+def flash_skip_share(np, mask_np) -> float:
+    """The share of (pair, 64-row tile, 128-key block) pairs that kernel 7
+    skips on a mask: no query row of the tile shares a segment id with any
+    key of the block."""
+    p, s = mask_np.shape
+    ids = np.unique(mask_np)
+    onehot = mask_np[:, :, None] == ids[None, None, :]          # (P, S, ids)
+    tiles = onehot.reshape(p, s // 64, 64, -1).any(axis=2)      # (P, tiles, ids)
+    blocks = onehot.reshape(p, s // 128, 128, -1).any(axis=2)   # (P, blocks, ids)
+    need = (tiles[:, :, None, :] & blocks[:, None, :, :]).any(axis=-1)
+    return float(1.0 - need.mean())
+
+
+def kernel_short_name(mangled: str) -> str:
+    """A kernel's name and template argument (``flash_kernel<32>``) from
+    its mangled name: the identifier ending in ``kernel`` whose length
+    prefix matches (the prefix may follow a hash's digits)."""
+    for run in re.finditer(r"\d+", mangled):
+        for i in range(run.start(), run.end()):
+            n = int(mangled[i:run.end()])
+            ident = mangled[run.end():run.end() + n]
+            if len(ident) == n and ident.endswith("kernel") and re.fullmatch(r"[A-Za-z_]\w*", ident):
+                arg = re.match(r"ILi(\d+)E", mangled[run.end() + n:])
+                return f"{ident}<{arg.group(1)}>" if arg else ident
+    return mangled
+
+
+def ptxas_kernels(text: str) -> dict:
+    """{kernel: (registers, spill store bytes, spill load bytes)} from the
+    output of ``nvcc -Xptxas -v``."""
+    report, kernel = {}, None
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            kernel = kernel_short_name(entry.group(1))
+            report[kernel] = [0, 0, 0]
+            continue
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spills and kernel:
+            report[kernel][1:] = [int(spills.group(1)), int(spills.group(2))]
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and kernel:
+            report[kernel][0] = int(regs.group(1))
+    return {k: tuple(v) for k, v in report.items()}
+
+
+def ptxas_report(name: str) -> dict:
+    """``csrc/<name>.cu`` compiled with ``nvcc -Xptxas -v`` into a scratch
+    library beside the build: :func:`ptxas_kernels` of its output."""
+    from financial_rag_system_tpu_torch.ops import _cuda
+
+    out = _cuda.BUILD_DIR.parent / "torch_kernels_ptxas" / f"{name}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    run = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out),
+                          str(_cuda.CSRC_DIR / f"{name}.cu")], check=True, capture_output=True,
+                         text=True, timeout=600)
+    return ptxas_kernels(run.stdout + run.stderr)
+
+
+def time_flash(torch, np, smi: str, label: str, q, k, v, mask_np, baseline=None) -> dict:
     """Kernel 7 on one mask: against its plain version on every row (pad
     rows and all-padding pairs included) at 1e-2, then its CUDA-event
     median, its device time (profiler), the plain version's time, SDPA's
     with the boolean segment-equality mask (a yardstick; the port never
-    calls it), its bound and MUFU floor."""
+    calls it), its bound, MUFU floor and skipped share.  With ``baseline``
+    (an earlier build of the kernel, ``--flash-baseline``): the largest
+    difference between its context and this kernel's on the same inputs,
+    both timed in turns (old, new, new, old) and both device times."""
     from financial_rag_system_tpu_torch.ops import flash_attention as fa
 
     p, s, h, d = q.shape
@@ -4388,7 +4457,7 @@ def time_flash(torch, np, smi: str, label: str, q, k, v, mask_np) -> dict:
         return fa.flash_attention_kernel(qb, kb, vb, seg, inv)
 
     ms = median_ms(kernel, reps=20)
-    dev = device_ms(torch, kernel, "flash_attention_kernel")
+    dev = device_ms(torch, kernel, "flash")
     plain_ms = median_ms(lambda: fa.flash_attention_plain(q, k, v, mask, inv), reps=3, warmup=1)
     qh, kh, vh = (t.transpose(1, 2) for t in (qb, kb, vb))
     same = seg[:, None, :, None] == seg[:, None, None, :]
@@ -4396,29 +4465,56 @@ def time_flash(torch, np, smi: str, label: str, q, k, v, mask_np) -> dict:
     library_ms = median_ms(lambda: sdpa(qh, kh, vh, attn_mask=same, scale=inv), reps=10)
     del same
     b_ms, b_by, mufu = flash_bound(torch, np, mask_np, h, d)
-    log(f"[flash] {smi}: {label}, P={p} S={s} H={h} d={d}: max_abs_err {err:.3g}, kernel "
-        f"{ms:.4f} ms (device {dev:.4f} ms), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}), MUFU floor {mufu:.4f} ms, kernel at "
-        f"{b_ms / ms:.3f} of its bound")
+    line = (f"[flash] {smi}: {label}, P={p} S={s} H={h} d={d}: max_abs_err {err:.3g}, kernel "
+            f"{ms:.4f} ms (device {dev:.4f} ms), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} "
+            f"ms, bound {b_ms:.4f} ms ({b_by}), MUFU floor {mufu:.4f} ms, kernel at "
+            f"{b_ms / ms:.3f} of its bound; (tile, block) pairs skipped "
+            f"{flash_skip_share(np, mask_np):.4f}")
+    if baseline is not None:
+        new = kernel()
+        with kernel_lib("flash_attention", baseline):
+            old = kernel()
+            torch.cuda.synchronize()
+            old_dev = device_ms(torch, kernel, "flash")
+        diff = float((new.float() - old.float()).abs().max())
+        del new, old
+
+        def old_ms():
+            with kernel_lib("flash_attention", baseline):
+                return median_ms(kernel, reps=20)
+
+        turns = [old_ms(), median_ms(kernel, reps=20), median_ms(kernel, reps=20), old_ms()]
+        line += (f"; baseline: context max abs diff {diff:.3g}, old, new, new, old "
+                 f"{[round(t, 4) for t in turns]} ms, device old {old_dev:.4f} ms")
+    log(line)
     return {"max_abs_err": err, "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
 
 
-def check_flash_kernel(torch, np, main: dict, smi: str) -> dict:
+def check_flash_kernel(torch, np, main: dict, smi: str, baseline=None) -> dict:
     """(a) kernel 7 against its plain version and timed: at the served
     shape (P 480, S 512, 12 heads of 32) on phase 3's rerank mask padded
     to 512 (the kernels line's numbers) and on the uniform-length mask
     (pair 0 whole, the last pair all padding); at S 128 and 256; at heads
-    of 64 (12) and 128 (6) at S 512."""
+    of 64 (12) and 128 (6) at S 512; ``baseline`` (``--flash-baseline``)
+    timed beside it at each.  Then ``-Xptxas -v`` of its source: no
+    kernel of the ring may spill (heads of 32-128)."""
     plen, s = main["lq"] + DLEN, flash_len(main)
     served = np.pad(rerank_batch_mask(torch, np, main), ((0, 0), (0, s - plen)))
     q, k, v, _ = attention_inputs(torch, np, PAIRS, s)
-    res = time_flash(torch, np, smi, f"phase-3 rerank mask padded to {s}", q, k, v, served)
+    res = time_flash(torch, np, smi, f"phase-3 rerank mask padded to {s}", q, k, v, served,
+                     baseline)
     for s, h, d in ((FLASH_SEQ, 12, 32), (128, 12, 32), (256, 12, 32), (FLASH_SEQ, 12, 64),
                     (FLASH_SEQ, 6, 128)):
         q, k, v, mask_np = attention_inputs(torch, np, PAIRS, s, h, d)
-        time_flash(torch, np, smi, "uniform-length mask", q, k, v, mask_np)
+        time_flash(torch, np, smi, "uniform-length mask", q, k, v, mask_np, baseline)
     del q, k, v
+    report = ptxas_report("flash_attention")
+    log(f"[flash] ptxas -v of csrc/flash_attention.cu (registers, spill store and load bytes): "
+        f"{report}")
+    spilled = {k: r for k, r in report.items() if k.startswith("flash_kernel") and (r[1] or r[2])}
+    if spilled or not any(k.startswith("flash_kernel") for k in report):
+        raise AssertionError(f"[flash] the ring kernel spills, or ptxas named none: {report}")
     return {"name": "flash_attention", "route": "cuda",
             "source": f"{PACKAGE}/csrc/flash_attention.cu",
             "replaces": "financial_rag_system_tpu/models/bert.py:160",
@@ -4567,7 +4663,7 @@ def check_flash_staged(torch, np, run: dict, smi: str) -> None:
 
 
 def drive_phase_12(torch, np, work: Path, main: dict, cpu_models, smi: str,
-                   kernels: list) -> dict:
+                   kernels: list, baseline=None) -> dict:
     """Phase 12: (a) kernel 7 against its plain version and timed, (b) the
     flat tier served on the flash path (``FLASH_ENV``: a new engine over
     phase 3's checkpoints and index, 3 asks, a burst of 32, a cache hit,
@@ -4582,7 +4678,7 @@ def drive_phase_12(torch, np, work: Path, main: dict, cpu_models, smi: str,
                                         attention="flash_attention")
 
     for part, fn in (
-        ("a", lambda: kernels.append(check_flash_kernel(torch, np, main, smi))),
+        ("a", lambda: kernels.append(check_flash_kernel(torch, np, main, smi, baseline))),
         ("b", serve),
         ("b-c", lambda: check_flash_batches(torch, np, runs["b"], main, cpu_models, smi)),
         ("d", lambda: check_flash_graded(torch, np, runs["b"], smi)),
@@ -4624,6 +4720,12 @@ def main() -> int:
              "its fused_bert.cu's o-proj kernel beside kernel 6 on the same inputs, in turns, "
              "and log their outputs' difference",
     )
+    parser.add_argument(
+        "--flash-baseline", type=Path, default=None, metavar="CSRC",
+        help="csrc/ directory of an earlier checkout: time its flash_attention.cu beside "
+             "kernel 7 at each shape of phase 12 (a), in turns, and log their contexts' "
+             "difference",
+    )
     opts = parser.parse_args()
     try:
         import torch
@@ -4651,6 +4753,8 @@ def main() -> int:
                     if opts.ffn_baseline else None)
     resid_baseline = (baseline_lib("fused_bert", opts.resid_baseline)
                       if opts.resid_baseline else None)
+    flash_baseline = (baseline_lib("flash_attention", opts.flash_baseline)
+                      if opts.flash_baseline else None)
     kernels = [check_topk(torch, np, smi, opts.topk_baseline),
                check_attention(torch, np, smi, attn_baseline)]
     check_large_k(torch, np, smi)
@@ -4734,7 +4838,8 @@ def main() -> int:
         phase11_runs = drive_phase_11(torch, np, work, main_run, work / "trained" / "bge", smi)
         log(f"[phase-11] phase 11 took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        flash_run = drive_phase_12(torch, np, work, main_run, cpu_models, smi, kernels)
+        flash_run = drive_phase_12(torch, np, work, main_run, cpu_models, smi, kernels,
+                                   flash_baseline)
         log(f"[flash] phase 12 took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)

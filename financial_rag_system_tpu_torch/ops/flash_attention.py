@@ -33,10 +33,12 @@ The function, for each pair and head, on (B, S, H, d) q, k and v:
 - the context is rounded to bf16, and returned as (B, S, H*d) f32.
 
 JAX accepts any d <= 128 and, above 128, multiples of 128; the port's
-kernel takes d <= 128 (zero-padded to a multiple of 16, which adds
-nothing to q.k and only columns that are sliced off to P.V) and d 256,
-and S a multiple of 128 up to 512 (BERT's positions).  Both the plain
-version and the kernel refuse any other shape.
+kernel is built for heads of 32, 64, 128 and 256 (:data:`KERNEL_WIDTHS`),
+and the wrapper zero-pads every other d up to 128 to the next of them
+(:func:`padded_head_dim`: zero columns add nothing to q.k and only
+columns that are sliced off to P.V).  S is a multiple of 128 up to 512
+(BERT's positions).  Both the plain version and the kernel refuse any
+other shape.
 
 - :func:`encoder_flash_attention` is the entry point: a CPU tensor runs
   :func:`flash_attention_plain`; a CUDA tensor launches the hand-written
@@ -60,6 +62,7 @@ from financial_rag_system_tpu_torch.ops import _cuda
 BLOCK = 128          # jax's block_q, block_k_major and block_k at these lengths
 MAX_SEQ = 512
 WIDE_HEAD_DIM = 256  # the one head width above 128 the kernel takes
+KERNEL_WIDTHS = (32, 64, 128, WIDE_HEAD_DIM)  # the head widths the kernel is built for
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
 
@@ -120,10 +123,17 @@ def flash_attention_plain(
     return out.reshape(b, s, h * d).to(out_dtype)
 
 
+def padded_head_dim(head_dim: int) -> int:
+    """The width the kernel takes a head of ``head_dim`` at: the least of
+    :data:`KERNEL_WIDTHS` that holds it."""
+    check_shape(BLOCK, head_dim)
+    return next(w for w in KERNEL_WIDTHS if head_dim <= w)
+
+
 def kernel_inputs(q, k, v):
     """The kernel's contiguous bf16 q, k and v, padded with zero columns
-    to the next multiple of 16 (no padding copy when d is a multiple)."""
-    pad = -q.shape[-1] % 16
+    to :func:`padded_head_dim` (no padding copy at a width it takes)."""
+    pad = padded_head_dim(q.shape[-1]) - q.shape[-1]
     bf = (t.to(torch.bfloat16) for t in (q, k, v))
     return tuple((torch.nn.functional.pad(t, (0, pad)) if pad else t).contiguous() for t in bf)
 
@@ -137,7 +147,7 @@ def _kernel_fn():
 
 
 def flash_attention_kernel(
-    qb: torch.Tensor,   # (B, S, H, dp) bf16, dp a multiple of 16 up to 128, or 256
+    qb: torch.Tensor,   # (B, S, H, dp) bf16, dp one of KERNEL_WIDTHS
     kb: torch.Tensor,   # (B, S, H, dp) bf16
     vb: torch.Tensor,   # (B, S, H, dp) bf16
     seg: torch.Tensor,  # (B, S) int32 segment ids
@@ -148,8 +158,8 @@ def flash_attention_kernel(
     not take."""
     b, s, h, dp = qb.shape
     check_shape(s, dp)
-    if dp % 16:
-        raise ValueError(f"the kernel takes head_dim a multiple of 16; got {dp}")
+    if dp not in KERNEL_WIDTHS:
+        raise ValueError(f"the kernel takes head_dim {KERNEL_WIDTHS}; got {dp}")
     for name, t in (("q", qb), ("k", kb), ("v", vb)):
         if t.shape != qb.shape or t.dtype != torch.bfloat16:
             raise ValueError(f"{name} must be {tuple(qb.shape)} bf16")

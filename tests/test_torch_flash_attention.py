@@ -33,7 +33,7 @@ from financial_rag_system_tpu_torch.models import bert as tbert
 from financial_rag_system_tpu_torch.ops import flash_attention as tflash
 from financial_rag_system_tpu_torch.ops import fused_query as tfq
 from test_torch_fused_query import B, K, case, run_jax, run_port  # noqa: F401
-from torch_attn_masks import holes_mask, rerank_mask
+from torch_attn_masks import holes_mask, prefix_mask, rerank_mask, segment_mask
 
 TINY = dict(vocab_size=1000, hidden=64, layers=2, heads=2, intermediate=128,
             max_positions=512)
@@ -91,12 +91,21 @@ def make_qkv(b, s, h, d, seed):
 
 def make_mask(kind, b, s, seed):
     """Key masks: prefix lengths (the last pair all padding), the rerank
-    layout's query hole, or random holes; each with an all-padding pair."""
+    layout's query hole, random holes, prefixes that end in keys 64-127
+    (a first row tile wholly real beside key blocks wholly of padding), or
+    runs of segment ids in [0, 32) or outside it; each with an all-padding
+    pair."""
+    rng = np.random.default_rng(seed)
     if kind == "prefix":
-        lens = np.random.default_rng(seed).integers(1, s + 1, b)
-        mask = (np.arange(s)[None, :] < lens[:, None]).astype(np.int32)
+        mask = prefix_mask(s, rng.integers(1, s + 1, b))
+    elif kind == "short":
+        mask = prefix_mask(s, rng.integers(64, 128, b))
     elif kind == "rerank":
         mask = rerank_mask(b, s, seed=seed)
+    elif kind == "segments":
+        mask = segment_mask(b, s, (0, 1, 2, 5, 17, 31), seed=seed)
+    elif kind == "wide_ids":
+        mask = segment_mask(b, s, (-3, 0, 1, 32, 45, 1 << 20), seed=seed)
     else:
         mask = holes_mask(b, s, seed=seed)
     mask[-1] = 0
@@ -173,6 +182,141 @@ def test_other_devices_raise():
     q = torch.zeros(1, 128, 1, 32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tflash.encoder_flash_attention(q, q, q, torch.ones(1, 128, device="meta"), 0.1)
+
+
+# -- the kernel's liberties: skipped (tile, block) pairs and the zero-weight select --
+
+
+def needed_blocks(seg, rows=64):
+    """(B, S // rows, S // 128): whether any query row of a 64-row tile
+    shares a segment id with any key of a 128-key block."""
+    b, s = seg.shape
+    tiles = seg.reshape(b, s // rows, 1, rows, 1)
+    blocks = seg.reshape(b, 1, s // tflash.BLOCK, 1, tflash.BLOCK)
+    return (tiles == blocks).any(axis=(3, 4))
+
+
+def skipping_flash(q, k, v, seg, inv_sqrt, *, skip=True, select=False):
+    """``flash_attention_plain``'s arithmetic in jax's block order, with the
+    kernel's two liberties: with ``skip``, every (64-row tile, 128-key
+    block) pair that shares no segment id is left out (its rows keep m, l
+    and acc); with ``select``, a masked key's score is -inf in place of
+    ``+ MASK_VALUE`` (zero weight), and a row with no key of its segment so
+    far keeps m = -inf, l = 0, acc = 0.  Returns the bf16 context as f32."""
+    b, s, h, d = q.shape
+    qb, kb, vb = (torch.from_numpy(t).to(torch.bfloat16).float().permute(0, 2, 1, 3)
+                  for t in (q, k, v))
+    segt = torch.from_numpy(seg)
+    same = segt[:, None, :, None] == segt[:, None, None, :]
+    need = torch.from_numpy(needed_blocks(seg)).repeat_interleave(64, dim=1)  # (B, S, blocks)
+    if not skip:
+        need[:] = True
+    ninf = float("-inf")
+
+    def scores(lo):
+        sc = torch.matmul(qb, kb[:, :, lo:lo + tflash.BLOCK].transpose(-1, -2)) * inv_sqrt
+        blk = same[..., lo:lo + tflash.BLOCK]
+        return torch.where(blk, sc, ninf) if select else sc + torch.where(blk, 0.0, tflash.MASK_VALUE)
+
+    if s == tflash.BLOCK:
+        sc = scores(0)
+        p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+        acc = torch.matmul((p / p.sum(dim=-1, keepdim=True)).to(torch.bfloat16).float(), vb)
+    else:
+        m = torch.full((b, h, s, 1), ninf)
+        l = torch.zeros((b, h, s, 1))
+        acc = torch.zeros((b, h, s, d))
+        for blk, lo in enumerate(range(0, s, tflash.BLOCK)):
+            sc = scores(lo)
+            m_next = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+            if select:
+                empty = m_next == ninf
+                p = torch.exp(sc - torch.where(empty, 0.0, m_next))
+                l_corr = torch.where(empty, 1.0, torch.exp(m - m_next)) * l
+            else:
+                p = torch.exp(sc - m_next)
+                l_corr = torch.exp(m - m_next) * l
+            l_next = p.sum(dim=-1, keepdim=True) + l_corr
+            inv = torch.where(l_next == 0.0, 1.0, 1.0 / l_next)
+            new = acc * (l_corr * inv) + torch.matmul(
+                p.to(torch.bfloat16).float(), vb[:, :, lo:lo + tflash.BLOCK]) * inv
+            keep = need[:, None, :, blk:blk + 1]
+            m, l = torch.where(keep, m_next, m), torch.where(keep, l_next, l)
+            acc = torch.where(keep, new, acc)
+    return acc.to(torch.bfloat16).permute(0, 2, 1, 3).reshape(b, s, h * d).float()
+
+
+def bf16_steps(got, ref):
+    """Elementwise distance between two tensors of bf16 values in bf16
+    steps (ulps) of the larger magnitude."""
+    big = torch.maximum(got.abs(), ref.abs())
+    _, exp = torch.frexp(big)
+    ulp = torch.ldexp(torch.ones_like(big), exp - 8)
+    return torch.where(big > 0, (got - ref).abs() / ulp, 0.0)
+
+
+SKIP_CASES = [(256, "prefix"), (512, "prefix"), (512, "rerank"), (384, "holes"),
+              (512, "short"), (256, "segments"), (512, "segments"), (384, "wide_ids")]
+
+
+@pytest.mark.parametrize("s,kind", SKIP_CASES)
+def test_skipped_blocks_change_the_context_by_one_bf16_step_at_most(s, kind):
+    """The kernel leaves out (64-row tile, 128-key block) pairs that share
+    no segment id: against ``flash_attention_plain`` on every row the bf16
+    context is equal but for one bf16 step at most (the rescale by
+    l * (1 / l) that a skipped block would apply, one f32 ulp), with the
+    additive mask and with the zero-weight select alike."""
+    b, h, d = 3, 2, 32
+    q, k, v = make_qkv(b, s, h, d, seed=s + 7)
+    seg = make_mask(kind, b, s, seed=s + 7)
+    if kind == "short":  # row tile 0 of each real pair attends key block 0 only
+        assert not needed_blocks(seg)[:-1, 0, 1:].any()
+    inv = 1.0 / np.sqrt(d)
+    ref = tflash.flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v, seg)), inv)
+    for select in (False, True):
+        got = skipping_flash(q, k, v, seg, inv, select=select)
+        steps = bf16_steps(got, ref)
+        assert steps.max() <= 1.0, (select, float(steps.max()))
+        assert (steps == 0).float().mean() > 0.99
+
+
+@pytest.mark.parametrize("s,kind", SKIP_CASES + [(128, "holes"), (128, "segments")])
+def test_zero_weight_select_gives_the_plain_context(s, kind):
+    """A masked key's weight as a zero select (score -inf, m = -inf until a
+    key of the row's segment appears) in place of jax's finite additive
+    mask value: with no block skipped, the context is the plain version's
+    bit for bit, pad rows and all-padding pairs included."""
+    b, h, d = 3, 2, 32
+    q, k, v = make_qkv(b, s, h, d, seed=s + 11)
+    seg = make_mask(kind, b, s, seed=s + 11)
+    inv = 1.0 / np.sqrt(d)
+    ref = tflash.flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v, seg)), inv)
+    got = skipping_flash(q, k, v, seg, inv, skip=False, select=True)
+    assert torch.equal(got, ref)
+
+
+def test_padded_head_dim_rule():
+    """The kernel is built for heads of 32, 64, 128 and 256; every other
+    width up to 128 pads to the next of them."""
+    for d in range(1, 129):
+        want = 32 if d <= 32 else 64 if d <= 64 else 128
+        assert tflash.padded_head_dim(d) == want, d
+    assert tflash.padded_head_dim(256) == 256
+    for d in (0, 129, 192, 255, 257, 384):
+        with pytest.raises(ValueError, match="head_dim"):
+            tflash.padded_head_dim(d)
+
+
+@pytest.mark.parametrize("d", [8, 24, 32, 48, 64, 80, 100, 128, 256])
+def test_kernel_inputs_pad_with_zero_columns(d):
+    """q, k and v as the kernel takes them: bf16, contiguous, the head
+    padded to ``padded_head_dim`` with zero columns after the d values."""
+    q, k, v = (torch.from_numpy(a) for a in make_qkv(2, 128, 3, d, seed=d))
+    dp = tflash.padded_head_dim(d)
+    for x, y in zip((q, k, v), tflash.kernel_inputs(q, k, v)):
+        assert y.shape == (2, 128, 3, dp) and y.dtype == torch.bfloat16 and y.is_contiguous()
+        assert torch.equal(y[..., :d], x.to(torch.bfloat16))
+        assert not y[..., d:].any()
 
 
 # -- the gate ---------------------------------------------------------------------

@@ -31,7 +31,7 @@ from financial_rag_system_tpu_torch.ops.flash_attention import (
     flash_attention_plain,
 )
 from financial_rag_system_tpu_torch.ops.topk import masked_topk, masked_topk_plain
-from torch_attn_masks import holes_mask, prefix_mask, rerank_mask
+from torch_attn_masks import holes_mask, prefix_mask, rerank_mask, segment_mask
 
 pytestmark = pytest.mark.cuda
 
@@ -648,13 +648,21 @@ def test_attention_kernel_rejects_shapes(cuda):
 
 # (p, s, h, d, mask kind): S 128 (one key block: the plain softmax), 256,
 # 384 and 512 (the online softmax over 2-4 blocks); heads of 32 (the
-# served rerank, 12 of them), 16-128 and 256, and 24 and 100, which the
-# wrapper pads to 32 and 112; each mask with an all-padding last pair
+# served rerank, 12 of them), 64, 128 and 256, and 8-100, which the wrapper
+# pads to 32, 64 or 128; each mask with an all-padding last pair.  "short"
+# pairs' real keys end inside the first key block (most (row tile, key
+# block) pairs skipped, whole row tiles of pad rows); "segments" holds ids
+# in [0, 32) in runs, "wide_ids" ids outside it (32 and up, negative), where
+# the kernel skips nothing
 FLASH_CASES = [
     (4, 128, 12, 32, "prefix"), (3, 256, 4, 32, "rerank"), (2, 512, 12, 32, "rerank"),
     (3, 384, 2, 64, "holes"), (2, 512, 2, 128, "prefix"), (2, 256, 2, 256, "prefix"),
     (3, 256, 2, 24, "prefix"), (2, 128, 3, 16, "holes"), (2, 512, 2, 48, "rerank"),
     (2, 256, 2, 100, "prefix"), (2, 512, 12, 32, "all_valid"),
+    (3, 512, 12, 32, "short"), (3, 256, 4, 64, "short"), (3, 512, 4, 32, "segments"),
+    (2, 128, 4, 32, "segments"), (3, 384, 2, 64, "wide_ids"), (2, 512, 2, 128, "wide_ids"),
+    (3, 512, 2, 128, "segments"), (2, 512, 2, 256, "rerank"), (2, 256, 3, 8, "segments"),
+    (2, 512, 2, 80, "short"),
 ]
 
 
@@ -662,6 +670,12 @@ def flash_mask(kind, p, s, seed=0):
     if kind == "prefix":
         lens = np.random.default_rng(seed).integers(1, s + 1, p)
         mask = prefix_mask(s, lens)
+    elif kind == "short":
+        mask = prefix_mask(s, np.random.default_rng(seed).integers(1, 128, p))
+    elif kind == "segments":
+        mask = segment_mask(p, s, (0, 1, 2, 5, 17, 31), seed=seed)
+    elif kind == "wide_ids":
+        mask = segment_mask(p, s, (-3, 0, 1, 32, 45, 1 << 20), seed=seed)
     elif kind == "rerank":
         mask = rerank_mask(p, s, seed=seed)
     elif kind == "holes":
@@ -717,7 +731,7 @@ def test_flash_attention_kernel_rejects_shapes(cuda):
         with pytest.raises(ValueError):
             encoder_flash_attention(x, x, x, torch.ones((1, s), device=cuda), 0.1)
     y = torch.zeros((1, 128, 2, 24), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="multiple of 16"):
+    with pytest.raises(ValueError, match="head_dim"):
         flash_attention_kernel(y, y, y, m[:, :128], 0.1)
     z = torch.zeros(1 + 128 * 2 * 32, dtype=torch.bfloat16, device=cuda)[1:].view(1, 128, 2, 32)
     with pytest.raises(ValueError, match="aligned"):

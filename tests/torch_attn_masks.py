@@ -34,3 +34,18 @@ def holes_mask(p, s, seed=0):
 def prefix_mask(s, kends):
     """One pair a kend: keys below it valid; kend 0 is a fully masked pair."""
     return (np.arange(s)[None, :] < np.asarray(kends)[:, None]).astype(np.int32)
+
+
+def segment_mask(p, s, ids, seed=0):
+    """Segment ids in runs: each pair cut at random points into runs of 1 to
+    s // 3 positions, each run one of ``ids`` (a pair may repeat an id in
+    runs apart)."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((p, s), np.int32)
+    for i in range(p):
+        pos = 0
+        while pos < s:
+            run = int(rng.integers(1, max(2, s // 3)))
+            mask[i, pos:pos + run] = rng.choice(ids)
+            pos += run
+    return mask
