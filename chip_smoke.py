@@ -156,10 +156,10 @@ thirteen phases; any failure raises and the script exits non-zero:
    256, and at heads of 64 (12) and 128 (6) at S 512, each with its
    CUDA-event and device times, the plain version's, SDPA's with the
    boolean segment-equality mask (a yardstick) and its bound and MUFU
-   floor, and the share of (pair, 64-row tile, 128-key block) pairs the
-   kernel skips on that mask (no common segment id); ``nvcc -Xptxas -v``'s
-   registers and spills of each of its kernels (none may spill at heads
-   of 32-128); (b) the flat tier through ``build_default_engine(device="cuda")``
+   floor, and the share of (pair, 64-row tile, 128-key block) pairs that
+   the skip rule leaves out on that mask (no common segment id; worked
+   out from the mask on the host); ``nvcc -Xptxas -v``'s registers and
+   spills of each of its kernels (no ``flash_kernel`` may spill); (b) the flat tier through ``build_default_engine(device="cuda")``
    under ``RAG_TPU_FLASH=1 RAG_TPU_PAIR_ATTN=0`` (3 asks, a burst of 32, a
    cache hit; kernel 7 six times a batch, kernel 2 never), its batch of 32
    against phase 3's default batch (rows and bi scores identical, logits
@@ -1720,9 +1720,9 @@ def device_ms(torch, fn, kernel: str, calls: int = 10) -> float:
     """Median device time of the launches of the kernel whose name holds
     ``kernel`` among ``calls`` calls of ``fn``: the profiler's kernel
     times, without the host's work around each launch (the CUDA-event
-    times of a short kernel are mostly that).  NaN if three profiles in a
+    times of a short kernel are mostly that).  NaN if five profiles in a
     row hold none (the profiler has been seen to drop them)."""
-    for _ in range(3):
+    for _ in range(5):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
@@ -4368,9 +4368,10 @@ def flash_bound(torch, np, mask_np, h: int, d: int) -> tuple[float, str, float]:
 
 
 def flash_skip_share(np, mask_np) -> float:
-    """The share of (pair, 64-row tile, 128-key block) pairs that kernel 7
-    skips on a mask: no query row of the tile shares a segment id with any
-    key of the block."""
+    """The share of (pair, 64-row tile, 128-key block) pairs that kernel 7's
+    skip rule leaves out on a mask: no query row of the tile shares a
+    segment id with any key of the block.  Worked out from the mask, not
+    counted in the kernel."""
     p, s = mask_np.shape
     ids = np.unique(mask_np)
     onehot = mask_np[:, :, None] == ids[None, None, :]          # (P, S, ids)
@@ -4380,28 +4381,14 @@ def flash_skip_share(np, mask_np) -> float:
     return float(1.0 - need.mean())
 
 
-def kernel_short_name(mangled: str) -> str:
-    """A kernel's name and template argument (``flash_kernel<32>``) from
-    its mangled name: the identifier ending in ``kernel`` whose length
-    prefix matches (the prefix may follow a hash's digits)."""
-    for run in re.finditer(r"\d+", mangled):
-        for i in range(run.start(), run.end()):
-            n = int(mangled[i:run.end()])
-            ident = mangled[run.end():run.end() + n]
-            if len(ident) == n and ident.endswith("kernel") and re.fullmatch(r"[A-Za-z_]\w*", ident):
-                arg = re.match(r"ILi(\d+)E", mangled[run.end() + n:])
-                return f"{ident}<{arg.group(1)}>" if arg else ident
-    return mangled
-
-
 def ptxas_kernels(text: str) -> dict:
-    """{kernel: (registers, spill store bytes, spill load bytes)} from the
-    output of ``nvcc -Xptxas -v``."""
+    """{mangled kernel name: (registers, spill store bytes, spill load
+    bytes)} from the output of ``nvcc -Xptxas -v``."""
     report, kernel = {}, None
     for line in text.splitlines():
         entry = re.search(r"Compiling entry function '([^']+)'", line)
         if entry:
-            kernel = kernel_short_name(entry.group(1))
+            kernel = entry.group(1)
             report[kernel] = [0, 0, 0]
             continue
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -4431,7 +4418,8 @@ def time_flash(torch, np, smi: str, label: str, q, k, v, mask_np, baseline=None)
     rows and all-padding pairs included) at 1e-2, then its CUDA-event
     median, its device time (profiler), the plain version's time, SDPA's
     with the boolean segment-equality mask (a yardstick; the port never
-    calls it), its bound, MUFU floor and skipped share.  With ``baseline``
+    calls it), its bound, MUFU floor and the share its skip rule leaves
+    out (from the mask).  With ``baseline``
     (an earlier build of the kernel, ``--flash-baseline``): the largest
     difference between its context and this kernel's on the same inputs,
     both timed in turns (old, new, new, old) and both device times."""
@@ -4468,7 +4456,7 @@ def time_flash(torch, np, smi: str, label: str, q, k, v, mask_np, baseline=None)
     line = (f"[flash] {smi}: {label}, P={p} S={s} H={h} d={d}: max_abs_err {err:.3g}, kernel "
             f"{ms:.4f} ms (device {dev:.4f} ms), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} "
             f"ms, bound {b_ms:.4f} ms ({b_by}), MUFU floor {mufu:.4f} ms, kernel at "
-            f"{b_ms / ms:.3f} of its bound; (tile, block) pairs skipped "
+            f"{b_ms / ms:.3f} of its bound; (tile, block) pairs skippable by the rule "
             f"{flash_skip_share(np, mask_np):.4f}")
     if baseline is not None:
         new = kernel()
@@ -4498,7 +4486,7 @@ def check_flash_kernel(torch, np, main: dict, smi: str, baseline=None) -> dict:
     (pair 0 whole, the last pair all padding); at S 128 and 256; at heads
     of 64 (12) and 128 (6) at S 512; ``baseline`` (``--flash-baseline``)
     timed beside it at each.  Then ``-Xptxas -v`` of its source: no
-    kernel of the ring may spill (heads of 32-128)."""
+    ``flash_kernel<D>`` (the ring kernel, heads of 32-128) may spill."""
     plen, s = main["lq"] + DLEN, flash_len(main)
     served = np.pad(rerank_batch_mask(torch, np, main), ((0, 0), (0, s - plen)))
     q, k, v, _ = attention_inputs(torch, np, PAIRS, s)
@@ -4512,8 +4500,8 @@ def check_flash_kernel(torch, np, main: dict, smi: str, baseline=None) -> dict:
     report = ptxas_report("flash_attention")
     log(f"[flash] ptxas -v of csrc/flash_attention.cu (registers, spill store and load bytes): "
         f"{report}")
-    spilled = {k: r for k, r in report.items() if k.startswith("flash_kernel") and (r[1] or r[2])}
-    if spilled or not any(k.startswith("flash_kernel") for k in report):
+    ring = {k: r for k, r in report.items() if "12flash_kernel" in k}
+    if not ring or any(r[1] or r[2] for r in ring.values()):
         raise AssertionError(f"[flash] the ring kernel spills, or ptxas named none: {report}")
     return {"name": "flash_attention", "route": "cuda",
             "source": f"{PACKAGE}/csrc/flash_attention.cu",

@@ -6,8 +6,8 @@
 Builds copies of ``financial_rag_system_tpu_torch/csrc/flash_attention.cu``
 with one constant changed or one part cut out, and times each beside the
 kernel as it is at the served shape (P 480, S 512, 12 heads of 32) on a
-rerank-layout mask padded from 400 to 512 (``tests/torch_attn_masks.py
-rerank_mask``) and on ``chip_smoke.py``'s uniform-length mask, in one
+rerank-layout mask padded from 400 to 512 (``rerank_layout_mask``) and
+on ``chip_smoke.py``'s uniform-length mask, in one
 process on one card.  A variant with a part cut out computes a wrong
 context: its time says what that part costs.  Variants:
 
@@ -41,10 +41,21 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(REPO))
-sys.path.insert(0, str(REPO / "tests"))
 
 SRC = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention.cu"
 OUT = REPO / "build" / "flash_attention_variants"
+
+
+def rerank_layout_mask(np, p: int, s: int, lq: int = 32, seed: int = 0):
+    """Key masks laid out as the rerank pairs are (``ops/fused_query.py
+    _assemble_pairs``): query tokens, a zero-padded hole up to ``lq``,
+    document tokens, tail padding up to ``s``."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((p, s), np.int32)
+    for i in range(p):
+        mask[i, :rng.integers(3, lq + 1)] = 1
+        mask[i, lq:lq + rng.integers(1, s - lq + 1)] = 1
+    return mask
 
 
 def patched(text: str, *pairs: tuple[str, str]) -> str:
@@ -100,7 +111,6 @@ def main() -> int:
     import chip_smoke as cs
     from financial_rag_system_tpu_torch.ops import _cuda
     from financial_rag_system_tpu_torch.ops import flash_attention as fa
-    from torch_attn_masks import rerank_mask
 
     if not torch.cuda.is_available():
         print("flash_attention_variants: needs an NVIDIA GPU", file=sys.stderr)
@@ -111,7 +121,7 @@ def main() -> int:
     q, k, v, uniform = cs.attention_inputs(torch, np, cs.PAIRS, 512)
     qb, kb, vb = fa.kernel_inputs(q, k, v)
     del q, k, v
-    rerank = np.pad(rerank_mask(cs.PAIRS, 400), ((0, 0), (0, 112)))
+    rerank = np.pad(rerank_layout_mask(np, cs.PAIRS, 400), ((0, 0), (0, 112)))
     masks = {"rerank-layout": torch.tensor(rerank, device="cuda"),
              "uniform-length": torch.tensor(uniform, device="cuda")}
     wanted = opts.only.split(",") if opts.only else list(VARIANTS)
@@ -135,7 +145,7 @@ def main() -> int:
         if proc.returncode:
             print(f"[variants] {name}: build failed\n{log}")
             return 1
-        regs = {kern: r for kern, r in cs.ptxas_kernels(log).items() if "<32>" in kern}
+        regs = {kern: r for kern, r in cs.ptxas_kernels(log).items() if "12flash_kernelILi32E" in kern}
         times = {}
         with cs.kernel_lib("flash_attention", ctypes.CDLL(str(OUT / f"{name}.so"))):
             for label, mask in masks.items():
