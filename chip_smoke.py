@@ -8,7 +8,7 @@
                           [--flash-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
 
 Drives ``financial_rag_system_tpu_torch`` end to end on the card, in
-thirteen phases; any failure raises and the script exits non-zero:
+fourteen phases; any failure raises and the script exits non-zero:
 
 0. the card: name, power limit and compute capability (Hopper, 9.0);
 1. build: every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a``
@@ -16,12 +16,14 @@ thirteen phases; any failure raises and the script exits non-zero:
 2. each kernel against its plain PyTorch version at the main path's
    shapes, with its time, the plain version's, a PyTorch library call's
    where one computes the same function, and its bound on the H100;
-   kernel 2 at the rerank shape on the table's mask (uniform lengths)
-   and on a mask with every key valid, each beside its bound (the bytes
-   and products of the keys that mask leaves) and its MUFU floor (and
-   after phase 3 on that batch's own rerank mask); kernel 2's streaming
-   kernel at heads of 64 (12) and 128 (6) at the rerank shape, and heads
-   of 24 and 40 (12), which the wrapper pads to 32 and 48; kernels 1 and 3
+   kernel 2 at the rerank shape (P 480, S 400) at 12 heads of 32 (its
+   persistent kernel), 12 of 64 and 6 of 128 (its ring kernel) on the
+   table's mask (uniform lengths) and on a mask with every key valid (and
+   after phase 3 on that batch's own rerank mask), each beside the plain
+   version, SDPA, its bound (the bytes and products of the keys that mask
+   leaves) and its MUFU floor; at 12 heads of 24, 40, 48, 80 and 112,
+   which the wrapper pads to 32, 64, 64, 128 and 128; ``nvcc -Xptxas -v``
+   of every kernel-2 instantiation (none may spill); kernels 1 and 3
    at k 33, 64, 100, 256, 1024 and 2048 (rounds of 32) in bf16 and int8,
    with times, and bit for bit on tie-heavy exact rows; kernels 1 and 3 at
    D 1536 and k 15 (one block an SM) in bf16, int8 (bit for bit) and on
@@ -151,8 +153,9 @@ thirteen phases; any failure raises and the script exits non-zero:
    Each part prints its seconds;
 12. the flash path (``RAG_TPU_FLASH``): (a) kernel 7 against its plain
    version on every row (atol 1e-2) at P 480, S 512, 12 heads of 32 on
-   phase 3's rerank mask padded to 512 (the ``kernels`` line's figures) and
-   on the uniform-length mask (its last pair all padding), at S 128 and
+   phase 3's rerank mask padded to 512 (the ``kernels`` line's figures),
+   3 heads of 256 on that mask, and 12 heads of 32 on the uniform-length
+   mask (its last pair all padding), at S 128 and
    256, and at heads of 64 (12) and 128 (6) at S 512, each with its
    CUDA-event and device times, the plain version's, SDPA's with the
    boolean segment-equality mask (a yardstick) and its bound and MUFU
@@ -169,7 +172,16 @@ thirteen phases; any failure raises and the script exits non-zero:
    none), its logits against (b)'s; (d) a graded cross-encoder step under
    both variables: kernel 7 never launches, the loss and gradients bit for
    bit those without them; (e) the staged reranker at the 128 bucket under
-   ``RAG_TPU_FLASH=1``: kernel 7 six times.  Each part prints its seconds.
+   ``RAG_TPU_FLASH=1``: kernel 7 six times.  Each part prints its seconds;
+13. a BERT-base-shaped reranker: a random-init cross-encoder of
+   google-bert/bert-base-uncased's shape (hidden 768, 12 layers, 12 heads
+   of 64, intermediate 3072) with a pooler and one logit, behind
+   ``build_default_engine(device="cuda")`` with phase 3's BGE-small and
+   index: 3 single asks, a burst of 32 and a cache hit, kernel 2's ring
+   kernel 12 times a batch and its persistent kernel never; the batch of
+   32 against the same batch under ``RAG_TPU_PAIR_ATTN=0`` (rows and bi
+   scores identical, logits within 5e-2); its wall and device time and the
+   ring kernel's share of it (profiler).
 
 The CPU references of phases 3-6 set ``RAG_TPU_FAST_GELU=1``: the card's
 default GELU is the tanh form and the CPU's exact erf, JAX's rule.
@@ -187,8 +199,12 @@ device times;
 ``--ivf-baseline`` does the same for an earlier ``ivf_probe.cu`` and
 kernel 3 on both lists (bit for bit on the real list, and on the diverse
 one in int8); ``--attn-baseline``
-builds an earlier ``pair_attention.cu`` and times it beside kernel 2 on
-the same inputs and masks, in turns, with their contexts' difference;
+builds an earlier ``pair_attention.cu`` (one with the streaming
+``pair_attention_wide`` entry) and times it beside
+kernel 2 on the same inputs and masks, in turns, with their contexts'
+difference: its ``pair_attention`` at heads of 32, its streaming
+``pair_attention_wide`` at 64 and 128, both builds launched by their C
+entries alone;
 ``--ffn-baseline`` builds an earlier ``fused_bert.cu`` and times its FFN
 kernel beside kernel 4 at both shapes the same way; ``--resid-baseline``
 the same for its o-proj kernel beside kernel 6 (a checkout whose C entry
@@ -734,14 +750,39 @@ def mufu_ms(torch, exps: float) -> float:
     return exps / (sms * 16 * mhz * 1e6) * 1e3
 
 
+def attention_launcher(torch, lib, qs, kb, vb, mask):
+    """A launch of kernel 2 from ``lib`` (this checkout's build or an
+    earlier one) on the wrapper's padded inputs, by its C entry
+    alone (no wrapper checks, no launch count), so that two builds are
+    timed alike: an earlier build's ``pair_attention_wide`` at widths
+    other than 32 where it has one, else ``pair_attention``.  Returns a
+    function that launches it and returns the (P, S, H, d) bf16 context."""
+    import ctypes
+
+    from financial_rag_system_tpu_torch.ops import _cuda
+
+    p, s, h, d = qs.shape
+    fn = lib.pair_attention_wide if d != 32 and hasattr(lib, "pair_attention_wide") \
+        else lib.pair_attention
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    out = torch.empty_like(qs)
+
+    def launch():
+        _cuda.launch(fn, "pair_attention", qs.data_ptr(), kb.data_ptr(), vb.data_ptr(),
+                     mask.data_ptr(), out.data_ptr(), p, s, h, d)
+        return out
+    return launch
+
+
 def time_attention_mask(torch, np, smi: str, label: str, q, k, v, mask_np,
                         baseline=None) -> dict:
     """Kernel 2 on one mask: against its plain version (1e-2), its time
-    beside the mask's bound and MUFU floor, and the mask's kend (1 + a
-    pair's last valid key) spread.  With ``baseline`` (an earlier build of the
-    kernel, ``--attn-baseline``): the largest difference between its
-    context and this kernel's on the same inputs, and both timed in turns
-    (old, new, new, old)."""
+    beside the plain version's, SDPA's (a yardstick with the same additive
+    bias; the port never calls it), the mask's bound and MUFU floor, and
+    the mask's kend (1 + a pair's last valid key) spread.  With
+    ``baseline`` (an earlier build of the kernel, ``--attn-baseline``): the
+    largest difference between its context and this kernel's on the same
+    inputs, and both timed in turns (old, new, new, old)."""
     from financial_rag_system_tpu_torch.ops import attention as attn
 
     p, s, h, d = q.shape
@@ -751,93 +792,93 @@ def time_attention_mask(torch, np, smi: str, label: str, q, k, v, mask_np,
     torch.cuda.synchronize()
     ref = attn.encoder_self_attention_plain(q, k, v, mask, inv)
     if not torch.isfinite(got).all():
-        raise AssertionError(f"attention, {label} mask, S={s}: non-finite output")
+        raise AssertionError(f"attention, {label} mask, S={s} d={d}: non-finite output")
     err = float((got - ref).abs().max())
+    del got, ref
     if err > 1e-2:
-        raise AssertionError(f"attention, {label} mask, S={s}: differs by {err} > 1e-2")
-    qs, kb, vb = attn.kernel_inputs(q, k, v, inv)  # heads padded to a multiple of 16
+        raise AssertionError(f"attention, {label} mask, S={s} d={d}: differs by {err} > 1e-2")
+    qs, kb, vb = attn.kernel_inputs(q, k, v, inv)  # heads padded to 32, 64 or 128
 
     def kernel():
         return attn.pair_attention_kernel(qs, kb, vb, mask)
 
     ms = median_ms(kernel, reps=20)
-    valid = mask_np > 0
-    kend = np.where(valid.any(axis=1), s - np.argmax(valid[:, ::-1], axis=1), 0)
+    plain_ms = median_ms(lambda: attn.encoder_self_attention_plain(q, k, v, mask, inv), reps=5)
+    # yardstick only: one PyTorch call for the same function (the port never calls it)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (qs, kb, vb))
+    bias = torch.where(mask[:, None, None, :] > 0, 0.0, -1e9).to(torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = median_ms(lambda: sdpa(qh, kh, vh, attn_mask=bias, scale=1.0), reps=20)
+    kend = attn.key_ends(mask).cpu().numpy()
+    blocks = attn.ring_blocks(mask).float().mean().item()
     b_ms, b_by = attention_bound(np, mask_np, h, d)
     mufu = mufu_floor_ms(torch, np, mask_np, h)
-    line = (f"[attention] {smi}: {label} mask, P={p} S={s} H={h} d={d}: max_abs_err {err:.3g}, "
-            f"kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), MUFU floor {mufu:.4f} ms; "
-            f"kend min {kend.min()} mean {kend.mean():.1f} max {kend.max()}")
+    line = (f"[attention] {smi}: {label} mask, P={p} S={s} H={h} d={d} (kernel width "
+            f"{qs.shape[-1]}): max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, sdpa {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), MUFU floor "
+            f"{mufu:.4f} ms, kernel at {b_ms / ms:.3f} of its bound; kend min {kend.min()} mean "
+            f"{kend.mean():.1f} max {kend.max()}, 128-key blocks a pair {blocks:.3f}")
     if baseline is not None:
-        new = kernel()
-        with kernel_lib("pair_attention", baseline):
-            old = kernel()
-            torch.cuda.synchronize()
-        diff = float((new.float() - old.float()).abs().max())
+        from financial_rag_system_tpu_torch.ops import _cuda
 
-        def old_ms():
-            with kernel_lib("pair_attention", baseline):
-                return median_ms(kernel, reps=20)
-
-        turns = [old_ms(), median_ms(kernel, reps=20), median_ms(kernel, reps=20), old_ms()]
-        line += (f"; baseline: context max abs diff {diff:.3g}, old, new, new, old "
-                 f"{[round(t, 4) for t in turns]} ms")
+        old_fn = attention_launcher(torch, baseline, qs, kb, vb, mask)
+        new_fn = attention_launcher(torch, _cuda.library("pair_attention"), qs, kb, vb, mask)
+        diff = float((new_fn().float() - old_fn().float()).abs().max())
+        turns = [median_ms(fn, reps=20) for fn in (old_fn, new_fn, new_fn, old_fn)]
+        line += (f"; baseline: context max abs diff {diff:.3g}, old, new, new, old (both by "
+                 f"their C entries) {[round(t, 4) for t in turns]} ms")
+    del qs, kb, vb, qh, kh, vh, bias
     log(line)
-    return {"max_abs_err": err, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
-            "mufu_ms": mufu,
-            "qs": qs, "kb": kb, "vb": vb, "mask": mask}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "mufu_ms": mufu}
 
 
 def check_attention_at(torch, np, smi: str, p: int, s: int, h: int = 12,
                        all_valid: bool = False, baseline=None, d: int = 32) -> dict:
-    """Kernel 2 at one shape on the table's mask (uniform lengths), and,
+    """Kernel 2 at one shape on the table's mask (uniform lengths) and,
     with ``all_valid``, on a mask with every key valid (nothing to skip);
-    the plain version's time, SDPA's and the bound on the table's mask."""
-    from financial_rag_system_tpu_torch.ops import attention as attn
-
+    returns the uniform mask's figures."""
     q, k, v, mask_np = attention_inputs(torch, np, p, s, h, d)
     if all_valid:
         time_attention_mask(torch, np, smi, "all-valid", q, k, v, np.ones_like(mask_np),
                             baseline)
-    res = time_attention_mask(torch, np, smi, "uniform-length", q, k, v, mask_np, baseline)
-    inv = 1.0 / d ** 0.5
-    mask = res["mask"]
-    plain_ms = median_ms(
-        lambda: attn.encoder_self_attention_plain(q, k, v, mask, inv), reps=5
-    )
-    # yardstick only: one PyTorch call for the same function (the port never calls it)
-    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (res["qs"], res["kb"], res["vb"]))
-    bias = torch.where(mask[:, None, None, :] > 0, 0.0, -1e9).to(torch.bfloat16)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = median_ms(lambda: sdpa(qh, kh, vh, attn_mask=bias, scale=1.0), reps=20)
-    log(f"[attention] {smi}: P={p} S={s} H={h} d={d}: max_abs_err {res['max_abs_err']:.3g}, "
-        f"kernel {res['ms']:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-        f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}), MUFU floor "
-        f"{res['mufu_ms']:.4f} ms")
-    return {key: res[key] for key in ("max_abs_err", "ms", "bound_ms", "bound_by")} | {
-        "plain_ms": plain_ms, "library_ms": library_ms}
+    return time_attention_mask(torch, np, smi, "uniform-length", q, k, v, mask_np, baseline)
 
 
-def check_attention(torch, np, smi: str, baseline=None) -> dict:
-    rerank = check_attention_at(torch, np, smi, PAIRS, 400, all_valid=True, baseline=baseline)
-    # the query embed's shape: the main paths take the einsum path there
-    # (S < 256), RAG_TPU_PAIR_ATTN=1 sends it to the kernel
+# kernel 2's widths at the rerank shape: (heads, head width), the served
+# rerank (12 of 32), BERT-base (12 of 64) and 6 heads of 128
+ATTN_WIDTHS = ((12, 32), (12, 64), (6, 128))
+# widths the wrapper pads: to 32 (24), 64 (40, 48) and 128 (80, 112)
+ATTN_PADDED = (24, 40, 48, 80, 112)
+
+
+def check_attention(torch, np, smi: str, baseline=None) -> list:
+    """Phase 2's kernel 2: each of ``ATTN_WIDTHS`` at the rerank shape (P
+    480, S 400) on the uniform and the all-valid mask; the query embed's
+    shape (P 32, S 32, heads of 32: the main paths take the einsum path
+    there, RAG_TPU_PAIR_ATTN=1 sends it to the kernel); 12 heads of each
+    of ``ATTN_PADDED``; then ``nvcc -Xptxas -v`` of the source, where no
+    instantiation may spill.  Returns the ``kernels`` line's entries: the
+    persistent kernel at 12 heads of 32, the ring kernel at 12 of 64."""
+    res = {d: check_attention_at(torch, np, smi, PAIRS, 400, h=h, d=d, all_valid=True,
+                                 baseline=baseline)
+           for h, d in ATTN_WIDTHS}
     check_attention_at(torch, np, smi, B, 32)
-    # wider heads, the streaming kernel: a 768-wide BERT-base cross-encoder
-    # (12 heads of 64) and 6 heads of 128 at the rerank shape; off the main
-    # paths, whose models have heads of 32
-    for h, d in ((12, 64), (6, 128)):
-        check_attention_at(torch, np, smi, PAIRS, 400, h=h, d=d)
-    # heads that are not a multiple of 16, zero-padded to 32 (the
-    # persistent kernel) and 48 (the streaming one) by the wrapper
-    for d in (24, 40):
-        check_attention_at(torch, np, smi, PAIRS, 400, h=12, d=d)
-    return {
-        "name": "pair_attention", "route": "cuda",
-        "source": f"{PACKAGE}/csrc/pair_attention.cu",
-        "replaces": "financial_rag_system_tpu/ops/attention.py:48",
-        **rerank,
-    }
+    for d in ATTN_PADDED:
+        check_attention_at(torch, np, smi, PAIRS, 400, h=12, d=d, baseline=baseline)
+    report = ptxas_report("pair_attention")
+    log(f"[attention] ptxas -v of csrc/pair_attention.cu (registers, spill store and load "
+        f"bytes): {report}")
+    ring = [k for k in report if "ring_kernel" in k]
+    if (len(ring) != 2 or not any("pair_attention_kernel" in k for k in report)
+            or any(r[1] or r[2] for r in report.values())):
+        raise AssertionError(f"[attention] a kernel-2 instantiation spills, or ptxas named "
+                             f"other kernels: {report}")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    entry = {"route": "cuda", "source": f"{PACKAGE}/csrc/pair_attention.cu",
+             "replaces": "financial_rag_system_tpu/ops/attention.py:48"}
+    return [{"name": "pair_attention", **entry, **{key: res[32][key] for key in keys}},
+            {"name": "pair_attention_ring", **entry, **{key: res[64][key] for key in keys}}]
 
 
 def rerank_batch_mask(torch, np, main: dict):
@@ -867,11 +908,13 @@ def rerank_batch_mask(torch, np, main: dict):
 
 def check_attention_batch_mask(torch, np, main: dict, smi: str, baseline=None) -> None:
     """Kernel 2 on the phase-3 batch's own rerank mask (the query-side
-    hole, the documents' lengths), with random q, k and v."""
+    hole, the documents' lengths), with random q, k and v, at each of
+    ``ATTN_WIDTHS``."""
     mask_np = rerank_batch_mask(torch, np, main)
     p, s = mask_np.shape
-    q, k, v, _ = attention_inputs(torch, np, p, s)
-    time_attention_mask(torch, np, smi, "phase-3 rerank", q, k, v, mask_np, baseline)
+    for h, d in ATTN_WIDTHS:
+        q, k, v, _ = attention_inputs(torch, np, p, s, h, d)
+        time_attention_mask(torch, np, smi, "phase-3 rerank", q, k, v, mask_np, baseline)
 
 
 # -- phase 3: the main path -----------------------------------------------------
@@ -937,6 +980,7 @@ def kernel_counters() -> dict:
     return {"masked_topk": (masked_topk, "launches"),
             "masked_topk_int8": (masked_topk, "launches_int8"),
             "pair_attention": (encoder_self_attention, "launches"),
+            "pair_attention_ring": (encoder_self_attention, "launches_ring"),
             "flash_attention": (encoder_flash_attention, "launches"),
             "ivf_probe": (ivf_probe, "launches"),
             "ivf_probe_int8": (ivf_probe, "launches_int8"),
@@ -969,7 +1013,8 @@ CPU_TANH = {"RAG_TPU_FAST_GELU": "1"}
 
 def drive_main_path(torch, np, work: Path, smi: str, label: str = "main",
                     index: str = "index", rounds: int = 2, mesh=None,
-                    attention: str = "pair_attention") -> dict:
+                    attention: str = "pair_attention", reranker: str = "reranker",
+                    rerank_layers: int = 6) -> dict:
     """The flat tier through ``build_default_engine(device="cuda")`` over
     the index saved in ``work / index``: 3 single asks, ``rounds`` bursts
     of 32 and a cache hit.  ``label`` tags the log lines and, past the
@@ -981,7 +1026,9 @@ def drive_main_path(torch, np, work: Path, smi: str, label: str = "main",
     ``mesh`` (a device list) the engine shards the corpus over it: kernel
     1 launches once a shard and kernel 2 once a shard's rerank chunk a
     layer.  ``attention`` names the kernel that the rerank layers launch
-    (``flash_attention`` under phase 12's ``FLASH_ENV``)."""
+    (``flash_attention`` under phase 12's ``FLASH_ENV``,
+    ``pair_attention_ring`` for phase 13's heads of 64); ``reranker`` the
+    checkpoint in ``work``, of ``rerank_layers`` layers."""
     from financial_rag_system_tpu_torch.models import bert
     from financial_rag_system_tpu_torch.models.tokenizer import pad_batch
     from financial_rag_system_tpu_torch.obs.tracing import get_tracer
@@ -990,7 +1037,7 @@ def drive_main_path(torch, np, work: Path, smi: str, label: str = "main",
 
     os.environ.update({
         "RAG_TPU_BGE_DIR": str(work / "bge"),
-        "RAG_TPU_RERANKER_DIR": str(work / "reranker"),
+        "RAG_TPU_RERANKER_DIR": str(work / reranker),
         "INDEX_DIR": str(work / index),
         "TESTING": "true",
         "DATABASE_URL": str(work / "cache.db"),
@@ -1054,11 +1101,12 @@ def drive_main_path(torch, np, work: Path, smi: str, label: str = "main",
     if [n for n, _ in batches] != [1, 1, 1] + [B] * rounds:
         raise AssertionError(f"batch sizes {[n for n, _ in batches]} != [1, 1, 1] + "
                              f"[{B}] * {rounds}")
-    # per fused batch: one top-k, attention once a rerank layer (6), and
-    # the fused-block kernels once a layer (12 embed + 6 rerank) under
-    # their opt-in
+    # per fused batch: one top-k, attention once a rerank layer, and the
+    # fused-block kernels once a layer (12 embed + 6 rerank) under their
+    # opt-in
     topk = "masked_topk_int8" if engine.index.quantized else "masked_topk"
-    want = want_launches(**{topk: shards * n_batches, attention: 6 * shards * n_batches},
+    want = want_launches(**{topk: shards * n_batches,
+                            attention: rerank_layers * shards * n_batches},
                          **dict.fromkeys(FUSED_BLOCK_KERNELS, 18 * n_batches if fused_block else 0))
     if launches != want:
         raise AssertionError(f"[{label}] launches {launches}, want {want}")
@@ -1104,9 +1152,11 @@ def profile_batch(torch, main: dict, smi: str, label: str = "fused_two_stage") -
         rerank_cfg=engine.reranker.cfg, k=K), label, smi)
 
 
-def profile_run(torch, fn, label: str, smi: str):
+def profile_run(torch, fn, label: str, smi: str, stats: dict | None = None):
     """Wall time and device time by kernel (torch.profiler) of one call of
-    ``fn`` after a warm-up; returns its output."""
+    ``fn`` after a warm-up; returns its output.  ``stats``, where given,
+    receives the wall and device milliseconds and the (device ms, count,
+    kernel) rows."""
     from torch.profiler import ProfilerActivity, profile
 
     def run():
@@ -1130,6 +1180,8 @@ def profile_run(torch, fn, label: str, smi: str):
             rows.append((dev_us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
+    if stats is not None:
+        stats.update(wall_ms=wall, device_ms=total, rows=rows)
     log(f"[profile] {smi}: {label} on {B} queries: wall {wall:.2f} ms, device "
         f"{total:.2f} ms in {len(rows)} kernels")
     for ms, count, key in rows[:15]:
@@ -4482,9 +4534,10 @@ def time_flash(torch, np, smi: str, label: str, q, k, v, mask_np, baseline=None)
 def check_flash_kernel(torch, np, main: dict, smi: str, baseline=None) -> dict:
     """(a) kernel 7 against its plain version and timed: at the served
     shape (P 480, S 512, 12 heads of 32) on phase 3's rerank mask padded
-    to 512 (the kernels line's numbers) and on the uniform-length mask
-    (pair 0 whole, the last pair all padding); at S 128 and 256; at heads
-    of 64 (12) and 128 (6) at S 512; ``baseline`` (``--flash-baseline``)
+    to 512 (the kernels line's numbers), and on that mask at 3 heads of
+    256 (``flash_wide_kernel``); on the uniform-length mask (pair 0 whole,
+    the last pair all padding) at S 512; at S 128 and 256; at heads of 64
+    (12) and 128 (6) at S 512; ``baseline`` (``--flash-baseline``)
     timed beside it at each.  Then ``-Xptxas -v`` of its source: no
     ``flash_kernel<D>`` (the ring kernel, heads of 32-128) may spill."""
     plen, s = main["lq"] + DLEN, flash_len(main)
@@ -4492,6 +4545,10 @@ def check_flash_kernel(torch, np, main: dict, smi: str, baseline=None) -> dict:
     q, k, v, _ = attention_inputs(torch, np, PAIRS, s)
     res = time_flash(torch, np, smi, f"phase-3 rerank mask padded to {s}", q, k, v, served,
                      baseline)
+    # D 256 (flash_wide_kernel, the first, simple design) on the served
+    # mask, 3 heads
+    q, k, v, _ = attention_inputs(torch, np, PAIRS, s, 3, 256)
+    time_flash(torch, np, smi, f"phase-3 rerank mask padded to {s}", q, k, v, served, baseline)
     for s, h, d in ((FLASH_SEQ, 12, 32), (128, 12, 32), (256, 12, 32), (FLASH_SEQ, 12, 64),
                     (FLASH_SEQ, 6, 128)):
         q, k, v, mask_np = attention_inputs(torch, np, PAIRS, s, h, d)
@@ -4679,6 +4736,83 @@ def drive_phase_12(torch, np, work: Path, main: dict, cpu_models, smi: str,
     return runs["b"]
 
 
+# -- phase 13: a BERT-base-shaped reranker (kernel 2's ring kernel) -------------------
+
+# google-bert/bert-base-uncased's config.json (hidden 768, 12 layers, 12
+# heads of 64, intermediate 3072, vocab 30522, 512 positions), with a
+# pooler and a one-logit classifier: the shape of the BERT-base MS MARCO
+# cross-encoders.  Random weights from a seed; nothing is downloaded.
+BERT_BASE_SHAPE = dict(vocab_size=30522, hidden=768, layers=12, heads=12, intermediate=3072,
+                       max_positions=512, with_pooler=True, num_labels=1)
+BERT_BASE_DIR = "reranker_bert_base"
+
+
+def write_bert_base(torch, work: Path) -> None:
+    from financial_rag_system_tpu_torch.models import bert
+    from financial_rag_system_tpu_torch.models.hf_export import save_bert_checkpoint
+
+    cfg = bert.BertConfig(**BERT_BASE_SHAPE)
+    model = bert.BertModel(cfg, device="cpu")
+    bert.load_jax_params(model, bert.init_params(torch.Generator().manual_seed(2), cfg))
+    save_bert_checkpoint(model, cfg, str(work / BERT_BASE_DIR), cross_encoder=True)
+
+
+def drive_phase_13(torch, np, work: Path, smi: str) -> dict:
+    """Phase 13: ``build_default_engine(device="cuda")`` with phase 3's
+    BGE-small and index and a BERT-base-shaped reranker (12 layers, 12
+    heads of 64): 3 single asks, a burst of 32 and a cache hit, kernel 2's
+    ring kernel 12 times a batch (once a rerank layer) and its persistent
+    kernel never; then the batch of 32 against the same batch under
+    ``RAG_TPU_PAIR_ATTN=0`` (the einsum attention) on the card: rows and
+    bi scores identical, logits within ``compare_batches``' 5e-2; the
+    batch's wall and device milliseconds and the ring kernel's share of
+    its device time (profiler)."""
+    from financial_rag_system_tpu_torch.ops.fused_query import fused_two_stage
+
+    t0 = time.perf_counter()
+    write_bert_base(torch, work)
+    log(f"[bert-base] {smi}: the BERT-base-shaped reranker {BERT_BASE_SHAPE} written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    run = drive_main_path(torch, np, work, smi, label="bert-base", reranker=BERT_BASE_DIR,
+                          rounds=1, attention="pair_attention_ring", rerank_layers=12)
+    engine = run["engine"]
+    card = (engine.embedder, engine.reranker)
+
+    def batch():
+        before = read_launches()
+        out = flat_batch(torch, engine, run["burst"], "cuda", engine.index, card)
+        after = read_launches()
+        return out, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+    got, launched = batch()
+    if launched != {"masked_topk": 1, "pair_attention_ring": 12}:
+        raise AssertionError(f"[bert-base] the batch launched {launched}")
+    with env_set(RAG_TPU_PAIR_ATTN="0"):
+        ref, launched_ref = batch()
+    if launched_ref != {"masked_topk": 1}:
+        raise AssertionError(f"[bert-base] the einsum batch launched {launched_ref}")
+    if not (np.array_equal(got[0], ref[0]) and np.array_equal(got[1], ref[1])):
+        raise AssertionError("[bert-base] rows or bi scores differ from the einsum batch's")
+    compare_batches(np, "[bert-base] card, ring kernel vs RAG_TPU_PAIR_ATTN=0 (einsum)", got, ref)
+    log(f"[bert-base] {smi}: the einsum batch's logits span [{float(ref[2].min()):.4g}, "
+        f"{float(ref[2].max()):.4g}] (std {float(ref[2].std()):.4g}) at random init")
+    emb, codes, dtok = engine.index._arrays
+    args = fused_inputs(torch, engine, run["burst"], "cuda")
+    stats = {}
+    profile_run(torch, lambda: fused_two_stage(
+        engine.embedder.model, engine.reranker.model, *args, emb, codes, dtok, N,
+        rerank_cfg=engine.reranker.cfg, k=K), "fused_two_stage, BERT-base reranker", smi, stats)
+    ring = [(ms, n) for ms, n, key in stats["rows"] if "ring_kernel" in key]
+    ring_ms = sum(ms for ms, _ in ring)
+    share = (f"{ring_ms / stats['device_ms']:.4f}" if stats["device_ms"] > 0
+             else "not measured (the profiler returned no kernels)")
+    log(f"[bert-base] {smi}: the batch of {B}: wall {stats['wall_ms']:.2f} ms, device "
+        f"{stats['device_ms']:.2f} ms; kernel 2 (ring kernel, {sum(n for _, n in ring)} "
+        f"launches in the profile) {ring_ms:.3f} ms, {share} of the device time")
+    del run["engine"]
+    return run
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -4694,8 +4828,9 @@ def main() -> int:
     )
     parser.add_argument(
         "--attn-baseline", type=Path, default=None, metavar="CSRC",
-        help="csrc/ directory of an earlier checkout: time its pair_attention.cu "
-             "beside kernel 2 on the same inputs, and log their contexts' difference",
+        help="csrc/ directory of an earlier checkout with pair_attention_wide: time its "
+             "pair_attention.cu (pair_attention at heads of 32, pair_attention_wide at 64 "
+             "and 128) beside kernel 2 on the same inputs, and log their contexts' difference",
     )
     parser.add_argument(
         "--ffn-baseline", type=Path, default=None, metavar="CSRC",
@@ -4744,7 +4879,7 @@ def main() -> int:
     flash_baseline = (baseline_lib("flash_attention", opts.flash_baseline)
                       if opts.flash_baseline else None)
     kernels = [check_topk(torch, np, smi, opts.topk_baseline),
-               check_attention(torch, np, smi, attn_baseline)]
+               *check_attention(torch, np, smi, attn_baseline)]
     check_large_k(torch, np, smi)
     check_wide_rows(torch, np, smi)
     log(f"[kernels] phase 2 took {time.perf_counter() - t0:.1f} s")
@@ -4829,11 +4964,14 @@ def main() -> int:
         flash_run = drive_phase_12(torch, np, work, main_run, cpu_models, smi, kernels,
                                    flash_baseline)
         log(f"[flash] phase 12 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        base_run = drive_phase_13(torch, np, work, smi)
+        log(f"[bert-base] phase 13 took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # launches over the main paths, each counted from 0 around its run
     runs = (main_run, ivf_run, block_run, int8_run, ivf8_run, *hash_runs, hnsw_run, hnsw8_run,
-            train_run, *sharded_runs, *phase11_runs, flash_run)
+            train_run, *sharded_runs, *phase11_runs, flash_run, base_run)
     for kern in kernels:
         name = kern["name"]
         kern["launches"] = sum(run["launches"][name] for run in runs)

@@ -1,23 +1,30 @@
 // Pair self-attention for short-sequence BERT encoders, built for Hopper
-// (sm_90a): a persistent TMA/wgmma kernel for 32-wide heads
-// (pair_attention), and a streaming kernel templated on the head width for
-// every other multiple of 16 up to 128 (pair_attention_wide, at the end of
-// this file).
+// (sm_90a): a persistent TMA/wgmma kernel for heads of 32 (the persistent
+// kernel, pair_attention_kernel), and a persistent ring kernel for heads of
+// 64 and 128 (ring::ring_kernel<D>, after it).  The wrapper
+// (ops/attention.py) zero-pads every other head width up to 128 to the
+// next of the three, which is exact: zero columns add nothing to QK^T and
+// the padded context columns are dropped.
 //
 // Replaces financial_rag_system_tpu/ops/attention.py:48 _attn_kernel (the
 // Pallas kernel behind encoder_self_attention) and computes what it
 // computes: q arrives pre-scaled by 1/sqrt(d) in f32 and rounded to bf16;
 // logits are bf16 x bf16 products summed in f32 plus an additive -1e9
-// key-padding bias (keys in the pad past S get -inf); the softmax is a
-// plain full-row f32 max/exp/sum (S <= 512, so no online rescaling: the
-// row max is found first); the probs are rounded to bf16 for P.V,
-// accumulated in f32, the f32 sum is taken over the unrounded probs, and
-// the 1/sum divide is applied after P.V.  The context is stored as bf16.
-// A fully masked pair stays finite, with a uniform softmax over its S keys.
-// Two liberties, both inside the kernel-vs-plain tolerance: f32 sums are
-// taken in another order, and exp runs on ex2.approx (below).
+// key-padding bias (keys in the pad past S get -inf); the softmax is f32;
+// the probs are rounded to bf16 for P.V, accumulated in f32, the f32 sum
+// is taken over the unrounded probs, and the 1/sum divide is applied after
+// P.V.  The context is stored as bf16.  A fully masked pair stays finite,
+// with a uniform softmax over its S keys.  No key past a pair's last valid
+// key (kend) is loaded or computed: it would add exactly 0 (below).
+// Liberties, all inside the kernel-vs-plain tolerance (atol 1e-2): f32
+// sums are taken in another order; exp runs on ex2.approx; and the ring
+// kernel's softmax is online (below): its probs are exp(s - m) of the
+// running row max m, rounded to bf16 at that scale, and the context and
+// sum are rescaled by exp(m_old - m_new) when a block raises the max,
+// where the Pallas kernel and the plain version take the full row's max
+// first.  The persistent kernel finds the row max in a first sweep.
 //
-// The rest of this comment, down to the layout, is the 32-wide kernel.
+// The persistent kernel (heads of 32).
 // Floors on the H100 at the rerank shape (P 480 pairs x S 400 tokens, H 12
 // heads of d 32), with every key valid:
 //  - bytes: q, k, v in and the context out, 590 MB of bf16, 0.176 ms at
@@ -82,6 +89,55 @@
 //
 // Layout: q, k, v and out are (P, S, H, d) bf16, contiguous, 16-byte
 // aligned; mask is (P, S) int32 key validity.
+//
+// The ring kernel (heads of 64 and 128).  An item's K and V up to kend no
+// longer fit beside the q tiles at these widths (at d 128 and kend 400 they
+// take 229 KB in 64-key chunks, more than a block's 227 KB; at d 64, 115 KB,
+// which leaves no second stage), so they stream through a ring, as kernel 7
+// (flash_attention.cu) does.  Floors on the H100 at the rerank shape (P 480
+// pairs x S 400 tokens, 12 heads of 64 or 6 of 128), every key valid: bytes
+// 1.18 GB of q, k, v and context, 0.35 ms at 3.35 TB/s; tensor cores 2 x 2
+// P H S^2 d = 2.4e11 FLOP, 0.24 ms; exponentials P H S^2, 0.22-0.25 ms (12
+// heads) of MUFU.EX2.  Design:
+//  - a persistent grid of one block an SM walks the P * H (pair, head)
+//    items, item blockIdx.x + i * gridDim.x;
+//  - a producer warp (of a warpgroup whose other warps exit) reads each
+//    pair's mask, finds kend, and for each unit of the item's 64-row tiles
+//    (one a consumer warpgroup) stages every 128-key block below kend (all
+//    S keys when kend is 0) into a ring behind full and empty mbarriers:
+//    K and V by TMA from 3-D (P, S, H * d) tensor maps (boxes of 128 keys x
+//    64 values, 128-byte swizzle; keys past S arrive as zeros), the block's
+//    bias row (0, -1e9, -inf past S), a flag for a block whose keys are all
+//    valid and one for the item's last block;
+//  - consumer warpgroups (three at d 64, two at d 128) take the unit's
+//    tiles, one each, and walk its stages in lockstep; a warpgroup with no
+//    tile in a unit passes through its stages; each loads its next tile's
+//    q by TMA into one of two buffers, a tile ahead;
+//  - QK^T on wgmma m64n128k16 with q and the K block both K-major in
+//    shared memory as TMA swizzles them, waited for at once;
+//  - one sweep, an online softmax a block: the block's row max (four
+//    chains a row, a quad shuffle), alpha = ex2((m_old - m_new) log2e), the
+//    probs as one FFMA and one MUFU.EX2 each on a wholly valid block
+//    (ex2(s log2e - m log2e)) and as ex2((s + bias - m) log2e) on any other
+//    block (exact in the bias: a pair with no valid key gets ex2(0) = 1 for
+//    every key below S, its uniform softmax), the thread's share of the sum
+//    rescaled by alpha and added to, the context rescaled by alpha; the
+//    quad's sums are added once, at the end.  A key past kend, or masked,
+//    in a block where the row has a valid key gets ex2 of about -1.4e9: 0.
+//    A block before the first valid key is wiped by alpha = 0 at the block
+//    that holds it, as the plain version's exp(-1e9 - m) = 0;
+//  - P.V on wgmma m64n64k16 (d 64) or m64n128k16 (d 128), a 16-key step
+//    each, committed together: P's A fragments from registers, the QK^T
+//    accumulator rounded to bf16 (its layout is the A fragment's), V read
+//    MN-major from the swizzled stage (transposed B), the context itself
+//    the accumulator.  On the H100 it ran 4-8% faster at d 64 and 10-15%
+//    at d 128 than mma.sync m16n8k16 from the same registers with V's
+//    fragments by ldmatrix.trans (tools/pair_attention_variants.py
+//    ring_pv_mma);
+//  - registers by setmaxnreg: a consumer thread 152 at d 64, 232 at d
+//    128, the producer warpgroup 40, within the launch's pool (regs_fit);
+//    shared memory: 5 stages at d 64, 2 at d 128 (ring_stages;
+//    ops/attention.py ring_plan mirrors both).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -308,7 +364,11 @@ __device__ __forceinline__ void attend_tile(const unsigned char* qs, const Tile&
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+// (no blocks-an-SM minimum in the bounds: with it ptxas held the kernel to
+// 96 registers with 8 bytes of spills, without it to 96 with none and the
+// kernel ran 2-3% faster on the H100; tools/pair_attention_variants.py
+// persist_min_blocks)
+__global__ void __launch_bounds__(kThreads)
 pair_attention_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap, const int32_t* __restrict__ mask,
@@ -444,16 +504,9 @@ bool kv_map(CUtensorMap* map, const void* ptr, int P, int S, int H) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-}  // namespace
-
-// Returns a cudaError_t: 1 (cudaErrorInvalidValue) for shapes the kernel
-// does not take, else the launch's own status.
-extern "C" int pair_attention(const void* q, const void* k, const void* v,
-                              const void* mask, void* out, int P, int S, int H,
-                              int head_dim, void* stream) {
-  if (head_dim != kD || S < 1 || S > kMaxS || P < 1 || H < 1 || (long long)P * H > INT32_MAX ||
-      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
+// the 32-wide kernel's launch; shapes checked by the C entry
+int launch_persistent(const void* q, const void* k, const void* v, const void* mask, void* out,
+                      int P, int S, int H, void* stream) {
   CUtensorMap qmap, kmap, vmap;
   if (!kv_map(&qmap, q, P, S, H) || !kv_map(&kmap, k, P, S, H) || !kv_map(&vmap, v, P, S, H))
     return (int)cudaErrorInvalidValue;
@@ -480,251 +533,440 @@ extern "C" int pair_attention(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// Heads of 16 to 128 values (a multiple of 16, 32 excepted): the streaming
-// kernel.
-//
-// A whole (pair, head)'s K and V stop fitting in shared memory beside the
-// q tiles at these widths (at d 128 and S 512 they are 256 KB, above the
-// 227 KB a block may take), so this kernel streams them in 64-key chunks
-// and keeps the two sweeps of the 32-wide kernel: the row max first, then
-// the probs exp(s - m_final), rounded to bf16 for P.V, with their
-// unrounded sum.  So the probs are the Pallas kernel's and the plain
-// version's, with no online rescaling.
-//
-// One block of four warps takes one 64-row tile of one (pair, head), each
-// warp 16 rows; the grid is every (pair, head, row tile).  Each warp holds
-// its q rows as mma.sync A fragments, loaded once from device memory.  Per
-// sweep, for each 64-key chunk below the pair's last valid key (kend; all
-// S keys when it has none): the block stages the chunk's K (and in sweep
-// 2 its V) in shared memory with 16-byte loads, rows padded by 16 bytes
-// so that ldmatrix reads them without bank conflicts; QK^T runs on
-// mma.sync m16n8k16 with K's B fragments by ldmatrix, P.V on mma.sync
-// with P straight from the QK^T accumulator and V's by ldmatrix.trans.
-// Keys past kend are skipped exactly as in the 32-wide kernel.
-//
-// Bound, at the rerank shape with 64-wide heads (P 480, S 400, 12 heads):
-// q, k, v in and the context out are 1.18 GB of bf16 (0.35 ms at 3.35
-// TB/s); the products 3 x 2 P H S^2 d = 3.5e11 FLOP (0.36 ms at 989
-// TFLOP/s); the exponentials P H S^2 = 9.2e8 (0.22-0.25 ms of MUFU).  This
-// kernel is simple, not fast: K and V are read once per row tile (from
-// L2), each chunk's loads are waited for before its products, and no
-// product overlaps a load.
+// The ring kernel: heads of 64 and 128 values (the wrapper zero-pads 33-63
+// to 64 and 65-127 to 128).  See the file header.
 
-namespace {
+namespace ring {
 
-constexpr int kWideWarps = 4;  // warps a block, 16 query rows each
-constexpr int kWideRows = 16 * kWideWarps;
-constexpr int kWideThreads = 32 * kWideWarps;
+constexpr int kKeys = 128;  // keys of a stage: QK^T's wgmma N and a TMA box
+constexpr int kMaxStages = 8;
+constexpr size_t kSmemLimit = 232448;
 
+// D 64 and 128 serve; D 32 is built only by tools/pair_attention_variants.py
+// (ring_d32), which times it against the persistent kernel
 template <int D>
-struct Wide {
-  static constexpr int kStride = D * 2 + 16;  // bytes of a staged key row
-  static constexpr int kNt = D / 8;           // 8-wide column tiles of the context
-  static constexpr size_t kSmem = 2 * (size_t)kChunk * kStride + kChunk * sizeof(float);
-  static_assert(kSmem <= 48 * 1024, "static launch limit of dynamic shared memory");
+struct Cfg {
+  // consumer warpgroups: three at d 64 ran 8-10% faster than two on the
+  // H100 (tools/pair_attention_variants.py ring_wg2); at d 128 three leave
+  // too few registers for the 64 f32 of context beside the 64 of scores
+  static constexpr int kWg = D == 128 ? 2 : 3;
+  static constexpr int kThreads = 128 * (kWg + 1);  // and a producer warpgroup
+  // registers a thread after setmaxnreg, within the launch's pool
+  static constexpr int kProducerRegs = 40;
+  static constexpr int kConsumerRegs = D == 128 ? 232 : 152;
+  static constexpr int kCw = D == 32 ? 32 : 64;  // values in a swizzled row of a column chunk
+  static constexpr int kRowB = 2 * kCw;          // its bytes, the swizzle: 64 or 128
+  static constexpr int kChunks = D / kCw;
+  static constexpr int kQChunk = kRows * kRowB;  // bytes of a column chunk of a q tile
+  static constexpr int kKChunk = kKeys * kRowB;  // of a K or V block
+  static constexpr int kQBytes = kChunks * kQChunk;
+  static constexpr int kKvBytes = kChunks * kKChunk;  // one of K, V in a stage
 };
 
-// chunk c's rows of K (and V, when vs is given) into shared memory, zeros
-// past S, and its bias slots: 0 for a valid key, -1e9 for a masked one
+// setmaxnreg moves registers within the pool a block is given at launch:
+// its threads times the count __launch_bounds__ leaves each (65,536 over
+// the threads, in steps of 8).  A budget past the pool never returns.
 template <int D>
-__device__ __forceinline__ void stage_chunk(unsigned char* ks, unsigned char* vs, float* bias,
-                                            const __nv_bfloat16* __restrict__ k,
-                                            const __nv_bfloat16* __restrict__ v,
-                                            const int32_t* __restrict__ mrow, size_t base,
-                                            size_t tok, int S, int c) {
-  constexpr int kGran = D / 8;  // 16-byte granules a row
-  for (int x = threadIdx.x; x < kChunk * kGran; x += kWideThreads) {
-    const int r = x / kGran, gi = x - r * kGran, key = c * kChunk + r;
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-    if (key < S) {
-      kv = *reinterpret_cast<const uint4*>(k + base + (size_t)key * tok + gi * 8);
-      if (vs != nullptr) vv = *reinterpret_cast<const uint4*>(v + base + (size_t)key * tok + gi * 8);
-    }
-    *reinterpret_cast<uint4*>(ks + r * Wide<D>::kStride + gi * 16) = kv;
-    if (vs != nullptr) *reinterpret_cast<uint4*>(vs + r * Wide<D>::kStride + gi * 16) = vv;
-  }
-  if (threadIdx.x < kChunk) {
-    const int key = c * kChunk + threadIdx.x;
-    bias[threadIdx.x] = key < S && mrow[key] > 0 ? 0.0f : kNeg;
-  }
+constexpr bool regs_fit() {
+  using C = Cfg<D>;
+  return 128 * (C::kProducerRegs + C::kWg * C::kConsumerRegs) <=
+         C::kThreads * (65536 / C::kThreads / 8 * 8);
+}
+static_assert(regs_fit<32>() && regs_fit<64>() && regs_fit<128>(),
+              "the register budgets exceed the block's pool");
+
+struct StageHead {
+  int full;           // every key of the block is valid and below S: no bias
+  int last;           // the item's last block below kend
+  float bias[kKeys];  // 0 for a valid key, -1e9 for a masked one, -inf past S
+};
+
+// 1 KB to align the stages to the swizzle's atoms; per stage K, V, its
+// head and its full and empty barriers; two q tiles and their barriers a
+// consumer warpgroup (ops/attention.py ring_plan mirrors this)
+template <int D>
+constexpr size_t smem_bytes(int stages) {
+  using C = Cfg<D>;
+  return 1024 + stages * (2 * (size_t)C::kKvBytes + sizeof(StageHead) + 2 * sizeof(uint64_t)) +
+         C::kWg * 2 * ((size_t)C::kQBytes + sizeof(uint64_t));
 }
 
-// acc[j] (keys 8j .. 8j + 7 of the chunk) = the warp's 16 q rows times the
-// staged chunk's keys: row g, keys 2t, 2t + 1 in acc[j][0..1], row g + 8
-// in acc[j][2..3]
+// as many stages as fit, up to kMaxStages: 5 at D 64, 2 at D 128
 template <int D>
-__device__ __forceinline__ void wide_qk(float (&acc)[kChunk / 8][4], const uint32_t (&qa)[D / 16][4],
-                                        const unsigned char* ks, int lane) {
-#pragma unroll
-  for (int j = 0; j < kChunk / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  // ldmatrix x2: lanes 0-7 address keys 8j.. at the step's first 8 values,
-  // lanes 8-15 at its second 8 (lanes 16-31 repeat them)
-  const unsigned char* row = ks + (lane & 7) * Wide<D>::kStride + ((lane >> 3) & 1) * 16;
-#pragma unroll
-  for (int j = 0; j < kChunk / 8; ++j) {
-#pragma unroll
-    for (int ks16 = 0; ks16 < D / 16; ++ks16) {
-      uint32_t b0, b1;
-      asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-                   : "=r"(b0), "=r"(b1)
-                   : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(
-                         row + 8 * j * Wide<D>::kStride + ks16 * 32))));
-      mma_bf16(acc[j], qa[ks16], b0, b1);
-    }
-  }
+constexpr int ring_stages() {
+  int n = kMaxStages;
+  while (n > 2 && smem_bytes<D>(n) > kSmemLimit) --n;
+  return n;
 }
 
+template <int RowB>
+__device__ __forceinline__ uint64_t desc(const void* p) {
+  if constexpr (RowB == 64) return wgmma_desc_sw64(p);
+  else return wgmma_desc_sw128(p);
+}
+
+// s = q K^T for one block (64 rows x kKeys keys, f32), waited for:
+// s[4j + 2h + e] is row 16 warp + g + 8h, key 8j + 2t + e
 template <int D>
-__global__ void __launch_bounds__(kWideThreads)
-pair_attention_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ mask,
-                           __nv_bfloat16* __restrict__ out, int S, int H) {
-  extern __shared__ __align__(16) unsigned char wide_smem[];
-  unsigned char* ks = wide_smem;
-  unsigned char* vs = ks + kChunk * Wide<D>::kStride;
-  float* bias = reinterpret_cast<float*>(vs + kChunk * Wide<D>::kStride);
-  __shared__ int kend_s;
-
-  const int T = (S + kWideRows - 1) / kWideRows;
-  const int tile = blockIdx.x % T, item = blockIdx.x / T;
-  const int pair = item / H, hd = item - pair * H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t tok = (size_t)H * D;
-  const size_t base = (size_t)pair * S * tok + (size_t)hd * D;
-  const int32_t* mrow = mask + (size_t)pair * S;
-
-  // kend: 1 + the pair's last valid key, 0 if it has none
-  if (threadIdx.x == 0) kend_s = 0;
-  __syncthreads();
-  int last = 0;
-  for (int key = threadIdx.x; key < S; key += blockDim.x)
-    if (mrow[key] > 0) last = key + 1;
-  if (last > 0) atomicMax(&kend_s, last);
-  __syncthreads();
-  const int kend = kend_s;
-  const int klim = kend > 0 ? kend : S;
-  const int nck = (klim + kChunk - 1) / kChunk;
-
-  // the warp's 16 rows of q as A fragments (rows past S are zeros)
-  const int ra = tile * kWideRows + 16 * warp + g, rb = ra + 8;
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int s16 = 0; s16 < D / 16; ++s16) {
-    const int col = 16 * s16 + 2 * t;
-    qa[s16][0] = ra < S ? ld32(q + base + (size_t)ra * tok + col) : 0u;
-    qa[s16][1] = rb < S ? ld32(q + base + (size_t)rb * tok + col) : 0u;
-    qa[s16][2] = ra < S ? ld32(q + base + (size_t)ra * tok + col + 8) : 0u;
-    qa[s16][3] = rb < S ? ld32(q + base + (size_t)rb * tok + col + 8) : 0u;
+__device__ __forceinline__ void qk(float (&s)[kKeys / 2], const unsigned char* qs,
+                                   const unsigned char* ks) {
+  using C = Cfg<D>;
+  // q's descriptors are the same for every block of a tile: left to
+  // itself the compiler keeps all D / 16 of them live across the tile
+  if constexpr (D == 128) {
+    uintptr_t qa = reinterpret_cast<uintptr_t>(qs);
+    asm volatile("" : "+l"(qa));
+    qs = reinterpret_cast<const unsigned char*>(qa);
   }
-
-  float acc[kChunk / 8][4];
-  // sweep 1: the row max over the keys below klim
-  float m[2] = {-INFINITY, -INFINITY};
-  for (int c = 0; c < nck; ++c) {
-    __syncthreads();  // every warp is done with the last chunk
-    stage_chunk<D>(ks, nullptr, bias, k, v, mrow, base, tok, S, c);
-    __syncthreads();
-    wide_qk<D>(acc, qa, ks, lane);
+  wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kChunk / 8; ++j) {
-      const int key = c * kChunk + 8 * j + 2 * t;
-      const float b0 = bias[8 * j + 2 * t], b1 = bias[8 * j + 2 * t + 1];
-      if (key < klim) {
-        m[0] = fmaxf(m[0], acc[j][0] + b0);
-        m[1] = fmaxf(m[1], acc[j][2] + b0);
-      }
-      if (key + 1 < klim) {
-        m[0] = fmaxf(m[0], acc[j][1] + b1);
-        m[1] = fmaxf(m[1], acc[j][3] + b1);
-      }
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk / (C::kCw / 16), o = (kk % (C::kCw / 16)) * 32;
+    wgmma_ss(s, desc<C::kRowB>(qs + c * C::kQChunk + o), desc<C::kRowB>(ks + c * C::kKChunk + o),
+             kk > 0 ? 1u : 0u);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_pin(s);
+}
+
+// One consumer warp's 16 rows of one tile: the online-softmax state.
+template <int D>
+struct Rows {
+  float o[D / 8][4];  // context tile dn: rows g, g + 8, columns 8dn + 2t, + 1
+  float m[2];         // running max of the biased logits
+  float l[2];         // this thread's share of the running sum of the probs
+};
+
+// The warp's rows against one staged block: the online softmax, the
+// context rescaled, and P.V into it.
+template <int D>
+__device__ __forceinline__ void attend(Rows<D>& r, float (&s)[kKeys / 2], const StageHead& h,
+                                       const unsigned char* vs, int lane) {
+  using C = Cfg<D>;
+  const int t = lane & 3;
+  const bool full = h.full;
+  if (!full) {  // the key bias, the same for every row
+    const float* b = h.bias + 2 * t;
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+      const float2 bb = *reinterpret_cast<const float2*>(b + 8 * j);
+      s[4 * j] += bb.x;
+      s[4 * j + 1] += bb.y;
+      s[4 * j + 2] += bb.x;
+      s[4 * j + 3] += bb.y;
     }
   }
-  m[0] = quad_max(m[0]);
-  m[1] = quad_max(m[1]);
-
-  // sweep 2: probs, their unrounded sum, and P.V
-  float o[Wide<D>::kNt][4] = {};
-  float l[2] = {0.f, 0.f};
-  const int mi = lane >> 3;
-  const unsigned char* vrow = vs + ((lane & 7) + 8 * (mi & 1)) * Wide<D>::kStride + (mi >> 1) * 16;
-  for (int c = 0; c < nck; ++c) {
-    __syncthreads();
-    stage_chunk<D>(ks, vs, bias, k, v, mrow, base, tok, S, c);
-    __syncthreads();
-    wide_qk<D>(acc, qa, ks, lane);
-    float p[kChunk / 8][4];
+  float alpha[2], nml[2];
 #pragma unroll
-    for (int j = 0; j < kChunk / 8; ++j) {
+  for (int hh = 0; hh < 2; ++hh) {  // four chains a row, not one of kKeys / 4 dependent FMNMX
+    float x[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) x[u] = fmaxf(s[4 * u + 2 * hh], s[4 * u + 2 * hh + 1]);
+#pragma unroll
+    for (int j = 4; j < kKeys / 8; ++j)
+      x[j & 3] = fmaxf(x[j & 3], fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+    const float mn = fmaxf(r.m[hh], quad_max(fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3]))));
+    // the first block: m is -inf, alpha 0; a block that raises no row max: 1
+    alpha[hh] = ex2((r.m[hh] - mn) * kLog2e);
+    r.m[hh] = mn;
+    nml[hh] = -mn * kLog2e;
+  }
+  float ls[2] = {0.f, 0.f};
+  if (full) {  // one FFMA and one MUFU.EX2 a score
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = c * kChunk + 8 * j + 2 * t + (e & 1);
-        p[j][e] = key < klim ? ex2((acc[j][e] + bias[8 * j + 2 * t + (e & 1)] - m[e >> 1]) * kLog2e)
-                             : 0.f;
+        s[4 * j + e] = ex2(fmaf(s[4 * j + e], kLog2e, nml[e >> 1]));
+        ls[e >> 1] += s[4 * j + e];
       }
-      l[0] += p[j][0] + p[j][1];
-      l[1] += p[j][2] + p[j][3];
     }
+  } else {  // exact in the bias: a pair with no valid key gets ex2(0) = 1 a key below S
 #pragma unroll
-    for (int kk = 0; kk < kChunk / 16; ++kk) {
-      if (c * kChunk + 16 * kk >= klim) break;
-      const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                              pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                              pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                              pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+    for (int j = 0; j < kKeys / 8; ++j) {
 #pragma unroll
-      for (int half = 0; half < Wide<D>::kNt / 2; ++half) {  // context columns 16 half ..
-        uint32_t vf[4];
-        ldsm_x4_trans(vf, vrow + 16 * kk * Wide<D>::kStride + half * 32);
-        mma_bf16(o[2 * half], pa, vf[0], vf[1]);
-        mma_bf16(o[2 * half + 1], pa, vf[2], vf[3]);
+      for (int e = 0; e < 4; ++e) {
+        s[4 * j + e] = ex2((s[4 * j + e] - r.m[e >> 1]) * kLog2e);
+        ls[e >> 1] += s[4 * j + e];
       }
     }
   }
-  l[0] = quad_sum(l[0]);
-  l[1] = quad_sum(l[1]);
 #pragma unroll
-  for (int dn = 0; dn < Wide<D>::kNt; ++dn) {
-    const int col = 8 * dn + 2 * t;
-    if (ra < S)
-      *reinterpret_cast<uint32_t*>(out + base + (size_t)ra * tok + col) =
-          pack_bf16(o[dn][0] / l[0], o[dn][1] / l[0]);
-    if (rb < S)
-      *reinterpret_cast<uint32_t*>(out + base + (size_t)rb * tok + col) =
-          pack_bf16(o[dn][2] / l[1], o[dn][3] / l[1]);
+  for (int hh = 0; hh < 2; ++hh) r.l[hh] = fmaf(r.l[hh], alpha[hh], ls[hh]);
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) r.o[dn][e] *= alpha[e >> 1];
+  }
+  // P.V on wgmma m64n<D>k16, one a 16-key step: P's A fragments from
+  // registers (mma.sync's m16n8k16 A layout, warp w rows 16w ..), rounded
+  // to bf16; V an MN-major B operand of the swizzled stage (atoms of 8 keys
+  // x kCw values, kKChunk bytes between column chunks); the context, whose
+  // layout is the accumulator's, accumulates
+  uint32_t pa[kKeys / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk) {
+    pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);      // row g, keys 2t, 2t + 1
+    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);  // row g + 8
+    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);  // row g, keys 2t + 8, 2t + 9
+    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);  // row g + 8
+  }
+  float (&acc)[D / 2] = reinterpret_cast<float (&)[D / 2]>(r.o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk)
+    wgmma_rs_mn(acc, pa[kk], wgmma_desc_mn<C::kRowB>(vs + kk * 16 * C::kRowB, C::kKChunk), 1u);
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_pin(acc);
+}
+
+// The producer warp: for each unit (an item's row tiles, one a consumer
+// warpgroup) and each kKeys-key block below the pair's kend (all S keys
+// when it has none), the block's bias row and flags, and its K and V by
+// TMA (keys past S arrive as zeros).
+template <int D>
+__device__ __forceinline__ void produce(const CUtensorMap* kmap, const CUtensorMap* vmap,
+                                        const int32_t* __restrict__ mask, unsigned char* kv,
+                                        StageHead* head, uint64_t* full, uint64_t* empty,
+                                        int n_items, int S, int H, int nst, int lane) {
+  using C = Cfg<D>;
+  constexpr uint32_t kAll = 0xffffffffu;
+  const int T = (S + kRows - 1) / kRows;
+  int n = 0;  // stages filled
+  for (int i = 0; i < n_items; ++i) {
+    const int item = blockIdx.x + i * gridDim.x;
+    const int pair = item / H, hd = item - pair * H;
+    // the pair's mask, keys lane + 32u: bit u of `valid`
+    const int32_t* mrow = mask + (size_t)pair * S;
+    uint32_t valid = 0;
+#pragma unroll
+    for (int u = 0; u < kMaxS / 32; ++u) {
+      const int key = lane + 32 * u;
+      if (key < S && mrow[key] > 0) valid |= 1u << u;
+    }
+    const int last = valid ? lane + 32 * (31 - __clz(valid)) + 1 : 0;
+    const int kend = __reduce_max_sync(kAll, last);
+    const int nb = ((kend > 0 ? kend : S) + kKeys - 1) / kKeys;
+    for (int t0 = 0; t0 < T; t0 += C::kWg) {  // a unit: tiles t0 .. t0 + kWg - 1
+      for (int kb = 0; kb < nb; ++kb) {
+        const int s = n % nst;
+        mbar_wait(&empty[s], ((n / nst) & 1) ^ 1);  // the first round passes
+        StageHead& h = head[s];
+        bool all = true;
+#pragma unroll
+        for (int j = 0; j < kKeys / 32; ++j) {
+          const int u = kb * (kKeys / 32) + j, key = lane + 32 * u;
+          const bool ok = (valid >> u) & 1u;  // implies key < S
+          h.bias[lane + 32 * j] = key < S ? (ok ? 0.0f : kNeg) : -INFINITY;
+          all = all && ok;
+        }
+        const bool whole = __all_sync(kAll, all);
+        if (lane == 0) {
+          h.full = whole;
+          h.last = kb == nb - 1;
+          mbar_arrive_expect_tx(&full[s], 2 * C::kKvBytes);
+          unsigned char* ks = kv + (size_t)s * 2 * C::kKvBytes;
+#pragma unroll
+          for (int c = 0; c < C::kChunks; ++c) {
+            tma_load_3d(ks + c * C::kKChunk, kmap, &full[s], hd * D + c * C::kCw, kb * kKeys, pair);
+            tma_load_3d(ks + C::kKvBytes + c * C::kKChunk, vmap, &full[s], hd * D + c * C::kCw,
+                        kb * kKeys, pair);
+          }
+        } else {
+          mbar_arrive(&full[s]);
+        }
+        ++n;
+      }
+    }
   }
 }
 
 template <int D>
-int launch_wide(const void* q, const void* k, const void* v, const void* mask, void* out, int P,
-                int S, int H, cudaStream_t stream) {
-  const long long blocks = (long long)P * H * ((S + kWideRows - 1) / kWideRows);
-  if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
-  pair_attention_wide_kernel<D><<<(unsigned)blocks, kWideThreads, Wide<D>::kSmem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const int32_t*)mask, (__nv_bfloat16*)out, S, H);
+__global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
+ring_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+            const __grid_constant__ CUtensorMap vmap, const int32_t* __restrict__ mask,
+            __nv_bfloat16* __restrict__ out, int P, int S, int H, int nst) {
+  using C = Cfg<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* kv = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* qtiles = kv + (size_t)nst * 2 * C::kKvBytes;  // [kWg][2][kQBytes]
+  StageHead* head = reinterpret_cast<StageHead*>(qtiles + C::kWg * 2 * C::kQBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(head + nst);
+  uint64_t* empty = full + nst;
+  uint64_t* qfull = empty + nst;  // [kWg][2]
+
+  const int items = P * H;
+  const int n_items = (items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int T = (S + kRows - 1) / kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < nst; ++s) {
+      mbar_init(&full[s], 32);           // every producer lane, after its head writes
+      mbar_init(&empty[s], 4 * C::kWg);  // every consumer warp, when done with the block
+    }
+    for (int b = 0; b < 2 * C::kWg; ++b) mbar_init(&qfull[b], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * C::kWg) {  // the producer warpgroup: one warp works
+    setmaxnreg_dec<C::kProducerRegs>();
+    if (warp == 4 * C::kWg)
+      produce<D>(&kmap, &vmap, mask, kv, head, full, empty, n_items, S, H, nst, lane);
+    return;
+  }
+  setmaxnreg_inc<C::kConsumerRegs>();
+
+  // Consumer warpgroup wg takes the tile positions wg, wg + kWg, ... of the
+  // block's items' row tiles laid end to end: one in each unit, whose
+  // stages it works through in lockstep with the others; it passes through
+  // the stages of a unit where it has no tile.  One thread of it loads each
+  // tile's q by TMA into one of its two q buffers, a tile ahead (rows past
+  // S arrive as zeros).
+  const int wg = warp >> 2, wl = warp & 3;
+  const bool leader = (threadIdx.x & 127) == 0;
+  unsigned char* my_q = qtiles + wg * 2 * C::kQBytes;
+  uint64_t* my_qfull = qfull + 2 * wg;
+  const int positions = n_items * T;
+  auto load_q = [&](int pos, int b) {
+    const int item = blockIdx.x + (pos / T) * gridDim.x;
+    const int pair = item / H, hd = item - pair * H;
+    mbar_arrive_expect_tx(&my_qfull[b], C::kQBytes);
+#pragma unroll
+    for (int c = 0; c < C::kChunks; ++c)
+      tma_load_3d(my_q + b * C::kQBytes + c * C::kQChunk, &qmap, &my_qfull[b],
+                  hd * D + c * C::kCw, (pos % T) * kRows, pair);
+  };
+  const size_t tok = (size_t)H * D;  // stride of one token
+  int pos = wg, k = 0, n = 0;        // k: tiles this warpgroup has taken; n: stages passed
+  if (leader && pos < positions) load_q(pos, 0);
+  for (int i = 0; i < n_items; ++i) {
+    const int item = blockIdx.x + i * gridDim.x;
+    const int pair = item / H;
+    const size_t base = (size_t)pair * S * tok + (size_t)(item - pair * H) * D;
+    for (int t0 = 0; t0 < T; t0 += C::kWg) {
+      const int upos = i * T + t0;
+      const bool has = pos < upos + min(C::kWg, T - t0);
+      const int ra = (has ? (pos - i * T) * kRows : 0) + 16 * wl + (lane >> 2), rb = ra + 8;
+      const unsigned char* qs = my_q + (k & 1) * C::kQBytes;
+      Rows<D> r;
+      if (has) {
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn) r.o[dn][0] = r.o[dn][1] = r.o[dn][2] = r.o[dn][3] = 0.f;
+        r.m[0] = r.m[1] = -INFINITY;
+        r.l[0] = r.l[1] = 0.f;
+        // every warp is past the last tile's wgmmas, which read the other buffer
+        named_barrier(1 + wg, 128);
+        if (leader && pos + C::kWg < positions) load_q(pos + C::kWg, (k + 1) & 1);
+        mbar_wait(&my_qfull[k & 1], (k >> 1) & 1);
+      }
+      bool last = false;
+      while (!last) {  // the item's blocks below kend
+        const int s = n % nst;
+        mbar_wait(&full[s], (n / nst) & 1);
+        const StageHead& h = head[s];
+        last = h.last;
+        if (has) {
+          const unsigned char* ks = kv + (size_t)s * 2 * C::kKvBytes;
+          float sc[kKeys / 2];
+          qk<D>(sc, qs, ks);
+          attend<D>(r, sc, h, ks + C::kKvBytes, lane);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
+        ++n;
+      }
+      if (has) {
+        const int t = lane & 3;
+        const float inv_a = 1.f / quad_sum(r.l[0]), inv_b = 1.f / quad_sum(r.l[1]);
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn) {
+          const int col = 8 * dn + 2 * t;
+          if (ra < S)
+            *reinterpret_cast<uint32_t*>(out + base + (size_t)ra * tok + col) =
+                pack_bf16(r.o[dn][0] * inv_a, r.o[dn][1] * inv_a);
+          if (rb < S)
+            *reinterpret_cast<uint32_t*>(out + base + (size_t)rb * tok + col) =
+                pack_bf16(r.o[dn][2] * inv_b, r.o[dn][3] * inv_b);
+        }
+        pos += C::kWg;
+        ++k;
+      }
+    }
+  }
+}
+
+// (P, S, H * D) bf16 as a 3-D tensor map with boxes of `cw` values x
+// `rows` tokens of one pair, swizzled by the box's row bytes; false if
+// cuTensorMapEncodeTiled refuses it
+bool tile_map(CUtensorMap* map, const void* ptr, int P, int S, int H, int D, int cw, int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)H * D, (cuuint64_t)S, (cuuint64_t)P};
+  const cuuint64_t strides[2] = {(cuuint64_t)H * D * 2, (cuuint64_t)S * H * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)cw, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                cw == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* mask, void* out, int P, int S,
+           int H, void* stream) {
+  using C = Cfg<D>;
+  CUtensorMap qmap, kmap, vmap;
+  if (!tile_map(&qmap, q, P, S, H, D, C::kCw, kRows) ||
+      !tile_map(&kmap, k, P, S, H, D, C::kCw, kKeys) ||
+      !tile_map(&vmap, v, P, S, H, D, C::kCw, kKeys))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int nst = ring_stages<D>();
+  constexpr size_t smem = smem_bytes<D>(nst);
+  static_assert(smem <= kSmemLimit, "the ring does not fit");
+  // as launch_persistent's: SMs of each device, 0 until a launch there has
+  // raised this instantiation's shared-memory limit
+  static std::atomic<int> sms[64];
+  int n_sm = sms[dev & 63].load(std::memory_order_acquire);
+  if (n_sm == 0) {
+    err = cudaFuncSetAttribute(ring_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    sms[dev & 63].store(n_sm, std::memory_order_release);
+  }
+  const int ctas = P * H < n_sm ? P * H : n_sm;  // one block an SM
+  ring_kernel<D><<<ctas, C::kThreads, smem, (cudaStream_t)stream>>>(
+      qmap, kmap, vmap, (const int32_t*)mask, (__nv_bfloat16*)out, P, S, H, nst);
   return (int)cudaGetLastError();
 }
 
+}  // namespace ring
+
 }  // namespace
 
-// Heads of 16, 48, 64, 80, 96, 112 or 128 values; the arguments and the
-// return as pair_attention's.
-extern "C" int pair_attention_wide(const void* q, const void* k, const void* v,
-                                   const void* mask, void* out, int P, int S, int H,
-                                   int head_dim, void* stream) {
-  if (S < 1 || S > kMaxS || P < 1 || H < 1 ||
+// q, k, v and out (P, S, H, head_dim) bf16, contiguous, 16-byte aligned;
+// mask (P, S) int32; head_dim 32 (the persistent kernel), 64 or 128 (the
+// ring kernel); 1 <= S <= 512.  Returns a cudaError_t: 1
+// (cudaErrorInvalidValue) for shapes the kernels do not take, else the
+// launch's own status.
+extern "C" int pair_attention(const void* q, const void* k, const void* v,
+                              const void* mask, void* out, int P, int S, int H,
+                              int head_dim, void* stream) {
+  if (S < 1 || S > kMaxS || P < 1 || H < 1 || (long long)P * H > INT32_MAX ||
       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
   switch (head_dim) {
-    case 16: return launch_wide<16>(q, k, v, mask, out, P, S, H, st);
-    case 48: return launch_wide<48>(q, k, v, mask, out, P, S, H, st);
-    case 64: return launch_wide<64>(q, k, v, mask, out, P, S, H, st);
-    case 80: return launch_wide<80>(q, k, v, mask, out, P, S, H, st);
-    case 96: return launch_wide<96>(q, k, v, mask, out, P, S, H, st);
-    case 112: return launch_wide<112>(q, k, v, mask, out, P, S, H, st);
-    case 128: return launch_wide<128>(q, k, v, mask, out, P, S, H, st);
+    case 32: return launch_persistent(q, k, v, mask, out, P, S, H, stream);
+    case 64: return ring::launch<64>(q, k, v, mask, out, P, S, H, stream);
+    case 128: return ring::launch<128>(q, k, v, mask, out, P, S, H, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

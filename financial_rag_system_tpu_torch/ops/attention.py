@@ -10,16 +10,17 @@ device memory; the kernel keeps them on chip.
   (B, S, H*D) f32 context out.  On a CUDA tensor it launches the
   hand-written Hopper kernel ``csrc/pair_attention.cu``, or raises; on a
   CPU tensor it runs :func:`encoder_self_attention_plain`.  Heads of 32
-  take the persistent kernel (TMA-staged K and V, ``wgmma`` products, exp
-  as ``ex2.approx``, no work past a pair's last valid key); heads of any
-  other multiple of 16 up to 128 (BERT-base and -large: 64) take the
-  streaming kernel of the same file, templated on the head width, which
-  stages K and V in 64-key chunks and keeps the same two sweeps and
-  arithmetic.  Any other head width up to 128 (JAX's gate sends every
-  d <= 128 to its kernel) is padded with zero columns to the next
-  multiple of 16 after q is scaled by the true 1/sqrt(d), and the
-  context is sliced back to d: zero columns add nothing to QK^T, and the
-  padded V columns are dropped, so the padding is exact.
+  take the persistent kernel (an item's K and V staged whole by TMA,
+  ``wgmma`` products, exp as ``ex2.approx``, two sweeps, no work past a
+  pair's last valid key); heads of 64 and 128 (BERT-base and -large: 64)
+  take the ring kernel of the same file, which streams 128-key blocks of
+  K and V by TMA through a ring with one online-softmax sweep
+  (:func:`ring_plan`).  Any other head width up to 128 (JAX's gate sends
+  every d <= 128 to its kernel) is padded with zero columns to the next
+  of :data:`HEAD_DIMS` (:func:`padded_width`) after q is scaled by the
+  true 1/sqrt(d), and the context is sliced back to d: zero columns add
+  nothing to QK^T, and the padded V columns are dropped, so the padding
+  is exact.
 - :func:`encoder_self_attention_plain` is the same arithmetic in plain
   PyTorch: q pre-scaled in f32 then rounded to bf16, bf16 x bf16 logits
   summed in f32 plus a -1e9 key-padding bias, a full-row f32 softmax,
@@ -38,18 +39,88 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from typing import NamedTuple
 
 import torch
 
 from financial_rag_system_tpu_torch.ops import _cuda
 
-# head widths the kernels take: 32 (the persistent kernel), the rest the
-# streaming kernel (pair_attention_wide); encoder_self_attention pads any
-# other width up to MAX_HEAD_DIM to the next of them
-HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
+# head widths the kernels take: 32 (the persistent kernel), 64 and 128
+# (the ring kernel); encoder_self_attention pads any other width up to
+# MAX_HEAD_DIM to the next of them
+HEAD_DIMS = (32, 64, 128)
 MAX_HEAD_DIM = HEAD_DIMS[-1]
 MAX_SEQ = 512
 NEG = -1e9
+
+# the ring kernel's constants (csrc/pair_attention.cu, namespace ring)
+RING_KEYS = 128            # keys of a stage
+RING_ROWS = 64             # query rows of a tile
+RING_SMEM_LIMIT = 232448   # shared memory a block may take
+RING_MAX_STAGES = 8
+
+
+def padded_width(d: int) -> int:
+    """The kernel width a head of ``d`` values runs at: the smallest of
+    :data:`HEAD_DIMS` at least ``d``."""
+    for w in HEAD_DIMS:
+        if d <= w:
+            return w
+    raise ValueError(f"pair attention takes head_dim <= {MAX_HEAD_DIM}; got head_dim {d}")
+
+
+class RingPlan(NamedTuple):
+    """The ring kernel's launch at one head width, as the C++ computes it."""
+
+    consumers: int      # consumer warpgroups, one 64-row tile each a unit
+    threads: int        # and a producer warpgroup
+    producer_regs: int  # registers a thread after setmaxnreg
+    consumer_regs: int
+    regs_fit: bool      # the budgets fit the launch's register pool
+    stages: int         # 128-key K and V stages in the ring
+    smem: int           # dynamic shared memory, bytes
+
+
+def ring_plan(d: int) -> RingPlan:
+    """Mirror of ``ring::Cfg``, ``regs_fit``, ``smem_bytes`` and
+    ``ring_stages``: one block an SM whatever S is, since the ring holds
+    128-key blocks and not a whole item."""
+    if d not in (32, 64, 128):
+        raise ValueError(f"the ring kernel is built at d 32, 64 and 128; got {d}")
+    wg = 2 if d == 128 else 3
+    threads = 128 * (wg + 1)
+    producer, consumer = 40, (232 if d == 128 else 152)
+    pool = threads * (65536 // threads // 8 * 8)
+    row_bytes = 64 if d == 32 else 128
+    kv = d // (row_bytes // 2) * RING_KEYS * row_bytes   # one of K, V in a stage
+    q = d // (row_bytes // 2) * RING_ROWS * row_bytes    # one q tile
+    head = 8 + 4 * RING_KEYS                             # StageHead: flags and the bias row
+
+    def smem(stages):
+        return 1024 + stages * (2 * kv + head + 16) + wg * 2 * (q + 8)
+
+    stages = RING_MAX_STAGES
+    while stages > 2 and smem(stages) > RING_SMEM_LIMIT:
+        stages -= 1
+    return RingPlan(wg, threads, producer, consumer, 128 * (producer + wg * consumer) <= pool,
+                    stages, smem(stages))
+
+
+def key_ends(mask: torch.Tensor) -> torch.Tensor:
+    """(P,) kend of each pair: 1 + its last valid key, 0 if it has none."""
+    valid = mask > 0
+    s = valid.shape[1]
+    last = s - torch.argmax(valid.flip(1).to(torch.int32), dim=1)
+    return torch.where(valid.any(dim=1), last, 0)
+
+
+def ring_blocks(mask: torch.Tensor) -> torch.Tensor:
+    """(P,) 128-key blocks the ring kernel loads (per unit of row tiles)
+    for each pair: those below kend, or below S for a pair with no valid
+    key."""
+    kend = key_ends(mask)
+    klim = torch.where(kend > 0, kend, mask.shape[1])
+    return (klim + RING_KEYS - 1) // RING_KEYS
 
 
 def _scaled_inputs(q, k, v, inv_sqrt):
@@ -61,9 +132,9 @@ def _scaled_inputs(q, k, v, inv_sqrt):
 
 def kernel_inputs(q, k, v, inv_sqrt):
     """The kernels' contiguous bf16 q, k and v: q scaled by the true d's
-    1/sqrt(d) first, then all three padded with zero columns to the next
-    multiple of 16 (no copy of the padding when d is one)."""
-    pad = -q.shape[-1] % 16
+    1/sqrt(d) first, then all three padded with zero columns to
+    :func:`padded_width` (no copy of the padding when d is one)."""
+    pad = padded_width(q.shape[-1]) - q.shape[-1]
     return tuple(
         torch.nn.functional.pad(t, (0, pad)).contiguous() if pad else t.contiguous()
         for t in _scaled_inputs(q, k, v, inv_sqrt)
@@ -97,9 +168,8 @@ def encoder_self_attention_plain(
     return out.permute(0, 2, 1, 3).reshape(b, s, h * d).to(out_dtype)
 
 
-def _kernel_fn(head_dim: int):
-    lib = _cuda.library("pair_attention")
-    fn = lib.pair_attention if head_dim == 32 else lib.pair_attention_wide
+def _kernel_fn():
+    fn = _cuda.library("pair_attention").pair_attention
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -113,7 +183,8 @@ def pair_attention_kernel(
 ) -> torch.Tensor:
     """Launch ``csrc/pair_attention.cu`` on the current stream; returns the
     (B, S, H, d) bf16 context.  Raises on anything the kernels do not
-    take."""
+    take.  Counts the launch in ``encoder_self_attention.launches`` (heads
+    of 32) or ``.launches_ring`` (64 and 128)."""
     b, s, h, d = qs.shape
     if d not in HEAD_DIMS or not 1 <= s <= MAX_SEQ:
         raise ValueError(
@@ -133,14 +204,15 @@ def pair_attention_kernel(
     out = torch.empty((b, s, h, d), dtype=torch.bfloat16, device=qs.device)
     stream = torch.cuda.current_stream(qs.device).cuda_stream
     _cuda.check(
-        _kernel_fn(d)(
+        _kernel_fn()(
             qs.data_ptr(), kb.data_ptr(), vb.data_ptr(), mask.data_ptr(),
             out.data_ptr(), b, s, h, d, stream,
         ),
         "pair_attention",
     )
+    counter = "launches" if d == 32 else "launches_ring"
     with _launch_lock:  # batches run in worker threads
-        encoder_self_attention.launches += 1
+        setattr(encoder_self_attention, counter, getattr(encoder_self_attention, counter) + 1)
     return out
 
 
@@ -166,13 +238,13 @@ def encoder_self_attention(
     for name, t in (("k", k), ("v", v)):
         if t.shape != q.shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} != q {tuple(q.shape)}")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"pair attention takes head_dim <= {MAX_HEAD_DIM}; got head_dim {d}")
     qs, kb, vb = kernel_inputs(q, k, v, inv_sqrt)
     out = pair_attention_kernel(qs, kb, vb, attention_mask.to(torch.int32).contiguous())
     return out[..., :d].reshape(b, s, h * d).to(out_dtype)
 
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
+# kernel launches since the last reset (chip_smoke.py reads and resets
+# them): the persistent kernel's (heads of 32) and the ring kernel's
 encoder_self_attention.launches = 0
+encoder_self_attention.launches_ring = 0
 _launch_lock = threading.Lock()

@@ -24,6 +24,7 @@ from financial_rag_system_tpu_torch.ops.attention import (
     encoder_self_attention,
     encoder_self_attention_plain,
     pair_attention_kernel,
+    padded_width,
 )
 from financial_rag_system_tpu_torch.ops.flash_attention import (
     encoder_flash_attention,
@@ -502,11 +503,14 @@ def test_attention_kernel_matches_plain(cuda, p, s, h, d):
     arrs = attn_case(p, s, h, d=d)
     q, k, v, mask = (torch.tensor(a, device=cuda) for a in arrs)
     inv = 1.0 / np.sqrt(d)
-    n0 = encoder_self_attention.launches
+    # heads of 32 (and up to 32) count on the persistent kernel, the rest
+    # on the ring kernel
+    counter = "launches" if padded_width(d) == 32 else "launches_ring"
+    n0 = getattr(encoder_self_attention, counter)
     ref = encoder_self_attention_plain(q, k, v, mask, inv).cpu().numpy()
     got = encoder_self_attention(q, k, v, mask, inv).cpu().numpy()
     torch.cuda.synchronize()
-    assert encoder_self_attention.launches == n0 + 1
+    assert getattr(encoder_self_attention, counter) == n0 + 1
     assert got.shape == (p, s, h * d)
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, ref, atol=1e-2, rtol=1e-2)
@@ -528,7 +532,7 @@ ATTN_MASK_CASES = {
 }
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 112, 128])
 @pytest.mark.parametrize("case", sorted(ATTN_MASK_CASES))
 def test_attention_kernel_masks(cuda, case, d):
     p, s, h, mask_np = ATTN_MASK_CASES[case]
@@ -594,6 +598,54 @@ def test_attention_kernel_from_worker_threads(cuda):
     assert not errors, errors
     assert all(torch.equal(w, g) for w, g in zip(want, got))
     assert all(torch.equal(want[1], r) for r in results)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 63, 65, 400, 512])
+def test_ring_kernel_lengths(cuda, s, d):
+    """The ring kernel at S 1 (one row, one key), around one row tile (63,
+    65), the rerank length and the longest, on the uniform mask with a
+    fully masked last pair, at the 1e-2 tolerance."""
+    q, k, v, mask = (torch.tensor(a, device=cuda) for a in attn_case(4, s, 3, seed=s, d=d))
+    inv = 1.0 / np.sqrt(d)
+    n0 = encoder_self_attention.launches_ring
+    ref = encoder_self_attention_plain(q, k, v, mask, inv).cpu().numpy()
+    got = encoder_self_attention(q, k, v, mask, inv).cpu().numpy()
+    torch.cuda.synchronize()
+    assert encoder_self_attention.launches_ring == n0 + 1
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_ring_kernel_from_worker_threads(cuda, d):
+    """As ``test_attention_kernel_from_worker_threads`` for the ring
+    kernel: four threads at once and a side stream give the main thread's
+    context bit for bit."""
+    cases = []
+    for i in range(4):
+        q, k, v, _ = attn_case(16, 400, 6, seed=20 + i, d=d)
+        cases.append(tuple(torch.tensor(a, device=cuda)
+                           for a in (q, k, v, rerank_mask(16, 400, seed=i))))
+    inv = 1.0 / np.sqrt(d)
+    want = [encoder_self_attention(*c, inv) for c in cases]
+    ref = encoder_self_attention_plain(*cases[0], inv)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(want[0].cpu().numpy(), ref.cpu().numpy(), atol=1e-2, rtol=1e-2)
+
+    def run(case, side_stream=False):
+        stream = torch.cuda.Stream() if side_stream else torch.cuda.current_stream()
+        stream.wait_stream(torch.cuda.default_stream())
+        with torch.cuda.stream(stream):
+            out = encoder_self_attention(*case, inv)
+        torch.cuda.synchronize()
+        return out
+
+    with ThreadPoolExecutor(4) as pool:
+        got = list(pool.map(run, cases))
+        side = pool.submit(run, cases[1], True).result()
+    assert all(torch.equal(w, g) for w, g in zip(want, got))
+    assert torch.equal(want[1], side)
 
 
 def test_attention_kernel_first_launches_race(cuda):
