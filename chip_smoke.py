@@ -8,7 +8,7 @@
                           [--flash-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
 
 Drives ``financial_rag_system_tpu_torch`` end to end on the card, in
-fourteen phases; any failure raises and the script exits non-zero:
+fifteen phases; any failure raises and the script exits non-zero:
 
 0. the card: name, power limit and compute capability (Hopper, 9.0);
 1. build: every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a``
@@ -154,15 +154,17 @@ fourteen phases; any failure raises and the script exits non-zero:
 12. the flash path (``RAG_TPU_FLASH``): (a) kernel 7 against its plain
    version on every row (atol 1e-2) at P 480, S 512, 12 heads of 32 on
    phase 3's rerank mask padded to 512 (the ``kernels`` line's figures),
-   3 heads of 256 on that mask, and 12 heads of 32 on the uniform-length
-   mask (its last pair all padding), at S 128 and
+   3 heads of 256 on that mask (the D-256 kernel, ``d256::flash256_kernel``:
+   the line's ``flash_attention_wide``), and 12 heads of 32 on the
+   uniform-length mask (its last pair all padding), at S 128 and
    256, and at heads of 64 (12) and 128 (6) at S 512, each with its
    CUDA-event and device times, the plain version's, SDPA's with the
    boolean segment-equality mask (a yardstick) and its bound and MUFU
    floor, and the share of (pair, 64-row tile, 128-key block) pairs that
    the skip rule leaves out on that mask (no common segment id; worked
    out from the mask on the host); ``nvcc -Xptxas -v``'s registers and
-   spills of each of its kernels (no ``flash_kernel`` may spill); (b) the flat tier through ``build_default_engine(device="cuda")``
+   spills of each of its kernels (none may spill); (b) the flat tier
+   through ``build_default_engine(device="cuda")``
    under ``RAG_TPU_FLASH=1 RAG_TPU_PAIR_ATTN=0`` (3 asks, a burst of 32, a
    cache hit; kernel 7 six times a batch, kernel 2 never), its batch of 32
    against phase 3's default batch (rows and bi scores identical, logits
@@ -181,7 +183,17 @@ fourteen phases; any failure raises and the script exits non-zero:
    kernel 12 times a batch and its persistent kernel never; the batch of
    32 against the same batch under ``RAG_TPU_PAIR_ATTN=0`` (rows and bi
    scores identical, logits within 5e-2); its wall and device time and the
-   ring kernel's share of it (profiler).
+   ring kernel's share of it (profiler);
+14. BERT-base widths in 3 heads of 256 (a shape no published checkpoint
+   has, the one width of the D-256 kernel): a random-init cross-encoder
+   (hidden 768, 12 layers, 3 heads of 256, intermediate 3072, a pooler and
+   one logit) behind ``build_default_engine(device="cuda")`` with phase
+   3's BGE-small and index under ``RAG_TPU_FLASH=1``: the pairs pad from
+   400 to 512, 3 single asks, a burst of 32 and a cache hit, kernel 7's
+   D-256 kernel 12 times a batch and kernel 2 never; the batch of 32
+   against the same batch without the variable (the einsum attention:
+   rows and bi scores identical, logits within 5e-2); its wall and device
+   time and the D-256 kernel's share of it (profiler).
 
 The CPU references of phases 3-6 set ``RAG_TPU_FAST_GELU=1``: the card's
 default GELU is the tanh form and the CPU's exact erf, JAX's rule.
@@ -210,7 +222,8 @@ kernel beside kernel 4 at both shapes the same way; ``--resid-baseline``
 the same for its o-proj kernel beside kernel 6 (a checkout whose C entry
 took no plan); ``--flash-baseline`` builds an earlier ``flash_attention.cu``
 and times it beside kernel 7 at each shape of phase 12 (a) in turns, with
-both device times and their contexts' difference.
+both device times and their contexts' difference (at 3 heads of 256 the
+earlier checkout's own D-256 kernel, whatever its design).
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device": ...}``.
@@ -982,6 +995,7 @@ def kernel_counters() -> dict:
             "pair_attention": (encoder_self_attention, "launches"),
             "pair_attention_ring": (encoder_self_attention, "launches_ring"),
             "flash_attention": (encoder_flash_attention, "launches"),
+            "flash_attention_wide": (encoder_flash_attention, "launches_wide"),
             "ivf_probe": (ivf_probe, "launches"),
             "ivf_probe_int8": (ivf_probe, "launches_int8"),
             **{name: (getattr(fused_bert, name), "launches")
@@ -1027,7 +1041,8 @@ def drive_main_path(torch, np, work: Path, smi: str, label: str = "main",
     1 launches once a shard and kernel 2 once a shard's rerank chunk a
     layer.  ``attention`` names the kernel that the rerank layers launch
     (``flash_attention`` under phase 12's ``FLASH_ENV``,
-    ``pair_attention_ring`` for phase 13's heads of 64); ``reranker`` the
+    ``pair_attention_ring`` for phase 13's heads of 64,
+    ``flash_attention_wide`` for phase 14's heads of 256); ``reranker`` the
     checkpoint in ``work``, of ``rerank_layers`` layers."""
     from financial_rag_system_tpu_torch.models import bert
     from financial_rag_system_tpu_torch.models.tokenizer import pad_batch
@@ -4531,24 +4546,26 @@ def time_flash(torch, np, smi: str, label: str, q, k, v, mask_np, baseline=None)
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
 
 
-def check_flash_kernel(torch, np, main: dict, smi: str, baseline=None) -> dict:
+def check_flash_kernel(torch, np, main: dict, smi: str, baseline=None) -> list:
     """(a) kernel 7 against its plain version and timed: at the served
     shape (P 480, S 512, 12 heads of 32) on phase 3's rerank mask padded
     to 512 (the kernels line's numbers), and on that mask at 3 heads of
-    256 (``flash_wide_kernel``); on the uniform-length mask (pair 0 whole,
-    the last pair all padding) at S 512; at S 128 and 256; at heads of 64
+    256 (``d256::flash256_kernel``, the line's ``flash_attention_wide``);
+    on the uniform-length mask (pair 0 whole, the last pair all padding)
+    at S 512; at S 128 and 256; at heads of 64
     (12) and 128 (6) at S 512; ``baseline`` (``--flash-baseline``)
     timed beside it at each.  Then ``-Xptxas -v`` of its source: no
-    ``flash_kernel<D>`` (the ring kernel, heads of 32-128) may spill."""
+    kernel of it (``flash_kernel<D>`` at heads of 32-128, the D-256
+    kernel) may spill.  Returns the ``kernels`` line's two entries."""
     plen, s = main["lq"] + DLEN, flash_len(main)
     served = np.pad(rerank_batch_mask(torch, np, main), ((0, 0), (0, s - plen)))
     q, k, v, _ = attention_inputs(torch, np, PAIRS, s)
     res = time_flash(torch, np, smi, f"phase-3 rerank mask padded to {s}", q, k, v, served,
                      baseline)
-    # D 256 (flash_wide_kernel, the first, simple design) on the served
-    # mask, 3 heads
+    # D 256 on the served mask, 3 heads (phase 14's width)
     q, k, v, _ = attention_inputs(torch, np, PAIRS, s, 3, 256)
-    time_flash(torch, np, smi, f"phase-3 rerank mask padded to {s}", q, k, v, served, baseline)
+    wide = time_flash(torch, np, smi, f"phase-3 rerank mask padded to {s}", q, k, v, served,
+                      baseline)
     for s, h, d in ((FLASH_SEQ, 12, 32), (128, 12, 32), (256, 12, 32), (FLASH_SEQ, 12, 64),
                     (FLASH_SEQ, 6, 128)):
         q, k, v, mask_np = attention_inputs(torch, np, PAIRS, s, h, d)
@@ -4557,14 +4574,16 @@ def check_flash_kernel(torch, np, main: dict, smi: str, baseline=None) -> dict:
     report = ptxas_report("flash_attention")
     log(f"[flash] ptxas -v of csrc/flash_attention.cu (registers, spill store and load bytes): "
         f"{report}")
-    ring = {k: r for k, r in report.items() if "12flash_kernel" in k}
-    if not ring or any(r[1] or r[2] for r in ring.values()):
-        raise AssertionError(f"[flash] the ring kernel spills, or ptxas named none: {report}")
-    return {"name": "flash_attention", "route": "cuda",
-            "source": f"{PACKAGE}/csrc/flash_attention.cu",
-            "replaces": "financial_rag_system_tpu/models/bert.py:160",
-            **{key: res[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")}}
+    ring = [k for k in report if "12flash_kernel" in k]
+    d256 = [k for k in report if "15flash256_kernel" in k]
+    if len(ring) != 3 or len(d256) != 2 or any(r[1] or r[2] for r in report.values()):
+        raise AssertionError(f"[flash] a kernel-7 kernel spills, or ptxas named other kernels: "
+                             f"{report}")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    entry = {"route": "cuda", "source": f"{PACKAGE}/csrc/flash_attention.cu",
+             "replaces": "financial_rag_system_tpu/models/bert.py:160"}
+    return [{"name": "flash_attention", **entry, **{key: res[key] for key in keys}},
+            {"name": "flash_attention_wide", **entry, **{key: wide[key] for key in keys}}]
 
 
 def attention_calls(torch, fn):
@@ -4723,7 +4742,7 @@ def drive_phase_12(torch, np, work: Path, main: dict, cpu_models, smi: str,
                                         attention="flash_attention")
 
     for part, fn in (
-        ("a", lambda: kernels.append(check_flash_kernel(torch, np, main, smi, baseline))),
+        ("a", lambda: kernels.extend(check_flash_kernel(torch, np, main, smi, baseline))),
         ("b", serve),
         ("b-c", lambda: check_flash_batches(torch, np, runs["b"], main, cpu_models, smi)),
         ("d", lambda: check_flash_graded(torch, np, runs["b"], smi)),
@@ -4747,14 +4766,15 @@ BERT_BASE_SHAPE = dict(vocab_size=30522, hidden=768, layers=12, heads=12, interm
 BERT_BASE_DIR = "reranker_bert_base"
 
 
-def write_bert_base(torch, work: Path) -> None:
+def write_bert_base(torch, work: Path, shape: dict = BERT_BASE_SHAPE, name: str = BERT_BASE_DIR,
+                    seed: int = 2) -> None:
     from financial_rag_system_tpu_torch.models import bert
     from financial_rag_system_tpu_torch.models.hf_export import save_bert_checkpoint
 
-    cfg = bert.BertConfig(**BERT_BASE_SHAPE)
+    cfg = bert.BertConfig(**shape)
     model = bert.BertModel(cfg, device="cpu")
-    bert.load_jax_params(model, bert.init_params(torch.Generator().manual_seed(2), cfg))
-    save_bert_checkpoint(model, cfg, str(work / BERT_BASE_DIR), cross_encoder=True)
+    bert.load_jax_params(model, bert.init_params(torch.Generator().manual_seed(seed), cfg))
+    save_bert_checkpoint(model, cfg, str(work / name), cross_encoder=True)
 
 
 def drive_phase_13(torch, np, work: Path, smi: str) -> dict:
@@ -4809,6 +4829,91 @@ def drive_phase_13(torch, np, work: Path, smi: str) -> dict:
     log(f"[bert-base] {smi}: the batch of {B}: wall {stats['wall_ms']:.2f} ms, device "
         f"{stats['device_ms']:.2f} ms; kernel 2 (ring kernel, {sum(n for _, n in ring)} "
         f"launches in the profile) {ring_ms:.3f} ms, {share} of the device time")
+    del run["engine"]
+    return run
+
+
+# -- phase 14: BERT-base widths in 3 heads of 256 (kernel 7's D-256 kernel) ---------
+
+# BERT_BASE_SHAPE with the hidden 768 split into 3 heads of 256: no
+# published checkpoint has heads of 256; the shape keeps BERT-base's widths
+# and FLOPs and puts the rerank on the one width the D-256 kernel serves
+# (jax's flash kernel takes head widths that are multiples of 128 above
+# 128, so the JAX package accepts it too).  Random weights from a seed.
+BERT_BASE_D256_SHAPE = {**BERT_BASE_SHAPE, "heads": 3}
+BERT_BASE_D256_DIR = "reranker_bert_base_d256"
+
+
+def drive_phase_14(torch, np, work: Path, smi: str) -> dict:
+    """Phase 14: ``build_default_engine(device="cuda")`` with phase 3's
+    BGE-small and index and a BERT-base-wide reranker of 3 heads of 256
+    under ``RAG_TPU_FLASH=1`` (the pair gates stay off above 128, so its
+    attention is kernel 7's D-256 kernel, the pairs padded from 400 to
+    512): 3 single asks, a burst of 32 and a cache hit, the D-256 kernel
+    12 times a batch (once a rerank layer) and kernel 2 never; then the
+    batch of 32 against the same batch without the variable (the einsum
+    attention, pairs of 400) on the card: rows and bi scores identical,
+    logits within ``compare_batches``' 5e-2; the batch's wall and device
+    milliseconds and the D-256 kernel's share of its device time
+    (profiler)."""
+    from financial_rag_system_tpu_torch.models import bert
+    from financial_rag_system_tpu_torch.ops.fused_query import fused_two_stage
+
+    t0 = time.perf_counter()
+    write_bert_base(torch, work, BERT_BASE_D256_SHAPE, BERT_BASE_D256_DIR, seed=3)
+    log(f"[bert-base-d256] {smi}: the reranker {BERT_BASE_D256_SHAPE} written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    with env_set(RAG_TPU_FLASH="1"):
+        run = drive_main_path(torch, np, work, smi, label="bert-base-d256",
+                              reranker=BERT_BASE_D256_DIR, rounds=1,
+                              attention="flash_attention_wide", rerank_layers=12)
+    engine = run["engine"]
+    card = (engine.embedder, engine.reranker)
+    seqs = []
+    original = bert.encoder_flash_attention
+
+    def spy(q, *args, **kwargs):
+        seqs.append((q.shape[1], q.shape[3]))
+        return original(q, *args, **kwargs)
+
+    def batch():
+        before = read_launches()
+        out = flat_batch(torch, engine, run["burst"], "cuda", engine.index, card)
+        after = read_launches()
+        return out, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+    bert.encoder_flash_attention = spy
+    try:
+        with env_set(RAG_TPU_FLASH="1"):
+            got, launched = batch()
+    finally:
+        bert.encoder_flash_attention = original
+    if launched != {"masked_topk": 1, "flash_attention_wide": 12} or set(seqs) != {(512, 256)}:
+        raise AssertionError(f"[bert-base-d256] the batch launched {launched} at (S, d) "
+                             f"{sorted(set(seqs))}")
+    ref, launched_ref = batch()
+    if launched_ref != {"masked_topk": 1}:
+        raise AssertionError(f"[bert-base-d256] the einsum batch launched {launched_ref}")
+    if not (np.array_equal(got[0], ref[0]) and np.array_equal(got[1], ref[1])):
+        raise AssertionError("[bert-base-d256] rows or bi scores differ from the einsum batch's")
+    compare_batches(np, "[bert-base-d256] card, kernel 7 at D 256 vs the einsum path", got, ref)
+    log(f"[bert-base-d256] {smi}: the einsum batch's logits span [{float(ref[2].min()):.4g}, "
+        f"{float(ref[2].max()):.4g}] (std {float(ref[2].std()):.4g}) at random init")
+    emb, codes, dtok = engine.index._arrays
+    stats = {}
+    with env_set(RAG_TPU_FLASH="1"):
+        args = fused_inputs(torch, engine, run["burst"], "cuda")
+        profile_run(torch, lambda: fused_two_stage(
+            engine.embedder.model, engine.reranker.model, *args, emb, codes, dtok, N,
+            rerank_cfg=engine.reranker.cfg, k=K), "fused_two_stage, BERT-base-wide reranker, "
+            "3 heads of 256, RAG_TPU_FLASH=1", smi, stats)
+    wide = [(ms, n) for ms, n, key in stats["rows"] if "flash256_kernel" in key]
+    wide_ms = sum(ms for ms, _ in wide)
+    share = (f"{wide_ms / stats['device_ms']:.4f}" if stats["device_ms"] > 0
+             else "not measured (the profiler returned no kernels)")
+    log(f"[bert-base-d256] {smi}: the batch of {B}: wall {stats['wall_ms']:.2f} ms, device "
+        f"{stats['device_ms']:.2f} ms; kernel 7 (D 256, {sum(n for _, n in wide)} launches in "
+        f"the profile) {wide_ms:.3f} ms, {share} of the device time")
     del run["engine"]
     return run
 
@@ -4967,11 +5072,14 @@ def main() -> int:
         t0 = time.perf_counter()
         base_run = drive_phase_13(torch, np, work, smi)
         log(f"[bert-base] phase 13 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        wide_run = drive_phase_14(torch, np, work, smi)
+        log(f"[bert-base-d256] phase 14 took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # launches over the main paths, each counted from 0 around its run
     runs = (main_run, ivf_run, block_run, int8_run, ivf8_run, *hash_runs, hnsw_run, hnsw8_run,
-            train_run, *sharded_runs, *phase11_runs, flash_run, base_run)
+            train_run, *sharded_runs, *phase11_runs, flash_run, base_run, wide_run)
     for kern in kernels:
         name = kern["name"]
         kern["launches"] = sum(run["launches"][name] for run in runs)

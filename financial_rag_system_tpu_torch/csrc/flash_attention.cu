@@ -27,7 +27,9 @@
 // ids (B, S) int32, any values; S a multiple of 128 up to 512.
 //
 // What bounds it on the H100, at the served shape (P 480 pairs, S 512,
-// 12 heads of 32, the rerank mask padded to 512):
+// 12 heads of 32, the rerank mask padded to 512; at 3 heads of 256 the
+// bytes double to 0.451 ms, the tensor work doubles and the exponentials
+// are a quarter):
 //  - bytes: q, k, v in and the context out, 755 MB of bf16: 0.226 ms at
 //    3.35 TB/s;
 //  - tensor cores: QK^T and P.V over every (query, key) pair, 4 P H S^2 D
@@ -101,14 +103,61 @@
 //  - the accumulator update is one FMA, S 128's p / sum(p) a product with
 //    the reciprocal, and the f32 sums are taken in another order.
 //
-// D 256 keeps the kernel's first, simple design (flash_wide_kernel, at the end):
-// its 128 f32 of context a thread beside the 64 of scores exceed what two
-// consumer warpgroups may hold, and one 128-key stage of its K and V is
-// 128 KB, which leaves no ring.
+// D 256 (d256::flash256_kernel<SINGLE>, at the end; SINGLE at S 128)
+// keeps that skeleton and those liberties: the persistent grid, a
+// producer warp staging by TMA behind full and empty mbarriers with each
+// block's StageHead (segment ids, the unit's `need` bits), q tiles by TMA,
+// ex2.approx of one FFMA, the zero-weight select and the (tile, block)
+// skips.  What differs:
+//  - shared memory: a q tile is 32 KB and a 128-key block of K and V 128
+//    KB, so the D <= 128 stage leaves no ring.  K and V are staged as 32
+//    KB slots, each the block's 128 keys at half the head's columns (two
+//    TMA boxes of 64 columns, 128-byte swizzle), in the order K columns
+//    0-127, K 128-255, V 0-127, V 128-255, through a ring of five slots;
+//    the K slots go back to the producer once QK^T has waited, so the next
+//    block's K loads while this block's softmax and P.V run.  Five slots,
+//    one q tile for each of two consumer warpgroups and the heads of two
+//    blocks take 231,552 of the 232,448 bytes (static_asserts below);
+//  - registers: two consumer warpgroups at 240 and the producer
+//    warpgroup at 24 (128 (24 + 2 x 240) = 64,512, the pool of 384
+//    threads at 168).  A thread holds 128 f32 of context.  Beside it, the
+//    64 scores of a 128-key block spilled whatever else was trimmed, so
+//    the online softmax takes 64-key steps, as FA3 narrows its key block
+//    at d 256: 32 f32 of scores a thread, no spills, and a
+//    quarter less time on the card than the spilling 128-key steps
+//    (PERF.md; tools/flash_attention_variants.py d256_keys_128).
+//    P is packed to bf16 a 16-key step at a time as the scores are
+//    exponentiated, so the f32 scores die as P is built;
+//  - tensor cores: QK^T is one wgmma m64n64k16 chain of 16 steps a 64-key
+//    step, over the two K slots; P.V runs on wgmma too (m64n128k16 with P
+//    from registers and V MN-major, one product a 16-key step and column
+//    half: the two V slots need not be adjacent in the ring, so no N-256
+//    product spans them), accumulating into the context itself;
+//  - reuse: a unit is the two warpgroups' row tiles of one item, and the
+//    units are dealt round the blocks in order, so the S / 128 units of
+//    an item run on neighbouring SMs at once and read its K and V from
+//    device memory once and from L2 S / 128 times.  (Whole items a block,
+//    their units one after another, keep 132 items' K and V, 67 MB at S
+//    512, in flight: more than the 50 MB L2.)
+// Liberties of D 256 beyond those above, inside the same atol 1e-2
+// (tests/test_torch_flash_wide.py emulates the kernel's order on the CPU
+// and holds it to the plain version and to jax's kernel):
+//  - above S 128 the online softmax steps over 64 keys, not jax's 128: P
+//    is rounded to bf16 against the running max over the keys up to the
+//    end of its 64-key step.  S 128 keeps jax's single step, P = p /
+//    sum(p) rounded against the row's max over all 128 keys, in an
+//    instantiation of its own that takes the block in two passes of
+//    64-key steps (the first for each row's max and sum, the second, QK^T
+//    again, for P and P.V): 128 keys of scores beside the context spilled.
+//    Its sum is the online softmax's (a rescale of the first step's share
+//    by exp(m_0 - m)), not jax's sum in one order: a few f32 ulps;
+//  - the context accumulates unnormalised (acc = acc alpha + P.V, l = l
+//    alpha + sum(p), alpha = exp(m - m_next)) and is divided by l once at
+//    the end: jax's normalised update (acc_jax = acc / l after every
+//    block) rearranged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <float.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -347,6 +396,60 @@ __device__ __forceinline__ void attend(Rows<D>& r, float (&s)[64], const StageHe
   }
 }
 
+// The producer warp's view of a pair's segment ids.  Lane j: the ids in
+// [0, 32) of positions 32j .. 32j + 31 as bits (gp), and whether they hold
+// any other id (go); kBatch loads in flight.
+template <int kBatch>
+__device__ __forceinline__ void presence(const int32_t* srow, int S, int lane, uint32_t& gp,
+                                         uint32_t& go) {
+  constexpr uint32_t kAll = 0xffffffffu;
+  gp = 0;
+  go = 0;
+#pragma unroll
+  for (int j0 = 0; j0 < kMaxS / 32; j0 += kBatch) {
+    int v[kBatch];  // this lane's ids: position lane + 32j
+#pragma unroll
+    for (int jj = 0; jj < kBatch; ++jj)
+      v[jj] = j0 + jj < S / 32 ? srow[lane + 32 * (j0 + jj)] : 0;
+#pragma unroll
+    for (int jj = 0; jj < kBatch; ++jj) {
+      if (j0 + jj >= S / 32) break;
+      const uint32_t p = __reduce_or_sync(kAll, (unsigned)v[jj] < 32u ? 1u << v[jj] : 0u);
+      const uint32_t o = __any_sync(kAll, (unsigned)v[jj] >= 32u);
+      if (lane == j0 + jj) gp = p, go = o;
+    }
+  }
+}
+
+// 128-key block kb of a pair: its ids (x, lane's keys lane + 32u), their
+// least and largest (one id fills it when they are equal), and the bits
+// of the unit's tiles t0 .. t0 + kWg - 1 that share an id with it
+template <int kWg>
+__device__ __forceinline__ uint32_t block_need(const int32_t* srow, int kb, int t0, int T,
+                                               uint32_t gp, uint32_t go, int lane, int (&x)[4],
+                                               int& lo, int& hi) {
+  constexpr uint32_t kAll = 0xffffffffu;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) x[u] = srow[kb * kKeys + lane + 32 * u];
+  lo = __reduce_min_sync(kAll, min(min(x[0], x[1]), min(x[2], x[3])));
+  hi = __reduce_max_sync(kAll, max(max(x[0], x[1]), max(x[2], x[3])));
+  uint32_t bp = 0, bo = 0;  // the block's presence bits, any other id
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    bp |= __shfl_sync(kAll, gp, 4 * kb + u);
+    bo |= __shfl_sync(kAll, go, 4 * kb + u);
+  }
+  uint32_t need = 0;
+#pragma unroll
+  for (int w = 0; w < kWg; ++w) {
+    const int tt = min(t0 + w, T - 1);
+    const uint32_t tp = __shfl_sync(kAll, gp, 2 * tt) | __shfl_sync(kAll, gp, 2 * tt + 1);
+    const uint32_t to = __shfl_sync(kAll, go, 2 * tt) | __shfl_sync(kAll, go, 2 * tt + 1);
+    if (t0 + w < T && (to || bo || (tp & bp))) need |= 1u << w;
+  }
+  return need;
+}
+
 // The producer warp: for each unit (an item's row tiles, one a consumer
 // warpgroup) and each 128-key block, the block's segment ids, which of the
 // unit's tiles attend it, and its K and V by TMA where any does.
@@ -356,54 +459,18 @@ __device__ __forceinline__ void produce(const CUtensorMap* kmap, const CUtensorM
                                         StageHead* head, uint64_t* full, uint64_t* empty,
                                         int n_items, int S, int H, int nst, int lane) {
   using C = Cfg<D>;
-  constexpr uint32_t kAll = 0xffffffffu;
   const int T = S / kRows, nb = S / kKeys;
   int n = 0;  // stages filled
   for (int i = 0; i < n_items; ++i) {
     const int item = blockIdx.x + i * gridDim.x;
     const int pair = item / H, hd = item - pair * H;
     const int32_t* srow = seg + (size_t)pair * S;
-    // lane j: the ids in [0, 32) of positions 32j .. 32j + 31 as bits, and
-    // whether they hold any other id
-    uint32_t gp = 0, go = 0;
-    constexpr int kBatch = C::kProducerRegs >= 40 ? kMaxS / 32 : 4;  // loads in flight
-#pragma unroll
-    for (int j0 = 0; j0 < kMaxS / 32; j0 += kBatch) {
-      int v[kBatch];  // this lane's ids: position lane + 32j
-#pragma unroll
-      for (int jj = 0; jj < kBatch; ++jj)
-        v[jj] = j0 + jj < S / 32 ? srow[lane + 32 * (j0 + jj)] : 0;
-#pragma unroll
-      for (int jj = 0; jj < kBatch; ++jj) {
-        if (j0 + jj >= S / 32) break;
-        const uint32_t p = __reduce_or_sync(kAll, (unsigned)v[jj] < 32u ? 1u << v[jj] : 0u);
-        const uint32_t o = __any_sync(kAll, (unsigned)v[jj] >= 32u);
-        if (lane == j0 + jj) gp = p, go = o;
-      }
-    }
+    uint32_t gp, go;
+    presence<C::kProducerRegs >= 40 ? kMaxS / 32 : 4>(srow, S, lane, gp, go);
     for (int t0 = 0; t0 < T; t0 += C::kWg) {  // a unit: tiles t0 .. t0 + kWg - 1
       for (int kb = 0; kb < nb; ++kb) {
-        // the block: its ids (lane's keys lane + 32u), their presence bits,
-        // any other id, whether one id fills it
-        int x[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) x[u] = srow[kb * kKeys + lane + 32 * u];
-        const int lo = __reduce_min_sync(kAll, min(min(x[0], x[1]), min(x[2], x[3])));
-        const int hi = __reduce_max_sync(kAll, max(max(x[0], x[1]), max(x[2], x[3])));
-        uint32_t bp = 0, bo = 0;
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          bp |= __shfl_sync(kAll, gp, 4 * kb + u);
-          bo |= __shfl_sync(kAll, go, 4 * kb + u);
-        }
-        uint32_t need = 0;
-#pragma unroll
-        for (int w = 0; w < C::kWg; ++w) {
-          const int tt = min(t0 + w, T - 1);
-          const uint32_t tp = __shfl_sync(kAll, gp, 2 * tt) | __shfl_sync(kAll, gp, 2 * tt + 1);
-          const uint32_t to = __shfl_sync(kAll, go, 2 * tt) | __shfl_sync(kAll, go, 2 * tt + 1);
-          if (t0 + w < T && (to || bo || (tp & bp))) need |= 1u << w;
-        }
+        int x[4], lo, hi;
+        const uint32_t need = block_need<C::kWg>(srow, kb, t0, T, gp, go, lane, x, lo, hi);
         const int s = n % nst;
         mbar_wait(&empty[s], ((n / nst) & 1) ^ 1);  // the first round passes
         StageHead& h = head[s];
@@ -604,197 +671,469 @@ int launch(const void* q, const void* k, const void* v, const void* seg, void* o
 }
 
 // ---------------------------------------------------------------------------
-// D 256: the kernel's first, simple design.  One block of four warps takes one
-// 64-row tile of one (pair, head); the grid is every (pair, head, row
-// tile).  The block stages its q tile once, then for each 128-key block
-// the keys' K and V rows and segment ids, in shared memory with 16-byte
-// loads (rows padded by 16 bytes, so ldmatrix reads them without bank
-// conflicts).  Each warp owns 16 query rows: QK^T on mma.sync m16n8k16,
-// the softmax on the f32 accumulator in registers with jax's additive
-// mask value -0.7 * FLT_MAX, the accurate expf and each product and sum
-// rounded on its own, and P.V on mma.sync with P straight from that
-// accumulator and V's B fragments by ldmatrix.trans.  It reads K and V
-// once per row tile, waits for each block's loads and computes every key.
+// D 256 (d256::flash256_kernel): flash_kernel<D>'s skeleton with K and V
+// staged as 32 KB slots of half a head's columns (see the file's header).
 
-constexpr int kWideWarps = 4;
-constexpr int kWideRows = 16 * kWideWarps;
-constexpr int kWideThreads = 32 * kWideWarps;
-constexpr int kWideD = 256;
-constexpr float kMaskValue = (float)(-0.7 * (double)FLT_MAX);  // jax's DEFAULT_MASK_VALUE
+namespace d256 {
 
-static_assert(kWideThreads == kKeys, "one thread stages each key's segment id");
+constexpr int D = 256;
+constexpr int kWg = 2;                      // consumer warpgroups: a unit is 2 row tiles
+constexpr int kThreads = 128 * (kWg + 1);   // and a producer warpgroup
+constexpr int kProducerRegs = 24;           // registers a thread after setmaxnreg
+constexpr int kConsumerRegs = 240;
+constexpr int kCw = 64;                     // values in a swizzled row of a column chunk
+constexpr int kRowB = 2 * kCw;              // its bytes, the swizzle: 128
+constexpr int kHalf = D / 2;                // columns of K or V a slot holds
+constexpr int kQChunk = kRows * kRowB;      // 8 KB: a column chunk of a q tile
+constexpr int kQBytes = D / kCw * kQChunk;  // 32 KB: a q tile
+constexpr int kSlotChunk = kKeys * kRowB;   // 16 KB: a column chunk of a block's 128 keys
+constexpr int kSlotBytes = kHalf / kCw * kSlotChunk;  // 32 KB
+constexpr int kSlotsABlock = 4;             // K columns 0-127, K 128-255, V 0-127, V 128-255
+constexpr int kMaxSlots = 8;
+constexpr int kSub = 64;                    // keys of an online-softmax step: half jax's block_k
 
-struct Wide {
-  static constexpr int kStride = kWideD * 2 + 16;  // bytes of a staged row
-  static constexpr int kNt = kWideD / 8;           // 8-wide column tiles of the context
-  static constexpr int kGran = kWideD / 8;         // 16-byte granules of a row
-  static constexpr size_t kSmem = (size_t)(kWideRows + 2 * kKeys) * kStride + kKeys * sizeof(int);
+static_assert(128 * (kProducerRegs + kWg * kConsumerRegs) <=
+                  kThreads * (65536 / kThreads / 8 * 8),
+              "the register budgets exceed the block's pool");
+
+// 1 KB to align the slots to the swizzle's atoms; the slots; one q tile a
+// consumer warpgroup; the heads of two blocks; each slot's full and empty
+// barriers and each q tile's (ops/flash_attention.py d256_plan mirrors this)
+constexpr size_t smem_bytes(int slots) {
+  return 1024 + (size_t)slots * kSlotBytes + kWg * (size_t)kQBytes + 2 * sizeof(StageHead) +
+         2 * slots * sizeof(uint64_t) + kWg * sizeof(uint64_t);
+}
+
+// as many slots as fit, up to kMaxSlots: 5
+constexpr int ring_slots() {
+  int n = kMaxSlots;
+  while (n > kSlotsABlock && smem_bytes(n) > kSmemLimit) --n;
+  return n;
+}
+static_assert(ring_slots() == 5 && smem_bytes(ring_slots()) == 231552 &&
+                  smem_bytes(ring_slots() + 1) > kSmemLimit,
+              "five 32 KB slots, two q tiles and the heads fill a block's shared memory");
+
+// s = q K^T over kSub keys from `key0` of the block, waited for; K's
+// column halves in slots k0 and k1.  s[4j + 2h + e] is row 16 warp + g +
+// 8h, key key0 + 8j + 2t + e.
+template <int N>
+__device__ __forceinline__ void scores(float (&s)[N], const unsigned char* qs,
+                                       const unsigned char* k0, const unsigned char* k1,
+                                       int key0) {
+  // q's descriptors are the same for every step of a tile, and S 128's
+  // second pass repeats its first's K descriptors: left to itself the
+  // compiler computes them once and keeps them live between the steps
+  uintptr_t qa = reinterpret_cast<uintptr_t>(qs), ka = reinterpret_cast<uintptr_t>(k0),
+            kb = reinterpret_cast<uintptr_t>(k1);
+  asm volatile("" : "+l"(qa), "+l"(ka), "+l"(kb));
+  qs = reinterpret_cast<const unsigned char*>(qa);
+  k0 = reinterpret_cast<const unsigned char*>(ka);
+  k1 = reinterpret_cast<const unsigned char*>(kb);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk / (kCw / 16), o = (kk % (kCw / 16)) * 32;  // column chunk, offset in its row
+    const unsigned char* ks = (c < 2 ? k0 : k1) + (c & 1) * kSlotChunk + key0 * kRowB + o;
+    wgmma_ss(s, wgmma_desc_sw128(qs + c * kQChunk + o), wgmma_desc_sw128(ks), kk > 0 ? 1u : 0u);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_pin(s);
+}
+
+// One consumer warp's 16 rows of one tile: the online-softmax state.
+struct Rows {
+  // the context, unnormalised: acc[4j + 2h + e] is row g + 8h, column 8j + 2t + e
+  float acc[D / 2];
+  float m[2];        // running max of the unscaled scores
+  float l[2];        // this thread's share of the running sum
+  int seg[2];        // the rows' segment ids
 };
 
-// rows [row0, row0 + n) of one (pair, head) of x into shared memory
-__device__ __forceinline__ void stage_rows(unsigned char* dst, const __nv_bfloat16* __restrict__ x,
-                                           size_t base, size_t tok, int row0, int n) {
-  for (int i = threadIdx.x; i < n * Wide::kGran; i += kWideThreads) {
-    const int r = i / Wide::kGran, gi = i - r * Wide::kGran;
-    *reinterpret_cast<uint4*>(dst + r * Wide::kStride + gi * 16) =
-        *reinterpret_cast<const uint4*>(x + base + (size_t)(row0 + r) * tok + gi * 8);
+// The segment test of the block's keys key0 .. key0 + kSub - 1: a key of
+// another id takes score -inf; none[h] when row h attends no key of a
+// block that one id fills.
+template <int N>
+__device__ __forceinline__ void segment_test(const Rows& r, float (&s)[N], const StageHead& h,
+                                             int key0, int lane, bool (&none)[2]) {
+  none[0] = none[1] = false;
+  if (h.uniform) {
+    none[0] = r.seg[0] != h.id;
+    none[1] = r.seg[1] != h.id;
+    return;
+  }
+  const int* ids = h.ids + key0 + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    if (j % 4 == 0) asm volatile("" ::: "memory");  // four ids' loads in flight, not all
+    const int2 kid = *reinterpret_cast<const int2*>(ids + 8 * j);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      s[4 * j + 2 * hh] = kid.x == r.seg[hh] ? s[4 * j + 2 * hh] : -INFINITY;
+      s[4 * j + 2 * hh + 1] = kid.y == r.seg[hh] ? s[4 * j + 2 * hh + 1] : -INFINITY;
+    }
   }
 }
 
-__global__ void __launch_bounds__(kWideThreads)
-flash_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ seg,
-                  __nv_bfloat16* __restrict__ out, int S, int H, float scale) {
-  using F = Wide;
-  constexpr int D = kWideD;
-  extern __shared__ __align__(16) unsigned char flash_smem[];
-  unsigned char* qs = flash_smem;
-  unsigned char* ks = qs + kWideRows * F::kStride;
-  unsigned char* vs = ks + kKeys * F::kStride;
-  int* segk = reinterpret_cast<int*>(vs + kKeys * F::kStride);
-
-  const int T = S / kWideRows;
-  const int tile = blockIdx.x % T, item = blockIdx.x / T;
-  const int pair = item / H, hd = item - pair * H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t tok = (size_t)H * D;
-  const size_t base = (size_t)pair * S * tok + (size_t)hd * D;
-  const int32_t* srow = seg + (size_t)pair * S;
-
-  stage_rows(qs, q, base, tok, tile * kWideRows, kWideRows);
-  const int ra = tile * kWideRows + 16 * warp + g, rb = ra + 8;  // this thread's two rows
-  const int seg_a = srow[ra], seg_b = srow[rb];
-  // ldmatrix row addresses: q's A fragments (matrix i = lane / 8: rows 8 (i
-  // & 1) .., columns 8 (i >> 1) ..); K's B fragments (lanes 0-7 a key's
-  // first 8 values of a 16-value step, lanes 8-15 its second 8); V's
-  // transposed B fragments (matrix i: keys 8 (i & 1) .., columns 8 (i >> 1) ..)
-  const int mi = lane >> 3;
-  const unsigned char* qrow = qs + (16 * warp + (lane & 7) + 8 * (mi & 1)) * F::kStride + (mi >> 1) * 16;
-  const unsigned char* krow = ks + (lane & 7) * F::kStride + (mi & 1) * 16;
-  const unsigned char* vrow = vs + ((lane & 7) + 8 * (mi & 1)) * F::kStride + (mi >> 1) * 16;
-
-  const bool single = S == kKeys;  // jax's single-step kernel
-  float o[F::kNt][4] = {};
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int kb = 0; kb < S / kKeys; ++kb) {
-    __syncthreads();  // every warp is done with the last block
-    stage_rows(ks, k, base, tok, kb * kKeys, kKeys);
-    stage_rows(vs, v, base, tok, kb * kKeys, kKeys);
-    segk[threadIdx.x] = srow[kb * kKeys + threadIdx.x];
-    __syncthreads();
-
-    // s: row g keys 8j + 2t, 8j + 2t + 1 in s[j][0..1], row g + 8 in s[j][2..3]
-    float s[kKeys / 8][4];
+// A step's row maxima: m_next = max(m, rowmax) into r.m, alpha = ex2((m -
+// m_next) c2) (1 while m_next is -inf), and the factors of the FFMA that
+// makes p = ex2(s cr + nm): cr = c2, nm = -m_next c2, or 0 and -inf for a
+// row that attends none of the block.
+template <int N>
+__device__ __forceinline__ void step_max(Rows& r, const float (&s)[N], const bool (&none)[2],
+                                         float c2, float (&cr)[2], float (&nm)[2],
+                                         float (&alpha)[2]) {
 #pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  for (int hh = 0; hh < 2; ++hh) {  // four chains a row, not one of N / 2 dependent FMNMX
+    float x[4];
 #pragma unroll
-    for (int k16 = 0; k16 < D / 16; ++k16) {
-      uint32_t qa[4];
-      ldsm_x4(qa, qrow + k16 * 32);
+    for (int u = 0; u < 4; ++u) x[u] = fmaxf(s[4 * u + 2 * hh], s[4 * u + 2 * hh + 1]);
 #pragma unroll
-      for (int j = 0; j < kKeys / 8; ++j) {
-        uint32_t b0, b1;
-        ldsm_x2(b0, b1, krow + 8 * j * F::kStride + k16 * 32);
-        mma_bf16(s[j], qa, b0, b1);
-      }
+    for (int j = 4; j < N / 4; ++j)
+      x[j & 3] = fmaxf(x[j & 3], fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+    float mx = quad_max(fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3])));
+    if (none[hh]) mx = -INFINITY;
+    const float mn = fmaxf(r.m[hh], mx);
+    const bool empty = mn == -INFINITY;  // no key of the row's segment yet
+    alpha[hh] = empty ? 1.f : ex2((r.m[hh] - mn) * c2);
+    cr[hh] = none[hh] ? 0.f : c2;
+    nm[hh] = none[hh] ? -INFINITY : (empty ? 0.f : -mn * c2);
+    r.m[hh] = mn;
+  }
+}
+
+// S 128's first pass over a step: the row maxima and this thread's share
+// of the sums, as the online softmax takes them, and no P.
+template <int N>
+__device__ __forceinline__ void step_stats(Rows& r, const float (&s)[N], const bool (&none)[2],
+                                           float c2) {
+  float cr[2], nm[2], alpha[2], ls[2] = {0.f, 0.f};
+  step_max(r, s, none, c2, cr, nm, alpha);
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    ls[(i >> 1) & 1] += ex2(fmaf(s[i], cr[(i >> 1) & 1], nm[(i >> 1) & 1]));
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) r.l[hh] = fmaf(r.l[hh], alpha[hh], ls[hh]);
+}
+
+// The softmax of a step: p = ex2(s c2 - m c2) rounded to bf16 into P's A
+// fragments (a 16-key step each), packed as they are made so the f32
+// scores die; alpha rescales the context and this thread's share of l.
+// FINAL (S 128's second pass): m and l are the row's over all its keys
+// (alpha 1), and P is p / sum(p), rounded, as jax's single step makes it.
+template <bool FINAL, int N>
+__device__ __forceinline__ void softmax(Rows& r, float (&s)[N], const bool (&none)[2], float c2,
+                                        uint32_t (&pa)[N / 8][4], float (&alpha)[2]) {
+  float cr[2], nm[2], rl[2] = {1.f, 1.f}, ls[2] = {0.f, 0.f};
+  step_max(r, s, none, c2, cr, nm, alpha);
+  if constexpr (FINAL) {
+    rl[0] = 1.f / quad_sum(r.l[0]);
+    rl[1] = 1.f / quad_sum(r.l[1]);
+  }
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) {
+#pragma unroll
+    for (int i = 8 * kk; i < 8 * kk + 8; ++i) {
+      s[i] = ex2(fmaf(s[i], cr[(i >> 1) & 1], nm[(i >> 1) & 1]));
+      if constexpr (FINAL)
+        s[i] *= rl[(i >> 1) & 1];
+      else
+        ls[(i >> 1) & 1] += s[i];
     }
-    float mc[2] = {-INFINITY, -INFINITY};
+    // pa[kk]: row g keys 2t, 2t + 1; row g + 8; row g keys 2t + 8, 2t + 9; row g + 8
 #pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j) {
-      const int s0 = segk[8 * j + 2 * t], s1 = segk[8 * j + 2 * t + 1];
+    for (int f = 0; f < 4; ++f) pa[kk][f] = pack_bf16(s[8 * kk + 2 * f], s[8 * kk + 2 * f + 1]);
+  }
+  if constexpr (!FINAL) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int sq = e < 2 ? seg_a : seg_b;
-        const int sk = e & 1 ? s1 : s0;
-        s[j][e] = __fadd_rn(__fmul_rn(s[j][e], scale), sq == sk ? 0.f : kMaskValue);
-        mc[e >> 1] = fmaxf(mc[e >> 1], s[j][e]);
-      }
-    }
-    float corr[2], inv[2];
+    for (int hh = 0; hh < 2; ++hh) r.l[hh] = fmaf(r.l[hh], alpha[hh], ls[hh]);
+  }
+}
+
+// acc = acc alpha + P.V over a step's N / 2 keys from key0: wgmma
+// m64n128k16 a 16-key step and column half, P from registers, V MN-major
+// in its slots (atoms of 8 keys x 64 columns, 16 KB between column
+// chunks).  A warp whose rows' maxima all stayed put (alpha 1) skips the
+// rescale: exact, and on the card a tenth of the kernel's time (PERF.md;
+// tools/flash_attention_variants.py d256_eager_rescale).
+template <int N>
+__device__ __forceinline__ void pv(Rows& r, const uint32_t (&pa)[N / 8][4],
+                                   const float (&alpha)[2], const unsigned char* v0,
+                                   const unsigned char* v1, int key0) {
+  if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_next = fmaxf(m[r], quad_max(mc[r]));
-      float ls = 0.f;
+    for (int i = 0; i < D / 2; ++i) r.acc[i] *= alpha[(i >> 1) & 1];
+  }
+  float (&lo)[D / 4] = *reinterpret_cast<float (*)[D / 4]>(r.acc);
+  float (&hi)[D / 4] = *reinterpret_cast<float (*)[D / 4]>(r.acc + D / 4);
+  wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < kKeys / 8; ++j) {
-        s[j][2 * r] = expf(s[j][2 * r] - m_next);
-        s[j][2 * r + 1] = expf(s[j][2 * r + 1] - m_next);
-        ls += s[j][2 * r] + s[j][2 * r + 1];
-      }
-      ls = quad_sum(ls);
-      if (single) {  // p / l, then the product alone
+  for (int kk = 0; kk < N / 8; ++kk) {
+    const int off = (key0 + 16 * kk) * kRowB;
+    wgmma_rs_mn(lo, pa[kk], wgmma_desc_mn<kRowB>(v0 + off, kSlotChunk), 1u);
+    wgmma_rs_mn(hi, pa[kk], wgmma_desc_mn<kRowB>(v1 + off, kSlotChunk), 1u);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_pin(r.acc);
+}
+
+// The work: units, each the kWg row tiles 2u, 2u + 1 of one item, in the
+// order item 0's units, item 1's, ...; unit w goes to block w % gridDim.x.
+// So the units of one item run on neighbouring SMs at the same time and
+// share its K and V in L2 (one item's K and V are 512 KB at S 512: an
+// item's units run one after another on one SM would keep 132 of them,
+// more than the 50 MB L2, in flight).
+__device__ __forceinline__ int units_of_block(int items, int units) {
+  return (items * units - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+}
+
+// the block's k-th unit: its item and its unit in the item
+__device__ __forceinline__ void unit_of(int k, int units, int& item, int& u) {
+  const int w = blockIdx.x + k * gridDim.x;
+  item = w / units;
+  u = w - item * units;
+}
+
+// The producer warp: for each unit and each 128-key block, the block's
+// head (ids, which of the unit's tiles attend it) with its first slot, and
+// its four slots by TMA where any tile does.
+__device__ __forceinline__ void produce(const CUtensorMap* kmap, const CUtensorMap* vmap,
+                                        const int32_t* __restrict__ seg, unsigned char* slots,
+                                        StageHead* heads, uint64_t* full, uint64_t* empty,
+                                        int n_units, int S, int H, int ns, int lane) {
+  const int T = S / kRows, nb = S / kKeys, units = T / kWg;
+  int n = 0, blk = 0;  // slots filled, blocks staged
+  for (int k = 0; k < n_units; ++k) {
+    int item, u;
+    unit_of(k, units, item, u);
+    const int pair = item / H, hd = item - pair * H;
+    const int32_t* srow = seg + (size_t)pair * S;
+    uint32_t gp, go;
+    presence<4>(srow, S, lane, gp, go);
+    const int t0 = u * kWg;
+    for (int kb = 0; kb < nb; ++kb, ++blk) {
+      int x[4], lo, hi;
+      const uint32_t need = block_need<kWg>(srow, kb, t0, T, gp, go, lane, x, lo, hi);
+#pragma unroll 1
+      for (int part = 0; part < kSlotsABlock; ++part, ++n) {
+        const int s = n % ns;
+        mbar_wait(&empty[s], ((n / ns) & 1) ^ 1);  // the first round passes
+        if (part == 0) {
+          // the head two blocks back is free: this slot's last tenant was
+          // that block's or a later one's, released after its readers
+          StageHead& h = heads[blk & 1];
 #pragma unroll
-        for (int j = 0; j < kKeys / 8; ++j) {
-          s[j][2 * r] = __fdiv_rn(s[j][2 * r], ls);
-          s[j][2 * r + 1] = __fdiv_rn(s[j][2 * r + 1], ls);
+          for (int u = 0; u < 4; ++u) h.ids[lane + 32 * u] = x[u];
+          if (lane == 0) {
+            h.need = need;
+            h.uniform = lo == hi;
+            h.id = lo;
+          }
         }
-        corr[r] = 0.f;
-        inv[r] = 1.f;
-      } else {
-        const float l_corr = __fmul_rn(expf(m[r] - m_next), l[r]);
-        const float l_next = __fadd_rn(ls, l_corr);
-        inv[r] = l_next == 0.f ? 1.f : __fdiv_rn(1.f, l_next);
-        corr[r] = __fmul_rn(l_corr, inv[r]);
-        m[r] = m_next;
-        l[r] = l_next;
+        if (lane == 0 && need) {
+          mbar_arrive_expect_tx(&full[s], kSlotBytes);
+          const CUtensorMap* map = part < 2 ? kmap : vmap;
+#pragma unroll
+          for (int c = 0; c < kHalf / kCw; ++c)
+            tma_load_3d(slots + (size_t)s * kSlotBytes + c * kSlotChunk, map, &full[s],
+                        hd * D + (part & 1) * kHalf + c * kCw, kb * kKeys, pair);
+        } else {
+          mbar_arrive(&full[s]);
+        }
       }
     }
-    uint32_t pa[kKeys / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk) {
-      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    }
-#pragma unroll
-    for (int half = 0; half < F::kNt / 2; ++half) {  // context columns 16 half ..
-      float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kk = 0; kk < kKeys / 16; ++kk) {
-        uint32_t vf[4];
-        ldsm_x4_trans(vf, vrow + 16 * kk * F::kStride + half * 32);
-        mma_bf16(c0, pa[kk], vf[0], vf[1]);
-        mma_bf16(c1, pa[kk], vf[2], vf[3]);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        o[2 * half][e] = __fadd_rn(__fmul_rn(o[2 * half][e], corr[r]), __fmul_rn(c0[e], inv[r]));
-        o[2 * half + 1][e] =
-            __fadd_rn(__fmul_rn(o[2 * half + 1][e], corr[r]), __fmul_rn(c1[e], inv[r]));
-      }
-    }
-  }
-#pragma unroll
-  for (int dn = 0; dn < F::kNt; ++dn) {
-    const int col = 8 * dn + 2 * t;
-    *reinterpret_cast<uint32_t*>(out + base + (size_t)ra * tok + col) = pack_bf16(o[dn][0], o[dn][1]);
-    *reinterpret_cast<uint32_t*>(out + base + (size_t)rb * tok + col) = pack_bf16(o[dn][2], o[dn][3]);
   }
 }
 
-int launch_wide(const void* q, const void* k, const void* v, const void* seg, void* out, int B,
-                int S, int H, float scale, cudaStream_t stream) {
-  const long long blocks = (long long)B * H * (S / kWideRows);
-  if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
+// The online softmax in kSub-key steps.  SINGLE: S 128, jax's single step
+// over the block's 128 keys in two passes of the same steps, the first for
+// each row's max and sum, the second (QK^T again) for P = p / sum(p) and
+// P.V: 128 keys of scores beside the context spill.
+template <bool SINGLE>
+__global__ void __launch_bounds__(kThreads, 1)
+flash256_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap, const int32_t* __restrict__ seg,
+                __nv_bfloat16* __restrict__ out, int P, int S, int H, float scale, int ns) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* slots = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* qtiles = slots + (size_t)ns * kSlotBytes;  // [kWg][kQBytes]
+  StageHead* heads = reinterpret_cast<StageHead*>(qtiles + kWg * kQBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(heads + 2);
+  uint64_t* empty = full + ns;
+  uint64_t* qfull = empty + ns;  // [kWg]
+
+  const int units = S / (kWg * kRows), nb = S / kKeys;
+  const int n_units = units_of_block(P * H, units);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ns; ++s) {
+      mbar_init(&full[s], 32);         // every producer lane, after its head writes
+      mbar_init(&empty[s], 4 * kWg);   // every consumer warp, when done with the slot
+    }
+    for (int w = 0; w < kWg; ++w) mbar_init(&qfull[w], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kWg) {  // the producer warpgroup: one warp works
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 4 * kWg)
+      produce(&kmap, &vmap, seg, slots, heads, full, empty, n_units, S, H, ns, lane);
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  // Consumer warpgroup wg takes row tile 2u + wg of each of the block's
+  // units, in lockstep with the other through the slots.  Its one
+  // q buffer is reloaded by TMA once every warp of it is past the tile's
+  // last QK^T, so the load overlaps that block's softmax and P.V.
+  const int wg = warp >> 2, wl = warp & 3;
+  const bool leader = (threadIdx.x & 127) == 0;
+  const unsigned char* qs = qtiles + wg * kQBytes;
+  uint64_t* my_qfull = qfull + wg;
+  auto load_q = [&](int k) {
+    int item, u;
+    unit_of(k, units, item, u);
+    const int pair = item / H, hd = item - pair * H;
+    mbar_arrive_expect_tx(my_qfull, kQBytes);
+#pragma unroll
+    for (int c = 0; c < D / kCw; ++c)
+      tma_load_3d(qtiles + wg * kQBytes + c * kQChunk, &qmap, my_qfull, hd * D + c * kCw,
+                  (u * kWg + wg) * kRows, pair);
+  };
+  const size_t tok = (size_t)H * D;  // stride of one token
+  const float c2 = scale * kLog2e;
+  if (leader && n_units > 0) load_q(0);
+  int n = 0, blk = 0;  // slots passed, blocks passed
+  for (int pos = 0; pos < n_units; ++pos) {
+    int item, u;
+    unit_of(pos, units, item, u);
+    const int pair = item / H;
+    const size_t base = (size_t)pair * S * tok + (size_t)(item - pair * H) * D;
+    const int ra = (u * kWg + wg) * kRows + 16 * wl + (lane >> 2), rb = ra + 8;
+    Rows r;
+    r.m[0] = r.m[1] = -INFINITY;
+    r.l[0] = r.l[1] = 0.f;
+    r.seg[0] = seg[(size_t)pair * S + ra];
+    r.seg[1] = seg[(size_t)pair * S + rb];
+    mbar_wait(my_qfull, pos & 1);
+    if constexpr (!SINGLE) {
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) r.acc[e] = 0.f;
+    }
+    for (int kb = 0; kb < nb; ++kb, ++blk, n += kSlotsABlock) {
+      const int sk0 = n % ns, sk1 = (n + 1) % ns, sv0 = (n + 2) % ns, sv1 = (n + 3) % ns;
+      mbar_wait(&full[sk0], (n / ns) & 1);
+      mbar_wait(&full[sk1], ((n + 1) / ns) & 1);
+      const StageHead& h = heads[blk & 1];
+      const bool need = (h.need >> wg) & 1u;
+      const unsigned char* k0 = slots + (size_t)sk0 * kSlotBytes;
+      const unsigned char* k1 = slots + (size_t)sk1 * kSlotBytes;
+      const unsigned char* v0 = slots + (size_t)sv0 * kSlotBytes;
+      const unsigned char* v1 = slots + (size_t)sv1 * kSlotBytes;
+      if constexpr (SINGLE) {  // the first pass: each row's max and sum
+#pragma unroll
+        for (int key0 = 0; key0 < kKeys; key0 += kSub) {
+          float sc[kSub / 2];
+          bool none[2];
+          if (need) {
+            scores(sc, qs, k0, k1, key0);
+            segment_test(r, sc, h, key0, lane, none);
+            step_stats(r, sc, none, c2);
+          }
+        }
+        // the zero context, made here: made at the tile's start, its
+        // registers sat beside the first pass's and spilled
+#pragma unroll
+        for (int e = 0; e < D / 2; ++e) r.acc[e] = 0.f;
+      }
+#pragma unroll
+      for (int key0 = 0; key0 < kKeys; key0 += kSub) {
+        float sc[kSub / 2];
+        bool none[2];
+        if (need) {
+          scores(sc, qs, k0, k1, key0);
+          segment_test(r, sc, h, key0, lane, none);
+        }
+        if (key0 + kSub == kKeys) {  // done with K: its slots go back to the producer
+          __syncwarp();
+          if (lane == 0) {
+            mbar_arrive(&empty[sk0]);
+            mbar_arrive(&empty[sk1]);
+          }
+          if (kb == nb - 1) {  // and with q: every warp is past its last wgmma
+            named_barrier(1 + wg, 128);
+            if (leader && pos + 1 < n_units) load_q(pos + 1);
+          }
+        }
+        uint32_t pa[kSub / 16][4];
+        float alpha[2];
+        if (need) softmax<SINGLE>(r, sc, none, c2, pa, alpha);
+        if (key0 == 0) {
+          mbar_wait(&full[sv0], ((n + 2) / ns) & 1);
+          mbar_wait(&full[sv1], ((n + 3) / ns) & 1);
+        }
+        if (need) pv<kSub / 2>(r, pa, alpha, v0, v1, key0);
+      }
+      __syncwarp();
+      if (lane == 0) {  // done with V
+        mbar_arrive(&empty[sv0]);
+        mbar_arrive(&empty[sv1]);
+      }
+    }
+    // the context over the row's sum (P holds p / sum(p) at S 128)
+    float inv[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float l = quad_sum(r.l[hh]);
+      inv[hh] = SINGLE || l == 0.f ? 1.f : 1.f / l;
+    }
+    const int t = lane & 3;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(out + base + (size_t)ra * tok + col) =
+          pack_bf16(r.acc[4 * j] * inv[0], r.acc[4 * j + 1] * inv[0]);
+      *reinterpret_cast<uint32_t*>(out + base + (size_t)rb * tok + col) =
+          pack_bf16(r.acc[4 * j + 2] * inv[1], r.acc[4 * j + 3] * inv[1]);
+    }
+  }
+}
+
+template <bool SINGLE>
+int launch(const void* q, const void* k, const void* v, const void* seg, void* out, int P, int S,
+           int H, float scale, cudaStream_t stream) {
+  CUtensorMap qmap, kmap, vmap;
+  if (!tile_map(&qmap, q, P, S, H, D, kCw, kRows) || !tile_map(&kmap, k, P, S, H, D, kCw, kKeys) ||
+      !tile_map(&vmap, v, P, S, H, D, kCw, kKeys))
+    return (int)cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  // whether this device has raised the kernel's shared-memory limit
-  static std::atomic<bool> raised[64];
-  if (!raised[dev & 63].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(flash_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)Wide::kSmem);
+  constexpr int ns = ring_slots();
+  constexpr size_t smem = smem_bytes(ns);
+  // as launch<D>'s: SMs of each device, 0 until a launch there has raised
+  // this instantiation's shared-memory limit
+  static std::atomic<int> sms[64];
+  int n_sm = sms[dev & 63].load(std::memory_order_acquire);
+  if (n_sm == 0) {
+    err = cudaFuncSetAttribute(flash256_kernel<SINGLE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
-    raised[dev & 63].store(true, std::memory_order_release);
+    sms[dev & 63].store(n_sm, std::memory_order_release);
   }
-  flash_wide_kernel<<<(unsigned)blocks, kWideThreads, Wide::kSmem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const int32_t*)seg, (__nv_bfloat16*)out, S, H, scale);
+  const int work = P * H * (S / (kWg * kRows));  // units
+  const int ctas = work < n_sm ? work : n_sm;       // one block an SM
+  flash256_kernel<SINGLE><<<ctas, kThreads, smem, stream>>>(
+      qmap, kmap, vmap, (const int32_t*)seg, (__nv_bfloat16*)out, P, S, H, scale, ns);
   return (int)cudaGetLastError();
 }
+
+}  // namespace d256
 
 }  // namespace
 
@@ -814,7 +1153,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, cons
     case 32: return launch<32>(q, k, v, seg, out, B, S, H, scale, st);
     case 64: return launch<64>(q, k, v, seg, out, B, S, H, scale, st);
     case 128: return launch<128>(q, k, v, seg, out, B, S, H, scale, st);
-    case 256: return launch_wide(q, k, v, seg, out, B, S, H, scale, st);
+    case 256:
+      return S == kKeys ? d256::launch<true>(q, k, v, seg, out, B, S, H, scale, st)
+                        : d256::launch<false>(q, k, v, seg, out, B, S, H, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -43,7 +43,21 @@ other shape.
 - :func:`encoder_flash_attention` is the entry point: a CPU tensor runs
   :func:`flash_attention_plain`; a CUDA tensor launches the hand-written
   Hopper kernel ``csrc/flash_attention.cu`` or raises; any other device
-  raises.  A CUDA input that requires grad under grad mode raises
+  raises.  Heads of 32, 64 and 128 run ``flash_kernel<D>`` (a TMA ring of
+  128-key K and V stages) and count on ``encoder_flash_attention.launches``;
+  heads of 256 run ``d256::flash256_kernel`` and count on
+  ``.launches_wide``.  The D-256 kernel stages K and V as 32 KB slots of
+  half a head's columns (K 0-127, K 128-255, V 0-127, V 128-255 a block)
+  through a ring of five, with two consumer warpgroups and QK^T and P.V
+  on ``wgmma``.  Above S 128 its online softmax steps over 64 keys, not
+  jax's 128-key blocks, so P is rounded to bf16 against a 64-key step's
+  running max, and the context accumulates unnormalised and is divided by
+  the row sum once at the end (jax's normalised update rearranged); S 128
+  keeps jax's single step in two passes over the block (the row's max
+  and sum, then P = p / sum(p)).  These are liberties within the kernel's
+  atol 1e-2, emulated on the CPU in ``tests/test_torch_flash_wide.py``;
+  :func:`d256_plan` mirrors its shared memory and register budgets.
+  A CUDA input that requires grad under grad mode raises
   (``_cuda.refuse_grad``): neither this kernel nor JAX's forward-only
   configuration has a backward, and a graded forward of the encoder takes
   the einsum path (``models/bert.py _flash_enabled``).
@@ -53,6 +67,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -64,6 +79,47 @@ MAX_SEQ = 512
 WIDE_HEAD_DIM = 256  # the one head width above 128 the kernel takes
 KERNEL_WIDTHS = (32, 64, 128, WIDE_HEAD_DIM)  # the head widths the kernel is built for
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
+SMEM_LIMIT = 232448  # shared memory a block may take on the H100
+
+
+class D256Plan(NamedTuple):
+    """The D-256 kernel's launch, as ``csrc/flash_attention.cu`` (namespace
+    ``d256``) computes it."""
+
+    consumers: int      # consumer warpgroups, one 64-row tile each a unit
+    threads: int        # and a producer warpgroup
+    producer_regs: int  # registers a thread after setmaxnreg
+    consumer_regs: int
+    regs_fit: bool      # the budgets fit the launch's register pool
+    slot_order: tuple   # what a block's slots hold, in the order they fill
+    slot_bytes: int     # one slot: 128 keys x 128 columns of bf16
+    slots: int          # slots in the ring
+    smem: int           # dynamic shared memory, bytes
+    step: int           # keys of an online-softmax step above S 128
+
+
+def d256_plan() -> D256Plan:
+    """Mirror of ``d256``'s constants, ``smem_bytes`` and ``ring_slots``:
+    as many 32 KB slots as fit beside one 32 KB q tile a consumer
+    warpgroup, the heads of two blocks (segment ids and flags, 528 bytes
+    each) and an 8-byte barrier a slot twice and a q tile once."""
+    consumers, producer, consumer = 2, 24, 240
+    threads = 128 * (consumers + 1)
+    pool = threads * (65536 // threads // 8 * 8)
+    order = ("K[:, :128]", "K[:, 128:]", "V[:, :128]", "V[:, 128:]")
+    slot = BLOCK * (WIDE_HEAD_DIM // 2) * 2
+    q_tile = 64 * WIDE_HEAD_DIM * 2
+    head = 16 + 4 * BLOCK
+
+    def smem(slots):
+        return 1024 + slots * slot + consumers * q_tile + 2 * head + 16 * slots + 8 * consumers
+
+    slots = 8
+    while slots > len(order) and smem(slots) > SMEM_LIMIT:
+        slots -= 1
+    return D256Plan(consumers, threads, producer, consumer,
+                    128 * (producer + consumers * consumer) <= pool, order, slot, slots,
+                    smem(slots), BLOCK // 2)
 
 
 def check_shape(seq: int, head_dim: int) -> None:
@@ -155,7 +211,8 @@ def flash_attention_kernel(
 ) -> torch.Tensor:
     """Launch ``csrc/flash_attention.cu`` on the current stream; returns
     the (B, S, H, dp) bf16 context.  Raises on anything the kernel does
-    not take."""
+    not take.  Counts the launch on ``encoder_flash_attention.launches``
+    (heads of 32-128) or ``.launches_wide`` (256)."""
     b, s, h, dp = qb.shape
     check_shape(s, dp)
     if dp not in KERNEL_WIDTHS:
@@ -174,8 +231,9 @@ def flash_attention_kernel(
     with _cuda.on_device(qb.device):
         _cuda.launch(_kernel_fn(), "flash_attention", qb.data_ptr(), kb.data_ptr(),
                      vb.data_ptr(), seg.data_ptr(), out.data_ptr(), b, s, h, dp, inv_sqrt)
+    counter = "launches_wide" if dp == WIDE_HEAD_DIM else "launches"
     with _launch_lock:  # batches run in worker threads
-        encoder_flash_attention.launches += 1
+        setattr(encoder_flash_attention, counter, getattr(encoder_flash_attention, counter) + 1)
     return out
 
 
@@ -206,6 +264,8 @@ def encoder_flash_attention(
     return out[..., :d].reshape(b, s, h * d).to(out_dtype)
 
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
+# kernel launches since the last reset (chip_smoke.py reads and resets
+# them): heads of 32-128, and of 256
 encoder_flash_attention.launches = 0
+encoder_flash_attention.launches_wide = 0
 _launch_lock = threading.Lock()

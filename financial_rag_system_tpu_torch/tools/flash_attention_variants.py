@@ -5,11 +5,12 @@
 
 Builds copies of ``financial_rag_system_tpu_torch/csrc/flash_attention.cu``
 with one constant changed or one part cut out, and times each beside the
-kernel as it is at the served shape (P 480, S 512, 12 heads of 32) on a
+kernel as it is at the served shape (P 480, S 512, 12 heads of 32; the
+``d256_`` variants at 3 heads of 256) on a
 rerank-layout mask padded from 400 to 512 (``rerank_layout_mask``) and
 on ``chip_smoke.py``'s uniform-length mask, in one
 process on one card.  A variant with a part cut out computes a wrong
-context: its time says what that part costs.  Variants:
+context: its time says what that part costs.  Variants at heads of 32:
 
 - ``as_is``: the kernel as the port builds it;
 - ``consumers_2``, ``consumers_4``: two (232 registers a thread) or four
@@ -24,10 +25,31 @@ context: its time says what that part costs.  Variants:
 - ``no_pack``: P truncated to bf16 by a byte permute in place of the
   rounding ``F2FP`` pack.
 
-``--parent CSRC`` also times an earlier checkout's ``flash_attention.cu``.
+At heads of 256 (``d256::flash256_kernel``):
+
+- ``d256_as_is``: the kernel as the port builds it;
+- ``d256_keys_128``: online-softmax steps of jax's 128 keys (64 f32 of
+  scores a thread beside the context: it spills) in place of 64;
+- ``d256_slots_4``: a ring of four 32 KB slots, not five;
+- ``d256_regs_232``: consumer warpgroups at 232 registers, the producer's
+  at 40;
+- ``d256_pv_mma``: P.V on ``mma.sync`` m16n8k16 with V's fragments by
+  ``ldmatrix.trans``, accumulating into the context, in place of ``wgmma``;
+- ``d256_no_mufu``: ex2.approx replaced by the identity;
+- ``d256_no_pv``: P.V cut out;
+- ``d256_no_skip``: every (row tile, key block) pair computed;
+- ``d256_eager_rescale``: the context rescaled at every step, also by a
+  warp whose rows' maxima all stayed put (alpha 1);
+- ``d256_no_rescale``: the context's rescale cut out;
+- ``d256_item_a_block``: each block takes whole items (their units one
+  after another on one SM) in place of units dealt round the blocks.
+
+``--parent CSRC`` also times an earlier checkout's ``flash_attention.cu``
+at both widths.
 Each line gives the variant's median time (CUDA events, 20 launches), the
-registers and spills of its heads-of-32 kernel as ``ptxas -v`` reports them
-(registers before ``setmaxnreg``), and the card's name and power limit.
+registers and spills of its heads-of-32 (or heads-of-256) kernel as
+``ptxas -v`` reports them (registers before ``setmaxnreg``), and the
+card's name and power limit.
 The variants build in parallel, into ``build/flash_attention_variants/``.
 """
 
@@ -99,6 +121,62 @@ VARIANTS = {
 }
 
 
+D256_SLOTS = "constexpr int kMaxSlots = 8;"
+D256_SLOTS_ASSERT = ("static_assert(ring_slots() == 5 && smem_bytes(ring_slots()) == 231552 &&\n"
+                     "                  smem_bytes(ring_slots() + 1) > kSmemLimit,")
+D256_PV = "  wgmma_fence();\n#pragma unroll\n  for (int kk = 0; kk < N / 8; ++kk) {\n    const int off"
+D256_PV_END = "  wgmma_pin(r.acc);\n}"
+D256_PV_MMA = """  // P.V on mma.sync: V's B fragments by ldmatrix.trans from the
+  // swizzled slots (granule gi of key row k at gi ^ (k & 7))
+  const int lane = threadIdx.x & 31, mi = lane >> 3;
+  const int key = (lane & 7) + 8 * (mi & 1), swh = (key & 7) ^ (mi >> 1);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const unsigned char* vrow = (half ? v1 : v0) + (key0 + key) * kRowB;
+#pragma unroll
+    for (int kk = 0; kk < N / 8; ++kk) {
+#pragma unroll
+      for (int g0 = 0; g0 < kHalf / 8; g0 += 2) {
+        uint32_t vf[4];
+        ldsm_x4_trans(vf, vrow + (g0 / 8) * kSlotChunk + 16 * kk * kRowB + (((g0 % 8) ^ swh) << 4));
+        const int dn = half * (kHalf / 8) + g0;
+        mma_bf16(*reinterpret_cast<float (*)[4]>(r.acc + 4 * dn), pa[kk], vf[0], vf[1]);
+        mma_bf16(*reinterpret_cast<float (*)[4]>(r.acc + 4 * dn + 4), pa[kk], vf[2], vf[3]);
+      }
+    }
+  }
+  return;
+""" + D256_PV
+D256_RESCALE = "  if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {"
+D256_VARIANTS = {
+    "d256_as_is": lambda s: s,
+    "d256_keys_128": lambda s: patched(
+        s, ("constexpr int kSub = 64;", "constexpr int kSub = 128;")),
+    "d256_slots_4": lambda s: patched(
+        s, (D256_SLOTS, "constexpr int kMaxSlots = 4;"),
+        (D256_SLOTS_ASSERT, "static_assert(ring_slots() == 4,")),
+    "d256_regs_232": lambda s: patched(
+        s, ("constexpr int kProducerRegs = 24;           // registers",
+            "constexpr int kProducerRegs = 40;           // registers"),
+        ("constexpr int kConsumerRegs = 240;", "constexpr int kConsumerRegs = 232;"),
+        ("    presence<4>(srow, S, lane, gp, go);", "    presence<kMaxS / 32>(srow, S, lane, gp, go);")),
+    "d256_pv_mma": lambda s: patched(s, (D256_PV, D256_PV_MMA)),
+    "d256_no_mufu": VARIANTS["no_mufu"],
+    "d256_no_pv": lambda s: patched(s, (D256_PV, "  if (gridDim.x == 12345u) {\n" + D256_PV),
+                                    (D256_PV_END, "  wgmma_pin(r.acc);\n  }\n}")),
+    "d256_no_skip": VARIANTS["no_skip"],
+    "d256_eager_rescale": lambda s: patched(s, (D256_RESCALE, "  {")),
+    "d256_no_rescale": lambda s: patched(s, (D256_RESCALE, "  if (false) {")),
+    "d256_item_a_block": lambda s: patched(
+        s, ("  return (items * units - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;",
+            "  return (items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x * units;"),
+        ("  const int w = blockIdx.x + k * gridDim.x;\n  item = w / units;\n  u = w - item * units;",
+         "  item = blockIdx.x + (k / units) * gridDim.x;\n  u = k % units;"),
+        ("  const int work = P * H * (S / (kWg * kRows));  // units",
+         "  const int work = P * H;  // items")),
+}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", type=Path, default=None, metavar="CSRC",
@@ -118,17 +196,20 @@ def main() -> int:
     smi = cs.smi_line()
     OUT.mkdir(parents=True, exist_ok=True)
     source = SRC.read_text()
-    q, k, v, uniform = cs.attention_inputs(torch, np, cs.PAIRS, 512)
-    qb, kb, vb = fa.kernel_inputs(q, k, v)
-    del q, k, v
+    inputs = {}  # head width: its kernel's bf16 q, k, v at the served shape
+    for h, d in ((12, 32), (3, 256)):
+        q, k, v, uniform = cs.attention_inputs(torch, np, cs.PAIRS, 512, h, d)
+        inputs[d] = fa.kernel_inputs(q, k, v)
+        del q, k, v
     rerank = np.pad(rerank_layout_mask(np, cs.PAIRS, 400), ((0, 0), (0, 112)))
     masks = {"rerank-layout": torch.tensor(rerank, device="cuda"),
              "uniform-length": torch.tensor(uniform, device="cuda")}
-    wanted = opts.only.split(",") if opts.only else list(VARIANTS)
+    every = {**VARIANTS, **D256_VARIANTS}
+    wanted = opts.only.split(",") if opts.only else list(every)
     builds = {}  # one nvcc a variant, all at once
     for name in wanted:
         src = OUT / f"{name}.cu"
-        src.write_text(VARIANTS[name](source))
+        src.write_text(every[name](source))
         builds[name] = (src, subprocess.Popen(
             [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-Xptxas", "-v", f"-I{_cuda.CSRC_DIR}",
              "-o", str(OUT / f"{name}.so"), str(src)],
@@ -145,15 +226,19 @@ def main() -> int:
         if proc.returncode:
             print(f"[variants] {name}: build failed\n{log}")
             return 1
-        regs = {kern: r for kern, r in cs.ptxas_kernels(log).items() if "12flash_kernelILi32E" in kern}
-        times = {}
-        with cs.kernel_lib("flash_attention", ctypes.CDLL(str(OUT / f"{name}.so"))):
-            for label, mask in masks.items():
-                times[label] = cs.median_ms(
-                    lambda: fa.flash_attention_kernel(qb, kb, vb, mask, 32 ** -0.5), reps=20)
-        print(f"[variants] {smi}: {name}: " + ", ".join(
-            f"{label} {ms:.4f} ms" for label, ms in times.items())
-            + f"; ptxas (registers, spill store and load bytes) {regs}", flush=True)
+        widths = (256,) if name.startswith("d256_") else (32, 256) if name == "parent" else (32,)
+        for d in widths:
+            kernel = "flash256_kernel" if d == 256 else "12flash_kernelILi32E"
+            regs = {kern: r for kern, r in cs.ptxas_kernels(log).items() if kernel in kern}
+            qb, kb, vb = inputs[d]
+            times = {}
+            with cs.kernel_lib("flash_attention", ctypes.CDLL(str(OUT / f"{name}.so"))):
+                for label, mask in masks.items():
+                    times[label] = cs.median_ms(
+                        lambda: fa.flash_attention_kernel(qb, kb, vb, mask, d ** -0.5), reps=20)
+            print(f"[variants] {smi}: {name}, P {cs.PAIRS} S 512 heads of {d}: " + ", ".join(
+                f"{label} {ms:.4f} ms" for label, ms in times.items())
+                + f"; ptxas (registers, spill store and load bytes) {regs}", flush=True)
     return 0
 
 

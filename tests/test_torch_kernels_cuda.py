@@ -705,7 +705,9 @@ def test_attention_kernel_rejects_shapes(cuda):
 # pairs' real keys end inside the first key block (most (row tile, key
 # block) pairs skipped, whole row tiles of pad rows); "segments" holds ids
 # in [0, 32) in runs, "wide_ids" ids outside it (32 and up, negative), where
-# the kernel skips nothing
+# the kernel skips nothing.  Heads of 256 (the D-256 kernel) at S 128 (the
+# single step), 256, 384 and 512, on every mask, and at 67 pairs of 3
+# heads: 201 items, not a multiple of the 132 SMs (the persistent tail)
 FLASH_CASES = [
     (4, 128, 12, 32, "prefix"), (3, 256, 4, 32, "rerank"), (2, 512, 12, 32, "rerank"),
     (3, 384, 2, 64, "holes"), (2, 512, 2, 128, "prefix"), (2, 256, 2, 256, "prefix"),
@@ -715,6 +717,9 @@ FLASH_CASES = [
     (2, 128, 4, 32, "segments"), (3, 384, 2, 64, "wide_ids"), (2, 512, 2, 128, "wide_ids"),
     (3, 512, 2, 128, "segments"), (2, 512, 2, 256, "rerank"), (2, 256, 3, 8, "segments"),
     (2, 512, 2, 80, "short"),
+    (3, 128, 2, 256, "holes"), (2, 128, 3, 256, "segments"), (2, 384, 3, 256, "segments"),
+    (3, 384, 2, 256, "prefix"), (3, 512, 2, 256, "short"), (2, 512, 2, 256, "all_valid"),
+    (3, 256, 2, 256, "holes"), (3, 512, 2, 256, "wide_ids"), (67, 256, 3, 256, "rerank"),
 ]
 
 
@@ -741,15 +746,17 @@ def flash_mask(kind, p, s, seed=0):
 @pytest.mark.parametrize("p,s,h,d,kind", FLASH_CASES)
 def test_flash_attention_kernel_matches_plain(cuda, p, s, h, d, kind):
     """Kernel 7 against its plain version on every row, pad rows included
-    (they attend the pad keys only), at atol 1e-2."""
+    (they attend the pad keys only), at atol 1e-2.  Heads of 256 count on
+    the D-256 kernel's own counter."""
     q, k, v, _ = attn_case(p, s, h, seed=s + d, d=d)
     q, k, v, mask = (torch.tensor(a, device=cuda) for a in (q, k, v, flash_mask(kind, p, s)))
     inv = 1.0 / np.sqrt(d)
-    n0 = encoder_flash_attention.launches
+    counter = "launches_wide" if d == 256 else "launches"
+    n0 = getattr(encoder_flash_attention, counter)
     ref = flash_attention_plain(q, k, v, mask, inv).cpu().numpy()
     got = encoder_flash_attention(q, k, v, mask, inv).cpu().numpy()
     torch.cuda.synchronize()
-    assert encoder_flash_attention.launches == n0 + 1
+    assert getattr(encoder_flash_attention, counter) == n0 + 1
     assert got.shape == (p, s, h * d)
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, ref, atol=1e-2, rtol=0)
@@ -774,6 +781,33 @@ def test_flash_attention_kernel_relaunch_and_threads(cuda):
         outs = list(pool.map(run, [False, True, False, True]))
     torch.cuda.synchronize()
     assert all(torch.equal(first, o) for o in outs)
+
+
+def test_flash_attention_d256_from_worker_threads(cuda):
+    """The D-256 kernel launched from four worker threads at once, two of
+    them on side streams, on the served layout: each context bit for bit
+    the main thread's, and within 1e-2 of the plain version."""
+    q, k, v, _ = attn_case(6, 512, 3, seed=9, d=256)
+    q, k, v, mask = (torch.tensor(a, device=cuda) for a in (q, k, v, rerank_mask(6, 512)))
+    inv = 1.0 / 16.0
+    n0 = encoder_flash_attention.launches_wide
+    first = encoder_flash_attention(q, k, v, mask, inv)
+
+    def run(side_stream):
+        stream = torch.cuda.Stream() if side_stream else torch.cuda.current_stream()
+        stream.wait_stream(torch.cuda.default_stream())
+        with torch.cuda.stream(stream):
+            out = encoder_flash_attention(q, k, v, mask, inv)
+        torch.cuda.synchronize()
+        return out
+
+    with ThreadPoolExecutor(4) as pool:
+        outs = list(pool.map(run, [False, True, False, True]))
+    torch.cuda.synchronize()
+    assert encoder_flash_attention.launches_wide == n0 + 5
+    assert all(torch.equal(first, o) for o in outs)
+    ref = flash_attention_plain(q, k, v, mask, inv)
+    np.testing.assert_allclose(first.cpu().numpy(), ref.cpu().numpy(), atol=1e-2, rtol=0)
 
 
 def test_flash_attention_kernel_rejects_shapes(cuda):
