@@ -24,8 +24,11 @@ fifteen phases; any failure raises and the script exits non-zero:
    leaves) and its MUFU floor; at 12 heads of 24, 40, 48, 80 and 112,
    which the wrapper pads to 32, 64, 64, 128 and 128; ``nvcc -Xptxas -v``
    of every kernel-2 instantiation (none may spill); kernels 1 and 3
-   at k 33, 64, 100, 256, 1024 and 2048 (rounds of 32) in bf16 and int8,
-   with times, and bit for bit on tie-heavy exact rows; kernels 1 and 3 at
+   at k 33, 64, 100, 256, 1024 and 2048 (the select path: each call
+   launches it once and nothing else) in bf16 and int8, with times,
+   device time by launch, plan and scratch, the ``mm + where + topk``
+   yardstick, and bit for bit on tie-heavy exact rows; kernel 1 over
+   1,048,580 rows at k 1024 in both types; kernels 1 and 3 at
    D 1536 and k 15 (one block an SM) in bf16, int8 (bit for bit) and on
    tie-heavy exact bf16 rows (bit for bit);
 3. the main path: ``build_default_engine(device="cuda")`` over
@@ -207,10 +210,11 @@ the real and the diverse batch's lists in both branches.
 ``--topk-baseline`` also builds the ``masked_topk.cu`` of an earlier
 checkout (its C entry that takes the plan, PR 10 on), holds kernel 1 bit
 for bit against it in both branches and times both in turns with their
-device times;
+device times, at k 15 and at every k of phase 2's large-k checks (the
+earlier build with the scratch its own ``ops/topk.py`` plan asks for);
 ``--ivf-baseline`` does the same for an earlier ``ivf_probe.cu`` and
 kernel 3 on both lists (bit for bit on the real list, and on the diverse
-one in int8); ``--attn-baseline``
+one in int8) and at phase 2's large k; ``--attn-baseline``
 builds an earlier ``pair_attention.cu`` (one with the streaming
 ``pair_attention_wide`` entry) and times it beside
 kernel 2 on the same inputs and masks, in turns, with their contexts'
@@ -395,10 +399,38 @@ def kernel_lib(name: str, lib):
         _cuda._libs[name] = current
 
 
-def parent_topk_fn(torch, lib, args):
-    """A launch of kernel 1 from an earlier ``masked_topk.cu`` whose C
-    entry takes the plan (PR 10 on: blocks, stages, one scratch), on the
-    wrapper's arguments at k <= 32; returns (scores, ids)."""
+@functools.cache
+def parent_plan(csrc: Path, module: str):
+    """An earlier checkout's plan function, ``topk_plan`` of its
+    ``ops/topk.py`` or ``probe_plan`` of its ``index/ivf.py`` (which then
+    imports that ``ops/topk.py``), loaded from beside its ``csrc/``; their
+    other imports resolve to this checkout's package."""
+    import importlib.util
+
+    def load(name: str, path: Path):
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    topk = load("parent_topk", csrc.parent / "ops" / "topk.py")
+    if module == "topk":
+        return topk.topk_plan
+    key = f"{PACKAGE}.ops.topk"
+    current = sys.modules[key]
+    sys.modules[key] = topk
+    try:
+        return load("parent_ivf", csrc.parent / "index" / "ivf.py").probe_plan
+    finally:
+        sys.modules[key] = current
+
+
+def topk_entry_fn(torch, lib, args, plan_fn=None):
+    """A launch of kernel 1 by the C entry alone of a build of
+    ``masked_topk.cu`` whose C entry takes the plan (blocks, stages, one
+    scratch; an earlier checkout's, or this one's), on the wrapper's
+    arguments, sized by ``plan_fn`` (an earlier checkout's ``topk_plan``;
+    this one's by default); returns (scores, ids)."""
     import ctypes
 
     from financial_rag_system_tpu_torch.ops import _cuda
@@ -406,7 +438,7 @@ def parent_topk_fn(torch, lib, args):
 
     q, c, codes, qf, n_valid, k = args
     (b, d), n = q.shape, c.shape[0]
-    plan = topk_plan(b, n, d, c.element_size(), k, sms(torch))
+    plan = (plan_fn or topk_plan)(b, n, d, c.element_size(), k, sms(torch))
     fn = lib.masked_topk_s8 if c.dtype == torch.int8 else lib.masked_topk
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
     scratch = torch.empty(plan.scratch, dtype=torch.int32, device=c.device)
@@ -420,9 +452,11 @@ def parent_topk_fn(torch, lib, args):
     return launch
 
 
-def parent_probe_fn(torch, lib, args, tile: int):
-    """A launch of kernel 3 from an earlier ``ivf_probe.cu`` whose C entry
-    takes the plan (PR 10 on), at k <= 32; returns (scores, ids)."""
+def probe_entry_fn(torch, lib, args, tile: int, plan_fn=None):
+    """A launch of kernel 3 by the C entry alone of a build of
+    ``ivf_probe.cu`` whose C entry takes the plan, sized by ``plan_fn``
+    (an earlier checkout's ``probe_plan``; this one's by default); returns
+    (scores, ids)."""
     import ctypes
 
     from financial_rag_system_tpu_torch.index.ivf import probe_plan
@@ -430,7 +464,7 @@ def parent_probe_fn(torch, lib, args, tile: int):
 
     q, qf, emb, codes, gids, tl, k = args
     (b, d), n_packed, n_probe = q.shape, emb.shape[0], tl.numel()
-    plan = probe_plan(b, n_probe, tile, d, emb.element_size(), k, sms(torch))
+    plan = (plan_fn or probe_plan)(b, n_probe, tile, d, emb.element_size(), k, sms(torch))
     fn = lib.ivf_probe_s8 if emb.dtype == torch.int8 else lib.ivf_probe
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3
     scratch = torch.empty(plan.scratch, dtype=torch.int32, device=emb.device)
@@ -445,31 +479,52 @@ def parent_probe_fn(torch, lib, args, tile: int):
     return launch
 
 
-def against_parent(torch, tag: str, smi: str, parent, new, exact: bool = True) -> None:
-    """The parent's kernel against the new one on the same inputs: bit for
-    bit (scores and ids) where ``exact``, then both timed in turns (parent,
-    new, new, parent), CUDA events and device time (profiler)."""
+def against_parent(torch, tag: str, smi: str, parent, new, exact: bool = True,
+                   new_entry=None) -> None:
+    """The parent's kernel against the new one (its wrapper, ``new``) on the
+    same inputs: bit for bit (scores and ids) where ``exact``, then both
+    timed in turns (parent, new, new, parent), CUDA events and device time
+    (profiler); ``new_entry``, where given, is the new build's C entry
+    alone, launched as the parent's is, and takes the wrapper's turns."""
     got = [x.cpu().numpy().tobytes() for x in new()]
     want = [x.cpu().numpy().tobytes() for x in parent()]
     same = got == want
     if exact and not same:
         raise AssertionError(f"{tag}: differs from the parent's kernel")
+    new = new_entry or new
     order = (parent, new, new, parent)
     events = [median_ms(fn, reps=30) for fn in order]
     device = [sum(device_split(torch, fn).values()) for fn in order]
     log(f"{tag} {smi}: bit for bit with the parent's kernel: {same}; in turns (parent, new, "
-        f"new, parent): events {', '.join(f'{t:.4f}' for t in events)} ms; device "
+        f"new, parent{'; C entries alone' if new_entry else ''}): events "
+        f"{', '.join(f'{t:.4f}' for t in events)} ms; device "
         f"{', '.join(f'{t:.4f}' for t in device)} ms")
+
+
+def topk_library():
+    """This build's ``masked_topk`` library, its entries' types set."""
+    from financial_rag_system_tpu_torch.ops.topk import _library
+
+    return _library()
+
+
+def probe_library():
+    """This build's ``ivf_probe`` library, its entries' types set."""
+    from financial_rag_system_tpu_torch.index.ivf import _library
+
+    return _library()
 
 
 def plan_line(tag: str, plan, pieces: float | None = None) -> None:
     """A kernel-1 or kernel-3 launch plan: blocks, stages, work a block and
-    the merge's candidates."""
+    the merge's candidates, or the select path's table and scratch."""
     work = (f"{plan.tiles / plan.blocks:.1f} tiles a block" if pieces is None
             else f"{pieces / plan.blocks:.1f} live-candidate pieces a block")
+    tail = (f"at most {plan.candidates} merge candidates a query" if plan.path == "lists" else
+            f"select path: {plan.cols} table columns and {plan.sweeps} sweeping blocks a query, "
+            f"{plan.runs} sort run(s), scratch {4 * plan.scratch} B")
     log(f"{tag} plan: {plan.blocks} blocks x {plan.qblocks} query blocks, {plan.stages} "
-        f"stages, {plan.smem} B of shared memory, {work}, at most {plan.candidates} merge "
-        f"candidates a query")
+        f"stages, {plan.smem} B of shared memory, {work}, {tail}")
 
 
 def sms(torch) -> int:
@@ -511,8 +566,9 @@ def check_topk(torch, np, smi: str, baseline: Path | None = None) -> dict:
     plan_line(f"[topk] bf16 B={B} N={N}:", topk_plan(B, N, D, 2, K, sms(torch)))
     if baseline is not None:
         against_parent(torch, f"[topk] bf16 B={B} N={N}:", smi,
-                       parent_topk_fn(torch, baseline_lib("masked_topk", baseline), args),
-                       lambda: masked_topk(*args))
+                       topk_entry_fn(torch, baseline_lib("masked_topk", baseline), args),
+                       lambda: masked_topk(*args),
+                       new_entry=topk_entry_fn(torch, topk_library(), args))
     return {
         "name": "masked_topk", "route": "cuda",
         "source": f"{PACKAGE}/csrc/masked_topk.cu",
@@ -577,17 +633,88 @@ def probe_packing(torch, np, rows_fn):
             torch.tensor(tile_ids, device=dev))
 
 
-def check_large_k(torch, np, smi: str) -> None:
-    """Kernels 1 and 3 at k above a 32-entry round (LARGE_K), against
-    their plain versions: kernel 1 over phase 2's corpus, kernel 3 over a
-    packing of PROBE_TILES tiles with PROBE_ACTIVE probed; random unit rows
-    in bf16 (scores within 1e-4, ids where clear of that noise) and int8
-    (bit for bit), each with its time, the plain version's and its bound;
-    and tie-heavy exact rows in bf16, bit for bit.  Off the main paths,
-    which take k 15."""
+def yardstick_fn(torch, q, rows, mask, k: int):
+    """One library sequence over the rows a kernel scores: ``torch.mm``
+    (bf16 into f32; int8: ``torch._int_mm`` into s32 over the rows padded
+    with masked zero rows to a multiple of 8, then a cast) +
+    ``torch.where`` of the mask + ``torch.topk(sorted=True)``.  Timed as a
+    yardstick only; the port never calls it."""
+    neg = torch.tensor(float("-inf"), device=q.device)
+    if rows.dtype == torch.int8:
+        if rows.shape[0] % 8:  # _int_mm takes widths in multiples of 8: masked zero rows
+            pad = -rows.shape[0] % 8
+            rows = torch.cat([rows, rows.new_zeros((pad, rows.shape[1]))])
+            mask = torch.cat([mask, mask.new_zeros((mask.shape[0], pad))], dim=1)
+        scores = lambda: torch._int_mm(q, rows.T).float()  # noqa: E731
+    else:
+        scores = lambda: torch.mm(q, rows.T, out_dtype=torch.float32)  # noqa: E731
+    return lambda: torch.topk(torch.where(mask, scores(), neg), k, dim=1, sorted=True)
+
+
+def select_call(torch, wrapper: str, fn):
+    """``fn()`` (a call of kernel 1's or 3's wrapper above k 32), which must
+    launch the select path once and nothing else."""
+    before = read_launches()
+    out = fn()
+    after = read_launches()
+    launched = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+    if launched != {f"{wrapper}_select": 1}:
+        raise AssertionError(f"{wrapper} above k 32 launched {launched}")
+    return out
+
+
+def large_k_case(torch, np, smi: str, what: str, wrapper: str, fn, plain, yard, nbytes: float,
+                 ops: float, peak: float, plan, parent=None, entry=None) -> None:
+    """One kernel-1 or kernel-3 call above k 32 against its plain version
+    (int8 bit for bit; bf16 within 1e-4 with ids where clear), then its
+    time (events, device time by launch, host time), the plain version's,
+    the yardstick's, its bound, plan and scratch, and the parent's build
+    in turns with this build's C entry alone (``entry``; bit for bit: both
+    score alike)."""
+    s, i = (x.cpu().numpy() for x in select_call(torch, wrapper, fn))
+    torch.cuda.synchronize()
+    s_ref, i_ref = (x.cpu().numpy() for x in plain())
+    if "int8" in what:
+        if s.tobytes() != s_ref.tobytes() or i.tobytes() != i_ref.tobytes():
+            raise AssertionError(f"{what}: not bit for bit with the plain version")
+        err, n_diff = 0.0, 0
+    else:
+        err, n_diff = clear_ids_agree(np, s, i, s_ref, i_ref, what)
+    ms = median_ms(fn, reps=10)
+    plain_ms = median_ms(plain, reps=3)
+    try:
+        yard_ms = median_ms(yard, reps=10)
+    except RuntimeError as exc:  # a cuBLAS that takes no int8 product at this shape
+        log(f"{what}: the yardstick did not run ({exc})")
+        yard_ms = float("nan")
+    b_ms, b_by = bound_ms(nbytes, ops, peak)
+    log(f"{what} {smi}: B={B} D={D}: max_abs_err {err:.3g}, finite ids differing {n_diff} of "
+        f"{int(np.isfinite(s_ref).sum())}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"mm + where + topk {yard_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    retrieval_timing(torch, what, fn, ms, smi)
+    plan_line(what, plan)
+    if parent is not None:
+        against_parent(torch, what, smi, parent, fn, new_entry=entry)
+
+
+def check_large_k(torch, np, smi: str, topk_baseline: Path | None = None,
+                  ivf_baseline: Path | None = None) -> None:
+    """Kernels 1 and 3 at k above the lists' 32 (LARGE_K, the select path),
+    against their plain versions: kernel 1 over phase 2's corpus, kernel 3
+    over a packing of PROBE_TILES tiles with PROBE_ACTIVE probed; random
+    unit rows in bf16 (scores within 1e-4, ids where clear of that noise)
+    and int8 (bit for bit), each with large_k_case's times, and the
+    parent's rounds in turns where a baseline is given; tie-heavy exact
+    rows in bf16, bit for bit; kernel 1 over 1,048,580 rows at k 1024.
+    Off the main paths, which take k 15 (their select counters stay 0)."""
     from financial_rag_system_tpu_torch.index.flat import quantize_int8
     from financial_rag_system_tpu_torch.index.ivf import ivf_probe, ivf_probe_plain, probe_plan
-    from financial_rag_system_tpu_torch.ops.topk import masked_topk, masked_topk_plain, topk_plan
+    from financial_rag_system_tpu_torch.ops.topk import (
+        _match_mask,
+        masked_topk,
+        masked_topk_plain,
+        topk_plan,
+    )
 
     n_valid = N - 100
     q, c, codes, qf = topk_inputs(torch, np.random.default_rng(SEED), n_valid)
@@ -596,59 +723,82 @@ def check_large_k(torch, np, smi: str) -> None:
     unit = lambda n: normalize(torch.randn(n, D, generator=g, device="cuda"), dim=1)  # noqa: E731
     emb = unit(PROBE_TILES * 128)
     _, pcodes, gids, tile_ids = probe_packing(torch, np, lambda n: None)
-    live = int((gids[0].view(-1, 128)[tile_ids[:PROBE_ACTIVE].long()] >= 0).sum())
+    probed = (tile_ids[:PROBE_ACTIVE].long()[:, None] * 128
+              + torch.arange(128, device="cuda")).reshape(-1)
+    live = int((gids[0][probed] >= 0).sum())
+    flat_mask = _match_mask(codes, qf) & (torch.arange(N, device="cuda") < n_valid)
+    probe_mask = _match_mask(pcodes[:, probed], qf) & (gids[0][probed] >= 0)
     cases = {
         "bf16": (q, c, q, emb.bfloat16()),
         "int8": (quantize_int8(q), quantize_int8(c), quantize_int8(q), quantize_int8(emb)),
     }
+    libs = {name: baseline_lib(name, csrc) if csrc else None
+            for name, csrc in (("masked_topk", topk_baseline), ("ivf_probe", ivf_baseline))}
     for k in LARGE_K:
         for dtype, (q1, c1, q3, e3) in cases.items():
             elt = c1.element_size()
             peak = INT8_OP_PER_S if elt == 1 else BF16_FLOP_PER_S
             flat = (q1, c1, codes, qf, n_valid, k)
             probe = (q3, qf, e3, pcodes, gids, tile_ids, k)
-            for name, fn, plain, nbytes, ops, plan in (
-                ("kernel 1", lambda: masked_topk(*flat), lambda: masked_topk_plain(*flat),
-                 N * (D * elt + 8) + B * (D * elt + 8) + B * k * 8, 2.0 * B * N * D,
-                 topk_plan(B, N, D, elt, k, sms(torch))),
-                ("kernel 3", lambda: ivf_probe(*probe, tile=128),
-                 lambda: ivf_probe_plain(*probe, tile=128),
-                 PROBE_ACTIVE * 128 * 4 + live * (D * elt + 8) + B * (D * elt + 8) + B * k * 8,
-                 2.0 * B * live * D,
-                 probe_plan(B, tile_ids.numel(), 128, D, elt, k, sms(torch))),
-            ):
-                what = f"[large-k] {name} {dtype} k={k}"
-                s, i = (x.cpu().numpy() for x in fn())
-                torch.cuda.synchronize()
-                s_ref, i_ref = (x.cpu().numpy() for x in plain())
-                if dtype == "int8":
-                    if s.tobytes() != s_ref.tobytes() or i.tobytes() != i_ref.tobytes():
-                        raise AssertionError(f"{what}: not bit for bit with the plain version")
-                    err, n_diff = 0.0, 0
-                else:
-                    err, n_diff = clear_ids_agree(np, s, i, s_ref, i_ref, what)
-                ms = median_ms(fn, reps=10)
-                plain_ms = median_ms(plain, reps=3)
-                b_ms, b_by = bound_ms(nbytes, ops, peak)
-                log(f"{what} {smi}: B={B} D={D}, {plan.rounds} rounds: max_abs_err {err:.3g}, "
-                    f"finite ids differing {n_diff} of {int(np.isfinite(s_ref).sum())}, "
-                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-                    f"({b_by})")
+            large_k_case(
+                torch, np, smi, f"[large-k] kernel 1 {dtype} k={k}", "masked_topk",
+                lambda: masked_topk(*flat), lambda: masked_topk_plain(*flat),
+                yardstick_fn(torch, q1, c1, flat_mask, k),
+                N * (D * elt + 8) + B * (D * elt + 8) + B * k * 8, 2.0 * B * N * D, peak,
+                topk_plan(B, N, D, elt, k, sms(torch)),
+                libs["masked_topk"] and topk_entry_fn(
+                    torch, libs["masked_topk"], flat, parent_plan(topk_baseline, "topk")),
+                libs["masked_topk"] and topk_entry_fn(torch, topk_library(), flat))
+            large_k_case(
+                torch, np, smi, f"[large-k] kernel 3 {dtype} k={k}", "ivf_probe",
+                lambda: ivf_probe(*probe, tile=128), lambda: ivf_probe_plain(*probe, tile=128),
+                yardstick_fn(torch, q3, e3[probed], probe_mask, k),
+                PROBE_ACTIVE * 128 * 4 + live * (D * elt + 8) + B * (D * elt + 8) + B * k * 8,
+                2.0 * B * live * D, peak,
+                probe_plan(B, tile_ids.numel(), 128, D, elt, k, sms(torch)),
+                libs["ivf_probe"] and probe_entry_fn(
+                    torch, libs["ivf_probe"], probe, 128, parent_plan(ivf_baseline, "ivf")),
+                libs["ivf_probe"] and probe_entry_fn(torch, probe_library(), probe, 128))
         # tie-heavy exact rows: bit for bit in bf16 too
         xq = exact_rows(torch, B, 3, SEED + k, torch.bfloat16)
         xc = exact_rows(torch, N, 6, SEED + k + 1, torch.bfloat16)
         xe = exact_rows(torch, PROBE_TILES * 128, 6, SEED + k + 2, torch.bfloat16)
-        for name, fn, plain in (
-            ("kernel 1", lambda: masked_topk(xq, xc, codes, qf, n_valid, k),
+        for name, wrapper, fn, plain in (
+            ("kernel 1", "masked_topk", lambda: masked_topk(xq, xc, codes, qf, n_valid, k),
              lambda: masked_topk_plain(xq, xc, codes, qf, n_valid, k)),
-            ("kernel 3", lambda: ivf_probe(xq, qf, xe, pcodes, gids, tile_ids, k, tile=128),
+            ("kernel 3", "ivf_probe",
+             lambda: ivf_probe(xq, qf, xe, pcodes, gids, tile_ids, k, tile=128),
              lambda: ivf_probe_plain(xq, qf, xe, pcodes, gids, tile_ids, k, tile=128)),
         ):
-            got = [x.cpu().numpy().tobytes() for x in fn()]
+            got = [x.cpu().numpy().tobytes() for x in select_call(torch, wrapper, fn)]
             if got != [x.cpu().numpy().tobytes() for x in plain()]:
                 raise AssertionError(f"[large-k] {name} bf16 exact rows k={k}: not bit for bit")
+    del cases, emb
+    # kernel 1 over the IVF corpus's flat size
+    big_n, k = 1_048_580, 1024
+    big = unit(big_n)
+    big_codes = torch.stack([torch.randint(0, N_TICKERS, (big_n,), generator=g, device="cuda"),
+                             torch.randint(0, len(DOC_TYPES), (big_n,), generator=g,
+                                           device="cuda")]).int()
+    big_mask = _match_mask(big_codes, qf)
+    for dtype, (qb, rows) in (("bf16", (q, big.bfloat16())),
+                              ("int8", (quantize_int8(q), quantize_int8(big)))):
+        elt = rows.element_size()
+        args = (qb, rows, big_codes, qf, big_n, k)
+        large_k_case(
+            torch, np, smi, f"[large-k] kernel 1 {dtype} N={big_n} k={k}", "masked_topk",
+            lambda: masked_topk(*args), lambda: masked_topk_plain(*args),
+            yardstick_fn(torch, qb, rows, big_mask, k),
+            big_n * (D * elt + 8) + B * (D * elt + 8) + B * k * 8, 2.0 * B * big_n * D,
+            INT8_OP_PER_S if elt == 1 else BF16_FLOP_PER_S,
+            topk_plan(B, big_n, D, elt, k, sms(torch)),
+            libs["masked_topk"] and topk_entry_fn(
+                torch, libs["masked_topk"], args, parent_plan(topk_baseline, "topk")),
+            libs["masked_topk"] and topk_entry_fn(torch, topk_library(), args))
+        del rows
     log(f"[large-k] {smi}: kernels 1 and 3 at k {list(LARGE_K)} agree with their plain "
-        f"versions (bf16 tie-heavy rows bit for bit, int8 bit for bit)")
+        f"versions (bf16 tie-heavy rows bit for bit, int8 bit for bit), each call on the "
+        f"select path")
 
 
 def check_wide_rows(torch, np, smi: str) -> None:
@@ -983,7 +1133,9 @@ def write_index(torch, np, work: Path, name: str = "index", n_tickers: int = N_T
 def kernel_counters() -> dict:
     """Each kernel's launch counter by its name in the ``kernels`` line:
     (wrapper, attribute).  The int8 branches of kernels 1 and 3 count
-    apart from their bf16 branches."""
+    apart from their bf16 branches, and their select path above k 32
+    (``*_select``, no entry of the line: every main path launches it 0
+    times) apart from both."""
     from financial_rag_system_tpu_torch.index.ivf import ivf_probe
     from financial_rag_system_tpu_torch.ops import fused_bert
     from financial_rag_system_tpu_torch.ops.attention import encoder_self_attention
@@ -992,12 +1144,14 @@ def kernel_counters() -> dict:
 
     return {"masked_topk": (masked_topk, "launches"),
             "masked_topk_int8": (masked_topk, "launches_int8"),
+            "masked_topk_select": (masked_topk, "launches_select"),
             "pair_attention": (encoder_self_attention, "launches"),
             "pair_attention_ring": (encoder_self_attention, "launches_ring"),
             "flash_attention": (encoder_flash_attention, "launches"),
             "flash_attention_wide": (encoder_flash_attention, "launches_wide"),
             "ivf_probe": (ivf_probe, "launches"),
             "ivf_probe_int8": (ivf_probe, "launches_int8"),
+            "ivf_probe_select": (ivf_probe, "launches_select"),
             **{name: (getattr(fused_bert, name), "launches")
                for name in ("fused_ffn_ln", "fused_qkv", "fused_resid_ln")}}
 
@@ -1580,8 +1734,9 @@ def check_ivf_kernel(torch, np, ivf_run: dict, smi: str, baseline: Path | None =
                   pieces=a * tile / 64)
         if baseline is not None:
             against_parent(torch, tag, smi,
-                           parent_probe_fn(torch, baseline_lib("ivf_probe", baseline), real, tile),
-                           lambda: ivf_probe(*real, tile=tile), exact=quantized or name == "real")
+                           probe_entry_fn(torch, baseline_lib("ivf_probe", baseline), real, tile),
+                           lambda: ivf_probe(*real, tile=tile), exact=quantized or name == "real",
+                           new_entry=probe_entry_fn(torch, probe_library(), real, tile))
         if name == "real":
             tag = f"[topk] {packed_emb.dtype} B={B} N={nv}:"
             retrieval_timing(torch, tag, lambda: masked_topk(qq, emb, codes, qf, nv, K), flat_ms,
@@ -1804,7 +1959,9 @@ def device_split(torch, fn, calls: int = 10) -> dict:
     """Device ms that one call of ``fn`` spends in each kernel it launches:
     by the kernel's short name, its median time a launch (the profiler's,
     each launch counted once) times its launches a call (at least one: the
-    profiler has been seen to drop and to repeat records); empty if three
+    profiler has been seen to drop and to repeat records), or, for a
+    kernel launched several times a call with different work (the select
+    path's digit passes), its launches' sum over the calls; empty if three
     profiles in a row hold none."""
     for _ in range(3):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1818,7 +1975,8 @@ def device_split(torch, fn, calls: int = 10) -> dict:
                 name = name.split("(")[0].split("<")[0].split("::")[-1]
                 times.setdefault(name, {})[e.time_range.start] = e.device_time / 1e3
         if times:
-            return {name: statistics.median(t.values()) * max(1, round(len(t) / calls))
+            return {name: (sum(t.values()) / calls if len(t) % calls == 0 and len(t) > calls
+                           else statistics.median(t.values()) * max(1, round(len(t) / calls)))
                     for name, t in times.items()}
     return {}
 
@@ -2152,8 +2310,9 @@ def check_topk_int8(torch, np, smi: str, baseline: Path | None = None) -> dict:
     plan_line(f"[topk-int8] int8 B={B} N={N}:", topk_plan(B, N, D, 1, K, sms(torch)))
     if baseline is not None:
         against_parent(torch, f"[topk-int8] int8 B={B} N={N}:", smi,
-                       parent_topk_fn(torch, baseline_lib("masked_topk", baseline), args),
-                       lambda: masked_topk(*args))
+                       topk_entry_fn(torch, baseline_lib("masked_topk", baseline), args),
+                       lambda: masked_topk(*args),
+                       new_entry=topk_entry_fn(torch, topk_library(), args))
     return {
         "name": "masked_topk_int8", "route": "cuda",
         "source": f"{PACKAGE}/csrc/masked_topk.cu",
@@ -4985,7 +5144,7 @@ def main() -> int:
                       if opts.flash_baseline else None)
     kernels = [check_topk(torch, np, smi, opts.topk_baseline),
                *check_attention(torch, np, smi, attn_baseline)]
-    check_large_k(torch, np, smi)
+    check_large_k(torch, np, smi, opts.topk_baseline, opts.ivf_baseline)
     check_wide_rows(torch, np, smi)
     log(f"[kernels] phase 2 took {time.perf_counter() - t0:.1f} s")
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))

@@ -35,11 +35,12 @@
 // of a cluster's block); the live pieces go through the TMA ring to the
 // consumer warps, and a second launch of one block a query merges the
 // blocks' lists and maps the winners to row ids.  Each live piece is read
-// once per query block.
+// once per query block.  A k above 32 takes the same walk with the select
+// path's consumers (topk_select.cuh): the live pieces' scores go to a
+// table in device memory, 64 columns a piece in the list's order, and an
+// exact threshold selection over the table finds the top k.
 
-#include <atomic>
-
-#include "topk_common.cuh"
+#include "topk_select.cuh"
 
 using namespace topk;
 
@@ -67,21 +68,23 @@ __device__ __forceinline__ int active_count(const int32_t* __restrict__ ids, int
   return lo;
 }
 
-template <typename T>
+// pass 1 (kSelect false: best lists into part_s / part_i) or the select
+// path's walk (kSelect: scores into sel's table, piece p at column 64 p)
+template <typename T, bool kSelect>
 __global__ void __launch_bounds__(kThreads, 2)
 ivf_probe_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap rmap,
                  const __grid_constant__ CUtensorMap cmap, const __grid_constant__ CUtensorMap gmap,
                  const int32_t* __restrict__ gids, const int32_t* __restrict__ tile_ids,
                  const int32_t* __restrict__ qf, int B, int row_bytes, int n_packed, int tile,
-                 int n_probe, int k, int stages, const float* __restrict__ floor_s,
-                 const int32_t* __restrict__ floor_i, int floor_ld, float* __restrict__ part_s,
-                 int32_t* __restrict__ part_i) {
+                 int n_probe, int k, int stages, float* __restrict__ part_s,
+                 int32_t* __restrict__ part_i, const Select sel) {
   extern __shared__ unsigned char smem_raw[];
   const int nbox = boxes_for(row_bytes);
   const Smem m = carve(smem_raw, nbox, stages);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int qb0 = blockIdx.y * kQB;
   if (threadIdx.x == 0) init_barriers(m, stages);
+  if (kSelect) clear_select(sel, B);
   __syncthreads();
 
   if (warp == kConsumers) {  // the producer
@@ -91,6 +94,8 @@ ivf_probe_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
     const long long pieces = (long long)active_count(tile_ids, n_probe, lane) * per_tile;
     const long long p0 = pieces * blockIdx.x / gridDim.x;
     const long long p1 = pieces * (blockIdx.x + 1) / gridDim.x;
+    if (kSelect && blockIdx.x == 0 && blockIdx.y == 0 && lane == 0)
+      *sel.n_cols = (int)(pieces * kRows);
     // 32 pieces at a time: lane j reads piece j's gids, and the live ones
     // (a gid >= 0) are sent in order
     for (long long pb = p0; pb < p1; pb += 32) {
@@ -111,19 +116,27 @@ ivf_probe_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
           }
           live = top >= 0;
         }
+        // the select path's piece table: piece p's first packed position,
+        // or -1 where the table holds nothing of it
+        if (kSelect && blockIdx.y == 0) sel.pieces[p] = live ? base : -1;
       }
       for (unsigned send = __ballot_sync(~0u, live); send != 0; send &= send - 1) {
-        const int at = __shfl_sync(~0u, base, __ffs(send) - 1);
-        if (lane == 0) pr.tile(&rmap, &cmap, &gmap, at, n_packed);
+        const int src = __ffs(send) - 1;
+        const int at = __shfl_sync(~0u, base, src);
+        const int col = __shfl_sync(~0u, (int)(p * kRows), src);
+        if (lane == 0) pr.tile(&rmap, &cmap, &gmap, at, n_packed, col);
       }
     }
     if (lane == 0) pr.end();
     return;
   }
+  if (kSelect) {
+    store_walk<T, true>(m, nbox, row_bytes, stages, B, qb0, n_packed, 0, qf, sel, warp, lane);
+    return;
+  }
   float ls[kQPW];
   int li[kQPW];
-  consume<T, true>(m, nbox, row_bytes, stages, B, qb0, n_packed, 0, k, qf, floor_s, floor_i,
-                   floor_ld, warp, lane, ls, li);
+  consume<T, true>(m, nbox, row_bytes, stages, B, qb0, n_packed, 0, k, qf, warp, lane, ls, li);
   write_lists(ls, li, B, qb0, k, part_s, part_i, warp, lane);
 }
 
@@ -147,42 +160,35 @@ int launch(const void* q, const void* packed_emb, const void* packed_codes,
       !ints_map(&cmap, packed_codes, 2LL * n_packed, kCodeBox) ||
       !ints_map(&gmap, packed_gids, n_packed, kRows))
     return (int)cudaErrorInvalidValue;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  // raise the kernel's shared-memory limit once a device; host threads
-  // may launch at once, and each may do that first
-  static std::atomic<bool> ready[64];
-  if (!ready[dev & 63].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(ivf_probe_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemLimit);
-    if (err != cudaSuccess) return (int)err;
-    ready[dev & 63].store(true, std::memory_order_release);
-  }
-  const int qblocks = (B + kQB - 1) / kQB;
-  const int kw = min(k, kRoundK);
-  float* part_s = static_cast<float*>(scratch);
-  int32_t* part_i = reinterpret_cast<int32_t*>(part_s + (size_t)B * kw * blocks);
-  // with more than one round, the packed positions of the result so far
-  // (the floors), (B, k), after the lists
-  int32_t* raw = k > kRoundK ? part_i + (size_t)B * kw * blocks : nullptr;
+  const dim3 grid(blocks, (B + kQB - 1) / kQB);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* g = static_cast<const int32_t*>(packed_gids);
   float* out_s = static_cast<float*>(out);
   int32_t* out_i = reinterpret_cast<int32_t*>(out_s + (size_t)B * k);
-  for (int r0 = 0; r0 < k; r0 += kRoundK) {
-    const int kr = min(kRoundK, k - r0);
-    ivf_probe_kernel<T><<<dim3(blocks, qblocks), kThreads, smem, (cudaStream_t)stream>>>(
-        qmap, rmap, cmap, gmap, (const int32_t*)packed_gids, (const int32_t*)tile_ids,
-        (const int32_t*)qf, B, row_bytes, n_packed, tile, n_probe, kr, stages,
-        r0 > 0 ? out_s + r0 - 1 : nullptr, r0 > 0 ? raw + r0 - 1 : nullptr, k, part_s, part_i);
+  if (k > kListK) {  // the select path: the walk, then passes 2-4 over its table
+    const long long cols = (long long)n_probe * tile;
+    const Select sel = carve_select(scratch, B, cols, k,
+                                    select_sweeps(B, cols, blocks * (int)grid.y), true);
+    cudaError_t err = allow_smem<&ivf_probe_kernel<T, true>>();
+    if (err != cudaSuccess) return (int)err;
+    ivf_probe_kernel<T, true><<<grid, kThreads, smem, st>>>(
+        qmap, rmap, cmap, gmap, g, (const int32_t*)tile_ids, (const int32_t*)qf, B, row_bytes,
+        n_packed, tile, n_probe, k, stages, nullptr, nullptr, sel);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    merge_kernel<<<B, kMergeWarps * 32, 0, (cudaStream_t)stream>>>(
-        part_s, part_i, blocks, kr, (const int32_t*)packed_gids, out_s + r0, out_i + r0, k,
-        raw != nullptr ? raw + r0 : nullptr);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    return select_rest(sel, B, k, g, out_s, out_i, st);
   }
-  return (int)cudaSuccess;
+  cudaError_t err = allow_smem<&ivf_probe_kernel<T, false>>();
+  if (err != cudaSuccess) return (int)err;
+  float* part_s = static_cast<float*>(scratch);
+  int32_t* part_i = reinterpret_cast<int32_t*>(part_s + (size_t)B * k * blocks);
+  ivf_probe_kernel<T, false><<<grid, kThreads, smem, st>>>(
+      qmap, rmap, cmap, gmap, g, (const int32_t*)tile_ids, (const int32_t*)qf, B, row_bytes,
+      n_packed, tile, n_probe, k, stages, part_s, part_i, Select{});
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  merge_kernel<<<B, kMergeWarps * 32, 0, st>>>(part_s, part_i, blocks, k, g, out_s, out_i, k);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -193,8 +199,9 @@ int launch(const void* q, const void* packed_emb, const void* packed_codes,
 // n_packed; 1-384 blocks; 1-16 stages within the shared-memory limit; q,
 // the packing's three arrays and scratch 16-byte aligned; any k >= 1), else the first
 // failing launch's status.  `blocks` and `stages` come from index/ivf.py
-// probe_plan; out as masked_topk.cu's entries take it, and scratch too,
-// plus B * k words for the packed positions of the result when k > 32.
+// probe_plan; out as masked_topk.cu's entries take it, and scratch too:
+// the lists at k <= 32, select_words(B, n_probe * tile, k, sweeps, true)
+// words above (topk_select.cuh).
 extern "C" int ivf_probe(const void* q, const void* packed_emb, const void* packed_codes,
                          const void* packed_gids, const void* tile_ids, const void* qf, int B,
                          int D, int n_packed, int tile, int n_probe, int k, int blocks,

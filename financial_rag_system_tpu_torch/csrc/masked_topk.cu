@@ -25,30 +25,33 @@
 // (two an SM at B = 32) splits the 64-row tiles into contiguous shares,
 // each block streams its share through a TMA ring while its consumer
 // warps score and select, and a second launch of one block a query merges
-// the blocks' lists.  The corpus is read exactly once.
+// the blocks' lists.  The corpus is read exactly once.  A k above 32 takes
+// the same walk with the select path's consumers (topk_select.cuh): the
+// scores go to a table in device memory, and an exact threshold selection
+// over the table finds the top k.
 
-#include <atomic>
-
-#include "topk_common.cuh"
+#include "topk_select.cuh"
 
 using namespace topk;
 
 namespace {
 
-template <typename T>
+// pass 1 (kSelect false: best lists into part_s / part_i) or the select
+// path's walk (kSelect: scores into sel's table, column = row)
+template <typename T, bool kSelect>
 __global__ void __launch_bounds__(kThreads, 2)
 masked_topk_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap rmap,
                    const __grid_constant__ CUtensorMap cmap, const int32_t* __restrict__ qf,
                    int B, int N, int row_bytes, int n_valid, int k, int stages,
-                   const float* __restrict__ floor_s, const int32_t* __restrict__ floor_i,
-                   int floor_ld, float* __restrict__ part_s, int32_t* __restrict__ part_i) {
+                   float* __restrict__ part_s, int32_t* __restrict__ part_i, const Select sel) {
   extern __shared__ unsigned char smem_raw[];
   const int nbox = boxes_for(row_bytes);
   const Smem m = carve(smem_raw, nbox, stages);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int qb0 = blockIdx.y * kQB;
   if (threadIdx.x == 0) init_barriers(m, stages);
+  if (kSelect) clear_select(sel, B);
   __syncthreads();
 
   if (warp == kConsumers) {  // the producer: tiles [t0, t1) of the corpus
@@ -56,17 +59,21 @@ masked_topk_kernel(const __grid_constant__ CUtensorMap qmap,
       const long long tiles = (N + kRows - 1) / kRows;
       const int t0 = (int)(tiles * blockIdx.x / gridDim.x);
       const int t1 = (int)(tiles * (blockIdx.x + 1) / gridDim.x);
+      if (kSelect && blockIdx.x == 0 && blockIdx.y == 0) *sel.n_cols = (int)(tiles * kRows);
       Producer pr(m, stages, nbox);
       pr.queries(&qmap, qb0);
-      for (int t = t0; t < t1; ++t) pr.tile(&rmap, &cmap, nullptr, t * kRows, N);
+      for (int t = t0; t < t1; ++t) pr.tile(&rmap, &cmap, nullptr, t * kRows, N, t * kRows);
       pr.end();
     }
     return;
   }
+  if (kSelect) {
+    store_walk<T, false>(m, nbox, row_bytes, stages, B, qb0, N, n_valid, qf, sel, warp, lane);
+    return;
+  }
   float ls[kQPW];
   int li[kQPW];
-  consume<T, false>(m, nbox, row_bytes, stages, B, qb0, N, n_valid, k, qf, floor_s, floor_i,
-                    floor_ld, warp, lane, ls, li);
+  consume<T, false>(m, nbox, row_bytes, stages, B, qb0, N, n_valid, k, qf, warp, lane, ls, li);
   write_lists(ls, li, B, qb0, k, part_s, part_i, warp, lane);
 }
 
@@ -85,38 +92,36 @@ int launch(const void* q, const void* corpus, const void* codes, const void* qf,
   if (!rows_map(&qmap, q, B, row_bytes, kQB) || !rows_map(&rmap, corpus, N, row_bytes, kRows) ||
       !ints_map(&cmap, codes, 2LL * N, kCodeBox))
     return (int)cudaErrorInvalidValue;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  // raise the kernel's shared-memory limit once a device; host threads
-  // may launch at once, and each may do that first
-  static std::atomic<bool> ready[64];
-  if (!ready[dev & 63].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(masked_topk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemLimit);
-    if (err != cudaSuccess) return (int)err;
-    ready[dev & 63].store(true, std::memory_order_release);
-  }
-  const int qblocks = (B + kQB - 1) / kQB;
-  float* part_s = static_cast<float*>(scratch);
-  int32_t* part_i = reinterpret_cast<int32_t*>(part_s + (size_t)B * min(k, kRoundK) * blocks);
+  const dim3 grid(blocks, (B + kQB - 1) / kQB);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nv = max(0, min(n_valid, N));
   float* out_s = static_cast<float*>(out);
   int32_t* out_i = reinterpret_cast<int32_t*>(out_s + (size_t)B * k);
-  // rounds of kRoundK; round r's floor is entry 32 r - 1 of the result
-  for (int r0 = 0; r0 < k; r0 += kRoundK) {
-    const int kr = min(kRoundK, k - r0);
-    masked_topk_kernel<T><<<dim3(blocks, qblocks), kThreads, smem, (cudaStream_t)stream>>>(
-        qmap, rmap, cmap, (const int32_t*)qf, B, N, row_bytes, max(0, min(n_valid, N)), kr,
-        stages, r0 > 0 ? out_s + r0 - 1 : nullptr, r0 > 0 ? out_i + r0 - 1 : nullptr, k, part_s,
-        part_i);
+  if (k > kListK) {  // the select path: the walk, then passes 2-4 over its table
+    const long long cols = (N + kRows - 1LL) / kRows * kRows;
+    const Select sel = carve_select(scratch, B, cols, k,
+                                    select_sweeps(B, cols, blocks * (int)grid.y), false);
+    cudaError_t err = allow_smem<&masked_topk_kernel<T, true>>();
+    if (err != cudaSuccess) return (int)err;
+    masked_topk_kernel<T, true><<<grid, kThreads, smem, st>>>(
+        qmap, rmap, cmap, (const int32_t*)qf, B, N, row_bytes, nv, k, stages, nullptr, nullptr,
+        sel);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    merge_kernel<<<B, kMergeWarps * 32, 0, (cudaStream_t)stream>>>(
-        part_s, part_i, blocks, kr, nullptr, out_s + r0, out_i + r0, k, nullptr);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    return select_rest(sel, B, k, nullptr, out_s, out_i, st);
   }
-  return (int)cudaSuccess;
+  cudaError_t err = allow_smem<&masked_topk_kernel<T, false>>();
+  if (err != cudaSuccess) return (int)err;
+  float* part_s = static_cast<float*>(scratch);
+  int32_t* part_i = reinterpret_cast<int32_t*>(part_s + (size_t)B * k * blocks);
+  masked_topk_kernel<T, false><<<grid, kThreads, smem, st>>>(
+      qmap, rmap, cmap, (const int32_t*)qf, B, N, row_bytes, nv, k, stages, part_s, part_i,
+      Select{});
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  merge_kernel<<<B, kMergeWarps * 32, 0, st>>>(part_s, part_i, blocks, k, nullptr, out_s, out_i,
+                                               k);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -126,8 +131,10 @@ int launch(const void* q, const void* corpus, const void* codes, const void* qf,
 // int8, rows of at most 6272 bytes; any k >= 1; 1-384 blocks; 1-16
 // stages within the shared-memory limit; q, corpus, codes and scratch 16-byte aligned),
 // else the first failing launch's status.  `blocks` and `stages` come from
-// ops/topk.py topk_plan; scratch holds a round's lists, 2 * B * min(k, 32)
-// * blocks int32 words; out receives the (B, k) f32 scores, then the
+// ops/topk.py topk_plan; scratch holds the lists, 2 * B * k * blocks int32
+// words, at k <= 32, and select_words(B, 64 * ceil(N / 64), k, sweeps, false)
+// words above (topk_select.cuh, sweeps = select_sweeps(B, cols, blocks *
+// ceil(B / 32))); out receives the (B, k) f32 scores, then the
 // (B, k) int32 row ids.
 extern "C" int masked_topk(const void* q, const void* corpus, const void* codes, const void* qf,
                            int B, int N, int D, int n_valid, int k, int blocks, int stages,

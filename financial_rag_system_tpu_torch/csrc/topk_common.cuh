@@ -28,19 +28,13 @@
 //    each list still in the running (a list whose entry j does not enter
 //    leaves, since its later entries rank lower still), and the four
 //    warps' lists merge pairwise through shared memory.
-// A k above 32 (any k) runs in rounds of at most 32 (kRoundK): each
-// round is the two launches above, and round r > 0 offers only the rows
-// that rank after round r - 1's last entry, its floor, which the round
-// reads from the result so far.  The lists hold one entry a lane, so a
-// round finds the next 32 of the order, and the rounds laid end to end are
-// the top k.  (Lists of k entries, ceil(k / 32) a lane, would not fit: a
-// consumer warp keeps the lists of four queries, 256 registers a lane at
-// k 1024, and a block's 32 lists of 1024 entries are 256 KB, above the
-// 227 KB of shared memory a block may take.)  The floor is the only thing
-// a round carries, so k bounds nothing but the output: ceil(k / 32)
-// rounds, each a full pass over the rows or the probed tiles.  Rounds past
-// the last live row find nothing (a floor of -inf admits no row) and
-// leave -inf / -1.
+// The lists hold one entry a lane, so this path takes k up to 32 (kListK).
+// (Lists of k entries, ceil(k / 32) a lane, would not fit: a consumer warp
+// keeps the lists of four queries, 256 registers a lane at k 1024, and a
+// block's 32 lists of 1024 entries are 256 KB, above the 227 KB of shared
+// memory a block may take.)  A larger k takes topk_select.cuh's path: the
+// same walk writes the masked scores to device memory, and an exact
+// threshold selection finds the top k there.
 // The query block's boxes stay in shared memory for the whole walk, 4 KB
 // a box of 128 bytes (64 bf16 or 128 int8 values): up to 1,024 bf16
 // values a row two blocks share an SM with a ring of 3-8 boxes; wider
@@ -68,6 +62,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <mutex>
 
 #include "mma_bf16.cuh"
@@ -84,10 +79,10 @@ constexpr int kBoxBytes = 128;                   // bytes of a row in one box
 constexpr int kBox = kRows * kBoxBytes;          // a ring stage: 8 KB
 constexpr int kQBox = kQB * kBoxBytes;           // a box of the query block: 4 KB
 constexpr int kSlots = 4;                        // tile slots
-constexpr int kSlotBytes = 1152;                 // codes [2][68], gids [64], position
+constexpr int kSlotBytes = 1152;                 // codes [2][68], gids [64], position, column
 constexpr int kCodeBox = kRows + 4;              // codes a box: row 1 starts 4-aligned
 constexpr int kScStride = kRows + 4;             // floats a query's row of scores
-constexpr int kRoundK = 32;                      // entries a round finds: one a lane
+constexpr int kListK = 32;                       // the largest k the lists take: one a lane
 constexpr int kMaxRowBytes = 6272;               // 49 boxes: the widest row a plan takes
 constexpr int kMaxStages = 16;
 constexpr int kMergeWarps = 4;                   // pass 2: warps a query
@@ -176,11 +171,13 @@ struct Smem {
   uint64_t* qbar;        // the query block has landed
 };
 
-// a tile slot: ticker codes, doc-type codes, gids (kernel 3), position;
-// each TMA destination 128-byte aligned
+// a tile slot: ticker codes, doc-type codes, gids (kernel 3), position,
+// and the tile's first column of topk_select.cuh's score table; each TMA
+// destination 128-byte aligned
 constexpr int kSlotCodes1 = 384;
 constexpr int kSlotGids = 768;
 constexpr int kSlotBase = 1024;
+constexpr int kSlotCol = 1028;
 
 __device__ __forceinline__ Smem carve(unsigned char* raw, int nbox, int stages) {
   Smem m;
@@ -232,17 +229,19 @@ struct Producer {
     for (int b = 0; b < nbox; ++b) tma_load_2d(m.q + b * kQBox, qmap, m.qbar, b * kBoxBytes, qb0);
   }
 
-  // The tile of rows [base, base + 64): its codes, its gids when `gmap`
-  // is given, then its boxes; rows past the tensor arrive as zeros.  The
+  // The tile of rows [base, base + 64), scored into columns [col, col +
+  // 64) on the select path: its codes, its gids when `gmap` is given,
+  // then its boxes; rows past the tensor arrive as zeros.  The
   // (2, n) codes are one flat map of 2n values, and a box must start at a
   // 16-byte aligned address: row 0's at base (a multiple of 64), row 1's
   // at n + base rounded down to a multiple of 4, so the box of 68 holds
   // the tile's 64 from (n % 4) on.
   __device__ void tile(const CUtensorMap* rmap, const CUtensorMap* cmap, const CUtensorMap* gmap,
-                       int base, int n) {
+                       int base, int n, int col) {
     mbar_wait(&m.sempty[slot], sph ^ 1);
     unsigned char* sl = m.slots + slot * kSlotBytes;
     *reinterpret_cast<volatile int*>(sl + kSlotBase) = base;
+    *reinterpret_cast<volatile int*>(sl + kSlotCol) = col;
     mbar_arrive_expect_tx(&m.sfull[slot], 2 * kCodeBox * 4 + (gmap != nullptr ? kRows * 4 : 0));
     tma_load_1d(sl, cmap, &m.sfull[slot], base);
     tma_load_1d(sl + kSlotCodes1, cmap, &m.sfull[slot], (n + base) & ~3);
@@ -455,40 +454,55 @@ __device__ __forceinline__ void offer(float (&ls)[Q], int (&li)[Q], float (&ts)[
 
 // -- the consumers -----------------------------------------------------------
 
+// The (32 queries) x (64 rows) scores of the walk's tile `tile`, from the
+// ring's next nbox boxes (s, ph: the ring's stage and parity), into one
+// of two score buffers: a warp writes a buffer again only after every
+// warp has passed the next tile's barrier, so is done reading it.
+template <typename T>
+__device__ __forceinline__ float* score_tile(const Smem& m, int nbox, int row_bytes, int stages,
+                                             int tile, int& s, int& ph, int warp, int lane) {
+  using Acc = typename Elem<T>::Acc;
+  const uint32_t qs = smem_addr(m.q), ring = smem_addr(m.ring);
+  Acc acc[2][4] = {};
+  for (int b = 0; b < nbox; ++b) {
+    mbar_wait(&m.full[s], ph);
+    score_box<T>(acc, qs + b * kQBox, ring + s * kBox, min(4, (row_bytes - b * kBoxBytes) / 32),
+                 warp, lane);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&m.empty[s]);
+    if (++s == stages) { s = 0; ph ^= 1; }
+  }
+  float* sc = m.sc + (tile & 1) * kQB * kScStride;
+  store_scores(sc, acc, warp, lane);
+  named_barrier(1, kConsumers * 32);
+  return sc;
+}
+
 // A consumer warp's walk over the tiles the producer sends, until the
 // slot whose position is -1: score each tile, then offer its rows to the
 // lists of the warp's four queries, side by side.  A row is a candidate
 // when it passes the query's [ticker, doc_type] filter (-1 is the
-// wildcard) and is live:
-// below n_valid (kernel 1) or with a gid >= 0 (kernel 3, kIvf).  n is the
-// codes' row length (Producer::tile).
-// floor_s / floor_i, when given, are each query's floor at q * floor_ld:
-// only rows ranking after it are candidates (a round past the first).
+// wildcard) and is live: below n_valid (kernel 1) or with a gid >= 0
+// (kernel 3, kIvf).  n is the codes' row length (Producer::tile).
 template <typename T, bool kIvf>
 __device__ __forceinline__ void consume(const Smem& m, int nbox, int row_bytes, int stages,
                                         int B, int qb0, int n, int n_valid, int k,
-                                        const int32_t* __restrict__ qf,
-                                        const float* __restrict__ floor_s,
-                                        const int32_t* __restrict__ floor_i, int floor_ld,
-                                        int warp, int lane, float (&ls)[kQPW], int (&li)[kQPW]) {
-  using Acc = typename Elem<T>::Acc;
+                                        const int32_t* __restrict__ qf, int warp, int lane,
+                                        float (&ls)[kQPW], int (&li)[kQPW]) {
   bool live[kQPW], fresh[kQPW];
   int tq[kQPW], dq[kQPW];
-  float ts[kQPW], fs[kQPW];
-  int ti[kQPW], fi[kQPW];
+  float ts[kQPW];
+  int ti[kQPW];
 #pragma unroll
   for (int qq = 0; qq < kQPW; ++qq) {
     const int q = qb0 + warp * kQPW + qq;
     live[qq] = q < B;
     tq[qq] = live[qq] ? qf[2 * q] : 0;
     dq[qq] = live[qq] ? qf[2 * q + 1] : 0;
-    fs[qq] = live[qq] && floor_s != nullptr ? floor_s[(size_t)q * floor_ld] : INFINITY;
-    fi[qq] = live[qq] && floor_s != nullptr ? floor_i[(size_t)q * floor_ld] : INT_MIN;
     ls[qq] = ts[qq] = -INFINITY;
     li[qq] = ti[qq] = kNoId;
     fresh[qq] = true;
   }
-  const uint32_t qs = smem_addr(m.q), ring = smem_addr(m.ring);
   mbar_wait(m.qbar, 0);
   int s = 0, ph = 0;
   for (int tile = 0;; ++tile) {
@@ -497,20 +511,7 @@ __device__ __forceinline__ void consume(const Smem& m, int nbox, int row_bytes, 
     const unsigned char* sl = m.slots + slot * kSlotBytes;
     const int base = *reinterpret_cast<const volatile int*>(sl + kSlotBase);
     if (base < 0) break;
-    Acc acc[2][4] = {};
-    for (int b = 0; b < nbox; ++b) {
-      mbar_wait(&m.full[s], ph);
-      score_box<T>(acc, qs + b * kQBox, ring + s * kBox, min(4, (row_bytes - b * kBoxBytes) / 32),
-                   warp, lane);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&m.empty[s]);
-      if (++s == stages) { s = 0; ph ^= 1; }
-    }
-    // two score buffers: a warp writes this one again only after every
-    // warp has passed the next tile's barrier, so is done reading it
-    float* sc = m.sc + (tile & 1) * kQB * kScStride;
-    store_scores(sc, acc, warp, lane);
-    named_barrier(1, kConsumers * 32);
+    const float* sc = score_tile<T>(m, nbox, row_bytes, stages, tile, s, ph, warp, lane);
 
     const int32_t* codes0 = reinterpret_cast<const int32_t*>(sl);
     const int32_t* codes1 = reinterpret_cast<const int32_t*>(sl + kSlotCodes1) + (n & 3);
@@ -528,7 +529,7 @@ __device__ __forceinline__ void consume(const Smem& m, int nbox, int row_bytes, 
         cs[qq] = sc[(warp * kQPW + qq) * kScStride + r];
         ci[qq] = id;
         ok[qq] = live[qq] && row_ok && (tq[qq] == -1 || tq[qq] == tc) &&
-                 (dq[qq] == -1 || dq[qq] == dc) && before(fs[qq], fi[qq], cs[qq], id);
+                 (dq[qq] == -1 || dq[qq] == dc);
       }
       offer<kQPW>(ls, li, ts, ti, fresh, cs, ci, ok, enter, lane, k);
     }
@@ -561,12 +562,11 @@ __device__ __forceinline__ void write_lists(const float (&ls)[kQPW], const int (
 // running; the four warps' lists then merge pairwise through shared
 // memory, and warp 0 writes the result, query q's entry j at q * ld + j.
 // id_map (kernel 3), when not null, maps each winning id to the id
-// written; empty slots are -inf / -1.  raw_i, when not null, receives the
-// ids before the map (kNoId for an empty slot): the next round's floor.
+// written; empty slots are -inf / -1.
 __global__ void __launch_bounds__(kMergeWarps * 32)
 merge_kernel(const float* __restrict__ part_s, const int32_t* __restrict__ part_i, int G, int k,
              const int32_t* __restrict__ id_map, float* __restrict__ out_s,
-             int32_t* __restrict__ out_i, int ld, int32_t* __restrict__ raw_i) {
+             int32_t* __restrict__ out_i, int ld) {
   __shared__ float ms[kMergeWarps][32];
   __shared__ int mi[kMergeWarps][32];
   const int q = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -616,7 +616,6 @@ merge_kernel(const float* __restrict__ part_s, const int32_t* __restrict__ part_
     const size_t at = (size_t)q * ld + lane;
     out_s[at] = ls[0];
     out_i[at] = ls[0] > -INFINITY ? (id_map != nullptr ? id_map[li[0]] : li[0]) : -1;
-    if (raw_i != nullptr) raw_i[at] = li[0];
   }
 }
 
@@ -696,5 +695,21 @@ inline bool ints_map(CUtensorMap* map, const void* ptr, long long n, int box_len
 }
 
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// raise a kernel's shared-memory limit once a device; host threads may
+// launch at once, and each may do that first
+template <auto kKernel>
+inline cudaError_t allow_smem() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  static std::atomic<bool> ready[64];
+  if (!ready[dev & 63].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return err;
+    ready[dev & 63].store(true, std::memory_order_release);
+  }
+  return cudaSuccess;
+}
 
 }  // namespace topk

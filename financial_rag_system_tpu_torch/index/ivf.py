@@ -175,13 +175,9 @@ def probe_plan(b: int, n_probe: int, tile: int, d: int, elt: int, k: int, sms: i
     entries of ``tile`` rows, ``d`` values of ``elt`` bytes a row.  How many
     entries are active is known only on the card, where each block finds
     it and takes an even share of the active tiles' 64-row pieces; the plan
-    sizes the grid for the whole list.  With more than one round the
-    scratch also holds the result's packed positions, ``b * k`` words,
-    from which each round reads its floor."""
-    plan = plan_for(b, n_probe * (tile // TILE_ROWS), d * elt, k, sms)
-    if plan.rounds > 1:
-        plan = plan._replace(scratch=plan.scratch + b * k)
-    return plan
+    sizes the grid, and the select path's score table, for the whole
+    list."""
+    return plan_for(b, n_probe * (tile // TILE_ROWS), d * elt, k, sms, ivf=True)
 
 
 @functools.cache
@@ -197,7 +193,8 @@ def ivf_probe_cuda(
     queries, query_filter, packed_emb, packed_codes, packed_gids, tile_ids, k,
     *, tile,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/ivf_probe.cu`` (two launches) on the current stream.
+    """Launch ``csrc/ivf_probe.cu`` on the current stream (as
+    ``masked_topk_cuda`` launches kernel 1).
     ``tile_ids`` lists the active tile ids first, then -1s, as
     :func:`probe_tile_list` makes it."""
     b, d = queries.shape
@@ -238,7 +235,9 @@ def ivf_probe_cuda(
             out.data_ptr(),
         )
     with _launch_lock:  # batches run in worker threads
-        if packed_emb.dtype == torch.int8:
+        if plan.path == "select":
+            ivf_probe.launches_select += 1
+        elif packed_emb.dtype == torch.int8:
             ivf_probe.launches_int8 += 1
         else:
             ivf_probe.launches += 1
@@ -265,6 +264,7 @@ def ivf_probe(
 # and resets them)
 ivf_probe.launches = 0
 ivf_probe.launches_int8 = 0
+ivf_probe.launches_select = 0
 _launch_lock = threading.Lock()
 
 

@@ -22,8 +22,12 @@ bit on the CPU and the card.  Up to D 1040 (127^2 * D < 2^24) the cast
 is exact too; above it, it rounds to the nearest f32.  The int8 branch
 counts its launches in ``masked_topk.launches_int8``.
 
-Any k runs (in ceil(k / 32) rounds on the card), and any D of at most
-``MAX_ROW_BYTES`` bytes a row: 3,136 bf16 or 6,272 int8 values.
+Any k runs, and any D of at most ``MAX_ROW_BYTES`` bytes a row: 3,136
+bf16 or 6,272 int8 values.  Up to ``LIST_K`` the kernel keeps best lists
+(the main paths' k 15); above it, the same walk writes the masked scores
+to a table in device memory and an exact threshold selection finds the
+top k there (``csrc/topk_select.cuh``; counted in
+``masked_topk.launches_select``, either type).
 
 Filter encoding: each corpus row carries int32 ``[ticker_code,
 doc_type_code]``; each query carries required codes where ``-1`` means
@@ -43,7 +47,7 @@ import torch
 from financial_rag_system_tpu_torch.ops import _cuda
 
 NEG_INF = float("-inf")
-ROUND_K = 32  # entries a round of kernels 1 and 3 finds (csrc/topk_common.cuh)
+LIST_K = 32  # the largest k kernels 1 and 3 keep lists for (csrc/topk_common.cuh kListK)
 MAX_ROW_BYTES = 6272  # 49 boxes of 128 bytes: the query block's, in shared memory
 # D must be a multiple of one tensor-core step: m16n8k16 (bf16), m16n8k32 (int8)
 DIM_STEP = {torch.bfloat16: 16, torch.int8: 32}
@@ -63,6 +67,13 @@ TOPK_STAGES = 8
 TOPK_PER_SM = 2
 # the fewest ring stages two blocks an SM may keep; wider rows take one block an SM
 MIN_SHARED_STAGES = 3
+# the select path above LIST_K (csrc/topk_select.cuh)
+DIGIT_BITS = 11        # bits of the order key a digit pass settles: 11, 11, 10
+LAST_BITS = 32 - DIGIT_BITS * (31 // DIGIT_BITS)  # the last digit's
+SELECT_CHUNK = 4096    # score-table columns a block of the passes over the table loads at once
+SWEEPS_AN_SM = 8       # blocks of the passes over the table an SM holds
+SORT_CAP = 4096        # survivors one block sorts in shared memory; more merge in runs
+STATE_WORDS = 8        # a query's selection state
 
 
 def _check_dtype(corpus: torch.Tensor) -> None:
@@ -129,9 +140,41 @@ class TopkPlan(NamedTuple):
     stages: int      # ring stages, a box of 64 rows x 128 bytes each
     smem: int        # bytes of dynamic shared memory a block takes
     tiles: int       # 64-row tiles dealt out (kernel 3: pieces of every entry, at most)
-    candidates: int  # entries of the blocks' lists pass 2 may read a query, a round
-    scratch: int     # int32 words of scratch: a round's lists' scores and ids
-    rounds: int      # rounds of ROUND_K entries (two launches each) that find the top k
+    candidates: int  # entries of the blocks' lists pass 2 may read a query (0: select path)
+    scratch: int     # int32 words of scratch: the lists, or the select path's table and more
+    cols: int        # select path: score-table columns a query, 64 a tile (0: lists)
+    sweeps: int      # select path: blocks a query of the digit and collect passes
+    runs: int        # select path: runs of SORT_CAP survivors, sorted apart then merged
+
+    @property
+    def path(self) -> str:
+        """``lists`` (k <= LIST_K: pass 1 and the merge) or ``select``."""
+        return "select" if self.cols else "lists"
+
+
+def _round4(words: int) -> int:
+    return -(-words // 4) * 4
+
+
+def select_sweeps(b: int, cols: int, walk_blocks: int) -> int:
+    """Blocks a query of the passes over the score table (``select_sweeps``
+    in ``csrc/topk_select.cuh``): SWEEPS_AN_SM an SM over the SMs of the
+    walk's grid (two an SM), at most a chunk of SELECT_CHUNK columns each."""
+    fill = -(-SWEEPS_AN_SM // 2 * walk_blocks // b)
+    return min(-(-cols // SELECT_CHUNK), max(fill, 1))
+
+
+def select_scratch(b: int, cols: int, k: int, sweeps: int, ivf: bool = False) -> int:
+    """int32 words of scratch the select path takes (``select_words`` in
+    ``csrc/topk_select.cuh``): the (b, cols) f32 score table; the
+    histograms, the state and the column count; each sweeping block's
+    histogram of the last digit; the (b, k) survivors, twice when they
+    sort in more than one run; kernel 3's first packed position of each
+    64-row piece."""
+    runs = -(-k // SORT_CAP)
+    return (b * cols + _round4(b * ((1 << DIGIT_BITS) + STATE_WORDS) + 1)
+            + _round4(b * sweeps << LAST_BITS) + 2 * b * k * (2 if runs > 1 else 1)
+            + (_round4(cols // TILE_ROWS) if ivf else 0))
 
 
 def topk_smem(row_bytes: int, stages: int) -> int:
@@ -146,7 +189,8 @@ def topk_smem(row_bytes: int, stages: int) -> int:
 
 
 def plan_for(b: int, tiles: int, row_bytes: int, k: int, sms: int,
-             per_sm: int = TOPK_PER_SM, stages: int = TOPK_STAGES) -> TopkPlan:
+             per_sm: int = TOPK_PER_SM, stages: int = TOPK_STAGES,
+             ivf: bool = False) -> TopkPlan:
     """The launch of kernel 1 or 3 for ``b`` queries over ``tiles`` 64-row
     tiles of ``row_bytes`` bytes a row, on a card of ``sms`` multiprocessors:
     ``per_sm`` blocks an SM shared by the query blocks, never more blocks
@@ -154,10 +198,11 @@ def plan_for(b: int, tiles: int, row_bytes: int, k: int, sms: int,
     share of the SM's shared memory holds, up to ``stages`` (two blocks an
     SM keep three at D 1024 in bf16, eight at D 384).  Rows too wide for
     MIN_SHARED_STAGES stages at ``per_sm`` blocks an SM take one block an
-    SM (up to MAX_ROW_BYTES, where one stage is left).  A k above ROUND_K
-    takes ceil(k / ROUND_K) rounds, each finding the next ROUND_K entries
-    with lists of one entry a lane, so the lists, the shared memory and the
-    scratch are a round's whatever k is."""
+    SM (up to MAX_ROW_BYTES, where one stage is left).  A k above LIST_K
+    takes the select path: the same walk (grid, ring and shared memory)
+    writes a table of 64 columns a tile, which ``sweeps`` blocks a query
+    pass over, and the survivors sort in ``runs`` runs (``ivf``: kernel
+    3's scratch also maps its pieces)."""
     qblocks = -(-b // QUERY_BLOCK)
 
     def room(blocks_an_sm: int) -> int:
@@ -171,9 +216,13 @@ def plan_for(b: int, tiles: int, row_bytes: int, k: int, sms: int,
         raise ValueError(f"rows of {row_bytes} bytes leave no ring stage "
                          f"(at most {MAX_ROW_BYTES})")
     blocks = max(1, min(tiles, sms * per_sm // qblocks, MAX_BLOCKS))
-    kr = min(k, ROUND_K)
-    return TopkPlan(blocks, qblocks, n_stages, topk_smem(row_bytes, n_stages), tiles,
-                    blocks * kr, 2 * b * kr * blocks, -(-k // ROUND_K))
+    walk = (blocks, qblocks, n_stages, topk_smem(row_bytes, n_stages), tiles)
+    if k <= LIST_K:
+        return TopkPlan(*walk, blocks * k, 2 * b * k * blocks, 0, 0, 0)
+    cols = tiles * TILE_ROWS
+    sweeps = select_sweeps(b, cols, blocks * qblocks)
+    return TopkPlan(*walk, 0, select_scratch(b, cols, k, sweeps, ivf), cols, sweeps,
+                    -(-k // SORT_CAP))
 
 
 @functools.lru_cache(maxsize=256)
@@ -200,7 +249,8 @@ def masked_topk_cuda(
     n_valid: int,
     k: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/masked_topk.cu`` (two launches) on the current stream."""
+    """Launch ``csrc/masked_topk.cu`` on the current stream: two launches up
+    to LIST_K, the walk and the select path's passes above."""
     _check_dtype(corpus)
     b, d = queries.shape
     n = corpus.shape[0]
@@ -231,7 +281,9 @@ def masked_topk_cuda(
             plan.stages, scratch.data_ptr(), out.data_ptr(),
         )
     with _launch_lock:  # batches run in worker threads
-        if corpus.dtype == torch.int8:
+        if plan.path == "select":
+            masked_topk.launches_select += 1
+        elif corpus.dtype == torch.int8:
             masked_topk.launches_int8 += 1
         else:
             masked_topk.launches += 1
@@ -257,7 +309,8 @@ def masked_topk(
 
 
 # kernel launches since the last reset, by branch (chip_smoke.py reads
-# and resets them)
+# and resets them): the lists' bf16 and int8 branches, and the select path
 masked_topk.launches = 0
 masked_topk.launches_int8 = 0
+masked_topk.launches_select = 0
 _launch_lock = threading.Lock()

@@ -4,8 +4,8 @@
                                                                   [--only NAME,NAME]
 
 Builds copies of ``financial_rag_system_tpu_torch/csrc/masked_topk.cu`` and
-``ivf_probe.cu`` with ``topk_common.cuh`` changed in one way, and runs
-each at the main path's shapes: kernel 1 over B 32 x N 131,072 x D 384 in
+``ivf_probe.cu`` with their sources changed in one way, and runs each at
+the main path's shapes: kernel 1 over B 32 x N 131,072 x D 384 in
 bf16 and int8 and over 1,048,576 bf16 rows, kernel 3 over a 1M-row
 packing of 16,384 tiles of 128 (512 clusters of 32 tiles, each about
 half live) on a list of 544 active tiles (17 clusters, as the phase-4
@@ -33,6 +33,28 @@ as a diverse batch probes), in bf16 and int8.  Variants:
   warps' lists merge in shared memory at the end (``merge_warp_lists``)
   before pass 2.
 
+The select path above k 32 (``topk_select.cuh``) has variants of its own,
+run on its cases: kernel 1 over B 32 x N 131,072 x D 384 at k 100, 1024
+and 2048 in bf16, at k 1024 in int8 and on tie-heavy exact bf16 rows (six
+distinct vectors), over 1,048,580 bf16 rows at k 1024, and kernel 3 on the
+diverse list at k 1024:
+
+- ``select_as_is``: the path as the port builds it (digits of 11, 11 and
+  10 bits; one block sorts up to 4,096 survivors);
+- ``select_digits_8``, ``select_digits_12``: digits of 8 bits (four
+  passes over the score table) or of 12 (12, 12 and 8);
+- ``select_sort_1024``, ``select_sort_2048``: a block sorts at most 1,024
+  or 2,048 survivors, the rest merge in device memory;
+- ``select_chunk_2048``, ``select_chunk_8192``: a block of the passes
+  over the table loads 2 or 8 float4 a thread at once (the kernel: 4);
+- ``select_sweeps_4``, ``select_sweeps_16``: 4 or 16 blocks an SM sweep
+  the table (the kernel: 8);
+- ``select_one_wave``: the digit and collect kernels' launch bounds ask
+  for 8 blocks an SM (32 registers), so the passes' grid runs in one wave;
+- ``select_two_walks``: the walk over the corpus launched twice: what a
+  second walk costs, the least that a design of two walks in place of the
+  score table would add.
+
 With ``--parent``, an earlier checkout's two-pass kernels (its C entries:
 1,024 rows a split for kernel 1, min(entries, 512) splits for kernel 3)
 run on the same inputs too.  Each line gives the variant's device time
@@ -41,8 +63,10 @@ median CUDA-event time a call (20 calls, each waited for) and
 over 20 calls queued back to back, and whether its output equals
 ``as_is``'s bit for bit; before them, each variant's ``ptxas -v``
 registers and spills, and the host time of kernel 1's wrapper beside its
-C entry alone.  The card's name and power limit head the output.  The
-variants build in parallel, into ``build/topk_variants/``.
+C entry alone.  A select-path line gives the device time by kernel (the
+walk, the digit passes, collect, sort and merges) instead of by pass,
+and ``select_as_is`` also each launch's in the order launched.  The card's name and power limit head the output.  The variants
+build in parallel, into ``build/topk_variants/``.
 """
 
 from __future__ import annotations
@@ -64,12 +88,13 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 OUT = REPO / "build" / "topk_variants"
 B, N, D, K = 32, 131_072, 384, 15
 N_BIG = 1_048_576
+N_BIG_FLAT = 1_048_580  # the IVF corpus's flat size, the select path's large case
 TILE, CLUSTER_TILES = 128, 32
 
 
-def patched(text: str, old: str, new: str) -> str:
+def patched(text: str, old: str, new: str, name: str = "topk_common.cuh") -> str:
     if old not in text:
-        raise RuntimeError(f"topk_common.cuh no longer holds {old[:60]!r}")
+        raise RuntimeError(f"{name} no longer holds {old[:60]!r}")
     return text.replace(old, new)
 
 
@@ -78,7 +103,7 @@ OFFER = "offer<kQPW>(ls, li, ts, ti, fresh, cs, ci, ok, enter, lane, k);"
 KEEP_BEST = ("for (int qq = 0; qq < kQPW; ++qq) "
              "if (ok[qq] && cs[qq] > ls[qq]) { ls[qq] = cs[qq]; li[qq] = ci[qq]; }")
 SCORE = ("score_box<T>(acc, qs + b * kQBox, ring + s * kBox, "
-         "min(4, (row_bytes - b * kBoxBytes) / 32),\n                   warp, lane);")
+         "min(4, (row_bytes - b * kBoxBytes) / 32),\n                 warp, lane);")
 
 # the two-pass design's selection: lane = query, a 32-entry sorted list in
 # registers, the warp's 8 rows of each tile inserted by a swap chain, the
@@ -181,10 +206,51 @@ __device__ __forceinline__ void consume_old(const Smem& m, int nbox, int row_byt
 // -- the consumers'''
 
 
-def variant_sources() -> dict[str, str]:
-    """Each variant's topk_common.cuh."""
-    base = (CSRC / "topk_common.cuh").read_text()
+SOURCES = ("sm90.cuh", "mma_bf16.cuh", "topk_common.cuh", "topk_select.cuh", "masked_topk.cu",
+           "ivf_probe.cu")
+# the select path's walk launch in each kernel's source
+WALK_LAUNCH = {"masked_topk.cu": "    masked_topk_kernel<T, true><<<grid, kThreads, smem, st>>>(",
+               "ivf_probe.cu": "    ivf_probe_kernel<T, true><<<grid, kThreads, smem, st>>>("}
+
+
+def select_variant_sources() -> dict[str, dict[str, str]]:
+    """Each select-path variant's changed sources, by file name."""
+    sel = (CSRC / "topk_select.cuh").read_text()
+
+    def const(name: str, value: int) -> dict[str, str]:
+        m = re.search(rf"constexpr int {name} = (\d+);", sel)
+        if m is None:
+            raise RuntimeError(f"topk_select.cuh no longer holds {name}")
+        return {"topk_select.cuh": sel.replace(m[0], f"constexpr int {name} = {value};")}
+
     return {
+        "select_as_is": {},
+        "select_digits_8": const("kDigitBits", 8),
+        "select_digits_12": const("kDigitBits", 12),
+        "select_sort_1024": const("kSortCap", 1024),
+        "select_sort_2048": const("kSortCap", 2048),
+        "select_chunk_2048": const("kChunk", 2048),
+        "select_chunk_8192": const("kChunk", 8192),
+        "select_sweeps_4": const("kSweepsAnSm", 4),
+        "select_sweeps_16": const("kSweepsAnSm", 16),
+        "select_one_wave": {"topk_select.cuh": patched(patched(
+            sel, "__global__ void __launch_bounds__(kSelThreads)\ndigit_kernel(",
+            "__global__ void __launch_bounds__(kSelThreads, kSweepsAnSm)\ndigit_kernel(",
+            "topk_select.cuh"),
+            "__global__ void __launch_bounds__(kSelThreads) collect_kernel(",
+            "__global__ void __launch_bounds__(kSelThreads, kSweepsAnSm) collect_kernel(",
+            "topk_select.cuh")},
+        "select_two_walks": {f: patched((CSRC / f).read_text(), launch,
+                                        "    for (int walk = 0; walk < 2; ++walk)\n" + launch, f)
+                             for f, launch in WALK_LAUNCH.items()},
+    }
+
+
+def variant_sources() -> dict[str, dict[str, str]]:
+    """Each variant's changed sources, by file name: the list path's
+    change topk_common.cuh, the select path's their own."""
+    base = (CSRC / "topk_common.cuh").read_text()
+    lists = {
         "as_is": base,
         "bulk_2": patched(base, "constexpr int kBulk = 4;", "constexpr int kBulk = 2;"),
         "bulk_8": patched(base, "constexpr int kBulk = 4;", "constexpr int kBulk = 8;"),
@@ -199,6 +265,10 @@ def variant_sources() -> dict[str, str]:
         "loads_only": patched(patched(base, OFFER, KEEP_BEST), SCORE, ""),
         "old_select": patched(base, "\n// -- the consumers", OLD_SELECT_FNS),
     }
+    out = {name: {"topk_common.cuh": text} for name, text in lists.items()}
+    for f in ("masked_topk.cu", "ivf_probe.cu"):
+        out["old_select"][f] = patched((CSRC / f).read_text(), "consume<T, ", "consume_old<T, ", f)
+    return {**out, **select_variant_sources()}
 
 
 # plan changes: (stages, blocks an SM) in place of the plan's
@@ -214,16 +284,11 @@ def build(names: list[str]) -> dict[str, dict[str, ctypes.CDLL]]:
     sources = variant_sources()
     procs = []
     for name in names:
-        src = sources[name]
         d = OUT / name
         shutil.rmtree(d, ignore_errors=True)
         d.mkdir(parents=True)
-        for f in ("sm90.cuh", "mma_bf16.cuh", "masked_topk.cu", "ivf_probe.cu"):
-            text = (CSRC / f).read_text()
-            if name == "old_select" and f.endswith(".cu"):
-                text = patched(text, "consume<T, ", "consume_old<T, ")
-            (d / f).write_text(text)
-        (d / "topk_common.cuh").write_text(src)
+        for f in SOURCES:
+            (d / f).write_text(sources[name].get(f) or (CSRC / f).read_text())
         for lib in ("masked_topk", "ivf_probe"):
             cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(d / f"{lib}.so"),
                    str(d / f"{lib}.cu")]
@@ -234,7 +299,8 @@ def build(names: list[str]) -> dict[str, dict[str, ctypes.CDLL]]:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"{name}/{lib} did not build:\n{log}")
-        regs = re.findall(r"Function properties for (\S*(?:topk|probe)_kernel\S*)\n.*?"
+        regs = re.findall(r"Function properties for (\S*(?:topk|probe|digit|collect|sort)_kernel"
+                          r"\S*)\n.*?"
                           r"(\d+) bytes spill stores, (\d+) bytes spill loads\n.*?Used (\d+) registers",
                           log, re.S)
         for fn, st, ld, r in regs:
@@ -251,6 +317,45 @@ def build(names: list[str]) -> dict[str, dict[str, ctypes.CDLL]]:
                 fn.argtypes = [p] * 6 + [i] * 8 + [p] * 3
         libs.setdefault(name, {})[lib] = cdll
     return libs
+
+
+def kernel_split(torch, fn, calls: int = 10) -> dict[str, float]:
+    """Device ms a call by kernel (its short name): the profiler's kernel
+    times over `calls` calls, each launch counted once."""
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        seen = {(e.name, e.time_range.start): e.device_time for e in prof.events()
+                if e.device_time > 0 and not e.name.startswith(("Memcpy", "Memset"))}
+        if seen:
+            split: dict[str, float] = {}
+            for (name, _), us in seen.items():
+                short = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+                short = short.split("(")[0].split("<")[0].split("::")[-1]
+                split[short] = split.get(short, 0.0) + us / calls / 1e3
+            return split
+    return {}
+
+
+def launch_sequence(torch, fn, calls: int = 5) -> list[tuple[str, float]]:
+    """Each launch of a call in the order launched: (kernel, device us),
+    the mean over `calls` calls; empty if the profiler's records do not
+    split evenly into the calls."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    seen = sorted({(e.time_range.start, e.name, e.device_time) for e in prof.events()
+                   if e.device_time > 0 and not e.name.startswith(("Memcpy", "Memset"))})
+    if not seen or len(seen) % calls:
+        return []
+    n = len(seen) // calls
+    short = [s[1].replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+             .split("<")[0].split("::")[-1] for s in seen[:n]]
+    return [(short[j], statistics.mean(seen[i * n + j][2] for i in range(calls)))
+            for j in range(n)]
 
 
 def device_ms(torch, fn, calls: int = 10) -> tuple[float, float]:
@@ -315,8 +420,21 @@ def cases(torch):
             out.append((f"k1 int8 N={n}", "flat",
                         (quantize_int8(q), quantize_int8(rows), codes, qf, n, K)))
         del rows
-    # the IVF packing: 512 clusters of 32 tiles of 128 slots, each holding
-    # a cluster of 1,024-3,072 rows from its start, the rest padding
+    packed, codes, gids, lists = packing(torch, g, unit)
+    for label, tl, n_tiles in lists:
+        for dtype in ("bf16", "int8"):
+            emb = packed.bfloat16() if dtype == "bf16" else quantize_int8(packed)
+            qq = q.bfloat16() if dtype == "bf16" else quantize_int8(q)
+            out.append((f"k3 {dtype} {label} ({n_tiles} tiles)", "probe",
+                        (qq, qf, emb, codes, gids, tl, K)))
+    return out
+
+
+def packing(torch, g, unit):
+    """The IVF packing: 512 clusters of 32 tiles of 128 slots, each holding
+    a cluster of 1,024-3,072 rows from its start, the rest padding; and
+    the real and the diverse batch's lists, (label, list, active tiles)."""
+    dev = torch.device("cuda")
     n_packed = N_BIG
     packed = unit(n_packed)
     fill = torch.randint(1024, 3073, (512,), generator=g, device=dev)
@@ -326,16 +444,52 @@ def cases(torch):
                        -1).int()[None, :].contiguous()
     codes = torch.stack([torch.randint(0, 50, (n_packed,), generator=g, device=dev),
                          torch.randint(0, 3, (n_packed,), generator=g, device=dev)]).int()
+    lists = []
     for label, clusters in (("real", 17), ("diverse", 328)):
         chosen = torch.randperm(512, generator=g, device=dev)[:clusters].sort().values
         tiles = (chosen[:, None] * CLUSTER_TILES + torch.arange(CLUSTER_TILES, device=dev))
         tl = torch.full((16_384,), -1, dtype=torch.int32, device=dev)
         tl[: tiles.numel()] = tiles.reshape(-1).int()
-        for dtype in ("bf16", "int8"):
-            emb = packed.bfloat16() if dtype == "bf16" else quantize_int8(packed)
-            qq = q.bfloat16() if dtype == "bf16" else quantize_int8(q)
-            out.append((f"k3 {dtype} {label} ({tiles.numel()} tiles)", "probe",
-                        (qq, qf, emb, codes, gids, tl, K)))
+        lists.append((label, tl, tiles.numel()))
+    return packed, codes, gids, lists
+
+
+def select_cases(torch):
+    """The select path's inputs, as cases() gives them: kernel 1 over N rows
+    at k 100, 1024 and 2048 (bf16), at k 1024 in int8 and on tie-heavy
+    exact bf16 rows, over N_BIG_FLAT bf16 rows at k 1024; kernel 3 on the
+    diverse list at k 1024."""
+    from financial_rag_system_tpu_torch.index.flat import quantize_int8
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    dev = torch.device("cuda")
+
+    def unit(rows):
+        return torch.nn.functional.normalize(torch.randn((rows, D), generator=g, device=dev), dim=1)
+
+    def codes_for(n):
+        return torch.stack([torch.randint(0, 50, (n,), generator=g, device=dev),
+                            torch.randint(0, 3, (n,), generator=g, device=dev)]).int()
+
+    q = unit(B)
+    qf = torch.stack([torch.randint(-1, 50, (B,), generator=g, device=dev),
+                      torch.randint(-1, 3, (B,), generator=g, device=dev)], 1).int()
+    qf[:8] = -1
+    rows, codes = unit(N), codes_for(N)
+    out = [(f"k1 bf16 N={N} k={k}", "flat", (q.bfloat16(), rows.bfloat16(), codes, qf, N, k))
+           for k in (100, 1024, 2048)]
+    out.append((f"k1 int8 N={N} k=1024", "flat",
+                (quantize_int8(q), quantize_int8(rows), codes, qf, N, 1024)))
+    base = torch.randint(-3, 4, (6, D), generator=g, device=dev).float() / 16
+    pick = lambda n: base[torch.randint(0, 6, (n,), generator=g, device=dev)].bfloat16()  # noqa: E731
+    out.append((f"k1 bf16 tie-heavy N={N} k=1024", "flat", (pick(B), pick(N), codes, qf, N, 1024)))
+    out.append((f"k1 bf16 N={N_BIG_FLAT} k=1024", "flat",
+                (q.bfloat16(), unit(N_BIG_FLAT).bfloat16(), codes_for(N_BIG_FLAT), qf, N_BIG_FLAT,
+                 1024)))
+    packed, pcodes, gids, lists = packing(torch, g, unit)
+    label, tl, n_tiles = lists[1]
+    out.append((f"k3 bf16 {label} ({n_tiles} tiles) k=1024", "probe",
+                (q.bfloat16(), qf, packed.bfloat16(), pcodes, gids, tl, 1024)))
     return out
 
 
@@ -359,7 +513,11 @@ def launcher(torch, libs, kind, args, plan_change=None):
     if plan_change is not None:
         stages, per_sm = plan_change
         plan = plan_for(b, tiles, d * q.element_size(), k, sms, per_sm=per_sm, stages=stages)
-    scratch = torch.empty(plan.scratch, dtype=torch.int32, device=q.device)
+    # a select-path variant may take larger histograms (12-bit digits), a
+    # second survivor buffer (a smaller sort) or more sweeping blocks: room
+    extra = b * (1 << 12) + 2 * b * k + 2 * b * plan.sweeps * (1 << 10) + 64
+    words = plan.scratch + (extra if plan.path == "select" else 0)
+    scratch = torch.empty(words, dtype=torch.int32, device=q.device)
     out = torch.empty(2 * b * k, dtype=torch.int32, device=q.device)
     s8 = q.dtype == torch.int8
     if kind == "flat":
@@ -461,9 +619,14 @@ def main() -> int:
     names = [*code_variants, *PLAN_VARIANTS]
     if opts.only:
         names = [n for n in names if n in opts.only.split(",")]
-    libs = build(sorted({n for n in names if n in code_variants} | {"as_is"}))
-    inputs = cases(torch)
-    host_times(torch, inputs[0][2])
+    select_names = [n for n in names if n.startswith("select_")]
+    names = [n for n in names if not n.startswith("select_")]
+    base = {"select_as_is"} if select_names else set()
+    libs = build(sorted({n for n in names + select_names if n in code_variants} | {"as_is"}
+                        | base))
+    inputs = cases(torch) if names else []
+    if names:
+        host_times(torch, inputs[0][2])
     for label, kind, args in inputs:
         ref_call, plan = launcher(torch, libs["as_is"], kind, args)
         ref = ref_call().cpu().numpy().tobytes()
@@ -484,6 +647,25 @@ def main() -> int:
             p1, p2 = device_ms(torch, call)
             print(f"[variant] {label}: {'parent':11s} device {p1 + p2:.4f} ms ({p1:.4f} + {p2:.4f}), "
                   f"events {one:.4f} ms a call, {queued:.4f} ms queued", flush=True)
+    del inputs
+    for label, kind, args in select_cases(torch) if select_names else []:
+        ref_call, plan = launcher(torch, libs["select_as_is"], kind, args)
+        ref = ref_call().cpu().numpy().tobytes()
+        print(f"[plan] {label}: {plan.blocks} blocks, {plan.stages} stages, {plan.cols} table "
+              f"columns, {plan.sweeps} sweeping blocks and {plan.runs} sort run(s) a query, scratch "
+              f"{4 * plan.scratch} B", flush=True)
+        for name in select_names:
+            call, _ = launcher(torch, libs[name], kind, args)
+            same = call().cpu().numpy().tobytes() == ref
+            one, queued = events_ms(torch, call)
+            split = kernel_split(torch, call)
+            parts = ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items()))
+            print(f"[variant] {label}: {name:17s} device {sum(split.values()):.4f} ms ({parts}), "
+                  f"events {one:.4f} ms a call, {queued:.4f} ms queued; same as select_as_is: "
+                  f"{same}", flush=True)
+            if name == "select_as_is":
+                seq = ", ".join(f"{k} {us:.1f}" for k, us in launch_sequence(torch, call))
+                print(f"[launches] {label}: {seq} us", flush=True)
     print(smi)
     return 0
 

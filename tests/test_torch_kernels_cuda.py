@@ -200,10 +200,12 @@ def test_topk_int8_kernel_equals_plain(cuda, b, n, d, k):
     q, c, codes, qf = topk_case(b, n, d, n_valid=n - 100)
     args = (torch.tensor(quant(q), device=cuda), torch.tensor(quant(c), device=cuda),
             torch.tensor(codes, device=cuda), torch.tensor(qf, device=cuda), n - 100, k)
-    n0 = masked_topk.launches_int8
+    n0, s0 = masked_topk.launches_int8, masked_topk.launches_select
     s, i = (x.cpu().numpy() for x in masked_topk(*args))
     torch.cuda.synchronize()
-    assert masked_topk.launches_int8 == n0 + 1
+    # the lists' int8 branch up to k 32, the select path above
+    assert (masked_topk.launches_int8, masked_topk.launches_select) == (n0 + (k <= 32),
+                                                                         s0 + (k > 32))
     s_ref, i_ref = (x.cpu().numpy() for x in masked_topk_plain(*args))
     assert s.tobytes() == s_ref.tobytes() and i.tobytes() == i_ref.tobytes()
     if k > 1:
@@ -225,10 +227,11 @@ def test_ivf_probe_int8_kernel_equals_plain(cuda, b, d, n_tiles, tile, k):
     args = (torch.tensor(quant(q), device=cuda), torch.tensor(qf, device=cuda),
             torch.tensor(quant(emb), device=cuda), torch.tensor(codes, device=cuda),
             torch.tensor(gids, device=cuda), torch.tensor(tile_ids, device=cuda), k)
-    n0 = ivf_probe.launches_int8
+    n0, s0 = ivf_probe.launches_int8, ivf_probe.launches_select
     s, i = (x.cpu().numpy() for x in ivf_probe(*args, tile=tile))
     torch.cuda.synchronize()
-    assert ivf_probe.launches_int8 == n0 + 1
+    assert (ivf_probe.launches_int8, ivf_probe.launches_select) == (n0 + (k <= 32),
+                                                                     s0 + (k > 32))
     s_ref, i_ref = (x.cpu().numpy() for x in ivf_probe_plain(*args, tile=tile))
     assert s.tobytes() == s_ref.tobytes() and i.tobytes() == i_ref.tobytes()
     if k > 1:
@@ -391,17 +394,17 @@ def test_ivf_probe_kernel_every_query_filtered_out(cuda, dtype):
     assert np.isneginf(s).all() and (i == -1).all()
 
 
-def random_retrieval_args(dtype, dev):
-    """Kernel 1's and kernel 3's arguments on random unit rows (scores
+def random_retrieval_args(dtype, dev, k=15):
+    """Kernel 1's and kernel 3's calls at k on random unit rows (scores
     whose f32 sums depend on their order)."""
     q, c, codes, qf = topk_case(40, 20000, 384, n_valid=19990)
     pq, pqf, emb, pcodes, gids, tile_ids, _ = probe_case(40, 384, 40, 128)
     cast = (lambda a: torch.tensor(quant(a), device=dev)) if dtype == torch.int8 else (
         lambda a: torch.tensor(a, device=dev).bfloat16())
     flat = (cast(q), cast(c), torch.tensor(codes, device=dev), torch.tensor(qf, device=dev),
-            19990, 15)
+            19990, k)
     probe = (cast(pq), torch.tensor(pqf, device=dev), cast(emb), torch.tensor(pcodes, device=dev),
-             torch.tensor(gids, device=dev), torch.tensor(tile_ids, device=dev), 15)
+             torch.tensor(gids, device=dev), torch.tensor(tile_ids, device=dev), k)
     return (lambda: masked_topk(*flat)), (lambda: ivf_probe(*probe, tile=128))
 
 
@@ -479,6 +482,124 @@ def test_topk_kernel_after_an_upsert_reallocates(cuda, dtype):
     else:
         np.testing.assert_allclose(s.cpu().numpy(), ref[0].cpu().numpy(), atol=1e-4, rtol=0)
 
+
+
+# -- kernels 1 and 3 above k 32: the select path ----------------------------
+
+
+def select_counts():
+    return masked_topk.launches_select, ivf_probe.launches_select
+
+
+@pytest.mark.parametrize("dtype", RETRIEVAL_TYPES)
+def test_select_path_ties_straddle_the_threshold(cuda, dtype):
+    """Exact rows from six vectors at k 1024: thousands of rows share the
+    k-th score, which the entry after it shares too; both kernels bit for
+    bit, each call one launch of the select path."""
+    args = exact_topk_args(dtype, cuda, 33, 40_000, 128, 39_990, 1024)
+    s0 = select_counts()
+    s, i = assert_same_bits(masked_topk(*args), masked_topk_plain(*args))
+    assert select_counts() == (s0[0] + 1, s0[1])
+    wider = masked_topk_plain(*args[:-1], 1025)[0].cpu().numpy()
+    assert (wider[:, 1023] == wider[:, 1024]).all()  # the threshold is straddled
+    pargs = exact_probe_args(dtype, cuda, 33, 128, 200, 128, "all", 1024)
+    assert_same_bits(ivf_probe(*pargs, tile=128), ivf_probe_plain(*pargs, tile=128))
+    assert select_counts() == (s0[0] + 1, s0[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", RETRIEVAL_TYPES)
+def test_select_path_filter_leaves_fewer_than_k(cuda, dtype):
+    """A ticker on 500 of 20,000 rows, k 1024: every finite score is taken
+    and the rest of the row is -inf / -1."""
+    q, c, codes, qf, n_valid, _ = exact_topk_args(dtype, cuda, 5, 20_000, 64, 20_000, 1024)
+    codes = codes.clone()
+    codes[0] = 1
+    codes[0, torch.randperm(20_000, device=cuda)[:500]] = 4
+    qf = qf.clone()
+    qf[:, 0] = 4
+    s, i = assert_same_bits(masked_topk(q, c, codes, qf, n_valid, 1024),
+                            masked_topk_plain(q, c, codes, qf, n_valid, 1024))
+    fin = np.isfinite(s)
+    assert (fin.sum(axis=1) <= 500).all() and fin[0].sum() == 500 and (i[~fin] == -1).all()
+
+
+@pytest.mark.parametrize("dtype", RETRIEVAL_TYPES)
+def test_select_path_k_above_n(cuda, dtype):
+    """k 2048 over 777 rows (kernel 1) and over 37 probed tiles of 64 rows
+    (kernel 3): the rows there are, then empty slots."""
+    args = exact_topk_args(dtype, cuda, 3, 777, 64, 770, 2048)
+    s, _ = assert_same_bits(masked_topk(*args), masked_topk_plain(*args))
+    assert np.isfinite(s[0]).sum() == 770
+    pargs = exact_probe_args(dtype, cuda, 3, 64, 48, 64, "some", 2048)
+    assert_same_bits(ivf_probe(*pargs, tile=64), ivf_probe_plain(*pargs, tile=64))
+
+
+@pytest.mark.parametrize("dtype", RETRIEVAL_TYPES)
+def test_select_path_k_above_the_shared_memory_sort(cuda, dtype):
+    """k 16,384: four runs of 4,096 survivors sorted in shared memory, then
+    two merges in device memory; kernel 3 over 200 tiles of 128."""
+    args = exact_topk_args(dtype, cuda, 33, 40_000, 64, 39_990, 16_384)
+    assert_same_bits(masked_topk(*args), masked_topk_plain(*args))
+    pargs = exact_probe_args(dtype, cuda, 33, 64, 200, 128, "all", 16_384)
+    assert_same_bits(ivf_probe(*pargs, tile=128), ivf_probe_plain(*pargs, tile=128))
+
+
+@pytest.mark.parametrize("rows", ["exact-bf16", "int8", "random-bf16"])
+def test_select_path_a_million_rows(cuda, rows):
+    """1,048,580 rows of 384 at k 1024 (the IVF corpus's flat size): exact
+    rows bit for bit, random unit rows within 1e-4 with ids where clear of
+    that noise."""
+    n, d, b, k = 1_048_580, 384, 32, 1024
+    g = torch.Generator(device=cuda).manual_seed(5)
+    if rows == "random-bf16":
+        unit = lambda m: torch.nn.functional.normalize(  # noqa: E731
+            torch.randn(m, d, generator=g, device=cuda), dim=1).bfloat16()
+        q, c = unit(b), unit(n)
+    else:
+        base = torch.randint(-3, 4, (6, d), generator=g, device=cuda)
+        c = base[torch.randint(0, 6, (n,), generator=g, device=cuda)]
+        q = base[torch.randint(0, 6, (b,), generator=g, device=cuda)]
+        cast = (lambda a: a.to(torch.int8)) if rows == "int8" else (
+            lambda a: (a.float() / 16).bfloat16())
+        q, c = cast(q), cast(c)
+    codes = torch.stack([torch.randint(0, 5, (n,), generator=g, device=cuda),
+                         torch.randint(0, 3, (n,), generator=g, device=cuda)]).int()
+    qf = torch.full((b, 2), -1, dtype=torch.int32, device=cuda)
+    qf[1:8, 0] = torch.arange(7, device=cuda) % 5
+    args = (q, c, codes, qf, n - 3, k)
+    if rows != "random-bf16":
+        assert_same_bits(masked_topk(*args), masked_topk_plain(*args))
+        return
+    s, i = (x.cpu().numpy() for x in masked_topk(*args))
+    s_ref, i_ref = (x.cpu().numpy() for x in masked_topk_plain(*args))
+    np.testing.assert_allclose(s, s_ref, atol=1e-4, rtol=0)
+    gap = np.abs(np.diff(s_ref, axis=1))
+    near = np.minimum(np.r_["1", gap[:, :1], gap], np.r_["1", gap, gap[:, -1:]])
+    clear = near > 1e-4
+    clear[:, -1] = False  # a row past the list may tie the last entry
+    np.testing.assert_array_equal(i[clear], i_ref[clear])
+
+
+def test_select_path_from_worker_threads(cuda):
+    """Calls at k 1024 from worker threads, each on a side stream (its own
+    scratch), agree bit for bit with one on the default stream: the
+    survivors' places taken by atomics never reach the result."""
+    runs = [run for dtype in RETRIEVAL_TYPES
+            for run in random_retrieval_args(dtype, cuda, k=1024)]
+    s0 = select_counts()
+    want = [result_bytes(run()) for run in runs]
+    assert select_counts() == (s0[0] + 2, s0[1] + 2)
+
+    def work(_):
+        stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream):
+            outs = [[run() for run in runs] for _ in range(3)]
+        stream.synchronize()
+        return [[result_bytes(o) for o in out] for out in outs]
+
+    with ThreadPoolExecutor(4) as pool:
+        for got in pool.map(work, range(6)):
+            assert all(g == want for g in got)
 
 def attn_case(p, s, h, seed=0, masked_pair=True, d=32):
     rng = np.random.default_rng(seed)

@@ -1,19 +1,27 @@
-"""Kernels 1 and 3's host side, on the CPU: their launch plans, and a numpy
-model of the walk, the selection and the merge the kernels run.
+"""Kernels 1 and 3's host side, on the CPU: their launch plans, and numpy
+models of the two ways the kernels select.
 
 The kernels (``csrc/masked_topk.cu`` and ``csrc/ivf_probe.cu``, built from
-``csrc/topk_common.cuh``) run only on the card
+``csrc/topk_common.cuh`` and ``csrc/topk_select.cuh``) run only on the card
 (``tests/test_torch_kernels_cuda.py``).  What ``topk_plan`` and
 ``probe_plan`` decide for them is checked here for every width they take,
 for batch sizes across query blocks and for corpus sizes from one row to
-the IVF tier's million; the model walks the tiles the way a plan deals
-them out, keeps each block's list the way a warp does (threshold, then
-insert), merges the blocks' lists in rounds that drop a list once its
-entry fails to enter, and must give the plain versions' top k.
+the IVF tier's million.  Up to k 32 the model walks the tiles the way a
+plan deals them out, keeps each block's list the way a warp does
+(threshold, then insert), merges the blocks' lists in rounds that drop a
+list once its entry fails to enter, and must give the plain versions' top
+k.  Above it the model of the select path writes the walk's score table
+(64 columns a tile or piece, garbage where the walk writes nothing),
+settles the threshold digit by digit from chunked histograms, collects the
+survivors (those above the threshold's bin in any order, its ties by their
+rank in column order from the chunks' counts), sorts them in runs and
+merges the runs by rank, and must give the plain versions' top k bit for
+bit.
 """
 
 from __future__ import annotations
 
+import bisect
 import math
 import re
 from pathlib import Path
@@ -27,6 +35,7 @@ from financial_rag_system_tpu_torch.ops import topk as ttk
 
 H100_SMS = 132
 COMMON = Path(ttk.__file__).resolve().parent.parent / "csrc" / "topk_common.cuh"
+SELECT = COMMON.with_name("topk_select.cuh")
 ELEMENT = {torch.bfloat16: 2, torch.int8: 1}
 # the widths at which two blocks share an SM in both types (bf16 rows of
 # at most 2,048 bytes); wider rows are WIDE_WIDTHS
@@ -37,9 +46,10 @@ BATCHES = (1, 33, 64)
 NO_ID = 2**31 - 1
 
 
-def cuh_constants() -> dict[str, int]:
-    """The literal integer constants of ``csrc/topk_common.cuh``."""
-    text = COMMON.read_text()
+def cuh_constants(path: Path = COMMON) -> dict[str, int]:
+    """The literal integer constants of ``csrc/topk_common.cuh`` (or of
+    another header)."""
+    text = path.read_text()
     return {m[1]: int(m[2]) for m in re.finditer(r"constexpr int (k\w+) = (\d+);", text)}
 
 
@@ -52,7 +62,7 @@ def test_plan_constants_are_the_kernels():
         ttk.MAX_STAGES, ttk.SMEM_LIMIT, ttk.MAX_ROW_BYTES)
     assert "kMaxK" not in c and "kMaxD" not in c  # any k, and D up to the row bytes
     assert c["kMergeWarps"] * 32 * c["kMaxChunks"] == ttk.MAX_BLOCKS
-    assert c["kRoundK"] == ttk.ROUND_K == 32
+    assert c["kListK"] == ttk.LIST_K == 32
     assert "constexpr int kScStride = kRows + 4;" in COMMON.read_text()
     assert ttk.SCORE_STRIDE == ttk.TILE_ROWS + 4
 
@@ -290,101 +300,6 @@ def test_model_of_kernel_1_equals_plain(blocks, k):
         assert i.tobytes() == i_ref[qi].numpy().tobytes()
 
 
-@pytest.mark.parametrize("k", [33, 64, 100, 256, 1024])
-@pytest.mark.parametrize("b", BATCHES)
-def test_plans_for_k_above_a_round(k, b):
-    """k above 32 takes ceil(k / 32) rounds of lists of 32: the grid, the
-    ring and the shared memory are those of k 32, the scratch holds one
-    round's lists (kernel 3's also the result's packed positions, read
-    back as floors)."""
-    for elt in (2, 1):
-        one = ttk.topk_plan(b, 131_072, 384, elt, 32, H100_SMS)
-        plan = ttk.topk_plan(b, 131_072, 384, elt, k, H100_SMS)
-        assert plan.rounds == -(-k // 32) and one.rounds == 1
-        assert plan[:5] == one[:5] and plan.scratch == one.scratch
-        assert plan.candidates == plan.blocks * 32
-        probe = probe_plan(b, 16_384, 128, 384, elt, k, H100_SMS)
-        probe32 = probe_plan(b, 16_384, 128, 384, elt, 32, H100_SMS)
-        assert probe.scratch == probe32.scratch + b * k and probe.rounds == plan.rounds
-
-
-def rounds(lists_of, k: int) -> list:
-    """The wrapper's rounds: round r runs the walk and the merge over the
-    candidates that rank after round r - 1's last entry (its floor), with
-    lists of min(32, k - 32 r); the rounds laid end to end."""
-    out, floor = [], None
-    for r0 in range(0, k, 32):
-        kr = min(32, k - r0)
-        entries = merge(lists_of(kr, floor), kr)
-        out += entries
-        floor = entries[-1]
-    return out
-
-
-def after(floor, cands: dict[int, float]) -> dict[int, float]:
-    return cands if floor is None else {r: s for r, s in cands.items()
-                                        if before(floor, (s, r))}
-
-
-@pytest.mark.parametrize("blocks", [1, 5, 47, 300])
-@pytest.mark.parametrize("k", [33, 64, 100])
-def test_model_of_kernel_1_rounds_equals_plain(blocks, k):
-    """Kernel 1 at k above 32, tie-heavy int8 rows: the rounds' result
-    equals masked_topk_plain's bit for bit, ties in row order across the
-    rounds' seams."""
-    rng = np.random.default_rng(blocks * 100 + k)
-    b, n, d, n_valid = 3, 3000, 64, 2990
-    q, c = tie_heavy_int8(rng, b, d, 3), tie_heavy_int8(rng, n, d)
-    codes = np.stack([rng.integers(0, 3, n), rng.integers(0, 2, n)]).astype(np.int32)
-    codes[:, n_valid:] = -2
-    qf = np.array([[-1, -1], [1, -1], [2, 0]], np.int32)
-    s_ref, i_ref = ttk.masked_topk_plain(*(torch.from_numpy(a) for a in (q, c, codes, qf)),
-                                         n_valid, k)
-    scores = q.astype(np.int64) @ c.astype(np.int64).T
-    tiles = -(-n // 64)
-    shares = [[64 * t for t in range(tiles * g // blocks, tiles * (g + 1) // blocks)]
-              for g in range(blocks)]
-    for qi in range(b):
-        ok = [r for r in range(n_valid)
-              if qf[qi, 0] in (-1, codes[0, r]) and qf[qi, 1] in (-1, codes[1, r])]
-        cands = {r: float(scores[qi, r]) for r in ok}
-        s, i = as_result(rounds(
-            lambda kr, floor: [block_list(after(floor, cands), mine, kr) for mine in shares], k))
-        assert s.tobytes() == s_ref[qi].numpy().tobytes()
-        assert i.tobytes() == i_ref[qi].numpy().tobytes()
-
-
-@pytest.mark.parametrize("k", [33, 64, 100])
-def test_model_of_kernel_3_rounds_equals_plain(k):
-    """Kernel 3 at k above 32: floors are packed positions, mapped to gids
-    only at the end, so ties keep packed order across the seams."""
-    rng = np.random.default_rng(k)
-    b, d, tile, n_tiles, blocks = 2, 64, 128, 12, 7
-    n = n_tiles * tile
-    emb = tie_heavy_int8(rng, n, d, 4)
-    gids = rng.permutation(4 * n)[:n].astype(np.int32)
-    gids[rng.random(n) < 0.3] = -1
-    codes = np.stack([rng.integers(0, 2, n), rng.integers(0, 2, n)]).astype(np.int32)
-    q = tie_heavy_int8(rng, b, d, 2)
-    qf = np.array([[-1, -1], [1, -1]], np.int32)
-    tile_ids = np.full(n_tiles, -1, np.int32)
-    tile_ids[:9] = sorted(rng.choice(n_tiles, 9, replace=False))
-    s_ref, i_ref = ivf_probe_plain(*(torch.from_numpy(a) for a in (
-        q, qf, emb, codes, gids[None, :], tile_ids)), k, tile=tile)
-    scores = q.astype(np.int64) @ emb.astype(np.int64).T
-    pieces = [t * tile + 64 * p for t in tile_ids[:9] for p in range(tile // 64)]
-    share = [pieces[len(pieces) * g // blocks: len(pieces) * (g + 1) // blocks]
-             for g in range(blocks)]
-    for qi in range(b):
-        cands = {r: float(scores[qi, r]) for r in range(n) if gids[r] >= 0
-                 and qf[qi, 0] in (-1, codes[0, r]) and qf[qi, 1] in (-1, codes[1, r])}
-        s, i = as_result(rounds(
-            lambda kr, floor: [block_list(after(floor, cands), mine, kr) for mine in share],
-            k), gids)
-        assert s.tobytes() == s_ref[qi].numpy().tobytes()
-        assert i.tobytes() == i_ref[qi].numpy().tobytes()
-
-
 @pytest.mark.parametrize("active", [0, 1, 9])
 def test_model_of_kernel_3_equals_plain(active):
     """Kernel 3's walk: the active count found on the list, its tiles'
@@ -415,3 +330,341 @@ def test_model_of_kernel_3_equals_plain(active):
         s, i = as_result(merge([block_list(cands, mine, k) for mine in live], k), gids)
         assert s.tobytes() == s_ref[qi].numpy().tobytes()
         assert i.tobytes() == i_ref[qi].numpy().tobytes()
+
+
+# -- the select path above k 32 (csrc/topk_select.cuh) -------------------------
+
+KEY_NEG_INF = 0x007FFFFF
+
+
+def select_constants(b: int, n: int) -> dict[str, int]:
+    """The kernel's constants, and its sweeping blocks a query for b
+    queries over n table columns (the walk's grid from topk_plan)."""
+    c = cuh_constants(SELECT)
+    walk = ttk.topk_plan(b, n, 64, 1, 15, H100_SMS)
+    return {"bits": c["kDigitBits"], "chunk": c["kChunk"], "cap": c["kSortCap"],
+            "sweeps": ttk.select_sweeps(b, n, walk.blocks * walk.qblocks)}
+
+
+# small constants that give a few thousand columns many chunks, uneven
+# shares of them, several runs and four digits of 8 bits
+SMALL = {"bits": 8, "chunk": 256, "cap": 64, "sweeps": 5}
+SELECT_CONSTS = ["kernel", "small"]
+
+
+def test_select_constants_are_the_kernels():
+    c = cuh_constants(SELECT)
+    assert (c["kDigitBits"], c["kChunk"], c["kSortCap"]) == (
+        ttk.DIGIT_BITS, ttk.SELECT_CHUNK, ttk.SORT_CAP)
+    assert (c["kStateWords"], c["kSweepsAnSm"]) == (ttk.STATE_WORDS, ttk.SWEEPS_AN_SM)
+    text = SELECT.read_text()
+    assert "constexpr int kBins = 1 << kDigitBits;" in text
+    assert "constexpr int kLastBits = 32 - kDigitBits * (31 / kDigitBits);" in text
+    assert ttk.LAST_BITS == 10
+    assert c["kChunk"] % (4 * c["kSelThreads"]) == 0 and c["kSortCap"] % c["kSortThreads"] == 0
+
+
+def order_keys(scores: np.ndarray) -> np.ndarray:
+    """The kernel's order_key: f32 to a u32 of the same order, -0 as +0."""
+    u = np.where(scores == 0, np.float32(0), scores).astype(np.float32).view(np.uint32)
+    return np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint32)
+
+
+def shares(n_cols: int, chunk: int, sweeps: int) -> list[slice]:
+    """Each sweeping block's columns: an even contiguous share of the
+    chunks the walk scored (my_chunks)."""
+    chunks = -(-n_cols // chunk)
+    return [slice(chunk * (chunks * g // sweeps), chunk * (chunks * (g + 1) // sweeps))
+            for g in range(sweeps)]
+
+
+def settle(keys, scored, k: int, bits: int, blocks: list[slice]):
+    """The digit passes over one query's table row: each block's histogram
+    of the next digit of the finite keys under the prefix, summed, and the
+    bin where the count from the top reaches the entries still wanted.
+    Returns (depth, prefix, above, ties, bin count) and the blocks'
+    histograms of the last digit's pass, if it ran."""
+    fin = scored & (keys != KEY_NEG_INF)
+    depth = prefix = above = 0
+    while True:
+        width = min(bits, 32 - depth)
+        shift = 32 - depth - width
+        under = fin if depth == 0 else fin & ((keys >> np.uint32(32 - depth)) == prefix)
+        digit = (keys >> np.uint32(shift)) & np.uint32((1 << width) - 1)
+        own = [np.bincount(digit[part][under[part]], minlength=1 << width) for part in blocks]
+        hist = np.sum(own, axis=0)
+        need = k - above
+        if hist.sum() < need:  # fewer finite scores than wanted: all of them
+            return (32, KEY_NEG_INF, above + int(hist.sum()), 0, 0), None
+        acc = 0
+        for b in range((1 << width) - 1, -1, -1):
+            if acc + hist[b] >= need:
+                break
+            acc += int(hist[b])
+        above, prefix, depth = above + acc, (prefix << width) | b, depth + width
+        rem = need - acc
+        if depth == 32 or rem == hist[b]:
+            return (depth, prefix, above, rem, int(hist[b])), own if depth == 32 else None
+
+
+def before_key(e) -> tuple[int, int]:
+    """(key desc, column asc) as an ascending sort key."""
+    return (-int(e[0]), int(e[1]))
+
+
+def select_row(row, scored, n_cols: int, k: int, consts: dict, rng) -> list:
+    """One query of the select path over its table row (garbage where not
+    scored; the walk scored n_cols columns): the threshold, the survivors
+    (those above its bin in a random order, as the atomics place them; its
+    ties by their rank in column order from the blocks' last-digit
+    histograms), sorted in runs of `cap` and merged by rank.  Returns the
+    sorted (key, column) survivors."""
+    bits, cap = consts["bits"], consts["cap"]
+    blocks = shares(n_cols, consts["chunk"], consts["sweeps"])
+    keys = order_keys(np.where(scored, row, -np.inf).astype(np.float32))
+    (depth, prefix, above, ties, held), last = settle(keys, scored, k, bits, blocks)
+    fin = scored & (keys != KEY_NEG_INF)
+    hi = keys >> np.uint32(32 - depth)
+    ordered, whole = 0 < ties < held, 0 < ties == held
+    up = np.flatnonzero(fin & ((hi > prefix) | (whole & (hi == prefix))))
+    tie = fin & ordered & (hi == prefix)
+    assert up.size == above + (ties if whole else 0)
+    surv = [None] * (above + ties)
+    for slot, col in zip(range(up.size), rng.permutation(up)):
+        surv[slot] = (keys[col], col)
+    if ordered:  # only a full key splits a bin: T's own count in each block before
+        tb = prefix & ((1 << (32 - (32 - 1) // bits * bits)) - 1)
+        for g, part in enumerate(blocks):
+            start = sum(int(h[tb]) for h in last[:g])
+            assert int(last[g][tb]) == int(tie[part].sum())
+            for r, col in enumerate(np.flatnonzero(tie[part]) + part.start, start):
+                if r < ties:
+                    surv[above + r] = (keys[col], col)
+    assert all(e is not None for e in surv)
+    runs = [sorted(surv[r0:r0 + cap], key=before_key) for r0 in range(0, len(surv), cap)]
+    while len(runs) > 1:  # pairwise merges: an entry's place is its index plus its rank
+        merged = []
+        for a, b in zip(runs[0::2], runs[1::2] + [[]]):
+            ka, kb = [before_key(e) for e in a], [before_key(e) for e in b]
+            out = [None] * (len(a) + len(b))
+            for mine, keys_mine, keys_other in ((a, ka, kb), (b, kb, ka)):
+                for i, e in enumerate(mine):
+                    out[i + bisect.bisect_left(keys_other, keys_mine[i])] = e
+            merged.append(out)
+        runs = merged
+    return runs[0] if runs else []
+
+
+def emit(entries, row, k: int, id_of):
+    """The result: scores read back from the table row, ids by `id_of`,
+    then -inf / -1."""
+    s = np.full(k, -np.inf, np.float32)
+    i = np.full(k, -1, np.int32)
+    for j, (_, col) in enumerate(entries):
+        s[j], i[j] = row[col], id_of(col)
+    return s, i
+
+
+def flat_table(scores, ok, n: int):
+    """Kernel 1's walk: a row a query of 64 columns a tile, -inf where a row
+    is not a candidate (rows past N too); every column scored."""
+    cols = -(-n // 64) * 64
+    table = np.full((scores.shape[0], cols), -np.inf, np.float32)
+    table[:, :n] = np.where(ok, scores, -np.inf)
+    return table, np.ones(cols, bool), cols
+
+
+FILTERS = {"straddle": [[-1, -1], [1, -1], [2, 0]],
+           "few": [[0, -1], [1, -1], [-1, 1]]}
+
+
+def select_flat_case(case: str, k: int, seed: int):
+    """Tie-heavy int8 rows (six distinct vectors, so ties straddle every
+    threshold) under three filters: `straddle` (n_valid below N), `few`
+    (tickers on 10 and 700 rows: fewer rows than k), `k_eq_n` (N = k) and
+    `k_gt_n` (N = k // 2 + 5)."""
+    rng = np.random.default_rng(seed)
+    n = {"k_eq_n": k, "k_gt_n": k // 2 + 5}.get(case, 3000)
+    n_valid = n - 10 if case == "straddle" else n
+    b, d = 3, 64
+    q, c = tie_heavy_int8(rng, b, d, 3), tie_heavy_int8(rng, n, d)
+    codes = np.stack([rng.integers(0, 3, n), rng.integers(0, 2, n)]).astype(np.int32)
+    if case == "few":
+        codes[0] = 2
+        codes[0, rng.choice(n, 710, replace=False)] = [0] * 10 + [1] * 700
+    codes[:, n_valid:] = -2
+    qf = np.array(FILTERS.get(case, [[-1, -1]] * 3), np.int32)
+    return q, c, codes, qf, n_valid
+
+
+@pytest.mark.parametrize("consts", list(SELECT_CONSTS))
+@pytest.mark.parametrize("case", ["straddle", "few", "k_eq_n", "k_gt_n"])
+@pytest.mark.parametrize("k", [33, 100, 1024, 2048])
+def test_select_model_of_kernel_1_equals_plain(k, case, consts):
+    """Kernel 1 above k 32, tie-heavy int8 rows: the select path's model
+    gives masked_topk_plain's scores and ids bit for bit, with ties
+    straddling the threshold, filters that leave fewer than k rows, and k
+    equal to or above N."""
+    q, c, codes, qf, n_valid = select_flat_case(case, k, seed=k)
+    n = c.shape[0]
+    s_ref, i_ref = ttk.masked_topk_plain(*(torch.from_numpy(a) for a in (q, c, codes, qf)),
+                                         n_valid, k)
+    scores = (q.astype(np.int64) @ c.astype(np.int64).T).astype(np.float32)
+    ok = (np.arange(n) < n_valid) & ((qf[:, :1] == -1) | (qf[:, :1] == codes[0])) & (
+        (qf[:, 1:] == -1) | (qf[:, 1:] == codes[1]))
+    table, scored, n_cols = flat_table(scores, ok, n)
+    rng = np.random.default_rng(k + 1)
+    const = SMALL if consts == "small" else select_constants(q.shape[0], n_cols)
+    for qi in range(q.shape[0]):
+        entries = select_row(table[qi], scored, n_cols, k, const, rng)
+        s, i = emit(entries, table[qi], k, int)
+        assert s.tobytes() == s_ref[qi].numpy().tobytes()
+        assert i.tobytes() == i_ref[qi].numpy().tobytes()
+    if case == "few":
+        assert np.isfinite(s_ref[0].numpy()).sum() == min(10, k)
+
+
+def probe_table(scores, ok, gids, tile_ids, tile: int):
+    """Kernel 3's walk: 64 columns a piece of the active tiles in list
+    order, the table's width the whole list's; garbage (1e30) where the
+    walk writes nothing (pieces of padding only, columns past the active
+    pieces), each piece's first packed position (-1 for those) and the
+    columns of the active pieces."""
+    per = tile // 64
+    active = int((tile_ids >= 0).sum())
+    cols = tile_ids.size * tile
+    table = np.full((scores.shape[0], cols), 1e30, np.float32)
+    scored = np.zeros(cols, bool)
+    pieces = np.full(cols // 64, -1, np.int64)
+    for p in range(active * per):
+        base = int(tile_ids[p // per]) * tile + (p % per) * 64
+        if (gids[base:base + 64] >= 0).any():
+            pieces[p] = base
+            rows = np.arange(base, base + 64)
+            table[:, 64 * p:64 * p + 64] = np.where(ok[:, rows], scores[:, rows], -np.inf)
+            scored[64 * p:64 * p + 64] = True
+    return table, scored, pieces, 64 * active * per
+
+
+@pytest.mark.parametrize("consts", list(SELECT_CONSTS))
+@pytest.mark.parametrize("which", ["some", "all"])
+@pytest.mark.parametrize("k", [33, 100, 1024, 2048])
+def test_select_model_of_kernel_3_equals_plain(k, which, consts):
+    """Kernel 3 above k 32: columns in the probe list's order, pieces of
+    padding only left unwritten, gids unrelated to packed order and mapped
+    only when written: bit for bit with ivf_probe_plain on tie-heavy int8
+    rows (k 2048 above the 1,536 probed rows of `some`)."""
+    rng = np.random.default_rng(k + (which == "all"))
+    b, d, tile, n_tiles = 3, 64, 128, 24
+    n = n_tiles * tile
+    emb = tie_heavy_int8(rng, n, d, 4)
+    gids = rng.permutation(4 * n)[:n].astype(np.int32)
+    gids[rng.random(n) < 0.3] = -1
+    gids[2 * tile + 64: 3 * tile] = -1  # a padding-only piece
+    codes = np.stack([rng.integers(0, 2, n), rng.integers(0, 2, n)]).astype(np.int32)
+    q = tie_heavy_int8(rng, b, d, 2)
+    qf = np.array([[-1, -1], [1, -1], [0, 1]], np.int32)
+    active = n_tiles if which == "all" else 12
+    tile_ids = np.full(n_tiles + 3, -1, np.int32)
+    tile_ids[:active] = sorted(rng.choice(n_tiles, active, replace=False))
+    s_ref, i_ref = ivf_probe_plain(*(torch.from_numpy(a) for a in (
+        q, qf, emb, codes, gids[None, :], tile_ids)), k, tile=tile)
+    scores = (q.astype(np.int64) @ emb.astype(np.int64).T).astype(np.float32)
+    ok = (gids >= 0) & ((qf[:, :1] == -1) | (qf[:, :1] == codes[0])) & (
+        (qf[:, 1:] == -1) | (qf[:, 1:] == codes[1]))
+    table, scored, pieces, n_cols = probe_table(scores, ok, gids, tile_ids, tile)
+    gid_of = lambda col: gids[pieces[col // 64] + col % 64]  # noqa: E731
+    rng = np.random.default_rng(k)
+    const = SMALL if consts == "small" else select_constants(b, table.shape[1])
+    for qi in range(b):
+        entries = select_row(table[qi], scored, n_cols, k, const, rng)
+        s, i = emit(entries, table[qi], k, gid_of)
+        assert s.tobytes() == s_ref[qi].numpy().tobytes()
+        assert i.tobytes() == i_ref[qi].numpy().tobytes()
+
+
+@pytest.mark.parametrize("exact", ["int8", "bf16"])
+@pytest.mark.parametrize("k", [100, 1024])
+def test_select_model_matches_xla(k, exact):
+    """The select path's model against the JAX package's masked_topk_xla
+    wherever the score is finite, on exact rows (int8, and bf16 values v /
+    16 whose f32 sums are exact in any order)."""
+    import jax.numpy as jnp
+
+    from financial_rag_system_tpu.ops.topk import masked_topk_xla
+
+    q, c, codes, qf, n_valid = select_flat_case("straddle", k, seed=k + 7)
+    if exact == "bf16":
+        q, c = (torch.from_numpy(a.astype(np.float32) / 16).bfloat16() for a in (q, c))
+        scores = (q.float() @ c.float().T).numpy()
+        jq, jc = (jnp.asarray(a.float().numpy(), jnp.bfloat16) for a in (q, c))
+    else:
+        scores = (q.astype(np.int64) @ c.astype(np.int64).T).astype(np.float32)
+        jq, jc = jnp.asarray(q), jnp.asarray(c)
+    n = c.shape[0]
+    ok = (np.arange(n) < n_valid) & ((qf[:, :1] == -1) | (qf[:, :1] == codes[0])) & (
+        (qf[:, 1:] == -1) | (qf[:, 1:] == codes[1]))
+    table, scored, n_cols = flat_table(scores, ok, n)
+    s_x, i_x = (np.asarray(a) for a in masked_topk_xla(jq, jc, jnp.asarray(codes),
+                                                       jnp.asarray(qf), n_valid, k))
+    rng = np.random.default_rng(0)
+    for qi in range(q.shape[0]):
+        s, i = emit(select_row(table[qi], scored, n_cols, k, select_constants(3, n_cols), rng),
+                    table[qi], k, int)
+        fin = np.isfinite(s_x[qi])
+        assert (np.isfinite(s) == fin).all()
+        assert s[fin].tobytes() == s_x[qi][fin].astype(np.float32).tobytes()
+        assert (i[fin] == i_x[qi][fin]).all()
+
+
+@pytest.mark.parametrize("k", [1, 15, 32, 33, 64, 2048])
+def test_plan_path_by_k(k):
+    """Lists up to k 32 (the main paths' plans, unchanged), the select path
+    above, on the same walk: grid, ring and shared memory."""
+    for plan_at in (lambda kk: ttk.topk_plan(32, 131_072, 384, 2, kk, H100_SMS),
+                    lambda kk: probe_plan(32, 16_384, 128, 384, 1, kk, H100_SMS)):
+        plan = plan_at(k)
+        assert plan.path == ("lists" if k <= ttk.LIST_K else "select")
+        assert plan[:5] == plan_at(32)[:5]
+        if plan.path == "lists":
+            assert (plan.candidates, plan.scratch) == (plan.blocks * k, 2 * 32 * k * plan.blocks)
+            assert (plan.cols, plan.sweeps, plan.runs) == (0, 0, 0)
+        else:
+            assert plan.candidates == 0 and plan.cols == plan.tiles * 64
+
+
+@pytest.mark.parametrize("k", [33, 1024, 2048, 5000])
+@pytest.mark.parametrize("b", BATCHES)
+def test_select_plan_scratch(k, b):
+    """The select path's scratch, region by region as carve_select lays it
+    out: the (b, cols) f32 table; histograms of 2^11 bins, 8 state words a
+    query and the column count; each sweeping block's histogram of the
+    10-bit last digit; the (b, k) survivors, twice past one run of 4,096;
+    kernel 3's piece table.  The sweeping blocks: 8 an SM over the walk's
+    two an SM, at most a chunk of 4,096 columns each."""
+    def r4(w):
+        return -(-w // 4) * 4
+
+    for n in (3000, 131_072, 1_048_580):
+        plan = ttk.topk_plan(b, n, 384, 2, k, H100_SMS)
+        cols = -(-n // 64) * 64
+        sweeps = min(-(-cols // 4096), -(-4 * plan.blocks * plan.qblocks // b))
+        runs = -(-k // 4096)
+        assert (plan.cols, plan.sweeps, plan.runs) == (cols, sweeps, runs)
+        assert plan.scratch == (b * cols + r4(b * (2048 + 8) + 1) + r4(b * sweeps * 1024)
+                                + 2 * b * k * (2 if runs > 1 else 1))
+    probe = probe_plan(b, 2048, 128, 384, 1, k, H100_SMS)
+    cols = 2048 * 128
+    assert probe.cols == cols and probe.sweeps == min(64, -(-4 * 2 * H100_SMS // b))
+    assert probe.scratch == ttk.select_scratch(b, cols, k, probe.sweeps) + r4(cols // 64)
+
+
+def test_select_scratch_at_the_large_k_shapes():
+    """B 32, k 1024: 21.5 MB at 131,072 rows (16.8 MB of it the table,
+    4.3 MB the 33 sweeping blocks' last-digit histograms a query), 139.1
+    MB at 1,048,580; kernel 3 over phase 2's list of 2,048 tiles of 128
+    rows, 38.4 MB."""
+    mb = [4 * p.scratch / 1e6 for p in (ttk.topk_plan(32, 131_072, 384, 2, 1024, H100_SMS),
+                                        ttk.topk_plan(32, 1_048_580, 384, 2, 1024, H100_SMS),
+                                        probe_plan(32, 2048, 128, 384, 2, 1024, H100_SMS))]
+    assert [round(x, 1) for x in mb] == [21.5, 139.1, 38.4]
