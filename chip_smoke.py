@@ -8,7 +8,7 @@
                           [--flash-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
 
 Drives ``financial_rag_system_tpu_torch`` end to end on the card, in
-fifteen phases; any failure raises and the script exits non-zero:
+sixteen phases; any failure raises and the script exits non-zero:
 
 0. the card: name, power limit and compute capability (Hopper, 9.0);
 1. build: every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a``
@@ -196,7 +196,28 @@ fifteen phases; any failure raises and the script exits non-zero:
    D-256 kernel 12 times a batch and kernel 2 never; the batch of 32
    against the same batch without the variable (the einsum attention:
    rows and bi scores identical, logits within 5e-2); its wall and device
-   time and the D-256 kernel's share of it (profiler).
+   time and the D-256 kernel's share of it (profiler);
+15. pairs above 512 tokens: a 32,768-chunk index of synthetic filings
+   chunked at about 2,500 characters (documents of 480-960 wordpieces, a
+   960-wide token store) and a random-init cross-encoder of MiniLM-L6's
+   widths with 1,024 positions, trained length 1,024, behind
+   ``build_default_engine(device="cuda")`` with phase 3's BGE-small: (a)
+   the default gate, pairs of 992 tokens, kernel 2's long branch (the
+   ring kernel above S 512, ``pair_attention_long``) 6 times a batch; (b)
+   ``RAG_TPU_FLASH=1 RAG_TPU_PAIR_ATTN=0``, pairs padded to 1,024, kernel
+   7 6 times a batch; (c) a cross-encoder of BERT-base widths in 2 heads
+   of 384 (4 layers, 1,024 positions) under ``RAG_TPU_FLASH=1``, kernel
+   7's slab kernel (``flash_attention_slab``) 4 times a batch; each with 3
+   asks, a burst of 32 and a cache hit, an 8-query batch against the
+   einsum batch (rows and bi scores identical, logits within 5e-2), the
+   (S, d) the kernel saw and a profile; the ``kernels`` line's figures of
+   the new branches at the served shapes (the plain version in chunks of
+   pairs); then kernel 2 at heads of 32, 64 and 128 at S 513, 640, 1,024,
+   2,048 and 4,096, kernel 7 at heads of 32-256 at S 640, 1,024 and 2,048
+   and at heads of 384 and 512 at S 128, 512 and 1,024, on phase 3's
+   rerank mask stretched to S and on the uniform-length mask, each
+   against its plain version (1e-2), some timed beside SDPA, the bound
+   and the MUFU floor.
 
 The CPU references of phases 3-6 set ``RAG_TPU_FAST_GELU=1``: the card's
 default GELU is the tanh form and the CPU's exact erf, JAX's rule.
@@ -221,6 +242,10 @@ kernel 2 on the same inputs and masks, in turns, with their contexts'
 difference: its ``pair_attention`` at heads of 32, its streaming
 ``pair_attention_wide`` at 64 and 128, both builds launched by their C
 entries alone;
+phase 15 with ``--attn-baseline`` also holds kernel 2's contexts at S
+400 and 512 bit for bit against the earlier build's, every width (the
+parent's build: the dispatch there is unchanged), and with
+``--flash-baseline`` kernel 7's at S 128-512;
 ``--ffn-baseline`` builds an earlier ``fused_bert.cu`` and times its FFN
 kernel beside kernel 4 at both shapes the same way; ``--resid-baseline``
 the same for its o-proj kernel beside kernel 6 (a checkout whose C entry
@@ -937,36 +962,52 @@ def attention_launcher(torch, lib, qs, kb, vb, mask):
     return launch
 
 
+def in_chunks(torch, plain, q, k, v, mask, inv: float, chunk: int | None):
+    """A call of ``plain`` (a plain attention version) over all pairs, run
+    ``chunk`` pairs at a time (all at once when it is None): at phase 15's
+    served shapes one (480, H, S, S) f32 tensor is over 20 GB."""
+    n = chunk or q.shape[0]
+    return lambda: torch.cat([plain(q[i:i + n], k[i:i + n], v[i:i + n], mask[i:i + n], inv)
+                              for i in range(0, q.shape[0], n)])
+
+
 def time_attention_mask(torch, np, smi: str, label: str, q, k, v, mask_np,
-                        baseline=None) -> dict:
+                        baseline=None, exact: bool = False, rtol: float = 0.0,
+                        chunk: int | None = None) -> dict:
     """Kernel 2 on one mask: against its plain version (1e-2), its time
     beside the plain version's, SDPA's (a yardstick with the same additive
     bias; the port never calls it), the mask's bound and MUFU floor, and
     the mask's kend (1 + a pair's last valid key) spread.  With
     ``baseline`` (an earlier build of the kernel, ``--attn-baseline``): the
     largest difference between its context and this kernel's on the same
-    inputs, and both timed in turns (old, new, new, old)."""
+    inputs, and both timed in turns (old, new, new, old); with ``exact``
+    the two contexts must be equal bit for bit.  ``rtol``: the check
+    against the plain version is |got - ref| <= 1e-2 + rtol |ref|.
+    ``chunk``: the plain version runs that many pairs at a time."""
     from financial_rag_system_tpu_torch.ops import attention as attn
 
     p, s, h, d = q.shape
     mask = torch.tensor(mask_np, device=q.device)
     inv = 1.0 / d ** 0.5
+    plain = in_chunks(torch, attn.encoder_self_attention_plain, q, k, v, mask, inv, chunk)
     got = attn.encoder_self_attention(q, k, v, mask, inv)
     torch.cuda.synchronize()
-    ref = attn.encoder_self_attention_plain(q, k, v, mask, inv)
+    ref = plain()
     if not torch.isfinite(got).all():
         raise AssertionError(f"attention, {label} mask, S={s} d={d}: non-finite output")
     err = float((got - ref).abs().max())
+    excess = float(((got - ref).abs() - rtol * ref.abs()).max())
     del got, ref
-    if err > 1e-2:
-        raise AssertionError(f"attention, {label} mask, S={s} d={d}: differs by {err} > 1e-2")
+    if excess > 1e-2:
+        raise AssertionError(f"attention, {label} mask, S={s} d={d}: differs by {err} (beyond "
+                             f"1e-2 + {rtol} |ref|)")
     qs, kb, vb = attn.kernel_inputs(q, k, v, inv)  # heads padded to 32, 64 or 128
 
     def kernel():
         return attn.pair_attention_kernel(qs, kb, vb, mask)
 
     ms = median_ms(kernel, reps=20)
-    plain_ms = median_ms(lambda: attn.encoder_self_attention_plain(q, k, v, mask, inv), reps=5)
+    plain_ms = median_ms(plain, reps=5)
     # yardstick only: one PyTorch call for the same function (the port never calls it)
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (qs, kb, vb))
     bias = torch.where(mask[:, None, None, :] > 0, 0.0, -1e9).to(torch.bfloat16)
@@ -987,6 +1028,9 @@ def time_attention_mask(torch, np, smi: str, label: str, q, k, v, mask_np,
         old_fn = attention_launcher(torch, baseline, qs, kb, vb, mask)
         new_fn = attention_launcher(torch, _cuda.library("pair_attention"), qs, kb, vb, mask)
         diff = float((new_fn().float() - old_fn().float()).abs().max())
+        if exact and diff != 0.0:
+            raise AssertionError(f"attention, {label} mask, S={s} d={d}: the context differs "
+                                 f"from the baseline build's by {diff}")
         turns = [median_ms(fn, reps=20) for fn in (old_fn, new_fn, new_fn, old_fn)]
         line += (f"; baseline: context max abs diff {diff:.3g}, old, new, new, old (both by "
                  f"their C entries) {[round(t, 4) for t in turns]} ms")
@@ -1033,7 +1077,7 @@ def check_attention(torch, np, smi: str, baseline=None) -> list:
     log(f"[attention] ptxas -v of csrc/pair_attention.cu (registers, spill store and load "
         f"bytes): {report}")
     ring = [k for k in report if "ring_kernel" in k]
-    if (len(ring) != 2 or not any("pair_attention_kernel" in k for k in report)
+    if (len(ring) != 3 or not any("pair_attention_kernel" in k for k in report)
             or any(r[1] or r[2] for r in report.values())):
         raise AssertionError(f"[attention] a kernel-2 instantiation spills, or ptxas named "
                              f"other kernels: {report}")
@@ -1098,28 +1142,29 @@ def write_checkpoints(torch, work: Path) -> None:
 
 
 def write_index(torch, np, work: Path, name: str = "index", n_tickers: int = N_TICKERS,
-                embed=None) -> None:
-    """131,072 unit rows, ~``n_tickers`` tickers x 3 doc types, a 368-wide
-    token store of random wordpiece ids, short texts as payloads, saved
-    to ``work / name``.  The rows are random, or ``embed(dtok)`` of the
-    (N, DLEN) token store."""
+                embed=None, n: int = N, dlen: int = DLEN) -> None:
+    """``n`` unit rows (131,072), ~``n_tickers`` tickers x 3 doc types, a
+    ``dlen``-wide token store of random wordpiece ids (368; documents of
+    ``dlen`` / 2 to ``dlen`` tokens), short texts as payloads, saved to
+    ``work / name``.  The rows are random, or ``embed(dtok)`` of the (n,
+    dlen) token store."""
     from financial_rag_system_tpu_torch.index.flat import FlatIndex
     from financial_rag_system_tpu_torch.models.tokenizer import SEP_ID
 
     rng = np.random.default_rng(SEED + 1)
-    emb = rng.standard_normal((N, D)).astype(np.float32)
+    emb = rng.standard_normal((n, D)).astype(np.float32)
     emb /= np.linalg.norm(emb, axis=1, keepdims=True)
-    lens = rng.integers(DLEN // 2, DLEN + 1, N)
-    dtok = rng.integers(1000, 30522, (N, DLEN)).astype(np.int32)
-    dtok[np.arange(N), lens - 1] = SEP_ID
-    dtok *= np.arange(DLEN)[None, :] < lens[:, None]
+    lens = rng.integers(dlen // 2, dlen + 1, n)
+    dtok = rng.integers(1000, 30522, (n, dlen)).astype(np.int32)
+    dtok[np.arange(n), lens - 1] = SEP_ID
+    dtok *= np.arange(dlen)[None, :] < lens[:, None]
     if embed is not None:
         emb = embed(dtok)
-    tick = rng.integers(0, n_tickers, N)
-    dtyp = rng.integers(0, len(DOC_TYPES), N)
-    index = FlatIndex(D, capacity=N, token_store_len=DLEN, device="cpu")
-    codes = np.empty((2, N), np.int32)
-    for r in range(N):
+    tick = rng.integers(0, n_tickers, n)
+    dtyp = rng.integers(0, len(DOC_TYPES), n)
+    index = FlatIndex(D, capacity=n, token_store_len=dlen, device="cpu")
+    codes = np.empty((2, n), np.int32)
+    for r in range(n):
         payload = {"ticker": f"T{tick[r]:02d}", "document_type": DOC_TYPES[dtyp[r]],
                    "source_file": f"filing_{r // 64}.txt"}
         index.store.upsert(f"chunk-{r}", f"chunk {r} of T{tick[r]:02d} "
@@ -1147,8 +1192,10 @@ def kernel_counters() -> dict:
             "masked_topk_select": (masked_topk, "launches_select"),
             "pair_attention": (encoder_self_attention, "launches"),
             "pair_attention_ring": (encoder_self_attention, "launches_ring"),
+            "pair_attention_long": (encoder_self_attention, "launches_long"),
             "flash_attention": (encoder_flash_attention, "launches"),
             "flash_attention_wide": (encoder_flash_attention, "launches_wide"),
+            "flash_attention_slab": (encoder_flash_attention, "launches_slab"),
             "ivf_probe": (ivf_probe, "launches"),
             "ivf_probe_int8": (ivf_probe, "launches_int8"),
             "ivf_probe_select": (ivf_probe, "launches_select"),
@@ -1182,7 +1229,7 @@ CPU_TANH = {"RAG_TPU_FAST_GELU": "1"}
 def drive_main_path(torch, np, work: Path, smi: str, label: str = "main",
                     index: str = "index", rounds: int = 2, mesh=None,
                     attention: str = "pair_attention", reranker: str = "reranker",
-                    rerank_layers: int = 6) -> dict:
+                    rerank_layers: int = 6, n: int = N, dlen: int = DLEN) -> dict:
     """The flat tier through ``build_default_engine(device="cuda")`` over
     the index saved in ``work / index``: 3 single asks, ``rounds`` bursts
     of 32 and a cache hit.  ``label`` tags the log lines and, past the
@@ -1197,7 +1244,8 @@ def drive_main_path(torch, np, work: Path, smi: str, label: str = "main",
     (``flash_attention`` under phase 12's ``FLASH_ENV``,
     ``pair_attention_ring`` for phase 13's heads of 64,
     ``flash_attention_wide`` for phase 14's heads of 256); ``reranker`` the
-    checkpoint in ``work``, of ``rerank_layers`` layers."""
+    checkpoint in ``work``, of ``rerank_layers`` layers; ``n`` and ``dlen``
+    the index's rows and token-store width."""
     from financial_rag_system_tpu_torch.models import bert
     from financial_rag_system_tpu_torch.models.tokenizer import pad_batch
     from financial_rag_system_tpu_torch.obs.tracing import get_tracer
@@ -1219,7 +1267,7 @@ def drive_main_path(torch, np, work: Path, smi: str, label: str = "main",
     engine = build_default_engine(device="cuda", mesh_devices=mesh)
     if engine.queue_status()["fused_kind"] != "full":
         raise AssertionError(f"fused_kind {engine.queue_status()['fused_kind']!r}")
-    if engine.index.n_valid != N or engine.index.token_store_len != DLEN:
+    if engine.index.n_valid != n or engine.index.token_store_len != dlen:
         raise AssertionError("the persisted index did not load whole")
     shards = len(mesh) if mesh else 1
 
@@ -1288,7 +1336,7 @@ def drive_main_path(torch, np, work: Path, smi: str, label: str = "main",
     snap = get_tracer().metrics_snapshot()
     stage = {m: snap[m] for m in ("fused_tokenize_ms", "fused_device_ms", "fused_assemble_ms")}
     log(f"[{label}] {smi}: launches {launches} over {n_batches} fused batches; pair length "
-        f"{lq + DLEN} ({lq} query + {DLEN} doc); batch walls (size, ms) {batches}")
+        f"{lq + dlen} ({lq} query + {dlen} doc); batch walls (size, ms) {batches}")
     log(f"[{label}] {smi}: stage split over all batches: {json.dumps(stage)}")
     return {"launches": launches, "engine": engine, "singles": singles, "burst": burst,
             "lq": lq}
@@ -4639,7 +4687,8 @@ def ptxas_report(name: str) -> dict:
     return ptxas_kernels(run.stdout + run.stderr)
 
 
-def time_flash(torch, np, smi: str, label: str, q, k, v, mask_np, baseline=None) -> dict:
+def time_flash(torch, np, smi: str, label: str, q, k, v, mask_np, baseline=None,
+               exact: bool = False, chunk: int | None = None) -> dict:
     """Kernel 7 on one mask: against its plain version on every row (pad
     rows and all-padding pairs included) at 1e-2, then its CUDA-event
     median, its device time (profiler), the plain version's time, SDPA's
@@ -4648,15 +4697,18 @@ def time_flash(torch, np, smi: str, label: str, q, k, v, mask_np, baseline=None)
     out (from the mask).  With ``baseline``
     (an earlier build of the kernel, ``--flash-baseline``): the largest
     difference between its context and this kernel's on the same inputs,
-    both timed in turns (old, new, new, old) and both device times."""
+    both timed in turns (old, new, new, old) and both device times; with
+    ``exact`` the two contexts must be equal bit for bit.  ``chunk``: the
+    plain version runs that many pairs at a time."""
     from financial_rag_system_tpu_torch.ops import flash_attention as fa
 
     p, s, h, d = q.shape
     mask = torch.tensor(mask_np, device=q.device)
     inv = 1.0 / d ** 0.5
+    plain = in_chunks(torch, fa.flash_attention_plain, q, k, v, mask, inv, chunk)
     got = fa.encoder_flash_attention(q, k, v, mask, inv)
     torch.cuda.synchronize()
-    ref = fa.flash_attention_plain(q, k, v, mask, inv)
+    ref = plain()
     if not torch.isfinite(got).all():
         raise AssertionError(f"flash attention, {label}: non-finite output")
     err = float((got - ref).abs().max())
@@ -4671,8 +4723,8 @@ def time_flash(torch, np, smi: str, label: str, q, k, v, mask_np, baseline=None)
         return fa.flash_attention_kernel(qb, kb, vb, seg, inv)
 
     ms = median_ms(kernel, reps=20)
-    dev = device_ms(torch, kernel, "flash")
-    plain_ms = median_ms(lambda: fa.flash_attention_plain(q, k, v, mask, inv), reps=3, warmup=1)
+    dev = device_ms(torch, kernel, "slab_kernel" if qb.shape[-1] > 256 else "flash")
+    plain_ms = median_ms(plain, reps=3, warmup=1)
     qh, kh, vh = (t.transpose(1, 2) for t in (qb, kb, vb))
     same = seg[:, None, :, None] == seg[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -4692,6 +4744,9 @@ def time_flash(torch, np, smi: str, label: str, q, k, v, mask_np, baseline=None)
             old_dev = device_ms(torch, kernel, "flash")
         diff = float((new.float() - old.float()).abs().max())
         del new, old
+        if exact and diff != 0.0:
+            raise AssertionError(f"flash attention, {label}, S={s} d={d}: the context differs "
+                                 f"from the baseline build's by {diff}")
 
         def old_ms():
             with kernel_lib("flash_attention", baseline):
@@ -4735,7 +4790,9 @@ def check_flash_kernel(torch, np, main: dict, smi: str, baseline=None) -> list:
         f"{report}")
     ring = [k for k in report if "12flash_kernel" in k]
     d256 = [k for k in report if "15flash256_kernel" in k]
-    if len(ring) != 3 or len(d256) != 2 or any(r[1] or r[2] for r in report.values()):
+    slab = [k for k in report if "11slab_kernel" in k]
+    if (len(ring) != 3 or len(d256) != 2 or len(slab) != 2
+            or any(r[1] or r[2] for r in report.values())):
         raise AssertionError(f"[flash] a kernel-7 kernel spills, or ptxas named other kernels: "
                              f"{report}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -4926,14 +4983,15 @@ BERT_BASE_DIR = "reranker_bert_base"
 
 
 def write_bert_base(torch, work: Path, shape: dict = BERT_BASE_SHAPE, name: str = BERT_BASE_DIR,
-                    seed: int = 2) -> None:
+                    seed: int = 2, max_seq_length: int | None = None) -> None:
     from financial_rag_system_tpu_torch.models import bert
     from financial_rag_system_tpu_torch.models.hf_export import save_bert_checkpoint
 
     cfg = bert.BertConfig(**shape)
     model = bert.BertModel(cfg, device="cpu")
     bert.load_jax_params(model, bert.init_params(torch.Generator().manual_seed(seed), cfg))
-    save_bert_checkpoint(model, cfg, str(work / name), cross_encoder=True)
+    save_bert_checkpoint(model, cfg, str(work / name), cross_encoder=True,
+                         max_seq_length=max_seq_length)
 
 
 def drive_phase_13(torch, np, work: Path, smi: str) -> dict:
@@ -5075,6 +5133,338 @@ def drive_phase_14(torch, np, work: Path, smi: str) -> dict:
         f"the profile) {wide_ms:.3f} ms, {share} of the device time")
     del run["engine"]
     return run
+
+
+# -- phase 15: pairs above 512 tokens (kernels 2 and 7 at every length) -------------
+
+# synthetic filings chunked at about 2,500 characters: documents of 480-960
+# wordpieces (960 / 368 is 2,500 / 1,000 characters), 32,768 chunks
+LONG_DLEN = 960
+N_LONG = 32_768
+# cross-encoder/ms-marco-MiniLM-L-6-v2's widths (hidden 384, 6 layers, 12
+# heads of 32, intermediate 1,536) with 1,024 positions, trained (and so
+# truncating) at 1,024: a long-context MiniLM reranker.  Random weights
+# from a seed; nothing is downloaded.
+LONG_MINILM_SHAPE = dict(vocab_size=30522, hidden=384, layers=6, heads=12, intermediate=1536,
+                         max_positions=1024, with_pooler=True, num_labels=1)
+LONG_MINILM_DIR = "reranker_long"
+# BERT-base widths in 2 heads of 384 (hidden 768, intermediate 3,072; no
+# published checkpoint has such heads: the shape puts a served rerank on
+# kernel 7's slab kernel, which jax's kernel also takes), 1,024 positions,
+# cut to 4 layers
+SLAB_SHAPE = dict(vocab_size=30522, hidden=768, layers=4, heads=2, intermediate=3072,
+                  max_positions=1024, with_pooler=True, num_labels=1)
+SLAB_DIR = "reranker_slab"
+LONG_ENV = {"RAG_TPU_TOKEN_STORE_LEN": str(LONG_DLEN)}
+# the card checks of the new branches: kernel 2 above S 512, kernel 7
+# above S 512, kernel 7 at heads of 384 and 512; (heads, width) at each
+LONG_ATTN_SEQS = (513, 640, 1024, 2048, 4096)
+LONG_ATTN_WIDTHS = ((12, 32), (12, 64), (6, 128))
+LONG_FLASH_SEQS = (640, 1024, 2048)
+LONG_FLASH_WIDTHS = ((12, 32), (12, 64), (6, 128), (3, 256))
+SLAB_SEQS = (128, 512, 1024)
+SLAB_WIDTHS = ((2, 384), (2, 512))
+# the shapes of those that are timed (the rest are checked only)
+LONG_TIMED = {(1024, 32), (1024, 64), (1024, 128), (4096, 32), (1024, 256), (2048, 32),
+              (1024, 384), (1024, 512), (128, 384)}
+LONG_COMPARE_QUERIES = 8  # 120 pairs: the einsum batch's (P, 12, S, S) f32 scores fit
+
+
+def stretch_mask(np, mask_np, s: int, lq: int):
+    """A rerank mask stretched to ``s`` keys: the query part (below
+    ``lq``) kept, the document part's positions scaled by (s - lq) / (S -
+    lq), so each pair's hole and tail scale with it."""
+    p, s0 = mask_np.shape
+    src = lq + (np.arange(s - lq) * (s0 - lq)) // (s - lq)
+    return np.concatenate([mask_np[:, :lq], mask_np[:, src]], axis=1)
+
+
+def card_inputs(torch, np, p: int, s: int, h: int, d: int):
+    """``attention_inputs``' shapes and uniform-length mask with q, k and v
+    drawn on the card (a torch generator seeded from SEED + s): numpy's
+    draws took tens of seconds at phase 15's served shapes."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + s)
+    q, k, v = (torch.randn((p, s, h, d), generator=g, device="cuda") for _ in range(3))
+    lens = np.random.default_rng(SEED + s).integers(1, s + 1, p)
+    lens[0] = s
+    mask_np = (np.arange(s)[None, :] < lens[:, None]).astype(np.int32)
+    mask_np[-1] = 0                              # a fully padded pair
+    return q, k, v, mask_np
+
+
+def long_pairs(s: int, h: int) -> int:
+    """Pairs for a card check at S: as many as keep the plain version's
+    (P, H, S, S) f32 scores near 2 GB, from 2 to 48."""
+    return int(max(2, min(48, 2 ** 29 // (h * s * s))))
+
+
+def check_kernel_case(torch, label: str, fn, plain, counter, want: int = 1,
+                      rtol: float = 0.0) -> float:
+    """``fn()`` against ``plain()`` on every row, |got - ref| <= 1e-2 +
+    ``rtol`` |ref| (finite), and ``counter()`` (the launches it made) equal
+    to ``want``: the largest difference."""
+    before = counter()
+    got = fn()
+    torch.cuda.synchronize()
+    launched = counter() - before
+    ref = plain()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: non-finite output")
+    err = float((got - ref).abs().max())
+    excess = float(((got - ref).abs() - rtol * ref.abs()).max())
+    if excess > 1e-2 or launched != want:
+        raise AssertionError(f"{label}: differs from its plain version by {err} (1e-2 + "
+                             f"{rtol} |ref|), {launched} launches (want {want})")
+    return err
+
+
+def check_long_kernels(torch, np, main: dict, smi: str, attn_baseline=None,
+                       flash_baseline=None) -> None:
+    """Tentpole item 6: kernel 2 at heads of 32, 64 and 128 at S 513,
+    640, 1,024, 2,048 and 4,096; kernel 7 at heads of 32-256 at S 640,
+    1,024 and 2,048, and at heads of 384 and 512 at S 128, 512 and 1,024;
+    each on phase 3's rerank mask stretched to S and on the uniform-length
+    mask, against its plain version (1e-2) with its launch counter; the
+    shapes of ``LONG_TIMED`` timed beside the plain version, SDPA, the
+    bound and the MUFU floor.  Kernel 2 is held to atol 1e-2 and rtol
+    1e-2, as ``tests/test_torch_kernels_cuda.py`` holds it: its probs are
+    rounded to bf16 against a running max, the plain version's against
+    the row's, so a context near 2-4 (a pair with a few valid keys) may
+    round to the neighbouring bf16 value, 0.0156 away.  With a baseline build (``--attn-baseline``,
+    ``--flash-baseline``: the parent's), kernels 2 and 7 at S <= 512 on
+    the same masks, bit for bit with it, every width."""
+    from financial_rag_system_tpu_torch.ops import attention as attn
+    from financial_rag_system_tpu_torch.ops import flash_attention as fa
+
+    rerank = rerank_batch_mask(torch, np, main)
+    lq = main["lq"]
+
+    def masks(p, s, h, d):
+        q, k, v, uniform = card_inputs(torch, np, p, s, h, d)
+        return q, k, v, (("stretched rerank", stretch_mask(np, rerank[:p], s, lq)),
+                         ("uniform-length", uniform))
+
+    for h, d in LONG_ATTN_WIDTHS:
+        for s in LONG_ATTN_SEQS:
+            q, k, v, cases = masks(long_pairs(s, h), s, h, d)
+            for name, mask_np in cases:
+                label = f"[long] kernel 2, {name} mask, S {s}, {h} heads of {d}"
+                if (s, d) in LONG_TIMED:
+                    time_attention_mask(torch, np, smi, name, q, k, v, mask_np, rtol=1e-2)
+                    continue
+                mask = torch.tensor(mask_np, device="cuda")
+                inv = d ** -0.5
+                err = check_kernel_case(
+                    torch, label, lambda: attn.encoder_self_attention(q, k, v, mask, inv),
+                    lambda: attn.encoder_self_attention_plain(q, k, v, mask, inv),
+                    lambda: attn.encoder_self_attention.launches_long, rtol=1e-2)
+                log(f"{label}: P {q.shape[0]}, max_abs_err {err:.3g}")
+    for s, h, d in ((400, 12, 32), (512, 12, 32), (400, 12, 64), (512, 6, 128)):
+        if attn_baseline is None:
+            break
+        q, k, v, cases = masks(48, s, h, d)
+        for name, mask_np in cases:
+            time_attention_mask(torch, np, smi, f"{name} (S <= 512 against the baseline)",
+                                q, k, v, mask_np, attn_baseline, exact=True, rtol=1e-2)
+
+    def flash_case(s, h, d, timed):
+        q, k, v, cases = masks(long_pairs(s, h), s, h, d)
+        for name, mask_np in cases:
+            label = f"[long] kernel 7, {name} mask, S {s}, {h} heads of {d}"
+            if timed:
+                time_flash(torch, np, smi, name, q, k, v, mask_np)
+                continue
+            mask = torch.tensor(mask_np, device="cuda")
+            inv = d ** -0.5
+            counter = fa.launch_counter(fa.padded_head_dim(d, s))
+            err = check_kernel_case(
+                torch, label, lambda: fa.encoder_flash_attention(q, k, v, mask, inv),
+                lambda: fa.flash_attention_plain(q, k, v, mask, inv),
+                lambda: getattr(fa.encoder_flash_attention, counter))
+            log(f"{label}: P {q.shape[0]}, max_abs_err {err:.3g}")
+
+    for h, d in LONG_FLASH_WIDTHS:
+        for s in LONG_FLASH_SEQS:
+            flash_case(s, h, d, (s, d) in LONG_TIMED)
+    for h, d in SLAB_WIDTHS:
+        for s in SLAB_SEQS:
+            flash_case(s, h, d, (s, d) in LONG_TIMED)
+    for s, h, d in ((512, 12, 32), (256, 12, 64), (512, 6, 128), (512, 3, 256), (128, 3, 256)):
+        if flash_baseline is None:
+            break
+        q, k, v, cases = masks(48, s, h, d)
+        for name, mask_np in cases:
+            time_flash(torch, np, smi, f"{name} (S <= 512 against the baseline)", q, k, v,
+                       mask_np, flash_baseline, exact=True)
+
+
+def served_shapes(torch, fn, wrapper: str):
+    """``fn()`` with the (S, d) of each call of the encoder's ``wrapper``
+    (``encoder_self_attention`` or ``encoder_flash_attention``)."""
+    from financial_rag_system_tpu_torch.models import bert
+
+    seen = []
+    original = getattr(bert, wrapper)
+
+    def spy(q, *args, **kwargs):
+        seen.append((q.shape[1], q.shape[3]))
+        return original(q, *args, **kwargs)
+
+    setattr(bert, wrapper, spy)
+    try:
+        out = fn()
+    finally:
+        setattr(bert, wrapper, original)
+    return out, seen
+
+
+def serve_long(torch, np, work: Path, smi: str, part: str, reranker: str, layers: int,
+               env: dict, kernel: str, wrapper: str, width: int, profile_key: str) -> dict:
+    """One part of phase 15: ``build_default_engine(device="cuda")`` with
+    phase 3's BGE-small over the long index and ``reranker`` under
+    ``env`` (3 asks, a burst of 32, a cache hit: ``kernel`` ``layers``
+    times a batch, nothing else of kernels 2 and 7);
+    then ``LONG_COMPARE_QUERIES`` queries' batch against the einsum batch
+    (``RAG_TPU_PAIR_ATTN=0``, no ``RAG_TPU_FLASH``) on the card (rows and
+    bi scores identical, logits within ``compare_batches``' 5e-2), the
+    (S, d) its attention saw (the query's and the token store's lengths,
+    rounded up to 128s on the flash path), and the batch of 32's wall and
+    device ms and the kernel's share of the device time (profiler)."""
+    from financial_rag_system_tpu_torch.ops.fused_query import fused_two_stage
+
+    with env_set(**LONG_ENV, **env):
+        run = drive_main_path(torch, np, work, smi, label=f"long-{part}", index="index_long",
+                              reranker=reranker, rounds=1, attention=kernel,
+                              rerank_layers=layers, n=N_LONG, dlen=LONG_DLEN)
+    engine = run["engine"]
+    card = (engine.embedder, engine.reranker)
+    queries = run["burst"][:LONG_COMPARE_QUERIES]
+
+    def batch():
+        before = read_launches()
+        out = flat_batch(torch, engine, queries, "cuda", engine.index, card, N_LONG)
+        after = read_launches()
+        return out, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+    with env_set(**env):
+        (got, launched), seen = served_shapes(torch, batch, wrapper)
+    # the pairs' length: the query's and the token store's, up to 128s on the flash path
+    plen = run["lq"] + LONG_DLEN
+    want = (-(-plen // 128) * 128 if env.get("RAG_TPU_FLASH") == "1" else plen, width)
+    if launched != {"masked_topk": 1, kernel: layers} or seen != [want] * layers:
+        raise AssertionError(f"[long-{part}] the batch launched {launched} at (S, d) {seen}")
+    with env_set(RAG_TPU_PAIR_ATTN="0", RAG_TPU_FLASH="0"):
+        ref, launched_ref = batch()
+    if launched_ref != {"masked_topk": 1}:
+        raise AssertionError(f"[long-{part}] the einsum batch launched {launched_ref}")
+    if not (np.array_equal(got[0], ref[0]) and np.array_equal(got[1], ref[1])):
+        raise AssertionError(f"[long-{part}] rows or bi scores differ from the einsum batch's")
+    compare_batches(np, f"[long-{part}] card, {kernel} at (S, d) {seen[0]} vs the einsum "
+                    f"path", got, ref)
+    emb, codes, dtok = engine.index._arrays
+    stats = {}
+    with env_set(**env):
+        args = fused_inputs(torch, engine, run["burst"], "cuda")
+        profile_run(torch, lambda: fused_two_stage(
+            engine.embedder.model, engine.reranker.model, *args, emb, codes, dtok, N_LONG,
+            rerank_cfg=engine.reranker.cfg, k=K), f"fused_two_stage, phase 15 ({part}), {env}",
+            smi, stats)
+    rows = [(ms, n) for ms, n, key in stats["rows"] if profile_key in key]
+    ms = sum(ms for ms, _ in rows)
+    share = (f"{ms / stats['device_ms']:.4f}" if stats["device_ms"] > 0
+             else "not measured (the profiler returned no kernels)")
+    log(f"[long-{part}] {smi}: the batch of {B} at (S, d) {seen[0]}: wall "
+        f"{stats['wall_ms']:.2f} ms, device {stats['device_ms']:.2f} ms; {kernel} "
+        f"({sum(n for _, n in rows)} launches in the profile) {ms:.3f} ms, {share} of the "
+        f"device time")
+    run["seen"] = seen[0]
+    return run
+
+
+def long_served_kernel(torch, np, run: dict, smi: str, kernel: str) -> dict:
+    """A ``kernels`` line entry at the served shape of ``run``: the
+    burst's rerank mask (as the encoder hands it to attention) with random
+    q, k and v at its (S, d) and 480 pairs, timed by ``time_attention_mask``
+    or ``time_flash`` with the plain version in chunks of pairs."""
+    from financial_rag_system_tpu_torch.models import bert
+
+    engine = run["engine"]
+    flash = kernel != "pair_attention_long"
+    name = "encoder_flash_attention" if flash else "encoder_self_attention"
+    seen = []
+    original = getattr(bert, name)
+
+    def spy(q, k, v, attention_mask, *args, **kwargs):
+        seen.append(attention_mask.to(torch.int32).cpu().numpy())
+        return original(q, k, v, attention_mask, *args, **kwargs)
+
+    setattr(bert, name, spy)
+    try:
+        with env_set(**run["env"]):
+            flat_batch(torch, engine, run["burst"], "cuda", engine.index,
+                       (engine.embedder, engine.reranker), N_LONG)
+    finally:
+        setattr(bert, name, original)
+    mask_np = seen[0]
+    p, s = mask_np.shape
+    h = engine.reranker.cfg.heads
+    d = engine.reranker.cfg.hidden // h
+    q, k, v, _ = card_inputs(torch, np, p, s, h, d)
+    timer = time_flash if flash else time_attention_mask
+    res = timer(torch, np, smi, f"phase 15's served mask ({kernel})", q, k, v, mask_np,
+                chunk=long_pairs(s, h))
+    source = "flash_attention.cu" if flash else "pair_attention.cu"
+    replaces = ("financial_rag_system_tpu/models/bert.py:160" if flash
+                else "financial_rag_system_tpu/ops/attention.py:48")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {"name": kernel, "route": "cuda", "source": f"{PACKAGE}/csrc/{source}",
+            "replaces": replaces, **{key: res[key] for key in keys}}
+
+
+def drive_phase_15(torch, np, work: Path, main: dict, smi: str, kernels: list,
+                   attn_baseline=None, flash_baseline=None) -> list:
+    """Phase 15: a 1,024-position MiniLM-wide reranker served over pairs
+    of about 1,000 tokens (phase 3's BGE-small, a 32,768-chunk index of
+    960-token documents): (a) the default gate, kernel 2's long branch 6
+    times a batch at S 992; (b) ``RAG_TPU_FLASH=1 RAG_TPU_PAIR_ATTN=0``,
+    kernel 7 6 times a batch at S 1,024; (c) a reranker of 2 heads of 384
+    under ``RAG_TPU_FLASH=1``, kernel 7's slab kernel 4 times a batch at S
+    1,024; each batch against the einsum batch, profiled; then the kernel
+    checks (``check_long_kernels``) and the ``kernels`` line entries of
+    the new branches at the served shapes.  Each part's seconds."""
+    runs, t0 = {}, time.perf_counter()
+    write_index(torch, np, work, "index_long", n=N_LONG, dlen=LONG_DLEN)
+    write_bert_base(torch, work, LONG_MINILM_SHAPE, LONG_MINILM_DIR, seed=4,
+                    max_seq_length=1024)
+    write_bert_base(torch, work, SLAB_SHAPE, SLAB_DIR, seed=5, max_seq_length=1024)
+    log(f"[long] {smi}: {N_LONG} chunks of {LONG_DLEN // 2}-{LONG_DLEN} tokens, the "
+        f"rerankers {LONG_MINILM_SHAPE} and {SLAB_SHAPE} written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    parts = (
+        ("a", LONG_MINILM_DIR, LONG_MINILM_SHAPE, {}, "pair_attention_long",
+         "encoder_self_attention", "ring_kernel"),
+        ("b", LONG_MINILM_DIR, LONG_MINILM_SHAPE, FLASH_ENV, "flash_attention",
+         "encoder_flash_attention", "flash_kernel<"),
+        ("c", SLAB_DIR, SLAB_SHAPE, {"RAG_TPU_FLASH": "1"}, "flash_attention_slab",
+         "encoder_flash_attention", "slab_kernel"),
+    )
+    for part, reranker, shape, env, kernel, wrapper, key in parts:
+        t0 = time.perf_counter()
+        runs[part] = serve_long(torch, np, work, smi, part, reranker, shape["layers"], env,
+                                kernel, wrapper, shape["hidden"] // shape["heads"], key)
+        runs[part]["env"] = {**LONG_ENV, **env}
+        log(f"[phase-15] part ({part}) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels.append(long_served_kernel(torch, np, runs["a"], smi, "pair_attention_long"))
+    kernels.append(long_served_kernel(torch, np, runs["c"], smi, "flash_attention_slab"))
+    long_served_kernel(torch, np, runs["b"], smi, "flash_attention")
+    for run in runs.values():
+        del run["engine"]
+    log(f"[phase-15] the served shapes' kernel figures took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_long_kernels(torch, np, main, smi, attn_baseline, flash_baseline)
+    log(f"[phase-15] the kernel checks took {time.perf_counter() - t0:.1f} s")
+    return list(runs.values())
 
 
 def main() -> int:
@@ -5234,11 +5624,16 @@ def main() -> int:
         t0 = time.perf_counter()
         wide_run = drive_phase_14(torch, np, work, smi)
         log(f"[bert-base-d256] phase 14 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        long_runs = drive_phase_15(torch, np, work, main_run, smi, kernels, attn_baseline,
+                                   flash_baseline)
+        log(f"[long] phase 15 took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # launches over the main paths, each counted from 0 around its run
     runs = (main_run, ivf_run, block_run, int8_run, ivf8_run, *hash_runs, hnsw_run, hnsw8_run,
-            train_run, *sharded_runs, *phase11_runs, flash_run, base_run, wide_run)
+            train_run, *sharded_runs, *phase11_runs, flash_run, base_run, wide_run,
+            *long_runs)
     for kern in kernels:
         name = kern["name"]
         kern["launches"] = sum(run["launches"][name] for run in runs)

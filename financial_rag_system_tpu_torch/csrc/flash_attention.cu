@@ -22,9 +22,10 @@
 //    and the context rounded to bf16.
 //
 // Layout: q, k, v and the output are (B, S, H, D) bf16 as the encoder's
-// projections give them (no transpose), D 32, 64, 128 or 256 (the wrapper
-// zero-pads every other width up to 128 to the next of these); the segment
-// ids (B, S) int32, any values; S a multiple of 128 up to 512.
+// projections give them (no transpose), D 32, 64, 128, 256 or any multiple
+// of 128 from 384 (the wrapper zero-pads every other width up to 128 to
+// the next of 32, 64 and 128); the segment ids (B, S) int32, any values;
+// S any multiple of 128.  These are the shapes jax's kernel takes.
 //
 // What bounds it on the H100, at the served shape (P 480 pairs, S 512,
 // 12 heads of 32, the rerank mask padded to 512; at 3 heads of 256 the
@@ -70,10 +71,11 @@
 //    (tile, block) pair in which no query row shares a segment id with
 //    any key is skipped whole (no QK^T, softmax or P.V; no load at all
 //    when no tile of the unit needs the block).  The test is exact for any
-//    int32 ids: the producer keeps a 32-bit presence mask of the ids in
-//    [0, 32) of each 32 positions, and a tile or block holding any other
-//    id skips nothing.  A block whose keys all carry one id needs no test
-//    a score: a row attends all of it or none of it.
+//    int32 ids: the producer makes a 32-bit presence mask of the ids in
+//    [0, 32) of each of a unit's row tiles when the unit starts and of
+//    each block as it stages it (every bit where any other id appears), so
+//    nothing it keeps grows with S.  A block whose keys all carry one id
+//    needs no test a score: a row attends all of it or none of it.
 // Measured on the card (PERF.md, tools/flash_attention_variants.py): the
 // kernel is bound by latency, not by one unit.  Cutting out the MUFU work,
 // the segment test or P.V saves a tenth or so each; the warpgroups of a
@@ -155,6 +157,25 @@
 //    alpha + sum(p), alpha = exp(m - m_next)) and is divided by l once at
 //    the end: jax's normalised update (acc_jax = acc / l after every
 //    block) rearranged.
+//
+// Heads of 384 and every wider multiple of 128 (slab::slab_kernel<SINGLE>,
+// at the end): a column split.  A unit is (item, slab of 128 context
+// columns, two 64-row tiles), one tile to each of flash_kernel<128>'s two
+// consumer warpgroups, whose layout (64 f32 of context beside 64 of
+// scores a thread) and arithmetic (jax's 128-key online softmax,
+// attend<128>, with its liberties) it keeps.  QK^T spans the whole head:
+// for each 128-key block the producer stages, through a ring of seven 32
+// KB slots, K's 128-column pieces and both tiles' matching q pieces in
+// turn (no q tile stays resident, so any width fits), and the consumers
+// sum the pieces' wgmma m64n128k16 products into the same 64 scores;
+// then V's slab of the block.  The units of an item are dealt round the
+// blocks in order, as at D 256, so its K and V come from device memory
+// once and from L2 for each unit.  The cost of the split: every slab
+// computes the whole QK^T and its softmax again, and reads the whole K and
+// the q tile from L2.  The kernel does (D / 128 + 1) 2 P H S^2 D of tensor
+// work, against the function's 4 P H S^2 D ((D / 128 + 1) / 2 times: 2x at
+// D 384, 2.5x at D 512), and D / 128 times its exponentials; the bound
+// (the function's bytes and operations) does not change.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -170,7 +191,6 @@ namespace {
 
 constexpr int kKeys = 128;    // jax's block_k: a stage, and QK^T's wgmma N
 constexpr int kRows = 64;     // query rows of a tile: one wgmma M
-constexpr int kMaxS = 512;
 constexpr int kMaxStages = 8;
 constexpr size_t kSmemLimit = 232448;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -396,57 +416,56 @@ __device__ __forceinline__ void attend(Rows<D>& r, float (&s)[64], const StageHe
   }
 }
 
-// The producer warp's view of a pair's segment ids.  Lane j: the ids in
-// [0, 32) of positions 32j .. 32j + 31 as bits (gp), and whether they hold
-// any other id (go); kBatch loads in flight.
-template <int kBatch>
-__device__ __forceinline__ void presence(const int32_t* srow, int S, int lane, uint32_t& gp,
-                                         uint32_t& go) {
+// The skip rule's view of a run of segment ids, the warp's values x: bit i
+// when some lane holds id i in [0, 32), every bit when some lane holds any
+// other id (such a run may share an id with anything).  A (tile, block)
+// pair is needed when its tile's and its block's masks meet; the test is
+// exact for any int32 ids, and nothing it keeps grows with S.
+template <int N>
+__device__ __forceinline__ uint32_t presence(const int (&x)[N]) {
   constexpr uint32_t kAll = 0xffffffffu;
-  gp = 0;
-  go = 0;
+  uint32_t bits = 0;
+  bool other = false;
 #pragma unroll
-  for (int j0 = 0; j0 < kMaxS / 32; j0 += kBatch) {
-    int v[kBatch];  // this lane's ids: position lane + 32j
+  for (int u = 0; u < N; ++u) {
+    bits |= (unsigned)x[u] < 32u ? 1u << x[u] : 0u;
+    other = other || (unsigned)x[u] >= 32u;
+  }
+  return __any_sync(kAll, other) ? ~0u : __reduce_or_sync(kAll, bits);
+}
+
+// The presence masks of a unit's row tiles t0 .. t0 + kWg - 1 of a pair
+// (0 for a tile past its T tiles: it needs no block)
+template <int kWg>
+__device__ __forceinline__ void tile_presence(const int32_t* srow, int t0, int T, int lane,
+                                              uint32_t (&tp)[kWg]) {
 #pragma unroll
-    for (int jj = 0; jj < kBatch; ++jj)
-      v[jj] = j0 + jj < S / 32 ? srow[lane + 32 * (j0 + jj)] : 0;
-#pragma unroll
-    for (int jj = 0; jj < kBatch; ++jj) {
-      if (j0 + jj >= S / 32) break;
-      const uint32_t p = __reduce_or_sync(kAll, (unsigned)v[jj] < 32u ? 1u << v[jj] : 0u);
-      const uint32_t o = __any_sync(kAll, (unsigned)v[jj] >= 32u);
-      if (lane == j0 + jj) gp = p, go = o;
+  for (int w = 0; w < kWg; ++w) {
+    tp[w] = 0;
+    if (t0 + w < T) {
+      const int x[2] = {srow[(t0 + w) * kRows + lane], srow[(t0 + w) * kRows + 32 + lane]};
+      tp[w] = presence(x);
     }
   }
 }
 
 // 128-key block kb of a pair: its ids (x, lane's keys lane + 32u), their
 // least and largest (one id fills it when they are equal), and the bits
-// of the unit's tiles t0 .. t0 + kWg - 1 that share an id with it
+// of the unit's tiles (presence masks tp) that share an id with it
 template <int kWg>
-__device__ __forceinline__ uint32_t block_need(const int32_t* srow, int kb, int t0, int T,
-                                               uint32_t gp, uint32_t go, int lane, int (&x)[4],
+__device__ __forceinline__ uint32_t block_need(const int32_t* srow, int kb,
+                                               const uint32_t (&tp)[kWg], int lane, int (&x)[4],
                                                int& lo, int& hi) {
   constexpr uint32_t kAll = 0xffffffffu;
 #pragma unroll
   for (int u = 0; u < 4; ++u) x[u] = srow[kb * kKeys + lane + 32 * u];
   lo = __reduce_min_sync(kAll, min(min(x[0], x[1]), min(x[2], x[3])));
   hi = __reduce_max_sync(kAll, max(max(x[0], x[1]), max(x[2], x[3])));
-  uint32_t bp = 0, bo = 0;  // the block's presence bits, any other id
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    bp |= __shfl_sync(kAll, gp, 4 * kb + u);
-    bo |= __shfl_sync(kAll, go, 4 * kb + u);
-  }
+  const uint32_t bp = presence(x);
   uint32_t need = 0;
 #pragma unroll
-  for (int w = 0; w < kWg; ++w) {
-    const int tt = min(t0 + w, T - 1);
-    const uint32_t tp = __shfl_sync(kAll, gp, 2 * tt) | __shfl_sync(kAll, gp, 2 * tt + 1);
-    const uint32_t to = __shfl_sync(kAll, go, 2 * tt) | __shfl_sync(kAll, go, 2 * tt + 1);
-    if (t0 + w < T && (to || bo || (tp & bp))) need |= 1u << w;
-  }
+  for (int w = 0; w < kWg; ++w)
+    if (tp[w] & bp) need |= 1u << w;
   return need;
 }
 
@@ -465,12 +484,12 @@ __device__ __forceinline__ void produce(const CUtensorMap* kmap, const CUtensorM
     const int item = blockIdx.x + i * gridDim.x;
     const int pair = item / H, hd = item - pair * H;
     const int32_t* srow = seg + (size_t)pair * S;
-    uint32_t gp, go;
-    presence<C::kProducerRegs >= 40 ? kMaxS / 32 : 4>(srow, S, lane, gp, go);
     for (int t0 = 0; t0 < T; t0 += C::kWg) {  // a unit: tiles t0 .. t0 + kWg - 1
+      uint32_t tp[C::kWg];
+      tile_presence<C::kWg>(srow, t0, T, lane, tp);
       for (int kb = 0; kb < nb; ++kb) {
         int x[4], lo, hi;
-        const uint32_t need = block_need<C::kWg>(srow, kb, t0, T, gp, go, lane, x, lo, hi);
+        const uint32_t need = block_need<C::kWg>(srow, kb, tp, lane, x, lo, hi);
         const int s = n % nst;
         mbar_wait(&empty[s], ((n / nst) & 1) ^ 1);  // the first round passes
         StageHead& h = head[s];
@@ -910,12 +929,11 @@ __device__ __forceinline__ void produce(const CUtensorMap* kmap, const CUtensorM
     unit_of(k, units, item, u);
     const int pair = item / H, hd = item - pair * H;
     const int32_t* srow = seg + (size_t)pair * S;
-    uint32_t gp, go;
-    presence<4>(srow, S, lane, gp, go);
-    const int t0 = u * kWg;
+    uint32_t tp[kWg];
+    tile_presence<kWg>(srow, u * kWg, T, lane, tp);
     for (int kb = 0; kb < nb; ++kb, ++blk) {
       int x[4], lo, hi;
-      const uint32_t need = block_need<kWg>(srow, kb, t0, T, gp, go, lane, x, lo, hi);
+      const uint32_t need = block_need<kWg>(srow, kb, tp, lane, x, lo, hi);
 #pragma unroll 1
       for (int part = 0; part < kSlotsABlock; ++part, ++n) {
         const int s = n % ns;
@@ -1135,20 +1153,306 @@ int launch(const void* q, const void* k, const void* v, const void* seg, void* o
 
 }  // namespace d256
 
+// ---------------------------------------------------------------------------
+// Heads of 384 and every wider multiple of 128 (slab::slab_kernel<SINGLE>):
+// a column split (see the file's header).
+
+namespace slab {
+
+// context columns a unit computes, and columns of q and K a slot holds (a
+// piece of QK^T's depth)
+constexpr int kSlab = 128;
+using C = Cfg<kSlab>;           // a unit's consumers are flash_kernel<128>'s
+constexpr int kWg = C::kWg;     // consumer warpgroups: a unit is 2 row tiles
+constexpr int kQChunk = kRows * 128;   // 8 KB: 64 rows x 64 columns of q, 128-byte swizzle
+constexpr int kKChunk = kKeys * 128;   // 16 KB: 128 keys x 64 columns of K or V
+constexpr int kSlotBytes = kSlab / 64 * kKChunk;  // 32 KB: K's piece or V's slab of a block
+static_assert(kSlotBytes == kWg * kSlab / 64 * kQChunk, "a slot also holds both tiles' q pieces");
+static_assert(C::kKChunk == kKChunk && C::kRowB == 128, "V's slab is laid out as attend reads it");
+constexpr int kMaxSlots = 8;
+// registers a thread after setmaxnreg, within the pool of flash_kernel<128>'s
+// launch (384 threads at 168), split as ptxas fits each instantiation
+// without spills: the online softmax's consumers at 224 (the producer 56),
+// S 128's single step's at 232 (40).  Its budgets, 24 and 240, spilled
+// 40 bytes of the online softmax's loop-carried state.
+__host__ __device__ constexpr int producer_regs(bool single) { return single ? 40 : 56; }
+__host__ __device__ constexpr int consumer_regs(bool single) { return single ? 232 : 224; }
+static_assert(128 * (producer_regs(true) + kWg * consumer_regs(true)) <=
+                      C::kThreads * (65536 / C::kThreads / 8 * 8) &&
+                  128 * (producer_regs(false) + kWg * consumer_regs(false)) <=
+                      C::kThreads * (65536 / C::kThreads / 8 * 8),
+              "the register budgets exceed the block's pool");
+
+// 1 KB to align the slots to the swizzle's atoms; the slots; the heads of
+// two blocks; each slot's full and empty barriers (ops/flash_attention.py
+// slab_plan mirrors this)
+constexpr size_t smem_bytes(int slots) {
+  return 1024 + (size_t)slots * kSlotBytes + 2 * sizeof(StageHead) + 2 * slots * sizeof(uint64_t);
+}
+
+// as many slots as fit, up to kMaxSlots: 7.  A block's head is written with
+// its first slot into one of two heads, so a slot's last tenant must be of
+// the block before or later, or the last slot of the block two back: at
+// most 2 np + 2 slots, np = D / 128 >= 3 pieces (a block takes 2 np + 1)
+constexpr int ring_slots() {
+  int n = kMaxSlots;
+  while (n > 2 && smem_bytes(n) > kSmemLimit) --n;
+  return n;
+}
+static_assert(ring_slots() == 7 && smem_bytes(ring_slots()) == 231568 &&
+                  ring_slots() <= 2 * 3 + 2,
+              "seven 32 KB slots and two block heads fill a block's shared memory");
+// the ring's size a compile-time constant: n % ns and n / ns take no
+// registers, and the heads and barriers sit at fixed offsets
+constexpr int kSlots = ring_slots();
+
+// The work: units, each (item, slab of kSlab context columns, the row
+// tiles 2u, 2u + 1), in the order item 0's slab 0's units, its slab 1's,
+// ..., item 1's; unit w goes to block w % gridDim.x, so an item's units
+// run on neighbouring SMs at once and share its K and V in L2 (d256's order)
+__device__ __forceinline__ void unit_of(int k, int slabs, int units, int& item, int& sl, int& u) {
+  const int w = blockIdx.x + k * gridDim.x;
+  item = w / (slabs * units);
+  const int r = w - item * slabs * units;
+  sl = r / units;
+  u = r - sl * units;
+}
+
+// s (+)= q K^T over one piece of the head (64 rows x 128 keys, f32):
+// eight wgmma m64n128k16 steps, waited for; the first piece starts the sum
+__device__ __forceinline__ void qk_piece(float (&s)[64], const unsigned char* qs,
+                                         const unsigned char* ks, bool first) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kSlab / 16; ++kk) {
+    const int c = kk / 4, o = (kk % 4) * 32;  // column chunk of 64, offset in its 128-byte row
+    wgmma_ss(s, wgmma_desc_sw128(qs + c * kQChunk + o), wgmma_desc_sw128(ks + c * kKChunk + o),
+             first && kk == 0 ? 0u : 1u);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_pin(s);
+}
+
+// The producer warp: for each unit and each 128-key block, the block's head
+// with its first slot, then per piece c of the head's columns a slot of K's
+// piece and one of both tiles' q pieces, then a slot of V's slab; loads only
+// where a tile of the unit attends the block.
+__device__ __forceinline__ void produce(const CUtensorMap* qmap, const CUtensorMap* kmap,
+                                        const CUtensorMap* vmap, const int32_t* __restrict__ seg,
+                                        unsigned char* slots, StageHead* heads, uint64_t* full,
+                                        uint64_t* empty, int n_units, int S, int H, int D,
+                                        int lane) {
+  constexpr int ns = kSlots;
+  const int T = S / kRows, nb = S / kKeys, units = T / kWg, np = D / kSlab;
+  int n = 0, blk = 0;  // slots filled, blocks staged
+  for (int k = 0; k < n_units; ++k) {
+    int item, sl, u;
+    unit_of(k, D / kSlab, units, item, sl, u);
+    const int pair = item / H, hd = item - pair * H;
+    const int32_t* srow = seg + (size_t)pair * S;
+    uint32_t tp[kWg];
+    tile_presence<kWg>(srow, u * kWg, T, lane, tp);
+    for (int kb = 0; kb < nb; ++kb, ++blk) {
+      uint32_t need = 0;
+#pragma unroll 1
+      for (int part = 0; part <= 2 * np; ++part, ++n) {
+        const int s = n % ns;
+        mbar_wait(&empty[s], ((n / ns) & 1) ^ 1);  // the first round passes
+        if (part == 0) {  // the head is free: see ring_slots
+          int x[4], lo, hi;
+          need = block_need<kWg>(srow, kb, tp, lane, x, lo, hi);
+          StageHead& h = heads[blk & 1];
+#pragma unroll
+          for (int v = 0; v < 4; ++v) h.ids[lane + 32 * v] = x[v];
+          if (lane == 0) {
+            h.need = need;
+            h.uniform = lo == hi;
+            h.id = lo;
+          }
+        }
+        if (lane == 0 && need) {
+          mbar_arrive_expect_tx(&full[s], kSlotBytes);
+          unsigned char* dst = slots + (size_t)s * kSlotBytes;
+          const bool v = part == 2 * np;
+          const int col = hd * D + (v ? sl : part >> 1) * kSlab;
+#pragma unroll
+          for (int c = 0; c < kSlab / 64; ++c) {
+            if (v || (part & 1) == 0) {  // V's slab, or K's piece
+              tma_load_3d(dst + c * kKChunk, v ? vmap : kmap, &full[s], col + c * 64, kb * kKeys,
+                          pair);
+            } else {  // both tiles' q pieces
+#pragma unroll
+              for (int w = 0; w < kWg; ++w)
+                tma_load_3d(dst + (w * kSlab / 64 + c) * kQChunk, qmap, &full[s], col + c * 64,
+                            (u * kWg + w) * kRows, pair);
+            }
+          }
+        } else {
+          mbar_arrive(&full[s]);
+        }
+      }
+    }
+  }
+}
+
+// SINGLE: S 128, jax's single step (flash_kernel's attend<kSlab, true>).
+template <bool SINGLE>
+__global__ void __launch_bounds__(C::kThreads, 1)
+slab_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+            const __grid_constant__ CUtensorMap vmap, const int32_t* __restrict__ seg,
+            __nv_bfloat16* __restrict__ out, int P, int S, int H, int D, float scale) {
+  constexpr int ns = kSlots;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* slots = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  StageHead* heads = reinterpret_cast<StageHead*>(slots + (size_t)ns * kSlotBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(heads + 2);
+  uint64_t* empty = full + ns;
+
+  const int units = S / (kWg * kRows), nb = S / kKeys;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the block's units, worked out in each branch after its setmaxnreg
+  auto units_here = [&]() {
+    return (P * H * (D / kSlab) * units - (int)blockIdx.x + (int)gridDim.x - 1) /
+           (int)gridDim.x;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ns; ++s) {
+      mbar_init(&full[s], 32);        // every producer lane, after its head writes
+      mbar_init(&empty[s], 4 * kWg);  // every consumer warp, when done with the slot
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kWg) {  // the producer warpgroup: one warp works
+    setmaxnreg_dec<producer_regs(SINGLE)>();
+    if (warp == 4 * kWg)
+      produce(&qmap, &kmap, &vmap, seg, slots, heads, full, empty, units_here(), S, H, D, lane);
+    return;
+  }
+  setmaxnreg_inc<consumer_regs(SINGLE)>();
+
+  // Consumer warpgroup wg takes row tile 2u + wg of each of the block's
+  // units, through the slots in lockstep with the other.
+  const int wg = warp >> 2, wl = warp & 3;
+  const float c2 = scale * kLog2e;
+  const int n_units = units_here();
+  int blk = 0;  // blocks passed: 2 D / 128 + 1 slots each
+  for (int pos = 0; pos < n_units; ++pos) {
+    Rows<kSlab> r;
+    {
+      int item, sl, u;
+      unit_of(pos, D / kSlab, units, item, sl, u);
+      const int pair = item / H;
+      const int ra = (u * kWg + wg) * kRows + 16 * wl + (lane >> 2);
+      r.seg[0] = seg[(size_t)pair * S + ra];
+      r.seg[1] = seg[(size_t)pair * S + ra + 8];
+    }
+#pragma unroll
+    for (int dn = 0; dn < kSlab / 8; ++dn) r.acc[dn][0] = r.acc[dn][1] = r.acc[dn][2] = r.acc[dn][3] = 0.f;
+    r.m[0] = r.m[1] = -INFINITY;
+    r.l[0] = r.l[1] = 0.f;
+    for (int kb = 0; kb < nb; ++kb, ++blk) {
+      const int np = D / kSlab;
+      int n = blk * (2 * np + 1);  // slots passed
+      mbar_wait(&full[n % ns], (n / ns) & 1);  // the block's head came with its first slot
+      const bool need = (heads[blk & 1].need >> wg) & 1u;
+      float sc[64];
+      for (int pc = 0; pc < np; ++pc, n += 2) {  // QK^T, a piece of the head's columns a time
+        const int sk = n % ns, sq = (n + 1) % ns;
+        mbar_wait(&full[sk], (n / ns) & 1);
+        mbar_wait(&full[sq], ((n + 1) / ns) & 1);
+        if (need)
+          qk_piece(sc, slots + (size_t)sq * kSlotBytes + wg * (kSlotBytes / kWg),
+                   slots + (size_t)sk * kSlotBytes, pc == 0);
+        __syncwarp();
+        if (lane == 0) {  // this warp is done with both slots
+          mbar_arrive(&empty[sk]);
+          mbar_arrive(&empty[sq]);
+        }
+      }
+      const int sv = n % ns;
+      mbar_wait(&full[sv], (n / ns) & 1);
+      if (need)
+        attend<kSlab, SINGLE>(r, sc, heads[blk & 1], slots + (size_t)sv * kSlotBytes, c2, lane);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[sv]);
+    }
+    // the context's place, worked out again here rather than held in
+    // registers across the unit (the asm keeps the compiler from reusing
+    // the values from the unit's start)
+    int at = pos;
+    asm volatile("" : "+r"(at));
+    int item, sl, u;
+    unit_of(at, D / kSlab, units, item, sl, u);
+    const int pair = item / H;
+    const size_t tok = (size_t)H * D;  // stride of one token
+    const size_t base = (size_t)pair * S * tok + (size_t)(item - pair * H) * D + sl * kSlab;
+    const int ra = (u * kWg + wg) * kRows + 16 * wl + (lane >> 2), rb = ra + 8;
+    const int t = lane & 3;
+#pragma unroll
+    for (int dn = 0; dn < kSlab / 8; ++dn) {
+      const int col = 8 * dn + 2 * t;
+      *reinterpret_cast<uint32_t*>(out + base + (size_t)ra * tok + col) =
+          pack_bf16(r.acc[dn][0], r.acc[dn][1]);
+      *reinterpret_cast<uint32_t*>(out + base + (size_t)rb * tok + col) =
+          pack_bf16(r.acc[dn][2], r.acc[dn][3]);
+    }
+  }
+}
+
+template <bool SINGLE>
+int launch(const void* q, const void* k, const void* v, const void* seg, void* out, int P, int S,
+           int H, int D, float scale, cudaStream_t stream) {
+  CUtensorMap qmap, kmap, vmap;
+  if (!tile_map(&qmap, q, P, S, H, D, 64, kRows) || !tile_map(&kmap, k, P, S, H, D, 64, kKeys) ||
+      !tile_map(&vmap, v, P, S, H, D, 64, kKeys))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  constexpr size_t smem = smem_bytes(kSlots);
+  // as launch<D>'s: SMs of each device, 0 until a launch there has raised
+  // this instantiation's shared-memory limit
+  static std::atomic<int> sms[64];
+  int n_sm = sms[dev & 63].load(std::memory_order_acquire);
+  if (n_sm == 0) {
+    err = cudaFuncSetAttribute(slab_kernel<SINGLE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    sms[dev & 63].store(n_sm, std::memory_order_release);
+  }
+  const long long work = (long long)P * H * (D / kSlab) * (S / (kWg * kRows));  // units
+  if (work > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const int ctas = work < n_sm ? (int)work : n_sm;  // one block an SM
+  slab_kernel<SINGLE><<<ctas, C::kThreads, smem, stream>>>(
+      qmap, kmap, vmap, (const int32_t*)seg, (__nv_bfloat16*)out, P, S, H, D, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace slab
+
 }  // namespace
 
 // q, k, v and out (B, S, H, head_dim) bf16, 16-byte aligned; seg (B, S)
-// int32; head_dim 32, 64, 128 or 256; S a multiple of 128 up to 512.
-// Returns a cudaError_t: 1 (cudaErrorInvalidValue) for shapes the kernel
-// does not take, else the launch's own status.
+// int32; head_dim 32, 64, 128, 256, or a multiple of 128 from 384; S a
+// multiple of 128 from 128; B H and H head_dim below 2^31 (32-bit TMA
+// coordinates).  Returns a cudaError_t: 1 (cudaErrorInvalidValue) for
+// shapes the kernel does not take, else the launch's own status.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, const void* seg,
                                void* out, int B, int S, int H, int head_dim, float scale,
                                void* stream) {
-  if (S < kKeys || S > kMaxS || S % kKeys != 0 || B < 1 || H < 1 ||
-      (long long)B * H > INT32_MAX ||
+  if (S < kKeys || S % kKeys != 0 || B < 1 || H < 1 || head_dim < 1 ||
+      (long long)B * H > INT32_MAX || (long long)H * head_dim > INT32_MAX ||
       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
+  if (head_dim > 256 && head_dim % slab::kSlab == 0)
+    return S == kKeys ? slab::launch<true>(q, k, v, seg, out, B, S, H, head_dim, scale, st)
+                      : slab::launch<false>(q, k, v, seg, out, B, S, H, head_dim, scale, st);
   switch (head_dim) {
     case 32: return launch<32>(q, k, v, seg, out, B, S, H, scale, st);
     case 64: return launch<64>(q, k, v, seg, out, B, S, H, scale, st);

@@ -1,7 +1,8 @@
-// Pair self-attention for short-sequence BERT encoders, built for Hopper
-// (sm_90a): a persistent TMA/wgmma kernel for heads of 32 (the persistent
+// Pair self-attention for BERT encoders, built for Hopper (sm_90a): a
+// persistent TMA/wgmma kernel for heads of 32 up to S 512 (the persistent
 // kernel, pair_attention_kernel), and a persistent ring kernel for heads of
-// 64 and 128 (ring::ring_kernel<D>, after it).  The wrapper
+// 64 and 128 and for every width above S 512 (ring::ring_kernel<D>, after
+// it).  The wrapper
 // (ops/attention.py) zero-pads every other head width up to 128 to the
 // next of the three, which is exact: zero columns add nothing to QK^T and
 // the padded context columns are dropped.
@@ -138,6 +139,18 @@
 //    128, the producer warpgroup 40, within the launch's pool (regs_fit);
 //    shared memory: 5 stages at d 64, 2 at d 128 (ring_stages;
 //    ops/attention.py ring_plan mirrors both).
+//
+// Above S 512, at every head width, the ring kernel serves (heads of 32 on
+// its D-32 instance: three consumer warpgroups at 152 registers, 64-byte
+// swizzle, 8 stages).  The persistent kernel stages an item's K, V and bias
+// whole, about 132 bytes a key at d 32: past 512 keys one stage fits, past
+// about 1,700 none.  The ring holds 128-key blocks whatever S is, and
+// nothing its producer keeps grows with S: it finds kend by a loop over the
+// pair's mask, 32 keys a step, and reads a block's 128 mask words as it
+// stages the block.  The same producer serves S <= 512 at heads of 64 and
+// 128, with the same bias rows and flags as the parent's bits, so the
+// contexts there are unchanged.  The bounds scale as at S 400: bytes with
+// P S H d, tensor work and exponentials with P H S kend.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -152,7 +165,7 @@
 namespace {
 
 constexpr int kD = 32;                      // head_dim
-constexpr int kMaxS = 512;
+constexpr int kMaxS = 512;                  // the persistent kernel's longest S: an item a stage
 constexpr int kRows = 64;                   // query rows of a tile: one wgmma M
 constexpr int kChunk = 64;                  // keys of a chunk: QK^T's wgmma N and a TMA box
 constexpr int kChunkBytes = kChunk * kD * 2;  // 64 keys x 64 B
@@ -542,8 +555,8 @@ constexpr int kKeys = 128;  // keys of a stage: QK^T's wgmma N and a TMA box
 constexpr int kMaxStages = 8;
 constexpr size_t kSmemLimit = 232448;
 
-// D 64 and 128 serve; D 32 is built only by tools/pair_attention_variants.py
-// (ring_d32), which times it against the persistent kernel
+// D 64 and 128 at every S; D 32 above S 512, where an item no longer fits
+// the persistent kernel's stage
 template <int D>
 struct Cfg {
   // consumer warpgroups: three at d 64 ran 8-10% faster than two on the
@@ -738,30 +751,32 @@ __device__ __forceinline__ void produce(const CUtensorMap* kmap, const CUtensorM
   for (int i = 0; i < n_items; ++i) {
     const int item = blockIdx.x + i * gridDim.x;
     const int pair = item / H, hd = item - pair * H;
-    // the pair's mask, keys lane + 32u: bit u of `valid`
+    // kend from the pair's mask, keys lane + 32u: any S, a 32-key word a step
     const int32_t* mrow = mask + (size_t)pair * S;
-    uint32_t valid = 0;
-#pragma unroll
-    for (int u = 0; u < kMaxS / 32; ++u) {
-      const int key = lane + 32 * u;
-      if (key < S && mrow[key] > 0) valid |= 1u << u;
-    }
-    const int last = valid ? lane + 32 * (31 - __clz(valid)) + 1 : 0;
+    int last = 0;
+#pragma unroll 4
+    for (int key = lane; key < S; key += 32)
+      if (mrow[key] > 0) last = key + 1;
     const int kend = __reduce_max_sync(kAll, last);
     const int nb = ((kend > 0 ? kend : S) + kKeys - 1) / kKeys;
     for (int t0 = 0; t0 < T; t0 += C::kWg) {  // a unit: tiles t0 .. t0 + kWg - 1
       for (int kb = 0; kb < nb; ++kb) {
+        // the block's validity, keys kb kKeys + lane + 32j, read while the
+        // stage may still be in use
+        bool ok[kKeys / 32], all = true;
+#pragma unroll
+        for (int j = 0; j < kKeys / 32; ++j) {
+          const int key = kb * kKeys + lane + 32 * j;
+          ok[j] = key < S && mrow[key] > 0;
+          all = all && ok[j];
+        }
         const int s = n % nst;
         mbar_wait(&empty[s], ((n / nst) & 1) ^ 1);  // the first round passes
         StageHead& h = head[s];
-        bool all = true;
 #pragma unroll
-        for (int j = 0; j < kKeys / 32; ++j) {
-          const int u = kb * (kKeys / 32) + j, key = lane + 32 * u;
-          const bool ok = (valid >> u) & 1u;  // implies key < S
-          h.bias[lane + 32 * j] = key < S ? (ok ? 0.0f : kNeg) : -INFINITY;
-          all = all && ok;
-        }
+        for (int j = 0; j < kKeys / 32; ++j)
+          h.bias[lane + 32 * j] =
+              kb * kKeys + lane + 32 * j < S ? (ok[j] ? 0.0f : kNeg) : -INFINITY;
         const bool whole = __all_sync(kAll, all);
         if (lane == 0) {
           h.full = whole;
@@ -953,18 +968,21 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
 }  // namespace
 
 // q, k, v and out (P, S, H, head_dim) bf16, contiguous, 16-byte aligned;
-// mask (P, S) int32; head_dim 32 (the persistent kernel), 64 or 128 (the
-// ring kernel); 1 <= S <= 512.  Returns a cudaError_t: 1
+// mask (P, S) int32; head_dim 32 (the persistent kernel up to S 512, the
+// ring kernel above), 64 or 128 (the ring kernel); S >= 1 and P H below
+// 2^31 (S is a 32-bit TMA coordinate).  Returns a cudaError_t: 1
 // (cudaErrorInvalidValue) for shapes the kernels do not take, else the
 // launch's own status.
 extern "C" int pair_attention(const void* q, const void* k, const void* v,
                               const void* mask, void* out, int P, int S, int H,
                               int head_dim, void* stream) {
-  if (S < 1 || S > kMaxS || P < 1 || H < 1 || (long long)P * H > INT32_MAX ||
+  if (S < 1 || P < 1 || H < 1 || (long long)P * H > INT32_MAX ||
       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   switch (head_dim) {
-    case 32: return launch_persistent(q, k, v, mask, out, P, S, H, stream);
+    case 32:
+      return S <= kMaxS ? launch_persistent(q, k, v, mask, out, P, S, H, stream)
+                        : ring::launch<32>(q, k, v, mask, out, P, S, H, stream);
     case 64: return ring::launch<64>(q, k, v, mask, out, P, S, H, stream);
     case 128: return ring::launch<128>(q, k, v, mask, out, P, S, H, stream);
     default: return (int)cudaErrorInvalidValue;

@@ -1,4 +1,4 @@
-"""Encoder self-attention for short-sequence BERTs.
+"""Encoder self-attention for BERT encoders (pair attention).
 
 Port of ``financial_rag_system_tpu/ops/attention.py``.  The cross-encoder
 rerank over (query, 1000-character chunk) pairs of about 400 tokens is
@@ -15,7 +15,11 @@ device memory; the kernel keeps them on chip.
   pair's last valid key); heads of 64 and 128 (BERT-base and -large: 64)
   take the ring kernel of the same file, which streams 128-key blocks of
   K and V by TMA through a ring with one online-softmax sweep
-  (:func:`ring_plan`).  Any other head width up to 128 (JAX's gate sends
+  (:func:`ring_plan`).  Above S 512 (:data:`PERSISTENT_MAX_SEQ`) every
+  width takes the ring kernel, heads of 32 its D-32 instance: the
+  persistent kernel's whole item no longer fits a stage, and the ring has
+  no bound on S (:func:`launch_counter` names the kernel a shape takes).
+  Any other head width up to 128 (JAX's gate sends
   every d <= 128 to its kernel) is padded with zero columns to the next
   of :data:`HEAD_DIMS` (:func:`padded_width`) after q is scaled by the
   true 1/sqrt(d), and the context is sliced back to d: zero columns add
@@ -26,6 +30,11 @@ device memory; the kernel keeps them on chip.
   summed in f32 plus a -1e9 key-padding bias, a full-row f32 softmax,
   probs rounded to bf16 for P.V with f32 sums, the 1/sum divide after
   P.V, and a bf16 context.
+
+Both take any S from 1, as JAX's kernel does (it pads S to a multiple of
+128 with no cap).  The kernels' bound is 32-bit indexing: P * H below
+2^31 and S a 32-bit TMA coordinate; the plain version's is memory, its
+(B, H, S, S) f32 logits and probabilities.
 
 The port's encoder calls this where the JAX gate engages the Pallas
 kernel (``models/bert.py _pair_attn_enabled``): by default at S >= 256,
@@ -50,7 +59,9 @@ from financial_rag_system_tpu_torch.ops import _cuda
 # MAX_HEAD_DIM to the next of them
 HEAD_DIMS = (32, 64, 128)
 MAX_HEAD_DIM = HEAD_DIMS[-1]
-MAX_SEQ = 512
+# the persistent kernel's longest S (an item's K, V and bias a stage);
+# above it every width runs the ring kernel, counted on launches_long
+PERSISTENT_MAX_SEQ = 512
 NEG = -1e9
 
 # the ring kernel's constants (csrc/pair_attention.cu, namespace ring)
@@ -84,7 +95,7 @@ class RingPlan(NamedTuple):
 def ring_plan(d: int) -> RingPlan:
     """Mirror of ``ring::Cfg``, ``regs_fit``, ``smem_bytes`` and
     ``ring_stages``: one block an SM whatever S is, since the ring holds
-    128-key blocks and not a whole item."""
+    128-key blocks and not a whole item (d 32 serves above S 512)."""
     if d not in (32, 64, 128):
         raise ValueError(f"the ring kernel is built at d 32, 64 and 128; got {d}")
     wg = 2 if d == 128 else 3
@@ -104,6 +115,20 @@ def ring_plan(d: int) -> RingPlan:
         stages -= 1
     return RingPlan(wg, threads, producer, consumer, 128 * (producer + wg * consumer) <= pool,
                     stages, smem(stages))
+
+
+def launch_counter(s: int, d: int) -> str:
+    """The counter on :func:`encoder_self_attention` that a launch at S
+    ``s`` and kernel width ``d`` (one of :data:`HEAD_DIMS`) adds to, as the
+    C entry dispatches it: ``launches`` (the persistent kernel, heads of 32
+    up to S 512), ``launches_ring`` (the ring kernel, heads of 64 and 128
+    up to S 512) or ``launches_long`` (the ring kernel above S 512)."""
+    if d not in HEAD_DIMS or s < 1:
+        raise ValueError(f"pair attention takes head_dim in {HEAD_DIMS} and S >= 1; "
+                         f"got head_dim {d}, S {s}")
+    if s > PERSISTENT_MAX_SEQ:
+        return "launches_long"
+    return "launches" if d == 32 else "launches_ring"
 
 
 def key_ends(mask: torch.Tensor) -> torch.Tensor:
@@ -183,14 +208,13 @@ def pair_attention_kernel(
 ) -> torch.Tensor:
     """Launch ``csrc/pair_attention.cu`` on the current stream; returns the
     (B, S, H, d) bf16 context.  Raises on anything the kernels do not
-    take.  Counts the launch in ``encoder_self_attention.launches`` (heads
-    of 32) or ``.launches_ring`` (64 and 128)."""
+    take (any S from 1; B H below 2^31).  Counts the launch on the
+    counter :func:`launch_counter` names."""
     b, s, h, d = qs.shape
-    if d not in HEAD_DIMS or not 1 <= s <= MAX_SEQ:
-        raise ValueError(
-            f"pair attention takes head_dim in {HEAD_DIMS} and 1 <= S <= "
-            f"{MAX_SEQ}; got head_dim {d}, S {s}"
-        )
+    counter = launch_counter(s, d)
+    if b * h >= 2 ** 31 or s >= 2 ** 31:
+        raise ValueError(f"pair attention indexes (pair, head) items and keys in 32 bits; "
+                         f"got B {b}, H {h}, S {s}")
     for name, t in (("q", qs), ("k", kb), ("v", vb)):
         if t.shape != qs.shape or t.dtype != torch.bfloat16:
             raise ValueError(f"{name} must be {tuple(qs.shape)} bf16")
@@ -210,7 +234,6 @@ def pair_attention_kernel(
         ),
         "pair_attention",
     )
-    counter = "launches" if d == 32 else "launches_ring"
     with _launch_lock:  # batches run in worker threads
         setattr(encoder_self_attention, counter, getattr(encoder_self_attention, counter) + 1)
     return out
@@ -244,7 +267,9 @@ def encoder_self_attention(
 
 
 # kernel launches since the last reset (chip_smoke.py reads and resets
-# them): the persistent kernel's (heads of 32) and the ring kernel's
+# them): the persistent kernel's (heads of 32), the ring kernel's (64 and
+# 128) and, above S 512, the ring kernel's at every width
 encoder_self_attention.launches = 0
 encoder_self_attention.launches_ring = 0
+encoder_self_attention.launches_long = 0
 _launch_lock = threading.Lock()

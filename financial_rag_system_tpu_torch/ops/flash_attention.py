@@ -32,13 +32,18 @@ The function, for each pair and head, on (B, S, H, d) q, k and v:
   finite mask value keeps every row finite;
 - the context is rounded to bf16, and returned as (B, S, H*d) f32.
 
-JAX accepts any d <= 128 and, above 128, multiples of 128; the port's
-kernel is built for heads of 32, 64, 128 and 256 (:data:`KERNEL_WIDTHS`),
-and the wrapper zero-pads every other d up to 128 to the next of them
-(:func:`padded_head_dim`: zero columns add nothing to q.k and only
-columns that are sliced off to P.V).  S is a multiple of 128 up to 512
-(BERT's positions).  Both the plain version and the kernel refuse any
-other shape.
+JAX takes S any multiple of 128 and, above S 128, any d <= 128 and the
+multiples of 128 above it (jax's multi-block kernel raises on other widths
+above 128); at S 128 its single-step kernel takes every d.  The port takes
+the same shapes (:func:`check_shape`) and refuses the rest (d 192 or 320
+above S 128, S not a multiple of 128).  The kernel is built for heads of
+32, 64, 128 and 256 (:data:`KERNEL_WIDTHS`) and for every multiple of 128
+from 384 (the slab kernel), and the wrapper zero-pads every other d to the
+next of those (:func:`padded_head_dim`: zero columns add nothing to q.k
+and only columns that are sliced off to P.V).  The kernel's bound is
+32-bit indexing (B H, H d and its work units below 2^31); the plain
+version's is memory: a (B, 1, S, S) boolean segment test beside a (B, H,
+S, 128) block of f32 scores.
 
 - :func:`encoder_flash_attention` is the entry point: a CPU tensor runs
   :func:`flash_attention_plain`; a CUDA tensor launches the hand-written
@@ -46,7 +51,12 @@ other shape.
   raises.  Heads of 32, 64 and 128 run ``flash_kernel<D>`` (a TMA ring of
   128-key K and V stages) and count on ``encoder_flash_attention.launches``;
   heads of 256 run ``d256::flash256_kernel`` and count on
-  ``.launches_wide``.  The D-256 kernel stages K and V as 32 KB slots of
+  ``.launches_wide``; heads of 384 and every wider multiple of 128 run
+  ``slab::slab_kernel`` and count on ``.launches_slab`` (a column split:
+  each unit computes one 128-column slab of the context with
+  ``flash_kernel<128>``'s arithmetic, its QK^T summed over the whole
+  head's 128-column pieces, so QK^T runs d / 128 times;
+  :func:`slab_plan`).  The D-256 kernel stages K and V as 32 KB slots of
   half a head's columns (K 0-127, K 128-255, V 0-127, V 128-255 a block)
   through a ring of five, with two consumer warpgroups and QK^T and P.V
   on ``wgmma``.  Above S 128 its online softmax steps over 64 keys, not
@@ -75,9 +85,9 @@ import torch
 from financial_rag_system_tpu_torch.ops import _cuda
 
 BLOCK = 128          # jax's block_q, block_k_major and block_k at these lengths
-MAX_SEQ = 512
-WIDE_HEAD_DIM = 256  # the one head width above 128 the kernel takes
-KERNEL_WIDTHS = (32, 64, 128, WIDE_HEAD_DIM)  # the head widths the kernel is built for
+WIDE_HEAD_DIM = 256  # the D-256 kernel's width
+KERNEL_WIDTHS = (32, 64, 128, WIDE_HEAD_DIM)  # widths of their own; multiples of 128 above: slab
+SLAB = 128           # context columns a unit of the slab kernel computes
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 SMEM_LIMIT = 232448  # shared memory a block may take on the H100
 
@@ -122,14 +132,65 @@ def d256_plan() -> D256Plan:
                     smem(slots), BLOCK // 2)
 
 
+class SlabPlan(NamedTuple):
+    """The slab kernel's launch (heads of 384 and wider multiples of 128),
+    as ``csrc/flash_attention.cu`` (namespace ``slab``) computes it."""
+
+    consumers: int      # consumer warpgroups, one 64-row tile each a unit
+    threads: int        # and a producer warpgroup
+    producer_regs: int  # registers a thread after setmaxnreg
+    consumer_regs: int
+    regs_fit: bool      # the budgets fit the launch's register pool
+    slot_bytes: int     # one slot: K's or V's 128 keys x 128 columns, or both tiles' q pieces
+    slots: int          # slots in the ring
+    smem: int           # dynamic shared memory, bytes
+    slots_a_block: int  # per 128-key block: a K and a q slot a piece, then V's slab
+    qk_passes: int      # QK^T over the whole head, once a slab
+    units: int          # (item, slab, two row tiles) units of the launch
+
+
+def slab_plan(b: int, s: int, h: int, d: int) -> SlabPlan:
+    """Mirror of ``slab``'s constants, ``smem_bytes``, ``ring_slots`` and
+    register budgets at (B, S, H, d): ``flash_kernel<128>``'s consumers
+    and register pool, the budgets split per instantiation (56 and 224
+    above S 128, 40 and 232 at S 128, where ptxas fits each without
+    spills); as many 32 KB slots as fit beside the heads of two blocks (528
+    bytes each) and two 8-byte barriers a slot; a block's head written with
+    its first slot into one of two, which holds while the slots are at most
+    2 d / 128 + 2."""
+    if d <= WIDE_HEAD_DIM or d % SLAB:
+        raise ValueError(f"the slab kernel takes multiples of {SLAB} above "
+                         f"{WIDE_HEAD_DIM}; got {d}")
+    check_shape(s, d)
+    consumers, producer, consumer = (2, 40, 232) if s == BLOCK else (2, 56, 224)
+    threads = 128 * (consumers + 1)
+    pool = threads * (65536 // threads // 8 * 8)
+    slot = BLOCK * SLAB * 2
+    head = 16 + 4 * BLOCK
+
+    def smem(slots):
+        return 1024 + slots * slot + 2 * head + 16 * slots
+
+    slots = 8
+    while slots > 2 and smem(slots) > SMEM_LIMIT:
+        slots -= 1
+    pieces = d // SLAB
+    if slots > 2 * pieces + 2:
+        raise AssertionError("a block's head would be written over while it is read")
+    return SlabPlan(consumers, threads, producer, consumer,
+                    128 * (producer + consumers * consumer) <= pool, slot, slots, smem(slots),
+                    2 * pieces + 1, pieces, b * h * pieces * (s // (consumers * 64)))
+
+
 def check_shape(seq: int, head_dim: int) -> None:
-    """Raise unless the kernel (and so the port) takes this shape."""
-    if seq < BLOCK or seq > MAX_SEQ or seq % BLOCK:
-        raise ValueError(f"flash attention takes S a multiple of {BLOCK} up to {MAX_SEQ}; "
-                         f"got S {seq}")
-    if not (1 <= head_dim <= 128 or head_dim == WIDE_HEAD_DIM):
-        raise ValueError(f"flash attention takes head_dim <= 128 or {WIDE_HEAD_DIM}; "
-                         f"got head_dim {head_dim}")
+    """Raise unless the kernel (and so the port) takes this shape: jax's
+    kernel's rule, S a multiple of 128; above S 128, d up to 128 or a
+    multiple of 128 (at S 128, any d)."""
+    if seq < BLOCK or seq % BLOCK:
+        raise ValueError(f"flash attention takes S a multiple of {BLOCK}; got S {seq}")
+    if head_dim < 1 or (seq > BLOCK and head_dim > 128 and head_dim % 128):
+        raise ValueError(f"flash attention takes head_dim <= 128 or a multiple of 128 above "
+                         f"S {BLOCK}; got head_dim {head_dim} at S {seq}")
 
 
 def flash_attention_plain(
@@ -179,17 +240,31 @@ def flash_attention_plain(
     return out.reshape(b, s, h * d).to(out_dtype)
 
 
-def padded_head_dim(head_dim: int) -> int:
-    """The width the kernel takes a head of ``head_dim`` at: the least of
-    :data:`KERNEL_WIDTHS` that holds it."""
-    check_shape(BLOCK, head_dim)
-    return next(w for w in KERNEL_WIDTHS if head_dim <= w)
+def padded_head_dim(head_dim: int, seq: int) -> int:
+    """The width the kernel takes a head of ``head_dim`` at, at S ``seq``:
+    the least of :data:`KERNEL_WIDTHS` that holds it, above 256 the least
+    multiple of 128 (the slab kernel): ``head_dim`` itself but at S 128."""
+    check_shape(seq, head_dim)
+    return next((w for w in KERNEL_WIDTHS if head_dim <= w), -(-head_dim // SLAB) * SLAB)
+
+
+def launch_counter(head_dim: int) -> str:
+    """The counter on :func:`encoder_flash_attention` that a launch at
+    kernel width ``head_dim`` adds to: ``launches`` (``flash_kernel<D>``,
+    32-128), ``launches_wide`` (the D-256 kernel) or ``launches_slab``
+    (the slab kernel, 384 and up)."""
+    if head_dim not in KERNEL_WIDTHS and (head_dim <= WIDE_HEAD_DIM or head_dim % SLAB):
+        raise ValueError(f"the kernel takes head_dim {KERNEL_WIDTHS} or a multiple of {SLAB} "
+                         f"above {WIDE_HEAD_DIM}; got {head_dim}")
+    if head_dim > WIDE_HEAD_DIM:
+        return "launches_slab"
+    return "launches_wide" if head_dim == WIDE_HEAD_DIM else "launches"
 
 
 def kernel_inputs(q, k, v):
     """The kernel's contiguous bf16 q, k and v, padded with zero columns
     to :func:`padded_head_dim` (no padding copy at a width it takes)."""
-    pad = padded_head_dim(q.shape[-1]) - q.shape[-1]
+    pad = padded_head_dim(q.shape[-1], q.shape[1]) - q.shape[-1]
     bf = (t.to(torch.bfloat16) for t in (q, k, v))
     return tuple((torch.nn.functional.pad(t, (0, pad)) if pad else t).contiguous() for t in bf)
 
@@ -211,12 +286,15 @@ def flash_attention_kernel(
 ) -> torch.Tensor:
     """Launch ``csrc/flash_attention.cu`` on the current stream; returns
     the (B, S, H, dp) bf16 context.  Raises on anything the kernel does
-    not take.  Counts the launch on ``encoder_flash_attention.launches``
-    (heads of 32-128) or ``.launches_wide`` (256)."""
+    not take.  Counts the launch on the counter :func:`launch_counter`
+    names."""
     b, s, h, dp = qb.shape
     check_shape(s, dp)
-    if dp not in KERNEL_WIDTHS:
-        raise ValueError(f"the kernel takes head_dim {KERNEL_WIDTHS}; got {dp}")
+    counter = launch_counter(dp)
+    if b * h >= 2 ** 31 or h * dp >= 2 ** 31 or (dp > WIDE_HEAD_DIM and
+                                                b * h * (dp // SLAB) * (s // BLOCK) >= 2 ** 31):
+        raise ValueError(f"flash attention indexes in 32 bits; got B {b}, S {s}, H {h}, "
+                         f"head_dim {dp}")
     for name, t in (("q", qb), ("k", kb), ("v", vb)):
         if t.shape != qb.shape or t.dtype != torch.bfloat16:
             raise ValueError(f"{name} must be {tuple(qb.shape)} bf16")
@@ -231,7 +309,6 @@ def flash_attention_kernel(
     with _cuda.on_device(qb.device):
         _cuda.launch(_kernel_fn(), "flash_attention", qb.data_ptr(), kb.data_ptr(),
                      vb.data_ptr(), seg.data_ptr(), out.data_ptr(), b, s, h, dp, inv_sqrt)
-    counter = "launches_wide" if dp == WIDE_HEAD_DIM else "launches"
     with _launch_lock:  # batches run in worker threads
         setattr(encoder_flash_attention, counter, getattr(encoder_flash_attention, counter) + 1)
     return out
@@ -265,7 +342,8 @@ def encoder_flash_attention(
 
 
 # kernel launches since the last reset (chip_smoke.py reads and resets
-# them): heads of 32-128, and of 256
+# them): heads of 32-128, of 256, and of 384 and wider
 encoder_flash_attention.launches = 0
 encoder_flash_attention.launches_wide = 0
+encoder_flash_attention.launches_slab = 0
 _launch_lock = threading.Lock()

@@ -104,8 +104,7 @@ VARIANTS = {
         s, ("  setmaxnreg_inc<C::kConsumerRegs>();\n",
             "  setmaxnreg_inc<C::kConsumerRegs>();\n  __nanosleep(700 * (warp >> 2));\n")),
     "no_skip": lambda s: patched(
-        s, ("if (t0 + w < T && (to || bo || (tp & bp))) need |= 1u << w;",
-            "if (t0 + w < T) need |= 1u << w;")),
+        s, ("    if (tp[w] & bp) need |= 1u << w;", "    if (tp[w] != 0) need |= 1u << w;")),
     "no_mask": lambda s: patched(s, ("  if (h.uniform) {", "  if (true) {")),
     "no_mufu": lambda s: patched(
         s, ('asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));', "y = x;")),
@@ -121,7 +120,7 @@ VARIANTS = {
 }
 
 
-D256_SLOTS = "constexpr int kMaxSlots = 8;"
+D256_SLOTS = "constexpr int kMaxSlots = 8;\nconstexpr int kSub = 64;"
 D256_SLOTS_ASSERT = ("static_assert(ring_slots() == 5 && smem_bytes(ring_slots()) == 231552 &&\n"
                      "                  smem_bytes(ring_slots() + 1) > kSmemLimit,")
 D256_PV = "  wgmma_fence();\n#pragma unroll\n  for (int kk = 0; kk < N / 8; ++kk) {\n    const int off"
@@ -153,13 +152,12 @@ D256_VARIANTS = {
     "d256_keys_128": lambda s: patched(
         s, ("constexpr int kSub = 64;", "constexpr int kSub = 128;")),
     "d256_slots_4": lambda s: patched(
-        s, (D256_SLOTS, "constexpr int kMaxSlots = 4;"),
+        s, (D256_SLOTS, "constexpr int kMaxSlots = 4;\nconstexpr int kSub = 64;"),
         (D256_SLOTS_ASSERT, "static_assert(ring_slots() == 4,")),
     "d256_regs_232": lambda s: patched(
         s, ("constexpr int kProducerRegs = 24;           // registers",
             "constexpr int kProducerRegs = 40;           // registers"),
-        ("constexpr int kConsumerRegs = 240;", "constexpr int kConsumerRegs = 232;"),
-        ("    presence<4>(srow, S, lane, gp, go);", "    presence<kMaxS / 32>(srow, S, lane, gp, go);")),
+        ("constexpr int kConsumerRegs = 240;", "constexpr int kConsumerRegs = 232;")),
     "d256_pv_mma": lambda s: patched(s, (D256_PV, D256_PV_MMA)),
     "d256_no_mufu": VARIANTS["no_mufu"],
     "d256_no_pv": lambda s: patched(s, (D256_PV, "  if (gridDim.x == 12345u) {\n" + D256_PV),

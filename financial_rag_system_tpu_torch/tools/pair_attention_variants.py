@@ -141,8 +141,8 @@ VARIANTS = {
         s, ("      attend_tile(my_q + b * kQBytes, tl, out, base, tok, S, rw, lane);",
             "      if (my_q[b * kQBytes] == 0x7fu) out[rw] = __float2bfloat16(1.f);")),
     "ring_d32": lambda s: patched(
-        s, ("    case 32: return launch_persistent(q, k, v, mask, out, P, S, H, stream);",
-            "    case 32: return ring::launch<32>(q, k, v, mask, out, P, S, H, stream);")),
+        s, ("      return S <= kMaxS ? launch_persistent(q, k, v, mask, out, P, S, H, stream)",
+            "      return false ? launch_persistent(q, k, v, mask, out, P, S, H, stream)")),
     "ring_keys_64": lambda s: patched(s, RING_KEYS_64),
     "ring_wg2": lambda s: patched(s, *RING_WG2),
     "ring_no_pv": lambda s: patched(s, (RING_PV, NO_PV)),

@@ -171,8 +171,10 @@ def test_cpu_runs_plain_and_counts_no_launch():
     assert tflash.encoder_flash_attention.launches == before
 
 
-@pytest.mark.parametrize("s,d", [(200, 32), (640, 32), (64, 32), (256, 192), (256, 384)])
+@pytest.mark.parametrize("s,d", [(200, 32), (704, 32), (64, 32), (256, 192), (384, 320)])
 def test_refuses_shapes_the_kernel_does_not_take(s, d):
+    """S not a multiple of 128, and above S 128 heads wider than 128 that
+    are not multiples of 128: jax's kernel refuses them too."""
     q = torch.zeros(1, s, 1, d)
     with pytest.raises(ValueError):
         tflash.encoder_flash_attention(q, q, q, torch.ones(1, s), 0.1)
@@ -296,15 +298,24 @@ def test_zero_weight_select_gives_the_plain_context(s, kind):
 
 
 def test_padded_head_dim_rule():
-    """The kernel is built for heads of 32, 64, 128 and 256; every other
-    width up to 128 pads to the next of them."""
-    for d in range(1, 129):
-        want = 32 if d <= 32 else 64 if d <= 64 else 128
-        assert tflash.padded_head_dim(d) == want, d
-    assert tflash.padded_head_dim(256) == 256
-    for d in (0, 129, 192, 255, 257, 384):
+    """The kernel is built for heads of 32, 64, 128 and 256 and every
+    multiple of 128 above; every other width up to 128 pads to the next of
+    32, 64 and 128.  Above S 128 other widths over 128 are refused, as
+    jax's kernel refuses them; at S 128 (jax's single step takes any
+    width) they pad to 256 or the next multiple of 128."""
+    for s in (128, 256, 1024):
+        for d in range(1, 129):
+            want = 32 if d <= 32 else 64 if d <= 64 else 128
+            assert tflash.padded_head_dim(d, s) == want, d
+        for d in (256, 384, 512, 1024):
+            assert tflash.padded_head_dim(d, s) == d
+    for d in (0, 129, 192, 255, 257, 320):
         with pytest.raises(ValueError, match="head_dim"):
-            tflash.padded_head_dim(d)
+            tflash.padded_head_dim(d, 256)
+    for d, want in ((129, 256), (192, 256), (255, 256), (257, 384), (320, 384)):
+        assert tflash.padded_head_dim(d, 128) == want
+    with pytest.raises(ValueError, match="head_dim"):
+        tflash.padded_head_dim(0, 128)
 
 
 @pytest.mark.parametrize("d", [8, 24, 32, 48, 64, 80, 100, 128, 256])
@@ -312,7 +323,7 @@ def test_kernel_inputs_pad_with_zero_columns(d):
     """q, k and v as the kernel takes them: bf16, contiguous, the head
     padded to ``padded_head_dim`` with zero columns after the d values."""
     q, k, v = (torch.from_numpy(a) for a in make_qkv(2, 128, 3, d, seed=d))
-    dp = tflash.padded_head_dim(d)
+    dp = tflash.padded_head_dim(d, 128)
     for x, y in zip((q, k, v), tflash.kernel_inputs(q, k, v)):
         assert y.shape == (2, 128, 3, dp) and y.dtype == torch.bfloat16 and y.is_contiguous()
         assert torch.equal(y[..., :d], x.to(torch.bfloat16))

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from financial_rag_system_tpu_torch.index.ivf import ivf_probe, ivf_probe_plain
-from financial_rag_system_tpu_torch.ops import fused_bert
+from financial_rag_system_tpu_torch.ops import flash_attention, fused_bert
 from financial_rag_system_tpu_torch.ops.attention import (
     encoder_self_attention,
     encoder_self_attention_plain,
@@ -802,10 +802,10 @@ def test_attention_kernel_first_launches_race(cuda):
 
 
 def test_attention_kernel_rejects_shapes(cuda):
-    x = torch.zeros((1, 600, 2, 32), device=cuda)
+    x = torch.zeros((1, 0, 2, 32), device=cuda)
     m = torch.ones((1, 600), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
-        encoder_self_attention(x, x, x, m, 0.1)
+        encoder_self_attention(x, x, x, m[:, :0], 0.1)
     for d in (144, 256):  # wider than any kernel; narrower ones are padded
         y = torch.zeros((1, 8, 2, d), device=cuda)
         with pytest.raises(ValueError, match="head_dim"):
@@ -931,9 +931,93 @@ def test_flash_attention_d256_from_worker_threads(cuda):
     np.testing.assert_allclose(first.cpu().numpy(), ref.cpu().numpy(), atol=1e-2, rtol=0)
 
 
+# S above 512 and heads of 384 and up: the rerank layout of 400 keys
+# stretched to S (query part kept, documents, hole and tail scaled) and
+# the uniform-length mask (lengths 1..S, the last pair all padding); as
+# many pairs as keep the plain version's (P, H, S, S) f32 scores near 1 GB
+
+
+def stretched_rerank(p, s, lq=32, seed=0):
+    base = rerank_mask(p, 400, lq=lq, seed=seed)
+    src = lq + (np.arange(s - lq) * (400 - lq)) // (s - lq)
+    return np.concatenate([base[:, :lq], base[:, src]], axis=1)
+
+
+def long_case(s, h, d, kind, seed=0):
+    p = int(max(2, min(16, 2 ** 28 // (h * s * s))))
+    q, k, v, uniform = attn_case(p, s, h, seed=seed + s + d, d=d)
+    return q, k, v, (stretched_rerank(p, s, seed=seed) if kind == "rerank" else uniform)
+
+
+@pytest.mark.parametrize("kind", ["rerank", "uniform"])
+@pytest.mark.parametrize("s", [513, 640, 1024, 2048, 4096])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_attention_kernel_above_512(cuda, d, s, kind):
+    """Kernel 2 above S 512: the ring kernel at every width (heads of 32
+    on its D-32 instance), counted on ``launches_long``, against the plain
+    version at the other rows' tolerance."""
+    q, k, v, mask = (torch.tensor(a, device=cuda) for a in long_case(s, 4, d, kind))
+    inv = 1.0 / np.sqrt(d)
+    n0 = encoder_self_attention.launches_long
+    got = encoder_self_attention(q, k, v, mask, inv)
+    torch.cuda.synchronize()
+    assert encoder_self_attention.launches_long == n0 + 1
+    ref = encoder_self_attention_plain(q, k, v, mask, inv)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("kind", ["rerank", "uniform"])
+@pytest.mark.parametrize("d,s", [(d, s) for d in (32, 64, 128, 256) for s in (640, 1024, 2048)]
+                         + [(d, s) for d in (384, 512) for s in (128, 512, 1024)]
+                         + [(192, 128), (320, 128), (640, 256)])
+def test_flash_attention_kernel_long_and_wide(cuda, d, s, kind):
+    """Kernel 7 above S 512 (the skip rule's presence masks made per tile
+    and per block) and at heads of 384 and wider (the slab kernel, its own
+    counter); heads of 192 and 320 at S 128, which jax's single step takes,
+    padded to 256 and 384.  Every row at atol 1e-2."""
+    q, k, v, mask = (torch.tensor(a, device=cuda) for a in long_case(s, 2, d, kind))
+    mask[-1] = 0
+    inv = 1.0 / np.sqrt(d)
+    dp = flash_attention.padded_head_dim(d, s)
+    counter = flash_attention.launch_counter(dp)
+    n0 = getattr(encoder_flash_attention, counter)
+    got = encoder_flash_attention(q, k, v, mask, inv)
+    torch.cuda.synchronize()
+    assert getattr(encoder_flash_attention, counter) == n0 + 1
+    ref = flash_attention_plain(q, k, v, mask, inv)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("d,s", [(32, 1024), (384, 1024), (512, 256)])
+def test_long_and_wide_kernels_relaunch_and_threads(cuda, d, s):
+    """The new branches relaunched, from worker threads and on a side
+    stream: every context bit for bit the first."""
+    q, k, v, mask = (torch.tensor(a, device=cuda) for a in long_case(s, 3, d, "rerank", seed=3))
+    inv = 1.0 / np.sqrt(d)
+    fns = [lambda: encoder_flash_attention(q, k, v, mask, inv)]
+    if d <= 128:
+        fns.append(lambda: encoder_self_attention(q, k, v, mask, inv))
+    for fn in fns:
+        first = fn()
+
+        def run(side_stream, fn=fn):
+            stream = torch.cuda.Stream() if side_stream else torch.cuda.current_stream()
+            stream.wait_stream(torch.cuda.default_stream())
+            with torch.cuda.stream(stream):
+                out = fn()
+            torch.cuda.synchronize()
+            return out
+
+        with ThreadPoolExecutor(4) as pool:
+            outs = list(pool.map(run, [False, True, False, True]))
+        assert all(torch.equal(first, o) for o in outs)
+
+
 def test_flash_attention_kernel_rejects_shapes(cuda):
     m = torch.ones((1, 512), dtype=torch.int32, device=cuda)
-    for s, d in ((200, 32), (640, 32), (64, 32), (256, 192), (256, 384)):
+    for s, d in ((200, 32), (704, 32), (64, 32), (256, 192), (384, 320)):
         x = torch.zeros((1, s, 2, d), device=cuda)
         with pytest.raises(ValueError):
             encoder_flash_attention(x, x, x, torch.ones((1, s), device=cuda), 0.1)

@@ -1,0 +1,626 @@
+"""Kernels 2 and 7 at every sequence length and head width the JAX package
+computes: S above 512, and kernel 7's heads of 384 and wider.
+
+On the CPU the port runs the plain versions; the JAX package runs its
+pair-attention kernel and jax's flash kernel in interpret mode.  Same
+numpy inputs.  Beside them, the kernels' new plans emulated in torch or
+numpy:
+
+- kernel 2 above S 512 takes the ring kernel at every width (heads of 32
+  on its D-32 instance), whose producer finds kend by a loop over the
+  mask and reads each block's validity as it stages it;
+- kernel 7's skip rule builds presence masks per row tile and per block,
+  in place of one 32-position word a lane (which held 1,024 positions at
+  most);
+- kernel 7's slab kernel (heads of 384 and up) computes each 128-column
+  slab of the context from QK^T summed over the head's 128-column pieces.
+
+Tolerances: the contexts are bf16, one bf16 step of an O(1) value is
+about 4e-3, so kernel functions are held to atol 1e-2 (as the kernels'
+other tests); encoders to 5e-3 (as ``tests/test_torch_bert.py``).  Where
+a new plan is claimed to give the parent's bits (S <= 512), the models are
+compared exactly.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+import re
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from financial_rag_system_tpu.models import bert as jbert
+from financial_rag_system_tpu.models import hf_loader as jhf
+from financial_rag_system_tpu.ops import attention as jattention
+from financial_rag_system_tpu.ops import fused_query as jfq
+from financial_rag_system_tpu_torch.models import bert as tbert
+from financial_rag_system_tpu_torch.models import hf_loader as thf
+from financial_rag_system_tpu_torch.models.hf_export import save_bert_checkpoint
+from financial_rag_system_tpu_torch.ops import attention as tattn
+from financial_rag_system_tpu_torch.ops import flash_attention as tflash
+from financial_rag_system_tpu_torch.ops import fused_query as tfq
+from test_torch_attention_wide import ring_attention, ring_masks
+from test_torch_flash_attention import jax_flash_gate, jax_gate, make_mask  # noqa: F401
+from torch_attn_masks import prefix_mask, rerank_mask, segment_mask
+
+CSRC = Path(tattn.__file__).resolve().parent.parent / "csrc"
+
+
+def qkv(b, s, h, d, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((b, s, h, d)).astype(np.float32) for _ in range(3))
+
+
+def long_mask(kind, b, s, seed):
+    """Masks with padded tails: the rerank layout (query, hole, document,
+    tail) or prefixes, the first pair's valid keys reaching past key 512."""
+    rng = np.random.default_rng(seed)
+    if kind == "rerank":
+        mask = rerank_mask(b, s, seed=seed)
+    else:
+        mask = prefix_mask(s, rng.integers(s // 2, s + 1, b))
+    mask[0, :] = 0
+    mask[0, :min(s, 520 + seed % 40)] = 1
+    return mask
+
+
+# -- kernel 2: the function ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("s,d,kind", [(640, 32, "rerank"), (640, 64, "prefix"),
+                                      (992, 32, "rerank"), (1024, 32, "prefix"),
+                                      (1024, 64, "rerank")])
+def test_pair_attention_matches_jax_kernel_above_512(s, d, kind):
+    """The plain version against JAX's Pallas kernel (interpret mode) at S
+    640 and 1,024, and 992 (phase 15's pairs: a query of 32 and a document
+    of 960), 2 pairs of 2 heads; the kernel runs on the card above S 512
+    at every width."""
+    q, k, v = qkv(2, s, 2, d, seed=s + d)
+    mask = long_mask(kind, 2, s, seed=s)
+    inv = 1.0 / math.sqrt(d)
+    ref = np.asarray(jattention.encoder_self_attention(q, k, v, mask, inv, interpret=True))
+    got = tattn.encoder_self_attention(*(torch.from_numpy(a) for a in (q, k, v, mask)),
+                                       inv).numpy()
+    assert got.shape == ref.shape == (2, s, 2 * d) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, atol=1e-2, rtol=0)
+
+
+# -- kernel 2: the ring kernel's plan above S 512 ---------------------------------------
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("s", [513, 640, 1024])
+def test_ring_plan_above_512_matches_plain_and_jax(s, d):
+    """The ring kernel's online softmax over 128-key blocks below kend,
+    now at heads of 32 too, past S 512 (kend in mid-block, a pair with no
+    valid key, valid keys only past the first block): against the plain
+    version on every pair and JAX's kernel on the pairs with a valid key
+    (JAX's pads S to 128s, so a fully masked pair's uniform softmax spans
+    its pad keys)."""
+    rng = np.random.default_rng(s + d)
+    q, k, v = (rng.standard_normal((6, s, 2, d)).astype(np.float32) for _ in range(3))
+    mask = ring_masks(s, seed=s)
+    inv = 1.0 / math.sqrt(d)
+    args = [torch.from_numpy(a) for a in (q, k, v, mask)]
+    got = ring_attention(*args, inv).numpy()
+    plain = tattn.encoder_self_attention_plain(*args, inv).numpy()
+    np.testing.assert_allclose(got, plain, atol=1e-2, rtol=0)
+    ref = np.asarray(jattention.encoder_self_attention(q, k, v, mask, inv, interpret=True))
+    real = mask.any(axis=1)
+    np.testing.assert_allclose(got[real], ref[real], atol=1e-2, rtol=0)
+
+
+def parent_stage_heads(mask: np.ndarray):
+    """The parent's ring producer, lane by lane: bit u of a lane's
+    register is key lane + 32u for u < 16 (S <= 512 only), kend from the
+    highest bit, and each block's bias row and all-valid flag from the
+    bits.  Returns (kend, [(bias row, full flag)] a block) a pair."""
+    out = []
+    for row in mask:
+        s = row.shape[0]
+        valid = [sum(1 << u for u in range(16) if lane + 32 * u < s and row[lane + 32 * u] > 0)
+                 for lane in range(32)]
+        last = [lane + 32 * (v.bit_length() - 1) + 1 if v else 0 for lane, v in enumerate(valid)]
+        kend = max(last)
+        nb = -(-(kend if kend else s) // 128)
+        blocks = []
+        for kb in range(nb):
+            bias, whole = np.zeros(128, np.float32), True
+            for lane in range(32):
+                for j in range(4):
+                    u = kb * 4 + j
+                    key = lane + 32 * u
+                    ok = bool((valid[lane] >> u) & 1)
+                    bias[lane + 32 * j] = (0.0 if ok else tattn.NEG) if key < s else -np.inf
+                    whole = whole and ok
+            blocks.append((bias, whole))
+        out.append((kend, blocks))
+    return out
+
+
+def stage_heads(mask: np.ndarray):
+    """This ring producer, lane by lane: kend by a loop over the mask's
+    32-key words, a block's validity read as the block is staged."""
+    out = []
+    for row in mask:
+        s = row.shape[0]
+        last = [max([key + 1 for key in range(lane, s, 32) if row[key] > 0], default=0)
+                for lane in range(32)]
+        kend = max(last)
+        nb = -(-(kend if kend else s) // 128)
+        blocks = []
+        for kb in range(nb):
+            bias, whole = np.zeros(128, np.float32), True
+            for lane in range(32):
+                for j in range(4):
+                    key = kb * 128 + lane + 32 * j
+                    ok = key < s and row[key] > 0
+                    bias[lane + 32 * j] = (0.0 if ok else tattn.NEG) if key < s else -np.inf
+                    whole = whole and ok
+            blocks.append((bias, whole))
+        out.append((kend, blocks))
+    return out
+
+
+def same_heads(a, b) -> bool:
+    return all(ka == kb and len(x) == len(y) and all(
+        np.array_equal(bx, by) and fx == fy for (bx, fx), (by, fy) in zip(x, y))
+        for (ka, x), (kb, y) in zip(a, b))
+
+
+@pytest.mark.parametrize("s", [1, 63, 65, 130, 257, 400, 512])
+def test_ring_producer_gives_the_parents_stage_heads_up_to_512(s):
+    """Up to S 512 the new producer stages what the parent's did: the same
+    kend, blocks, bias rows and flags, so heads of 64 and 128 keep their
+    contexts bit for bit (the consumers are unchanged)."""
+    mask = ring_masks(s, seed=s)
+    assert same_heads(stage_heads(mask), parent_stage_heads(mask))
+
+
+@pytest.mark.parametrize("s", [513, 640, 1000, 2048])
+def test_ring_producer_above_512(s):
+    """Above S 512 the producer's heads are the definition: kend (1 + the
+    last valid key), the blocks below it (all of S's with no valid key),
+    0 / -1e9 / -inf past S, and full where every key is valid."""
+    mask = ring_masks(s, seed=s)
+    heads = stage_heads(mask)
+    kends = tattn.key_ends(torch.from_numpy(mask)).tolist()
+    blocks = tattn.ring_blocks(torch.from_numpy(mask)).tolist()
+    sp = -(-s // 128) * 128
+    for row, (kend, staged), want_kend, nb in zip(mask, heads, kends, blocks):
+        assert kend == want_kend and len(staged) == nb
+        bias = np.full(sp, -np.inf, np.float32)
+        bias[:s] = np.where(row > 0, 0.0, tattn.NEG)
+        for kb, (b, whole) in enumerate(staged):
+            assert np.array_equal(b, bias[kb * 128:(kb + 1) * 128])
+            assert whole == bool((bias[kb * 128:(kb + 1) * 128] == 0).all())
+
+
+# -- kernel 2: dispatch -----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_pair_attention_dispatch(d):
+    """The counter each launch adds to, as the C entry dispatches: up to S
+    512 heads of 32 on the persistent kernel and 64 / 128 on the ring;
+    above it every width on the ring kernel, counted as ``launches_long``;
+    S 0 and widths no kernel is built for are refused."""
+    for s in (1, 400, 512):
+        want = "launches" if d == 32 else "launches_ring"
+        assert tattn.launch_counter(s, d) == want
+    for s in (513, 992, 1024, 4096, 1 << 20):
+        assert tattn.launch_counter(s, d) == "launches_long"
+    for s, w in ((0, d), (400, d + 1), (600, 256)):
+        with pytest.raises(ValueError):
+            tattn.launch_counter(s, w)
+    assert hasattr(tattn.encoder_self_attention, "launches_long")
+
+
+def test_pair_attention_source_dispatch_and_d32_ring_plan():
+    """The C entry sends heads of 32 above ``PERSISTENT_MAX_SEQ`` to the
+    ring kernel's D-32 instance, and takes every S from 1; that instance
+    (three consumer warpgroups at 152 registers, 64-byte swizzle) fits 8
+    stages in one block an SM."""
+    src = (CSRC / "pair_attention.cu").read_text()
+    assert int(re.search(r"constexpr int kMaxS = (\d+);", src).group(1)) == \
+        tattn.PERSISTENT_MAX_SEQ
+    assert ("return S <= kMaxS ? launch_persistent(q, k, v, mask, out, P, S, H, stream)\n"
+            "                        : ring::launch<32>(q, k, v, mask, out, P, S, H, stream);"
+            in src)
+    assert "S > kMaxS" not in src
+    plan = tattn.ring_plan(32)
+    assert (plan.consumers, plan.threads, plan.producer_regs, plan.consumer_regs) == \
+        (3, 512, 40, 152)
+    assert plan.regs_fit and plan.stages == 8 and plan.smem <= tattn.RING_SMEM_LIMIT
+
+
+def test_pair_attention_kernel_refuses_cpu_tensors_at_long_s():
+    """The kernel wrapper takes CUDA tensors only, at any S: a CPU tensor
+    is refused, not computed (the entry point runs the plain version)."""
+    x = torch.zeros((1, 1024, 2, 32), dtype=torch.bfloat16)
+    m = torch.ones((1, 1024), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tattn.pair_attention_kernel(x, x, x, m)
+    before = tattn.encoder_self_attention.launches_long
+    out = tattn.encoder_self_attention(x.float(), x.float(), x.float(), m, 0.1)
+    assert out.shape == (1, 1024, 64) and tattn.encoder_self_attention.launches_long == before
+
+
+# -- kernel 7: the function --------------------------------------------------------------
+
+
+def flash_both(q, k, v, mask):
+    inv = 1.0 / math.sqrt(q.shape[-1])
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jbert._flash_attention(q, k, v, mask, inv))
+    got = tflash.encoder_flash_attention(*(torch.from_numpy(a) for a in (q, k, v, mask)),
+                                         inv).numpy()
+    return got, ref
+
+
+@pytest.mark.parametrize("s,d,kind", [(640, 32, "prefix"), (640, 32, "segments"),
+                                      (128, 384, "prefix"), (256, 512, "rerank"),
+                                      (128, 192, "holes")])
+def test_flash_plain_matches_jax_kernel_long_and_wide(s, d, kind):
+    """The plain version against jax's flash kernel (interpret mode) on
+    every row: S 640 (five key blocks) at heads of 32; heads of 384 at S
+    128 (jax's single step) and 512 at S 256 (the slab kernel on the
+    card); heads of 192 at S 128, which jax's single step takes (the card
+    pads them to 256)."""
+    q, k, v = qkv(2, s, 2, d, seed=s + d)
+    mask = make_mask(kind, 2, s, seed=s + d)
+    got, ref = flash_both(q, k, v, mask)
+    assert got.shape == ref.shape == (2, s, 2 * d) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("s,d", [(256, 192), (384, 320), (256, 130)])
+def test_flash_refuses_what_jax_refuses(s, d):
+    """Above S 128 a head wider than 128 that is not a multiple of 128:
+    jax's kernel raises, and so does the port, on the CPU as on the card."""
+    q, k, v = qkv(1, s, 1, d, seed=d)
+    mask = np.ones((1, s), np.int32)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        flash_both(q, k, v, mask)
+    with pytest.raises(ValueError, match="head_dim"):
+        tflash.encoder_flash_attention(*(torch.from_numpy(a) for a in (q, k, v, mask)), 0.1)
+
+
+# -- kernel 7: the skip rule's presence masks --------------------------------------------
+
+
+def parent_need(seg: np.ndarray, wg: int) -> np.ndarray:
+    """The parent's skip rule, lane by lane (S <= 512): lane j's 32-bit
+    presence of ids in [0, 32) of positions 32j .. 32j + 31 and whether
+    they hold another id; a (tile, block) pair is needed when either side
+    holds another id or their presence bits meet.  (B, tiles, blocks)."""
+    b, s = seg.shape
+    out = np.zeros((b, s // 64, s // 128), bool)
+    for i in range(b):
+        words = [seg[i, 32 * j:32 * j + 32] for j in range(s // 32)]
+        gp = [sum(1 << int(x) for x in set(w.tolist()) if 0 <= x < 32) for w in words]
+        go = [bool(((w < 0) | (w >= 32)).any()) for w in words]
+        for t0 in range(0, s // 64, wg):
+            for kb in range(s // 128):
+                bp = bo = 0
+                for u in range(4):
+                    bp |= gp[4 * kb + u]
+                    bo |= go[4 * kb + u]
+                for w in range(wg):
+                    tt = t0 + w
+                    if tt >= s // 64:
+                        continue
+                    tp, to = gp[2 * tt] | gp[2 * tt + 1], go[2 * tt] or go[2 * tt + 1]
+                    out[i, tt, kb] = bool(to or bo or (tp & bp))
+    return out
+
+
+def presence(ids: np.ndarray) -> int:
+    """The kernel's presence mask of a run of ids: bit i for id i in [0,
+    32), every bit when any other id is among them."""
+    if ((ids < 0) | (ids >= 32)).any():
+        return 0xFFFFFFFF
+    return sum(1 << int(x) for x in set(ids.tolist()))
+
+
+def new_need(seg: np.ndarray, wg: int) -> np.ndarray:
+    """This skip rule: a unit's tiles' presence masks when the unit
+    starts, a block's as it is staged; needed where they meet."""
+    b, s = seg.shape
+    out = np.zeros((b, s // 64, s // 128), bool)
+    for i in range(b):
+        for t0 in range(0, s // 64, wg):
+            tp = [presence(seg[i, 64 * t:64 * t + 64]) if t < s // 64 else 0
+                  for t in range(t0, t0 + wg)]
+            for kb in range(s // 128):
+                bp = presence(seg[i, 128 * kb:128 * kb + 128])
+                for w in range(wg):
+                    if t0 + w < s // 64:
+                        out[i, t0 + w, kb] = bool(tp[w] & bp)
+    return out
+
+
+def rule_need(seg: np.ndarray) -> np.ndarray:
+    """The rule by definition: a tile and a block share an id, or either
+    holds an id outside [0, 32)."""
+    b, s = seg.shape
+    tiles = seg.reshape(b, s // 64, 1, 64, 1)
+    blocks = seg.reshape(b, 1, s // 128, 1, 128)
+    other = (seg < 0) | (seg >= 32)
+    t_other = other.reshape(b, s // 64, 64).any(-1)[:, :, None]
+    b_other = other.reshape(b, s // 128, 128).any(-1)[:, None, :]
+    return (tiles == blocks).any(axis=(3, 4)) | t_other | b_other
+
+
+@pytest.mark.parametrize("wg", [3, 2])
+@pytest.mark.parametrize("s,kind", [(128, "segments"), (256, "prefix"), (384, "wide_ids"),
+                                    (512, "rerank"), (512, "segments"), (512, "short"),
+                                    (512, "wide_ids"), (384, "holes")])
+def test_presence_masks_keep_the_parents_skips_up_to_512(s, kind, wg):
+    """Per tile and per block presence masks (each other id folded into
+    every bit) need exactly the (tile, block) pairs the parent's words
+    needed, with units of 3 tiles (D 32) and 2 (D 64-256): contexts at S
+    <= 512 unchanged bit for bit."""
+    seg = make_mask(kind, 4, s, seed=s)
+    assert np.array_equal(new_need(seg, wg), parent_need(seg, wg))
+
+
+@pytest.mark.parametrize("s", [640, 1024, 1152, 2048])
+def test_presence_masks_above_1024_positions(s):
+    """Past 1,024 positions one word a lane no longer holds a pair's ids;
+    the masks made per tile and per block keep the rule at any S, and
+    still skip: on runs of ids in [0, 32) some pairs go unneeded."""
+    for kind in ("segments", "wide_ids", "prefix"):
+        seg = make_mask(kind, 3, s, seed=s)
+        need = new_need(seg, 2)
+        assert np.array_equal(need, rule_need(seg))
+    seg = segment_mask(3, s, (0, 1, 2, 5, 17, 31), seed=s)
+    assert not new_need(seg, 3).all()
+
+
+# -- kernel 7: the slab kernel (heads of 384 and wider) ----------------------------------
+
+
+def slab_flash(q, k, v, seg, inv_sqrt):
+    """The slab kernel's arithmetic over (B, S, H, d) f32 q, k, v, d a
+    multiple of 128 above 256: for each 128-column slab of the context,
+    flash_kernel<128>'s attend (jax's block order, the zero-weight select,
+    (tile, block) skips) on scores summed over the head's 128-column
+    pieces in order, in f32, and P.V with the slab's V columns.  Returns
+    the (B, S, H * d) bf16 context as f32."""
+    b, s, h, d = q.shape
+    qb, kb, vb = (torch.from_numpy(t).to(torch.bfloat16).float().permute(0, 2, 1, 3)
+                  for t in (q, k, v))
+    segt = torch.from_numpy(seg)
+    same = segt[:, None, :, None] == segt[:, None, None, :]
+    need = torch.from_numpy(rule_need(seg)).repeat_interleave(64, dim=1)  # (B, S, blocks)
+    ninf = float("-inf")
+    c2 = inv_sqrt * math.log2(math.e)
+
+    def scores(lo):
+        sc = torch.zeros((b, h, s, tflash.BLOCK))
+        for pc in range(0, d, tflash.SLAB):  # QK^T, a piece of the head a time
+            sc = sc + torch.matmul(qb[..., pc:pc + tflash.SLAB],
+                                   kb[:, :, lo:lo + tflash.BLOCK, pc:pc + tflash.SLAB]
+                                   .transpose(-1, -2))
+        return torch.where(same[..., lo:lo + tflash.BLOCK], sc, ninf)
+
+    slabs = []
+    for c in range(0, d, tflash.SLAB):
+        vs = vb[..., c:c + tflash.SLAB]
+        if s == tflash.BLOCK:
+            sc = scores(0)
+            p = torch.exp2((sc - sc.amax(dim=-1, keepdim=True)) * c2)
+            acc = torch.matmul((p / p.sum(dim=-1, keepdim=True)).to(torch.bfloat16).float(), vs)
+        else:
+            m = torch.full((b, h, s, 1), ninf)
+            l = torch.zeros((b, h, s, 1))
+            acc = torch.zeros((b, h, s, tflash.SLAB))
+            for blk, lo in enumerate(range(0, s, tflash.BLOCK)):
+                sc = scores(lo)
+                m_next = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+                empty = m_next == ninf
+                p = torch.exp2((sc - torch.where(empty, 0.0, m_next)) * c2)
+                l_corr = torch.where(empty, 1.0, torch.exp2((m - m_next) * c2)) * l
+                l_next = p.sum(dim=-1, keepdim=True) + l_corr
+                inv = torch.where(l_next == 0.0, 1.0, 1.0 / l_next)
+                new = acc * (l_corr * inv) + torch.matmul(
+                    p.to(torch.bfloat16).float(), vs[:, :, lo:lo + tflash.BLOCK]) * inv
+                keep = need[:, None, :, blk:blk + 1]
+                m, l = torch.where(keep, m_next, m), torch.where(keep, l_next, l)
+                acc = torch.where(keep, new, acc)
+        slabs.append(acc)
+    out = torch.cat(slabs, dim=-1).to(torch.bfloat16).permute(0, 2, 1, 3)
+    return out.reshape(b, s, h * d).float()
+
+
+@pytest.mark.parametrize("s,d,kind", [(128, 384, "prefix"), (256, 384, "rerank"),
+                                      (512, 384, "segments"), (256, 512, "holes"),
+                                      (384, 640, "wide_ids")])
+def test_slab_order_matches_plain_and_jax(s, d, kind):
+    """The slab kernel's order (QK^T again for every slab, summed a piece
+    at a time) against the plain version on every row, and against jax's
+    kernel at heads of 384 and 512."""
+    q, k, v = qkv(2, s, 2, d, seed=s + d + 1)
+    seg = make_mask(kind, 2, s, seed=s + d + 1)
+    inv = 1.0 / math.sqrt(d)
+    got = slab_flash(q, k, v, seg, inv)
+    plain = tflash.flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v, seg)), inv)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-2, rtol=0)
+    if d <= 512:
+        with pltpu.force_tpu_interpret_mode():
+            ref = np.asarray(jbert._flash_attention(q, k, v, seg, inv))
+        np.testing.assert_allclose(got.numpy(), ref, atol=1e-2, rtol=0)
+
+
+def test_slab_plan_mirrors_the_source():
+    """Seven 32 KB slots (K's or V's 128 x 128 piece, or both tiles' q
+    pieces) and two block heads fill 231,568 of the 232,448 bytes, within
+    2 d / 128 + 2 slots (a head is written with its block's first slot);
+    flash_kernel<128>'s consumers and pool, budgets per instantiation; a
+    block takes 2 d / 128 + 1 slots and QK^T runs d / 128 times."""
+    src = (CSRC / "flash_attention.cu").read_text()
+    plan = tflash.slab_plan(480, 1024, 2, 384)
+    assert "constexpr int kSlab = 128;" in src and "using C = Cfg<kSlab>;" in src
+    assert (plan.consumers, plan.threads, plan.producer_regs, plan.consumer_regs) == \
+        (2, 384, 56, 224)
+    assert "return single ? 40 : 56;" in src and "return single ? 232 : 224;" in src
+    single = tflash.slab_plan(2, 128, 2, 384)
+    assert (single.producer_regs, single.consumer_regs) == (40, 232)
+    assert plan.regs_fit and single.regs_fit
+    assert plan.slot_bytes == 32768 and plan.slots == 7 and plan.smem == 231568
+    assert f"ring_slots() == {plan.slots} && smem_bytes(ring_slots()) == {plan.smem}" in src
+    assert plan.smem + plan.slot_bytes + 16 > tflash.SMEM_LIMIT
+    assert (plan.slots_a_block, plan.qk_passes) == (7, 3)
+    assert plan.units == 480 * 2 * 3 * 1024 // 128
+    wide = tflash.slab_plan(2, 128, 1, 2048)
+    assert (wide.slots_a_block, wide.qk_passes, wide.units) == (33, 16, 32)
+    for d in (256, 320, 100):
+        with pytest.raises(ValueError):
+            tflash.slab_plan(1, 256, 1, d)
+
+
+def test_flash_dispatch_and_refusals():
+    """Each kernel width's counter; the C entry takes every multiple of 128
+    above 256 and S without a cap."""
+    assert tflash.launch_counter(32) == tflash.launch_counter(128) == "launches"
+    assert tflash.launch_counter(256) == "launches_wide"
+    for d in (384, 512, 1024, 4096):
+        assert tflash.launch_counter(d) == "launches_slab"
+    for d in (24, 192, 320):
+        with pytest.raises(ValueError):
+            tflash.launch_counter(d)
+    src = (CSRC / "flash_attention.cu").read_text()
+    assert "if (head_dim > 256 && head_dim % slab::kSlab == 0)" in src
+    assert not re.search(r"\bkMaxS\b", src)
+    for s in (640, 1024, 4096):
+        tflash.check_shape(s, 32)
+        tflash.check_shape(s, 768)
+
+
+# -- the pair layout above 512 --------------------------------------------------------------
+
+
+@pytest.mark.parametrize("flash", [False, True])
+@pytest.mark.parametrize("p,lq,dlen,max_seq,plen", [
+    (15, 32, 960, 1024, 992), (9, 32, 960, None, 992), (9, 32, 960, 512, 512),
+    (8, 64, 1000, 2048, 1064), (13, 16, 600, 1024, 616),
+])
+def test_assemble_pairs_identical_above_512(monkeypatch, p, lq, dlen, max_seq, plen, flash):
+    """Pairs longer than 512 tokens: the trained-length trim and, under the
+    flash gate, the padding to a multiple of 128 (992 -> 1024, 1064 ->
+    1152), identical to JAX's arrays."""
+    if flash:
+        monkeypatch.setenv("RAG_TPU_FLASH", "1")
+        monkeypatch.setattr(jbert, "_flash_enabled", jax_gate)
+        plen = -(-plen // 128) * 128
+    else:
+        monkeypatch.delenv("RAG_TPU_FLASH", raising=False)
+    rng = np.random.default_rng(p + dlen)
+    pair_q = rng.integers(0, 50, (p, lq)).astype(np.int32)
+    pair_d = rng.integers(0, 50, (p, dlen)).astype(np.int32)
+    shape = dict(vocab_size=1000, hidden=64, layers=2, heads=2, intermediate=128,
+                 max_positions=2048, max_seq_length=max_seq)
+    ref = jfq._assemble_pairs(jax.numpy.asarray(pair_q), jax.numpy.asarray(pair_d),
+                              rerank_cfg=jbert.BertConfig(**shape))
+    got = tfq._assemble_pairs(torch.from_numpy(pair_q), torch.from_numpy(pair_d),
+                              rerank_cfg=tbert.BertConfig(**shape))
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.int32 and g.shape == (-(-p // 8) * 8, plen)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+# -- the encoder: a 1,024-position checkpoint ---------------------------------------------
+
+LONG = dict(vocab_size=1000, hidden=64, layers=2, heads=2, intermediate=128,
+            max_positions=1024, with_pooler=True, num_labels=1)
+
+
+@pytest.fixture(scope="module")
+def long_checkpoint(tmp_path_factory):
+    """A 2-layer cross-encoder of 1,024 positions from the port's
+    ``init_params`` (seed 5), written by the port's ``hf_export`` with its
+    trained length, 1,024."""
+    cfg = tbert.BertConfig(**LONG)
+    model = tbert.load_jax_params(tbert.BertModel(cfg, device="cpu"),
+                                  tbert.init_params(torch.Generator().manual_seed(5), cfg))
+    path = tmp_path_factory.mktemp("long_reranker")
+    save_bert_checkpoint(model, cfg, str(path), cross_encoder=True, max_seq_length=1024)
+    return str(path)
+
+
+def long_inputs(seq=640, seed=5):
+    rng = np.random.default_rng(seed)
+    mask = rerank_mask(3, seq, seed=seed)
+    mask[0, :] = 0
+    mask[0, :3] = 1
+    mask[0, 32:600] = 1          # a document past key 512
+    ids = rng.integers(1, 1000, (3, seq)).astype(np.int32) * mask
+    types = np.zeros_like(ids)
+    types[:, 32:] = 1
+    return ids, types, mask
+
+
+@pytest.fixture()
+def jax_pair_attn(monkeypatch):
+    """The JAX pair-attention kernel forced at every length (interpret
+    mode on the CPU), with the JAX jit cache cleared around the patch."""
+    jax.clear_caches()
+    monkeypatch.setattr(jbert, "_pair_attn_enabled", lambda seq, hd: True)
+    monkeypatch.setattr(
+        jattention, "encoder_self_attention",
+        functools.partial(jattention.encoder_self_attention, interpret=True),
+    )
+    yield
+    jax.clear_caches()
+
+
+def load_both(path):
+    params, jcfg = jhf.load_bert_checkpoint(path, with_pooler=True, num_labels=1)
+    model, tcfg = thf.load_bert_checkpoint(path, num_labels=1, device="cpu")
+    assert jcfg.max_positions == tcfg.max_positions == 1024
+    assert jhf.saved_max_seq_length(path) == thf.saved_max_seq_length(path) == 1024
+    return params, jcfg, model
+
+
+def test_encode_1024_position_checkpoint_matches_jax(monkeypatch, long_checkpoint,
+                                                      jax_pair_attn):
+    """Both packages' ``encode`` and ``cross_score`` on the checkpoint at S
+    640 under the default gate (kernel 2's arithmetic on both sides: the
+    port's plain version, JAX's Pallas kernel in interpret mode), within
+    5e-3."""
+    monkeypatch.delenv("RAG_TPU_PAIR_ATTN", raising=False)
+    monkeypatch.delenv("RAG_TPU_FLASH", raising=False)
+    params, jcfg, model = load_both(long_checkpoint)
+    ids, types, mask = long_inputs()
+    calls = []
+    pair = tbert.encoder_self_attention
+    monkeypatch.setattr(tbert, "encoder_self_attention",
+                        lambda *a, **k: calls.append(a[0].shape) or pair(*a, **k))
+    want = np.asarray(jbert.encode(params, ids, types, mask, jcfg))
+    got = model.encode(*(torch.from_numpy(a) for a in (ids, types, mask))).numpy()
+    assert [c[1] for c in calls] == [640, 640]
+    real = mask > 0
+    np.testing.assert_allclose(got[real], want[real], atol=5e-3, rtol=0)
+    ref = np.asarray(jbert.cross_score(params, ids, types, mask, jcfg))
+    score = tbert.cross_score(model, *(torch.from_numpy(a) for a in (ids, types, mask)))
+    np.testing.assert_allclose(score.numpy(), ref, atol=5e-3, rtol=0)
+
+
+def test_encode_1024_position_checkpoint_under_flash(long_checkpoint, jax_flash_gate):  # noqa: F811
+    """The same checkpoint at S 640 on the flash path (``RAG_TPU_FLASH=1
+    RAG_TPU_PAIR_ATTN=0``): every position, pad rows included, against
+    JAX's flash branch (jax's kernel in interpret mode), within 5e-3."""
+    params, jcfg, model = load_both(long_checkpoint)
+    ids, types, mask = long_inputs(seed=6)
+    want = np.asarray(jbert.encode(params, ids, types, mask, jcfg))
+    got = model.encode(*(torch.from_numpy(a) for a in (ids, types, mask))).numpy()
+    assert jax_flash_gate == {"jax": 1, "port": 2}
+    np.testing.assert_allclose(got, want, atol=5e-3, rtol=0)
