@@ -8,7 +8,7 @@
                           [--flash-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
 
 Drives ``financial_rag_system_tpu_torch`` end to end on the card, in
-sixteen phases; any failure raises and the script exits non-zero:
+seventeen phases; any failure raises and the script exits non-zero:
 
 0. the card: name, power limit and compute capability (Hopper, 9.0);
 1. build: every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a``
@@ -175,8 +175,9 @@ sixteen phases; any failure raises and the script exits non-zero:
    profiled beside the default batch; (c) ``RAG_TPU_FLASH=1`` alone: the
    pairs pad to 512 and kernel 2 takes them (6 launches at S 512, kernel 7
    none), its logits against (b)'s; (d) a graded cross-encoder step under
-   both variables: kernel 7 never launches, the loss and gradients bit for
-   bit those without them; (e) the staged reranker at the 128 bucket under
+   both variables: kernel 7 and its backward (kernels 8 and 9) six times
+   each, the loss and gradients within phase 9's tolerances of those
+   without them; (e) the staged reranker at the 128 bucket under
    ``RAG_TPU_FLASH=1``: kernel 7 six times.  Each part prints its seconds;
 13. a BERT-base-shaped reranker: a random-init cross-encoder of
    google-bert/bert-base-uncased's shape (hidden 768, 12 layers, 12 heads
@@ -217,7 +218,25 @@ sixteen phases; any failure raises and the script exits non-zero:
    and at heads of 384 and 512 at S 128, 512 and 1,024, on phase 3's
    rerank mask stretched to S and on the uniform-length mask, each
    against its plain version (1e-2), some timed beside SDPA, the bound
-   and the MUFU floor.
+   and the MUFU floor;
+16. the flash attention's backward (kernels 8 and 9,
+   ``csrc/flash_attention_bwd.cu``) and the cross-encoder trainer on the
+   flash path: (a) kernel 7's residuals (m, l) and kernels 8 and 9
+   against their plain twins (each gradient within 2^-7 of its largest
+   magnitude) at S 128, 256, 512 and 1,024, heads of 32, 64, 128, 256 and
+   384, on prefix, rerank-layout and holed masks with an all-padding
+   pair; the served context with residuals asked for, bit for bit the
+   one without; ``ptxas -v`` of the source (no spill); both kernels at
+   the trainer's shape (B 32, S 512, 12 heads of 32, its first batch's
+   mask) with CUDA-event and device times, the plain twins', SDPA's
+   backward with the boolean segment mask, the bound and the MUFU floor
+   (the ``kernels`` line's ``flash_attention_bwd_dkv`` and
+   ``flash_attention_bwd_dq``); (b) ``train_cross_encoder`` at MiniLM-L6's
+   full width from ``init_model``'s weights under ``RAG_TPU_FLASH=1``,
+   6 steps of 32 x 512: kernels 7, 8 and 9 six times a step and nothing
+   else; its first step against the einsum step (phase 9's tolerances);
+   a second run bit for bit; median step time and peak memory beside the
+   einsum run's; both steps' device time by kind.
 
 The CPU references of phases 3-6 set ``RAG_TPU_FAST_GELU=1``: the card's
 default GELU is the tanh form and the CPU's exact erf, JAX's rule.
@@ -1196,6 +1215,8 @@ def kernel_counters() -> dict:
             "flash_attention": (encoder_flash_attention, "launches"),
             "flash_attention_wide": (encoder_flash_attention, "launches_wide"),
             "flash_attention_slab": (encoder_flash_attention, "launches_slab"),
+            "flash_attention_bwd_dkv": (encoder_flash_attention, "launches_bwd_dkv"),
+            "flash_attention_bwd_dq": (encoder_flash_attention, "launches_bwd_dq"),
             "ivf_probe": (ivf_probe, "launches"),
             "ivf_probe_int8": (ivf_probe, "launches_int8"),
             "ivf_probe_select": (ivf_probe, "launches_select"),
@@ -3521,6 +3542,8 @@ def kind_of(ev) -> str:
     if "train_optimizer" in chain:
         return "optimizer"
     bwd = "autograd::engine" in chain
+    if "_FlashAttention" in chain:  # kernels 7-9 and the torch work around them
+        return "flash attention (autograd function), " + ("backward" if bwd else "forward")
     if any(k in chain for k in ("aten::bmm", "aten::_softmax", "BmmBackward", "SoftmaxBackward")):
         return "einsum attention, " + ("backward" if bwd else "forward")
     if "_BF16ProductBackward" in chain:
@@ -4881,39 +4904,35 @@ def check_flash_batches(torch, np, run: dict, main: dict, cpu_models, smi: str) 
 
 def check_flash_graded(torch, np, run: dict, smi: str) -> None:
     """(d) a graded cross-encoder step at full width under both variables:
-    kernel 7 never launches, and the loss and every gradient are bit for
-    bit those without the variables (the graded forward is the einsum
-    path either way)."""
+    the graded forward takes the flash attention with its backward,
+    kernel 7 six times and kernels 8 and 9 six times each, and
+    the loss and gradients stay within phase 9's tolerances of the step
+    without the variables (the einsum path; :func:`compare_steps`)."""
     from financial_rag_system_tpu_torch.models import bert
-    from financial_rag_system_tpu_torch.ops.flash_attention import encoder_flash_attention
-    from financial_rag_system_tpu_torch.train.optim import graded
 
     served = run["engine"].reranker.model
-    model = bert.BertModel(served.cfg, device="cuda")
-    model.load_state_dict(served.state_dict())
     rows = train_rows(torch, np, FLASH_SEQ)
-
-    def step():
-        with graded(model):
-            loss = objective_loss(torch, model, "bce", rows)
-            loss.backward()
-            grads = [p.grad.clone() for p in model.parameters() if p.grad is not None]
-            model.zero_grad(set_to_none=True)
-        return loss.detach(), grads
-
-    loss0, grads0 = step()
-    n0 = encoder_flash_attention.launches
-    with env_set(**FLASH_ENV):
-        loss1, grads1 = step()
-    launched = encoder_flash_attention.launches - n0
-    same = (torch.equal(loss0, loss1) and len(grads0) == len(grads1)
-            and all(torch.equal(a, b) for a, b in zip(grads0, grads1)))
-    if launched or not same:
-        raise AssertionError(f"[flash] graded step: kernel 7 launched {launched} times; "
-                             f"loss {float(loss0)} and {float(loss1)}, bit for bit {same}")
+    lr, out = 1e-4, {}
+    for key, env in (("einsum", {}), ("flash", FLASH_ENV)):
+        model = bert.BertModel(served.cfg, device="cuda")
+        model.load_state_dict(served.state_dict())
+        with env_set(**env):
+            n0 = flash_step_launches()
+            out[key] = step_objective(torch, model, "bce", rows, lr)
+            launched = tuple(b - a for a, b in zip(n0, flash_step_launches()))
+        want = (6, 6, 6) if key == "flash" else (0, 0, 0)
+        if launched != want:
+            raise AssertionError(f"[flash] graded step ({key}): kernels 7, 8 and 9 launched "
+                                 f"{launched} times (want {want})")
+        del model
+    c = compare_steps(torch, lr, out["flash"], out["einsum"])
+    if c["loss_rel"] > TRAIN_LOSS_RTOL or c["grad_rel"] > TRAIN_GRAD_TOL:
+        raise AssertionError(f"[flash] graded step: loss {out['flash'][0]} against "
+                             f"{out['einsum'][0]}, gradients {c['grad_rel']} of their norm")
     log(f"[flash] {smi}: a graded cross-encoder step at S {rows['pairs'][0].shape[1]} under "
-        f"{FLASH_ENV}: kernel 7 launched 0 times; loss {float(loss1):.6f} and "
-        f"{len(grads1)} gradients bit for bit those without the variables")
+        f"{FLASH_ENV}: kernels 7, 8 and 9 six times each; loss {out['flash'][0]:.6f} against "
+        f"{out['einsum'][0]:.6f} without the variables (rel {c['loss_rel']:.2e}), gradients "
+        f"{c['grad_rel']:.2e} of their norm")
 
 
 def check_flash_staged(torch, np, run: dict, smi: str) -> None:
@@ -5467,6 +5486,364 @@ def drive_phase_15(torch, np, work: Path, main: dict, smi: str, kernels: list,
     return list(runs.values())
 
 
+# -- phase 16: the flash attention's backward (kernels 8 and 9) and the flash trainer --
+
+FLASH_TRAIN_STEPS = 6   # cross-encoder steps of 32 pairs a run under RAG_TPU_FLASH=1
+FLASH_TRAIN_LEN = 512   # the pairs' length: pad_batch's 512 bucket (phase 9's reranker)
+# kernels 8 and 9 against their plain twins: each gradient within 2^-7 of
+# the plain one's largest magnitude (one bf16 step of it: both round p and
+# dS to bf16 at the same points and store bf16; their f32 sums differ in
+# order); the forward's m within 1e-3 and l within 1e-3 relative (ex2.approx)
+FLASH_BWD_RTOL = 2.0 ** -7
+FLASH_RES_TOL = 1e-3
+BWD_ENTRY = {"route": "cuda", "source": f"{PACKAGE}/csrc/flash_attention_bwd.cu"}
+BWD_REPLACES = {
+    "flash_attention_bwd_dkv": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
+    "flash_attention_bwd_dq": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
+}
+
+
+def bwd_mask(np, kind: str, p: int, s: int, seed: int):
+    """Key masks for (a): prefix lengths, the rerank layout (query tokens,
+    a hole up to 32, document tokens, tail padding) or random holes; the
+    last pair all padding."""
+    rng = np.random.default_rng(seed)
+    if kind == "prefix":
+        mask = (np.arange(s)[None, :] < rng.integers(1, s + 1, p)[:, None]).astype(np.int32)
+    elif kind == "rerank":
+        mask = np.zeros((p, s), np.int32)
+        for i in range(p):
+            mask[i, :rng.integers(3, 33)] = 1
+            mask[i, 32:32 + rng.integers(1, s - 31)] = 1
+    else:
+        mask = (rng.random((p, s)) < 0.7).astype(np.int32)
+    mask[-1] = 0
+    return mask
+
+
+def flash_bwd_case(torch, np, p: int, s: int, h: int, d: int, mask_np, seed: int) -> dict:
+    """Kernel 7's inputs at (p, s, h, d) on the card (padded as the wrapper
+    pads them), its context with residuals and without, a cotangent and
+    di, as the autograd function hands them to kernels 8 and 9."""
+    from financial_rag_system_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    q, k, v, g = (torch.randn((p, s, h, d), device="cuda", generator=gen) for _ in range(4))
+    inv = 1.0 / d ** 0.5
+    qb, kb, vb = fa.kernel_inputs(q, k, v)
+    seg = torch.tensor(mask_np, dtype=torch.int32, device="cuda")
+    out, m, l = fa.flash_attention_kernel(qb, kb, vb, seg, inv, residuals=True)
+    served = fa.flash_attention_kernel(qb, kb, vb, seg, inv)
+    do = g.to(torch.bfloat16)
+    di = (out[..., :d].float() * do.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dob = torch.nn.functional.pad(do, (0, qb.shape[-1] - d)).contiguous()
+    return {"qb": qb, "kb": kb, "vb": vb, "seg": seg, "out": out, "served": served, "m": m,
+            "l": l, "dob": dob, "di": di, "inv": inv, "d": d}
+
+
+def bwd_args(c: dict) -> tuple:
+    """The case's arguments of ``flash_attention_bwd_kernel`` and of the
+    plain twin, in order."""
+    return c["qb"], c["kb"], c["vb"], c["seg"], c["m"], c["l"], c["dob"], c["di"], c["inv"]
+
+
+def check_flash_bwd_case(torch, label: str, c: dict) -> dict:
+    """One case of (a): the residuals against the plain forward's, the
+    context with residuals bit for bit the served one, kernels 8 and 9
+    (each launched once) against ``flash_attention_bwd_plain``.  Returns
+    the errors: m's, l's relative, each gradient's over its largest
+    magnitude and absolute."""
+    from financial_rag_system_tpu_torch.ops import flash_attention as fa
+
+    fn = fa.encoder_flash_attention
+    n0 = (fn.launches_bwd_dkv, fn.launches_bwd_dq)
+    got = fa.flash_attention_bwd_kernel(*bwd_args(c))
+    torch.cuda.synchronize()
+    if (fn.launches_bwd_dkv - n0[0], fn.launches_bwd_dq - n0[1]) != (1, 1):
+        raise AssertionError(f"[flash-bwd] {label}: kernels 8 and 9 did not launch once each")
+    _, m_ref, l_ref = fa.flash_attention_fwd_plain(c["qb"], c["kb"], c["vb"], c["seg"], c["inv"])
+    qb, kb, vb, seg, m, l, dob, di, inv = bwd_args(c)
+    ref = fa.flash_attention_bwd_plain(qb, kb, vb, seg, dob, m, l, di, inv)
+    out = {"m": float((m - m_ref).abs().max()), "l": float(((l - l_ref).abs() / l_ref).max()),
+           "served_equal": torch.equal(c["out"], c["served"])}
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        a, r = a.float(), r.float()
+        if not torch.isfinite(a).all() or a[..., c["d"]:].any():
+            raise AssertionError(f"[flash-bwd] {label}: {name} not finite, or its padding not 0")
+        out[name + "_abs"] = float((a - r).abs().max())
+        out[name] = out[name + "_abs"] / float(r.abs().max())
+    if (max(out["dq"], out["dk"], out["dv"]) > FLASH_BWD_RTOL or out["m"] > FLASH_RES_TOL
+            or out["l"] > FLASH_RES_TOL or not out["served_equal"]):
+        raise AssertionError(f"[flash-bwd] {label}: {out} (gradients within {FLASH_BWD_RTOL} "
+                             f"of their largest magnitude, m and l within {FLASH_RES_TOL}, "
+                             f"the context bit for bit)")
+    return out
+
+
+def check_flash_bwd_grid(torch, np, main: dict, smi: str) -> None:
+    """(a) the residuals and kernels 8 and 9 against their plain twins at
+    S 128, 256, 512 and 1,024, heads of 32, 64, 128 and 256 and 2 heads of
+    384, on the prefix, rerank-layout and holed masks (each with an
+    all-padding pair); phase 3's served shape (P 480, S 512, 12 heads of
+    32 on its rerank mask padded to 512) with residuals asked for, bit for
+    bit the served context; ``ptxas -v`` of ``csrc/flash_attention_bwd.cu``
+    (no spill, four ``bwd_kernel`` instantiations)."""
+    from financial_rag_system_tpu_torch.ops import flash_attention as fa
+
+    worst, cases = {}, 0
+    for s in (128, 256, 512, 1024):
+        for h, d in ((4, 32), (4, 64), (2, 128), (2, 256), (2, 384)):
+            for kind in ("prefix", "rerank", "holes"):
+                mask_np = bwd_mask(np, kind, 3, s, seed=s + d)
+                c = flash_bwd_case(torch, np, 3, s, h, d, mask_np, seed=s + d)
+                errs = check_flash_bwd_case(torch, f"S {s}, {h} heads of {d}, {kind}", c)
+                for key in ("m", "l", "dq", "dk", "dv"):
+                    worst[key] = max(worst.get(key, 0.0), errs[key])
+                cases += 1
+    log(f"[flash-bwd] {smi}: {cases} cases (S 128-1,024 x heads of 32, 64, 128, 256 and 384 x "
+        f"prefix, rerank-layout and holed masks): largest errors against the plain twins "
+        f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} } (gradients over their largest "
+        f"magnitude, tolerance {FLASH_BWD_RTOL:.4g}; m absolute and l relative, {FLASH_RES_TOL}); "
+        f"every context with residuals bit for bit the served one")
+    plen, s = main["lq"] + DLEN, flash_len(main)
+    served = np.pad(rerank_batch_mask(torch, np, main), ((0, 0), (0, s - plen)))
+    q, k, v, _ = attention_inputs(torch, np, PAIRS, s)
+    qb, kb, vb = fa.kernel_inputs(q, k, v)
+    seg = torch.tensor(served, dtype=torch.int32, device="cuda")
+    with_res, _, _ = fa.flash_attention_kernel(qb, kb, vb, seg, 1.0 / 32 ** 0.5, residuals=True)
+    if not torch.equal(with_res, fa.flash_attention_kernel(qb, kb, vb, seg, 1.0 / 32 ** 0.5)):
+        raise AssertionError("[flash-bwd] the served context with residuals differs")
+    log(f"[flash-bwd] {smi}: P {PAIRS}, S {s}, 12 heads of 32 on phase 3's rerank mask: the "
+        f"context with residuals asked for is bit for bit the served one")
+    del q, k, v, qb, kb, vb, with_res
+    report = ptxas_report("flash_attention_bwd")
+    log(f"[flash-bwd] ptxas -v of csrc/flash_attention_bwd.cu (registers, spill store and load "
+        f"bytes): {report}")
+    if (len([k for k in report if "bwd_kernel" in k]) != 4
+            or any(r[1] or r[2] for r in report.values())):
+        raise AssertionError(f"[flash-bwd] a backward kernel spills, or ptxas named other "
+                             f"kernels: {report}")
+
+
+def trainer_examples(np, steps: int) -> list:
+    """The cross-encoder supervision at serving length (chunks of 1000
+    characters), ``steps`` batches of 32 of it in a fixed order."""
+    from financial_rag_system_tpu_torch.train import cross_encoder
+
+    examples = cross_encoder.make_cross_examples(seed=1, chunk_chars=1000)
+    order = np.random.default_rng(16).permutation(len(examples))[: 32 * steps]
+    return [examples[i] for i in order]
+
+
+def first_batch(torch, np, examples: list, seed: int = 0) -> dict:
+    """The batch ``train_cross_encoder(examples, seed=seed)`` takes first,
+    as ``step_objective`` takes its rows (with the trainer's pos_weight)."""
+    from financial_rag_system_tpu_torch.models.tokenizer import Tokenizer, pad_batch
+
+    tok = Tokenizer()
+    chunk = [examples[i] for i in np.random.default_rng(seed).permutation(len(examples))[:32]]
+    ids, types, mask = pad_batch([tok.encode_pair(q, d, FLASH_TRAIN_LEN) for q, d, _ in chunk])
+    labels = np.zeros(ids.shape[0], np.float32)
+    labels[: len(chunk)] = [lbl for *_, lbl in chunk]
+    n_pos = sum(1 for *_, lbl in examples if lbl > 0.5) or 1
+    return {"pairs": (ids, types, mask, torch.from_numpy(labels)),
+            "pos_weight": max(1.0, (len(examples) - n_pos) / n_pos)}
+
+
+def time_flash_backward(torch, np, smi: str, mask_np) -> list:
+    """(a) kernels 8 and 9 at the trainer's shape (B 32, S 512, 12 heads of
+    32) on its first batch's mask: against the plain twins, CUDA-event and
+    profiler times, the plain twins' times (dK/dV alone, dQ alone), the
+    backward of SDPA with the boolean segment mask timed alone (a
+    yardstick: dQ, dK and dV in one call), each kernel's bound (its bytes,
+    and its products over the (query, key) pairs that share a segment) and
+    MUFU floor (one exponential a pair).  Returns the ``kernels`` line's
+    two entries."""
+    from financial_rag_system_tpu_torch.ops import flash_attention as fa
+
+    p, s = mask_np.shape
+    h, d = 12, 32
+    c = flash_bwd_case(torch, np, p, s, h, d, mask_np, seed=32)
+    errs = check_flash_bwd_case(torch, "trainer shape", c)
+    qb, kb, vb, seg, m, l, dob, di, inv = bwd_args(c)
+    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_(True) for t in (qb, kb, vb))
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=same,
+                                                               scale=inv)
+    go = dob.transpose(1, 2)
+    library_ms = median_ms(lambda: torch.autograd.grad(sdpa_out, (qh, kh, vh), go,
+                                                       retain_graph=True), reps=10)
+    del sdpa_out, same
+    pairs = segment_pairs(np, mask_np)
+    tensor = p * s * h * d * 2
+    rows = 3 * p * h * s * 4 + p * s * 4  # m, l, di and the segment ids
+    mufu = mufu_ms(torch, h * pairs)
+    entries = []
+    for name, kw, products, tensors, errs_of in (
+        ("flash_attention_bwd_dkv", {"dq": False}, 4, 6, ("dk_abs", "dv_abs")),
+        ("flash_attention_bwd_dq", {"dkv": False}, 3, 5, ("dq_abs",)),
+    ):
+        def kernel(kw=kw):
+            return fa.flash_attention_bwd_kernel(*bwd_args(c), **kw)
+
+        def plain(kw=kw):
+            return fa.flash_attention_bwd_plain(qb, kb, vb, seg, dob, m, l, di, inv, **kw)
+
+        ms = median_ms(kernel, reps=20)
+        dev = device_ms(torch, kernel, "bwd_kernel")
+        plain_ms = median_ms(plain, reps=3, warmup=1)
+        b_ms, b_by = bound_ms(tensors * tensor + rows, 2.0 * products * h * d * pairs)
+        err = max(errs[e] for e in errs_of)
+        log(f"[flash-bwd] {smi}: {name}, B {p}, S {s}, {h} heads of {d}, the trainer's first "
+            f"batch mask: max_abs_err {err:.3g} ({max(errs[e[:2]] for e in errs_of):.3g} of the "
+            f"largest magnitude), kernel {ms:.4f} ms (device {dev:.4f} ms), plain {plain_ms:.4f} "
+            f"ms, SDPA backward (dQ, dK, dV) {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+            f"dense {bound_ms(tensors * tensor + rows, 2.0 * products * h * d * p * s * s)[0]:.4f}"
+            f" ms), MUFU floor {mufu:.4f} ms; kernel at {b_ms / ms:.3f} of its bound")
+        entries.append({"name": name, **BWD_ENTRY, "replaces": BWD_REPLACES[name],
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": library_ms})
+    return entries
+
+
+def flash_step_launches() -> tuple:
+    from financial_rag_system_tpu_torch.ops.flash_attention import encoder_flash_attention as f
+
+    return f.launches, f.launches_bwd_dkv, f.launches_bwd_dq
+
+
+def check_flash_first_step(torch, np, rows: dict, smi: str, label: str) -> None:
+    """The trainer's first step (one BCE step of MiniLM-L6 at full width
+    from ``init_model``'s weights) under ``RAG_TPU_FLASH=1`` against the
+    same step without it (the einsum path): kernel 7 and kernels 8 and 9
+    six times each, the loss within TRAIN_LOSS_RTOL and the gradients
+    within TRAIN_GRAD_TOL (:func:`compare_steps`; the updated weights are
+    logged)."""
+    from financial_rag_system_tpu_torch.models import bert
+    from financial_rag_system_tpu_torch.train import stack
+
+    lr, out = 1e-4, {}
+    for key, env in (("einsum", {}), ("flash", {"RAG_TPU_FLASH": "1"})):
+        model = stack.init_model(bert.MINILM_L6_CROSS, 1, "cuda")
+        with env_unset("RAG_TPU_FLASH"), env_set(**env):
+            n0 = flash_step_launches()
+            out[key] = step_objective(torch, model, "bce", rows, lr)
+            launched = tuple(b - a for a, b in zip(n0, flash_step_launches()))
+        want = (6, 6, 6) if key == "flash" else (0, 0, 0)
+        if launched != want:
+            raise AssertionError(f"[flash-train] {label}: the {key} step launched kernels 7, 8 "
+                                 f"and 9 {launched} times (want {want})")
+        del model
+    c = compare_steps(torch, lr, out["flash"], out["einsum"])
+    log(f"[flash-train] {smi}: {label}: loss {out['flash'][0]:.6f} under RAG_TPU_FLASH=1 "
+        f"against {out['einsum'][0]:.6f} on the einsum path (rel {c['loss_rel']:.2e}, tolerance "
+        f"{TRAIN_LOSS_RTOL}); gradients {c['grad_rel']:.2e} of their norm (tolerance "
+        f"{TRAIN_GRAD_TOL}); updated weights within {c['moved_lr']:.4f} lr, {c['sure_lr']:.2e} "
+        f"lr at the {c['sure']} sure of their sign; kernels 7, 8 and 9 six times each")
+    if c["loss_rel"] > TRAIN_LOSS_RTOL or c["grad_rel"] > TRAIN_GRAD_TOL:
+        raise AssertionError(f"[flash-train] {label}: the flash step differs from the einsum "
+                             f"step's")
+
+
+def train_flash_run(torch, examples: list, env: dict) -> tuple:
+    """``train_cross_encoder`` on ``examples`` from ``init_model``'s
+    weights under ``env`` (``RAG_TPU_FLASH`` unset first): its losses,
+    final weights and step log."""
+    from financial_rag_system_tpu_torch.models import bert
+    from financial_rag_system_tpu_torch.train import cross_encoder, stack
+
+    model = stack.init_model(bert.MINILM_L6_CROSS, 1, "cuda")
+    with env_unset("RAG_TPU_FLASH"), env_set(**env), step_logs(torch) as (logs, _):
+        _, losses = cross_encoder.train_cross_encoder(model, examples, batch_size=32, lr=1e-4,
+                                                      max_len=FLASH_TRAIN_LEN, seed=0)
+    torch.cuda.synchronize()
+    return losses, [p.detach().clone() for p in model.parameters()], logs["cross_encoder"]
+
+
+def profile_flash_steps(torch, rows: dict, smi: str) -> None:
+    """One BCE step of MiniLM-L6 on the trainer's first batch under
+    ``RAG_TPU_FLASH=1`` and without it, each's device time by kind
+    (:func:`profile_train_step`: kernels 7-9 and the torch work inside the
+    autograd function apart)."""
+    from torch.profiler import record_function
+
+    from financial_rag_system_tpu_torch.models import bert
+    from financial_rag_system_tpu_torch.train import contrastive, cross_encoder, stack
+    from financial_rag_system_tpu_torch.train.optim import ClippedAdamW, graded
+
+    ids, types, mask, labels = rows["pairs"]
+    batch = contrastive.on_device((ids, types, mask), "cuda")
+    labels = labels.to("cuda")
+    for name, env in (("cross-encoder BCE, RAG_TPU_FLASH=1", {"RAG_TPU_FLASH": "1"}),
+                      ("cross-encoder BCE, einsum attention", {})):
+        model = stack.init_model(bert.MINILM_L6_CROSS, 1, "cuda")
+        opt = ClippedAdamW(model, 1e-4)
+
+        def step_fn(model=model, opt=opt):
+            with graded(model):
+                cross_encoder.bce_loss(model, *batch, labels, rows["pos_weight"]).backward()
+            with record_function("train_optimizer"):
+                opt.step()
+
+        with env_unset("RAG_TPU_FLASH"), env_set(**env):
+            profile_train_step(torch, name, step_fn, smi)
+        del model, opt
+
+
+def drive_phase_16(torch, np, main: dict, smi: str, kernels: list) -> dict:
+    """Phase 16: (a) the forward's residuals and kernels 8 and 9 against
+    their plain twins over the grid, the served context with residuals,
+    ``ptxas -v``, the two kernels timed at the trainer's shape (the
+    ``kernels`` line's entries); (b) the cross-encoder trainer at full
+    width under ``RAG_TPU_FLASH=1``: ``train_cross_encoder`` over
+    FLASH_TRAIN_STEPS batches of 32 x 512 (the main path: every count set
+    to 0 before it and read after; kernels 7, 8 and 9 six times a step),
+    its first step against the einsum step, a second run bit for bit, the
+    einsum run's step time and peak memory beside it, and both steps'
+    device time by kind.  Returns (b)'s run for the launch counts."""
+    t0 = time.perf_counter()
+    check_flash_bwd_grid(torch, np, main, smi)
+    examples = trainer_examples(np, FLASH_TRAIN_STEPS)
+    rows = first_batch(torch, np, examples)
+    mask_np = np.asarray(rows["pairs"][2])
+    if mask_np.shape != (32, FLASH_TRAIN_LEN):
+        raise AssertionError(f"the trainer's first batch is {mask_np.shape}")
+    kernels += time_flash_backward(torch, np, smi, mask_np)
+    log(f"[phase-16] part (a) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_flash_first_step(torch, np, rows, smi, "the trainer's first step, 32 x 512")
+    reset_launches()
+    losses, weights, steps = train_flash_run(torch, examples, {"RAG_TPU_FLASH": "1"})
+    launches = read_launches()
+    n = len(losses)
+    want = want_launches(flash_attention=6 * n, flash_attention_bwd_dkv=6 * n,
+                         flash_attention_bwd_dq=6 * n)
+    if n != FLASH_TRAIN_STEPS or launches != want:
+        raise AssertionError(f"[flash-train] {n} steps launched {launches} (want {want})")
+    flash = steps.report(f"cross-encoder under RAG_TPU_FLASH=1 ({n} x 32 x "
+                         f"{FLASH_TRAIN_LEN})", smi)
+    again, weights_b, _ = train_flash_run(torch, examples, {"RAG_TPU_FLASH": "1"})
+    dw = max(float((a - b).abs().max()) for a, b in zip(weights, weights_b))
+    log(f"[flash-train] {smi}: trained twice from the same weights under RAG_TPU_FLASH=1, {n} "
+        f"steps: losses {losses[0]!r} -> {losses[-1]!r} and {again[0]!r} -> {again[-1]!r}, "
+        f"equal {losses == again}; weights {dw!r} apart (want bit for bit)")
+    if losses != again or dw != 0:
+        raise AssertionError("[flash-train] two runs of the flash trainer differ")
+    del weights, weights_b
+    ein_losses, _, ein_steps = train_flash_run(torch, examples, {})
+    einsum = ein_steps.report(f"cross-encoder, einsum attention ({n} x 32 x "
+                              f"{FLASH_TRAIN_LEN})", smi)
+    log(f"[flash-train] {smi}: median step {flash['step_ms_median']:.2f} ms under "
+        f"RAG_TPU_FLASH=1 against {einsum['step_ms_median']:.2f} ms on the einsum path; peak "
+        f"{flash['peak_gib']:.2f} against {einsum['peak_gib']:.2f} GiB; losses "
+        f"{losses[-1]:.6f} against {ein_losses[-1]:.6f} after {n} steps; kernels 7, 8 and 9 "
+        f"{launches['flash_attention']}, {launches['flash_attention_bwd_dkv']} and "
+        f"{launches['flash_attention_bwd_dq']} times over the run")
+    profile_flash_steps(torch, rows, smi)
+    log(f"[phase-16] part (b) took {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -5628,12 +6005,15 @@ def main() -> int:
         long_runs = drive_phase_15(torch, np, work, main_run, smi, kernels, attn_baseline,
                                    flash_baseline)
         log(f"[long] phase 15 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        flash_train_run = drive_phase_16(torch, np, main_run, smi, kernels)
+        log(f"[flash-train] phase 16 took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # launches over the main paths, each counted from 0 around its run
     runs = (main_run, ivf_run, block_run, int8_run, ivf8_run, *hash_runs, hnsw_run, hnsw8_run,
             train_run, *sharded_runs, *phase11_runs, flash_run, base_run, wide_run,
-            *long_runs)
+            *long_runs, flash_train_run)
     for kern in kernels:
         name = kern["name"]
         kern["launches"] = sum(run["launches"][name] for run in runs)

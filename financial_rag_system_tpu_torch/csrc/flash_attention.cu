@@ -19,7 +19,12 @@
 //    m_next) * l, l_next = sum(p) + l_corr, inv = 1 / l_next (1 where
 //    l_next is 0), acc = acc * (l_corr * inv) + (bf16(p) . V) * inv;
 //  - every row, pad rows included (a pad row attends the pad keys only),
-//    and the context rounded to bf16.
+//    and the context rounded to bf16;
+//  - on request (flash_attention_res, the training path), jax's saved
+//    residuals: each row's final max m of the scaled scores and its sum l
+//    of p at that max, one f32 a row (jax broadcasts them over 128 lanes).
+//    The backward kernels (flash_attention_bwd.cu) read them.  Serving
+//    asks for none, and its context is the same bit for bit.
 //
 // Layout: q, k, v and the output are (B, S, H, D) bf16 as the encoder's
 // projections give them (no transpose), D 32, 64, 128, 256 or any multiple
@@ -357,6 +362,7 @@ __device__ __forceinline__ void attend(Rows<D>& r, float (&s)[64], const StageHe
     ls[hh] = quad_sum(ls[hh]);
     if constexpr (SINGLE) {  // p / l, then the product alone
       const float rl = 1.f / ls[hh];
+      r.l[hh] = ls[hh];  // the residual l
 #pragma unroll
       for (int j = 0; j < kKeys / 8; ++j) {
         s[4 * j + 2 * hh] *= rl;
@@ -414,6 +420,19 @@ __device__ __forceinline__ void attend(Rows<D>& r, float (&s)[64], const StageHe
       }
     }
   }
+}
+
+// jax's saved residuals of rows ra and rb of an item (row0 = item * S in
+// the (B, H, S) arrays): the row's final max of the scaled scores (m, the
+// unscaled max times scale: a positive factor keeps the max) and its sum
+// of p at that max (l)
+__device__ __forceinline__ void store_residuals(float* res_m, float* res_l, size_t row0, int ra,
+                                                int rb, const float (&m)[2], const float (&l)[2],
+                                                float scale) {
+  res_m[row0 + ra] = m[0] * scale;
+  res_m[row0 + rb] = m[1] * scale;
+  res_l[row0 + ra] = l[0];
+  res_l[row0 + rb] = l[1];
 }
 
 // The skip rule's view of a run of segment ids, the warp's values x: bit i
@@ -522,7 +541,8 @@ template <int D>
 __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
 flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
              const __grid_constant__ CUtensorMap vmap, const int32_t* __restrict__ seg,
-             __nv_bfloat16* __restrict__ out, int P, int S, int H, float scale, int nst) {
+             __nv_bfloat16* __restrict__ out, float* __restrict__ res_m,
+             float* __restrict__ res_l, int P, int S, int H, float scale, int nst) {
   using C = Cfg<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* kv = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -632,6 +652,8 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
           *reinterpret_cast<uint32_t*>(out + base + (size_t)rb * tok + col) =
               pack_bf16(r.acc[dn][2], r.acc[dn][3]);
         }
+        if (res_m != nullptr && t == 0)
+          store_residuals(res_m, res_l, (size_t)item * S, ra, rb, r.m, r.l, scale);
         pos += C::kWg;
         ++k;
       }
@@ -657,8 +679,8 @@ bool tile_map(CUtensorMap* map, const void* ptr, int P, int S, int H, int D, int
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, const void* seg, void* out, int P, int S,
-           int H, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const void* seg, void* out, float* res_m,
+           float* res_l, int P, int S, int H, float scale, cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap qmap, kmap, vmap;
   if (!tile_map(&qmap, q, P, S, H, D, C::kCw, kRows) ||
@@ -685,7 +707,8 @@ int launch(const void* q, const void* k, const void* v, const void* seg, void* o
   }
   const int ctas = P * H < n_sm ? P * H : n_sm;  // one block an SM
   flash_kernel<D><<<ctas, C::kThreads, smem, stream>>>(qmap, kmap, vmap, (const int32_t*)seg,
-                                                       (__nv_bfloat16*)out, P, S, H, scale, nst);
+                                                       (__nv_bfloat16*)out, res_m, res_l, P, S, H,
+                                                       scale, nst);
   return (int)cudaGetLastError();
 }
 
@@ -973,7 +996,8 @@ template <bool SINGLE>
 __global__ void __launch_bounds__(kThreads, 1)
 flash256_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap, const int32_t* __restrict__ seg,
-                __nv_bfloat16* __restrict__ out, int P, int S, int H, float scale, int ns) {
+                __nv_bfloat16* __restrict__ out, float* __restrict__ res_m,
+                float* __restrict__ res_l, int P, int S, int H, float scale, int ns) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* slots = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   unsigned char* qtiles = slots + (size_t)ns * kSlotBytes;  // [kWg][kQBytes]
@@ -1103,13 +1127,15 @@ flash256_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
       }
     }
     // the context over the row's sum (P holds p / sum(p) at S 128)
-    float inv[2];
+    float inv[2], l[2];
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      const float l = quad_sum(r.l[hh]);
-      inv[hh] = SINGLE || l == 0.f ? 1.f : 1.f / l;
+      l[hh] = quad_sum(r.l[hh]);
+      inv[hh] = SINGLE || l[hh] == 0.f ? 1.f : 1.f / l[hh];
     }
     const int t = lane & 3;
+    if (res_m != nullptr && t == 0)
+      store_residuals(res_m, res_l, (size_t)item * S, ra, rb, r.m, l, scale);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int col = 8 * j + 2 * t;
@@ -1122,8 +1148,8 @@ flash256_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
 }
 
 template <bool SINGLE>
-int launch(const void* q, const void* k, const void* v, const void* seg, void* out, int P, int S,
-           int H, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const void* seg, void* out, float* res_m,
+           float* res_l, int P, int S, int H, float scale, cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
   if (!tile_map(&qmap, q, P, S, H, D, kCw, kRows) || !tile_map(&kmap, k, P, S, H, D, kCw, kKeys) ||
       !tile_map(&vmap, v, P, S, H, D, kCw, kKeys))
@@ -1147,7 +1173,8 @@ int launch(const void* q, const void* k, const void* v, const void* seg, void* o
   const int work = P * H * (S / (kWg * kRows));  // units
   const int ctas = work < n_sm ? work : n_sm;       // one block an SM
   flash256_kernel<SINGLE><<<ctas, kThreads, smem, stream>>>(
-      qmap, kmap, vmap, (const int32_t*)seg, (__nv_bfloat16*)out, P, S, H, scale, ns);
+      qmap, kmap, vmap, (const int32_t*)seg, (__nv_bfloat16*)out, res_m, res_l, P, S, H, scale,
+      ns);
   return (int)cudaGetLastError();
 }
 
@@ -1301,7 +1328,8 @@ template <bool SINGLE>
 __global__ void __launch_bounds__(C::kThreads, 1)
 slab_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
             const __grid_constant__ CUtensorMap vmap, const int32_t* __restrict__ seg,
-            __nv_bfloat16* __restrict__ out, int P, int S, int H, int D, float scale) {
+            __nv_bfloat16* __restrict__ out, float* __restrict__ res_m,
+            float* __restrict__ res_l, int P, int S, int H, int D, float scale) {
   constexpr int ns = kSlots;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* slots = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -1400,12 +1428,15 @@ slab_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
       *reinterpret_cast<uint32_t*>(out + base + (size_t)rb * tok + col) =
           pack_bf16(r.acc[dn][2], r.acc[dn][3]);
     }
+    // every slab computes the same m and l: the first writes them
+    if (res_m != nullptr && sl == 0 && t == 0)
+      store_residuals(res_m, res_l, (size_t)item * S, ra, rb, r.m, r.l, scale);
   }
 }
 
 template <bool SINGLE>
-int launch(const void* q, const void* k, const void* v, const void* seg, void* out, int P, int S,
-           int H, int D, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const void* seg, void* out, float* res_m,
+           float* res_l, int P, int S, int H, int D, float scale, cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
   if (!tile_map(&qmap, q, P, S, H, D, 64, kRows) || !tile_map(&kmap, k, P, S, H, D, 64, kKeys) ||
       !tile_map(&vmap, v, P, S, H, D, 64, kKeys))
@@ -1429,7 +1460,8 @@ int launch(const void* q, const void* k, const void* v, const void* seg, void* o
   if (work > INT32_MAX) return (int)cudaErrorInvalidValue;
   const int ctas = work < n_sm ? (int)work : n_sm;  // one block an SM
   slab_kernel<SINGLE><<<ctas, C::kThreads, smem, stream>>>(
-      qmap, kmap, vmap, (const int32_t*)seg, (__nv_bfloat16*)out, P, S, H, D, scale);
+      qmap, kmap, vmap, (const int32_t*)seg, (__nv_bfloat16*)out, res_m, res_l, P, S, H, D,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -1440,26 +1472,43 @@ int launch(const void* q, const void* k, const void* v, const void* seg, void* o
 // q, k, v and out (B, S, H, head_dim) bf16, 16-byte aligned; seg (B, S)
 // int32; head_dim 32, 64, 128, 256, or a multiple of 128 from 384; S a
 // multiple of 128 from 128; B H and H head_dim below 2^31 (32-bit TMA
-// coordinates).  Returns a cudaError_t: 1 (cudaErrorInvalidValue) for
-// shapes the kernel does not take, else the launch's own status.
-extern "C" int flash_attention(const void* q, const void* k, const void* v, const void* seg,
-                               void* out, int B, int S, int H, int head_dim, float scale,
-                               void* stream) {
+// coordinates).  m and l: null, or both (B, H, S) f32 that receive jax's
+// saved residuals (_flash_attention_fwd: each row's final max of the
+// scaled scores and its sum of p at that max; jax keeps them broadcast
+// over 128 lanes), which the backward kernels (flash_attention_bwd.cu)
+// read.  Returns a cudaError_t: 1 (cudaErrorInvalidValue) for shapes the
+// kernel does not take, else the launch's own status.
+extern "C" int flash_attention_res(const void* q, const void* k, const void* v, const void* seg,
+                                   void* out, void* m, void* l, int B, int S, int H,
+                                   int head_dim, float scale, void* stream) {
   if (S < kKeys || S % kKeys != 0 || B < 1 || H < 1 || head_dim < 1 ||
       (long long)B * H > INT32_MAX || (long long)H * head_dim > INT32_MAX ||
+      (m == nullptr) != (l == nullptr) ||
       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
+  float* rm = (float*)m;
+  float* rl = (float*)l;
   if (head_dim > 256 && head_dim % slab::kSlab == 0)
-    return S == kKeys ? slab::launch<true>(q, k, v, seg, out, B, S, H, head_dim, scale, st)
-                      : slab::launch<false>(q, k, v, seg, out, B, S, H, head_dim, scale, st);
+    return S == kKeys ? slab::launch<true>(q, k, v, seg, out, rm, rl, B, S, H, head_dim, scale, st)
+                      : slab::launch<false>(q, k, v, seg, out, rm, rl, B, S, H, head_dim, scale,
+                                            st);
   switch (head_dim) {
-    case 32: return launch<32>(q, k, v, seg, out, B, S, H, scale, st);
-    case 64: return launch<64>(q, k, v, seg, out, B, S, H, scale, st);
-    case 128: return launch<128>(q, k, v, seg, out, B, S, H, scale, st);
+    case 32: return launch<32>(q, k, v, seg, out, rm, rl, B, S, H, scale, st);
+    case 64: return launch<64>(q, k, v, seg, out, rm, rl, B, S, H, scale, st);
+    case 128: return launch<128>(q, k, v, seg, out, rm, rl, B, S, H, scale, st);
     case 256:
-      return S == kKeys ? d256::launch<true>(q, k, v, seg, out, B, S, H, scale, st)
-                        : d256::launch<false>(q, k, v, seg, out, B, S, H, scale, st);
+      return S == kKeys ? d256::launch<true>(q, k, v, seg, out, rm, rl, B, S, H, scale, st)
+                        : d256::launch<false>(q, k, v, seg, out, rm, rl, B, S, H, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The serving entry: the context alone (no residuals), as before they
+// were added; earlier builds of this file export it with these arguments.
+extern "C" int flash_attention(const void* q, const void* k, const void* v, const void* seg,
+                               void* out, int B, int S, int H, int head_dim, float scale,
+                               void* stream) {
+  return flash_attention_res(q, k, v, seg, out, nullptr, nullptr, B, S, H, head_dim, scale,
+                             stream);
 }

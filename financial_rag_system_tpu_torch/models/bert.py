@@ -21,11 +21,14 @@ cross-encoder share it.  Numerics follow the JAX default path:
   JAX einsum path's arithmetic in plain PyTorch (:func:`_einsum_attention`);
 - a forward that is being differentiated (:func:`_graded`: grad mode on
   and a parameter requires grad, as the trainers of :mod:`train` run it)
-  takes the einsum attention at every length and the unfused layer, with
-  one bf16 cast per projection and, on the card, a dense product whose
-  backward gives JAX's cotangents (:class:`_BF16Product`) and embedding
-  lookups whose backward sums in a fixed order (:class:`_Lookup`); the JAX
-  kernels have no backward (see :func:`_pair_attn_enabled`).
+  takes the unfused layer, with one bf16 cast per projection and, on the
+  card, a dense product whose backward gives JAX's cotangents
+  (:class:`_BF16Product`) and embedding lookups whose backward sums in a
+  fixed order (:class:`_Lookup`); its attention is the einsum path, the
+  pair-attention kernel having no backward (see
+  :func:`_pair_attn_enabled`), except under ``RAG_TPU_FLASH`` at a length
+  that is a multiple of 128, where the flash attention runs with jax's
+  backward (kernels 7, 8 and 9 on the card; :func:`_flash_enabled`).
 
 Four opt-ins, each off by default, as in the JAX package:
 
@@ -189,7 +192,9 @@ def _pair_attn_enabled(seq: int, head_dim: int, graded: bool = False) -> bool:
       ``jax.grad`` raises ``ValueError: Linearization failed to produce
       known values for all output primals``.  The JAX trainers therefore
       run the einsum path (on the CPU, or with ``RAG_TPU_PAIR_ATTN=0``),
-      and so does a graded forward here, at every length.
+      and a graded forward here passes the kernel by: to the flash
+      attention where :func:`_flash_enabled` takes the length, else to the
+      einsum path.
     """
     mode = os.environ.get("RAG_TPU_PAIR_ATTN", "auto").lower()
     if graded or mode in ("0", "false", "off") or head_dim > 128:
@@ -197,7 +202,7 @@ def _pair_attn_enabled(seq: int, head_dim: int, graded: bool = False) -> bool:
     return seq >= 256 if mode == "auto" else True
 
 
-def _flash_enabled(seq: int, heads: int, graded: bool = False) -> bool:
+def _flash_enabled(seq: int, heads: int) -> bool:
     """Whether attention at this sequence length may run the segment-masked
     flash attention (:func:`ops.flash_attention.encoder_flash_attention`),
     read once per :meth:`BertModel.encode` after :func:`_pair_attn_enabled`
@@ -209,15 +214,18 @@ def _flash_enabled(seq: int, heads: int, graded: bool = False) -> bool:
       ``false`` and the empty string are off; any other value is on
       (``False`` and ``off`` included);
     - ``seq`` at least 128 and a multiple of 128 (jax's 128-key blocks);
-    - ``heads`` is JAX's argument, which its gate does not read either;
-    - never in a graded forward (``graded``, :func:`_graded`): the kernel
-      has no backward, and the JAX package configures its flash kernel
-      with forward blocks only, so ``jax.grad`` through it raises
-      (``ValueError: ... not all backward blocks are specified``); a
-      trainer's forward takes the einsum path here.
+    - ``heads`` is JAX's argument, which its gate does not read either.
+
+    Like JAX's gate it has no rule for a graded forward: a trainer's
+    forward under the variable takes the flash attention too, whose
+    backward is jax's (``flash_attention.py:204-318``; kernels 8 and 9 on
+    the card).  JAX's own trainers reach it as well and raise only because
+    ``bert.py:176-179`` gives forward block sizes alone; the function they
+    differentiate on the einsum path is the same attention, so the port's
+    step computes the step JAX's does.
     """
     del heads
-    if graded or os.environ.get("RAG_TPU_FLASH", "0") in ("0", "false", ""):
+    if os.environ.get("RAG_TPU_FLASH", "0") in ("0", "false", ""):
         return False
     return seq >= 128 and seq % 128 == 0
 
@@ -524,7 +532,7 @@ class BertModel(nn.Module):
         nh, hd = cfg.heads, cfg.hidden // cfg.heads
         if _pair_attn_enabled(seq, hd, graded):
             attend = encoder_self_attention
-        elif _flash_enabled(seq, nh, graded):
+        elif _flash_enabled(seq, nh):
             attend = encoder_flash_attention
         else:
             attend = _einsum_attention

@@ -83,9 +83,11 @@ def library(name: str) -> ctypes.CDLL:
 
 def refuse_grad(what: str, *tensors) -> None:
     """Raise when grad mode is on and a tensor (``None`` skipped) requires
-    grad: the kernels have no backward, and launching one on raw pointers
+    grad: kernels 1-6 have no backward, and launching one on raw pointers
     would cut the autograd graph without a word.  A graded forward of the
-    encoder never comes here (``models/bert.py _graded``)."""
+    encoder never comes here (``models/bert.py _graded``).  The flash
+    attention does not ask it: it has a backward of its own
+    (``ops/flash_attention.py _FlashAttention``, kernels 8 and 9)."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(f"{what}: the CUDA kernel has no backward; call it on tensors "
                            "that do not require grad, or under torch.no_grad()")

@@ -67,10 +67,31 @@ S, 128) block of f32 scores.
   and sum, then P = p / sum(p)).  These are liberties within the kernel's
   atol 1e-2, emulated on the CPU in ``tests/test_torch_flash_wide.py``;
   :func:`d256_plan` mirrors its shared memory and register budgets.
-  A CUDA input that requires grad under grad mode raises
-  (``_cuda.refuse_grad``): neither this kernel nor JAX's forward-only
-  configuration has a backward, and a graded forward of the encoder takes
-  the einsum path (``models/bert.py _flash_enabled``).
+
+The backward (jax's ``custom_vjp`` of its flash attention, ``_flash_attention_bwd``
+with its two kernels ``_flash_attention_bwd_dkv`` and
+``_flash_attention_bwd_dq``): whenever grad mode is on and q, k or v
+requires grad, :func:`encoder_flash_attention` runs :class:`_FlashAttention`,
+an autograd function over the same forward.  Its forward keeps jax's
+residuals, each row's final max ``m`` of the scaled scores and its sum
+``l`` at that max ((B, H, S) f32: the kernel's ``flash_attention_res``
+entry, :func:`flash_attention_fwd_plain` on the CPU), with the bf16 q, k,
+v, the bf16 context and the segment ids.  Its backward rounds the f32
+cotangent to bf16 (the transpose of JAX's ``.astype(jnp.float32)`` of the
+bf16 context, ``bert.py:188``), takes ``di = rowsum(f32(o) f32(dO))`` in
+torch (jax computes it in XLA, ``flash_attention.py:272-275``), and runs
+``csrc/flash_attention_bwd.cu`` on a CUDA tensor (kernel 8, dK and dV, and
+kernel 9, dQ, counted on ``encoder_flash_attention.launches_bwd_dkv`` and
+``.launches_bwd_dq``) or :func:`flash_attention_bwd_plain` on a CPU one;
+it returns f32 gradients of the bf16 values (the transpose of the
+``.astype(jnp.bfloat16)`` casts, ``bert.py:181-183``).  Per (query, key)
+pair: ``p = exp(s - m) * (1 / l)`` (0 where the segments differ),
+``dV += bf16(p)^T . dO``, ``dP = dO . V^T``, ``dS = (dP - di) * p *
+sm_scale``, ``dK += bf16(dS)^T . q``, ``dQ += bf16(dS) . K``, every product
+summed in f32 and each gradient stored as bf16.  A width the forward pads
+is padded as the forward pads it, and the padded columns of the gradients
+(zero) are sliced off.  The serving path (no grad) is unchanged: it asks
+the kernel for no residuals.
 """
 
 from __future__ import annotations
@@ -193,6 +214,18 @@ def check_shape(seq: int, head_dim: int) -> None:
                          f"S {BLOCK}; got head_dim {head_dim} at S {seq}")
 
 
+def _bf16_heads(*tensors) -> tuple:
+    """(B, S, H, d) tensors as f32 holding their bf16 values, (B, H, S, d)."""
+    return tuple(t.to(torch.bfloat16).float().permute(0, 2, 1, 3) for t in tensors)
+
+
+def _block_scores(qb, kb, same, inv_sqrt: float, lo: int) -> torch.Tensor:
+    """jax's scores of keys lo .. lo + 127: sm_scale (q . k^T) plus
+    ``MASK_VALUE`` where the segments differ; (B, H, S, 128) f32."""
+    sc = torch.matmul(qb, kb[:, :, lo:lo + BLOCK].transpose(-1, -2)) * inv_sqrt
+    return sc + torch.where(same[..., lo:lo + BLOCK], 0.0, MASK_VALUE)
+
+
 def flash_attention_plain(
     q: torch.Tensor,               # (B, S, H, d)
     k: torch.Tensor,
@@ -206,26 +239,41 @@ def flash_attention_plain(
     product, so only the order of the f32 sums differs from the kernel's.
     Holds one (B, H, S, 128) block of scores at a time."""
     b, s, h, d = q.shape
+    out, _, _ = flash_attention_fwd_plain(q, k, v, attention_mask, inv_sqrt)
+    return out.reshape(b, s, h * d).to(out_dtype)
+
+
+def flash_attention_fwd_plain(
+    q: torch.Tensor,               # (B, S, H, d)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    attention_mask: torch.Tensor,  # (B, S) segment ids
+    inv_sqrt: float,
+) -> tuple:
+    """:func:`flash_attention_plain`'s arithmetic with jax's saved
+    residuals (``_flash_attention_fwd``, ``save_residuals=True``): the
+    (B, S, H, d) bf16 context, and each row's final max ``m`` of the
+    scaled, masked scores and its sum ``l`` of ``exp(s - m)``, (B, H, S)
+    f32 each (at S 128 the plain softmax's max and sum)."""
+    b, s, h, d = q.shape
     check_shape(s, d)
-    qb, kb, vb = (t.to(torch.bfloat16).float().permute(0, 2, 1, 3) for t in (q, k, v))
+    qb, kb, vb = _bf16_heads(q, k, v)
     seg = attention_mask.to(torch.int32)
     same = seg[:, None, :, None] == seg[:, None, None, :]  # (B, 1, S, S)
 
-    def scores(lo: int) -> torch.Tensor:
-        sc = torch.matmul(qb, kb[:, :, lo:lo + BLOCK].transpose(-1, -2)) * inv_sqrt
-        return sc + torch.where(same[..., lo:lo + BLOCK], 0.0, MASK_VALUE)
-
     if s == BLOCK:  # jax's single-step kernel: the plain softmax
-        sc = scores(0)
-        p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
-        p = p / p.sum(dim=-1, keepdim=True)
+        sc = _block_scores(qb, kb, same, inv_sqrt, 0)
+        m = sc.amax(dim=-1, keepdim=True)
+        p = torch.exp(sc - m)
+        l = p.sum(dim=-1, keepdim=True)
+        p = p / l
         acc = torch.matmul(p.to(torch.bfloat16).float(), vb)
     else:
         m = torch.full((b, h, s, 1), float("-inf"), device=q.device)
         l = torch.zeros((b, h, s, 1), device=q.device)
         acc = torch.zeros((b, h, s, d), device=q.device)
         for lo in range(0, s, BLOCK):
-            sc = scores(lo)
+            sc = _block_scores(qb, kb, same, inv_sqrt, lo)
             m_next = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
             p = torch.exp(sc - m_next)
             del sc
@@ -237,7 +285,56 @@ def flash_attention_plain(
             del p
             m, l = m_next, l_next
     out = acc.to(torch.bfloat16).permute(0, 2, 1, 3)
-    return out.reshape(b, s, h * d).to(out_dtype)
+    return out, m[..., 0], l[..., 0]
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor,               # (B, S, H, d) the forward's q, k, v
+    k: torch.Tensor,
+    v: torch.Tensor,
+    attention_mask: torch.Tensor,  # (B, S) segment ids
+    do: torch.Tensor,              # (B, S, H, d) the context's cotangent
+    m: torch.Tensor,               # (B, H, S) f32 residuals of the forward
+    l: torch.Tensor,
+    di: torch.Tensor,              # (B, H, S) f32: rowsum(f32(o) f32(dO))
+    inv_sqrt: float,
+    dq: bool = True,
+    dkv: bool = True,
+) -> tuple:
+    """Plain PyTorch version of kernels 8 and 9: jax's
+    ``_flash_attention_dkv_kernel`` and ``_flash_attention_dq_kernel``
+    step by step, a 128-key block at a time, with their bf16 rounding
+    points: ``p = exp(s - m) * (1 / l)``; ``dV = bf16(p)^T . dO``; ``dP =
+    dO . V^T``; ``dS = (dP - di) * p * sm_scale``; ``dK = bf16(dS)^T . q``;
+    ``dQ = sum over key blocks of bf16(dS) . K``; bf16 operands multiplied
+    as f32 (exact), the sums in f32.  Returns (dQ, dK, dV), each (B, S, H,
+    d) bf16, None where not asked for (``dq``, ``dkv``)."""
+    b, s, h, d = q.shape
+    check_shape(s, d)
+    qb, kb, vb, dob = _bf16_heads(q, k, v, do)
+    seg = attention_mask.to(torch.int32)
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    m, inv_l, di = m[..., None], 1.0 / l[..., None], di[..., None]
+    g_q = torch.zeros_like(qb) if dq else None
+    g_k, g_v = [], []
+    for lo in range(0, s, BLOCK):
+        p = torch.exp(_block_scores(qb, kb, same, inv_sqrt, lo) - m) * inv_l
+        if dkv:
+            g_v.append(torch.matmul(p.transpose(-1, -2).to(torch.bfloat16).float(), dob))
+        dp = torch.matmul(dob, vb[:, :, lo:lo + BLOCK].transpose(-1, -2))
+        ds = ((dp - di) * p * inv_sqrt).to(torch.bfloat16).float()
+        del p, dp
+        if dkv:
+            g_k.append(torch.matmul(ds.transpose(-1, -2), qb))
+        if dq:
+            g_q = g_q + torch.matmul(ds, kb[:, :, lo:lo + BLOCK])
+        del ds
+
+    def out(t):
+        return None if t is None else t.to(torch.bfloat16).permute(0, 2, 1, 3)
+
+    return (out(g_q), out(torch.cat(g_k, dim=2) if dkv else None),
+            out(torch.cat(g_v, dim=2) if dkv else None))
 
 
 def padded_head_dim(head_dim: int, seq: int) -> int:
@@ -269,9 +366,10 @@ def kernel_inputs(q, k, v):
     return tuple((torch.nn.functional.pad(t, (0, pad)) if pad else t).contiguous() for t in bf)
 
 
-def _kernel_fn():
-    fn = _cuda.library("flash_attention").flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+def _kernel_fn(residuals: bool = False):
+    lib = _cuda.library("flash_attention")
+    fn = lib.flash_attention_res if residuals else lib.flash_attention
+    fn.argtypes = ([ctypes.c_void_p] * (7 if residuals else 5) + [ctypes.c_int] * 4
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -283,11 +381,13 @@ def flash_attention_kernel(
     vb: torch.Tensor,   # (B, S, H, dp) bf16
     seg: torch.Tensor,  # (B, S) int32 segment ids
     inv_sqrt: float,
-) -> torch.Tensor:
+    residuals: bool = False,
+):
     """Launch ``csrc/flash_attention.cu`` on the current stream; returns
-    the (B, S, H, dp) bf16 context.  Raises on anything the kernel does
-    not take.  Counts the launch on the counter :func:`launch_counter`
-    names."""
+    the (B, S, H, dp) bf16 context, and with ``residuals`` also jax's m
+    and l, (B, H, S) f32 each (the C entry ``flash_attention_res``).
+    Raises on anything the kernel does not take.  Counts the launch on the
+    counter :func:`launch_counter` names."""
     b, s, h, dp = qb.shape
     check_shape(s, dp)
     counter = launch_counter(dp)
@@ -306,12 +406,126 @@ def flash_attention_kernel(
     if any(t.data_ptr() % 16 for t in (qb, kb, vb)):
         raise ValueError("q, k and v must be 16-byte aligned")
     out = torch.empty_like(qb)
+    res = ()
+    if residuals:
+        res = tuple(torch.empty((b, h, s), dtype=torch.float32, device=qb.device)
+                    for _ in range(2))
     with _cuda.on_device(qb.device):
-        _cuda.launch(_kernel_fn(), "flash_attention", qb.data_ptr(), kb.data_ptr(),
-                     vb.data_ptr(), seg.data_ptr(), out.data_ptr(), b, s, h, dp, inv_sqrt)
+        _cuda.launch(_kernel_fn(residuals), "flash_attention", qb.data_ptr(), kb.data_ptr(),
+                     vb.data_ptr(), seg.data_ptr(), out.data_ptr(),
+                     *(t.data_ptr() for t in res), b, s, h, dp, inv_sqrt)
+    _count(counter)
+    return (out, *res) if residuals else out
+
+
+def _count(counter: str) -> None:
     with _launch_lock:  # batches run in worker threads
         setattr(encoder_flash_attention, counter, getattr(encoder_flash_attention, counter) + 1)
-    return out
+
+
+def _bwd_fn(name: str):
+    fn = getattr(_cuda.library("flash_attention_bwd"), name)
+    outputs = 2 if name == "flash_attention_bwd_dkv" else 1
+    fn.argtypes = ([ctypes.c_void_p] * (8 + outputs) + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_bwd_kernel(
+    qb: torch.Tensor,   # (B, S, H, dp) bf16: the forward's kernel inputs
+    kb: torch.Tensor,
+    vb: torch.Tensor,
+    seg: torch.Tensor,  # (B, S) int32 segment ids
+    m: torch.Tensor,    # (B, H, S) f32: the forward's residuals
+    l: torch.Tensor,
+    dob: torch.Tensor,  # (B, S, H, dp) bf16: the context's cotangent
+    di: torch.Tensor,   # (B, H, S) f32: rowsum(f32(o) f32(dO))
+    inv_sqrt: float,
+    dq: bool = True,
+    dkv: bool = True,
+) -> tuple:
+    """Launch ``csrc/flash_attention_bwd.cu`` on the current stream: kernel
+    9 (``flash_attention_bwd_dq``) when ``dq``, kernel 8
+    (``flash_attention_bwd_dkv``) when ``dkv``; returns (dQ, dK, dV), each
+    (B, S, H, dp) bf16, None where not asked for.  Raises on anything the
+    kernels do not take.  Counts each launch on
+    ``encoder_flash_attention.launches_bwd_dq`` / ``.launches_bwd_dkv``."""
+    b, s, h, dp = qb.shape
+    check_shape(s, dp)
+    launch_counter(dp)  # the forward's widths only
+    if b * h >= 2 ** 31 or h * dp >= 2 ** 31 or b * h * (s // 64) * max(1, dp // 64) >= 2 ** 31:
+        raise ValueError(f"the flash backward indexes in 32 bits; got B {b}, S {s}, H {h}, "
+                         f"head_dim {dp}")
+    for name, t in (("q", qb), ("k", kb), ("v", vb), ("dO", dob)):
+        if t.shape != qb.shape or t.dtype != torch.bfloat16:
+            raise ValueError(f"{name} must be {tuple(qb.shape)} bf16")
+    for name, t in (("m", m), ("l", l), ("di", di)):
+        if t.shape != (b, h, s) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be {(b, h, s)} f32")
+    if seg.shape != (b, s) or seg.dtype != torch.int32:
+        raise ValueError(f"segment ids must be {(b, s)} int32")
+    for t in (qb, kb, vb, dob, seg, m, l, di):
+        if t.device != qb.device or t.device.type != "cuda" or not t.is_contiguous():
+            raise ValueError("inputs must be contiguous and on one CUDA device")
+    if any(t.data_ptr() % 16 for t in (qb, kb, vb, dob)):
+        raise ValueError("q, k, v and dO must be 16-byte aligned")
+    args = (qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), seg.data_ptr(), m.data_ptr(),
+            l.data_ptr(), dob.data_ptr(), di.data_ptr())
+    g_q = torch.empty_like(qb) if dq else None
+    g_k, g_v = (torch.empty_like(qb), torch.empty_like(qb)) if dkv else (None, None)
+    with _cuda.on_device(qb.device):
+        if dkv:
+            _cuda.launch(_bwd_fn("flash_attention_bwd_dkv"), "flash_attention_bwd_dkv", *args,
+                         g_k.data_ptr(), g_v.data_ptr(), b, s, h, dp, inv_sqrt)
+            _count("launches_bwd_dkv")
+        if dq:
+            _cuda.launch(_bwd_fn("flash_attention_bwd_dq"), "flash_attention_bwd_dq", *args,
+                         g_q.data_ptr(), b, s, h, dp, inv_sqrt)
+            _count("launches_bwd_dq")
+    return g_q, g_k, g_v
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash attention with jax's VJP (``flash_attention.py:204-318``):
+    (B, S, H, d) q, k, v of any float dtype and (B, S) int32 segment ids
+    in, the (B, S, H*d) f32 context out.  The forward saves the bf16 q, k,
+    v (as the kernel takes them: padded), the bf16 context, the segment
+    ids and m, l; the backward returns the gradients of q, k and v in their
+    dtypes (see the module docstring).  The kernels on a CUDA tensor, the
+    plain versions on a CPU one."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg, inv_sqrt):
+        b, s, h, d = q.shape
+        if q.device.type == "cuda":
+            qb, kb, vb = kernel_inputs(q, k, v)
+            out, m, l = flash_attention_kernel(qb, kb, vb, seg, inv_sqrt, residuals=True)
+        else:
+            qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+            out, m, l = flash_attention_fwd_plain(qb, kb, vb, seg, inv_sqrt)
+        ctx.save_for_backward(qb, kb, vb, out, seg, m, l)
+        ctx.inv_sqrt, ctx.d, ctx.dtypes = inv_sqrt, d, (q.dtype, k.dtype, v.dtype)
+        return out[..., :d].reshape(b, s, h * d).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        qb, kb, vb, out, seg, m, l = ctx.saved_tensors
+        b, s, h, dp = qb.shape
+        d, inv_sqrt = ctx.d, ctx.inv_sqrt
+        do = g.reshape(b, s, h, d).to(torch.bfloat16)  # the transpose of the f32 cast
+        di = (out[..., :d].float() * do.float()).sum(-1).permute(0, 2, 1).contiguous()
+        want_q = ctx.needs_input_grad[0]
+        want_kv = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        if qb.device.type == "cuda":
+            dob = (torch.nn.functional.pad(do, (0, dp - d)) if dp > d else do).contiguous()
+            grads = flash_attention_bwd_kernel(qb, kb, vb, seg, m, l, dob, di, inv_sqrt,
+                                               dq=want_q, dkv=want_kv)
+        else:
+            grads = flash_attention_bwd_plain(qb, kb, vb, seg, do, m, l, di, inv_sqrt,
+                                              dq=want_q, dkv=want_kv)
+        return (*(None if t is None else t[..., :d].to(dt)
+                  for t, dt in zip(grads, ctx.dtypes)), None, None)
 
 
 def encoder_flash_attention(
@@ -324,17 +538,21 @@ def encoder_flash_attention(
 ) -> torch.Tensor:
     """Returns the (B, S, H*d) context, f32 unless ``out_dtype`` asks for
     bf16 (exact: the kernel stores bf16).  The CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor; nothing else."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, attention_mask, inv_sqrt, out_dtype)
-    if q.device.type != "cuda":
+    tensor, the plain version for a CPU tensor; nothing else.  Under grad
+    mode with q, k or v requiring grad, :class:`_FlashAttention` (the same
+    forward with jax's backward: kernels 7, 8 and 9 on the card)."""
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
-    _cuda.refuse_grad("flash_attention", q, k, v)
     b, s, h, d = q.shape
     for name, t in (("k", k), ("v", v)):
         if t.shape != q.shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} != q {tuple(q.shape)}")
     check_shape(s, d)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        seg = attention_mask.to(torch.int32).contiguous()
+        return _FlashAttention.apply(q, k, v, seg, inv_sqrt).to(out_dtype)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, attention_mask, inv_sqrt, out_dtype)
     qb, kb, vb = kernel_inputs(q, k, v)
     out = flash_attention_kernel(qb, kb, vb, attention_mask.to(torch.int32).contiguous(),
                                  inv_sqrt)
@@ -342,8 +560,11 @@ def encoder_flash_attention(
 
 
 # kernel launches since the last reset (chip_smoke.py reads and resets
-# them): heads of 32-128, of 256, and of 384 and wider
+# them): heads of 32-128, of 256, and of 384 and wider; the backward's
+# dK/dV (kernel 8) and dQ (kernel 9)
 encoder_flash_attention.launches = 0
 encoder_flash_attention.launches_wide = 0
 encoder_flash_attention.launches_slab = 0
+encoder_flash_attention.launches_bwd_dkv = 0
+encoder_flash_attention.launches_bwd_dq = 0
 _launch_lock = threading.Lock()

@@ -12,7 +12,9 @@ seeded filler distractors are 0-label pairs.  The eval queries
 
 The graded forward (``models/bert.py _graded``) takes the einsum
 attention at every pair length, 512-token buckets included, where
-serving takes the pair-attention kernel.
+serving takes the pair-attention kernel; under ``RAG_TPU_FLASH`` the
+128-multiple buckets (``pad_batch``: 128, 256 and 512) take the flash
+attention with jax's backward instead (kernels 7, 8 and 9 on the card).
 """
 
 from __future__ import annotations

@@ -1015,6 +1015,119 @@ def test_long_and_wide_kernels_relaunch_and_threads(cuda, d, s):
         assert all(torch.equal(first, o) for o in outs)
 
 
+# -- kernels 8 and 9: the flash attention's backward -----------------------------
+
+FLASH_BWD_CASES = [
+    (p, s, h, d, kind)
+    for s, d, h in ((128, 32, 4), (256, 32, 4), (512, 32, 12), (1024, 32, 2), (128, 64, 4),
+                    (512, 64, 4), (256, 128, 2), (512, 128, 2), (128, 256, 2), (512, 256, 2),
+                    (128, 384, 2), (512, 384, 2), (1024, 384, 2))
+    for p, kind in ((3, "prefix"), (3, "rerank"), (3, "holes"))
+]
+
+
+def flash_bwd_case(p, s, h, d, kind, dev, seed=0):
+    """Kernel inputs at width ``d`` (padded as the forward pads it), the
+    forward's context and residuals from the card, a cotangent and di."""
+    q, k, v, _ = attn_case(p, s, h, seed=seed + s + d, d=d)
+    q, k, v, mask = (torch.tensor(a, device=dev) for a in (q, k, v, flash_mask(kind, p, s)))
+    inv = 1.0 / np.sqrt(d)
+    qb, kb, vb = flash_attention.kernel_inputs(q, k, v)
+    seg = mask.to(torch.int32)
+    out, m, l = flash_attention_kernel(qb, kb, vb, seg, inv, residuals=True)
+    g = torch.randn(p, s, h, d, device=dev, generator=torch.Generator(dev).manual_seed(seed))
+    do = g.to(torch.bfloat16)
+    di = (out[..., :d].float() * do.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dp = qb.shape[-1]
+    dob = torch.nn.functional.pad(do, (0, dp - d)).contiguous()
+    return dict(qb=qb, kb=kb, vb=vb, seg=seg, out=out, m=m, l=l, do=do, dob=dob, di=di,
+                inv=inv, d=d)
+
+
+@pytest.mark.parametrize("p,s,h,d,kind", FLASH_BWD_CASES)
+def test_flash_backward_kernels_match_plain(cuda, p, s, h, d, kind):
+    """Kernels 8 (dK, dV) and 9 (dQ) against ``flash_attention_bwd_plain``
+    on the same card inputs (the card's forward residuals), each within
+    2^-7 of the plain gradient's largest magnitude (one bf16 step of it:
+    the two round p and dS at the same points, their f32 sums in another
+    order); the forward's m and l against ``flash_attention_fwd_plain``'s
+    (m within 1e-3, l within 1e-3 relative: the kernel's ex2.approx) and
+    its context with residuals bit for bit the one without."""
+    c = flash_bwd_case(p, s, h, d, kind, cuda)
+    n_dkv = encoder_flash_attention.launches_bwd_dkv
+    n_dq = encoder_flash_attention.launches_bwd_dq
+    got = flash_attention.flash_attention_bwd_kernel(
+        c["qb"], c["kb"], c["vb"], c["seg"], c["m"], c["l"], c["dob"], c["di"], c["inv"])
+    torch.cuda.synchronize()
+    assert (encoder_flash_attention.launches_bwd_dkv, encoder_flash_attention.launches_bwd_dq) \
+        == (n_dkv + 1, n_dq + 1)
+    out_ref, m_ref, l_ref = flash_attention.flash_attention_fwd_plain(
+        c["qb"], c["kb"], c["vb"], c["seg"], c["inv"])
+    torch.testing.assert_close(c["m"], m_ref, atol=1e-3, rtol=0)
+    torch.testing.assert_close(c["l"], l_ref, atol=0, rtol=1e-3)
+    assert torch.equal(c["out"], flash_attention_kernel(c["qb"], c["kb"], c["vb"], c["seg"],
+                                                         c["inv"]))
+    ref = flash_attention.flash_attention_bwd_plain(
+        c["qb"], c["kb"], c["vb"], c["seg"], c["dob"], c["m"], c["l"], c["di"], c["inv"])
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert a.shape == r.shape == c["qb"].shape and a.dtype == torch.bfloat16
+        a, r = a.float(), r.float()
+        assert torch.isfinite(a).all()
+        # the padded columns are zero
+        assert not a[..., d:].any()
+        err = float((a - r).abs().max())
+        assert err <= 2.0 ** -7 * float(r.abs().max()), (name, err, float(r.abs().max()))
+
+
+def test_flash_attention_under_grad_runs_its_backward(cuda):
+    """``encoder_flash_attention`` on CUDA tensors that require grad runs
+    kernel 7 with residuals and, in the backward, kernels 8 and 9 once
+    each; the gradients match the CPU's autograd function (its plain
+    twins) on the same inputs within 2^-7 of their largest magnitude, and
+    two runs give the same bits.  At heads of 24 the padding is sliced
+    off the gradients."""
+    for p, s, h, d in ((3, 512, 12, 32), (2, 256, 2, 24), (2, 128, 2, 384)):
+        q, k, v, _ = attn_case(p, s, h, seed=s + d, d=d)
+        mask = flash_mask("rerank", p, s)
+        g = np.random.default_rng(d).standard_normal((p, s, h * d)).astype(np.float32)
+        inv = 1.0 / np.sqrt(d)
+        runs = []
+        for dev in ("cuda", "cuda", "cpu"):
+            leaves = [torch.tensor(a, device=dev, requires_grad=True) for a in (q, k, v)]
+            n = (encoder_flash_attention.launches, encoder_flash_attention.launches_slab,
+                 encoder_flash_attention.launches_bwd_dkv, encoder_flash_attention.launches_bwd_dq)
+            out = encoder_flash_attention(*leaves, torch.tensor(mask, device=dev), inv)
+            out.backward(torch.tensor(g, device=dev))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                now = (encoder_flash_attention.launches, encoder_flash_attention.launches_slab,
+                       encoder_flash_attention.launches_bwd_dkv,
+                       encoder_flash_attention.launches_bwd_dq)
+                fwd = (0, 1) if d == 384 else (1, 0)
+                assert tuple(b - a for a, b in zip(n, now)) == (*fwd, 1, 1)
+            runs.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+        torch.testing.assert_close(runs[0][0], runs[2][0], atol=1e-2, rtol=0)
+        for a, r in zip(runs[0][1:], runs[2][1:]):
+            assert a.shape == (p, s, h, d) and a.dtype == torch.float32
+            assert float((a - r).abs().max()) <= 2.0 ** -7 * float(r.abs().max())
+
+
+def test_flash_backward_kernel_rejects_inputs(cuda):
+    c = flash_bwd_case(2, 128, 2, 32, "prefix", cuda)
+    args = [c[k] for k in ("qb", "kb", "vb", "seg", "m", "l", "dob", "di")]
+    bwd = flash_attention.flash_attention_bwd_kernel
+    with pytest.raises(ValueError, match="dO"):
+        bwd(*args[:6], c["dob"].float(), args[7], c["inv"])
+    with pytest.raises(ValueError, match="m must"):
+        bwd(args[0], args[1], args[2], args[3], c["m"][:, :, :64], *args[5:], c["inv"])
+    with pytest.raises(ValueError, match="contiguous"):
+        bwd(*args[:7], c["di"].transpose(1, 2).contiguous().transpose(1, 2), c["inv"])
+    with pytest.raises(ValueError, match="head_dim"):
+        y = torch.zeros((2, 128, 2, 24), dtype=torch.bfloat16, device=cuda)
+        bwd(y, y, y, args[3], *args[4:6], y, args[7], c["inv"])
+
+
 def test_flash_attention_kernel_rejects_shapes(cuda):
     m = torch.ones((1, 512), dtype=torch.int32, device=cuda)
     for s, d in ((200, 32), (704, 32), (64, 32), (256, 192), (384, 320)):
@@ -1414,15 +1527,12 @@ def graded_inputs(dev):
     c = block_case(256, 128, 512, dev)
     q, k, v = (torch.randn(2, 64, 4, 32, device=dev) for _ in range(3))
     mask = torch.ones(2, 64, dtype=torch.int32, device=dev)
-    fq = torch.randn(2, 128, 4, 32, device=dev)
     tq, tc, tcodes, tqf = (torch.tensor(a, device=dev) for a in topk_case(4, 2048, 64, 2000))
     pq, pqf, pemb, pcodes, pgids, ptiles, _ = (
         torch.tensor(a, device=dev) if isinstance(a, np.ndarray) else a
         for a in probe_case(4, 64, 8, 128))
     return {
         "pair_attention": lambda rg: encoder_self_attention(leaf(q, rg), k, v, mask, 0.1),
-        "flash_attention": lambda rg: encoder_flash_attention(
-            leaf(fq, rg), fq, fq, torch.ones(2, 128, dtype=torch.int32, device=dev), 0.1),
         "fused_qkv": lambda rg: fused_bert.fused_qkv(leaf(c["x"], rg), *qkv_args(c)[1:]),
         "fused_resid_ln": lambda rg: fused_bert.fused_resid_ln(
             c["x"], c["ctx"], leaf(c["w"][3], rg), c["b"][3], c["s"], c["lb"], 1e-12),
@@ -1435,12 +1545,13 @@ def graded_inputs(dev):
     }
 
 
-@pytest.mark.parametrize("name", ["pair_attention", "flash_attention", "fused_qkv",
-                                  "fused_resid_ln", "fused_ffn_ln", "masked_topk", "ivf_probe"])
+@pytest.mark.parametrize("name", ["pair_attention", "fused_qkv", "fused_resid_ln",
+                                  "fused_ffn_ln", "masked_topk", "ivf_probe"])
 def test_kernel_wrappers_refuse_inputs_that_require_grad(cuda, name):
-    """A kernel has no backward: handed a CUDA tensor that requires grad
+    """A kernel without a backward: handed a CUDA tensor that requires grad
     under grad mode, its wrapper raises instead of cutting the graph; the
-    same call without grad launches."""
+    same call without grad launches.  (The flash attention has a backward,
+    kernels 8 and 9: ``test_flash_attention_under_grad_runs_its_backward``.)"""
     call = graded_inputs(cuda)[name]
     with pytest.raises(RuntimeError, match="no backward"):
         call(True)
