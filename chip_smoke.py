@@ -206,19 +206,25 @@ seventeen phases; any failure raises and the script exits non-zero:
    the default gate, pairs of 992 tokens, kernel 2's long branch (the
    ring kernel above S 512, ``pair_attention_long``) 6 times a batch; (b)
    ``RAG_TPU_FLASH=1 RAG_TPU_PAIR_ATTN=0``, pairs padded to 1,024, kernel
-   7 6 times a batch; (c) a cross-encoder of BERT-base widths in 2 heads
+   7's long-row kernel (``flash_attention_long``, heads of 32 above S 512)
+   6 times a batch; (c) a cross-encoder of BERT-base widths in 2 heads
    of 384 (4 layers, 1,024 positions) under ``RAG_TPU_FLASH=1``, kernel
    7's slab kernel (``flash_attention_slab``) 4 times a batch; each with 3
    asks, a burst of 32 and a cache hit, an 8-query batch against the
    einsum batch (rows and bi scores identical, logits within 5e-2), the
    (S, d) the kernel saw and a profile; the ``kernels`` line's figures of
-   the new branches at the served shapes (the plain version in chunks of
-   pairs); then kernel 2 at heads of 32, 64 and 128 at S 513, 640, 1,024,
-   2,048 and 4,096, kernel 7 at heads of 32-256 at S 640, 1,024 and 2,048
-   and at heads of 384 and 512 at S 128, 512 and 1,024, on phase 3's
-   rerank mask stretched to S and on the uniform-length mask, each
-   against its plain version (1e-2), some timed beside SDPA, the bound
-   and the MUFU floor;
+   the three branches at the served shapes (the plain version in chunks
+   of pairs; with ``--flash-baseline`` kernel 7's two beside the parent's
+   build in turns), and the L2 -> shared bytes kernel 7's two stage there
+   as their plans reckon them; then kernel 2 at heads of 32, 64 and 128 at S 513,
+   640, 1,024, 2,048 and 4,096, kernel 7 at heads of 32-256 at S 640,
+   1,024 and 2,048 and at heads of 384 and 512 at S 128, 512 and 1,024,
+   on phase 3's rerank mask stretched to S and on the uniform-length
+   mask, each against its plain version (1e-2), some timed beside SDPA,
+   the bound and the MUFU floor; with ``--flash-baseline`` kernel 7 at S
+   1,024 and 2,048 (heads of 32, 64, 128, 256, 384, 512 and 640) beside
+   the parent's build in turns, bit for bit at the widths this build did
+   not redesign (64-256);
 16. the flash attention's backward (kernels 8 and 9,
    ``csrc/flash_attention_bwd.cu``) and the cross-encoder trainer on the
    flash path: (a) kernel 7's residuals (m, l) and kernels 8 and 9
@@ -1213,6 +1219,7 @@ def kernel_counters() -> dict:
             "pair_attention_ring": (encoder_self_attention, "launches_ring"),
             "pair_attention_long": (encoder_self_attention, "launches_long"),
             "flash_attention": (encoder_flash_attention, "launches"),
+            "flash_attention_long": (encoder_flash_attention, "launches_long"),
             "flash_attention_wide": (encoder_flash_attention, "launches_wide"),
             "flash_attention_slab": (encoder_flash_attention, "launches_slab"),
             "flash_attention_bwd_dkv": (encoder_flash_attention, "launches_bwd_dkv"),
@@ -4746,7 +4753,9 @@ def time_flash(torch, np, smi: str, label: str, q, k, v, mask_np, baseline=None,
         return fa.flash_attention_kernel(qb, kb, vb, seg, inv)
 
     ms = median_ms(kernel, reps=20)
-    dev = device_ms(torch, kernel, "slab_kernel" if qb.shape[-1] > 256 else "flash")
+    dp = qb.shape[-1]
+    dev = device_ms(torch, kernel, "slab_kernel" if dp > 256 else
+                    "long_kernel" if fa.launch_counter(dp, s) == "launches_long" else "flash")
     plain_ms = median_ms(plain, reps=3, warmup=1)
     qh, kh, vh = (t.transpose(1, 2) for t in (qb, kb, vb))
     same = seg[:, None, :, None] == seg[:, None, None, :]
@@ -4764,7 +4773,7 @@ def time_flash(torch, np, smi: str, label: str, q, k, v, mask_np, baseline=None,
         with kernel_lib("flash_attention", baseline):
             old = kernel()
             torch.cuda.synchronize()
-            old_dev = device_ms(torch, kernel, "flash")
+            old_dev = device_ms(torch, kernel, "kernel")
         diff = float((new.float() - old.float()).abs().max())
         del new, old
         if exact and diff != 0.0:
@@ -4814,7 +4823,8 @@ def check_flash_kernel(torch, np, main: dict, smi: str, baseline=None) -> list:
     ring = [k for k in report if "12flash_kernel" in k]
     d256 = [k for k in report if "15flash256_kernel" in k]
     slab = [k for k in report if "11slab_kernel" in k]
-    if (len(ring) != 3 or len(d256) != 2 or len(slab) != 2
+    long_row = [k for k in report if "11long_kernel" in k]
+    if (len(ring) != 3 or len(d256) != 2 or len(slab) != 6 or len(long_row) != 1
             or any(r[1] or r[2] for r in report.values())):
         raise AssertionError(f"[flash] a kernel-7 kernel spills, or ptxas named other kernels: "
                              f"{report}")
@@ -5183,6 +5193,12 @@ LONG_FLASH_SEQS = (640, 1024, 2048)
 LONG_FLASH_WIDTHS = ((12, 32), (12, 64), (6, 128), (3, 256))
 SLAB_SEQS = (128, 512, 1024)
 SLAB_WIDTHS = ((2, 384), (2, 512))
+# --flash-baseline: the parent's build in turns beside the redesigned
+# branches (heads of 32 above S 512, heads of 384, 512 and 640) and beside
+# the unchanged ones above S 512 (heads of 64-256)
+FLASH_BASELINE_LONG = ((1024, 12, 32), (2048, 12, 32), (1024, 12, 64), (1024, 6, 128),
+                       (1024, 3, 256), (1024, 2, 384), (2048, 2, 384), (1024, 2, 512),
+                       (1024, 2, 640))
 # the shapes of those that are timed (the rest are checked only)
 LONG_TIMED = {(1024, 32), (1024, 64), (1024, 128), (4096, 32), (1024, 256), (2048, 32),
               (1024, 384), (1024, 512), (128, 384)}
@@ -5295,7 +5311,7 @@ def check_long_kernels(torch, np, main: dict, smi: str, attn_baseline=None,
                 continue
             mask = torch.tensor(mask_np, device="cuda")
             inv = d ** -0.5
-            counter = fa.launch_counter(fa.padded_head_dim(d, s))
+            counter = fa.launch_counter(fa.padded_head_dim(d, s), s)
             err = check_kernel_case(
                 torch, label, lambda: fa.encoder_flash_attention(q, k, v, mask, inv),
                 lambda: fa.flash_attention_plain(q, k, v, mask, inv),
@@ -5315,6 +5331,16 @@ def check_long_kernels(torch, np, main: dict, smi: str, attn_baseline=None,
         for name, mask_np in cases:
             time_flash(torch, np, smi, f"{name} (S <= 512 against the baseline)", q, k, v,
                        mask_np, flash_baseline, exact=True)
+    # the redesigned branches beside the parent's (not bit for bit: their
+    # order differs within the tolerance), and kernel 7 at heads of 64 and
+    # 128 above S 512, which keeps flash_kernel<D> (bit for bit)
+    for s, h, d in FLASH_BASELINE_LONG:
+        if flash_baseline is None:
+            break
+        q, k, v, cases = masks(long_pairs(s, h), s, h, d)
+        for name, mask_np in cases:
+            time_flash(torch, np, smi, f"{name} (S {s} against the baseline)", q, k, v, mask_np,
+                       flash_baseline, exact=d in (64, 128, 256), chunk=long_pairs(s, h))
 
 
 def served_shapes(torch, fn, wrapper: str):
@@ -5400,11 +5426,13 @@ def serve_long(torch, np, work: Path, smi: str, part: str, reranker: str, layers
     return run
 
 
-def long_served_kernel(torch, np, run: dict, smi: str, kernel: str) -> dict:
+def long_served_kernel(torch, np, run: dict, smi: str, kernel: str, baseline=None) -> dict:
     """A ``kernels`` line entry at the served shape of ``run``: the
     burst's rerank mask (as the encoder hands it to attention) with random
     q, k and v at its (S, d) and 480 pairs, timed by ``time_attention_mask``
-    or ``time_flash`` with the plain version in chunks of pairs."""
+    or ``time_flash`` with the plain version in chunks of pairs; a flash
+    kernel beside ``baseline`` (the parent's build, ``--flash-baseline``)
+    in turns."""
     from financial_rag_system_tpu_torch.models import bert
 
     engine = run["engine"]
@@ -5429,9 +5457,20 @@ def long_served_kernel(torch, np, run: dict, smi: str, kernel: str) -> dict:
     h = engine.reranker.cfg.heads
     d = engine.reranker.cfg.hidden // h
     q, k, v, _ = card_inputs(torch, np, p, s, h, d)
-    timer = time_flash if flash else time_attention_mask
-    res = timer(torch, np, smi, f"phase 15's served mask ({kernel})", q, k, v, mask_np,
-                chunk=long_pairs(s, h))
+    label = f"phase 15's served mask ({kernel})"
+    if flash:
+        res = time_flash(torch, np, smi, label, q, k, v, mask_np, baseline,
+                         chunk=long_pairs(s, h))
+        from financial_rag_system_tpu_torch.ops import flash_attention as fa
+
+        plan, mirror = ((fa.slab_plan(p, s, h, d), "slab_plan") if kernel == "flash_attention_slab"
+                        else (fa.long_plan(p, s, h, d), "long_plan"))
+        log(f"[flash] {smi}: phase 15's served mask ({kernel}), P={p} S={s} H={h} d={d}: L2 -> "
+            f"shared bytes staged with no (tile, block) skipped {plan.staged_bytes / 1e9:.2f} GB, "
+            f"computed from the plan (ops/flash_attention.py {mirror}), not measured")
+    else:
+        res = time_attention_mask(torch, np, smi, label, q, k, v, mask_np,
+                                  chunk=long_pairs(s, h))
     source = "flash_attention.cu" if flash else "pair_attention.cu"
     replaces = ("financial_rag_system_tpu/models/bert.py:160" if flash
                 else "financial_rag_system_tpu/ops/attention.py:48")
@@ -5462,8 +5501,8 @@ def drive_phase_15(torch, np, work: Path, main: dict, smi: str, kernels: list,
     parts = (
         ("a", LONG_MINILM_DIR, LONG_MINILM_SHAPE, {}, "pair_attention_long",
          "encoder_self_attention", "ring_kernel"),
-        ("b", LONG_MINILM_DIR, LONG_MINILM_SHAPE, FLASH_ENV, "flash_attention",
-         "encoder_flash_attention", "flash_kernel<"),
+        ("b", LONG_MINILM_DIR, LONG_MINILM_SHAPE, FLASH_ENV, "flash_attention_long",
+         "encoder_flash_attention", "long_kernel"),
         ("c", SLAB_DIR, SLAB_SHAPE, {"RAG_TPU_FLASH": "1"}, "flash_attention_slab",
          "encoder_flash_attention", "slab_kernel"),
     )
@@ -5475,8 +5514,10 @@ def drive_phase_15(torch, np, work: Path, main: dict, smi: str, kernels: list,
         log(f"[phase-15] part ({part}) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernels.append(long_served_kernel(torch, np, runs["a"], smi, "pair_attention_long"))
-    kernels.append(long_served_kernel(torch, np, runs["c"], smi, "flash_attention_slab"))
-    long_served_kernel(torch, np, runs["b"], smi, "flash_attention")
+    kernels.append(long_served_kernel(torch, np, runs["c"], smi, "flash_attention_slab",
+                                      flash_baseline))
+    kernels.append(long_served_kernel(torch, np, runs["b"], smi, "flash_attention_long",
+                                      flash_baseline))
     for run in runs.values():
         del run["engine"]
     log(f"[phase-15] the served shapes' kernel figures took {time.perf_counter() - t0:.1f} s")
@@ -5877,8 +5918,8 @@ def main() -> int:
     parser.add_argument(
         "--flash-baseline", type=Path, default=None, metavar="CSRC",
         help="csrc/ directory of an earlier checkout: time its flash_attention.cu beside "
-             "kernel 7 at each shape of phase 12 (a), in turns, and log their contexts' "
-             "difference",
+             "kernel 7 at each shape of phase 12 (a) and at phase 15's, in turns, and log "
+             "their contexts' difference",
     )
     opts = parser.parse_args()
     try:

@@ -31,6 +31,10 @@
 // of 128 from 384 (the wrapper zero-pads every other width up to 128 to
 // the next of 32, 64 and 128); the segment ids (B, S) int32, any values;
 // S any multiple of 128.  These are the shapes jax's kernel takes.
+// Kernels: flash_kernel<D> (D 32 up to S 512, 64 and 128 at every S; the
+// design below), d256::flash256_kernel (D 256), slab::slab_kernel (384
+// and wider) and longrow::long_kernel (D 32 above S 512), each with a
+// section below.
 //
 // What bounds it on the H100, at the served shape (P 480 pairs, S 512,
 // 12 heads of 32, the rerank mask padded to 512; at 3 heads of 256 the
@@ -163,24 +167,97 @@
 //    the end: jax's normalised update (acc_jax = acc / l after every
 //    block) rearranged.
 //
-// Heads of 384 and every wider multiple of 128 (slab::slab_kernel<SINGLE>,
-// at the end): a column split.  A unit is (item, slab of 128 context
-// columns, two 64-row tiles), one tile to each of flash_kernel<128>'s two
-// consumer warpgroups, whose layout (64 f32 of context beside 64 of
-// scores a thread) and arithmetic (jax's 128-key online softmax,
-// attend<128>, with its liberties) it keeps.  QK^T spans the whole head:
-// for each 128-key block the producer stages, through a ring of seven 32
-// KB slots, K's 128-column pieces and both tiles' matching q pieces in
-// turn (no q tile stays resident, so any width fits), and the consumers
-// sum the pieces' wgmma m64n128k16 products into the same 64 scores;
-// then V's slab of the block.  The units of an item are dealt round the
-// blocks in order, as at D 256, so its K and V come from device memory
-// once and from L2 for each unit.  The cost of the split: every slab
-// computes the whole QK^T and its softmax again, and reads the whole K and
-// the q tile from L2.  The kernel does (D / 128 + 1) 2 P H S^2 D of tensor
-// work, against the function's 4 P H S^2 D ((D / 128 + 1) / 2 times: 2x at
-// D 384, 2.5x at D 512), and D / 128 times its exponentials; the bound
-// (the function's bytes and operations) does not change.
+// Heads of 384 and every wider multiple of 128 (slab::slab_kernel<G,
+// SINGLE>, at the end).  What bounds it: at phase 15 (c)'s shape (P 480,
+// S 1,024, 2 heads of 384) the function's tensor work, 0.99 ms at 989
+// TFLOP/s, over its bytes (0.38 ms); its exponentials (P H S^2) are a
+// sixth of D 32's.  But a 64-row tile's context at D 384 is 24,576 f32,
+// three eighths of the SM's registers, and a 128-key block of K and V
+// 192 KB: the card holds one tile's context and one block at a time, and
+// what it stages from L2 (K and V once for every tile that reads them)
+// is the cost to design against.  What the design does:
+//  - one QK^T and one softmax a (tile, block) over the whole head: the
+//    two consumer warpgroups hold the tile's context between them (a
+//    64-column chunk of each 128-column slab each: 32 f32 a chunk a
+//    thread, 96 at D 384, 128 at D 512), and split each block's keys for
+//    QK^T (wgmma m64n64k16, keys 64 wg .. of the block, q resident in
+//    shared memory, loaded once a tile) and the softmax; their row
+//    maxima (and at S 128 their row sums) meet in shared memory behind a
+//    named barrier, each writes its 64 keys of P (bf16, 128-byte
+//    swizzle) there for the other, and both run P.V (wgmma m64n64k16)
+//    with P's A fragments from registers (their own keys' as the softmax
+//    made them, the other's read back by ldmatrix) and B their chunk of
+//    V MN-major, a block's last P.V left in flight into the next
+//    block's QK^T;
+//  - K and V staged once for two row tiles: a cluster of two blocks (two
+//    SMs) takes two row tiles of an item, and each block loads its 64
+//    keys of every K and V slot for both (TMA multicast); a slot's
+//    release counts both blocks' consumer warps (remote mbarrier arrives
+//    with CTA-scope release: cluster-scope ones made a slot's round trip
+//    the kernel's bottleneck, over twice as slow).  Clusters of four ran slower
+//    than two, and one (no multicast) slower still (PERF.md;
+//    tools/flash_attention_variants.py slab_cluster_1, slab_cluster_4);
+//  - through a ring of 32 KB slots (128 keys x 128 columns: K's pieces,
+//    then V's slabs of the column group; four at D 384 and 512 beside q,
+//    P and the heads), K's slots going back a piece at a time as QK^T
+//    moves on (wait_group 1), V's a slab at a time.
+// L2 -> shared bytes at phase 15 (c)'s shape: 12.83 GB against the
+// parent's 42.28 GB (ops/flash_attention.py slab_plan).  Heads wider than
+// 512 run in column groups of two to four slabs, as even as they come
+// (640: 3 + 2; 1,024: 4 + 4), a launch for each group size, QK^T and the
+// softmax once a group: a thread holds at most four slabs' chunks of
+// context (128 f32) beside its 32 scores and 32 words of P, and five (160
+// f32) would pass its 224 registers, so this is the one place the kernel
+// computes a (tile, block)'s QK^T more than once (PERF.md, open
+// questions).  One instantiation with four slabs' accumulators, taking a
+// group's slab count at run time, in one launch (640 as 4 + 1), ran slower
+// on the H100 (tools/flash_attention_variants.py slab640_one_launch,
+// slab1024_one_launch and their _groups_outer forms; PERF.md, PR 23 call
+// 22): 1.15-1.24x at 640 with a row-tile pair's groups dealt one after
+// the other (an even count of clusters leaves each cluster units of one
+// group, and the four-slab ones set the time), 1.05-1.06x with the groups
+// outermost in an item, which made 1,024 1.04-1.09x.  Heads above
+// 1,024 stage q's 128-column pieces a block beside K's (q no longer fits
+// beside two slots).
+// Liberties beyond the file's, inside the same atol 1e-2
+// (tests/test_torch_long_attention.py emulates the order): the context
+// accumulates unnormalised and is divided by l once at the end, as at D
+// 256; l is the sum of the two warpgroups' shares.  m and l for the flash
+// trainer come from the one softmax.
+//
+// Heads of 32 above S 512 (longrow::long_kernel, at the end).  What bounds
+// it: not the tensor work (a 32-deep QK^T and P.V) but the softmax's
+// per-score work, an FFMA, an MUFU.EX2, an FMNMX, an FADD, half an F2FP
+// and the segment test where a block mixes ids, over every score of the
+// (tile, block) pairs the skip rule keeps (more than the pairs that share
+// a segment, whose MUFU floor PERF.md gives); issue slots more than
+// MUFU (cutting MUFU out saves a tenth: PERF.md).  flash_kernel<32>
+// there (three warpgroups, units of three tiles: the sixth unit of an
+// item's 16 tiles holds one, its other warpgroups idle) is bound by
+// latency, as its note above says.
+// What the design does: two consumer warpgroups take two row tiles each
+// of a unit of four (16 tiles are four units: none idles, and K and V
+// are staged four times an item, not six); a warpgroup takes each staged
+// block for both its tiles, QK^T of both on wgmma, then both softmaxes
+// interleaved step by step (two independent chains a warp: 7% faster
+// than one after the other) and both P.V on mma.sync, its arithmetic
+// otherwise flash_kernel's.  No QK^T or P.V is in flight across a
+// softmax.  FA3's pipeline ran slower, timed as variants at phase 15
+// (b)'s shape (tools/flash_attention_variants.py; PERF.md, PR 23 calls 20
+// and 22): one tile a warpgroup with block kb's QK^T and block kb - 1's
+// P.V (wgmma m64n32k16) in flight across the softmax and the warpgroups
+// issuing in turns on named barriers (long_pipelined) 1.14-1.17x, without
+// the turns (long_pipelined_solo) 1.08-1.12x, and two tiles a warpgroup
+// each running its softmax while the other's P.V and next QK^T are in
+// flight (long_staggered) 1.22-1.23x: the tensor work they hide is small
+// at d 32 (the softmax cut out leaves a third of the time), the first two
+// give up the two chains a warp and stage K and V twice as often (units
+// of two), and the third runs its two tiles' softmaxes one after the
+// other, not interleaved step by step.  Heads of
+// 64 and 128 keep flash_kernel<D> above S 512: two tiles' contexts (64 or
+// 128 f32 a thread each) beside two blocks of scores pass the 240
+// registers a thread.  Its liberty beyond the file's: the context
+// accumulates unnormalised (as at D 256).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -188,6 +265,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 #include "mma_bf16.cuh"
 #include "sm90.cuh"
@@ -258,6 +336,13 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// x as lane 0 of the warp holds it: a value the compiler then knows to be
+// the same in every lane, so a branch on it around wgmmas in flight is no
+// divergent path (ptxas would otherwise fence and serialise them, C7520)
+__device__ __forceinline__ bool warp_uniform(bool x) {
+  return __shfl_sync(0xffffffffu, (int)x, 0) != 0;
 }
 
 template <int RowB>
@@ -1181,114 +1266,116 @@ int launch(const void* q, const void* k, const void* v, const void* seg, void* o
 }  // namespace d256
 
 // ---------------------------------------------------------------------------
-// Heads of 384 and every wider multiple of 128 (slab::slab_kernel<SINGLE>):
-// a column split (see the file's header).
+// Heads of 384 and every wider multiple of 128 (slab::slab_kernel<G, SINGLE>):
+// one QK^T and one softmax a (row tile, key block), the context held across
+// two consumer warpgroups, K and V multicast to a cluster of two blocks
+// (see the file's header).
 
 namespace slab {
 
-// context columns a unit computes, and columns of q and K a slot holds (a
-// piece of QK^T's depth)
-constexpr int kSlab = 128;
-using C = Cfg<kSlab>;           // a unit's consumers are flash_kernel<128>'s
-constexpr int kWg = C::kWg;     // consumer warpgroups: a unit is 2 row tiles
-constexpr int kQChunk = kRows * 128;   // 8 KB: 64 rows x 64 columns of q, 128-byte swizzle
-constexpr int kKChunk = kKeys * 128;   // 16 KB: 128 keys x 64 columns of K or V
-constexpr int kSlotBytes = kSlab / 64 * kKChunk;  // 32 KB: K's piece or V's slab of a block
-static_assert(kSlotBytes == kWg * kSlab / 64 * kQChunk, "a slot also holds both tiles' q pieces");
-static_assert(C::kKChunk == kKChunk && C::kRowB == 128, "V's slab is laid out as attend reads it");
+// blocks of a cluster: row tiles sharing each K and V slot.  Four ran
+// slower on the H100 (where an item's tiles come in fours), and one (no
+// multicast) slower still (PERF.md; tools/flash_attention_variants.py
+// slab_cluster_1, slab_cluster_4)
+constexpr int kCluster = 2;
+constexpr int kWg = 2;                    // consumer warpgroups
+constexpr int kThreads = 128 * (kWg + 1);  // and a producer warpgroup
+// registers a thread after setmaxnreg: the producer's loop state spilled at 24
+constexpr int kProducerRegs = 56;
+constexpr int kConsumerRegs = 224;
+constexpr int kHalf = kKeys / kWg;        // 64: a consumer warpgroup's keys of a block
+constexpr int kQChunk = kRows * 128;      // 8 KB: 64 rows x 64 columns of q or P, 128-byte swizzle
+constexpr int kKChunk = kKeys * 128;      // 16 KB: 128 keys x 64 columns of K or V
+constexpr int kSlotBytes = 2 * kKChunk;   // 32 KB: a slot, 128 keys x 128 columns
+constexpr int kPBytes = 2 * kQChunk;      // 16 KB: P, 64 rows x 128 keys
 constexpr int kMaxSlots = 8;
-// registers a thread after setmaxnreg, within the pool of flash_kernel<128>'s
-// launch (384 threads at 168), split as ptxas fits each instantiation
-// without spills: the online softmax's consumers at 224 (the producer 56),
-// S 128's single step's at 232 (40).  Its budgets, 24 and 240, spilled
-// 40 bytes of the online softmax's loop-carried state.
-__host__ __device__ constexpr int producer_regs(bool single) { return single ? 40 : 56; }
-__host__ __device__ constexpr int consumer_regs(bool single) { return single ? 232 : 224; }
-static_assert(128 * (producer_regs(true) + kWg * consumer_regs(true)) <=
-                      C::kThreads * (65536 / C::kThreads / 8 * 8) &&
-                  128 * (producer_regs(false) + kWg * consumer_regs(false)) <=
-                      C::kThreads * (65536 / C::kThreads / 8 * 8),
+constexpr int kMaxGroup = 4;              // 128-column slabs of a column group: G 32 f32 a thread
+constexpr int kShare = kKeys / kCluster;  // keys of a slot each block loads for the cluster
+static_assert(128 * (kProducerRegs + kWg * kConsumerRegs) <=
+                  kThreads * (65536 / kThreads / 8 * 8),
               "the register budgets exceed the block's pool");
 
-// 1 KB to align the slots to the swizzle's atoms; the slots; the heads of
-// two blocks; each slot's full and empty barriers (ops/flash_attention.py
-// slab_plan mirrors this)
-constexpr size_t smem_bytes(int slots) {
-  return 1024 + (size_t)slots * kSlotBytes + 2 * sizeof(StageHead) + 2 * slots * sizeof(uint64_t);
+// 1 KB to align; q's tile when it stays resident; P; the slots; the heads
+// of two blocks; the two warpgroups' row maxima and row sums; each slot's
+// full and empty barriers and q's (ops/flash_attention.py slab_plan
+// mirrors this)
+__host__ __device__ constexpr size_t smem_bytes(int d, bool qres, int slots) {
+  return 1024 + (qres ? (size_t)kRows * d * 2 : 0) + kPBytes + (size_t)slots * kSlotBytes +
+         2 * sizeof(StageHead) + 2 * kWg * kRows * sizeof(float) +
+         (2 * (size_t)slots + 1) * sizeof(uint64_t);
 }
 
-// as many slots as fit, up to kMaxSlots: 7.  A block's head is written with
-// its first slot into one of two heads, so a slot's last tenant must be of
-// the block before or later, or the last slot of the block two back: at
-// most 2 np + 2 slots, np = D / 128 >= 3 pieces (a block takes 2 np + 1)
-constexpr int ring_slots() {
+// q stays resident, loaded once a tile, while it leaves two slots (heads
+// up to 1,024); wider heads stage q's 128-column pieces beside K's
+__host__ __device__ constexpr bool q_resident(int d) { return smem_bytes(d, true, 2) <= kSmemLimit; }
+
+// as many slots as fit, up to kMaxSlots.  A block's head is written with
+// its first slot into one of two, so a slot's last tenant must be of the
+// block before or the last slot of the block two back: at most a block's
+// slots plus one, which every width keeps (a block takes D / 128 + G >= 5)
+__host__ __device__ constexpr int ring_slots(int d) {
   int n = kMaxSlots;
-  while (n > 2 && smem_bytes(n) > kSmemLimit) --n;
+  while (n > 2 && smem_bytes(d, q_resident(d), n) > kSmemLimit) --n;
   return n;
 }
-static_assert(ring_slots() == 7 && smem_bytes(ring_slots()) == 231568 &&
-                  ring_slots() <= 2 * 3 + 2,
-              "seven 32 KB slots and two block heads fill a block's shared memory");
-// the ring's size a compile-time constant: n % ns and n / ns take no
-// registers, and the heads and barriers sit at fixed offsets
-constexpr int kSlots = ring_slots();
+static_assert(ring_slots(384) == 4 && ring_slots(512) == 4 && ring_slots(640) == 3 &&
+                  q_resident(1024) && ring_slots(1024) == 2 && !q_resident(1152) &&
+                  ring_slots(1152) == 6,
+              "the rings ops/flash_attention.py slab_plan expects");
 
-// The work: units, each (item, slab of kSlab context columns, the row
-// tiles 2u, 2u + 1), in the order item 0's slab 0's units, its slab 1's,
-// ..., item 1's; unit w goes to block w % gridDim.x, so an item's units
-// run on neighbouring SMs at once and share its K and V in L2 (d256's order)
-__device__ __forceinline__ void unit_of(int k, int slabs, int units, int& item, int& sl, int& u) {
-  const int w = blockIdx.x + k * gridDim.x;
-  item = w / (slabs * units);
-  const int r = w - item * slabs * units;
-  sl = r / units;
-  u = r - sl * units;
+// The work: units (item, group u of kCluster row tiles, column group g),
+// item-major; unit w goes to cluster w % clusters, so an item's units run
+// on neighbouring SMs at once and share its K and V in L2.  Block `rank`
+// of the cluster takes row tile kCluster u + rank.
+__device__ __forceinline__ void unit_of(int w, int tgroups, int ng, int& item, int& u, int& g) {
+  item = w / (tgroups * ng);
+  const int r = w - item * tgroups * ng;
+  u = r / ng;
+  g = r - u * ng;
 }
 
-// s (+)= q K^T over one piece of the head (64 rows x 128 keys, f32):
-// eight wgmma m64n128k16 steps, waited for; the first piece starts the sum
-__device__ __forceinline__ void qk_piece(float (&s)[64], const unsigned char* qs,
-                                         const unsigned char* ks, bool first) {
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < kSlab / 16; ++kk) {
-    const int c = kk / 4, o = (kk % 4) * 32;  // column chunk of 64, offset in its 128-byte row
-    wgmma_ss(s, wgmma_desc_sw128(qs + c * kQChunk + o), wgmma_desc_sw128(ks + c * kKChunk + o),
-             first && kk == 0 ? 0u : 1u);
+template <int I, int N, typename F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (I < N) {
+    f(std::integral_constant<int, I>());
+    static_for<I + 1, N>(f);
   }
-  wgmma_commit();
-  wgmma_wait<0>();
-  wgmma_pin(s);
 }
 
-// The producer warp: for each unit and each 128-key block, the block's head
-// with its first slot, then per piece c of the head's columns a slot of K's
-// piece and one of both tiles' q pieces, then a slot of V's slab; loads only
-// where a tile of the unit attends the block.
+// The producer warp: for each unit and 128-key block, the block's head
+// (ids, which of the cluster's tiles attend it) with its first slot; then
+// K's 128-column pieces (each followed by q's piece of this block's tile
+// when q is not resident) and V's slabs of the unit's column group.  Where
+// any tile of the cluster attends the block, each block loads its kShare
+// keys of every K and V slot for the whole cluster (TMA multicast), so a
+// slot is read from L2 once for kCluster row tiles; each block's full
+// barrier expects the whole slot.
+template <int G>
 __device__ __forceinline__ void produce(const CUtensorMap* qmap, const CUtensorMap* kmap,
                                         const CUtensorMap* vmap, const int32_t* __restrict__ seg,
                                         unsigned char* slots, StageHead* heads, uint64_t* full,
-                                        uint64_t* empty, int n_units, int S, int H, int D,
-                                        int lane) {
-  constexpr int ns = kSlots;
-  const int T = S / kRows, nb = S / kKeys, units = T / kWg, np = D / kSlab;
-  int n = 0, blk = 0;  // slots filled, blocks staged
+                                        uint64_t* empty, int n_units, int ns, int S, int H, int D,
+                                        int ng, int slab0, bool qres, uint32_t rank, int cid,
+                                        int ncl, int lane) {
+  const int T = S / kRows, nb = S / kKeys, tg = T / kCluster, np = D / 128;
+  const int parts = (qres ? np : 2 * np) + G;  // slots a block
+  const uint16_t cluster = (1u << kCluster) - 1;
+  int s = 0, blk = 0;  // the next slot, blocks staged
+  uint32_t ph = 0;     // its round's parity
   for (int k = 0; k < n_units; ++k) {
-    int item, sl, u;
-    unit_of(k, D / kSlab, units, item, sl, u);
+    int item, u, g;
+    unit_of(cid + k * ncl, tg, ng, item, u, g);
     const int pair = item / H, hd = item - pair * H;
     const int32_t* srow = seg + (size_t)pair * S;
-    uint32_t tp[kWg];
-    tile_presence<kWg>(srow, u * kWg, T, lane, tp);
+    uint32_t tp[kCluster];
+    tile_presence<kCluster>(srow, u * kCluster, T, lane, tp);
     for (int kb = 0; kb < nb; ++kb, ++blk) {
-      uint32_t need = 0;
+      int x[4], lo, hi;
+      const uint32_t need = block_need<kCluster>(srow, kb, tp, lane, x, lo, hi);
 #pragma unroll 1
-      for (int part = 0; part <= 2 * np; ++part, ++n) {
-        const int s = n % ns;
-        mbar_wait(&empty[s], ((n / ns) & 1) ^ 1);  // the first round passes
-        if (part == 0) {  // the head is free: see ring_slots
-          int x[4], lo, hi;
-          need = block_need<kWg>(srow, kb, tp, lane, x, lo, hi);
+      for (int part = 0; part < parts; ++part) {
+        mbar_wait(&empty[s], ph ^ 1);  // the first round passes
+        if (part == 0) {  // the head two blocks back is free: see ring_slots
           StageHead& h = heads[blk & 1];
 #pragma unroll
           for (int v = 0; v < 4; ++v) h.ids[lane + 32 * v] = x[v];
@@ -1299,22 +1386,550 @@ __device__ __forceinline__ void produce(const CUtensorMap* qmap, const CUtensorM
           }
         }
         if (lane == 0 && need) {
-          mbar_arrive_expect_tx(&full[s], kSlotBytes);
           unsigned char* dst = slots + (size_t)s * kSlotBytes;
-          const bool v = part == 2 * np;
-          const int col = hd * D + (v ? sl : part >> 1) * kSlab;
+          const int piece = qres ? part : part >> 1;
+          if (!qres && part < 2 * np && (part & 1)) {  // q's piece of this block's tile
+            mbar_arrive_expect_tx(&full[s], 2 * kQChunk);
 #pragma unroll
-          for (int c = 0; c < kSlab / 64; ++c) {
-            if (v || (part & 1) == 0) {  // V's slab, or K's piece
-              tma_load_3d(dst + c * kKChunk, v ? vmap : kmap, &full[s], col + c * 64, kb * kKeys,
-                          pair);
-            } else {  // both tiles' q pieces
+            for (int c = 0; c < 2; ++c)
+              tma_load_3d(dst + c * kQChunk, qmap, &full[s], hd * D + piece * 128 + 64 * c,
+                          (u * kCluster + rank) * kRows, pair);
+          } else {  // K's piece or V's slab: this block's keys of it, for the cluster
+            const bool v = part >= parts - G;
+            const int col = hd * D + (v ? slab0 + g * G + part - (parts - G) : piece) * 128;
+            mbar_arrive_expect_tx(&full[s], kSlotBytes);
 #pragma unroll
-              for (int w = 0; w < kWg; ++w)
-                tma_load_3d(dst + (w * kSlab / 64 + c) * kQChunk, qmap, &full[s], col + c * 64,
-                            (u * kWg + w) * kRows, pair);
+            for (int c = 0; c < 2; ++c)
+              tma_load_3d_multicast(dst + c * kKChunk + rank * kShare * 128, v ? vmap : kmap,
+                                    &full[s], col + 64 * c, kb * kKeys + rank * kShare, pair,
+                                    cluster);
+          }
+        } else {
+          mbar_arrive(&full[s]);
+        }
+        if (++s == ns) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+    }
+  }
+}
+
+// A warpgroup's share of P.V over one slab of the column group: its
+// 64-column chunk of the slab (chunk wg, kKChunk bytes in), one wgmma
+// m64n64k16 a 16-key step into the chunk's 32 accumulators, V MN-major,
+// P's A fragments from registers: its own 64 keys' first, then the other
+// warpgroup's, read back from shared memory (a little faster than P from
+// shared memory by descriptor: tools/flash_attention_variants.py
+// slab_pv_from_smem)
+__device__ __forceinline__ void pv_chunk(float (&acc)[32], const uint32_t (&own)[kHalf / 16][4],
+                                         const uint32_t (&other)[kHalf / 16][4],
+                                         const unsigned char* vc, int wg) {
+  const unsigned char* vo = vc + wg * kHalf * 128;        // the own keys' rows of V
+  const unsigned char* vt = vc + (1 - wg) * kHalf * 128;  // the other warpgroup's
+#pragma unroll
+  for (int kk = 0; kk < kHalf / 16; ++kk)
+    wgmma_rs_mn(acc, own[kk], wgmma_desc_mn<128>(vo + kk * 16 * 128, kKChunk), 1u);
+#pragma unroll
+  for (int kk = 0; kk < kHalf / 16; ++kk)
+    wgmma_rs_mn(acc, other[kk], wgmma_desc_mn<128>(vt + kk * 16 * 128, kKChunk), 1u);
+}
+
+// G: 128-column slabs of a column group (2-4); the launch computes ng
+// groups from slab `slab0`.  SINGLE: S 128, jax's single step.
+template <int G, bool SINGLE>
+__global__ void __launch_bounds__(kThreads, 1)
+slab_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+            const __grid_constant__ CUtensorMap vmap, const int32_t* __restrict__ seg,
+            __nv_bfloat16* __restrict__ out, float* __restrict__ res_m,
+            float* __restrict__ res_l, int P, int S, int H, int D, float scale, int ng,
+            int slab0, int ns) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qtile = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const bool qres = q_resident(D);
+  unsigned char* pbuf = qtile + (qres ? (size_t)kRows * D * 2 : 0);  // [2][kQChunk]
+  unsigned char* slots = pbuf + kPBytes;
+  StageHead* heads = reinterpret_cast<StageHead*>(slots + (size_t)ns * kSlotBytes);
+  float* redm = reinterpret_cast<float*>(heads + 2);  // [kWg][kRows]: row maxima of a block
+  float* redl = redm + kWg * kRows;                   // [kWg][kRows]: row sums
+  uint64_t* full = reinterpret_cast<uint64_t*>(redl + kWg * kRows);
+  uint64_t* empty = full + ns;
+  uint64_t* qfull = empty + ns;
+
+  const uint32_t rank = cluster_rank();
+  const int cid = (int)cluster_id(), ncl = (int)cluster_count();
+  const int T = S / kRows, nb = S / kKeys, tg = T / kCluster, np = D / 128;
+  const int n_units = (P * H * tg * ng - cid + ncl - 1) / ncl;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ns; ++s) {
+      mbar_init(&full[s], 32);                    // every producer lane, after its head writes
+      mbar_init(&empty[s], 4 * kWg * kCluster);   // every consumer warp of the cluster
+    }
+    mbar_init(qfull, 1);
+    mbar_init_fence();
+  }
+  cluster_sync();  // every block's barriers are set before any other signals them
+
+  if (warp >= 4 * kWg) {  // the producer warpgroup: one warp works
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 4 * kWg)
+      produce<G>(&qmap, &kmap, &vmap, seg, slots, heads, full, empty, n_units, ns, S, H, D, ng,
+                 slab0, qres, rank, cid, ncl, lane);
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    // Consumer warpgroup wg: keys 64 wg .. 64 wg + 63 of every block for
+    // QK^T and the softmax, 64-column chunk wg of each of the column
+    // group's slabs for P.V (the same instructions in both warpgroups); the row maxima (and at S 128 the row sums)
+    // exchanged through shared memory, P written there for both.
+    const int wg = warp >> 2, wl = warp & 3, t = lane & 3;
+    const int row_a = 16 * wl + (lane >> 2);  // the thread's rows of the tile: row_a, row_a + 8
+    const float c2 = scale * kLog2e;
+    auto load_q = [&](int k) {  // unit k's resident q tile
+      int item, u, g;
+      unit_of(cid + k * ncl, tg, ng, item, u, g);
+      const int pair = item / H, hd = item - pair * H;
+      mbar_arrive_expect_tx(qfull, kRows * D * 2);
+      for (int c = 0; c < D / 64; ++c)
+        tma_load_3d(qtile + c * kQChunk, &qmap, qfull, hd * D + 64 * c,
+                    (u * kCluster + rank) * kRows, pair);
+    };
+    auto release = [&](int slot) {  // this warp is done with a slot: tell every block's producer
+      __syncwarp();
+#pragma unroll
+      for (int r = 0; r < kCluster; ++r) mbar_arrive_remote_if(&empty[slot], r, lane == 0);
+    };
+    int s = 0, blk = 0;  // the next slot, blocks passed
+    uint32_t ph = 0;     // its round's parity
+    auto take = [&]() {  // the next slot, waited for
+      const int sl = s;
+      mbar_wait(&full[sl], ph);
+      if (++s == ns) {
+        s = 0;
+        ph ^= 1;
+      }
+      return sl;
+    };
+    if (qres && threadIdx.x == 0 && n_units > 0) load_q(0);
+    for (int k = 0; k < n_units; ++k) {
+      int item, u, g;
+      unit_of(cid + k * ncl, tg, ng, item, u, g);
+      const int pair = item / H;
+      const int ra = (u * kCluster + (int)rank) * kRows + row_a;
+      const int seg_r[2] = {seg[(size_t)pair * S + ra], seg[(size_t)pair * S + ra + 8]};
+      float acc[32 * G];  // the context, unnormalised: slab c's chunk at acc[32 c ..], wgmma's layout
+#pragma unroll
+      for (int i = 0; i < 32 * G; ++i) acc[i] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY};  // running max of the unscaled scores
+      float l[2] = {0.f, 0.f};  // this thread's share of the running sum (S 128: the row's)
+      if (qres) mbar_wait(qfull, k & 1);
+      int pending_v = -1;  // the slot of a P.V still in flight from the block before
+      for (int kb = 0; kb < nb; ++kb, ++blk) {
+        mbar_wait(&full[s], ph);  // the block's head came with its first slot
+        const StageHead& h = heads[blk & 1];
+        const bool need = warp_uniform((h.need >> rank) & 1u);
+        // QK^T of the warpgroup's 64 keys, a 128-column piece of the head
+        // a slot; a piece's slots go back once its products are done
+        float sc[32];
+        int prev_k = 0, prev_q = 0;
+        for (int c = 0; c < np; ++c) {
+          const int sk = take();
+          const int sq = qres ? 0 : take();
+          const unsigned char* qs = qres ? qtile + 2 * c * kQChunk : slots + (size_t)sq * kSlotBytes;
+          if (need) {
+            wgmma_fence();
+            const unsigned char* ks = slots + (size_t)sk * kSlotBytes + wg * kHalf * 128;
+#pragma unroll
+            for (int cc = 0; cc < 2; ++cc) {
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk)
+                wgmma_ss(sc, wgmma_desc_sw128(qs + cc * kQChunk + 32 * kk),
+                         wgmma_desc_sw128(ks + cc * kKChunk + 32 * kk),
+                         (c | cc | kk) != 0 ? 1u : 0u);
             }
           }
+          wgmma_commit();
+          wgmma_wait<1>();
+          if (c > 0) {
+            release(prev_k);
+            if (!qres) release(prev_q);
+          } else if (pending_v >= 0) {  // the last block's P.V is done
+            release(pending_v);
+            pending_v = -1;
+          }
+          prev_k = sk;
+          prev_q = sq;
+        }
+        wgmma_wait<0>();
+        wgmma_pin(sc);
+        wgmma_pin(acc);
+        release(prev_k);
+        if (!qres) release(prev_q);
+        if (kb == nb - 1) {  // both warpgroups are past the unit's last QK^T
+          named_barrier(2, 2 * 128);
+          if (qres && threadIdx.x == 0 && k + 1 < n_units) load_q(k + 1);
+        }
+        float alpha[2] = {1.f, 1.f};
+        uint32_t own[kHalf / 16][4], other[kHalf / 16][4];  // P's A fragments, 64 keys each
+        if (need) {
+          // the segment test: a key of another id takes score -inf; none[h]
+          // when row h attends no key of a block that one id fills
+          bool none[2] = {false, false};
+          if (warp_uniform(h.uniform)) {
+            none[0] = seg_r[0] != h.id;
+            none[1] = seg_r[1] != h.id;
+          } else {
+            const int* ids = h.ids + kHalf * wg + 2 * t;
+#pragma unroll
+            for (int j = 0; j < kHalf / 8; ++j) {
+              const int2 kid = *reinterpret_cast<const int2*>(ids + 8 * j);
+#pragma unroll
+              for (int hh = 0; hh < 2; ++hh) {
+                sc[4 * j + 2 * hh] = kid.x == seg_r[hh] ? sc[4 * j + 2 * hh] : -INFINITY;
+                sc[4 * j + 2 * hh + 1] = kid.y == seg_r[hh] ? sc[4 * j + 2 * hh + 1] : -INFINITY;
+              }
+            }
+          }
+          // the block's row maxima: this warpgroup's 64 keys, then both
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            float x[4];
+#pragma unroll
+            for (int v = 0; v < 4; ++v) x[v] = fmaxf(sc[4 * v + 2 * hh], sc[4 * v + 2 * hh + 1]);
+#pragma unroll
+            for (int j = 4; j < kHalf / 8; ++j)
+              x[j & 3] = fmaxf(x[j & 3], fmaxf(sc[4 * j + 2 * hh], sc[4 * j + 2 * hh + 1]));
+            const float mx = quad_max(fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3])));
+            if (t == 0) redm[wg * kRows + row_a + 8 * hh] = none[hh] ? -INFINITY : mx;
+          }
+          named_barrier(1, 2 * 128);
+          float cr[2], nm[2];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = row_a + 8 * hh;
+            const float mn = fmaxf(m[hh], fmaxf(redm[row], redm[kRows + row]));
+            const bool empty_row = mn == -INFINITY;  // no key of the row's segment yet
+            alpha[hh] = empty_row ? 1.f : ex2((m[hh] - mn) * c2);
+            // p = ex2(s c2 - mn c2); 0 for every key of a row that attends none
+            cr[hh] = none[hh] ? 0.f : c2;
+            nm[hh] = none[hh] ? -INFINITY : (empty_row ? 0.f : -mn * c2);
+            m[hh] = mn;
+          }
+          float ls[2] = {0.f, 0.f};
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            sc[i] = ex2(fmaf(sc[i], cr[(i >> 1) & 1], nm[(i >> 1) & 1]));
+            ls[(i >> 1) & 1] += sc[i];
+          }
+          if constexpr (SINGLE) {  // p / sum(p) over both halves, as jax's single step
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const float q4 = quad_sum(ls[hh]);
+              if (t == 0) redl[wg * kRows + row_a + 8 * hh] = q4;
+            }
+            named_barrier(1, 2 * 128);
+            float rl[2];
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int row = row_a + 8 * hh;
+              l[hh] = redl[row] + redl[kRows + row];
+              rl[hh] = 1.f / l[hh];
+            }
+#pragma unroll
+            for (int i = 0; i < 32; ++i) sc[i] *= rl[(i >> 1) & 1];
+          } else {
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) l[hh] = fmaf(l[hh], alpha[hh], ls[hh]);
+          }
+          // P rounded to bf16: the warpgroup's own 64 keys as A fragments
+          // (own[kk]: row g keys 2t, 2t + 1; row g + 8; row g keys 2t + 8,
+          // 2t + 9; row g + 8), and into its 64-key chunk of shared memory
+          // for the other warpgroup: row r at 128 r, its 16-byte granule j
+          // at j ^ (r & 7) (128-byte swizzle)
+          unsigned char* pc = pbuf + wg * kQChunk;
+#pragma unroll
+          for (int kk = 0; kk < kHalf / 16; ++kk) {
+#pragma unroll
+            for (int f = 0; f < 4; ++f) {
+              own[kk][f] = pack_bf16(sc[8 * kk + 2 * f], sc[8 * kk + 2 * f + 1]);
+              const int row = row_a + 8 * (f & 1), j = 2 * kk + (f >> 1);
+              *reinterpret_cast<uint32_t*>(pc + row * 128 + ((j ^ (row & 7)) << 4) + 4 * t) =
+                  own[kk][f];
+            }
+          }
+          named_barrier(1, 2 * 128);  // both halves of P are in
+          // the other warpgroup's 64 keys of P, as A fragments (ldmatrix:
+          // lane l gives row (l & 7) + 8 ((l >> 3) & 1) of the warp's 16,
+          // 16-byte granule 2 kk + (l >> 4))
+          {
+            const unsigned char* po = pbuf + (1 - wg) * kQChunk;
+            const int row = 16 * wl + (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+            for (int kk = 0; kk < kHalf / 16; ++kk)
+              ldsm_x4(other[kk], po + row * 128 + (((2 * kk + (lane >> 4)) ^ (row & 7)) << 4));
+          }
+          if constexpr (!SINGLE) {
+            // a warp whose rows' maxima all stayed put (alpha 1) skips it: exact
+            if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+              for (int i = 0; i < 32 * G; ++i) acc[i] *= alpha[(i >> 1) & 1];
+            }
+          }
+        }
+        // P.V over the column group's V slabs, a slab a slot: this
+        // warpgroup's 64-column chunk wg of each
+        int prev_v = 0;
+        static_for<0, G>([&](auto ic) {
+          constexpr int i = decltype(ic)::value;
+          const int sv = take();
+          if (need) {
+            wgmma_fence();
+            pv_chunk(*reinterpret_cast<float(*)[32]>(acc + 32 * i), own, other,
+                     slots + (size_t)sv * kSlotBytes + wg * kKChunk, wg);
+          }
+          wgmma_commit();
+          wgmma_wait<1>();
+          if (i > 0) release(prev_v);
+          prev_v = sv;
+        });
+        // the block's last P.V stays in flight into the next block's QK^T
+        // (a little faster than waiting here: slab_pv_waited)
+        pending_v = prev_v;
+      }
+      if (pending_v >= 0) {  // the unit's last P.V
+        wgmma_wait<0>();
+        wgmma_pin(acc);
+        release(pending_v);
+      }
+      // the row sums: both warpgroups' shares (S 128: the row's already)
+      float inv[2] = {1.f, 1.f};
+      if constexpr (!SINGLE) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float q4 = quad_sum(l[hh]);
+          if (t == 0) redl[wg * kRows + row_a + 8 * hh] = q4;
+        }
+        named_barrier(1, 2 * 128);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = row_a + 8 * hh;
+          l[hh] = redl[row] + redl[kRows + row];
+          inv[hh] = l[hh] == 0.f ? 1.f : 1.f / l[hh];
+        }
+      }
+      const size_t tok = (size_t)H * D;  // stride of one token
+      const size_t base = (size_t)pair * S * tok + (size_t)(item - pair * H) * D +
+                          (size_t)(slab0 + g * G) * 128 + wg * 64;
+#pragma unroll
+      for (int c = 0; c < G; ++c) {  // chunk c: the group's columns 128 c + 64 wg ..
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 128 * c + 8 * j + 2 * t;
+          const float* a = acc + 32 * c + 4 * j;
+          *reinterpret_cast<uint32_t*>(out + base + (size_t)ra * tok + col) =
+              pack_bf16(a[0] * inv[0], a[1] * inv[0]);
+          *reinterpret_cast<uint32_t*>(out + base + (size_t)(ra + 8) * tok + col) =
+              pack_bf16(a[2] * inv[1], a[3] * inv[1]);
+        }
+      }
+      // m and l, from the one softmax: the first column group writes them
+      if (res_m != nullptr && g == 0 && wg == 0 && t == 0)
+        store_residuals(res_m, res_l, (size_t)item * S, ra, ra + 8, m, l, scale);
+    }
+  }
+  cluster_sync();  // no block leaves while another may still signal its barriers
+}
+
+// The clusters of an instantiation that the device holds at once, found
+// once per device with the kernel's shared memory raised to the limit (0
+// in `fit`: not yet); host threads may launch at once, and each may take
+// that first step.
+template <int G, bool SINGLE>
+cudaError_t clusters_held(int* clusters) {
+  static std::atomic<int> fit[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int c = fit[dev & 63].load(std::memory_order_acquire);
+  if (c == 0) {
+    err = cudaFuncSetAttribute(slab_kernel<G, SINGLE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kSmemLimit);
+    if (err != cudaSuccess) return err;
+    cudaLaunchConfig_t config = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kCluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    config.gridDim = dim3(kCluster);
+    config.blockDim = dim3(kThreads);
+    config.dynamicSmemBytes = kSmemLimit;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(&c, slab_kernel<G, SINGLE>, &config);
+    if (err != cudaSuccess) return err;
+    if (c < 1) return cudaErrorInvalidConfiguration;
+    fit[dev & 63].store(c, std::memory_order_release);
+  }
+  *clusters = c;
+  return cudaSuccess;
+}
+
+// ng column groups of G slabs from slab `slab0`, at most as many clusters
+// as the device holds at once
+template <int G, bool SINGLE>
+int launch_groups(const CUtensorMap& qmap, const CUtensorMap& kmap, const CUtensorMap& vmap,
+                  const void* seg, void* out, float* res_m, float* res_l, int P, int S, int H,
+                  int D, float scale, int ng, int slab0, cudaStream_t stream) {
+  int clusters = 0;
+  cudaError_t err = clusters_held<G, SINGLE>(&clusters);
+  if (err != cudaSuccess) return (int)err;
+  const long long units = (long long)P * H * (S / kRows / kCluster) * ng;
+  if (units > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const int ncl = units < clusters ? (int)units : clusters;
+  const int ns = ring_slots(D);
+  cudaLaunchConfig_t config = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.gridDim = dim3(ncl * kCluster);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem_bytes(D, q_resident(D), ns);
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, slab_kernel<G, SINGLE>, qmap, kmap, vmap,
+                           (const int32_t*)seg, (__nv_bfloat16*)out, res_m, res_l, P, S, H, D,
+                           scale, ng, slab0, ns);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <bool SINGLE>
+int launch_size(int G, const CUtensorMap& qmap, const CUtensorMap& kmap, const CUtensorMap& vmap,
+                const void* seg, void* out, float* res_m, float* res_l, int P, int S, int H, int D,
+                float scale, int ng, int slab0, cudaStream_t stream) {
+  switch (G) {
+    case 2:
+      return launch_groups<2, SINGLE>(qmap, kmap, vmap, seg, out, res_m, res_l, P, S, H, D, scale,
+                                       ng, slab0, stream);
+    case 3:
+      return launch_groups<3, SINGLE>(qmap, kmap, vmap, seg, out, res_m, res_l, P, S, H, D, scale,
+                                       ng, slab0, stream);
+    case 4:
+      return launch_groups<4, SINGLE>(qmap, kmap, vmap, seg, out, res_m, res_l, P, S, H, D, scale,
+                                       ng, slab0, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The head's D / 128 slabs in column groups of at most kMaxGroup, as even
+// as they come (sizes 2-4: 3, 4, 3 + 2, 3 + 3, 4 + 3, ...); one launch a
+// size, the first (from slab 0) writing m and l
+int launch(const void* q, const void* k, const void* v, const void* seg, void* out, float* res_m,
+           float* res_l, int P, int S, int H, int D, float scale, cudaStream_t stream) {
+  CUtensorMap qmap, kmap, vmap;
+  if (!tile_map(&qmap, q, P, S, H, D, 64, kRows) || !tile_map(&kmap, k, P, S, H, D, 64, kShare) ||
+      !tile_map(&vmap, v, P, S, H, D, 64, kShare))
+    return (int)cudaErrorInvalidValue;
+  const int np = D / 128, ng = (np + kMaxGroup - 1) / kMaxGroup;
+  const int base = np / ng, extra = np % ng;  // extra groups of base + 1 slabs, then of base
+  const bool single = S == kKeys;
+  int err = 0;
+  if (extra > 0)
+    err = single ? launch_size<true>(base + 1, qmap, kmap, vmap, seg, out, res_m, res_l, P, S, H,
+                                     D, scale, extra, 0, stream)
+                 : launch_size<false>(base + 1, qmap, kmap, vmap, seg, out, res_m, res_l, P, S,
+                                      H, D, scale, extra, 0, stream);
+  if (err == 0 && ng > extra) {
+    float* rm = extra > 0 ? nullptr : res_m;
+    float* rl = extra > 0 ? nullptr : res_l;
+    err = single ? launch_size<true>(base, qmap, kmap, vmap, seg, out, rm, rl, P, S, H, D, scale,
+                                     ng - extra, extra * (base + 1), stream)
+                 : launch_size<false>(base, qmap, kmap, vmap, seg, out, rm, rl, P, S, H, D, scale,
+                                      ng - extra, extra * (base + 1), stream);
+  }
+  return err;
+}
+
+}  // namespace slab
+
+// ---------------------------------------------------------------------------
+// Heads of 32 above S 512 (longrow::long_kernel): flash_kernel<32>'s ring
+// and layout, two consumer warpgroups of two row tiles each; a warpgroup
+// waits for both tiles' QK^T of a block, then runs their softmaxes and
+// P.V (mma.sync) interleaved step by step.  No QK^T or P.V is in flight
+// across a softmax, and the warpgroups do not take turns: FA3's pipeline
+// is a variant that was timed against it (see the file's header).
+
+namespace longrow {
+
+constexpr int D = 32;
+using C = Cfg<D>;                    // flash_kernel<32>'s stages: 32-column rows, 64-byte swizzle
+constexpr int kWg = 2;               // consumer warpgroups
+constexpr int kTiles = 2;            // row tiles of a unit a consumer warpgroup takes
+constexpr int kUnit = kWg * kTiles;  // warpgroup wg takes tiles t0 + wg (its A) and t0 + 2 + wg (B)
+constexpr int kThreads = 128 * (kWg + 1);  // and a producer warpgroup
+constexpr int kProducerRegs = 24;          // registers a thread after setmaxnreg
+constexpr int kConsumerRegs = 240;
+static_assert(128 * (kProducerRegs + kWg * kConsumerRegs) <=
+                  kThreads * (65536 / kThreads / 8 * 8),
+              "the register budgets exceed the block's pool");
+
+// 1 KB to align the stages to the swizzle's atoms; per stage K, V, its
+// head and its full and empty barriers; a consumer warpgroup's q tiles,
+// two buffers of kTiles, and a barrier a buffer (ops/flash_attention.py
+// long_plan mirrors this)
+constexpr size_t smem_bytes(int stages) {
+  return 1024 + stages * (2 * (size_t)C::kKvBytes + sizeof(StageHead) + 2 * sizeof(uint64_t)) +
+         kWg * 2 * (kTiles * (size_t)C::kQBytes + sizeof(uint64_t));
+}
+
+constexpr int ring_stages() {
+  int n = kMaxStages;
+  while (n > 2 && smem_bytes(n) > kSmemLimit) --n;
+  return n;
+}
+constexpr int kStages = ring_stages();
+static_assert(kStages == 8 && smem_bytes(kStages) == 169248,
+              "eight 16 KB stages and eight q tiles");
+
+// The producer warp: flash_kernel's, with units of kUnit row tiles
+__device__ __forceinline__ void produce(const CUtensorMap* kmap, const CUtensorMap* vmap,
+                                        const int32_t* __restrict__ seg, unsigned char* kv,
+                                        StageHead* head, uint64_t* full, uint64_t* empty,
+                                        int n_items, int S, int H, int lane) {
+  const int T = S / kRows, nb = S / kKeys;
+  int n = 0;  // stages filled
+  for (int i = 0; i < n_items; ++i) {
+    const int item = blockIdx.x + i * gridDim.x;
+    const int pair = item / H, hd = item - pair * H;
+    const int32_t* srow = seg + (size_t)pair * S;
+    for (int t0 = 0; t0 < T; t0 += kUnit) {
+      uint32_t tp[kUnit];
+      tile_presence<kUnit>(srow, t0, T, lane, tp);
+      for (int kb = 0; kb < nb; ++kb, ++n) {
+        int x[4], lo, hi;
+        const uint32_t need = block_need<kUnit>(srow, kb, tp, lane, x, lo, hi);
+        const int s = n % kStages;
+        mbar_wait(&empty[s], ((n / kStages) & 1) ^ 1);  // the first round passes
+        StageHead& h = head[s];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) h.ids[lane + 32 * u] = x[u];
+        if (lane == 0) {
+          h.need = need;
+          h.uniform = lo == hi;
+          h.id = lo;
+        }
+        if (lane == 0 && need) {
+          mbar_arrive_expect_tx(&full[s], 2 * C::kKvBytes);
+          unsigned char* ks = kv + (size_t)s * 2 * C::kKvBytes;
+          tma_load_3d(ks, kmap, &full[s], hd * D, kb * kKeys, pair);
+          tma_load_3d(ks + C::kKvBytes, vmap, &full[s], hd * D, kb * kKeys, pair);
         } else {
           mbar_arrive(&full[s]);
         }
@@ -1323,149 +1938,337 @@ __device__ __forceinline__ void produce(const CUtensorMap* qmap, const CUtensorM
   }
 }
 
-// SINGLE: S 128, jax's single step (flash_kernel's attend<kSlab, true>).
-template <bool SINGLE>
-__global__ void __launch_bounds__(C::kThreads, 1)
-slab_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+// s = q K^T of one block (64 rows x 128 keys, f32), issued and not waited
+// for: two wgmma m64n128k16 steps, both operands K-major
+__device__ __forceinline__ void qk_issue(float (&s)[64], const unsigned char* qs,
+                                         const unsigned char* ks) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss(s, wgmma_desc_sw64(qs + 32 * kk), wgmma_desc_sw64(ks + 32 * kk), kk > 0 ? 1u : 0u);
+}
+
+// One consumer warp's 16 rows of one tile
+struct Tile {
+  float acc[D / 2];  // the context, unnormalised: acc[4j + 2h + e] is row g + 8h, column 8j + 2t + e
+  float m[2];        // running max of the unscaled scores
+  float l[2];        // this thread's share of the running sum
+  int seg[2];        // the rows' segment ids
+};
+
+// The softmax of one block for the warp's rows, flash_kernel's attend, in
+// steps: the segment test (a key of another id takes score -inf; none[h]
+// when row h attends no key of a block that one id fills); m_next, alpha =
+// ex2((m - m_next) c2) and the factors of p = ex2(s cr + nm); p a 16-key
+// step at a time, summed and rounded to bf16 into P's A fragment.
+__device__ __forceinline__ void segment_test(const Tile& r, float (&s)[64], const StageHead& h,
+                                             bool uniform, int lane, bool (&none)[2]) {
+  none[0] = none[1] = false;
+  if (uniform) {
+    none[0] = r.seg[0] != h.id;
+    none[1] = r.seg[1] != h.id;
+    return;
+  }
+  const int* ids = h.ids + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < kKeys / 8; ++j) {
+    const int2 kid = *reinterpret_cast<const int2*>(ids + 8 * j);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      s[4 * j + 2 * hh] = kid.x == r.seg[hh] ? s[4 * j + 2 * hh] : -INFINITY;
+      s[4 * j + 2 * hh + 1] = kid.y == r.seg[hh] ? s[4 * j + 2 * hh + 1] : -INFINITY;
+    }
+  }
+}
+
+__device__ __forceinline__ void row_max(Tile& r, const float (&s)[64], const bool (&none)[2],
+                                        float c2, float (&cr)[2], float (&nm)[2],
+                                        float (&alpha)[2]) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {  // four chains a row, not one of 32 dependent FMNMX
+    float x[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) x[u] = fmaxf(s[4 * u + 2 * hh], s[4 * u + 2 * hh + 1]);
+#pragma unroll
+    for (int j = 4; j < kKeys / 8; ++j)
+      x[j & 3] = fmaxf(x[j & 3], fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+    float mx = quad_max(fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3])));
+    if (none[hh]) mx = -INFINITY;
+    const float mn = fmaxf(r.m[hh], mx);
+    const bool empty = mn == -INFINITY;  // no key of the row's segment yet
+    alpha[hh] = empty ? 1.f : ex2((r.m[hh] - mn) * c2);
+    cr[hh] = none[hh] ? 0.f : c2;
+    nm[hh] = none[hh] ? -INFINITY : (empty ? 0.f : -mn * c2);
+    r.m[hh] = mn;
+  }
+}
+
+// p of 16-key step kk into P's A fragment pa: row g keys 2t, 2t + 1; row
+// g + 8; row g keys 2t + 8, 2t + 9; row g + 8
+__device__ __forceinline__ void exp_step(float (&s)[64], int kk, const float (&cr)[2],
+                                         const float (&nm)[2], float (&ls)[2], uint32_t (&pa)[4]) {
+#pragma unroll
+  for (int i = 8 * kk; i < 8 * kk + 8; ++i) {
+    s[i] = ex2(fmaf(s[i], cr[(i >> 1) & 1], nm[(i >> 1) & 1]));
+    ls[(i >> 1) & 1] += s[i];
+  }
+#pragma unroll
+  for (int f = 0; f < 4; ++f) pa[f] = pack_bf16(s[8 * kk + 2 * f], s[8 * kk + 2 * f + 1]);
+}
+
+// acc += P.V of 16-key step kk (mma.sync m16n8k16, as flash_kernel's
+// attend: faster than a P.V wgmma at d 32, kernel 2's measure): P's A
+// fragment pa as the softmax made it, V's B fragments by ldmatrix.trans
+// from the 64-byte-swizzled stage (see v_lane); the context is the four
+// n8 tiles' accumulators (acc[4j ..] is tile j's)
+__device__ __forceinline__ void pv_step(float (&acc)[D / 2], const uint32_t (&pa)[4],
+                                        const unsigned char* vrow, int swh, int kk) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    uint32_t vf[4];
+    ldsm_x4_trans(vf, vrow + 16 * kk * C::kRowB + (((2 * half) ^ swh) << 4));
+    mma_bf16(*reinterpret_cast<float(*)[4]>(acc + 8 * half), pa, vf[0], vf[1]);
+    mma_bf16(*reinterpret_cast<float(*)[4]>(acc + 8 * half + 4), pa, vf[2], vf[3]);
+  }
+}
+
+// The lane's row of V in a stage and its swizzle: lane's matrix mi = lane
+// / 8 is keys 8 (mi & 1) .. of a step, column granule (mi >> 1) of the 16
+// columns; granule gi of key row k sits at gi ^ ((k >> 1) & 3)
+__device__ __forceinline__ const unsigned char* v_lane(const unsigned char* vs, int lane, int& swh) {
+  const int mi = lane >> 3;
+  const int key = (lane & 7) + 8 * (mi & 1);
+  swh = ((key >> 1) & 3) ^ (mi >> 1);
+  return vs + key * C::kRowB;
+}
+
+// The block for the warp's rows of one tile: the softmax, the context
+// rescaled by alpha, then each 16-key step's p made and multiplied into
+// the context at once (P lives a step, not a block: fewer registers)
+__device__ __forceinline__ void attend(Tile& r, float (&s)[64], const StageHead& h, bool uniform,
+                                       float c2, int lane, const unsigned char* vs) {
+  bool none[2];
+  float cr[2], nm[2], alpha[2], ls[2] = {0.f, 0.f};
+  segment_test(r, s, h, uniform, lane, none);
+  row_max(r, s, none, c2, cr, nm, alpha);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) r.acc[i] *= alpha[(i >> 1) & 1];
+  int swh;
+  const unsigned char* vrow = v_lane(vs, lane, swh);
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk) {
+    uint32_t pa[4];
+    exp_step(s, kk, cr, nm, ls, pa);
+    pv_step(r.acc, pa, vrow, swh, kk);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) r.l[hh] = fmaf(r.l[hh], alpha[hh], ls[hh]);
+}
+
+// attend for both of a warp's tiles, step by step in one stream: two
+// independent chains a warp for the scheduler to overlap (the kernel is
+// bound by issue and latency, not by MUFU)
+__device__ __forceinline__ void attend2(Tile& a, float (&sa)[64], Tile& b, float (&sb)[64],
+                                        const StageHead& h, bool uniform, float c2, int lane,
+                                        const unsigned char* vs) {
+  bool none_a[2], none_b[2];
+  float cra[2], nma[2], ala[2], lsa[2] = {0.f, 0.f};
+  float crb[2], nmb[2], alb[2], lsb[2] = {0.f, 0.f};
+  segment_test(a, sa, h, uniform, lane, none_a);
+  segment_test(b, sb, h, uniform, lane, none_b);
+  row_max(a, sa, none_a, c2, cra, nma, ala);
+  row_max(b, sb, none_b, c2, crb, nmb, alb);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    a.acc[i] *= ala[(i >> 1) & 1];
+    b.acc[i] *= alb[(i >> 1) & 1];
+  }
+  int swh;
+  const unsigned char* vrow = v_lane(vs, lane, swh);
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk) {
+    uint32_t pa[4], pb[4];
+    exp_step(sa, kk, cra, nma, lsa, pa);
+    exp_step(sb, kk, crb, nmb, lsb, pb);
+    pv_step(a.acc, pa, vrow, swh, kk);
+    pv_step(b.acc, pb, vrow, swh, kk);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    a.l[hh] = fmaf(a.l[hh], ala[hh], lsa[hh]);
+    b.l[hh] = fmaf(b.l[hh], alb[hh], lsb[hh]);
+  }
+}
+
+// A tile's context over its row sums, rows ra and ra + 8 of the item at
+// `base`, and jax's residuals on request
+__device__ __forceinline__ void store_tile(const Tile& r, __nv_bfloat16* __restrict__ out,
+                                           size_t base, size_t tok, int ra, float* res_m,
+                                           float* res_l, size_t row0, float scale, int lane) {
+  const int t = lane & 3;
+  float l[2], inv[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] = quad_sum(r.l[hh]);
+    inv[hh] = l[hh] == 0.f ? 1.f : 1.f / l[hh];
+  }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    *reinterpret_cast<uint32_t*>(out + base + (size_t)ra * tok + col) =
+        pack_bf16(r.acc[4 * j] * inv[0], r.acc[4 * j + 1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(out + base + (size_t)(ra + 8) * tok + col) =
+        pack_bf16(r.acc[4 * j + 2] * inv[1], r.acc[4 * j + 3] * inv[1]);
+  }
+  if (res_m != nullptr && t == 0) store_residuals(res_m, res_l, row0, ra, ra + 8, r.m, l, scale);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+long_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
             const __grid_constant__ CUtensorMap vmap, const int32_t* __restrict__ seg,
             __nv_bfloat16* __restrict__ out, float* __restrict__ res_m,
-            float* __restrict__ res_l, int P, int S, int H, int D, float scale) {
-  constexpr int ns = kSlots;
+            float* __restrict__ res_l, int P, int S, int H, float scale) {
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* slots = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  StageHead* heads = reinterpret_cast<StageHead*>(slots + (size_t)ns * kSlotBytes);
-  uint64_t* full = reinterpret_cast<uint64_t*>(heads + 2);
-  uint64_t* empty = full + ns;
+  unsigned char* kv = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* qtiles = kv + (size_t)kStages * 2 * C::kKvBytes;  // [kWg][2][kTiles][kQBytes]
+  StageHead* head = reinterpret_cast<StageHead*>(qtiles + kWg * 2 * kTiles * C::kQBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(head + kStages);
+  uint64_t* empty = full + kStages;
+  uint64_t* qfull = empty + kStages;  // [kWg][2]
 
-  const int units = S / (kWg * kRows), nb = S / kKeys;
+  const int n_items = (P * H - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int T = S / kRows, nb = S / kKeys, units = (T + kUnit - 1) / kUnit;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // the block's units, worked out in each branch after its setmaxnreg
-  auto units_here = [&]() {
-    return (P * H * (D / kSlab) * units - (int)blockIdx.x + (int)gridDim.x - 1) /
-           (int)gridDim.x;
-  };
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < ns; ++s) {
-      mbar_init(&full[s], 32);        // every producer lane, after its head writes
-      mbar_init(&empty[s], 4 * kWg);  // every consumer warp, when done with the slot
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);         // every producer lane, after its head writes
+      mbar_init(&empty[s], 4 * kWg);   // every consumer warp, when done with the block
     }
+    for (int b = 0; b < 2 * kWg; ++b) mbar_init(&qfull[b], 1);
     mbar_init_fence();
   }
   __syncthreads();
 
   if (warp >= 4 * kWg) {  // the producer warpgroup: one warp works
-    setmaxnreg_dec<producer_regs(SINGLE)>();
-    if (warp == 4 * kWg)
-      produce(&qmap, &kmap, &vmap, seg, slots, heads, full, empty, units_here(), S, H, D, lane);
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 4 * kWg) produce(&kmap, &vmap, seg, kv, head, full, empty, n_items, S, H, lane);
     return;
   }
-  setmaxnreg_inc<consumer_regs(SINGLE)>();
+  setmaxnreg_inc<kConsumerRegs>();
 
-  // Consumer warpgroup wg takes row tile 2u + wg of each of the block's
-  // units, through the slots in lockstep with the other.
+  // Consumer warpgroup wg takes tiles t0 + wg (A) and t0 + 2 + wg (B) of
+  // each unit of the block's items (B only where the item has it), and
+  // takes each staged block for both: QK^T of both tiles on wgmma, then
+  // both softmaxes and P.V (mma.sync) interleaved step by step (two
+  // independent chains a warp).  One thread loads each unit's q tiles by
+  // TMA into one of two buffers, a unit ahead.
   const int wg = warp >> 2, wl = warp & 3;
+  const bool leader = (threadIdx.x & 127) == 0;
+  unsigned char* my_q = qtiles + wg * 2 * kTiles * C::kQBytes;
+  uint64_t* my_qfull = qfull + 2 * wg;
+  const int positions = n_items * units;  // the block's units
+  auto load_q = [&](int k, int b) {       // unit k's tiles into buffer b
+    const int item = blockIdx.x + (k / units) * gridDim.x;
+    const int pair = item / H, hd = item - pair * H;
+    const int t0 = (k % units) * kUnit;
+    const int nt = t0 + kWg + wg < T ? 2 : 1;
+    mbar_arrive_expect_tx(&my_qfull[b], nt * C::kQBytes);
+    for (int j = 0; j < nt; ++j)
+      tma_load_3d(my_q + (b * kTiles + j) * C::kQBytes, &qmap, &my_qfull[b], hd * D,
+                  (t0 + kWg * j + wg) * kRows, pair);
+  };
+  auto release = [&](int n) {  // this warp is done with stage n
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[n % kStages]);
+  };
+  auto stage = [&](int n) { return kv + (size_t)(n % kStages) * 2 * C::kKvBytes; };
+  const size_t tok = (size_t)H * D;  // stride of one token
   const float c2 = scale * kLog2e;
-  const int n_units = units_here();
-  int blk = 0;  // blocks passed: 2 D / 128 + 1 slots each
-  for (int pos = 0; pos < n_units; ++pos) {
-    Rows<kSlab> r;
-    {
-      int item, sl, u;
-      unit_of(pos, D / kSlab, units, item, sl, u);
-      const int pair = item / H;
-      const int ra = (u * kWg + wg) * kRows + 16 * wl + (lane >> 2);
-      r.seg[0] = seg[(size_t)pair * S + ra];
-      r.seg[1] = seg[(size_t)pair * S + ra + 8];
-    }
+  if (leader && positions > 0) load_q(0, 0);
+  int n = 0;  // stages passed
+  for (int k = 0; k < positions; ++k) {
+    const int item = blockIdx.x + (k / units) * gridDim.x;
+    const int pair = item / H;
+    const int t0 = (k % units) * kUnit;
+    const bool has_b = t0 + kWg + wg < T;
+    const int ra = (t0 + wg) * kRows + 16 * wl + (lane >> 2);  // tile A's rows ra, ra + 8
+    const int rb = ra + kWg * kRows;                            // tile B's
+    Tile a, b;
 #pragma unroll
-    for (int dn = 0; dn < kSlab / 8; ++dn) r.acc[dn][0] = r.acc[dn][1] = r.acc[dn][2] = r.acc[dn][3] = 0.f;
-    r.m[0] = r.m[1] = -INFINITY;
-    r.l[0] = r.l[1] = 0.f;
-    for (int kb = 0; kb < nb; ++kb, ++blk) {
-      const int np = D / kSlab;
-      int n = blk * (2 * np + 1);  // slots passed
-      mbar_wait(&full[n % ns], (n / ns) & 1);  // the block's head came with its first slot
-      const bool need = (heads[blk & 1].need >> wg) & 1u;
-      float sc[64];
-      for (int pc = 0; pc < np; ++pc, n += 2) {  // QK^T, a piece of the head's columns a time
-        const int sk = n % ns, sq = (n + 1) % ns;
-        mbar_wait(&full[sk], (n / ns) & 1);
-        mbar_wait(&full[sq], ((n + 1) / ns) & 1);
-        if (need)
-          qk_piece(sc, slots + (size_t)sq * kSlotBytes + wg * (kSlotBytes / kWg),
-                   slots + (size_t)sk * kSlotBytes, pc == 0);
-        __syncwarp();
-        if (lane == 0) {  // this warp is done with both slots
-          mbar_arrive(&empty[sk]);
-          mbar_arrive(&empty[sq]);
+    for (int i = 0; i < D / 2; ++i) a.acc[i] = b.acc[i] = 0.f;
+    a.m[0] = a.m[1] = b.m[0] = b.m[1] = -INFINITY;
+    a.l[0] = a.l[1] = b.l[0] = b.l[1] = 0.f;
+    a.seg[0] = seg[(size_t)pair * S + ra];
+    a.seg[1] = seg[(size_t)pair * S + ra + 8];
+    b.seg[0] = has_b ? seg[(size_t)pair * S + rb] : 0;
+    b.seg[1] = has_b ? seg[(size_t)pair * S + rb + 8] : 0;
+    // every warp is past the last unit's wgmmas, which read the other buffer
+    named_barrier(1 + wg, 128);
+    if (leader && k + 1 < positions) load_q(k + 1, (k + 1) & 1);
+    mbar_wait(&my_qfull[k & 1], (k >> 1) & 1);
+    const unsigned char* qa = my_q + (k & 1) * kTiles * C::kQBytes;
+    const unsigned char* qb = qa + C::kQBytes;
+    const uint32_t bit_a = 1u << wg, bit_b = has_b ? 1u << (kWg + wg) : 0u;
+    for (int kb = 0; kb < nb; ++kb, ++n) {
+      mbar_wait(&full[n % kStages], (n / kStages) & 1);
+      const StageHead& h = head[n % kStages];
+      const unsigned char* ks = stage(n);
+      const bool need_a = warp_uniform(h.need & bit_a), need_b = warp_uniform(h.need & bit_b);
+      if (need_a || need_b) {
+        float sa[64], sb[64];
+        wgmma_fence();
+        qk_issue(sa, qa, ks);
+        qk_issue(sb, qb, ks);  // an absent B's scores go unread
+        wgmma_commit();
+        wgmma_wait<0>();
+        wgmma_pin(sa);
+        wgmma_pin(sb);
+        const bool uniform = warp_uniform(h.uniform);
+        const unsigned char* vs = ks + C::kKvBytes;
+        if (need_a && need_b) {
+          attend2(a, sa, b, sb, h, uniform, c2, lane, vs);
+        } else if (need_a) {
+          attend(a, sa, h, uniform, c2, lane, vs);
+        } else {
+          attend(b, sb, h, uniform, c2, lane, vs);
         }
       }
-      const int sv = n % ns;
-      mbar_wait(&full[sv], (n / ns) & 1);
-      if (need)
-        attend<kSlab, SINGLE>(r, sc, heads[blk & 1], slots + (size_t)sv * kSlotBytes, c2, lane);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[sv]);
+      release(n);
     }
-    // the context's place, worked out again here rather than held in
-    // registers across the unit (the asm keeps the compiler from reusing
-    // the values from the unit's start)
-    int at = pos;
-    asm volatile("" : "+r"(at));
-    int item, sl, u;
-    unit_of(at, D / kSlab, units, item, sl, u);
-    const int pair = item / H;
-    const size_t tok = (size_t)H * D;  // stride of one token
-    const size_t base = (size_t)pair * S * tok + (size_t)(item - pair * H) * D + sl * kSlab;
-    const int ra = (u * kWg + wg) * kRows + 16 * wl + (lane >> 2), rb = ra + 8;
-    const int t = lane & 3;
-#pragma unroll
-    for (int dn = 0; dn < kSlab / 8; ++dn) {
-      const int col = 8 * dn + 2 * t;
-      *reinterpret_cast<uint32_t*>(out + base + (size_t)ra * tok + col) =
-          pack_bf16(r.acc[dn][0], r.acc[dn][1]);
-      *reinterpret_cast<uint32_t*>(out + base + (size_t)rb * tok + col) =
-          pack_bf16(r.acc[dn][2], r.acc[dn][3]);
-    }
-    // every slab computes the same m and l: the first writes them
-    if (res_m != nullptr && sl == 0 && t == 0)
-      store_residuals(res_m, res_l, (size_t)item * S, ra, rb, r.m, r.l, scale);
+    const size_t base = (size_t)pair * S * tok + (size_t)(item - pair * H) * D;
+    store_tile(a, out, base, tok, ra, res_m, res_l, (size_t)item * S, scale, lane);
+    if (has_b) store_tile(b, out, base, tok, rb, res_m, res_l, (size_t)item * S, scale, lane);
   }
 }
 
-template <bool SINGLE>
 int launch(const void* q, const void* k, const void* v, const void* seg, void* out, float* res_m,
-           float* res_l, int P, int S, int H, int D, float scale, cudaStream_t stream) {
+           float* res_l, int P, int S, int H, float scale, cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
-  if (!tile_map(&qmap, q, P, S, H, D, 64, kRows) || !tile_map(&kmap, k, P, S, H, D, 64, kKeys) ||
-      !tile_map(&vmap, v, P, S, H, D, 64, kKeys))
+  if (!tile_map(&qmap, q, P, S, H, D, C::kCw, kRows) ||
+      !tile_map(&kmap, k, P, S, H, D, C::kCw, kKeys) ||
+      !tile_map(&vmap, v, P, S, H, D, C::kCw, kKeys))
     return (int)cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  constexpr size_t smem = smem_bytes(kSlots);
+  constexpr size_t smem = smem_bytes(kStages);
   // as launch<D>'s: SMs of each device, 0 until a launch there has raised
-  // this instantiation's shared-memory limit
+  // this kernel's shared-memory limit
   static std::atomic<int> sms[64];
   int n_sm = sms[dev & 63].load(std::memory_order_acquire);
   if (n_sm == 0) {
-    err = cudaFuncSetAttribute(slab_kernel<SINGLE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    err = cudaFuncSetAttribute(long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
     sms[dev & 63].store(n_sm, std::memory_order_release);
   }
-  const long long work = (long long)P * H * (D / kSlab) * (S / (kWg * kRows));  // units
-  if (work > INT32_MAX) return (int)cudaErrorInvalidValue;
-  const int ctas = work < n_sm ? (int)work : n_sm;  // one block an SM
-  slab_kernel<SINGLE><<<ctas, C::kThreads, smem, stream>>>(
-      qmap, kmap, vmap, (const int32_t*)seg, (__nv_bfloat16*)out, res_m, res_l, P, S, H, D,
-      scale);
+  const int ctas = P * H < n_sm ? P * H : n_sm;  // one block an SM
+  long_kernel<<<ctas, kThreads, smem, stream>>>(qmap, kmap, vmap, (const int32_t*)seg,
+                                                (__nv_bfloat16*)out, res_m, res_l, P, S, H, scale);
   return (int)cudaGetLastError();
 }
 
-}  // namespace slab
+}  // namespace longrow
 
 }  // namespace
 
@@ -1489,12 +2292,12 @@ extern "C" int flash_attention_res(const void* q, const void* k, const void* v, 
   const cudaStream_t st = (cudaStream_t)stream;
   float* rm = (float*)m;
   float* rl = (float*)l;
-  if (head_dim > 256 && head_dim % slab::kSlab == 0)
-    return S == kKeys ? slab::launch<true>(q, k, v, seg, out, rm, rl, B, S, H, head_dim, scale, st)
-                      : slab::launch<false>(q, k, v, seg, out, rm, rl, B, S, H, head_dim, scale,
-                                            st);
+  if (head_dim > 256 && head_dim % 128 == 0)
+    return slab::launch(q, k, v, seg, out, rm, rl, B, S, H, head_dim, scale, st);
   switch (head_dim) {
-    case 32: return launch<32>(q, k, v, seg, out, rm, rl, B, S, H, scale, st);
+    case 32:
+      return S > 512 ? longrow::launch(q, k, v, seg, out, rm, rl, B, S, H, scale, st)
+                     : launch<32>(q, k, v, seg, out, rm, rl, B, S, H, scale, st);
     case 64: return launch<64>(q, k, v, seg, out, rm, rl, B, S, H, scale, st);
     case 128: return launch<128>(q, k, v, seg, out, rm, rl, B, S, H, scale, st);
     case 256:

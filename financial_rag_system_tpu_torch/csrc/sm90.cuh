@@ -92,6 +92,20 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// tma_load_3d multicast: the box lands at the same shared-memory offset in
+// every block of the cluster whose bit is set in `mask`, and completes its
+// bytes on the barrier at `bar`'s offset in each of them
+__device__ __forceinline__ void tma_load_3d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, int c0, int c1, int c2,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "h"(mask)
+      : "memory");
+}
+
 // box at (c0 innermost, c1) of the tensor `map` from shared memory, in
 // this thread's bulk group; rows out of the tensor's bounds are dropped
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
@@ -228,6 +242,25 @@ __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity
       "@!done bra WAIT;\n"
       "}\n" ::"r"(smem_addr(bar)),
       "r"(parity)
+      : "memory");
+}
+
+// when `pred`: arrive on the barrier at `bar`'s offset in the cluster's
+// block `rank` (this block's own included), with the default (release,
+// CTA-scope) semantics, as CUTLASS's cluster pipelines arrive: a
+// cluster-scope release made a slot's round trip the kernel's bottleneck.
+// A predicate, not a branch: a kernel may call it with its wgmmas in
+// flight.
+__device__ __forceinline__ void mbar_arrive_remote_if(uint64_t* bar, uint32_t rank, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 ra;\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %2, 0;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "@p mbarrier.arrive.shared::cluster.b64 _, [ra];\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(rank), "r"((uint32_t)pred)
       : "memory");
 }
 

@@ -49,14 +49,19 @@ S, 128) block of f32 scores.
   :func:`flash_attention_plain`; a CUDA tensor launches the hand-written
   Hopper kernel ``csrc/flash_attention.cu`` or raises; any other device
   raises.  Heads of 32, 64 and 128 run ``flash_kernel<D>`` (a TMA ring of
-  128-key K and V stages) and count on ``encoder_flash_attention.launches``;
-  heads of 256 run ``d256::flash256_kernel`` and count on
-  ``.launches_wide``; heads of 384 and every wider multiple of 128 run
-  ``slab::slab_kernel`` and count on ``.launches_slab`` (a column split:
-  each unit computes one 128-column slab of the context with
-  ``flash_kernel<128>``'s arithmetic, its QK^T summed over the whole
-  head's 128-column pieces, so QK^T runs d / 128 times;
-  :func:`slab_plan`).  The D-256 kernel stages K and V as 32 KB slots of
+  128-key K and V stages) and count on ``encoder_flash_attention.launches``,
+  but heads of 32 above S 512, which run ``longrow::long_kernel`` (two
+  consumer warpgroups of two row tiles each, both tiles' softmaxes
+  interleaved; :func:`long_plan`) and count on ``.launches_long``; heads
+  of 256 run ``d256::flash256_kernel`` and count on ``.launches_wide``;
+  heads of 384 and every wider multiple of 128 run ``slab::slab_kernel``
+  and count on ``.launches_slab`` (one QK^T and one softmax a (64-row
+  tile, 128-key block) over the whole head, split by keys between two
+  consumer warpgroups that hold the context's 64-column chunks between
+  them, P through shared memory; K and V multicast to a cluster of two
+  blocks, each a row tile; heads above 512 in column groups of two to
+  four slabs, QK^T once a group: :func:`slab_plan`, :func:`slab_groups`).
+  The D-256 kernel stages K and V as 32 KB slots of
   half a head's columns (K 0-127, K 128-255, V 0-127, V 128-255 a block)
   through a ring of five, with two consumer warpgroups and QK^T and P.V
   on ``wgmma``.  Above S 128 its online softmax steps over 64 keys, not
@@ -64,9 +69,12 @@ S, 128) block of f32 scores.
   running max, and the context accumulates unnormalised and is divided by
   the row sum once at the end (jax's normalised update rearranged); S 128
   keeps jax's single step in two passes over the block (the row's max
-  and sum, then P = p / sum(p)).  These are liberties within the kernel's
-  atol 1e-2, emulated on the CPU in ``tests/test_torch_flash_wide.py``;
-  :func:`d256_plan` mirrors its shared memory and register budgets.
+  and sum, then P = p / sum(p)).  The slab and long-row kernels keep
+  jax's 128-key blocks and accumulate unnormalised too.  These are
+  liberties within the kernel's atol 1e-2, emulated on the CPU in
+  ``tests/test_torch_flash_wide.py`` and ``tests/test_torch_long_attention.py``;
+  :func:`d256_plan` mirrors the D-256 kernel's shared memory and register
+  budgets.
 
 The backward (jax's ``custom_vjp`` of its flash attention, ``_flash_attention_bwd``
 with its two kernels ``_flash_attention_bwd_dkv`` and
@@ -154,53 +162,138 @@ def d256_plan() -> D256Plan:
 
 
 class SlabPlan(NamedTuple):
-    """The slab kernel's launch (heads of 384 and wider multiples of 128),
-    as ``csrc/flash_attention.cu`` (namespace ``slab``) computes it."""
+    """The slab kernel's launches (heads of 384 and wider multiples of 128),
+    as ``csrc/flash_attention.cu`` (namespace ``slab``) computes them."""
 
-    consumers: int      # consumer warpgroups, one 64-row tile each a unit
+    consumers: int      # consumer warpgroups: 64 keys of a block and half the group's columns each
+    cluster: int        # blocks of a cluster: row tiles sharing each K and V slot (multicast)
     threads: int        # and a producer warpgroup
     producer_regs: int  # registers a thread after setmaxnreg
     consumer_regs: int
     regs_fit: bool      # the budgets fit the launch's register pool
-    slot_bytes: int     # one slot: K's or V's 128 keys x 128 columns, or both tiles' q pieces
+    q_resident: bool    # q's tile stays in shared memory, loaded once a tile
+    slot_bytes: int     # one slot: 128 keys x 128 columns of K or V (or a q piece)
     slots: int          # slots in the ring
     smem: int           # dynamic shared memory, bytes
-    slots_a_block: int  # per 128-key block: a K and a q slot a piece, then V's slab
-    qk_passes: int      # QK^T over the whole head, once a slab
-    units: int          # (item, slab, two row tiles) units of the launch
+    groups: tuple       # 128-column slabs of each column group, in order
+    launches: tuple     # (slabs a group, groups) of each launch
+    slots_a_block: tuple  # per column group: K's pieces (and q's), then V's slabs
+    qk_passes: int      # QK^T and the softmax over the whole head: once a column group
+    units: int          # (item, kCluster row tiles, column group) units, all launches
+    staged_bytes: int   # L2 -> shared bytes with no (tile, block) skipped (multicast once)
+    acc_floats: int     # context values a consumer thread holds: 32 a 64-column chunk
+
+
+SLAB_CLUSTER = 2
+SLAB_MAX_GROUP = 4
+
+
+def slab_groups(d: int) -> tuple:
+    """The head's d / 128 slabs as column groups of at most four, as even
+    as they come (``slab::launch``): 3, 4, (3, 2), (3, 3), (4, 3), ..."""
+    np_ = d // SLAB
+    ng = -(-np_ // SLAB_MAX_GROUP)
+    base, extra = divmod(np_, ng)
+    return (base + 1,) * extra + (base,) * (ng - extra)
 
 
 def slab_plan(b: int, s: int, h: int, d: int) -> SlabPlan:
-    """Mirror of ``slab``'s constants, ``smem_bytes``, ``ring_slots`` and
-    register budgets at (B, S, H, d): ``flash_kernel<128>``'s consumers
-    and register pool, the budgets split per instantiation (56 and 224
-    above S 128, 40 and 232 at S 128, where ptxas fits each without
-    spills); as many 32 KB slots as fit beside the heads of two blocks (528
-    bytes each) and two 8-byte barriers a slot; a block's head written with
-    its first slot into one of two, which holds while the slots are at most
-    2 d / 128 + 2."""
+    """Mirror of ``slab``'s constants, ``smem_bytes``, ``q_resident``,
+    ``ring_slots``, register budgets and column groups at (B, S, H, d): two
+    consumer warpgroups at 224 registers (the producer's 56: its loop state
+    spilled at 24) in the pool of 384 threads at 168; q resident while two 32 KB slots still fit
+    beside it, P (16 KB), the heads of two blocks (528 bytes each), the
+    two warpgroups' row maxima and sums (1 KB) and the barriers; as many
+    slots as fit, up to eight.  ``staged_bytes``: every K and V slot of a
+    unit's blocks once for the cluster's two tiles, q once a tile (or its
+    pieces a block when not resident)."""
     if d <= WIDE_HEAD_DIM or d % SLAB:
         raise ValueError(f"the slab kernel takes multiples of {SLAB} above "
                          f"{WIDE_HEAD_DIM}; got {d}")
     check_shape(s, d)
-    consumers, producer, consumer = (2, 40, 232) if s == BLOCK else (2, 56, 224)
+    consumers, producer, consumer = 2, 56, 224
     threads = 128 * (consumers + 1)
     pool = threads * (65536 // threads // 8 * 8)
     slot = BLOCK * SLAB * 2
+    p_bytes = 64 * BLOCK * 2
     head = 16 + 4 * BLOCK
 
-    def smem(slots):
-        return 1024 + slots * slot + 2 * head + 16 * slots
+    def smem(qres, slots):
+        return (1024 + (64 * d * 2 if qres else 0) + p_bytes + slots * slot + 2 * head
+                + 2 * consumers * 64 * 4 + (2 * slots + 1) * 8)
 
+    qres = smem(True, 2) <= SMEM_LIMIT
     slots = 8
-    while slots > 2 and smem(slots) > SMEM_LIMIT:
+    while slots > 2 and smem(qres, slots) > SMEM_LIMIT:
         slots -= 1
+    groups = slab_groups(d)
+    launches = tuple((g, groups.count(g)) for g in dict.fromkeys(groups))
     pieces = d // SLAB
-    if slots > 2 * pieces + 2:
+    per_block = tuple((pieces if qres else 2 * pieces) + g for g in groups)
+    if slots > min(per_block) + 1:
         raise AssertionError("a block's head would be written over while it is read")
-    return SlabPlan(consumers, threads, producer, consumer,
-                    128 * (producer + consumers * consumer) <= pool, slot, slots, smem(slots),
-                    2 * pieces + 1, pieces, b * h * pieces * (s // (consumers * 64)))
+    units_a_group = b * h * (s // (64 * SLAB_CLUSTER))
+    q_unit = SLAB_CLUSTER * 64 * d * 2
+    staged = sum(units_a_group * ((s // BLOCK) * ((pieces + g) * slot
+                                                  + (0 if qres else SLAB_CLUSTER * pieces * slot // 2))
+                                  + (q_unit if qres else 0))
+                 for g in groups)
+    return SlabPlan(consumers, SLAB_CLUSTER, threads, producer, consumer,
+                    128 * (producer + consumers * consumer) <= pool, qres, slot, slots,
+                    smem(qres, slots), groups, launches, per_block, len(groups),
+                    units_a_group * len(groups), staged, 32 * max(groups))
+
+
+class LongPlan(NamedTuple):
+    """The long-row kernel's launch (heads of 32 above S 512), as
+    ``csrc/flash_attention.cu`` (namespace ``longrow``) computes it."""
+
+    consumers: int      # consumer warpgroups
+    tiles: int          # 64-row tiles a consumer warpgroup takes a unit
+    unit: int           # row tiles a unit: each 128-key block staged once for them
+    threads: int        # and a producer warpgroup
+    producer_regs: int  # registers a thread after setmaxnreg
+    consumer_regs: int
+    regs_fit: bool
+    stages: int         # ring stages of a 128-key block's K and V
+    smem: int           # dynamic shared memory, bytes
+    units: int          # units of the launch
+    staged_bytes: int   # L2 -> shared bytes with no (tile, block) skipped
+
+
+LONG_MIN_SEQ = 512   # the long-row kernel takes heads of 32 above this S
+LONG_HEAD_DIM = 32
+
+
+def long_plan(b: int, s: int, h: int, d: int = LONG_HEAD_DIM) -> LongPlan:
+    """Mirror of ``longrow``'s constants, ``smem_bytes`` and ``ring_stages``
+    at (B, S, H, 32): two consumer warpgroups at 240 registers (the
+    producer's 24), each taking two 64-row tiles of a unit of four; eight
+    stages of K and V (8 KB each) and their heads and barriers, two q
+    buffers of two 4 KB tiles a warpgroup.  ``staged_bytes``: each block's
+    K and V once a unit, q once a tile."""
+    if d != LONG_HEAD_DIM or s <= LONG_MIN_SEQ:
+        raise ValueError(f"the long-row kernel takes heads of {LONG_HEAD_DIM} above S "
+                         f"{LONG_MIN_SEQ}; got d {d} at S {s}")
+    check_shape(s, d)
+    consumers, tiles, producer, consumer = 2, 2, 24, 240
+    threads = 128 * (consumers + 1)
+    pool = threads * (65536 // threads // 8 * 8)
+    kv = BLOCK * d * 2
+    q_tile = 64 * d * 2
+    head = 16 + 4 * BLOCK
+
+    def smem(stages):
+        return 1024 + stages * (2 * kv + head + 16) + consumers * 2 * (tiles * q_tile + 8)
+
+    stages = 8
+    while stages > 2 and smem(stages) > SMEM_LIMIT:
+        stages -= 1
+    unit = consumers * tiles
+    units = b * h * -(-(s // 64) // unit)
+    return LongPlan(consumers, tiles, unit, threads, producer, consumer,
+                    128 * (producer + consumers * consumer) <= pool, stages, smem(stages), units,
+                    units * (s // BLOCK) * 2 * kv + b * h * s * d * 2)
 
 
 def check_shape(seq: int, head_dim: int) -> None:
@@ -345,16 +438,19 @@ def padded_head_dim(head_dim: int, seq: int) -> int:
     return next((w for w in KERNEL_WIDTHS if head_dim <= w), -(-head_dim // SLAB) * SLAB)
 
 
-def launch_counter(head_dim: int) -> str:
+def launch_counter(head_dim: int, seq: int = BLOCK) -> str:
     """The counter on :func:`encoder_flash_attention` that a launch at
-    kernel width ``head_dim`` adds to: ``launches`` (``flash_kernel<D>``,
-    32-128), ``launches_wide`` (the D-256 kernel) or ``launches_slab``
-    (the slab kernel, 384 and up)."""
+    kernel width ``head_dim`` and S ``seq`` adds to: ``launches``
+    (``flash_kernel<D>``, 32-128; 32 up to S 512), ``launches_long`` (the
+    long-row kernel, 32 above S 512), ``launches_wide`` (the D-256 kernel)
+    or ``launches_slab`` (the slab kernel, 384 and up)."""
     if head_dim not in KERNEL_WIDTHS and (head_dim <= WIDE_HEAD_DIM or head_dim % SLAB):
         raise ValueError(f"the kernel takes head_dim {KERNEL_WIDTHS} or a multiple of {SLAB} "
                          f"above {WIDE_HEAD_DIM}; got {head_dim}")
     if head_dim > WIDE_HEAD_DIM:
         return "launches_slab"
+    if head_dim == LONG_HEAD_DIM and seq > LONG_MIN_SEQ:
+        return "launches_long"
     return "launches_wide" if head_dim == WIDE_HEAD_DIM else "launches"
 
 
@@ -390,9 +486,10 @@ def flash_attention_kernel(
     counter :func:`launch_counter` names."""
     b, s, h, dp = qb.shape
     check_shape(s, dp)
-    counter = launch_counter(dp)
+    counter = launch_counter(dp, s)
     if b * h >= 2 ** 31 or h * dp >= 2 ** 31 or (dp > WIDE_HEAD_DIM and
-                                                b * h * (dp // SLAB) * (s // BLOCK) >= 2 ** 31):
+                                                b * h * (s // BLOCK) * len(slab_groups(dp))
+                                                >= 2 ** 31):
         raise ValueError(f"flash attention indexes in 32 bits; got B {b}, S {s}, H {h}, "
                          f"head_dim {dp}")
     for name, t in (("q", qb), ("k", kb), ("v", vb)):
@@ -560,9 +657,11 @@ def encoder_flash_attention(
 
 
 # kernel launches since the last reset (chip_smoke.py reads and resets
-# them): heads of 32-128, of 256, and of 384 and wider; the backward's
+# them): heads of 32-128 (32 up to S 512), of 32 above S 512, of 256, and
+# of 384 and wider; the backward's
 # dK/dV (kernel 8) and dQ (kernel 9)
 encoder_flash_attention.launches = 0
+encoder_flash_attention.launches_long = 0
 encoder_flash_attention.launches_wide = 0
 encoder_flash_attention.launches_slab = 0
 encoder_flash_attention.launches_bwd_dkv = 0

@@ -969,18 +969,23 @@ def test_attention_kernel_above_512(cuda, d, s, kind):
 
 @pytest.mark.parametrize("kind", ["rerank", "uniform"])
 @pytest.mark.parametrize("d,s", [(d, s) for d in (32, 64, 128, 256) for s in (640, 1024, 2048)]
-                         + [(d, s) for d in (384, 512) for s in (128, 512, 1024)]
-                         + [(192, 128), (320, 128), (640, 256)])
+                         + [(d, s) for d in (384, 512) for s in (128, 512, 1024, 2048)]
+                         + [(192, 128), (320, 128), (640, 256), (640, 1024), (768, 256),
+                            (896, 128), (1024, 512), (1152, 256), (1536, 384)])
 def test_flash_attention_kernel_long_and_wide(cuda, d, s, kind):
-    """Kernel 7 above S 512 (the skip rule's presence masks made per tile
-    and per block) and at heads of 384 and wider (the slab kernel, its own
-    counter); heads of 192 and 320 at S 128, which jax's single step takes,
-    padded to 256 and 384.  Every row at atol 1e-2."""
+    """Kernel 7 above S 512 (heads of 32 on the long-row kernel, its own
+    counter; the skip rule's presence masks made per tile and per block)
+    and at heads of 384 and wider (the slab kernel, its own counter: one
+    column group up to 512, two at 640-1,024 (640 and 896 in two
+    launches, 3 + 2 and 4 + 3), three at 1,152 and 1,536, q staged a block
+    above 1,024); heads of 192 and 320 at S 128, which
+    jax's single step takes, padded to 256 and 384.  Every row at atol
+    1e-2."""
     q, k, v, mask = (torch.tensor(a, device=cuda) for a in long_case(s, 2, d, kind))
     mask[-1] = 0
     inv = 1.0 / np.sqrt(d)
     dp = flash_attention.padded_head_dim(d, s)
-    counter = flash_attention.launch_counter(dp)
+    counter = flash_attention.launch_counter(dp, s)
     n0 = getattr(encoder_flash_attention, counter)
     got = encoder_flash_attention(q, k, v, mask, inv)
     torch.cuda.synchronize()
@@ -990,10 +995,13 @@ def test_flash_attention_kernel_long_and_wide(cuda, d, s, kind):
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=1e-2, rtol=0)
 
 
-@pytest.mark.parametrize("d,s", [(32, 1024), (384, 1024), (512, 256)])
+@pytest.mark.parametrize("d,s", [(32, 1024), (32, 2048), (384, 1024), (384, 128), (512, 256),
+                                 (640, 256), (1152, 256)])
 def test_long_and_wide_kernels_relaunch_and_threads(cuda, d, s):
-    """The new branches relaunched, from worker threads and on a side
-    stream: every context bit for bit the first."""
+    """The long-row kernel (heads of 32 above S 512) and the slab kernel
+    (its clusters of two blocks, one column group and several, q staged
+    above 1,024) relaunched, from worker threads and on a side stream:
+    every context bit for bit the first."""
     q, k, v, mask = (torch.tensor(a, device=cuda) for a in long_case(s, 3, d, "rerank", seed=3))
     inv = 1.0 / np.sqrt(d)
     fns = [lambda: encoder_flash_attention(q, k, v, mask, inv)]

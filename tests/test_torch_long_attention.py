@@ -384,16 +384,22 @@ def test_presence_masks_above_1024_positions(s):
     assert not new_need(seg, 3).all()
 
 
-# -- kernel 7: the slab kernel (heads of 384 and wider) ----------------------------------
+# -- kernel 7: the slab kernel (heads of 384 and wider) and the long-row kernel ------------
 
 
-def slab_flash(q, k, v, seg, inv_sqrt):
-    """The slab kernel's arithmetic over (B, S, H, d) f32 q, k, v, d a
-    multiple of 128 above 256: for each 128-column slab of the context,
-    flash_kernel<128>'s attend (jax's block order, the zero-weight select,
-    (tile, block) skips) on scores summed over the head's 128-column
-    pieces in order, in f32, and P.V with the slab's V columns.  Returns
-    the (B, S, H * d) bf16 context as f32."""
+def kernel_flash(q, k, v, seg, inv_sqrt, chunk=64):
+    """The order of kernel 7's slab kernel (heads of 384 and wider) and of
+    its long-row kernel (heads of 32 above S 512) over (B, S, H, d) f32 q,
+    k, v: for each (64-row tile, 128-key block) one QK^T over the whole
+    head (summed a 128-column piece at a time, in f32) and one softmax;
+    the zero-weight select and the (tile, block) skips; the block's row
+    maxima over both 64-key halves (the slab kernel's two warpgroups
+    exchange them); p = 2^((s - m) sm_scale log2 e) rounded to bf16 (S 128:
+    p / sum(p), jax's single step); the context accumulated unnormalised,
+    acc = acc alpha + bf16(p) . V, one 64-column chunk at a time (the slab
+    kernel's warpgroups each hold their chunks of it), l = l alpha +
+    sum(p), divided by l once at the end.  Returns the (B, S, H * d) bf16
+    context as f32, and m (scaled) and l, (B, H, S) each."""
     b, s, h, d = q.shape
     qb, kb, vb = (torch.from_numpy(t).to(torch.bfloat16).float().permute(0, 2, 1, 3)
                   for t in (q, k, v))
@@ -402,103 +408,208 @@ def slab_flash(q, k, v, seg, inv_sqrt):
     need = torch.from_numpy(rule_need(seg)).repeat_interleave(64, dim=1)  # (B, S, blocks)
     ninf = float("-inf")
     c2 = inv_sqrt * math.log2(math.e)
+    blk = tflash.BLOCK
 
     def scores(lo):
-        sc = torch.zeros((b, h, s, tflash.BLOCK))
+        sc = torch.zeros((b, h, s, blk))
         for pc in range(0, d, tflash.SLAB):  # QK^T, a piece of the head a time
             sc = sc + torch.matmul(qb[..., pc:pc + tflash.SLAB],
-                                   kb[:, :, lo:lo + tflash.BLOCK, pc:pc + tflash.SLAB]
-                                   .transpose(-1, -2))
-        return torch.where(same[..., lo:lo + tflash.BLOCK], sc, ninf)
+                                   kb[:, :, lo:lo + blk, pc:pc + tflash.SLAB].transpose(-1, -2))
+        return torch.where(same[..., lo:lo + blk], sc, ninf)
 
-    slabs = []
-    for c in range(0, d, tflash.SLAB):
-        vs = vb[..., c:c + tflash.SLAB]
-        if s == tflash.BLOCK:
-            sc = scores(0)
-            p = torch.exp2((sc - sc.amax(dim=-1, keepdim=True)) * c2)
-            acc = torch.matmul((p / p.sum(dim=-1, keepdim=True)).to(torch.bfloat16).float(), vs)
+    def pv(p, lo):  # P.V a 64-column chunk at a time
+        return torch.cat([torch.matmul(p, vb[:, :, lo:lo + blk, c:c + chunk])
+                          for c in range(0, d, chunk)], dim=-1)
+
+    m = torch.full((b, h, s, 1), ninf)
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, h, s, d))
+    for i, lo in enumerate(range(0, s, blk)):
+        sc = scores(lo)
+        m_next = torch.maximum(m, torch.maximum(sc[..., :blk // 2].amax(-1, keepdim=True),
+                                                sc[..., blk // 2:].amax(-1, keepdim=True)))
+        empty = m_next == ninf
+        p = torch.exp2((sc - torch.where(empty, 0.0, m_next)) * c2)
+        if s == blk:  # jax's single step
+            l_next = p.sum(-1, keepdim=True)
+            new_acc = pv((p / l_next).to(torch.bfloat16).float(), lo)
         else:
-            m = torch.full((b, h, s, 1), ninf)
-            l = torch.zeros((b, h, s, 1))
-            acc = torch.zeros((b, h, s, tflash.SLAB))
-            for blk, lo in enumerate(range(0, s, tflash.BLOCK)):
-                sc = scores(lo)
-                m_next = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
-                empty = m_next == ninf
-                p = torch.exp2((sc - torch.where(empty, 0.0, m_next)) * c2)
-                l_corr = torch.where(empty, 1.0, torch.exp2((m - m_next) * c2)) * l
-                l_next = p.sum(dim=-1, keepdim=True) + l_corr
-                inv = torch.where(l_next == 0.0, 1.0, 1.0 / l_next)
-                new = acc * (l_corr * inv) + torch.matmul(
-                    p.to(torch.bfloat16).float(), vs[:, :, lo:lo + tflash.BLOCK]) * inv
-                keep = need[:, None, :, blk:blk + 1]
-                m, l = torch.where(keep, m_next, m), torch.where(keep, l_next, l)
-                acc = torch.where(keep, new, acc)
-        slabs.append(acc)
-    out = torch.cat(slabs, dim=-1).to(torch.bfloat16).permute(0, 2, 1, 3)
-    return out.reshape(b, s, h * d).float()
+            alpha = torch.where(empty, 1.0, torch.exp2((m - m_next) * c2))
+            l_next = l * alpha + p.sum(-1, keepdim=True)
+            new_acc = acc * alpha + pv(p.to(torch.bfloat16).float(), lo)
+        keep = need[:, None, :, i:i + 1]
+        m, l = torch.where(keep, m_next, m), torch.where(keep, l_next, l)
+        acc = torch.where(keep, new_acc, acc)
+    if s > blk:
+        acc = acc / torch.where(l == 0.0, 1.0, l)
+    out = acc.to(torch.bfloat16).permute(0, 2, 1, 3).reshape(b, s, h * d).float()
+    return out, (m * inv_sqrt)[..., 0], l[..., 0]
 
 
-@pytest.mark.parametrize("s,d,kind", [(128, 384, "prefix"), (256, 384, "rerank"),
-                                      (512, 384, "segments"), (256, 512, "holes"),
-                                      (384, 640, "wide_ids")])
-def test_slab_order_matches_plain_and_jax(s, d, kind):
-    """The slab kernel's order (QK^T again for every slab, summed a piece
-    at a time) against the plain version on every row, and against jax's
-    kernel at heads of 384 and 512."""
-    q, k, v = qkv(2, s, 2, d, seed=s + d + 1)
-    seg = make_mask(kind, 2, s, seed=s + d + 1)
-    inv = 1.0 / math.sqrt(d)
-    got = slab_flash(q, k, v, seg, inv)
-    plain = tflash.flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v, seg)), inv)
+def hold_to_plain_and_jax(q, k, v, seg, jax_too: bool):
+    """:func:`kernel_flash` against the plain version on every row (and its
+    m and l against jax's residuals as the plain version keeps them), and
+    against jax's kernel in interpret mode when ``jax_too``."""
+    inv = 1.0 / math.sqrt(q.shape[-1])
+    got, m, l = kernel_flash(q, k, v, seg, inv)
+    args = tuple(torch.from_numpy(a) for a in (q, k, v, seg))
+    plain = tflash.flash_attention_plain(*args, inv)
+    _, m_ref, l_ref = tflash.flash_attention_fwd_plain(*args, inv)
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-2, rtol=0)
-    if d <= 512:
+    np.testing.assert_allclose(m.numpy(), m_ref.numpy(), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(l.numpy(), l_ref.numpy(), rtol=1e-3)
+    if jax_too:
         with pltpu.force_tpu_interpret_mode():
             ref = np.asarray(jbert._flash_attention(q, k, v, seg, inv))
         np.testing.assert_allclose(got.numpy(), ref, atol=1e-2, rtol=0)
 
 
+@pytest.mark.parametrize("s,d,kind", [(128, 384, "prefix"), (256, 384, "rerank"),
+                                      (1024, 384, "segments"), (512, 512, "holes"),
+                                      (2048, 512, "rerank"), (256, 640, "wide_ids"),
+                                      (768, 640, "prefix")])
+def test_slab_order_matches_plain_and_jax(s, d, kind):
+    """The slab kernel's order (one QK^T and one softmax a (tile, block),
+    split by keys between two warpgroups and by 64-column chunks for P.V,
+    the context unnormalised) against the plain version on every row, and
+    against jax's kernel (interpret mode) at heads of 384 and 512 up to S
+    512."""
+    q, k, v = qkv(2, s, 2, d, seed=s + d + 1)
+    seg = make_mask(kind, 2, s, seed=s + d + 1)
+    hold_to_plain_and_jax(q, k, v, seg, jax_too=d <= 512 and s <= 512)
+
+
+@pytest.mark.parametrize("s,d,kind", [(640, 32, "prefix"), (1024, 32, "rerank"),
+                                      (1152, 24, "segments"), (2048, 32, "holes"),
+                                      (768, 32, "wide_ids")])
+def test_long_row_order_matches_plain_and_jax(s, d, kind):
+    """The long-row kernel's order (heads of 32 above S 512, the 24-wide
+    head padded to 32 with zero columns as the wrapper pads it; 128-key
+    online-softmax blocks, the context unnormalised) against the plain
+    version on every row, and against jax's kernel (interpret mode) up to
+    S 768."""
+    q, k, v = qkv(2, s, 2, d, seed=s + d + 2)
+    seg = make_mask(kind, 2, s, seed=s + d + 2)
+    if d < 32:  # the wrapper's zero padding: the context's extra columns are sliced off
+        pad = ((0, 0), (0, 0), (0, 0), (0, 32 - d))
+        got, _, _ = kernel_flash(*(np.pad(a, pad) for a in (q, k, v)), seg, 1.0 / math.sqrt(d))
+        got = got.reshape(2, s, 2, 32)[..., :d].reshape(2, s, 2 * d)
+        plain = tflash.flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v, seg)),
+                                             1.0 / math.sqrt(d))
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-2, rtol=0)
+        return
+    hold_to_plain_and_jax(q, k, v, seg, jax_too=s <= 768)
+
+
+def parent_slab_bytes(b, s, h, d):
+    """The parent's slab kernel reckoned as the issue reckons it: units of
+    (item, 128-column slab, two row tiles), each 128-key block staged as
+    2 d / 128 + 1 slots of 32 KB (K's pieces, both tiles' q pieces, V's
+    slab)."""
+    units = b * h * (d // 128) * (s // 128)
+    return units * (s // 128) * (2 * d // 128 + 1) * 32768
+
+
 def test_slab_plan_mirrors_the_source():
-    """Seven 32 KB slots (K's or V's 128 x 128 piece, or both tiles' q
-    pieces) and two block heads fill 231,568 of the 232,448 bytes, within
-    2 d / 128 + 2 slots (a head is written with its block's first slot);
-    flash_kernel<128>'s consumers and pool, budgets per instantiation; a
-    block takes 2 d / 128 + 1 slots and QK^T runs d / 128 times."""
+    """Two consumer warpgroups at 224 registers (the producer's 56) in the
+    pool of 384 threads; clusters of two row tiles; q resident up to heads
+    of 1,024 and a ring of four, four, three and two 32 KB slots at 384,
+    512, 640 and 1,024 (six beside q's pieces at 1,152), as the source's
+    static_assert pins them; column groups of at most four slabs, so one
+    QK^T pass at 384 and 512; at phase 15 (c)'s shape a third or less of
+    the parent's L2 -> shared bytes."""
     src = (CSRC / "flash_attention.cu").read_text()
+    body = src[src.index("namespace slab {"):src.index("}  // namespace slab")]
+    for line in ("constexpr int kCluster = 2;", "constexpr int kWg = 2;",
+                 "constexpr int kProducerRegs = 56;", "constexpr int kConsumerRegs = 224;",
+                 "constexpr int kMaxGroup = 4;", "constexpr int kMaxSlots = 8;",
+                 "const int np = D / 128, ng = (np + kMaxGroup - 1) / kMaxGroup;",
+                 "const int base = np / ng, extra = np % ng;",
+                 "mbar_init(&empty[s], 4 * kWg * kCluster);",
+                 "constexpr int kShare = kKeys / kCluster;"):
+        assert line in body, line
     plan = tflash.slab_plan(480, 1024, 2, 384)
-    assert "constexpr int kSlab = 128;" in src and "using C = Cfg<kSlab>;" in src
-    assert (plan.consumers, plan.threads, plan.producer_regs, plan.consumer_regs) == \
-        (2, 384, 56, 224)
-    assert "return single ? 40 : 56;" in src and "return single ? 232 : 224;" in src
+    assert (plan.consumers, plan.cluster, plan.threads, plan.producer_regs,
+            plan.consumer_regs) == (2, 2, 384, 56, 224)
+    assert plan.regs_fit and plan.q_resident and plan.slot_bytes == 32768
+    rings = {d: tflash.slab_plan(2, 256, 1, d) for d in (384, 512, 640, 1024, 1152)}
+    assert [(r.q_resident, r.slots) for r in rings.values()] == \
+        [(True, 4), (True, 4), (True, 3), (True, 2), (False, 6)]
+    assert ("static_assert(ring_slots(384) == 4 && ring_slots(512) == 4 && ring_slots(640) == 3 &&\n"
+            "                  q_resident(1024) && ring_slots(1024) == 2 && !q_resident(1152) &&\n"
+            "                  ring_slots(1152) == 6,") in body
+    for r in rings.values():
+        assert r.smem <= tflash.SMEM_LIMIT < r.smem + r.slot_bytes + 16
+    assert plan.smem == 1024 + 64 * 384 * 2 + 16384 + 4 * 32768 + 2 * 528 + 1024 + 9 * 8
+    # one QK^T and one softmax a (tile, block) up to heads of 512; wider heads
+    # in column groups of two to four slabs, one pass each
+    assert {d: tflash.slab_groups(d) for d in (384, 512, 640, 768, 896, 1024, 1152, 1280)} == {
+        384: (3,), 512: (4,), 640: (3, 2), 768: (3, 3), 896: (4, 3), 1024: (4, 4),
+        1152: (3, 3, 3), 1280: (4, 3, 3)}
+    for d in range(384, 8193, 128):
+        groups = tflash.slab_groups(d)
+        assert sum(groups) == d // 128 and set(groups) <= {2, 3, 4}
+        assert max(groups) - min(groups) <= 1
+    assert (plan.qk_passes, tflash.slab_plan(2, 512, 2, 512).qk_passes) == (1, 1)
+    assert rings[640].launches == ((3, 1), (2, 1)) and rings[640].qk_passes == 2
+    assert plan.slots_a_block == (6,) and plan.acc_floats == 96
+    assert tflash.slab_plan(2, 512, 2, 512).acc_floats == 128
+    # the staged bytes at phase 15 (c)'s shape: every K and V slot once for
+    # two tiles, q once a tile
+    assert plan.units == 480 * 2 * 1024 // 128
+    assert plan.staged_bytes == plan.units * (8 * 6 * 32768 + 2 * 64 * 384 * 2)
+    assert parent_slab_bytes(480, 1024, 2, 384) == 42_278_584_320
+    assert plan.staged_bytes * 3 <= parent_slab_bytes(480, 1024, 2, 384)
     single = tflash.slab_plan(2, 128, 2, 384)
-    assert (single.producer_regs, single.consumer_regs) == (40, 232)
-    assert plan.regs_fit and single.regs_fit
-    assert plan.slot_bytes == 32768 and plan.slots == 7 and plan.smem == 231568
-    assert f"ring_slots() == {plan.slots} && smem_bytes(ring_slots()) == {plan.smem}" in src
-    assert plan.smem + plan.slot_bytes + 16 > tflash.SMEM_LIMIT
-    assert (plan.slots_a_block, plan.qk_passes) == (7, 3)
-    assert plan.units == 480 * 2 * 3 * 1024 // 128
-    wide = tflash.slab_plan(2, 128, 1, 2048)
-    assert (wide.slots_a_block, wide.qk_passes, wide.units) == (33, 16, 32)
+    assert single.units == 2 * 2 and single.qk_passes == 1
     for d in (256, 320, 100):
         with pytest.raises(ValueError):
             tflash.slab_plan(1, 256, 1, d)
+
+
+def test_long_plan_mirrors_the_source():
+    """Two consumer warpgroups of two row tiles (a unit of four), 240
+    registers (the producer's 24); eight 16 KB stages and two q buffers of
+    two 4 KB tiles a warpgroup, 169,248 bytes as the source pins them; at
+    phase 15 (b)'s shape (S 1,024: 16 row tiles, four units an item) K and
+    V staged four times an item against the parent's six (units of
+    three)."""
+    src = (CSRC / "flash_attention.cu").read_text()
+    body = src[src.index("namespace longrow {"):src.index("}  // namespace longrow")]
+    for line in ("constexpr int D = 32;", "constexpr int kWg = 2;", "constexpr int kTiles = 2;",
+                 "constexpr int kProducerRegs = 24;", "constexpr int kConsumerRegs = 240;",
+                 "static_assert(kStages == 8 && smem_bytes(kStages) == 169248,"):
+        assert line in body, line
+    plan = tflash.long_plan(480, 1024, 12)
+    assert (plan.consumers, plan.tiles, plan.unit, plan.threads, plan.producer_regs,
+            plan.consumer_regs, plan.regs_fit) == (2, 2, 4, 384, 24, 240, True)
+    assert (plan.stages, plan.smem) == (8, 169248)
+    assert plan.units == 480 * 12 * 4
+    parent = 480 * 12 * 6 * 8 * 2 * 128 * 32 * 2 + 480 * 12 * 1024 * 32 * 2
+    assert plan.staged_bytes == 480 * 12 * 4 * 8 * 16384 + 480 * 12 * 1024 * 64
+    assert plan.staged_bytes < 0.7 * parent
+    assert tflash.long_plan(1, 640, 1).units == 3  # ten tiles: units of 4, 4, 2
+    for s, d in ((512, 32), (1024, 64), (128, 32)):
+        with pytest.raises(ValueError):
+            tflash.long_plan(1, s, 1, d)
+    assert "return S > 512 ? longrow::launch(" in src
 
 
 def test_flash_dispatch_and_refusals():
     """Each kernel width's counter; the C entry takes every multiple of 128
     above 256 and S without a cap."""
     assert tflash.launch_counter(32) == tflash.launch_counter(128) == "launches"
-    assert tflash.launch_counter(256) == "launches_wide"
+    assert tflash.launch_counter(32, 512) == tflash.launch_counter(64, 1024) == "launches"
+    assert tflash.launch_counter(32, 640) == tflash.launch_counter(32, 4096) == "launches_long"
+    assert tflash.launch_counter(256) == tflash.launch_counter(256, 1024) == "launches_wide"
     for d in (384, 512, 1024, 4096):
         assert tflash.launch_counter(d) == "launches_slab"
     for d in (24, 192, 320):
         with pytest.raises(ValueError):
             tflash.launch_counter(d)
     src = (CSRC / "flash_attention.cu").read_text()
-    assert "if (head_dim > 256 && head_dim % slab::kSlab == 0)" in src
+    assert "if (head_dim > 256 && head_dim % 128 == 0)" in src
     assert not re.search(r"\bkMaxS\b", src)
     for s in (640, 1024, 4096):
         tflash.check_shape(s, 32)
