@@ -204,7 +204,9 @@ seventeen phases; any failure raises and the script exits non-zero:
    widths with 1,024 positions, trained length 1,024, behind
    ``build_default_engine(device="cuda")`` with phase 3's BGE-small: (a)
    the default gate, pairs of 992 tokens, kernel 2's long branch (the
-   ring kernel above S 512, ``pair_attention_long``) 6 times a batch; (b)
+   long-pair kernel, heads of 32 above S 512, ``pair_attention_long``) 6
+   times a batch, its time beside the parent's in turns with
+   ``--attn-baseline``; (b)
    ``RAG_TPU_FLASH=1 RAG_TPU_PAIR_ATTN=0``, pairs padded to 1,024, kernel
    7's long-row kernel (``flash_attention_long``, heads of 32 above S 512)
    6 times a batch; (c) a cross-encoder of BERT-base widths in 2 heads
@@ -268,8 +270,12 @@ difference: its ``pair_attention`` at heads of 32, its streaming
 ``pair_attention_wide`` at 64 and 128, both builds launched by their C
 entries alone;
 phase 15 with ``--attn-baseline`` also holds kernel 2's contexts at S
-400 and 512 bit for bit against the earlier build's, every width (the
-parent's build: the dispatch there is unchanged), and with
+400 and 512 bit for bit against the earlier build's, every width, and
+above S 512 at heads of 64 and 128 (the parent's build: those kernels
+are unchanged), and times heads of 32 at S 992 (phase 15 (a)'s served
+mask) and 1,024-4,096 beside it in turns, logging their contexts'
+difference (the long-pair kernel's sums take another order; each is held
+to the plain version at 1e-2 + rtol 1e-2), and with
 ``--flash-baseline`` kernel 7's at S 128-512;
 ``--ffn-baseline`` builds an earlier ``fused_bert.cu`` and times its FFN
 kernel beside kernel 4 at both shapes the same way; ``--resid-baseline``
@@ -1102,7 +1108,8 @@ def check_attention(torch, np, smi: str, baseline=None) -> list:
     log(f"[attention] ptxas -v of csrc/pair_attention.cu (registers, spill store and load "
         f"bytes): {report}")
     ring = [k for k in report if "ring_kernel" in k]
-    if (len(ring) != 3 or not any("pair_attention_kernel" in k for k in report)
+    if (len(ring) != 2 or not any("pair_attention_kernel" in k for k in report)
+            or not any("long_pair_kernel" in k for k in report)
             or any(r[1] or r[2] for r in report.values())):
         raise AssertionError(f"[attention] a kernel-2 instantiation spills, or ptxas named "
                              f"other kernels: {report}")
@@ -5203,6 +5210,12 @@ FLASH_BASELINE_LONG = ((1024, 12, 32), (2048, 12, 32), (1024, 12, 64), (1024, 6,
 LONG_TIMED = {(1024, 32), (1024, 64), (1024, 128), (4096, 32), (1024, 256), (2048, 32),
               (1024, 384), (1024, 512), (128, 384)}
 LONG_COMPARE_QUERIES = 8  # 120 pairs: the einsum batch's (P, 12, S, S) f32 scores fit
+# kernel 2 beside the parent's build under --attn-baseline (S, heads, width):
+# every width up to S 512 and heads of 64 and 128 above it bit for bit,
+# heads of 32 above it (the long-pair kernel) within 1e-2 + rtol 1e-2
+ATTN_BASELINE_CASES = ((400, 12, 32), (512, 12, 32), (400, 12, 64), (512, 6, 128),
+                       (1024, 12, 32), (2048, 12, 32), (4096, 12, 32), (1024, 12, 64),
+                       (1024, 6, 128))
 
 
 def stretch_mask(np, mask_np, s: int, lq: int):
@@ -5259,7 +5272,8 @@ def check_long_kernels(torch, np, main: dict, smi: str, attn_baseline=None,
     640, 1,024, 2,048 and 4,096; kernel 7 at heads of 32-256 at S 640,
     1,024 and 2,048, and at heads of 384 and 512 at S 128, 512 and 1,024;
     each on phase 3's rerank mask stretched to S and on the uniform-length
-    mask, against its plain version (1e-2) with its launch counter; the
+    mask, against its plain version (1e-2) with its launch counter (heads
+    of 32 above S 512 on the long-pair kernel); the
     shapes of ``LONG_TIMED`` timed beside the plain version, SDPA, the
     bound and the MUFU floor.  Kernel 2 is held to atol 1e-2 and rtol
     1e-2, as ``tests/test_torch_kernels_cuda.py`` holds it: its probs are
@@ -5267,7 +5281,8 @@ def check_long_kernels(torch, np, main: dict, smi: str, attn_baseline=None,
     the row's, so a context near 2-4 (a pair with a few valid keys) may
     round to the neighbouring bf16 value, 0.0156 away.  With a baseline build (``--attn-baseline``,
     ``--flash-baseline``: the parent's), kernels 2 and 7 at S <= 512 on
-    the same masks, bit for bit with it, every width."""
+    the same masks, bit for bit with it, every width; kernel 2 at the
+    shapes of ``ATTN_BASELINE_CASES`` above S 512 in turns with it."""
     from financial_rag_system_tpu_torch.ops import attention as attn
     from financial_rag_system_tpu_torch.ops import flash_attention as fa
 
@@ -5294,13 +5309,17 @@ def check_long_kernels(torch, np, main: dict, smi: str, attn_baseline=None,
                     lambda: attn.encoder_self_attention_plain(q, k, v, mask, inv),
                     lambda: attn.encoder_self_attention.launches_long, rtol=1e-2)
                 log(f"{label}: P {q.shape[0]}, max_abs_err {err:.3g}")
-    for s, h, d in ((400, 12, 32), (512, 12, 32), (400, 12, 64), (512, 6, 128)):
+    for s, h, d in ATTN_BASELINE_CASES:
         if attn_baseline is None:
             break
-        q, k, v, cases = masks(48, s, h, d)
+        # the long-pair kernel (heads of 32 above S 512) sums in another
+        # order than the parent's build; every other case is unchanged
+        exact = s <= 512 or d != 32
+        q, k, v, cases = masks(48 if s <= 512 else long_pairs(s, h), s, h, d)
         for name, mask_np in cases:
-            time_attention_mask(torch, np, smi, f"{name} (S <= 512 against the baseline)",
-                                q, k, v, mask_np, attn_baseline, exact=True, rtol=1e-2)
+            time_attention_mask(torch, np, smi, f"{name} (S {s} against the baseline)",
+                                q, k, v, mask_np, attn_baseline, exact=exact, rtol=1e-2,
+                                chunk=None if s <= 512 else long_pairs(s, h))
 
     def flash_case(s, h, d, timed):
         q, k, v, cases = masks(long_pairs(s, h), s, h, d)
@@ -5430,9 +5449,10 @@ def long_served_kernel(torch, np, run: dict, smi: str, kernel: str, baseline=Non
     """A ``kernels`` line entry at the served shape of ``run``: the
     burst's rerank mask (as the encoder hands it to attention) with random
     q, k and v at its (S, d) and 480 pairs, timed by ``time_attention_mask``
-    or ``time_flash`` with the plain version in chunks of pairs; a flash
-    kernel beside ``baseline`` (the parent's build, ``--flash-baseline``)
-    in turns."""
+    or ``time_flash`` with the plain version in chunks of pairs, beside
+    ``baseline`` (the parent's build, ``--attn-baseline`` or
+    ``--flash-baseline``) in turns; its device time (and the baseline's),
+    and the L2 -> shared bytes its plan stages."""
     from financial_rag_system_tpu_torch.models import bert
 
     engine = run["engine"]
@@ -5469,8 +5489,29 @@ def long_served_kernel(torch, np, run: dict, smi: str, kernel: str, baseline=Non
             f"shared bytes staged with no (tile, block) skipped {plan.staged_bytes / 1e9:.2f} GB, "
             f"computed from the plan (ops/flash_attention.py {mirror}), not measured")
     else:
-        res = time_attention_mask(torch, np, smi, label, q, k, v, mask_np,
+        res = time_attention_mask(torch, np, smi, label, q, k, v, mask_np, baseline,
                                   chunk=long_pairs(s, h))
+        from financial_rag_system_tpu_torch.ops import _cuda
+        from financial_rag_system_tpu_torch.ops import attention as attn
+
+        qs, kb, vb = attn.kernel_inputs(q, k, v, d ** -0.5)
+        on_card = torch.tensor(mask_np, device="cuda")
+        dev = device_ms(torch, attention_launcher(torch, _cuda.library("pair_attention"), qs, kb,
+                                                  vb, on_card), "long_pair_kernel")
+        old_dev = ("" if baseline is None else ", the parent's build " + format(device_ms(
+            torch, attention_launcher(torch, baseline, qs, kb, vb, on_card), "kernel"), ".4f")
+            + " ms")
+        del qs, kb, vb
+        mask = torch.tensor(mask_np)
+        plan = attn.long_pair_plan(mask, h, d)
+        parent = attn.staged_kv_bytes(mask, h, 3, False, d)
+        log(f"[attention] {smi}: phase 15's served mask ({kernel}), P={p} S={s} H={h} d={d}: "
+            f"device time {dev:.4f} ms a launch (profiler){old_dev}; "
+            f"L2 -> shared bytes of K and V {plan.kv_bytes / 1e9:.3f} GB (q "
+            f"{plan.q_bytes / 1e9:.3f} GB), the parent's units of three without the tail "
+            f"{parent / 1e9:.3f} GB ({plan.kv_bytes / parent:.3f}); {plan.units} units of "
+            f"{plan.unit} row tiles, {plan.idle} (unit, warpgroup) pairs idle; computed from the "
+            f"plan (ops/attention.py long_pair_plan), not measured")
     source = "flash_attention.cu" if flash else "pair_attention.cu"
     replaces = ("financial_rag_system_tpu/models/bert.py:160" if flash
                 else "financial_rag_system_tpu/ops/attention.py:48")
@@ -5483,8 +5524,9 @@ def drive_phase_15(torch, np, work: Path, main: dict, smi: str, kernels: list,
                    attn_baseline=None, flash_baseline=None) -> list:
     """Phase 15: a 1,024-position MiniLM-wide reranker served over pairs
     of about 1,000 tokens (phase 3's BGE-small, a 32,768-chunk index of
-    960-token documents): (a) the default gate, kernel 2's long branch 6
-    times a batch at S 992; (b) ``RAG_TPU_FLASH=1 RAG_TPU_PAIR_ATTN=0``,
+    960-token documents): (a) the default gate, kernel 2's long branch
+    (the long-pair kernel) 6 times a batch at S 992, beside
+    ``attn_baseline`` (the parent's build) in turns; (b) ``RAG_TPU_FLASH=1 RAG_TPU_PAIR_ATTN=0``,
     kernel 7 6 times a batch at S 1,024; (c) a reranker of 2 heads of 384
     under ``RAG_TPU_FLASH=1``, kernel 7's slab kernel 4 times a batch at S
     1,024; each batch against the einsum batch, profiled; then the kernel
@@ -5500,7 +5542,7 @@ def drive_phase_15(torch, np, work: Path, main: dict, smi: str, kernels: list,
         f"{time.perf_counter() - t0:.1f} s")
     parts = (
         ("a", LONG_MINILM_DIR, LONG_MINILM_SHAPE, {}, "pair_attention_long",
-         "encoder_self_attention", "ring_kernel"),
+         "encoder_self_attention", "long_pair_kernel"),
         ("b", LONG_MINILM_DIR, LONG_MINILM_SHAPE, FLASH_ENV, "flash_attention_long",
          "encoder_flash_attention", "long_kernel"),
         ("c", SLAB_DIR, SLAB_SHAPE, {"RAG_TPU_FLASH": "1"}, "flash_attention_slab",
@@ -5513,7 +5555,8 @@ def drive_phase_15(torch, np, work: Path, main: dict, smi: str, kernels: list,
         runs[part]["env"] = {**LONG_ENV, **env}
         log(f"[phase-15] part ({part}) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    kernels.append(long_served_kernel(torch, np, runs["a"], smi, "pair_attention_long"))
+    kernels.append(long_served_kernel(torch, np, runs["a"], smi, "pair_attention_long",
+                                      attn_baseline))
     kernels.append(long_served_kernel(torch, np, runs["c"], smi, "flash_attention_slab",
                                       flash_baseline))
     kernels.append(long_served_kernel(torch, np, runs["b"], smi, "flash_attention_long",

@@ -1,8 +1,9 @@
 // Pair self-attention for BERT encoders, built for Hopper (sm_90a): a
 // persistent TMA/wgmma kernel for heads of 32 up to S 512 (the persistent
-// kernel, pair_attention_kernel), and a persistent ring kernel for heads of
-// 64 and 128 and for every width above S 512 (ring::ring_kernel<D>, after
-// it).  The wrapper
+// kernel, pair_attention_kernel), a persistent ring kernel for heads of 64
+// and 128 at every S (ring::ring_kernel<D>, after it), and the long-pair
+// kernel for heads of 32 above S 512 (longpair::long_pair_kernel, last).
+// The wrapper
 // (ops/attention.py) zero-pads every other head width up to 128 to the
 // next of the three, which is exact: zero columns add nothing to QK^T and
 // the padded context columns are dropped.
@@ -17,13 +18,16 @@
 // P.V.  The context is stored as bf16.  A fully masked pair stays finite,
 // with a uniform softmax over its S keys.  No key past a pair's last valid
 // key (kend) is loaded or computed: it would add exactly 0 (below).
-// Liberties, all inside the kernel-vs-plain tolerance (atol 1e-2): f32
-// sums are taken in another order; exp runs on ex2.approx; and the ring
-// kernel's softmax is online (below): its probs are exp(s - m) of the
-// running row max m, rounded to bf16 at that scale, and the context and
-// sum are rescaled by exp(m_old - m_new) when a block raises the max,
-// where the Pallas kernel and the plain version take the full row's max
-// first.  The persistent kernel finds the row max in a first sweep.
+// Liberties, all inside the kernel-vs-plain tolerance (atol 1e-2; above S
+// 512 atol and rtol 1e-2): f32 sums are taken in another order; exp runs
+// on ex2.approx; the ring and long-pair kernels' softmax is online
+// (below): its probs are exp(s - m) of the running row max m, rounded to
+// bf16 at that scale, and the context and sum are rescaled by exp(m_old -
+// m_new) when a block (a 64-key step in the long-pair kernel) raises the
+// max, where the Pallas kernel and the plain version take the full row's
+// max first; and the long-pair kernel sums the bf16-rounded probs (on the
+// tensor cores, below), where they sum the unrounded ones.  The
+// persistent kernel finds the row max in a first sweep.
 //
 // The persistent kernel (heads of 32).
 // Floors on the H100 at the rerank shape (P 480 pairs x S 400 tokens, H 12
@@ -140,17 +144,68 @@
 //    shared memory: 5 stages at d 64, 2 at d 128 (ring_stages;
 //    ops/attention.py ring_plan mirrors both).
 //
-// Above S 512, at every head width, the ring kernel serves (heads of 32 on
-// its D-32 instance: three consumer warpgroups at 152 registers, 64-byte
-// swizzle, 8 stages).  The persistent kernel stages an item's K, V and bias
-// whole, about 132 bytes a key at d 32: past 512 keys one stage fits, past
-// about 1,700 none.  The ring holds 128-key blocks whatever S is, and
-// nothing its producer keeps grows with S: it finds kend by a loop over the
-// pair's mask, 32 keys a step, and reads a block's 128 mask words as it
-// stages the block.  The same producer serves S <= 512 at heads of 64 and
-// 128, with the same bias rows and flags as the parent's bits, so the
-// contexts there are unchanged.  The bounds scale as at S 400: bytes with
-// P S H d, tensor work and exponentials with P H S kend.
+// The ring holds 128-key blocks whatever S is, and nothing its producer
+// keeps grows with S: it finds kend by a loop over the pair's mask, 32
+// keys a step, and reads a block's 128 mask words as it stages the block.
+// It serves heads of 64 and 128 above S 512 as below; the bounds scale as
+// at S 400: bytes with P S H d, tensor work and exponentials with P H S
+// kend.
+//
+// The long-pair kernel (heads of 32 above S 512).  The persistent kernel
+// stages an item's K, V and bias whole, about 132 bytes a key at d 32:
+// past 512 keys one stage fits, past about 1,700 none.  This kernel
+// streams 128-key blocks of K and V through a ring of eight stages with
+// the ring kernel's producer (64-byte swizzle).  What bounds it at the
+// served shape of a 1,024-position reranker (P 480 pairs x S 992 tokens,
+// 12 heads of 32, documents of 480-960 tokens): not bytes (q and the
+// context, K and V of the attended keys: about 1.3 GB, 0.4 ms at 3.35
+// TB/s) nor the tensor cores (QK^T and P.V over the attended keys, 5.5e11
+// FLOP, 0.56 ms at 989 TFLOP/s), but the softmax between
+// them: its exponentials (one ex2 a query row and attended key: about 1 ms
+// at 16 MUFU.EX2 a clock an SM) and, per score, an FFMA, an FMNMX and half
+// an F2FP beside it, with each step's QK^T wait, row-max shuffles and
+// alpha in the chain.  On the card (PERF.md) cutting MUFU out saves an
+// eighth, P.V a tenth, and the loads alone take 0.3 of the time: latency,
+// not one unit, bounds it.  What the design does:
+//  - units of four row tiles, one a consumer warpgroup (four warpgroups,
+//    16 consumer warps an SM to hide each other's waits): an item's 16
+//    tiles at S 992 are four full units, no warpgroup passes through a
+//    unit idle, and K and V are staged four times an item, not six (units
+//    of three; ops/attention.py long_pair_plan reckons the bytes).  Where
+//    T mod 4 = r > 0, the last unit's last 4 - r warpgroups hold no tile
+//    and pass through its blocks;
+//  - registers by setmaxnreg: a consumer thread 112, the producer
+//    warpgroup 24 (five warpgroups: a pool of 96 a thread), which holds
+//    one 64-key step's scores (32 f32) beside the context: each staged
+//    block is two online-softmax steps of 64 keys, each step's QK^T on
+//    wgmma m64n64k16 (q and the K rows K-major in shared memory) waited
+//    for before its softmax;
+//  - the block holding kend, where kend mod 128 is in (0, 64], is a tail:
+//    its first 64 keys alone are staged (a 64-key TMA box) and computed,
+//    one step.  The keys it leaves out are at or past kend and add
+//    exactly 0 to any row with a valid key; a pair with no valid key has
+//    no tail and takes all S keys;
+//  - P.V on mma.sync m16n8k16 straight from the score registers, V's
+//    fragments by ldmatrix.trans; a fifth n8 tile against a column of ones
+//    takes each row's sum of the step's bf16 probs on the tensor cores, in
+//    place of an FADD a score (the sum then covers the rounded probs: a
+//    liberty, above);
+//  - the row max in four chains a row, alpha and the probs as the ring
+//    kernel's (one FFMA and one MUFU.EX2 a score on a wholly valid step,
+//    exact in the bias on any other).
+// Variants timed against it at the served shape, each build in order and
+// then in reverse (tools/pair_attention_variants.py; PERF.md), on the
+// served and a stretched rerank mask; none faster: two warpgroups of two
+// tiles, their softmaxes interleaved step by step in a warp (two chains,
+// 240 registers) 1.09-1.10x its time, and with FADD sums and 128-key
+// steps as well 1.17-1.20x; three warpgroups of one tile (units of three)
+// 1.15-1.16x; FADD sums in four chains a row 1.04-1.05x; 128-key steps
+// (64 f32 of scores) level but spilling; a block's two QK^T issued
+// together, the second in flight across the first step's softmax, level;
+// no tail 1.05-1.07x; the warpgroups' QK^T issued in turns on named
+// barriers (FA3's ping-pong) 1.03-1.04x, or started out of phase once
+// 1.01-1.03x; the contexts rescaled only where a row max moved 1.04x;
+// P.V on wgmma m64n32k16 1.01x; one exp in eight on the FMA pipe 1.09x.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -555,8 +610,6 @@ constexpr int kKeys = 128;  // keys of a stage: QK^T's wgmma N and a TMA box
 constexpr int kMaxStages = 8;
 constexpr size_t kSmemLimit = 232448;
 
-// D 64 and 128 at every S; D 32 above S 512, where an item no longer fits
-// the persistent kernel's stage
 template <int D>
 struct Cfg {
   // consumer warpgroups: three at d 64 ran 8-10% faster than two on the
@@ -567,8 +620,8 @@ struct Cfg {
   // registers a thread after setmaxnreg, within the launch's pool
   static constexpr int kProducerRegs = 40;
   static constexpr int kConsumerRegs = D == 128 ? 232 : 152;
-  static constexpr int kCw = D == 32 ? 32 : 64;  // values in a swizzled row of a column chunk
-  static constexpr int kRowB = 2 * kCw;          // its bytes, the swizzle: 64 or 128
+  static constexpr int kCw = 64;        // values in a swizzled row of a column chunk
+  static constexpr int kRowB = 2 * kCw;  // its bytes, the swizzle: 128
   static constexpr int kChunks = D / kCw;
   static constexpr int kQChunk = kRows * kRowB;  // bytes of a column chunk of a q tile
   static constexpr int kKChunk = kKeys * kRowB;  // of a K or V block
@@ -585,7 +638,7 @@ constexpr bool regs_fit() {
   return 128 * (C::kProducerRegs + C::kWg * C::kConsumerRegs) <=
          C::kThreads * (65536 / C::kThreads / 8 * 8);
 }
-static_assert(regs_fit<32>() && regs_fit<64>() && regs_fit<128>(),
+static_assert(regs_fit<64>() && regs_fit<128>(),
               "the register budgets exceed the block's pool");
 
 struct StageHead {
@@ -612,12 +665,6 @@ constexpr int ring_stages() {
   return n;
 }
 
-template <int RowB>
-__device__ __forceinline__ uint64_t desc(const void* p) {
-  if constexpr (RowB == 64) return wgmma_desc_sw64(p);
-  else return wgmma_desc_sw128(p);
-}
-
 // s = q K^T for one block (64 rows x kKeys keys, f32), waited for:
 // s[4j + 2h + e] is row 16 warp + g + 8h, key 8j + 2t + e
 template <int D>
@@ -635,8 +682,8 @@ __device__ __forceinline__ void qk(float (&s)[kKeys / 2], const unsigned char* q
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int c = kk / (C::kCw / 16), o = (kk % (C::kCw / 16)) * 32;
-    wgmma_ss(s, desc<C::kRowB>(qs + c * C::kQChunk + o), desc<C::kRowB>(ks + c * C::kKChunk + o),
-             kk > 0 ? 1u : 0u);
+    wgmma_ss(s, wgmma_desc_sw128(qs + c * C::kQChunk + o),
+             wgmma_desc_sw128(ks + c * C::kKChunk + o), kk > 0 ? 1u : 0u);
   }
   wgmma_commit();
   wgmma_wait<0>();
@@ -965,11 +1012,458 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
 
 }  // namespace ring
 
+// ---------------------------------------------------------------------------
+// Heads of 32 above S 512 (longpair::long_pair_kernel).  See the file
+// header.
+
+namespace longpair {
+
+constexpr int D = 32;
+constexpr int kKeys = ring::kKeys;   // keys of a stage
+constexpr int kStep = 64;            // keys of an online-softmax step (QK^T on wgmma m64n64k16)
+constexpr int kRowB = 2 * D;         // bytes of a row of q, K or V: the 64-byte swizzle
+constexpr int kKvBytes = kKeys * kRowB;  // one of K, V in a stage: 8 KB
+constexpr int kQBytes = kRows * kRowB;   // one q tile: 4 KB
+constexpr int kWg = 4;               // consumer warpgroups
+constexpr int kTiles = 1;            // row tiles of a unit a consumer warpgroup takes
+constexpr int kUnit = kWg * kTiles;  // warpgroup wg takes tiles t0 + wg (its A) and t0 + kWg + wg (B)
+constexpr int kThreads = 128 * (kWg + 1);  // and a producer warpgroup
+constexpr int kProducerRegs = 24;          // registers a thread after setmaxnreg
+constexpr int kConsumerRegs = 112;
+constexpr int kMaxStages = 8;
+static_assert(128 * (kProducerRegs + kWg * kConsumerRegs) <=
+                  kThreads * (65536 / kThreads / 8 * 8),
+              "the register budgets exceed the block's pool");
+
+struct alignas(16) StageHead {
+  float bias[kKeys];  // 0 for a valid key, -1e9 for a masked one, -inf past S
+  int full;           // every key the block computes is valid and below S: no bias
+  int last;           // the item's last block below kend
+  int keys;           // keys the block computes: kKeys, or kStep for a tail
+};
+
+// 1 KB to align the stages to the swizzle's atoms; per stage K, V, its
+// head and its full and empty barriers; a consumer warpgroup's q tiles,
+// two buffers of kTiles, and a barrier a buffer (ops/attention.py
+// long_pair_plan mirrors this)
+constexpr size_t smem_bytes(int stages) {
+  return 1024 + stages * (2 * (size_t)kKvBytes + sizeof(StageHead) + 2 * sizeof(uint64_t)) +
+         kWg * 2 * (kTiles * (size_t)kQBytes + sizeof(uint64_t));
+}
+
+constexpr int ring_stages() {
+  int n = kMaxStages;
+  while (n > 2 && smem_bytes(n) > ring::kSmemLimit) --n;
+  return n;
+}
+constexpr int kStages = ring_stages();
+static_assert(kStages == 8 && sizeof(StageHead) == 528 && smem_bytes(kStages) == 169280,
+              "eight 16 KB stages and eight q tiles");
+
+// x as lane 0 of the warp holds it: a value the compiler then knows to be
+// the same in every lane, so a branch on it is no divergent path around
+// the wgmmas inside it
+__device__ __forceinline__ bool warp_uniform(bool x) {
+  return __shfl_sync(0xffffffffu, (int)x, 0) != 0;
+}
+
+// The producer warp: for each item, its kend (a loop over the pair's
+// mask, 32 keys a step); for each unit of kUnit row tiles and each
+// kKeys-key block below kend (all S keys when it has none), the block's
+// bias row and flags, and its K and V by TMA (keys past S arrive as
+// zeros).  Where kend mod kKeys is in (0, kStep], the block holding kend
+// is a tail: its first kStep keys alone are staged and computed.
+__device__ __forceinline__ void produce(const CUtensorMap* kmap, const CUtensorMap* vmap,
+                                        const CUtensorMap* kmap_tail,
+                                        const CUtensorMap* vmap_tail,
+                                        const int32_t* __restrict__ mask, unsigned char* kv,
+                                        StageHead* head, uint64_t* full, uint64_t* empty,
+                                        int n_items, int S, int H, int lane) {
+  constexpr uint32_t kAll = 0xffffffffu;
+  const int T = (S + kRows - 1) / kRows;
+  int n = 0;  // stages filled
+  for (int i = 0; i < n_items; ++i) {
+    const int item = blockIdx.x + i * gridDim.x;
+    const int pair = item / H, hd = item - pair * H;
+    const int32_t* mrow = mask + (size_t)pair * S;
+    int last = 0;
+#pragma unroll 4
+    for (int key = lane; key < S; key += 32)
+      if (mrow[key] > 0) last = key + 1;
+    const int kend = __reduce_max_sync(kAll, last);
+    const int nb = ((kend > 0 ? kend : S) + kKeys - 1) / kKeys;
+    const bool tail = kend > 0 && (kend - 1) % kKeys < kStep;
+    for (int t0 = 0; t0 < T; t0 += kUnit) {
+      for (int kb = 0; kb < nb; ++kb, ++n) {
+        const int keys = tail && kb == nb - 1 ? kStep : kKeys;
+        // the block's validity, keys kb kKeys + lane + 32j, read while the
+        // stage may still be in use
+        bool ok[kKeys / 32], all = true;
+#pragma unroll
+        for (int j = 0; j < kKeys / 32; ++j) {
+          const int key = kb * kKeys + lane + 32 * j;
+          ok[j] = key < S && mrow[key] > 0;
+          if (32 * j < keys) all = all && ok[j];
+        }
+        const int s = n % kStages;
+        mbar_wait(&empty[s], ((n / kStages) & 1) ^ 1);  // the first round passes
+        StageHead& h = head[s];
+#pragma unroll
+        for (int j = 0; j < kKeys / 32; ++j)
+          h.bias[lane + 32 * j] =
+              kb * kKeys + lane + 32 * j < S ? (ok[j] ? 0.0f : kNeg) : -INFINITY;
+        const bool whole = __all_sync(kAll, all);
+        if (lane == 0) {
+          h.full = whole;
+          h.last = kb == nb - 1;
+          h.keys = keys;
+          mbar_arrive_expect_tx(&full[s], 2 * keys * kRowB);
+          unsigned char* ks = kv + (size_t)s * 2 * kKvBytes;
+          const bool short_block = keys == kStep;
+          tma_load_3d(ks, short_block ? kmap_tail : kmap, &full[s], hd * D, kb * kKeys, pair);
+          tma_load_3d(ks + kKvBytes, short_block ? vmap_tail : vmap, &full[s], hd * D,
+                      kb * kKeys, pair);
+        } else {
+          mbar_arrive(&full[s]);
+        }
+      }
+    }
+  }
+}
+
+// s = q K^T of NK keys (64 rows x NK, f32), issued and not waited for:
+// two wgmma m64nNKk16 steps, both operands K-major in the 64-byte
+// swizzle; s[4j + 2h + e] is row 16 warp + g + 8h, key 8j + 2t + e
+template <int NK>
+__device__ __forceinline__ void qk_issue(float (&s)[NK / 2], const unsigned char* qs,
+                                         const unsigned char* ks) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss(s, wgmma_desc_sw64(qs + 32 * kk), wgmma_desc_sw64(ks + 32 * kk), kk > 0 ? 1u : 0u);
+}
+
+// One consumer warp's 16 rows of one tile: the online-softmax state
+struct Tile {
+  float acc[D / 2];  // the context: acc[4j + 2h + e] is row g + 8h, column 8j + 2t + e
+  float m[2];        // running max of the biased logits
+  float l[2];        // running sum of the bf16-rounded probs, the whole row's in each lane
+};
+
+// The key bias of a step with a masked key or a key past S, the same for
+// every row, into the scores
+template <int NK>
+__device__ __forceinline__ void add_bias(float (&s)[NK / 2], const float* bias, int t) {
+#pragma unroll
+  for (int j = 0; j < NK / 8; ++j) {
+    const float2 bb = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * t);
+    s[4 * j] += bb.x;
+    s[4 * j + 1] += bb.y;
+    s[4 * j + 2] += bb.x;
+    s[4 * j + 3] += bb.y;
+  }
+}
+
+// The step's row max (four chains a row), the new running max, alpha =
+// ex2((m_old - m_new) log2e) (0 at the first step, whose m is -inf), and
+// nml = -m_new log2e.  A step whose keys are not all valid subtracts
+// m_new from its scores here and takes nml 0, so its probs are ex2((s +
+// bias - m) log2e), exact in the bias: a pair with no valid key gets
+// ex2(0) = 1 for every key below S, its uniform softmax.
+template <int NK>
+__device__ __forceinline__ void row_max(Tile& r, float (&s)[NK / 2], bool full,
+                                        float (&alpha)[2], float (&nml)[2]) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float x[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) x[u] = fmaxf(s[4 * u + 2 * hh], s[4 * u + 2 * hh + 1]);
+#pragma unroll
+    for (int j = 4; j < NK / 8; ++j)
+      x[j & 3] = fmaxf(x[j & 3], fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+    const float mn = fmaxf(r.m[hh], quad_max(fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3]))));
+    alpha[hh] = ex2((r.m[hh] - mn) * kLog2e);
+    r.m[hh] = mn;
+    nml[hh] = full ? -mn * kLog2e : 0.f;
+  }
+  if (!full) {
+#pragma unroll
+    for (int i = 0; i < NK / 2; ++i) s[i] -= r.m[(i >> 1) & 1];
+  }
+}
+
+// the probs of 16-key step kk, one FFMA and one MUFU.EX2 each, rounded to
+// bf16 into P's A fragment pa: row g keys 2t, 2t + 1; row g + 8; row g
+// keys 2t + 8, 2t + 9; row g + 8
+template <int N>
+__device__ __forceinline__ void exp_step(float (&s)[N], int kk, const float (&nml)[2],
+                                         uint32_t (&pa)[4]) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    float& x = s[8 * kk + e];
+    x = ex2(fmaf(x, kLog2e, nml[(e >> 1) & 1]));
+  }
+#pragma unroll
+  for (int f = 0; f < 4; ++f) pa[f] = pack_bf16(s[8 * kk + 2 * f], s[8 * kk + 2 * f + 1]);
+}
+
+// acc += P.V of 16-key step kk and sum += P.1 on mma.sync m16n8k16: P's A
+// fragment pa as exp_step made it; V's B fragments by ldmatrix.trans from
+// the 64-byte-swizzled stage (see v_lane); the context is the four n8
+// tiles' accumulators (acc[4j ..] is tile j's); a fifth n8 tile against a
+// column of ones takes each row's sum of the step's bf16 probs (sum[0],
+// sum[1]: row g; sum[2], sum[3]: row g + 8), in place of an FADD a score
+__device__ __forceinline__ void pv_step(float (&acc)[D / 2], float (&sum)[4],
+                                        const uint32_t (&pa)[4], const unsigned char* vrow,
+                                        int swh, int kk) {
+  constexpr uint32_t kOnes = 0x3f803f80u;  // two bf16 1.0
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    uint32_t vf[4];
+    ldsm_x4_trans(vf, vrow + 16 * kk * kRowB + (((2 * half) ^ swh) << 4));
+    mma_bf16(*reinterpret_cast<float(*)[4]>(acc + 8 * half), pa, vf[0], vf[1]);
+    mma_bf16(*reinterpret_cast<float(*)[4]>(acc + 8 * half + 4), pa, vf[2], vf[3]);
+  }
+  mma_bf16(sum, pa, kOnes, kOnes);
+}
+
+// The lane's row of V in a stage and its swizzle: lane's matrix mi = lane
+// / 8 is keys 8 (mi & 1) .. of a step, column granule (mi >> 1) of the 16
+// columns; granule gi of key row k sits at gi ^ ((k >> 1) & 3)
+__device__ __forceinline__ const unsigned char* v_lane(const unsigned char* vs, int lane, int& swh) {
+  const int mi = lane >> 3;
+  const int key = (lane & 7) + 8 * (mi & 1);
+  swh = ((key >> 1) & 3) ^ (mi >> 1);
+  return vs + key * kRowB;
+}
+
+// One step for the warp's rows of tile a and, when TWO, of tile b, in one
+// stream (two independent chains a warp): the bias where the step is not
+// wholly valid, the softmax, the contexts rescaled by alpha, then each
+// 16-key piece's probs made and multiplied into the contexts and the
+// sums at once (P lives 16 keys, not a step).
+template <int NK, bool TWO>
+__device__ __forceinline__ void attend(Tile& a, float (&sa)[NK / 2], Tile& b, float (&sb)[NK / 2],
+                                       const float* bias, bool full, int lane,
+                                       const unsigned char* vs) {
+  float ala[2], nma[2], alb[2], nmb[2];
+  if (!full) {
+    add_bias<NK>(sa, bias, lane & 3);
+    if constexpr (TWO) add_bias<NK>(sb, bias, lane & 3);
+  }
+  row_max<NK>(a, sa, full, ala, nma);
+  if constexpr (TWO) row_max<NK>(b, sb, full, alb, nmb);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    a.acc[i] *= ala[(i >> 1) & 1];
+    if constexpr (TWO) b.acc[i] *= alb[(i >> 1) & 1];
+  }
+  int swh;
+  const unsigned char* vrow = v_lane(vs, lane, swh);
+  float oa[4] = {}, ob[4] = {};
+#pragma unroll
+  for (int kk = 0; kk < NK / 16; ++kk) {
+    uint32_t pa[4], pb[4];
+    exp_step(sa, kk, nma, pa);
+    if constexpr (TWO) exp_step(sb, kk, nmb, pb);
+    pv_step(a.acc, oa, pa, vrow, swh, kk);
+    if constexpr (TWO) pv_step(b.acc, ob, pb, vrow, swh, kk);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    a.l[hh] = fmaf(a.l[hh], ala[hh], oa[2 * hh]);
+    if constexpr (TWO) b.l[hh] = fmaf(b.l[hh], alb[hh], ob[2 * hh]);
+  }
+}
+
+// One step of NK keys (K at ks, V at vs, their bias row) for the
+// warpgroup's tiles: QK^T of both on wgmma (an absent B's scores go
+// unread), waited for, then attend
+template <int NK>
+__device__ __forceinline__ void step(Tile& a, Tile& b, bool has_b, const unsigned char* qa,
+                                     const unsigned char* qb, const unsigned char* ks,
+                                     const unsigned char* vs, const float* bias, bool full,
+                                     int lane) {
+  float sa[NK / 2], sb[NK / 2];
+  wgmma_fence();
+  qk_issue<NK>(sa, qa, ks);
+  if constexpr (kTiles == 2) qk_issue<NK>(sb, qb, ks);
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_pin(sa);
+  if constexpr (kTiles == 2) wgmma_pin(sb);
+  if (kTiles == 2 && has_b) {
+    attend<NK, true>(a, sa, b, sb, bias, full, lane, vs);
+  } else {
+    attend<NK, false>(a, sa, b, sb, bias, full, lane, vs);
+  }
+}
+
+// A tile's context over its row sums, rows ra and ra + 8 below S of the
+// item at `base`
+__device__ __forceinline__ void store_tile(const Tile& r, __nv_bfloat16* __restrict__ out,
+                                           size_t base, size_t tok, int ra, int S, int lane) {
+  const int t = lane & 3;
+  const float inv_a = 1.f / r.l[0], inv_b = 1.f / r.l[1];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (ra < S)
+      *reinterpret_cast<uint32_t*>(out + base + (size_t)ra * tok + col) =
+          pack_bf16(r.acc[4 * j] * inv_a, r.acc[4 * j + 1] * inv_a);
+    if (ra + 8 < S)
+      *reinterpret_cast<uint32_t*>(out + base + (size_t)(ra + 8) * tok + col) =
+          pack_bf16(r.acc[4 * j + 2] * inv_b, r.acc[4 * j + 3] * inv_b);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+long_pair_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap,
+                 const __grid_constant__ CUtensorMap kmap_tail,
+                 const __grid_constant__ CUtensorMap vmap_tail, const int32_t* __restrict__ mask,
+                 __nv_bfloat16* __restrict__ out, int P, int S, int H) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* kv = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* qtiles = kv + (size_t)kStages * 2 * kKvBytes;  // [kWg][2][kTiles][kQBytes]
+  StageHead* head = reinterpret_cast<StageHead*>(qtiles + kWg * 2 * kTiles * kQBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(head + kStages);
+  uint64_t* empty = full + kStages;
+  uint64_t* qfull = empty + kStages;  // [kWg][2]
+
+  const int n_items = (P * H - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int T = (S + kRows - 1) / kRows, units = (T + kUnit - 1) / kUnit;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);        // every producer lane, after its head writes
+      mbar_init(&empty[s], 4 * kWg);  // every consumer warp, when done with the block
+    }
+    for (int b = 0; b < 2 * kWg; ++b) mbar_init(&qfull[b], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kWg) {  // the producer warpgroup: one warp works
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 4 * kWg)
+      produce(&kmap, &vmap, &kmap_tail, &vmap_tail, mask, kv, head, full, empty, n_items, S, H,
+              lane);
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  // Consumer warpgroup wg takes tiles t0 + wg (A) and, with two tiles a
+  // warpgroup, t0 + kWg + wg (B) of each unit of the block's items (each
+  // where the item has it: the last unit of an item whose T is no
+  // multiple of kUnit deals its tiles in that order, so a warpgroup holds
+  // fewer or none there), and takes every staged block of the unit for
+  // them, in steps of kStep keys.  One thread loads each unit's q tiles by
+  // TMA into one of two buffers, a unit ahead (rows past S arrive as
+  // zeros; a warpgroup with no tile in a unit loads none and passes
+  // through its blocks).
+  const int wg = warp >> 2, wl = warp & 3;
+  const bool leader = (threadIdx.x & 127) == 0;
+  unsigned char* my_q = qtiles + wg * 2 * kTiles * kQBytes;
+  uint64_t* my_qfull = qfull + 2 * wg;
+  const int positions = n_items * units;  // the block's units
+  auto load_q = [&](int k, int b) {       // unit k's tiles of this warpgroup into buffer b
+    const int item = blockIdx.x + (k / units) * gridDim.x;
+    const int pair = item / H, hd = item - pair * H;
+    const int t0 = (k % units) * kUnit;
+    int nt = 0;
+#pragma unroll
+    for (int j = 0; j < kTiles; ++j)
+      if (t0 + kWg * j + wg < T) nt = j + 1;
+    mbar_arrive_expect_tx(&my_qfull[b], nt * kQBytes);
+    for (int j = 0; j < nt; ++j)
+      tma_load_3d(my_q + (b * kTiles + j) * kQBytes, &qmap, &my_qfull[b], hd * D,
+                  (t0 + kWg * j + wg) * kRows, pair);
+  };
+  const size_t tok = (size_t)H * D;  // stride of one token
+  if (leader && positions > 0) load_q(0, 0);
+  int n = 0;  // stages passed
+  for (int k = 0; k < positions; ++k) {
+    const int item = blockIdx.x + (k / units) * gridDim.x;
+    const int pair = item / H;
+    const int t0 = (k % units) * kUnit;
+    const bool has_a = t0 + wg < T, has_b = kTiles == 2 && t0 + kWg + wg < T;
+    const int ra = (t0 + wg) * kRows + 16 * wl + (lane >> 2);  // tile A's rows ra, ra + 8
+    const int rb = ra + kWg * kRows;                            // tile B's
+    Tile a, b;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) a.acc[i] = b.acc[i] = 0.f;
+    a.m[0] = a.m[1] = b.m[0] = b.m[1] = -INFINITY;
+    a.l[0] = a.l[1] = b.l[0] = b.l[1] = 0.f;
+    // every warp is past the last unit's wgmmas, which read the other buffer
+    named_barrier(1 + wg, 128);
+    if (leader && k + 1 < positions) load_q(k + 1, (k + 1) & 1);
+    mbar_wait(&my_qfull[k & 1], (k >> 1) & 1);
+    const unsigned char* qa = my_q + (k & 1) * kTiles * kQBytes;
+    const unsigned char* qb = qa + (kTiles - 1) * kQBytes;
+    bool last = false;
+    while (!last) {  // the item's blocks below kend
+      const int s = n % kStages;
+      mbar_wait(&full[s], (n / kStages) & 1);
+      const StageHead& h = head[s];
+      last = h.last;
+      if (has_a) {
+        const unsigned char* ks = kv + (size_t)s * 2 * kKvBytes;
+        const bool whole = warp_uniform(h.full);
+        // the block's first kStep keys, then (where it is no tail) the rest:
+        // one step's scores live at a time
+        step<kStep>(a, b, has_b, qa, qb, ks, ks + kKvBytes, h.bias, whole, lane);
+        if (warp_uniform(h.keys == kKeys))
+          step<kStep>(a, b, has_b, qa, qb, ks + kStep * kRowB, ks + kKvBytes + kStep * kRowB,
+                      h.bias + kStep, whole, lane);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
+      ++n;
+    }
+    const size_t base = (size_t)pair * S * tok + (size_t)(item - pair * H) * D;
+    if (has_a) store_tile(a, out, base, tok, ra, S, lane);
+    if (has_b) store_tile(b, out, base, tok, rb, S, lane);
+  }
+}
+
+int launch(const void* q, const void* k, const void* v, const void* mask, void* out, int P, int S,
+           int H, void* stream) {
+  CUtensorMap qmap, kmap, vmap, kmap_tail, vmap_tail;
+  if (!ring::tile_map(&qmap, q, P, S, H, D, D, kRows) ||
+      !ring::tile_map(&kmap, k, P, S, H, D, D, kKeys) ||
+      !ring::tile_map(&vmap, v, P, S, H, D, D, kKeys) ||
+      !ring::tile_map(&kmap_tail, k, P, S, H, D, D, kStep) ||
+      !ring::tile_map(&vmap_tail, v, P, S, H, D, D, kStep))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  constexpr size_t smem = smem_bytes(kStages);
+  // as launch_persistent's: SMs of each device, 0 until a launch there has
+  // raised this kernel's shared-memory limit
+  static std::atomic<int> sms[64];
+  int n_sm = sms[dev & 63].load(std::memory_order_acquire);
+  if (n_sm == 0) {
+    err = cudaFuncSetAttribute(long_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    sms[dev & 63].store(n_sm, std::memory_order_release);
+  }
+  const int ctas = P * H < n_sm ? P * H : n_sm;  // one block an SM
+  long_pair_kernel<<<ctas, kThreads, smem, (cudaStream_t)stream>>>(
+      qmap, kmap, vmap, kmap_tail, vmap_tail, (const int32_t*)mask, (__nv_bfloat16*)out, P, S, H);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace longpair
+
 }  // namespace
 
 // q, k, v and out (P, S, H, head_dim) bf16, contiguous, 16-byte aligned;
 // mask (P, S) int32; head_dim 32 (the persistent kernel up to S 512, the
-// ring kernel above), 64 or 128 (the ring kernel); S >= 1 and P H below
+// long-pair kernel above), 64 or 128 (the ring kernel); S >= 1 and P H below
 // 2^31 (S is a 32-bit TMA coordinate).  Returns a cudaError_t: 1
 // (cudaErrorInvalidValue) for shapes the kernels do not take, else the
 // launch's own status.
@@ -982,7 +1476,7 @@ extern "C" int pair_attention(const void* q, const void* k, const void* v,
   switch (head_dim) {
     case 32:
       return S <= kMaxS ? launch_persistent(q, k, v, mask, out, P, S, H, stream)
-                        : ring::launch<32>(q, k, v, mask, out, P, S, H, stream);
+                        : longpair::launch(q, k, v, mask, out, P, S, H, stream);
     case 64: return ring::launch<64>(q, k, v, mask, out, P, S, H, stream);
     case 128: return ring::launch<128>(q, k, v, mask, out, P, S, H, stream);
     default: return (int)cudaErrorInvalidValue;

@@ -15,10 +15,14 @@ device memory; the kernel keeps them on chip.
   pair's last valid key); heads of 64 and 128 (BERT-base and -large: 64)
   take the ring kernel of the same file, which streams 128-key blocks of
   K and V by TMA through a ring with one online-softmax sweep
-  (:func:`ring_plan`).  Above S 512 (:data:`PERSISTENT_MAX_SEQ`) every
-  width takes the ring kernel, heads of 32 its D-32 instance: the
-  persistent kernel's whole item no longer fits a stage, and the ring has
-  no bound on S (:func:`launch_counter` names the kernel a shape takes).
+  (:func:`ring_plan`).  Above S 512 (:data:`PERSISTENT_MAX_SEQ`) the
+  persistent kernel's whole item no longer fits a stage: heads of 32 take
+  the long-pair kernel (:func:`long_pair_plan`: the ring's streaming,
+  four consumer warpgroups a unit of four row tiles, 64-key online-softmax
+  steps, each row's sum on the tensor cores, the block holding a pair's
+  last valid key cut to 64 keys where that suffices), heads of 64 and 128
+  keep the ring kernel, which has no bound on S (:func:`launch_counter`
+  names the counter a shape adds to).
   Any other head width up to 128 (JAX's gate sends
   every d <= 128 to its kernel) is padded with zero columns to the next
   of :data:`HEAD_DIMS` (:func:`padded_width`) after q is scaled by the
@@ -60,7 +64,8 @@ from financial_rag_system_tpu_torch.ops import _cuda
 HEAD_DIMS = (32, 64, 128)
 MAX_HEAD_DIM = HEAD_DIMS[-1]
 # the persistent kernel's longest S (an item's K, V and bias a stage);
-# above it every width runs the ring kernel, counted on launches_long
+# above it heads of 32 run the long-pair kernel and 64 and 128 the ring
+# kernel, counted on launches_long
 PERSISTENT_MAX_SEQ = 512
 NEG = -1e9
 
@@ -69,6 +74,13 @@ RING_KEYS = 128            # keys of a stage
 RING_ROWS = 64             # query rows of a tile
 RING_SMEM_LIMIT = 232448   # shared memory a block may take
 RING_MAX_STAGES = 8
+
+# the long-pair kernel's constants (csrc/pair_attention.cu, namespace
+# longpair): heads of 32 above S 512
+LONG_PAIR_STEP = 64        # keys of an online-softmax step, and of a tail block: the one
+                           # holding kend, where kend mod 128 is in (0, 64]
+LONG_PAIR_CONSUMERS = 4    # consumer warpgroups
+LONG_PAIR_TILES = 1        # 64-row tiles of a unit a consumer warpgroup takes
 
 
 def padded_width(d: int) -> int:
@@ -95,16 +107,15 @@ class RingPlan(NamedTuple):
 def ring_plan(d: int) -> RingPlan:
     """Mirror of ``ring::Cfg``, ``regs_fit``, ``smem_bytes`` and
     ``ring_stages``: one block an SM whatever S is, since the ring holds
-    128-key blocks and not a whole item (d 32 serves above S 512)."""
-    if d not in (32, 64, 128):
-        raise ValueError(f"the ring kernel is built at d 32, 64 and 128; got {d}")
+    128-key blocks and not a whole item."""
+    if d not in (64, 128):
+        raise ValueError(f"the ring kernel is built at d 64 and 128; got {d}")
     wg = 2 if d == 128 else 3
     threads = 128 * (wg + 1)
     producer, consumer = 40, (232 if d == 128 else 152)
     pool = threads * (65536 // threads // 8 * 8)
-    row_bytes = 64 if d == 32 else 128
-    kv = d // (row_bytes // 2) * RING_KEYS * row_bytes   # one of K, V in a stage
-    q = d // (row_bytes // 2) * RING_ROWS * row_bytes    # one q tile
+    kv = RING_KEYS * d * 2                               # one of K, V in a stage
+    q = RING_ROWS * d * 2                                # one q tile
     head = 8 + 4 * RING_KEYS                             # StageHead: flags and the bias row
 
     def smem(stages):
@@ -117,12 +128,88 @@ def ring_plan(d: int) -> RingPlan:
                     stages, smem(stages))
 
 
+class LongPairPlan(NamedTuple):
+    """The long-pair kernel's launch over one mask, as the C++ computes it."""
+
+    consumers: int      # consumer warpgroups
+    tiles: int          # 64-row tiles of a unit each takes
+    unit: int           # row tiles a unit: its K and V blocks are staged once for all of them
+    threads: int        # and a producer warpgroup
+    producer_regs: int  # registers a thread after setmaxnreg
+    consumer_regs: int
+    regs_fit: bool      # the budgets fit the launch's register pool
+    stages: int         # 128-key K and V stages in the ring
+    smem: int           # dynamic shared memory, bytes
+    units: int          # units over the mask's (pair, head) items
+    idle: int           # (unit, consumer warpgroup) pairs with no tile: it passes through the blocks
+    kv_bytes: int       # K and V staged from L2 into shared memory, bytes
+    q_bytes: int        # q staged likewise: each tile's rows below S once
+
+
+def staged_keys(mask: torch.Tensor, tail: bool = True) -> torch.Tensor:
+    """(P,) keys of K (and of V) a unit of a pair's row tiles stages: its
+    :func:`ring_blocks` of 128 keys, the block holding kend as
+    :data:`LONG_PAIR_STEP` keys where ``tail`` and kend mod 128 is in (0,
+    64] (the keys past kend there add exactly 0)."""
+    kend = key_ends(mask)
+    keys = ring_blocks(mask) * RING_KEYS
+    if tail:
+        cut = (kend > 0) & ((kend - 1) % RING_KEYS < LONG_PAIR_STEP)
+        keys = keys - torch.where(cut, RING_KEYS - LONG_PAIR_STEP, 0)
+    return keys
+
+
+def staged_kv_bytes(mask: torch.Tensor, h: int, unit: int, tail: bool, d: int = 32) -> int:
+    """K and V bytes a kernel stages from L2 into shared memory over a
+    (P, S) mask at ``h`` heads of ``d`` when it stages each block once a
+    unit of ``unit`` 64-row tiles: :func:`long_pair_plan`'s (units of
+    four, the tail), or those of the ring kernel's D-32 instance, which
+    took heads of 32 above S 512 before it (units of three, no tail)."""
+    t = -(-mask.shape[1] // RING_ROWS)
+    return int(staged_keys(mask, tail).sum()) * h * -(-t // unit) * 2 * d * 2
+
+
+def long_pair_plan(mask: torch.Tensor, h: int, d: int = 32) -> LongPairPlan:
+    """Mirror of ``longpair``'s constants, ``smem_bytes`` and
+    ``ring_stages``, and of its dealing of row tiles, over a (P, S) mask at
+    ``h`` heads of 32: four consumer warpgroups at 112 registers (the
+    producer warpgroup's 24), warpgroup w taking tile t0 + w of each unit
+    of four; eight 16 KB stages of K and V with their 528-byte heads and
+    barriers, two 4 KB q buffers a warpgroup."""
+    p, s = mask.shape
+    if d != 32 or s <= PERSISTENT_MAX_SEQ:
+        raise ValueError(f"the long-pair kernel takes heads of 32 above S "
+                         f"{PERSISTENT_MAX_SEQ}; got d {d} at S {s}")
+    wg, tiles = LONG_PAIR_CONSUMERS, LONG_PAIR_TILES
+    unit = wg * tiles
+    threads = 128 * (wg + 1)
+    producer, consumer = 24, 112
+    pool = threads * (65536 // threads // 8 * 8)
+    kv = RING_KEYS * d * 2
+    q = RING_ROWS * d * 2
+    head = 4 * RING_KEYS + 16   # the bias row and three flags, 16-byte aligned
+
+    def smem(stages):
+        return 1024 + stages * (2 * kv + head + 16) + wg * 2 * (tiles * q + 8)
+
+    stages = RING_MAX_STAGES
+    while stages > 2 and smem(stages) > RING_SMEM_LIMIT:
+        stages -= 1
+    t = -(-s // RING_ROWS)
+    idle = sum(t0 + w >= t for t0 in range(0, t, unit) for w in range(wg))
+    return LongPairPlan(wg, tiles, unit, threads, producer, consumer,
+                        128 * (producer + wg * consumer) <= pool, stages, smem(stages),
+                        p * h * -(-t // unit), p * h * idle, staged_kv_bytes(mask, h, unit, True, d),
+                        p * h * s * d * 2)
+
+
 def launch_counter(s: int, d: int) -> str:
     """The counter on :func:`encoder_self_attention` that a launch at S
     ``s`` and kernel width ``d`` (one of :data:`HEAD_DIMS`) adds to, as the
     C entry dispatches it: ``launches`` (the persistent kernel, heads of 32
     up to S 512), ``launches_ring`` (the ring kernel, heads of 64 and 128
-    up to S 512) or ``launches_long`` (the ring kernel above S 512)."""
+    up to S 512) or ``launches_long`` (above S 512: the long-pair kernel
+    at heads of 32, the ring kernel at 64 and 128)."""
     if d not in HEAD_DIMS or s < 1:
         raise ValueError(f"pair attention takes head_dim in {HEAD_DIMS} and S >= 1; "
                          f"got head_dim {d}, S {s}")
@@ -140,9 +227,9 @@ def key_ends(mask: torch.Tensor) -> torch.Tensor:
 
 
 def ring_blocks(mask: torch.Tensor) -> torch.Tensor:
-    """(P,) 128-key blocks the ring kernel loads (per unit of row tiles)
-    for each pair: those below kend, or below S for a pair with no valid
-    key."""
+    """(P,) 128-key blocks the ring and long-pair kernels load (per unit
+    of row tiles) for each pair: those below kend, or below S for a pair
+    with no valid key."""
     kend = key_ends(mask)
     klim = torch.where(kend > 0, kend, mask.shape[1])
     return (klim + RING_KEYS - 1) // RING_KEYS
@@ -268,7 +355,8 @@ def encoder_self_attention(
 
 # kernel launches since the last reset (chip_smoke.py reads and resets
 # them): the persistent kernel's (heads of 32), the ring kernel's (64 and
-# 128) and, above S 512, the ring kernel's at every width
+# 128) and, above S 512, the long-pair kernel's (32) and the ring
+# kernel's (64 and 128)
 encoder_self_attention.launches = 0
 encoder_self_attention.launches_ring = 0
 encoder_self_attention.launches_long = 0

@@ -953,8 +953,8 @@ def long_case(s, h, d, kind, seed=0):
 @pytest.mark.parametrize("s", [513, 640, 1024, 2048, 4096])
 @pytest.mark.parametrize("d", [32, 64, 128])
 def test_attention_kernel_above_512(cuda, d, s, kind):
-    """Kernel 2 above S 512: the ring kernel at every width (heads of 32
-    on its D-32 instance), counted on ``launches_long``, against the plain
+    """Kernel 2 above S 512: the long-pair kernel at heads of 32, the ring
+    kernel at 64 and 128, counted on ``launches_long``, against the plain
     version at the other rows' tolerance."""
     q, k, v, mask = (torch.tensor(a, device=cuda) for a in long_case(s, 4, d, kind))
     inv = 1.0 / np.sqrt(d)
@@ -965,6 +965,38 @@ def test_attention_kernel_above_512(cuda, d, s, kind):
     ref = encoder_self_attention_plain(q, k, v, mask, inv)
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("s", [640, 1024, 2048])
+def test_long_pair_kernel_relaunch_and_threads(cuda, s):
+    """The long-pair kernel (heads of 32 above S 512) relaunched, from
+    four worker threads at once (two on side streams) and from a fresh
+    thread: every context bit for bit the first, each launch counted on
+    ``launches_long``."""
+    q, k, v, mask = (torch.tensor(a, device=cuda) for a in long_case(s, 6, 32, "rerank", seed=5))
+    inv = 1.0 / np.sqrt(32)
+    n0 = encoder_self_attention.launches_long
+    first = encoder_self_attention(q, k, v, mask, inv)
+    again = encoder_self_attention(q, k, v, mask, inv)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+    def run(side_stream):
+        stream = torch.cuda.Stream() if side_stream else torch.cuda.current_stream()
+        stream.wait_stream(torch.cuda.default_stream())
+        with torch.cuda.stream(stream):
+            out = encoder_self_attention(q, k, v, mask, inv)
+        torch.cuda.synchronize()
+        return out
+
+    with ThreadPoolExecutor(4) as pool:
+        outs = list(pool.map(run, [False, True, False, True]))
+    fresh = []
+    t = threading.Thread(target=lambda: fresh.append(run(False)))
+    t.start()
+    t.join()
+    assert all(torch.equal(first, o) for o in outs + fresh)
+    assert encoder_self_attention.launches_long == n0 + 7
 
 
 @pytest.mark.parametrize("kind", ["rerank", "uniform"])

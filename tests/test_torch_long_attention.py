@@ -6,9 +6,14 @@ pair-attention kernel and jax's flash kernel in interpret mode.  Same
 numpy inputs.  Beside them, the kernels' new plans emulated in torch or
 numpy:
 
-- kernel 2 above S 512 takes the ring kernel at every width (heads of 32
-  on its D-32 instance), whose producer finds kend by a loop over the
-  mask and reads each block's validity as it stages it;
+- kernel 2 above S 512 takes the ring kernel at heads of 64 and 128,
+  whose producer finds kend by a loop over the mask and reads each
+  block's validity as it stages it; heads of 32 take the long-pair kernel
+  (``long_pair_attention``): the same producer, the block holding kend
+  cut to 64 keys where kend mod 128 is in (0, 64], 64-key online-softmax
+  steps, each row's sum taken over the bf16-rounded probs (on the tensor
+  cores, against a column of ones), and its units of four row tiles
+  (``tattn.long_pair_plan``);
 - kernel 7's skip rule builds presence masks per row tile and per block,
   in place of one 32-position word a lane (which held 1,024 positions at
   most);
@@ -47,7 +52,7 @@ from financial_rag_system_tpu_torch.ops import flash_attention as tflash
 from financial_rag_system_tpu_torch.ops import fused_query as tfq
 from test_torch_attention_wide import ring_attention, ring_masks
 from test_torch_flash_attention import jax_flash_gate, jax_gate, make_mask  # noqa: F401
-from torch_attn_masks import prefix_mask, rerank_mask, segment_mask
+from torch_attn_masks import holes_mask, prefix_mask, rerank_mask, segment_mask
 
 CSRC = Path(tattn.__file__).resolve().parent.parent / "csrc"
 
@@ -96,10 +101,11 @@ def test_pair_attention_matches_jax_kernel_above_512(s, d, kind):
 
 @pytest.mark.parametrize("d", [32, 64])
 @pytest.mark.parametrize("s", [513, 640, 1024])
-def test_ring_plan_above_512_matches_plain_and_jax(s, d):
-    """The ring kernel's online softmax over 128-key blocks below kend,
-    now at heads of 32 too, past S 512 (kend in mid-block, a pair with no
-    valid key, valid keys only past the first block): against the plain
+def test_ring_plan_above_512_matches_plain_and_jax(one_torch_thread, s, d):
+    """The kernels' online softmax over 128-key blocks below kend past S
+    512 (kend in mid-block, a pair with no valid key, valid keys only past
+    the first block): the ring kernel's at heads of 64, the long-pair
+    kernel's at heads of 32 (``long_pair_attention``); against the plain
     version on every pair and JAX's kernel on the pairs with a valid key
     (JAX's pads S to 128s, so a fully masked pair's uniform softmax spans
     its pad keys)."""
@@ -108,7 +114,7 @@ def test_ring_plan_above_512_matches_plain_and_jax(s, d):
     mask = ring_masks(s, seed=s)
     inv = 1.0 / math.sqrt(d)
     args = [torch.from_numpy(a) for a in (q, k, v, mask)]
-    got = ring_attention(*args, inv).numpy()
+    got = (long_pair_attention if d == 32 else ring_attention)(*args, inv).numpy()
     plain = tattn.encoder_self_attention_plain(*args, inv).numpy()
     np.testing.assert_allclose(got, plain, atol=1e-2, rtol=0)
     ref = np.asarray(jattention.encoder_self_attention(q, k, v, mask, inv, interpret=True))
@@ -224,20 +230,302 @@ def test_pair_attention_dispatch(d):
 
 def test_pair_attention_source_dispatch_and_d32_ring_plan():
     """The C entry sends heads of 32 above ``PERSISTENT_MAX_SEQ`` to the
-    ring kernel's D-32 instance, and takes every S from 1; that instance
-    (three consumer warpgroups at 152 registers, 64-byte swizzle) fits 8
-    stages in one block an SM."""
+    long-pair kernel (no longer the ring kernel's D-32 instance, which is
+    gone), and takes every S from 1; ``long_pair_plan`` mirrors the
+    source's constants: four consumer warpgroups of one row tile at 112
+    registers (the producer's 24), eight 16 KB stages with 528-byte
+    heads, 169,280 bytes, 64-key steps and tails."""
     src = (CSRC / "pair_attention.cu").read_text()
     assert int(re.search(r"constexpr int kMaxS = (\d+);", src).group(1)) == \
         tattn.PERSISTENT_MAX_SEQ
     assert ("return S <= kMaxS ? launch_persistent(q, k, v, mask, out, P, S, H, stream)\n"
-            "                        : ring::launch<32>(q, k, v, mask, out, P, S, H, stream);"
+            "                        : longpair::launch(q, k, v, mask, out, P, S, H, stream);"
             in src)
-    assert "S > kMaxS" not in src
-    plan = tattn.ring_plan(32)
-    assert (plan.consumers, plan.threads, plan.producer_regs, plan.consumer_regs) == \
-        (3, 512, 40, 152)
-    assert plan.regs_fit and plan.stages == 8 and plan.smem <= tattn.RING_SMEM_LIMIT
+    assert "S > kMaxS" not in src and "launch<32>" not in src and "regs_fit<32>" not in src
+    body = src[src.index("namespace longpair {"):src.index("}  // namespace longpair")]
+    for line in ("constexpr int kStep = 64;", "constexpr int kWg = 4;", "constexpr int kTiles = 1;",
+                 "constexpr int kProducerRegs = 24;", "constexpr int kConsumerRegs = 112;",
+                 "constexpr int kMaxStages = 8;",
+                 "static_assert(kStages == 8 && sizeof(StageHead) == 528 && "
+                 "smem_bytes(kStages) == 169280,",
+                 "const bool tail = kend > 0 && (kend - 1) % kKeys < kStep;",
+                 "  mma_bf16(sum, pa, kOnes, kOnes);"):
+        assert line in body, line
+    assert body.count("step<kStep>(") == 2 and "step<kKeys>" not in body
+    assert tattn.LONG_PAIR_STEP == 64 and tattn.RING_KEYS == 128
+    plan = tattn.long_pair_plan(torch.ones((3, 992), dtype=torch.int32), 12)
+    assert (plan.consumers, plan.tiles, plan.unit, plan.threads, plan.producer_regs,
+            plan.consumer_regs, plan.regs_fit) == (4, 1, 4, 640, 24, 112, True)
+    assert (plan.stages, plan.smem) == (8, 169280) and plan.smem <= tattn.RING_SMEM_LIMIT
+    for s, d in ((512, 32), (992, 64), (400, 32)):
+        with pytest.raises(ValueError):
+            tattn.long_pair_plan(torch.ones((1, s), dtype=torch.int32), 1, d)
+    for d in (32, 256):
+        with pytest.raises(ValueError):
+            tattn.ring_plan(d)
+
+
+def phase15_mask(p, s=992, lq=32, lo=480, seed=0):
+    """Phase 15 (a)'s pairs: query tokens (3 to ``lq``), a hole up to
+    ``lq``, a document of ``lo`` to ``s - lq`` tokens."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((p, s), np.int32)
+    for i in range(p):
+        mask[i, :rng.integers(3, lq + 1)] = 1
+        mask[i, lq:lq + rng.integers(lo, s - lq + 1)] = 1
+    return mask
+
+
+@pytest.mark.parametrize("s,idle", [(513, 3), (576, 3), (640, 2), (704, 1), (992, 0),
+                                    (1024, 0), (2048, 0), (4096, 0), (4160, 3)])
+def test_long_pair_plan_units_and_staged_bytes(s, idle):
+    """Units of four row tiles: at phase 15 (a)'s S 992 an item's 16 tiles
+    make four full units, so no warpgroup passes through a unit idle (the
+    parent's units of three left two idle in the sixth); where T mod 4 is
+    r > 0 (S 513-576: 9 tiles) the last unit's 4 - r last warpgroups have
+    no tile.  K
+    and V are staged once a unit, the block holding kend as 64 keys where
+    kend mod 128 is in (0, 64]: never more bytes than the parent's units
+    of three staged (``staged_kv_bytes``), at most 2/3 of them where four
+    units stand against six (16 tiles: S 961-1,024), and below 2/3 at
+    phase 15 (a)'s mask."""
+    mask = torch.from_numpy(phase15_mask(48, s, lo=min(480, s // 2), seed=s))
+    plan = tattn.long_pair_plan(mask, 12)
+    t = -(-s // 64)
+    assert plan.units == 48 * 12 * -(-t // 4) and plan.idle == 48 * 12 * idle
+    keys = tattn.staged_keys(mask)
+    full = tattn.ring_blocks(mask) * 128
+    kend = tattn.key_ends(mask)
+    assert torch.equal(full - keys, torch.where((kend - 1) % 128 < 64, 64, 0))
+    assert plan.kv_bytes == int(keys.sum()) * 12 * -(-t // 4) * 128
+    assert plan.q_bytes == 48 * 12 * s * 64
+    parent = tattn.staged_kv_bytes(mask, 12, 3, False)
+    assert parent == int(full.sum()) * 12 * -(-t // 3) * 128
+    assert plan.kv_bytes <= parent
+    if -(-t // 4) * 3 <= -(-t // 3) * 2:   # 16 tiles (S 961-1,024): four units against six
+        assert plan.kv_bytes * 3 <= parent * 2
+    if s == 992:
+        assert plan.kv_bytes * 3 < parent * 2
+        assert plan.idle == 0 and -(-t // 3) * 3 - t == 2
+    full_mask = torch.ones((2, s), dtype=torch.int32)
+    assert tattn.long_pair_plan(full_mask, 1).kv_bytes == 2 * -(-t // 4) * -(-s // 128) * 128 * 128 \
+        - (2 * -(-t // 4) * 64 * 128 if (s - 1) % 128 < 64 else 0)
+
+
+def test_long_pair_staged_bytes_at_phase_15_shape():
+    """At phase 15 (a)'s shape (480 pairs, S 992, 12 heads, documents of
+    480-960 tokens) K and V stage about 2.4 GB against the parent's 3.6."""
+    mask = torch.from_numpy(phase15_mask(480))
+    plan = tattn.long_pair_plan(mask, 12)
+    parent = tattn.staged_kv_bytes(mask, 12, 3, False)
+    assert plan.idle == 0 and plan.units == 480 * 12 * 4
+    assert 2.2e9 < plan.kv_bytes < 2.5e9 and 3.3e9 < parent < 3.8e9
+    assert plan.kv_bytes / parent < 2 / 3
+
+
+# -- kernel 2: the long-pair kernel's arithmetic (heads of 32 above S 512) ---------------
+
+
+@pytest.fixture()
+def one_torch_thread():
+    """Steps this small gain nothing from intra-op threads, and the
+    suite's parallel workers share the cores: one torch thread here."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
+KEYS = tattn.RING_KEYS
+TAIL = tattn.LONG_PAIR_STEP
+
+
+def pair_blocks(row: np.ndarray, tail: bool = True):
+    """The long-pair producer for one pair, lane by lane: kend by a loop
+    over the mask's 32-key words; a (first key, keys computed, 128-key
+    bias row, full flag) a block below kend (below S with no valid key),
+    the block holding kend cut to 64 keys where ``tail`` and kend mod 128
+    is in (0, 64], its full flag over those keys."""
+    s = row.shape[0]
+    kend = max(max([key + 1 for key in range(lane, s, 32) if row[key] > 0], default=0)
+               for lane in range(32))
+    nb = -(-(kend if kend else s) // KEYS)
+    cut = tail and kend > 0 and (kend - 1) % KEYS < TAIL
+    blocks = []
+    for kb in range(nb):
+        keys = TAIL if cut and kb == nb - 1 else KEYS
+        bias, whole = np.zeros(KEYS, np.float32), True
+        for lane in range(32):
+            for j in range(4):
+                key = kb * KEYS + lane + 32 * j
+                ok = key < s and row[key] > 0
+                bias[lane + 32 * j] = (0.0 if ok else tattn.NEG) if key < s else -np.inf
+                if 32 * j < keys:
+                    whole = whole and ok
+        blocks.append((kb * KEYS, keys, bias, whole))
+    return kend, blocks
+
+
+def fma32(a, b, c):
+    """f32 fma: a b + c rounded once (a b of two f32 is exact in f64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def long_pair_attention(q, k, v, mask, inv_sqrt, tail=True):
+    """The long-pair kernel's arithmetic over (P, S, H, 32) f32 q, k, v and
+    a (P, S) mask, in f32 with bf16 rounding where the kernel rounds: each
+    block of ``pair_blocks`` in online-softmax steps of 64 keys (a tail is
+    one step), per step the biased scores (a block not wholly valid), the
+    running max m, alpha = exp2((m_old - m) log2 e), the probs as
+    exp2(fma(s, log2 e, -m log2 e)) on a wholly valid block and exp2((s +
+    bias - m) log2 e) on any other; the row's sum as fma(l, alpha, the
+    step's sum of the bf16-rounded probs) (the tensor cores' sum against a
+    column of ones: exact products, summed in f64, rounded to f32); the
+    context rescaled by alpha plus P.V of the same probs (likewise); at
+    the end the context times 1 / sum, rounded to bf16.  The (P, S, H *
+    32) output as the wrapper returns it (f32).  All pairs step together;
+    a pair past its last step keeps its state."""
+    qs, kb, vb = (t.float() for t in tattn._scaled_inputs(q, k, v, inv_sqrt))
+    p, s, h, d = qs.shape
+    sp = -(-s // KEYS) * KEYS
+    kp, vp = torch.zeros((p, sp, h, d)), torch.zeros((p, sp, h, d))
+    kp[:, :s], vp[:, :s] = kb, vb
+    blocks = [pair_blocks(np.asarray(mask[i]), tail)[1] for i in range(p)]
+    steps = [sum(n for _, n, _, _ in b) // TAIL for b in blocks]  # from key 0, contiguous
+    qh = qs.permute(0, 2, 1, 3)  # (P, H, S, d)
+    m = torch.full((p, h, s), float("-inf"))
+    total = torch.zeros((p, h, s))
+    ctx = torch.zeros((p, h, s, d))
+    for j in range(max(steps)):
+        on = torch.tensor([j < n for n in steps])[:, None, None]
+        whole = torch.tensor([j < n and b[j // 2][3] for b, n in zip(blocks, steps)])
+        bias = torch.from_numpy(np.stack([
+            b[j // 2][2][(j % 2) * TAIL:(j % 2 + 1) * TAIL] if j < n else np.zeros(TAIL, np.float32)
+            for b, n in zip(blocks, steps)]))
+        cols = slice(j * TAIL, (j + 1) * TAIL)
+        sc = qh @ kp[:, cols].permute(0, 2, 3, 1)  # (P, H, S, 64)
+        sc = torch.where(whole[:, None, None, None], sc, sc + bias[:, None, None, :])
+        mn = torch.maximum(m, sc.amax(dim=-1))
+        alpha = torch.exp2((m - mn) * LOG2E)
+        pr = torch.where(whole[:, None, None, None],
+                         torch.exp2(fma32(sc, LOG2E, (-mn * LOG2E)[..., None])),
+                         torch.exp2((sc - mn[..., None]) * LOG2E))
+        pb = pr.to(torch.bfloat16).double()
+        total = torch.where(on, fma32(total, alpha, pb.sum(dim=-1).float()), total)
+        pv = (pb @ vp[:, cols].permute(0, 2, 1, 3).double()).float()
+        ctx = torch.where(on[..., None], ctx * alpha[..., None] + pv, ctx)
+        m = torch.where(on, mn, m)
+    out = (ctx * (1.0 / total)[..., None]).to(torch.bfloat16).float()
+    return out.permute(0, 2, 1, 3).reshape(p, s, h * d)
+
+
+def kend_mask(kind, s, seed):
+    """Eight pairs: one of ``kind`` (the rerank layout, a prefix, random
+    holes), one with no valid key, and kend at 128k - 1, 128k and 128k + 1
+    and at 64 below each (128k the largest multiple of 128 below S - 1),
+    two of them with a hole below kend (blocks not wholly valid)."""
+    rng = np.random.default_rng(seed)
+    b = KEYS * ((s - 2) // KEYS)
+    mask = prefix_mask(s, [1, 0, b - 1, b, b + 1, b - 65, b - 64, b - 63])
+    if kind == "rerank":
+        mask[0] = rerank_mask(1, s, seed=seed)[0]
+    elif kind == "prefix":
+        mask[0] = prefix_mask(s, [rng.integers(s // 2, s + 1)])[0]
+    else:
+        mask[0] = holes_mask(2, s, seed=seed)[1]
+    mask[2, 10:20] = 0
+    mask[7, 200:330] = 0
+    return mask
+
+
+@pytest.mark.parametrize("kind", ["rerank", "prefix", "holes"])
+@pytest.mark.parametrize("s", [513, 640, 992, 1024, 2048])
+def test_long_pair_matches_plain_and_jax(one_torch_thread, s, kind):
+    """The long-pair kernel's arithmetic against the plain version on
+    every pair (kend at 64k +- 1 and 128k +- 1, a pair with no valid key,
+    holes) and JAX's kernel (interpret mode) on the pairs with a valid key
+    up to S 1,024, at atol 1e-2; a fully masked pair finite and uniform."""
+    rng = np.random.default_rng(s)
+    q, k, v = (rng.standard_normal((8, s, 2, 32)).astype(np.float32) for _ in range(3))
+    mask = kend_mask(kind, s, seed=s)
+    inv = 1.0 / math.sqrt(32)
+    args = [torch.from_numpy(a) for a in (q, k, v, mask)]
+    got = long_pair_attention(*args, inv).numpy()
+    assert np.isfinite(got).all()
+    plain = tattn.encoder_self_attention_plain(*args, inv).numpy()
+    np.testing.assert_allclose(got, plain, atol=1e-2, rtol=0)
+    uniform = tattn._scaled_inputs(*args[:3], inv)[2].float().mean(dim=1)[1].reshape(-1)
+    np.testing.assert_allclose(got[1], np.broadcast_to(uniform.numpy(), (s, 64)), atol=1e-2)
+    if s <= 1024:
+        ref = np.asarray(jattention.encoder_self_attention(q, k, v, mask, inv, interpret=True))
+        real = mask.any(axis=1)
+        np.testing.assert_allclose(got[real], ref[real], atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("s", [513, 640, 992, 2048])
+def test_long_pair_tail_is_exact(one_torch_thread, s):
+    """The keys a tail leaves out (the 64 past the block's first, all at
+    or past kend) would add exactly 0: the 128-key block's max equals the
+    tail's, and their probs at it are exactly 0.0; and the emulation with
+    the tail gives the context without it bit for bit, but for a tail
+    whose 64 keys are all valid (it takes the unbiased form, the whole
+    block the biased one: another rounding)."""
+    rng = np.random.default_rng(s)
+    q, k = (torch.from_numpy(rng.standard_normal((8, s, 2, 32)).astype(np.float32))
+            for _ in range(2))
+    mask = kend_mask("holes", s, seed=s)
+    qs, kb, _ = (t.float() for t in tattn._scaled_inputs(q, k, k, 1.0 / math.sqrt(32)))
+    cut, same = 0, []
+    for i in range(8):
+        kend, blocks = pair_blocks(mask[i])
+        _, whole = pair_blocks(mask[i], tail=False)
+        assert [b[0] for b in blocks] == [b[0] for b in whole]
+        k0, keys, bias, whole_tail = blocks[-1]
+        if not whole_tail:
+            same.append(i)
+        if keys == KEYS:
+            continue
+        cut += 1
+        assert kend - k0 <= TAIL and not (mask[i, k0 + TAIL:k0 + KEYS] > 0).any()
+        kp = torch.zeros((KEYS, 2, 32))
+        n = min(KEYS, s - k0)
+        kp[:n] = kb[i, k0:k0 + n]
+        sc = qs[i].permute(1, 0, 2) @ kp.permute(1, 2, 0) + torch.from_numpy(bias)
+        m = sc[..., :TAIL].amax(dim=-1)
+        assert torch.equal(sc.amax(dim=-1), m)
+        assert (torch.exp2((sc[..., TAIL:] - m[..., None]) * LOG2E) == 0).all()
+    assert cut >= 3
+    v = torch.from_numpy(rng.standard_normal((8, s, 2, 32)).astype(np.float32))
+    args = (q, k, v, torch.from_numpy(mask), 1.0 / math.sqrt(32))
+    got, ref = long_pair_attention(*args), long_pair_attention(*args, tail=False)
+    assert len(same) >= 6 and torch.equal(got[same], ref[same])
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("s", [513, 640, 1000, 2048])
+def test_long_pair_producer_above_512(one_torch_thread, s):
+    """The long-pair producer's heads: kend, the blocks below it (all of
+    S's with no valid key), 0 / -1e9 / -inf past S, full where every key
+    it computes is valid, and the tail exactly where kend mod 128 is in
+    (0, 64]."""
+    mask = np.concatenate([ring_masks(s, seed=s), kend_mask("rerank", s, seed=s)])
+    kends = tattn.key_ends(torch.from_numpy(mask)).tolist()
+    nbs = tattn.ring_blocks(torch.from_numpy(mask)).tolist()
+    keys = tattn.staged_keys(torch.from_numpy(mask)).tolist()
+    sp = -(-s // KEYS) * KEYS
+    for row, want_kend, nb, n_keys in zip(mask, kends, nbs, keys):
+        kend, blocks = pair_blocks(row)
+        assert kend == want_kend and len(blocks) == nb
+        assert sum(b[1] for b in blocks) == n_keys
+        bias = np.full(sp, -np.inf, np.float32)
+        bias[:s] = np.where(row > 0, 0.0, tattn.NEG)
+        for kb, (k0, n, b, whole) in enumerate(blocks):
+            assert k0 == kb * KEYS
+            assert np.array_equal(b, bias[k0:k0 + KEYS])
+            assert whole == bool((bias[k0:k0 + n] == 0).all())
+            assert n == (TAIL if kb == nb - 1 and kend > 0 and (kend - 1) % KEYS < TAIL
+                         else KEYS)
 
 
 def test_pair_attention_kernel_refuses_cpu_tensors_at_long_s():
