@@ -6,6 +6,7 @@
                           [--ffn-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
                           [--resid-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
                           [--flash-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
+                          [--bwd-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
 
 Drives ``financial_rag_system_tpu_torch`` end to end on the card, in
 seventeen phases; any failure raises and the script exits non-zero:
@@ -234,12 +235,14 @@ seventeen phases; any failure raises and the script exits non-zero:
    magnitude) at S 128, 256, 512 and 1,024, heads of 32, 64, 128, 256 and
    384, on prefix, rerank-layout and holed masks with an all-padding
    pair; the served context with residuals asked for, bit for bit the
-   one without; ``ptxas -v`` of the source (no spill); both kernels at
-   the trainer's shape (B 32, S 512, 12 heads of 32, its first batch's
+   one without; ``ptxas -v`` of the source (no spill; four
+   ``walk_kernel`` and two ``bwd_kernel`` instantiations); both kernels
+   at the trainer's shape (B 32, S 512, 12 heads of 32, its first batch's
    mask) with CUDA-event and device times, the plain twins', SDPA's
    backward with the boolean segment mask, the bound and the MUFU floor
    (the ``kernels`` line's ``flash_attention_bwd_dkv`` and
-   ``flash_attention_bwd_dq``); (b) ``train_cross_encoder`` at MiniLM-L6's
+   ``flash_attention_bwd_dq``), and the L2 -> shared bytes each stages
+   beside the first design's (``bwd_plan``, computed); (b) ``train_cross_encoder`` at MiniLM-L6's
    full width from ``init_model``'s weights under ``RAG_TPU_FLASH=1``,
    6 steps of 32 x 512: kernels 7, 8 and 9 six times a step and nothing
    else; its first step against the einsum step (phase 9's tolerances);
@@ -283,7 +286,12 @@ the same for its o-proj kernel beside kernel 6 (a checkout whose C entry
 took no plan); ``--flash-baseline`` builds an earlier ``flash_attention.cu``
 and times it beside kernel 7 at each shape of phase 12 (a) in turns, with
 both device times and their contexts' difference (at 3 heads of 256 the
-earlier checkout's own D-256 kernel, whatever its design).
+earlier checkout's own D-256 kernel, whatever its design);
+``--bwd-baseline`` builds an earlier ``flash_attention_bwd.cu`` and, in
+phase 16 (a) at the trainer's shape, holds both C entries' gradients to
+this build's within 2^-7 of their largest magnitude and times each entry
+beside this build's in turns (parent, new, new, parent), CUDA events and
+device time.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device": ...}``.
@@ -294,6 +302,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import atexit
 import collections
 import contextlib
 import functools
@@ -4711,17 +4720,46 @@ def ptxas_kernels(text: str) -> dict:
     return {k: tuple(v) for k, v in report.items()}
 
 
-def ptxas_report(name: str) -> dict:
+PTXAS_SOURCES = ("pair_attention", "flash_attention", "flash_attention_bwd")
+_ptxas_runs: dict = {}  # name: its nvcc -Xptxas -v process, started by start_ptxas_reports
+
+
+def start_ptxas(name: str):
     """``csrc/<name>.cu`` compiled with ``nvcc -Xptxas -v`` into a scratch
-    library beside the build: :func:`ptxas_kernels` of its output."""
+    library beside the build, in the background."""
     from financial_rag_system_tpu_torch.ops import _cuda
 
     out = _cuda.BUILD_DIR.parent / "torch_kernels_ptxas" / f"{name}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    run = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out),
-                          str(_cuda.CSRC_DIR / f"{name}.cu")], check=True, capture_output=True,
-                         text=True, timeout=600)
-    return ptxas_kernels(run.stdout + run.stderr)
+    return subprocess.Popen([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out),
+                             str(_cuda.CSRC_DIR / f"{name}.cu")], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def start_ptxas_reports() -> None:
+    """Start the ``-Xptxas -v`` compiles the checks read (PTXAS_SOURCES)
+    beside phase 1's build, one process each, so that no phase waits on
+    one compile after another."""
+    atexit.register(stop_ptxas_reports)  # none outlives the run, whatever ends it
+    for name in PTXAS_SOURCES:
+        _ptxas_runs[name] = start_ptxas(name)
+
+
+def stop_ptxas_reports() -> None:
+    for proc in _ptxas_runs.values():
+        proc.kill()
+        proc.wait()
+    _ptxas_runs.clear()
+
+
+def ptxas_report(name: str) -> dict:
+    """:func:`ptxas_kernels` of ``csrc/<name>.cu``'s ``nvcc -Xptxas -v``
+    (the compile started beside phase 1, or now)."""
+    proc = _ptxas_runs.pop(name, None) or start_ptxas(name)
+    out = proc.communicate(timeout=600)[0]
+    if proc.returncode:
+        raise RuntimeError(f"nvcc -Xptxas -v of csrc/{name}.cu failed:\n{out}")
+    return ptxas_kernels(out)
 
 
 def time_flash(torch, np, smi: str, label: str, q, k, v, mask_np, baseline=None,
@@ -5671,7 +5709,9 @@ def check_flash_bwd_grid(torch, np, main: dict, smi: str) -> None:
     all-padding pair); phase 3's served shape (P 480, S 512, 12 heads of
     32 on its rerank mask padded to 512) with residuals asked for, bit for
     bit the served context; ``ptxas -v`` of ``csrc/flash_attention_bwd.cu``
-    (no spill, four ``bwd_kernel`` instantiations)."""
+    (no spill; the unit kernel's four ``walk_kernel`` instantiations,
+    heads of 32 and 64, and the first design's two ``bwd_kernel`` ones,
+    heads of 128 and wider)."""
     from financial_rag_system_tpu_torch.ops import flash_attention as fa
 
     worst, cases = {}, 0
@@ -5703,7 +5743,8 @@ def check_flash_bwd_grid(torch, np, main: dict, smi: str) -> None:
     report = ptxas_report("flash_attention_bwd")
     log(f"[flash-bwd] ptxas -v of csrc/flash_attention_bwd.cu (registers, spill store and load "
         f"bytes): {report}")
-    if (len([k for k in report if "bwd_kernel" in k]) != 4
+    if (len([k for k in report if "walk_kernel" in k]) != 4
+            or len([k for k in report if "bwd_kernel" in k]) != 2 or len(report) != 6
             or any(r[1] or r[2] for r in report.values())):
         raise AssertionError(f"[flash-bwd] a backward kernel spills, or ptxas named other "
                              f"kernels: {report}")
@@ -5734,15 +5775,68 @@ def first_batch(torch, np, examples: list, seed: int = 0) -> dict:
             "pos_weight": max(1.0, (len(examples) - n_pos) / n_pos)}
 
 
-def time_flash_backward(torch, np, smi: str, mask_np) -> list:
+def bwd_entry_fn(torch, lib, name: str, c: dict):
+    """A launch of kernel 8 or 9 by the C entry ``name`` of ``lib`` (a
+    build of ``flash_attention_bwd.cu``: an earlier checkout's, or this
+    one's) alone, on the case's arguments, into buffers of its own;
+    returns the gradients."""
+    import ctypes
+
+    from financial_rag_system_tpu_torch.ops import _cuda
+
+    qb, kb, vb, seg, m, l, dob, di, inv = bwd_args(c)
+    b, s, h, dp = qb.shape
+    outs = [torch.empty_like(qb) for _ in range(2 if name.endswith("dkv") else 1)]
+    fn = getattr(lib, name)
+    fn.argtypes = ([ctypes.c_void_p] * (8 + len(outs)) + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    ptrs = [t.data_ptr() for t in (qb, kb, vb, seg, m, l, dob, di, *outs)]
+
+    def launch():
+        _cuda.launch(fn, name, *ptrs, b, s, h, dp, inv)
+        return outs
+    return launch
+
+
+def bwd_against_parent(torch, smi: str, c: dict, parent) -> None:
+    """``--bwd-baseline``: each C entry of the parent's build beside this
+    build's on the case: the gradients within FLASH_BWD_RTOL of the
+    parent's largest magnitude (the sums run in another order), then both
+    timed in turns (parent, new, new, parent), CUDA events and device time
+    (profiler), the C entries alone."""
+    from financial_rag_system_tpu_torch.ops import _cuda
+
+    new_lib = _cuda.library("flash_attention_bwd")
+    for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        old, new = bwd_entry_fn(torch, parent, name, c), bwd_entry_fn(torch, new_lib, name, c)
+        got, want = [x.float() for x in new()], [x.float() for x in old()]
+        torch.cuda.synchronize()
+        rel = max(float((a - r).abs().max()) / float(r.abs().max()) for a, r in zip(got, want))
+        if rel > FLASH_BWD_RTOL:
+            raise AssertionError(f"[flash-bwd] {name}: {rel:.3g} of the parent's largest "
+                                 f"magnitude apart (tolerance {FLASH_BWD_RTOL:.4g})")
+        order = (old, new, new, old)
+        events = [median_ms(fn, reps=30) for fn in order]
+        device = [sum(device_split(torch, fn).values()) for fn in order]
+        log(f"[flash-bwd] {smi}: {name} against the parent's build at the trainer's shape: "
+            f"gradients {rel:.3g} of the parent's largest magnitude apart; in turns (parent, "
+            f"new, new, parent; C entries alone): events {', '.join(f'{t:.4f}' for t in events)} "
+            f"ms; device {', '.join(f'{t:.4f}' for t in device)} ms; "
+            f"{(events[0] + events[3]) / (events[1] + events[2]):.2f}x")
+
+
+def time_flash_backward(torch, np, smi: str, mask_np, baseline=None) -> list:
     """(a) kernels 8 and 9 at the trainer's shape (B 32, S 512, 12 heads of
     32) on its first batch's mask: against the plain twins, CUDA-event and
     profiler times, the plain twins' times (dK/dV alone, dQ alone), the
     backward of SDPA with the boolean segment mask timed alone (a
     yardstick: dQ, dK and dV in one call), each kernel's bound (its bytes,
     and its products over the (query, key) pairs that share a segment) and
-    MUFU floor (one exponential a pair).  Returns the ``kernels`` line's
-    two entries."""
+    MUFU floor (one exponential a pair), the L2 -> shared bytes it stages
+    (``bwd_plan``, beside the first design's ``parent_bwd_staged``;
+    computed, not measured); ``baseline`` (``--bwd-baseline``) beside it
+    in turns.  Returns the ``kernels`` line's two entries."""
     from financial_rag_system_tpu_torch.ops import flash_attention as fa
 
     p, s = mask_np.shape
@@ -5774,7 +5868,7 @@ def time_flash_backward(torch, np, smi: str, mask_np) -> list:
             return fa.flash_attention_bwd_plain(qb, kb, vb, seg, dob, m, l, di, inv, **kw)
 
         ms = median_ms(kernel, reps=20)
-        dev = device_ms(torch, kernel, "bwd_kernel")
+        dev = device_ms(torch, kernel, "walk_kernel")
         plain_ms = median_ms(plain, reps=3, warmup=1)
         b_ms, b_by = bound_ms(tensors * tensor + rows, 2.0 * products * h * d * pairs)
         err = max(errs[e] for e in errs_of)
@@ -5784,9 +5878,19 @@ def time_flash_backward(torch, np, smi: str, mask_np) -> list:
             f"ms, SDPA backward (dQ, dK, dV) {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
             f"dense {bound_ms(tensors * tensor + rows, 2.0 * products * h * d * p * s * s)[0]:.4f}"
             f" ms), MUFU floor {mufu:.4f} ms; kernel at {b_ms / ms:.3f} of its bound")
+        dkv = name.endswith("dkv")
+        plan = fa.bwd_plan(p, s, h, d, dkv)
+        log(f"[flash-bwd] {smi}: {name}: units of {plan.unit} row tiles ({plan.units} units, "
+            f"{plan.consumer_regs} / {plan.producer_regs} registers, {plan.stages} stages, "
+            f"{plan.smem} B of shared memory); L2 -> shared bytes staged with no (tile, block) "
+            f"skipped {plan.staged_bytes / 1e6:.1f} MB against the first design's "
+            f"{fa.parent_bwd_staged(p, s, h, d, dkv) / 1e6:.1f} MB; computed from the plan "
+            f"(ops/flash_attention.py bwd_plan), not measured")
         entries.append({"name": name, **BWD_ENTRY, "replaces": BWD_REPLACES[name],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": library_ms})
+    if baseline is not None:
+        bwd_against_parent(torch, smi, c, baseline)
     return entries
 
 
@@ -5874,7 +5978,7 @@ def profile_flash_steps(torch, rows: dict, smi: str) -> None:
         del model, opt
 
 
-def drive_phase_16(torch, np, main: dict, smi: str, kernels: list) -> dict:
+def drive_phase_16(torch, np, main: dict, smi: str, kernels: list, bwd_baseline=None) -> dict:
     """Phase 16: (a) the forward's residuals and kernels 8 and 9 against
     their plain twins over the grid, the served context with residuals,
     ``ptxas -v``, the two kernels timed at the trainer's shape (the
@@ -5892,7 +5996,7 @@ def drive_phase_16(torch, np, main: dict, smi: str, kernels: list) -> dict:
     mask_np = np.asarray(rows["pairs"][2])
     if mask_np.shape != (32, FLASH_TRAIN_LEN):
         raise AssertionError(f"the trainer's first batch is {mask_np.shape}")
-    kernels += time_flash_backward(torch, np, smi, mask_np)
+    kernels += time_flash_backward(torch, np, smi, mask_np, bwd_baseline)
     log(f"[phase-16] part (a) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     check_flash_first_step(torch, np, rows, smi, "the trainer's first step, 32 x 512")
@@ -5964,6 +6068,11 @@ def main() -> int:
              "kernel 7 at each shape of phase 12 (a) and at phase 15's, in turns, and log "
              "their contexts' difference",
     )
+    parser.add_argument(
+        "--bwd-baseline", type=Path, default=None, metavar="CSRC",
+        help="csrc/ directory of an earlier checkout: hold its flash_attention_bwd.cu's two "
+             "C entries to kernels 8 and 9 at the trainer's shape and time them in turns",
+    )
     opts = parser.parse_args()
     try:
         import torch
@@ -5982,6 +6091,7 @@ def main() -> int:
 
     smi = phase_card()
     t0 = time.perf_counter()
+    start_ptxas_reports()
     phase_build()
     log(f"[build] phase 1 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -5993,6 +6103,8 @@ def main() -> int:
                       if opts.resid_baseline else None)
     flash_baseline = (baseline_lib("flash_attention", opts.flash_baseline)
                       if opts.flash_baseline else None)
+    bwd_baseline = (baseline_lib("flash_attention_bwd", opts.bwd_baseline)
+                    if opts.bwd_baseline else None)
     kernels = [check_topk(torch, np, smi, opts.topk_baseline),
                *check_attention(torch, np, smi, attn_baseline)]
     check_large_k(torch, np, smi, opts.topk_baseline, opts.ivf_baseline)
@@ -6090,7 +6202,7 @@ def main() -> int:
                                    flash_baseline)
         log(f"[long] phase 15 took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        flash_train_run = drive_phase_16(torch, np, main_run, smi, kernels)
+        flash_train_run = drive_phase_16(torch, np, main_run, smi, kernels, bwd_baseline)
         log(f"[flash-train] phase 16 took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)

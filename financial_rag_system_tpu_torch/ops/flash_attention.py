@@ -90,7 +90,12 @@ bf16 context, ``bert.py:188``), takes ``di = rowsum(f32(o) f32(dO))`` in
 torch (jax computes it in XLA, ``flash_attention.py:272-275``), and runs
 ``csrc/flash_attention_bwd.cu`` on a CUDA tensor (kernel 8, dK and dV, and
 kernel 9, dQ, counted on ``encoder_flash_attention.launches_bwd_dkv`` and
-``.launches_bwd_dq``) or :func:`flash_attention_bwd_plain` on a CPU one;
+``.launches_bwd_dq``; at heads of 32 and 64 ``unit::walk_kernel``:
+persistent blocks taking units of own 64-row tiles, each walked block
+(32 or 64 rows) staged once a unit by TMA into a ring, every product on
+``wgmma``,
+:func:`bwd_plan`; wider heads the first design's 64-column pieces) or
+:func:`flash_attention_bwd_plain` on a CPU one;
 it returns f32 gradients of the bf16 values (the transpose of the
 ``.astype(jnp.bfloat16)`` casts, ``bert.py:181-183``).  Per (query, key)
 pair: ``p = exp(s - m) * (1 / l)`` (0 where the segments differ),
@@ -294,6 +299,78 @@ def long_plan(b: int, s: int, h: int, d: int = LONG_HEAD_DIM) -> LongPlan:
     return LongPlan(consumers, tiles, unit, threads, producer, consumer,
                     128 * (producer + consumers * consumer) <= pool, stages, smem(stages), units,
                     units * (s // BLOCK) * 2 * kv + b * h * s * d * 2)
+
+
+class BwdPlan(NamedTuple):
+    """A launch of kernel 8 or 9 at heads of 32 or 64, as
+    ``csrc/flash_attention_bwd.cu`` (namespace ``unit``) computes it."""
+
+    unit: int           # own 64-row tiles a unit: one a consumer warpgroup
+    walk: int           # rows of a walked block (S's and dP's N)
+    threads: int        # and a producer warpgroup
+    producer_regs: int  # registers a thread after setmaxnreg
+    consumer_regs: int
+    regs_fit: bool      # the budgets fit the launch's register pool
+    stages: int         # ring stages of a walked block
+    smem: int           # dynamic shared memory, bytes
+    units: int          # (item, unit) pairs of the launch
+    staged_bytes: int   # L2 -> shared bytes with no (tile, block) skipped
+
+
+# the unit kernel's (head width, dK/dV): its own tiles a unit, and a walked block's rows
+BWD_UNITS = {(32, True): (4, 32), (32, False): (4, 64), (64, True): (2, 64), (64, False): (2, 64)}
+BWD_ROWS = 64                     # rows of an own tile
+
+
+def bwd_head_bytes(walk: int) -> int:
+    """A stage's head: need bits, and ``walk`` ids and rows' four values."""
+    return 16 + 20 * walk
+
+
+def bwd_plan(b: int, s: int, h: int, d: int, dkv: bool = True) -> BwdPlan:
+    """Mirror of ``unit``'s ``Cfg``, ``smem_bytes`` and ``ring_stages`` at
+    (B, S, H, d), d 32 or 64: U consumer warpgroups (4 at d 32, 2 at 64),
+    the producer warpgroup at 32 registers and the
+    consumers at their share of the launch's pool; walked blocks of 32 rows
+    (dK/dV at d 32) or 64; as many stages of a walked block (its two tiles,
+    its head and two barriers) as fit, up to eight 64-row blocks' worth,
+    beside two buffers of a warpgroup's two own tiles.  ``staged_bytes``:
+    each walked block's two tiles once a unit, the rows' values the
+    producer writes beside them (dK/dV: m log2e, 1 / l, di and the id, 16
+    bytes a row; dQ: the id), and each own tile once."""
+    if (d, dkv) not in BWD_UNITS:
+        raise ValueError(f"the unit kernel takes heads of 32 and 64; got {d}")
+    check_shape(s, d)
+    u, walk = BWD_UNITS[d, dkv]
+    threads = 128 * (u + 1)
+    pool = threads * (65536 // threads // 8 * 8)
+    producer = 32
+    consumer = min(240, (pool // 128 - producer) // u // 8 * 8)
+    tile = BWD_ROWS * d * 2
+
+    def smem(stages):
+        return (1024 + stages * (2 * walk * d * 2 + bwd_head_bytes(walk) + 16)
+                + u * 2 * (2 * tile + 8))
+
+    stages = 8 * 64 // walk
+    while stages > 2 and smem(stages) > SMEM_LIMIT:
+        stages -= 1
+    t = s // BWD_ROWS
+    units = b * h * -(-t // u)
+    row_values = 16 if dkv else 4
+    return BwdPlan(u, walk, threads, producer, consumer, 128 * (producer + u * consumer) <= pool,
+                   stages, smem(stages), units,
+                   units * (s // walk) * walk * (4 * d + row_values) + b * h * t * 2 * tile)
+
+
+def parent_bwd_staged(b: int, s: int, h: int, d: int, dkv: bool = True) -> int:
+    """L2 -> shared bytes the first design (``bwd_kernel<W, DKV>``, a block
+    a (pair, head, 64-row tile)) staged at heads of 32 or 64 with no
+    (tile, block) skipped: its own tile once, and each walked block's two
+    tiles, ids and (dK/dV) m, l and di once a tile."""
+    t = s // BWD_ROWS
+    tile = BWD_ROWS * d * 2
+    return b * h * t * (2 * tile + t * (2 * tile + BWD_ROWS * (16 if dkv else 4)))
 
 
 def check_shape(seq: int, head_dim: int) -> None:

@@ -1119,6 +1119,55 @@ def test_flash_backward_kernels_match_plain(cuda, p, s, h, d, kind):
         assert err <= 2.0 ** -7 * float(r.abs().max()), (name, err, float(r.abs().max()))
 
 
+def bwd_against_plain(c):
+    """Kernels 8 and 9 once each on the case, against the plain twins
+    (each gradient within 2^-7 of the plain one's largest magnitude);
+    returns the kernels' gradients."""
+    args = [c[k] for k in ("qb", "kb", "vb", "seg", "m", "l", "dob", "di")]
+    got = flash_attention.flash_attention_bwd_kernel(*args, c["inv"])
+    torch.cuda.synchronize()
+    ref = flash_attention.flash_attention_bwd_plain(*args[:4], c["dob"], *args[4:6], c["di"],
+                                                    c["inv"])
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        a, r = a.float(), r.float()
+        assert torch.isfinite(a).all() and not a[..., c["d"]:].any(), name
+        err = float((a - r).abs().max())
+        assert err <= 2.0 ** -7 * float(r.abs().max()), (name, err, float(r.abs().max()))
+    return got
+
+
+@pytest.mark.parametrize("s", [128, 256, 384, 512, 640, 768, 1024])
+@pytest.mark.parametrize("d", [32, 64])
+def test_flash_backward_unit_kernel_lengths(cuda, s, d):
+    """The unit kernel (heads of 32 and 64) at every S from 128 to 1,024
+    on the rerank-layout mask against the plain twins; two launches of
+    each kernel give the same bits."""
+    c = flash_bwd_case(2, s, 4, d, "rerank", cuda, seed=7)
+    first = bwd_against_plain(c)
+    again = flash_attention.flash_attention_bwd_kernel(
+        *(c[k] for k in ("qb", "kb", "vb", "seg", "m", "l", "dob", "di")), c["inv"])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("s,kind", [(128, "prefix"), (384, "holes"), (640, "wide_ids"),
+                                    (896, "segments")])
+def test_flash_backward_unit_tiles_past_s(cuda, s, kind):
+    """A unit whose last own tiles fall past S: at heads of 32 units of
+    four tiles, and S / 64 = 2, 6, 10 and 14 tiles leave an item's last
+    unit two tiles short; ids outside [0, 32) and several segments a pair
+    in the skip rule; the gradients against the plain twins, and bit for
+    bit over two launches."""
+    for dkv in (True, False):
+        assert (s // 64) % flash_attention.bwd_plan(3, s, 2, 32, dkv).unit != 0
+    c = flash_bwd_case(3, s, 2, 32, kind, cuda, seed=11)
+    first = bwd_against_plain(c)
+    again = flash_attention.flash_attention_bwd_kernel(
+        *(c[k] for k in ("qb", "kb", "vb", "seg", "m", "l", "dob", "di")), c["inv"])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
 def test_flash_attention_under_grad_runs_its_backward(cuda):
     """``encoder_flash_attention`` on CUDA tensors that require grad runs
     kernel 7 with residuals and, in the backward, kernels 8 and 9 once
