@@ -7,6 +7,7 @@
                           [--resid-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
                           [--flash-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
                           [--bwd-baseline OLD_CHECKOUT/financial_rag_system_tpu_torch/csrc]
+                          [--phases 2,16]
 
 Drives ``financial_rag_system_tpu_torch`` end to end on the card, in
 seventeen phases; any failure raises and the script exits non-zero:
@@ -236,18 +237,31 @@ seventeen phases; any failure raises and the script exits non-zero:
    384, on prefix, rerank-layout and holed masks with an all-padding
    pair; the served context with residuals asked for, bit for bit the
    one without; ``ptxas -v`` of the source (no spill; four
-   ``walk_kernel`` and two ``bwd_kernel`` instantiations); both kernels
+   ``walk_kernel`` and six ``wide_kernel`` instantiations); both kernels
    at the trainer's shape (B 32, S 512, 12 heads of 32, its first batch's
-   mask) with CUDA-event and device times, the plain twins', SDPA's
-   backward with the boolean segment mask, the bound and the MUFU floor
-   (the ``kernels`` line's ``flash_attention_bwd_dkv`` and
-   ``flash_attention_bwd_dq``), and the L2 -> shared bytes each stages
-   beside the first design's (``bwd_plan``, computed); (b) ``train_cross_encoder`` at MiniLM-L6's
-   full width from ``init_model``'s weights under ``RAG_TPU_FLASH=1``,
-   6 steps of 32 x 512: kernels 7, 8 and 9 six times a step and nothing
-   else; its first step against the einsum step (phase 9's tolerances);
-   a second run bit for bit; median step time and peak memory beside the
-   einsum run's; both steps' device time by kind.
+   mask) and at H D 768 in heads of 128, 256 and 384 on the same mask,
+   with CUDA-event and device times, the plain twins', SDPA's backward
+   with the boolean segment mask, the bound and the MUFU floor (the
+   ``kernels`` line's ``flash_attention_bwd_dkv`` and
+   ``flash_attention_bwd_dq`` at heads of 32, ``flash_attention_bwd_wide_dkv``
+   and ``flash_attention_bwd_wide_dq`` at 256), and the L2 -> shared bytes
+   each stages beside the first design's (``bwd_plan``,
+   ``wide_bwd_plan``, ``parent_bwd_staged``, computed); (b)
+   ``train_cross_encoder`` at MiniLM-L6's full width from ``init_model``'s
+   weights under ``RAG_TPU_FLASH=1``, 6 steps of 32 x 512: kernels 7, 8
+   and 9 six times a step and nothing else; its first step against the
+   einsum step (phase 9's tolerances); a second run bit for bit; median
+   step time and peak memory beside the einsum run's; both steps' device
+   time by kind; (c) the same at phase 14's widths (BERT-base, 12 layers,
+   3 heads of 256), 3 steps: kernel 7's D-256 kernel and the wide backward
+   kernels twelve times a step, kernel 2 never.
+
+``--phases LIST`` runs only the phases named (``2,16``; phase 16's parts
+apart: ``16a,16c``) with the phases they need (phase 1 always; phase 3
+for 4-6, 8, 10-12, 15 and 16 (a); 6 for 10; 9 for 11); the ``kernels``
+line then lists and checks only the selected phases' kernels (phase 16's
+entries with the part that launches them: (b) heads of 32, (c) 256).
+With no flags every phase runs.
 
 The CPU references of phases 3-6 set ``RAG_TPU_FAST_GELU=1``: the card's
 default GELU is the tanh form and the CPU's exact erf, JAX's rule.
@@ -288,10 +302,10 @@ and times it beside kernel 7 at each shape of phase 12 (a) in turns, with
 both device times and their contexts' difference (at 3 heads of 256 the
 earlier checkout's own D-256 kernel, whatever its design);
 ``--bwd-baseline`` builds an earlier ``flash_attention_bwd.cu`` and, in
-phase 16 (a) at the trainer's shape, holds both C entries' gradients to
-this build's within 2^-7 of their largest magnitude and times each entry
-beside this build's in turns (parent, new, new, parent), CUDA events and
-device time.
+phase 16 (a) at the trainer's shape and at each of its wide widths, holds
+both C entries' gradients to this build's within 2^-7 of their largest
+magnitude and times each entry beside this build's in turns (parent, new,
+new, parent), CUDA events and device time.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device": ...}``.
@@ -1240,6 +1254,8 @@ def kernel_counters() -> dict:
             "flash_attention_slab": (encoder_flash_attention, "launches_slab"),
             "flash_attention_bwd_dkv": (encoder_flash_attention, "launches_bwd_dkv"),
             "flash_attention_bwd_dq": (encoder_flash_attention, "launches_bwd_dq"),
+            "flash_attention_bwd_wide_dkv": (encoder_flash_attention, "launches_bwd_wide_dkv"),
+            "flash_attention_bwd_wide_dq": (encoder_flash_attention, "launches_bwd_wide_dq"),
             "ivf_probe": (ivf_probe, "launches"),
             "ivf_probe_int8": (ivf_probe, "launches_int8"),
             "ivf_probe_select": (ivf_probe, "launches_select"),
@@ -3242,16 +3258,17 @@ class StepLog:
 
 
 @contextlib.contextmanager
-def step_logs(torch):
+def step_logs(torch, cross_cfg=None):
     """Wrap the three step makers and ``teacher_margins`` of ``train/`` for
-    the block: each step is timed and counted (:class:`StepLog`), and the
-    teacher pass's kernel-2 launches and scoring calls are kept."""
+    the block: each step is timed and counted (:class:`StepLog`; the
+    cross-encoder's FLOPs from ``cross_cfg``, MiniLM-L6's unless given),
+    and the teacher pass's kernel-2 launches and scoring calls are kept."""
     from financial_rag_system_tpu_torch.models import bert
     from financial_rag_system_tpu_torch.ops.attention import encoder_self_attention
     from financial_rag_system_tpu_torch.train import contrastive, cross_encoder, distill
 
     logs = {"contrastive": StepLog(bert.BGE_SMALL, lambda a: [b for b in a[:3] if b is not None]),
-            "cross_encoder": StepLog(bert.MINILM_L6_CROSS, lambda a: [a[:3]]),
+            "cross_encoder": StepLog(cross_cfg or bert.MINILM_L6_CROSS, lambda a: [a[:3]]),
             "distill": StepLog(bert.BGE_SMALL, lambda a: a[:3])}
     teacher = {"launches": 0, "calls": 0, "seconds": 0.0, "lengths": []}
     saved = [(contrastive, "make_train_step", logs["contrastive"]),
@@ -5678,11 +5695,13 @@ def check_flash_bwd_case(torch, label: str, c: dict) -> dict:
     from financial_rag_system_tpu_torch.ops import flash_attention as fa
 
     fn = fa.encoder_flash_attention
-    n0 = (fn.launches_bwd_dkv, fn.launches_bwd_dq)
+    counters = tuple(fa.bwd_counter(c["qb"].shape[-1], dkv) for dkv in (True, False))
+    n0 = tuple(getattr(fn, name) for name in counters)
     got = fa.flash_attention_bwd_kernel(*bwd_args(c))
     torch.cuda.synchronize()
-    if (fn.launches_bwd_dkv - n0[0], fn.launches_bwd_dq - n0[1]) != (1, 1):
-        raise AssertionError(f"[flash-bwd] {label}: kernels 8 and 9 did not launch once each")
+    if tuple(getattr(fn, name) - n for name, n in zip(counters, n0)) != (1, 1):
+        raise AssertionError(f"[flash-bwd] {label}: kernels 8 and 9 did not launch once each "
+                             f"({', '.join(counters)})")
     _, m_ref, l_ref = fa.flash_attention_fwd_plain(c["qb"], c["kb"], c["vb"], c["seg"], c["inv"])
     qb, kb, vb, seg, m, l, dob, di, inv = bwd_args(c)
     ref = fa.flash_attention_bwd_plain(qb, kb, vb, seg, dob, m, l, di, inv)
@@ -5710,8 +5729,8 @@ def check_flash_bwd_grid(torch, np, main: dict, smi: str) -> None:
     32 on its rerank mask padded to 512) with residuals asked for, bit for
     bit the served context; ``ptxas -v`` of ``csrc/flash_attention_bwd.cu``
     (no spill; the unit kernel's four ``walk_kernel`` instantiations,
-    heads of 32 and 64, and the first design's two ``bwd_kernel`` ones,
-    heads of 128 and wider)."""
+    heads of 32 and 64, and the wide kernel's six ``wide_kernel`` ones,
+    walked blocks of 64, 32 and 16 rows for each of dK/dV and dQ)."""
     from financial_rag_system_tpu_torch.ops import flash_attention as fa
 
     worst, cases = {}, 0
@@ -5744,7 +5763,7 @@ def check_flash_bwd_grid(torch, np, main: dict, smi: str) -> None:
     log(f"[flash-bwd] ptxas -v of csrc/flash_attention_bwd.cu (registers, spill store and load "
         f"bytes): {report}")
     if (len([k for k in report if "walk_kernel" in k]) != 4
-            or len([k for k in report if "bwd_kernel" in k]) != 2 or len(report) != 6
+            or len([k for k in report if "wide_kernel" in k]) != 6 or len(report) != 10
             or any(r[1] or r[2] for r in report.values())):
         raise AssertionError(f"[flash-bwd] a backward kernel spills, or ptxas named other "
                              f"kernels: {report}")
@@ -5799,12 +5818,12 @@ def bwd_entry_fn(torch, lib, name: str, c: dict):
     return launch
 
 
-def bwd_against_parent(torch, smi: str, c: dict, parent) -> None:
+def bwd_against_parent(torch, smi: str, shape: str, c: dict, parent) -> None:
     """``--bwd-baseline``: each C entry of the parent's build beside this
-    build's on the case: the gradients within FLASH_BWD_RTOL of the
-    parent's largest magnitude (the sums run in another order), then both
-    timed in turns (parent, new, new, parent), CUDA events and device time
-    (profiler), the C entries alone."""
+    build's on the case (``shape``): the gradients within FLASH_BWD_RTOL of
+    the parent's largest magnitude (the sums run in another order), then
+    both timed in turns (parent, new, new, parent), CUDA events and device
+    time (profiler), the C entries alone."""
     from financial_rag_system_tpu_torch.ops import _cuda
 
     new_lib = _cuda.library("flash_attention_bwd")
@@ -5819,30 +5838,40 @@ def bwd_against_parent(torch, smi: str, c: dict, parent) -> None:
         order = (old, new, new, old)
         events = [median_ms(fn, reps=30) for fn in order]
         device = [sum(device_split(torch, fn).values()) for fn in order]
-        log(f"[flash-bwd] {smi}: {name} against the parent's build at the trainer's shape: "
+        log(f"[flash-bwd] {smi}: {name} against the parent's build at {shape}: "
             f"gradients {rel:.3g} of the parent's largest magnitude apart; in turns (parent, "
             f"new, new, parent; C entries alone): events {', '.join(f'{t:.4f}' for t in events)} "
             f"ms; device {', '.join(f'{t:.4f}' for t in device)} ms; "
             f"{(events[0] + events[3]) / (events[1] + events[2]):.2f}x")
 
 
-def time_flash_backward(torch, np, smi: str, mask_np, baseline=None) -> list:
-    """(a) kernels 8 and 9 at the trainer's shape (B 32, S 512, 12 heads of
-    32) on its first batch's mask: against the plain twins, CUDA-event and
-    profiler times, the plain twins' times (dK/dV alone, dQ alone), the
-    backward of SDPA with the boolean segment mask timed alone (a
-    yardstick: dQ, dK and dV in one call), each kernel's bound (its bytes,
-    and its products over the (query, key) pairs that share a segment) and
-    MUFU floor (one exponential a pair), the L2 -> shared bytes it stages
-    (``bwd_plan``, beside the first design's ``parent_bwd_staged``;
+# (a)'s wide widths, timed at the trainer's B 32 and S 512 on its first
+# batch's mask: H D 768, as BERT-base splits it into heads of 128, 256 and
+# 384; the kernels line's wide entries are phase 16 (c)'s width, 256
+BWD_WIDE_SHAPES = ((6, 128), (3, 256), (2, 384))
+BWD_WIDE_ENTRY_D = 256
+BWD_NAMES = {False: ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"),
+             True: ("flash_attention_bwd_wide_dkv", "flash_attention_bwd_wide_dq")}
+
+
+def time_bwd_width(torch, np, smi: str, mask_np, h: int, d: int, baseline=None) -> list:
+    """Kernels 8 and 9 at (B, S) of ``mask_np`` and ``h`` heads of ``d``:
+    against the plain twins, CUDA-event and profiler times, the plain
+    twins' times (dK/dV alone, dQ alone), the backward of SDPA with the
+    boolean segment mask timed alone (a yardstick: dQ, dK and dV in one
+    call), each kernel's bound (its bytes, and its products over the
+    (query, key) pairs that share a segment) and MUFU floor (one
+    exponential a pair), the L2 -> shared bytes it stages (``bwd_plan`` or
+    ``wide_bwd_plan``, beside the first design's ``parent_bwd_staged``;
     computed, not measured); ``baseline`` (``--bwd-baseline``) beside it
-    in turns.  Returns the ``kernels`` line's two entries."""
+    in turns.  Returns the two ``kernels`` line entries of this width."""
     from financial_rag_system_tpu_torch.ops import flash_attention as fa
 
     p, s = mask_np.shape
-    h, d = 12, 32
-    c = flash_bwd_case(torch, np, p, s, h, d, mask_np, seed=32)
-    errs = check_flash_bwd_case(torch, "trainer shape", c)
+    wide = d >= fa.BWD_WIDE_MIN
+    c = flash_bwd_case(torch, np, p, s, h, d, mask_np, seed=d)
+    shape = f"B {p}, S {s}, {h} heads of {d}"
+    errs = check_flash_bwd_case(torch, shape, c)
     qb, kb, vb, seg, m, l, dob, di, inv = bwd_args(c)
     qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_(True) for t in (qb, kb, vb))
     same = seg[:, None, :, None] == seg[:, None, None, :]
@@ -5851,15 +5880,15 @@ def time_flash_backward(torch, np, smi: str, mask_np, baseline=None) -> list:
     go = dob.transpose(1, 2)
     library_ms = median_ms(lambda: torch.autograd.grad(sdpa_out, (qh, kh, vh), go,
                                                        retain_graph=True), reps=10)
-    del sdpa_out, same
+    del sdpa_out, same, qh, kh, vh
     pairs = segment_pairs(np, mask_np)
     tensor = p * s * h * d * 2
     rows = 3 * p * h * s * 4 + p * s * 4  # m, l, di and the segment ids
     mufu = mufu_ms(torch, h * pairs)
     entries = []
     for name, kw, products, tensors, errs_of in (
-        ("flash_attention_bwd_dkv", {"dq": False}, 4, 6, ("dk_abs", "dv_abs")),
-        ("flash_attention_bwd_dq", {"dkv": False}, 3, 5, ("dq_abs",)),
+        (BWD_NAMES[wide][0], {"dq": False}, 4, 6, ("dk_abs", "dv_abs")),
+        (BWD_NAMES[wide][1], {"dkv": False}, 3, 5, ("dq_abs",)),
     ):
         def kernel(kw=kw):
             return fa.flash_attention_bwd_kernel(*bwd_args(c), **kw)
@@ -5868,56 +5897,89 @@ def time_flash_backward(torch, np, smi: str, mask_np, baseline=None) -> list:
             return fa.flash_attention_bwd_plain(qb, kb, vb, seg, dob, m, l, di, inv, **kw)
 
         ms = median_ms(kernel, reps=20)
-        dev = device_ms(torch, kernel, "walk_kernel")
+        dev = (sum(device_split(torch, kernel).values()) if wide
+               else device_ms(torch, kernel, "walk_kernel"))
         plain_ms = median_ms(plain, reps=3, warmup=1)
         b_ms, b_by = bound_ms(tensors * tensor + rows, 2.0 * products * h * d * pairs)
         err = max(errs[e] for e in errs_of)
-        log(f"[flash-bwd] {smi}: {name}, B {p}, S {s}, {h} heads of {d}, the trainer's first "
-            f"batch mask: max_abs_err {err:.3g} ({max(errs[e[:2]] for e in errs_of):.3g} of the "
-            f"largest magnitude), kernel {ms:.4f} ms (device {dev:.4f} ms), plain {plain_ms:.4f} "
-            f"ms, SDPA backward (dQ, dK, dV) {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-            f"dense {bound_ms(tensors * tensor + rows, 2.0 * products * h * d * p * s * s)[0]:.4f}"
-            f" ms), MUFU floor {mufu:.4f} ms; kernel at {b_ms / ms:.3f} of its bound")
+        log(f"[flash-bwd] {smi}: {name}, {shape}, the trainer's first batch mask: max_abs_err "
+            f"{err:.3g} ({max(errs[e[:2]] for e in errs_of):.3g} of the largest magnitude), "
+            f"kernel {ms:.4f} ms (device {dev:.4f} ms), plain {plain_ms:.4f} ms, SDPA backward "
+            f"(dQ, dK, dV) {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; dense "
+            f"{bound_ms(tensors * tensor + rows, 2.0 * products * h * d * p * s * s)[0]:.4f} ms),"
+            f" MUFU floor {mufu:.4f} ms; kernel at {b_ms / ms:.3f} of its bound (device "
+            f"{b_ms / dev:.3f})")
         dkv = name.endswith("dkv")
-        plan = fa.bwd_plan(p, s, h, d, dkv)
-        log(f"[flash-bwd] {smi}: {name}: units of {plan.unit} row tiles ({plan.units} units, "
-            f"{plan.consumer_regs} / {plan.producer_regs} registers, {plan.stages} stages, "
-            f"{plan.smem} B of shared memory); L2 -> shared bytes staged with no (tile, block) "
-            f"skipped {plan.staged_bytes / 1e6:.1f} MB against the first design's "
-            f"{fa.parent_bwd_staged(p, s, h, d, dkv) / 1e6:.1f} MB; computed from the plan "
-            f"(ops/flash_attention.py bwd_plan), not measured")
-        entries.append({"name": name, **BWD_ENTRY, "replaces": BWD_REPLACES[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                        "bound_by": b_by, "library_ms": library_ms})
+        parent = fa.parent_bwd_staged(p, s, h, d, dkv)
+        if wide:
+            plan = fa.wide_bwd_plan(p, s, h, d, dkv)
+            layout = (f"walked blocks of {plan.walk} rows, {plan.groups} column group(s) of "
+                      f"{plan.group_chunks} 64-column chunks, own tile "
+                      f"{'resident' if plan.resident else 'staged a window at a time'}, "
+                      f"{plan.units} units of a cluster of {plan.cluster}")
+        else:
+            plan = fa.bwd_plan(p, s, h, d, dkv)
+            layout = f"units of {plan.unit} row tiles ({plan.units} units)"
+        log(f"[flash-bwd] {smi}: {name}, {shape}: {layout}, {plan.consumer_regs} / "
+            f"{plan.producer_regs} registers, {plan.stages} stages, {plan.smem} B of shared "
+            f"memory; L2 -> shared bytes staged with no (tile, block) skipped "
+            f"{plan.staged_bytes / 1e6:.1f} MB against the first design's {parent / 1e6:.1f} MB "
+            f"({parent / plan.staged_bytes:.2f}x); computed from the plans "
+            f"(ops/flash_attention.py), not measured")
+        entries.append({"name": name, **BWD_ENTRY, "replaces": BWD_REPLACES[BWD_NAMES[False][
+            0 if dkv else 1]], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms})
     if baseline is not None:
-        bwd_against_parent(torch, smi, c, baseline)
+        bwd_against_parent(torch, smi, shape, c, baseline)
+    del c
     return entries
 
 
-def flash_step_launches() -> tuple:
+def time_flash_backward(torch, np, smi: str, mask_np, baseline=None) -> dict:
+    """(a) kernels 8 and 9 at the trainer's shape (B 32, S 512, 12 heads of
+    32) and at H D 768 in heads of 128, 256 and 384 (BWD_WIDE_SHAPES) on
+    its first batch's mask (:func:`time_bwd_width`).  Returns the
+    ``kernels`` line's entries by width: heads of 32 (phase 16 (b)'s) and
+    BWD_WIDE_ENTRY_D (phase 16 (c)'s)."""
+    out = {32: time_bwd_width(torch, np, smi, mask_np, 12, 32, baseline)}
+    for h, d in BWD_WIDE_SHAPES:
+        entries = time_bwd_width(torch, np, smi, mask_np, h, d, baseline)
+        if d == BWD_WIDE_ENTRY_D:
+            out[d] = entries
+    return out
+
+
+def flash_step_launches(wide: bool = False) -> tuple:
+    """Kernel 7's and kernels 8 and 9's counters: at heads of 32-128, or
+    (``wide``) the D-256 kernel's and the wide backward's."""
     from financial_rag_system_tpu_torch.ops.flash_attention import encoder_flash_attention as f
 
+    if wide:
+        return f.launches_wide, f.launches_bwd_wide_dkv, f.launches_bwd_wide_dq
     return f.launches, f.launches_bwd_dkv, f.launches_bwd_dq
 
 
-def check_flash_first_step(torch, np, rows: dict, smi: str, label: str) -> None:
-    """The trainer's first step (one BCE step of MiniLM-L6 at full width
-    from ``init_model``'s weights) under ``RAG_TPU_FLASH=1`` against the
-    same step without it (the einsum path): kernel 7 and kernels 8 and 9
-    six times each, the loss within TRAIN_LOSS_RTOL and the gradients
+def check_flash_first_step(torch, np, rows: dict, smi: str, label: str, cfg=None,
+                           wide: bool = False) -> None:
+    """The trainer's first step (one BCE step at full width from
+    ``init_model``'s weights: MiniLM-L6, or ``cfg``) under
+    ``RAG_TPU_FLASH=1`` against the same step without it (the einsum path):
+    kernel 7 and kernels 8 and 9 once a layer each (on the wide counters
+    when ``wide``), the loss within TRAIN_LOSS_RTOL and the gradients
     within TRAIN_GRAD_TOL (:func:`compare_steps`; the updated weights are
     logged)."""
     from financial_rag_system_tpu_torch.models import bert
     from financial_rag_system_tpu_torch.train import stack
 
+    cfg = cfg or bert.MINILM_L6_CROSS
     lr, out = 1e-4, {}
     for key, env in (("einsum", {}), ("flash", {"RAG_TPU_FLASH": "1"})):
-        model = stack.init_model(bert.MINILM_L6_CROSS, 1, "cuda")
+        model = stack.init_model(cfg, 1, "cuda")
         with env_unset("RAG_TPU_FLASH"), env_set(**env):
-            n0 = flash_step_launches()
+            n0 = flash_step_launches(wide)
             out[key] = step_objective(torch, model, "bce", rows, lr)
-            launched = tuple(b - a for a, b in zip(n0, flash_step_launches()))
-        want = (6, 6, 6) if key == "flash" else (0, 0, 0)
+            launched = tuple(b - a for a, b in zip(n0, flash_step_launches(wide)))
+        want = (cfg.layers,) * 3 if key == "flash" else (0, 0, 0)
         if launched != want:
             raise AssertionError(f"[flash-train] {label}: the {key} step launched kernels 7, 8 "
                                  f"and 9 {launched} times (want {want})")
@@ -5927,30 +5989,31 @@ def check_flash_first_step(torch, np, rows: dict, smi: str, label: str) -> None:
         f"against {out['einsum'][0]:.6f} on the einsum path (rel {c['loss_rel']:.2e}, tolerance "
         f"{TRAIN_LOSS_RTOL}); gradients {c['grad_rel']:.2e} of their norm (tolerance "
         f"{TRAIN_GRAD_TOL}); updated weights within {c['moved_lr']:.4f} lr, {c['sure_lr']:.2e} "
-        f"lr at the {c['sure']} sure of their sign; kernels 7, 8 and 9 six times each")
+        f"lr at the {c['sure']} sure of their sign; kernels 7, 8 and 9 {cfg.layers} times each")
     if c["loss_rel"] > TRAIN_LOSS_RTOL or c["grad_rel"] > TRAIN_GRAD_TOL:
         raise AssertionError(f"[flash-train] {label}: the flash step differs from the einsum "
                              f"step's")
 
 
-def train_flash_run(torch, examples: list, env: dict) -> tuple:
+def train_flash_run(torch, examples: list, env: dict, cfg=None) -> tuple:
     """``train_cross_encoder`` on ``examples`` from ``init_model``'s
-    weights under ``env`` (``RAG_TPU_FLASH`` unset first): its losses,
-    final weights and step log."""
+    weights (MiniLM-L6's shape, or ``cfg``) under ``env``
+    (``RAG_TPU_FLASH`` unset first): its losses, final weights and step
+    log."""
     from financial_rag_system_tpu_torch.models import bert
     from financial_rag_system_tpu_torch.train import cross_encoder, stack
 
-    model = stack.init_model(bert.MINILM_L6_CROSS, 1, "cuda")
-    with env_unset("RAG_TPU_FLASH"), env_set(**env), step_logs(torch) as (logs, _):
+    model = stack.init_model(cfg or bert.MINILM_L6_CROSS, 1, "cuda")
+    with env_unset("RAG_TPU_FLASH"), env_set(**env), step_logs(torch, cfg) as (logs, _):
         _, losses = cross_encoder.train_cross_encoder(model, examples, batch_size=32, lr=1e-4,
                                                       max_len=FLASH_TRAIN_LEN, seed=0)
     torch.cuda.synchronize()
     return losses, [p.detach().clone() for p in model.parameters()], logs["cross_encoder"]
 
 
-def profile_flash_steps(torch, rows: dict, smi: str) -> None:
-    """One BCE step of MiniLM-L6 on the trainer's first batch under
-    ``RAG_TPU_FLASH=1`` and without it, each's device time by kind
+def profile_flash_steps(torch, rows: dict, smi: str, cfg=None, what: str = "cross-encoder") -> None:
+    """One BCE step (MiniLM-L6, or ``cfg``) on the trainer's first batch
+    under ``RAG_TPU_FLASH=1`` and without it, each's device time by kind
     (:func:`profile_train_step`: kernels 7-9 and the torch work inside the
     autograd function apart)."""
     from torch.profiler import record_function
@@ -5962,9 +6025,9 @@ def profile_flash_steps(torch, rows: dict, smi: str) -> None:
     ids, types, mask, labels = rows["pairs"]
     batch = contrastive.on_device((ids, types, mask), "cuda")
     labels = labels.to("cuda")
-    for name, env in (("cross-encoder BCE, RAG_TPU_FLASH=1", {"RAG_TPU_FLASH": "1"}),
-                      ("cross-encoder BCE, einsum attention", {})):
-        model = stack.init_model(bert.MINILM_L6_CROSS, 1, "cuda")
+    for name, env in ((f"{what} BCE, RAG_TPU_FLASH=1", {"RAG_TPU_FLASH": "1"}),
+                      (f"{what} BCE, einsum attention", {})):
+        model = stack.init_model(cfg or bert.MINILM_L6_CROSS, 1, "cuda")
         opt = ClippedAdamW(model, 1e-4)
 
         def step_fn(model=model, opt=opt):
@@ -5978,58 +6041,98 @@ def profile_flash_steps(torch, rows: dict, smi: str) -> None:
         del model, opt
 
 
-def drive_phase_16(torch, np, main: dict, smi: str, kernels: list, bwd_baseline=None) -> dict:
-    """Phase 16: (a) the forward's residuals and kernels 8 and 9 against
-    their plain twins over the grid, the served context with residuals,
-    ``ptxas -v``, the two kernels timed at the trainer's shape (the
-    ``kernels`` line's entries); (b) the cross-encoder trainer at full
-    width under ``RAG_TPU_FLASH=1``: ``train_cross_encoder`` over
-    FLASH_TRAIN_STEPS batches of 32 x 512 (the main path: every count set
-    to 0 before it and read after; kernels 7, 8 and 9 six times a step),
-    its first step against the einsum step, a second run bit for bit, the
+def train_flash_path(torch, np, smi: str, tag: str, what: str, steps: int, cfg=None,
+                     wide: bool = False) -> dict:
+    """``train_cross_encoder`` under ``RAG_TPU_FLASH=1`` over ``steps``
+    batches of 32 x FLASH_TRAIN_LEN from ``init_model``'s weights
+    (MiniLM-L6's shape, or ``cfg``): its first step against the einsum
+    step, the run (the main path: every count set to 0 before it and read
+    after; kernel 7 and kernels 8 and 9 once a layer a step, on the wide
+    counters when ``wide``, nothing else), a second run bit for bit, the
     einsum run's step time and peak memory beside it, and both steps'
-    device time by kind.  Returns (b)'s run for the launch counts."""
-    t0 = time.perf_counter()
-    check_flash_bwd_grid(torch, np, main, smi)
-    examples = trainer_examples(np, FLASH_TRAIN_STEPS)
+    device time by kind.  Returns the run's launches."""
+    from financial_rag_system_tpu_torch.models import bert
+
+    layers = (cfg or bert.MINILM_L6_CROSS).layers
+    examples = trainer_examples(np, steps)
     rows = first_batch(torch, np, examples)
-    mask_np = np.asarray(rows["pairs"][2])
-    if mask_np.shape != (32, FLASH_TRAIN_LEN):
-        raise AssertionError(f"the trainer's first batch is {mask_np.shape}")
-    kernels += time_flash_backward(torch, np, smi, mask_np, bwd_baseline)
-    log(f"[phase-16] part (a) took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    check_flash_first_step(torch, np, rows, smi, "the trainer's first step, 32 x 512")
+    if np.asarray(rows["pairs"][2]).shape != (32, FLASH_TRAIN_LEN):
+        raise AssertionError(f"[{tag}] the trainer's first batch is "
+                             f"{np.asarray(rows['pairs'][2]).shape}")
+    check_flash_first_step(torch, np, rows, smi, f"{what}: the first step, 32 x "
+                           f"{FLASH_TRAIN_LEN}", cfg, wide)
     reset_launches()
-    losses, weights, steps = train_flash_run(torch, examples, {"RAG_TPU_FLASH": "1"})
+    losses, weights, step_log = train_flash_run(torch, examples, {"RAG_TPU_FLASH": "1"}, cfg)
     launches = read_launches()
     n = len(losses)
-    want = want_launches(flash_attention=6 * n, flash_attention_bwd_dkv=6 * n,
-                         flash_attention_bwd_dq=6 * n)
-    if n != FLASH_TRAIN_STEPS or launches != want:
-        raise AssertionError(f"[flash-train] {n} steps launched {launches} (want {want})")
-    flash = steps.report(f"cross-encoder under RAG_TPU_FLASH=1 ({n} x 32 x "
-                         f"{FLASH_TRAIN_LEN})", smi)
-    again, weights_b, _ = train_flash_run(torch, examples, {"RAG_TPU_FLASH": "1"})
+    names = (("flash_attention_wide", *BWD_NAMES[True]) if wide
+             else ("flash_attention", *BWD_NAMES[False]))
+    want = want_launches(**{name: layers * n for name in names})
+    if n != steps or launches != want:
+        raise AssertionError(f"[{tag}] {n} steps launched {launches} (want {want})")
+    flash = step_log.report(f"{what} under RAG_TPU_FLASH=1 ({n} x 32 x {FLASH_TRAIN_LEN})", smi)
+    again, weights_b, _ = train_flash_run(torch, examples, {"RAG_TPU_FLASH": "1"}, cfg)
     dw = max(float((a - b).abs().max()) for a, b in zip(weights, weights_b))
-    log(f"[flash-train] {smi}: trained twice from the same weights under RAG_TPU_FLASH=1, {n} "
+    log(f"[{tag}] {smi}: {what} trained twice from the same weights under RAG_TPU_FLASH=1, {n} "
         f"steps: losses {losses[0]!r} -> {losses[-1]!r} and {again[0]!r} -> {again[-1]!r}, "
         f"equal {losses == again}; weights {dw!r} apart (want bit for bit)")
     if losses != again or dw != 0:
-        raise AssertionError("[flash-train] two runs of the flash trainer differ")
+        raise AssertionError(f"[{tag}] two runs of the flash trainer differ")
     del weights, weights_b
-    ein_losses, _, ein_steps = train_flash_run(torch, examples, {})
-    einsum = ein_steps.report(f"cross-encoder, einsum attention ({n} x 32 x "
-                              f"{FLASH_TRAIN_LEN})", smi)
-    log(f"[flash-train] {smi}: median step {flash['step_ms_median']:.2f} ms under "
+    ein_losses, _, ein_log = train_flash_run(torch, examples, {}, cfg)
+    einsum = ein_log.report(f"{what}, einsum attention ({n} x 32 x {FLASH_TRAIN_LEN})", smi)
+    log(f"[{tag}] {smi}: {what}: median step {flash['step_ms_median']:.2f} ms under "
         f"RAG_TPU_FLASH=1 against {einsum['step_ms_median']:.2f} ms on the einsum path; peak "
         f"{flash['peak_gib']:.2f} against {einsum['peak_gib']:.2f} GiB; losses "
         f"{losses[-1]:.6f} against {ein_losses[-1]:.6f} after {n} steps; kernels 7, 8 and 9 "
-        f"{launches['flash_attention']}, {launches['flash_attention_bwd_dkv']} and "
-        f"{launches['flash_attention_bwd_dq']} times over the run")
-    profile_flash_steps(torch, rows, smi)
-    log(f"[phase-16] part (b) took {time.perf_counter() - t0:.1f} s")
+        f"{', '.join(str(launches[k]) for k in names)} times over the run")
+    profile_flash_steps(torch, rows, smi, cfg, what)
     return {"launches": launches}
+
+
+FLASH_WIDE_STEPS = 3    # (c)'s steps a run: BERT-base widths, 12 layers
+
+
+def drive_phase_16(torch, np, main: dict | None, smi: str, kernels: list, bwd_baseline=None,
+                   parts: str = "abc") -> list:
+    """Phase 16, the ``parts`` asked for: (a) the forward's residuals and
+    kernels 8 and 9 against their plain twins over the grid, the served
+    context with residuals, ``ptxas -v``, the two kernels timed at the
+    trainer's shape and at H D 768 in heads of 128-384 (the ``kernels``
+    line's entries of the parts that launch them); (b) the cross-encoder
+    trainer (MiniLM-L6) at full width under ``RAG_TPU_FLASH=1``
+    (:func:`train_flash_path`: kernel 7 and kernels 8 and 9 six times a
+    step); (c) the same trainer on phase 14's reranker (BERT-base widths in
+    3 heads of 256, 12 layers): kernel 7's D-256 kernel and the wide
+    backward kernels twelve times a step, kernel 2 never.  Returns (b)'s
+    and (c)'s runs for the launch counts."""
+    from financial_rag_system_tpu_torch.models import bert
+
+    runs = []
+    if "a" in parts:
+        t0 = time.perf_counter()
+        check_flash_bwd_grid(torch, np, main, smi)
+        mask_np = np.asarray(first_batch(torch, np, trainer_examples(np, FLASH_TRAIN_STEPS))
+                             ["pairs"][2])
+        if mask_np.shape != (32, FLASH_TRAIN_LEN):
+            raise AssertionError(f"the trainer's first batch is {mask_np.shape}")
+        entries = time_flash_backward(torch, np, smi, mask_np, bwd_baseline)
+        kernels += (entries[32] if "b" in parts else []) + (
+            entries[BWD_WIDE_ENTRY_D] if "c" in parts else [])
+        log(f"[phase-16] part (a) took {time.perf_counter() - t0:.1f} s")
+    if "b" in parts:
+        t0 = time.perf_counter()
+        runs.append(train_flash_path(torch, np, smi, "flash-train", "cross-encoder",
+                                     FLASH_TRAIN_STEPS))
+        log(f"[phase-16] part (b) took {time.perf_counter() - t0:.1f} s")
+    if "c" in parts:
+        t0 = time.perf_counter()
+        runs.append(train_flash_path(torch, np, smi, "flash-train-wide",
+                                     "cross-encoder of BERT-base widths in 3 heads of 256",
+                                     FLASH_WIDE_STEPS, bert.BertConfig(**BERT_BASE_D256_SHAPE),
+                                     wide=True))
+        log(f"[phase-16] part (c) took {time.perf_counter() - t0:.1f} s")
+    return runs
 
 
 def main() -> int:
@@ -6073,7 +6176,19 @@ def main() -> int:
         help="csrc/ directory of an earlier checkout: hold its flash_attention_bwd.cu's two "
              "C entries to kernels 8 and 9 at the trainer's shape and time them in turns",
     )
+    parser.add_argument(
+        "--phases", default=None, metavar="LIST",
+        help="run only these phases, comma-separated (e.g. 2,16 or 16a,16c: phase 16's parts "
+             "apart), with the phases they need (phase 1 always; 3 for 4-6, 8, 10-12, 15 and "
+             "16 (a); 6 for 10; 9 for 11); the kernels line then lists and checks only the "
+             "selected phases' kernels; every phase when absent",
+    )
     opts = parser.parse_args()
+    try:
+        phases, parts16 = selected_phases(opts.phases)
+    except ValueError as err:
+        print(f"chip_smoke: --phases: {err}", file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -6090,6 +6205,9 @@ def main() -> int:
     import numpy as np
 
     smi = phase_card()
+    if opts.phases is not None:
+        log(f"[phases] {smi}: running phases {sorted(phases)} (asked for {opts.phases}; "
+            f"phase 16's parts {parts16 if 16 in phases else 'none'})")
     t0 = time.perf_counter()
     start_ptxas_reports()
     phase_build()
@@ -6105,111 +6223,133 @@ def main() -> int:
                       if opts.flash_baseline else None)
     bwd_baseline = (baseline_lib("flash_attention_bwd", opts.bwd_baseline)
                     if opts.bwd_baseline else None)
-    kernels = [check_topk(torch, np, smi, opts.topk_baseline),
-               *check_attention(torch, np, smi, attn_baseline)]
-    check_large_k(torch, np, smi, opts.topk_baseline, opts.ivf_baseline)
-    check_wide_rows(torch, np, smi)
-    log(f"[kernels] phase 2 took {time.perf_counter() - t0:.1f} s")
+    kernels, runs = [], []
+    if 2 in phases:
+        kernels += [check_topk(torch, np, smi, opts.topk_baseline),
+                    *check_attention(torch, np, smi, attn_baseline)]
+        check_large_k(torch, np, smi, opts.topk_baseline, opts.ivf_baseline)
+        check_wide_rows(torch, np, smi)
+        log(f"[kernels] phase 2 took {time.perf_counter() - t0:.1f} s")
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    main_run = None
     try:
-        t0 = time.perf_counter()
-        write_checkpoints(torch, work)
-        write_index(torch, np, work)
-        log(f"[main] checkpoints and index written in {time.perf_counter() - t0:.1f} s")
-        main_run = drive_main_path(torch, np, work, smi)
-        from financial_rag_system_tpu_torch.models.embedder import get_embedder
-        from financial_rag_system_tpu_torch.models.reranker import get_reranker
+        if phases & set(range(3, 16)):  # their checkpoints and index
+            t0 = time.perf_counter()
+            write_checkpoints(torch, work)
+            write_index(torch, np, work)
+            log(f"[main] checkpoints and index written in {time.perf_counter() - t0:.1f} s")
+        if 3 in phases:
+            t0 = time.perf_counter()
+            main_run = drive_main_path(torch, np, work, smi)
+            from financial_rag_system_tpu_torch.models.embedder import get_embedder
+            from financial_rag_system_tpu_torch.models.reranker import get_reranker
 
-        cpu_models = (get_embedder(device="cpu"), get_reranker(device="cpu"))
-        check_against_cpu(torch, np, main_run, cpu_models)
-        check_attention_gate(torch, np, main_run, smi)
-        check_attention_batch_mask(torch, np, main_run, smi, attn_baseline)
-        profile_batch(torch, main_run, smi)
-        log(f"[main] phase 3 took {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        ivf_run = drive_ivf_path(torch, np, main_run, smi)
-        kernels.append(check_ivf_kernel(torch, np, ivf_run, smi, opts.ivf_baseline))
-        check_ivf_against_cpu(torch, np, main_run, work, cpu_models)
-        log(f"[ivf] phase 4 took {time.perf_counter() - t0:.1f} s")
-        del ivf_run["engine"]
-        t0 = time.perf_counter()
-        with env_set(**FUSED_BLOCK_ENV):
-            block_run = drive_main_path(torch, np, work, smi, label="fused-block")
-            check_fused_block_batch(torch, np, block_run, cpu_models, smi)
-            kernels += check_fused_block_kernels(torch, block_run, smi, ffn_baseline,
-                                                 resid_baseline)
-        log(f"[fused-block] phase 5 took {time.perf_counter() - t0:.1f} s")
-        del block_run["engine"]
-        t0 = time.perf_counter()
-        int8 = write_int8_index(torch, np, work, main_run)
-        with env_set(RAG_TPU_INDEX_DTYPE="int8"):
-            int8_run = drive_main_path(torch, np, work, smi, label="int8", index=int8["dir"],
-                                       rounds=1)
-        check_int8_against_cpu(torch, np, int8_run, int8, work, cpu_models)
-        int8_overlap(torch, np, int8_run, int8, smi)
-        kernels.append(check_topk_int8(torch, np, smi, opts.topk_baseline))
-        del int8_run["engine"], int8["bf16"]
-        ivf8_run = drive_ivf_path(torch, np, main_run, smi, label="ivf-int8",
-                                  dtype=torch.int8, rounds=1)
-        kernels.append(check_ivf_kernel(torch, np, ivf8_run, smi, opts.ivf_baseline))
-        del ivf8_run["engine"]
-        log(f"[int8] phase 6 took {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        hash_runs = drive_hash_path(torch, np, work, smi)
-        log(f"[hash] phase 7 took {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        hnsw_run = drive_hnsw_path(torch, np, work, smi)
-        check_hnsw_recall(torch, np, hnsw_run, smi)
-        check_hnsw_against_cpu(torch, np, hnsw_run, work, cpu_models)
-        profile_hnsw_batch(torch, np, hnsw_run, smi)
-        hnsw8_run = drive_hnsw_int8(torch, np, hnsw_run, smi)
-        del hnsw_run["engine"]
-        log(f"[hnsw] phase 8 took {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        train_run = drive_training_path(torch, np, work, smi)
-        check_trained_against_cpu(torch, np, train_run, work)
-        random_run = serve_stack(torch, np, work, save_random_stack(torch, work, train_run),
-                                 train_run["corpus"], smi, "random-init")
-        log(f"[train] {smi}: hard-set Hit@5 over the same 56 questions (reported, not gated): "
-            f"trained stack {train_run['serve']['hit5']:.4f}, random-init stack "
-            f"{random_run['hit5']:.4f}")
-        del random_run["engine"], train_run["serve"]["engine"]
-        rr_len = train_run["rr"].max_len
-        del train_run["emb"], train_run["rr"]
-        check_train_against_cpu(torch, np, work / "trained", rr_len, smi)
-        check_resume(torch, np, work, smi)
-        check_reproducible(torch, np, rr_len, smi)
-        profile_train_steps(torch, rr_len, smi)
-        log(f"[train] phase 9 took {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        sharded_runs = drive_sharded_tier(torch, np, work, main_run, int8, smi)
-        log(f"[sharded] phase 10 took {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        phase11_runs = drive_phase_11(torch, np, work, main_run, work / "trained" / "bge", smi)
-        log(f"[phase-11] phase 11 took {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        flash_run = drive_phase_12(torch, np, work, main_run, cpu_models, smi, kernels,
+            cpu_models = (get_embedder(device="cpu"), get_reranker(device="cpu"))
+            check_against_cpu(torch, np, main_run, cpu_models)
+            check_attention_gate(torch, np, main_run, smi)
+            check_attention_batch_mask(torch, np, main_run, smi, attn_baseline)
+            profile_batch(torch, main_run, smi)
+            runs.append(main_run)
+            log(f"[main] phase 3 took {time.perf_counter() - t0:.1f} s")
+        if 4 in phases:
+            t0 = time.perf_counter()
+            ivf_run = drive_ivf_path(torch, np, main_run, smi)
+            kernels.append(check_ivf_kernel(torch, np, ivf_run, smi, opts.ivf_baseline))
+            check_ivf_against_cpu(torch, np, main_run, work, cpu_models)
+            log(f"[ivf] phase 4 took {time.perf_counter() - t0:.1f} s")
+            del ivf_run["engine"]
+            runs.append(ivf_run)
+        if 5 in phases:
+            t0 = time.perf_counter()
+            with env_set(**FUSED_BLOCK_ENV):
+                block_run = drive_main_path(torch, np, work, smi, label="fused-block")
+                check_fused_block_batch(torch, np, block_run, cpu_models, smi)
+                kernels += check_fused_block_kernels(torch, block_run, smi, ffn_baseline,
+                                                     resid_baseline)
+            log(f"[fused-block] phase 5 took {time.perf_counter() - t0:.1f} s")
+            del block_run["engine"]
+            runs.append(block_run)
+        if 6 in phases:
+            t0 = time.perf_counter()
+            int8 = write_int8_index(torch, np, work, main_run)
+            with env_set(RAG_TPU_INDEX_DTYPE="int8"):
+                int8_run = drive_main_path(torch, np, work, smi, label="int8",
+                                           index=int8["dir"], rounds=1)
+            check_int8_against_cpu(torch, np, int8_run, int8, work, cpu_models)
+            int8_overlap(torch, np, int8_run, int8, smi)
+            kernels.append(check_topk_int8(torch, np, smi, opts.topk_baseline))
+            del int8_run["engine"], int8["bf16"]
+            ivf8_run = drive_ivf_path(torch, np, main_run, smi, label="ivf-int8",
+                                      dtype=torch.int8, rounds=1)
+            kernels.append(check_ivf_kernel(torch, np, ivf8_run, smi, opts.ivf_baseline))
+            del ivf8_run["engine"]
+            runs += [int8_run, ivf8_run]
+            log(f"[int8] phase 6 took {time.perf_counter() - t0:.1f} s")
+        if 7 in phases:
+            t0 = time.perf_counter()
+            runs += drive_hash_path(torch, np, work, smi)
+            log(f"[hash] phase 7 took {time.perf_counter() - t0:.1f} s")
+        if 8 in phases:
+            t0 = time.perf_counter()
+            hnsw_run = drive_hnsw_path(torch, np, work, smi)
+            check_hnsw_recall(torch, np, hnsw_run, smi)
+            check_hnsw_against_cpu(torch, np, hnsw_run, work, cpu_models)
+            profile_hnsw_batch(torch, np, hnsw_run, smi)
+            hnsw8_run = drive_hnsw_int8(torch, np, hnsw_run, smi)
+            del hnsw_run["engine"]
+            runs += [hnsw_run, hnsw8_run]
+            log(f"[hnsw] phase 8 took {time.perf_counter() - t0:.1f} s")
+        if 9 in phases:
+            t0 = time.perf_counter()
+            train_run = drive_training_path(torch, np, work, smi)
+            check_trained_against_cpu(torch, np, train_run, work)
+            random_run = serve_stack(torch, np, work, save_random_stack(torch, work, train_run),
+                                     train_run["corpus"], smi, "random-init")
+            log(f"[train] {smi}: hard-set Hit@5 over the same 56 questions (reported, not "
+                f"gated): trained stack {train_run['serve']['hit5']:.4f}, random-init stack "
+                f"{random_run['hit5']:.4f}")
+            del random_run["engine"], train_run["serve"]["engine"]
+            rr_len = train_run["rr"].max_len
+            del train_run["emb"], train_run["rr"]
+            check_train_against_cpu(torch, np, work / "trained", rr_len, smi)
+            check_resume(torch, np, work, smi)
+            check_reproducible(torch, np, rr_len, smi)
+            profile_train_steps(torch, rr_len, smi)
+            runs.append(train_run)
+            log(f"[train] phase 9 took {time.perf_counter() - t0:.1f} s")
+        if 10 in phases:
+            t0 = time.perf_counter()
+            runs += drive_sharded_tier(torch, np, work, main_run, int8, smi)
+            log(f"[sharded] phase 10 took {time.perf_counter() - t0:.1f} s")
+        if 11 in phases:
+            t0 = time.perf_counter()
+            runs += drive_phase_11(torch, np, work, main_run, work / "trained" / "bge", smi)
+            log(f"[phase-11] phase 11 took {time.perf_counter() - t0:.1f} s")
+        if 12 in phases:
+            t0 = time.perf_counter()
+            runs.append(drive_phase_12(torch, np, work, main_run, cpu_models, smi, kernels,
+                                       flash_baseline))
+            log(f"[flash] phase 12 took {time.perf_counter() - t0:.1f} s")
+        if 13 in phases:
+            t0 = time.perf_counter()
+            runs.append(drive_phase_13(torch, np, work, smi))
+            log(f"[bert-base] phase 13 took {time.perf_counter() - t0:.1f} s")
+        if 14 in phases:
+            t0 = time.perf_counter()
+            runs.append(drive_phase_14(torch, np, work, smi))
+            log(f"[bert-base-d256] phase 14 took {time.perf_counter() - t0:.1f} s")
+        if 15 in phases:
+            t0 = time.perf_counter()
+            runs += drive_phase_15(torch, np, work, main_run, smi, kernels, attn_baseline,
                                    flash_baseline)
-        log(f"[flash] phase 12 took {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        base_run = drive_phase_13(torch, np, work, smi)
-        log(f"[bert-base] phase 13 took {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        wide_run = drive_phase_14(torch, np, work, smi)
-        log(f"[bert-base-d256] phase 14 took {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        long_runs = drive_phase_15(torch, np, work, main_run, smi, kernels, attn_baseline,
-                                   flash_baseline)
-        log(f"[long] phase 15 took {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        flash_train_run = drive_phase_16(torch, np, main_run, smi, kernels, bwd_baseline)
-        log(f"[flash-train] phase 16 took {time.perf_counter() - t0:.1f} s")
+            log(f"[long] phase 15 took {time.perf_counter() - t0:.1f} s")
+        if 16 in phases:
+            t0 = time.perf_counter()
+            runs += drive_phase_16(torch, np, main_run, smi, kernels, bwd_baseline, parts16)
+            log(f"[flash-train] phase 16 took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # launches over the main paths, each counted from 0 around its run
-    runs = (main_run, ivf_run, block_run, int8_run, ivf8_run, *hash_runs, hnsw_run, hnsw8_run,
-            train_run, *sharded_runs, *phase11_runs, flash_run, base_run, wide_run,
-            *long_runs, flash_train_run)
     for kern in kernels:
         name = kern["name"]
         kern["launches"] = sum(run["launches"][name] for run in runs)
@@ -6223,6 +6363,39 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+ALL_PHASES = frozenset(range(1, 17))
+# what a phase reads from an earlier one: phase 3's main run or the CPU
+# models it loads (4-6, 8, 10-12, 15, 16 (a)), phase 6's int8 index (10),
+# phase 9's trained encoder (11)
+PHASE_NEEDS = {4: {3}, 5: {3}, 6: {3}, 8: {3}, 10: {3, 6}, 11: {3, 9}, 12: {3}, 15: {3}}
+
+
+def selected_phases(arg: str | None) -> tuple[frozenset, str]:
+    """``--phases``' list as the phases to run, with the phases they need
+    and phase 1 (the build), and phase 16's parts ("abc" unless the list
+    names some: ``16a``, ``16c``); every phase when ``arg`` is None."""
+    if arg is None:
+        return ALL_PHASES, "abc"
+    phases, parts = {1}, ""
+    for tok in filter(None, (t.strip() for t in arg.split(","))):
+        m = re.fullmatch(r"(\d+)([abc]*)", tok)
+        if not m or int(m.group(1)) not in ALL_PHASES or (m.group(2) and m.group(1) != "16"):
+            raise ValueError(f"unknown phase {tok!r} (1-16; 16a, 16b, 16c)")
+        phases.add(int(m.group(1)))
+        if m.group(1) == "16":
+            parts += m.group(2) or "abc"
+    parts = "".join(sorted(set(parts)))
+    if "a" in parts:
+        phases.add(3)
+    todo = list(phases)
+    while todo:
+        for need in PHASE_NEEDS.get(todo.pop(), ()):
+            if need not in phases:
+                phases.add(need)
+                todo.append(need)
+    return frozenset(phases), parts or "abc"
 
 
 if __name__ == "__main__":

@@ -39,10 +39,12 @@
 //    0.023 ms at 3.35 TB/s;
 //  - dQ: 6 S^2 D (QK^T, dP, dQ), 1.9e10: 0.020 ms; 65 MB: 0.019 ms;
 //  - each recomputes 1.0e8 exponentials: 0.03 ms of MUFU.EX2.
+// At the wide trainer's B 32, S 512 and 3 heads of 256 (H D 768 again) the
+// bytes are the same, 151 MB (0.045 ms) and 126 MB (0.038 ms), the dense
+// products 5.2e10 (0.052 ms) and 3.9e10, and the exponentials a quarter.
 // At a (64-row tile, 64-row block) step of D 32 each product is 0.26
 // MFLOP, so what a step waits on (a load's latency, a product's) is what
-// sets the time.  Heads of 32 and 64, every launch of the main paths, run
-// unit::walk_kernel<D, DKV> (the design for the card):
+// sets the time.  Heads of 32 and 64 run unit::walk_kernel<D, DKV>:
 //  - persistent blocks, one an SM, each taking units of U own row tiles
 //    of one (pair, head) item (64 keys a tile for dK/dV, 64 queries for
 //    dQ; U = 4 at D 32, 2 at D 64, Cfg::kUnit); an item's units dealt round
@@ -71,23 +73,45 @@
 //    MN-major B (N = D); the gradients stay in registers for the walk and
 //    are stored as bf16 once.  No atomics and nothing summed across
 //    blocks: two runs give the same bits.
-// Heads of 128 and wider (no launch on the main paths) keep the first
-// design, bwd_kernel<64, DKV>:
-//  - a block of four warps for each (pair, head, 64-row tile of its own
-//    side, piece of 64 head columns); each warp owns 16 of the tile's rows
-//    and keeps its rows' gradient piece (16 x 64 f32) in registers
-//    through the walk;
-//  - the walk over the other side in 64-row blocks: the block's q and dO
-//    (dK/dV) or K and V (dQ) are staged into shared memory with cp.async,
-//    64 columns a chunk (rows padded by 16 bytes, so ldmatrix's eight rows
-//    fall in distinct banks), beside the own tile's chunks; QK^T and dP
-//    are summed over the head's chunks on mma.sync m16n8k16 (mma_bf16.cuh)
-//    from ldmatrix fragments; p and dS feed the gradient products as A
-//    fragments, with the staged rows' B fragments by ldmatrix.trans;
-//  - each of the D / 64 pieces computes QK^T and dP over the whole head
-//    again, with its own piece's chunk staged last so that it serves the
-//    gradient products (at D 128 twice the QK^T and dP work, at D 384 six
-//    times).
+// Heads of 128 and every wider multiple of 64 run wide::wide_kernel<W,
+// DKV>, where a tile's products over the whole head (QK^T and dP: 4 S^2 D
+// of the 8 S^2 D) would not fit one warpgroup's registers beside its
+// gradients (64 rows x D f32, twice for dK/dV):
+//  - persistent clusters of two blocks, one block an SM, each cluster
+//    taking units of two own 64-row tiles (one a block) and one column
+//    group of their gradients (up to 256 columns for dK/dV, 512 for dQ:
+//    one group at heads of 128 and 256, two for dK/dV at 384 and 512), an
+//    item's units dealt round the clusters in order;
+//  - a producer warp (of a producer warpgroup) stages each walked block of
+//    W rows (64 up to heads of
+//    256, 32 up to 384 and above 512, 16 at 448 and 512) by TMA over the
+//    whole head, 64-column chunks with 128-byte swizzle, into a ring of up
+//    to four stages, with each walked row's values written once beside it;
+//    each block of the cluster loads half the block's chunks for both
+//    (TMA multicast), so a walked block is read from L2 once for two tiles;
+//    a consumer thread loads the unit's own tile (both tensors, the whole
+//    head) once a unit, when both warpgroups are done with the last
+//    unit's.  Above heads of 512 the own tile does not
+//    fit beside a stage: a stage then holds a window of four chunks of the
+//    own tile and of the walked block, the windows walked in turn with the
+//    unit's own group's window last, so that its walked chunks serve the
+//    gradient products;
+//  - two consumer warpgroups (224 registers a thread after setmaxnreg,
+//    the producer warpgroup's 56) compute S^T and dP^T
+//    (S and dP for dQ) once a (tile, block) over the whole head on wgmma
+//    m64nXk16, each over half the walked rows (N = W / 2), so nothing is
+//    computed twice; p and dS are made in the accumulators and written to
+//    shared memory as bf16, and each warpgroup
+//    takes its chunks of the group (every other one) of dV += bf16(p^T) .
+//    dO and dK += bf16(dS^T) . q, or dQ += bf16(dS) . K, on wgmma with A
+//    from shared memory (wgmma's core matrices, unswizzled) and the walked
+//    chunk as an MN-major B; two named barriers a step keep p and dS whole
+//    while they are read (a software pipeline, block ob + 1's S and dP
+//    issued before block ob's gradient products, measured slower: the
+//    variants tool).
+//  The work is the function's own at heads of 128 and 256, and S and dP
+//  twice for dK/dV at 384 and 512 (two column groups); the gradients stay
+//  in registers for the walk and are stored as bf16 once.
 // Both skip a (tile, block) pair whose rows share no segment id (every p
 // is 0, so it adds exactly 0), by the forward's presence masks of the ids
 // in [0, 32) (any other id sets every bit).
@@ -95,7 +119,8 @@
 // the kernels to (2^-7 of a gradient's largest value): exp as ex2.approx of
 // one FFMA (s sm_scale log2e - m log2e), the zero select in place of the
 // additive mask, and the f32 sums in another order (jax adds 128-row
-// blocks in turn; here 64-row blocks, and chunks of the head).
+// blocks in turn; here blocks of 16-64 rows, and chunks of the head: the
+// windows' in turn above heads of 512).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -108,45 +133,12 @@
 
 namespace {
 
-constexpr int kTile = 64;                // rows of the own tile, and of each block walked
-constexpr int kWarps = kTile / 16;       // 16 own rows a warp
-constexpr int kThreads = 32 * kWarps;
 constexpr float kLog2e = 1.4426950408889634f;
-
-// W columns of the head a chunk; a row's bytes in shared memory, padded
-template <int W>
-struct Chunk {
-  static constexpr int kRowB = 2 * W + 16;
-  static constexpr int kBytes = kTile * kRowB;
-};
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               ::"r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// rows row0 .. row0 + 63 of one item's head, columns col0 .. col0 + W - 1,
-// into a chunk buffer (src: the item's first element, tok: a token's stride)
-template <int W>
-__device__ __forceinline__ void stage(unsigned char* dst, const __nv_bfloat16* src, int row0,
-                                      size_t tok, int col0) {
-  constexpr int kSegs = W / 8;  // 16-byte pieces a row
-  static_assert(kTile * kSegs % kThreads == 0, "every thread copies as many pieces");
-#pragma unroll
-  for (int it = 0; it < kTile * kSegs / kThreads; ++it) {
-    const int i = threadIdx.x + it * kThreads, r = i / kSegs, c = i - r * kSegs;
-    cp_async16(dst + r * Chunk<W>::kRowB + 16 * c, src + (size_t)(row0 + r) * tok + col0 + 8 * c);
-  }
 }
 
 // The skip rule's view of 64 segment ids (lane's ids x, x2): bit i when
@@ -157,186 +149,6 @@ __device__ __forceinline__ uint32_t presence(int x, int x2) {
   const bool other = (unsigned)x >= 32u || (unsigned)x2 >= 32u;
   uint32_t bits = ((unsigned)x < 32u ? 1u << x : 0u) | ((unsigned)x2 < 32u ? 1u << x2 : 0u);
   return __any_sync(kAll, other) ? ~0u : __reduce_or_sync(kAll, bits);
-}
-
-// acc[j] (+)= X (the warp's 16 own rows) . Y^T over one W-column chunk:
-// Y's 64 rows are the accumulator's columns, eight n8 tiles
-template <int W>
-__device__ __forceinline__ void rows_by_rows(float (&acc)[8][4], const unsigned char* own,
-                                             const unsigned char* oth, int warp, int lane) {
-  constexpr int kRowB = Chunk<W>::kRowB;
-  const unsigned char* a_at =
-      own + (16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1)) * kRowB + 16 * (lane >> 4);
-  const unsigned char* b_at = oth + ((lane & 7) + 8 * (lane >> 4)) * kRowB + 16 * ((lane >> 3) & 1);
-#pragma unroll
-  for (int kk = 0; kk < W / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, a_at + 32 * kk);
-#pragma unroll
-    for (int jp = 0; jp < 4; ++jp) {
-      uint32_t b[4];
-      ldsm_x4(b, b_at + 16 * jp * kRowB + 32 * kk);
-      mma_bf16(acc[2 * jp], a, b[0], b[1]);
-      mma_bf16(acc[2 * jp + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// g += bf16(x) (the warp's 16 own rows x the walked block's 64 rows, in
-// accumulator layout) . Y (the block's 64 rows x W columns, staged)
-template <int W>
-__device__ __forceinline__ void grad_product(float (&g)[W / 8][4], const float (&x)[8][4],
-                                             const unsigned char* oth, int lane) {
-  constexpr int kRowB = Chunk<W>::kRowB;
-  const unsigned char* b_at = oth + ((lane & 7) + 8 * ((lane >> 3) & 1)) * kRowB + 16 * (lane >> 4);
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                           pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                           pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                           pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int dp = 0; dp < W / 16; ++dp) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, b_at + 16 * kk * kRowB + 32 * dp);
-      mma_bf16(g[2 * dp], a, b[0], b[1]);
-      mma_bf16(g[2 * dp + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// The gradient piece's rows (the warp's 16) to a (B, S, H, D) bf16 tensor
-template <int W>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&g)[W / 8][4],
-                                           size_t base, size_t tok, int r0, int col0, int lane) {
-  const int ra = r0 + (lane >> 2), rb = ra + 8, t = lane & 3;
-#pragma unroll
-  for (int dn = 0; dn < W / 8; ++dn) {
-    const int col = col0 + 8 * dn + 2 * t;
-    *reinterpret_cast<uint32_t*>(out + base + (size_t)ra * tok + col) = pack_bf16(g[dn][0], g[dn][1]);
-    *reinterpret_cast<uint32_t*>(out + base + (size_t)rb * tok + col) = pack_bf16(g[dn][2], g[dn][3]);
-  }
-}
-
-// DKV: the own tile is 64 keys (K, V), the walk over q blocks (q, dO), and
-// the outputs dK, dV; otherwise the own tile is 64 queries (q, dO), the
-// walk over key blocks (K, V), and the output dQ.
-template <int W, bool DKV>
-__global__ void __launch_bounds__(kThreads)
-bwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-           const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-           const int32_t* __restrict__ seg, const float* __restrict__ res_m,
-           const float* __restrict__ res_l, const float* __restrict__ di,
-           __nv_bfloat16* __restrict__ g0, __nv_bfloat16* __restrict__ g1, int S, int H, int D,
-           float scale) {
-  using Ch = Chunk<W>;
-  __shared__ __align__(16) unsigned char own[2][Ch::kBytes];  // K, V or q, dO
-  __shared__ __align__(16) unsigned char oth[2][Ch::kBytes];  // q, dO or K, V
-  __shared__ int oth_seg[kTile];
-  __shared__ float oth_m2[kTile], oth_rl[kTile], oth_di[kTile];  // DKV: the q block's rows
-
-  const int nc = D / W, T = S / kTile;
-  int x = blockIdx.x;
-  const int pc = x % nc;  // the block's piece of W columns
-  x /= nc;
-  const int tile = x % T;
-  const int item = x / T;
-  const int pair = item / H, hd = item - pair * H;
-  const size_t tok = (size_t)H * D;
-  const size_t base = (size_t)pair * S * tok + (size_t)hd * D;
-  const size_t rows = (size_t)item * S;  // the item's rows of m, l, di
-  const int32_t* srow = seg + (size_t)pair * S;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = tile * kTile;
-
-  const __nv_bfloat16* own0 = (DKV ? k : q) + base;
-  const __nv_bfloat16* own1 = (DKV ? v : dout) + base;
-  const __nv_bfloat16* oth0 = (DKV ? q : k) + base;
-  const __nv_bfloat16* oth1 = (DKV ? dout : v) + base;
-
-  // the warp's own rows: segment ids and (dQ) the residuals
-  int my_seg[2];
-  float my_m2[2] = {0.f, 0.f}, my_rl[2] = {1.f, 1.f}, my_di[2] = {0.f, 0.f};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = r0 + 16 * warp + g + 8 * h;
-    my_seg[h] = srow[r];
-    if constexpr (!DKV) {
-      my_m2[h] = res_m[rows + r] * kLog2e;
-      my_rl[h] = 1.f / res_l[rows + r];
-      my_di[h] = di[rows + r];
-    }
-  }
-  const uint32_t own_p = presence(srow[r0 + lane], srow[r0 + 32 + lane]);
-  const float c2 = scale * kLog2e;
-
-  float ga[W / 8][4] = {};  // dK or dQ: the warp's rows, the piece's columns
-  float gb[W / 8][4] = {};  // dV (DKV)
-  for (int ob = 0; ob < T; ++ob) {
-    const int b0 = ob * kTile;
-    if ((presence(srow[b0 + lane], srow[b0 + 32 + lane]) & own_p) == 0) continue;
-    float sc[8][4] = {}, dp[8][4] = {};
-    for (int cc = 0; cc < nc; ++cc) {
-      const int c = (pc + 1 + cc) % nc;  // the piece's own chunk last: it feeds the products
-      __syncthreads();  // every warp is done with the buffers
-      stage<W>(own[0], own0, r0, tok, c * W);
-      stage<W>(own[1], own1, r0, tok, c * W);
-      stage<W>(oth[0], oth0, b0, tok, c * W);
-      stage<W>(oth[1], oth1, b0, tok, c * W);
-      if (cc == 0) {
-        const int r = threadIdx.x;
-        if (r < kTile) {
-          oth_seg[r] = srow[b0 + r];
-          if constexpr (DKV) {
-            oth_m2[r] = res_m[rows + b0 + r] * kLog2e;
-            oth_rl[r] = 1.f / res_l[rows + b0 + r];
-            oth_di[r] = di[rows + b0 + r];
-          }
-        }
-      }
-      cp_async_wait_all();
-      __syncthreads();
-      rows_by_rows<W>(sc, own[0], oth[0], warp, lane);  // QK^T (its transpose for dK/dV)
-      rows_by_rows<W>(dp, own[1], oth[1], warp, lane);  // dP = dO V^T (transposed likewise)
-    }
-    // p and dS in place: element e of tile j is own row g + 8 (e >> 1),
-    // walked row 8 j + 2 t + (e & 1)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1, col = 8 * j + 2 * t + (e & 1);
-        const float m2 = DKV ? oth_m2[col] : my_m2[h];
-        const float rl = DKV ? oth_rl[col] : my_rl[h];
-        const float d = DKV ? oth_di[col] : my_di[h];
-        const float p = oth_seg[col] == my_seg[h] ? ex2(fmaf(sc[j][e], c2, -m2)) * rl : 0.f;
-        sc[j][e] = p;
-        dp[j][e] = (dp[j][e] - d) * p * scale;
-      }
-    }
-    if constexpr (DKV) {
-      grad_product<W>(gb, sc, oth[1], lane);  // dV += bf16(p)^T dO
-      grad_product<W>(ga, dp, oth[0], lane);  // dK += bf16(dS)^T q
-    } else {
-      grad_product<W>(ga, dp, oth[0], lane);  // dQ += bf16(dS) K
-    }
-  }
-  store_rows<W>(g0, ga, base, tok, r0 + 16 * warp, pc * W, lane);
-  if constexpr (DKV) store_rows<W>(g1, gb, base, tok, r0 + 16 * warp, pc * W, lane);
-}
-
-// Heads of 128 and wider: D / 64 blocks a (pair, head, row tile)
-template <bool DKV>
-int launch_pieces(const void* q, const void* k, const void* v, const void* seg, const void* m,
-                  const void* l, const void* dout, const void* di, void* g0, void* g1, int B,
-                  int S, int H, int D, float scale, cudaStream_t st) {
-  const long long blocks = (long long)B * H * (S / kTile) * (D / 64);
-  if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
-  bwd_kernel<64, DKV><<<(int)blocks, kThreads, 0, st>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const __nv_bfloat16*)dout, (const int32_t*)seg, (const float*)m, (const float*)l,
-      (const float*)di, (__nv_bfloat16*)g0, (__nv_bfloat16*)g1, S, H, D, scale);
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -861,6 +673,663 @@ int launch(const void* q, const void* k, const void* v, const void* seg, const v
 
 }  // namespace unit
 
+// ---------------------------------------------------------------------------
+// Heads of 128 and every wider multiple of 64 (wide::wide_kernel<W, DKV>):
+// persistent blocks, a unit of one own 64-row tile and one column group of
+// its gradients, a TMA ring of walked blocks over the whole head, S and dP
+// once a (tile, block) on wgmma split between two consumer warpgroups by
+// walked rows, bf16 p and dS through shared memory (see the file's header).
+
+namespace wide {
+
+constexpr int kRows = 64;                 // an own tile's rows: one wgmma M
+constexpr int kChunkB = kRows * 128;      // 64 rows x 64 head columns of bf16 (a swizzle row)
+constexpr int kConsumers = 2;             // consumer warpgroups
+// and a producer warpgroup (one warp of it walks): the budgets after
+// setmaxnreg (the producer's loop state spilled at 40 registers; a launch
+// of nine warps, one producer warp, caps every thread at 168: three warps
+// on one SM sub-partition)
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kProducerRegs = 56;
+constexpr int kPool = kThreads * (65536 / kThreads / 8 * 8);
+constexpr int kConsumerRegs = (kPool / 128 - kProducerRegs) / kConsumers / 8 * 8;
+static_assert(128 * (kProducerRegs + kConsumers * kConsumerRegs) <= kPool && kConsumerRegs == 224,
+              "two consumer warpgroups at 224 registers beside a producer warpgroup at 56");
+constexpr int kMaxStages = 4;
+// blocks of a cluster: own tiles of one item and column group walking the
+// same blocks, each block's chunks loaded from L2 once for all of them
+// (TMA multicast, each block a share of the chunks)
+constexpr int kCluster = 2;
+constexpr int kResidentMax = 512;         // widest head whose own tile stays resident
+constexpr int kWindow = 4;                // a window's chunks when it does not
+constexpr size_t kSmemLimit = 232448;
+
+// 64-column chunks of the gradients a consumer warpgroup holds: 2 for dK
+// and dV (128 f32 a thread), 4 for dQ
+template <bool DKV>
+__host__ __device__ constexpr int grad_chunks() {
+  return DKV ? 2 : 4;
+}
+
+// A stage's head: which of the cluster's own tiles share a segment id with
+// the block (bit r: the block of rank r's tile), and the walked rows'
+// values: (m log2e, 1 / l, di, id) for dK/dV (the walked rows are
+// queries), the id in .w for dQ (keys)
+template <int W>
+struct Head {
+  uint32_t need;
+  int pad[3];
+  float4 rows[W];
+};
+
+// bf16 p's or dS's element (r, k) (own row, walked row) in shared memory,
+// as the gradient products read it (wgmma's A, K-major, no swizzle): core
+// matrices of 8 rows x 16 bytes, 128 contiguous bytes each, k-adjacent
+// ones 128 bytes apart, groups of 8 rows 16 W bytes apart; a warp's
+// 32-bit stores of a row group fill 128 consecutive bytes
+template <int W>
+__device__ __forceinline__ int pds_at(int r, int k) {
+  return (r >> 3) * (16 * W) + (k >> 3) * 128 + (r & 7) * 16 + (k & 7) * 2;
+}
+
+// The launch's plan at heads of D (ops/flash_attention.py wide_bwd_plan
+// mirrors it)
+struct Plan {
+  int nc;          // the head's 64-column chunks
+  int ng;          // column groups: units of a tile
+  int gmax;        // chunks of a group (the last may hold fewer)
+  int resident;    // the own tile stays in shared memory for a unit's walk
+  int wc;          // chunks a stage holds: nc when resident, else a window of gmax
+  int nst;         // stages
+  int stage_b;     // bytes of a stage
+  int own_b;       // bytes of the resident own tile (0 when not resident)
+  int pds_b;       // bytes of bf16 p and dS (dK/dV) or dS (dQ)
+  size_t smem;     // dynamic shared memory
+};
+
+template <int W, bool DKV>
+constexpr size_t plan_bytes(const Plan& p, int stages) {
+  return (size_t)1024 + (size_t)stages * (p.stage_b + sizeof(Head<W>) + 2 * sizeof(uint64_t)) +
+         p.own_b + p.pds_b + 2 * sizeof(uint64_t);
+}
+
+template <int W, bool DKV>
+constexpr Plan plan(int D) {
+  Plan p{};
+  p.nc = D / 64;
+  p.resident = D <= kResidentMax;
+  p.gmax = p.resident ? 2 * grad_chunks<DKV>() : kWindow;
+  if (p.gmax > p.nc) p.gmax = p.nc;
+  p.ng = (p.nc + p.gmax - 1) / p.gmax;
+  p.wc = p.resident ? p.nc : p.gmax;
+  p.stage_b = 2 * p.wc * ((p.resident ? 0 : kChunkB) + W * 128);
+  p.own_b = p.resident ? 2 * p.nc * kChunkB : 0;
+  p.pds_b = (DKV ? 2 : 1) * kRows * 2 * W;
+  p.nst = kMaxStages;
+  while (p.nst > 1 && plan_bytes<W, DKV>(p, p.nst) > kSmemLimit) --p.nst;
+  p.smem = plan_bytes<W, DKV>(p, p.nst);
+  return p;
+}
+
+static_assert(sizeof(Head<64>) == 1040 && sizeof(Head<32>) == 528 && sizeof(Head<16>) == 272 &&
+                  plan<64, true>(128).nst == 4 && plan<64, true>(128).smem == 185488 &&
+                  plan<64, true>(256).nst == 2 && plan<64, true>(256).smem == 216144 &&
+                  plan<64, false>(256).smem == 207952 && plan<32, true>(384).ng == 2 &&
+                  plan<32, true>(384).smem == 206928 && plan<32, false>(384).ng == 1 &&
+                  plan<16, true>(512).nst == 2 && plan<16, true>(512).smem == 202320 &&
+                  plan<32, true>(640).resident == 0 && plan<32, true>(640).ng == 3 &&
+                  plan<32, true>(640).smem == 206928,
+              "heads of 128 in four stages, 256 in two; 384 (32-row blocks) and 512 (16) in "
+              "two, dK/dV in two column groups; 640 in windows of four chunks");
+
+// the walked block's rows at heads of D: 64 up to 256, 32 up to 384 and
+// above 512 (a window of the head a stage), 16 at 448 and 512
+inline int walk_rows(int D) {
+  return D <= 256 ? 64 : D <= 384 || D > kResidentMax ? 32 : 16;
+}
+
+// the cluster's k-th unit: its item, its kCluster own tiles (the block's
+// own tile is the first plus its rank) and column group; unit w of the
+// launch goes to cluster w % clusters, so an item's units run together
+__device__ __forceinline__ void unit_of(int k, int T, int ng, int cid, int ncl, int& item,
+                                        int& tile0, int& grp) {
+  const int w = cid + k * ncl, tg = T / kCluster;
+  item = w / (tg * ng);
+  const int r = w - item * (tg * ng);
+  tile0 = (r / ng) * kCluster;
+  grp = r - (r / ng) * ng;
+}
+
+// presence (the forward's rule) over a lane's rows that exist
+__device__ __forceinline__ uint32_t presence_rows(int x, bool has_x, int x2, bool has_x2) {
+  constexpr uint32_t kAll = 0xffffffffu;
+  const bool other = (has_x && (unsigned)x >= 32u) || (has_x2 && (unsigned)x2 >= 32u);
+  const uint32_t bits = (has_x && (unsigned)x < 32u ? 1u << x : 0u) |
+                        (has_x2 && (unsigned)x2 < 32u ? 1u << x2 : 0u);
+  return __any_sync(kAll, other) ? ~0u : __reduce_or_sync(kAll, bits);
+}
+
+// The producer warp's walk: for each unit and each W-row block of the
+// item's other side, its head (bit r: the cluster's tile r shares an id
+// with it) and, where any of the cluster's tiles does, its chunks by TMA:
+// resident, one stage of the block's two tensors over the whole head;
+// otherwise a stage a window of the head (this block's own tile's two
+// tensors, then the walked block's), the unit's own group's window last.
+// The walked chunks are multicast: each block of the cluster loads every
+// kCluster-th (tensor, chunk) for all of them, and each block's full
+// barrier expects the whole stage.  The warp reads a block's rows before
+// it waits for the block's stage.
+template <int W, bool DKV>
+__device__ __forceinline__ void produce(const Plan& pl, const CUtensorMap* o0map,
+                                        const CUtensorMap* o1map, const CUtensorMap* w0map,
+                                        const CUtensorMap* w1map, const int32_t* __restrict__ seg,
+                                        const float* __restrict__ res_m,
+                                        const float* __restrict__ res_l,
+                                        const float* __restrict__ di, unsigned char* stages,
+                                        Head<W>* head, uint64_t* full, uint64_t* empty,
+                                        int n_units, int S, int H, int cid, int ncl, int rank,
+                                        int lane) {
+  const int T = S / kRows, nb = S / W, nw = pl.resident ? 1 : pl.ng, per_unit = nb * nw;
+  const int N = n_units * per_unit, D = 64 * pl.nc;
+  const uint16_t everyone = (1u << kCluster) - 1;
+  int k_tp = -1;  // the unit whose tiles' presence tp holds
+  uint32_t tp[kCluster] = {};
+  for (int n = 0; n < N; ++n) {
+    const int k = n / per_unit, r = n - k * per_unit, ob = r / nw, i = r - ob * nw;
+    int item, tile0, grp;
+    unit_of(k, T, pl.ng, cid, ncl, item, tile0, grp);
+    const int pair = item / H, hd = item - pair * H;
+    const int32_t* srow = seg + (size_t)pair * S;
+    const size_t rows = (size_t)item * S;  // the item's rows of m, l, di
+    const int r0 = ob * W + lane, r1 = r0 + 32;
+    const bool h0 = lane < W, h1 = lane + 32 < W;
+    const int x0 = h0 ? srow[r0] : 0, x1 = h1 ? srow[r1] : 0;
+    float4 v0 = make_float4(0.f, 0.f, 0.f, __int_as_float(x0));
+    float4 v1 = make_float4(0.f, 0.f, 0.f, __int_as_float(x1));
+    if constexpr (DKV) {
+      if (h0) v0 = make_float4(res_m[rows + r0] * kLog2e, 1.f / res_l[rows + r0], di[rows + r0],
+                               __int_as_float(x0));
+      if (h1) v1 = make_float4(res_m[rows + r1] * kLog2e, 1.f / res_l[rows + r1], di[rows + r1],
+                               __int_as_float(x1));
+    }
+    if (k != k_tp) {
+#pragma unroll
+      for (int c = 0; c < kCluster; ++c) {
+        const int32_t* t = srow + (tile0 + c) * kRows;
+        tp[c] = presence_rows(t[lane], true, t[32 + lane], true);
+      }
+      k_tp = k;
+    }
+    const uint32_t bp = presence_rows(x0, h0, x1, h1);
+    uint32_t need = 0;
+#pragma unroll
+    for (int c = 0; c < kCluster; ++c)
+      if (tp[c] & bp) need |= 1u << c;
+    const int s = n % pl.nst;
+    mbar_wait(&empty[s], ((n / pl.nst) & 1) ^ 1);  // the first round passes
+    Head<W>& h = head[s];
+    if (h0) h.rows[lane] = v0;
+    if (h1) h.rows[lane + 32] = v1;
+    if (lane == 0) h.need = need;
+    if (lane == 0 && need) {
+      unsigned char* st = stages + (size_t)s * pl.stage_b;
+      // window win's chunks c0 .. c0 + cw - 1 (resident: the whole head)
+      const int win = pl.resident ? 0 : (grp + 1 + i) % pl.ng, c0 = win * pl.gmax;
+      const int cw = pl.resident ? pl.nc : min(pl.gmax, pl.nc - c0);
+      unsigned char* wst = pl.resident ? st : st + 2 * pl.wc * kChunkB;
+      mbar_arrive_expect_tx(&full[s], 2 * cw * ((pl.resident ? 0 : kChunkB) + W * 128));
+      if (!pl.resident) {  // this block's own tile's chunks of the window
+        for (int c = 0; c < cw; ++c) {
+          const int col = hd * D + 64 * (c0 + c), row = (tile0 + rank) * kRows;
+          tma_load_3d(st + c * kChunkB, o0map, &full[s], col, row, pair);
+          tma_load_3d(st + (pl.wc + c) * kChunkB, o1map, &full[s], col, row, pair);
+        }
+      }
+      for (int j = rank; j < 2 * cw; j += kCluster) {  // the walked (tensor, chunk)s, shared
+        const int c = j < cw ? j : j - cw;
+        tma_load_3d_multicast(wst + (j < cw ? c : pl.wc + c) * W * 128, j < cw ? w0map : w1map,
+                              &full[s], hd * D + 64 * (c0 + c), ob * W, pair, everyone);
+      }
+    } else {
+      mbar_arrive(&full[s]);
+    }
+  }
+}
+
+// Unit k's own tile of K and V (dK/dV) or q and dO (dQ) over the whole
+// head, by TMA (resident plans; one thread, once both warpgroups are done
+// with the last unit's)
+__device__ __forceinline__ void load_own(const Plan& pl, const CUtensorMap* o0map,
+                                         const CUtensorMap* o1map, unsigned char* own,
+                                         uint64_t* own_full, int k, int S, int H, int cid,
+                                         int ncl, int rank) {
+  int item, tile, grp;
+  unit_of(k, S / kRows, pl.ng, cid, ncl, item, tile, grp);
+  tile += rank;
+  const int pair = item / H, hd = item - pair * H, D = 64 * pl.nc;
+  mbar_arrive_expect_tx(own_full, pl.own_b);
+  for (int c = 0; c < pl.nc; ++c) {
+    tma_load_3d(own + c * kChunkB, o0map, own_full, hd * D + 64 * c, tile * kRows, pair);
+    tma_load_3d(own + (pl.nc + c) * kChunkB, o1map, own_full, hd * D + 64 * c, tile * kRows, pair);
+  }
+}
+
+// A consumer thread's two own rows (16 warp + g and + 8 of the tile):
+// their segment ids and, for dQ, m log2e, 1 / l and di
+struct OwnRows {
+  int seg[2];
+  float m2[2], rl[2], di[2];
+};
+
+// x (S^T for dK/dV, S for dQ) and y (dP^T, dP) over the warpgroup's half
+// of the walked rows, summed over chunks c of a window: o0, o1 the own
+// tile's two tensors' chunks (8 KB each), w0, w1 the block's (W rows a
+// chunk), the warpgroup's rows from row wg W / 2; scale_d 0 on the first
+template <int W>
+__device__ __forceinline__ void scores(float (&x)[W / 4], float (&y)[W / 4],
+                                       const unsigned char* o0, const unsigned char* o1,
+                                       const unsigned char* w0, const unsigned char* w1, int cw,
+                                       int wg, bool first) {
+  const int half = wg * (W / 2) * 128;
+  for (int c = 0; c < cw; ++c) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(x, wgmma_desc_sw128(o0 + c * kChunkB + 32 * kk),
+               wgmma_desc_sw128(w0 + c * W * 128 + half + 32 * kk),
+               first && c == 0 && kk == 0 ? 0u : 1u);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(y, wgmma_desc_sw128(o1 + c * kChunkB + 32 * kk),
+               wgmma_desc_sw128(w1 + c * W * 128 + half + 32 * kk),
+               first && c == 0 && kk == 0 ? 0u : 1u);
+  }
+}
+
+// The consumer warpgroups' units (see the file's header).
+template <int W, bool DKV>
+__device__ __forceinline__ void consume(const Plan& pl, const CUtensorMap* own0,
+                                        const CUtensorMap* own1, const int32_t* __restrict__ seg,
+                                        const float* __restrict__ res_m,
+                                        const float* __restrict__ res_l,
+                                        const float* __restrict__ di,
+                                        __nv_bfloat16* __restrict__ g0,
+                                        __nv_bfloat16* __restrict__ g1, unsigned char* stages,
+                                        unsigned char* own, unsigned char* pds, Head<W>* head,
+                                        uint64_t* full, uint64_t* empty, uint64_t* own_full,
+                                        int n_units, int S, int H, float scale, int cid, int ncl,
+                                        int rank, int warp, int lane) {
+  constexpr int GC = grad_chunks<DKV>();
+  const int T = S / kRows, nb = S / W;
+  if (threadIdx.x == 0 && pl.resident && n_units > 0)
+    load_own(pl, own0, own1, own, own_full, 0, S, H, cid, ncl, rank);
+
+  // Consumer warpgroup wg: S and dP of the walked rows wg W / 2 .. (wg +
+  // 1) W / 2 - 1 against the whole own tile; of the unit's column group, the
+  // chunks wg, wg + 2, ... of the gradients
+  const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t = lane & 3;
+  const size_t tok = (size_t)H * 64 * pl.nc;  // stride of one token
+  const float c2 = scale * kLog2e;
+  // this warp is done with a stage: tell every block's producer
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r) mbar_arrive_remote_if(bar, r, lane == 0);
+  };
+  unsigned char* p_s = pds;                                   // bf16 p (dK/dV)
+  unsigned char* ds_s = pds + (DKV ? kRows * 2 * W : 0);      // bf16 dS
+  int n = 0;  // stages passed
+  for (int k = 0; k < n_units; ++k) {
+    int item, tile, grp;
+    unit_of(k, T, pl.ng, cid, ncl, item, tile, grp);
+    tile += rank;
+    const int pair = item / H, hd = item - pair * H;
+    const int g0c = grp * pl.gmax, gn = min(pl.gmax, pl.nc - g0c);
+    const int mine = (gn - wg + 1) / 2;  // the group's chunks g0c + wg + 2 j, j < mine
+    OwnRows ownr = {};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = tile * kRows + 16 * wl + g + 8 * hh;
+      ownr.seg[hh] = seg[(size_t)pair * S + row];
+      if constexpr (!DKV) {
+        ownr.m2[hh] = res_m[(size_t)item * S + row] * kLog2e;
+        ownr.rl[hh] = 1.f / res_l[(size_t)item * S + row];
+        ownr.di[hh] = di[(size_t)item * S + row];
+      }
+    }
+    float ga[GC][32], gb[DKV ? GC : 1][32];
+#pragma unroll
+    for (int j = 0; j < GC; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) ga[j][i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < (DKV ? GC : 1); ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) gb[j][i] = 0.f;
+    // p = ex2(s c2 - m log2e) (1 / l), 0 where the ids differ, into x; dS
+    // = (dP - di) p sm_scale into y (x[4j + 2h + e]: own row 16 wl + g +
+    // 8h, walked row wg W / 2 + 8j + 2t + e); then, once both warpgroups
+    // are past their S and dP (so past the last block's gradient products,
+    // which read p and dS), this half of bf16 p and dS into shared memory
+    auto share_p_ds = [&](float (&x)[W / 4], float (&y)[W / 4], const Head<W>& h) {
+#pragma unroll
+      for (int j = 0; j < W / 16; ++j) {
+        const int col = wg * (W / 2) + 8 * j + 2 * t;
+        const float4 ra = h.rows[col], rb = h.rows[col + 1];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float& xa = x[4 * j + 2 * hh];
+          float& xb = x[4 * j + 2 * hh + 1];
+          float& ya = y[4 * j + 2 * hh];
+          float& yb = y[4 * j + 2 * hh + 1];
+          if constexpr (DKV) {  // the walked rows are the columns
+            xa = __float_as_int(ra.w) == ownr.seg[hh] ? ex2(fmaf(xa, c2, -ra.x)) * ra.y : 0.f;
+            xb = __float_as_int(rb.w) == ownr.seg[hh] ? ex2(fmaf(xb, c2, -rb.x)) * rb.y : 0.f;
+            ya = (ya - ra.z) * xa * scale;
+            yb = (yb - rb.z) * xb * scale;
+          } else {  // the own rows are the rows
+            const float nm = -ownr.m2[hh];
+            xa = __float_as_int(ra.w) == ownr.seg[hh] ? ex2(fmaf(xa, c2, nm)) * ownr.rl[hh] : 0.f;
+            xb = __float_as_int(rb.w) == ownr.seg[hh] ? ex2(fmaf(xb, c2, nm)) * ownr.rl[hh] : 0.f;
+            ya = (ya - ownr.di[hh]) * xa * scale;
+            yb = (yb - ownr.di[hh]) * xb * scale;
+          }
+        }
+      }
+      named_barrier(1, 128 * kConsumers);
+#pragma unroll
+      for (int j = 0; j < W / 16; ++j) {
+        const int col = wg * (W / 2) + 8 * j + 2 * t;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int at = pds_at<W>(16 * wl + g + 8 * hh, col);
+          if constexpr (DKV)
+            *reinterpret_cast<uint32_t*>(p_s + at) = pack_bf16(x[4 * j + 2 * hh], x[4 * j + 2 * hh + 1]);
+          *reinterpret_cast<uint32_t*>(ds_s + at) = pack_bf16(y[4 * j + 2 * hh], y[4 * j + 2 * hh + 1]);
+        }
+      }
+      fence_proxy_async();  // the products read them in the async proxy
+      named_barrier(2, 128 * kConsumers);  // both halves are in
+    };
+    // the gradient products of the warpgroup's chunks, the walked chunks
+    // (from w0, chunk c0 first) as MN-major B: dV += p^T dO and dK += dS^T
+    // q, or dQ += dS K; issued, not committed.  A 16-deep step of p or dS
+    // is two core matrices along K (128 bytes apart), its 8-row groups 16
+    // W bytes apart.
+    auto grads = [&](const unsigned char* w0, int c0) {
+#pragma unroll
+      for (int j = 0; j < GC; ++j) {
+        if (unit::warp_uniform(j < mine)) {
+          const int cg = g0c + wg + 2 * j - c0;
+          const unsigned char* q0 = w0 + (size_t)cg * W * 128;
+          const unsigned char* q1 = w0 + (size_t)(pl.wc + cg) * W * 128;
+#pragma unroll
+          for (int kk = 0; kk < W / 16; ++kk) {
+            if constexpr (DKV)
+              wgmma_ss_mn(gb[j], wgmma_desc_core(p_s + kk * 256, 128, 16 * W),
+                          wgmma_desc_mn<128>(q1 + kk * 16 * 128, W * 128), 1u);
+            wgmma_ss_mn(ga[j], wgmma_desc_core(ds_s + kk * 256, 128, 16 * W),
+                        wgmma_desc_mn<128>(q0 + kk * 16 * 128, W * 128), 1u);
+          }
+        }
+      }
+    };
+    auto pin_grads = [&]() {
+#pragma unroll
+      for (int j = 0; j < GC; ++j) {
+        wgmma_pin(ga[j]);
+        if constexpr (DKV) wgmma_pin(gb[j]);
+      }
+    };
+    float x[W / 4], y[W / 4];
+    if (pl.resident) {
+      // each block's S and dP, p and dS and gradient products in turn
+      mbar_wait(own_full, k & 1);
+      const unsigned char* o1 = own + (size_t)pl.nc * kChunkB;
+      for (int ob = 0; ob < nb; ++ob, ++n) {
+        const int s = n % pl.nst;
+        mbar_wait(&full[s], (n / pl.nst) & 1);
+        if (unit::warp_uniform((head[s].need >> rank) & 1u)) {
+          const unsigned char* w0 = stages + (size_t)s * pl.stage_b;
+          wgmma_fence();
+          scores<W>(x, y, own, o1, w0, w0 + (size_t)pl.nc * W * 128, pl.nc, wg, true);
+          wgmma_commit();
+          wgmma_wait<0>();
+          wgmma_pin(x);
+          wgmma_pin(y);
+          share_p_ds(x, y, head[s]);
+          wgmma_fence();
+          grads(w0, 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          pin_grads();
+        }
+        release(&empty[s]);
+      }
+    } else {
+      // windows of the head in turn, the unit's own group's last: each
+      // earlier window's stage released once its products are done
+      for (int ob = 0; ob < nb; ++ob) {
+        bool need = false;
+        int s = 0;
+        const unsigned char* wlast = nullptr;  // the last window's walked chunks
+        for (int i = 0; i < pl.ng; ++i, ++n) {
+          s = n % pl.nst;
+          mbar_wait(&full[s], (n / pl.nst) & 1);
+          need = unit::warp_uniform((head[s].need >> rank) & 1u);
+          unsigned char* st = stages + (size_t)s * pl.stage_b;
+          const int win = (grp + 1 + i) % pl.ng;
+          const int cw = min(pl.gmax, pl.nc - win * pl.gmax);
+          wlast = st + 2 * pl.wc * kChunkB;
+          if (need) {
+            wgmma_fence();
+            scores<W>(x, y, st, st + (size_t)pl.wc * kChunkB, wlast,
+                      wlast + (size_t)pl.wc * W * 128, cw, wg, i == 0);
+            wgmma_commit();
+          }
+          if (i + 1 < pl.ng) {
+            if (need) {
+              wgmma_wait<0>();
+              wgmma_pin(x);
+              wgmma_pin(y);
+            }
+            release(&empty[s]);
+          }
+        }
+        if (need) {
+          wgmma_wait<0>();
+          wgmma_pin(x);
+          wgmma_pin(y);
+          share_p_ds(x, y, head[s]);
+          wgmma_fence();
+          grads(wlast, g0c);
+          wgmma_commit();
+          wgmma_wait<0>();
+          pin_grads();
+        }
+        release(&empty[s]);
+      }
+    }
+    if (pl.resident && k + 1 < n_units) {  // the next unit's own tile, once both are done
+      named_barrier(3, 128 * kConsumers);
+      if (threadIdx.x == 0) load_own(pl, own0, own1, own, own_full, k + 1, S, H, cid, ncl, rank);
+    }
+    // the gradients' rows 16 wl + g and + 8 of the tile, the warpgroup's chunks
+    const size_t base = (size_t)pair * S * tok + (size_t)hd * 64 * pl.nc;
+    const int ra = tile * kRows + 16 * wl + g;
+#pragma unroll
+    for (int j = 0; j < GC; ++j) {
+      if (j < mine) {
+        const int col0 = 64 * (g0c + wg + 2 * j) + 2 * t;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const size_t at = base + (size_t)ra * tok + col0 + 8 * jj;
+          *reinterpret_cast<uint32_t*>(g0 + at) = pack_bf16(ga[j][4 * jj], ga[j][4 * jj + 1]);
+          *reinterpret_cast<uint32_t*>(g0 + at + 8 * tok) =
+              pack_bf16(ga[j][4 * jj + 2], ga[j][4 * jj + 3]);
+          if constexpr (DKV) {
+            *reinterpret_cast<uint32_t*>(g1 + at) = pack_bf16(gb[j][4 * jj], gb[j][4 * jj + 1]);
+            *reinterpret_cast<uint32_t*>(g1 + at + 8 * tok) =
+                pack_bf16(gb[j][4 * jj + 2], gb[j][4 * jj + 3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+
+// DKV: own tiles of 64 keys (K, V), the walk over q blocks (q, dO), the
+// outputs dK (g0) and dV (g1); otherwise own tiles of 64 queries (q, dO),
+// the walk over key blocks (K, V), the output dQ (g0).  own0/own1: 3-D
+// tensor maps of (B, S, H D) with boxes of 64 columns x 64 rows; walk0/
+// walk1: boxes of 64 columns x W rows; all with 128-byte swizzle.
+template <int W, bool DKV>
+__global__ void __launch_bounds__(kThreads, 1)
+wide_kernel(const __grid_constant__ CUtensorMap own0, const __grid_constant__ CUtensorMap own1,
+            const __grid_constant__ CUtensorMap walk0, const __grid_constant__ CUtensorMap walk1,
+            const int32_t* __restrict__ seg, const float* __restrict__ res_m,
+            const float* __restrict__ res_l, const float* __restrict__ di,
+            __nv_bfloat16* __restrict__ g0, __nv_bfloat16* __restrict__ g1, const Plan pl,
+            int P, int S, int H, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* stages = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* own = stages + (size_t)pl.nst * pl.stage_b;
+  unsigned char* pds = own + pl.own_b;  // p (dK/dV), then dS: 64 rows of kRowB bytes each
+  Head<W>* head = reinterpret_cast<Head<W>*>(pds + pl.pds_b);
+  uint64_t* full = reinterpret_cast<uint64_t*>(head + pl.nst);
+  uint64_t* empty = full + pl.nst;
+  uint64_t* own_full = empty + pl.nst;
+
+  const int rank = (int)cluster_rank(), cid = (int)cluster_id(), ncl = (int)cluster_count();
+  const int n_units = (P * H * (S / kRows / kCluster) * pl.ng - cid + ncl - 1) / ncl;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < pl.nst; ++s) {
+      mbar_init(&full[s], 32);  // every lane of the stage's producer warp, after its writes
+      mbar_init(&empty[s], 4 * kConsumers * kCluster);  // every consumer warp of the cluster
+    }
+    mbar_init(own_full, 1);
+    mbar_init_fence();
+  }
+  cluster_sync();  // every block's barriers are set before any other signals them
+
+  if (warp >= 4 * kConsumers) {  // the producer warpgroup: its first warp walks
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 4 * kConsumers)
+      produce<W, DKV>(pl, &own0, &own1, &walk0, &walk1, seg, res_m, res_l, di, stages, head,
+                      full, empty, n_units, S, H, cid, ncl, rank, lane);
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    consume<W, DKV>(pl, &own0, &own1, seg, res_m, res_l, di, g0, g1, stages, own, pds, head, full,
+                    empty, own_full, n_units, S, H, scale, cid, ncl, rank, warp, lane);
+  }
+  cluster_sync();  // no block leaves while another may still signal its barriers
+}
+
+// (B, S, H * D) bf16 as a 3-D tensor map with boxes of 64 values x `rows`
+// tokens of one pair, 128-byte swizzle; false if cuTensorMapEncodeTiled
+// refuses it
+bool chunk_map(CUtensorMap* map, const void* ptr, int P, int S, int H, int D, int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)H * D, (cuuint64_t)S, (cuuint64_t)P};
+  const cuuint64_t strides[2] = {(cuuint64_t)H * D * 2, (cuuint64_t)S * H * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t one[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// The clusters of an instantiation that the device holds at once, found
+// once per device with the kernel's shared memory raised to the limit (0
+// in `fit`: not yet); host threads may launch at once, and each may take
+// that first step (flash_attention.cu's slab::clusters_held)
+template <int W, bool DKV>
+cudaError_t clusters_held(int* clusters) {
+  static std::atomic<int> fit[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int c = fit[dev & 63].load(std::memory_order_acquire);
+  if (c == 0) {
+    err = cudaFuncSetAttribute(wide_kernel<W, DKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kSmemLimit);
+    if (err != cudaSuccess) return err;
+    cudaLaunchConfig_t config = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kCluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    config.gridDim = dim3(kCluster);
+    config.blockDim = dim3(kThreads);
+    config.dynamicSmemBytes = kSmemLimit;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(&c, wide_kernel<W, DKV>, &config);
+    if (err != cudaSuccess) return err;
+    if (c < 1) return cudaErrorInvalidConfiguration;
+    fit[dev & 63].store(c, std::memory_order_release);
+  }
+  *clusters = c;
+  return cudaSuccess;
+}
+
+template <int W, bool DKV>
+int launch_w(const void* q, const void* k, const void* v, const void* seg, const void* m,
+             const void* l, const void* dout, const void* di, void* g0, void* g1, int B, int S,
+             int H, int D, float scale, cudaStream_t st) {
+  const Plan pl = plan<W, DKV>(D);
+  if (pl.smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  CUtensorMap own0, own1, walk0, walk1;
+  if (!chunk_map(&own0, DKV ? k : q, B, S, H, D, kRows) ||
+      !chunk_map(&own1, DKV ? v : dout, B, S, H, D, kRows) ||
+      !chunk_map(&walk0, DKV ? q : k, B, S, H, D, W) ||
+      !chunk_map(&walk1, DKV ? dout : v, B, S, H, D, W))
+    return (int)cudaErrorInvalidValue;
+  const long long units = (long long)B * H * (S / kRows / kCluster) * pl.ng;
+  if (units * kCluster > INT32_MAX || (long long)B * S > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  int clusters = 0;
+  cudaError_t err = clusters_held<W, DKV>(&clusters);
+  if (err != cudaSuccess) return (int)err;
+  const int ncl = units < clusters ? (int)units : clusters;
+  cudaLaunchConfig_t config = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.gridDim = dim3(ncl * kCluster);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = pl.smem;
+  config.stream = st;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, wide_kernel<W, DKV>, own0, own1, walk0, walk1,
+                           (const int32_t*)seg, (const float*)m, (const float*)l,
+                           (const float*)di, (__nv_bfloat16*)g0, (__nv_bfloat16*)g1, pl, B, S, H,
+                           scale);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <bool DKV>
+int launch(const void* q, const void* k, const void* v, const void* seg, const void* m,
+           const void* l, const void* dout, const void* di, void* g0, void* g1, int B, int S,
+           int H, int D, float scale, cudaStream_t st) {
+  switch (walk_rows(D)) {
+    case 64: return launch_w<64, DKV>(q, k, v, seg, m, l, dout, di, g0, g1, B, S, H, D, scale, st);
+    case 32: return launch_w<32, DKV>(q, k, v, seg, m, l, dout, di, g0, g1, B, S, H, D, scale, st);
+    default: return launch_w<16, DKV>(q, k, v, seg, m, l, dout, di, g0, g1, B, S, H, D, scale, st);
+  }
+}
+
+}  // namespace wide
+
 template <bool DKV>
 int launch(const void* q, const void* k, const void* v, const void* seg, const void* m,
            const void* l, const void* dout, const void* di, void* g0, void* g1, int B, int S,
@@ -873,7 +1342,7 @@ int launch(const void* q, const void* k, const void* v, const void* seg, const v
   const cudaStream_t st = (cudaStream_t)stream;
   if (D == 32) return unit::launch<32, DKV>(q, k, v, seg, m, l, dout, di, g0, g1, B, S, H, scale, st);
   if (D == 64) return unit::launch<64, DKV>(q, k, v, seg, m, l, dout, di, g0, g1, B, S, H, scale, st);
-  return launch_pieces<DKV>(q, k, v, seg, m, l, dout, di, g0, g1, B, S, H, D, scale, st);
+  return wide::launch<DKV>(q, k, v, seg, m, l, dout, di, g0, g1, B, S, H, D, scale, st);
 }
 
 }  // namespace

@@ -6,8 +6,9 @@
 // 64-byte-swizzled tile in shared memory, K-major or (A from registers)
 // MN-major; on the host,
 // cuTensorMapEncodeTiled.  Used by fused_bert.cu's QKV, o-proj and FFN
-// kernels, pair_attention.cu and the masked top-k kernels (topk_common.cuh);
-// meant for any kernel of the port that streams tiles with TMA.
+// kernels, pair_attention.cu, flash_attention.cu, flash_attention_bwd.cu
+// and the masked top-k kernels (topk_common.cuh); meant for any kernel of
+// the port that streams tiles with TMA.
 
 #pragma once
 
@@ -290,6 +291,16 @@ __device__ __forceinline__ uint64_t wgmma_desc_sw64(const void* p) {
          | (2ull << 62);       // 64-byte swizzle
 }
 
+// Descriptor of a K-major bf16 operand in shared memory without swizzle:
+// core matrices of 8 rows x 16 bytes (8 values along K), 128 contiguous
+// bytes each; `lbo` bytes between core matrices adjacent along K, `sbo`
+// between those adjacent along M or N.  `p` is the first core matrix of
+// the 16-deep step.
+__device__ __forceinline__ uint64_t wgmma_desc_core(const void* p, uint32_t lbo, uint32_t sbo) {
+  const uint64_t a = smem_addr(p);
+  return ((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+
 // order earlier register writes (A fragments, accumulators) before the
 // next wgmma reads them
 __device__ __forceinline__ void wgmma_fence() {
@@ -327,8 +338,29 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// The same for N 32, 80, 96, 192, 224 and 256 (d holds N / 2 values a
-// thread).
+// The same for N 8 and 16 (d holds N / 2 values a thread), then 32, 80,
+// 96, 192, 224 and 256.
+__device__ __forceinline__ void wgmma_ss(float (&d)[4], uint64_t a, uint64_t b, uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t a, uint64_t b, uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, uint32_t scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
@@ -612,6 +644,24 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[64], const uint32_t (&a)[
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64 f32) += A (64 x 16 bf16, K-major in shared memory) * B (16 x
+// 64, MN-major in shared memory: wgmma_desc_mn), both by descriptor.
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t a, uint64_t b,
+                                            uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 // Descriptor of an MN-major bf16 B operand in shared memory as TMA writes

@@ -320,6 +320,7 @@ class BwdPlan(NamedTuple):
 # the unit kernel's (head width, dK/dV): its own tiles a unit, and a walked block's rows
 BWD_UNITS = {(32, True): (4, 32), (32, False): (4, 64), (64, True): (2, 64), (64, False): (2, 64)}
 BWD_ROWS = 64                     # rows of an own tile
+BWD_WIDE_MIN = 128                # the wide kernel's heads: 128 and every wider multiple of 64
 
 
 def bwd_head_bytes(walk: int) -> int:
@@ -363,14 +364,112 @@ def bwd_plan(b: int, s: int, h: int, d: int, dkv: bool = True) -> BwdPlan:
                    units * (s // walk) * walk * (4 * d + row_values) + b * h * t * 2 * tile)
 
 
+class WideBwdPlan(NamedTuple):
+    """A launch of kernel 8 or 9 at heads of 128 and wider, as
+    ``csrc/flash_attention_bwd.cu`` (namespace ``wide``) computes it."""
+
+    walk: int           # rows of a walked block (S's and dP's N, split between the warpgroups)
+    resident: bool      # the own tile's two tiles stay in shared memory for a unit's walk
+    groups: tuple       # 64-column chunks of each column group of the gradients, in order
+    group_chunks: int   # chunks of the largest group (its warpgroups' share alternates)
+    window_chunks: int  # chunks of the head a stage holds: all of them when resident
+    threads: int        # two consumer warpgroups and a producer warpgroup
+    producer_regs: int  # registers a thread after setmaxnreg
+    consumer_regs: int
+    regs_fit: bool      # the budgets fit the launch's register pool
+    stages: int         # ring stages of a walked block (or of a window of one)
+    smem: int           # dynamic shared memory, bytes
+    cluster: int        # blocks of a cluster: own tiles sharing each walked block (multicast)
+    units: int          # (item, cluster's own tiles, column group) units of the launch
+    staged_bytes: int   # L2 -> shared bytes with no (tile, block) skipped (multicast once)
+
+
+WIDE_CONSUMERS = 2          # consumer warpgroups: each S and dP over half a walked block's rows
+WIDE_GRAD_CHUNKS = {True: 2, False: 4}  # 64-column gradient chunks a warpgroup holds (dK/dV, dQ)
+WIDE_RESIDENT_MAX = 512     # above, the own tile is staged with each window of the head
+WIDE_WINDOW_CHUNKS = 4      # a window's chunks (and a column group's) when not resident
+WIDE_MAX_STAGES = 4
+WIDE_CLUSTER = 2            # blocks of a cluster, each an own tile, sharing the walked blocks
+
+
+def wide_walk(d: int) -> int:
+    """The wide kernel's walked block at heads of ``d`` (``walk_rows``): 64
+    rows up to 256, 32 up to 384 and above 512 (a stage a window of the
+    head), 16 at 448 and 512 (a stage the block over the whole head)."""
+    return 64 if d <= 256 else 32 if d <= 384 or d > WIDE_RESIDENT_MAX else 16
+
+
+def wide_groups(d: int, dkv: bool) -> tuple:
+    """The head's d / 64 chunks as the wide kernel's column groups, in
+    order: runs of two warpgroups' chunks (2 x ``WIDE_GRAD_CHUNKS``), or of
+    a window's when the own tile is not resident, the last one shorter."""
+    nc = d // 64
+    most = (2 * WIDE_GRAD_CHUNKS[dkv] if d <= WIDE_RESIDENT_MAX else WIDE_WINDOW_CHUNKS)
+    return tuple(min(most, nc - lo) for lo in range(0, nc, most))
+
+
+def wide_bwd_plan(b: int, s: int, h: int, d: int, dkv: bool = True) -> WideBwdPlan:
+    """Mirror of ``wide``'s constants and ``plan`` at (B, S, H, d), d 128 or
+    any wider multiple of 64: two consumer warpgroups at 224 registers and
+    the producer warpgroup at 56 in the pool of 384 threads; clusters of
+    two blocks taking units of two own 64-row tiles (one a block) and one
+    column group, each walked block multicast to both; up to 512 the own
+    tile resident and a stage one walked block over the whole head, above
+    it a stage a window of four chunks of the own tile and of the walked
+    block; bf16 p and dS a (tile, block) in shared memory, in wgmma's core
+    matrices; as many stages as fit, up to four.  ``staged_bytes``:
+    resident, each own tile once a unit, each walked block's two tiles once
+    a unit (multicast) and its rows' values once a block of the cluster;
+    otherwise the own tiles and the walked block once a unit and block."""
+    if d < BWD_WIDE_MIN or d % 64:
+        raise ValueError(f"the wide kernel takes heads of {BWD_WIDE_MIN} and wider multiples "
+                         f"of 64; got {d}")
+    if s < BLOCK or s % BLOCK:
+        raise ValueError(f"the backward takes S a multiple of {BLOCK}; got S {s}")
+    threads = 128 * (WIDE_CONSUMERS + 1)
+    pool = threads * (65536 // threads // 8 * 8)
+    producer = 56
+    consumer = (pool // 128 - producer) // WIDE_CONSUMERS // 8 * 8
+    walk, nc, chunk = wide_walk(d), d // 64, BWD_ROWS * 64 * 2
+    resident = d <= WIDE_RESIDENT_MAX
+    groups = wide_groups(d, dkv)
+    window = nc if resident else max(groups)
+    stage = 2 * window * ((0 if resident else chunk) + walk * 128)
+    head = 16 + 16 * walk
+    own = 2 * nc * chunk if resident else 0
+    pds = (2 if dkv else 1) * BWD_ROWS * 2 * walk  # bf16 p and dS in core matrices
+
+    def smem(stages):
+        return 1024 + stages * (stage + head + 16) + own + pds + 16
+
+    stages = WIDE_MAX_STAGES
+    while stages > 1 and smem(stages) > SMEM_LIMIT:
+        stages -= 1
+    if smem(stages) > SMEM_LIMIT:
+        raise AssertionError(f"the wide kernel does not fit at heads of {d}")
+    cl = WIDE_CLUSTER
+    units = b * h * (s // BWD_ROWS // cl) * len(groups)
+    row = 16 if dkv else 4
+    if resident:
+        staged = units * (cl * 256 * d + s * (4 * d + cl * row))
+    else:
+        staged = units * (s // walk) * (cl * 256 * d + walk * (4 * d + cl * row))
+    return WideBwdPlan(walk, resident, groups, max(groups), window, threads, producer, consumer,
+                       128 * (producer + WIDE_CONSUMERS * consumer) <= pool, stages,
+                       smem(stages), cl, units, staged)
+
+
 def parent_bwd_staged(b: int, s: int, h: int, d: int, dkv: bool = True) -> int:
     """L2 -> shared bytes the first design (``bwd_kernel<W, DKV>``, a block
-    a (pair, head, 64-row tile)) staged at heads of 32 or 64 with no
-    (tile, block) skipped: its own tile once, and each walked block's two
-    tiles, ids and (dK/dV) m, l and di once a tile."""
+    a (pair, head, 64-row tile, piece of 64 head columns); one piece at
+    heads of 32 and 64) staged with no (tile, block) skipped: for each
+    piece and each walked block, the head's chunks of the own tile's two
+    tiles and of the walked block's two, and the walked rows' ids and
+    (dK/dV) m, l and di."""
     t = s // BWD_ROWS
     tile = BWD_ROWS * d * 2
-    return b * h * t * (2 * tile + t * (2 * tile + BWD_ROWS * (16 if dkv else 4)))
+    pieces = max(1, d // 64)
+    return b * h * t * pieces * t * (4 * tile + BWD_ROWS * (16 if dkv else 4))
 
 
 def check_shape(seq: int, head_dim: int) -> None:
@@ -652,12 +751,21 @@ def flash_attention_bwd_kernel(
         if dkv:
             _cuda.launch(_bwd_fn("flash_attention_bwd_dkv"), "flash_attention_bwd_dkv", *args,
                          g_k.data_ptr(), g_v.data_ptr(), b, s, h, dp, inv_sqrt)
-            _count("launches_bwd_dkv")
+            _count(bwd_counter(dp, True))
         if dq:
             _cuda.launch(_bwd_fn("flash_attention_bwd_dq"), "flash_attention_bwd_dq", *args,
                          g_q.data_ptr(), b, s, h, dp, inv_sqrt)
-            _count("launches_bwd_dq")
+            _count(bwd_counter(dp, False))
     return g_q, g_k, g_v
+
+
+def bwd_counter(head_dim: int, dkv: bool) -> str:
+    """The counter on :func:`encoder_flash_attention` that a launch of
+    kernel 8 (``dkv``) or 9 at kernel width ``head_dim`` adds to:
+    ``launches_bwd_dkv`` / ``launches_bwd_dq`` at heads of 32 and 64,
+    ``launches_bwd_wide_dkv`` / ``launches_bwd_wide_dq`` at 128 and wider."""
+    wide = "_wide" if head_dim >= BWD_WIDE_MIN else ""
+    return f"launches_bwd{wide}_{'dkv' if dkv else 'dq'}"
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -735,12 +843,14 @@ def encoder_flash_attention(
 
 # kernel launches since the last reset (chip_smoke.py reads and resets
 # them): heads of 32-128 (32 up to S 512), of 32 above S 512, of 256, and
-# of 384 and wider; the backward's
-# dK/dV (kernel 8) and dQ (kernel 9)
+# of 384 and wider; the backward's dK/dV (kernel 8) and dQ (kernel 9) at
+# heads of 32 and 64, and at 128 and wider
 encoder_flash_attention.launches = 0
 encoder_flash_attention.launches_long = 0
 encoder_flash_attention.launches_wide = 0
 encoder_flash_attention.launches_slab = 0
 encoder_flash_attention.launches_bwd_dkv = 0
 encoder_flash_attention.launches_bwd_dq = 0
+encoder_flash_attention.launches_bwd_wide_dkv = 0
+encoder_flash_attention.launches_bwd_wide_dq = 0
 _launch_lock = threading.Lock()

@@ -2,6 +2,7 @@
 
     python3 financial_rag_system_tpu_torch/tools/flash_backward_variants.py [--parent CSRC]
                                                                              [--only a,b]
+                                                                             [--width D]
 
 Builds copies of ``financial_rag_system_tpu_torch/csrc/flash_attention_bwd.cu``
 with one constant changed, one part redone or one part cut out, and times
@@ -13,7 +14,8 @@ in one process on one card, CUDA events and device time (profiler).  A
 variant with a part cut out computes wrong gradients: its time says what
 that part costs.  Each build's gradients are held to the kernel as it is
 (the largest difference over the largest magnitude).  Variants of the
-unit kernel (``unit::walk_kernel``, heads of 32):
+unit kernel (``unit::walk_kernel``, heads of 32, the default ``--width
+32``):
 
 - ``as_is``: the kernel as the port builds it (units of four own tiles,
   112 registers a consumer thread; dK/dV walking 32-row blocks in sixteen
@@ -46,6 +48,21 @@ unit kernel (``unit::walk_kernel``, heads of 32):
   ``flash_attention_bwd_fused``, timed against the two entries' sum);
 - ``loads_only``: the consumers compute nothing (the producer's staging,
   the own tiles' loads and the barriers alone).
+
+With ``--width D`` (128 or wider) the case is H D 768 (B 32, S 512, the
+same mask) and the variants are the wide kernel's (``wide::wide_kernel``):
+
+- ``as_is``: the kernel as the port builds it (clusters of two blocks,
+  each walked block multicast to both; each block's S and dP, p and dS
+  and gradient products in turn);
+- ``pipelined``: block ob + 1's S and dP issued before block ob's
+  gradient products, which run while ob + 1's p and dS are made;
+- ``no_cluster``: clusters of one block (each walked block read from L2
+  once a tile, not multicast);
+- ``walk_32``: 32-row walked blocks above heads of 128 (four stages at
+  256);
+- ``no_mufu``, ``no_grads``, ``no_ss``, ``loads_only``: as above, cut out
+  of the wide kernel.
 
 ``--parent CSRC`` also times an earlier checkout's
 ``flash_attention_bwd.cu`` (may repeat: parent0, parent1, ...).  It prints
@@ -719,6 +736,104 @@ VARIANTS = {
 }
 ENTRIES = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 
+# Variants of the wide kernel (``wide::wide_kernel``, heads of 128 and
+# wider), timed with ``--width``:
+WIDE = "namespace wide {"
+
+
+def patched_wide(text: str, *pairs: tuple[str, str]) -> str:
+    """``text`` with each (old, new) replaced inside the wide kernel's
+    namespace; raises if an old string is not there."""
+    head, body = text[:text.index(WIDE)], text[text.index(WIDE):]
+    for old, new in pairs:
+        if old not in body:
+            raise ValueError(f"patch anchor not found: {old[:60]!r}")
+        body = body.replace(old, new)
+    return head + body
+
+
+RESIDENT_START = "      // each block's S and dP, p and dS and gradient products in turn"
+RESIDENT_END = "    } else {\n      // windows of the head in turn"
+PIPELINED = """      // Software-pipelined: block ob + 1's S and dP are issued before block
+      // ob's gradient products, which run while ob + 1's p and dS are made
+      mbar_wait(own_full, k & 1);
+      const unsigned char* o1 = own + (size_t)pl.nc * kChunkB;
+      auto issue_scores = [&](int s) {
+        const unsigned char* w0 = stages + (size_t)s * pl.stage_b;
+        wgmma_fence();
+        scores<W>(x, y, own, o1, w0, w0 + (size_t)pl.nc * W * 128, pl.nc, wg, true);
+        wgmma_commit();
+      };
+      int s = n % pl.nst;
+      mbar_wait(&full[s], (n / pl.nst) & 1);
+      bool need = unit::warp_uniform(head[s].need != 0);
+      if (need) issue_scores(s);
+      bool pending = false;
+      int ps = 0;
+      for (int ob = 0; ob < nb; ++ob, ++n) {
+        s = n % pl.nst;
+        if (need) {
+          if (pending) wgmma_wait<1>();
+          else wgmma_wait<0>();
+          wgmma_pin(x);
+          wgmma_pin(y);
+          share_p_ds(x, y, head[s]);
+        }
+        if (pending) {
+          wgmma_wait<0>();
+          pin_grads();
+          release(&empty[ps]);
+          pending = false;
+        }
+        bool need_next = false;
+        if (ob + 1 < nb) {
+          const int s1 = (n + 1) % pl.nst;
+          mbar_wait(&full[s1], ((n + 1) / pl.nst) & 1);
+          need_next = unit::warp_uniform(head[s1].need != 0);
+          if (need_next) issue_scores(s1);
+        }
+        if (need) {
+          wgmma_fence();
+          grads(stages + (size_t)s * pl.stage_b, 0);
+          wgmma_commit();
+          pending = true;
+          ps = s;
+        } else {
+          release(&empty[s]);
+        }
+        need = need_next;
+      }
+      if (pending) {
+        wgmma_wait<0>();
+        pin_grads();
+        release(&empty[ps]);
+      }
+"""
+
+
+def pipelined(text: str) -> str:
+    head, body = text[:text.index(WIDE)], text[text.index(WIDE):]
+    a, b = body.index(RESIDENT_START), body.index(RESIDENT_END)
+    return head + body[:a] + PIPELINED + body[b:]
+
+
+NEVER = " && gridDim.y == 7u"  # a launch has gridDim.y 1: the part never runs
+WIDE_VARIANTS = {
+    "as_is": lambda t: t,
+    "pipelined": pipelined,
+    "walk_32": lambda t: patched_wide(t, ("return D <= 256 ? 64 :", "return D <= 128 ? 64 :")),
+    "no_mufu": lambda t: patched_wide(t, ("ex2(fmaf(", "(fmaf(")),
+    "no_grads": lambda t: patched_wide(t, ("if (unit::warp_uniform(j < mine)) {",
+                                           f"if (unit::warp_uniform(j < mine{NEVER})) {{")),
+    "no_ss": lambda t: patched_wide(t, ("for (int c = 0; c < cw; ++c) {",
+                                        f"for (int c = 0; c < cw{NEVER}; ++c) {{")),
+    "no_cluster": lambda t: patched_wide(t, ("constexpr int kCluster = 2;",
+                                             "constexpr int kCluster = 1;")),
+    "loads_only": lambda t: patched_wide(
+        t, ("unit::warp_uniform((head[s].need >> rank) & 1u)",
+            f"unit::warp_uniform(((head[s].need >> rank) & 1u){NEVER})")),
+}
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -726,7 +841,12 @@ def main() -> int:
                         help="csrc/ of an earlier checkout: time its flash_attention_bwd.cu "
                              "too (may repeat: parent0, parent1, ...)")
     parser.add_argument("--only", default=None, help="comma-separated variants to build")
+    parser.add_argument("--width", type=int, default=32,
+                        help="the head width: 32 (the unit kernel's variants) or 128 and wider "
+                             "(the wide kernel's: H D 768 at B 32, S 512)")
     opts = parser.parse_args()
+    variants = VARIANTS if opts.width < 128 else WIDE_VARIANTS
+    heads = 12 if opts.width < 128 else 768 // opts.width
     import numpy as np
     import torch
 
@@ -739,13 +859,13 @@ def main() -> int:
     smi = cs.smi_line()
     OUT.mkdir(parents=True, exist_ok=True)
     source = SRC.read_text()
-    wanted = opts.only.split(",") if opts.only else list(VARIANTS)
+    wanted = opts.only.split(",") if opts.only else list(variants)
     if "as_is" not in wanted:
         wanted.insert(0, "as_is")
     builds = {}  # one nvcc a build, all at once
     for name in wanted:
         src = OUT / f"{name}.cu"
-        src.write_text(VARIANTS[name](source))
+        src.write_text(variants[name](source))
         builds[name] = subprocess.Popen(
             [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-Xptxas", "-v", f"-I{_cuda.CSRC_DIR}",
              "-o", str(OUT / f"{name}.so"), str(src)],
@@ -765,7 +885,8 @@ def main() -> int:
             logs[name] = log
     examples = cs.trainer_examples(np, cs.FLASH_TRAIN_STEPS)
     mask = np.asarray(cs.first_batch(torch, np, examples)["pairs"][2])
-    c = cs.flash_bwd_case(torch, np, mask.shape[0], mask.shape[1], 12, 32, mask, seed=32)
+    c = cs.flash_bwd_case(torch, np, mask.shape[0], mask.shape[1], heads, opts.width, mask,
+                          seed=opts.width)
     libs = {name: ctypes.CDLL(str(OUT / f"{name}.so")) for name in logs}
 
     def entries(name):
@@ -793,11 +914,13 @@ def main() -> int:
                     sum(cs.device_split(torch, fns[name, e]).values()))
     for name in names:
         log = logs[name]
+        kern = "ILi32" if opts.width < 128 else "wide_kernel"
         regs = {k: r for k, r in cs.ptxas_kernels(log).items()
-                if "walk_kernelILi32" in k or "bwd_kernelILi32" in k or "fused_kernel" in k}
+                if kern in k or "bwd_kernelILi32" in k or "fused_kernel" in k}
         serial = sorted({re.search(r"\((C75\d\d)\)", line).group(1) for line in log.splitlines()
-                         if "ILi32" in line and re.search(r"\(C75\d\d\).*serialized", line)})
-        print(f"[variants] {smi}: {name}, B {mask.shape[0]} S {mask.shape[1]} 12 heads of 32: "
+                         if kern in line and re.search(r"\(C75\d\d\).*serialized", line)})
+        print(f"[variants] {smi}: {name}, B {mask.shape[0]} S {mask.shape[1]} {heads} heads of "
+              f"{opts.width}: "
               + "; ".join(f"{e.removeprefix('flash_attention_bwd_')} events "
                           f"{' / '.join(f'{t:.4f}' for t in times[name, e])} ms, device "
                           f"{' / '.join(f'{t:.4f}' for t in device[name, e])} ms (off as_is "

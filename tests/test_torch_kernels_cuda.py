@@ -1094,13 +1094,12 @@ def test_flash_backward_kernels_match_plain(cuda, p, s, h, d, kind):
     (m within 1e-3, l within 1e-3 relative: the kernel's ex2.approx) and
     its context with residuals bit for bit the one without."""
     c = flash_bwd_case(p, s, h, d, kind, cuda)
-    n_dkv = encoder_flash_attention.launches_bwd_dkv
-    n_dq = encoder_flash_attention.launches_bwd_dq
+    counters = [flash_attention.bwd_counter(c["qb"].shape[-1], dkv) for dkv in (True, False)]
+    n0 = [getattr(encoder_flash_attention, name) for name in counters]
     got = flash_attention.flash_attention_bwd_kernel(
         c["qb"], c["kb"], c["vb"], c["seg"], c["m"], c["l"], c["dob"], c["di"], c["inv"])
     torch.cuda.synchronize()
-    assert (encoder_flash_attention.launches_bwd_dkv, encoder_flash_attention.launches_bwd_dq) \
-        == (n_dkv + 1, n_dq + 1)
+    assert [getattr(encoder_flash_attention, name) for name in counters] == [n + 1 for n in n0]
     out_ref, m_ref, l_ref = flash_attention.flash_attention_fwd_plain(
         c["qb"], c["kb"], c["vb"], c["seg"], c["inv"])
     torch.testing.assert_close(c["m"], m_ref, atol=1e-3, rtol=0)
@@ -1150,6 +1149,29 @@ def test_flash_backward_unit_kernel_lengths(cuda, s, d):
     assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
+@pytest.mark.parametrize("s,d", [(128, 128), (256, 128), (1024, 128), (128, 192), (128, 256),
+                                 (384, 256), (1024, 256), (128, 320), (256, 384), (640, 384),
+                                 (256, 512), (128, 640), (256, 1024)])
+@pytest.mark.parametrize("kind", ["rerank", "segments"])
+def test_flash_backward_wide_kernel_widths(cuda, s, d, kind):
+    """The wide kernel (heads of 128 and wider) at every kind of plan: the
+    own tile resident with 64-, 32- and 16-row walked blocks, dK/dV in two
+    column groups (384, 512), windows of the head above 512 (640, 1024),
+    and heads of 192 and 320 at S 128 (padded to 256 and 384 as the
+    forward pads them); on the rerank-layout mask and on
+    several segments a pair, against the plain twins and bit for bit over
+    two launches, each counted on the wide counters."""
+    c = flash_bwd_case(2, s, 2, d, kind, cuda, seed=13)
+    counters = ("launches_bwd_wide_dkv", "launches_bwd_wide_dq")
+    n0 = [getattr(encoder_flash_attention, name) for name in counters]
+    first = bwd_against_plain(c)
+    again = flash_attention.flash_attention_bwd_kernel(
+        *(c[k] for k in ("qb", "kb", "vb", "seg", "m", "l", "dob", "di")), c["inv"])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert [getattr(encoder_flash_attention, name) for name in counters] == [n + 2 for n in n0]
+
+
 @pytest.mark.parametrize("s,kind", [(128, "prefix"), (384, "holes"), (640, "wide_ids"),
                                     (896, "segments")])
 def test_flash_backward_unit_tiles_past_s(cuda, s, kind):
@@ -1183,15 +1205,16 @@ def test_flash_attention_under_grad_runs_its_backward(cuda):
         runs = []
         for dev in ("cuda", "cuda", "cpu"):
             leaves = [torch.tensor(a, device=dev, requires_grad=True) for a in (q, k, v)]
+            bwd = [flash_attention.bwd_counter(flash_attention.padded_head_dim(d, s), dkv)
+                   for dkv in (True, False)]
             n = (encoder_flash_attention.launches, encoder_flash_attention.launches_slab,
-                 encoder_flash_attention.launches_bwd_dkv, encoder_flash_attention.launches_bwd_dq)
+                 *(getattr(encoder_flash_attention, name) for name in bwd))
             out = encoder_flash_attention(*leaves, torch.tensor(mask, device=dev), inv)
             out.backward(torch.tensor(g, device=dev))
             if dev == "cuda":
                 torch.cuda.synchronize()
                 now = (encoder_flash_attention.launches, encoder_flash_attention.launches_slab,
-                       encoder_flash_attention.launches_bwd_dkv,
-                       encoder_flash_attention.launches_bwd_dq)
+                       *(getattr(encoder_flash_attention, name) for name in bwd))
                 fwd = (0, 1) if d == 384 else (1, 0)
                 assert tuple(b - a for a, b in zip(n, now)) == (*fwd, 1, 1)
             runs.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
