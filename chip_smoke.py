@@ -31,8 +31,15 @@ seventeen phases; any failure raises and the script exits non-zero:
    device time by launch, plan and scratch, the ``mm + where + topk``
    yardstick, and bit for bit on tie-heavy exact rows; kernel 1 over
    1,048,580 rows at k 1024 in both types; kernels 1 and 3 at
-   D 1536 and k 15 (one block an SM) in bf16, int8 (bit for bit) and on
-   tie-heavy exact bf16 rows (bit for bit);
+   D 1536 and k 15 on the wide kernel (rows of more than 1,024 values) in
+   bf16, int8 (bit for bit) and on tie-heavy exact bf16 rows (bit for
+   bit), with device time by pass, plan, the ``mm + where + topk``
+   yardstick and ``nvcc -Xptxas -v`` of its instantiations (none may
+   spill); then the wide path: ``FlatIndex(dim=1536)`` of 131,072 rows in
+   bf16 and in int8 with an ``IVFIndex`` over each, a batch of 32 through
+   each index's ``search_device`` at k 15 and 1024 (the ``kernels``
+   line's ``masked_topk_wide`` and ``ivf_probe_wide``, 0 launches on
+   every served path), held against the same indexes searched on the CPU;
 3. the main path: ``build_default_engine(device="cuda")`` over
    random-init full-width BGE-small and MiniLM-L6 checkpoints and a
    persisted 131,072-row flat index with a 368-wide token store; three
@@ -275,11 +282,12 @@ the real and the diverse batch's lists in both branches.
 ``--topk-baseline`` also builds the ``masked_topk.cu`` of an earlier
 checkout (its C entry that takes the plan, PR 10 on), holds kernel 1 bit
 for bit against it in both branches and times both in turns with their
-device times, at k 15 and at every k of phase 2's large-k checks (the
-earlier build with the scratch its own ``ops/topk.py`` plan asks for);
-``--ivf-baseline`` does the same for an earlier ``ivf_probe.cu`` and
-kernel 3 on both lists (bit for bit on the real list, and on the diverse
-one in int8) and at phase 2's large k; ``--attn-baseline``
+device times, at k 15, at every k of phase 2's large-k checks (the
+earlier build with the scratch its own ``ops/topk.py`` plan asks for)
+and at D 1536 (bit for bit in int8 and on exact rows); ``--ivf-baseline``
+does the same for an earlier ``ivf_probe.cu`` and kernel 3 on both lists
+(bit for bit on the real list, and on the diverse one in int8), at phase
+2's large k and at D 1536; ``--attn-baseline``
 builds an earlier ``pair_attention.cu`` (one with the streaming
 ``pair_attention_wide`` entry) and times it beside
 kernel 2 on the same inputs and masks, in turns, with their contexts'
@@ -658,7 +666,7 @@ def check_topk(torch, np, smi: str, baseline: Path | None = None) -> dict:
 
 
 LARGE_K = (33, 64, 100, 256, 1024, 2048)
-WIDE_D = 1536  # rows wider than two blocks an SM hold: one block an SM
+WIDE_D = 1536  # rows of more than WIDE_ABOVE_D values: the wide kernel
 PROBE_TILES, PROBE_ACTIVE = 2048, 1024  # phase 2's packing (128-row tiles) and probed tiles
 
 
@@ -880,22 +888,53 @@ def check_large_k(torch, np, smi: str, topk_baseline: Path | None = None,
         f"select path")
 
 
-def check_wide_rows(torch, np, smi: str) -> None:
-    """Kernels 1 and 3 at D = WIDE_D, k 15 (plans of one block an SM),
-    against their plain versions: random unit rows in bf16 (scores within
-    1e-4, ids where clear of that noise, and the count that differ) and
-    int8 (bit for bit: exact sums cast once, rounding above D 1040), and
-    tie-heavy exact rows in bf16, every id and score bit for bit; with the
-    kernels' times, the plain versions' and the bounds.  Off the main
-    paths, which take D 384."""
+def wide_ptxas(torch) -> None:
+    """``nvcc -Xptxas -v`` of both retrieval sources: each holds its four
+    wide-kernel instantiations (bf16 and int8, lists and select path), and
+    none of them spills."""
+    for name in ("masked_topk", "ivf_probe"):
+        report = ptxas_report(name)
+        wide = {k: v for k, v in report.items() if re.search(r"Lb[01]ELb1EE", k)}
+        log(f"[wide-d] ptxas -v of csrc/{name}.cu's wide kernel (registers, spill store and "
+            f"load bytes): {wide}")
+        if len(wide) != 4 or any(r[1] or r[2] for r in wide.values()):
+            raise AssertionError(f"[wide-d] {name}: a wide instantiation spills, or ptxas named "
+                                 f"other kernels: {report}")
+
+
+def check_wide_rows(torch, np, smi: str, topk_baseline: Path | None = None,
+                    ivf_baseline: Path | None = None) -> list:
+    """Kernels 1 and 3 at D = WIDE_D, k 15, on the wide kernel (rows of
+    more than WIDE_ABOVE_D values: one block an SM, a scoring warpgroup on
+    ``wgmma`` and sixteen selecting warps), against their plain versions:
+    random unit rows in bf16 (scores within 1e-4, ids where clear of that
+    noise, and the count that differ) and int8 (bit for bit: exact sums
+    cast once, rounding above D 1040), and tie-heavy exact rows in bf16,
+    every id and score bit for bit; with the kernels' times (events,
+    device time by pass, host time), plan, the plain versions', the ``mm +
+    where + topk`` yardstick and the bounds; with ``--topk-baseline`` /
+    ``--ivf-baseline`` the parent's C entries in turns (bit for bit in
+    int8 and on exact rows); ``ptxas -v`` of the wide instantiations (a
+    spill fails the run).  Off the served paths, which take D 384.
+    Returns the ``kernels`` line's ``masked_topk_wide`` and
+    ``ivf_probe_wide`` entries (random bf16 rows)."""
     from financial_rag_system_tpu_torch.index.flat import quantize_int8
     from financial_rag_system_tpu_torch.index.ivf import ivf_probe, ivf_probe_plain, probe_plan
-    from financial_rag_system_tpu_torch.ops.topk import masked_topk, masked_topk_plain, topk_plan
+    from financial_rag_system_tpu_torch.ops.topk import (
+        _match_mask,
+        masked_topk,
+        masked_topk_plain,
+        topk_plan,
+    )
 
     d, n_valid = WIDE_D, N - 100
     _, _, codes, qf = topk_inputs(torch, np.random.default_rng(SEED), n_valid)
     _, pcodes, gids, tile_ids = probe_packing(torch, np, lambda n: None)
-    live = int((gids[0].view(-1, 128)[tile_ids[:PROBE_ACTIVE].long()] >= 0).sum())
+    probed = (tile_ids[:PROBE_ACTIVE].long()[:, None] * 128
+              + torch.arange(128, device="cuda")).reshape(-1)
+    live = int((gids[0][probed] >= 0).sum())
+    flat_mask = _match_mask(codes, qf) & (torch.arange(N, device="cuda") < n_valid)
+    probe_mask = _match_mask(pcodes[:, probed], qf) & (gids[0][probed] >= 0)
     g = torch.Generator(device="cuda").manual_seed(SEED + 9)
     unit = lambda n: torch.nn.functional.normalize(  # noqa: E731
         torch.randn(n, d, generator=g, device="cuda"), dim=1)
@@ -907,21 +946,41 @@ def check_wide_rows(torch, np, smi: str) -> None:
                        exact_rows(torch, N, 6, SEED + 21, torch.bfloat16, d),
                        exact_rows(torch, PROBE_TILES * 128, 6, SEED + 22, torch.bfloat16, d)),
     }
+    del q, c, emb
+    libs = {name: baseline_lib(name, csrc) if csrc else None
+            for name, csrc in (("masked_topk", topk_baseline), ("ivf_probe", ivf_baseline))}
+    entries = []
     for dtype, (qd, cd, ed) in cases.items():
         elt = cd.element_size()
         peak = INT8_OP_PER_S if elt == 1 else BF16_FLOP_PER_S
         flat = (qd, cd, codes, qf, n_valid, K)
         probe = (qd, qf, ed, pcodes, gids, tile_ids, K)
-        for name, fn, plain, nbytes, ops, plan in (
+        timed = dtype != "bf16 exact"  # exact rows are held bit for bit, not timed
+        if timed:  # a read rate the card reaches: one torch.sum over the rows
+            read_ms = median_ms(lambda: cd.sum(dtype=torch.float32), reps=10)
+            log(f"[wide-d] {dtype} {smi}: torch.sum over kernel 1's {N} rows "
+                f"({cd.numel() * elt / 1e6:.1f} MB) {read_ms:.4f} ms, "
+                f"{cd.numel() * elt / read_ms / 1e9:.3f} TB/s")
+        for name, fn, plain, yard, nbytes, ops, plan, parent, entry in (
             ("kernel 1", lambda: masked_topk(*flat), lambda: masked_topk_plain(*flat),
+             timed and yardstick_fn(torch, qd, cd, flat_mask, K),
              N * (d * elt + 8) + B * (d * elt + 8) + B * K * 8, 2.0 * B * N * d,
-             topk_plan(B, N, d, elt, K, sms(torch))),
+             topk_plan(B, N, d, elt, K, sms(torch)),
+             libs["masked_topk"] and topk_entry_fn(
+                 torch, libs["masked_topk"], flat, parent_plan(topk_baseline, "topk")),
+             libs["masked_topk"] and topk_entry_fn(torch, topk_library(), flat)),
             ("kernel 3", lambda: ivf_probe(*probe, tile=128),
              lambda: ivf_probe_plain(*probe, tile=128),
+             timed and yardstick_fn(torch, qd, ed[probed], probe_mask, K),
              PROBE_ACTIVE * 128 * 4 + live * (d * elt + 8) + B * (d * elt + 8) + B * K * 8,
-             2.0 * B * live * d, probe_plan(B, tile_ids.numel(), 128, d, elt, K, sms(torch))),
+             2.0 * B * live * d, probe_plan(B, tile_ids.numel(), 128, d, elt, K, sms(torch)),
+             libs["ivf_probe"] and probe_entry_fn(
+                 torch, libs["ivf_probe"], probe, 128, parent_plan(ivf_baseline, "ivf")),
+             libs["ivf_probe"] and probe_entry_fn(torch, probe_library(), probe, 128)),
         ):
             what = f"[wide-d] {name} {dtype} D={d} k={K}"
+            if not plan.wide:
+                raise AssertionError(f"{what}: the plan is not the wide kernel's: {plan}")
             s, i = (x.cpu().numpy() for x in fn())
             torch.cuda.synchronize()
             s_ref, i_ref = (x.cpu().numpy() for x in plain())
@@ -931,13 +990,126 @@ def check_wide_rows(torch, np, smi: str) -> None:
                 err, n_diff = 0.0, 0
             else:
                 err, n_diff = clear_ids_agree(np, s, i, s_ref, i_ref, what)
-            ms = median_ms(fn, reps=10)
-            plain_ms = median_ms(plain, reps=3)
-            b_ms, b_by = bound_ms(nbytes, ops, peak)
-            log(f"{what} {smi}: B={B}, plan {plan.blocks} blocks x {plan.stages} stages: "
-                f"max_abs_err {err:.3g}, finite ids differing {n_diff} of "
-                f"{int(np.isfinite(s_ref).sum())}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {b_ms:.4f} ms ({b_by})")
+            if not timed:
+                log(f"{what} {smi}: bit for bit with the plain version")
+            else:
+                ms = median_ms(fn, reps=20)
+                plain_ms = median_ms(plain, reps=3)
+                yard_ms = median_ms(yard, reps=10)
+                b_ms, b_by = bound_ms(nbytes, ops, peak)
+                log(f"{what} {smi}: B={B}: max_abs_err {err:.3g}, finite ids differing "
+                    f"{n_diff} of {int(np.isfinite(s_ref).sum())}, kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, mm + where + topk {yard_ms:.4f} ms, bound {b_ms:.4f} ms "
+                    f"({b_by})")
+                dev = retrieval_timing(torch, what, fn, ms, smi)
+                log(f"{what}: {b_ms / dev:.3f} of the bound by device time")
+                plan_line(what, plan)
+            if parent is not None:
+                against_parent(torch, what, smi, parent, fn, exact=dtype != "bf16",
+                               new_entry=entry)
+            if dtype == "bf16":
+                entries.append({
+                    "name": "masked_topk_wide" if name == "kernel 1" else "ivf_probe_wide",
+                    "route": "cuda",
+                    "source": f"{PACKAGE}/csrc/"
+                              f"{'masked_topk' if name == 'kernel 1' else 'ivf_probe'}.cu",
+                    "replaces": ("financial_rag_system_tpu/ops/topk.py:99" if name == "kernel 1"
+                                 else "financial_rag_system_tpu/index/ivf.py:99"),
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                })
+    wide_ptxas(torch)
+    return entries
+
+
+WIDE_N = 131_072  # the wide path's corpus: phase 3's rows, D WIDE_D
+
+
+def drive_wide_path(torch, np, work: Path, smi: str) -> dict:
+    """Phase 2's wide path: ``FlatIndex(dim=WIDE_D, capacity=WIDE_N)`` in
+    bf16 and in int8, WIDE_N unit rows made from SEED upserted through
+    ``FlatIndex.upsert`` (N_TICKERS tickers x 3 document types), and an
+    ``IVFIndex`` built over each on the card; a batch of 32 queries (eight
+    unfiltered, the rest by ticker, some also by document type; query 1 a
+    copy of row 70,000) through each index's ``search_device`` at k 15
+    and at k 1024, each call one launch of the wide kernel
+    (``masked_topk_wide``, ``ivf_probe_wide``) and nothing else of the
+    kernels; each index saved and loaded on the CPU, where the same calls
+    (the plain versions) hold the card's: int8 bit for bit, bf16 within
+    1e-4 with ids where clear of that noise.  Returns the run (its
+    launches, counted from 0)."""
+    from financial_rag_system_tpu_torch.index.flat import FlatIndex
+    from financial_rag_system_tpu_torch.index.ivf import IVFIndex
+
+    rng = np.random.default_rng(SEED + 30)
+    vecs = rng.standard_normal((WIDE_N, WIDE_D), dtype=np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    tick = rng.integers(0, N_TICKERS, WIDE_N)
+    dtyp = rng.integers(0, len(DOC_TYPES), WIDE_N)
+    payloads = [{"ticker": f"T{a:02d}", "document_type": DOC_TYPES[b]}
+                for a, b in zip(tick, dtyp)]
+    qv = rng.standard_normal((B, WIDE_D), dtype=np.float32)
+    qv /= np.linalg.norm(qv, axis=1, keepdims=True)
+    qv[1] = vecs[70_000]
+    filters = [(None, None)] * 8 + [
+        (f"T{rng.integers(0, N_TICKERS):02d}", DOC_TYPES[j % 3] if j % 2 else None)
+        for j in range(B - 8)]
+    reset_launches()
+    t0 = time.perf_counter()
+    for dtype in (torch.bfloat16, torch.int8):
+        label = "bf16" if dtype == torch.bfloat16 else "int8"
+        t1 = time.perf_counter()
+        flat = FlatIndex(WIDE_D, capacity=WIDE_N, dtype=dtype, device="cuda")
+        for s in range(0, WIDE_N, 16_384):
+            e = min(WIDE_N, s + 16_384)
+            flat.upsert([f"wide-{r}" for r in range(s, e)], vecs[s:e], [""] * (e - s),
+                        payloads[s:e])
+        ivf = IVFIndex(flat, tile=128)
+        torch.cuda.synchronize()
+        log(f"[wide-path] {label}: FlatIndex(dim={WIDE_D}) of {flat.n_valid} rows and an "
+            f"IVFIndex ({ivf.n_clusters} clusters, nprobe {ivf.nprobe}, "
+            f"{ivf.tiles_per_cluster} tiles a cluster) in {time.perf_counter() - t1:.1f} s")
+        qf = torch.tensor([flat.store.query_codes(tk, dt) for tk, dt in filters],
+                          dtype=torch.int32, device="cuda")
+        q = torch.tensor(qv, device="cuda")
+        got = {}
+        for tier, index in (("flat", flat), ("ivf", ivf)):
+            for k in (K, 1024):
+                t1 = time.perf_counter()
+                s, i = index.search_device(q, qf, k)
+                got[tier, k] = (s.cpu().numpy(), i.cpu().numpy())
+                log(f"[wide-path] {smi}: {label} {tier} search_device, B={B}, k={k}: "
+                    f"{(time.perf_counter() - t1) * 1e3:.2f} ms wall")
+        directory = str(work / f"wide_{label}")
+        ivf.save(directory)
+        del flat, ivf
+        torch.cuda.empty_cache()
+        cpu = IVFIndex.load(directory, FlatIndex.load(directory, device="cpu"))
+        shutil.rmtree(directory, ignore_errors=True)
+        for tier, index in (("flat", cpu.flat), ("ivf", cpu)):
+            for k in (K, 1024):
+                s_ref, i_ref = (x.numpy() for x in index.search_device(q.cpu(), qf.cpu(), k))
+                s, i = got[tier, k]
+                what = f"[wide-path] {label} {tier} k={k}: card against the CPU"
+                if i[1, 0] != 70_000:
+                    raise AssertionError(f"{what}: query 1 does not find its own row first")
+                if dtype == torch.int8:
+                    if s.tobytes() != s_ref.tobytes() or i.tobytes() != i_ref.tobytes():
+                        raise AssertionError(f"{what}: not bit for bit")
+                    log(f"{what}: bit for bit ({int(np.isfinite(s).sum())} finite entries)")
+                else:
+                    err, n_diff = clear_ids_agree(np, s, i, s_ref, i_ref, what)
+                    log(f"{what}: max_abs_err {err:.3g}, finite ids differing {n_diff} of "
+                        f"{int(np.isfinite(s_ref).sum())}")
+        del cpu
+    run = {"label": "wide-path", "launches": read_launches()}
+    want = want_launches(masked_topk_wide=4, ivf_probe_wide=4)
+    if run["launches"] != want:
+        raise AssertionError(f"[wide-path] launches {run['launches']} != {want}")
+    log(f"[wide-path] {smi}: D {WIDE_D} flat and IVF indexes in both types served through "
+        f"search_device at k {K} and 1024 on the wide kernel (launches {run['launches']}), "
+        f"agreeing with the CPU; {time.perf_counter() - t0:.1f} s")
+    return run
 
 
 def attention_inputs(torch, np, p: int, s: int, h: int = 12, d: int = 32):
@@ -1233,9 +1405,11 @@ def write_index(torch, np, work: Path, name: str = "index", n_tickers: int = N_T
 def kernel_counters() -> dict:
     """Each kernel's launch counter by its name in the ``kernels`` line:
     (wrapper, attribute).  The int8 branches of kernels 1 and 3 count
-    apart from their bf16 branches, and their select path above k 32
+    apart from their bf16 branches, their select path above k 32
     (``*_select``, no entry of the line: every main path launches it 0
-    times) apart from both."""
+    times) apart from both, and their wide kernel (``*_wide``: rows of
+    more than 1,024 values, either type and path; launched by phase 2's
+    wide path only) apart from all three."""
     from financial_rag_system_tpu_torch.index.ivf import ivf_probe
     from financial_rag_system_tpu_torch.ops import fused_bert
     from financial_rag_system_tpu_torch.ops.attention import encoder_self_attention
@@ -1259,6 +1433,8 @@ def kernel_counters() -> dict:
             "ivf_probe": (ivf_probe, "launches"),
             "ivf_probe_int8": (ivf_probe, "launches_int8"),
             "ivf_probe_select": (ivf_probe, "launches_select"),
+            "masked_topk_wide": (masked_topk, "launches_wide"),
+            "ivf_probe_wide": (ivf_probe, "launches_wide"),
             **{name: (getattr(fused_bert, name), "launches")
                for name in ("fused_ffn_ln", "fused_qkv", "fused_resid_ln")}}
 
@@ -4737,7 +4913,8 @@ def ptxas_kernels(text: str) -> dict:
     return {k: tuple(v) for k, v in report.items()}
 
 
-PTXAS_SOURCES = ("pair_attention", "flash_attention", "flash_attention_bwd")
+PTXAS_SOURCES = ("pair_attention", "flash_attention", "flash_attention_bwd", "masked_topk",
+                 "ivf_probe")
 _ptxas_runs: dict = {}  # name: its nvcc -Xptxas -v process, started by start_ptxas_reports
 
 
@@ -6228,11 +6405,15 @@ def main() -> int:
         kernels += [check_topk(torch, np, smi, opts.topk_baseline),
                     *check_attention(torch, np, smi, attn_baseline)]
         check_large_k(torch, np, smi, opts.topk_baseline, opts.ivf_baseline)
-        check_wide_rows(torch, np, smi)
+        kernels += check_wide_rows(torch, np, smi, opts.topk_baseline, opts.ivf_baseline)
         log(f"[kernels] phase 2 took {time.perf_counter() - t0:.1f} s")
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     main_run = None
     try:
+        if 2 in phases:
+            t0 = time.perf_counter()
+            runs.append(drive_wide_path(torch, np, work, smi))
+            log(f"[wide-path] phase 2's wide path took {time.perf_counter() - t0:.1f} s")
         if phases & set(range(3, 16)):  # their checkpoints and index
             t0 = time.perf_counter()
             write_checkpoints(torch, work)

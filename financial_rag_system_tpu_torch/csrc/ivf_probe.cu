@@ -35,7 +35,8 @@
 // of a cluster's block); the live pieces go through the TMA ring to the
 // consumer warps, and a second launch of one block a query merges the
 // blocks' lists and maps the winners to row ids.  Each live piece is read
-// once per query block.  A k above 32 takes the same walk with the select
+// once per query block.  Rows of more than 1,024 values take the wide
+// kernel (topk_common.cuh), as kernel 1's do.  A k above 32 takes the same walk with the select
 // path's consumers (topk_select.cuh): the live pieces' scores go to a
 // table in device memory, 64 columns a piece in the list's order, and an
 // exact threshold selection over the table finds the top k.
@@ -69,9 +70,11 @@ __device__ __forceinline__ int active_count(const int32_t* __restrict__ ids, int
 }
 
 // pass 1 (kSelect false: best lists into part_s / part_i) or the select
-// path's walk (kSelect: scores into sel's table, piece p at column 64 p)
-template <typename T, bool kSelect>
-__global__ void __launch_bounds__(kThreads, 2)
+// path's walk (kSelect: scores into sel's table, piece p at column 64 p);
+// kWide: the wide kernel (masked_topk.cu's), whose scoring warpgroup
+// scores every live piece for its selecting warps
+template <typename T, bool kSelect, bool kWide>
+__global__ void __launch_bounds__(kWide ? kWideThreads : kThreads, kWide ? 1 : 2)
 ivf_probe_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap rmap,
                  const __grid_constant__ CUtensorMap cmap, const __grid_constant__ CUtensorMap gmap,
                  const int32_t* __restrict__ gids, const int32_t* __restrict__ tile_ids,
@@ -80,14 +83,17 @@ ivf_probe_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
                  int32_t* __restrict__ part_i, const Select sel) {
   extern __shared__ unsigned char smem_raw[];
   const int nbox = boxes_for(row_bytes);
-  const Smem m = carve(smem_raw, nbox, stages);
+  const Smem m = kWide ? carve_wide(smem_raw, nbox, stages) : carve(smem_raw, nbox, stages);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int qb0 = blockIdx.y * kQB;
-  if (threadIdx.x == 0) init_barriers(m, stages);
+  if (threadIdx.x == 0) {
+    if constexpr (kWide) init_wide_barriers(m, stages);
+    else init_barriers(m, stages);
+  }
   if (kSelect) clear_select(sel, B);
   __syncthreads();
 
-  if (warp == kConsumers) {  // the producer
+  if (warp == (kWide ? kWideProducer : kConsumers)) {  // the producer
     Producer pr(m, stages, nbox);
     if (lane == 0) pr.queries(&qmap, qb0);
     const int per_tile = tile / kRows, num_tiles = n_packed / tile;
@@ -130,14 +136,38 @@ ivf_probe_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
     if (lane == 0) pr.end();
     return;
   }
+  if constexpr (kWide) {
+    if (warp >= kSelectors) {  // the scoring warpgroup
+      score_walk<T>(m, nbox, stages, warp - kSelectors, lane);
+      return;
+    }
+  }
   if (kSelect) {
-    store_walk<T, true>(m, nbox, row_bytes, stages, B, qb0, n_packed, 0, qf, sel, warp, lane);
+    store_walk<T, true, kWide>(m, nbox, row_bytes, stages, B, qb0, n_packed, 0, qf, sel, warp,
+                               lane);
     return;
   }
-  float ls[kQPW];
-  int li[kQPW];
-  consume<T, true>(m, nbox, row_bytes, stages, B, qb0, n_packed, 0, k, qf, warp, lane, ls, li);
+  float ls[kQueries<kWide>];
+  int li[kQueries<kWide>];
+  consume<T, true, kWide>(m, nbox, row_bytes, stages, B, qb0, n_packed, 0, k, qf, warp, lane, ls,
+                          li);
   write_lists(ls, li, B, qb0, k, part_s, part_i, warp, lane);
+}
+
+// one pass-1 launch (the lists' or the select path's walk), its
+// shared-memory limit raised first
+template <typename T, bool kSelect, bool kWide>
+cudaError_t walk(dim3 grid, size_t smem, cudaStream_t st, const CUtensorMap& qmap,
+                 const CUtensorMap& rmap, const CUtensorMap& cmap, const CUtensorMap& gmap,
+                 const int32_t* gids, const int32_t* tile_ids, const int32_t* qf, int B,
+                 int row_bytes, int n_packed, int tile, int n_probe, int k, int stages,
+                 float* part_s, int32_t* part_i, const Select& sel) {
+  cudaError_t err = allow_smem<&ivf_probe_kernel<T, kSelect, kWide>>();
+  if (err != cudaSuccess) return err;
+  ivf_probe_kernel<T, kSelect, kWide><<<grid, kWide ? kWideThreads : kThreads, smem, st>>>(
+      qmap, rmap, cmap, gmap, gids, tile_ids, qf, B, row_bytes, n_packed, tile, n_probe, k,
+      stages, part_s, part_i, sel);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -146,7 +176,9 @@ int launch(const void* q, const void* packed_emb, const void* packed_codes,
            int n_packed, int tile, int n_probe, int k, int blocks, int stages, void* scratch,
            void* out, void* stream) {
   const int row_bytes = D * (int)sizeof(T);
-  const size_t smem = smem_bytes(boxes_for(row_bytes), stages);
+  const bool wide = D > kWideAboveD;
+  const size_t smem = wide ? wide_smem_bytes(boxes_for(row_bytes), stages)
+                           : smem_bytes(boxes_for(row_bytes), stages);
   if (B < 1 || D < Elem<T>::kDimStep || row_bytes > kMaxRowBytes ||
       D % Elem<T>::kDimStep != 0 || k < 1 || tile < kRows || tile % kRows != 0 ||
       n_packed < tile || n_packed % tile != 0 || n_probe < 1 || blocks < 1 ||
@@ -169,23 +201,17 @@ int launch(const void* q, const void* packed_emb, const void* packed_codes,
     const long long cols = (long long)n_probe * tile;
     const Select sel = carve_select(scratch, B, cols, k,
                                     select_sweeps(B, cols, blocks * (int)grid.y), true);
-    cudaError_t err = allow_smem<&ivf_probe_kernel<T, true>>();
-    if (err != cudaSuccess) return (int)err;
-    ivf_probe_kernel<T, true><<<grid, kThreads, smem, st>>>(
-        qmap, rmap, cmap, gmap, g, (const int32_t*)tile_ids, (const int32_t*)qf, B, row_bytes,
-        n_packed, tile, n_probe, k, stages, nullptr, nullptr, sel);
-    err = cudaGetLastError();
+    const cudaError_t err = (wide ? walk<T, true, true> : walk<T, true, false>)(
+        grid, smem, st, qmap, rmap, cmap, gmap, g, (const int32_t*)tile_ids, (const int32_t*)qf,
+        B, row_bytes, n_packed, tile, n_probe, k, stages, nullptr, nullptr, sel);
     if (err != cudaSuccess) return (int)err;
     return select_rest(sel, B, k, g, out_s, out_i, st);
   }
-  cudaError_t err = allow_smem<&ivf_probe_kernel<T, false>>();
-  if (err != cudaSuccess) return (int)err;
   float* part_s = static_cast<float*>(scratch);
   int32_t* part_i = reinterpret_cast<int32_t*>(part_s + (size_t)B * k * blocks);
-  ivf_probe_kernel<T, false><<<grid, kThreads, smem, st>>>(
-      qmap, rmap, cmap, gmap, g, (const int32_t*)tile_ids, (const int32_t*)qf, B, row_bytes,
-      n_packed, tile, n_probe, k, stages, part_s, part_i, Select{});
-  err = cudaGetLastError();
+  const cudaError_t err = (wide ? walk<T, false, true> : walk<T, false, false>)(
+      grid, smem, st, qmap, rmap, cmap, gmap, g, (const int32_t*)tile_ids, (const int32_t*)qf, B,
+      row_bytes, n_packed, tile, n_probe, k, stages, part_s, part_i, Select{});
   if (err != cudaSuccess) return (int)err;
   merge_kernel<<<B, kMergeWarps * 32, 0, st>>>(part_s, part_i, blocks, k, g, out_s, out_i, k);
   return (int)cudaGetLastError();

@@ -25,7 +25,12 @@
 // (two an SM at B = 32) splits the 64-row tiles into contiguous shares,
 // each block streams its share through a TMA ring while its consumer
 // warps score and select, and a second launch of one block a query merges
-// the blocks' lists.  The corpus is read exactly once.  A k above 32 takes
+// the blocks' lists.  The corpus is read exactly once.  Rows of more than
+// 1,024 values (a 1536-wide embedding's, say) take the wide kernel
+// (topk_common.cuh): one block an SM whose scoring warpgroup computes each
+// tile's scores on wgmma straight from the ring while sixteen selecting
+// warps select from the tile before; at B 32, N 131,072, D 1536 the rows
+// (403 MB in bf16) bound it at 0.12 ms.  A k above 32 takes
 // the same walk with the select path's consumers (topk_select.cuh): the
 // scores go to a table in device memory, and an exact threshold selection
 // over the table finds the top k.
@@ -37,9 +42,11 @@ using namespace topk;
 namespace {
 
 // pass 1 (kSelect false: best lists into part_s / part_i) or the select
-// path's walk (kSelect: scores into sel's table, column = row)
-template <typename T, bool kSelect>
-__global__ void __launch_bounds__(kThreads, 2)
+// path's walk (kSelect: scores into sel's table, column = row); kWide: the
+// wide kernel (rows of more than kWideAboveD values), whose scoring
+// warpgroup scores every tile for its selecting warps
+template <typename T, bool kSelect, bool kWide>
+__global__ void __launch_bounds__(kWide ? kWideThreads : kThreads, kWide ? 1 : 2)
 masked_topk_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap rmap,
                    const __grid_constant__ CUtensorMap cmap, const int32_t* __restrict__ qf,
@@ -47,14 +54,17 @@ masked_topk_kernel(const __grid_constant__ CUtensorMap qmap,
                    float* __restrict__ part_s, int32_t* __restrict__ part_i, const Select sel) {
   extern __shared__ unsigned char smem_raw[];
   const int nbox = boxes_for(row_bytes);
-  const Smem m = carve(smem_raw, nbox, stages);
+  const Smem m = kWide ? carve_wide(smem_raw, nbox, stages) : carve(smem_raw, nbox, stages);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int qb0 = blockIdx.y * kQB;
-  if (threadIdx.x == 0) init_barriers(m, stages);
+  if (threadIdx.x == 0) {
+    if constexpr (kWide) init_wide_barriers(m, stages);
+    else init_barriers(m, stages);
+  }
   if (kSelect) clear_select(sel, B);
   __syncthreads();
 
-  if (warp == kConsumers) {  // the producer: tiles [t0, t1) of the corpus
+  if (warp == (kWide ? kWideProducer : kConsumers)) {  // the producer: tiles [t0, t1) of the corpus
     if (lane == 0) {
       const long long tiles = (N + kRows - 1) / kRows;
       const int t0 = (int)(tiles * blockIdx.x / gridDim.x);
@@ -67,14 +77,36 @@ masked_topk_kernel(const __grid_constant__ CUtensorMap qmap,
     }
     return;
   }
+  if constexpr (kWide) {
+    if (warp >= kSelectors) {  // the scoring warpgroup
+      score_walk<T>(m, nbox, stages, warp - kSelectors, lane);
+      return;
+    }
+  }
   if (kSelect) {
-    store_walk<T, false>(m, nbox, row_bytes, stages, B, qb0, N, n_valid, qf, sel, warp, lane);
+    store_walk<T, false, kWide>(m, nbox, row_bytes, stages, B, qb0, N, n_valid, qf, sel, warp,
+                                lane);
     return;
   }
-  float ls[kQPW];
-  int li[kQPW];
-  consume<T, false>(m, nbox, row_bytes, stages, B, qb0, N, n_valid, k, qf, warp, lane, ls, li);
+  float ls[kQueries<kWide>];
+  int li[kQueries<kWide>];
+  consume<T, false, kWide>(m, nbox, row_bytes, stages, B, qb0, N, n_valid, k, qf, warp, lane, ls,
+                           li);
   write_lists(ls, li, B, qb0, k, part_s, part_i, warp, lane);
+}
+
+// one pass-1 launch (the lists' or the select path's walk), its
+// shared-memory limit raised first
+template <typename T, bool kSelect, bool kWide>
+cudaError_t walk(dim3 grid, size_t smem, cudaStream_t st, const CUtensorMap& qmap,
+                 const CUtensorMap& rmap, const CUtensorMap& cmap, const int32_t* qf, int B, int N,
+                 int row_bytes, int n_valid, int k, int stages, float* part_s, int32_t* part_i,
+                 const Select& sel) {
+  cudaError_t err = allow_smem<&masked_topk_kernel<T, kSelect, kWide>>();
+  if (err != cudaSuccess) return err;
+  masked_topk_kernel<T, kSelect, kWide><<<grid, kWide ? kWideThreads : kThreads, smem, st>>>(
+      qmap, rmap, cmap, qf, B, N, row_bytes, n_valid, k, stages, part_s, part_i, sel);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -82,7 +114,9 @@ int launch(const void* q, const void* corpus, const void* codes, const void* qf,
            int D, int n_valid, int k, int blocks, int stages, void* scratch, void* out,
            void* stream) {
   const int row_bytes = D * (int)sizeof(T);
-  const size_t smem = smem_bytes(boxes_for(row_bytes), stages);
+  const bool wide = D > kWideAboveD;
+  const size_t smem = wide ? wide_smem_bytes(boxes_for(row_bytes), stages)
+                           : smem_bytes(boxes_for(row_bytes), stages);
   if (B < 1 || N < 1 || D < Elem<T>::kDimStep || row_bytes > kMaxRowBytes ||
       D % Elem<T>::kDimStep != 0 || k < 1 || blocks < 1 || blocks > kMaxBlocks || stages < 1 ||
       stages > kMaxStages || smem > (size_t)kSmemLimit || !aligned16(q) || !aligned16(corpus) ||
@@ -101,23 +135,18 @@ int launch(const void* q, const void* corpus, const void* codes, const void* qf,
     const long long cols = (N + kRows - 1LL) / kRows * kRows;
     const Select sel = carve_select(scratch, B, cols, k,
                                     select_sweeps(B, cols, blocks * (int)grid.y), false);
-    cudaError_t err = allow_smem<&masked_topk_kernel<T, true>>();
-    if (err != cudaSuccess) return (int)err;
-    masked_topk_kernel<T, true><<<grid, kThreads, smem, st>>>(
-        qmap, rmap, cmap, (const int32_t*)qf, B, N, row_bytes, nv, k, stages, nullptr, nullptr,
-        sel);
-    err = cudaGetLastError();
+    const cudaError_t err =
+        (wide ? walk<T, true, true> : walk<T, true, false>)(
+            grid, smem, st, qmap, rmap, cmap, (const int32_t*)qf, B, N, row_bytes, nv, k, stages,
+            nullptr, nullptr, sel);
     if (err != cudaSuccess) return (int)err;
     return select_rest(sel, B, k, nullptr, out_s, out_i, st);
   }
-  cudaError_t err = allow_smem<&masked_topk_kernel<T, false>>();
-  if (err != cudaSuccess) return (int)err;
   float* part_s = static_cast<float*>(scratch);
   int32_t* part_i = reinterpret_cast<int32_t*>(part_s + (size_t)B * k * blocks);
-  masked_topk_kernel<T, false><<<grid, kThreads, smem, st>>>(
-      qmap, rmap, cmap, (const int32_t*)qf, B, N, row_bytes, nv, k, stages, part_s, part_i,
-      Select{});
-  err = cudaGetLastError();
+  cudaError_t err = (wide ? walk<T, false, true> : walk<T, false, false>)(
+      grid, smem, st, qmap, rmap, cmap, (const int32_t*)qf, B, N, row_bytes, nv, k, stages,
+      part_s, part_i, Select{});
   if (err != cudaSuccess) return (int)err;
   merge_kernel<<<B, kMergeWarps * 32, 0, st>>>(part_s, part_i, blocks, k, nullptr, out_s, out_i,
                                                k);

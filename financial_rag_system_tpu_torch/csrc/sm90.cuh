@@ -4,7 +4,7 @@
 // register budgets (setmaxnreg), and warpgroup MMA
 // (wgmma) with A from registers or shared memory and B from a 128- or
 // 64-byte-swizzled tile in shared memory, K-major or (A from registers)
-// MN-major; on the host,
+// MN-major, bf16 (s8 with both operands in shared memory); on the host,
 // cuTensorMapEncodeTiled.  Used by fused_bert.cu's QKV, o-proj and FFN
 // kernels, pair_attention.cu, flash_attention.cu, flash_attention_bwd.cu
 // and the masked top-k kernels (topk_common.cuh); meant for any kernel of
@@ -41,6 +41,19 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
                "r"(bytes)
                : "memory");
+}
+
+// arrive where `pred`: a predicate, not a branch, so a kernel may call it
+// with its wgmmas in flight
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"((uint32_t)pred)
+      : "memory");
 }
 
 // wait until the phase of parity `parity` has completed
@@ -325,6 +338,12 @@ __device__ __forceinline__ void wgmma_pin(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int R>
+__device__ __forceinline__ void wgmma_pin(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // d (64 x 64 f32) = A (64 x 16 bf16) * B (64 x 16 bf16) + (scale_d ? d : 0),
 // both K-major in shared memory, by descriptor; d's layout as wgmma_rs's.
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, uint32_t scale_d) {
@@ -370,6 +389,22 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b,
       "%16, %17, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 32 s32) = A (64 x 32 s8) * B (32 x 32 s8) + (scale_d ? d : 0), both
+// K-major in shared memory (the only layout wgmma takes for 8-bit types),
+// by descriptor: one 32-byte k-step, as wgmma_ss's 16 bf16 values; d's
+// layout as wgmma_ss's N-32 float sum.
+__device__ __forceinline__ void wgmma_ss_s8(int (&d)[16], uint64_t a, uint64_t b, uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
       : "l"(a), "l"(b), "r"(scale_d));
 }
 

@@ -3,7 +3,8 @@
 // IVF packing).  Each is two launches sized by a host plan (ops/topk.py
 // topk_plan, index/ivf.py probe_plan):
 //  - pass 1, a persistent grid of (blocks) x (query blocks of 32) blocks
-//    of nine warps, two an SM.  The producer warp loads the block's 32
+//    of nine warps, two an SM (rows of at most kWideAboveD values; the
+//    wide kernel below takes wider ones).  The producer warp loads the block's 32
 //    queries by TMA, then walks the block's share of 64-row tiles (kernel
 //    3: the live 64-row pieces of the active probe entries) and loads
 //    each by TMA: the tile's codes (kernel 3: and gids) and its first
@@ -36,11 +37,28 @@
 // same walk writes the masked scores to device memory, and an exact
 // threshold selection finds the top k there.
 // The query block's boxes stay in shared memory for the whole walk, 4 KB
-// a box of 128 bytes (64 bf16 or 128 int8 values): up to 1,024 bf16
-// values a row two blocks share an SM with a ring of 3-8 boxes; wider
-// rows, up to kMaxRowBytes (49 boxes: D 3,136 in bf16, 6,272 in int8),
-// take one block an SM and the ring its remaining shared memory holds
-// (ops/topk.py plan_for).
+// a box of 128 bytes (64 bf16 or 128 int8 values): up to kWideAboveD
+// (1,024) values a row, either type, two blocks share an SM with a ring
+// of 3-8 boxes.
+// Wider rows, up to kMaxRowBytes (49 boxes: D 3,136 in bf16, 6,272 in
+// int8), take the wide kernel: one block an SM of 21 warps, with
+// the ring its shared memory holds beside the query block and the score
+// buffers (ops/topk.py plan_for: 13 stages at D 1,536 in bf16, 2 at the
+// widest).  There one block an SM has no second block to hide its
+// selection behind, and the consumers' ldmatrix fragments would read
+// each box from shared memory eight times, so the work is split by
+// warp: the producer warp walks as above; one scoring warpgroup
+// (score_walk) computes each tile's (64 rows) x (32 queries) sums on
+// wgmma m64n32k16 (bf16) or m64n32k32 (s8), A straight from the ring's
+// box and B from the query block's box of the same 128 bytes, both
+// K-major in the 128-byte swizzle TMA wrote, so each box is read by the
+// tensor cores once; it releases a box when its products are done and
+// writes the tile's sums, [query][row] f32, to one of kScBufs score
+// buffers; sixteen selecting warps (kSelectors) take the finished
+// buffers in walk order and run the consumers' selection (or the select
+// path's table write) on them, two queries a warp (kWideQPW), so tile t +
+// 1 is scored while tile t is selected, and a block's first tiles, whose
+// rows mostly enter the lists, are sorted by twice the warps.
 // Every comparison is on (score, id) with `before`, never on the score
 // alone, so the result is the top k by (score desc, id asc) whatever order
 // rows are visited in: relaunches are bit-identical.  The id is the row
@@ -48,11 +66,13 @@
 // row id only when the result is written.
 // Scores: each (query, row) sum runs over D in the same 32-byte k-steps,
 // with the same instruction and from zero, as the kernels of the design
-// before this one did, so bf16 scores keep their bits; an int8 score is an
-// s32 sum cast to f32, as the JAX kernel's int8 branch computes it.  The
-// s32 sum is exact (|sum| <= 127^2 * D < 2^31); up to D 1040, 127^2 * D <
-// 2^24 and the cast is exact too, above it the cast rounds to the nearest
-// f32 once (the plain versions sum in f64 and round the same way).
+// before this one did, so bf16 scores keep their bits (the wide kernel's
+// wgmma sums take another order: within 1e-4 of the plain version, and
+// exact wherever every partial sum is); an int8 score is an s32 sum cast
+// to f32, as the JAX kernel's int8 branch computes it.  The s32 sum is
+// exact (|sum| <= 127^2 * D < 2^31); up to D 1040, 127^2 * D < 2^24 and
+// the cast is exact too, above it the cast rounds to the nearest f32 once
+// (the plain versions sum in f64 and round the same way).
 
 #pragma once
 
@@ -91,6 +111,18 @@ constexpr int kMaxBlocks = kMergeWarps * 32 * kMaxChunks;
 constexpr int kBulk = 4;                         // entering candidates a batch sorts above
 constexpr int kNoId = 0x7fffffff;
 constexpr int kSmemLimit = 232448;
+// the wide kernel: rows of more than kWideAboveD values, either type
+constexpr int kWideAboveD = 1024;
+constexpr int kSelectors = 16;                          // selecting warps
+constexpr int kWideQPW = kQB / kSelectors;              // queries a selecting warp owns
+constexpr int kScoreWarps = 4;                          // the scoring warpgroup
+constexpr int kWideProducer = kSelectors + kScoreWarps;  // the producer's warp
+constexpr int kWideThreads = (kWideProducer + 1) * 32;
+constexpr int kScBufs = 2;  // score buffers; one where two would leave the ring one stage
+static_assert(kSelectors % 4 == 0, "the scoring warps form a warpgroup of their own");
+// queries a warp selects for: a consumer's, or the wide kernel's selecting warp's
+template <bool kWide>
+constexpr int kQueries = kWide ? kWideQPW : kQPW;
 
 // (s1, i1) ranks before (s2, i2): higher score, then lower id
 __device__ __forceinline__ bool before(float s1, int i1, float s2, int i2) {
@@ -119,6 +151,10 @@ struct Elem<__nv_bfloat16> {
   __device__ static void mma(Acc (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
     mma_bf16(d, a, b0, b1);
   }
+  // the wide kernel's step: (64 rows) x (32 queries), one 32-byte k-step
+  __device__ static void wgmma(Acc (&d)[16], uint64_t a, uint64_t b, uint32_t scale_d) {
+    wgmma_ss(d, a, b, scale_d);
+  }
 };
 
 template <>
@@ -127,6 +163,9 @@ struct Elem<int8_t> {
   using Acc = int;
   __device__ static void mma(Acc (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
     mma_s8(d, a, b0, b1);
+  }
+  __device__ static void wgmma(Acc (&d)[16], uint64_t a, uint64_t b, uint32_t scale_d) {
+    wgmma_ss_s8(d, a, b, scale_d);
   }
 };
 
@@ -163,12 +202,16 @@ struct Smem {
   unsigned char* q;      // [nbox][32 rows][128 B], 128-byte swizzle
   unsigned char* ring;   // [stages][64 rows][128 B], 128-byte swizzle
   unsigned char* slots;  // [kSlots][kSlotBytes]
-  float* sc;             // [2][kQB][kScStride]
+  float* sc;             // [2][kQB][kScStride] (the wide kernel: [scbufs])
   uint64_t* full;        // [stages] a box has landed
   uint64_t* empty;       // [stages] the consumers have read a box
   uint64_t* sfull;       // [kSlots] a slot has landed
   uint64_t* sempty;      // [kSlots] the consumers are done with a slot's tile
   uint64_t* qbar;        // the query block has landed
+  // the wide kernel only (carve_wide)
+  uint64_t* scfull = nullptr;   // [scbufs] a tile's scores are in the buffer
+  uint64_t* scempty = nullptr;  // [scbufs] the selecting warps are done with it
+  int scbufs = 0;
 };
 
 // a tile slot: ticker codes, doc-type codes, gids (kernel 3), position,
@@ -452,6 +495,131 @@ __device__ __forceinline__ void offer(float (&ls)[Q], int (&li)[Q], float (&ts)[
   }
 }
 
+// -- the wide kernel's shared memory and scoring -------------------------------
+
+// Dynamic shared memory of a block of the wide kernel with `bufs` score
+// buffers (ops/topk.py wide_smem mirrors it): carve's regions, with
+// `bufs` buffers in place of two and their full and empty barriers.
+__host__ __device__ inline size_t wide_smem_with(int nbox, int stages, int bufs) {
+  return 1024 + (size_t)nbox * kQBox + (size_t)stages * kBox + kSlots * kSlotBytes +
+         sizeof(float) * bufs * kQB * kScStride +
+         sizeof(uint64_t) * (2 * stages + 2 * kSlots + 2 * bufs + 1);
+}
+
+// kScBufs buffers, or one where kScBufs would not fit beside the ring (the
+// widest rows: one buffer leaves room for a second stage)
+__host__ __device__ inline int wide_bufs(int nbox, int stages) {
+  return wide_smem_with(nbox, stages, kScBufs) <= (size_t)kSmemLimit ? kScBufs : 1;
+}
+
+__host__ __device__ inline size_t wide_smem_bytes(int nbox, int stages) {
+  return wide_smem_with(nbox, stages, wide_bufs(nbox, stages));
+}
+
+__device__ __forceinline__ Smem carve_wide(unsigned char* raw, int nbox, int stages) {
+  Smem m;
+  m.scbufs = wide_bufs(nbox, stages);
+  unsigned char* p = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  m.q = p;
+  p += nbox * kQBox;
+  m.ring = p;
+  p += stages * kBox;
+  m.slots = p;
+  p += kSlots * kSlotBytes;
+  m.sc = reinterpret_cast<float*>(p);
+  p += sizeof(float) * m.scbufs * kQB * kScStride;
+  m.full = reinterpret_cast<uint64_t*>(p);
+  m.empty = m.full + stages;
+  m.sfull = m.empty + stages;
+  m.sempty = m.sfull + kSlots;
+  m.scfull = m.sempty + kSlots;
+  m.scempty = m.scfull + m.scbufs;
+  m.qbar = m.scempty + m.scbufs;
+  return m;
+}
+
+// a box is released by each scoring warp, a tile slot and a score buffer
+// by each selecting warp; a buffer is filled by every scoring thread
+__device__ __forceinline__ void init_wide_barriers(const Smem& m, int stages) {
+  for (int s = 0; s < stages; ++s) {
+    mbar_init(&m.full[s], 1);
+    mbar_init(&m.empty[s], kScoreWarps);
+  }
+  for (int s = 0; s < kSlots; ++s) {
+    mbar_init(&m.sfull[s], 1);
+    mbar_init(&m.sempty[s], kSelectors);
+  }
+  for (int b = 0; b < m.scbufs; ++b) {
+    mbar_init(&m.scfull[b], kScoreWarps * 32);
+    mbar_init(&m.scempty[b], kSelectors);
+  }
+  mbar_init(m.qbar, 1);
+  mbar_init_fence();
+}
+
+// The scoring warpgroup's walk (warp wl of its four): each tile's (64
+// rows) x (32 queries) sums on wgmma, box by box as the boxes land, A the
+// ring's box and B the query block's box of the same 128 bytes, both
+// K-major in the 128-byte swizzle TMA wrote, four 32-byte k-steps a box (a
+// row's last box may run past D: TMA fills it, and the query box, with
+// zeros).  One box's products stay in flight while the next box is
+// waited for, and a box is released once its products are done.  At the
+// tile's end the sums go to the next score buffer as [query][row] f32
+// (an s32 sum cast once), which the selecting warps read.
+template <typename T>
+__device__ __forceinline__ void score_walk(const Smem& m, int nbox, int stages, int wl, int lane) {
+  typename Elem<T>::Acc acc[16] = {};
+  const int g = lane >> 2, t = lane & 3;
+  mbar_wait(m.qbar, 0);
+  int s = 0, ph = 0;
+  for (int tile = 0;; ++tile) {
+    const int slot = tile % kSlots;
+    mbar_wait(&m.sfull[slot], (tile / kSlots) & 1);
+    if (*reinterpret_cast<const volatile int*>(m.slots + slot * kSlotBytes + kSlotBase) < 0) break;
+    int prev = 0;
+    for (int b = 0; b < nbox; ++b) {
+      mbar_wait(&m.full[s], ph);
+      const unsigned char* rows = m.ring + s * kBox;
+      const unsigned char* qs = m.q + b * kQBox;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Elem<T>::wgmma(acc, wgmma_desc_sw128(rows + 32 * kk), wgmma_desc_sw128(qs + 32 * kk),
+                       (b | kk) != 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the box before's products are done: release it
+      mbar_arrive_if(&m.empty[prev], lane == 0 && b > 0);
+      prev = s;
+      if (++s == stages) { s = 0; ph ^= 1; }
+    }
+    wgmma_wait<0>();
+    wgmma_pin(acc);
+    if (lane == 0) mbar_arrive(&m.empty[prev]);
+    const int buf = tile % m.scbufs;
+    mbar_wait(&m.scempty[buf], ((tile / m.scbufs) & 1) ^ 1);
+    // acc[4j + 2h + e]: row 16 wl + g + 8h, query 8j + 2t + e
+    float* sc = m.sc + buf * kQB * kScStride + 16 * wl + g;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          sc[(8 * j + 2 * t + e) * kScStride + 8 * h] = (float)acc[4 * j + 2 * h + e];
+    mbar_arrive(&m.scfull[buf]);
+  }
+}
+
+// A selecting warp's scores of the walk's tile `tile`: its buffer, once
+// the scoring warpgroup has filled it; `buf` receives the buffer, which
+// the warp releases when done with the tile.
+__device__ __forceinline__ const float* wide_scores(const Smem& m, int tile, int& buf) {
+  buf = tile % m.scbufs;
+  mbar_wait(&m.scfull[buf], (tile / m.scbufs) & 1);
+  return m.sc + buf * kQB * kScStride;
+}
+
 // -- the consumers -----------------------------------------------------------
 
 // The (32 queries) x (64 rows) scores of the walk's tile `tile`, from the
@@ -484,18 +652,18 @@ __device__ __forceinline__ float* score_tile(const Smem& m, int nbox, int row_by
 // when it passes the query's [ticker, doc_type] filter (-1 is the
 // wildcard) and is live: below n_valid (kernel 1) or with a gid >= 0
 // (kernel 3, kIvf).  n is the codes' row length (Producer::tile).
-template <typename T, bool kIvf>
+template <typename T, bool kIvf, bool kWide = false, int Q = kQueries<kWide>>
 __device__ __forceinline__ void consume(const Smem& m, int nbox, int row_bytes, int stages,
                                         int B, int qb0, int n, int n_valid, int k,
                                         const int32_t* __restrict__ qf, int warp, int lane,
-                                        float (&ls)[kQPW], int (&li)[kQPW]) {
-  bool live[kQPW], fresh[kQPW];
-  int tq[kQPW], dq[kQPW];
-  float ts[kQPW];
-  int ti[kQPW];
+                                        float (&ls)[Q], int (&li)[Q]) {
+  bool live[Q], fresh[Q];
+  int tq[Q], dq[Q];
+  float ts[Q];
+  int ti[Q];
 #pragma unroll
-  for (int qq = 0; qq < kQPW; ++qq) {
-    const int q = qb0 + warp * kQPW + qq;
+  for (int qq = 0; qq < Q; ++qq) {
+    const int q = qb0 + warp * Q + qq;
     live[qq] = q < B;
     tq[qq] = live[qq] ? qf[2 * q] : 0;
     dq[qq] = live[qq] ? qf[2 * q + 1] : 0;
@@ -511,7 +679,10 @@ __device__ __forceinline__ void consume(const Smem& m, int nbox, int row_bytes, 
     const unsigned char* sl = m.slots + slot * kSlotBytes;
     const int base = *reinterpret_cast<const volatile int*>(sl + kSlotBase);
     if (base < 0) break;
-    const float* sc = score_tile<T>(m, nbox, row_bytes, stages, tile, s, ph, warp, lane);
+    int buf = 0;
+    const float* sc;
+    if constexpr (kWide) sc = wide_scores(m, tile, buf);
+    else sc = score_tile<T>(m, nbox, row_bytes, stages, tile, s, ph, warp, lane);
 
     const int32_t* codes0 = reinterpret_cast<const int32_t*>(sl);
     const int32_t* codes1 = reinterpret_cast<const int32_t*>(sl + kSlotCodes1) + (n & 3);
@@ -521,32 +692,36 @@ __device__ __forceinline__ void consume(const Smem& m, int nbox, int row_bytes, 
       const int r = lane + 32 * h;
       const int tc = codes0[r], dc = codes1[r], id = base + r;
       const bool row_ok = kIvf ? gids[r] >= 0 : id < n_valid;
-      float cs[kQPW];
-      int ci[kQPW];
-      bool ok[kQPW], enter[kQPW];
+      float cs[Q];
+      int ci[Q];
+      bool ok[Q], enter[Q];
 #pragma unroll
-      for (int qq = 0; qq < kQPW; ++qq) {
-        cs[qq] = sc[(warp * kQPW + qq) * kScStride + r];
+      for (int qq = 0; qq < Q; ++qq) {
+        cs[qq] = sc[(warp * Q + qq) * kScStride + r];
         ci[qq] = id;
         ok[qq] = live[qq] && row_ok && (tq[qq] == -1 || tq[qq] == tc) &&
                  (dq[qq] == -1 || dq[qq] == dc);
       }
-      offer<kQPW>(ls, li, ts, ti, fresh, cs, ci, ok, enter, lane, k);
+      offer<Q>(ls, li, ts, ti, fresh, cs, ci, ok, enter, lane, k);
     }
     __syncwarp();
-    if (lane == 0) mbar_arrive(&m.sempty[slot]);
+    if (lane == 0) {
+      if constexpr (kWide) mbar_arrive(&m.scempty[buf]);
+      mbar_arrive(&m.sempty[slot]);
+    }
   }
 }
 
 // the block's lists: entry j of block g's list for query q at
 // ((q * k + j) * G + g) of the scratch
-__device__ __forceinline__ void write_lists(const float (&ls)[kQPW], const int (&li)[kQPW], int B,
+template <int Q>
+__device__ __forceinline__ void write_lists(const float (&ls)[Q], const int (&li)[Q], int B,
                                             int qb0, int k, float* __restrict__ part_s,
                                             int32_t* __restrict__ part_i, int warp, int lane) {
   const int g = blockIdx.x, G = gridDim.x;
 #pragma unroll
-  for (int qq = 0; qq < kQPW; ++qq) {
-    const int q = qb0 + warp * kQPW + qq;
+  for (int qq = 0; qq < Q; ++qq) {
+    const int q = qb0 + warp * Q + qq;
     if (q < B && lane < k) {
       const size_t at = ((size_t)q * k + lane) * G + g;
       part_s[at] = ls[qq];

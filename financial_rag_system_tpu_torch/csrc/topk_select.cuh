@@ -91,7 +91,8 @@ struct Select {
 inline long long round4(long long words) { return (words + 3) & ~3LL; }
 
 // blocks a query of passes 2-3: kSweepsAnSm an SM over the card's SMs
-// (the walk's grid is two blocks an SM), at most a chunk each
+// (reckoned as if the walk's grid were two blocks an SM; the wide
+// kernel's one an SM gets half as many), at most a chunk each
 inline int select_sweeps(int B, long long cols, int walk_blocks) {
   const long long chunks = (cols + kChunk - 1) / kChunk;
   const long long fill = ((long long)kSweepsAnSm / 2 * walk_blocks + B - 1) / B;
@@ -147,18 +148,20 @@ __device__ __forceinline__ void clear_select(const Select& sel, int B) {
 }
 
 // A consumer warp's walk on the select path: score each tile as consume
-// does, then write its four queries' scores of the tile's 64 rows to
-// their rows of the table from the tile's column, -inf where the row is
-// not a candidate (consume's rule).
-template <typename T, bool kIvf>
+// does (kWide: take its scores from the scoring warpgroup's buffer), then
+// write its queries' scores of the tile's 64 rows to their rows of the
+// table from the tile's column, -inf where the row is not a candidate
+// (consume's rule).
+template <typename T, bool kIvf, bool kWide = false>
 __device__ __forceinline__ void store_walk(const Smem& m, int nbox, int row_bytes, int stages,
                                            int B, int qb0, int n, int n_valid,
                                            const int32_t* __restrict__ qf, const Select& sel,
                                            int warp, int lane) {
-  int tq[kQPW], dq[kQPW];
+  constexpr int Q = kQueries<kWide>;
+  int tq[Q], dq[Q];
 #pragma unroll
-  for (int qq = 0; qq < kQPW; ++qq) {
-    const int q = qb0 + warp * kQPW + qq;
+  for (int qq = 0; qq < Q; ++qq) {
+    const int q = qb0 + warp * Q + qq;
     tq[qq] = q < B ? qf[2 * q] : 0;
     dq[qq] = q < B ? qf[2 * q + 1] : 0;
   }
@@ -171,7 +174,10 @@ __device__ __forceinline__ void store_walk(const Smem& m, int nbox, int row_byte
     const int base = *reinterpret_cast<const volatile int*>(sl + kSlotBase);
     if (base < 0) break;
     const int col = *reinterpret_cast<const volatile int*>(sl + kSlotCol);
-    const float* sc = score_tile<T>(m, nbox, row_bytes, stages, tile, s, ph, warp, lane);
+    int buf = 0;
+    const float* sc;
+    if constexpr (kWide) sc = wide_scores(m, tile, buf);
+    else sc = score_tile<T>(m, nbox, row_bytes, stages, tile, s, ph, warp, lane);
 
     const int32_t* codes0 = reinterpret_cast<const int32_t*>(sl);
     const int32_t* codes1 = reinterpret_cast<const int32_t*>(sl + kSlotCodes1) + (n & 3);
@@ -182,16 +188,19 @@ __device__ __forceinline__ void store_walk(const Smem& m, int nbox, int row_byte
       const int tc = codes0[r], dc = codes1[r];
       const bool row_ok = kIvf ? gids[r] >= 0 : base + r < n_valid;
 #pragma unroll
-      for (int qq = 0; qq < kQPW; ++qq) {
-        const int q = qb0 + warp * kQPW + qq;
+      for (int qq = 0; qq < Q; ++qq) {
+        const int q = qb0 + warp * Q + qq;
         const bool ok = row_ok && (tq[qq] == -1 || tq[qq] == tc) && (dq[qq] == -1 || dq[qq] == dc);
         if (q < B)
           sel.table[(size_t)q * sel.stride + col + r] =
-              ok ? sc[(warp * kQPW + qq) * kScStride + r] : -INFINITY;
+              ok ? sc[(warp * Q + qq) * kScStride + r] : -INFINITY;
       }
     }
     __syncwarp();
-    if (lane == 0) mbar_arrive(&m.sempty[slot]);
+    if (lane == 0) {
+      if constexpr (kWide) mbar_arrive(&m.scempty[buf]);
+      mbar_arrive(&m.sempty[slot]);
+    }
   }
 }
 

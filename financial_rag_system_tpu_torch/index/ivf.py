@@ -57,6 +57,7 @@ from financial_rag_system_tpu_torch.ops import _cuda
 from financial_rag_system_tpu_torch.ops.topk import (
     NEG_INF,
     TILE_ROWS,
+    WIDE_ABOVE_D,
     TopkPlan,
     _match_mask,
     _scores,
@@ -176,8 +177,9 @@ def probe_plan(b: int, n_probe: int, tile: int, d: int, elt: int, k: int, sms: i
     entries are active is known only on the card, where each block finds
     it and takes an even share of the active tiles' 64-row pieces; the plan
     sizes the grid, and the select path's score table, for the whole
-    list."""
-    return plan_for(b, n_probe * (tile // TILE_ROWS), d * elt, k, sms, ivf=True)
+    list (the wide kernel's above WIDE_ABOVE_D values)."""
+    return plan_for(b, n_probe * (tile // TILE_ROWS), d * elt, k, sms, ivf=True,
+                    wide=d > WIDE_ABOVE_D)
 
 
 @functools.cache
@@ -235,7 +237,9 @@ def ivf_probe_cuda(
             out.data_ptr(),
         )
     with _launch_lock:  # batches run in worker threads
-        if plan.path == "select":
+        if plan.wide:
+            ivf_probe.launches_wide += 1
+        elif plan.path == "select":
             ivf_probe.launches_select += 1
         elif packed_emb.dtype == torch.int8:
             ivf_probe.launches_int8 += 1
@@ -265,6 +269,7 @@ def ivf_probe(
 ivf_probe.launches = 0
 ivf_probe.launches_int8 = 0
 ivf_probe.launches_select = 0
+ivf_probe.launches_wide = 0
 _launch_lock = threading.Lock()
 
 

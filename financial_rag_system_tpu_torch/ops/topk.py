@@ -27,7 +27,12 @@ bf16 or 6,272 int8 values.  Up to ``LIST_K`` the kernel keeps best lists
 (the main paths' k 15); above it, the same walk writes the masked scores
 to a table in device memory and an exact threshold selection finds the
 top k there (``csrc/topk_select.cuh``; counted in
-``masked_topk.launches_select``, either type).
+``masked_topk.launches_select``, either type).  Rows of more than
+``WIDE_ABOVE_D`` values (bf16 rows above 2,048 bytes, int8 rows above
+1,024) take the wide kernel, one block an SM whose scoring warpgroup
+scores each tile on ``wgmma`` while its selecting warps select from the
+tile before (``csrc/topk_common.cuh``; counted in
+``masked_topk.launches_wide``, either type and path).
 
 Filter encoding: each corpus row carries int32 ``[ticker_code,
 doc_type_code]``; each query carries required codes where ``-1`` means
@@ -65,8 +70,11 @@ SM_SMEM = 233_472             # shared memory of an SM, 1 KB of it a block's
 # the plan's defaults: ring stages (boxes of 64 rows x 128 bytes) and blocks an SM
 TOPK_STAGES = 8
 TOPK_PER_SM = 2
-# the fewest ring stages two blocks an SM may keep; wider rows take one block an SM
-MIN_SHARED_STAGES = 3
+# the wide kernel (csrc/topk_common.cuh): rows of more than WIDE_ABOVE_D
+# values, either type, one block an SM; SCORE_BUFS score buffers, one
+# where two would leave the ring a single stage
+WIDE_ABOVE_D = 1024
+SCORE_BUFS = 2
 # the select path above LIST_K (csrc/topk_select.cuh)
 DIGIT_BITS = 11        # bits of the order key a digit pass settles: 11, 11, 10
 LAST_BITS = 32 - DIGIT_BITS * (31 // DIGIT_BITS)  # the last digit's
@@ -145,6 +153,7 @@ class TopkPlan(NamedTuple):
     cols: int        # select path: score-table columns a query, 64 a tile (0: lists)
     sweeps: int      # select path: blocks a query of the digit and collect passes
     runs: int        # select path: runs of SORT_CAP survivors, sorted apart then merged
+    wide: bool = False  # the wide kernel (rows of more than WIDE_ABOVE_D values)
 
     @property
     def path(self) -> str:
@@ -188,48 +197,85 @@ def topk_smem(row_bytes: int, stages: int) -> int:
             + 8 * (2 * stages + 2 * SLOTS + 1))
 
 
+def wide_smem_with(row_bytes: int, stages: int, bufs: int) -> int:
+    """Bytes of dynamic shared memory a block of the wide kernel takes with
+    ``bufs`` score buffers (``wide_smem_with`` in ``csrc/topk_common.cuh``):
+    ``topk_smem``'s regions with ``bufs`` buffers in place of two, and
+    their full and empty barriers."""
+    boxes = -(-row_bytes // BOX_BYTES)
+    return (1024 + boxes * QUERY_BLOCK * BOX_BYTES + stages * TILE_ROWS * BOX_BYTES
+            + SLOTS * SLOT_BYTES + 4 * bufs * QUERY_BLOCK * SCORE_STRIDE
+            + 8 * (2 * stages + 2 * SLOTS + 2 * bufs + 1))
+
+
+def wide_bufs(row_bytes: int, stages: int) -> int:
+    """The wide kernel's score buffers (``wide_bufs``): SCORE_BUFS where
+    they fit beside the ring, else one."""
+    return SCORE_BUFS if wide_smem_with(row_bytes, stages, SCORE_BUFS) <= SMEM_LIMIT else 1
+
+
+def wide_smem(row_bytes: int, stages: int) -> int:
+    """Bytes of dynamic shared memory a block of the wide kernel takes
+    (``wide_smem_bytes``)."""
+    return wide_smem_with(row_bytes, stages, wide_bufs(row_bytes, stages))
+
+
+def wide_room(row_bytes: int) -> int:
+    """Ring stages the wide kernel's block holds beside the query block:
+    with SCORE_BUFS buffers, or with one where that leaves fewer than two
+    (rows above 6,016 bytes)."""
+    def room(bufs: int) -> int:
+        return (SMEM_LIMIT - wide_smem_with(row_bytes, 0, bufs)) // (TILE_ROWS * BOX_BYTES)
+    return room(SCORE_BUFS) if room(SCORE_BUFS) >= 2 else room(1)
+
+
 def plan_for(b: int, tiles: int, row_bytes: int, k: int, sms: int,
-             per_sm: int = TOPK_PER_SM, stages: int = TOPK_STAGES,
-             ivf: bool = False) -> TopkPlan:
+             per_sm: int = TOPK_PER_SM, stages: int | None = None,
+             ivf: bool = False, wide: bool = False) -> TopkPlan:
     """The launch of kernel 1 or 3 for ``b`` queries over ``tiles`` 64-row
     tiles of ``row_bytes`` bytes a row, on a card of ``sms`` multiprocessors:
     ``per_sm`` blocks an SM shared by the query blocks, never more blocks
     than tiles or than pass 2 merges, each with as many ring stages as its
-    share of the SM's shared memory holds, up to ``stages`` (two blocks an
-    SM keep three at D 1024 in bf16, eight at D 384).  Rows too wide for
-    MIN_SHARED_STAGES stages at ``per_sm`` blocks an SM take one block an
-    SM (up to MAX_ROW_BYTES, where one stage is left).  A k above LIST_K
-    takes the select path: the same walk (grid, ring and shared memory)
-    writes a table of 64 columns a tile, which ``sweeps`` blocks a query
-    pass over, and the survivors sort in ``runs`` runs (``ivf``: kernel
-    3's scratch also maps its pieces)."""
+    share of the SM's shared memory holds, up to ``stages`` (TOPK_STAGES
+    by default: two blocks an SM keep three at D 1024 in bf16, eight at D
+    384).  ``wide`` (rows of more than WIDE_ABOVE_D values, up to
+    MAX_ROW_BYTES) plans the wide kernel: one block an SM, and the ring its
+    shared memory holds beside the query block and the score buffers
+    (``wide_room``: 13 stages at D 1536 in bf16, 2 at D 3136), up to
+    ``stages`` (MAX_STAGES by default).  A k above LIST_K takes the select
+    path: the same walk (grid, ring and shared memory) writes a table of
+    64 columns a tile, which ``sweeps`` blocks a query pass over, and the
+    survivors sort in ``runs`` runs (``ivf``: kernel 3's scratch also maps
+    its pieces)."""
     qblocks = -(-b // QUERY_BLOCK)
-
-    def room(blocks_an_sm: int) -> int:
-        budget = min(SM_SMEM // blocks_an_sm - 1024, SMEM_LIMIT)
-        return (budget - topk_smem(row_bytes, 0)) // (TILE_ROWS * BOX_BYTES)
-
-    if per_sm > 1 and room(per_sm) < MIN_SHARED_STAGES:
+    if wide:
         per_sm = 1
-    n_stages = min(stages, MAX_STAGES, room(per_sm))
+        n_stages = min(stages or MAX_STAGES, MAX_STAGES, wide_room(row_bytes))
+        smem = wide_smem(row_bytes, n_stages)
+    else:
+        budget = min(SM_SMEM // per_sm - 1024, SMEM_LIMIT)
+        room = (budget - topk_smem(row_bytes, 0)) // (TILE_ROWS * BOX_BYTES)
+        n_stages = min(stages or TOPK_STAGES, MAX_STAGES, room)
+        smem = topk_smem(row_bytes, n_stages)
     if n_stages < 1:
         raise ValueError(f"rows of {row_bytes} bytes leave no ring stage "
                          f"(at most {MAX_ROW_BYTES})")
     blocks = max(1, min(tiles, sms * per_sm // qblocks, MAX_BLOCKS))
-    walk = (blocks, qblocks, n_stages, topk_smem(row_bytes, n_stages), tiles)
+    walk = (blocks, qblocks, n_stages, smem, tiles)
     if k <= LIST_K:
-        return TopkPlan(*walk, blocks * k, 2 * b * k * blocks, 0, 0, 0)
+        return TopkPlan(*walk, blocks * k, 2 * b * k * blocks, 0, 0, 0, wide)
     cols = tiles * TILE_ROWS
     sweeps = select_sweeps(b, cols, blocks * qblocks)
     return TopkPlan(*walk, 0, select_scratch(b, cols, k, sweeps, ivf), cols, sweeps,
-                    -(-k // SORT_CAP))
+                    -(-k // SORT_CAP), wide)
 
 
 @functools.lru_cache(maxsize=256)
 def topk_plan(b: int, n: int, d: int, elt: int, k: int, sms: int) -> TopkPlan:
     """Kernel 1's plan for ``b`` queries over ``n`` rows of ``d`` values of
-    ``elt`` bytes: the 64-row tiles dealt out in contiguous shares."""
-    return plan_for(b, -(-n // TILE_ROWS), d * elt, k, sms)
+    ``elt`` bytes: the 64-row tiles dealt out in contiguous shares (the
+    wide kernel's above WIDE_ABOVE_D values)."""
+    return plan_for(b, -(-n // TILE_ROWS), d * elt, k, sms, wide=d > WIDE_ABOVE_D)
 
 
 @functools.cache
@@ -281,7 +327,9 @@ def masked_topk_cuda(
             plan.stages, scratch.data_ptr(), out.data_ptr(),
         )
     with _launch_lock:  # batches run in worker threads
-        if plan.path == "select":
+        if plan.wide:
+            masked_topk.launches_wide += 1
+        elif plan.path == "select":
             masked_topk.launches_select += 1
         elif corpus.dtype == torch.int8:
             masked_topk.launches_int8 += 1
@@ -309,8 +357,10 @@ def masked_topk(
 
 
 # kernel launches since the last reset, by branch (chip_smoke.py reads
-# and resets them): the lists' bf16 and int8 branches, and the select path
+# and resets them): the lists' bf16 and int8 branches, the select path,
+# and the wide kernel (either type and path)
 masked_topk.launches = 0
 masked_topk.launches_int8 = 0
 masked_topk.launches_select = 0
+masked_topk.launches_wide = 0
 _launch_lock = threading.Lock()

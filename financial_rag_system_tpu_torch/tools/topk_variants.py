@@ -2,6 +2,7 @@
 
     python3 financial_rag_system_tpu_torch/tools/topk_variants.py [--parent OLD/.../csrc]
                                                                   [--only NAME,NAME]
+                                                                  [--width D]
 
 Builds copies of ``financial_rag_system_tpu_torch/csrc/masked_topk.cu`` and
 ``ivf_probe.cu`` with their sources changed in one way, and runs each at
@@ -10,13 +11,18 @@ bf16 and int8 and over 1,048,576 bf16 rows, kernel 3 over a 1M-row
 packing of 16,384 tiles of 128 (512 clusters of 32 tiles, each about
 half live) on a list of 544 active tiles (17 clusters, as the phase-4
 batch of random-init queries probes) and on one of 10,496 (328 clusters,
-as a diverse batch probes), in bf16 and int8.  Variants:
+as a diverse batch probes), in bf16 and int8.  ``--width D`` gives every
+row D values in place of 384 (``--width 1536``: rows above WIDE_ABOVE_D
+values, which take the wide kernel in both types; the 1M-row flat case is
+left out there).
+Variants:
 
 - ``as_is``: the kernels as the port builds them, on the plan
   ``topk_plan`` / ``probe_plan`` makes (two blocks an SM, 8 stages of
-  8 KB);
+  8 KB at D 384; the wide kernel's one block an SM and its ring);
 - ``stages_3``, ``stages_4``, ``stages_6``: the ring that deep;
-- ``per_sm_1``, ``per_sm_1_16``: one block an SM, with 8 and 16 stages;
+- ``per_sm_1``, ``per_sm_1_16``: one block an SM, with 8 and 16 stages
+  (the wide kernel: 8 stages, and as many up to 16 as fit);
 - ``bulk_2``, ``bulk_8``, ``no_bulk``: a batch is sorted and merged
   whole where more than 2 or 8 of its candidates enter, or never (the
   kernel: more than 4); below that each entering candidate is inserted
@@ -26,7 +32,13 @@ as a diverse batch probes), in bf16 and int8.  Variants:
 - ``no_select``: the scores are read but no candidate is offered to a
   list (wrong output): what the selection costs;
 - ``loads_only``: no product and no selection (wrong output): what the
-  TMA walk alone takes;
+  TMA walk alone takes (the wide kernel: its scoring warpgroup waits for
+  each box and releases it, and issues no ``wgmma``);
+- ``wide_bufs_1``: the wide kernel with one score buffer (the kernel:
+  two), so a tile is scored only once the selecting warps are done with
+  the one before;
+- ``wide_selectors_8``: the wide kernel with 8 selecting warps of four
+  queries each (the kernel: 16 of two), 13 warps a block;
 - ``old_select``: the selection of the design before, with the new
   loads: each lane keeps one query's 32-entry list in registers, inserts
   its warp's 8 rows of each tile with a compare-and-swap chain, and the 8
@@ -98,12 +110,15 @@ def patched(text: str, old: str, new: str, name: str = "topk_common.cuh") -> str
     return text.replace(old, new)
 
 
-OFFER = "offer<kQPW>(ls, li, ts, ti, fresh, cs, ci, ok, enter, lane, k);"
+OFFER = "offer<Q>(ls, li, ts, ti, fresh, cs, ci, ok, enter, lane, k);"
 # keeps each lane's best score (and a real id) so nothing is optimised away
-KEEP_BEST = ("for (int qq = 0; qq < kQPW; ++qq) "
+KEEP_BEST = ("for (int qq = 0; qq < Q; ++qq) "
              "if (ok[qq] && cs[qq] > ls[qq]) { ls[qq] = cs[qq]; li[qq] = ci[qq]; }")
 SCORE = ("score_box<T>(acc, qs + b * kQBox, ring + s * kBox, "
          "min(4, (row_bytes - b * kBoxBytes) / 32),\n                 warp, lane);")
+# the wide kernel's products of a box (score_walk)
+WIDE_SCORE = ("        Elem<T>::wgmma(acc, wgmma_desc_sw128(rows + 32 * kk), "
+              "wgmma_desc_sw128(qs + 32 * kk),\n                       (b | kk) != 0);")
 
 # the two-pass design's selection: lane = query, a 32-entry sorted list in
 # registers, the warp's 8 rows of each tile inserted by a swap chain, the
@@ -124,11 +139,17 @@ __device__ __forceinline__ bool old_insert(float (&ls)[kOldK], int (&li)[kOldK],
   return true;
 }
 
-template <typename T, bool kIvf>
+template <typename T, bool kIvf, bool kWide>
 __device__ __forceinline__ void consume_old(const Smem& m, int nbox, int row_bytes, int stages,
                                             int B, int qb0, int n, int n_valid, int k,
                                             const int32_t* __restrict__ qf, int warp, int lane,
-                                            float (&ls)[kQPW], int (&li)[kQPW]) {
+                                            float (&ls)[kQueries<kWide>],
+                                            int (&li)[kQueries<kWide>]) {
+  if constexpr (kWide) {  // the wide kernel keeps its own selection
+    consume<T, kIvf, true>(m, nbox, row_bytes, stages, B, qb0, n, n_valid, k, qf, warp, lane, ls,
+                           li);
+    return;
+  }
   using Acc = typename Elem<T>::Acc;
   const int q = qb0 + lane;
   const bool live = q < B;
@@ -203,14 +224,19 @@ __device__ __forceinline__ void consume_old(const Smem& m, int nbox, int row_byt
   }
 }
 
-// -- the consumers'''
+// the block's lists: entry j'''
 
 
 SOURCES = ("sm90.cuh", "mma_bf16.cuh", "topk_common.cuh", "topk_select.cuh", "masked_topk.cu",
            "ivf_probe.cu")
-# the select path's walk launch in each kernel's source
-WALK_LAUNCH = {"masked_topk.cu": "    masked_topk_kernel<T, true><<<grid, kThreads, smem, st>>>(",
-               "ivf_probe.cu": "    ivf_probe_kernel<T, true><<<grid, kThreads, smem, st>>>("}
+# the walk's launch in each kernel's source (select_two_walks repeats the
+# select path's)
+WALK_LAUNCH = {
+    "masked_topk.cu":
+        "  masked_topk_kernel<T, kSelect, kWide><<<grid, kWide ? kWideThreads : kThreads, smem, st>>>(",
+    "ivf_probe.cu":
+        "  ivf_probe_kernel<T, kSelect, kWide><<<grid, kWide ? kWideThreads : kThreads, smem, st>>>(",
+}
 
 
 def select_variant_sources() -> dict[str, dict[str, str]]:
@@ -241,7 +267,8 @@ def select_variant_sources() -> dict[str, dict[str, str]]:
             "__global__ void __launch_bounds__(kSelThreads, kSweepsAnSm) collect_kernel(",
             "topk_select.cuh")},
         "select_two_walks": {f: patched((CSRC / f).read_text(), launch,
-                                        "    for (int walk = 0; walk < 2; ++walk)\n" + launch, f)
+                                        "  for (int twice = 0; twice < (kSelect ? 2 : 1); ++twice)\n"
+                                        + launch, f)
                              for f, launch in WALK_LAUNCH.items()},
     }
 
@@ -262,8 +289,12 @@ def variant_sources() -> dict[str, dict[str, str]]:
                                     "constexpr int kMergeWarps = 16;"),
                             "constexpr int kMaxChunks = 3;", "constexpr int kMaxChunks = 1;"),
         "no_select": patched(base, OFFER, KEEP_BEST),
-        "loads_only": patched(patched(base, OFFER, KEEP_BEST), SCORE, ""),
-        "old_select": patched(base, "\n// -- the consumers", OLD_SELECT_FNS),
+        "loads_only": patched(patched(patched(base, OFFER, KEEP_BEST), SCORE, ""), WIDE_SCORE,
+                              "        ;"),
+        "wide_bufs_1": patched(base, "constexpr int kScBufs = 2;", "constexpr int kScBufs = 1;"),
+        "wide_selectors_8": patched(base, "constexpr int kSelectors = 16;",
+                                    "constexpr int kSelectors = 8;"),
+        "old_select": patched(base, "\n// the block's lists: entry j", OLD_SELECT_FNS),
     }
     out = {name: {"topk_common.cuh": text} for name, text in lists.items()}
     for f in ("masked_topk.cu", "ivf_probe.cu"):
@@ -305,8 +336,11 @@ def build(names: list[str]) -> dict[str, dict[str, ctypes.CDLL]]:
                           log, re.S)
         for fn, st, ld, r in regs:
             kind = "int8" if "Ia" in fn or "signed" in fn else "bf16"
-            print(f"[ptxas] {name:11s} {lib} {kind}: {r} registers, spill stores {st} B, "
+            wide = " wide" if re.search(r"Lb[01]ELb1EE", fn) else ""
+            print(f"[ptxas] {name:11s} {lib} {kind}{wide}: {r} registers, spill stores {st} B, "
                   f"loads {ld} B", flush=True)
+        for line in sorted(set(re.findall(r"^.*warning.*$", log, re.M | re.I))):
+            print(f"[ptxas] {name:11s} {lib}: {line.strip()}", flush=True)
         cdll = ctypes.CDLL(str(OUT / name / f"{lib}.so"))
         p, i = ctypes.c_void_p, ctypes.c_int
         if lib == "masked_topk":
@@ -411,7 +445,7 @@ def cases(torch):
                       torch.randint(-1, 3, (B,), generator=g, device=dev)], 1).int()
     qf[:8] = -1  # a quarter of the batch unfiltered
     out = []
-    for n in (N, N_BIG):
+    for n in (N, N_BIG) if D == 384 else (N,):
         rows = unit(n)
         codes = torch.stack([torch.randint(0, 50, (n,), generator=g, device=dev),
                              torch.randint(0, 3, (n,), generator=g, device=dev)]).int()
@@ -497,7 +531,7 @@ def launcher(torch, libs, kind, args, plan_change=None):
     """A call of one variant's C entry on `args` with its own scratch."""
     from financial_rag_system_tpu_torch.index.ivf import probe_plan
     from financial_rag_system_tpu_torch.ops import _cuda
-    from financial_rag_system_tpu_torch.ops.topk import TILE_ROWS, plan_for, topk_plan
+    from financial_rag_system_tpu_torch.ops.topk import TILE_ROWS, WIDE_ABOVE_D, plan_for, topk_plan
 
     sms = _cuda.sm_count(torch.device("cuda"))
     if kind == "flat":
@@ -510,9 +544,10 @@ def launcher(torch, libs, kind, args, plan_change=None):
         (b, d), n = q.shape, emb.shape[0]
         plan = probe_plan(b, tl.numel(), TILE, d, emb.element_size(), k, sms)
         tiles = tl.numel() * TILE // TILE_ROWS
-    if plan_change is not None:
+    if plan_change is not None:  # the wide kernel's plan keeps one block an SM
         stages, per_sm = plan_change
-        plan = plan_for(b, tiles, d * q.element_size(), k, sms, per_sm=per_sm, stages=stages)
+        plan = plan_for(b, tiles, d * q.element_size(), k, sms, per_sm=per_sm, stages=stages,
+                        ivf=kind == "probe", wide=d > WIDE_ABOVE_D)
     # a select-path variant may take larger histograms (12-bit digits), a
     # second survivor buffer (a smaller sort) or more sweeping blocks: room
     extra = b * (1 << 12) + 2 * b * k + 2 * b * plan.sweeps * (1 << 10) + 64
@@ -603,10 +638,14 @@ def host_times(torch, args) -> None:
 
 
 def main() -> int:
+    global D
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", type=Path, default=None, metavar="CSRC")
     parser.add_argument("--only", default=None, help="comma-separated variant names")
+    parser.add_argument("--width", type=int, default=D, metavar="D",
+                        help="values a row (a multiple of 32), 384 by default")
     opts = parser.parse_args()
+    D = opts.width
     import torch
 
     if not torch.cuda.is_available():
@@ -614,7 +653,7 @@ def main() -> int:
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    print(f"[card] {smi}", flush=True)
+    print(f"[card] {smi}; rows of {D} values", flush=True)
     code_variants = list(variant_sources())
     names = [*code_variants, *PLAN_VARIANTS]
     if opts.only:

@@ -31,7 +31,7 @@ from financial_rag_system_tpu_torch.ops.flash_attention import (
     flash_attention_kernel,
     flash_attention_plain,
 )
-from financial_rag_system_tpu_torch.ops.topk import masked_topk, masked_topk_plain
+from financial_rag_system_tpu_torch.ops.topk import WIDE_ABOVE_D, masked_topk, masked_topk_plain
 from torch_attn_masks import holes_mask, prefix_mask, rerank_mask, segment_mask
 
 pytestmark = pytest.mark.cuda
@@ -200,12 +200,14 @@ def test_topk_int8_kernel_equals_plain(cuda, b, n, d, k):
     q, c, codes, qf = topk_case(b, n, d, n_valid=n - 100)
     args = (torch.tensor(quant(q), device=cuda), torch.tensor(quant(c), device=cuda),
             torch.tensor(codes, device=cuda), torch.tensor(qf, device=cuda), n - 100, k)
-    n0, s0 = masked_topk.launches_int8, masked_topk.launches_select
+    n0, s0, w0 = masked_topk.launches_int8, masked_topk.launches_select, masked_topk.launches_wide
     s, i = (x.cpu().numpy() for x in masked_topk(*args))
     torch.cuda.synchronize()
-    # the lists' int8 branch up to k 32, the select path above
-    assert (masked_topk.launches_int8, masked_topk.launches_select) == (n0 + (k <= 32),
-                                                                         s0 + (k > 32))
+    # the lists' int8 branch up to k 32, the select path above; rows of
+    # more than WIDE_ABOVE_D values the wide kernel, either path
+    wide = d > WIDE_ABOVE_D
+    assert (masked_topk.launches_int8, masked_topk.launches_select, masked_topk.launches_wide) == (
+        n0 + (k <= 32 and not wide), s0 + (k > 32 and not wide), w0 + wide)
     s_ref, i_ref = (x.cpu().numpy() for x in masked_topk_plain(*args))
     assert s.tobytes() == s_ref.tobytes() and i.tobytes() == i_ref.tobytes()
     if k > 1:
@@ -227,11 +229,12 @@ def test_ivf_probe_int8_kernel_equals_plain(cuda, b, d, n_tiles, tile, k):
     args = (torch.tensor(quant(q), device=cuda), torch.tensor(qf, device=cuda),
             torch.tensor(quant(emb), device=cuda), torch.tensor(codes, device=cuda),
             torch.tensor(gids, device=cuda), torch.tensor(tile_ids, device=cuda), k)
-    n0, s0 = ivf_probe.launches_int8, ivf_probe.launches_select
+    n0, s0, w0 = ivf_probe.launches_int8, ivf_probe.launches_select, ivf_probe.launches_wide
     s, i = (x.cpu().numpy() for x in ivf_probe(*args, tile=tile))
     torch.cuda.synchronize()
-    assert (ivf_probe.launches_int8, ivf_probe.launches_select) == (n0 + (k <= 32),
-                                                                     s0 + (k > 32))
+    wide = d > WIDE_ABOVE_D
+    assert (ivf_probe.launches_int8, ivf_probe.launches_select, ivf_probe.launches_wide) == (
+        n0 + (k <= 32 and not wide), s0 + (k > 32 and not wide), w0 + wide)
     s_ref, i_ref = (x.cpu().numpy() for x in ivf_probe_plain(*args, tile=tile))
     assert s.tobytes() == s_ref.tobytes() and i.tobytes() == i_ref.tobytes()
     if k > 1:
@@ -394,11 +397,11 @@ def test_ivf_probe_kernel_every_query_filtered_out(cuda, dtype):
     assert np.isneginf(s).all() and (i == -1).all()
 
 
-def random_retrieval_args(dtype, dev, k=15):
-    """Kernel 1's and kernel 3's calls at k on random unit rows (scores
-    whose f32 sums depend on their order)."""
-    q, c, codes, qf = topk_case(40, 20000, 384, n_valid=19990)
-    pq, pqf, emb, pcodes, gids, tile_ids, _ = probe_case(40, 384, 40, 128)
+def random_retrieval_args(dtype, dev, k=15, d=384):
+    """Kernel 1's and kernel 3's calls at k on random unit rows of d
+    values (scores whose f32 sums depend on their order)."""
+    q, c, codes, qf = topk_case(40, 20000, d, n_valid=19990)
+    pq, pqf, emb, pcodes, gids, tile_ids, _ = probe_case(40, d, 40, 128)
     cast = (lambda a: torch.tensor(quant(a), device=dev)) if dtype == torch.int8 else (
         lambda a: torch.tensor(a, device=dev).bfloat16())
     flat = (cast(q), cast(c), torch.tensor(codes, device=dev), torch.tensor(qf, device=dev),
@@ -482,6 +485,114 @@ def test_topk_kernel_after_an_upsert_reallocates(cuda, dtype):
     else:
         np.testing.assert_allclose(s.cpu().numpy(), ref[0].cpu().numpy(), atol=1e-4, rtol=0)
 
+
+
+# -- the wide kernel: rows of more than WIDE_ABOVE_D values ------------------
+
+# D 1040 (the first wide bf16 width), 1536 and 3136 (the widest) in bf16;
+# 2080 and 6272 (the widest) in int8
+WIDE_CASES = [(torch.bfloat16, 1040), (torch.bfloat16, 1536), (torch.bfloat16, 3136),
+              (torch.int8, 2080), (torch.int8, 6272)]
+
+
+def wide_counts():
+    return masked_topk.launches_wide, ivf_probe.launches_wide
+
+
+def assert_close_ids(got, ref):
+    """bf16 on random rows: the same empty slots, scores within 1e-4, and
+    the same ids wherever no other entry lies within that noise."""
+    s, i = (x.cpu().numpy() for x in got)
+    s_ref, i_ref = (x.cpu().numpy() for x in ref)
+    fin = np.isfinite(s_ref)
+    np.testing.assert_array_equal(np.isfinite(s), fin)
+    np.testing.assert_allclose(s[fin], s_ref[fin], atol=1e-4, rtol=0)
+    assert (i[~fin] == -1).all()
+    with np.errstate(invalid="ignore"):  # -inf - -inf in empty slots
+        gap = np.abs(s_ref[:, :, None] - s_ref[:, None, :])
+    gap[:, np.arange(s.shape[1]), np.arange(s.shape[1])] = np.inf
+    clear = fin & (gap.min(axis=2) > 1e-4)
+    clear[:, -1] = False  # a row past the list may tie the last entry
+    np.testing.assert_array_equal(i[clear], i_ref[clear])
+
+
+@pytest.mark.parametrize("k", [15, 1024])
+@pytest.mark.parametrize("dtype,d", WIDE_CASES)
+def test_wide_kernel_matches_plain(cuda, dtype, d, k):
+    """Kernels 1 and 3 on the wide kernel, on the lists' path (k 15) and
+    the select path (k 1024), each call one launch of its wide counter:
+    random unit rows (int8 bit for bit; bf16 within 1e-4, ids where clear
+    of that noise, the duplicated pair tied, lower id first) and tie-heavy
+    exact rows across two query blocks, bit for bit."""
+    q, c, codes, qf = topk_case(40, 20000, d, n_valid=19990)
+    cast = (lambda a: torch.tensor(quant(a), device=cuda)) if dtype == torch.int8 else (
+        lambda a: torch.tensor(a, device=cuda).bfloat16())
+    flat = (cast(q), cast(c), torch.tensor(codes, device=cuda), torch.tensor(qf, device=cuda),
+            19990, k)
+    pq, pqf, emb, pcodes, gids, tile_ids, dup = probe_case(40, d, 40, 128)
+    probe = (cast(pq), torch.tensor(pqf, device=cuda), cast(emb),
+             torch.tensor(pcodes, device=cuda), torch.tensor(gids, device=cuda),
+             torch.tensor(tile_ids, device=cuda), k)
+    w0 = wide_counts()
+    got_flat, got_probe = masked_topk(*flat), ivf_probe(*probe, tile=128)
+    assert wide_counts() == (w0[0] + 1, w0[1] + 1)
+    for got, ref in ((got_flat, masked_topk_plain(*flat)),
+                     (got_probe, ivf_probe_plain(*probe, tile=128))):
+        if dtype == torch.int8:
+            assert_same_bits(got, ref)
+        else:
+            assert_close_ids(got, ref)
+    s, i = (x.cpu().numpy() for x in got_flat)
+    assert i[2, 0] == 10000 and i[2, 1] == 10001 and s[2, 0] == s[2, 1]
+    s, i = (x.cpu().numpy() for x in got_probe)
+    assert (i[0, 0], i[0, 1]) == dup and s[0, 0] == s[0, 1]
+    args = exact_topk_args(dtype, cuda, 33, 5000, d, 4990, k)
+    s, i = assert_same_bits(masked_topk(*args), masked_topk_plain(*args))
+    tied = s[0][:-1] == s[0][1:]
+    assert np.isfinite(s[0]).all() and (np.diff(i[0])[tied] > 0).all()
+    pargs = exact_probe_args(dtype, cuda, 33, d, 48, 128, "some", k)
+    assert_same_bits(ivf_probe(*pargs, tile=128), ivf_probe_plain(*pargs, tile=128))
+    assert wide_counts() == (w0[0] + 2, w0[1] + 2)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 1536), (torch.int8, 2080)])
+def test_wide_kernel_relaunch_and_threads(cuda, dtype, d):
+    """The wide kernel at k 15 and 1024 relaunched, and from two worker
+    threads on side streams of their own: bit for bit with the first
+    launch on the default stream (the merge's and the selection's result
+    does not depend on which block finishes last)."""
+    runs = [run for k in (15, 1024) for run in random_retrieval_args(dtype, cuda, k=k, d=d)]
+    want = [result_bytes(run()) for run in runs]
+    assert all(result_bytes(run()) == w for run, w in zip(runs, want) for _ in range(3))
+
+    def work(_):
+        stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream):
+            outs = [[run() for run in runs] for _ in range(2)]
+        stream.synchronize()
+        return [[result_bytes(o) for o in out] for out in outs]
+
+    with ThreadPoolExecutor(2) as pool:
+        for got in pool.map(work, range(4)):
+            assert all(g == want for g in got)
+
+
+@pytest.mark.parametrize("dtype", RETRIEVAL_TYPES)
+def test_rows_past_the_widest_are_refused_on_the_card(cuda, dtype):
+    """Rows above 6,272 bytes (bf16 D 3152, int8 D 6304) are refused by
+    both kernels' wrappers, on the card as on the CPU's plan."""
+    d = 6272 // torch.empty((), dtype=dtype).element_size() + (16 if dtype != torch.int8 else 32)
+    q, c, codes, qf = topk_case(4, 256, d, n_valid=256)
+    cast = (lambda a: torch.tensor(quant(a), device=cuda)) if dtype == torch.int8 else (
+        lambda a: torch.tensor(a, device=cuda).bfloat16())
+    with pytest.raises(ValueError, match="dims"):
+        masked_topk(cast(q), cast(c), torch.tensor(codes, device=cuda),
+                    torch.tensor(qf, device=cuda), 256, 5)
+    pq, pqf, emb, pcodes, gids, tile_ids, _ = probe_case(4, d, 4, 64)
+    with pytest.raises(ValueError, match="dims"):
+        ivf_probe(cast(pq), torch.tensor(pqf, device=cuda), cast(emb),
+                  torch.tensor(pcodes, device=cuda), torch.tensor(gids, device=cuda),
+                  torch.tensor(tile_ids, device=cuda), 5, tile=64)
 
 
 # -- kernels 1 and 3 above k 32: the select path ----------------------------

@@ -37,11 +37,16 @@ H100_SMS = 132
 COMMON = Path(ttk.__file__).resolve().parent.parent / "csrc" / "topk_common.cuh"
 SELECT = COMMON.with_name("topk_select.cuh")
 ELEMENT = {torch.bfloat16: 2, torch.int8: 1}
-# the widths at which two blocks share an SM in both types (bf16 rows of
-# at most 2,048 bytes); wider rows are WIDE_WIDTHS
+# the widths at which two blocks share an SM in both types (at most
+# WIDE_ABOVE_D values: bf16 rows of at most 2,048 bytes); wider rows take
+# the wide kernel, WIDE_WIDTHS
 WIDTHS = [(dtype, d) for dtype in ELEMENT for d in range(64, 1024 + 1, ttk.DIM_STEP[dtype])]
 WIDE_WIDTHS = [(torch.bfloat16, d) for d in (1040, 1536, 2048, 3072, 3136)] + [
     (torch.int8, d) for d in (2048, 2080, 4096, 6272)]
+# the wide kernel's widths whose shared memory is checked at every batch:
+# the first wide bf16 width, D 1536 and the widest, in both types
+WIDE_FITS = [(torch.bfloat16, d) for d in (1040, 1536, 2048, 3136)] + [
+    (torch.int8, d) for d in (2080, 4096, 6272)]
 BATCHES = (1, 33, 64)
 NO_ID = 2**31 - 1
 
@@ -76,6 +81,19 @@ def carved(row_bytes: int, stages: int) -> tuple[int, dict[str, int]]:
                        ("slots", ttk.SLOTS * ttk.SLOT_BYTES),
                        ("sc", 4 * 2 * 32 * ttk.SCORE_STRIDE),
                        ("bars", 8 * (2 * stages + 2 * ttk.SLOTS + 1))):
+        offsets[name] = at
+        at += size
+    return 1024 - 16 + at, offsets
+
+
+def carved_wide(row_bytes: int, stages: int, bufs: int) -> tuple[int, dict[str, int]]:
+    """The wide kernel's carve (``carve_wide``): carve's regions with
+    ``bufs`` score buffers and their full and empty barriers."""
+    at, offsets = 0, {}
+    for name, size in (("q", -(-row_bytes // 128) * 32 * 128), ("ring", stages * 64 * 128),
+                       ("slots", ttk.SLOTS * ttk.SLOT_BYTES),
+                       ("sc", 4 * bufs * 32 * ttk.SCORE_STRIDE),
+                       ("bars", 8 * (2 * stages + 2 * ttk.SLOTS + 2 * bufs + 1))):
         offsets[name] = at
         at += size
     return 1024 - 16 + at, offsets
@@ -161,21 +179,71 @@ def test_plan_blocks_an_sm(row_bytes):
 
 @pytest.mark.parametrize("dtype,d", WIDE_WIDTHS)
 def test_wide_rows_take_one_block_an_sm(dtype, d):
-    """Past two blocks an SM with three stages, a plan takes one block an
-    SM and the ring the rest of its shared memory holds, up to
-    MAX_ROW_BYTES (one stage); kernels 1 and 3 alike."""
+    """Rows of more than WIDE_ABOVE_D values take the wide kernel: one
+    block an SM, and the ring the rest of its shared memory holds beside
+    the query block and two score buffers, up to MAX_STAGES (one buffer
+    where two would leave fewer than two stages: rows above 6,016 bytes);
+    kernels 1 and 3 alike."""
     row_bytes = d * ELEMENT[dtype]
+    assert d > ttk.WIDE_ABOVE_D
     for plan in (ttk.topk_plan(32, 131_072, d, ELEMENT[dtype], 15, H100_SMS),
                  probe_plan(32, 16_384, 128, d, ELEMENT[dtype], 15, H100_SMS)):
-        two = (ttk.SM_SMEM // 2 - 1024 - ttk.topk_smem(row_bytes, 0)) // (64 * 128)
-        room = (ttk.SMEM_LIMIT - ttk.topk_smem(row_bytes, 0)) // (64 * 128)
-        per_sm = 1 if two < ttk.MIN_SHARED_STAGES else 2
-        assert plan.blocks == per_sm * H100_SMS
-        assert plan.stages == min(ttk.TOPK_STAGES, room if per_sm == 1 else two) >= 1
-        end, _ = carved(row_bytes, plan.stages)
-        assert end <= plan.smem == ttk.topk_smem(row_bytes, plan.stages) <= ttk.SMEM_LIMIT
-    assert per_sm == 1 or row_bytes == 2048  # int8 at D 2048 still fits two
+        bufs = 2 if row_bytes <= 6016 else 1
+        room = (ttk.SMEM_LIMIT - carved_wide(row_bytes, 0, bufs)[0] - 16) // (64 * 128)
+        assert plan.wide and plan.blocks == H100_SMS
+        assert plan.stages == min(ttk.MAX_STAGES, room) >= 2
+        assert ttk.wide_bufs(row_bytes, plan.stages) == bufs
+        end, _ = carved_wide(row_bytes, plan.stages, bufs)
+        assert end <= plan.smem == ttk.wide_smem(row_bytes, plan.stages) <= ttk.SMEM_LIMIT
     ttk.check_dims(d, d, dtype)
+
+
+def test_wide_plan_constants_are_the_kernels():
+    """The wide kernel's constants and rule as both kernels' sources hold
+    them: rows of more than WIDE_ABOVE_D values in either type, sixteen
+    selecting warps of two queries each, one scoring warpgroup, then the
+    producer's warp; SCORE_BUFS score buffers."""
+    c = cuh_constants()
+    text = COMMON.read_text()
+    assert c["kWideAboveD"] == ttk.WIDE_ABOVE_D == 1024
+    assert c["kScBufs"] == ttk.SCORE_BUFS == 2 and c["kScoreWarps"] == 4
+    assert c["kSelectors"] == 16 and c["kQB"] // c["kSelectors"] == 2
+    for line in ("constexpr int kWideQPW = kQB / kSelectors;",
+                 "constexpr int kWideProducer = kSelectors + kScoreWarps;",
+                 "constexpr int kWideThreads = (kWideProducer + 1) * 32;"):
+        assert line in text
+    for name in ("masked_topk.cu", "ivf_probe.cu"):
+        src = COMMON.with_name(name).read_text()
+        assert "const bool wide = D > kWideAboveD;" in src
+        assert "wide ? wide_smem_bytes(boxes_for(row_bytes), stages)" in src
+    # the host's shared memory is the kernel's formula (carve_wide's
+    # regions): smem_bytes' with `bufs` score buffers and their barriers
+    formula = re.search(r"wide_smem_with\(int nbox, int stages, int bufs\) \{\n\s*return (.*?);",
+                        text, re.S)[1]
+    assert " ".join(formula.split()) == (
+        "1024 + (size_t)nbox * kQBox + (size_t)stages * kBox + kSlots * kSlotBytes + "
+        "sizeof(float) * bufs * kQB * kScStride + "
+        "sizeof(uint64_t) * (2 * stages + 2 * kSlots + 2 * bufs + 1)")
+    assert ttk.wide_smem_with(3072, 13, 2) == (1024 + 24 * 4096 + 13 * 8192 + 4 * 1152
+                                               + 4 * 2 * 32 * 68 + 8 * (26 + 8 + 4 + 1))
+
+
+@pytest.mark.parametrize("b", BATCHES)
+@pytest.mark.parametrize("dtype,d", WIDE_FITS)
+def test_wide_plan_fits_the_card(dtype, d, b):
+    """Every wide width at every batch, on both paths: the carve within a
+    block's limit, TMA boxes 1024-aligned, at least two ring stages, one
+    block an SM shared by the query blocks."""
+    row_bytes = d * ELEMENT[dtype]
+    for k in (15, 1024):
+        plan = ttk.topk_plan(b, 131_072, d, ELEMENT[dtype], k, H100_SMS)
+        bufs = ttk.wide_bufs(row_bytes, plan.stages)
+        end, offsets = carved_wide(row_bytes, plan.stages, bufs)
+        assert plan.wide and end <= plan.smem <= ttk.SMEM_LIMIT and plan.stages >= 2
+        assert offsets["q"] % 1024 == 0 and offsets["ring"] % 1024 == 0
+        assert offsets["slots"] % 128 == 0 and offsets["bars"] % 8 == 0
+        assert plan.qblocks == -(-b // 32) and plan.blocks == H100_SMS // plan.qblocks
+        assert plan.path == ("lists" if k <= ttk.LIST_K else "select")
 
 
 @pytest.mark.parametrize("dtype", list(ELEMENT))
@@ -183,12 +251,14 @@ def test_rows_past_the_widest_are_refused(dtype):
     elt = ELEMENT[dtype]
     widest = ttk.MAX_ROW_BYTES // elt
     ttk.check_dims(widest, widest, dtype)
-    assert ttk.plan_for(32, 2048, widest * elt, 15, H100_SMS).stages == 1
+    assert ttk.topk_plan(32, 131_072, widest, elt, 15, H100_SMS).stages == 2
     wider = widest + ttk.DIM_STEP[dtype]
     with pytest.raises(ValueError, match="dims"):
         ttk.check_dims(wider, wider, dtype)
     with pytest.raises(ValueError, match="no ring stage"):
-        ttk.plan_for(32, 2048, wider * elt + 128, 15, H100_SMS)
+        ttk.plan_for(32, 2048, 2 * ttk.MAX_ROW_BYTES, 15, H100_SMS, wide=True)
+    with pytest.raises(ValueError, match="no ring stage"):  # two blocks an SM
+        ttk.plan_for(32, 2048, ttk.MAX_ROW_BYTES, 15, H100_SMS)
 
 
 def test_plan_many_query_blocks():
@@ -330,6 +400,85 @@ def test_model_of_kernel_3_equals_plain(active):
         s, i = as_result(merge([block_list(cands, mine, k) for mine in live], k), gids)
         assert s.tobytes() == s_ref[qi].numpy().tobytes()
         assert i.tobytes() == i_ref[qi].numpy().tobytes()
+
+
+
+def exact_wide(rng, n, d, distinct, dtype):
+    """Tie-heavy exact rows of d values (entries in -3..3) as the kernel
+    takes them, and their integer values: int8 as they are, bf16 as v / 16
+    (products and f32 sums exact, the score the integer one over 256)."""
+    a = rng.integers(-3, 4, (distinct, d))[rng.integers(0, distinct, n)]
+    return (torch.from_numpy(a.astype(np.int8)) if dtype == torch.int8
+            else torch.from_numpy(a.astype(np.float32) / 16).bfloat16()), a
+
+
+@pytest.mark.parametrize("k", [1, 15, 32])
+@pytest.mark.parametrize("dtype", list(ELEMENT))
+def test_model_of_the_wide_kernel_1_equals_plain(dtype, k):
+    """The wide kernel at D 1536 deals tiles and keeps lists as the kernel
+    of two blocks an SM does (its selecting warps take each tile's scores
+    from the scoring warpgroup's buffer, in the walk's order): over the
+    wide plan's 132 blocks (one an SM, a tile or two each), tie-heavy
+    exact rows, the model's top k equals masked_topk_plain's bit for bit."""
+    rng = np.random.default_rng(k)
+    b, n, d, n_valid = 3, 9000, 1536, 8990
+    plan = ttk.topk_plan(b, n, d, ELEMENT[dtype], k, H100_SMS)
+    assert plan.wide and plan.blocks == H100_SMS
+    (q, qi), (c, ci) = exact_wide(rng, b, d, 3, dtype), exact_wide(rng, n, d, 6, dtype)
+    codes = np.stack([rng.integers(0, 3, n), rng.integers(0, 2, n)]).astype(np.int32)
+    codes[:, n_valid:] = -2
+    qf = np.array([[-1, -1], [1, -1], [2, 0]], np.int32)
+    s_ref, i_ref = ttk.masked_topk_plain(q, c, torch.from_numpy(codes), torch.from_numpy(qf),
+                                         n_valid, k)
+    scale = 1.0 if dtype == torch.int8 else 1 / 256
+    scores = (qi.astype(np.int64) @ ci.astype(np.int64).T) * scale
+    for r in range(b):
+        cands = {j: float(scores[r, j]) for j in range(n_valid)
+                 if qf[r, 0] in (-1, codes[0, j]) and qf[r, 1] in (-1, codes[1, j])}
+        lists = [block_list(cands, [64 * t for t in range(plan.tiles * g // plan.blocks,
+                                                          plan.tiles * (g + 1) // plan.blocks)], k)
+                 for g in range(plan.blocks)]
+        s, i = as_result(merge(lists, k))
+        assert s.tobytes() == s_ref[r].numpy().tobytes()
+        assert i.tobytes() == i_ref[r].numpy().tobytes()
+
+
+@pytest.mark.parametrize("k", [1, 15, 32])
+@pytest.mark.parametrize("dtype", list(ELEMENT))
+def test_model_of_the_wide_kernel_3_equals_plain(dtype, k):
+    """Kernel 3 on the wide kernel at D 1536: the probe plan's 132 blocks
+    take even contiguous shares of the active tiles' 64-row pieces,
+    padding-only pieces skipped, ids packed positions mapped to gids at
+    the end; the model equals ivf_probe_plain bit for bit."""
+    rng = np.random.default_rng(100 + k)
+    b, d, tile, n_tiles = 2, 1536, 128, 80
+    n = n_tiles * tile
+    plan = probe_plan(b, n_tiles, tile, d, ELEMENT[dtype], k, H100_SMS)
+    assert plan.wide and plan.blocks == H100_SMS
+    emb, ei = exact_wide(rng, n, d, 4, dtype)
+    gids = rng.permutation(4 * n)[:n].astype(np.int32)
+    gids[rng.random(n) < 0.3] = -1
+    gids[2 * tile + 64: 3 * tile] = -1  # a padding-only piece
+    codes = np.stack([rng.integers(0, 2, n), rng.integers(0, 2, n)]).astype(np.int32)
+    q, qi = exact_wide(rng, b, d, 2, dtype)
+    qf = np.array([[-1, -1], [1, -1]], np.int32)
+    tile_ids = np.full(n_tiles, -1, np.int32)
+    active = 70
+    tile_ids[:active] = sorted(rng.choice(n_tiles, active, replace=False))
+    s_ref, i_ref = ivf_probe_plain(q, torch.from_numpy(qf), emb, *(torch.from_numpy(a) for a in (
+        codes, gids[None, :], tile_ids)), k, tile=tile)
+    scale = 1.0 if dtype == torch.int8 else 1 / 256
+    scores = (qi.astype(np.int64) @ ei.astype(np.int64).T) * scale
+    pieces = [t * tile + 64 * p for t in tile_ids[:active] for p in range(tile // 64)]
+    share = [pieces[len(pieces) * g // plan.blocks: len(pieces) * (g + 1) // plan.blocks]
+             for g in range(plan.blocks)]
+    for r in range(b):
+        cands = {j: float(scores[r, j]) for j in range(n) if gids[j] >= 0
+                 and qf[r, 0] in (-1, codes[0, j]) and qf[r, 1] in (-1, codes[1, j])}
+        live = [[p for p in mine if (gids[p:p + 64] >= 0).any()] for mine in share]
+        s, i = as_result(merge([block_list(cands, mine, k) for mine in live], k), gids)
+        assert s.tobytes() == s_ref[r].numpy().tobytes()
+        assert i.tobytes() == i_ref[r].numpy().tobytes()
 
 
 # -- the select path above k 32 (csrc/topk_select.cuh) -------------------------

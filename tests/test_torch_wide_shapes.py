@@ -1,6 +1,8 @@
 """Shapes past the kernels' old limits, on the CPU: kernel 2's plain
 version at head widths that are not a multiple of 16, and kernels 1 and
-3's plain versions at k 2048 and D 1536, against the JAX package.
+3's plain versions at k 2048 and D 1536 (rows the wide kernel takes, on
+the lists' path and at k 1024 on the select path), against the JAX
+package.
 
 On the card the attention wrapper pads such heads with zero columns to
 the next multiple of 16; here the padded and the unpadded plain versions
@@ -58,7 +60,8 @@ def test_odd_head_widths_match_jax_and_padding_is_exact(d):
     np.testing.assert_allclose(padded, got, atol=1e-6, rtol=0)
 
 
-B, N, K_BIG, D_WIDE = 8, 4096, 2048, 1536
+# K_WIDE: the wide kernel's select path at D_WIDE (phase 2's k 1024)
+B, N, K_BIG, D_WIDE, K_WIDE = 8, 4096, 2048, 1536, 1024
 
 
 def retrieval_case(d, seed):
@@ -95,7 +98,7 @@ def clear_ids(s_ref, i_ref, s, i, tol):
     return fin
 
 
-@pytest.mark.parametrize("d,k", [(D_WIDE, 15), (384, K_BIG), (D_WIDE, K_BIG)])
+@pytest.mark.parametrize("d,k", [(D_WIDE, 15), (384, K_BIG), (D_WIDE, K_BIG), (D_WIDE, K_WIDE)])
 def test_masked_topk_plain_wide_and_deep_match_xla(d, k):
     q, c, codes, qf = retrieval_case(d, seed=d + k)
     n_valid = N - 100
@@ -114,7 +117,7 @@ def test_masked_topk_plain_wide_and_deep_match_xla(d, k):
         assert not fin[:, N - 100:].any()
 
 
-@pytest.mark.parametrize("d,k", [(D_WIDE, 15), (384, K_BIG)])
+@pytest.mark.parametrize("d,k", [(D_WIDE, 15), (384, K_BIG), (D_WIDE, K_WIDE)])
 def test_masked_topk_int8_wide_and_deep_bit_for_bit(d, k):
     """int8: the plain version's exact sums cast once equal the Pallas
     kernel's s32 branch bit for bit (at D 1536 the cast rounds), and
@@ -126,7 +129,7 @@ def test_masked_topk_int8_wide_and_deep_bit_for_bit(d, k):
         torch.from_numpy(q8), torch.from_numpy(c8), torch.from_numpy(codes),
         torch.from_numpy(qf), n_valid, k))
     args = (jnp.asarray(q8), jnp.asarray(c8), jnp.asarray(codes), jnp.asarray(qf), n_valid, k)
-    if k <= 1024:  # the Pallas kernel's list is one tile wide
+    if k <= 32:  # the Pallas kernel in interpret mode at the lists' k (at 1024 it takes minutes)
         s_p, i_p = (np.asarray(x) for x in masked_topk_pallas(
             *args, tile=1024, interpret=True, int8_mxu=True))
         np.testing.assert_array_equal(s, s_p)
@@ -160,7 +163,7 @@ def probe_case(d, seed):
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "int8"])
-@pytest.mark.parametrize("d,k", [(D_WIDE, 15), (384, K_BIG)])
+@pytest.mark.parametrize("d,k", [(D_WIDE, 15), (384, K_BIG), (D_WIDE, K_WIDE)])
 def test_ivf_probe_plain_wide_and_deep_match_jax(d, k, dtype):
     q, qf, emb, codes, gids, tile_ids, tile = probe_case(d, seed=d + k)
     if dtype == "int8":
